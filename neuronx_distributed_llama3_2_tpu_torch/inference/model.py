@@ -1,0 +1,307 @@
+"""Paged KV-cache decoder model.
+
+Counterpart of ``neuronx_distributed_llama3_2_tpu/inference/model.py``
+(``PagedKVCache`` and the paged path of ``LlamaDecode``). One function
+covers every forward mode of the paged serving engine::
+
+    forward(params, cache, tokens (b, T), positions (b,), block_tables=...)
+
+- whole-prompt prefill  = ``context_encode=True``, positions == 0: attention
+  over the fresh block only (:func:`..models.llama.core_attention`);
+- token-gen             = T == 1, through the paged-decode kernel;
+- suffix prefill        = T > 1 after a prefix-cache hit: the paged-decode
+  kernel when T <= ``paged_kernel_max_t``, else the gather of the cached
+  rows plus :meth:`LlamaDecode._cache_attention`.
+
+``params`` is the :class:`..models.llama.LlamaForCausalLM` module holding the
+weights; ``LlamaDecode`` itself holds none, as in the JAX package. The JAX
+package donates the cache to every program and gets a new pool back; here
+the fresh K/V rows are written into the pool tensors in place, and the
+cache returned is the same object that came in.
+
+Not ported yet: the dense per-slot ``KVCache`` (dense-engine slice), tree
+verification and ``row_live`` (speculation and fused-step sub-slices), the
+quantized pool, tensor parallelism.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from neuronx_distributed_llama3_2_tpu_torch.kernels.paged_attention import (
+    paged_flash_decode,
+)
+from neuronx_distributed_llama3_2_tpu_torch.models.llama import (
+    LlamaConfig,
+    LlamaDecoderLayer,
+    LlamaForCausalLM,
+    apply_rope,
+    core_attention,
+    precompute_rope,
+)
+from neuronx_distributed_llama3_2_tpu_torch.utils.device import (
+    DeviceLike,
+    resolve_device,
+)
+
+
+class PagedKVCache(NamedTuple):
+    """Block-pooled KV cache: k/v (L, num_blocks, block_size, n_kv, head_dim).
+
+    Sequence rows live in fixed-size blocks drawn from one global pool
+    (vLLM PagedAttention) and a per-request *block table* maps logical
+    block index -> pool block id. Block 0 is reserved as the null block:
+    block-table entries past a request's allocated frontier point at it, so
+    bucket-padding writes land in garbage rows that no masked read ever
+    sees."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def num_blocks(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[2]
+
+
+def _unported(feature: str, slice_name: str):
+    return NotImplementedError(
+        f"{feature} is not ported yet: it comes with the {slice_name} slice"
+    )
+
+
+class LlamaDecode:
+    """Decode-mode Llama over the weights of a :class:`LlamaForCausalLM`.
+
+    ``attention_paths`` counts, per decoder-layer call, which attention
+    path ran: ``"context"`` (whole-prompt prefill, plain torch),
+    ``"kernel"`` (the paged-decode kernel) or ``"gather"`` (block-table
+    gather plus plain-torch cache attention)."""
+
+    def __init__(self, config: LlamaConfig) -> None:
+        self.config = config
+        self.attention_paths: collections.Counter = collections.Counter()
+        self._rope: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, ...]] = {}
+
+    def _rope_tables(self, max_len: int, device: torch.device):
+        """Rotary tables for ``max_len`` rows, built once per (length,
+        device): every layer of every step shares them."""
+        key_ = (max_len, device)
+        tables = self._rope.get(key_)
+        if tables is None:
+            c = self.config
+            tables = precompute_rope(
+                c.head_dim, max_len, c.rope_theta, c.rope_scaling, device=device
+            )
+            self._rope[key_] = tables
+        return tables
+
+    # -- cache ------------------------------------------------------------
+
+    def init_paged_cache(
+        self, num_blocks: int, block_size: int, dtype=None,
+        kv_cache_dtype: Optional[str] = None, device: DeviceLike = "cuda",
+    ) -> PagedKVCache:
+        """Zeroed block pool of ``num_blocks * block_size`` token rows shared
+        by every request, at ``dtype or config.dtype``, on ``device``."""
+        if kv_cache_dtype not in (None, "bf16"):
+            raise _unported(f"kv_cache_dtype={kv_cache_dtype!r}", "quantized-pool")
+        c = self.config
+        shape = (c.num_layers, num_blocks, block_size, c.num_kv_heads, c.head_dim)
+        dev = resolve_device(device)
+        dtype = dtype or c.dtype
+        return PagedKVCache(
+            k=torch.zeros(shape, dtype=dtype, device=dev),
+            v=torch.zeros(shape, dtype=dtype, device=dev),
+        )
+
+    # -- forward ----------------------------------------------------------
+
+    @torch.no_grad()
+    def forward(
+        self,
+        params: LlamaForCausalLM,
+        cache: PagedKVCache,
+        tokens: torch.Tensor,      # (b, T) int
+        positions: torch.Tensor,   # (b,) int — absolute start position
+        slots: Optional[torch.Tensor] = None,
+        *,
+        context_encode: bool = False,
+        return_hidden: bool = False,
+        tree=None,
+        kv_limit: Optional[int] = None,
+        block_tables: Optional[torch.Tensor] = None,  # (b, W) int32
+        row_live: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, PagedKVCache]:
+        """Block-causal forward over the paged cache.
+
+        Returns (logits (b, T, V) — or the final-norm hidden states with
+        ``return_hidden`` — , cache). Row ``i``'s logical position ``p``
+        lives at pool row ``block_tables[i, p // bs] * bs + p % bs``;
+        ``kv_limit`` bounds the logical rows attention reads, and the caller
+        guarantees ``position + T <= kv_limit``. ``slots`` is ignored: the
+        table is the indirection."""
+        if block_tables is None:
+            raise _unported("the dense per-slot KV cache", "dense-engine")
+        if tree is not None:
+            raise _unported("tree verification", "speculation")
+        if row_live is not None:
+            raise _unported("row_live", "fused-step")
+        del slots
+        b, t = tokens.shape
+        positions = positions.to(torch.int32)
+        pos_block = positions[:, None] + torch.arange(
+            t, dtype=torch.int32, device=positions.device
+        )[None, :]
+        # paged: logical capacity is the table width (write positions can
+        # reach the bucket-padding overflow region past max_seq_len)
+        rope_len = block_tables.shape[1] * cache.block_size
+        sin, cos = self._rope_tables(rope_len, tokens.device)
+
+        x = params.embed(tokens)
+        for i, layer in enumerate(params.layers):
+            x = self._decode_layer(
+                layer, x, cache.k[i], cache.v[i], sin, cos, pos_block,
+                positions, context_encode=context_encode, kv_limit=kv_limit,
+                block_tables=block_tables,
+            )
+        x = params.final_norm(x)
+        if return_hidden:
+            return x, cache
+        return params._logits(x), cache
+
+    def _decode_layer(
+        self, layer: LlamaDecoderLayer, x, kc, vc, sin, cos, pos_block,
+        positions, *, context_encode: bool, kv_limit=None, block_tables=None,
+    ) -> torch.Tensor:
+        """One decoder layer with cache write and read. kc/vc: this layer's
+        (num_blocks, block_size, NKV, D) pool slice; x: (b, T, H)."""
+        c = self.config
+        b, t, _ = x.shape
+        q, k, v = layer.attn.project_qkv(layer.attn_norm(x))
+        q = apply_rope(q, sin, cos, pos_block)
+        k = apply_rope(k, sin, cos, pos_block)
+        att = self._attend_with_cache(
+            q, k, v, kc, vc, pos_block, positions,
+            context_encode=context_encode, kv_limit=kv_limit,
+            block_tables=block_tables,
+        )
+        x = x + layer.attn.o(att.reshape(b, t, c.num_heads * c.head_dim))
+        return x + layer.mlp(layer.mlp_norm(x))
+
+    def _attend_with_cache(
+        self, q, k, v, kc, vc, pos_block, positions, *, context_encode: bool,
+        kv_limit=None, block_tables=None,
+    ) -> torch.Tensor:
+        """Cache write + attention. Returns att (b, T, N, D)."""
+        return self._attend_paged(
+            q, k, v, kc, vc, block_tables, pos_block, pos_block, positions,
+            context_encode=context_encode, kv_limit=kv_limit,
+        )
+
+    def _attend_paged(
+        self, q, k, v, kc, vc, block_tables, write_rows, pos_block, positions,
+        *, context_encode: bool, kv_limit=None,
+    ) -> torch.Tensor:
+        """Paged cache write + attention: the block table translates logical
+        sequence rows to pool rows for both the fresh-block write and the
+        attention read. Garbage rows (stale blocks, null-block padding) are
+        removed by the ``j <= position + t`` mask on every path."""
+        nb, bs = kc.shape[0], kc.shape[1]
+        kflat = kc.view((nb * bs,) + kc.shape[2:])
+        vflat = vc.view((nb * bs,) + vc.shape[2:])
+        # logical row p of batch row i -> pool row table[i, p//bs]*bs + p%bs;
+        # rows past the allocated frontier map to the null block (id 0)
+        tables = block_tables.long()
+        wr = write_rows.long()
+        wr_phys = (torch.gather(tables, 1, wr // bs) * bs + wr % bs).reshape(-1)
+        # in place: the JAX package donates the pool and scatters into a new
+        # one; here the fresh rows are written straight into the pool tensors
+        kflat.index_copy_(0, wr_phys, k.reshape((-1,) + k.shape[2:]).to(kflat.dtype))
+        vflat.index_copy_(0, wr_phys, v.reshape((-1,) + v.shape[2:]).to(vflat.dtype))
+
+        if context_encode:
+            self.attention_paths["context"] += 1
+            return core_attention(q, k, v, causal=True)
+        limit = kv_limit if kv_limit is not None else block_tables.shape[1] * bs
+        if self._paged_kernel_eligible(q.shape[1], None):
+            # gather-free read: the kernel walks the block table itself, so
+            # the (b, limit, NKV, D) K/V copy below never materializes
+            self.attention_paths["kernel"] += 1
+            return paged_flash_decode(
+                q, kc, vc, block_tables, positions, kv_limit=limit
+            )
+        self.attention_paths["gather"] += 1
+        jlog = torch.arange(limit, device=q.device)
+        rd_phys = tables[:, jlog // bs] * bs + (jlog % bs)[None, :]
+        k_all = kflat[rd_phys].to(q.dtype)  # (b, limit, NKV, D)
+        v_all = vflat[rd_phys].to(q.dtype)
+        return self._cache_attention(q, k_all, v_all, pos_block)
+
+    @torch.no_grad()
+    def decode_step(
+        self,
+        params: LlamaForCausalLM,
+        cache: PagedKVCache,
+        tokens: torch.Tensor,        # (b,) int — last sampled token per lane
+        positions: torch.Tensor,     # (b,) int32 — write row per lane
+        block_tables: torch.Tensor,  # (b, W) int32
+        *,
+        kv_limit: Optional[int] = None,
+        pos_cap: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, PagedKVCache]:
+        """One resident-state decode step: T=1 paged forward plus the state
+        advance. Returns ``(logits (b, V), new_positions, cache)`` with
+        ``new_positions = positions + 1``, clamped to ``pos_cap``: idle
+        lanes keep stepping with all-null tables, and the cap keeps a
+        long-idle lane's position inside the rope table."""
+        logits, cache = self.forward(
+            params, cache, tokens[:, None], positions, None,
+            block_tables=block_tables, kv_limit=kv_limit,
+        )
+        new_positions = positions + 1
+        if pos_cap is not None:
+            new_positions = torch.clamp(new_positions, max=pos_cap)
+        return logits[:, 0, :], new_positions, cache
+
+    def _paged_kernel_eligible(self, t: int, tree) -> bool:
+        """Gate for the paged-decode kernel: the ``use_paged_kernel`` config
+        opt-in and a fresh block of at most ``paged_kernel_max_t`` tokens —
+        T == 1 token-gen and short suffix prefills; longer prefill blocks
+        take the gather. Single device (tensor parallelism is not ported)."""
+        if not self.config.use_paged_kernel:
+            return False
+        if tree is not None:
+            return False
+        return 1 <= t <= self.config.paged_kernel_max_t
+
+    def paged_dispatch_path(self, t: int, tree=None) -> str:
+        """``"kernel"`` when :meth:`_paged_kernel_eligible` admits the
+        paged-decode kernel at fresh-block width ``t``, ``"gather"``
+        otherwise."""
+        return "kernel" if self._paged_kernel_eligible(t, tree) else "gather"
+
+    def _cache_attention(self, q, k_all, v_all, pos_block) -> torch.Tensor:
+        """q (b,T,N,D) against gathered cache rows (b,S,NKV,D) with the mask
+        ``cache_index <= position + t`` (block-causal across the fresh
+        block, full visibility of the committed prefix; garbage rows beyond
+        the write frontier are masked out). GQA runs as grouped einsums
+        rather than a repeat of the cache."""
+        b, t, n, d = q.shape
+        s_max, nkv = k_all.shape[1], k_all.shape[2]
+        g = n // nkv
+        qg = q.reshape(b, t, nkv, g, d)
+        scores = torch.einsum("bskd,btkgd->bkgts", k_all, qg) * (d ** -0.5)
+        scores = scores.reshape(b, n, t, s_max).float()
+        j = torch.arange(s_max, device=q.device)[None, None, :]
+        mask = j <= pos_block[:, :, None]  # (b, T, S)
+        scores = scores.masked_fill(~mask[:, None], -1e30)
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        pg = probs.reshape(b, nkv, g, t, s_max)
+        return torch.einsum("bkgts,bskd->btkgd", pg, v_all).reshape(b, t, n, d)

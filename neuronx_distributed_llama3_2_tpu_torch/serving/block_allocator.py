@@ -1,0 +1,416 @@
+"""Fixed-size KV block pool: refcounts, copy-on-write, LRU reuse.
+
+vLLM's block manager (PagedAttention, Kwon et al. SOSP 2023) reduced to the
+bookkeeping the paged serving engine needs. The pool's *data* lives in the
+jitted programs' :class:`..inference.model.PagedKVCache`; this class only
+tracks ownership:
+
+- **refcount** — how many active requests address the block through their
+  block tables. Prefix sharing is ``incref``; request teardown is
+  ``release``.
+- **registered** — the :class:`.radix_index.RadixPrefixIndex` maps the
+  block's contents to a token prefix. A registered block whose refcount
+  drops to zero is not freed: it parks in an LRU of *cached* blocks, its KV
+  intact, and is revived by ``incref`` when a later request shares it.
+- **eviction** — ``alloc`` with an empty free list evicts the
+  least-recently-released cached block (plus its radix subtree, via the
+  ``on_evict`` hook) instead of failing; ``alloc`` returns None only when
+  nothing is left to evict — pool exhaustion, which the engine answers with
+  preemption, never a crash.
+- **copy-on-write** — writing into a block someone else can see (refcount
+  > 1, or registered in the index) must first move the writer onto a
+  private copy; :meth:`copy_on_write` does the ownership transfer and tells
+  the caller whether to copy the pool rows.
+- **spill** — when a :class:`HostTier` is attached (``spill_enabled``), the
+  eviction victim's payload moves to host RAM instead of being discarded:
+  ``spill_hook`` (wired by the engine) snapshots the block D2H and the
+  radix index keeps the node alive in a *spilled* residency state, so a
+  later prefix hit restores the bytes instead of re-prefilling. The device
+  block still returns to the free list — spilled is the fourth lifecycle
+  state (free/active/cached/spilled), but only the first three occupy pool
+  ids.
+
+Block id 0 is reserved as the null block (padding writes) and never
+allocated.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict, deque
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+NULL_BLOCK = 0
+
+
+class HostTier:
+    """Byte-budgeted host-RAM LRU of spilled KV block payloads.
+
+    Entries are keyed by *spill id* (``sid``) — monotonic and never reused,
+    unlike pool block ids — and hold ``(payload, nbytes)`` where payload is
+    an opaque tuple of host arrays (k, v, and scale tiles when quantized).
+    Inserting past the byte budget evicts oldest-first, firing ``on_evict``
+    (wired to :meth:`..radix_index.RadixPrefixIndex.invalidate_spilled`) so
+    the trie drops the node whose bytes are gone. ``drop`` is the silent
+    reverse direction — the index discarding a spilled node tells the tier
+    to forget the payload *without* re-entering the index."""
+
+    def __init__(
+        self,
+        budget_bytes: int,
+        on_evict: Optional[Callable[[int], None]] = None,
+    ) -> None:
+        if budget_bytes <= 0:
+            raise ValueError("host tier needs a positive byte budget")
+        self.budget_bytes = int(budget_bytes)
+        self.on_evict = on_evict
+        self._entries: "OrderedDict[int, Tuple[Any, int]]" = OrderedDict()
+        self._bytes = 0
+        self._next_sid = 0
+        self.evictions = 0
+
+    @property
+    def resident_bytes(self) -> int:
+        return self._bytes
+
+    @property
+    def num_entries(self) -> int:
+        return len(self._entries)
+
+    def allocate_sid(self) -> int:
+        """A fresh spill id. Allocated when the spill is *enqueued* (before
+        the D2H drain lands) so the index can reference the in-flight
+        payload; never reused, so a stale sid can only miss."""
+        sid = self._next_sid
+        self._next_sid += 1
+        return sid
+
+    def put_at(self, sid: int, payload: Any, nbytes: int) -> None:
+        """Commit a drained payload under its pre-allocated sid, evicting
+        LRU entries past the byte budget (the new entry is MRU, so it is
+        only dropped when it alone exceeds the budget)."""
+        self._entries[sid] = (payload, int(nbytes))
+        self._bytes += int(nbytes)
+        while self._bytes > self.budget_bytes and self._entries:
+            victim, (_, vb) = self._entries.popitem(last=False)
+            self._bytes -= vb
+            self.evictions += 1
+            if self.on_evict is not None:
+                self.on_evict(victim)
+
+    def has(self, sid: int) -> bool:
+        return sid in self._entries
+
+    def get(self, sid: int) -> Optional[Any]:
+        """Peek a payload (LRU-touched) without removing it."""
+        ent = self._entries.get(sid)
+        if ent is None:
+            return None
+        self._entries.move_to_end(sid)
+        return ent[0]
+
+    def pop(self, sid: int) -> Optional[Any]:
+        """Take a payload out (restore path): the bytes move back to the
+        device pool, so the host copy is dropped."""
+        ent = self._entries.pop(sid, None)
+        if ent is None:
+            return None
+        self._bytes -= ent[1]
+        return ent[0]
+
+    def drop(self, sid: int) -> None:
+        """Forget a payload without firing ``on_evict`` (the index already
+        dropped the node; calling back in would recurse)."""
+        ent = self._entries.pop(sid, None)
+        if ent is not None:
+            self._bytes -= ent[1]
+
+    def stats(self) -> dict:
+        return {
+            "host_tier_bytes": self._bytes,
+            "host_tier_budget_bytes": self.budget_bytes,
+            "host_tier_entries": len(self._entries),
+            "host_tier_evictions": self.evictions,
+        }
+
+
+class AllocatorError(RuntimeError):
+    """A refcount operation that can only come from caller state corruption:
+    double-``release``, ``incref`` on a freed id, an out-of-range block id.
+    Typed (carries ``bid`` and ``op``) so the serving engine's failure
+    handling can report *which* block's ownership went wrong instead of
+    surfacing a bare ``KeyError`` from dict internals."""
+
+    def __init__(self, bid: int, op: str, detail: str = ""):
+        self.bid = bid
+        self.op = op
+        msg = f"allocator {op} on block {bid}"
+        if detail:
+            msg += f": {detail}"
+        super().__init__(msg)
+
+
+class BlockAllocator:
+    """Ownership ledger for a pool of ``num_blocks`` fixed-size KV blocks."""
+
+    def __init__(
+        self,
+        num_blocks: int,
+        block_size: int,
+        on_evict: Optional[Callable[[int], List[int]]] = None,
+    ) -> None:
+        if num_blocks < 2:
+            raise ValueError("need at least 2 blocks (block 0 is the null block)")
+        if block_size < 1:
+            raise ValueError("block_size must be positive")
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        # called with the evicted block id; returns the ids of any further
+        # blocks whose cached contents the eviction invalidated (the radix
+        # subtree below the evicted node) so they return to the free list too
+        self.on_evict = on_evict
+        self._free: deque = deque(range(1, num_blocks))
+        self._ref: Dict[int, int] = {}
+        self._registered: set = set()
+        # refcount-0 blocks still holding index-mapped KV, in release order
+        # (oldest release first = LRU victim)
+        self._cached: "OrderedDict[int, None]" = OrderedDict()
+        self.evictions = 0
+        self.cow_copies = 0
+        # chaos hook (the fault injector, a later sub-slice of the port):
+        # when set and it returns True,
+        # alloc() reports transient exhaustion without touching the pool —
+        # drives the engine's back-off/preempt paths under a healthy pool
+        self.fault_hook: Optional[Callable[[], bool]] = None
+        # spill seam (engine wires both when spill_enabled): the hook gets
+        # the eviction victim's id and returns True when it moved the
+        # payload to the host tier — the index then keeps the node alive in
+        # its spilled state, so the subtree below it stays reachable and
+        # on_evict is NOT fired
+        self.spill_hook: Optional[Callable[[int], bool]] = None
+        self.host_tier: Optional[HostTier] = None
+
+    # -- introspection ----------------------------------------------------
+
+    @property
+    def usable_blocks(self) -> int:
+        return self.num_blocks - 1  # excludes the null block
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def cached_blocks(self) -> int:
+        return len(self._cached)
+
+    @property
+    def active_blocks(self) -> int:
+        return len(self._ref)
+
+    def available(self) -> int:
+        """Blocks obtainable right now: free + evictable-cached. The
+        engine's admission-control budget."""
+        return len(self._free) + len(self._cached)
+
+    def utilization(self) -> float:
+        """Fraction of the usable pool held by active requests."""
+        return self.active_blocks / self.usable_blocks
+
+    def refcount(self, bid: int) -> int:
+        return self._ref.get(bid, 0)
+
+    def is_registered(self, bid: int) -> bool:
+        return bid in self._registered
+
+    def stats(self) -> dict:
+        rec = {
+            "num_blocks": self.num_blocks,
+            "block_size": self.block_size,
+            "active_blocks": self.active_blocks,
+            "cached_blocks": self.cached_blocks,
+            "free_blocks": self.free_blocks,
+            "block_utilization": round(self.utilization(), 4),
+            "evictions": self.evictions,
+            "cow_copies": self.cow_copies,
+            # host-tier keys are always present (zero when no tier is
+            # attached) so the metrics snapshot keeps a stable key set
+            "host_tier_bytes": 0,
+            "host_tier_budget_bytes": 0,
+            "host_tier_entries": 0,
+            "host_tier_evictions": 0,
+        }
+        if self.host_tier is not None:
+            rec.update(self.host_tier.stats())
+        return rec
+
+    def leak_check(self) -> List[int]:
+        """Block ids violating the pool partition invariant. Every usable id
+        must sit in exactly one of {free list, active refcounts, cached LRU},
+        active refcounts must be positive, and no free block may still be
+        registered in the prefix index. Returns the offending ids ([] =
+        clean); cheap enough for soak-test teardown and the invariant
+        auditor (serving/invariants.py)."""
+        bad: List[int] = []
+        seen: Dict[int, int] = {}
+        for bid in self._free:
+            seen[bid] = seen.get(bid, 0) + 1
+            if bid in self._registered:
+                bad.append(bid)  # freed while the index still maps it
+        for bid, n in self._ref.items():
+            seen[bid] = seen.get(bid, 0) + 1
+            if n <= 0:
+                bad.append(bid)
+        for bid in self._cached:
+            seen[bid] = seen.get(bid, 0) + 1
+            if bid not in self._registered:
+                bad.append(bid)  # parked without an index mapping
+        for bid in range(1, self.num_blocks):
+            if seen.get(bid, 0) != 1:
+                bad.append(bid)
+        for bid in seen:
+            if not 1 <= bid < self.num_blocks:
+                bad.append(bid)
+        return sorted(set(bad))
+
+    # -- allocate / share / release ---------------------------------------
+
+    def alloc(self) -> Optional[int]:
+        """One block with refcount 1, evicting cached blocks LRU-first when
+        the free list is empty. None = pool exhausted (every block is held
+        by an active request)."""
+        if self.fault_hook is not None and self.fault_hook():
+            return None  # injected transient exhaustion; pool untouched
+        while not self._free and self._cached:
+            self._evict_one()
+        if not self._free:
+            return None
+        bid = self._free.popleft()
+        self._ref[bid] = 1
+        return bid
+
+    def incref(self, bid: int) -> None:
+        """Share an existing block (prefix admission). Revives a cached
+        (refcount-0, registered) block from the LRU."""
+        if bid in self._cached:
+            del self._cached[bid]
+            self._ref[bid] = 1
+            return
+        if bid not in self._ref:
+            raise AllocatorError(
+                bid, "incref", "block is not allocated (freed id or stale table entry)"
+            )
+        self._ref[bid] += 1
+
+    def release(self, bid: int) -> None:
+        """Drop one reference. At zero the block parks in the cached LRU if
+        the prefix index still maps it, else returns to the free list."""
+        if bid not in self._ref:
+            raise AllocatorError(
+                bid, "release", "block holds no references (double release?)"
+            )
+        n = self._ref[bid] - 1
+        if n > 0:
+            self._ref[bid] = n
+            return
+        del self._ref[bid]
+        if bid in self._registered:
+            self._cached[bid] = None  # most-recently-released end
+        else:
+            self._free.append(bid)
+
+    # -- index registration -----------------------------------------------
+
+    def register(self, bid: int) -> None:
+        """The prefix index now maps this block's contents."""
+        self._registered.add(bid)
+
+    def unregister(self, bid: int) -> None:
+        """The prefix index dropped its mapping (node replaced/invalidated);
+        a parked block goes straight back to the free list."""
+        self._registered.discard(bid)
+        if bid in self._cached:
+            del self._cached[bid]
+            self._free.append(bid)
+
+    def _evict_one(self) -> None:
+        bid, _ = self._cached.popitem(last=False)  # LRU victim
+        if self.spill_hook is not None and self.spill_hook(bid):
+            # payload moved to the host tier and the index marked the node
+            # spilled — the subtree below it stays reachable, so no
+            # on_evict cascade; only the victim's device id is recycled
+            self._registered.discard(bid)
+            self._free.append(bid)
+            self.evictions += 1
+            return
+        dropped = [bid]
+        if self.on_evict is not None:
+            dropped.extend(self.on_evict(bid))
+        for b in dropped:
+            self._registered.discard(b)
+            if b in self._ref:
+                # defensive: an active sharer keeps the data alive; the
+                # index mapping is gone but the block is not reusable yet
+                continue
+            if b != bid:
+                self._cached.pop(b, None)
+            self._free.append(b)
+            self.evictions += 1
+
+    # -- copy-on-write -----------------------------------------------------
+
+    def writable(self, bid: int) -> bool:
+        """True when a write cannot corrupt anyone else's view: sole active
+        owner AND the prefix index does not map the contents."""
+        return self._ref.get(bid) == 1 and bid not in self._registered
+
+    def copy_on_write(self, bid: int) -> Tuple[Optional[int], bool]:
+        """Make the caller's block writable. Returns ``(block, needs_copy)``:
+        the caller holds one ref on ``bid``; when ``needs_copy`` the ref has
+        moved to a fresh private block and the caller must copy the pool
+        rows ``bid -> block``. ``(None, False)`` = pool exhausted."""
+        if self.writable(bid):
+            return bid, False
+        new = self.alloc()
+        if new is None:
+            return None, False
+        self.release(bid)
+        self.cow_copies += 1
+        return new, True
+
+
+def kv_pool_bytes_per_rank(
+    *,
+    num_layers: int,
+    num_blocks: int,
+    block_size: int,
+    num_kv_heads: int,
+    head_dim: int,
+    dtype_bytes: int,
+    tp_size: int = 1,
+    scale_bytes: int = 0,
+) -> int:
+    """Bytes of paged KV pool (K and V) resident on ONE chip.
+
+    The pool shards its kv-head dim over the tensor-parallel mesh when
+    divisible (``LlamaDecode.paged_cache_specs`` — the same GQA rule as the
+    dense cache) and replicates otherwise, so per-chip heads are
+    ``num_kv_heads / tp`` or ``num_kv_heads``. ``tp_size=1`` gives the whole
+    logical pool — the capacity statement "tp chips hold a tp×-larger
+    aggregate pool at fixed per-chip HBM" is exactly
+    ``f(tp=1) == tp * f(tp)`` when the heads divide. Pure arithmetic on
+    explicit dims (the allocator knows nothing about the model); the engine
+    feeds it into ``ServingMetrics.pool_bytes_per_rank``.
+
+    ``dtype_bytes`` is the *storage* itemsize — 1 under an int8/fp8
+    ``PagedConfig.kv_cache_dtype``, where ``scale_bytes`` adds the
+    per-(token row, kv head) scale-array overhead (2 for the fp16 scales of
+    ``quantization.kv_cache``, 0 for the fp pool). The scale arrays shard
+    the same kv-head axis, so the per-rank head count covers both terms.
+    """
+    heads = (
+        num_kv_heads // tp_size
+        if tp_size > 1 and num_kv_heads % tp_size == 0
+        else num_kv_heads
+    )
+    row_bytes = head_dim * dtype_bytes + scale_bytes
+    return 2 * num_layers * num_blocks * block_size * heads * row_bytes

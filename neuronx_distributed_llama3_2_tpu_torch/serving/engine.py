@@ -1,0 +1,977 @@
+"""Paged serving engine: block-budget admission, prefix-cached prefill,
+preempt-and-requeue under pool pressure.
+
+Counterpart of ``neuronx_distributed_llama3_2_tpu/serving/engine.py``
+(``PagedConfig``, ``PagedServingEngine``, ``make_serving_engine``), ported
+for the synchronous FIFO loop:
+
+- KV rows live in a global pool of fixed-size blocks
+  (:class:`..inference.model.PagedKVCache`); each request carries a block
+  table and the model translates logical rows through it (vLLM
+  PagedAttention). Block 0 is the reserved null block.
+- A :class:`.radix_index.RadixPrefixIndex` maps token prefixes to block
+  chains: a new request's shared prefix is admitted *by reference*
+  (reported as ``cached_tokens``) and only the suffix is prefilled
+  (SGLang RadixAttention); a partially shared last block is copied on
+  write first.
+- Admission is block-budget control: admit while free + evictable blocks
+  cover the prompt plus a decode reserve. On pool exhaustion mid-decode the
+  youngest request is preempted and requeued — never an exception out of
+  :meth:`PagedServingEngine.step`.
+- Each :meth:`PagedServingEngine.step` runs the FIFO policy's schedule
+  (serving/policy.py): drain, admit (with inline prefill), one batched T=1
+  decode over every active lane, read back.
+
+The JAX package compiles each of these as a jitted program and keeps a
+program registry and an AOT catalog; here every program is a plain eager
+call, so neither has a counterpart yet. The decode state (tokens,
+positions, block tables) lives on the device as in the JAX package and is
+updated in place from host mirrors when a lane changes.
+
+``PagedConfig`` keeps every field of the JAX package. A knob whose feature
+is not ported makes the constructor raise ``NotImplementedError`` naming
+it (see :data:`UNPORTED_KNOBS`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
+    GenerationConfig,
+    InferenceEngine,
+)
+from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import sample
+from neuronx_distributed_llama3_2_tpu_torch.serving.block_allocator import (
+    NULL_BLOCK,
+    BlockAllocator,
+    kv_pool_bytes_per_rank,
+)
+from neuronx_distributed_llama3_2_tpu_torch.serving.catalog import (
+    complete_ladder,
+    pick_bucket,
+)
+from neuronx_distributed_llama3_2_tpu_torch.serving.metrics import ServingMetrics
+from neuronx_distributed_llama3_2_tpu_torch.serving.policy import (
+    ActionType,
+    EngineView,
+    FifoPolicy,
+    StepAction,
+    StepPolicy,
+    make_policy,
+)
+from neuronx_distributed_llama3_2_tpu_torch.serving.radix_index import (
+    RadixPrefixIndex,
+)
+from neuronx_distributed_llama3_2_tpu_torch.serving.tracing import EngineTracer
+from neuronx_distributed_llama3_2_tpu_torch.utils.logger import get_logger
+
+logger = get_logger()
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedConfig:
+    """Knobs for the paged KV pool, field for field the JAX package's
+    ``PagedConfig`` (see docs/serving.md). Fields named in
+    :data:`UNPORTED_KNOBS` must keep their defaults in this port."""
+
+    block_size: int = 16
+    # pool size INCLUDING the reserved null block (id 0): usable capacity is
+    # (num_blocks - 1) * block_size token rows shared by all requests
+    num_blocks: int = 128
+    # admission headroom: blocks a request must be able to claim beyond its
+    # prompt before it is admitted, delaying the first preemption
+    decode_reserve_blocks: int = 2
+    enable_prefix_caching: bool = True
+    # tiered KV storage (host-RAM spill tier behind the radix index)
+    spill_enabled: bool = False
+    host_tier_bytes: int = 0
+    restore_crossover: float = 1.0
+    spill_queue_depth: int = 8
+    cache_dtype: Any = None
+    # quantized KV pool: "bf16" = the pool at the model (or cache_dtype)
+    # precision, no scale arrays
+    kv_cache_dtype: str = "bf16"
+    quant_mxu: bool = False
+    on_device_sampling: bool = False
+    metrics_log_every: int = 0
+    # chunked prefill (Sarathi-Serve); None/0 = whole-suffix prefill
+    prefill_chunk_tokens: Optional[int] = None
+    fused_step: bool = False
+    async_loop: bool = False
+    # speculative decoding (linear and tree)
+    spec_draft_tokens: int = 0
+    spec_tree: bool = False
+    spec_tree_branches: int = 2
+    spec_ngram_max: int = 3
+    spec_ngram_min: int = 1
+    spec_min_accept_rate: float = 0.2
+    spec_probation_tokens: int = 32
+    spec_retry_steps: int = 4
+    # fault tolerance
+    detect_nonfinite: bool = False
+    audit_interval: int = 0
+    audit_debug: bool = False
+    stall_step_limit: int = 0
+    # degradation ladder
+    degrade_after_faults: int = 0
+    degrade_window_steps: int = 64
+    degrade_recover_steps: int = 64
+    # flight recorder
+    trace_enabled: bool = False
+    trace_buffer_steps: int = 256
+    # serving bucket ladders: kv_buckets are the kv_limit attention extents
+    # of decode / suffix-prefill calls, prefill_buckets the padded prompt
+    # token counts of prefill calls. None = the InferenceEngine's ladder;
+    # either gets max_seq_len appended when it tops out early
+    kv_buckets: Optional[tuple] = None
+    prefill_buckets: Optional[tuple] = None
+    prewarm: bool = False
+    # device-cost ledger and HBM budget (the JAX package's graftmeter)
+    cost_accounting: bool = True
+    hbm_budget_bytes: Optional[int] = None
+    # latency objectives and burn-rate alerts
+    slo_ttft_p99_ms: Optional[float] = None
+    slo_tpot_p99_ms: Optional[float] = None
+    slo_eval_steps: int = 16
+    slo_burn_window: int = 4
+    slo_burn_threshold: float = 1.0
+    slo_degrade: bool = False
+    # step scheduling: only the FIFO policy is ported
+    step_policy: str = "fifo"
+    policy_table_path: Optional[str] = None
+
+
+#: PagedConfig fields whose feature is not ported yet, with that feature.
+#: Any value other than the default (a falsy value counts as the default
+#: where the default is falsy) makes PagedServingEngine raise.
+UNPORTED_KNOBS: Dict[str, str] = {
+    "prefill_chunk_tokens": "chunked prefill",
+    "async_loop": "the async double-buffered decode loop",
+    "spec_draft_tokens": "speculative decoding",
+    "spec_tree": "tree speculation",
+    "spec_tree_branches": "tree speculation",
+    "spec_ngram_max": "the speculation drafter",
+    "spec_ngram_min": "the speculation drafter",
+    "spec_min_accept_rate": "speculative decoding",
+    "spec_probation_tokens": "speculative decoding",
+    "spec_retry_steps": "speculative decoding",
+    "fused_step": "the fused mixed-mode step",
+    "kv_cache_dtype": "the quantized KV pool",
+    "quant_mxu": "the low-precision decode dot",
+    "on_device_sampling": "fused on-device sampling",
+    "spill_enabled": "tiered KV storage",
+    "host_tier_bytes": "tiered KV storage",
+    "restore_crossover": "tiered KV storage",
+    "spill_queue_depth": "tiered KV storage",
+    "prewarm": "program prewarm (CUDA graphs)",
+    "cost_accounting": "the device-cost ledger",
+    "hbm_budget_bytes": "the HBM budget ledger",
+    "trace_enabled": "the flight recorder export",
+    "slo_ttft_p99_ms": "SLO monitoring",
+    "slo_tpot_p99_ms": "SLO monitoring",
+    "slo_eval_steps": "SLO monitoring",
+    "slo_burn_window": "SLO monitoring",
+    "slo_burn_threshold": "SLO monitoring",
+    "slo_degrade": "SLO monitoring",
+    "degrade_after_faults": "the degradation ladder",
+    "degrade_window_steps": "the degradation ladder",
+    "degrade_recover_steps": "the degradation ladder",
+    "detect_nonfinite": "the finite-logit check",
+    "stall_step_limit": "the stall watchdog",
+    "metrics_log_every": "periodic metrics logging",
+    "audit_interval": "the invariant auditor",
+    "audit_debug": "the invariant auditor",
+    "step_policy": "step policies other than fifo",
+    "policy_table_path": "certified policy tables",
+}
+
+
+def check_ported(paged: PagedConfig) -> None:
+    """Raise ``NotImplementedError`` naming the first knob of ``paged``
+    that asks for a feature this port does not have yet."""
+    defaults = PagedConfig()
+    for name, feature in UNPORTED_KNOBS.items():
+        value, default = getattr(paged, name), getattr(defaults, name)
+        if value != default and (value or default):
+            raise NotImplementedError(
+                f"PagedConfig.{name}={value!r}: {feature} is not ported to "
+                "the PyTorch package yet"
+            )
+
+
+#: service classes a request may be submitted under (a scheduling hint and
+#: a metrics label; it never reaches the device path)
+SERVICE_CLASSES = frozenset({"interactive", "batch"})
+
+
+@dataclasses.dataclass
+class _PagedRequest:
+    rid: int
+    prompt: List[int]
+    out: List[int]
+    lane: Optional[int] = None
+    table: List[int] = dataclasses.field(default_factory=list)
+    position: int = 0            # == len(prompt + out) - 1 while active
+    cached_tokens: int = 0       # cumulative across (re-)admissions
+    preemptions: int = 0
+    done: bool = False
+    # mid-way through a chunked prefill: always False until that sub-slice
+    # lands (the step policy and request_info read it)
+    prefilling: bool = False
+    # terminal failure (cancel): the request is done with partial output
+    # and `error` holds the detail
+    failed: bool = False
+    error: Optional[str] = None
+    # lifecycle timestamps (time.perf_counter seconds): request_info
+    # derives queue_ms / ttft_ms / tpot_ms from these
+    submitted_at: float = 0.0
+    admitted_at: Optional[float] = None    # first admission only
+    first_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+    prefill_ms: float = 0.0                # cumulative across re-admissions
+    service_class: str = "batch"
+    tenant: str = "default"
+    submitted_step: int = 0
+
+
+class PagedServingEngine:
+    """Block-granular continuous batching over an :class:`InferenceEngine`'s
+    model and weights, on the weights' device."""
+
+    def __init__(
+        self,
+        engine: InferenceEngine,
+        gen: GenerationConfig = GenerationConfig(),
+        paged: PagedConfig = PagedConfig(),
+        drafter: Optional[Any] = None,
+        injector: Optional[Any] = None,
+        policy: Optional[StepPolicy] = None,
+    ) -> None:
+        check_ported(paged)
+        if drafter is not None:
+            raise NotImplementedError(
+                "drafter: speculative decoding is not ported to the PyTorch "
+                "package yet"
+            )
+        if injector is not None:
+            raise NotImplementedError(
+                "injector: fault injection is not ported to the PyTorch "
+                "package yet"
+            )
+        if policy is not None and not isinstance(policy, FifoPolicy):
+            raise NotImplementedError(
+                f"policy={type(policy).__name__}: only the FIFO step policy "
+                "is ported to the PyTorch package"
+            )
+        self.engine = engine
+        self.model = engine.model
+        self.gen = gen
+        self.paged = paged
+        self.device = engine.device
+        bs = paged.block_size
+        if bs < 1:
+            raise ValueError("block_size must be positive")
+        if paged.decode_reserve_blocks < 1:
+            # a solo request's re-admission after self-preemption is only
+            # guaranteed to fit when admission kept >= 1 block of headroom
+            raise ValueError("decode_reserve_blocks must be >= 1")
+        # the policy reads these: speculation and the ladder are not ported
+        self._spec_k = 0
+        self._degrade_level = 0
+        self.policy = policy if policy is not None else make_policy(
+            paged.step_policy
+        )
+        self.policy.reset()
+        self._view = EngineView(self)
+        self._last_verify_drafted = False
+        self._last_async_fell_back = False
+        self._last_mixed_dispatched = False
+        # per-step (step_index, pending_at_start, [StepAction...]) records
+        self.action_trace: deque = deque(maxlen=paged.trace_buffer_steps or 256)
+        self._step_actions: List[StepAction] = []
+        # bucket ladders: every call shape pads into one of these rungs;
+        # max_seq_len is appended to a ladder that tops out early
+        self._prefill_buckets = complete_ladder(
+            paged.prefill_buckets or engine.buckets, engine.max_seq_len
+        )
+        self._kv_buckets = complete_ladder(
+            paged.kv_buckets or engine.buckets, engine.max_seq_len
+        )
+        # table width: logical blocks covering max_seq_len, plus overflow
+        # entries (always null) absorbing bucket-padding writes past it
+        self.table_width = _ceil_div(engine.max_seq_len, bs) + _ceil_div(
+            self._prefill_buckets[-1], bs
+        )
+        self.cache = self.model.init_paged_cache(
+            paged.num_blocks, bs, paged.cache_dtype, device=self.device,
+        )
+        self.allocator = BlockAllocator(paged.num_blocks, bs)
+        self.index = RadixPrefixIndex(self.allocator)
+        self.metrics = ServingMetrics()
+        # the flight recorder is called at every step boundary; its export
+        # (trace_enabled) is not ported, so it records nothing
+        self.tracer = EngineTracer(
+            enabled=False, buffer_steps=paged.trace_buffer_steps or 256,
+        )
+        mc = self.model.config
+        pool_bytes = kv_pool_bytes_per_rank(
+            num_layers=mc.num_layers, num_blocks=paged.num_blocks,
+            block_size=bs, num_kv_heads=mc.num_kv_heads,
+            head_dim=mc.head_dim, dtype_bytes=self.cache.k.element_size(),
+        )
+        self.metrics.tp_size = 1
+        self.metrics.kv_dtype = paged.kv_cache_dtype
+        self.metrics.pool_bytes_total = pool_bytes
+        self.metrics.pool_bytes_per_rank = pool_bytes
+        self._step_index = 0
+
+        self._next_rid = 0
+        self._queue: List[_PagedRequest] = []
+        self._active: Dict[int, _PagedRequest] = {}  # lane -> request
+        self._finished: Dict[int, _PagedRequest] = {}
+        self._requests: Dict[int, _PagedRequest] = {}
+        self._free_lanes = list(range(engine.max_batch))
+        # host sampling draws from one generator on the engine's device;
+        # greedy sampling draws nothing
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(gen.seed)
+        # host MIRRORS of the decode state; the scheduler reads these for
+        # kv-bucket routing and block accounting
+        self._tokens = np.zeros((engine.max_batch,), np.int32)
+        self._positions = np.zeros((engine.max_batch,), np.int32)
+        self._tables = np.full(
+            (engine.max_batch, self.table_width), NULL_BLOCK, np.int32
+        )
+        # device-RESIDENT decode state, consumed by every decode call; the
+        # call's sampled tokens and advanced positions replace it, and lane
+        # changes are written into it in place (_flush_state)
+        self._d_tokens = self._upload(self._tokens)
+        self._d_positions = self._upload(self._positions)
+        self._d_tables = self._upload(self._tables)
+        # advanced positions are clamped here: keeps a long-idle garbage
+        # lane's position inside the rope table (see LlamaDecode.decode_step)
+        self._pos_cap = self.table_width * bs - 1
+        # lanes whose host mirrors must be pushed to the device before the
+        # next decode, and single block-table entries from decode growth
+        self._dirty_lanes: set = set()
+        self._table_delta_list: List[tuple] = []  # (lane, col, block_id)
+        # the async loop's in-flight lookahead step, which the step policy
+        # asks about; the sync loop reads every decode back before returning
+        self._pending: Optional[tuple] = None
+        self._wait_ms = 0.0
+
+    # -- host<->device choke points ---------------------------------------
+
+    def _upload(self, x, dtype=torch.int32) -> torch.Tensor:
+        """Every host->device transfer on the serving path funnels through
+        here, so the uploads are countable."""
+        self.metrics.h2d_uploads += 1
+        return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
+
+    def _read_tokens(self, toks: torch.Tensor) -> np.ndarray:
+        """Every device->host token readback funnels through here; the
+        blocking wait is accounted as device time."""
+        t0 = time.perf_counter()
+        arr = toks.cpu().numpy()
+        self._wait_ms += (time.perf_counter() - t0) * 1e3
+        return arr
+
+    def _emit_action(self, atype: ActionType, mode: str = "", **meta) -> None:
+        """Record one executed step action into this step's trace entry."""
+        self._step_actions.append(StepAction(atype, mode, meta))
+
+    def _kv_bucket(self, needed: int) -> int:
+        """kv_limit rung covering ``needed`` rows over the serving kv
+        ladder, with a clamp to the ladder top past it."""
+        for b in self._kv_buckets:
+            if b >= needed:
+                return b
+        return self._kv_buckets[-1]
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        """Copy-on-write: pool block ``src`` -> ``dst`` in every layer, in
+        place (the JAX package donates the pool to a copy program)."""
+        self.cache.k[:, dst] = self.cache.k[:, src]
+        self.cache.v[:, dst] = self.cache.v[:, src]
+
+    # -- request lifecycle ------------------------------------------------
+
+    def _release_lane(self, req: _PagedRequest) -> None:
+        """THE lane-teardown funnel (finish / fail / preempt): release the
+        request's blocks and null the lane's host mirrors, marking the
+        lane dirty for the next full-lane sync."""
+        lane = req.lane
+        for b in req.table:
+            self.allocator.release(b)
+        req.table = []
+        del self._active[lane]
+        self._free_lanes.append(lane)
+        self._tables[lane, :] = NULL_BLOCK
+        self._tokens[lane] = 0
+        self._positions[lane] = 0
+        self._dirty_lanes.add(lane)
+        req.lane = None
+
+    def _fail_request(self, req: _PagedRequest, error: str) -> None:
+        """Terminal failure: blocks released, lane freed, the request lands
+        in ``_finished`` with ``failed=True`` and its partial output. Nothing
+        is registered in the prefix index."""
+        if req.rid in self._finished:
+            return
+        req.failed = True
+        req.done = True
+        req.error = str(error)
+        if req in self._queue:
+            self._queue.remove(req)
+        if req.lane is not None:
+            lane = req.lane
+            self._release_lane(req)
+            self._emit_action(
+                ActionType.FINISH, rid=req.rid, lane=lane, failed=True,
+            )
+        self._finished[req.rid] = req
+        self.metrics.failed_requests += 1
+        self._note_terminal(req)
+        self.tracer.request_state(req.rid, "failed")
+        logger.warning(
+            "request %d failed after %d tokens: %s",
+            req.rid, len(req.out), req.error,
+        )
+
+    def _note_first_token(self, req: _PagedRequest) -> None:
+        """First sampled token for this request: stamp TTFT."""
+        if req.first_token_at is None:
+            req.first_token_at = time.perf_counter()
+            ms = (req.first_token_at - req.submitted_at) * 1e3
+            self.metrics.hist_ttft_ms.observe(ms)
+            self.metrics.observe_class_latency("ttft", req.service_class, ms)
+
+    def _note_terminal(self, req: _PagedRequest) -> None:
+        """Terminal transition: stamp the end time and fold the request's
+        mean inter-token latency into the TPOT histogram."""
+        if req.finished_at is not None:
+            return
+        req.finished_at = time.perf_counter()
+        if req.first_token_at is not None and len(req.out) > 1:
+            ms = (
+                (req.finished_at - req.first_token_at) * 1e3
+                / (len(req.out) - 1)
+            )
+            self.metrics.hist_tpot_ms.observe(ms)
+            self.metrics.observe_class_latency("tpot", req.service_class, ms)
+        self.metrics.note_class_event(
+            req.service_class, "failed" if req.failed else "finished"
+        )
+
+    def submit(
+        self,
+        prompt: Sequence[int],
+        *,
+        service_class: str = "batch",
+        tenant: str = "default",
+    ) -> int:
+        if service_class not in SERVICE_CLASSES:
+            raise ValueError(
+                f"unknown service_class {service_class!r}; expected one of "
+                f"{sorted(SERVICE_CLASSES)}"
+            )
+        if len(prompt) + self.gen.max_new_tokens > self.engine.max_seq_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens "
+                f"({self.gen.max_new_tokens}) exceeds cache capacity "
+                f"({self.engine.max_seq_len})"
+            )
+        bs = self.paged.block_size
+        worst = (
+            _ceil_div(len(prompt) + self.gen.max_new_tokens, bs)
+            + self.paged.decode_reserve_blocks
+        )
+        if worst > self.allocator.usable_blocks:
+            raise ValueError(
+                f"request needs up to {worst} KV blocks but the pool has "
+                f"{self.allocator.usable_blocks} usable blocks — raise "
+                f"PagedConfig.num_blocks or shrink max_new_tokens"
+            )
+        rid = self._next_rid
+        self._next_rid += 1
+        req = _PagedRequest(
+            rid=rid, prompt=list(prompt), out=[],
+            submitted_at=time.perf_counter(),
+            service_class=service_class, tenant=tenant,
+            submitted_step=self._step_index,
+        )
+        self._queue.append(req)
+        self._requests[rid] = req
+        self.metrics.submitted += 1
+        self.metrics.note_class_event(service_class, "submitted")
+        self.metrics.queued_requests = len(self._queue)
+        self.tracer.request_state(rid, "queued")
+        return rid
+
+    def cancel(self, rid: int, reason: str = "cancelled by client") -> bool:
+        """Client-initiated terminal cancel: queued and decoding requests
+        alike fail with ``error=reason``, blocks released and lane freed;
+        survivors' streams are unchanged. Returns True if the request
+        transitioned to terminal now, False if it was already done. Raises
+        KeyError for an unknown rid. Call between steps."""
+        req = self._requests.get(rid)
+        if req is None:
+            raise KeyError(f"unknown request id {rid}")
+        if req.done:
+            return False
+        self._fail_request(req, reason)
+        self.metrics.cancelled_requests += 1
+        self.metrics.queued_requests = len(self._queue)
+        return True
+
+    # -- admission and prefill ----------------------------------------------
+
+    def _admit(self) -> None:
+        """Admission wave, recorded as one ADMIT action."""
+        if not (self._queue and self._free_lanes):
+            return
+        lanes_before = set(self._active)
+        try:
+            self._admit_wave()
+        finally:
+            # a lane admitted-and-finished inside the wave is absent here;
+            # its FINISH record (already emitted) carries the lane id
+            self._emit_action(
+                ActionType.ADMIT,
+                lanes=sorted(set(self._active) - lanes_before),
+                waiting=len(self._queue),
+            )
+
+    def _admit_wave(self) -> None:
+        bs = self.paged.block_size
+        alloc = self.allocator
+        while self._queue and self._free_lanes:
+            req = self._queue[0]
+            seq = req.prompt + req.out  # resume re-prefills generated tokens
+            if self.paged.enable_prefix_caching:
+                matched, mblocks = self.index.match(seq)
+            else:
+                matched, mblocks = 0, []
+            # always leave >= 1 token to prefill: the admission forward must
+            # produce the logits at the last position
+            cached = min(matched, len(seq) - 1)
+            n_total = _ceil_div(len(seq), bs)
+            n_shared_full = cached // bs
+            need_new = (n_total - n_shared_full) + self.paged.decode_reserve_blocks
+            if alloc.available() < need_new:
+                self.metrics.admit_blocked += 1
+                return  # FCFS head-of-line: wait for blocks to drain
+            self._queue.pop(0)
+            # take shared refs BEFORE allocating, so our own allocations
+            # cannot evict the blocks we are about to use
+            table = list(mblocks[: _ceil_div(cached, bs)])
+            for b in table:
+                alloc.incref(b)
+            ok = True
+            if cached % bs:
+                # partially shared last block: the suffix's first write lands
+                # inside it -> move onto a private copy now
+                src = table[-1]
+                wb, copied = alloc.copy_on_write(src)
+                if wb is None:
+                    ok = False
+                else:
+                    if copied:
+                        self._copy_block(src, wb)
+                    table[-1] = wb
+            while ok and len(table) < n_total:
+                nb = alloc.alloc()
+                if nb is None:
+                    ok = False
+                else:
+                    table.append(nb)
+            if not ok:
+                # lost the budget race (should not happen: available() was
+                # checked); back off cleanly and retry next step
+                for b in table:
+                    alloc.release(b)
+                self._queue.insert(0, req)
+                return
+            lane = self._free_lanes.pop(0)
+            req.lane = lane
+            req.table = table
+            req.cached_tokens += cached
+            self._tables[lane, :] = NULL_BLOCK
+            self._active[lane] = req
+            self.metrics.admitted += 1
+            self.metrics.cached_tokens += cached
+            if req.admitted_at is None:  # queue_ms = first admission wait
+                req.admitted_at = time.perf_counter()
+            self.tracer.request_state(req.rid, "prefilling")
+            suffix = seq[cached:]
+            t_p = time.perf_counter()
+            first = self._prefill(suffix, cached, table)
+            req.prefill_ms += (time.perf_counter() - t_p) * 1e3
+            req.out.append(first)
+            req.position = len(seq)
+            self._note_first_token(req)
+            self.tracer.request_state(req.rid, "active")
+            self._tokens[lane] = first
+            self._positions[lane] = req.position
+            self._tables[lane, : len(table)] = table
+            self._dirty_lanes.add(lane)
+            self.metrics.prefill_tokens += len(suffix)
+            if self.paged.enable_prefix_caching:
+                # register the prompt's full blocks immediately so requests
+                # admitted later in this same wave share them; the partial
+                # tail block stays private (decode writes into it)
+                n_full = len(seq) // bs
+                if n_full:
+                    self.index.insert(seq[: n_full * bs], table[:n_full])
+            self._maybe_finish(req)
+
+    def _prefill(self, suffix: List[int], cached: int, table: List[int]) -> int:
+        """Run one prefill over the request's table and read its sampled
+        token back: the whole prompt (``pctx``, plain-torch attention over
+        the fresh block) when nothing is cached, else the suffix after the
+        cached prefix (``psfx``, attending the shared blocks through the
+        table)."""
+        eng = self.engine
+        bucket = pick_bucket(self._prefill_buckets, max(len(suffix), 1))
+        ids = np.zeros((1, bucket), np.int32)
+        ids[0, : len(suffix)] = suffix
+        length = max(len(suffix), 1)
+        tbl = np.full((1, self.table_width), NULL_BLOCK, np.int32)
+        tbl[0, : len(table)] = table
+        if cached == 0:
+            hidden, self.cache = self.model.forward(
+                eng.params, self.cache, self._upload(ids),
+                torch.zeros((1,), dtype=torch.int32, device=self.device), None,
+                context_encode=True, return_hidden=True,
+                block_tables=self._upload(tbl),
+            )
+        else:
+            kv_limit = self._kv_bucket(min(cached + bucket, eng.max_seq_len))
+            hidden, self.cache = self.model.forward(
+                eng.params, self.cache, self._upload(ids),
+                self._upload([cached]), None, return_hidden=True,
+                block_tables=self._upload(tbl), kv_limit=kv_limit,
+            )
+        # last-token gather before the LM head
+        logits = eng.params._logits(hidden[:, length - 1])
+        tok = sample(logits, self._generator, self.gen.sampling)
+        self.metrics.note_prefill_dispatch(bucket, length)
+        return int(self._read_tokens(tok)[0])
+
+    # -- decode -----------------------------------------------------------
+
+    def _preempt(self, req: _PagedRequest) -> None:
+        """Pool exhausted: bump the request back to the queue head. Its
+        registered prefix blocks park in the cached LRU, so re-admission
+        usually re-shares them instead of re-prefilling from scratch."""
+        lane = req.lane
+        self._release_lane(req)
+        req.position = 0
+        self._queue.insert(0, req)
+        req.preemptions += 1
+        self.metrics.preemptions += 1
+        self._emit_action(ActionType.PREEMPT, rid=req.rid, lane=lane, shed=False)
+        self.tracer.request_state(req.rid, "preempted")
+        logger.debug(
+            "preempted request %d (pool exhausted): %d generated so far",
+            req.rid, len(req.out),
+        )
+
+    def _ensure_decode_blocks(self) -> None:
+        """Every active lane's next write row must be backed by a real
+        block; allocate on block boundaries, preempting the youngest active
+        request when the pool (free + evictable) runs dry."""
+        bs = self.paged.block_size
+        for lane in sorted(self._active, key=lambda l: self._active[l].rid):
+            req = self._active.get(lane)
+            if req is None:
+                continue  # preempted while servicing an older lane
+            if int(self._positions[lane]) // bs < len(req.table):
+                continue
+            while True:
+                nb = self.allocator.alloc()
+                if nb is not None:
+                    self._append_block(lane, req, nb)
+                    break
+                victim = max(self._active.values(), key=lambda r: r.rid)
+                self._preempt(victim)
+                if victim is req:
+                    break  # preempted ourselves; nothing left to back
+
+    def _append_block(self, lane: int, req: _PagedRequest, nb: int) -> None:
+        req.table.append(nb)
+        col = len(req.table) - 1
+        self._tables[lane, col] = nb
+        self._table_delta_list.append((lane, col, nb))
+
+    def _finish_due(self, req: _PagedRequest) -> bool:
+        eos = self.gen.eos_token_id
+        return (
+            req.done
+            or (eos is not None and bool(req.out) and req.out[-1] == eos)
+            or len(req.out) >= self.gen.max_new_tokens
+        )
+
+    def _maybe_finish(self, req: _PagedRequest) -> None:
+        if not self._finish_due(req) or req.rid in self._finished:
+            return
+        req.done = True
+        bs = self.paged.block_size
+        if self.paged.enable_prefix_caching and req.table:
+            # cache the whole materialized sequence (prompt + generated):
+            # rows [0, position) are valid — the final token's KV was never
+            # written, so it is excluded
+            seq = (req.prompt + req.out)[: req.position]
+            self.index.insert(seq, req.table[: _ceil_div(req.position, bs)])
+        lane = req.lane
+        if req.lane is not None:
+            self._release_lane(req)
+        self._emit_action(ActionType.FINISH, rid=req.rid, lane=lane, failed=False)
+        self._finished[req.rid] = req
+        self.metrics.finished += 1
+        self._note_terminal(req)
+        self.tracer.request_state(req.rid, "finished")
+
+    def _flush_state(self) -> None:
+        """Push queued host-side lane mutations into the device-resident
+        arrays, in place: single block-table entries from decode growth,
+        then whole lanes that were admitted, finished or preempted."""
+        if self._table_delta_list:
+            self._emit_action(
+                ActionType.TABLE_DELTA_FLUSH, n=len(self._table_delta_list),
+                in_flight=False,
+            )
+            for lane, col, val in self._table_delta_list:
+                if lane in self._dirty_lanes:
+                    continue  # the full-lane sync below rewrites the row
+                self._d_tables[lane, col] = val
+                self.metrics.h2d_uploads += 1
+                self.metrics.table_deltas += 1
+            self._table_delta_list.clear()
+        if self._dirty_lanes:
+            lanes = sorted(self._dirty_lanes)
+            self._emit_action(ActionType.LANE_SET_FLUSH, lanes=lanes, in_flight=False)
+            idx = self._upload(lanes, torch.long)
+            self._d_tokens[idx] = self._upload(self._tokens[lanes])
+            self._d_positions[idx] = self._upload(self._positions[lanes])
+            self._d_tables[idx] = self._upload(self._tables[lanes])
+            self.metrics.lane_syncs += len(lanes)
+            self._dirty_lanes.clear()
+
+    def _read_and_apply(self, toks: torch.Tensor, lanes: List[int]) -> None:
+        """Read one decode call's sampled tokens and advance request state;
+        finished lanes release their blocks."""
+        arr = self._read_tokens(toks)
+        eng = self.engine
+        finishing: List[_PagedRequest] = []
+        for lane in lanes:
+            req = self._active.get(lane)
+            if req is None:
+                continue  # lane torn down between dispatch and readback
+            req.out.append(int(arr[lane]))
+            req.position += 1
+            self._tokens[lane] = arr[lane]
+            if req.position >= eng.max_seq_len - 1:
+                req.done = True
+            if self._finish_due(req):
+                finishing.append(req)
+        self._emit_action(ActionType.READBACK, lanes=list(lanes), lag=0)
+        for req in finishing:
+            self._maybe_finish(req)
+
+    def _dispatch_sync_decode(self) -> bool:
+        """The decode tail of a synchronous step: back the write rows,
+        flush lane state, run one T=1 step over every lane and read it
+        back."""
+        if not self._active:
+            return bool(self._queue)
+        self._ensure_decode_blocks()
+        decode_lanes = list(self._active)
+        if not decode_lanes:
+            return bool(self._active or self._queue)  # re-admit next step
+        self._flush_state()
+        eng = self.engine
+        kv_need = int(max(self._positions[l] for l in decode_lanes)) + 1
+        kv_limit = self._kv_bucket(kv_need)
+        self.metrics.note_decode_dispatch(kv_limit, kv_need)
+        logits, self._d_positions, self.cache = self.model.decode_step(
+            eng.params, self.cache, self._d_tokens, self._d_positions,
+            self._d_tables, kv_limit=kv_limit, pos_cap=self._pos_cap,
+        )
+        toks = sample(logits, self._generator, self.gen.sampling)
+        self._d_tokens = toks
+        self._emit_action(
+            ActionType.DECODE_DISPATCH, mode="sync",
+            lanes=list(decode_lanes), kv=kv_limit,
+        )
+        for lane in decode_lanes:
+            self._positions[lane] += 1
+        self.metrics.decode_steps += 1
+        self._read_and_apply(toks, decode_lanes)
+        return bool(self._active or self._queue)
+
+    # -- serving loop -------------------------------------------------------
+
+    _MAX_ACTIONS_PER_STEP = 64
+
+    def _execute_action(self, act: StepAction) -> None:
+        """Run one policy-scheduled action."""
+        t = act.type
+        if t is ActionType.READBACK or t is ActionType.PREFILL_CHUNK:
+            # READBACK retires the async loop's lookahead and PREFILL_CHUNK
+            # advances chunked prefills: neither is ported, so neither ever
+            # has work (the sync decode reads itself back, and admission
+            # prefills whole suffixes)
+            pass
+        elif t is ActionType.ADMIT:
+            self._admit()
+        elif t is ActionType.DECODE_DISPATCH and act.mode == "sync":
+            self._dispatch_sync_decode()
+        else:
+            raise NotImplementedError(
+                f"step action {t.value}[{act.mode}] is not ported to the "
+                "PyTorch package yet"
+            )
+
+    def _step_inner(self) -> bool:
+        n = 0
+        for act in self.policy.actions(self._view):
+            n += 1
+            if n > self._MAX_ACTIONS_PER_STEP:
+                raise RuntimeError(
+                    f"step policy {self.policy.name!r} exceeded "
+                    f"{self._MAX_ACTIONS_PER_STEP} actions in one step"
+                )
+            self._execute_action(act)
+        return bool(self._active or self._queue)
+
+    def step(self) -> bool:
+        """Execute one step schedule of the FIFO policy: admit waiting
+        requests (prefilling each inline), then advance every active lane
+        one token. Pool exhaustion preempts and requeues instead of
+        raising. Returns False when nothing is left to do."""
+        t0 = time.perf_counter()
+        self._wait_ms = 0.0
+        self._step_index += 1
+        self.metrics.engine_steps += 1
+        self._step_actions = []
+        self.action_trace.append(
+            (self._step_index, self._pending is not None, self._step_actions)
+        )
+        self.tracer.begin_step(self._step_index)
+        alive = self._step_inner()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        self.metrics.device_wait_ms += self._wait_ms
+        self.metrics.host_schedule_ms += max(total_ms - self._wait_ms, 0.0)
+        self.metrics.hist_step_ms.observe(total_ms)
+        self.metrics.hist_queue_depth.observe(len(self._queue))
+        self.metrics.queued_requests = len(self._queue)
+        self.tracer.end_step(
+            queue=len(self._queue), active=len(self._active),
+            wait_ms=round(self._wait_ms, 3),
+        )
+        return alive
+
+    def run_to_completion(self) -> Dict[int, List[int]]:
+        """Step until idle. Cancelled requests are included with their
+        partial output — check ``request_info(rid)["status"]``."""
+        while self.step():
+            pass
+        return {rid: r.out for rid, r in sorted(self._finished.items())}
+
+    @staticmethod
+    def _status(req: _PagedRequest) -> str:
+        """Lifecycle status ∈ {queued, prefilling, active, preempted,
+        finished, failed}."""
+        if req.failed:
+            return "failed"
+        if req.done:
+            return "finished"
+        if req.lane is None:
+            return "preempted" if req.preemptions else "queued"
+        return "prefilling" if req.prefilling else "active"
+
+    def request_tokens(self, rid: int) -> List[int]:
+        """Copy of the tokens generated so far for ``rid``, in any
+        lifecycle state."""
+        req = self._requests.get(rid)
+        if req is None:
+            raise KeyError(f"unknown request id {rid}")
+        return list(req.out)
+
+    def request_info(self, rid: int) -> dict:
+        """Per-request serving stats (``cached_tokens`` is the per-request
+        prefix-cache report), in any lifecycle state; fields not reached
+        yet are None."""
+        req = self._requests.get(rid)
+        if req is None:
+            raise KeyError(f"unknown request id {rid}")
+        ttft_ms = None
+        if req.first_token_at is not None:
+            ttft_ms = round((req.first_token_at - req.submitted_at) * 1e3, 3)
+        tpot_ms = None
+        if (
+            req.finished_at is not None
+            and req.first_token_at is not None
+            and len(req.out) > 1
+        ):
+            tpot_ms = round(
+                (req.finished_at - req.first_token_at) * 1e3
+                / (len(req.out) - 1), 3,
+            )
+        queue_ms = None
+        if req.admitted_at is not None:
+            queue_ms = round((req.admitted_at - req.submitted_at) * 1e3, 3)
+        return {
+            "rid": req.rid,
+            "prompt_tokens": len(req.prompt),
+            "generated_tokens": len(req.out),
+            "cached_tokens": req.cached_tokens,
+            "preemptions": req.preemptions,
+            "prefilling": req.prefilling,
+            "done": req.done,
+            "status": self._status(req),
+            "error": req.error,
+            "service_class": req.service_class,
+            "tenant": req.tenant,
+            "submitted_at": req.submitted_at,
+            "first_token_at": req.first_token_at,
+            "finished_at": req.finished_at,
+            "queue_ms": queue_ms,
+            "prefill_ms": round(req.prefill_ms, 3),
+            "ttft_ms": ttft_ms,
+            "tpot_ms": tpot_ms,
+        }
+
+
+def make_serving_engine(
+    engine: InferenceEngine,
+    gen: GenerationConfig = GenerationConfig(),
+    paged: Optional[PagedConfig] = None,
+    drafter: Optional[Any] = None,
+    injector: Optional[Any] = None,
+) -> PagedServingEngine:
+    """The serving-path config flag: a :class:`PagedConfig` selects the
+    paged engine. ``paged=None`` selects the dense slot-scheduled engine
+    of the JAX package, which is not ported yet and raises. The JAX
+    package's ``precompile`` argument has no counterpart: every program
+    here is an eager call, compiled by nothing ahead of it."""
+    if paged is None:
+        raise NotImplementedError(
+            "paged=None selects the dense ContinuousBatchingEngine, which "
+            "comes with the dense-engine slice of the port"
+        )
+    return PagedServingEngine(
+        engine, gen, paged, drafter=drafter, injector=injector,
+    )

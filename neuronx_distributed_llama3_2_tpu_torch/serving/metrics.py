@@ -1,0 +1,539 @@
+"""Serving counters: block utilization, prefix hit-rate, preemptions.
+
+Follows the ``trainer/metrics.py`` house style — plain counters with a
+``snapshot()`` that merges in allocator/index state, loggable as one JSON
+object (the serving-side analogue of ``TrainingMetrics``'s jsonl records).
+
+graftscope (docs/serving.md "Observability") adds latency distributions:
+``hist_*`` fields are log-bucketed :class:`.histogram.Histogram` objects
+the engine observes into unconditionally (TTFT, TPOT, step latency,
+accept length, queue depth); ``snapshot()`` embeds their p50/p90/p99
+summaries under stable keys and ``prometheus()`` renders the whole
+object as text exposition for a scraper.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Dict, Optional
+
+from neuronx_distributed_llama3_2_tpu_torch.serving.block_allocator import (
+    BlockAllocator,
+)
+from neuronx_distributed_llama3_2_tpu_torch.serving.histogram import Histogram
+from neuronx_distributed_llama3_2_tpu_torch.serving.radix_index import (
+    RadixPrefixIndex,
+)
+
+# dataclass fields exported as prometheus gauges; every other numeric
+# field is a monotonic counter
+_GAUGE_FIELDS = frozenset({
+    "tp_size", "pool_bytes_per_rank", "pool_bytes_total",
+    "degradation_level",
+    # graftmeter static figures (set once at harvest/construction) and
+    # the SLO burn gauges (rewritten each evaluation)
+    "cost_profiled_programs", "hbm_budget_bytes", "hbm_footprint_bytes",
+    "hbm_headroom_bytes", "peak_flops_per_chip", "peak_hbm_bw_per_chip",
+    "slo_burn_ttft", "slo_burn_tpot",
+    # graftserve front-door gauges (rewritten every step / stream event)
+    "queued_requests", "active_streams",
+    # graftplan policy-table gauges (set once at table load)
+    "policy_table_stale",
+})
+
+# snapshot key -> hist_* field name (the stable public names dashboards
+# and the golden-key test consume)
+_HIST_KEYS = {
+    "ttft_ms": "hist_ttft_ms",
+    "tpot_ms": "hist_tpot_ms",
+    "step_latency_ms": "hist_step_ms",
+    "accept_len": "hist_accept_len",
+    "queue_depth": "hist_queue_depth",
+}
+
+
+@dataclasses.dataclass
+class ServingMetrics:
+    """Counters owned by :class:`.engine.PagedServingEngine`."""
+
+    submitted: int = 0
+    admitted: int = 0
+    admit_blocked: int = 0    # admission waves deferred on the block budget
+    finished: int = 0
+    truncated: int = 0        # finished early because the pool can never fit
+    preemptions: int = 0      # requests bumped back to the queue
+    decode_steps: int = 0
+    # -- fused mixed-mode step (docs/serving.md "Fused mixed-mode step"):
+    #    engine_steps counts every step() (the dispatches_per_step
+    #    denominator); compute_dispatches counts every model-program
+    #    dispatch (pctx/psfx/pdecode/pverify/pmixed — the numerator);
+    #    mixed_dispatches counts the pmixed subset --
+    engine_steps: int = 0
+    compute_dispatches: int = 0
+    mixed_dispatches: int = 0
+    prefill_tokens: int = 0   # prompt tokens actually pushed through prefill
+    prefill_chunks: int = 0   # chunked-prefill program invocations
+    cached_tokens: int = 0    # prompt tokens admitted by prefix reference
+    # -- async double-buffered loop (docs/serving.md "Async step pipeline") --
+    decode_steps_async: int = 0  # of decode_steps, dispatched with lookahead
+    lame_duck_tokens: int = 0    # post-finish lookahead tokens discarded
+    sync_fallbacks: int = 0      # async-eligible steps dropped to sync mode
+    # -- resident decode state (device-side tokens/positions/tables) --
+    lane_syncs: int = 0          # full-lane host→device resident-state pushes
+    table_deltas: int = 0        # single-entry block-table scatter updates
+    h2d_uploads: int = 0         # host→device array uploads on the serving path
+    # -- tiered KV storage (docs/serving.md "Tiered KV storage"): spill
+    #    victims move D2H into the host tier and prefix hits on spilled
+    #    runs restore H2D through the metered _upload funnel (the
+    #    restore_uploads share of h2d_uploads) instead of re-prefilling --
+    blocks_spilled: int = 0      # eviction victims snapshotted to host RAM
+    blocks_restored: int = 0     # spilled blocks scattered back into the pool
+    spill_bytes: int = 0         # payload bytes drained D2H
+    restore_bytes: int = 0       # payload bytes uploaded H2D on restores
+    restore_hits: int = 0        # admissions whose spilled run restored
+    restore_fallbacks: int = 0   # restores abandoned (fault / payload lost)
+    restore_declined: int = 0    # spilled runs re-prefilled by the crossover
+    restore_uploads: int = 0     # h2d_uploads attributable to restores
+    # -- on-device sampling (docs/serving.md "On-device sampling") --
+    sampled_steps: int = 0         # decode/verify dispatches drawing in-fuse
+    host_sample_fallbacks: int = 0  # sampled dispatches that paid the host
+    #                                 PRNG-key upload (on_device_sampling off)
+    rng_reseeds: int = 0           # per-lane base-key installs at admission
+    # -- step-phase timing (monotonic clock around dispatch/readback) --
+    host_schedule_ms: float = 0.0  # cumulative step time minus device waits
+    device_wait_ms: float = 0.0    # cumulative blocking token-readback time
+    # -- tensor-parallel layout (static, set once at engine construction;
+    #    docs/serving.md "Multi-chip serving") --
+    tp_size: int = 1               # tensor-parallel size serving the pool
+    kv_dtype: str = "bf16"         # PagedConfig.kv_cache_dtype serving the
+    #                                pool ("bf16" = fp passthrough); pool
+    #                                bytes below include the scale arrays
+    #                                when quantized
+    pool_bytes_per_rank: int = 0   # KV pool bytes resident on each chip
+    pool_bytes_total: int = 0      # whole logical pool (== per_rank * tp
+    #                                when the kv heads divide tp; == per_rank
+    #                                on the replication fallback)
+    # -- speculative decoding (docs/serving.md "Speculative decoding") --
+    draft_tokens: int = 0          # drafts offered to verify steps
+    accepted_tokens: int = 0       # drafts the target's argmax agreed with
+    verify_steps: int = 0          # of decode_steps, multi-token verifies
+    spec_disabled_lanes: int = 0   # requests dropped to plain decode (low
+    #                                accept rate past probation)
+    # -- tree speculation (docs/serving.md "Tree speculation"): packed
+    #    draft trees through the ancestor-masked verify; draft/accepted
+    #    token totals fold into the linear counters above, these track
+    #    the tree-shaped subset and the per-shape accept-depth mix --
+    tree_verify_steps: int = 0     # of verify_steps, packed-tree verifies
+    tree_draft_tokens: int = 0     # of draft_tokens, offered as tree nodes
+    tree_accept_by_shape: Dict[str, dict] = dataclasses.field(
+        default_factory=dict)  # shape (e.g. "t5") -> {lanes, accepted,
+    #                            by_len: {accept_len: lanes}}
+    # -- compiled-program catalog (docs/serving.md "Compiled-program
+    #    catalog"): every _register_program hit bumps programs_compiled;
+    #    compiles during PagedServingEngine.prewarm() count as
+    #    prewarm_compiles; compiles after mark_steady() freezes the key
+    #    set count as steadystate_compiles (the runtime twin of
+    #    graftcheck GC008 — soak tests assert it stays 0). Ladder-driven
+    #    gather twins are exempt from the steady-state counter --
+    programs_compiled: int = 0     # ProgramRecord registrations (lifetime)
+    prewarm_compiles: int = 0      # of those, made by prewarm()
+    steadystate_compiles: int = 0  # of those, made after the freeze
+    # -- graftmeter device-cost accounting (docs/serving.md "Cost
+    #    accounting & SLOs"): pad counters bump unconditionally at every
+    #    dispatch (host ints, the histogram precedent); the FLOP/byte
+    #    counters add the dispatched program's static CostProfile figures
+    #    once engine.ensure_cost_profiles()/prewarm harvested them --
+    decode_pad_tokens: int = 0     # kv rows dispatched past kv_need
+    decode_need_tokens: int = 0    # kv rows the decode batch required
+    prefill_pad_tokens: int = 0    # prefill bucket slots past the suffix
+    prefill_need_tokens: int = 0   # suffix tokens actually prefilled
+    dispatched_flops: float = 0.0  # Σ CostProfile.flops over dispatches
+    dispatched_bytes: float = 0.0  # Σ CostProfile.bytes_accessed
+    decode_pad_by_rung: Dict[int, dict] = dataclasses.field(
+        default_factory=dict)  # kv rung -> {dispatches, need, pad}
+    prefill_pad_by_rung: Dict[int, dict] = dataclasses.field(
+        default_factory=dict)  # prefill bucket -> same shape
+    # static figures (gauges) set by the harvest / at construction:
+    cost_profiled_programs: int = 0  # registry keys carrying a CostProfile
+    hbm_budget_bytes: int = 0        # per-device HBM budget
+    hbm_footprint_bytes: int = 0     # HBMLedger footprint per rank
+    hbm_headroom_bytes: int = 0      # budget - footprint (may go negative)
+    peak_flops_per_chip: float = 0.0   # MFU denominator per chip
+    peak_hbm_bw_per_chip: float = 0.0  # bandwidth-util denominator
+    mfu_by_rung: Dict[int, dict] = dataclasses.field(
+        default_factory=dict)  # kv rung -> static roofline figures
+    # -- SLO burn-rate monitor (serving/slo.py) --
+    slo_alerts: int = 0            # evaluations that raised a burn alert
+    slo_burn_ttft: float = 0.0     # latest windowed TTFT burn rate (gauge)
+    slo_burn_tpot: float = 0.0     # latest windowed TPOT burn rate (gauge)
+    # -- graftserve front door + SLO scheduler (serving/server.py,
+    #    serving/scheduler.py; docs/serving.md "Front door & scheduling"):
+    #    per-service-class accounting for the interactive/batch split the
+    #    SloPolicy schedules over, plus the server's stream gauges --
+    queued_requests: int = 0       # current waiting queue depth (gauge)
+    active_streams: int = 0        # open server token streams (gauge)
+    cancelled_requests: int = 0    # client-initiated terminal cancels
+    requests_by_class: Dict[str, dict] = dataclasses.field(
+        default_factory=dict)  # class -> {submitted, finished, failed}
+    slo_burn_by_class: Dict[str, dict] = dataclasses.field(
+        default_factory=dict)  # class -> {"ttft": burn, "tpot": burn}
+    # -- graftplan policy table (analysis/graftplan.py; set by the
+    #    engine's table loader). The id is an info label like kv_dtype
+    #    (string; prometheus() skips non-numerics), stale flips to 1
+    #    when a table was loaded non-strictly with GC011 findings --
+    policy_table_id: str = ""      # table_id prefix of the loaded table
+    policy_table_stale: int = 0    # 1 = loaded with stale GC011 findings
+    policy_simulated_burn: Dict[str, dict] = dataclasses.field(
+        default_factory=dict)  # class -> simulated burn from the artifact
+    # -- fault tolerance (docs/serving.md "Failure handling & degradation") --
+    faults_injected: int = 0       # chaos events fired by the FaultInjector
+    failed_requests: int = 0       # requests ended in terminal `failed`
+    lane_quarantines: int = 0      # lanes failed on non-finite logits
+    drafter_faults: int = 0        # drafter exceptions absorbed (advisory)
+    degradation_level: int = 0     # current ladder rung (gauge, 0 = full)
+    degradations: int = 0          # ladder climbs taken (cumulative)
+    audit_violations: int = 0      # invariant-auditor findings (cumulative)
+    # -- latency distributions (docs/serving.md "Observability"): always
+    #    observed (a bisect + two adds per event), independent of the
+    #    trace_enabled flight recorder. Bucket specs: ms histograms span
+    #    50µs..800s at 2× growth (~24 buckets); accept length and queue
+    #    depth are small integer ranges at 2× --
+    hist_ttft_ms: Histogram = dataclasses.field(
+        default_factory=lambda: Histogram(0.05, 8e5, 2.0))
+    hist_tpot_ms: Histogram = dataclasses.field(
+        default_factory=lambda: Histogram(0.05, 8e5, 2.0))
+    hist_step_ms: Histogram = dataclasses.field(
+        default_factory=lambda: Histogram(0.05, 8e5, 2.0))
+    hist_accept_len: Histogram = dataclasses.field(
+        default_factory=lambda: Histogram(1.0, 64.0, 2.0))
+    hist_queue_depth: Histogram = dataclasses.field(
+        default_factory=lambda: Histogram(1.0, 8192.0, 2.0))
+    # per-service-class latency distributions (created lazily as classes
+    # appear; hist_ prefix keeps them out of the flat snapshot — they
+    # surface through slo_burn_by_class and the load harness's asserts)
+    hist_ttft_by_class: Dict[str, Histogram] = dataclasses.field(
+        default_factory=dict)
+    hist_tpot_by_class: Dict[str, Histogram] = dataclasses.field(
+        default_factory=dict)
+
+    # -- graftserve per-class accounting (engine submit/terminal funnels) --
+
+    def note_class_event(self, service_class: str, event: str) -> None:
+        """Bump one per-class lifecycle counter (``submitted`` /
+        ``finished`` / ``failed``)."""
+        d = self.requests_by_class.get(service_class)
+        if d is None:
+            d = self.requests_by_class[service_class] = {
+                "submitted": 0, "finished": 0, "failed": 0,
+            }
+        d[event] += 1
+
+    def observe_class_latency(
+        self, kind: str, service_class: str, ms: float,
+    ) -> None:
+        """Fold one ttft/tpot observation into the class's histogram
+        (same ms bucket spec as the global ones)."""
+        hists = (
+            self.hist_ttft_by_class if kind == "ttft"
+            else self.hist_tpot_by_class
+        )
+        h = hists.get(service_class)
+        if h is None:
+            h = hists[service_class] = Histogram(0.05, 8e5, 2.0)
+        h.observe(ms)
+
+    # -- graftmeter per-dispatch accounting (called from the engine's
+    #    dispatch funnels; a few int adds + one dict hit, unconditional
+    #    like the histogram observes) --
+
+    @staticmethod
+    def _note_rung(by_rung: dict, rung: int, need: int, pad: int) -> None:
+        r = by_rung.get(rung)
+        if r is None:
+            r = by_rung[rung] = {
+                "dispatches": 0, "need_tokens": 0, "pad_tokens": 0,
+            }
+        r["dispatches"] += 1
+        r["need_tokens"] += need
+        r["pad_tokens"] += pad
+
+    def note_decode_dispatch(
+        self, rung: int, need: int,
+        flops: float = 0.0, bytes_accessed: float = 0.0,
+    ) -> None:
+        """One decode/verify dispatch at kv rung ``rung`` that actually
+        required ``need`` kv rows; ``flops``/``bytes_accessed`` are the
+        program's static CostProfile figures (0 before harvest)."""
+        pad = max(rung - need, 0)
+        self.compute_dispatches += 1
+        self.decode_need_tokens += need
+        self.decode_pad_tokens += pad
+        self._note_rung(self.decode_pad_by_rung, rung, need, pad)
+        self.dispatched_flops += flops
+        self.dispatched_bytes += bytes_accessed
+
+    def note_prefill_dispatch(
+        self, bucket: int, tokens: int,
+        flops: float = 0.0, bytes_accessed: float = 0.0,
+    ) -> None:
+        """One prefill (whole or chunk) dispatch padded into ``bucket``
+        for ``tokens`` real suffix tokens."""
+        pad = max(bucket - tokens, 0)
+        self.compute_dispatches += 1
+        self.prefill_need_tokens += tokens
+        self.prefill_pad_tokens += pad
+        self._note_rung(self.prefill_pad_by_rung, bucket, tokens, pad)
+        self.dispatched_flops += flops
+        self.dispatched_bytes += bytes_accessed
+
+    @staticmethod
+    def _pad_frac(pad: int, need: int) -> float:
+        total = pad + need
+        return round(pad / total, 4) if total else 0.0
+
+    def pad_waste_frac(self) -> float:
+        """Fraction of all dispatched token slots (decode kv rows +
+        prefill bucket slots) that were bucket padding — the linear
+        proxy for padded-vs-useful FLOPs (the attention extent scales
+        linearly in the padded rows)."""
+        return self._pad_frac(
+            self.decode_pad_tokens + self.prefill_pad_tokens,
+            self.decode_need_tokens + self.prefill_need_tokens,
+        )
+
+    def mfu_estimate(self) -> float:
+        """Achieved FLOP/s over the step-loop wall clock, normalized by
+        the declared peak across the tp group. Zero until CostProfiles
+        were harvested (dispatched_flops stays 0)."""
+        wall_s = (self.host_schedule_ms + self.device_wait_ms) / 1e3
+        peak = self.peak_flops_per_chip * max(self.tp_size, 1)
+        if wall_s <= 0.0 or peak <= 0.0:
+            return 0.0
+        return self.dispatched_flops / wall_s / peak
+
+    def bandwidth_util_estimate(self) -> float:
+        """Achieved bytes/s over wall clock vs the declared HBM peak."""
+        wall_s = (self.host_schedule_ms + self.device_wait_ms) / 1e3
+        peak = self.peak_hbm_bw_per_chip * max(self.tp_size, 1)
+        if wall_s <= 0.0 or peak <= 0.0:
+            return 0.0
+        return self.dispatched_bytes / wall_s / peak
+
+    def prefix_skip_fraction(self) -> float:
+        """Fraction of admitted prompt tokens that skipped prefill."""
+        total = self.prefill_tokens + self.cached_tokens
+        return self.cached_tokens / total if total else 0.0
+
+    def accept_rate(self) -> float:
+        """Fraction of offered draft tokens the target accepted."""
+        return self.accepted_tokens / self.draft_tokens if self.draft_tokens else 0.0
+
+    def note_tree_accept(self, shape: str, accept: int) -> None:
+        """Fold one lane's tree-verify outcome into the per-shape
+        breakdown: ``shape`` names the packed-tree rung (``"t5"`` = 5
+        packed nodes), ``accept`` is the accepted root-path depth (0 =
+        only the bonus token survived)."""
+        d = self.tree_accept_by_shape.get(shape)
+        if d is None:
+            d = self.tree_accept_by_shape[shape] = {
+                "lanes": 0, "accepted": 0, "by_len": {},
+            }
+        d["lanes"] += 1
+        d["accepted"] += accept
+        d["by_len"][accept] = d["by_len"].get(accept, 0) + 1
+
+    def snapshot(
+        self,
+        allocator: Optional[BlockAllocator] = None,
+        index: Optional[RadixPrefixIndex] = None,
+    ) -> dict:
+        # built by hand rather than dataclasses.asdict: asdict would
+        # deep-copy the Histogram objects into the record and break JSON
+        # serialization; the hist_* fields export as summary dicts under
+        # the stable _HIST_KEYS names instead
+        rec = {
+            f.name: getattr(self, f.name)
+            for f in dataclasses.fields(self)
+            if not f.name.startswith("hist_")
+        }
+        rec["prefix_skip_fraction"] = round(self.prefix_skip_fraction(), 4)
+        rec["accept_rate"] = round(self.accept_rate(), 4)
+        # graftmeter derived figures; the per-rung dicts export as copies
+        # enriched with a pad_frac so dashboards never mutate live state
+        rec["decode_pad_by_rung"] = {
+            rung: dict(v, pad_frac=self._pad_frac(
+                v["pad_tokens"], v["need_tokens"]))
+            for rung, v in sorted(self.decode_pad_by_rung.items())
+        }
+        rec["prefill_pad_by_rung"] = {
+            rung: dict(v, pad_frac=self._pad_frac(
+                v["pad_tokens"], v["need_tokens"]))
+            for rung, v in sorted(self.prefill_pad_by_rung.items())
+        }
+        rec["mfu_by_rung"] = {
+            rung: dict(v) for rung, v in sorted(self.mfu_by_rung.items())
+        }
+        rec["tree_accept_by_shape"] = {
+            shape: dict(v, by_len=dict(v["by_len"]))
+            for shape, v in sorted(self.tree_accept_by_shape.items())
+        }
+        # graftserve per-class tables export as copies too
+        rec["requests_by_class"] = {
+            cls: dict(v) for cls, v in sorted(self.requests_by_class.items())
+        }
+        rec["slo_burn_by_class"] = {
+            cls: dict(v) for cls, v in sorted(self.slo_burn_by_class.items())
+        }
+        rec["policy_simulated_burn"] = {
+            cls: dict(v)
+            for cls, v in sorted(self.policy_simulated_burn.items())
+        }
+        rec["pad_waste_frac"] = self.pad_waste_frac()
+        rec["decode_pad_frac"] = self._pad_frac(
+            self.decode_pad_tokens, self.decode_need_tokens)
+        rec["prefill_pad_frac"] = self._pad_frac(
+            self.prefill_pad_tokens, self.prefill_need_tokens)
+        wall_s = (self.host_schedule_ms + self.device_wait_ms) / 1e3
+        rec["achieved_flops_per_s"] = (
+            round(self.dispatched_flops / wall_s, 1) if wall_s > 0 else 0.0
+        )
+        rec["mfu_est"] = round(self.mfu_estimate(), 6)
+        rec["bandwidth_util_est"] = round(self.bandwidth_util_estimate(), 6)
+        rec["host_schedule_ms"] = round(self.host_schedule_ms, 3)
+        rec["device_wait_ms"] = round(self.device_wait_ms, 3)
+        steps = max(self.decode_steps, 1)
+        rec["host_schedule_ms_per_step"] = round(self.host_schedule_ms / steps, 4)
+        rec["device_wait_ms_per_step"] = round(self.device_wait_ms / steps, 4)
+        # the fused-step reduction gauge: model-program dispatches per
+        # engine step (fused mixed-traffic steady state drives this to 1)
+        rec["dispatches_per_step"] = round(
+            self.compute_dispatches / max(self.engine_steps, 1), 4)
+        for key, field_name in _HIST_KEYS.items():
+            rec[key] = getattr(self, field_name).snapshot()
+        # tiered-KV derived gauge: of the admissions that reached a spilled
+        # run, the fraction whose restore went through
+        attempts = (
+            self.restore_hits + self.restore_fallbacks + self.restore_declined
+        )
+        rec["restore_hit_rate"] = round(
+            self.restore_hits / attempts, 4) if attempts else 0.0
+        if allocator is not None:
+            rec.update(allocator.stats())
+        if index is not None:
+            rec["prefix_hit_rate"] = round(index.hit_rate(), 4)
+            rec["radix_nodes"] = index.num_nodes
+            rec["spilled_nodes"] = getattr(index, "num_spilled", 0)
+        return rec
+
+    def prometheus(
+        self,
+        allocator: Optional[BlockAllocator] = None,
+        index: Optional[RadixPrefixIndex] = None,
+    ) -> str:
+        """Prometheus text exposition of the full snapshot: dataclass
+        counters as ``counter``, layout/ladder fields and every derived
+        or allocator/index value as ``gauge``, the ``hist_*`` fields as
+        real histogram series, and the kv dtype as an info label. All
+        names carry a ``serving_`` prefix."""
+        counter_fields = {
+            f.name for f in dataclasses.fields(self)
+            if not f.name.startswith("hist_")
+        } - _GAUGE_FIELDS
+        snap = self.snapshot(allocator, index)
+        lines = [
+            f'serving_info{{kv_dtype="{self.kv_dtype}"}} 1',
+        ]
+        for key in sorted(snap):
+            if key in _HIST_KEYS or key == "kv_dtype":
+                continue
+            val = snap[key]
+            if isinstance(val, bool) or not isinstance(val, (int, float)):
+                continue
+            kind = "counter" if key in counter_fields else "gauge"
+            lines.append(f"# TYPE serving_{key} {kind}")
+            lines.append(f"serving_{key} {val:g}")
+        # graftmeter per-rung series: the nested dicts are not flat
+        # numerics, so they render as labelled families instead
+        for snap_key, base in (
+            ("decode_pad_by_rung", "serving_decode"),
+            ("prefill_pad_by_rung", "serving_prefill"),
+        ):
+            rungs = snap.get(snap_key) or {}
+            if rungs:
+                lines.append(f"# TYPE {base}_pad_tokens_rung counter")
+            for rung in sorted(rungs):
+                v = rungs[rung]
+                lines.append(
+                    f'{base}_pad_tokens_rung{{rung="{rung}"}} '
+                    f'{v["pad_tokens"]:g}')
+                lines.append(
+                    f'{base}_dispatches_rung{{rung="{rung}"}} '
+                    f'{v["dispatches"]:g}')
+                lines.append(
+                    f'{base}_pad_frac_rung{{rung="{rung}"}} '
+                    f'{v["pad_frac"]:g}')
+        # graftserve per-class families: lifecycle counters and burn gauges
+        # labelled by service class (docs/serving.md "Front door &
+        # scheduling")
+        rbc = snap.get("requests_by_class") or {}
+        if rbc:
+            lines.append("# TYPE serving_requests_class counter")
+        for cls in sorted(rbc):
+            for event in sorted(rbc[cls]):
+                lines.append(
+                    f'serving_requests_class{{class="{cls}",'
+                    f'event="{event}"}} {rbc[cls][event]:g}')
+        sbc = snap.get("slo_burn_by_class") or {}
+        if sbc:
+            lines.append("# TYPE serving_slo_burn_class gauge")
+        for cls in sorted(sbc):
+            for objective in sorted(sbc[cls]):
+                lines.append(
+                    f'serving_slo_burn_class{{class="{cls}",'
+                    f'objective="{objective}"}} {sbc[cls][objective]:g}')
+        # graftplan policy table: the id is a string, so it exports as an
+        # info label (kv_dtype precedent); the simulated per-class burns
+        # the artifact promises export as a labelled gauge family next to
+        # the observed serving_slo_burn_class series
+        if self.policy_table_id:
+            lines.append(
+                f'serving_policy_table_info'
+                f'{{table_id="{self.policy_table_id}"}} 1')
+        psb = snap.get("policy_simulated_burn") or {}
+        if psb:
+            lines.append("# TYPE serving_policy_simulated_burn_class gauge")
+        for cls in sorted(psb):
+            for objective in sorted(psb[cls]):
+                lines.append(
+                    f'serving_policy_simulated_burn_class{{class="{cls}",'
+                    f'objective="{objective}"}} {psb[cls][objective]:g}')
+        # tree speculation per-shape accept mix: lanes labelled by packed
+        # shape and accepted root-path depth (per-rung family precedent)
+        tas = snap.get("tree_accept_by_shape") or {}
+        if tas:
+            lines.append("# TYPE serving_tree_accept_lanes_shape counter")
+        for shape in sorted(tas):
+            v = tas[shape]
+            lines.append(
+                f'serving_tree_accept_tokens_shape{{shape="{shape}"}} '
+                f'{v["accepted"]:g}')
+            for alen in sorted(v["by_len"]):
+                lines.append(
+                    f'serving_tree_accept_lanes_shape{{shape="{shape}",'
+                    f'len="{alen}"}} {v["by_len"][alen]:g}')
+        roofs = snap.get("mfu_by_rung") or {}
+        if roofs:
+            lines.append("# TYPE serving_roofline_mfu_rung gauge")
+        for rung in sorted(roofs):
+            v = roofs[rung]
+            lines.append(
+                f'serving_roofline_mfu_rung{{rung="{rung}"}} '
+                f'{v.get("roofline_mfu", 0.0):g}')
+        for key, field_name in _HIST_KEYS.items():
+            lines.extend(
+                getattr(self, field_name).prometheus_lines(f"serving_{key}"))
+        return "\n".join(lines) + "\n"
+
+    def log(self, logger, allocator=None, index=None) -> None:
+        logger.info("serving metrics: %s", json.dumps(self.snapshot(allocator, index)))

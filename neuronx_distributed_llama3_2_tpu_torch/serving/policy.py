@@ -1,0 +1,344 @@
+"""Step scheduling policy for the paged serving engine (graftsched).
+
+Every :meth:`.engine.PagedServingEngine.step` is a *schedule*: a sequence
+of typed :class:`StepAction`\\ s chosen by a :class:`StepPolicy` and
+executed one at a time by the engine. The policy decides the order of the
+scheduler-visible phases (readback drain, admission, prefill chunks,
+verify, decode dispatch, audits); the engine emits a record of **every**
+action it actually performs — including the engine-internal ones a policy
+can never request (PREEMPT, FINISH, lane/table flushes) — into a bounded
+per-step action trace that analysis/graftsched.py replays against the
+schedule legality automaton (rule GC010).
+
+Splitting the schedule out of the engine is what makes it auditable: the
+legality machine (verify only after the lookahead drains, full-lane syncs
+only at pipeline-drained boundaries, readback lag <= 1, no dispatch into
+a freed lane) is declared once in graftsched and holds for *any* policy,
+so an SLO-aware scheduler (ROADMAP item 2) is just another StepPolicy the
+existing analyzer already covers.
+
+The default :class:`FifoPolicy` reproduces the engine's historical inlined
+phase order byte-for-byte: token streams, ``h2d_uploads`` counts and the
+compiled-program registry key set are identical to the pre-policy engine
+across {sync, async} x {gather, kernel} x {spec on/off}.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, Dict, Iterator, Mapping, NamedTuple, Tuple, Type
+
+
+class ActionType(enum.Enum):
+    """The step-action alphabet (docs/static_analysis.md "graftsched").
+
+    The first six are *policy-schedulable*: a StepPolicy may yield them.
+    The last five are *engine-emitted only* — they record transitions the
+    engine performs as consequences of scheduled actions (a finish
+    discovered by a readback, a preemption forced by pool pressure, the
+    resident flushes that precede a dispatch, a tiered-KV restore decided
+    inside an admission wave) and appear in the action trace for the
+    legality automaton, but a policy yielding one is an error."""
+
+    ADMIT = "ADMIT"                        # admission wave (+ inline prefill)
+    PREFILL_CHUNK = "PREFILL_CHUNK"        # one chunk per prefilling lane
+    DECODE_DISPATCH = "DECODE_DISPATCH"    # one T=1 decode (mode: sync/async)
+    READBACK = "READBACK"                  # retire a dispatched step
+    VERIFY = "VERIFY"                      # speculative multi-token verify
+    MIXED_DISPATCH = "MIXED_DISPATCH"      # fused prefill+decode+verify step
+    AUDIT = "AUDIT"                        # invariant auditor pass
+    PREEMPT = "PREEMPT"                    # engine-emitted: lane requeued
+    FINISH = "FINISH"                      # engine-emitted: lane released
+    LANE_SET_FLUSH = "LANE_SET_FLUSH"      # engine-emitted: full-lane sync
+    TABLE_DELTA_FLUSH = "TABLE_DELTA_FLUSH"  # engine-emitted: 1-entry delta
+    RESTORE = "RESTORE"                    # engine-emitted: spilled blocks H2D
+
+
+#: Actions a StepPolicy is allowed to yield from :meth:`StepPolicy.actions`.
+POLICY_ACTIONS = frozenset({
+    ActionType.ADMIT,
+    ActionType.PREFILL_CHUNK,
+    ActionType.DECODE_DISPATCH,
+    ActionType.READBACK,
+    ActionType.VERIFY,
+    ActionType.MIXED_DISPATCH,
+    ActionType.AUDIT,
+})
+
+#: Actions only the engine itself records (never schedulable).
+ENGINE_ACTIONS = frozenset(ActionType) - POLICY_ACTIONS
+
+
+@dataclasses.dataclass(frozen=True)
+class StepAction:
+    """One typed schedule element. ``mode`` disambiguates the dispatch
+    flavor (``"sync"`` / ``"async"`` for DECODE_DISPATCH); ``meta`` carries
+    the evidence the legality automaton replays (lanes, readback lag,
+    failure flags) — engine-emitted records fill it, policy-yielded
+    actions usually leave it empty."""
+
+    type: ActionType
+    mode: str = ""
+    meta: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __repr__(self) -> str:  # compact: trace dumps read like schedules
+        tag = f"{self.type.value}" + (f"[{self.mode}]" if self.mode else "")
+        if not self.meta:
+            return tag
+        kv = ", ".join(f"{k}={v!r}" for k, v in sorted(self.meta.items()))
+        return f"{tag}({kv})"
+
+
+class QueuedRequest(NamedTuple):
+    """One waiting request as a policy sees it (graftserve admission
+    metadata): ``position`` is the FCFS queue index, ``tokens`` the
+    sequence length the admission would have to place."""
+
+    rid: int
+    service_class: str
+    tenant: str
+    tokens: int
+    position: int
+
+
+class EngineView:
+    """Read-only facade over the engine state a policy may consult.
+
+    Policies never touch engine internals directly — everything a
+    scheduling decision can depend on is a property here, so the legal
+    observation surface is enumerable (and mockable in automaton unit
+    fixtures). Policies that want to *influence* engine behavior do it
+    through StepAction meta (``admit_order``, ``budget_tokens``), never
+    by mutating what they read here."""
+
+    def __init__(self, engine) -> None:
+        self._engine = engine
+
+    @property
+    def config(self):
+        """The engine's :class:`.engine.PagedConfig`."""
+        return self._engine.paged
+
+    @property
+    def spec_enabled(self) -> bool:
+        """Speculative decoding configured (drafter + spec_draft_tokens)."""
+        return bool(self._engine._spec_k)
+
+    @property
+    def degrade_level(self) -> int:
+        """Current degradation-ladder rung (0 = everything on)."""
+        return self._engine._degrade_level
+
+    @property
+    def async_eligible(self) -> bool:
+        """Steady state: only decode-lane advancement left this step."""
+        return self._engine._async_eligible()
+
+    @property
+    def pending_in_flight(self) -> bool:
+        """A dispatched-but-unread lookahead step exists."""
+        return self._engine._pending is not None
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self._engine._queue)
+
+    @property
+    def active_lanes(self) -> int:
+        return len(self._engine._active)
+
+    @property
+    def prefilling_lanes(self) -> int:
+        return sum(
+            1 for r in self._engine._active.values() if r.prefilling
+        )
+
+    @property
+    def free_lanes(self) -> int:
+        """Lanes an ADMIT this step could fill (0 → the wave is a no-op,
+        so ranking the queue would be wasted work)."""
+        return len(self._engine._free_lanes)
+
+    # -- graftserve scheduling surface (serving/scheduler.py) -------------
+
+    def queued(self) -> Tuple[QueuedRequest, ...]:
+        """The waiting queue in FCFS order, as read-only descriptors — the
+        admission-order input an SLO-aware policy ranks and hands back via
+        ``StepAction(ADMIT, meta={"admit_order": [...]})``."""
+        return tuple(
+            QueuedRequest(
+                rid=r.rid, service_class=r.service_class, tenant=r.tenant,
+                tokens=len(r.prompt) + len(r.out), position=i,
+            )
+            for i, r in enumerate(self._engine._queue)
+        )
+
+    @property
+    def prefill_buckets(self) -> tuple:
+        """The completed prefill bucket ladder (serving/catalog.py) every
+        prefill dispatch pads into — the rungs a chunked-prefill token
+        budget is quantized against."""
+        return tuple(self._engine._prefill_buckets)
+
+    def pad_by_rung(self, kind: str) -> Dict[int, dict]:
+        """Copy of the graftmeter pad-waste rung table (``kind`` is
+        ``"prefill"`` or ``"decode"``): rung -> {dispatches, need_tokens,
+        pad_tokens}. Copies — a policy can never mutate live counters."""
+        src = (
+            self._engine.metrics.prefill_pad_by_rung if kind == "prefill"
+            else self._engine.metrics.decode_pad_by_rung
+        )
+        return {rung: dict(v) for rung, v in src.items()}
+
+    @property
+    def slo_burn(self) -> Tuple[float, float]:
+        """Latest windowed (ttft, tpot) burn-rate gauges from the SLO
+        monitor (0.0 when no objective is declared)."""
+        m = self._engine.metrics
+        return (m.slo_burn_ttft, m.slo_burn_tpot)
+
+    @property
+    def slo_burn_by_class(self) -> Dict[str, dict]:
+        """Copy of the per-service-class burn gauges: class ->
+        {"ttft": burn, "tpot": burn} (absent keys = no observations for
+        that class yet)."""
+        return {
+            cls: dict(v)
+            for cls, v in self._engine.metrics.slo_burn_by_class.items()
+        }
+
+    # -- outcomes of the most recent executed action (same step) ----------
+
+    @property
+    def last_verify_drafted(self) -> bool:
+        """Did the last VERIFY action actually dispatch a verify program
+        (False: the drafter abstained / proposals died to preemption, and
+        nothing was dispatched)?"""
+        return self._engine._last_verify_drafted
+
+    @property
+    def last_async_fell_back(self) -> bool:
+        """Did the last async DECODE_DISPATCH decline to dispatch because
+        backing the write rows would need a preemption?"""
+        return self._engine._last_async_fell_back
+
+    @property
+    def last_mixed_dispatched(self) -> bool:
+        """Did the last MIXED_DISPATCH actually dispatch a pmixed program
+        (False: no lane was mid-prefill — or backing preempted them all —
+        and the policy should schedule the plain verify/decode tail)?"""
+        return self._engine._last_mixed_dispatched
+
+
+class StepPolicy:
+    """Base class: a policy is a per-step generator of StepActions.
+
+    The engine executes each yielded action before resuming the generator,
+    so a policy reads *updated* outcome state (``view.last_*``) when it
+    resumes — that is how data-dependent fallbacks (verify abstained →
+    plain decode; async pool-dry → sync path) are expressed as schedule
+    decisions instead of engine control flow."""
+
+    name = "base"
+
+    def actions(self, view: EngineView) -> Iterator[StepAction]:
+        raise NotImplementedError
+
+    def reset(self) -> None:
+        """Forget cross-step policy state (new engine / explorer run)."""
+
+
+class FifoPolicy(StepPolicy):
+    """The historical inlined phase order, reproduced byte-for-byte.
+
+    Decision tree (identical to the pre-policy ``_step_inner``):
+
+    - spec configured, below ladder rung 1, and not paused → drain the
+      lookahead, admit, advance prefills, VERIFY; if the drafter abstained
+      everywhere, take a plain sync decode and pause drafting for
+      ``spec_retry_steps`` (only when the async lookahead exists to hand
+      the loop to).
+    - otherwise, async loop on, below rung 2, steady state → one async
+      lookahead dispatch; on pool-dry fallback continue below.
+    - otherwise → drain, admit, advance prefills, one sync decode.
+
+    The drafting pause counter is policy state (it *is* a scheduling
+    decision), carried across steps and reset with the policy."""
+
+    name = "fifo"
+
+    def __init__(self) -> None:
+        self._spec_pause = 0
+
+    def reset(self) -> None:
+        self._spec_pause = 0
+
+    def actions(self, view: EngineView) -> Iterator[StepAction]:
+        cfg = view.config
+        spec_on = view.spec_enabled and view.degrade_level < 1
+        async_on = cfg.async_loop and view.degrade_level < 2
+        fused = bool(getattr(cfg, "fused_step", False))
+        if spec_on and self._spec_pause <= 0:
+            yield StepAction(ActionType.READBACK)   # drain the lookahead
+            yield StepAction(ActionType.ADMIT)
+            if fused and view.prefilling_lanes:
+                # one pmixed dispatch packs the prefill chunks, the verify
+                # rows, and any plain decode lanes — the step is done when
+                # it actually went out (abstention falls through below)
+                yield StepAction(ActionType.MIXED_DISPATCH)
+                if view.last_mixed_dispatched:
+                    return
+            else:
+                yield StepAction(ActionType.PREFILL_CHUNK)
+            yield StepAction(ActionType.VERIFY)
+            if not view.last_verify_drafted:
+                # dry drafter: hand the loop to the async lookahead for a
+                # few steps instead of pinning it to sync mode; with async
+                # off there is nothing to yield to — retry every step
+                if async_on:
+                    self._spec_pause = cfg.spec_retry_steps
+                yield StepAction(ActionType.DECODE_DISPATCH, mode="sync")
+            return
+        if self._spec_pause > 0:
+            self._spec_pause -= 1
+        if async_on and view.async_eligible:
+            yield StepAction(ActionType.DECODE_DISPATCH, mode="async")
+            if not view.last_async_fell_back:
+                return
+            # pool dry: the scheduler must preempt, which mutates lane
+            # state — drop to the synchronous sequence for this step
+        yield StepAction(ActionType.READBACK)
+        yield StepAction(ActionType.ADMIT)
+        if fused and view.prefilling_lanes:
+            yield StepAction(ActionType.MIXED_DISPATCH)
+            if view.last_mixed_dispatched:
+                return
+        else:
+            yield StepAction(ActionType.PREFILL_CHUNK)
+        yield StepAction(ActionType.DECODE_DISPATCH, mode="sync")
+
+
+#: Name → policy class registry (``PagedConfig.step_policy`` routes here).
+POLICIES: Dict[str, Type[StepPolicy]] = {}
+
+
+def register_policy(cls: Type[StepPolicy]) -> Type[StepPolicy]:
+    POLICIES[cls.name] = cls
+    return cls
+
+
+register_policy(FifoPolicy)
+
+
+def make_policy(name: str) -> StepPolicy:
+    """Instantiate a registered policy by name (``PagedConfig.step_policy``).
+    The SLO-aware policies of ``serving/scheduler.py`` are not ported yet,
+    so only the policies registered in this module resolve."""
+    try:
+        cls = POLICIES[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown step_policy {name!r}; registered: {sorted(POLICIES)}"
+        ) from None
+    return cls()

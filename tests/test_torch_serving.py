@@ -1,0 +1,228 @@
+"""The PyTorch port's paged serving engine against the JAX package's, on
+the CPU at the tiny config (fp32) with the same weights.
+
+Both engines run with ``use_paged_kernel=True``: the JAX side through its
+Pallas kernel in interpret mode, the port through the plain version of
+its CUDA kernel (the tensors lie on the CPU). The greedy token streams
+must be identical — the two differ only in summation order (fp32, ~1e-6
+on the logits), far below the gaps argmax decides on at this size — and so
+must the prefix-cache and preemption bookkeeping, which is host logic
+copied from the JAX package.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from neuronx_distributed_llama3_2_tpu.inference import (
+    GenerationConfig as JaxGenerationConfig,
+    InferenceEngine as JaxInferenceEngine,
+)
+from neuronx_distributed_llama3_2_tpu.models.llama import (
+    LLAMA_CONFIGS as JAX_CONFIGS,
+    LlamaForCausalLM as JaxLlama,
+)
+from neuronx_distributed_llama3_2_tpu.serving import (
+    PagedConfig as JaxPagedConfig,
+    PagedServingEngine as JaxPagedServingEngine,
+)
+from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
+    GenerationConfig,
+    InferenceEngine,
+)
+from neuronx_distributed_llama3_2_tpu_torch.models.llama import (
+    LLAMA_CONFIGS,
+    LlamaForCausalLM,
+    params_from_jax,
+)
+from neuronx_distributed_llama3_2_tpu_torch.serving.engine import (
+    UNPORTED_KNOBS,
+    PagedConfig,
+    PagedServingEngine,
+    make_serving_engine,
+)
+
+torch.set_num_threads(1)
+
+JAX_TINY = dataclasses.replace(JAX_CONFIGS["tiny"], use_paged_kernel=True)
+TINY = dataclasses.replace(LLAMA_CONFIGS["tiny"], use_paged_kernel=True)
+ENGINE_KW = dict(max_batch=4, max_seq_len=64, buckets=[8, 16, 32])
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """(JAX pytree, port module) holding the same seeded weights."""
+    jp = JaxLlama(JAX_TINY).init(jax.random.key(0))
+    np_params = jax.tree.map(np.asarray, jp)
+    model = LlamaForCausalLM(TINY, device="cpu")
+    model.load_state_dict(params_from_jax(np_params, TINY, device="cpu"))
+    return jp, model
+
+
+def _prompts(seed, lengths):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, TINY.vocab_size, size=(n,)).tolist() for n in lengths]
+
+
+def _serve_both(weights, phases, max_new_tokens, engine_kw=None, **paged_kw):
+    """Run the same submission phases through both engines. Each phase is
+    a list of prompts submitted together and run to completion. Returns
+    per engine (outputs, request infos, engine)."""
+    jp, model = weights
+    kw = dict(ENGINE_KW, **(engine_kw or {}))
+    jax_eng = JaxPagedServingEngine(
+        JaxInferenceEngine(JAX_TINY, jp, **kw),
+        JaxGenerationConfig(max_new_tokens=max_new_tokens),
+        JaxPagedConfig(**paged_kw), precompile=False,
+    )
+    port = PagedServingEngine(
+        InferenceEngine(TINY, model, **kw),
+        GenerationConfig(max_new_tokens=max_new_tokens),
+        PagedConfig(**paged_kw),
+    )
+    results = []
+    for eng in (jax_eng, port):
+        outs = {}
+        for prompts in phases:
+            for p in prompts:
+                eng.submit(p)
+            outs.update(eng.run_to_completion())
+        infos = [eng.request_info(r) for r in sorted(outs)]
+        results.append((outs, infos, eng))
+    return results
+
+
+def _bookkeeping(infos):
+    keys = ("generated_tokens", "cached_tokens", "preemptions", "status")
+    return [{k: i[k] for k in keys} for i in infos]
+
+
+def test_greedy_streams_match_jax_on_mixed_lengths(weights):
+    prompts = _prompts(3, (5, 12, 20, 9, 17, 3))
+    (j_out, j_info, _), (p_out, p_info, port) = _serve_both(
+        weights, [prompts], 8, block_size=8, num_blocks=64,
+    )
+    assert p_out == j_out
+    assert _bookkeeping(p_info) == _bookkeeping(j_info)
+    assert port.allocator.active_blocks == 0
+    assert port.allocator.leak_check() == []
+    # every decode layer call went through the kernel's wrapper
+    paths = port.model.attention_paths
+    assert paths["kernel"] >= port.metrics.decode_steps * TINY.num_layers
+    assert paths["gather"] == 0
+
+
+def test_shared_prefix_cached_tokens_match_jax(weights):
+    # 24 shared tokens = 3 full blocks admitted by reference; the 4-token
+    # suffix prefills through the kernel with t = 8 (bucket 8)
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, TINY.vocab_size, size=(24,)).tolist()
+    prompts = [
+        shared + rng.integers(0, TINY.vocab_size, size=(4,)).tolist()
+        for _ in range(4)
+    ]
+    (j_out, j_info, jax_eng), (p_out, p_info, port) = _serve_both(
+        weights, [prompts], 6, engine_kw=dict(max_batch=2),
+        block_size=8, num_blocks=64,
+    )
+    assert p_out == j_out
+    assert _bookkeeping(p_info) == _bookkeeping(j_info)
+    assert [i["cached_tokens"] for i in p_info] == [0, 24, 24, 24]
+    assert port.metrics.cached_tokens == jax_eng.metrics.cached_tokens
+
+
+def test_copy_on_write_partial_block_matches_jax(weights):
+    # the second prompt diverges at token 27, inside block 3 (block_size 8):
+    # token-granular match, copy-on-write before the suffix write
+    base = _prompts(11, (27,))[0]
+    (j_out, j_info, jax_eng), (p_out, p_info, port) = _serve_both(
+        weights, [[base + [1]], [base + [2, 3]]], 4,
+        block_size=8, num_blocks=64,
+    )
+    assert p_out == j_out
+    assert _bookkeeping(p_info) == _bookkeeping(j_info)
+    assert p_info[1]["cached_tokens"] == 27
+    assert port.allocator.cow_copies == jax_eng.allocator.cow_copies >= 1
+
+
+@pytest.mark.parametrize("caching", [False, True])
+def test_pool_exhaustion_preempts_like_jax(weights, caching):
+    # 9 usable blocks, 4 requests that each grow to 6 blocks: decode must
+    # exhaust the pool, preempt the youngest and requeue it
+    prompts = _prompts(5, (12, 12, 12, 12))
+    (j_out, j_info, jax_eng), (p_out, p_info, port) = _serve_both(
+        weights, [prompts], 36, block_size=8, num_blocks=10,
+        decode_reserve_blocks=1, enable_prefix_caching=caching,
+    )
+    assert p_out == j_out
+    assert _bookkeeping(p_info) == _bookkeeping(j_info)
+    assert port.metrics.preemptions == jax_eng.metrics.preemptions > 0
+    assert port.metrics.finished == 4
+    assert port.allocator.evictions == jax_eng.allocator.evictions
+
+
+@pytest.mark.parametrize("knob", sorted(UNPORTED_KNOBS))
+def test_unported_knobs_raise(weights, knob):
+    default = getattr(PagedConfig(), knob)
+    if isinstance(default, bool):
+        value = not default
+    elif isinstance(default, str):
+        value = default + "-other"
+    elif default is None:
+        value = 1 if knob != "policy_table_path" else "table.json"
+    else:
+        value = default + 1
+    eng = InferenceEngine(TINY, weights[1], **ENGINE_KW)
+    with pytest.raises(NotImplementedError, match=knob):
+        PagedServingEngine(eng, GenerationConfig(), PagedConfig(**{knob: value}))
+
+
+def test_engine_options_that_raise(weights):
+    eng = InferenceEngine(TINY, weights[1], **ENGINE_KW)
+    with pytest.raises(NotImplementedError, match="drafter"):
+        PagedServingEngine(eng, drafter=object())
+    with pytest.raises(NotImplementedError, match="injector"):
+        PagedServingEngine(eng, injector=object())
+    with pytest.raises(NotImplementedError, match="dense"):
+        make_serving_engine(eng, paged=None)
+    assert isinstance(
+        make_serving_engine(eng, paged=PagedConfig(block_size=8, num_blocks=16)),
+        PagedServingEngine,
+    )
+
+
+def test_cancel_and_request_lifecycle(weights):
+    eng = PagedServingEngine(
+        InferenceEngine(TINY, weights[1], **dict(ENGINE_KW, max_batch=1)),
+        GenerationConfig(max_new_tokens=4),
+        PagedConfig(block_size=8, num_blocks=64),
+    )
+    r0, r1, r2 = (eng.submit(p) for p in _prompts(0, (10, 10, 10)))
+    eng.step()  # r0 holds the only lane, r1 and r2 wait
+    assert eng.request_info(r0)["status"] == "active"
+    assert eng.request_info(r1)["status"] == "queued"
+    assert eng.cancel(r1) is True and eng.cancel(r1) is False
+    out = eng.run_to_completion()
+    assert len(out[r0]) == len(out[r2]) == 4 and out[r1] == []
+    assert eng.request_info(r1)["status"] == "failed"
+    assert eng.request_tokens(r2) == out[r2]
+    assert eng.allocator.active_blocks == 0
+    with pytest.raises(KeyError, match="unknown request id"):
+        eng.request_info(99)
+
+
+def test_submit_validation(weights):
+    eng = PagedServingEngine(
+        InferenceEngine(TINY, weights[1], **ENGINE_KW),
+        GenerationConfig(max_new_tokens=8),
+        PagedConfig(block_size=8, num_blocks=6),
+    )
+    with pytest.raises(ValueError, match="cache capacity"):
+        eng.submit(list(range(60)))  # 60 + 8 > max_seq_len 64
+    with pytest.raises(ValueError, match="blocks"):
+        eng.submit(list(range(30)))  # needs 5 + reserve > 5 usable
+    with pytest.raises(ValueError, match="decode_reserve_blocks"):
+        PagedServingEngine(eng.engine, paged=PagedConfig(decode_reserve_blocks=0))
