@@ -4,19 +4,29 @@
     python3 chip_smoke.py            # from the repository root
 
 1. Device: prints the card's name and power limit (nvidia-smi).
-2. Build: compiles every CUDA source of the port with nvcc for sm_90a.
+2. Build: compiles every CUDA source of the port with nvcc for sm_90a, one
+   nvcc per source, all started together.
 3. Serve: Llama-3.2 1B at full width (seeded random bf16 weights) behind
    the paged serving engine with the paged-decode kernel on; the kernel
    launch counters are zeroed just before and read just after, and every
    distinct geometry the model gives the kernel is recorded.
 4. End to end: teacher-forced check of the served tokens against the plain
    full-sequence forward on the card, which must also reject a serve
-   through a planted kernel fault.
-5. Kernels: runs each kernel on the card at a grid of shapes and at every
-   geometry the serve launched, against its plain PyTorch version, with
-   the tolerance stated, and times the kernel, the plain version and one
-   PyTorch library call computing the same function (a yardstick the port
-   never calls), beside the bound the card could reach.
+   through a planted kernel fault; then a profiled rerun of the serve.
+5. Train: Llama-3.2 1B at full width and depth in bench.py's training
+   configuration (batch 12 x 2048, remat "full", flash attention, loss
+   chunked at 256, AdamW with bf16 state) through TrainingConfig ->
+   initialize_parallel_model -> make_train_step; a warm-up step, then
+   timed steps with the flash-kernel launch counters zeroed just before
+   and read after each; the loss must be finite and fall. Then one step's
+   loss and gradients through the kernels against the same step through
+   the plain attention (which must also reject a backward through a
+   planted kernel fault), and a profiled step.
+6. Kernels: runs each kernel on the card at a grid of shapes and at every
+   geometry the main paths launched, against its plain PyTorch version,
+   with the tolerance stated, and times the kernel, the plain version and
+   one PyTorch library call computing the same function (a yardstick the
+   port never calls), beside the bound the card could reach.
 
 Every failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -39,10 +49,7 @@ import numpy as np
 import torch
 
 SEED = 0
-# H100 SXM published peaks (NVIDIA data sheet), for the bound of each kernel
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS_PER_S = 989e12
-# kernel vs plain version: both read bf16 operands and accumulate in fp32
+# K4 vs its plain version: both read bf16 operands and accumulate in fp32
 # but sum in another order, the kernel rounds the softmax weights to bf16
 # before p.V, and both round the output to bf16 on their own; so they may
 # differ by KERNEL_ULPS bf16 ulps of the largest output
@@ -85,14 +92,16 @@ def bf16_tolerance(ref: torch.Tensor) -> float:
     return KERNEL_ULPS * 2.0 ** (np.floor(np.log2(max(top, 2.0 ** -126))) - 7)
 
 
-def device_ms(fn, iters: int = 50, windows: int = 3):
-    """(device ms, wall ms) per call of ``fn(i)``, each the median over
-    ``windows`` runs of ``iters`` calls after three warm-up calls. Device
-    time is the summed duration of every CUDA kernel the calls launched
-    (torch.profiler, CUPTI); a window whose trace holds fewer kernels than
-    the fullest one lost records and is left out. Wall time is CUDA events
-    around the run, which includes the host's launch overhead whenever the
-    host is the slower side."""
+def device_ms(fn, iters: int = 50, windows: int = 3, matches=(None,)):
+    """([device ms for each entry of ``matches``], wall ms) per call of
+    ``fn(i)``, each the median over ``windows`` runs of ``iters`` calls
+    after three warm-up calls. Device time is the summed duration of the
+    CUDA kernels the calls launched (torch.profiler, CUPTI) whose name
+    contains the entry, or of all of them for None; so one window times
+    each kernel of a call that launches several. A window whose trace
+    holds fewer kernels than the fullest one lost records and is left
+    out. Wall time is CUDA events around the run, which includes the
+    host's launch overhead whenever the host is the slower side."""
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
@@ -108,13 +117,14 @@ def device_ms(fn, iters: int = 50, windows: int = 3):
         events = prof.key_averages()
         runs.append((
             sum(e.count for e in events if e.self_device_time_total > 0),
-            sum(e.self_device_time_total for e in events) / 1e3 / iters,
+            [sum(e.self_device_time_total for e in events if m is None or m in e.key)
+             / 1e3 / iters for m in matches],
             start.elapsed_time(end) / iters,
         ))
     full = max(r[0] for r in runs)
     check(full > 0, "the profiler recorded no device time")
-    dev = [r[1] for r in runs if r[0] == full]
-    return float(np.median(dev)), float(np.median([r[2] for r in runs]))
+    dev = np.asarray([r[1] for r in runs if r[0] == full])
+    return [float(x) for x in np.median(dev, axis=0)], float(np.median([r[2] for r in runs]))
 
 
 @dataclasses.dataclass
@@ -224,9 +234,11 @@ def paged_bound(c: DecodeCase):
     blocks = [-(-r // c.bs) for r in rows]
     io_bytes = 2 * (b * c.t * c.n * c.d * 2) + 4 * sum(blocks) + 4 * b
     seen = sum(int(p) + ti + 1 for p in c.positions for ti in range(c.t))
+    from neuronx_distributed_llama3_2_tpu_torch import flops as fl
+
     flops = 4 * seen * c.n * c.d
-    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = (kv_bytes + io_bytes) / fl.H100_HBM_BYTES_PER_S * 1e3
+    t_ops = flops / fl.H100_BF16_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), kv_bytes
 
 
@@ -276,9 +288,9 @@ def run_paged_kernel_phase(cfg, served: dict, card: str) -> dict:
 
         lib_err = (library(0).transpose(1, 2).float() - ref.float()).abs().max().item()
         check(lib_err <= tol, f"{c.name}: library yardstick disagrees ({lib_err})")
-        ms, wall_ms = device_ms(kernel)
-        plain_ms, plain_wall_ms = device_ms(plain)
-        library_ms, library_wall_ms = device_ms(library)
+        (ms,), wall_ms = device_ms(kernel)
+        (plain_ms,), plain_wall_ms = device_ms(plain)
+        (library_ms,), library_wall_ms = device_ms(library)
         bound_ms, bound_by, kv_bytes = paged_bound(c)
         splits = min(c.splits or pa.DEFAULT_NUM_SPLITS, nblk)
         served_by = f", {c.serve_launches} serve launches" if c.serve_launches else ""
@@ -517,6 +529,481 @@ def run_e2e_phase(cfg, model, prompts, outs, rids) -> None:
           f"the e2e check passes a planted kernel fault (gap {bad_gap})")
 
 
+
+# -- 5. train -------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 12, 2048
+TIMED_STEPS = 3
+E2E_BATCH = 2
+# launches of (K1, K2, K3) in one train step of the 16-layer model under
+# remat "full": each layer's forward runs K1 once and its recompute once
+# more in the backward, which runs K2 and K3 once
+STEP_LAUNCHES = (32, 16, 16)
+# end-to-end train check, kernels vs the plain attention path on the same
+# weights and batch (2 x 2048), both bf16 through 16 layers: |loss
+# difference| and the largest per-parameter relative L2 error of the
+# gradients. The plain path rounds its scores to bf16 before the softmax
+# and the kernels do not, so the two differ by more than summation order.
+# On an H100 the sound step reads a loss gap of 0.00064 and a gradient
+# error of 0.0296 (a layer-13 q projection), a planted K3 fault (skipping
+# the diagonal kv tile of every causal backward) 0.689; the bands are
+# about twice the sound readings, and run_train_e2e_phase fails unless the
+# fault reads above the gradient band
+LOSS_BAND = 0.00125
+GRAD_BAND = 0.06
+
+
+def train_configs():
+    """bench.py's training configuration (bench.py:51-76), for the port:
+    (model config, TrainingConfig)."""
+    from neuronx_distributed_llama3_2_tpu_torch.models.llama import LLAMA_CONFIGS
+    from neuronx_distributed_llama3_2_tpu_torch.trainer import (
+        OptimizerConfig,
+        TrainingConfig,
+    )
+
+    cfg = dataclasses.replace(
+        LLAMA_CONFIGS["llama3.2-1b"], remat="full", max_seq_len=TRAIN_SEQ,
+        use_flash_attention=True, flash_block_q=1024, flash_block_kv=1024,
+        loss_chunk_size=256,
+    )
+    tc = TrainingConfig(optimizer=OptimizerConfig(
+        zero_one_enabled=False, warmup_steps=1, use_master_weights=False,
+        use_fp32_grad_acc=False, state_dtype="bfloat16",
+    ))
+    return cfg, tc
+
+
+def train_batch(cfg, batch: int):
+    """bench.py's batch: token ids from np.random.default_rng(0), labels =
+    ids."""
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    ids = torch.as_tensor(ids[:batch], device="cuda")
+    return {"input_ids": ids, "labels": ids}
+
+
+def flash_counts():
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import flash_attention as fa
+
+    return (fa.fwd_launches.count, fa.bwd_dq_launches.count, fa.bwd_dkv_launches.count)
+
+
+def run_train_phase(card: str):
+    """Warm-up step, then TIMED_STEPS timed steps on bench's repeated
+    batch, the flash launch counters zeroed after the warm-up. Returns
+    (model, state, step, batch, (K1, K2, K3) launches over the timed
+    steps)."""
+    from neuronx_distributed_llama3_2_tpu_torch import flops
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import flash_attention as fa
+    from neuronx_distributed_llama3_2_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_llama3_2_tpu_torch.trainer import (
+        initialize_parallel_model,
+        make_train_step,
+    )
+
+    cfg, tc = train_configs()
+    tc.initialize("cuda")
+    model = LlamaForCausalLM(cfg, device="cuda")
+    state, _ = initialize_parallel_model(model, tc, key=SEED)
+    step = make_train_step(model, tc)
+    batch = train_batch(cfg, TRAIN_BATCH)
+    n_params = sum(p.numel() for p in state.params.values())
+    log(f"train: llama3.2-1b, {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+        f"{n_params} parameters, bf16, seeded random weights; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, remat {cfg.remat}, flash attention, loss chunk "
+        f"{cfg.loss_chunk_size}, AdamW bf16 state, no master weights")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    losses = [float(m["loss"])]
+    log(f"train: warm-up step {1e3 * (time.perf_counter() - t0):.6f} ms, loss "
+        f"{losses[0]:.6f}, grad_norm {float(m['grad_norm']):.6f}")
+    for c in (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches):
+        c.reset()
+    step_ms = []
+    prev = flash_counts()
+    for i in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))  # synchronizes
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        now = flash_counts()
+        per_step = tuple(a - b for a, b in zip(now, prev))
+        prev = now
+        check(per_step == STEP_LAUNCHES,
+              f"train step {i}: (K1, K2, K3) launches {per_step}, expected {STEP_LAUNCHES}")
+        log(f"train: step {i} {step_ms[-1]:.6f} ms, loss {losses[-1]:.6f}, grad_norm "
+            f"{float(m['grad_norm']):.6f}, lr {m['learning_rate']:.6g}, (K1, K2, K3) "
+            f"launches {per_step} | {card}")
+    launches = flash_counts()
+    check(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    med_ms = float(np.median(step_ms))
+    tps = TRAIN_BATCH * TRAIN_SEQ / (med_ms / 1e3)
+    util = flops.mfu(tps, n_params, cfg.num_layers, cfg.hidden_size, TRAIN_SEQ)
+    log(f"train: median step {med_ms:.6f} ms = {tps:.6f} tokens/s, MFU {100 * util:.6f}% "
+        f"of {flops.H100_BF16_FLOPS_PER_S:.4g} FLOP/s bf16; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.6f} GiB; losses {losses} | {card}")
+    return model, state, step, batch, launches
+
+
+def diagonal_tile_part(q, k, v, do, lse, delta, sm_scale, tile=64):
+    """The share of causal dk and dv that each kv tile of ``tile`` rows
+    receives from the q tile on its diagonal, in the kernels' arithmetic
+    (for the planted fault: a K3 that skips that tile)."""
+    b, n, s, d = q.shape
+    nkv = k.shape[1]
+    g, nt = n // nkv, s // tile
+    qt = q.float().reshape(b, nkv, g, nt, tile, d)
+    dot = do.float().reshape(b, nkv, g, nt, tile, d)
+    kt = k.float().reshape(b, nkv, nt, tile, d)
+    vt = v.float().reshape(b, nkv, nt, tile, d)
+    sc = torch.einsum("bkgtid,bktjd->bkgtij", qt, kt) * sm_scale
+    causal = torch.ones(tile, tile, dtype=torch.bool, device=q.device).tril()
+    p = torch.where(causal, torch.exp(sc - lse.reshape(b, nkv, g, nt, tile)[..., None]), 0.0)
+    dp = torch.einsum("bkgtid,bktjd->bkgtij", dot, vt)
+    ds = (p * (dp - delta.reshape(b, nkv, g, nt, tile)[..., None])).to(k.dtype).float()
+    dv = torch.einsum("bkgtij,bkgtid->bktjd", p.to(v.dtype).float(), dot)
+    dk = sm_scale * torch.einsum("bkgtij,bkgtid->bktjd", ds, qt)
+    return dk.reshape(b, nkv, s, d), dv.reshape(b, nkv, s, d)
+
+
+@contextlib.contextmanager
+def k3_skips_diagonal():
+    """Plant a fault in K3 while the block runs: every causal backward
+    returns dk and dv without their diagonal-tile share."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import flash_attention as fa
+
+    inner = fa._launch_bwd
+
+    def faulty(q, k, v, do, lse, delta, causal, sm_scale):
+        dq, dk, dv = inner(q, k, v, do, lse, delta, causal, sm_scale)
+        if causal:
+            dk_diag, dv_diag = diagonal_tile_part(
+                q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(),
+                lse, delta, sm_scale,
+            )
+            dk = (dk.float() - dk_diag).to(dk.dtype)
+            dv = (dv.float() - dv_diag).to(dv.dtype)
+        return dq, dk, dv
+
+    fa._launch_bwd = faulty
+    try:
+        yield
+    finally:
+        fa._launch_bwd = inner
+
+
+def loss_and_grads(model, batch):
+    params = dict(model.named_parameters())
+    loss = model.loss(batch["input_ids"], batch["labels"])
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach().item(), dict(zip(params, grads))
+
+
+def grad_gap(grads, ref):
+    """Largest per-parameter relative L2 error, and the parameter."""
+    worst, at = 0.0, ""
+    for k, g in grads.items():
+        r = ref[k].float()
+        err = ((g.float() - r).norm() / r.norm().clamp_min(1e-30)).item()
+        if err > worst:
+            worst, at = err, k
+    return worst, at
+
+
+def run_train_e2e_phase(model, card: str) -> None:
+    """One step's loss and gradients through the kernels against the same
+    step through ``core_attention`` (use_flash_attention=False): same
+    weights, bench's batch cut to E2E_BATCH rows, full width and depth.
+    Then the same comparison through a planted K3 fault, which must read
+    above GRAD_BAND."""
+    from neuronx_distributed_llama3_2_tpu_torch.models.llama import LlamaForCausalLM
+
+    cfg = model.config
+    plain = LlamaForCausalLM(dataclasses.replace(cfg, use_flash_attention=False), device="cuda")
+    plain.load_state_dict(model.state_dict())
+    batch = train_batch(cfg, E2E_BATCH)
+    ref_loss, ref_grads = loss_and_grads(plain, batch)
+    del plain
+    loss, grads = loss_and_grads(model, batch)
+    loss_gap = abs(loss - ref_loss)
+    gap, at = grad_gap(grads, ref_grads)
+    log(f"train e2e: loss {loss:.6f} through the kernels vs {ref_loss:.6f} plain "
+        f"(gap {loss_gap:.6g}, band {LOSS_BAND}); largest gradient relative L2 "
+        f"error {gap:.6g} at {at} (band {GRAD_BAND}) | {card}")
+    check(np.isfinite(loss) and loss_gap <= LOSS_BAND, f"train loss gap {loss_gap}")
+    check(gap <= GRAD_BAND, f"train gradient gap {gap} at {at}")
+    del grads
+    with k3_skips_diagonal():
+        _, bad_grads = loss_and_grads(model, batch)
+    bad_gap, bad_at = grad_gap(bad_grads, ref_grads)
+    log(f"train e2e planted fault (K3 skips the diagonal kv tile): largest gradient "
+        f"relative L2 error {bad_gap:.6g} at {bad_at} (band {GRAD_BAND})")
+    check(bad_gap > GRAD_BAND, f"the train e2e check passes a planted K3 fault ({bad_gap})")
+
+
+def run_train_profile_phase(state, step, batch, card: str) -> None:
+    """One more train step under torch.profiler: the card's busy share of
+    its wall time and the kernels that took it."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in events if "flash_" in e.key) / 1e3
+    log(f"profile: train step wall {wall_ms:.6f} ms (profiler on), device busy "
+        f"{busy_ms:.6f} ms = {100 * busy_ms / wall_ms:.6f}% of it; flash kernels "
+        f"{flash_ms:.6f} ms = {100 * flash_ms / busy_ms:.6f}% of device time | {card}")
+    # device time by kind of kernel, first matching name fragment wins
+    kinds = (("flash kernels", ("flash_",)), ("GEMMs", ("nvjet", "gemm", "cutlass", "xmma")),
+             ("copies and casts", ("copy",)), ("reductions", ("reduce",)),
+             ("other elementwise", ("elementwise",)))
+    by_kind: dict = {}
+    for e in events:
+        kind = next((k for k, frags in kinds if any(f in e.key for f in frags)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+    log("profile: train step device time by kind: " + "; ".join(
+        f"{k} {ms:.6f} ms ({100 * ms / busy_ms:.6f}%)"
+        for k, ms in sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    for e in events[:15]:
+        log(f"  device {e.self_device_time_total / 1e3:.6f} ms, {e.count} calls: {e.key[:100]}")
+
+
+# -- 6. flash kernels -----------------------------------------------------------
+
+# (name, B, N, Nkv, S, D, causal, timing iterations); the first is the
+# train step's shape, whose numbers go into the kernels record and where
+# the planted fault runs
+FLASH_CASES = (
+    ("train causal", 12, 32, 8, 2048, 64, True, 10),
+    ("train full", 12, 32, 8, 2048, 64, False, 5),
+    ("3b causal (D 128, G 3)", 2, 24, 8, 2048, 128, True, 10),
+    ("3b full (D 128, G 3)", 2, 24, 8, 2048, 128, False, 10),
+    ("unaligned S 1000 causal", 2, 32, 8, 1000, 64, True, 10),
+    ("unaligned S 1000 full", 2, 32, 8, 1000, 64, False, 10),
+)
+# lse is fp32 from the same bf16 products in another order
+LSE_TOL = 1e-4
+# K1-K3 vs their plain versions, held element by element and tile by tile:
+# ulps of a tensor's largest value would be as large as a late causal
+# row's whole output. Both read bf16 operands, accumulate in fp32 in
+# another order and round o, dq, dk, dv to bf16 on their own; K1 rounds P
+# to bf16 against the running max of its 64-row kv tiles, the plain
+# version against that of 1024-row chunks, so their rounded P differ at
+# random by up to a bf16 ulp (2^-8) relative. Hence:
+# - each output element within ROW_ULPS bf16 ulps of its own plain value
+#   plus ROW_ULPS ulps of the largest |plain value| of its row (the D
+#   values of one (b, head, position)), a row's largest taken as at least
+#   ROW_FLOOR of the tensor's: a row whose plain value cancels to 0 (dq of
+#   causal row 0, where dP = delta) keeps the kernel's fp32 rounding of
+#   that cancellation, about 1e-7 of the tensor's largest;
+# - each (b, head, TILE-row tile) within TILE_REL_L2 relative L2 error:
+#   the P roundings give about 2^-9 relative and the output roundings as
+#   much again, a few thousandths in all.
+ROW_ULPS = 2
+ROW_FLOOR = 2.0 ** -12
+TILE_REL_L2 = 1e-2
+TILE = 64
+# the kernel phase's planted fault, at the train shape: kernels that leave
+# out the kv rows FAULT_KV for the q rows FAULT_Q (one 64 x 64 tile): 64
+# of the ~2000 keys of those q rows, 64 of the 1024 queries of those kv
+# rows. The check must reject every output the fault touches
+FAULT_Q = (1984, 2048)
+FAULT_KV = (1024, 1088)
+
+
+def flash_bound(b, n, nkv, s, d, causal, k: int):
+    """Least time of K1 (k=1), K2 (k=2) or K3 (k=3) at this shape: FLOPs
+    of 4, 6 or 8 x D per attended (q, kv) pair over the bf16 peak, against
+    each input read once and each output written once over HBM bandwidth."""
+    from neuronx_distributed_llama3_2_tpu_torch import flops as fl
+
+    pairs = b * n * (s * (s + 1) // 2 if causal else s * s)
+    flops = (2 + 2 * k) * d * pairs
+    qo = b * n * s * d * 2     # one (B, N, S, D) bf16 tensor
+    kv = b * nkv * s * d * 2   # one (B, Nkv, S, D) bf16 tensor
+    vec = b * n * s * 4        # one (B, N, S) fp32 vector
+    nbytes = {1: 2 * qo + 2 * kv + vec,            # q, k, v -> o, lse
+              2: 3 * qo + 2 * kv + 2 * vec,        # q, k, v, do, lse, delta -> dq
+              3: 2 * qo + 4 * kv + 2 * vec}[k]     # q, k, v, do, lse, delta -> dk, dv
+    t_ops = flops / fl.H100_BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / fl.H100_HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 ulp (8 significant bits) at each |x|."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def flash_agreement(out: torch.Tensor, ref: torch.Tensor):
+    """How far a (B, H, S, D) kernel output lies from its plain version:
+    (the largest ratio of an element's error to its limit, the largest
+    relative L2 error of a (b, head, TILE-row tile)). It agrees when the
+    first is at most 1 and the second at most TILE_REL_L2."""
+    r = ref.float()
+    diff = out.float() - r
+    row_top = r.abs().amax(dim=-1, keepdim=True).clamp_min(ROW_FLOOR * r.abs().max())
+    limit = ROW_ULPS * (bf16_ulp(r) + bf16_ulp(row_top))
+    elem = (diff.abs() / limit).max().item()
+
+    def tile_norms(x):
+        rows = torch.nn.functional.pad(x.square().sum(dim=-1), (0, -x.shape[2] % TILE))
+        return rows.reshape(*rows.shape[:2], -1, TILE).sum(dim=-1).sqrt()
+
+    rel = (tile_norms(diff) / tile_norms(r).clamp_min(1e-30)).max().item()
+    return elem, rel
+
+
+@contextlib.contextmanager
+def plain_skips_tile():
+    """While the block runs, the plain versions leave out the (q, kv) pairs
+    of FAULT_Q x FAULT_KV, as a kernel that skipped that tile would."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import flash_attention as fa
+
+    inner = fa._mask
+
+    def mask(q_pos, kv_pos, causal, segment_ids):
+        skip = (((q_pos >= FAULT_Q[0]) & (q_pos < FAULT_Q[1]))[:, None]
+                & ((kv_pos >= FAULT_KV[0]) & (kv_pos < FAULT_KV[1]))[None, :])
+        return inner(q_pos, kv_pos, causal, segment_ids) & ~skip
+
+    fa._mask = mask
+    try:
+        yield
+    finally:
+        fa._mask = inner
+
+
+def run_flash_kernel_phase(card: str) -> dict:
+    """K1, K2 and K3 against their plain versions at FLASH_CASES (held by
+    ``flash_agreement``, lse within LSE_TOL), with kernel, plain, library
+    and bound times. At the train shape the same check must also reject
+    the kernels' outputs with a planted fault (``plain_skips_tile``)."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst = {1: 0.0, 2: 0.0, 3: 0.0}
+    worst_elem, worst_rel = 0.0, 0.0
+    record = None
+    for name, b, n, nkv, s, d, causal, iters in FLASH_CASES:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+        q, k, v, do = randn(b, n, s, d), randn(b, nkv, s, d), randn(b, nkv, s, d), randn(b, n, s, d)
+        sc = d ** -0.5
+        o, lse = fa.flash_fwd(q, k, v, None, causal, sc)
+        dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, None, causal, sc)
+        outs = {"o": o, "dq": dq, "dk": dk, "dv": dv}
+        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, None, causal, sc, block_kv=1024)
+        refs = dict(zip(("o", "dq", "dk", "dv"), (o_ref, *fa.flash_bwd_reference(
+            q, k, v, o, lse, do, None, causal, sc, block_kv=1024))))
+        torch.cuda.synchronize()
+        errs = {}
+        for kn, label in ((1, "o"), (2, "dq"), (3, "dk"), (3, "dv")):
+            out, ref = outs[label], refs[label]
+            check(bool(torch.isfinite(out).all()), f"flash {name}: non-finite {label}")
+            err = (out.float() - ref.float()).abs().max().item()
+            elem, rel = flash_agreement(out, ref)
+            check(elem <= 1.0 and rel <= TILE_REL_L2,
+                  f"flash {name}: {label} disagrees with the plain version (error "
+                  f"{elem} x its element limit, tile relative L2 {rel})")
+            worst[kn] = max(worst[kn], err)
+            worst_elem, worst_rel = max(worst_elem, elem), max(worst_rel, rel)
+            # the share of outputs not bitwise equal to the plain version's
+            # (recorded, not checked: the summation orders differ)
+            differ = (out != ref).float().mean().item()
+            errs[label] = (err, elem, rel, differ)
+        lse_err = (lse - lse_ref).abs().max().item()
+        check(lse_err <= LSE_TOL, f"flash {name}: lse max_abs_err {lse_err}")
+        del o_ref, lse_ref
+
+        if record is None:
+            # the planted fault: the kernels' outputs plus what leaving out
+            # the tile changes in the plain versions
+            with plain_skips_tile():
+                bad = dict(zip(("o", "dq", "dk", "dv"), (
+                    fa.flash_fwd_reference(q, k, v, None, causal, sc, block_kv=1024)[0],
+                    *fa.flash_bwd_reference(q, k, v, o, lse, do, None, causal, sc,
+                                            block_kv=1024))))
+            for label, out in outs.items():
+                planted = (out.float() + bad[label].float() - refs[label].float()).to(out.dtype)
+                elem, rel = flash_agreement(planted, refs[label])
+                log(f"flash [{name}] planted fault (kv rows {FAULT_KV} left out for q rows "
+                    f"{FAULT_Q}): {label} error {elem:.6g} x its element limit, tile "
+                    f"relative L2 {rel:.6g} (limits 1, {TILE_REL_L2})")
+                check(elem > 1.0 or rel > TILE_REL_L2,
+                      f"the flash check passes a planted fault in {label}")
+            del bad, planted
+        del refs, outs
+
+        def fwd(i):
+            return fa.flash_fwd(q, k, v, None, causal, sc)
+
+        def bwd(i):
+            return fa.flash_bwd(q, k, v, o, lse, do, None, causal, sc)
+
+        def fwd_plain(i):
+            return fa.flash_fwd_reference(q, k, v, None, causal, sc, block_kv=1024)
+
+        def bwd_plain(i):
+            return fa.flash_bwd_reference(q, k, v, o, lse, do, None, causal, sc, block_kv=1024)
+
+        def fwd_lib(i):
+            return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+
+        ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+        o_lib = sdpa(ql, kl, vl, is_causal=causal, enable_gqa=True)
+
+        def bwd_lib(i):
+            return torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True)
+
+        times = {1: device_ms(fwd, iters, matches=("flash_fwd_kernel",))[0][0]}
+        times[2], times[3] = device_ms(
+            bwd, iters, matches=("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))[0]
+        (plain_fwd,), _ = device_ms(fwd_plain, max(2, iters // 5))
+        (plain_bwd,), _ = device_ms(bwd_plain, max(2, iters // 5))
+        (lib_fwd,), _ = device_ms(fwd_lib, iters)
+        (lib_bwd,), _ = device_ms(bwd_lib, iters)
+        bounds = {kn: flash_bound(b, n, nkv, s, d, causal, kn) for kn in (1, 2, 3)}
+        err_txt = ", ".join(
+            f"{lb} {e:.6g} ({el:.4f} x its element limit, tile rel L2 {rl:.6g}; "
+            f"{100 * f:.4f}% differ)" for lb, (e, el, rl, f) in errs.items()
+        )
+        log(f"kernel flash [{name}] B={b} N={n} Nkv={nkv} S={s} D={d}: {err_txt}, lse "
+            f"{lse_err:.6g}; K1 {times[1]:.6f} ms (bound {bounds[1][0]:.6f}, {bounds[1][1]}), "
+            f"K2 {times[2]:.6f} ms (bound {bounds[2][0]:.6f}), K3 {times[3]:.6f} ms "
+            f"(bound {bounds[3][0]:.6f}); plain fwd {plain_fwd:.6f} / bwd {plain_bwd:.6f} "
+            f"ms; library (SDPA) fwd {lib_fwd:.6f} / bwd {lib_bwd:.6f} ms | {card}")
+        if record is None:
+            record = {
+                kn: dict(ms=times[kn], bound_ms=bounds[kn][0], bound_by=bounds[kn][1],
+                         plain_ms=plain_fwd if kn == 1 else plain_bwd,
+                         library_ms=lib_fwd if kn == 1 else lib_bwd)
+                for kn in (1, 2, 3)
+            }
+        del q, k, v, do, o, lse, dq, dk, dv, ql, kl, vl, o_lib
+        torch.cuda.empty_cache()
+    log(f"flash: every case agrees with the plain version: each element within "
+        f"{ROW_ULPS} bf16 ulps of its own value plus {ROW_ULPS} of its row's largest "
+        f"(worst {worst_elem:.6g} x that limit), each {TILE}-row tile within relative "
+        f"L2 {TILE_REL_L2} (worst {worst_rel:.6g}); worst abs err K1 {worst[1]:.6g}, "
+        f"K2 {worst[2]:.6g}, K3 {worst[3]:.6g}; lse within {LSE_TOL}; tolerance: bf16 "
+        "operands and outputs, fp32 accumulation in another order, P rounded against "
+        "another running max; K2's and K3's plain and library times are of dq, dk and "
+        "dv together, and K2 and K3 are timed in one window of flash_bwd")
+    for kn in (1, 2, 3):
+        record[kn]["max_abs_err"] = worst[kn]
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -547,14 +1034,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     paged = run_paged_kernel_phase(cfg, served, card)
 
+    model, state, step, batch, train_launches = run_train_phase(card)
+    run_train_e2e_phase(model, card)
+    run_train_profile_phase(state, step, batch, card)
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    flash = run_flash_kernel_phase(card)
+
+    fa_src = "neuronx_distributed_llama3_2_tpu_torch/kernels/csrc/"
+    pfa = "neuronx_distributed_llama3_2_tpu/kernels/pallas_flash_attention.py:"
     kernels = [dict(
-        name="paged_decode", route="cuda",
-        source="neuronx_distributed_llama3_2_tpu_torch/kernels/csrc/paged_decode.cu",
+        name="paged_decode", route="cuda", source=fa_src + "paged_decode.cu",
         replaces="neuronx_distributed_llama3_2_tpu/kernels/paged_attention_pallas.py:419",
         launches=launches, max_abs_err=paged["max_abs_err"], ms=paged["ms"],
         plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
         bound_by=paged["bound_by"], library_ms=paged["library_ms"],
     )]
+    for kn, name, src, line in ((1, "flash_fwd", "flash_fwd.cu", 194),
+                                (2, "flash_bwd_dq", "flash_bwd.cu", 394),
+                                (3, "flash_bwd_dkv", "flash_bwd.cu", 433)):
+        kernels.append(dict(
+            name=name, route="cuda", source=fa_src + src, replaces=f"{pfa}{line}",
+            launches=train_launches[kn - 1], **flash[kn],
+        ))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

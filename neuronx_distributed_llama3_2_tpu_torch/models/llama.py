@@ -1,4 +1,4 @@
-"""Llama-3 / Llama-3.2 model family: the inference-side subset, in PyTorch.
+"""Llama-3 / Llama-3.2 model family, in PyTorch.
 
 Counterpart of ``neuronx_distributed_llama3_2_tpu/models/llama.py``. Each
 class keeps its JAX name and its parameter layout, so a weight pytree
@@ -12,20 +12,29 @@ crosses between the packages through :func:`params_from_jax` /
 - norm scales are fp32 whatever the compute dtype;
 - the LM head is tied to the embedding unless the config says otherwise.
 
-Training (loss, remat, flash attention, sequence/context parallelism) is
-the training slice's work.
+Training runs on one device: :meth:`LlamaForCausalLM.loss` (the chunked
+cross-entropy of ``loss_chunk_size``), per-layer remat ``"none"`` /
+``"full"`` through ``torch.utils.checkpoint``, and the flash-attention
+kernels when ``use_flash_attention`` is set. Sequence and context
+parallelism wait for the multi-GPU slice; the other remat policies raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from neuronx_distributed_llama3_2_tpu_torch.kernels.flash_attention import (
+    DEFAULT_BLOCK_KV,
+    DEFAULT_BLOCK_Q,
+    flash_attention,
+)
 from neuronx_distributed_llama3_2_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
     GQAQKVColumnParallelLinear,
@@ -33,6 +42,11 @@ from neuronx_distributed_llama3_2_tpu_torch.parallel.layers import (
     ParallelEmbedding,
     RowParallelLinear,
     normal_init_,
+)
+from neuronx_distributed_llama3_2_tpu_torch.parallel.loss import (
+    fused_linear_cross_entropy,
+    parallel_cross_entropy,
+    valid_token_mask,
 )
 from neuronx_distributed_llama3_2_tpu_torch.utils.device import (
     DeviceLike,
@@ -64,7 +78,8 @@ class LlamaConfig:
     # training-side knobs, kept so configs read the same in both packages
     remat: str = "selective"
     scan_layers: bool = True
-    # the flash-attention kernels come with the training slice
+    # attention through kernels/flash_attention.py (the CUDA kernels K1-K3
+    # on the card; the plain blockwise path on the CPU)
     use_flash_attention: bool = False
     flash_block_q: Optional[int] = None
     flash_block_kv: Optional[int] = None
@@ -149,8 +164,7 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.dtype = dtype
         self.scale = nn.Parameter(
-            torch.ones(dim, dtype=torch.float32, device=device),
-            requires_grad=False,
+            torch.ones(dim, dtype=torch.float32, device=device)
         )
 
     def reset_parameters(self, generator=None) -> None:
@@ -174,14 +188,10 @@ class LayerNorm(nn.Module):
         self.eps = eps
         self.dtype = dtype
         self.scale = nn.Parameter(
-            torch.ones(dim, dtype=torch.float32, device=device),
-            requires_grad=False,
+            torch.ones(dim, dtype=torch.float32, device=device)
         )
         self.bias = (
-            nn.Parameter(
-                torch.zeros(dim, dtype=torch.float32, device=device),
-                requires_grad=False,
-            )
+            nn.Parameter(torch.zeros(dim, dtype=torch.float32, device=device))
             if bias else None
         )
 
@@ -326,16 +336,18 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, sin, cos, positions) -> torch.Tensor:
         c = self.config
-        if c.use_flash_attention:
-            raise NotImplementedError(
-                "use_flash_attention: the flash-attention kernels (forward, "
-                "dq, dk/dv) come with the training slice of the port"
-            )
         b, s = x.shape[:2]
         q, k, v = self.project_qkv(x)
         q = apply_rope(q, sin, cos, positions)
         k = apply_rope(k, sin, cos, positions)
-        attn = core_attention(q, k, v, causal=True)
+        if c.use_flash_attention:
+            attn = flash_attention(
+                q, k, v, causal=True,
+                block_q=c.flash_block_q or DEFAULT_BLOCK_Q,
+                block_kv=c.flash_block_kv or DEFAULT_BLOCK_KV,
+            )
+        else:
+            attn = core_attention(q, k, v, causal=True)
         return self.o(attn.reshape(b, s, c.num_heads * c.head_dim))
 
 
@@ -349,8 +361,7 @@ class LlamaMLP(nn.Module):
             torch.empty(
                 (c.hidden_size, 2, c.intermediate_size), dtype=c.dtype,
                 device=device,
-            ),
-            requires_grad=False,
+            )
         )
         self.down = RowParallelLinear(
             c.intermediate_size, c.hidden_size, dtype=c.dtype, device=device
@@ -442,13 +453,27 @@ class LlamaForCausalLM(nn.Module):
         )
 
     def _backbone(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """Embed + decoder stack + final norm -> hidden states (B, S, H)."""
+        """Embed + decoder stack + final norm -> hidden states (B, S, H).
+        While autograd records, ``remat="full"`` runs each layer under
+        ``torch.utils.checkpoint`` (nothing inside is kept; the backward
+        recomputes the layer), as the JAX package's ``nothing_saveable``
+        policy does; ``"none"`` keeps every activation."""
+        c = self.config
+        remat = torch.is_grad_enabled() and c.remat == "full"
+        if torch.is_grad_enabled() and c.remat not in ("none", "full"):
+            raise NotImplementedError(
+                f"remat={c.remat!r} is not ported yet: the port trains with "
+                "remat 'none' or 'full'"
+            )
         b, s = input_ids.shape
         positions = torch.arange(s, device=input_ids.device).expand(b, s)
         sin, cos = self._rope(s)
         x = self.embed(input_ids)
         for layer in self.layers:
-            x = layer(x, sin, cos, positions)
+            if remat:
+                x = checkpoint(layer, x, sin, cos, positions, use_reentrant=False)
+            else:
+                x = layer(x, sin, cos, positions)
         return self.final_norm(x)
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -458,7 +483,35 @@ class LlamaForCausalLM(nn.Module):
 
     @torch.no_grad()
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Full logits (B, S, V), without autograd: the serving and eval
+        forward. Training goes through :meth:`loss`."""
         return self._logits(self._backbone(input_ids))
+
+    def loss_from_hidden(
+        self, hidden: torch.Tensor, labels: torch.Tensor
+    ) -> torch.Tensor:
+        """LM head + masked-mean cross-entropy over the shifted labels;
+        chunked over the sequence (:func:`..parallel.loss.fused_linear_cross_entropy`)
+        when ``loss_chunk_size`` is set, so the (B, S, V) logits never
+        materialize."""
+        shifted = labels[:, 1:]
+        if self.config.loss_chunk_size is not None:
+            loss_sum, count = fused_linear_cross_entropy(
+                hidden[:, :-1, :], self._logits, shifted,
+                chunk_size=self.config.loss_chunk_size,
+            )
+            return loss_sum / torch.clamp(count, min=1.0)
+        per_tok = parallel_cross_entropy(self._logits(hidden[:, :-1, :]), shifted)
+        # the CE's own validity rule, so the denominator never counts a
+        # token whose numerator was zeroed
+        valid = valid_token_mask(shifted, self.config.vocab_size).float()
+        return (per_tok * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+
+    def loss(self, input_ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Mean next-token cross-entropy, fp32 scalar. ``labels`` are
+        aligned with ``input_ids`` (HF convention: the shift happens here).
+        Records autograd unless the caller disables it."""
+        return self.loss_from_hidden(self._backbone(input_ids), labels)
 
 
 # ---------------------------------------------------------------------------
@@ -493,33 +546,46 @@ def params_from_jax(
     axis (the fused MLP weight is ``gate_up`` (L, H, 2, I)); they are
     unstacked per layer here. Norm scales stay fp32, kernels take
     ``config.dtype``."""
+    return tree_from_jax(
+        np_params, config,
+        lambda name: torch.float32 if name.endswith("scale") else config.dtype,
+        device,
+    )
+
+
+def tree_from_jax(
+    np_tree: Mapping[str, Any], config: LlamaConfig,
+    dtype_of: Callable[[str], torch.dtype], device: DeviceLike = "cuda",
+) -> Dict[str, torch.Tensor]:
+    """Any pytree shaped like the JAX package's Llama parameters (the
+    weights, or one of AdamW's moments) -> a dict keyed by the port's
+    parameter names, leaf ``name`` cast to ``dtype_of(name)``."""
     dev = resolve_device(device)
 
-    def t(a, dtype):
+    def t(a, name):
         return torch.tensor(np.asarray(a, dtype=np.float32)).to(
-            device=dev, dtype=dtype
+            device=dev, dtype=dtype_of(name)
         )
 
-    c = config
     sd: Dict[str, torch.Tensor] = {
-        "embed.embedding": t(np_params["embed"]["embedding"], c.dtype),
-        "final_norm.scale": t(np_params["final_norm"]["scale"], torch.float32),
+        "embed.embedding": t(np_tree["embed"]["embedding"], "embed.embedding"),
+        "final_norm.scale": t(np_tree["final_norm"]["scale"], "final_norm.scale"),
     }
     for path, name in _LAYER_LEAVES:
-        stacked = np.asarray(_dig(np_params["layers"], path))
-        dtype = torch.float32 if name.endswith("scale") else c.dtype
-        for i in range(c.num_layers):
-            sd[f"layers.{i}.{name}"] = t(stacked[i], dtype)
-    if not c.tie_word_embeddings:
-        sd["lm_head.kernel"] = t(np_params["lm_head"]["kernel"], c.dtype)
+        stacked = np.asarray(_dig(np_tree["layers"], path))
+        for i in range(config.num_layers):
+            sd[f"layers.{i}.{name}"] = t(stacked[i], f"layers.{i}.{name}")
+    if not config.tie_word_embeddings:
+        sd["lm_head.kernel"] = t(np_tree["lm_head"]["kernel"], "lm_head.kernel")
     return sd
 
 
 def params_to_jax(
     state_dict: Mapping[str, torch.Tensor], config: LlamaConfig
 ) -> Dict[str, Any]:
-    """Inverse of :func:`params_from_jax`: a :class:`LlamaForCausalLM` state
-    dict -> the JAX package's pytree as fp32 numpy arrays, layers stacked."""
+    """Inverse of :func:`params_from_jax` (and of :func:`tree_from_jax`): a
+    dict keyed by :class:`LlamaForCausalLM` parameter names -> the JAX
+    package's pytree as fp32 numpy arrays, layers stacked."""
 
     def n(x):
         return x.detach().to("cpu", torch.float32).numpy()

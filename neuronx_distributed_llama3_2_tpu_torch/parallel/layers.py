@@ -26,9 +26,7 @@ KERNEL_INIT_STD = 0.02
 
 
 def _empty(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(
-        torch.empty(shape, dtype=dtype, device=device), requires_grad=False
-    )
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 def normal_init_(

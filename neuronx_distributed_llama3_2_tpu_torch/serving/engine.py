@@ -636,12 +636,14 @@ class PagedServingEngine:
                     self.index.insert(seq[: n_full * bs], table[:n_full])
             self._maybe_finish(req)
 
+    @torch.no_grad()
     def _prefill(self, suffix: List[int], cached: int, table: List[int]) -> int:
         """Run one prefill over the request's table and read its sampled
         token back: the whole prompt (``pctx``, plain-torch attention over
         the fresh block) when nothing is cached, else the suffix after the
         cached prefix (``psfx``, attending the shared blocks through the
-        table)."""
+        table). No autograd: the LM head here runs outside the model's
+        own no-grad forward."""
         eng = self.engine
         bucket = pick_bucket(self._prefill_buckets, max(len(suffix), 1))
         ids = np.zeros((1, bucket), np.int32)

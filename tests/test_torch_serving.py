@@ -115,6 +115,29 @@ def test_greedy_streams_match_jax_on_mixed_lengths(weights):
     assert paths["gather"] == 0
 
 
+def test_serving_records_no_autograd(weights, monkeypatch):
+    """The parameters are trainable, yet no tensor a serve produces carries
+    autograd history: every logits tensor the engine samples from, on
+    prefill and decode, has no grad_fn."""
+    import neuronx_distributed_llama3_2_tpu_torch.serving.engine as serving_engine
+
+    _, model = weights
+    assert all(p.requires_grad for p in model.parameters())
+    seen = []
+    inner = serving_engine.sample
+
+    def recording(logits, *args, **kwargs):
+        seen.append(logits.grad_fn is None and not logits.requires_grad)
+        return inner(logits, *args, **kwargs)
+
+    monkeypatch.setattr(serving_engine, "sample", recording)
+    (j_out, _, _), (p_out, _, _) = _serve_both(
+        weights, [_prompts(6, (4, 11, 7))], 4, block_size=8, num_blocks=32,
+    )
+    assert p_out == j_out
+    assert len(seen) > 3 and all(seen)
+
+
 def test_shared_prefix_cached_tokens_match_jax(weights):
     # 24 shared tokens = 3 full blocks admitted by reference; the 4-token
     # suffix prefills through the kernel with t = 8 (bucket 8)
