@@ -13,6 +13,13 @@
 4. End to end: teacher-forced check of the served tokens against the plain
    full-sequence forward on the card, which must also reject a serve
    through a planted kernel fault; then a profiled rerun of the serve.
+   Then two more serves of the same prompts from a quantized KV pool with
+   chunked prefill (256-token chunks): Q1, int8 with the kernel's mode 3
+   (dequantize in the kernel), and Q2, fp8 e4m3 with quant_mxu (mode 6,
+   the q.k dot in fp8). Each is checked the same way against one
+   whole-prompt pass of the decode model over a fresh pool of the same
+   dtype (which reads the same quantized K/V and runs no kernel), and must
+   reject a serve whose kernel calls read V's scales as K's.
 5. Train: Llama-3.2 1B at full width and depth in bench.py's training
    configuration (batch 12 x 2048, remat "full", flash attention, loss
    chunked at 256, AdamW with bf16 state) through TrainingConfig ->
@@ -26,7 +33,13 @@
    geometry the main paths launched, against its plain PyTorch version,
    with the tolerance stated, and times the kernel, the plain version and
    one PyTorch library call computing the same function (a yardstick the
-   port never calls), beside the bound the card could reach.
+   port never calls), beside the bound the card could reach. The
+   paged-decode kernel runs so for the bf16 pool and for each of the six
+   quantized combinations {int8, fp8 e4m3, fp8 e5m2} x {mode 3, mode 6},
+   at the median call of each served geometry, and once more on a probe
+   built to expose the faults a quantized kernel could hide: there the
+   check must reject the kernel's output with dequantized values left
+   unrounded, and (mode 6) with mode 3's arithmetic in place of mode 6's.
 
 Every failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -49,11 +62,27 @@ import numpy as np
 import torch
 
 SEED = 0
-# K4 vs its plain version: both read bf16 operands and accumulate in fp32
-# but sum in another order, the kernel rounds the softmax weights to bf16
-# before p.V, and both round the output to bf16 on their own; so they may
-# differ by KERNEL_ULPS bf16 ulps of the largest output
-KERNEL_ULPS = 2
+# A kernel vs its plain version, held element by element: a tolerance of a
+# tensor's largest value would be as large as the typical output of a
+# causal flash row late in the sequence, or of a decode lane that reads a
+# long context. Each output element must lie within ROW_ULPS bf16 ulps of
+# its own plain value plus ROW_ULPS ulps of the largest |plain value| of
+# its row (the D values of one (b, head, position) of K1-K3, of one (lane,
+# token, head) of K4), a row's largest taken as at least ROW_FLOOR of the
+# tensor's: a row whose plain value cancels to 0 (dq of causal row 0,
+# where dP = delta) keeps the kernel's fp32 rounding of that cancellation,
+# about 1e-7 of the tensor's largest. Groups of rows are held by relative
+# L2 error besides (TILE_REL_L2 for K1-K3, LANE_REL_L2 for K4).
+ROW_ULPS = 2
+ROW_FLOOR = 2.0 ** -12
+# K4 vs its plain version: both read the same bf16 operands (a quantized
+# pool's dequantized and bf16-rounded, or its payload and requantized q
+# under quant_mxu), accumulate in fp32 in another order and round the
+# output to bf16 on their own; the kernel rounds its softmax weights to
+# bf16 against its running max before p.V and the plain version does not
+# round them: about 2^-9 relative each, a few thousandths of relative L2
+# in all. Each (lane, query head) within LANE_REL_L2 over its t x D outputs
+LANE_REL_L2 = 1e-2
 # end-to-end: an engine token must be the plain forward's argmax or within
 # this many logits of it. Both paths run bf16 through 16 layers with
 # different shapes (bucket-padded prefill, the paged kernel, T=1 decode vs
@@ -62,6 +91,22 @@ KERNEL_ULPS = 2
 # the planted fault of run_e2e_phase reads 1.3; the margin is twice the
 # sound reading, and run_e2e_phase fails unless the fault lands above it
 LOGIT_MARGIN = 0.0625
+# the quantized serves: (label, kv_cache_dtype, quant_mxu), chunked prefill
+# at QUANT_CHUNK tokens
+QUANT_SERVES = (("Q1", "int8", False), ("Q2", "fp8_e4m3", True))
+QUANT_CHUNK = 256
+# their e2e margins against a whole-prompt pass over a pool of the same
+# dtype. Both read the same quantized K/V up to bf16 rounding differences
+# in the projections, which can move a row's scale and payload by a step;
+# Q2 also quantizes its queries in the kernel, which the reference pass
+# does not. On an H100 the sound serves read worst gaps of 0.03125 (Q1)
+# and 0.140625 (Q2), the planted scale fault of run_quant_e2e_phase 3.81
+# and 3.99; each margin is twice the sound reading, and
+# run_quant_e2e_phase fails unless the fault lands above it
+QUANT_LOGIT_MARGIN = {"int8": 0.0625, "fp8_e4m3": 0.28125}
+# prompt 1 (700 tokens) prefills in three chunks, prompt 4 decodes after
+# a 256-token prefix hit on blocks written by prompt 3's chunked prefill
+QUANT_E2E_PICKS = (0, 1, 4)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -86,10 +131,32 @@ def card_label() -> str:
 
 # -- 5. kernels -------------------------------------------------------------------
 
-def bf16_tolerance(ref: torch.Tensor) -> float:
-    """KERNEL_ULPS bf16 ulps (8 significant bits) at the largest |ref|."""
-    top = ref.float().abs().max().item()
-    return KERNEL_ULPS * 2.0 ** (np.floor(np.log2(max(top, 2.0 ** -126))) - 7)
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 ulp (8 significant bits) at each |x|."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def element_ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest ratio of an element's error to its limit: ROW_ULPS ulps
+    of its plain value plus ROW_ULPS of its row's (last dim's) largest."""
+    r = ref.float()
+    row_top = r.abs().amax(dim=-1, keepdim=True).clamp_min(ROW_FLOOR * r.abs().max())
+    limit = ROW_ULPS * (bf16_ulp(r) + bf16_ulp(row_top))
+    return ((out.float() - r).abs() / limit).max().item()
+
+
+def decode_agreement(out: torch.Tensor, ref: torch.Tensor):
+    """How far a (b, t, N, D) K4 output lies from its plain version: (the
+    largest ratio of an element's error to its limit, the largest relative
+    L2 error of one (lane, query head) over its t x D outputs, against a
+    norm taken as at least ROW_FLOOR of the largest lane's, as rows are in
+    ``element_ratio``). It agrees when the first is at most 1 and the
+    second at most LANE_REL_L2."""
+    r = ref.float()
+    norms = r.square().sum(dim=(1, 3)).sqrt()
+    rel = ((out.float() - r).square().sum(dim=(1, 3)).sqrt()
+           / norms.clamp_min(ROW_FLOOR * norms.max()).clamp_min(1e-30)).max().item()
+    return element_ratio(out, ref), rel
 
 
 def device_ms(fn, iters: int = 50, windows: int = 3, matches=(None,)):
@@ -106,7 +173,10 @@ def device_ms(fn, iters: int = 50, windows: int = 3, matches=(None,)):
         fn(i)
     torch.cuda.synchronize()
     runs = []
-    for _ in range(windows):
+    # a window whose trace came back empty is run again, up to twice over
+    for _ in range(3 * windows):
+        if sum(r[0] > 0 for r in runs) == windows:
+            break
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             start.record()
@@ -162,24 +232,31 @@ def model_kernel_call(wrap):
 
 def recording(geometries: dict, keep_positions: bool):
     """A ``model_kernel_call`` wrapper that counts the calls at each
-    distinct (b, t, kv_limit, num_splits, W) and, if asked, keeps the
-    positions of the last call at each (a host sync per call)."""
+    distinct (b, t, kv_limit, num_splits, W) and, if asked, keeps every
+    call's positions (a host sync per call)."""
     def wrap(inner, q, k_pool, v_pool, tables, positions, **kw):
         key = (
             q.shape[0], 1 if q.dim() == 3 else q.shape[1], kw.get("kv_limit"),
             kw.get("num_splits"), tables.shape[1],
         )
-        entry = geometries.setdefault(key, {"calls": 0, "positions": None})
+        entry = geometries.setdefault(key, {"calls": 0, "positions": []})
         entry["calls"] += 1
         if keep_positions:
-            entry["positions"] = positions.tolist()
+            entry["positions"].append(positions.tolist())
         return inner(q, k_pool, v_pool, tables, positions, **kw)
     return wrap
 
 
+def median_call(calls: list) -> list:
+    """The positions of the call whose live rows (the sum of its lanes'
+    positions) are the median of a geometry's calls: the load that
+    geometry's launches typically served."""
+    return sorted(calls, key=sum)[(len(calls) - 1) // 2]
+
+
 def paged_cases(cfg, served: dict):
     """The fixed grid of shapes, then one case for each geometry the
-    counted serve gave the kernel, at the positions of its last call."""
+    counted serve gave the kernel, at the positions of its median call."""
     rng = np.random.default_rng(SEED)
     cases = []
     for kv_limit in (512, 2048):
@@ -222,60 +299,108 @@ def build_case(c: DecodeCase, gen: torch.Generator):
     return q, kp, vp, tables.contiguous(), pos
 
 
-def paged_bound(c: DecodeCase):
+def paged_bound(c: DecodeCase, kv_dtype: str = "bf16", mxu: bool = False):
     """Least time for this call's work: each input byte read once (q, the
-    K/V rows 0 .. pos + t - 1 of every lane, the table entries of the
-    blocks holding them, positions), each output byte written once;
-    operations are the q.k and p.V products over the rows each lane's
-    queries can see."""
+    K/V rows 0 .. pos + t - 1 of every lane with their scales for a
+    quantized pool, the table entries of the blocks holding them,
+    positions), each output byte written once; operations are the q.k and
+    p.V products over the rows each lane's queries can see, q.k at the
+    int8 / fp8 peak under quant_mxu."""
+    from neuronx_distributed_llama3_2_tpu_torch import flops as fl
+
     b = len(c.positions)
     rows = [min(int(p) + c.t, c.kv_limit) for p in c.positions]
-    kv_bytes = 2 * sum(rows) * c.nkv * c.d * 2
+    row_bytes = c.d * 2 if kv_dtype == "bf16" else c.d + 2  # payload + fp16 scale
+    kv_bytes = 2 * sum(rows) * c.nkv * row_bytes
     blocks = [-(-r // c.bs) for r in rows]
     io_bytes = 2 * (b * c.t * c.n * c.d * 2) + 4 * sum(blocks) + 4 * b
     seen = sum(int(p) + ti + 1 for p in c.positions for ti in range(c.t))
-    from neuronx_distributed_llama3_2_tpu_torch import flops as fl
-
-    flops = 4 * seen * c.n * c.d
+    half = 2 * seen * c.n * c.d  # one of the two products
+    qk_peak = fl.H100_BF16_FLOPS_PER_S
+    if mxu:
+        qk_peak = fl.H100_INT8_OPS_PER_S if kv_dtype == "int8" else fl.H100_FP8_FLOPS_PER_S
     t_bytes = (kv_bytes + io_bytes) / fl.H100_HBM_BYTES_PER_S * 1e3
-    t_ops = flops / fl.H100_BF16_FLOPS_PER_S * 1e3
+    t_ops = (half / qk_peak + half / fl.H100_BF16_FLOPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), kv_bytes
 
 
-def run_paged_kernel_phase(cfg, served: dict, card: str) -> dict:
-    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+def mode_label(kv_dtype: str, mxu: bool) -> str:
+    """How the logs name a pool and kernel mode."""
+    if kv_dtype == "bf16":
+        return "bf16"
+    return f"{kv_dtype} mode {6 if mxu else 3}"
 
+
+def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
+                           mxu: bool = False, grid_iters: int = 50) -> dict:
+    """K4 on one pool dtype and mode against its plain version at the grid
+    and the served geometries, timed beside the plain version, the library
+    yardstick (SDPA on K/V dequantized and gathered beforehand) and the
+    bound. Returns the record of the served geometry launched most."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+    from neuronx_distributed_llama3_2_tpu_torch.quantization import kv_cache as kv
+
+    quantized = kv_dtype != "bf16"
+    mode = mode_label(kv_dtype, mxu)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst, record, record_launches = 0.0, None, -1
+    worst, worst_elem, worst_rel, record, record_launches = 0.0, 0.0, 0.0, None, -1
     for c in paged_cases(cfg, served):
         q, kp, vp, tables, pos = build_case(c, gen)
         L = c.layers
+        ks = vs = None
+        if quantized:
+            qdt = kv.kv_cache_torch_dtype(kv_dtype)
+            kp, ks = kv.kv_quantize(kp, qdt)
+            vp, vs = kv.kv_quantize(vp, qdt)
 
-        def kernel(i):
+        def kernel(i, q=q):
+            j = i % L
             return pa.paged_flash_decode(
-                q, kp[i % L], vp[i % L], tables, pos, kv_limit=c.kv_limit,
-                num_splits=c.splits,
+                q, kp[j], vp[j], tables, pos, kv_limit=c.kv_limit, num_splits=c.splits,
+                k_scale=None if ks is None else ks[j], v_scale=None if vs is None else vs[j],
+                quant_mxu=mxu,
             )
 
-        def plain(i):
+        def plain(i, q=q):
+            j = i % L
             return pa.paged_flash_decode_reference(
-                q, kp[i % L], vp[i % L], tables, pos, kv_limit=c.kv_limit,
+                q, kp[j], vp[j], tables, pos, kv_limit=c.kv_limit,
+                k_scale=None if ks is None else ks[j], v_scale=None if vs is None else vs[j],
+                quant_mxu=mxu,
             )
 
         out, ref = kernel(0), plain(0)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        tol = bf16_tolerance(ref)
-        check(bool(torch.isfinite(out).all()), f"{c.name}: non-finite kernel output")
-        check(err <= tol, f"{c.name}: max_abs_err {err} > {tol}")
+        check(bool(torch.isfinite(out).all()), f"{mode} {c.name}: non-finite kernel output")
+        elem, rel = decode_agreement(out, ref)
+        check(elem <= 1.0 and rel <= LANE_REL_L2,
+              f"{mode} {c.name}: disagrees with the plain version (error {elem} x its "
+              f"element limit, lane relative L2 {rel}; max_abs_err {err})")
         worst = max(worst, err)
+        worst_elem, worst_rel = max(worst_elem, elem), max(worst_rel, rel)
+        if mxu and kv_dtype != "int8" and record is None:
+            # the unsaturated fp8 cast of q: an element past the range
+            # poisons its query row with NaN, in the kernel as in the plain
+            # version (and the reference)
+            bad = q.clone()
+            bad[-1, 0, 3, 5] = 1000.0 if kv_dtype == "fp8_e4m3" else 7e4
+            nan_k, nan_p = kernel(0, bad).isnan(), plain(0, bad).isnan()
+            check(bool((nan_k == nan_p).all()) and bool(nan_p.any()),
+                  f"{mode}: the kernel's NaN rows differ from the plain version's")
+            log(f"kernel paged_decode [{mode}] q element past the fp8 range: "
+                f"{int(nan_k.sum())} NaN outputs, as the plain version")
 
-        # the yardstick: one library call over K/V gathered beforehand
-        # (gather excluded from its time), same mask
+        # the yardstick: one library call over K/V dequantized and gathered
+        # beforehand (neither in its time), same mask
         b, nblk = len(c.positions), c.kv_limit // c.bs
         blocks = tables[:, :nblk].long()
-        k_all = kp[:, blocks].reshape(L, b, c.kv_limit, c.nkv, c.d).transpose(2, 3).contiguous()
-        v_all = vp[:, blocks].reshape(L, b, c.kv_limit, c.nkv, c.d).transpose(2, 3).contiguous()
+        k_all, v_all = kp[:, blocks], vp[:, blocks]
+        if quantized:
+            k_all = kv.kv_dequantize(k_all, ks[:, blocks], torch.bfloat16)
+            v_all = kv.kv_dequantize(v_all, vs[:, blocks], torch.bfloat16)
+        k_all = k_all.reshape(L, b, c.kv_limit, c.nkv, c.d).transpose(2, 3).contiguous()
+        v_all = v_all.reshape(L, b, c.kv_limit, c.nkv, c.d).transpose(2, 3).contiguous()
         rows = torch.arange(c.kv_limit, device="cuda")
         last = pos.long()[:, None] + torch.arange(c.t, device="cuda")[None, :]
         mask = (rows[None, None, :] <= last[:, :, None])[:, None]  # (b, 1, t, S)
@@ -286,19 +411,28 @@ def run_paged_kernel_phase(cfg, served: dict, card: str) -> dict:
                 qh, k_all[i % L], v_all[i % L], attn_mask=mask, enable_gqa=True,
             )
 
-        lib_err = (library(0).transpose(1, 2).float() - ref.float()).abs().max().item()
-        check(lib_err <= tol, f"{c.name}: library yardstick disagrees ({lib_err})")
-        (ms,), wall_ms = device_ms(kernel)
-        (plain_ms,), plain_wall_ms = device_ms(plain)
-        (library_ms,), library_wall_ms = device_ms(library)
-        bound_ms, bound_by, kv_bytes = paged_bound(c)
+        lib_elem, lib_rel = decode_agreement(library(0).transpose(1, 2), ref)
+        # the yardstick must compute the same function (its per-element
+        # agreement, which depends on the library's own roundings, is
+        # recorded); mode 6 quantizes q for its q.k dot and SDPA does not,
+        # so there it is recorded only (the probe holds the kernel to mode
+        # 6's arithmetic)
+        check(mxu or lib_rel <= LANE_REL_L2,
+              f"{mode} {c.name}: library yardstick disagrees (lane relative L2 {lib_rel})")
+        iters = 50 if c.serve_launches else grid_iters
+        (ms,), wall_ms = device_ms(kernel, iters)
+        (plain_ms,), plain_wall_ms = device_ms(plain, iters)
+        (library_ms,), library_wall_ms = device_ms(library, iters)
+        bound_ms, bound_by, kv_bytes = paged_bound(c, kv_dtype, mxu)
         splits = min(c.splits or pa.DEFAULT_NUM_SPLITS, nblk)
         served_by = f", {c.serve_launches} serve launches" if c.serve_launches else ""
+        tag = "" if not quantized else f"[{mode}] "
         log(
-            f"kernel paged_decode [{c.name}] b={b} N={c.n} NKV={c.nkv} D={c.d} "
+            f"kernel paged_decode {tag}[{c.name}] b={b} N={c.n} NKV={c.nkv} D={c.d} "
             f"t={c.t} kv_limit={c.kv_limit} splits={splits} positions="
             f"{list(map(int, c.positions))}{served_by}: max_abs_err={err:.6g} "
-            f"(tol {tol:.6g}) kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
+            f"({elem:.4f} x its element limit, lane rel L2 {rel:.6g}; library "
+            f"{lib_elem:.4f} x, {lib_rel:.6g}) kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
             f"library_ms={library_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}; "
             f"K+V bytes read {kv_bytes} / 3.35 TB/s); wall per call {wall_ms:.6f} / "
             f"{plain_wall_ms:.6f} / {library_wall_ms:.6f} ms | {card}"
@@ -310,16 +444,140 @@ def run_paged_kernel_phase(cfg, served: dict, card: str) -> dict:
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
             )
-        del q, kp, vp, k_all, v_all
+        del q, kp, vp, ks, vs, k_all, v_all
     torch.cuda.empty_cache()
+    elem, rel = run_paged_probe(kv_dtype, mxu, card)
     log(
-        f"paged_decode: every case within {KERNEL_ULPS} bf16 ulps of its largest "
-        f"output of the plain version (worst abs err {worst:.6g}); tolerance: "
-        "bf16 operands and outputs, fp32 accumulation in another order, "
-        "bf16-rounded softmax weights"
+        f"paged_decode [{mode}]: every case and the probe agree with the plain "
+        f"version: each element within {ROW_ULPS} bf16 ulps of its own value plus "
+        f"{ROW_ULPS} of its (lane, token, head) row's largest (worst "
+        f"{max(worst_elem, elem):.6g} x that limit), each (lane, head) within relative "
+        f"L2 {LANE_REL_L2} (worst {max(worst_rel, rel):.6g}); worst abs err {worst:.6g}; "
+        "tolerance: the same bf16 operands (dequantized and bf16-rounded for a quantized "
+        "pool), fp32 accumulation in another order, bf16-rounded softmax weights"
     )
     record["max_abs_err"] = worst
     return record
+
+
+# the probe of run_paged_probe: 8 lanes of the 1B geometry over a 512-row
+# table, t = 1. Odd positions give the V lanes an even number of rows
+PROBE_POSITIONS = (511, 299, 201, 401, 511, 299, 201, 401)
+PROBE_KV_LIMIT = 512
+
+
+def probe_case(kv_dtype: str, device: str):
+    """Inputs on which the faults a quantized K4 could make move its output
+    far past the tolerance, where on random data they stay within it
+    (made from a seeded numpy generator, so that they are the same on any
+    device). Lanes 0-3 (K lanes): every K row of a head is one large
+    common vector plus small noise, and q is large; the softmax stays
+    spread out (the common part of the scores cancels in it), while an
+    error in q or in K of a fraction of an ulp moves every score by a
+    sizeable step (q's int8 requantization, q's fp8 cast, or K's bf16
+    rounding after dequantization). Lanes 4-7 (V lanes): the K rows of a
+    head are equal, so every visible row weighs exactly 1 in both the
+    kernel and the plain version, and V rows alternate in sign at a
+    magnitude of 2-3: the output is a mean that cancels to a few
+    thousandths and moves by many of its ulps if V's bf16 rounding after
+    dequantization is skipped.
+    Returns (q, k_pool, v_pool, k_scale, v_scale, tables, positions) for
+    one layer; the scales are None for the bf16 pool."""
+    from neuronx_distributed_llama3_2_tpu_torch.quantization import kv_cache as kv
+
+    rng = np.random.default_rng(SEED + 2)
+    b, n, nkv, d, bs, rows = 8, 32, 8, 64, 16, PROBE_KV_LIMIT
+    k0 = 3.0 * rng.standard_normal((b, 1, nkv, d))
+    k = np.broadcast_to(k0, (b, rows, nkv, d)).copy()
+    k[:4] += 0.1 * rng.standard_normal((4, rows, nkv, d))
+    v = rng.standard_normal((b, rows, nkv, d))
+    # V lanes: row r is sign_r * m_r * c, with c in [2, 3) fixed per (lane,
+    # head) and m_r in [1, 1.1): every row quantizes to the same payload
+    # pattern at its own scale, so the dequantized rows round differently
+    sign = np.where(np.arange(rows) % 2 == 0, 1.0, -1.0)[None, :, None, None]
+    m = 1.0 + 0.1 * rng.random((4, rows, 1, 1))
+    v[4:] = sign * m * (2.0 + rng.random((4, 1, nkv, d)))
+    q = rng.standard_normal((b, 1, n, d))
+    q[:4] *= 10.0
+    # a shuffled table; blocks past each lane's frontier are the null block
+    w = rows // bs
+    tables = 1 + rng.permutation(b * w).reshape(b, w)
+    for i, p in enumerate(PROBE_POSITIONS):
+        tables[i, p // bs + 1:] = 0
+    k_pool = rng.standard_normal((b * w + 1, bs, nkv, d))  # garbage where unused
+    v_pool = rng.standard_normal((b * w + 1, bs, nkv, d))
+    for i in range(b):
+        k_pool[tables[i]] = k[i].reshape(w, bs, nkv, d)
+        v_pool[tables[i]] = v[i].reshape(w, bs, nkv, d)
+    k_pool[0] = rng.standard_normal((bs, nkv, d))  # the null block stays garbage
+    v_pool[0] = rng.standard_normal((bs, nkv, d))
+
+    def on(x, dtype=torch.bfloat16):
+        return torch.as_tensor(x, device=device).to(dtype)
+
+    kp, vp, ks, vs = on(k_pool), on(v_pool), None, None
+    if kv_dtype != "bf16":
+        qdt = kv.kv_cache_torch_dtype(kv_dtype)
+        kp, ks = kv.kv_quantize(kp, qdt)
+        vp, vs = kv.kv_quantize(vp, qdt)
+    pos = on(np.asarray(PROBE_POSITIONS), torch.int32)
+    return on(q), kp, vp, ks, vs, on(tables, torch.int32), pos
+
+
+@contextlib.contextmanager
+def plain_dequant_unrounded():
+    """While the block runs, the plain version keeps a quantized pool's
+    dequantized values in fp32, as a kernel that skipped their bf16
+    rounding would (K and V in mode 3, V in mode 6)."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+
+    inner = pa.kv_dequantize
+    pa.kv_dequantize = lambda payload, scale, dtype: payload.float() * scale.float()[..., None]
+    try:
+        yield
+    finally:
+        pa.kv_dequantize = inner
+
+
+def run_paged_probe(kv_dtype: str, mxu: bool, card: str):
+    """K4 against its plain version on ``probe_case``'s inputs, held by
+    ``decode_agreement``; then, for a quantized pool, the same check must
+    reject the kernel's output with each planted fault (what the fault
+    changes in the plain version, added to the kernel's output): the
+    dequantized values left unrounded, and under quant_mxu mode 3's
+    arithmetic (q neither requantized nor cast, K dequantized) passed off
+    as mode 6. Returns the sound (element ratio, lane relative L2)."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+
+    mode = mode_label(kv_dtype, mxu)
+    q, kp, vp, ks, vs, tables, pos = probe_case(kv_dtype, "cuda")
+    kw = dict(kv_limit=PROBE_KV_LIMIT, k_scale=ks, v_scale=vs)
+    out = pa.paged_flash_decode(q, kp, vp, tables, pos, num_splits=4, quant_mxu=mxu, **kw)
+    ref = pa.paged_flash_decode_reference(q, kp, vp, tables, pos, quant_mxu=mxu, **kw)
+    check(bool(torch.isfinite(out).all()), f"{mode} probe: non-finite kernel output")
+    elem, rel = decode_agreement(out, ref)
+    log(f"kernel paged_decode [{mode}] [probe] positions {list(PROBE_POSITIONS)}: "
+        f"{elem:.6g} x its element limit, lane relative L2 {rel:.6g} (limits 1, "
+        f"{LANE_REL_L2}) | {card}")
+    check(elem <= 1.0 and rel <= LANE_REL_L2,
+          f"{mode} probe: disagrees with the plain version ({elem}, {rel})")
+    faults = {}
+    if kv_dtype != "bf16":
+        with plain_dequant_unrounded():
+            faults["dequantized values left unrounded"] = pa.paged_flash_decode_reference(
+                q, kp, vp, tables, pos, quant_mxu=mxu, **kw)
+    if mxu:
+        faults["mode 3's arithmetic"] = pa.paged_flash_decode_reference(
+            q, kp, vp, tables, pos, quant_mxu=False, **kw)
+    for name, bad in faults.items():
+        planted = (out.float() + bad.float() - ref.float()).to(out.dtype)
+        f_elem, f_rel = decode_agreement(planted, ref)
+        log(f"kernel paged_decode [{mode}] [probe] planted fault ({name}): error "
+            f"{f_elem:.6g} x its element limit, lane relative L2 {f_rel:.6g} (limits 1, "
+            f"{LANE_REL_L2})")
+        check(f_elem > 1.0 or f_rel > LANE_REL_L2,
+              f"the {mode} check passes a planted fault ({name})")
+    return elem, rel
 
 
 # -- 3. serve -------------------------------------------------------------------
@@ -362,9 +620,11 @@ def load_model():
     return cfg, model
 
 
-def make_server(cfg, model):
+def make_server(cfg, model, **paged_kw):
     """The paged engine as served here: 8 lanes, 2048-token sequences, a
-    2049-block pool of 16-row blocks (block 0 the null block)."""
+    2049-block pool of 16-row blocks (block 0 the null block); ``paged_kw``
+    adds PagedConfig knobs (the quantized serves' pool dtype, quant_mxu
+    and prefill chunk)."""
     from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
         GenerationConfig,
         InferenceEngine,
@@ -378,7 +638,7 @@ def make_server(cfg, model):
     paged = PagedConfig(
         block_size=16, num_blocks=2049,
         # small rungs let a short suffix prefill ride the kernel (t <= 8)
-        prefill_buckets=(8, 16, 32, 64, 128, 256, 512, 1024, 2048),
+        prefill_buckets=(8, 16, 32, 64, 128, 256, 512, 1024, 2048), **paged_kw,
     )
     return PagedServingEngine(engine, GenerationConfig(max_new_tokens=MAX_NEW), paged)
 
@@ -432,7 +692,7 @@ def run_serve_phase(cfg, model, card: str):
     check({k: e["calls"] for k, e in geoms.items()}
           == {k: e["calls"] for k, e in warm_geoms.items()},
           f"the warm-up's kernel geometries {warm_geoms} differ from the serve's {geoms}")
-    served = {k: dict(calls=e["calls"], positions=warm_geoms[k]["positions"])
+    served = {k: dict(calls=e["calls"], positions=median_call(warm_geoms[k]["positions"]))
               for k, e in geoms.items()}
     generated = sum(len(outs[r]) for r in rids)
     ttft = np.median([i["ttft_ms"] for i in infos])
@@ -447,20 +707,25 @@ def run_serve_phase(cfg, model, card: str):
     for (b, t, kv_limit, splits, w), e in sorted(served.items()):
         log(f"serve: kernel geometry b={b} t={t} kv_limit={kv_limit} "
             f"num_splits={splits} W={w}: {e['calls']} launches")
-    return prompts, outs, rids, launches, served
+    return prompts, outs, rids, launches, served, server.metrics.pool_bytes_total
 
 
-def run_profile_phase(cfg, model, prompts, card: str) -> None:
+def run_profile_phase(cfg, model, prompts, card: str, label: str = "serve",
+                      **knobs) -> None:
     """The same requests once more on a fresh pool, under torch.profiler:
     the share of the wall time the card was busy, and the kernels that
-    took it."""
-    server = make_server(cfg, model)
+    took it. ``knobs`` are a quantized serve's PagedConfig knobs; its
+    requests are submitted as it submits them (``serve_staged``)."""
+    server = make_server(cfg, model, **knobs)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for p in prompts:
-            server.submit(p)
-        server.run_to_completion()
+        if knobs:
+            serve_staged(server, prompts)
+        else:
+            for p in prompts:
+                server.submit(p)
+            server.run_to_completion()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = sorted(
@@ -470,7 +735,7 @@ def run_profile_phase(cfg, model, prompts, card: str) -> None:
     paged_ms = sum(
         e.self_device_time_total for e in events if "paged_decode" in e.key
     ) / 1e3
-    log(f"profile: serve wall {wall_ms:.6f} ms (profiler on), device busy "
+    log(f"profile: {label} wall {wall_ms:.6f} ms (profiler on), device busy "
         f"{busy_ms:.6f} ms = {100 * busy_ms / wall_ms:.6f}% of it; paged_decode "
         f"kernels {paged_ms:.6f} ms = {100 * paged_ms / busy_ms:.6f}% of device "
         f"time; {server.metrics.decode_steps} decode steps | {card}")
@@ -528,6 +793,158 @@ def run_e2e_phase(cfg, model, prompts, outs, rids) -> None:
     check(bad_gap > LOGIT_MARGIN,
           f"the e2e check passes a planted kernel fault (gap {bad_gap})")
 
+
+
+# -- 4b. the quantized serves --------------------------------------------------
+
+def serve_staged(server, prompts):
+    """Submit every prompt but the second of the prefix pair, step until
+    the first of the pair has finished its chunked prefill, then submit the
+    second and run to completion. A chunked prompt's prefix is registered
+    only when its last chunk lands (as in the JAX engine), so the second
+    of the pair, 264 tokens, would share nothing if it arrived in the same
+    wave. Returns (rids in prompt order, outputs by rid)."""
+    rids = [None] * len(prompts)
+    for j, p in enumerate(prompts):
+        if j != 4:
+            rids[j] = server.submit(p)
+    while server.request_info(rids[3])["status"] in ("queued", "prefilling"):
+        server.step()
+    rids[4] = server.submit(prompts[4])
+    return rids, server.run_to_completion()
+
+
+def quant_pool_bytes(cfg, num_blocks: int = 2049, block_size: int = 16) -> int:
+    """K and V pools of 1-byte payloads plus one fp16 scale per (row, kv
+    head), every layer."""
+    return 2 * cfg.num_layers * num_blocks * block_size * cfg.num_kv_heads * (cfg.head_dim + 2)
+
+
+def run_quant_serve_phase(cfg, model, label: str, kv_dtype: str, mxu: bool,
+                          bf16_pool_bytes: int, card: str):
+    """One quantized, chunked serve of the eight prompts after a warm-up
+    serve of its own (which also records the positions of each kernel
+    geometry's last call), the kernel counters zeroed just before and read
+    just after. Returns (prompts, outputs, rids, K4 launches, served
+    geometries)."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+
+    prompts = serve_prompts()
+    knobs = dict(kv_cache_dtype=kv_dtype, quant_mxu=mxu, prefill_chunk_tokens=QUANT_CHUNK)
+    warm_geoms: dict = {}
+    with model_kernel_call(recording(warm_geoms, keep_positions=True)):
+        serve_staged(make_server(cfg, model, **knobs), prompts)
+
+    server = make_server(cfg, model, **knobs)
+    geoms: dict = {}
+    with model_kernel_call(recording(geoms, keep_positions=False)):
+        pa.launches.reset()
+        server.model.attention_paths.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids, outs = serve_staged(server, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = pa.launches.count
+    paths = dict(server.model.attention_paths)
+    m = server.metrics
+    infos = [server.request_info(r) for r in rids]
+    for r, info in zip(rids, infos):
+        check(info["status"] == "finished", f"{label}: request {r} is {info['status']}")
+        check(len(outs[r]) == MAX_NEW, f"{label}: request {r} produced {len(outs[r])} tokens")
+    check(infos[4]["cached_tokens"] >= 256, f"{label}: prefix pair not shared: {infos[4]}")
+    check(m.prefill_chunks > 0, f"{label}: no prefill was chunked")
+    check(launches > 0 and paths.get("kernel", 0) == launches,
+          f"{label}: attention paths {paths} vs {launches} kernel launches")
+    check(launches >= m.decode_steps * cfg.num_layers,
+          f"{label}: {launches} kernel launches for {m.decode_steps} decode steps")
+    check(server.model.config.quant_mxu == mxu, f"{label}: quant_mxu not on the model")
+    check({k: e["calls"] for k, e in geoms.items()}
+          == {k: e["calls"] for k, e in warm_geoms.items()},
+          f"{label}: the warm-up's kernel geometries {warm_geoms} differ from the serve's {geoms}")
+    c = server.cache
+    held = sum(x.numel() * x.element_size() for x in (c.k, c.v, c.k_scale, c.v_scale))
+    formula = quant_pool_bytes(cfg)
+    check(m.pool_bytes_total == formula == held,
+          f"{label}: pool bytes {m.pool_bytes_total} (formula {formula}, held {held})")
+    served = {k: dict(calls=e["calls"], positions=median_call(warm_geoms[k]["positions"]))
+              for k, e in geoms.items()}
+    generated = sum(len(outs[r]) for r in rids)
+    ttft = np.median([i["ttft_ms"] for i in infos])
+    tpot = np.median([i["tpot_ms"] for i in infos])
+    log(f"serve {label} ({kv_dtype} pool, quant_mxu {mxu}, prefill chunks of "
+        f"{QUANT_CHUNK}): {len(rids)} requests, {generated} tokens in {wall:.6f} s = "
+        f"{generated / wall:.6f} tokens/s; TTFT p50 {ttft:.6f} ms, TPOT p50 {tpot:.6f} ms; "
+        f"cached_tokens {[i['cached_tokens'] for i in infos]}; prefill_chunks "
+        f"{m.prefill_chunks}; {m.decode_steps} decode steps | {card}")
+    log(f"serve {label}: paged_decode kernel launches {launches} ({mode_label(kv_dtype, mxu)}); "
+        f"attention calls by path {paths}; pool_bytes_total {m.pool_bytes_total} = "
+        f"formula {formula} = bytes held, {bf16_pool_bytes / m.pool_bytes_total:.6f}x "
+        f"fewer than the bf16 serve's {bf16_pool_bytes} | {card}")
+    for (b, t, kv_limit, splits, w), e in sorted(served.items()):
+        log(f"serve {label}: kernel geometry b={b} t={t} kv_limit={kv_limit} "
+            f"num_splits={splits} W={w}: {e['calls']} launches")
+    return prompts, outs, rids, launches, served
+
+
+def quant_e2e_gaps(cfg, model, kv_dtype: str, prompts, outs, rids):
+    """Teacher-forced over QUANT_E2E_PICKS: one whole-prompt pass of the
+    decode model over prompt + served tokens, on a fresh pool of
+    ``kv_dtype``. Scales are per row and append-local, so that pass
+    attends to the dequantized K/V the serve wrote and read; it runs no
+    kernel. Returns (largest gap between the argmax logit and the served
+    token's, served tokens that were the argmax, tokens)."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference.model import LlamaDecode
+
+    dec = LlamaDecode(cfg)
+    worst_gap, exact, total = 0.0, 0, 0
+    for j in QUANT_E2E_PICKS:
+        prompt, gen = prompts[j], outs[rids[j]]
+        seq = prompt + gen[:-1]
+        nblk = -(-len(seq) // 16)
+        cache = dec.init_paged_cache(nblk + 1, 16, kv_cache_dtype=kv_dtype, device="cuda")
+        tables = torch.arange(1, nblk + 1, dtype=torch.int32, device="cuda")[None]
+        logits, _ = dec.forward(
+            model, cache, torch.as_tensor([seq], device="cuda"),
+            torch.zeros((1,), dtype=torch.int32, device="cuda"),
+            context_encode=True, block_tables=tables,
+        )
+        logits = logits[0, len(prompt) - 1:].float()  # predicts gen[0..]
+        check(bool(torch.isfinite(logits).all()), "non-finite reference logits")
+        tokens = torch.as_tensor(gen, device="cuda")
+        chosen = logits[torch.arange(len(gen), device="cuda"), tokens]
+        worst_gap = max(worst_gap, (logits.max(dim=-1).values - chosen).max().item())
+        exact += int((logits.argmax(dim=-1) == tokens).sum())
+        total += len(gen)
+        del cache, logits
+    check(dec.attention_paths.get("kernel", 0) == 0, "the reference pass ran the kernel")
+    return worst_gap, exact, total
+
+
+def run_quant_e2e_phase(cfg, model, label: str, kv_dtype: str, mxu: bool,
+                        prompts, outs, rids) -> None:
+    """The served tokens must be the reference pass's argmax or within the
+    dtype's QUANT_LOGIT_MARGIN of it; and the same check must reject a
+    serve whose every kernel call reads V's scales as K's."""
+    margin = QUANT_LOGIT_MARGIN[kv_dtype]
+    gap, exact, total = quant_e2e_gaps(cfg, model, kv_dtype, prompts, outs, rids)
+    log(f"e2e {label}: {exact}/{total} served tokens are the argmax of one whole-prompt "
+        f"pass over a {kv_dtype} pool; worst logit gap {gap:.6g} (margin {margin})")
+    check(gap <= margin, f"{label}: a served token is {gap} below the argmax logit")
+
+    def v_scale_as_k_scale(inner, q, k_pool, v_pool, tables, positions, **kw):
+        return inner(q, k_pool, v_pool, tables, positions, **dict(kw, k_scale=kw["v_scale"]))
+
+    with model_kernel_call(v_scale_as_k_scale):
+        bad_rids, bad_outs = serve_staged(
+            make_server(cfg, model, kv_cache_dtype=kv_dtype, quant_mxu=mxu,
+                        prefill_chunk_tokens=QUANT_CHUNK), prompts)
+    bad_gap, bad_exact, _ = quant_e2e_gaps(cfg, model, kv_dtype, prompts, bad_outs, bad_rids)
+    log(f"e2e {label} planted fault (v_scale passed as k_scale in every kernel call): "
+        f"{bad_exact}/{total} served tokens are the argmax; worst logit gap "
+        f"{bad_gap:.6g} (margin {margin})")
+    check(bad_gap > margin,
+          f"the {label} e2e check passes a planted scale fault (gap {bad_gap})")
 
 
 # -- 5. train -------------------------------------------------------------------
@@ -797,17 +1214,10 @@ LSE_TOL = 1e-4
 # to bf16 against the running max of its 64-row kv tiles, the plain
 # version against that of 1024-row chunks, so their rounded P differ at
 # random by up to a bf16 ulp (2^-8) relative. Hence:
-# - each output element within ROW_ULPS bf16 ulps of its own plain value
-#   plus ROW_ULPS ulps of the largest |plain value| of its row (the D
-#   values of one (b, head, position)), a row's largest taken as at least
-#   ROW_FLOOR of the tensor's: a row whose plain value cancels to 0 (dq of
-#   causal row 0, where dP = delta) keeps the kernel's fp32 rounding of
-#   that cancellation, about 1e-7 of the tensor's largest;
+# - each output element within its ROW_ULPS limit (``element_ratio``);
 # - each (b, head, TILE-row tile) within TILE_REL_L2 relative L2 error:
 #   the P roundings give about 2^-9 relative and the output roundings as
 #   much again, a few thousandths in all.
-ROW_ULPS = 2
-ROW_FLOOR = 2.0 ** -12
 TILE_REL_L2 = 1e-2
 TILE = 64
 # the kernel phase's planted fault, at the train shape: kernels that leave
@@ -837,11 +1247,6 @@ def flash_bound(b, n, nkv, s, d, causal, k: int):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
-    """The bf16 ulp (8 significant bits) at each |x|."""
-    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
-
-
 def flash_agreement(out: torch.Tensor, ref: torch.Tensor):
     """How far a (B, H, S, D) kernel output lies from its plain version:
     (the largest ratio of an element's error to its limit, the largest
@@ -849,16 +1254,13 @@ def flash_agreement(out: torch.Tensor, ref: torch.Tensor):
     first is at most 1 and the second at most TILE_REL_L2."""
     r = ref.float()
     diff = out.float() - r
-    row_top = r.abs().amax(dim=-1, keepdim=True).clamp_min(ROW_FLOOR * r.abs().max())
-    limit = ROW_ULPS * (bf16_ulp(r) + bf16_ulp(row_top))
-    elem = (diff.abs() / limit).max().item()
 
     def tile_norms(x):
         rows = torch.nn.functional.pad(x.square().sum(dim=-1), (0, -x.shape[2] % TILE))
         return rows.reshape(*rows.shape[:2], -1, TILE).sum(dim=-1).sqrt()
 
     rel = (tile_norms(diff) / tile_norms(r).clamp_min(1e-30)).max().item()
-    return elem, rel
+    return element_ratio(out, ref), rel
 
 
 @contextlib.contextmanager
@@ -1027,12 +1429,33 @@ def main() -> int:
                 log(f"  {r.name}: {line.strip()}")
 
     cfg, model = load_model()
-    prompts, outs, rids, launches, served = run_serve_phase(cfg, model, card)
+    prompts, outs, rids, launches, served, bf16_pool = run_serve_phase(cfg, model, card)
     run_e2e_phase(cfg, model, prompts, outs, rids)
     run_profile_phase(cfg, model, prompts, card)
+    quant = {}  # label -> (kv dtype, mxu, K4 launches, served geometries)
+    for label, kv_dtype, mxu in QUANT_SERVES:
+        q_prompts, q_outs, q_rids, q_launches, q_served = run_quant_serve_phase(
+            cfg, model, label, kv_dtype, mxu, bf16_pool, card)
+        run_quant_e2e_phase(cfg, model, label, kv_dtype, mxu, q_prompts, q_outs, q_rids)
+        run_profile_phase(cfg, model, q_prompts, card, label=f"serve {label}",
+                          kv_cache_dtype=kv_dtype, quant_mxu=mxu,
+                          prefill_chunk_tokens=QUANT_CHUNK)
+        quant[label] = (kv_dtype, mxu, q_launches, q_served)
     del model
     torch.cuda.empty_cache()
     paged = run_paged_kernel_phase(cfg, served, card)
+    # the six quantized combinations at the grid and at every geometry the
+    # quantized serves launched (launch counts summed over both serves)
+    q_geoms: dict = {}
+    for _, _, _, q_served in quant.values():
+        for k, e in q_served.items():
+            entry = q_geoms.setdefault(k, dict(calls=0, positions=e["positions"]))
+            entry["calls"] += e["calls"]
+    quant_records = {}
+    for kv_dtype in ("int8", "fp8_e4m3", "fp8_e5m2"):
+        for mxu in (False, True):
+            quant_records[kv_dtype, mxu] = run_paged_kernel_phase(
+                cfg, q_geoms, card, kv_dtype=kv_dtype, mxu=mxu, grid_iters=20)
 
     model, state, step, batch, train_launches = run_train_phase(card)
     run_train_e2e_phase(model, card)
@@ -1050,6 +1473,14 @@ def main() -> int:
         plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
         bound_by=paged["bound_by"], library_ms=paged["library_ms"],
     )]
+    # one entry per quantized mode the serves launched
+    for label, (kv_dtype, mxu, q_launches, _) in quant.items():
+        kernels.append(dict(
+            name=f"paged_decode_{kv_dtype}{'_mxu' if mxu else ''}", route="cuda",
+            source=fa_src + "paged_decode.cu",
+            replaces="neuronx_distributed_llama3_2_tpu/kernels/paged_attention_pallas.py:419",
+            launches=q_launches, **quant_records[kv_dtype, mxu],
+        ))
     for kn, name, src, line in ((1, "flash_fwd", "flash_fwd.cu", 194),
                                 (2, "flash_bwd_dq", "flash_bwd.cu", 394),
                                 (3, "flash_bwd_dkv", "flash_bwd.cu", 433)):

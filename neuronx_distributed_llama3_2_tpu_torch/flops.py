@@ -11,6 +11,8 @@ load, so an MFU is stated beside the card's power limit.
 from __future__ import annotations
 
 H100_BF16_FLOPS_PER_S = 989e12       # dense bf16 tensor-core FLOP/s
+H100_FP8_FLOPS_PER_S = 1979e12       # dense fp8 tensor-core FLOP/s
+H100_INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core OP/s
 H100_HBM_BYTES = 80e9                # device memory
 H100_HBM_BYTES_PER_S = 3.35e12       # device memory bandwidth
 

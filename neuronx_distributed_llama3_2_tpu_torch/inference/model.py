@@ -7,11 +7,20 @@ covers every forward mode of the paged serving engine::
     forward(params, cache, tokens (b, T), positions (b,), block_tables=...)
 
 - whole-prompt prefill  = ``context_encode=True``, positions == 0: attention
-  over the fresh block only (:func:`..models.llama.core_attention`);
+  over the fresh block only (:func:`..models.llama.core_attention`); the
+  first chunk of a chunked prefill takes this path too;
 - token-gen             = T == 1, through the paged-decode kernel;
-- suffix prefill        = T > 1 after a prefix-cache hit: the paged-decode
-  kernel when T <= ``paged_kernel_max_t``, else the gather of the cached
-  rows plus :meth:`LlamaDecode._cache_attention`.
+- suffix prefill        = T > 1 after a prefix-cache hit, or a later chunk
+  of a chunked prefill: the paged-decode kernel when T <=
+  ``paged_kernel_max_t``, else the gather of the cached rows plus
+  :meth:`LlamaDecode._cache_attention`.
+
+A quantized pool (``kv_cache_dtype`` int8 / fp8, :mod:`..quantization.
+kv_cache`) holds low-bit payloads beside per-(row, kv head) fp16 scales.
+Fresh K/V are quantized on write, and every attention consumer reads the
+round-tripped values: the whole-prompt prefill attends the dequantized
+fresh block, the kernel dequantizes each block it reads, and the gather
+dequantizes the gathered rows, so all paths see the same operands.
 
 ``params`` is the :class:`..models.llama.LlamaForCausalLM` module holding the
 weights; ``LlamaDecode`` itself holds none, as in the JAX package. The JAX
@@ -20,8 +29,8 @@ the fresh K/V rows are written into the pool tensors in place, and the
 cache returned is the same object that came in.
 
 Not ported yet: the dense per-slot ``KVCache`` (dense-engine slice), tree
-verification and ``row_live`` (speculation and fused-step sub-slices), the
-quantized pool, tensor parallelism.
+verification and ``row_live`` (speculation and fused-step sub-slices),
+tensor parallelism.
 """
 
 from __future__ import annotations
@@ -42,6 +51,12 @@ from neuronx_distributed_llama3_2_tpu_torch.models.llama import (
     core_attention,
     precompute_rope,
 )
+from neuronx_distributed_llama3_2_tpu_torch.quantization.kv_cache import (
+    KV_SCALE_DTYPE,
+    kv_cache_torch_dtype,
+    kv_dequantize,
+    kv_quantize,
+)
 from neuronx_distributed_llama3_2_tpu_torch.utils.device import (
     DeviceLike,
     resolve_device,
@@ -56,10 +71,17 @@ class PagedKVCache(NamedTuple):
     block index -> pool block id. Block 0 is reserved as the null block:
     block-table entries past a request's allocated frontier point at it, so
     bucket-padding writes land in garbage rows that no masked read ever
-    sees."""
+    sees.
+
+    Quantized (``kv_cache_dtype`` int8 / fp8): ``k`` / ``v`` hold the
+    low-bit payloads and ``k_scale`` / ``v_scale`` the per-(token row, kv
+    head) fp16 scales, (L, num_blocks, block_size, n_kv). ``None`` scales
+    are the fp pool."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def num_blocks(self) -> int:
@@ -68,6 +90,16 @@ class PagedKVCache(NamedTuple):
     @property
     def block_size(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """A 1-byte payload seen as uint8: torch's index_copy_ has no fp8
+    kernels, and a byte copy moves the same bits."""
+    return x.view(torch.uint8) if x.element_size() == 1 else x
 
 
 def _unported(feature: str, slice_name: str):
@@ -109,16 +141,30 @@ class LlamaDecode:
         kv_cache_dtype: Optional[str] = None, device: DeviceLike = "cuda",
     ) -> PagedKVCache:
         """Zeroed block pool of ``num_blocks * block_size`` token rows shared
-        by every request, at ``dtype or config.dtype``, on ``device``."""
-        if kv_cache_dtype not in (None, "bf16"):
-            raise _unported(f"kv_cache_dtype={kv_cache_dtype!r}", "quantized-pool")
+        by every request, on ``device``: at ``dtype or config.dtype`` for
+        ``kv_cache_dtype`` None / "bf16", else the int8 / fp8 payload pools
+        plus their (L, num_blocks, block_size, n_kv) fp16 scale arrays."""
         c = self.config
         shape = (c.num_layers, num_blocks, block_size, c.num_kv_heads, c.head_dim)
         dev = resolve_device(device)
-        dtype = dtype or c.dtype
+        if kv_cache_dtype in (None, "bf16"):
+            dtype = dtype or c.dtype
+            return PagedKVCache(
+                k=torch.zeros(shape, dtype=dtype, device=dev),
+                v=torch.zeros(shape, dtype=dtype, device=dev),
+            )
+        if dtype is not None:
+            raise ValueError(
+                "cache dtype override and quantized kv_cache_dtype are "
+                "mutually exclusive: the storage dtype is the quantization"
+            )
+        qdt = kv_cache_torch_dtype(kv_cache_dtype)
+        sshape = shape[:-1]
         return PagedKVCache(
-            k=torch.zeros(shape, dtype=dtype, device=dev),
-            v=torch.zeros(shape, dtype=dtype, device=dev),
+            k=torch.zeros(shape, dtype=qdt, device=dev),
+            v=torch.zeros(shape, dtype=qdt, device=dev),
+            k_scale=torch.zeros(sshape, dtype=KV_SCALE_DTYPE, device=dev),
+            v_scale=torch.zeros(sshape, dtype=KV_SCALE_DTYPE, device=dev),
         )
 
     # -- forward ----------------------------------------------------------
@@ -146,7 +192,13 @@ class LlamaDecode:
         lives at pool row ``block_tables[i, p // bs] * bs + p % bs``;
         ``kv_limit`` bounds the logical rows attention reads, and the caller
         guarantees ``position + T <= kv_limit``. ``slots`` is ignored: the
-        table is the indirection."""
+        table is the indirection. A quantized cache's layer slices travel as
+        (payload, scale) pairs, and its pools are written in place too."""
+        if cache.quantized and block_tables is None:
+            raise ValueError(
+                "quantized KV storage is paged-only: the dense slot cache "
+                "has no scale arrays (use block_tables / PagedServingEngine)"
+            )
         if block_tables is None:
             raise _unported("the dense per-slot KV cache", "dense-engine")
         if tree is not None:
@@ -166,8 +218,11 @@ class LlamaDecode:
 
         x = params.embed(tokens)
         for i, layer in enumerate(params.layers):
+            kc, vc = cache.k[i], cache.v[i]
+            if cache.quantized:
+                kc, vc = (kc, cache.k_scale[i]), (vc, cache.v_scale[i])
             x = self._decode_layer(
-                layer, x, cache.k[i], cache.v[i], sin, cos, pos_block,
+                layer, x, kc, vc, sin, cos, pos_block,
                 positions, context_encode=context_encode, kv_limit=kv_limit,
                 block_tables=block_tables,
             )
@@ -181,7 +236,8 @@ class LlamaDecode:
         positions, *, context_encode: bool, kv_limit=None, block_tables=None,
     ) -> torch.Tensor:
         """One decoder layer with cache write and read. kc/vc: this layer's
-        (num_blocks, block_size, NKV, D) pool slice; x: (b, T, H)."""
+        (num_blocks, block_size, NKV, D) pool slice, or (payload, scale)
+        pairs of a quantized pool; x: (b, T, H)."""
         c = self.config
         b, t, _ = x.shape
         q, k, v = layer.attn.project_qkv(layer.attn_norm(x))
@@ -212,7 +268,13 @@ class LlamaDecode:
         """Paged cache write + attention: the block table translates logical
         sequence rows to pool rows for both the fresh-block write and the
         attention read. Garbage rows (stale blocks, null-block padding) are
-        removed by the ``j <= position + t`` mask on every path."""
+        removed by the ``j <= position + t`` mask on every path. kc/vc are
+        (payload, scale) pairs for a quantized pool."""
+        quantized = isinstance(kc, tuple)
+        ksc = vsc = None
+        if quantized:
+            kc, ksc = kc
+            vc, vsc = vc
         nb, bs = kc.shape[0], kc.shape[1]
         kflat = kc.view((nb * bs,) + kc.shape[2:])
         vflat = vc.view((nb * bs,) + vc.shape[2:])
@@ -221,10 +283,30 @@ class LlamaDecode:
         tables = block_tables.long()
         wr = write_rows.long()
         wr_phys = (torch.gather(tables, 1, wr // bs) * bs + wr % bs).reshape(-1)
+
+        def write(pool, rows):  # rows (b, t, ...) land at the wr_phys rows
+            _bytes(pool).index_copy_(0, wr_phys, _bytes(rows.reshape((-1,) + rows.shape[2:])))
+
         # in place: the JAX package donates the pool and scatters into a new
         # one; here the fresh rows are written straight into the pool tensors
-        kflat.index_copy_(0, wr_phys, k.reshape((-1,) + k.shape[2:]).to(kflat.dtype))
-        vflat.index_copy_(0, wr_phys, v.reshape((-1,) + v.shape[2:]).to(vflat.dtype))
+        if quantized:
+            ksflat = ksc.view(nb * bs, -1)
+            vsflat = vsc.view(nb * bs, -1)
+            # quantize on write: payload and scale of a row land together,
+            # so an overwrite replaces both
+            kq, ks = kv_quantize(k, kflat.dtype)  # (b,t,NKV,D) / (b,t,NKV)
+            vq, vs = kv_quantize(v, vflat.dtype)
+            write(kflat, kq)
+            write(vflat, vq)
+            write(ksflat, ks)
+            write(vsflat, vs)
+            # the fresh block the prefill softmax consumes is the same
+            # round trip a later chunk reads back from the pool
+            k = kv_dequantize(kq, ks, q.dtype)
+            v = kv_dequantize(vq, vs, q.dtype)
+        else:
+            write(kflat, k.to(kflat.dtype))
+            write(vflat, v.to(vflat.dtype))
 
         if context_encode:
             self.attention_paths["context"] += 1
@@ -235,13 +317,21 @@ class LlamaDecode:
             # the (b, limit, NKV, D) K/V copy below never materializes
             self.attention_paths["kernel"] += 1
             return paged_flash_decode(
-                q, kc, vc, block_tables, positions, kv_limit=limit
+                q, kc, vc, block_tables, positions, kv_limit=limit,
+                k_scale=ksc, v_scale=vsc,
+                quant_mxu=self.config.quant_mxu and quantized,
             )
         self.attention_paths["gather"] += 1
         jlog = torch.arange(limit, device=q.device)
         rd_phys = tables[:, jlog // bs] * bs + (jlog % bs)[None, :]
-        k_all = kflat[rd_phys].to(q.dtype)  # (b, limit, NKV, D)
-        v_all = vflat[rd_phys].to(q.dtype)
+        if quantized:
+            # dequantized outside any kernel, by the formula the kernel
+            # applies to each block it reads
+            k_all = kv_dequantize(kflat[rd_phys], ksflat[rd_phys], q.dtype)
+            v_all = kv_dequantize(vflat[rd_phys], vsflat[rd_phys], q.dtype)
+        else:
+            k_all = kflat[rd_phys].to(q.dtype)  # (b, limit, NKV, D)
+            v_all = vflat[rd_phys].to(q.dtype)
         return self._cache_attention(q, k_all, v_all, pos_block)
 
     @torch.no_grad()

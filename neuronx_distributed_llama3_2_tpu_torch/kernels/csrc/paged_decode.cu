@@ -1,17 +1,21 @@
 // Paged flash-decoding for Hopper (sm_90a): attention of t <= 8 fresh query
-// tokens per lane over a block-pooled bf16 KV cache, read in place through
-// a per-lane block table.
+// tokens per lane over a block-pooled KV cache, read in place through a
+// per-lane block table. The pool is bf16, or an int8 / fp8 (e4m3, e5m2)
+// payload with one fp16 scale per (token row, kv head).
 //
 // Replaces: neuronx_distributed_llama3_2_tpu/kernels/paged_attention_pallas.py
 //   _decode_kernel (:73), launched by paged_flash_decode (:245, pallas_call
 //   at :419), plus the LSE combine that function runs after the kernel
-//   (:438-449). Modes ported: t == 1 and t <= 8 block-causal on a bf16 pool.
-//   Quantized pools, row_live, tree_bits and quant_mxu are later work.
+//   (:438-449). Modes ported: t == 1 and t <= 8 block-causal (modes 1-2);
+//   the quantized pool, dequantized in the kernel (mode 3, :178-187 and
+//   :223-228); quant_mxu, the q.k dot in the payload's precision (mode 6,
+//   :139-176). row_live and tree_bits are later work.
 //
 // What bounds it on the H100: bytes of K/V read from device memory. Every
-// live pool row of a kv head is D bf16 values of K and of V, and it serves
-// t*G query rows; that is about t*G FLOPs per byte read (at most 64 here),
-// far below the ~295 FLOPs/byte at which the tensor cores would bound it.
+// live pool row of a kv head is D values of K and of V (bf16, or one byte
+// each plus a 2-byte scale), and it serves t*G query rows; that is about
+// t*G FLOPs per byte read (at most 64 here, 128 for a 1-byte pool), far
+// below the ~295 FLOPs/byte at which the tensor cores would bound it.
 //
 // What the design does about it:
 // - one thread block per (lane, kv head, split): each K/V pool row is read
@@ -22,10 +26,14 @@
 //   blocks its split owns, stopping at the lane's frontier pos + t - 1:
 //   nothing past a request's last written row is read, and no gathered
 //   (b, kv_limit, NKV, D) copy of the cache is ever made;
-// - K/V rows are loaded 16 bytes per thread (a head's D values are
-//   contiguous in the pool), and the next pool block's loads are issued
-//   into registers before the current block is computed, so one block's
-//   memory latency overlaps the previous block's arithmetic;
+// - K/V rows are loaded as 8 values per thread (16 bytes of bf16, 8 bytes
+//   of a 1-byte payload: a head's D values are contiguous in the pool, and
+//   a 16-row block of one head is then one vector per thread at D = 64),
+//   together with the rows' scales (the scales of a head are strided by
+//   NKV in the (num_blocks, bs, NKV) arrays: one 2-byte load per row, at
+//   the same table-dereferenced block id). The next pool block's loads are
+//   issued into registers before the current block is computed, so one
+//   block's memory latency overlaps the previous block's arithmetic;
 // - split-K over the sequence gives b * NKV * splits blocks, enough to
 //   spread a long context over the SMs when the decode batch is small;
 // - the per-split (acc, m, l) go to a small fp32 scratch and a second
@@ -37,11 +45,24 @@
 // ti = r / G for tile row r; online softmax in fp32 with the m == -inf
 // guard on the rescale factor; p is rounded to bf16 before the p.V product
 // (fp32 accumulation), as the TPU kernel's p.astype(v.dtype) does, while
-// the denominator sums the unrounded p.
+// the denominator sums the unrounded p. A quantized pool's K and V are
+// dequantized as bf16(float(payload) * float(scale)), rounded to bf16 as
+// the TPU kernel's .astype(q.dtype) does, before any dot. Under quant_mxu
+// the q.k dot keeps the payload: for int8 each query tile row is
+// requantized once (scale = max(max|q|, 1e-6) / 127, divided, rounded half
+// to even, clipped to +-127), the dot accumulates int8 x int8 in int32
+// (__dp4a) and the score is ((acc * q_scale) * k_scale) * sm_scale; for
+// fp8 q is cast to the payload's fp8 type without saturation (e4m3 past
+// its range is NaN, e5m2 inf, as the reference's cast), the dot of the
+// widened fp8 values is fp32 and the score (dot * k_scale) * sm_scale. p.V
+// keeps the dequantized V in every quantized mode.
 //
-// Simple first: CUDA-core fp32 arithmetic, no tensor cores, no TMA.
+// Simple first: CUDA-core arithmetic (fp32, int32 dot products), no tensor
+// cores, no TMA.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -54,61 +75,160 @@ constexpr int kBlockRows = 16;     // pool block size (rows per block)
 constexpr int kMaxTileRows = 64;   // t * G <= 8 * 8
 constexpr int kCombineThreads = 256;
 
-// One pool block of one kv head: kBlockRows rows of D bf16, loaded as
-// 16-byte vectors (8 bf16 each), kVec vectors per thread per tensor.
-template <int D>
+// payload kinds, as kernels/paged_attention.py KV_KINDS numbers them
+enum KvKind : int { kBf16 = 0, kInt8 = 1, kE4m3 = 2, kE5m2 = 3 };
+
+// The element layouts the split kernel is compiled for: the element type
+// and the shared-memory carve differ between them. fp8 e4m3 and e5m2 share
+// one layout and quant_mxu is one more flag: both are uniform over a launch
+// and are read at run time.
+enum Layout : int { kLayoutBf16 = 0, kLayoutInt8 = 1, kLayoutFp8 = 2 };
+
+// One layout: its element type, the vector that holds 8 elements, and the
+// widening of one element to fp32 (exact for every kind; e5m2 picks the
+// fp8 interpretation).
+template <int L>
+struct Payload;
+
+template <>
+struct Payload<kLayoutBf16> {
+  using T = __nv_bfloat16;
+  using Vec = uint4;
+  static __device__ float widen(T x, bool) { return __bfloat162float(x); }
+};
+
+template <>
+struct Payload<kLayoutInt8> {
+  using T = int8_t;
+  using Vec = uint2;
+  static __device__ float widen(T x, bool) { return static_cast<float>(x); }
+};
+
+__device__ __forceinline__ __nv_fp8_interpretation_t fp8_interp(bool e5m2) {
+  return e5m2 ? __NV_E5M2 : __NV_E4M3;
+}
+
+template <>
+struct Payload<kLayoutFp8> {
+  using T = __nv_fp8_storage_t;
+  using Vec = uint2;
+  static __device__ float widen(T x, bool e5m2) {
+    return __half2float(static_cast<__half>(__nv_cvt_fp8_to_halfraw(x, fp8_interp(e5m2))));
+  }
+};
+
+// the dequantized value the TPU kernel forms: fp32 product, rounded to bf16
+__device__ __forceinline__ float dequant(float payload, __half scale) {
+  return __bfloat162float(__float2bfloat16(__fmul_rn(payload, __half2float(scale))));
+}
+
+// Shared memory of the split kernel, in 4-byte words, carved in this order.
+__host__ __device__ constexpr int q_words(int d) { return d / 4 + 1; }
+__host__ __device__ constexpr size_t smem_words(int tg, int d, bool int8_mxu) {
+  return static_cast<size_t>(tg) * (d + 1)        // q_s
+         + kBlockRows * (d + 1)                    // k_s
+         + kBlockRows * d                          // v_s
+         + tg * kBlockRows                         // p_s
+         + 3 * tg                                  // m_s, l_s, a_s
+         + kBlockRows                              // ks_s
+         + tg                                      // qscl_s
+         + (int8_mxu ? (tg + kBlockRows) * q_words(d) : 0);  // qw_s, kw_s
+}
+
+// One pool block of one kv head: kBlockRows rows of D values, loaded as
+// vectors of 8 values, kVec vectors per thread per tensor, and the scale
+// of each row a thread's vectors cover.
+template <int L, int D>
 struct BlockTile {
+  using P = Payload<L>;
+  using T = typename P::T;
+  using Vec = typename P::Vec;
+  static constexpr bool kQuant = L != kLayoutBf16;
   static constexpr int kVecPerRow = D / 8;
   static constexpr int kVec = kBlockRows * kVecPerRow / kThreads;
+  static_assert(sizeof(Vec) == 8 * sizeof(T), "a vector holds 8 values");
   static_assert(kVec >= 1 && kBlockRows * kVecPerRow % kThreads == 0,
                 "tile must split evenly over the threads");
-  uint4 k[kVec];
-  uint4 v[kVec];
+  Vec k[kVec];
+  Vec v[kVec];
+  __half ks[kVec];
+  __half vs[kVec];
 
-  __device__ void load(const __nv_bfloat16* __restrict__ k_pool,
-                       const __nv_bfloat16* __restrict__ v_pool, size_t blk,
-                       int nkv, int h, int tid) {
+  __device__ void load(const T* __restrict__ k_pool, const T* __restrict__ v_pool,
+                       const __half* __restrict__ k_scale,
+                       const __half* __restrict__ v_scale, size_t blk, int nkv,
+                       int h, int tid) {
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
       const int e = tid + j * kThreads;
       const int row = e / kVecPerRow, c = e % kVecPerRow;
       // this head's rows of the pool block are strided by NKV * D elements
-      const size_t off = ((blk * kBlockRows + row) * nkv + h) * D + c * 8;
-      k[j] = *reinterpret_cast<const uint4*>(k_pool + off);
-      v[j] = *reinterpret_cast<const uint4*>(v_pool + off);
+      const size_t srow = (blk * kBlockRows + row) * nkv + h;
+      const size_t off = srow * D + c * 8;
+      k[j] = *reinterpret_cast<const Vec*>(k_pool + off);
+      v[j] = *reinterpret_cast<const Vec*>(v_pool + off);
+      if constexpr (kQuant) {
+        ks[j] = k_scale[srow];
+        vs[j] = v_scale[srow];
+      }
     }
   }
 
-  __device__ void store(float* k_s, int k_stride, float* v_s, int tid) const {
+  // k_s holds the q.k operand: bf16 K, or dequantized K, or (fp8 under
+  // quant_mxu) the widened payload; int8 under quant_mxu stores the raw
+  // payload bytes in kw_s instead. v_s holds bf16 or dequantized V.
+  __device__ void store(float* k_s, int k_stride, float* v_s, float* ks_s,
+                        int8_t* kw_s, bool mxu, bool e5m2, int tid) const {
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
       const int e = tid + j * kThreads;
       const int row = e / kVecPerRow, c = e % kVecPerRow;
-      const __nv_bfloat16* kb = reinterpret_cast<const __nv_bfloat16*>(&k[j]);
-      const __nv_bfloat16* vb = reinterpret_cast<const __nv_bfloat16*>(&v[j]);
+      const T* kb = reinterpret_cast<const T*>(&k[j]);
+      const T* vb = reinterpret_cast<const T*>(&v[j]);
 #pragma unroll
       for (int x = 0; x < 8; ++x) {
-        k_s[row * k_stride + c * 8 + x] = __bfloat162float(kb[x]);
-        v_s[row * D + c * 8 + x] = __bfloat162float(vb[x]);
+        const int d = c * 8 + x;
+        if constexpr (!kQuant) {
+          k_s[row * k_stride + d] = P::widen(kb[x], false);
+          v_s[row * D + d] = P::widen(vb[x], false);
+        } else {
+          if (!mxu) {
+            k_s[row * k_stride + d] = dequant(P::widen(kb[x], e5m2), ks[j]);
+          } else if constexpr (L == kLayoutInt8) {
+            kw_s[row * q_words(D) * 4 + d] = kb[x];
+          } else {
+            k_s[row * k_stride + d] = P::widen(kb[x], e5m2);
+          }
+          v_s[row * D + d] = dequant(P::widen(vb[x], e5m2), vs[j]);
+        }
+      }
+      if constexpr (kQuant) {
+        if (c == 0) ks_s[row] = __half2float(ks[j]);
       }
     }
   }
 };
 
-template <int D>
+template <int D, int L>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_split_kernel(
-    const __nv_bfloat16* __restrict__ q,       // (b, t, N, D)
-    const __nv_bfloat16* __restrict__ k_pool,  // (num_blocks, bs, NKV, D)
-    const __nv_bfloat16* __restrict__ v_pool,  // (num_blocks, bs, NKV, D)
-    const int* __restrict__ tables,            // (b, W)
-    const int* __restrict__ positions,         // (b,)
-    float* __restrict__ o_parts,               // (b, NKV, S, t*G, D)
-    float* __restrict__ m_parts,               // (b, NKV, S, t*G)
-    float* __restrict__ l_parts,               // (b, NKV, S, t*G)
+    const __nv_bfloat16* __restrict__ q,             // (b, t, N, D)
+    const typename Payload<L>::T* __restrict__ k_pool,  // (num_blocks, bs, NKV, D)
+    const typename Payload<L>::T* __restrict__ v_pool,  // (num_blocks, bs, NKV, D)
+    const __half* __restrict__ k_scale,              // (num_blocks, bs, NKV) or null
+    const __half* __restrict__ v_scale,              // (num_blocks, bs, NKV) or null
+    const int* __restrict__ tables,                  // (b, W)
+    const int* __restrict__ positions,               // (b,)
+    float* __restrict__ o_parts,                     // (b, NKV, S, t*G, D)
+    float* __restrict__ m_parts,                     // (b, NKV, S, t*G)
+    float* __restrict__ l_parts,                     // (b, NKV, S, t*G)
     int t, int n_heads, int nkv, int group, int w, int nblk, int bps,
-    float sm_scale) {
+    float sm_scale, bool mxu, bool e5m2) {
+  // mode 6's two dots; mxu and e5m2 are the same for every block of a launch
+  const bool int8_mxu = L == kLayoutInt8 && mxu;
+  const bool fp8_mxu = L == kLayoutFp8 && mxu;
   constexpr int DP = D + 1;  // padded row stride: conflict-free row walks
+  constexpr int QW = q_words(D);  // int8 rows as words, padded the same way
   constexpr int kAcc = kMaxTileRows * D / kThreads;  // accumulator slots
   const int s = blockIdx.x;
   const int h = blockIdx.y;
@@ -118,13 +238,17 @@ paged_decode_split_kernel(
   const int tg = t * group;
 
   extern __shared__ float smem[];
-  float* q_s = smem;                   // [tg][DP]
-  float* k_s = q_s + tg * DP;          // [bs][DP]
-  float* v_s = k_s + kBlockRows * DP;  // [bs][D]
-  float* p_s = v_s + kBlockRows * D;   // [tg][bs] softmax weights, bf16-rounded
-  float* m_s = p_s + tg * kBlockRows;  // [tg] running max
-  float* l_s = m_s + tg;               // [tg] running denominator
-  float* a_s = l_s + tg;               // [tg] this block's rescale factor
+  float* q_s = smem;                    // [tg][DP] the q.k operand of q
+  float* k_s = q_s + tg * DP;           // [bs][DP]
+  float* v_s = k_s + kBlockRows * DP;   // [bs][D]
+  float* p_s = v_s + kBlockRows * D;    // [tg][bs] softmax weights, bf16-rounded
+  float* m_s = p_s + tg * kBlockRows;   // [tg] running max
+  float* l_s = m_s + tg;                // [tg] running denominator
+  float* a_s = l_s + tg;                // [tg] this block's rescale factor
+  float* ks_s = a_s + tg;               // [bs] this block's k scales
+  float* qscl_s = ks_s + kBlockRows;    // [tg] int8 query scales
+  int* qw_s = reinterpret_cast<int*>(qscl_s + tg);  // [tg][QW] int8 query
+  int* kw_s = qw_s + tg * QW;                       // [bs][QW] int8 K payload
 
   const int pos = positions[i];
   // the split's logical blocks, cut at the lane's deepest fresh row
@@ -132,9 +256,10 @@ paged_decode_split_kernel(
   const int lb_stop = min(min((s + 1) * bps, nblk), (pos + t - 1) / kBlockRows + 1);
   const int* tbl = tables + static_cast<size_t>(i) * w;
 
-  BlockTile<D> tile;
+  BlockTile<L, D> tile;
   if (lb_begin < lb_stop) {
-    tile.load(k_pool, v_pool, static_cast<size_t>(tbl[lb_begin]), nkv, h, tid);
+    tile.load(k_pool, v_pool, k_scale, v_scale, static_cast<size_t>(tbl[lb_begin]),
+              nkv, h, tid);
   }
 
   // query tile row r = ti * G + g holds q[i, ti, h * G + g, :]
@@ -143,7 +268,28 @@ paged_decode_split_kernel(
     const int ti = r / group, g = r % group;
     const size_t src =
         ((static_cast<size_t>(i) * t + ti) * n_heads + h * group + g) * D + d;
-    q_s[r * DP + d] = __bfloat162float(q[src]);
+    float x = __bfloat162float(q[src]);
+    if (fp8_mxu) {
+      // the reference's unsaturated cast: out-of-range q is NaN (e4m3) or
+      // inf (e5m2) and poisons its row, as there
+      x = Payload<L>::widen(__nv_cvt_float_to_fp8(x, __NV_NOSAT, fp8_interp(e5m2)), e5m2);
+    }
+    q_s[r * DP + d] = x;
+  }
+  if (int8_mxu) {
+    __syncthreads();  // q_s is ready
+    for (int r = tid; r < tg; r += kThreads) {
+      float amax = 0.f;
+      for (int d = 0; d < D; ++d) amax = fmaxf(amax, fabsf(q_s[r * DP + d]));
+      qscl_s[r] = __fdiv_rn(fmaxf(amax, 1e-6f), 127.f);
+    }
+    __syncthreads();  // qscl_s is ready
+    int8_t* qb = reinterpret_cast<int8_t*>(qw_s);
+    for (int e = tid; e < tg * D; e += kThreads) {
+      const int r = e / D, d = e % D;
+      const float x = rintf(__fdiv_rn(q_s[r * DP + d], qscl_s[r]));
+      qb[r * QW * 4 + d] = static_cast<int8_t>(fminf(fmaxf(x, -127.f), 127.f));
+    }
   }
   for (int r = tid; r < tg; r += kThreads) {
     m_s[r] = -CUDART_INF_F;
@@ -156,11 +302,12 @@ paged_decode_split_kernel(
   const int n_pad = (n_sc + 31) & ~31;    // rounded up to whole warps
 
   for (int lb = lb_begin; lb < lb_stop; ++lb) {
-    tile.store(k_s, DP, v_s, tid);
-    __syncthreads();  // k_s / v_s (and, first time round, q_s) are ready
+    tile.store(k_s, DP, v_s, ks_s, reinterpret_cast<int8_t*>(kw_s), mxu, e5m2, tid);
+    __syncthreads();  // k_s / v_s (and, first time round, the q tile) are ready
     if (lb + 1 < lb_stop) {
       // in flight while this block is computed
-      tile.load(k_pool, v_pool, static_cast<size_t>(tbl[lb + 1]), nkv, h, tid);
+      tile.load(k_pool, v_pool, k_scale, v_scale, static_cast<size_t>(tbl[lb + 1]),
+                nkv, h, tid);
     }
     // scores and the online-softmax update, one thread per (row, column):
     // a row's 16 columns sit on 16 neighbouring lanes of one warp, so its
@@ -171,10 +318,22 @@ paged_decode_split_kernel(
       const bool live = e < n_sc;
       float sc = -CUDART_INF_F;
       if (live && lb * kBlockRows + c <= pos + r / group) {  // block-causal mask
-        float dot = 0.f;
+        if (int8_mxu) {
+          int dot = 0;
 #pragma unroll 16
-        for (int d = 0; d < D; ++d) dot += q_s[r * DP + d] * k_s[c * DP + d];
-        sc = dot * sm_scale;
+          for (int x = 0; x < D / 4; ++x) dot = __dp4a(qw_s[r * QW + x], kw_s[c * QW + x], dot);
+          sc = __fmul_rn(__fmul_rn(__fmul_rn(static_cast<float>(dot), qscl_s[r]), ks_s[c]),
+                         sm_scale);
+        } else {
+          float dot = 0.f;
+#pragma unroll 16
+          for (int d = 0; d < D; ++d) dot += q_s[r * DP + d] * k_s[c * DP + d];
+          if (fp8_mxu) {
+            sc = __fmul_rn(__fmul_rn(dot, ks_s[c]), sm_scale);
+          } else {
+            sc = dot * sm_scale;
+          }
+        }
       }
       const float m_prev = live ? m_s[r] : -CUDART_INF_F;
       float m_new = sc;
@@ -263,70 +422,96 @@ paged_decode_combine_kernel(
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const void* tables, const void* positions, void* o_parts,
-                   void* m_parts, void* l_parts, void* out, int b, int t,
-                   int n_heads, int nkv, int w, int nblk, int splits, int bps,
-                   float sm_scale, cudaStream_t stream) {
-  const int group = n_heads / nkv;
-  const int tg = t * group;
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(tg) * (D + 1) + kBlockRows * (D + 1) +
-       kBlockRows * D + tg * kBlockRows + 3 * tg);
-  auto split_kernel = paged_decode_split_kernel<D>;
+struct Args {
+  const void* q;
+  const void* k_pool;
+  const void* v_pool;
+  const void* k_scale;
+  const void* v_scale;
+  const void* tables;
+  const void* positions;
+  void* o_parts;
+  void* m_parts;
+  void* l_parts;
+  void* out;
+  int b, t, n_heads, nkv, w, nblk, splits, bps;
+  float sm_scale;
+  cudaStream_t stream;
+};
+
+template <int D, int L>
+cudaError_t launch(const Args& a, bool mxu, bool e5m2) {
+  using T = typename Payload<L>::T;
+  const int group = a.n_heads / a.nkv;
+  const int tg = a.t * group;
+  const size_t smem = sizeof(float) * smem_words(tg, D, mxu && L == kLayoutInt8);
+  auto split_kernel = paged_decode_split_kernel<D, L>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  split_kernel<<<dim3(splits, nkv, b), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool),
-      static_cast<const int*>(tables), static_cast<const int*>(positions),
-      static_cast<float*>(o_parts), static_cast<float*>(m_parts),
-      static_cast<float*>(l_parts), t, n_heads, nkv, group, w, nblk, bps,
-      sm_scale);
+  split_kernel<<<dim3(a.splits, a.nkv, a.b), kThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const T*>(a.k_pool),
+      static_cast<const T*>(a.v_pool), static_cast<const __half*>(a.k_scale),
+      static_cast<const __half*>(a.v_scale), static_cast<const int*>(a.tables),
+      static_cast<const int*>(a.positions), static_cast<float*>(a.o_parts),
+      static_cast<float*>(a.m_parts), static_cast<float*>(a.l_parts), a.t,
+      a.n_heads, a.nkv, group, a.w, a.nblk, a.bps, a.sm_scale, mxu, e5m2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_decode_combine_kernel<D><<<dim3(nkv, b), kCombineThreads, 0, stream>>>(
-      static_cast<const float*>(o_parts), static_cast<const float*>(m_parts),
-      static_cast<const float*>(l_parts), static_cast<__nv_bfloat16*>(out), t,
-      n_heads, nkv, group, splits);
+  paged_decode_combine_kernel<D><<<dim3(a.nkv, a.b), kCombineThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.o_parts), static_cast<const float*>(a.m_parts),
+      static_cast<const float*>(a.l_parts), static_cast<__nv_bfloat16*>(a.out), a.t,
+      a.n_heads, a.nkv, group, a.splits);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_kind(const Args& a, int kind, bool mxu) {
+  switch (kind) {
+    case kBf16:
+      return mxu ? cudaErrorInvalidValue : launch<D, kLayoutBf16>(a, false, false);
+    case kInt8:
+      return launch<D, kLayoutInt8>(a, mxu, false);
+    case kE4m3:
+      return launch<D, kLayoutFp8>(a, mxu, false);
+    case kE5m2:
+      return launch<D, kLayoutFp8>(a, mxu, true);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes. Pointers are device pointers of
-// contiguous tensors allocated by the caller (pool pointers 16-byte
-// aligned); the stream is the caller's current CUDA stream. Returns a
-// cudaError_t: 0 when both launches were accepted.
-extern "C" int paged_decode_bf16(
-    const void* q, const void* k_pool, const void* v_pool, const void* tables,
-    const void* positions, void* o_parts, void* m_parts, void* l_parts,
-    void* out, int b, int t, int n_heads, int nkv, int head_dim,
-    int block_size, int w, int nblk, int splits, int bps, float sm_scale,
-    void* stream) {
+// contiguous tensors allocated by the caller (pool and scale pointers
+// 16-byte aligned; the scales null for a bf16 pool); kv_kind numbers the
+// payload (0 bf16, 1 int8, 2 fp8 e4m3, 3 fp8 e5m2) and quant_mxu selects
+// mode 6 for a quantized one; the stream is the caller's current CUDA
+// stream. Returns a cudaError_t: 0 when both launches were accepted.
+extern "C" int paged_decode(
+    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+    const void* v_scale, const void* tables, const void* positions, void* o_parts,
+    void* m_parts, void* l_parts, void* out, int b, int t, int n_heads, int nkv,
+    int head_dim, int block_size, int w, int nblk, int splits, int bps, int kv_kind,
+    int quant_mxu, float sm_scale, void* stream) {
+  const bool quantized = kv_kind != kBf16;
   if (block_size != kBlockRows || nkv <= 0 || n_heads % nkv != 0 || t < 1 ||
       t * (n_heads / nkv) > kMaxTileRows || splits < 1 || bps < 1 ||
-      nblk > w || b < 1) {
+      nblk > w || b < 1 || (quantized && (k_scale == nullptr || v_scale == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, positions, o_parts,
+               m_parts, l_parts, out, b, t, n_heads, nkv, w, nblk, splits, bps,
+               sm_scale, static_cast<cudaStream_t>(stream)};
   switch (head_dim) {
     case 64:
-      return static_cast<int>(launch<64>(q, k_pool, v_pool, tables, positions,
-                                         o_parts, m_parts, l_parts, out, b, t,
-                                         n_heads, nkv, w, nblk, splits, bps,
-                                         sm_scale, st));
+      return static_cast<int>(launch_kind<64>(a, kv_kind, quant_mxu != 0));
     case 128:
-      return static_cast<int>(launch<128>(q, k_pool, v_pool, tables, positions,
-                                          o_parts, m_parts, l_parts, out, b, t,
-                                          n_heads, nkv, w, nblk, splits, bps,
-                                          sm_scale, st));
+      return static_cast<int>(launch_kind<128>(a, kv_kind, quant_mxu != 0));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

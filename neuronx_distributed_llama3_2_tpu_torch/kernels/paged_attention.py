@@ -18,9 +18,17 @@ else (padding, null-block garbage) is masked. ``kv_limit`` bounds the
 logical rows visited; the caller guarantees every used query row sits
 below it.
 
-The quantized pool (``k_scale`` / ``v_scale``, ``quant_mxu``), ``row_live``
-and ``tree_bits`` modes of the TPU kernel are later sub-slices of the port
-and raise ``NotImplementedError`` here.
+``k_scale`` / ``v_scale`` (each (num_blocks, bs, NKV) fp16) mark an int8
+or fp8 pool (:mod:`..quantization.kv_cache`): each block's K and V are
+dequantized as ``(payload.f32 * scale.f32).to(q.dtype)`` before the dots
+(mode 3 of the TPU kernel). ``quant_mxu`` keeps the q.k dot in the
+payload's precision (mode 6): an int8 pool requantizes each query row to
+int8 (absmax / 127) and accumulates int8 x int8 in int32, an fp8 pool
+casts q to the payload's fp8 type without saturation; the scales then
+multiply the fp32 scores, and p.V keeps mode 3's dequantized V.
+
+The ``row_live`` and ``tree_bits`` modes of the TPU kernel are later
+sub-slices of the port and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -29,6 +37,10 @@ import ctypes
 from typing import Optional
 
 import torch
+
+from neuronx_distributed_llama3_2_tpu_torch.quantization.kv_cache import (
+    kv_dequantize,
+)
 
 # kv-length split count: enough blocks to spread a long context over the
 # SMs past small decode batches without shrinking per-split work below a
@@ -65,9 +77,50 @@ def _unported(**modes) -> None:
         if value is not None and value is not False:
             raise NotImplementedError(
                 f"paged_flash_decode({name}=...) is a later sub-slice of the "
-                "port: only the bf16 pool with t == 1 and t <= 8 "
-                "block-causal queries is ported"
+                "port: only the bf16 and int8/fp8 pools with t == 1 and "
+                "t <= 8 block-causal queries are ported"
             )
+
+
+def _check_scales(k_pool, k_scale, v_scale, quant_mxu) -> bool:
+    """Validate the quantized-pool arguments as the TPU kernel does;
+    returns whether the pool is quantized."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    quantized = k_scale is not None
+    if quant_mxu and not quantized:
+        raise ValueError(
+            "quant_mxu needs a quantized pool (k_scale/v_scale): the fp pool "
+            "has no low-bit payload to keep in the dot"
+        )
+    if quantized:
+        want = tuple(k_pool.shape[:3])
+        if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
+            raise ValueError(
+                f"scale arrays must be (num_blocks, bs, NKV) = {want}, got "
+                f"{tuple(k_scale.shape)} / {tuple(v_scale.shape)}"
+            )
+    return quantized
+
+
+# an fp8 cast without saturation overflows past the format's rounding
+# edge (max + half an ulp): e4m3fn has no inf and gives NaN there, e5m2
+# gives inf at and past it (the tie rounds up, to the odd-free inf)
+_FP8_E4M3_NAN_ABOVE = 464.0
+_FP8_E5M2_INF_FROM = 61440.0
+
+
+def fp8_query(q: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``q`` cast to the fp8 payload ``dtype`` as the TPU kernel's
+    ``q.astype(k.dtype)`` does, widened back to fp32. torch's cast
+    saturates e4m3fn to +-448 where the reference gives NaN, so the
+    overflow is set explicitly."""
+    qf = q.float()
+    out = qf.to(dtype).float()
+    if dtype == torch.float8_e4m3fn:
+        return torch.where(qf.abs() > _FP8_E4M3_NAN_ABOVE, float("nan"), out)
+    over = qf.abs() >= _FP8_E5M2_INF_FROM
+    return torch.where(over, torch.copysign(torch.full_like(qf, float("inf")), qf), out)
 
 
 def _geometry(q, k_pool, block_tables, kv_limit, num_splits):
@@ -93,24 +146,59 @@ def paged_flash_decode_reference(
     positions: torch.Tensor,     # (b,) int — row of the FIRST fresh query
     *,
     kv_limit: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,  # (num_blocks, bs, NKV) fp16
+    v_scale: Optional[torch.Tensor] = None,
+    quant_mxu: bool = False,
 ) -> torch.Tensor:
     """The plain PyTorch version of :func:`paged_flash_decode`: gather the
     first ``ceil(kv_limit / bs)`` table blocks of every lane, then one
     masked softmax in fp32 (q·k of the input-dtype operands accumulated in
     fp32, times ``D ** -0.5``). Returns q's shape in q's dtype. It
-    materializes the (b, kv_limit, NKV, D) gather the kernel avoids."""
+    materializes the (b, kv_limit, NKV, D) gather the kernel avoids.
+
+    A quantized pool follows the TPU kernel step for step: K and V
+    dequantized and rounded to q's dtype; under ``quant_mxu`` the scores
+    are ``acc * q_scale * k_scale * sm_scale`` (int8) or ``acc * k_scale *
+    sm_scale`` (fp8), multiplied in that order."""
+    quantized = _check_scales(k_pool, k_scale, v_scale, quant_mxu)
     squeeze = q.dim() == 3
     if squeeze:
         q = q[:, None]
     b, t, n, d = q.shape
     _, bs, nkv, _ = k_pool.shape
     g = n // nkv
+    sm_scale = d ** -0.5
     nblk, _, _ = _geometry(q, k_pool, block_tables, kv_limit, 1)
     blocks = block_tables[:, :nblk].long()                      # (b, nblk)
-    k_all = k_pool[blocks].reshape(b, nblk * bs, nkv, d).float()
-    v_all = v_pool[blocks].reshape(b, nblk * bs, nkv, d).float()
+    k_all = k_pool[blocks].reshape(b, nblk * bs, nkv, d)
+    v_all = v_pool[blocks].reshape(b, nblk * bs, nkv, d)
+    if quantized:
+        ks_all = k_scale[blocks].reshape(b, nblk * bs, nkv)
+        vs_all = v_scale[blocks].reshape(b, nblk * bs, nkv)
+        v_all = kv_dequantize(v_all, vs_all, q.dtype)
+    v_all = v_all.float()
     qg = q.float().reshape(b, t, nkv, g, d)
-    scores = torch.einsum("btkgd,bskd->bkgts", qg, k_all) * (d ** -0.5)
+    if quant_mxu:
+        # the k scale of each column, and the integer (int8) or fp8 payload
+        # widened to fp32: products and their sums over D stay exact in
+        # fp32 for int8 (|sum| <= 127 * 127 * D < 2^24), as the int32
+        # accumulation of the TPU kernel
+        ks_col = ks_all.float().permute(0, 2, 1)[:, :, None, None, :]  # (b,k,1,1,S)
+        if k_pool.dtype == torch.int8:
+            q_scl = qg.abs().amax(dim=-1).clamp_min(1e-6) / 127.0     # (b,t,k,g)
+            q_i8 = torch.clamp(torch.round(qg / q_scl[..., None]), -127.0, 127.0)
+            acc = torch.einsum("btkgd,bskd->bkgts", q_i8, k_all.float())
+            scores = (
+                acc * q_scl.permute(0, 2, 3, 1)[..., None] * ks_col * sm_scale
+            )
+        else:
+            q8 = fp8_query(qg, k_pool.dtype)
+            acc = torch.einsum("btkgd,bskd->bkgts", q8, k_all.float())
+            scores = acc * ks_col * sm_scale
+    else:
+        if quantized:
+            k_all = kv_dequantize(k_all, ks_all, q.dtype)
+        scores = torch.einsum("btkgd,bskd->bkgts", qg, k_all.float()) * sm_scale
     rows = torch.arange(nblk * bs, device=q.device)
     last = positions.long()[:, None] + torch.arange(t, device=q.device)[None, :]
     mask = rows[None, None, :] <= last[:, :, None]               # (b, t, S)
@@ -138,25 +226,36 @@ def paged_flash_decode(
 ) -> torch.Tensor:
     """Gather-free paged decode attention; returns q's shape in q.dtype
     (see the module docstring for the semantics)."""
-    _unported(
-        k_scale=k_scale, v_scale=v_scale, quant_mxu=quant_mxu,
-        row_live=row_live, tree_bits=tree_bits,
-    )
+    _unported(row_live=row_live, tree_bits=tree_bits)
+    _check_scales(k_pool, k_scale, v_scale, quant_mxu)
     squeeze = q.dim() == 3
     q4 = q[:, None] if squeeze else q
     nblk, splits, bps = _geometry(q4, k_pool, block_tables, kv_limit, num_splits)
     dev = q.device.type
     if dev == "cpu":
         return paged_flash_decode_reference(
-            q, k_pool, v_pool, block_tables, positions, kv_limit=kv_limit
+            q, k_pool, v_pool, block_tables, positions, kv_limit=kv_limit,
+            k_scale=k_scale, v_scale=v_scale, quant_mxu=quant_mxu,
         )
     if dev != "cuda":
         raise RuntimeError(
             f"paged_flash_decode runs its CUDA kernel on cuda tensors and its "
             f"plain version on cpu tensors; got a {dev!r} tensor"
         )
-    out = _launch(q4, k_pool, v_pool, block_tables, positions, nblk, splits, bps)
+    out = _launch(
+        q4, k_pool, v_pool, block_tables, positions, nblk, splits, bps,
+        k_scale=k_scale, v_scale=v_scale, quant_mxu=quant_mxu,
+    )
     return out[:, 0] if squeeze else out
+
+
+#: the kernel's payload kinds, by pool dtype (csrc/paged_decode.cu KvKind)
+KV_KINDS = {
+    torch.bfloat16: 0,
+    torch.int8: 1,
+    torch.float8_e4m3fn: 2,
+    torch.float8_e5m2: 3,
+}
 
 
 def _kernel():
@@ -164,33 +263,54 @@ def _kernel():
     every pointer and the stream passed as ``c_void_p``."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels._build import load
 
-    fn = load("paged_decode").paged_decode_bf16
+    fn = load("paged_decode").paged_decode
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [
             ctypes.c_float, ctypes.c_void_p,
         ]
     return fn
 
 
-def _launch(q, k_pool, v_pool, block_tables, positions, nblk, splits, bps):
+def _launch(
+    q, k_pool, v_pool, block_tables, positions, nblk, splits, bps, *,
+    k_scale=None, v_scale=None, quant_mxu=False,
+):
     b, t, n, d = q.shape
     nb, bs, nkv, _ = k_pool.shape
     g = n // nkv
+    quantized = k_scale is not None
     tensors = dict(
         q=q, k_pool=k_pool, v_pool=v_pool, block_tables=block_tables,
         positions=positions,
     )
+    if quantized:
+        tensors.update(k_scale=k_scale, v_scale=v_scale)
     for name, x in tensors.items():
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name in ("q", "k_pool", "v_pool"):
-        if tensors[name].dtype != torch.bfloat16:
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the CUDA kernel takes a bf16 q, got {q.dtype}")
+    if quantized:
+        payloads = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
+        if k_pool.dtype not in payloads or v_pool.dtype != k_pool.dtype:
             raise ValueError(
-                f"the CUDA kernel takes a bf16 {name}, got {tensors[name].dtype}"
+                f"the CUDA kernel takes int8, fp8_e4m3 or fp8_e5m2 payloads of "
+                f"one dtype with scales, got k_pool {k_pool.dtype}, v_pool "
+                f"{v_pool.dtype}"
             )
+        for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if x.dtype != torch.float16:
+                raise ValueError(f"{name} must be float16, got {x.dtype}")
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
+    elif k_pool.dtype != torch.bfloat16 or v_pool.dtype != torch.bfloat16:
+        raise ValueError(
+            f"the CUDA kernel takes bf16 pools without scales, got k_pool "
+            f"{k_pool.dtype}, v_pool {v_pool.dtype}"
+        )
     for name in ("block_tables", "positions"):
         if tensors[name].dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {tensors[name].dtype}")
@@ -208,7 +328,7 @@ def _launch(q, k_pool, v_pool, block_tables, positions, nblk, splits, bps):
             f"block_size {bs}, head_dim {d}, t {t}, G {g}"
         )
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("the kernel's 16-byte K/V loads need 16-byte aligned pools")
+        raise ValueError("the kernel's vector K/V loads need 16-byte aligned pools")
 
     fn = _kernel()
     tg = t * g
@@ -219,13 +339,15 @@ def _launch(q, k_pool, v_pool, block_tables, positions, nblk, splits, bps):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
         block_tables.data_ptr(), positions.data_ptr(),
         o_parts.data_ptr(), m_parts.data_ptr(), l_parts.data_ptr(),
         out.data_ptr(),
         b, t, n, nkv, d, bs, block_tables.shape[1], nblk, splits, bps,
-        d ** -0.5, stream,
+        KV_KINDS[k_pool.dtype], int(quant_mxu), d ** -0.5, stream,
     )
     if err != 0:
-        raise RuntimeError(f"paged_decode_bf16 launch failed: cudaError_t {err}")
+        raise RuntimeError(f"paged_decode launch failed: cudaError_t {err}")
     launches.count += 1
     return out

@@ -18,9 +18,21 @@ for the synchronous FIFO loop:
   cover the prompt plus a decode reserve. On pool exhaustion mid-decode the
   youngest request is preempted and requeued — never an exception out of
   :meth:`PagedServingEngine.step`.
+- With ``PagedConfig.prefill_chunk_tokens`` set, a suffix longer than one
+  chunk is admitted with its whole table allocated but an all-null
+  decode-visible table row, and prefilled one chunk per step
+  (Sarathi-Serve) between the decode steps of the other lanes; the last
+  chunk installs the table, registers the prefix and samples the first
+  token.
+- ``PagedConfig.kv_cache_dtype`` int8 / fp8 stores the pool as low-bit
+  payloads with per-(row, kv head) fp16 scales (:mod:`..quantization.
+  kv_cache`), quantized on write; copy-on-write copies a block's scales
+  with its payload. ``quant_mxu`` keeps the kernel's q.k dot in the
+  payload's precision.
 - Each :meth:`PagedServingEngine.step` runs the FIFO policy's schedule
-  (serving/policy.py): drain, admit (with inline prefill), one batched T=1
-  decode over every active lane, read back.
+  (serving/policy.py): drain, admit (with inline prefill), one chunk per
+  prefilling lane, one batched T=1 decode over every active lane, read
+  back.
 
 The JAX package compiles each of these as a jitted program and keeps a
 program registry and an AOT catalog; here every program is a plain eager
@@ -48,6 +60,10 @@ from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
     InferenceEngine,
 )
 from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import sample
+from neuronx_distributed_llama3_2_tpu_torch.quantization.kv_cache import (
+    kv_cache_torch_dtype,
+    kv_scale_itemsize,
+)
 from neuronx_distributed_llama3_2_tpu_torch.serving.block_allocator import (
     NULL_BLOCK,
     BlockAllocator,
@@ -156,7 +172,6 @@ class PagedConfig:
 #: Any value other than the default (a falsy value counts as the default
 #: where the default is falsy) makes PagedServingEngine raise.
 UNPORTED_KNOBS: Dict[str, str] = {
-    "prefill_chunk_tokens": "chunked prefill",
     "async_loop": "the async double-buffered decode loop",
     "spec_draft_tokens": "speculative decoding",
     "spec_tree": "tree speculation",
@@ -167,8 +182,6 @@ UNPORTED_KNOBS: Dict[str, str] = {
     "spec_probation_tokens": "speculative decoding",
     "spec_retry_steps": "speculative decoding",
     "fused_step": "the fused mixed-mode step",
-    "kv_cache_dtype": "the quantized KV pool",
-    "quant_mxu": "the low-precision decode dot",
     "on_device_sampling": "fused on-device sampling",
     "spill_enabled": "tiered KV storage",
     "host_tier_bytes": "tiered KV storage",
@@ -226,9 +239,15 @@ class _PagedRequest:
     cached_tokens: int = 0       # cumulative across (re-)admissions
     preemptions: int = 0
     done: bool = False
-    # mid-way through a chunked prefill: always False until that sub-slice
-    # lands (the step policy and request_info read it)
+    # mid-way through a chunked prefill: the lane holds its blocks and
+    # prefill_pos walks to prefill_target (= len(prompt + out) at
+    # admission), one chunk per step; the lane joins the decode batch after
+    # the last chunk
     prefilling: bool = False
+    prefill_pos: int = 0
+    prefill_target: int = 0
+    # the (1, W) block-table row on the device, uploaded once per chunk walk
+    table_dev: Any = None
     # terminal failure (cancel): the request is done with partial output
     # and `error` holds the detail
     failed: bool = False
@@ -313,8 +332,30 @@ class PagedServingEngine:
         self.table_width = _ceil_div(engine.max_seq_len, bs) + _ceil_div(
             self._prefill_buckets[-1], bs
         )
+        if paged.prefill_chunk_tokens is not None and paged.prefill_chunk_tokens < 0:
+            raise ValueError("prefill_chunk_tokens must be positive (or None / 0: off)")
+        kv_cache_torch_dtype(paged.kv_cache_dtype)  # validate the knob early
+        self._kv_quantized = paged.kv_cache_dtype != "bf16"
+        if self._kv_quantized and paged.cache_dtype is not None:
+            raise ValueError(
+                "cache_dtype and a quantized kv_cache_dtype are mutually "
+                "exclusive: the quantized storage dtype is the pool dtype"
+            )
+        if paged.quant_mxu:
+            if not self._kv_quantized:
+                raise ValueError(
+                    "quant_mxu requires a quantized kv_cache_dtype (int8/fp8): "
+                    "the fp pool has no low-bit payload to keep in the dot"
+                )
+            if not self.model.config.quant_mxu:
+                # a twin of the decode model with the kernel knob set; it
+                # holds no weights, and the caller's model is untouched
+                self.model = type(self.model)(
+                    dataclasses.replace(self.model.config, quant_mxu=True)
+                )
         self.cache = self.model.init_paged_cache(
-            paged.num_blocks, bs, paged.cache_dtype, device=self.device,
+            paged.num_blocks, bs, paged.cache_dtype,
+            kv_cache_dtype=paged.kv_cache_dtype, device=self.device,
         )
         self.allocator = BlockAllocator(paged.num_blocks, bs)
         self.index = RadixPrefixIndex(self.allocator)
@@ -329,6 +370,7 @@ class PagedServingEngine:
             num_layers=mc.num_layers, num_blocks=paged.num_blocks,
             block_size=bs, num_kv_heads=mc.num_kv_heads,
             head_dim=mc.head_dim, dtype_bytes=self.cache.k.element_size(),
+            scale_bytes=kv_scale_itemsize(paged.kv_cache_dtype),
         )
         self.metrics.tp_size = 1
         self.metrics.kv_dtype = paged.kv_cache_dtype
@@ -401,9 +443,12 @@ class PagedServingEngine:
 
     def _copy_block(self, src: int, dst: int) -> None:
         """Copy-on-write: pool block ``src`` -> ``dst`` in every layer, in
-        place (the JAX package donates the pool to a copy program)."""
-        self.cache.k[:, dst] = self.cache.k[:, src]
-        self.cache.v[:, dst] = self.cache.v[:, src]
+        place (the JAX package donates the pool to a copy program). A
+        quantized pool's scales are part of the block's value and are
+        copied with its payload."""
+        c = self.cache
+        for x in (c.k, c.v) + ((c.k_scale, c.v_scale) if c.quantized else ()):
+            x[:, dst] = x[:, src]
 
     # -- request lifecycle ------------------------------------------------
 
@@ -415,6 +460,7 @@ class PagedServingEngine:
         for b in req.table:
             self.allocator.release(b)
         req.table = []
+        req.table_dev = None
         del self._active[lane]
         self._free_lanes.append(lane)
         self._tables[lane, :] = NULL_BLOCK
@@ -436,6 +482,7 @@ class PagedServingEngine:
             self._queue.remove(req)
         if req.lane is not None:
             lane = req.lane
+            req.prefilling = False
             self._release_lane(req)
             self._emit_action(
                 ActionType.FINISH, rid=req.rid, lane=lane, failed=True,
@@ -614,6 +661,22 @@ class PagedServingEngine:
             if req.admitted_at is None:  # queue_ms = first admission wait
                 req.admitted_at = time.perf_counter()
             self.tracer.request_state(req.rid, "prefilling")
+            chunk = self.paged.prefill_chunk_tokens
+            if chunk and len(seq) - cached > chunk:
+                # chunked admission: the lane holds its blocks but joins the
+                # decode batch only after the final chunk. Until then its
+                # decode-visible table row stays all-null: the batched
+                # decode writes K/V for every lane, and a live row would let
+                # those garbage writes land in this request's blocks
+                # mid-prefill. Prefix registration waits for the last chunk
+                # too, when the blocks hold valid rows
+                req.prefilling = True
+                req.prefill_pos = cached
+                req.prefill_target = len(seq)
+                self._tokens[lane] = 0
+                self._positions[lane] = 0
+                self._dirty_lanes.add(lane)
+                continue
             suffix = seq[cached:]
             t_p = time.perf_counter()
             first = self._prefill(suffix, cached, table)
@@ -637,39 +700,104 @@ class PagedServingEngine:
             self._maybe_finish(req)
 
     @torch.no_grad()
-    def _prefill(self, suffix: List[int], cached: int, table: List[int]) -> int:
-        """Run one prefill over the request's table and read its sampled
-        token back: the whole prompt (``pctx``, plain-torch attention over
-        the fresh block) when nothing is cached, else the suffix after the
-        cached prefix (``psfx``, attending the shared blocks through the
-        table). No autograd: the LM head here runs outside the model's
-        own no-grad forward."""
+    def _prefill(
+        self, suffix: List[int], cached: int, table: List[int], table_dev=None,
+    ) -> int:
+        """Run one (whole or chunk) prefill over the request's table and
+        read its sampled token back: the whole prompt (``pctx``,
+        plain-torch attention over the fresh block) when nothing is cached,
+        else the suffix after the cached prefix (``psfx``, attending the
+        earlier rows through the table). ``table_dev`` is the (1, W) table
+        row already on the device (a chunk walk uploads it once). No
+        autograd: the LM head here runs outside the model's own no-grad
+        forward."""
         eng = self.engine
         bucket = pick_bucket(self._prefill_buckets, max(len(suffix), 1))
         ids = np.zeros((1, bucket), np.int32)
         ids[0, : len(suffix)] = suffix
         length = max(len(suffix), 1)
-        tbl = np.full((1, self.table_width), NULL_BLOCK, np.int32)
-        tbl[0, : len(table)] = table
+        if table_dev is None:
+            tbl = np.full((1, self.table_width), NULL_BLOCK, np.int32)
+            tbl[0, : len(table)] = table
+            table_dev = self._upload(tbl)
         if cached == 0:
             hidden, self.cache = self.model.forward(
                 eng.params, self.cache, self._upload(ids),
                 torch.zeros((1,), dtype=torch.int32, device=self.device), None,
-                context_encode=True, return_hidden=True,
-                block_tables=self._upload(tbl),
+                context_encode=True, return_hidden=True, block_tables=table_dev,
             )
         else:
             kv_limit = self._kv_bucket(min(cached + bucket, eng.max_seq_len))
             hidden, self.cache = self.model.forward(
                 eng.params, self.cache, self._upload(ids),
                 self._upload([cached]), None, return_hidden=True,
-                block_tables=self._upload(tbl), kv_limit=kv_limit,
+                block_tables=table_dev, kv_limit=kv_limit,
             )
         # last-token gather before the LM head
         logits = eng.params._logits(hidden[:, length - 1])
         tok = sample(logits, self._generator, self.gen.sampling)
         self.metrics.note_prefill_dispatch(bucket, length)
         return int(self._read_tokens(tok)[0])
+
+    def _advance_prefills(self, budget_tokens: Optional[int] = None) -> None:
+        """One chunk per prefilling lane per step (Sarathi-Serve chunked
+        prefill). Each chunk is a prefill starting at ``prefill_pos``: the
+        first of an uncached prompt through the whole-prompt path, the rest
+        through the suffix path, attending the earlier chunks through the
+        table. A non-final chunk's sampled token is discarded; bucket
+        padding is safe because padded writes land at rows a later chunk
+        overwrites before any mask admits them. ``budget_tokens`` (a cap
+        on the wave's prefill tokens, set only by the SLO-aware policies)
+        is not ported; FIFO passes None."""
+        if budget_tokens is not None:
+            raise NotImplementedError(
+                "PREFILL_CHUNK budget_tokens comes with the SLO-aware step "
+                "policies, which are not ported to the PyTorch package yet"
+            )
+        chunk = self.paged.prefill_chunk_tokens
+        bs = self.paged.block_size
+        for lane, req in list(self._active.items()):
+            if not req.prefilling:
+                continue
+            seq = req.prompt + req.out
+            start = req.prefill_pos
+            piece = seq[start: start + chunk]
+            final = start + len(piece) >= req.prefill_target
+            if req.table_dev is None:
+                # one upload for the whole chunk walk: the admission
+                # allocated the full table, so every chunk sees the same row
+                tbl = np.full((1, self.table_width), NULL_BLOCK, np.int32)
+                tbl[0, : len(req.table)] = req.table
+                req.table_dev = self._upload(tbl)
+            t_p = time.perf_counter()
+            tok = self._prefill(piece, start, req.table, req.table_dev)
+            req.prefill_ms += (time.perf_counter() - t_p) * 1e3
+            req.prefill_pos = start + len(piece)
+            self.metrics.prefill_tokens += len(piece)
+            self.metrics.prefill_chunks += 1
+            self._emit_action(
+                ActionType.PREFILL_CHUNK, rid=req.rid, lane=lane,
+                tokens=len(piece), final=final,
+            )
+            if not final:
+                continue
+            # final chunk: sample the first token, install the real table
+            # into the decode batch, register the prompt for prefix sharing
+            req.prefilling = False
+            req.table_dev = None
+            req.out.append(tok)
+            req.position = req.prefill_target
+            self._note_first_token(req)
+            self.tracer.request_state(req.rid, "active")
+            self._tokens[lane] = tok
+            self._positions[lane] = req.position
+            self._tables[lane, : len(req.table)] = req.table
+            self._dirty_lanes.add(lane)
+            if self.paged.enable_prefix_caching:
+                n_full = len(seq) // bs
+                if n_full:
+                    self.index.insert(seq[: n_full * bs], req.table[:n_full])
+            self._maybe_finish(req)
 
     # -- decode -----------------------------------------------------------
 
@@ -680,6 +808,11 @@ class PagedServingEngine:
         lane = req.lane
         self._release_lane(req)
         req.position = 0
+        # a victim caught mid-chunked-prefill restarts its prefill from the
+        # (possibly re-matched) cached prefix on re-admission
+        req.prefilling = False
+        req.prefill_pos = 0
+        req.prefill_target = 0
         self._queue.insert(0, req)
         req.preemptions += 1
         self.metrics.preemptions += 1
@@ -699,6 +832,8 @@ class PagedServingEngine:
             req = self._active.get(lane)
             if req is None:
                 continue  # preempted while servicing an older lane
+            if req.prefilling:
+                continue  # admission already allocated the whole-prompt table
             if int(self._positions[lane]) // bs < len(req.table):
                 continue
             while True:
@@ -795,11 +930,14 @@ class PagedServingEngine:
     def _dispatch_sync_decode(self) -> bool:
         """The decode tail of a synchronous step: back the write rows,
         flush lane state, run one T=1 step over every lane and read it
-        back."""
-        if not self._active:
-            return bool(self._queue)
+        back. A lane mid-way through a chunked prefill rides the batched
+        step with its all-null table (its write lands in the null block)
+        and is not a decode lane: its sampled token is dropped and its
+        position kept."""
+        if not any(not r.prefilling for r in self._active.values()):
+            return bool(self._active or self._queue)
         self._ensure_decode_blocks()
-        decode_lanes = list(self._active)
+        decode_lanes = [l for l, r in self._active.items() if not r.prefilling]
         if not decode_lanes:
             return bool(self._active or self._queue)  # re-admit next step
         self._flush_state()
@@ -830,14 +968,16 @@ class PagedServingEngine:
     def _execute_action(self, act: StepAction) -> None:
         """Run one policy-scheduled action."""
         t = act.type
-        if t is ActionType.READBACK or t is ActionType.PREFILL_CHUNK:
-            # READBACK retires the async loop's lookahead and PREFILL_CHUNK
-            # advances chunked prefills: neither is ported, so neither ever
-            # has work (the sync decode reads itself back, and admission
-            # prefills whole suffixes)
+        if t is ActionType.READBACK:
+            # READBACK retires the async loop's lookahead, which is not
+            # ported: the sync decode reads itself back
             pass
         elif t is ActionType.ADMIT:
             self._admit()
+        elif t is ActionType.PREFILL_CHUNK:
+            self._advance_prefills(
+                budget_tokens=act.meta.get("budget_tokens") if act.meta else None
+            )
         elif t is ActionType.DECODE_DISPATCH and act.mode == "sync":
             self._dispatch_sync_decode()
         else:

@@ -29,6 +29,10 @@ def imported_top_levels(path: Path):
 def test_sources_exist():
     assert (ROOT / "chip_smoke.py").is_file()
     assert len(SOURCES) > 10
+    # every subpackage is scanned, the quantization one included
+    for sub in ("inference", "kernels", "models", "quantization", "serving", "trainer"):
+        assert PORT / sub / "__init__.py" in SOURCES
+    assert PORT / "quantization" / "kv_cache.py" in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -4,9 +4,12 @@ package's, on the CPU.
 On CPU tensors the wrapper runs its plain version (one masked softmax over
 the gathered rows); the JAX side runs its Pallas kernel in interpret mode
 (split-K online softmax). In fp32 the two differ only in summation order:
-2e-5, the JAX package's own kernel-vs-reference tolerance. The CUDA kernel
-itself runs only on the card; ``chip_smoke.py`` holds it against the plain
-version there.
+2e-5, the JAX package's own kernel-vs-reference tolerance. With bf16 q
+(the quantized modes) the JAX kernel also rounds its softmax weights to
+bf16 before p.V and the plain version does not, so the two agree within
+2 bf16 ulps of the largest output, the tolerance chip_smoke.py holds the
+CUDA kernel to. The CUDA kernel itself runs only on the card;
+``chip_smoke.py`` holds it against the plain version there.
 """
 
 import dataclasses
@@ -27,6 +30,7 @@ from neuronx_distributed_llama3_2_tpu.models.llama import (
     LLAMA_CONFIGS as JAX_CONFIGS,
     LlamaForCausalLM as JaxLlama,
 )
+from neuronx_distributed_llama3_2_tpu.quantization import kv_cache as jkv
 from neuronx_distributed_llama3_2_tpu_torch.inference.model import LlamaDecode
 from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
 from neuronx_distributed_llama3_2_tpu_torch.models.llama import (
@@ -34,6 +38,7 @@ from neuronx_distributed_llama3_2_tpu_torch.models.llama import (
     LlamaForCausalLM,
     params_from_jax,
 )
+from neuronx_distributed_llama3_2_tpu_torch.quantization import kv_cache as kv
 from neuronx_distributed_llama3_2_tpu_torch.utils import device as device_mod
 
 torch.set_num_threads(1)
@@ -96,13 +101,36 @@ def test_unported_modes_raise():
     q, kp, vp, tables, positions = (
         torch.as_tensor(x) for x in _case(1, seed=0)
     )
-    scale = torch.ones(NB, BS, NKV)
     for kw in (
-        dict(k_scale=scale, v_scale=scale), dict(quant_mxu=True),
         dict(row_live=positions), dict(tree_bits=torch.zeros(B, 1, dtype=torch.int32)),
     ):
         with pytest.raises(NotImplementedError, match="sub-slice"):
             pa.paged_flash_decode(q, kp, vp, tables, positions, **kw)
+    # the quantized arguments now reach the plain version
+    kq, ks = kv.kv_quantize(kp, torch.int8)
+    vq, vs = kv.kv_quantize(vp, torch.int8)
+    out = pa.paged_flash_decode(
+        q, kq, vq, tables, positions, k_scale=ks, v_scale=vs, quant_mxu=True,
+    )
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+
+
+def test_quantized_arguments_are_validated():
+    """As in the JAX kernel: scales come in pairs of shape (num_blocks, bs,
+    NKV), and quant_mxu needs them."""
+    q, kp, vp, tables, positions = (
+        torch.as_tensor(x) for x in _case(1, seed=0)
+    )
+    kq, ks = kv.kv_quantize(kp, torch.int8)
+    vq, vs = kv.kv_quantize(vp, torch.int8)
+    for kw, match in (
+        (dict(quant_mxu=True), "quant_mxu needs a quantized pool"),
+        (dict(k_scale=ks), "passed together"),
+        (dict(k_scale=ks[:, :4], v_scale=vs[:, :4]), "scale arrays must be"),
+    ):
+        for fn in (pa.paged_flash_decode, pa.paged_flash_decode_reference):
+            with pytest.raises(ValueError, match=match):
+                fn(q, kq, vq, tables, positions, **kw)
 
 
 def test_no_silent_cpu_path(monkeypatch):
@@ -136,6 +164,143 @@ def test_kernel_launch_rejects_what_it_cannot_take():
         pa._launch(
             q.bfloat16(), kp.bfloat16(), vp.bfloat16(), tables, positions, 8, 1, 8,
         )
+    # quantized: one payload dtype of the three, fp16 scales, bf16 q
+    kq, ks = kv.kv_quantize(kp, torch.int8)
+    vq, vs = kv.kv_quantize(vp, torch.float8_e4m3fn)
+    qb = q.bfloat16()
+    for args, kw, match in (
+        ((qb, kq, vq), dict(k_scale=ks, v_scale=vs), "payloads"),
+        ((qb, kq, kq), dict(k_scale=ks.float(), v_scale=ks.float()), "float16"),
+        ((q, kq, kq), dict(k_scale=ks, v_scale=ks), "bf16 q"),
+        ((qb, kp.bfloat16(), vp.bfloat16()), dict(k_scale=ks, v_scale=vs), "payloads"),
+        ((qb, kq.float(), kq.float()), {}, "bf16 pools"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            pa._launch(*args, tables, positions, 8, 1, 8, **kw)
+
+
+# -- the quantized pool: modes 3 and 6 ----------------------------------------
+
+QDTYPES = ("int8", "fp8_e4m3", "fp8_e5m2")
+JAX_FP8 = {torch.float8_e4m3fn: jnp.float8_e4m3fn, torch.float8_e5m2: jnp.float8_e5m2}
+
+
+def _jax(x: torch.Tensor):
+    """A torch tensor as a JAX array of the same dtype and bits."""
+    if x.dtype in JAX_FP8:
+        return jnp.asarray(x.view(torch.uint8).numpy().view(JAX_FP8[x.dtype]))
+    if x.dtype == torch.bfloat16:
+        return jnp.asarray(x.float().numpy(), jnp.bfloat16)
+    return jnp.asarray(x.numpy())
+
+
+def _quantized_case(t, seed, name, q_dtype=torch.float32):
+    """_case's garbage-filled tables with the pool quantized by the ported
+    kv_quantize: (q, (k, v, k_scale, v_scale), tables, positions)."""
+    q, kp, vp, tables, positions = _case(t, seed)
+    qdt = kv.KV_CACHE_DTYPES[name]
+    kq, ks = kv.kv_quantize(torch.as_tensor(kp), qdt)
+    vq, vs = kv.kv_quantize(torch.as_tensor(vp), qdt)
+    q = torch.as_tensor(q).to(q_dtype)
+    return q, (kq, vq, ks, vs), torch.as_tensor(tables), torch.as_tensor(positions)
+
+
+def _run_both(q, pool, tables, positions, splits, mxu):
+    """(the port's output, JAX's interpret-mode kernel output), in fp32."""
+    kq, vq, ks, vs = pool
+    ref = jax_paged_flash_decode(
+        _jax(q), _jax(kq), _jax(vq), _jax(tables), _jax(positions),
+        kv_limit=KV_LIMIT, num_splits=splits, k_scale=_jax(ks), v_scale=_jax(vs),
+        quant_mxu=mxu,
+    )
+    out = pa.paged_flash_decode(
+        q, kq, vq, tables, positions, kv_limit=KV_LIMIT, num_splits=splits,
+        k_scale=ks, v_scale=vs, quant_mxu=mxu,
+    )
+    assert out.shape == q.shape and out.dtype == q.dtype
+    return out.float().numpy(), np.asarray(ref.astype(jnp.float32))
+
+
+def _bf16_band(ref):
+    """2 bf16 ulps (8 significant bits) of the largest |ref|."""
+    top = float(np.abs(ref).max())
+    return 2 * 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("mxu", [False, True], ids=["mode3", "mode6"])
+@pytest.mark.parametrize("name", QDTYPES)
+def test_quantized_matches_jax_kernel(name, mxu, t, splits):
+    """fp32 q: the plain version against JAX's kernel in modes 3 and 6 at
+    the fp32 tolerance of the bf16 pool."""
+    q, pool, tables, positions = _quantized_case(t, 10 * t + splits, name)
+    if t == 1:
+        q = q[:, 0]  # the 3-dim token-gen form
+    out, ref = _run_both(q, pool, tables, positions, splits, mxu)
+    np.testing.assert_allclose(out, ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("mxu", [False, True], ids=["mode3", "mode6"])
+@pytest.mark.parametrize("name", QDTYPES)
+def test_quantized_bf16_matches_jax_kernel(name, mxu):
+    """bf16 q: dequantized K/V rounded to bf16 on both sides; within 2 bf16
+    ulps of the largest output (the softmax weights are rounded on the
+    JAX side only)."""
+    q, pool, tables, positions = _quantized_case(4, 5, name, torch.bfloat16)
+    out, ref = _run_both(q, pool, tables, positions, 4, mxu)
+    assert np.abs(out - ref).max() <= _bf16_band(ref)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", QDTYPES)
+def test_mode3_is_the_bf16_path_on_the_dequantized_pool(name, q_dtype):
+    """Mode 3 reads exactly kv_dequantize(payload, scale, q.dtype): the
+    same call on the dequantized pool without scales gives the same bits.
+    A mode 3 that skipped the rounding to q's dtype fails this."""
+    q, (kq, vq, ks, vs), tables, positions = _quantized_case(4, 9, name, q_dtype)
+    out = pa.paged_flash_decode(
+        q, kq, vq, tables, positions, kv_limit=KV_LIMIT, k_scale=ks, v_scale=vs,
+    )
+    deq = pa.paged_flash_decode(
+        q, kv.kv_dequantize(kq, ks, q_dtype), kv.kv_dequantize(vq, vs, q_dtype),
+        tables, positions, kv_limit=KV_LIMIT,
+    )
+    torch.testing.assert_close(out, deq, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["fp8_e4m3", "fp8_e5m2"])
+def test_fp8_query_cast_matches_jax(name, q_dtype):
+    """The unsaturated cast of q to fp8, value for value against JAX's
+    astype: e4m3fn is NaN past 464, e5m2 inf from 61440 (torch's own cast
+    saturates e4m3fn)."""
+    x = np.asarray(
+        [0.0, 1e-3, -0.3, 447.0, 448.0, 455.0, 464.0, 465.0, 480.0, -1000.0,
+         57344.0, 61439.0, 61440.0, -70000.0, np.inf, -np.inf, np.nan],
+        np.float32,
+    )
+    dt = kv.KV_CACHE_DTYPES[name]
+    want = np.asarray(
+        jnp.asarray(x, getattr(jnp, q_dtype)).astype(JAX_FP8[dt]).astype(jnp.float32)
+    )
+    got = pa.fp8_query(torch.as_tensor(x).to(getattr(torch, q_dtype)), dt).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name,big", [("fp8_e4m3", 1000.0), ("fp8_e5m2", 7e4)])
+def test_fp8_mode6_overflow_is_nan_where_jax_is(name, big):
+    """A query element past the fp8 range poisons its query row with NaN
+    in JAX's kernel, and exactly that row in the plain version."""
+    q, pool, tables, positions = _quantized_case(1, 4, name)
+    q = q[:, 0].clone()
+    q[1, 3, 5] = big
+    q[2, 6, 0] = -big
+    out, ref = _run_both(q, pool, tables, positions, 4, True)
+    assert np.isnan(ref).any()
+    np.testing.assert_array_equal(np.isnan(out), np.isnan(ref))
+    live = ~np.isnan(ref)
+    np.testing.assert_allclose(out[live], ref[live], atol=2e-5)
 
 
 # -- the decode model around the kernel ---------------------------------------
@@ -211,3 +376,78 @@ def test_kernel_and_gather_paths_agree(weights):
         outs.append(logits)
         assert dec.attention_paths[dec.paged_dispatch_path(3)] == TINY.num_layers
     torch.testing.assert_close(outs[0], outs[1], atol=1e-5, rtol=1e-5)
+
+
+QUANT_MODEL_CASES = [
+    (name, kernel, mxu)
+    for name in QDTYPES
+    for kernel, mxu in ((False, False), (True, False), (True, True))
+]
+
+
+@pytest.mark.parametrize(
+    "name,kernel,mxu", QUANT_MODEL_CASES,
+    ids=[f"{n}-{'kernel' if k else 'gather'}{'-mxu' if m else ''}" for n, k, m in QUANT_MODEL_CASES],
+)
+def test_quantized_decode_model_matches_jax(weights, name, kernel, mxu):
+    """test_paged_decode_model_matches_jax on a quantized pool: prefill,
+    a 4-token suffix and a T=1 decode step, through the kernel's wrapper
+    (modes 3 and 6) or the gather; logits within 1e-5 of JAX's LlamaDecode,
+    and the written payloads and scales the same but for rare rows."""
+    jp, model = weights
+    nb, bs, w = 16, 8, 8
+    rng = np.random.default_rng(17)
+    prompt = rng.integers(0, TINY.vocab_size, size=(2, 16))
+    tables = np.zeros((2, w), np.int32)
+    tables[0, :3] = [3, 5, 7]
+    tables[1, :3] = [2, 9, 4]
+    cfg = dict(use_paged_kernel=kernel, quant_mxu=mxu)
+    jdec = JaxLlamaDecode(dataclasses.replace(JAX_TINY, **cfg))
+    tdec = LlamaDecode(dataclasses.replace(TINY, **cfg))
+    jcache = jdec.init_paged_cache(nb, bs, kv_cache_dtype=name)
+    tcache = tdec.init_paged_cache(nb, bs, kv_cache_dtype=name, device="cpu")
+    assert tcache.quantized and tcache.k.dtype == kv.KV_CACHE_DTYPES[name]
+    steps = [
+        (prompt, [0, 0], dict(context_encode=True)),
+        (rng.integers(0, TINY.vocab_size, size=(2, 4)), [16, 16], {}),
+        (rng.integers(0, TINY.vocab_size, size=(2, 1)), [20, 20], dict(kv_limit=32)),
+    ]
+    for toks, pos, kw in steps:
+        jl, jcache = jdec.forward(
+            jp, jcache, jnp.asarray(toks, jnp.int32), jnp.asarray(pos, jnp.int32),
+            block_tables=jnp.asarray(tables), **kw,
+        )
+        tl, out_cache = tdec.forward(
+            model, tcache, torch.as_tensor(toks), torch.as_tensor(pos, dtype=torch.int32),
+            block_tables=torch.as_tensor(tables), **kw,
+        )
+        assert out_cache is tcache  # written in place
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5, rtol=1e-5)
+    # every block the two lanes wrote: the fp32 projections differ from
+    # JAX's in summation order, so a rare row's scale may land one fp16
+    # ulp away and its payload one step away
+    blocks = [2, 3, 4, 5, 7, 9]
+    for pool, scale in (("k", "k_scale"), ("v", "v_scale")):
+        st = getattr(tcache, scale)[:, blocks].float().numpy()
+        sj = np.asarray(getattr(jcache, scale)[:, blocks]).astype(np.float32)
+        np.testing.assert_allclose(st, sj, rtol=2.0 ** -10)
+        dt = kv.kv_dequantize(getattr(tcache, pool)[:, blocks],
+                              getattr(tcache, scale)[:, blocks], torch.float32).numpy()
+        dj = np.asarray(jkv.kv_dequantize(getattr(jcache, pool)[:, blocks],
+                                          getattr(jcache, scale)[:, blocks], jnp.float32))
+        assert (dt == dj).mean() >= 0.99
+    path = "kernel" if kernel else "gather"
+    assert tdec.attention_paths == {"context": TINY.num_layers, path: 2 * TINY.num_layers}
+
+
+def test_quantized_cache_outside_the_paged_path_raises(weights):
+    _, model = weights
+    dec = LlamaDecode(TINY)
+    cache = dec.init_paged_cache(16, 8, kv_cache_dtype="int8", device="cpu")
+    with pytest.raises(ValueError, match="quantized KV storage is paged-only"):
+        dec.forward(model, cache, torch.zeros((1, 4), dtype=torch.long),
+                    torch.zeros((1,), dtype=torch.int32))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        dec.init_paged_cache(16, 8, torch.float16, kv_cache_dtype="int8", device="cpu")
+    with pytest.raises(ValueError, match="kv_cache_dtype must be one of"):
+        dec.init_paged_cache(16, 8, kv_cache_dtype="int4", device="cpu")

@@ -249,3 +249,154 @@ def test_submit_validation(weights):
         eng.submit(list(range(30)))  # needs 5 + reserve > 5 usable
     with pytest.raises(ValueError, match="decode_reserve_blocks"):
         PagedServingEngine(eng.engine, paged=PagedConfig(decode_reserve_blocks=0))
+
+
+# -- the quantized pool and chunked prefill ------------------------------------
+
+
+def _pair_prompts():
+    """Eight prompts: a pair sharing a 19-token prefix (2 full blocks of 8
+    and 3 rows of a third, so a later hit copies that block on write),
+    the first of the pair first and the second sixth, after the first has
+    finished; one of 40 tokens, which chunks."""
+    rng = np.random.default_rng(21)
+    shared = rng.integers(0, TINY.vocab_size, size=(19,)).tolist()
+    others = _prompts(22, (12, 40, 9, 17, 3, 26))
+    return [shared + [1, 2, 3]] + others[:4] + [shared + [4, 5]] + others[4:]
+
+
+QUANT_SERVE_CASES = [
+    (kv, mxu, chunk)
+    for kv in ("int8", "fp8_e4m3") for mxu in (False, True) for chunk in (None, 8)
+]
+
+
+@pytest.mark.parametrize(
+    "kv_dtype,mxu,chunk", QUANT_SERVE_CASES,
+    ids=[f"{k}-{'mxu' if m else 'deq'}-{'chunk' if c else 'whole'}"
+         for k, m, c in QUANT_SERVE_CASES],
+)
+def test_quantized_serve_matches_jax(weights, kv_dtype, mxu, chunk):
+    """The JAX engine's greedy streams and counters from a quantized pool,
+    with and without quant_mxu and chunked prefill."""
+    (j_out, j_info, jax_eng), (p_out, p_info, port) = _serve_both(
+        weights, [_pair_prompts()], 6, engine_kw=dict(max_batch=3),
+        block_size=8, num_blocks=64, kv_cache_dtype=kv_dtype, quant_mxu=mxu,
+        prefill_chunk_tokens=chunk,
+    )
+    assert p_out == j_out
+    assert _bookkeeping(p_info) == _bookkeeping(j_info)
+    pm, jm = port.metrics, jax_eng.metrics
+    assert pm.cached_tokens == jm.cached_tokens and p_info[5]["cached_tokens"] > 0
+    assert port.allocator.cow_copies == jax_eng.allocator.cow_copies >= 1
+    assert pm.prefill_chunks == jm.prefill_chunks
+    assert (pm.prefill_chunks > 0) == bool(chunk)
+    assert pm.pool_bytes_total == jm.pool_bytes_total
+    c = port.cache
+    assert pm.pool_bytes_total == sum(
+        x.numel() * x.element_size() for x in (c.k, c.v, c.k_scale, c.v_scale)
+    )
+    assert pm.kv_dtype == kv_dtype and port.model.config.quant_mxu == mxu
+    assert port.allocator.leak_check() == []
+    # every layer call of a decode step went through the kernel's wrapper
+    paths = port.model.attention_paths
+    assert paths["kernel"] >= pm.decode_steps * TINY.num_layers
+
+
+def test_chunked_prefill_preempted_mid_prefill_matches_jax(weights, monkeypatch):
+    """Pool pressure preempts the youngest request while it is still
+    chunking; it re-prefills from scratch after re-admission, as in the
+    JAX engine."""
+    caught = []
+    inner = PagedServingEngine._preempt
+
+    def recording(self, req):
+        caught.append(req.prefilling)
+        inner(self, req)
+
+    monkeypatch.setattr(PagedServingEngine, "_preempt", recording)
+    (j_out, j_info, jax_eng), (p_out, p_info, port) = _serve_both(
+        weights, [_prompts(5, (5, 5, 40))], 8, block_size=8, num_blocks=9,
+        decode_reserve_blocks=1, prefill_chunk_tokens=4,
+    )
+    assert True in caught
+    assert p_out == j_out
+    assert _bookkeeping(p_info) == _bookkeeping(j_info)
+    assert port.metrics.preemptions == jax_eng.metrics.preemptions > 0
+    assert port.metrics.prefill_chunks == jax_eng.metrics.prefill_chunks
+    assert port.allocator.leak_check() == []
+
+
+def test_short_request_decodes_while_a_long_one_chunks(weights):
+    """A prefilling lane rides the batched decode with an all-null table
+    but is no decode lane: the short request's tokens grow step by step
+    while the long one has none, and both streams equal the JAX engine's."""
+    long_p, short_p = _prompts(31, (44, 5))
+    port = PagedServingEngine(
+        InferenceEngine(TINY, weights[1], **ENGINE_KW),
+        GenerationConfig(max_new_tokens=6),
+        PagedConfig(block_size=8, num_blocks=32, prefill_chunk_tokens=8),
+    )
+    r_long, r_short = port.submit(long_p), port.submit(short_p)
+    lane_long = None
+    for step in range(4):
+        port.step()
+        info = port.request_info(r_long)
+        assert info["status"] == "prefilling" and info["generated_tokens"] == 0
+        assert port.request_info(r_short)["generated_tokens"] == step + 2
+        lane_long = next(l for l, r in port._active.items() if r.rid == r_long)
+        decoded = [a.meta["lanes"] for a in port._step_actions
+                   if a.type.value == "DECODE_DISPATCH"]
+        assert decoded and lane_long not in decoded[0]
+        assert port._tables[lane_long].tolist() == [0] * port.table_width
+    out = port.run_to_completion()
+    assert port.metrics.prefill_chunks == 6  # 44 tokens in chunks of 8
+    jax_eng = JaxPagedServingEngine(
+        JaxInferenceEngine(JAX_TINY, weights[0], **ENGINE_KW),
+        JaxGenerationConfig(max_new_tokens=6),
+        JaxPagedConfig(block_size=8, num_blocks=32, prefill_chunk_tokens=8),
+        precompile=False,
+    )
+    for p in (long_p, short_p):
+        jax_eng.submit(p)
+    assert jax_eng.run_to_completion() == out
+
+
+def test_copy_on_write_copies_scale_rows(weights):
+    """A quantized block's scales are part of its value: the copy takes
+    them with the payload (the JAX engine's _copy_block_fn)."""
+    eng = PagedServingEngine(
+        InferenceEngine(TINY, weights[1], **ENGINE_KW), GenerationConfig(),
+        PagedConfig(block_size=8, num_blocks=8, kv_cache_dtype="int8"),
+    )
+    c = eng.cache
+    c.k[:, 2] = 7
+    c.v[:, 2] = -7
+    c.k_scale[:, 2] = 3.0
+    c.v_scale[:, 2] = 5.0
+    eng._copy_block(2, 5)
+    assert bool((c.k[:, 5] == 7).all()) and bool((c.v[:, 5] == -7).all())
+    assert bool((c.k_scale[:, 5] == 3.0).all()) and bool((c.v_scale[:, 5] == 5.0).all())
+    assert bool((c.k[:, 4] == 0).all())
+
+
+def test_quantized_and_chunked_knobs_are_validated(weights):
+    eng = InferenceEngine(TINY, weights[1], **ENGINE_KW)
+    for kw, match in (
+        (dict(kv_cache_dtype="int8", cache_dtype=torch.float16), "mutually exclusive"),
+        (dict(quant_mxu=True), "quant_mxu requires a quantized kv_cache_dtype"),
+        (dict(kv_cache_dtype="int4"), "kv_cache_dtype must be one of"),
+        (dict(prefill_chunk_tokens=-8), "prefill_chunk_tokens must be positive"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            PagedServingEngine(eng, GenerationConfig(), PagedConfig(**kw))
+    paged = PagedServingEngine(
+        eng, GenerationConfig(), PagedConfig(prefill_chunk_tokens=8),
+    )
+    with pytest.raises(NotImplementedError, match="budget_tokens"):
+        paged._advance_prefills(budget_tokens=16)
+    # quant_mxu rides a twin of the decode model; the caller's is untouched
+    mxu = PagedServingEngine(
+        eng, GenerationConfig(), PagedConfig(kv_cache_dtype="fp8_e4m3", quant_mxu=True),
+    )
+    assert mxu.model.config.quant_mxu and not eng.model.config.quant_mxu
