@@ -19,7 +19,17 @@
    the q.k dot in fp8). Each is checked the same way against one
    whole-prompt pass of the decode model over a fresh pool of the same
    dtype (which reads the same quantized K/V and runs no kernel), and must
-   reject a serve whose kernel calls read V's scales as K's.
+   reject a serve whose kernel calls read V's scales as K's. Then F, a fused
+   speculative serve of the same prompts (four of them rebuilt as
+   repeated patterns, so that the n-gram drafter proposes): drafts of up
+   to 4 tokens verified at t = 5, 16-token prefill chunks packed with the
+   decode and verify rows into one t = 16 mixed step a step, whose K4
+   calls carry per-lane live rows (row_live, mode 4). F is checked
+   against the plain full-sequence forward on all eight requests; a
+   serve whose row_live walks stop one row short must read above the
+   tighter margin on request 6, where F reads within it. Witnesses are
+   logged (the gather path, the fused step without speculation, an fp32
+   copy of the model), and F is profiled.
 5. Train: Llama-3.2 1B at full width and depth in bench.py's training
    configuration (batch 12 x 2048, remat "full", flash attention, loss
    chunked at 256, AdamW with bf16 state) through TrainingConfig ->
@@ -40,6 +50,11 @@
    built to expose the faults a quantized kernel could hide: there the
    check must reject the kernel's output with dequantized values left
    unrounded, and (mode 6) with mode 3's arithmetic in place of mode 6's.
+   K4's row_live mode runs so at F's median mixed-step call and at t = 16
+   cases of the 1B and 3B geometries, bf16 and int8 mode 3, with its live
+   rows bitwise equal to the same launch without row_live, and on a probe
+   whose lanes' last live row opens a pool block, where a walk one row
+   short must fail the check.
 
 Every failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -107,6 +122,27 @@ QUANT_LOGIT_MARGIN = {"int8": 0.0625, "fp8_e4m3": 0.28125}
 # prompt 1 (700 tokens) prefills in three chunks, prompt 4 decodes after
 # a 256-token prefix hit on blocks written by prompt 3's chunked prefill
 QUANT_E2E_PICKS = (0, 1, 4)
+# the fused speculative serve F: PagedConfig knobs, the kernel's widest
+# fresh block (the mixed step's t = max(chunk, drafts + 1) = 16: 64 tile
+# rows at G = 4) and the prompts rebuilt as repeated 3-token patterns.
+# Prompt 1, the longest, is one of them so that a drafting lane outlives
+# the mixed steps and the verify dispatch (K4 at t = 5) runs too
+SPEC_KNOBS = dict(spec_draft_tokens=4, prefill_chunk_tokens=16, fused_step=True)
+SPEC_MAX_T = 16
+SPEC_REP_PROMPTS = (0, 2, 6, 1)
+# F's e2e check holds every request. On an H100 the sound serve reads a
+# worst gap of 0.109375 (prompt 5, a near tie that the witness serves of
+# run_spec_witness_phase read too); the margin is twice that
+F_LOGIT_MARGIN = 0.21875
+# the planted row_live fault's own check: a walk one row short changes a
+# token only where a lane's last live row opens a pool block, and by the
+# weight of one row of the context, so it reads a request where that
+# happens in a short context: prompt 6, 64 tokens, whose first decoded
+# row, inside the grid, opens a block. On an H100 the sound serve reads
+# 0.015625 there and the fault 0.140625 (no other request moves); both
+# are held at LOGIT_MARGIN. The kernel probe (ROW_LIVE_PROBE) is the
+# sharper guard against the same fault
+F_FAULT_PICK = 6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -211,6 +247,7 @@ class DecodeCase:
     layers: int = 16  # pool depth; timed calls walk the layers, as decode does
     table_width: Optional[int] = None  # W; None = kv_limit // bs
     serve_launches: int = 0  # launches at this geometry in the counted serve
+    row_live: Optional[np.ndarray] = None  # (b,) live rows per lane (mode 4)
 
 
 # -- the serve's launch geometries -------------------------------------------
@@ -232,17 +269,21 @@ def model_kernel_call(wrap):
 
 def recording(geometries: dict, keep_positions: bool):
     """A ``model_kernel_call`` wrapper that counts the calls at each
-    distinct (b, t, kv_limit, num_splits, W) and, if asked, keeps every
-    call's positions (a host sync per call)."""
+    distinct (b, t, kv_limit, num_splits, W), with "row_live" appended for
+    the calls that pass per-lane live rows, and, if asked, keeps every
+    call's positions and live rows (a host sync per call)."""
     def wrap(inner, q, k_pool, v_pool, tables, positions, **kw):
+        live = kw.get("row_live")
         key = (
             q.shape[0], 1 if q.dim() == 3 else q.shape[1], kw.get("kv_limit"),
             kw.get("num_splits"), tables.shape[1],
-        )
-        entry = geometries.setdefault(key, {"calls": 0, "positions": []})
+        ) + (() if live is None else ("row_live",))
+        entry = geometries.setdefault(key, {"calls": 0, "positions": [], "row_live": []})
         entry["calls"] += 1
         if keep_positions:
             entry["positions"].append(positions.tolist())
+            if live is not None:
+                entry["row_live"].append(live.tolist())
         return inner(q, k_pool, v_pool, tables, positions, **kw)
     return wrap
 
@@ -580,6 +621,207 @@ def run_paged_probe(kv_dtype: str, mxu: bool, card: str):
     return elem, rel
 
 
+# -- K4's row_live mode (the fused step's mixed-width tile) --------------------
+
+def live_cases(cfg, f_served: dict):
+    """F's row_live geometry launched most, at its median call, then t = 16
+    cases of the 1B and 3B (D 128, G 3) geometries over 2048 rows, with
+    random live counts and, in the even lanes, the last live row at the
+    first row of a pool block."""
+    rng = np.random.default_rng(SEED + 4)
+    key, entry = max(((k, e) for k, e in f_served.items() if k[-1] == "row_live"),
+                     key=lambda ke: ke[1]["calls"])
+    b, t, kv_limit, splits, w, _ = key
+    cases = [DecodeCase(
+        f"F grid b{b} t{t} kv{kv_limit}", cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+        t, kv_limit, splits, np.asarray(entry["positions"]), table_width=w,
+        serve_launches=entry["calls"], row_live=np.asarray(entry["row_live"]),
+    )]
+    for name, n, d in (("1b", 32, 64), ("3b", 24, 128)):
+        t, kv_limit = SPEC_MAX_T, 2048
+        live = rng.integers(1, t + 1, size=8)
+        pos = rng.integers(0, kv_limit - t + 1, size=8)
+        for j in range(0, 8, 2):
+            pos[j] = 16 * rng.integers(1, kv_limit // 16 - 1) + 1 - live[j]
+        cases.append(DecodeCase(
+            f"{name} kv{kv_limit} t{t}", n, 8, d, t, kv_limit, None, pos, row_live=live,
+        ))
+    return cases
+
+
+def walked_rows_of(c: DecodeCase):
+    """Rows each lane's row_live walk reads (the plain version's
+    ``walked_rows``): whole blocks up to the one holding its last live
+    row, within kv_limit."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+
+    return pa.walked_rows(torch.as_tensor(c.positions), c.t, c.kv_limit // c.bs, c.bs,
+                          torch.as_tensor(c.row_live)).tolist()
+
+
+def live_bound(c: DecodeCase, kv_dtype: str = "bf16"):
+    """Least time for a row_live call: each input byte read once (q, the
+    K/V rows of the blocks the walk reads, with their scales for a
+    quantized pool, their table entries, positions and live counts), each
+    output byte written once; operations are the q.k and p.V products over
+    the rows each query row sees within the walk."""
+    from neuronx_distributed_llama3_2_tpu_torch import flops as fl
+
+    b = len(c.positions)
+    walked = walked_rows_of(c)
+    row_bytes = c.d * 2 if kv_dtype == "bf16" else c.d + 2
+    kv_bytes = 2 * sum(walked) * c.nkv * row_bytes
+    io_bytes = 2 * (b * c.t * c.n * c.d * 2) + 4 * sum(x // c.bs for x in walked) + 8 * b
+    seen = sum(min(int(p) + ti + 1, wr) for p, wr in zip(c.positions, walked)
+               for ti in range(c.t))
+    half = 2 * seen * c.n * c.d
+    t_bytes = (kv_bytes + io_bytes) / fl.H100_HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * half / fl.H100_BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), kv_bytes
+
+
+def run_row_live_phase(cfg, f_served: dict, card: str) -> dict:
+    """K4 with row_live against its plain version (``decode_agreement`` on
+    all rows, padding rows included) at ``live_cases``, for the bf16 pool
+    and int8 mode 3; each case's live rows must be bitwise what the same
+    launch without row_live gives. Timed beside the same launch without
+    row_live, the plain version, the library yardstick (SDPA on K/V
+    gathered and dequantized beforehand, masked as the walk) and the
+    bound. Returns the record of F's grid case in bf16."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+    from neuronx_distributed_llama3_2_tpu_torch.quantization import kv_cache as kv
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst, worst_elem, worst_rel, record = 0.0, 0.0, 0.0, None
+    for kv_dtype in ("bf16", "int8"):
+        mode = mode_label(kv_dtype, False)
+        for c in live_cases(cfg, f_served):
+            q, kp, vp, tables, pos = build_case(c, gen)
+            live = torch.as_tensor(c.row_live, dtype=torch.int32, device="cuda")
+            L = c.layers
+            ks = vs = None
+            if kv_dtype != "bf16":
+                kp, ks = kv.kv_quantize(kp, torch.int8)
+                vp, vs = kv.kv_quantize(vp, torch.int8)
+
+            def call(fn, i, with_live=True):
+                j = i % L
+                return fn(q, kp[j], vp[j], tables, pos, kv_limit=c.kv_limit,
+                          k_scale=None if ks is None else ks[j],
+                          v_scale=None if vs is None else vs[j],
+                          **(dict(row_live=live) if with_live else {}))
+
+            out = call(pa.paged_flash_decode, 0)
+            full = call(pa.paged_flash_decode, 0, with_live=False)
+            ref = call(pa.paged_flash_decode_reference, 0)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()), f"row_live {mode} {c.name}: non-finite")
+            err = (out.float() - ref.float()).abs().max().item()
+            elem, rel = decode_agreement(out, ref)
+            check(elem <= 1.0 and rel <= LANE_REL_L2,
+                  f"row_live {mode} {c.name}: disagrees with the plain version (error "
+                  f"{elem} x its element limit, lane relative L2 {rel}; max_abs_err {err})")
+            is_live = torch.arange(c.t, device="cuda")[None, :] < live[:, None]
+            check(torch.equal(out[is_live], full[is_live]),
+                  f"row_live {mode} {c.name}: live rows differ from the launch without row_live")
+            worst = max(worst, err)
+            worst_elem, worst_rel = max(worst_elem, elem), max(worst_rel, rel)
+
+            b, nblk = len(c.positions), c.kv_limit // c.bs
+            blocks = tables[:, :nblk].long()
+            k_all, v_all = kp[:, blocks], vp[:, blocks]
+            if ks is not None:
+                k_all = kv.kv_dequantize(k_all, ks[:, blocks], torch.bfloat16)
+                v_all = kv.kv_dequantize(v_all, vs[:, blocks], torch.bfloat16)
+            k_all = k_all.reshape(L, b, c.kv_limit, c.nkv, c.d).transpose(2, 3).contiguous()
+            v_all = v_all.reshape(L, b, c.kv_limit, c.nkv, c.d).transpose(2, 3).contiguous()
+            rows = torch.arange(c.kv_limit, device="cuda")
+            last = pos.long()[:, None] + torch.arange(c.t, device="cuda")[None, :]
+            walked = torch.as_tensor(walked_rows_of(c), device="cuda")
+            mask = ((rows[None, None, :] <= last[:, :, None])
+                    & (rows[None, None, :] < walked[:, None, None]))[:, None]
+            qh = q.transpose(1, 2).contiguous()
+
+            def library(i):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qh, k_all[i % L], v_all[i % L], attn_mask=mask, enable_gqa=True,
+                )
+
+            lib_elem, lib_rel = decode_agreement(library(0).transpose(1, 2), ref)
+            check(lib_rel <= LANE_REL_L2,
+                  f"row_live {mode} {c.name}: library yardstick disagrees ({lib_rel})")
+            (ms,), wall_ms = device_ms(functools.partial(call, pa.paged_flash_decode))
+            (full_ms,), _ = device_ms(
+                functools.partial(call, pa.paged_flash_decode, with_live=False))
+            (plain_ms,), _ = device_ms(functools.partial(call, pa.paged_flash_decode_reference))
+            (library_ms,), _ = device_ms(library)
+            bound_ms, bound_by, kv_bytes = live_bound(c, kv_dtype)
+            served_by = f", {c.serve_launches} serve launches" if c.serve_launches else ""
+            log(f"kernel paged_decode row_live [{mode}] [{c.name}] b={b} N={c.n} NKV={c.nkv} "
+                f"D={c.d} t={c.t} kv_limit={c.kv_limit} positions={list(map(int, c.positions))} "
+                f"row_live={list(map(int, c.row_live))}{served_by}: max_abs_err={err:.6g} "
+                f"({elem:.4f} x its element limit, lane rel L2 {rel:.6g}; library "
+                f"{lib_elem:.4f} x, {lib_rel:.6g}); live rows bitwise equal to the launch "
+                f"without row_live; kernel_ms={ms:.6f} (without row_live {full_ms:.6f}) "
+                f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} bound_ms={bound_ms:.6f} "
+                f"({bound_by}; K+V bytes of the walked blocks {kv_bytes} / 3.35 TB/s); wall "
+                f"per call {wall_ms:.6f} ms | {card}")
+            if record is None:
+                record = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+            del q, kp, vp, ks, vs, k_all, v_all
+        torch.cuda.empty_cache()
+    elem, rel = run_row_live_probe(card)
+    log(f"paged_decode row_live: every case and the probe agree with the plain version "
+        f"on all rows: each element within {ROW_ULPS} bf16 ulps of its own value plus "
+        f"{ROW_ULPS} of its row's largest (worst {max(worst_elem, elem):.6g} x that "
+        f"limit), each (lane, head) within relative L2 {LANE_REL_L2} (worst "
+        f"{max(worst_rel, rel):.6g}); worst abs err {worst:.6g}")
+    record["max_abs_err"] = worst
+    return record
+
+
+# the probe of run_row_live_probe: (last live row, live rows) per lane of
+# the 1B geometry at t = 16; every last live row is the first row of a
+# pool block, in short contexts, so a walk one row short drops a row that
+# weighs about 1/17 to 1/65 of its query's softmax
+ROW_LIVE_PROBE = ((16, 1), (16, 16), (32, 5), (32, 9), (48, 2), (48, 12), (64, 3), (64, 16))
+
+
+def run_row_live_probe(card: str):
+    """K4 with row_live against its plain version on lanes whose last live
+    row opens a pool block; then a launch whose walk stops one row short
+    (``row_live - 1``) must fail the same check. Returns the sound
+    (element ratio, lane relative L2)."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    frontier = np.asarray([f for f, _ in ROW_LIVE_PROBE])
+    live_np = np.asarray([n for _, n in ROW_LIVE_PROBE])
+    c = DecodeCase("row_live probe", 32, 8, 64, SPEC_MAX_T, 128, 4, frontier - live_np + 1,
+                   layers=1, row_live=live_np)
+    q, kp, vp, tables, pos = build_case(c, gen)
+    live = torch.as_tensor(live_np, dtype=torch.int32, device="cuda")
+    kw = dict(kv_limit=c.kv_limit)
+    out = pa.paged_flash_decode(q, kp[0], vp[0], tables, pos, num_splits=4, row_live=live, **kw)
+    ref = pa.paged_flash_decode_reference(q, kp[0], vp[0], tables, pos, row_live=live, **kw)
+    elem, rel = decode_agreement(out, ref)
+    log(f"kernel paged_decode row_live [probe] positions {list(map(int, c.positions))} "
+        f"row_live {list(map(int, live_np))}: {elem:.6g} x its element limit, lane "
+        f"relative L2 {rel:.6g} (limits 1, {LANE_REL_L2}) | {card}")
+    check(elem <= 1.0 and rel <= LANE_REL_L2,
+          f"row_live probe: disagrees with the plain version ({elem}, {rel})")
+    short = pa.paged_flash_decode(q, kp[0], vp[0], tables, pos, num_splits=4,
+                                  row_live=live - 1, **kw)
+    f_elem, f_rel = decode_agreement(short, ref)
+    log(f"kernel paged_decode row_live [probe] planted fault (the walk one row short): "
+        f"error {f_elem:.6g} x its element limit, lane relative L2 {f_rel:.6g} (limits 1, "
+        f"{LANE_REL_L2})")
+    check(f_elem > 1.0 or f_rel > LANE_REL_L2,
+          "the row_live check passes a walk one row short")
+    return elem, rel
+
+
 # -- 3. serve -------------------------------------------------------------------
 
 def serve_prompts():
@@ -749,13 +991,13 @@ def run_profile_phase(cfg, model, prompts, card: str, label: str = "serve",
 E2E_PICKS = (0, 4)  # the shortest prompt, and the suffix after the prefix hit
 
 
-def e2e_gaps(model, prompts, outs, rids):
-    """Teacher-forced over the E2E_PICKS requests: the plain full-sequence
+def e2e_gaps(model, prompts, outs, rids, picks=E2E_PICKS):
+    """Teacher-forced over the ``picks`` requests: the plain full-sequence
     forward on prompt + served tokens. Returns the largest gap between the
     argmax logit and the served token's logit, and how many of the served
     tokens were the argmax, of how many."""
     worst_gap, exact, total = 0.0, 0, 0
-    for j in E2E_PICKS:
+    for j in picks:
         prompt, gen = prompts[j], outs[rids[j]]
         ids = torch.as_tensor([prompt + gen[:-1]], device="cuda")
         logits = model(ids)[0, len(prompt) - 1:].float()  # predicts gen[0..]
@@ -777,7 +1019,9 @@ def run_e2e_phase(cfg, model, prompts, outs, rids) -> None:
     gap, exact, total = e2e_gaps(model, prompts, outs, rids)
     check(gap <= LOGIT_MARGIN, f"a served token is {gap} below the argmax logit")
     log(f"e2e: {exact}/{total} served tokens are the plain forward's argmax; "
-        f"worst logit gap {gap:.6g} (margin {LOGIT_MARGIN})")
+        f"worst logit gap {gap:.6g} (margin {LOGIT_MARGIN}); every request, "
+        f"logged only (worst gap, argmax tokens): "
+        f"{per_request_gaps(model, prompts, outs, rids)}")
 
     def newest_row_dropped(inner, q, k_pool, v_pool, tables, positions, **kw):
         return inner(q, k_pool, v_pool, tables, (positions - 1).clamp_min(0), **kw)
@@ -945,6 +1189,231 @@ def run_quant_e2e_phase(cfg, model, label: str, kv_dtype: str, mxu: bool,
         f"{bad_gap:.6g} (margin {margin})")
     check(bad_gap > margin,
           f"the {label} e2e check passes a planted scale fault (gap {bad_gap})")
+
+
+# -- 4c. the fused speculative serve F ------------------------------------------
+
+def spec_prompts():
+    """The serve's eight prompts with SPEC_REP_PROMPTS rebuilt at the same
+    lengths as a repeated 3-token pattern of ids 1-8 (the JAX package's
+    ``_rep_prompts`` recipe), so that the n-gram drafter proposes."""
+    prompts = serve_prompts()
+    rng = np.random.default_rng(SEED + 3)
+    for j in SPEC_REP_PROMPTS:
+        n = len(prompts[j])
+        pat = rng.integers(1, 9, size=3).tolist()
+        prompts[j] = (pat * (n // 3 + 1))[:n]
+    return prompts
+
+
+def spec_config(cfg):
+    """The decode model's config for F: the kernel takes fresh blocks up
+    to the mixed step's width."""
+    return dataclasses.replace(cfg, paged_kernel_max_t=SPEC_MAX_T)
+
+
+def median_live_call(entry: dict):
+    """(positions, row_live) of the row_live call whose live rows (the sum
+    over lanes of position + live count) are the median of its calls."""
+    calls = list(zip(entry["positions"], entry["row_live"]))
+    calls.sort(key=lambda pl: sum(p + n for p, n in zip(*pl)))
+    return calls[(len(calls) - 1) // 2]
+
+
+def run_spec_serve_phase(cfg, model, card: str):
+    """F: the fused speculative serve of ``spec_prompts`` after a warm-up
+    serve of its own (which also records each kernel geometry's calls),
+    submitted as the quantized serves are (``serve_staged``), K4's launch
+    counters zeroed just before and read just after. Returns (prompts,
+    outputs, rids, K4 launches, row_live launches, served geometries)."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+
+    fcfg = spec_config(cfg)
+    prompts = spec_prompts()
+    warm_geoms: dict = {}
+    with model_kernel_call(recording(warm_geoms, keep_positions=True)):
+        serve_staged(make_server(fcfg, model, **SPEC_KNOBS), prompts)
+
+    server = make_server(fcfg, model, **SPEC_KNOBS)
+    geoms: dict = {}
+    with model_kernel_call(recording(geoms, keep_positions=False)):
+        pa.launches.reset()
+        pa.row_live_launches.reset()
+        server.model.attention_paths.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids, outs = serve_staged(server, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, live_launches = pa.launches.count, pa.row_live_launches.count
+    paths = dict(server.model.attention_paths)
+    m = server.metrics
+    infos = [server.request_info(r) for r in rids]
+    for r, info in zip(rids, infos):
+        check(info["status"] == "finished", f"F: request {r} is {info['status']}")
+        check(len(outs[r]) == MAX_NEW, f"F: request {r} produced {len(outs[r])} tokens")
+    check(infos[4]["cached_tokens"] >= 256, f"F: prefix pair not shared: {infos[4]}")
+    check(m.mixed_dispatches > 0 and m.verify_steps > 0 and m.draft_tokens > 0,
+          f"F: mixed {m.mixed_dispatches}, verify {m.verify_steps}, drafts {m.draft_tokens}")
+    check(launches > 0 and paths.get("kernel", 0) == launches and not paths.get("gather"),
+          f"F: attention paths {paths} vs {launches} kernel launches")
+    check(live_launches == m.mixed_dispatches * cfg.num_layers,
+          f"F: {live_launches} row_live launches for {m.mixed_dispatches} mixed steps")
+    k1 = SPEC_KNOBS["spec_draft_tokens"] + 1
+    check(any(k[1] == k1 and len(k) == 5 for k in geoms),
+          f"F: no verify dispatch launched K4 at t = {k1}: {sorted(geoms)}")
+    check({k: e["calls"] for k, e in geoms.items()}
+          == {k: e["calls"] for k, e in warm_geoms.items()},
+          f"F: the warm-up's kernel geometries {warm_geoms} differ from the serve's {geoms}")
+    served = {}
+    for k, e in geoms.items():
+        w = warm_geoms[k]
+        if k[-1] == "row_live":
+            pos, live = median_live_call(w)
+            served[k] = dict(calls=e["calls"], positions=pos, row_live=live)
+        else:
+            served[k] = dict(calls=e["calls"], positions=median_call(w["positions"]))
+    generated = sum(len(outs[r]) for r in rids)
+    ttft = np.median([i["ttft_ms"] for i in infos])
+    tpot = np.median([i["tpot_ms"] for i in infos])
+    snap = m.snapshot(server.allocator, server.index)
+    log(f"serve F (drafts of {SPEC_KNOBS['spec_draft_tokens']}, fused step, prefill "
+        f"chunks of {SPEC_KNOBS['prefill_chunk_tokens']}): {len(rids)} requests, "
+        f"{generated} tokens in {wall:.6f} s = {generated / wall:.6f} tokens/s; TTFT p50 "
+        f"{ttft:.6f} ms, TPOT p50 {tpot:.6f} ms; cached_tokens "
+        f"{[i['cached_tokens'] for i in infos]} | {card}")
+    log(f"serve F: {m.engine_steps} engine steps, {m.compute_dispatches} dispatches "
+        f"(dispatches_per_step {snap['dispatches_per_step']}), {m.mixed_dispatches} mixed, "
+        f"{m.verify_steps} verify, {m.decode_steps} decode steps; draft_tokens "
+        f"{m.draft_tokens}, accepted_tokens {m.accepted_tokens} (accept rate "
+        f"{m.accept_rate():.6f}), spec_disabled_lanes {m.spec_disabled_lanes}; "
+        f"prefill_chunks {m.prefill_chunks} | {card}")
+    log(f"serve F: paged_decode kernel launches {launches}, of them with row_live "
+        f"{live_launches} (= {m.mixed_dispatches} mixed steps x {cfg.num_layers} layers); "
+        f"attention calls by path {paths} | {card}")
+    for key, e in sorted(served.items(), key=lambda ke: (len(ke[0]), ke[0][:5])):
+        b, t, kv_limit, splits, w = key[:5]
+        log(f"serve F: kernel geometry b={b} t={t} kv_limit={kv_limit} num_splits="
+            f"{splits} W={w}{' row_live' if len(key) == 6 else ''}: {e['calls']} launches")
+    return prompts, outs, rids, launches, live_launches, served
+
+
+def per_request_gaps(model, prompts, outs, rids) -> list:
+    """e2e_gaps of each request alone: [(worst gap, argmax tokens), ...]."""
+    return [e2e_gaps(model, prompts, outs, rids, (j,))[:2] for j in range(len(prompts))]
+
+
+def run_spec_e2e_phase(cfg, model, prompts, outs, rids) -> None:
+    """F's tokens must be the plain forward's argmax or within
+    F_LOGIT_MARGIN of it, on every request; and a serve whose row_live
+    calls walk one row short (``row_live - 1``), which drops the newest
+    row of a lane whose last live row opens a pool block, must read above
+    LOGIT_MARGIN on request F_FAULT_PICK, where the sound serve reads
+    within it."""
+    gap, exact, total = e2e_gaps(model, prompts, outs, rids, range(len(prompts)))
+    each = per_request_gaps(model, prompts, outs, rids)
+    log(f"e2e F: {exact}/{total} served tokens are the plain forward's argmax; worst "
+        f"logit gap {gap:.6g} (margin {F_LOGIT_MARGIN}); every request (worst gap, "
+        f"argmax tokens): {each}")
+    check(gap <= F_LOGIT_MARGIN, f"F: a served token is {gap} below the argmax logit")
+    sound = each[F_FAULT_PICK][0]
+    check(sound <= LOGIT_MARGIN,
+          f"F: request {F_FAULT_PICK} reads {sound}, over the fault check's {LOGIT_MARGIN}")
+
+    def row_live_short(inner, q, k_pool, v_pool, tables, positions, **kw):
+        if kw.get("row_live") is not None:
+            kw = dict(kw, row_live=kw["row_live"] - 1)
+        return inner(q, k_pool, v_pool, tables, positions, **kw)
+
+    with model_kernel_call(row_live_short):
+        bad_rids, bad_outs = serve_staged(
+            make_server(spec_config(cfg), model, **SPEC_KNOBS), prompts)
+    bad_each = per_request_gaps(model, prompts, bad_outs, bad_rids)
+    bad = bad_each[F_FAULT_PICK][0]
+    log(f"e2e F planted fault (every row_live walk one row short): request "
+        f"{F_FAULT_PICK} reads {bad:.6g} (sound {sound:.6g}, margin {LOGIT_MARGIN}); "
+        f"every request: {bad_each}")
+    check(bad > LOGIT_MARGIN,
+          f"the F e2e check passes a planted row_live fault (gap {bad})")
+
+
+def chunked_logits(dec, model, ids, chunk: int) -> torch.Tensor:
+    """Logits of ``ids`` fed through the decode model ``dec`` in
+    ``chunk``-row pieces over a fresh pool of 16-row blocks, as a chunked
+    prefill feeds them: (len(ids), vocab) fp32."""
+    nblk = -(-len(ids) // 16)
+    cache = dec.init_paged_cache(nblk + 1, 16, device="cuda")
+    table = torch.arange(1, nblk + 1, dtype=torch.int32, device="cuda")[None]
+    rows = []
+    for s in range(0, len(ids), chunk):
+        logits, _ = dec.forward(
+            model, cache, torch.as_tensor([ids[s:s + chunk]], device="cuda"),
+            torch.tensor([s], dtype=torch.int32, device="cuda"), None,
+            block_tables=table, kv_limit=nblk * 16,
+        )
+        rows.append(logits[0].float())
+    return torch.cat(rows)
+
+
+def run_spec_witness_phase(cfg, model, prompts, f_tokens) -> None:
+    """Second witnesses of F's per-request e2e readings, logged, not held.
+    (1) F's prompts served the same way through the gather path (no K4)
+    and through the fused step without speculation (no verify dispatch):
+    a reading F shares with the second and not the first comes from K4,
+    not from speculation. (2) An fp32 copy of the model as the reference:
+    F's readings against it, and each bf16 path's largest logit distance
+    from it over F's streams (prompt + served tokens, the served rows),
+    teacher-forced: the plain forward, and the decode model in 16-row
+    chunks through K4 and through the gather. The plain forward and the
+    gather round scores and probabilities to bf16, K4 keeps them fp32.
+    ``f_tokens``: F's served tokens in prompt order."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference.model import LlamaDecode
+    from neuronx_distributed_llama3_2_tpu_torch.models.llama import LlamaForCausalLM
+
+    fcfg = spec_config(cfg)
+    gcfg = dataclasses.replace(fcfg, use_paged_kernel=False)
+    nospec = {k: v for k, v in SPEC_KNOBS.items() if k != "spec_draft_tokens"}
+    for label, wcfg, knobs in (("gather path", gcfg, SPEC_KNOBS),
+                               ("no speculation", fcfg, nospec)):
+        server = make_server(wcfg, model, **knobs)
+        rids, outs = serve_staged(server, prompts)
+        for r in rids:
+            check(len(outs[r]) == MAX_NEW, f"F witness {label}: request {r} is short")
+        each = per_request_gaps(model, prompts, outs, rids)
+        same = [sum(a == b for a, b in zip(outs[r], fo)) for r, fo in zip(rids, f_tokens)]
+        log(f"e2e F witness ({label}; attention calls by path "
+            f"{dict(server.model.attention_paths)}, {server.metrics.verify_steps} verify "
+            f"steps): every request (worst gap, argmax tokens): {each}; tokens equal "
+            f"to F's, by request: {same}")
+
+    ref = LlamaForCausalLM(dataclasses.replace(cfg, dtype=torch.float32), device="cuda")
+    ref.load_state_dict(model.state_dict())
+    rids = list(range(len(prompts)))
+    outs = dict(zip(rids, f_tokens))
+    log(f"e2e F witness (fp32 reference): every request (worst gap, argmax tokens): "
+        f"{per_request_gaps(ref, prompts, outs, rids)}")
+    decs = {"kernel": LlamaDecode(fcfg), "gather": LlamaDecode(gcfg)}
+    dist = {"plain": [], "kernel": [], "gather": []}
+    for prompt, gen in zip(prompts, f_tokens):
+        ids = prompt + gen[:-1]
+        want = ref(torch.as_tensor([ids], device="cuda"))[0].float()[len(prompt) - 1:]
+        got = {"plain": model(torch.as_tensor([ids], device="cuda"))[0].float()}
+        for name, dec in decs.items():
+            got[name] = chunked_logits(dec, model, ids, SPEC_MAX_T)
+        for name, g in got.items():
+            d = (g[len(prompt) - 1:] - want).abs().max().item()
+            check(np.isfinite(d), f"F witness: non-finite {name} logits")
+            dist[name].append(d)
+    check(decs["kernel"].attention_paths.get("kernel", 0) > 0
+          and not decs["kernel"].attention_paths.get("gather")
+          and not decs["gather"].attention_paths.get("kernel"),
+          f"F witness: paths {decs['kernel'].attention_paths} / "
+          f"{decs['gather'].attention_paths}")
+    log("e2e F witness: largest |logit - fp32 logit| over the served rows of F's "
+        "streams, by request: " + "; ".join(
+            f"{name} {[float(f'{d:.6g}') for d in ds]}" for name, ds in dist.items()))
+    del ref
+    torch.cuda.empty_cache()
 
 
 # -- 5. train -------------------------------------------------------------------
@@ -1413,6 +1882,7 @@ def main() -> int:
         return 2
     from neuronx_distributed_llama3_2_tpu_torch.kernels import _build
 
+    t_start = time.perf_counter()
     torch.manual_seed(SEED)
     card = card_label()
     log(card)
@@ -1441,9 +1911,15 @@ def main() -> int:
                           kv_cache_dtype=kv_dtype, quant_mxu=mxu,
                           prefill_chunk_tokens=QUANT_CHUNK)
         quant[label] = (kv_dtype, mxu, q_launches, q_served)
+    f_prompts, f_outs, f_rids, _, f_live_launches, f_served = run_spec_serve_phase(
+        cfg, model, card)
+    run_spec_e2e_phase(cfg, model, f_prompts, f_outs, f_rids)
+    run_spec_witness_phase(cfg, model, f_prompts, [f_outs[r] for r in f_rids])
+    run_profile_phase(spec_config(cfg), model, f_prompts, card, label="serve F", **SPEC_KNOBS)
     del model
     torch.cuda.empty_cache()
     paged = run_paged_kernel_phase(cfg, served, card)
+    row_live = run_row_live_phase(cfg, f_served, card)
     # the six quantized combinations at the grid and at every geometry the
     # quantized serves launched (launch counts summed over both serves)
     q_geoms: dict = {}
@@ -1481,6 +1957,11 @@ def main() -> int:
             replaces="neuronx_distributed_llama3_2_tpu/kernels/paged_attention_pallas.py:419",
             launches=q_launches, **quant_records[kv_dtype, mxu],
         ))
+    kernels.append(dict(
+        name="paged_decode_row_live", route="cuda", source=fa_src + "paged_decode.cu",
+        replaces="neuronx_distributed_llama3_2_tpu/kernels/paged_attention_pallas.py:419",
+        launches=f_live_launches, **row_live,
+    ))
     for kn, name, src, line in ((1, "flash_fwd", "flash_fwd.cu", 194),
                                 (2, "flash_bwd_dq", "flash_bwd.cu", 394),
                                 (3, "flash_bwd_dkv", "flash_bwd.cu", 433)):
@@ -1488,6 +1969,8 @@ def main() -> int:
             name=name, route="cuda", source=fa_src + src, replaces=f"{pfa}{line}",
             launches=train_launches[kn - 1], **flash[kn],
         ))
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.3f} s of "
+        f"wall time | {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,12 @@ covers every forward mode of the paged serving engine::
 - suffix prefill        = T > 1 after a prefix-cache hit, or a later chunk
   of a chunked prefill: the paged-decode kernel when T <=
   ``paged_kernel_max_t``, else the gather of the cached rows plus
-  :meth:`LlamaDecode._cache_attention`.
+  :meth:`LlamaDecode._cache_attention`;
+- speculative verify    = :meth:`LlamaDecode.verify_step`, the block
+  ``[cur, drafts]`` scored in one forward and accepted on the device;
+- fused mixed-mode step = :meth:`LlamaDecode.mixed_step`, decode, verify and
+  prefill-chunk rows of different live widths in one t-row block, with
+  ``row_live`` cutting each lane's kernel walk at its live frontier.
 
 A quantized pool (``kv_cache_dtype`` int8 / fp8, :mod:`..quantization.
 kv_cache`) holds low-bit payloads beside per-(row, kv head) fp16 scales.
@@ -28,8 +33,16 @@ package donates the cache to every program and gets a new pool back; here
 the fresh K/V rows are written into the pool tensors in place, and the
 cache returned is the same object that came in.
 
+Rows a garbage lane (idle, or parked) writes past the block table land in
+the null block, as the JAX package's gathers and scatters put them (an
+out-of-range table column reads INT_MIN there, whose row product wraps to
+block 0). Their rope rows are zero, where ``jnp.take`` fills NaN: NaN K/V
+in the null block would reach a live lane whose walk reads a null-backed
+block, since a masked row's weight 0 times NaN is NaN. Zero rotates those
+rows to q = k = 0, and every value stays finite.
+
 Not ported yet: the dense per-slot ``KVCache`` (dense-engine slice), tree
-verification and ``row_live`` (speculation and fused-step sub-slices),
+verification (tree slice), on-device sampling and the finite-logit check,
 tensor parallelism.
 """
 
@@ -40,6 +53,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from neuronx_distributed_llama3_2_tpu_torch.inference.speculative import (
+    accept_rule,
+)
 from neuronx_distributed_llama3_2_tpu_torch.kernels.paged_attention import (
     paged_flash_decode,
 )
@@ -108,6 +124,22 @@ def _unported(feature: str, slice_name: str):
     )
 
 
+#: the optional arguments of the verify and mixed steps, with the feature
+#: each belongs to and the slice that brings it
+_STEP_FEATURES = {
+    "sampling": ("on-device sampling", "on-device sampling"),
+    "logit_poison": ("the finite-logit check", "fault-tolerance"),
+    "parents": ("tree speculation", "tree"),
+}
+
+
+def _check_unported_step_args(**args) -> None:
+    for name, value in args.items():
+        if value is not None:
+            feature, slice_name = _STEP_FEATURES[name]
+            raise _unported(f"{name}= ({feature})", slice_name)
+
+
 class LlamaDecode:
     """Decode-mode Llama over the weights of a :class:`LlamaForCausalLM`.
 
@@ -123,13 +155,18 @@ class LlamaDecode:
 
     def _rope_tables(self, max_len: int, device: torch.device):
         """Rotary tables for ``max_len`` rows, built once per (length,
-        device): every layer of every step shares them."""
+        device): every layer of every step shares them. ``max_len`` more
+        rows of zeros follow, which a garbage lane's rows past the table
+        read (the module note says why not NaN, as in the JAX package)."""
         key_ = (max_len, device)
         tables = self._rope.get(key_)
         if tables is None:
             c = self.config
-            tables = precompute_rope(
-                c.head_dim, max_len, c.rope_theta, c.rope_scaling, device=device
+            tables = tuple(
+                torch.cat([x, torch.zeros_like(x)])
+                for x in precompute_rope(
+                    c.head_dim, max_len, c.rope_theta, c.rope_scaling, device=device
+                )
             )
             self._rope[key_] = tables
         return tables
@@ -193,7 +230,14 @@ class LlamaDecode:
         ``kv_limit`` bounds the logical rows attention reads, and the caller
         guarantees ``position + T <= kv_limit``. ``slots`` is ignored: the
         table is the indirection. A quantized cache's layer slices travel as
-        (payload, scale) pairs, and its pools are written in place too."""
+        (payload, scale) pairs, and its pools are written in place too.
+
+        ``row_live`` (b,) int32 (the kernel path only): lane ``i``'s fresh
+        rows ``>= row_live[i]`` are packing padding whose outputs the
+        caller discards, and the kernel stops the lane's walk at its live
+        frontier (:func:`..kernels.paged_attention.paged_flash_decode`).
+        The gather path ignores it, as in the JAX package: the
+        block-causal mask already governs every live row."""
         if cache.quantized and block_tables is None:
             raise ValueError(
                 "quantized KV storage is paged-only: the dense slot cache "
@@ -202,9 +246,7 @@ class LlamaDecode:
         if block_tables is None:
             raise _unported("the dense per-slot KV cache", "dense-engine")
         if tree is not None:
-            raise _unported("tree verification", "speculation")
-        if row_live is not None:
-            raise _unported("row_live", "fused-step")
+            raise _unported("tree verification", "tree")
         del slots
         b, t = tokens.shape
         positions = positions.to(torch.int32)
@@ -224,7 +266,7 @@ class LlamaDecode:
             x = self._decode_layer(
                 layer, x, kc, vc, sin, cos, pos_block,
                 positions, context_encode=context_encode, kv_limit=kv_limit,
-                block_tables=block_tables,
+                block_tables=block_tables, row_live=row_live,
             )
         x = params.final_norm(x)
         if return_hidden:
@@ -234,6 +276,7 @@ class LlamaDecode:
     def _decode_layer(
         self, layer: LlamaDecoderLayer, x, kc, vc, sin, cos, pos_block,
         positions, *, context_encode: bool, kv_limit=None, block_tables=None,
+        row_live=None,
     ) -> torch.Tensor:
         """One decoder layer with cache write and read. kc/vc: this layer's
         (num_blocks, block_size, NKV, D) pool slice, or (payload, scale)
@@ -246,24 +289,24 @@ class LlamaDecode:
         att = self._attend_with_cache(
             q, k, v, kc, vc, pos_block, positions,
             context_encode=context_encode, kv_limit=kv_limit,
-            block_tables=block_tables,
+            block_tables=block_tables, row_live=row_live,
         )
         x = x + layer.attn.o(att.reshape(b, t, c.num_heads * c.head_dim))
         return x + layer.mlp(layer.mlp_norm(x))
 
     def _attend_with_cache(
         self, q, k, v, kc, vc, pos_block, positions, *, context_encode: bool,
-        kv_limit=None, block_tables=None,
+        kv_limit=None, block_tables=None, row_live=None,
     ) -> torch.Tensor:
         """Cache write + attention. Returns att (b, T, N, D)."""
         return self._attend_paged(
             q, k, v, kc, vc, block_tables, pos_block, pos_block, positions,
-            context_encode=context_encode, kv_limit=kv_limit,
+            context_encode=context_encode, kv_limit=kv_limit, row_live=row_live,
         )
 
     def _attend_paged(
         self, q, k, v, kc, vc, block_tables, write_rows, pos_block, positions,
-        *, context_encode: bool, kv_limit=None,
+        *, context_encode: bool, kv_limit=None, row_live=None,
     ) -> torch.Tensor:
         """Paged cache write + attention: the block table translates logical
         sequence rows to pool rows for both the fresh-block write and the
@@ -279,10 +322,15 @@ class LlamaDecode:
         kflat = kc.view((nb * bs,) + kc.shape[2:])
         vflat = vc.view((nb * bs,) + vc.shape[2:])
         # logical row p of batch row i -> pool row table[i, p//bs]*bs + p%bs;
-        # rows past the allocated frontier map to the null block (id 0)
+        # rows past the allocated frontier map to the null block (id 0), and
+        # so do a garbage lane's rows past the table (see the module note)
         tables = block_tables.long()
         wr = write_rows.long()
-        wr_phys = (torch.gather(tables, 1, wr // bs) * bs + wr % bs).reshape(-1)
+        cols = wr // bs
+        w = tables.shape[1]
+        blk = torch.gather(tables, 1, cols.clamp(max=w - 1))
+        blk = torch.where(cols < w, blk, torch.zeros_like(blk))
+        wr_phys = (blk * bs + wr % bs).reshape(-1)
 
         def write(pool, rows):  # rows (b, t, ...) land at the wr_phys rows
             _bytes(pool).index_copy_(0, wr_phys, _bytes(rows.reshape((-1,) + rows.shape[2:])))
@@ -320,6 +368,7 @@ class LlamaDecode:
                 q, kc, vc, block_tables, positions, kv_limit=limit,
                 k_scale=ksc, v_scale=vsc,
                 quant_mxu=self.config.quant_mxu and quantized,
+                row_live=row_live,
             )
         self.attention_paths["gather"] += 1
         jlog = torch.arange(limit, device=q.device)
@@ -359,6 +408,125 @@ class LlamaDecode:
         if pos_cap is not None:
             new_positions = torch.clamp(new_positions, max=pos_cap)
         return logits[:, 0, :], new_positions, cache
+
+    @torch.no_grad()
+    def verify_step(
+        self,
+        params: LlamaForCausalLM,
+        cache: PagedKVCache,
+        tokens: torch.Tensor,        # (b, k+1) int — [cur, d_0 .. d_{k-1}]
+        positions: torch.Tensor,     # (b,) int32 — cur's write row per lane
+        block_tables: torch.Tensor,  # (b, W) int32
+        draft_len: torch.Tensor,     # (b,) int32 — valid drafts per lane, <= k
+        *,
+        kv_limit: Optional[int] = None,
+        pos_cap: Optional[int] = None,
+        logit_poison: Optional[torch.Tensor] = None,
+        sampling: Optional[tuple] = None,
+    ) -> Tuple[torch.Tensor, ...]:
+        """One speculative verify step, the greedy multi-token sibling of
+        :meth:`decode_step`: the block ``[cur, d_0 .. d_{k-1}]`` is scored
+        in one block-causal forward (K/V written at rows ``positions ..
+        positions + k``), the longest draft prefix agreeing with the
+        target's argmax is accepted on the device, capped per lane by
+        ``draft_len`` (a lane with no drafts takes a plain decode step),
+        and the resident state advances with no host round trip.
+
+        Returns ``(emitted (b, k+1), accept (b,), new_tokens (b,),
+        new_positions (b,), cache)``: ``emitted[i, :accept[i] + 1]`` are
+        the tokens lane ``i`` commits, ``new_tokens[i] = emitted[i,
+        accept[i]]`` its new resident token and ``new_positions =
+        positions + accept + 1`` (clamped to ``pos_cap``) its write row.
+        Rejected rows need no rollback: the next step overwrites them
+        before any mask admits them. ``sampling`` (on-device sampling) and
+        ``logit_poison`` (the finite-logit check) are not ported."""
+        _check_unported_step_args(logit_poison=logit_poison, sampling=sampling)
+        logits, cache = self.forward(
+            params, cache, tokens, positions, None,
+            block_tables=block_tables, kv_limit=kv_limit,
+        )
+        # targets[i, j]: the target's argmax for row positions[i] + j + 1
+        targets = torch.argmax(logits, dim=-1).to(torch.int32)
+        accept, emitted = accept_rule(tokens[:, 1:], targets, draft_len=draft_len)
+        new_tokens = torch.gather(emitted, 1, accept[:, None].long())[:, 0]
+        new_positions = positions + accept + 1
+        if pos_cap is not None:
+            new_positions = torch.clamp(new_positions, max=pos_cap)
+        return emitted, accept, new_tokens, new_positions, cache
+
+    @torch.no_grad()
+    def mixed_step(
+        self,
+        params: LlamaForCausalLM,
+        cache: PagedKVCache,
+        tokens: torch.Tensor,        # (b,) int — resident decode token per lane
+        positions: torch.Tensor,     # (b,) int32 — resident write row per lane
+        block_tables: torch.Tensor,  # (b, W) int32
+        rows: torch.Tensor,          # (b, t) int32 — per-lane packed row payload
+        row_start: torch.Tensor,     # (b,) int32 — forced rows' first write row
+        row_len: torch.Tensor,       # (b,) int32 — live payload rows, <= t
+        forced: torch.Tensor,        # (b,) int32 — 1 = prefill-chunk lane
+        *,
+        kv_limit: Optional[int] = None,
+        pos_cap: Optional[int] = None,
+        logit_poison: Optional[torch.Tensor] = None,
+        sampling: Optional[tuple] = None,
+        parents: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, ...]:
+        """One fused mixed-mode step: decode lanes, speculative-verify rows
+        and prefill-chunk rows share one t-row block-causal forward over
+        the paged pool. Per lane, ``forced`` selects the role:
+
+        - ``forced == 0`` (decode/verify): the block is ``[tokens[i],
+          rows[i, :t-1]]`` at rows ``positions[i] ..``; ``row_len`` is the
+          draft count, so ``row_len == 0`` is a plain decode step and
+          ``row_len == k`` exactly :meth:`verify_step` at width ``k + 1``.
+        - ``forced == 1`` (prefill chunk): the block is the next
+          ``row_len`` prompt tokens at rows ``row_start[i] ..`` over the
+          lane's own table; the accept length is forced to ``row_len - 1``,
+          so the emitted token is the target for row ``row_start +
+          row_len``: on the final chunk, the request's first token.
+
+        Rows past a lane's live width (``row_len`` forced, ``row_len + 1``
+        otherwise) are padding: their outputs are never selected, and the
+        next dispatch over the same rows rewrites them before any mask
+        admits them. ``row_live`` carries the live widths to the kernel,
+        which stops each lane's walk at its live frontier.
+
+        Returns the :meth:`verify_step` tuple with ``new_positions =
+        eff_pos + accept + 1`` (clamped to ``pos_cap``), ``eff_pos`` being
+        ``row_start`` on forced lanes and ``positions`` otherwise.
+        ``parents`` (tree speculation), ``sampling`` (on-device sampling)
+        and ``logit_poison`` (the finite-logit check) are not ported."""
+        _check_unported_step_args(
+            logit_poison=logit_poison, sampling=sampling, parents=parents,
+        )
+        t = rows.shape[1]
+        is_forced = forced > 0
+        eff_pos = torch.where(is_forced, row_start, positions)
+        # decode/verify lanes score [resident token, drafts]; forced lanes
+        # score the chunk payload verbatim
+        block = torch.where(
+            is_forced[:, None], rows,
+            torch.cat([tokens[:, None].to(rows.dtype), rows[:, : t - 1]], dim=1),
+        )
+        live = torch.where(is_forced, row_len, row_len + 1)
+        logits, cache = self.forward(
+            params, cache, block, eff_pos, None,
+            block_tables=block_tables, kv_limit=kv_limit, row_live=live,
+        )
+        targets = torch.argmax(logits, dim=-1).to(torch.int32)
+        # forced lanes carry draft_len 0, so the rule hands back their
+        # targets untouched; their accept is then set to the chunk's last
+        # row, whose target is keyed row_start + row_len
+        dl = torch.where(is_forced, torch.zeros_like(row_len), row_len)
+        raw_accept, emitted = accept_rule(block[:, 1:], targets, draft_len=dl)
+        accept = torch.where(is_forced, torch.clamp(row_len - 1, min=0), raw_accept)
+        new_tokens = torch.gather(emitted, 1, accept[:, None].long())[:, 0]
+        new_positions = eff_pos + accept + 1
+        if pos_cap is not None:
+            new_positions = torch.clamp(new_positions, max=pos_cap)
+        return emitted, accept, new_tokens, new_positions, cache
 
     def _paged_kernel_eligible(self, t: int, tree) -> bool:
         """Gate for the paged-decode kernel: the ``use_paged_kernel`` config

@@ -1,15 +1,16 @@
-// Paged flash-decoding for Hopper (sm_90a): attention of t <= 8 fresh query
-// tokens per lane over a block-pooled KV cache, read in place through a
-// per-lane block table. The pool is bf16, or an int8 / fp8 (e4m3, e5m2)
+// Paged flash-decoding for Hopper (sm_90a): attention of t fresh query tokens
+// per lane (t * G <= 64) over a block-pooled KV cache, read in place through
+// a per-lane block table. The pool is bf16, or an int8 / fp8 (e4m3, e5m2)
 // payload with one fp16 scale per (token row, kv head).
 //
 // Replaces: neuronx_distributed_llama3_2_tpu/kernels/paged_attention_pallas.py
 //   _decode_kernel (:73), launched by paged_flash_decode (:245, pallas_call
 //   at :419), plus the LSE combine that function runs after the kernel
-//   (:438-449). Modes ported: t == 1 and t <= 8 block-causal (modes 1-2);
+//   (:438-449). Modes ported: t == 1 and t > 1 block-causal (modes 1-2);
 //   the quantized pool, dequantized in the kernel (mode 3, :178-187 and
-//   :223-228); quant_mxu, the q.k dot in the payload's precision (mode 6,
-//   :139-176). row_live and tree_bits are later work.
+//   :223-228); row_live, each lane's walk cut at its live frontier (mode 4,
+//   :90-97 and :131-133); quant_mxu, the q.k dot in the payload's precision
+//   (mode 6, :139-176). tree_bits (mode 5) is later work.
 //
 // What bounds it on the H100: bytes of K/V read from device memory. Every
 // live pool row of a kv head is D values of K and of V (bf16, or one byte
@@ -23,9 +24,14 @@
 //   (the G query heads of the GQA group and the t fresh tokens) out of
 //   shared memory, so no K/V is replicated or re-read per query head;
 // - the block reads its own block-table entries and walks only the pool
-//   blocks its split owns, stopping at the lane's frontier pos + t - 1:
-//   nothing past a request's last written row is read, and no gathered
-//   (b, kv_limit, NKV, D) copy of the cache is ever made;
+//   blocks its split owns, stopping at the lane's frontier pos + t - 1, or
+//   pos + row_live[i] - 1 when the caller passes per-lane live row counts
+//   (a runtime pointer, null otherwise: no extra template instance): nothing
+//   past a request's last live row is read, and no gathered
+//   (b, kv_limit, NKV, D) copy of the cache is ever made. A live row's
+//   output is bitwise what it is without row_live: every block past the
+//   live frontier is fully masked for it (alpha 1, p 0), and a split left
+//   with no block emits (0, -inf, 0) as a fully masked one does;
 // - K/V rows are loaded as 8 values per thread (16 bytes of bf16, 8 bytes
 //   of a 1-byte payload: a head's D values are contiguous in the pool, and
 //   a 16-row block of one head is then one vector per thread at D = 64),
@@ -72,7 +78,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kBlockRows = 16;     // pool block size (rows per block)
-constexpr int kMaxTileRows = 64;   // t * G <= 8 * 8
+constexpr int kMaxTileRows = 64;   // t * G (16 * 4 for the 1B fused step)
 constexpr int kCombineThreads = 256;
 
 // payload kinds, as kernels/paged_attention.py KV_KINDS numbers them
@@ -219,6 +225,7 @@ paged_decode_split_kernel(
     const __half* __restrict__ v_scale,              // (num_blocks, bs, NKV) or null
     const int* __restrict__ tables,                  // (b, W)
     const int* __restrict__ positions,               // (b,)
+    const int* __restrict__ row_live,                // (b,) or null
     float* __restrict__ o_parts,                     // (b, NKV, S, t*G, D)
     float* __restrict__ m_parts,                     // (b, NKV, S, t*G)
     float* __restrict__ l_parts,                     // (b, NKV, S, t*G)
@@ -252,12 +259,19 @@ paged_decode_split_kernel(
 
   const int pos = positions[i];
   // the split's logical blocks, cut at the lane's deepest fresh row
+  // (lb_stop), and under row_live at its deepest live one (live_stop: the
+  // blocks up to the one holding row pos + row_live[i] - 1, none when that
+  // row lies before row 0). The loop keeps lb_stop as its bound and breaks
+  // at live_stop: bounding it by live_stop directly made the D = 64
+  // instances slower on an H100 with row_live null (PERF.md)
   const int lb_begin = s * bps;
   const int lb_stop = min(min((s + 1) * bps, nblk), (pos + t - 1) / kBlockRows + 1);
+  const int live_stop = row_live != nullptr
+      ? min(lb_stop, (pos + row_live[i] + kBlockRows - 1) / kBlockRows) : lb_stop;
   const int* tbl = tables + static_cast<size_t>(i) * w;
 
   BlockTile<L, D> tile;
-  if (lb_begin < lb_stop) {
+  if (lb_begin < live_stop) {
     tile.load(k_pool, v_pool, k_scale, v_scale, static_cast<size_t>(tbl[lb_begin]),
               nkv, h, tid);
   }
@@ -302,9 +316,10 @@ paged_decode_split_kernel(
   const int n_pad = (n_sc + 31) & ~31;    // rounded up to whole warps
 
   for (int lb = lb_begin; lb < lb_stop; ++lb) {
+    if (lb >= live_stop) break;
     tile.store(k_s, DP, v_s, ks_s, reinterpret_cast<int8_t*>(kw_s), mxu, e5m2, tid);
     __syncthreads();  // k_s / v_s (and, first time round, the q tile) are ready
-    if (lb + 1 < lb_stop) {
+    if (lb + 1 < live_stop) {
       // in flight while this block is computed
       tile.load(k_pool, v_pool, k_scale, v_scale, static_cast<size_t>(tbl[lb + 1]),
                 nkv, h, tid);
@@ -430,6 +445,7 @@ struct Args {
   const void* v_scale;
   const void* tables;
   const void* positions;
+  const void* row_live;
   void* o_parts;
   void* m_parts;
   void* l_parts;
@@ -456,7 +472,8 @@ cudaError_t launch(const Args& a, bool mxu, bool e5m2) {
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const T*>(a.k_pool),
       static_cast<const T*>(a.v_pool), static_cast<const __half*>(a.k_scale),
       static_cast<const __half*>(a.v_scale), static_cast<const int*>(a.tables),
-      static_cast<const int*>(a.positions), static_cast<float*>(a.o_parts),
+      static_cast<const int*>(a.positions), static_cast<const int*>(a.row_live),
+      static_cast<float*>(a.o_parts),
       static_cast<float*>(a.m_parts), static_cast<float*>(a.l_parts), a.t,
       a.n_heads, a.nkv, group, a.w, a.nblk, a.bps, a.sm_scale, mxu, e5m2);
   cudaError_t err = cudaGetLastError();
@@ -488,13 +505,15 @@ cudaError_t launch_kind(const Args& a, int kind, bool mxu) {
 
 // C entry point, bound with ctypes. Pointers are device pointers of
 // contiguous tensors allocated by the caller (pool and scale pointers
-// 16-byte aligned; the scales null for a bf16 pool); kv_kind numbers the
+// 16-byte aligned; the scales null for a bf16 pool; row_live null unless the
+// caller passes per-lane live row counts); kv_kind numbers the
 // payload (0 bf16, 1 int8, 2 fp8 e4m3, 3 fp8 e5m2) and quant_mxu selects
 // mode 6 for a quantized one; the stream is the caller's current CUDA
 // stream. Returns a cudaError_t: 0 when both launches were accepted.
 extern "C" int paged_decode(
     const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
-    const void* v_scale, const void* tables, const void* positions, void* o_parts,
+    const void* v_scale, const void* tables, const void* positions,
+    const void* row_live, void* o_parts,
     void* m_parts, void* l_parts, void* out, int b, int t, int n_heads, int nkv,
     int head_dim, int block_size, int w, int nblk, int splits, int bps, int kv_kind,
     int quant_mxu, float sm_scale, void* stream) {
@@ -504,8 +523,8 @@ extern "C" int paged_decode(
       nblk > w || b < 1 || (quantized && (k_scale == nullptr || v_scale == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, positions, o_parts,
-               m_parts, l_parts, out, b, t, n_heads, nkv, w, nblk, splits, bps,
+  const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, positions, row_live,
+               o_parts, m_parts, l_parts, out, b, t, n_heads, nkv, w, nblk, splits, bps,
                sm_scale, static_cast<cudaStream_t>(stream)};
   switch (head_dim) {
     case 64:

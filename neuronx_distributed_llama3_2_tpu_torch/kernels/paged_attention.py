@@ -12,11 +12,20 @@ there is no fallback from one to the other.
 Logical row ``p`` of lane ``i`` lives at pool row
 ``block_tables[i, p // bs] * bs + p % bs``. A 3-dim q is the T == 1
 token-gen step: rows ``<= positions[i]`` are attended. A 4-dim q is a fresh
-block of t <= 8 tokens written at rows ``positions[i] .. positions[i] + t - 1``;
-query ``ti`` attends rows ``<= positions[i] + ti`` (block-causal). Everything
-else (padding, null-block garbage) is masked. ``kv_limit`` bounds the
-logical rows visited; the caller guarantees every used query row sits
-below it.
+block of t tokens (t * G <= 64 on the card) written at rows
+``positions[i] .. positions[i] + t - 1``; query ``ti`` attends rows
+``<= positions[i] + ti`` (block-causal). Everything else (padding,
+null-block garbage) is masked. ``kv_limit`` bounds the logical rows
+visited; the caller guarantees every used query row sits below it.
+
+``row_live`` (b,) int32 marks a mixed-width block (mode 4 of the TPU
+kernel, the fused mixed-mode step): lane ``i``'s query rows ``>=
+row_live[i]`` are padding whose outputs the caller discards, and the
+lane's walk stops at the pool block holding row ``positions[i] +
+row_live[i] - 1`` instead of ``positions[i] + t - 1``. Every query row
+keeps its ``row <= positions[i] + ti`` mask within the rows walked, so a
+live row's output is what it is without ``row_live``, and a padding row's
+is what the TPU kernel gives it (0 where it sees no row at all).
 
 ``k_scale`` / ``v_scale`` (each (num_blocks, bs, NKV) fp16) mark an int8
 or fp8 pool (:mod:`..quantization.kv_cache`): each block's K and V are
@@ -27,8 +36,8 @@ int8 (absmax / 127) and accumulates int8 x int8 in int32, an fp8 pool
 casts q to the payload's fp8 type without saturation; the scales then
 multiply the fp32 scores, and p.V keeps mode 3's dequantized V.
 
-The ``row_live`` and ``tree_bits`` modes of the TPU kernel are later
-sub-slices of the port and raise ``NotImplementedError`` here.
+The ``tree_bits`` mode of the TPU kernel (tree speculation) is a later
+sub-slice of the port and raises ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -66,6 +75,8 @@ class LaunchCounter:
 
 #: launches of the CUDA paged-decode kernel in this process
 launches = LaunchCounter()
+#: of those, the launches with per-lane live rows (mode 4, ``row_live``)
+row_live_launches = LaunchCounter()
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -77,8 +88,8 @@ def _unported(**modes) -> None:
         if value is not None and value is not False:
             raise NotImplementedError(
                 f"paged_flash_decode({name}=...) is a later sub-slice of the "
-                "port: only the bf16 and int8/fp8 pools with t == 1 and "
-                "t <= 8 block-causal queries are ported"
+                "port: the block-causal modes (bf16 and int8/fp8 pools, "
+                "row_live) are ported, tree masks are not"
             )
 
 
@@ -138,6 +149,27 @@ def _geometry(q, k_pool, block_tables, kv_limit, num_splits):
     return nblk, splits, _ceil_div(nblk, splits)
 
 
+def _check_row_live(row_live, b: int) -> None:
+    if row_live is not None and tuple(row_live.shape) != (b,):
+        raise ValueError(
+            f"row_live must be (b,) = ({b},), got {tuple(row_live.shape)}"
+        )
+
+
+def walked_rows(positions, t: int, nblk: int, bs: int, row_live=None):
+    """(b,) logical rows the TPU kernel's walk reads per lane: whole blocks
+    ``lb < nblk`` with ``lb * bs <= positions + frontier``, the frontier
+    ``t - 1`` or, under ``row_live``, ``row_live - 1`` (no block at all
+    when it lies before row 0)."""
+    frontier = t - 1 if row_live is None else row_live.long() - 1
+    last = positions.long() + frontier
+    blocks = torch.where(
+        last < 0, torch.zeros_like(last),
+        torch.clamp(torch.div(last, bs, rounding_mode="floor") + 1, max=nblk),
+    )
+    return blocks * bs
+
+
 def paged_flash_decode_reference(
     q: torch.Tensor,             # (b, N, D) single query — or (b, t, N, D)
     k_pool: torch.Tensor,        # (num_blocks, bs, NKV, D)
@@ -149,12 +181,18 @@ def paged_flash_decode_reference(
     k_scale: Optional[torch.Tensor] = None,  # (num_blocks, bs, NKV) fp16
     v_scale: Optional[torch.Tensor] = None,
     quant_mxu: bool = False,
+    row_live: Optional[torch.Tensor] = None,  # (b,) int live query rows
 ) -> torch.Tensor:
     """The plain PyTorch version of :func:`paged_flash_decode`: gather the
     first ``ceil(kv_limit / bs)`` table blocks of every lane, then one
     masked softmax in fp32 (q·k of the input-dtype operands accumulated in
     fp32, times ``D ** -0.5``). Returns q's shape in q's dtype. It
     materializes the (b, kv_limit, NKV, D) gather the kernel avoids.
+
+    The mask is the TPU kernel's: ``row <= positions + ti`` within the
+    rows its walk reads (:func:`walked_rows`; under ``row_live`` the walk
+    ends at each lane's live frontier). A query row that sees no row gives
+    0, as the kernel's combine does (``l == 0``).
 
     A quantized pool follows the TPU kernel step for step: K and V
     dequantized and rounded to q's dtype; under ``quant_mxu`` the scores
@@ -168,6 +206,7 @@ def paged_flash_decode_reference(
     _, bs, nkv, _ = k_pool.shape
     g = n // nkv
     sm_scale = d ** -0.5
+    _check_row_live(row_live, b)
     nblk, _, _ = _geometry(q, k_pool, block_tables, kv_limit, 1)
     blocks = block_tables[:, :nblk].long()                      # (b, nblk)
     k_all = k_pool[blocks].reshape(b, nblk * bs, nkv, d)
@@ -201,9 +240,14 @@ def paged_flash_decode_reference(
         scores = torch.einsum("btkgd,bskd->bkgts", qg, k_all.float()) * sm_scale
     rows = torch.arange(nblk * bs, device=q.device)
     last = positions.long()[:, None] + torch.arange(t, device=q.device)[None, :]
-    mask = rows[None, None, :] <= last[:, :, None]               # (b, t, S)
-    scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
+    walked = walked_rows(positions, t, nblk, bs, row_live)        # (b,)
+    mask = (rows[None, None, :] <= last[:, :, None]) & (
+        rows[None, None, :] < walked[:, None, None]
+    )                                                             # (b, t, S)
+    mask = mask[:, None, None]
+    scores = scores.masked_fill(~mask, float("-inf"))
+    # a row with no visible key softmaxes to NaN; the kernel gives it 0
+    probs = torch.softmax(scores, dim=-1).masked_fill(~mask, 0.0)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v_all).reshape(b, t, n, d)
     out = out.to(q.dtype)
     return out[:, 0] if squeeze else out
@@ -226,16 +270,18 @@ def paged_flash_decode(
 ) -> torch.Tensor:
     """Gather-free paged decode attention; returns q's shape in q.dtype
     (see the module docstring for the semantics)."""
-    _unported(row_live=row_live, tree_bits=tree_bits)
+    _unported(tree_bits=tree_bits)
     _check_scales(k_pool, k_scale, v_scale, quant_mxu)
     squeeze = q.dim() == 3
     q4 = q[:, None] if squeeze else q
+    _check_row_live(row_live, q4.shape[0])
     nblk, splits, bps = _geometry(q4, k_pool, block_tables, kv_limit, num_splits)
     dev = q.device.type
     if dev == "cpu":
         return paged_flash_decode_reference(
             q, k_pool, v_pool, block_tables, positions, kv_limit=kv_limit,
             k_scale=k_scale, v_scale=v_scale, quant_mxu=quant_mxu,
+            row_live=row_live,
         )
     if dev != "cuda":
         raise RuntimeError(
@@ -244,7 +290,7 @@ def paged_flash_decode(
         )
     out = _launch(
         q4, k_pool, v_pool, block_tables, positions, nblk, splits, bps,
-        k_scale=k_scale, v_scale=v_scale, quant_mxu=quant_mxu,
+        k_scale=k_scale, v_scale=v_scale, quant_mxu=quant_mxu, row_live=row_live,
     )
     return out[:, 0] if squeeze else out
 
@@ -266,7 +312,7 @@ def _kernel():
     fn = load("paged_decode").paged_decode
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [
             ctypes.c_float, ctypes.c_void_p,
         ]
     return fn
@@ -274,7 +320,7 @@ def _kernel():
 
 def _launch(
     q, k_pool, v_pool, block_tables, positions, nblk, splits, bps, *,
-    k_scale=None, v_scale=None, quant_mxu=False,
+    k_scale=None, v_scale=None, quant_mxu=False, row_live=None,
 ):
     b, t, n, d = q.shape
     nb, bs, nkv, _ = k_pool.shape
@@ -286,6 +332,8 @@ def _launch(
     )
     if quantized:
         tensors.update(k_scale=k_scale, v_scale=v_scale)
+    if row_live is not None:
+        tensors.update(row_live=row_live)
     for name, x in tensors.items():
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
@@ -311,16 +359,19 @@ def _launch(
             f"the CUDA kernel takes bf16 pools without scales, got k_pool "
             f"{k_pool.dtype}, v_pool {v_pool.dtype}"
         )
-    for name in ("block_tables", "positions"):
-        if tensors[name].dtype != torch.int32:
+    for name in ("block_tables", "positions", "row_live"):
+        if name in tensors and tensors[name].dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {tensors[name].dtype}")
     if v_pool.shape != k_pool.shape or tuple(q.shape[-1:]) != (k_pool.shape[-1],):
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, k_pool {tuple(k_pool.shape)}, "
             f"v_pool {tuple(v_pool.shape)}"
         )
-    if positions.shape != (b,) or block_tables.shape[0] != b:
-        raise ValueError("block_tables and positions must have one row per lane")
+    if (positions.shape != (b,) or block_tables.shape[0] != b
+            or (row_live is not None and row_live.shape != (b,))):
+        raise ValueError(
+            "block_tables, positions and row_live must have one row per lane"
+        )
     if bs != KERNEL_BLOCK_SIZE or d not in KERNEL_HEAD_DIMS or t * g > KERNEL_MAX_TILE_ROWS:
         raise ValueError(
             f"the CUDA kernel takes block_size {KERNEL_BLOCK_SIZE}, head_dim in "
@@ -342,6 +393,7 @@ def _launch(
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         block_tables.data_ptr(), positions.data_ptr(),
+        row_live.data_ptr() if row_live is not None else None,
         o_parts.data_ptr(), m_parts.data_ptr(), l_parts.data_ptr(),
         out.data_ptr(),
         b, t, n, nkv, d, bs, block_tables.shape[1], nblk, splits, bps,
@@ -350,4 +402,6 @@ def _launch(
     if err != 0:
         raise RuntimeError(f"paged_decode launch failed: cudaError_t {err}")
     launches.count += 1
+    if row_live is not None:
+        row_live_launches.count += 1
     return out

@@ -29,10 +29,21 @@ for the synchronous FIFO loop:
   kv_cache`), quantized on write; copy-on-write copies a block's scales
   with its payload. ``quant_mxu`` keeps the kernel's q.k dot in the
   payload's precision.
+- ``PagedConfig.spec_draft_tokens`` turns on linear speculative decoding:
+  a drafter (:class:`.drafter.NGramDrafter` by default) proposes up to k
+  tokens per lane, one verify dispatch scores ``[cur, drafts]`` for every
+  decode lane and accepts the agreeing prefix on the device
+  (:meth:`..inference.model.LlamaDecode.verify_step`). Greedy only.
+- ``PagedConfig.fused_step`` packs the prefill chunks, the verify rows and
+  the plain decode lanes of a step into one ``mixed_step`` dispatch while
+  any lane is mid-prefill; every cached-prefix admission chunks through it,
+  with the lane's table live at once and its resident row parked past the
+  prompt. Greedy only.
 - Each :meth:`PagedServingEngine.step` runs the FIFO policy's schedule
-  (serving/policy.py): drain, admit (with inline prefill), one chunk per
-  prefilling lane, one batched T=1 decode over every active lane, read
-  back.
+  (serving/policy.py): drain, admit (with inline prefill), then one fused
+  mixed dispatch while a lane prefills under ``fused_step``, else one chunk
+  per prefilling lane and a verify dispatch (speculation) or one batched
+  T=1 decode over every active lane, read back.
 
 The JAX package compiles each of these as a jitted program and keeps a
 program registry and an AOT catalog; here every program is a plain eager
@@ -73,6 +84,7 @@ from neuronx_distributed_llama3_2_tpu_torch.serving.catalog import (
     complete_ladder,
     pick_bucket,
 )
+from neuronx_distributed_llama3_2_tpu_torch.serving.drafter import NGramDrafter
 from neuronx_distributed_llama3_2_tpu_torch.serving.metrics import ServingMetrics
 from neuronx_distributed_llama3_2_tpu_torch.serving.policy import (
     ActionType,
@@ -173,15 +185,10 @@ class PagedConfig:
 #: where the default is falsy) makes PagedServingEngine raise.
 UNPORTED_KNOBS: Dict[str, str] = {
     "async_loop": "the async double-buffered decode loop",
-    "spec_draft_tokens": "speculative decoding",
     "spec_tree": "tree speculation",
     "spec_tree_branches": "tree speculation",
-    "spec_ngram_max": "the speculation drafter",
-    "spec_ngram_min": "the speculation drafter",
-    "spec_min_accept_rate": "speculative decoding",
-    "spec_probation_tokens": "speculative decoding",
-    "spec_retry_steps": "speculative decoding",
-    "fused_step": "the fused mixed-mode step",
+    # read only by the FIFO policy's async branch, after a dry drafter
+    "spec_retry_steps": "the async double-buffered decode loop",
     "on_device_sampling": "fused on-device sampling",
     "spill_enabled": "tiered KV storage",
     "host_tier_bytes": "tiered KV storage",
@@ -248,6 +255,12 @@ class _PagedRequest:
     prefill_target: int = 0
     # the (1, W) block-table row on the device, uploaded once per chunk walk
     table_dev: Any = None
+    # speculation: drafts offered / accepted over the request's life; a lane
+    # whose accept rate stays below spec_min_accept_rate past probation
+    # stops drafting (spec_disabled) and takes plain decode steps
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_disabled: bool = False
     # terminal failure (cancel): the request is done with partial output
     # and `error` holds the detail
     failed: bool = False
@@ -278,11 +291,6 @@ class PagedServingEngine:
         policy: Optional[StepPolicy] = None,
     ) -> None:
         check_ported(paged)
-        if drafter is not None:
-            raise NotImplementedError(
-                "drafter: speculative decoding is not ported to the PyTorch "
-                "package yet"
-            )
         if injector is not None:
             raise NotImplementedError(
                 "injector: fault injection is not ported to the PyTorch "
@@ -305,8 +313,36 @@ class PagedServingEngine:
             # a solo request's re-admission after self-preemption is only
             # guaranteed to fit when admission kept >= 1 block of headroom
             raise ValueError("decode_reserve_blocks must be >= 1")
-        # the policy reads these: speculation and the ladder are not ported
-        self._spec_k = 0
+        self._spec_k = int(paged.spec_draft_tokens or 0)
+        if self._spec_k < 0:
+            raise ValueError("spec_draft_tokens must be >= 0")
+        if self._spec_k and not gen.sampling.greedy:
+            # acceptance compares the target's argmax; a sampled stream
+            # would silently stop matching the plain loop (on-device
+            # sampling, which lifts this in the JAX package, is not ported)
+            raise ValueError(
+                "speculative serving with host sampling requires greedy "
+                "(SamplingConfig(greedy=True))"
+            )
+        self._fused_step = bool(paged.fused_step)
+        if self._fused_step and not gen.sampling.greedy:
+            # one mixed dispatch draws every row's token: a host-sampled
+            # stream cannot replay the unfused engine's draw order
+            raise ValueError(
+                "fused_step with host sampling requires greedy "
+                "(SamplingConfig(greedy=True))"
+            )
+        # the mixed row width covers the chunk budget and the widest verify
+        self._mixed_t = (
+            max(int(paged.prefill_chunk_tokens or 8), self._spec_k + 1)
+            if self._fused_step else 0
+        )
+        self.drafter = drafter
+        if self._spec_k and self.drafter is None:
+            self.drafter = NGramDrafter(
+                max_n=paged.spec_ngram_max, min_n=paged.spec_ngram_min
+            )
+        # the degradation ladder is not ported: the policy reads level 0
         self._degrade_level = 0
         self.policy = policy if policy is not None else make_policy(
             paged.step_policy
@@ -332,6 +368,15 @@ class PagedServingEngine:
         self.table_width = _ceil_div(engine.max_seq_len, bs) + _ceil_div(
             self._prefill_buckets[-1], bs
         )
+        if self._spec_k and engine.max_seq_len + self._spec_k > self.table_width * bs:
+            # verify writes reach row position + k; the overflow region
+            # (always null-backed) must absorb the rejected tail of a lane
+            # sitting at the sequence cap
+            raise ValueError(
+                f"spec_draft_tokens ({self._spec_k}) exceeds the table's "
+                f"overflow region ({self.table_width * bs - engine.max_seq_len} "
+                f"rows past max_seq_len)"
+            )
         if paged.prefill_chunk_tokens is not None and paged.prefill_chunk_tokens < 0:
             raise ValueError("prefill_chunk_tokens must be positive (or None / 0: off)")
         kv_cache_torch_dtype(paged.kv_cache_dtype)  # validate the knob early
@@ -662,19 +707,37 @@ class PagedServingEngine:
                 req.admitted_at = time.perf_counter()
             self.tracer.request_state(req.rid, "prefilling")
             chunk = self.paged.prefill_chunk_tokens
-            if chunk and len(seq) - cached > chunk:
+            if (chunk and len(seq) - cached > chunk) or (
+                self._fused_step and cached > 0
+            ):
                 # chunked admission: the lane holds its blocks but joins the
                 # decode batch only after the final chunk. Until then its
                 # decode-visible table row stays all-null: the batched
                 # decode writes K/V for every lane, and a live row would let
                 # those garbage writes land in this request's blocks
                 # mid-prefill. Prefix registration waits for the last chunk
-                # too, when the blocks hold valid rows
+                # too, when the blocks hold valid rows.
+                #
+                # Fused mixed-mode step: every cached-prefix admission takes
+                # this route (the suffix prefill never runs) and the table
+                # goes live at once, since the mixed step reads and writes
+                # the chunk rows through it. A garbage row a batched step
+                # writes is rewritten by the dispatch that first admits it
+                # into a mask, and rows past the allocation land in the
+                # null block
                 req.prefilling = True
                 req.prefill_pos = cached
                 req.prefill_target = len(seq)
                 self._tokens[lane] = 0
                 self._positions[lane] = 0
+                if self._fused_step:
+                    self._tables[lane, : len(table)] = table
+                    # park the resident write row past the prompt: row 0 of
+                    # a live table can be a shared prefix block, and every
+                    # batched step writes garbage at every lane's resident
+                    # row; prefill_target's row is private (or null past
+                    # the allocation) and decode overwrites it first
+                    self._positions[lane] = req.prefill_target
                 self._dirty_lanes.add(lane)
                 continue
             suffix = seq[cached:]
@@ -961,6 +1024,279 @@ class PagedServingEngine:
         self._read_and_apply(toks, decode_lanes)
         return bool(self._active or self._queue)
 
+    # -- speculative decoding and the fused mixed-mode step ------------------
+
+    def _collect_drafts(self) -> Dict[int, List[int]]:
+        """Ask the drafter for up to ``spec_draft_tokens`` proposals per
+        decode-ready lane. A lane abstains when the drafter finds nothing,
+        when it is spec-disabled, or when fewer than two tokens remain (a
+        plain step finishes it anyway). Draft counts are clamped so that
+        acceptance never overshoots ``max_new_tokens``, which with
+        submit()'s capacity check keeps every committed row below
+        ``max_seq_len``."""
+        k = self._spec_k
+        out: Dict[int, List[int]] = {}
+        for lane, req in self._active.items():
+            if req.prefilling or req.spec_disabled:
+                continue
+            remaining = self.gen.max_new_tokens - len(req.out)
+            limit = min(k, remaining - 1)
+            if limit < 1:
+                continue
+            try:
+                drafts = self.drafter.propose(req.prompt + req.out, limit)
+            except Exception as exc:  # noqa: BLE001 -- drafting is advisory
+                # a drafter bug costs this lane its speculation for one
+                # step, never the request: the lane takes a plain step
+                self.metrics.drafter_faults += 1
+                logger.warning("drafter failed for request %d: %s", req.rid, exc)
+                continue
+            if drafts:
+                out[lane] = list(drafts[:limit])
+        return out
+
+    def _prepare_spec_blocks(self, proposals: Dict[int, List[int]]) -> None:
+        """Back each drafting lane's verify-write rows (``position ..
+        position + draft_len``) with real blocks without preempting:
+        evicting cached LRU blocks is fine, but when the pool runs dry the
+        draft is trimmed to the rows already backed (down to a plain
+        decode). Rows past ``draft_len`` stay null-backed, and ``accept <=
+        draft_len`` keeps every accepted query inside the backed
+        frontier."""
+        bs = self.paged.block_size
+        for lane in sorted(proposals):
+            req = self._active[lane]
+            need = (int(self._positions[lane]) + len(proposals[lane])) // bs + 1
+            while len(req.table) < need:
+                nb = self.allocator.alloc()
+                if nb is None:
+                    break
+                self._append_block(lane, req, nb)
+            backed = len(req.table) * bs - 1 - int(self._positions[lane])
+            if backed < len(proposals[lane]):
+                if backed < 1:
+                    del proposals[lane]
+                else:
+                    proposals[lane] = proposals[lane][:backed]
+
+    def _commit_accepted(
+        self, req: _PagedRequest, lane: int, emitted: np.ndarray, a: int,
+        drafted: int, finishing: List[_PagedRequest],
+    ) -> None:
+        """Commit one decode lane's verify outcome: ``a`` accepted drafts of
+        ``drafted`` plus the correction token, the host mirrors advanced as
+        the device advanced them, and the spec-disable heuristic."""
+        cfg = self.paged
+        self.metrics.accepted_tokens += a
+        if drafted:
+            self.metrics.hist_accept_len.observe(a)
+        req.spec_drafted += drafted
+        req.spec_accepted += a
+        self._positions[lane] += a + 1  # mirror the on-device advance
+        for j in range(a + 1):
+            req.out.append(int(emitted[lane, j]))
+            req.position += 1
+            self._tokens[lane] = emitted[lane, j]
+            if req.position >= self.engine.max_seq_len - 1:
+                req.done = True
+            if self._finish_due(req):
+                # EOS (or a cap) inside the accepted run: the committed
+                # device rows past it are moot, the finish resets the lane
+                break
+        if self._finish_due(req):
+            finishing.append(req)
+        elif (
+            not req.spec_disabled
+            and req.spec_drafted >= cfg.spec_probation_tokens
+            and req.spec_accepted < cfg.spec_min_accept_rate * req.spec_drafted
+        ):
+            req.spec_disabled = True
+            self.metrics.spec_disabled_lanes += 1
+
+    def _verify_phase(self) -> bool:
+        """The VERIFY action: one verify dispatch
+        (:meth:`..inference.model.LlamaDecode.verify_step`) for every
+        decode lane. Drafting lanes advance by their on-device accept
+        length + 1; lanes whose drafter abstained carry ``draft_len`` 0 and
+        take a plain greedy decode step. Returns whether anything was
+        dispatched: False (the drafter abstained everywhere, or backing
+        preempted every drafting lane) lets the policy schedule a plain
+        decode instead."""
+        proposals = self._collect_drafts()
+        if proposals:
+            self._prepare_spec_blocks(proposals)
+        if proposals:
+            self._ensure_decode_blocks()
+            # base-row backing may have preempted drafting lanes (youngest
+            # first); their proposals die with them
+            proposals = {
+                l: d for l, d in proposals.items()
+                if self._active.get(l) is not None
+                and not self._active[l].prefilling
+            }
+        if not proposals:
+            return False
+        decode_lanes = [l for l, r in self._active.items() if not r.prefilling]
+        self._flush_state()
+        eng = self.engine
+        k = self._spec_k
+        draft_len = np.zeros((eng.max_batch,), np.int32)
+        drafts = np.zeros((eng.max_batch, k), np.int32)
+        for lane, d in proposals.items():
+            drafts[lane, : len(d)] = d
+            draft_len[lane] = len(d)
+        kv_need = int(max(self._positions[l] for l in decode_lanes)) + k + 1
+        kv_limit = self._kv_bucket(kv_need)
+        self.metrics.note_decode_dispatch(kv_limit, kv_need)
+        tokens = torch.cat([self._d_tokens[:, None], self._upload(drafts)], dim=1)
+        emitted_d, accept_d, self._d_tokens, self._d_positions, self.cache = (
+            self.model.verify_step(
+                eng.params, self.cache, tokens, self._d_positions,
+                self._d_tables, self._upload(draft_len), kv_limit=kv_limit,
+                pos_cap=self._pos_cap,
+            )
+        )
+        self._emit_action(
+            ActionType.VERIFY, lanes=list(decode_lanes), k=k,
+            drafts=int(draft_len.sum()), kv=kv_limit,
+        )
+        self.metrics.decode_steps += 1
+        self.metrics.verify_steps += 1
+        self.metrics.draft_tokens += int(draft_len.sum())
+        emitted = self._read_tokens(emitted_d)      # (B, k+1)
+        accept = self._read_tokens(accept_d)        # (B,)
+        finishing: List[_PagedRequest] = []
+        for lane in decode_lanes:
+            self._commit_accepted(
+                self._active[lane], lane, emitted, int(accept[lane]),
+                int(draft_len[lane]), finishing,
+            )
+        for req in finishing:
+            self._maybe_finish(req)
+        return True
+
+    def _mixed_phase(self) -> bool:
+        """The MIXED_DISPATCH action (``fused_step``): one
+        :meth:`..inference.model.LlamaDecode.mixed_step` dispatch advances
+        every lane this step. Prefilling lanes consume their next chunk as
+        forced rows (a non-final chunk's sampled row is discarded; the
+        final chunk's is the request's first token, and the step itself
+        installs the lane's resident token and position); decode lanes
+        ride as verify rows over the same grid (no drafts: a plain decode
+        row). Returns whether it dispatched: False (no lane is mid-prefill,
+        or backing preempted them all) lets the policy schedule the plain
+        verify or decode tail."""
+        if not self._fused_step:
+            return False
+        if not any(r.prefilling for r in self._active.values()):
+            return False
+        t = self._mixed_t
+        proposals: Dict[int, List[int]] = {}
+        if self._spec_k:
+            # row 0 of a decode lane is its resident token
+            proposals = {l: d[: t - 1] for l, d in self._collect_drafts().items()}
+            if proposals:
+                self._prepare_spec_blocks(proposals)
+        self._ensure_decode_blocks()
+        # backing may have preempted lanes (youngest first): re-derive every
+        # role from the surviving lanes
+        proposals = {
+            l: d for l, d in proposals.items()
+            if self._active.get(l) is not None and not self._active[l].prefilling
+        }
+        forced_lanes = sorted(l for l, r in self._active.items() if r.prefilling)
+        decode_lanes = [l for l, r in self._active.items() if not r.prefilling]
+        if not forced_lanes:
+            return False
+        self._flush_state()
+        eng = self.engine
+        rows = np.zeros((eng.max_batch, t), np.int32)
+        row_start = np.zeros((eng.max_batch,), np.int32)
+        row_len = np.zeros((eng.max_batch,), np.int32)
+        forced = np.zeros((eng.max_batch,), np.int32)
+        pieces: Dict[int, tuple] = {}  # lane -> (req, start, piece, final)
+        for lane in forced_lanes:
+            req = self._active[lane]
+            seq = req.prompt + req.out
+            start = req.prefill_pos
+            piece = seq[start: start + t]
+            pieces[lane] = (req, start, piece, start + len(piece) >= req.prefill_target)
+            rows[lane, : len(piece)] = piece
+            row_start[lane] = start
+            row_len[lane] = len(piece)
+            forced[lane] = 1
+        for lane, d in proposals.items():
+            rows[lane, : len(d)] = d
+            row_len[lane] = len(d)
+        kv_need = max(
+            max(start for _, start, _, _ in pieces.values()),
+            max((int(self._positions[l]) for l in decode_lanes), default=0),
+        ) + t
+        kv_limit = self._kv_bucket(kv_need)
+        self.metrics.note_decode_dispatch(kv_limit, kv_need)
+        t_d = time.perf_counter()
+        emitted_d, accept_d, self._d_tokens, self._d_positions, self.cache = (
+            self.model.mixed_step(
+                eng.params, self.cache, self._d_tokens, self._d_positions,
+                self._d_tables, self._upload(rows), self._upload(row_start),
+                self._upload(row_len), self._upload(forced),
+                kv_limit=kv_limit, pos_cap=self._pos_cap,
+            )
+        )
+        self.metrics.mixed_dispatches += 1
+        self._emit_action(
+            ActionType.MIXED_DISPATCH,
+            lanes=list(decode_lanes), prefill_lanes=list(forced_lanes),
+            drafts=sum(len(d) for d in proposals.values()), kv=kv_limit,
+        )
+        if decode_lanes:
+            self.metrics.decode_steps += 1
+        if proposals:
+            self.metrics.verify_steps += 1
+            self.metrics.draft_tokens += sum(len(d) for d in proposals.values())
+        emitted = self._read_tokens(emitted_d)      # (B, t)
+        accept = self._read_tokens(accept_d)        # (B,)
+        wall_ms = (time.perf_counter() - t_d) * 1e3
+        bs = self.paged.block_size
+        finishing: List[_PagedRequest] = []
+        for lane, (req, start, piece, final) in pieces.items():
+            req.prefill_pos = start + len(piece)
+            req.prefill_ms += wall_ms
+            self.metrics.prefill_tokens += len(piece)
+            self.metrics.prefill_chunks += 1
+            if not final:
+                # the device resident moved to (a discarded draw, the next
+                # chunk's start); the next forced dispatch keys off the
+                # uploaded row_start, so the host mirror stays parked
+                continue
+            # final chunk: the step wrote the lane's resident (token,
+            # position); mirror them, commit the first token, register the
+            # prompt for prefix sharing
+            tok = int(emitted[lane, len(piece) - 1])
+            req.prefilling = False
+            req.table_dev = None
+            req.out.append(tok)
+            req.position = req.prefill_target
+            self._note_first_token(req)
+            self.tracer.request_state(req.rid, "active")
+            self._tokens[lane] = tok
+            self._positions[lane] = req.position
+            if self.paged.enable_prefix_caching:
+                seq = req.prompt + req.out[:-1]
+                n_full = len(seq) // bs
+                if n_full:
+                    self.index.insert(seq[: n_full * bs], req.table[:n_full])
+            if self._finish_due(req):
+                finishing.append(req)
+        for lane in decode_lanes:
+            self._commit_accepted(
+                self._active[lane], lane, emitted, int(accept[lane]),
+                int(row_len[lane]), finishing,
+            )
+        for req in finishing:
+            self._maybe_finish(req)
+        return True
+
     # -- serving loop -------------------------------------------------------
 
     _MAX_ACTIONS_PER_STEP = 64
@@ -975,9 +1311,18 @@ class PagedServingEngine:
         elif t is ActionType.ADMIT:
             self._admit()
         elif t is ActionType.PREFILL_CHUNK:
-            self._advance_prefills(
-                budget_tokens=act.meta.get("budget_tokens") if act.meta else None
-            )
+            if self._fused_step:
+                # fused mode never runs the suffix prefill: the chunk walk
+                # goes through the mixed step instead
+                self._last_mixed_dispatched = self._mixed_phase()
+            else:
+                self._advance_prefills(
+                    budget_tokens=act.meta.get("budget_tokens") if act.meta else None
+                )
+        elif t is ActionType.VERIFY:
+            self._last_verify_drafted = self._verify_phase()
+        elif t is ActionType.MIXED_DISPATCH:
+            self._last_mixed_dispatched = self._mixed_phase()
         elif t is ActionType.DECODE_DISPATCH and act.mode == "sync":
             self._dispatch_sync_decode()
         else:

@@ -101,11 +101,10 @@ def test_unported_modes_raise():
     q, kp, vp, tables, positions = (
         torch.as_tensor(x) for x in _case(1, seed=0)
     )
-    for kw in (
-        dict(row_live=positions), dict(tree_bits=torch.zeros(B, 1, dtype=torch.int32)),
-    ):
-        with pytest.raises(NotImplementedError, match="sub-slice"):
-            pa.paged_flash_decode(q, kp, vp, tables, positions, **kw)
+    with pytest.raises(NotImplementedError, match="tree_bits"):
+        pa.paged_flash_decode(
+            q, kp, vp, tables, positions, tree_bits=torch.zeros(B, 1, dtype=torch.int32),
+        )
     # the quantized arguments now reach the plain version
     kq, ks = kv.kv_quantize(kp, torch.int8)
     vq, vs = kv.kv_quantize(vp, torch.int8)
@@ -164,6 +163,16 @@ def test_kernel_launch_rejects_what_it_cannot_take():
         pa._launch(
             q.bfloat16(), kp.bfloat16(), vp.bfloat16(), tables, positions, 8, 1, 8,
         )
+    # row_live: int32, one entry per lane, contiguous, on q's device
+    bf = (q.bfloat16(), kp.bfloat16(), vp.bfloat16(), tables, positions, 8, 1, 8)
+    for live, match in (
+        (positions.long(), "row_live must be int32"),
+        (positions[:2], "one row per lane"),
+        (torch.stack([positions, positions], 1)[:, 0], "row_live must be contiguous"),
+        (positions.to("meta"), "row_live is on meta"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            pa._launch(*bf, row_live=live)
     # quantized: one payload dtype of the three, fp16 scales, bf16 q
     kq, ks = kv.kv_quantize(kp, torch.int8)
     vq, vs = kv.kv_quantize(vp, torch.float8_e4m3fn)
@@ -177,6 +186,128 @@ def test_kernel_launch_rejects_what_it_cannot_take():
     ):
         with pytest.raises(ValueError, match=match):
             pa._launch(*args, tables, positions, 8, 1, 8, **kw)
+
+
+# -- row_live: the fused step's mixed-width tile (mode 4) ------------------------
+
+LIVE_NB = 200
+
+
+def _live_case(t, seed):
+    """Lanes with every live count 0..t, plus a lane with none at row 0.
+    Even lanes sit where their last live row is the first row of a pool
+    block (a walk one row short would miss that block); odd lanes at
+    random rows. The tables hold distinct real blocks for every row up to
+    pos + t - 1 and random ids (0 among them) past it; the pool is random
+    everywhere. Returns (q, k_pool, v_pool, tables, positions, row_live)
+    as float32 / int32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    live = np.concatenate([np.arange(t + 1), [0]]).astype(np.int32)
+    b = len(live)
+    positions = np.empty(b, np.int32)
+    for j, n in enumerate(live):
+        if j % 2 == 0:
+            positions[j] = BS * (2 + j % 3) + 1 - n  # row pos + n - 1 opens a block
+        else:
+            positions[j] = rng.integers(0, KV_LIMIT - t + 1)
+    positions[-1] = 0
+    q = rng.standard_normal((b, t, N, D)).astype(np.float32)
+    kp = rng.standard_normal((LIVE_NB, BS, NKV, D)).astype(np.float32)
+    vp = rng.standard_normal((LIVE_NB, BS, NKV, D)).astype(np.float32)
+    tables = rng.integers(0, LIVE_NB, size=(b, W)).astype(np.int32)
+    ids = rng.permutation(np.arange(1, LIVE_NB))
+    for j, p in enumerate(positions):
+        n = (p + t - 1) // BS + 1
+        tables[j, :n], ids = ids[:n], ids[n:]
+    return q, kp, vp, tables, positions, live
+
+
+def _live_run(t, seed, pool, splits):
+    """(the port's output, JAX's interpret-mode kernel output, the case
+    as torch tensors), fp32 q, a float32 or int8 (mode 3) pool."""
+    q, kp, vp, tables, positions, live = (
+        torch.as_tensor(x) for x in _live_case(t, seed)
+    )
+    scales = {}
+    if pool == "int8":
+        kp, ks = kv.kv_quantize(kp, torch.int8)
+        vp, vs = kv.kv_quantize(vp, torch.int8)
+        scales = dict(k_scale=ks, v_scale=vs)
+    kw = dict(kv_limit=KV_LIMIT, num_splits=splits)
+    ref = jax_paged_flash_decode(
+        *(_jax(x) for x in (q, kp, vp, tables, positions)), row_live=_jax(live),
+        **kw, **{k: _jax(v) for k, v in scales.items()},
+    )
+    out = pa.paged_flash_decode(q, kp, vp, tables, positions, row_live=live, **kw, **scales)
+    return out, np.asarray(ref), (q, kp, vp, tables, positions, live, scales)
+
+
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("pool", ["float32", "int8"])
+@pytest.mark.parametrize("t", [4, 8, 16])
+def test_row_live_matches_jax_kernel(t, pool, splits):
+    """Mode 4 against JAX's interpret-mode kernel on whole outputs, padding
+    rows included, fp32 within 1e-5; a lane with no live row at row 0 sees
+    nothing and gives 0 in both."""
+    out, ref, _ = _live_run(t, 100 + t, pool, splits)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
+    assert not out[-1].any() and not ref[-1].any()
+
+
+@pytest.mark.parametrize("t", [4, 16])
+def test_row_live_bf16_matches_jax_kernel(t):
+    """Mode 4 on a bf16 pool with bf16 q, the card's dtypes: whole outputs
+    within 2 bf16 ulps of the largest (the JAX kernel rounds its softmax
+    weights to bf16, the plain version does not)."""
+    q, kp, vp, tables, positions, live = (
+        torch.as_tensor(x) for x in _live_case(t, 200 + t)
+    )
+    q, kp, vp = (x.bfloat16() for x in (q, kp, vp))
+    kw = dict(kv_limit=KV_LIMIT, num_splits=4)
+    ref = jax_paged_flash_decode(
+        *(_jax(x) for x in (q, kp, vp, tables, positions)), row_live=_jax(live), **kw,
+    )
+    out = pa.paged_flash_decode(q, kp, vp, tables, positions, row_live=live, **kw)
+    assert out.dtype == torch.bfloat16
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert np.abs(out.float().numpy() - ref).max() <= _bf16_band(ref)
+
+
+@pytest.mark.parametrize("t", [4, 16])
+def test_row_live_rows_and_walk(t):
+    """Live rows are bitwise what the call without row_live gives; padding
+    rows differ somewhere (their walk was cut); and nothing past a lane's
+    live frontier block is read: those blocks replaced by the null block
+    leave the output bitwise unchanged."""
+    q, kp, vp, tables, positions, live = (
+        torch.as_tensor(x) for x in _live_case(t, 7 + t)
+    )
+    kw = dict(kv_limit=KV_LIMIT, num_splits=4)
+    out = pa.paged_flash_decode(q, kp, vp, tables, positions, row_live=live, **kw)
+    full = pa.paged_flash_decode(q, kp, vp, tables, positions, **kw)
+    is_live = torch.arange(t)[None, :] < live[:, None]
+    assert torch.equal(out[is_live], full[is_live])
+    assert not torch.equal(out[~is_live], full[~is_live])
+    cut = tables.clone()
+    for j, (p, n) in enumerate(zip(positions.tolist(), live.tolist())):
+        cut[j, max(p + n - 1, -1) // BS + 1:] = 0
+    out2 = pa.paged_flash_decode(q, kp, vp, cut, positions, row_live=live, **kw)
+    assert torch.equal(out2, out)
+    # a walk one row short misses the block the even lanes' last live row
+    # opens, which moves their last live row
+    short = pa.paged_flash_decode(q, kp, vp, tables, positions, row_live=live - 1, **kw)
+    lanes = [j for j in range(0, len(live) - 1, 2) if live[j] >= 1]
+    for j in lanes:
+        n = int(live[j])
+        assert not torch.allclose(short[j, n - 1], out[j, n - 1], atol=1e-3)
+
+
+def test_row_live_is_validated():
+    q, kp, vp, tables, positions = (torch.as_tensor(x) for x in _case(4, seed=0))
+    for fn in (pa.paged_flash_decode, pa.paged_flash_decode_reference):
+        with pytest.raises(ValueError, match="row_live must be"):
+            fn(q, kp, vp, tables, positions, row_live=positions[:2])
 
 
 # -- the quantized pool: modes 3 and 6 ----------------------------------------

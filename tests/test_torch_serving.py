@@ -205,8 +205,10 @@ def test_unported_knobs_raise(weights, knob):
 
 def test_engine_options_that_raise(weights):
     eng = InferenceEngine(TINY, weights[1], **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="drafter"):
-        PagedServingEngine(eng, drafter=object())
+    # a drafter is accepted and used with speculation on
+    drafter = object()
+    spec = PagedServingEngine(eng, paged=PagedConfig(spec_draft_tokens=2), drafter=drafter)
+    assert spec.drafter is drafter and spec._spec_k == 2
     with pytest.raises(NotImplementedError, match="injector"):
         PagedServingEngine(eng, injector=object())
     with pytest.raises(NotImplementedError, match="dense"):
