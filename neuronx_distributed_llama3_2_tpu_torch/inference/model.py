@@ -16,9 +16,14 @@ covers every forward mode of the paged serving engine::
   :meth:`LlamaDecode._cache_attention`;
 - speculative verify    = :meth:`LlamaDecode.verify_step`, the block
   ``[cur, drafts]`` scored in one forward and accepted on the device;
+- tree verify           = :meth:`LlamaDecode.tree_verify_step`, a packed
+  candidate tree scored in one ancestor-masked forward (the kernel's
+  ``tree_bits`` mode, or the gather with the ancestor mask past t = 32),
+  its deepest accepted path moved to the lane's frontier rows;
 - fused mixed-mode step = :meth:`LlamaDecode.mixed_step`, decode, verify and
   prefill-chunk rows of different live widths in one t-row block, with
-  ``row_live`` cutting each lane's kernel walk at its live frontier.
+  ``row_live`` cutting each lane's kernel walk at its live frontier; with
+  ``parents`` its verify rows are packed trees.
 
 A quantized pool (``kv_cache_dtype`` int8 / fp8, :mod:`..quantization.
 kv_cache`) holds low-bit payloads beside per-(row, kv head) fp16 scales.
@@ -41,9 +46,8 @@ in the null block would reach a live lane whose walk reads a null-backed
 block, since a masked row's weight 0 times NaN is NaN. Zero rotates those
 rows to q = k = 0, and every value stays finite.
 
-Not ported yet: the dense per-slot ``KVCache`` (dense-engine slice), tree
-verification (tree slice), on-device sampling and the finite-logit check,
-tensor parallelism.
+Not ported yet: the dense per-slot ``KVCache`` (dense-engine slice),
+on-device sampling and the finite-logit check, tensor parallelism.
 """
 
 from __future__ import annotations
@@ -55,6 +59,8 @@ import torch
 
 from neuronx_distributed_llama3_2_tpu_torch.inference.speculative import (
     accept_rule,
+    tree_accept_rule,
+    tree_topology,
 )
 from neuronx_distributed_llama3_2_tpu_torch.kernels.paged_attention import (
     paged_flash_decode,
@@ -118,6 +124,31 @@ def _bytes(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.uint8) if x.element_size() == 1 else x
 
 
+def _pool_rows(tables: torch.Tensor, rows: torch.Tensor, bs: int) -> torch.Tensor:
+    """Pool rows of the logical ``rows`` (b, n) of each lane through its
+    block table: ``tables[i, p // bs] * bs + p % bs``. A row past the table
+    maps to the null block (id 0), as in the JAX package (see the module
+    note)."""
+    tables = tables.long()
+    rows = rows.long()
+    cols = rows // bs
+    w = tables.shape[1]
+    blk = torch.gather(tables, 1, cols.clamp(max=w - 1))
+    blk = torch.where(cols < w, blk, torch.zeros_like(blk))
+    return blk * bs + rows % bs
+
+
+def tree_bits_of(ancestors: torch.Tensor) -> torch.Tensor:
+    """The paged kernel's ``tree_bits`` (b, t) int32 of an ancestor matrix
+    (b, t, t): bit ``m`` of row ``j`` is ``ancestors[:, j, m]`` (bit 31 is
+    the int32 sign bit)."""
+    t = ancestors.shape[-1]
+    shifts = torch.arange(t, device=ancestors.device)
+    bits = (ancestors.long() << shifts).sum(dim=-1)
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).contiguous()
+
+
 def _unported(feature: str, slice_name: str):
     return NotImplementedError(
         f"{feature} is not ported yet: it comes with the {slice_name} slice"
@@ -129,7 +160,6 @@ def _unported(feature: str, slice_name: str):
 _STEP_FEATURES = {
     "sampling": ("on-device sampling", "on-device sampling"),
     "logit_poison": ("the finite-logit check", "fault-tolerance"),
-    "parents": ("tree speculation", "tree"),
 }
 
 
@@ -237,7 +267,15 @@ class LlamaDecode:
         caller discards, and the kernel stops the lane's walk at its live
         frontier (:func:`..kernels.paged_attention.paged_flash_decode`).
         The gather path ignores it, as in the JAX package: the
-        block-causal mask already governs every live row."""
+        block-causal mask already governs every live row.
+
+        ``tree`` = ``(depths, ancestors)`` (:func:`..inference.speculative.
+        tree_topology`, per lane (b, T) / (b, T, T), or one tree (T,) /
+        (T, T) for every lane) makes the fresh block a packed candidate
+        tree: node ``j`` is written at row ``position + j`` but roped at
+        ``position + depths[j]``, and attends the committed prefix plus its
+        own ancestors. The kernel takes the ancestors as ``tree_bits``
+        (t <= 32), the gather as a mask."""
         if cache.quantized and block_tables is None:
             raise ValueError(
                 "quantized KV storage is paged-only: the dense slot cache "
@@ -245,14 +283,29 @@ class LlamaDecode:
             )
         if block_tables is None:
             raise _unported("the dense per-slot KV cache", "dense-engine")
-        if tree is not None:
-            raise _unported("tree verification", "tree")
+        if context_encode and tree is not None:
+            raise ValueError(
+                "tree verification runs through the cache-attention path; "
+                "context_encode=True would silently ignore the ancestor mask"
+            )
         del slots
         b, t = tokens.shape
         positions = positions.to(torch.int32)
-        pos_block = positions[:, None] + torch.arange(
+        write_rows = positions[:, None] + torch.arange(
             t, dtype=torch.int32, device=positions.device
         )[None, :]
+        tree_bits = None
+        if tree is None:
+            pos_block = write_rows
+        else:
+            depths, ancestors = tree
+            if ancestors.dim() == 2:
+                depths = depths[None].expand(b, t)
+                ancestors = ancestors[None].expand(b, t, t)
+            tree = (depths, ancestors)
+            pos_block = positions[:, None] + depths.to(torch.int32)
+            if self._paged_kernel_eligible(t, tree):
+                tree_bits = tree_bits_of(ancestors)
         # paged: logical capacity is the table width (write positions can
         # reach the bucket-padding overflow region past max_seq_len)
         rope_len = block_tables.shape[1] * cache.block_size
@@ -264,9 +317,10 @@ class LlamaDecode:
             if cache.quantized:
                 kc, vc = (kc, cache.k_scale[i]), (vc, cache.v_scale[i])
             x = self._decode_layer(
-                layer, x, kc, vc, sin, cos, pos_block,
+                layer, x, kc, vc, sin, cos, pos_block, write_rows,
                 positions, context_encode=context_encode, kv_limit=kv_limit,
-                block_tables=block_tables, row_live=row_live,
+                block_tables=block_tables, row_live=row_live, tree=tree,
+                tree_bits=tree_bits,
             )
         x = params.final_norm(x)
         if return_hidden:
@@ -275,44 +329,39 @@ class LlamaDecode:
 
     def _decode_layer(
         self, layer: LlamaDecoderLayer, x, kc, vc, sin, cos, pos_block,
-        positions, *, context_encode: bool, kv_limit=None, block_tables=None,
-        row_live=None,
+        write_rows, positions, *, context_encode: bool, kv_limit=None,
+        block_tables=None, row_live=None, tree=None, tree_bits=None,
     ) -> torch.Tensor:
         """One decoder layer with cache write and read. kc/vc: this layer's
         (num_blocks, block_size, NKV, D) pool slice, or (payload, scale)
-        pairs of a quantized pool; x: (b, T, H)."""
+        pairs of a quantized pool; x: (b, T, H). Fresh K/V land at
+        ``write_rows``, roped at ``pos_block`` (the two differ for a tree)."""
         c = self.config
         b, t, _ = x.shape
         q, k, v = layer.attn.project_qkv(layer.attn_norm(x))
         q = apply_rope(q, sin, cos, pos_block)
         k = apply_rope(k, sin, cos, pos_block)
-        att = self._attend_with_cache(
-            q, k, v, kc, vc, pos_block, positions,
-            context_encode=context_encode, kv_limit=kv_limit,
-            block_tables=block_tables, row_live=row_live,
+        att = self._attend_paged(
+            q, k, v, kc, vc, block_tables, write_rows, pos_block, positions,
+            context_encode=context_encode, kv_limit=kv_limit, row_live=row_live,
+            tree=tree, tree_bits=tree_bits,
         )
         x = x + layer.attn.o(att.reshape(b, t, c.num_heads * c.head_dim))
         return x + layer.mlp(layer.mlp_norm(x))
 
-    def _attend_with_cache(
-        self, q, k, v, kc, vc, pos_block, positions, *, context_encode: bool,
-        kv_limit=None, block_tables=None, row_live=None,
-    ) -> torch.Tensor:
-        """Cache write + attention. Returns att (b, T, N, D)."""
-        return self._attend_paged(
-            q, k, v, kc, vc, block_tables, pos_block, pos_block, positions,
-            context_encode=context_encode, kv_limit=kv_limit, row_live=row_live,
-        )
-
     def _attend_paged(
         self, q, k, v, kc, vc, block_tables, write_rows, pos_block, positions,
-        *, context_encode: bool, kv_limit=None, row_live=None,
+        *, context_encode: bool, kv_limit=None, row_live=None, tree=None,
+        tree_bits=None,
     ) -> torch.Tensor:
         """Paged cache write + attention: the block table translates logical
         sequence rows to pool rows for both the fresh-block write and the
         attention read. Garbage rows (stale blocks, null-block padding) are
-        removed by the ``j <= position + t`` mask on every path. kc/vc are
-        (payload, scale) pairs for a quantized pool."""
+        removed by the ``j <= position + t`` mask (a tree's ancestor mask)
+        on every path. kc/vc are (payload, scale) pairs for a quantized
+        pool; ``tree_bits`` is ``tree``'s ancestor matrix packed for the
+        kernel, set when the kernel takes the call. Returns att (b, T, N,
+        D)."""
         quantized = isinstance(kc, tuple)
         ksc = vsc = None
         if quantized:
@@ -321,16 +370,10 @@ class LlamaDecode:
         nb, bs = kc.shape[0], kc.shape[1]
         kflat = kc.view((nb * bs,) + kc.shape[2:])
         vflat = vc.view((nb * bs,) + vc.shape[2:])
-        # logical row p of batch row i -> pool row table[i, p//bs]*bs + p%bs;
         # rows past the allocated frontier map to the null block (id 0), and
         # so do a garbage lane's rows past the table (see the module note)
         tables = block_tables.long()
-        wr = write_rows.long()
-        cols = wr // bs
-        w = tables.shape[1]
-        blk = torch.gather(tables, 1, cols.clamp(max=w - 1))
-        blk = torch.where(cols < w, blk, torch.zeros_like(blk))
-        wr_phys = (blk * bs + wr % bs).reshape(-1)
+        wr_phys = _pool_rows(tables, write_rows, bs).reshape(-1)
 
         def write(pool, rows):  # rows (b, t, ...) land at the wr_phys rows
             _bytes(pool).index_copy_(0, wr_phys, _bytes(rows.reshape((-1,) + rows.shape[2:])))
@@ -360,15 +403,16 @@ class LlamaDecode:
             self.attention_paths["context"] += 1
             return core_attention(q, k, v, causal=True)
         limit = kv_limit if kv_limit is not None else block_tables.shape[1] * bs
-        if self._paged_kernel_eligible(q.shape[1], None):
+        if self._paged_kernel_eligible(q.shape[1], tree):
             # gather-free read: the kernel walks the block table itself, so
-            # the (b, limit, NKV, D) K/V copy below never materializes
+            # the (b, limit, NKV, D) K/V copy below never materializes; a
+            # tree's branches share its one read of each block
             self.attention_paths["kernel"] += 1
             return paged_flash_decode(
                 q, kc, vc, block_tables, positions, kv_limit=limit,
                 k_scale=ksc, v_scale=vsc,
                 quant_mxu=self.config.quant_mxu and quantized,
-                row_live=row_live,
+                row_live=row_live, tree_bits=tree_bits,
             )
         self.attention_paths["gather"] += 1
         jlog = torch.arange(limit, device=q.device)
@@ -381,7 +425,7 @@ class LlamaDecode:
         else:
             k_all = kflat[rd_phys].to(q.dtype)  # (b, limit, NKV, D)
             v_all = vflat[rd_phys].to(q.dtype)
-        return self._cache_attention(q, k_all, v_all, pos_block)
+        return self._cache_attention(q, k_all, v_all, pos_block, positions, tree)
 
     @torch.no_grad()
     def decode_step(
@@ -493,14 +537,19 @@ class LlamaDecode:
         admits them. ``row_live`` carries the live widths to the kernel,
         which stops each lane's walk at its live frontier.
 
+        ``parents`` (b, t) makes the verify rows packed trees
+        (:meth:`tree_verify_step`): ``rows[:, :t-1]`` are draft nodes 1 ..
+        t-1 of a tree rooted at the resident token, accepted along the
+        deepest root-anchored path and moved to the frontier. Forced lanes
+        ride the chain topology, whose ancestor mask is the block-causal
+        mask and whose commit is the identity, so chunks are unchanged.
+
         Returns the :meth:`verify_step` tuple with ``new_positions =
         eff_pos + accept + 1`` (clamped to ``pos_cap``), ``eff_pos`` being
         ``row_start`` on forced lanes and ``positions`` otherwise.
-        ``parents`` (tree speculation), ``sampling`` (on-device sampling)
-        and ``logit_poison`` (the finite-logit check) are not ported."""
-        _check_unported_step_args(
-            logit_poison=logit_poison, sampling=sampling, parents=parents,
-        )
+        ``sampling`` (on-device sampling) and ``logit_poison`` (the
+        finite-logit check) are not ported."""
+        _check_unported_step_args(logit_poison=logit_poison, sampling=sampling)
         t = rows.shape[1]
         is_forced = forced > 0
         eff_pos = torch.where(is_forced, row_start, positions)
@@ -511,16 +560,35 @@ class LlamaDecode:
             torch.cat([tokens[:, None].to(rows.dtype), rows[:, : t - 1]], dim=1),
         )
         live = torch.where(is_forced, row_len, row_len + 1)
+        topo = eff_parents = None
+        if parents is not None:
+            chain = torch.clamp(
+                torch.arange(t, dtype=parents.dtype, device=parents.device) - 1, min=0
+            )
+            eff_parents = torch.where(is_forced[:, None], chain[None, :], parents)
+            topo = tree_topology(eff_parents)
         logits, cache = self.forward(
             params, cache, block, eff_pos, None,
-            block_tables=block_tables, kv_limit=kv_limit, row_live=live,
+            block_tables=block_tables, kv_limit=kv_limit, row_live=live, tree=topo,
         )
         targets = torch.argmax(logits, dim=-1).to(torch.int32)
-        # forced lanes carry draft_len 0, so the rule hands back their
-        # targets untouched; their accept is then set to the chunk's last
-        # row, whose target is keyed row_start + row_len
-        dl = torch.where(is_forced, torch.zeros_like(row_len), row_len)
-        raw_accept, emitted = accept_rule(block[:, 1:], targets, draft_len=dl)
+        # forced lanes carry draft_len 0 (linear) / node_len 1 (tree), so
+        # the rule hands back their targets (the root's bonus) untouched;
+        # their accept is then set to the chunk's last row, whose target is
+        # keyed row_start + row_len, and on the tree path their emitted row
+        # is restored to the raw targets that the accept indexes
+        if topo is None:
+            dl = torch.where(is_forced, torch.zeros_like(row_len), row_len)
+            raw_accept, emitted = accept_rule(block[:, 1:], targets, draft_len=dl)
+        else:
+            node_len = torch.where(is_forced, torch.ones_like(row_len), row_len + 1)
+            raw_accept, emitted, best = tree_accept_rule(
+                block, targets, eff_parents, node_len=node_len, topology=topo,
+            )
+            emitted = torch.where(is_forced[:, None], targets, emitted)
+            cache = self._tree_frontier_commit(
+                cache, block_tables, eff_pos, topo[0], topo[1], best,
+            )
         accept = torch.where(is_forced, torch.clamp(row_len - 1, min=0), raw_accept)
         new_tokens = torch.gather(emitted, 1, accept[:, None].long())[:, 0]
         new_positions = eff_pos + accept + 1
@@ -528,16 +596,108 @@ class LlamaDecode:
             new_positions = torch.clamp(new_positions, max=pos_cap)
         return emitted, accept, new_tokens, new_positions, cache
 
+    @torch.no_grad()
+    def tree_verify_step(
+        self,
+        params: LlamaForCausalLM,
+        cache: PagedKVCache,
+        tokens: torch.Tensor,        # (b, t) int — [cur, node_1 .. node_{t-1}]
+        positions: torch.Tensor,     # (b,) int32 — cur's write row per lane
+        block_tables: torch.Tensor,  # (b, W) int32
+        parents: torch.Tensor,       # (b, t) int — parents[j] < j, node space
+        node_len: torch.Tensor,      # (b,) int — live nodes incl. the root, <= t
+        *,
+        kv_limit: Optional[int] = None,
+        pos_cap: Optional[int] = None,
+        logit_poison: Optional[torch.Tensor] = None,
+        sampling: Optional[tuple] = None,
+    ) -> Tuple[torch.Tensor, ...]:
+        """One tree verify step, the branching sibling of
+        :meth:`verify_step`. The packed candidate tree ``tokens`` (node 0
+        the resident token, parents before children) is scored in one
+        ancestor-masked forward: node ``j`` writes K/V at row ``positions +
+        j``, is roped at ``positions + depth(j)`` and sees the committed
+        prefix plus its own root-to-self chain. The deepest accepted
+        root-anchored path is then chosen on the device
+        (:func:`..inference.speculative.tree_accept_rule`) and its K/V rows
+        moved to the lane's frontier rows (:meth:`_tree_frontier_commit`).
+        On a chain (``parents[j] == j - 1``) the step is :meth:`verify_step`.
+        ``node_len`` caps acceptance per lane (``<= 1``: a plain decode
+        step).
+
+        Returns the :meth:`verify_step` tuple ``(emitted (b, t), accept
+        (b,), new_tokens (b,), new_positions (b,), cache)``.
+        ``sampling`` and ``logit_poison`` are not ported."""
+        _check_unported_step_args(logit_poison=logit_poison, sampling=sampling)
+        depths, ancestors = tree_topology(parents)
+        logits, cache = self.forward(
+            params, cache, tokens, positions, None,
+            block_tables=block_tables, kv_limit=kv_limit, tree=(depths, ancestors),
+        )
+        targets = torch.argmax(logits, dim=-1).to(torch.int32)
+        accept, emitted, best = tree_accept_rule(
+            tokens, targets, parents, node_len=node_len, topology=(depths, ancestors),
+        )
+        cache = self._tree_frontier_commit(
+            cache, block_tables, positions, depths, ancestors, best,
+        )
+        new_tokens = torch.gather(emitted, 1, accept[:, None].long())[:, 0]
+        new_positions = positions + accept + 1
+        if pos_cap is not None:
+            new_positions = torch.clamp(new_positions, max=pos_cap)
+        return emitted, accept, new_tokens, new_positions, cache
+
+    def _tree_frontier_commit(
+        self, cache: PagedKVCache, block_tables, positions, depths, ancestors, best,
+    ) -> PagedKVCache:
+        """Move the accepted root-to-``best`` path's K/V rows to the lane's
+        frontier. A packed tree writes node ``j`` at row ``positions + j``;
+        the committed history must sit at rows ``positions + 1 ..
+        positions + accept``. Depth ``d``'s destination row ``positions +
+        d`` takes the path's node at depth ``d``, or itself where the path
+        has none (past the accepted depth, or ``best == 0``), so every lane
+        takes the same uniform move. Every source row is gathered before
+        the one scatter, so overlapping rows move their pre-commit values.
+        In place; a quantized pool's scales move with their payload (byte
+        views: torch has no fp8 indexing kernels). Only rows inside each
+        lane's own allocated blocks move; garbage lanes' rows land in the
+        null block."""
+        t = depths.shape[1]
+        if t <= 1:
+            return cache
+        b = depths.shape[0]
+        dev = depths.device
+        path = torch.gather(
+            ancestors, 1, best.long()[:, None, None].expand(b, 1, t)
+        )[:, 0]                                                     # (b, t)
+        dd = torch.arange(1, t, dtype=depths.dtype, device=dev)     # (t-1,)
+        dsel = path[:, None, :] & (depths[:, None, :] == dd[None, :, None])
+        node = (dsel * torch.arange(t, device=dev)).sum(dim=-1)     # (b, t-1)
+        src = torch.where(dsel.any(dim=-1), node, dd.long()[None, :])
+        pos = positions.long()[:, None]
+        bs = cache.block_size
+        src_phys = _pool_rows(block_tables, pos + src, bs).reshape(-1)
+        dst_phys = _pool_rows(block_tables, pos + dd.long()[None, :], bs).reshape(-1)
+        pools = (cache.k, cache.v)
+        if cache.quantized:
+            pools += (cache.k_scale, cache.v_scale)
+        for x in pools:
+            flat = _bytes(x).view((x.shape[0], x.shape[1] * bs) + x.shape[3:])
+            flat[:, dst_phys] = flat[:, src_phys]
+        return cache
+
     def _paged_kernel_eligible(self, t: int, tree) -> bool:
         """Gate for the paged-decode kernel: the ``use_paged_kernel`` config
         opt-in and a fresh block of at most ``paged_kernel_max_t`` tokens —
-        T == 1 token-gen and short suffix prefills; longer prefill blocks
-        take the gather. Single device (tensor parallelism is not ported)."""
+        T == 1 token-gen, verify blocks (linear, or packed trees of at most
+        32 nodes, whose ancestor masks ride in as ``tree_bits``) and short
+        suffix prefills; longer blocks take the gather. Single device
+        (tensor parallelism is not ported)."""
         if not self.config.use_paged_kernel:
             return False
-        if tree is not None:
+        if not 1 <= t <= self.config.paged_kernel_max_t:
             return False
-        return 1 <= t <= self.config.paged_kernel_max_t
+        return tree is None or t <= 32
 
     def paged_dispatch_path(self, t: int, tree=None) -> str:
         """``"kernel"`` when :meth:`_paged_kernel_eligible` admits the
@@ -545,11 +705,15 @@ class LlamaDecode:
         otherwise."""
         return "kernel" if self._paged_kernel_eligible(t, tree) else "gather"
 
-    def _cache_attention(self, q, k_all, v_all, pos_block) -> torch.Tensor:
+    def _cache_attention(
+        self, q, k_all, v_all, pos_block, positions=None, tree=None,
+    ) -> torch.Tensor:
         """q (b,T,N,D) against gathered cache rows (b,S,NKV,D) with the mask
         ``cache_index <= position + t`` (block-causal across the fresh
         block, full visibility of the committed prefix; garbage rows beyond
-        the write frontier are masked out). GQA runs as grouped einsums
+        the write frontier are masked out), or under ``tree`` the committed
+        prefix ``cache_index < position`` plus each node's ancestors among
+        rows ``position .. position + T - 1``. GQA runs as grouped einsums
         rather than a repeat of the cache."""
         b, t, n, d = q.shape
         s_max, nkv = k_all.shape[1], k_all.shape[2]
@@ -558,7 +722,13 @@ class LlamaDecode:
         scores = torch.einsum("bskd,btkgd->bkgts", k_all, qg) * (d ** -0.5)
         scores = scores.reshape(b, n, t, s_max).float()
         j = torch.arange(s_max, device=q.device)[None, None, :]
-        mask = j <= pos_block[:, :, None]  # (b, T, S)
+        if tree is None:
+            mask = j <= pos_block[:, :, None]  # (b, T, S)
+        else:
+            u = j - positions.long()[:, None, None]                  # (b, 1, S)
+            u_cl = u.clamp(0, t - 1).expand(b, t, s_max)
+            in_tree = torch.gather(tree[1], 2, u_cl)                 # (b, T, S)
+            mask = (u < 0) | ((u < t) & in_tree)
         scores = scores.masked_fill(~mask[:, None], -1e30)
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         pg = probs.reshape(b, nkv, g, t, s_max)

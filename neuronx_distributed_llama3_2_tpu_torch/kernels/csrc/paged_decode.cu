@@ -1,6 +1,6 @@
 // Paged flash-decoding for Hopper (sm_90a): attention of t fresh query tokens
-// per lane (t * G <= 64) over a block-pooled KV cache, read in place through
-// a per-lane block table. The pool is bf16, or an int8 / fp8 (e4m3, e5m2)
+// per lane over a block-pooled KV cache, read in place through a per-lane
+// block table. The pool is bf16, or an int8 / fp8 (e4m3, e5m2)
 // payload with one fp16 scale per (token row, kv head).
 //
 // Replaces: neuronx_distributed_llama3_2_tpu/kernels/paged_attention_pallas.py
@@ -10,13 +10,16 @@
 //   the quantized pool, dequantized in the kernel (mode 3, :178-187 and
 //   :223-228); row_live, each lane's walk cut at its live frontier (mode 4,
 //   :90-97 and :131-133); quant_mxu, the q.k dot in the payload's precision
-//   (mode 6, :139-176). tree_bits (mode 5) is later work.
+//   (mode 6, :139-176); tree_bits, a per-node ancestor bitmask in place of the
+//   block-causal mask within the fresh block (mode 5, :195-209, checks
+//   :339-351).
 //
 // What bounds it on the H100: bytes of K/V read from device memory. Every
 // live pool row of a kv head is D values of K and of V (bf16, or one byte
 // each plus a 2-byte scale), and it serves t*G query rows; that is about
 // t*G FLOPs per byte read (at most 64 here, 128 for a 1-byte pool), far
-// below the ~295 FLOPs/byte at which the tensor cores would bound it.
+// below the ~295 FLOPs/byte at which the tensor cores would bound it (a
+// wide tile, split into row chunks below, reads each block once per chunk).
 //
 // What the design does about it:
 // - one thread block per (lane, kv head, split): each K/V pool row is read
@@ -42,13 +45,29 @@
 //   block's memory latency overlaps the previous block's arithmetic;
 // - split-K over the sequence gives b * NKV * splits blocks, enough to
 //   spread a long context over the SMs when the decode batch is small;
+// - a tile of more than kMaxTileRows query rows (t * G: 128 for a 32-node
+//   tree at G = 4) is cut into row chunks of at most kMaxTileRows, one more
+//   grid dimension: each thread keeps kMaxTileRows * D / kThreads
+//   accumulators in registers, which bounds the rows one block can own
+//   (the D = 128 instances already spill at 64). A chunk's walk stops at
+//   the block holding its own deepest query token (or the live frontier,
+//   if nearer): every block past it is fully masked for every row of the
+//   chunk, under the block-causal mask and under tree_bits alike, since a
+//   node's ancestors precede it. A launch of at most kMaxTileRows rows is
+//   one chunk and computes what it did before chunks existed; a wider one
+//   reads each K/V block once per chunk;
+// - tree_bits, when the caller passes it (a runtime pointer, null
+//   otherwise: no extra template instance), is staged per tile row in
+//   shared memory; row u of the fresh block is visible to tile row r when
+//   bit u of its node's mask is set, the committed prefix (u < 0) always;
 // - the per-split (acc, m, l) go to a small fp32 scratch and a second
 //   kernel merges them (log-sum-exp) and writes the (b, t, N, D) output.
 //
 // Numerics (the plain version is paged_flash_decode_reference in
 // kernels/paged_attention.py): scores are fp32 dot products of the bf16
 // operands, scaled by D^-0.5 in fp32; masked by row <= pos + ti with
-// ti = r / G for tile row r; online softmax in fp32 with the m == -inf
+// ti = r / G for tile row r (under tree_bits: row < pos, or bit row - pos
+// of node ti's mask); online softmax in fp32 with the m == -inf
 // guard on the rescale factor; p is rounded to bf16 before the p.V product
 // (fp32 accumulation), as the TPU kernel's p.astype(v.dtype) does, while
 // the denominator sums the unrounded p. A quantized pool's K and V are
@@ -78,7 +97,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kBlockRows = 16;     // pool block size (rows per block)
-constexpr int kMaxTileRows = 64;   // t * G (16 * 4 for the 1B fused step)
+constexpr int kMaxTileRows = 64;   // tile rows one block owns (a row chunk)
+constexpr int kMaxTreeNodes = 32;  // tree_bits: one int32 ancestor mask per node
 constexpr int kCombineThreads = 256;
 
 // payload kinds, as kernels/paged_attention.py KV_KINDS numbers them
@@ -128,17 +148,19 @@ __device__ __forceinline__ float dequant(float payload, __half scale) {
   return __bfloat162float(__float2bfloat16(__fmul_rn(payload, __half2float(scale))));
 }
 
-// Shared memory of the split kernel, in 4-byte words, carved in this order.
+// Shared memory of the split kernel, in 4-byte words, carved in this order,
+// for a chunk of tr tile rows.
 __host__ __device__ constexpr int q_words(int d) { return d / 4 + 1; }
-__host__ __device__ constexpr size_t smem_words(int tg, int d, bool int8_mxu) {
-  return static_cast<size_t>(tg) * (d + 1)        // q_s
+__host__ __device__ constexpr size_t smem_words(int tr, int d, bool int8_mxu) {
+  return static_cast<size_t>(tr) * (d + 1)        // q_s
          + kBlockRows * (d + 1)                    // k_s
          + kBlockRows * d                          // v_s
-         + tg * kBlockRows                         // p_s
-         + 3 * tg                                  // m_s, l_s, a_s
+         + tr * kBlockRows                         // p_s
+         + 3 * tr                                  // m_s, l_s, a_s
          + kBlockRows                              // ks_s
-         + tg                                      // qscl_s
-         + (int8_mxu ? (tg + kBlockRows) * q_words(d) : 0);  // qw_s, kw_s
+         + tr                                      // qscl_s
+         + tr                                      // tb_s
+         + (int8_mxu ? (tr + kBlockRows) * q_words(d) : 0);  // qw_s, kw_s
 }
 
 // One pool block of one kv head: kBlockRows rows of D values, loaded as
@@ -226,10 +248,11 @@ paged_decode_split_kernel(
     const int* __restrict__ tables,                  // (b, W)
     const int* __restrict__ positions,               // (b,)
     const int* __restrict__ row_live,                // (b,) or null
+    const int* __restrict__ tree_bits,               // (b, t) or null
     float* __restrict__ o_parts,                     // (b, NKV, S, t*G, D)
     float* __restrict__ m_parts,                     // (b, NKV, S, t*G)
     float* __restrict__ l_parts,                     // (b, NKV, S, t*G)
-    int t, int n_heads, int nkv, int group, int w, int nblk, int bps,
+    int t, int n_heads, int nkv, int group, int w, int nblk, int splits, int bps,
     float sm_scale, bool mxu, bool e5m2) {
   // mode 6's two dots; mxu and e5m2 are the same for every block of a launch
   const bool int8_mxu = L == kLayoutInt8 && mxu;
@@ -237,35 +260,39 @@ paged_decode_split_kernel(
   constexpr int DP = D + 1;  // padded row stride: conflict-free row walks
   constexpr int QW = q_words(D);  // int8 rows as words, padded the same way
   constexpr int kAcc = kMaxTileRows * D / kThreads;  // accumulator slots
-  const int s = blockIdx.x;
+  const int s = blockIdx.x % splits;
+  const int row0 = (blockIdx.x / splits) * kMaxTileRows;  // the chunk's first tile row
   const int h = blockIdx.y;
   const int i = blockIdx.z;
-  const int splits = gridDim.x;
   const int tid = threadIdx.x;
   const int tg = t * group;
+  const int tr = min(tg - row0, kMaxTileRows);  // the chunk's tile rows
 
   extern __shared__ float smem[];
-  float* q_s = smem;                    // [tg][DP] the q.k operand of q
-  float* k_s = q_s + tg * DP;           // [bs][DP]
+  float* q_s = smem;                    // [tr][DP] the q.k operand of q
+  float* k_s = q_s + tr * DP;           // [bs][DP]
   float* v_s = k_s + kBlockRows * DP;   // [bs][D]
-  float* p_s = v_s + kBlockRows * D;    // [tg][bs] softmax weights, bf16-rounded
-  float* m_s = p_s + tg * kBlockRows;   // [tg] running max
-  float* l_s = m_s + tg;                // [tg] running denominator
-  float* a_s = l_s + tg;                // [tg] this block's rescale factor
-  float* ks_s = a_s + tg;               // [bs] this block's k scales
-  float* qscl_s = ks_s + kBlockRows;    // [tg] int8 query scales
-  int* qw_s = reinterpret_cast<int*>(qscl_s + tg);  // [tg][QW] int8 query
-  int* kw_s = qw_s + tg * QW;                       // [bs][QW] int8 K payload
+  float* p_s = v_s + kBlockRows * D;    // [tr][bs] softmax weights, bf16-rounded
+  float* m_s = p_s + tr * kBlockRows;   // [tr] running max
+  float* l_s = m_s + tr;                // [tr] running denominator
+  float* a_s = l_s + tr;                // [tr] this block's rescale factor
+  float* ks_s = a_s + tr;               // [bs] this block's k scales
+  float* qscl_s = ks_s + kBlockRows;    // [tr] int8 query scales
+  int* tb_s = reinterpret_cast<int*>(qscl_s + tr);  // [tr] each row's ancestor mask
+  int* qw_s = tb_s + tr;                            // [tr][QW] int8 query
+  int* kw_s = qw_s + tr * QW;                       // [bs][QW] int8 K payload
 
   const int pos = positions[i];
-  // the split's logical blocks, cut at the lane's deepest fresh row
-  // (lb_stop), and under row_live at its deepest live one (live_stop: the
-  // blocks up to the one holding row pos + row_live[i] - 1, none when that
-  // row lies before row 0). The loop keeps lb_stop as its bound and breaks
-  // at live_stop: bounding it by live_stop directly made the D = 64
-  // instances slower on an H100 with row_live null (PERF.md)
+  // the split's logical blocks, cut at the chunk's deepest fresh row
+  // (lb_stop: pos + the token of its last tile row, pos + t - 1 for a
+  // one-chunk tile), and under row_live at the lane's deepest live one
+  // (live_stop: the blocks up to the one holding row pos + row_live[i] - 1,
+  // none when that row lies before row 0). The loop keeps lb_stop as its
+  // bound and breaks at live_stop: bounding it by live_stop directly made
+  // the D = 64 instances slower on an H100 with row_live null (PERF.md)
   const int lb_begin = s * bps;
-  const int lb_stop = min(min((s + 1) * bps, nblk), (pos + t - 1) / kBlockRows + 1);
+  const int ti_last = (row0 + tr - 1) / group;
+  const int lb_stop = min(min((s + 1) * bps, nblk), (pos + ti_last) / kBlockRows + 1);
   const int live_stop = row_live != nullptr
       ? min(lb_stop, (pos + row_live[i] + kBlockRows - 1) / kBlockRows) : lb_stop;
   const int* tbl = tables + static_cast<size_t>(i) * w;
@@ -276,10 +303,11 @@ paged_decode_split_kernel(
               nkv, h, tid);
   }
 
-  // query tile row r = ti * G + g holds q[i, ti, h * G + g, :]
-  for (int e = tid; e < tg * D; e += kThreads) {
+  // query tile row r of the chunk, row0 + r = ti * G + g of the tile, holds
+  // q[i, ti, h * G + g, :]
+  for (int e = tid; e < tr * D; e += kThreads) {
     const int r = e / D, d = e % D;
-    const int ti = r / group, g = r % group;
+    const int ti = (row0 + r) / group, g = (row0 + r) % group;
     const size_t src =
         ((static_cast<size_t>(i) * t + ti) * n_heads + h * group + g) * D + d;
     float x = __bfloat162float(q[src]);
@@ -290,35 +318,40 @@ paged_decode_split_kernel(
     }
     q_s[r * DP + d] = x;
   }
+  if (tree_bits != nullptr) {
+    for (int r = tid; r < tr; r += kThreads) {
+      tb_s[r] = tree_bits[static_cast<size_t>(i) * t + (row0 + r) / group];
+    }
+  }
   if (int8_mxu) {
     __syncthreads();  // q_s is ready
-    for (int r = tid; r < tg; r += kThreads) {
+    for (int r = tid; r < tr; r += kThreads) {
       float amax = 0.f;
       for (int d = 0; d < D; ++d) amax = fmaxf(amax, fabsf(q_s[r * DP + d]));
       qscl_s[r] = __fdiv_rn(fmaxf(amax, 1e-6f), 127.f);
     }
     __syncthreads();  // qscl_s is ready
     int8_t* qb = reinterpret_cast<int8_t*>(qw_s);
-    for (int e = tid; e < tg * D; e += kThreads) {
+    for (int e = tid; e < tr * D; e += kThreads) {
       const int r = e / D, d = e % D;
       const float x = rintf(__fdiv_rn(q_s[r * DP + d], qscl_s[r]));
       qb[r * QW * 4 + d] = static_cast<int8_t>(fminf(fmaxf(x, -127.f), 127.f));
     }
   }
-  for (int r = tid; r < tg; r += kThreads) {
+  for (int r = tid; r < tr; r += kThreads) {
     m_s[r] = -CUDART_INF_F;
     l_s[r] = 0.f;
   }
   float acc[kAcc];
 #pragma unroll
   for (int k = 0; k < kAcc; ++k) acc[k] = 0.f;
-  const int n_sc = tg * kBlockRows;       // (row, column) scores per block
+  const int n_sc = tr * kBlockRows;       // (row, column) scores per block
   const int n_pad = (n_sc + 31) & ~31;    // rounded up to whole warps
 
   for (int lb = lb_begin; lb < lb_stop; ++lb) {
     if (lb >= live_stop) break;
     tile.store(k_s, DP, v_s, ks_s, reinterpret_cast<int8_t*>(kw_s), mxu, e5m2, tid);
-    __syncthreads();  // k_s / v_s (and, first time round, the q tile) are ready
+    __syncthreads();  // k_s / v_s (and, first time round, the q tile and tb_s) are ready
     if (lb + 1 < live_stop) {
       // in flight while this block is computed
       tile.load(k_pool, v_pool, k_scale, v_scale, static_cast<size_t>(tbl[lb + 1]),
@@ -332,7 +365,10 @@ paged_decode_split_kernel(
       const int r = e / kBlockRows, c = e % kBlockRows;
       const bool live = e < n_sc;
       float sc = -CUDART_INF_F;
-      if (live && lb * kBlockRows + c <= pos + r / group) {  // block-causal mask
+      const int u = lb * kBlockRows + c - pos;  // the row's offset into the fresh block
+      if (live && (tree_bits == nullptr
+                   ? u <= (row0 + r) / group  // block-causal
+                   : u < 0 || (u < t && ((static_cast<unsigned>(tb_s[r]) >> u) & 1u)))) {
         if (int8_mxu) {
           int dot = 0;
 #pragma unroll 16
@@ -381,7 +417,7 @@ paged_decode_split_kernel(
 #pragma unroll
     for (int k = 0; k < kAcc; ++k) {
       const int e = tid + k * kThreads;
-      if (e >= tg * D) break;  // e grows with k: the rest lie past the tile
+      if (e >= tr * D) break;  // e grows with k: the rest lie past the chunk
       const int r = e / D, d = e % D;
       float pv = 0.f;
 #pragma unroll
@@ -391,17 +427,17 @@ paged_decode_split_kernel(
     __syncthreads();  // k_s / v_s / p_s are rewritten by the next block
   }
 
-  // the split's raw (acc, m, l); a split with no live block leaves
-  // (0, -inf, 0), which the combine weighs 0
-  const size_t part = ((static_cast<size_t>(i) * nkv + h) * splits + s) * tg;
+  // the split's raw (acc, m, l) for the chunk's rows; a split with no live
+  // block leaves (0, -inf, 0), which the combine weighs 0
+  const size_t part = ((static_cast<size_t>(i) * nkv + h) * splits + s) * tg + row0;
 #pragma unroll
   for (int k = 0; k < kAcc; ++k) {
     const int e = tid + k * kThreads;
-    if (e >= tg * D) break;
+    if (e >= tr * D) break;
     o_parts[(part + e / D) * D + e % D] = acc[k];
   }
   __syncthreads();  // m_s / l_s were last written before the loop's final barrier
-  for (int r = tid; r < tg; r += kThreads) {
+  for (int r = tid; r < tr; r += kThreads) {
     m_parts[part + r] = m_s[r];
     l_parts[part + r] = l_s[r];
   }
@@ -446,6 +482,7 @@ struct Args {
   const void* tables;
   const void* positions;
   const void* row_live;
+  const void* tree_bits;
   void* o_parts;
   void* m_parts;
   void* l_parts;
@@ -460,7 +497,9 @@ cudaError_t launch(const Args& a, bool mxu, bool e5m2) {
   using T = typename Payload<L>::T;
   const int group = a.n_heads / a.nkv;
   const int tg = a.t * group;
-  const size_t smem = sizeof(float) * smem_words(tg, D, mxu && L == kLayoutInt8);
+  const int chunks = (tg + kMaxTileRows - 1) / kMaxTileRows;
+  const size_t smem =
+      sizeof(float) * smem_words(min(tg, kMaxTileRows), D, mxu && L == kLayoutInt8);
   auto split_kernel = paged_decode_split_kernel<D, L>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -468,14 +507,14 @@ cudaError_t launch(const Args& a, bool mxu, bool e5m2) {
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  split_kernel<<<dim3(a.splits, a.nkv, a.b), kThreads, smem, a.stream>>>(
+  split_kernel<<<dim3(a.splits * chunks, a.nkv, a.b), kThreads, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const T*>(a.k_pool),
       static_cast<const T*>(a.v_pool), static_cast<const __half*>(a.k_scale),
       static_cast<const __half*>(a.v_scale), static_cast<const int*>(a.tables),
       static_cast<const int*>(a.positions), static_cast<const int*>(a.row_live),
-      static_cast<float*>(a.o_parts),
+      static_cast<const int*>(a.tree_bits), static_cast<float*>(a.o_parts),
       static_cast<float*>(a.m_parts), static_cast<float*>(a.l_parts), a.t,
-      a.n_heads, a.nkv, group, a.w, a.nblk, a.bps, a.sm_scale, mxu, e5m2);
+      a.n_heads, a.nkv, group, a.w, a.nblk, a.splits, a.bps, a.sm_scale, mxu, e5m2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_decode_combine_kernel<D><<<dim3(a.nkv, a.b), kCombineThreads, 0, a.stream>>>(
@@ -506,26 +545,27 @@ cudaError_t launch_kind(const Args& a, int kind, bool mxu) {
 // C entry point, bound with ctypes. Pointers are device pointers of
 // contiguous tensors allocated by the caller (pool and scale pointers
 // 16-byte aligned; the scales null for a bf16 pool; row_live null unless the
-// caller passes per-lane live row counts); kv_kind numbers the
+// caller passes per-lane live row counts, tree_bits null unless it passes
+// per-node ancestor masks, which need t <= 32); kv_kind numbers the
 // payload (0 bf16, 1 int8, 2 fp8 e4m3, 3 fp8 e5m2) and quant_mxu selects
 // mode 6 for a quantized one; the stream is the caller's current CUDA
 // stream. Returns a cudaError_t: 0 when both launches were accepted.
 extern "C" int paged_decode(
     const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
     const void* v_scale, const void* tables, const void* positions,
-    const void* row_live, void* o_parts,
+    const void* row_live, const void* tree_bits, void* o_parts,
     void* m_parts, void* l_parts, void* out, int b, int t, int n_heads, int nkv,
     int head_dim, int block_size, int w, int nblk, int splits, int bps, int kv_kind,
     int quant_mxu, float sm_scale, void* stream) {
   const bool quantized = kv_kind != kBf16;
   if (block_size != kBlockRows || nkv <= 0 || n_heads % nkv != 0 || t < 1 ||
-      t * (n_heads / nkv) > kMaxTileRows || splits < 1 || bps < 1 ||
+      (tree_bits != nullptr && t > kMaxTreeNodes) || splits < 1 || bps < 1 ||
       nblk > w || b < 1 || (quantized && (k_scale == nullptr || v_scale == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, positions, row_live,
-               o_parts, m_parts, l_parts, out, b, t, n_heads, nkv, w, nblk, splits, bps,
-               sm_scale, static_cast<cudaStream_t>(stream)};
+               tree_bits, o_parts, m_parts, l_parts, out, b, t, n_heads, nkv, w, nblk,
+               splits, bps, sm_scale, static_cast<cudaStream_t>(stream)};
   switch (head_dim) {
     case 64:
       return static_cast<int>(launch_kind<64>(a, kv_kind, quant_mxu != 0));

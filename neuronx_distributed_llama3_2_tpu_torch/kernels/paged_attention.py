@@ -12,7 +12,7 @@ there is no fallback from one to the other.
 Logical row ``p`` of lane ``i`` lives at pool row
 ``block_tables[i, p // bs] * bs + p % bs``. A 3-dim q is the T == 1
 token-gen step: rows ``<= positions[i]`` are attended. A 4-dim q is a fresh
-block of t tokens (t * G <= 64 on the card) written at rows
+block of t tokens written at rows
 ``positions[i] .. positions[i] + t - 1``; query ``ti`` attends rows
 ``<= positions[i] + ti`` (block-causal). Everything else (padding,
 null-block garbage) is masked. ``kv_limit`` bounds the logical rows
@@ -36,8 +36,17 @@ int8 (absmax / 127) and accumulates int8 x int8 in int32, an fp8 pool
 casts q to the payload's fp8 type without saturation; the scales then
 multiply the fp32 scores, and p.V keeps mode 3's dequantized V.
 
-The ``tree_bits`` mode of the TPU kernel (tree speculation) is a later
-sub-slice of the port and raises ``NotImplementedError`` here.
+``tree_bits`` (b, t) int32 marks the fresh block as a packed draft tree
+(mode 5, tree speculation): bit ``m`` of ``tree_bits[i, q]`` is set iff
+node ``m`` is an ancestor-or-self of node ``q`` in lane ``i``'s tree, whose
+node ``m`` sits at row ``positions[i] + m``. Within the fresh block query
+``q`` then sees exactly its ancestors, and the committed prefix ``row <
+positions[i]`` stays fully visible. Needs ``t <= 32``. A node's ancestors
+precede it (topologically packed trees, as
+:func:`..inference.speculative.tree_topology` gives), and the CUDA kernel
+relies on it; a chain tree (``tree_bits[i, q] = (1 << (q + 1)) - 1``) is
+bitwise the block-causal mask. It composes with ``row_live`` and with the
+quantized modes.
 """
 
 from __future__ import annotations
@@ -58,7 +67,8 @@ DEFAULT_NUM_SPLITS = 4
 # what csrc/paged_decode.cu is compiled for
 KERNEL_BLOCK_SIZE = 16
 KERNEL_HEAD_DIMS = (64, 128)
-KERNEL_MAX_TILE_ROWS = 64  # t * G
+# tree_bits packs each node's ancestor set into one int32
+MAX_TREE_NODES = 32
 
 
 class LaunchCounter:
@@ -77,20 +87,12 @@ class LaunchCounter:
 launches = LaunchCounter()
 #: of those, the launches with per-lane live rows (mode 4, ``row_live``)
 row_live_launches = LaunchCounter()
+#: of those, the launches with per-node ancestor masks (mode 5, ``tree_bits``)
+tree_launches = LaunchCounter()
 
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def _unported(**modes) -> None:
-    for name, value in modes.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"paged_flash_decode({name}=...) is a later sub-slice of the "
-                "port: the block-causal modes (bf16 and int8/fp8 pools, "
-                "row_live) are ported, tree masks are not"
-            )
 
 
 def _check_scales(k_pool, k_scale, v_scale, quant_mxu) -> bool:
@@ -156,6 +158,21 @@ def _check_row_live(row_live, b: int) -> None:
         )
 
 
+def _check_tree_bits(tree_bits, b: int, t: int) -> None:
+    """The TPU kernel's checks: one int32 mask per node, (b, t)."""
+    if tree_bits is None:
+        return
+    if t > MAX_TREE_NODES:
+        raise ValueError(
+            f"tree_bits packs ancestor sets into int32 bitmasks: t ({t}) must "
+            f"be <= {MAX_TREE_NODES}"
+        )
+    if tuple(tree_bits.shape) != (b, t):
+        raise ValueError(
+            f"tree_bits must be (b, t) = ({b}, {t}), got {tuple(tree_bits.shape)}"
+        )
+
+
 def walked_rows(positions, t: int, nblk: int, bs: int, row_live=None):
     """(b,) logical rows the TPU kernel's walk reads per lane: whole blocks
     ``lb < nblk`` with ``lb * bs <= positions + frontier``, the frontier
@@ -182,6 +199,7 @@ def paged_flash_decode_reference(
     v_scale: Optional[torch.Tensor] = None,
     quant_mxu: bool = False,
     row_live: Optional[torch.Tensor] = None,  # (b,) int live query rows
+    tree_bits: Optional[torch.Tensor] = None,  # (b, t) int ancestor masks
 ) -> torch.Tensor:
     """The plain PyTorch version of :func:`paged_flash_decode`: gather the
     first ``ceil(kv_limit / bs)`` table blocks of every lane, then one
@@ -189,10 +207,12 @@ def paged_flash_decode_reference(
     fp32, times ``D ** -0.5``). Returns q's shape in q's dtype. It
     materializes the (b, kv_limit, NKV, D) gather the kernel avoids.
 
-    The mask is the TPU kernel's: ``row <= positions + ti`` within the
-    rows its walk reads (:func:`walked_rows`; under ``row_live`` the walk
-    ends at each lane's live frontier). A query row that sees no row gives
-    0, as the kernel's combine does (``l == 0``).
+    The mask is the TPU kernel's: ``row <= positions + ti`` (under
+    ``tree_bits``: ``row < positions``, or bit ``row - positions`` of node
+    ``ti``'s mask) within the rows its walk reads (:func:`walked_rows`;
+    under ``row_live`` the walk ends at each lane's live frontier). A query
+    row that sees no row gives 0, as the kernel's combine does (``l ==
+    0``).
 
     A quantized pool follows the TPU kernel step for step: K and V
     dequantized and rounded to q's dtype; under ``quant_mxu`` the scores
@@ -207,6 +227,7 @@ def paged_flash_decode_reference(
     g = n // nkv
     sm_scale = d ** -0.5
     _check_row_live(row_live, b)
+    _check_tree_bits(tree_bits, b, t)
     nblk, _, _ = _geometry(q, k_pool, block_tables, kv_limit, 1)
     blocks = block_tables[:, :nblk].long()                      # (b, nblk)
     k_all = k_pool[blocks].reshape(b, nblk * bs, nkv, d)
@@ -239,11 +260,15 @@ def paged_flash_decode_reference(
             k_all = kv_dequantize(k_all, ks_all, q.dtype)
         scores = torch.einsum("btkgd,bskd->bkgts", qg, k_all.float()) * sm_scale
     rows = torch.arange(nblk * bs, device=q.device)
-    last = positions.long()[:, None] + torch.arange(t, device=q.device)[None, :]
+    if tree_bits is None:
+        last = positions.long()[:, None] + torch.arange(t, device=q.device)[None, :]
+        seen = rows[None, None, :] <= last[:, :, None]            # (b, t, S)
+    else:
+        u = rows[None, None, :] - positions.long()[:, None, None]  # (b, 1, S)
+        bit = (tree_bits.long()[:, :, None] >> u.clamp(0, MAX_TREE_NODES - 1)) & 1
+        seen = (u < 0) | ((u < t) & (bit > 0))                    # (b, t, S)
     walked = walked_rows(positions, t, nblk, bs, row_live)        # (b,)
-    mask = (rows[None, None, :] <= last[:, :, None]) & (
-        rows[None, None, :] < walked[:, None, None]
-    )                                                             # (b, t, S)
+    mask = seen & (rows[None, None, :] < walked[:, None, None])
     mask = mask[:, None, None]
     scores = scores.masked_fill(~mask, float("-inf"))
     # a row with no visible key softmaxes to NaN; the kernel gives it 0
@@ -270,18 +295,18 @@ def paged_flash_decode(
 ) -> torch.Tensor:
     """Gather-free paged decode attention; returns q's shape in q.dtype
     (see the module docstring for the semantics)."""
-    _unported(tree_bits=tree_bits)
     _check_scales(k_pool, k_scale, v_scale, quant_mxu)
     squeeze = q.dim() == 3
     q4 = q[:, None] if squeeze else q
     _check_row_live(row_live, q4.shape[0])
+    _check_tree_bits(tree_bits, q4.shape[0], q4.shape[1])
     nblk, splits, bps = _geometry(q4, k_pool, block_tables, kv_limit, num_splits)
     dev = q.device.type
     if dev == "cpu":
         return paged_flash_decode_reference(
             q, k_pool, v_pool, block_tables, positions, kv_limit=kv_limit,
             k_scale=k_scale, v_scale=v_scale, quant_mxu=quant_mxu,
-            row_live=row_live,
+            row_live=row_live, tree_bits=tree_bits,
         )
     if dev != "cuda":
         raise RuntimeError(
@@ -291,6 +316,7 @@ def paged_flash_decode(
     out = _launch(
         q4, k_pool, v_pool, block_tables, positions, nblk, splits, bps,
         k_scale=k_scale, v_scale=v_scale, quant_mxu=quant_mxu, row_live=row_live,
+        tree_bits=tree_bits,
     )
     return out[:, 0] if squeeze else out
 
@@ -312,7 +338,7 @@ def _kernel():
     fn = load("paged_decode").paged_decode
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 12 + [
             ctypes.c_float, ctypes.c_void_p,
         ]
     return fn
@@ -320,7 +346,7 @@ def _kernel():
 
 def _launch(
     q, k_pool, v_pool, block_tables, positions, nblk, splits, bps, *,
-    k_scale=None, v_scale=None, quant_mxu=False, row_live=None,
+    k_scale=None, v_scale=None, quant_mxu=False, row_live=None, tree_bits=None,
 ):
     b, t, n, d = q.shape
     nb, bs, nkv, _ = k_pool.shape
@@ -334,6 +360,8 @@ def _launch(
         tensors.update(k_scale=k_scale, v_scale=v_scale)
     if row_live is not None:
         tensors.update(row_live=row_live)
+    if tree_bits is not None:
+        tensors.update(tree_bits=tree_bits)
     for name, x in tensors.items():
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
@@ -359,7 +387,7 @@ def _launch(
             f"the CUDA kernel takes bf16 pools without scales, got k_pool "
             f"{k_pool.dtype}, v_pool {v_pool.dtype}"
         )
-    for name in ("block_tables", "positions", "row_live"):
+    for name in ("block_tables", "positions", "row_live", "tree_bits"):
         if name in tensors and tensors[name].dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {tensors[name].dtype}")
     if v_pool.shape != k_pool.shape or tuple(q.shape[-1:]) != (k_pool.shape[-1],):
@@ -372,11 +400,10 @@ def _launch(
         raise ValueError(
             "block_tables, positions and row_live must have one row per lane"
         )
-    if bs != KERNEL_BLOCK_SIZE or d not in KERNEL_HEAD_DIMS or t * g > KERNEL_MAX_TILE_ROWS:
+    if bs != KERNEL_BLOCK_SIZE or d not in KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"the CUDA kernel takes block_size {KERNEL_BLOCK_SIZE}, head_dim in "
-            f"{KERNEL_HEAD_DIMS} and t * G <= {KERNEL_MAX_TILE_ROWS}; got "
-            f"block_size {bs}, head_dim {d}, t {t}, G {g}"
+            f"the CUDA kernel takes block_size {KERNEL_BLOCK_SIZE} and head_dim "
+            f"in {KERNEL_HEAD_DIMS}; got block_size {bs}, head_dim {d}"
         )
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("the kernel's vector K/V loads need 16-byte aligned pools")
@@ -394,6 +421,7 @@ def _launch(
         v_scale.data_ptr() if quantized else None,
         block_tables.data_ptr(), positions.data_ptr(),
         row_live.data_ptr() if row_live is not None else None,
+        tree_bits.data_ptr() if tree_bits is not None else None,
         o_parts.data_ptr(), m_parts.data_ptr(), l_parts.data_ptr(),
         out.data_ptr(),
         b, t, n, nkv, d, bs, block_tables.shape[1], nblk, splits, bps,
@@ -404,4 +432,6 @@ def _launch(
     launches.count += 1
     if row_live is not None:
         row_live_launches.count += 1
+    if tree_bits is not None:
+        tree_launches.count += 1
     return out

@@ -34,6 +34,12 @@ for the synchronous FIFO loop:
   tokens per lane, one verify dispatch scores ``[cur, drafts]`` for every
   decode lane and accepts the agreeing prefix on the device
   (:meth:`..inference.model.LlamaDecode.verify_step`). Greedy only.
+- ``PagedConfig.spec_tree`` verifies a packed candidate tree of up to k
+  nodes per lane instead (the drafter's ``propose_tree``, up to
+  ``spec_tree_branches`` branches), scored in one ancestor-masked forward;
+  the deepest accepted path is committed to the lane's frontier rows on the
+  device (:meth:`..inference.model.LlamaDecode.tree_verify_step`, and
+  ``mixed_step(parents=)`` under ``fused_step``).
 - ``PagedConfig.fused_step`` packs the prefill chunks, the verify rows and
   the plain decode lanes of a step into one ``mixed_step`` dispatch while
   any lane is mid-prefill; every cached-prefix admission chunks through it,
@@ -185,8 +191,6 @@ class PagedConfig:
 #: where the default is falsy) makes PagedServingEngine raise.
 UNPORTED_KNOBS: Dict[str, str] = {
     "async_loop": "the async double-buffered decode loop",
-    "spec_tree": "tree speculation",
-    "spec_tree_branches": "tree speculation",
     # read only by the FIFO policy's async branch, after a dry drafter
     "spec_retry_steps": "the async double-buffered decode loop",
     "on_device_sampling": "fused on-device sampling",
@@ -316,6 +320,20 @@ class PagedServingEngine:
         self._spec_k = int(paged.spec_draft_tokens or 0)
         if self._spec_k < 0:
             raise ValueError("spec_draft_tokens must be >= 0")
+        # tree speculation: verify a packed candidate tree instead of a chain
+        self._spec_tree = bool(paged.spec_tree)
+        if self._spec_tree and not self._spec_k:
+            raise ValueError(
+                "spec_tree requires spec_draft_tokens > 0 (the tree's node "
+                "budget is the draft-token budget)"
+            )
+        if self._spec_tree and self._spec_k + 1 > 32:
+            raise ValueError(
+                "spec_tree packs ancestor sets into int32 bitmasks: "
+                f"spec_draft_tokens ({self._spec_k}) must be <= 31"
+            )
+        if paged.spec_tree_branches < 1:
+            raise ValueError("spec_tree_branches must be >= 1")
         if self._spec_k and not gen.sampling.greedy:
             # acceptance compares the target's argmax; a sampled stream
             # would silently stop matching the plain loop (on-device
@@ -1026,16 +1044,25 @@ class PagedServingEngine:
 
     # -- speculative decoding and the fused mixed-mode step ------------------
 
-    def _collect_drafts(self) -> Dict[int, List[int]]:
+    def _collect_drafts(self) -> tuple:
         """Ask the drafter for up to ``spec_draft_tokens`` proposals per
-        decode-ready lane. A lane abstains when the drafter finds nothing,
-        when it is spec-disabled, or when fewer than two tokens remain (a
-        plain step finishes it anyway). Draft counts are clamped so that
-        acceptance never overshoots ``max_new_tokens``, which with
-        submit()'s capacity check keeps every committed row below
-        ``max_seq_len``."""
+        decode-ready lane: ``(proposals, tree parents)``, ``lane -> tokens``
+        and, under ``spec_tree``, ``lane -> parents``, the lane's packed
+        candidate tree (token ``i`` is node ``i + 1``, ``parents[i]`` its
+        parent's index, 0 the resident root; a drafter without
+        ``propose_tree`` proposes its chain, token-identical to linear
+        speculation). A lane abstains when the drafter finds nothing, when
+        it is spec-disabled, or when fewer than two tokens remain (a plain
+        step finishes it anyway). Draft counts, and a tree's node count,
+        which bounds its depth, are clamped so that acceptance never
+        overshoots ``max_new_tokens``, which with submit()'s capacity
+        check keeps every committed row below ``max_seq_len``."""
         k = self._spec_k
-        out: Dict[int, List[int]] = {}
+        propose_tree = (
+            getattr(self.drafter, "propose_tree", None) if self._spec_tree else None
+        )
+        proposals: Dict[int, List[int]] = {}
+        tree_parents: Dict[int, List[int]] = {}
         for lane, req in self._active.items():
             if req.prefilling or req.spec_disabled:
                 continue
@@ -1043,8 +1070,15 @@ class PagedServingEngine:
             limit = min(k, remaining - 1)
             if limit < 1:
                 continue
+            history = req.prompt + req.out
             try:
-                drafts = self.drafter.propose(req.prompt + req.out, limit)
+                if propose_tree is not None:
+                    drafts, parents = propose_tree(
+                        history, limit, self.paged.spec_tree_branches
+                    )
+                else:
+                    drafts = self.drafter.propose(history, limit)
+                    parents = range(len(drafts))
             except Exception as exc:  # noqa: BLE001 -- drafting is advisory
                 # a drafter bug costs this lane its speculation for one
                 # step, never the request: the lane takes a plain step
@@ -1052,8 +1086,11 @@ class PagedServingEngine:
                 logger.warning("drafter failed for request %d: %s", req.rid, exc)
                 continue
             if drafts:
-                out[lane] = list(drafts[:limit])
-        return out
+                # a trailing trim keeps a tree: parents precede children
+                proposals[lane] = list(drafts[:limit])
+                if self._spec_tree:
+                    tree_parents[lane] = list(parents[:limit])
+        return proposals, tree_parents
 
     def _prepare_spec_blocks(self, proposals: Dict[int, List[int]]) -> None:
         """Back each drafting lane's verify-write rows (``position ..
@@ -1062,7 +1099,9 @@ class PagedServingEngine:
         draft is trimmed to the rows already backed (down to a plain
         decode). Rows past ``draft_len`` stay null-backed, and ``accept <=
         draft_len`` keeps every accepted query inside the backed
-        frontier."""
+        frontier. A tree's node ``j`` is written at row ``position + j``
+        too, and a trailing trim keeps it a tree: parents precede
+        children."""
         bs = self.paged.block_size
         for lane in sorted(proposals):
             req = self._active[lane]
@@ -1081,15 +1120,19 @@ class PagedServingEngine:
 
     def _commit_accepted(
         self, req: _PagedRequest, lane: int, emitted: np.ndarray, a: int,
-        drafted: int, finishing: List[_PagedRequest],
+        drafted: int, finishing: List[_PagedRequest], tree_shape: str = "",
     ) -> None:
         """Commit one decode lane's verify outcome: ``a`` accepted drafts of
         ``drafted`` plus the correction token, the host mirrors advanced as
-        the device advanced them, and the spec-disable heuristic."""
+        the device advanced them, and the spec-disable heuristic. A tree
+        verify names its packed width in ``tree_shape`` (``"t32"``), under
+        which the accept is also counted."""
         cfg = self.paged
         self.metrics.accepted_tokens += a
         if drafted:
             self.metrics.hist_accept_len.observe(a)
+            if tree_shape:
+                self.metrics.note_tree_accept(tree_shape, a)
         req.spec_drafted += drafted
         req.spec_accepted += a
         self._positions[lane] += a + 1  # mirror the on-device advance
@@ -1121,8 +1164,10 @@ class PagedServingEngine:
         take a plain greedy decode step. Returns whether anything was
         dispatched: False (the drafter abstained everywhere, or backing
         preempted every drafting lane) lets the policy schedule a plain
-        decode instead."""
-        proposals = self._collect_drafts()
+        decode instead. Under ``spec_tree`` each lane's draft is a packed
+        tree (:meth:`..inference.model.LlamaDecode.tree_verify_step`), and
+        accept lengths are root-path depths."""
+        proposals, tree_parents = self._collect_drafts()
         if proposals:
             self._prepare_spec_blocks(proposals)
         if proposals:
@@ -1142,27 +1187,42 @@ class PagedServingEngine:
         k = self._spec_k
         draft_len = np.zeros((eng.max_batch,), np.int32)
         drafts = np.zeros((eng.max_batch, k), np.int32)
+        # node space of a tree: node j >= 1 is drafts[j - 1], node 0 the root
+        parents = np.zeros((eng.max_batch, k + 1), np.int32)
         for lane, d in proposals.items():
             drafts[lane, : len(d)] = d
             draft_len[lane] = len(d)
+            if self._spec_tree:
+                parents[lane, 1 : 1 + len(d)] = tree_parents[lane][: len(d)]
         kv_need = int(max(self._positions[l] for l in decode_lanes)) + k + 1
         kv_limit = self._kv_bucket(kv_need)
         self.metrics.note_decode_dispatch(kv_limit, kv_need)
         tokens = torch.cat([self._d_tokens[:, None], self._upload(drafts)], dim=1)
-        emitted_d, accept_d, self._d_tokens, self._d_positions, self.cache = (
-            self.model.verify_step(
+        if self._spec_tree:
+            step = self.model.tree_verify_step(
+                eng.params, self.cache, tokens, self._d_positions, self._d_tables,
+                self._upload(parents), self._upload(draft_len + 1),
+                kv_limit=kv_limit, pos_cap=self._pos_cap,
+            )
+        else:
+            step = self.model.verify_step(
                 eng.params, self.cache, tokens, self._d_positions,
                 self._d_tables, self._upload(draft_len), kv_limit=kv_limit,
                 pos_cap=self._pos_cap,
             )
-        )
+        emitted_d, accept_d, self._d_tokens, self._d_positions, self.cache = step
+        drafted = int(draft_len.sum())
+        tree_meta = dict(tree=True, nodes=drafted) if self._spec_tree else {}
         self._emit_action(
             ActionType.VERIFY, lanes=list(decode_lanes), k=k,
-            drafts=int(draft_len.sum()), kv=kv_limit,
+            drafts=drafted, kv=kv_limit, **tree_meta,
         )
         self.metrics.decode_steps += 1
         self.metrics.verify_steps += 1
-        self.metrics.draft_tokens += int(draft_len.sum())
+        self.metrics.draft_tokens += drafted
+        if self._spec_tree:
+            self.metrics.tree_verify_steps += 1
+            self.metrics.tree_draft_tokens += drafted
         emitted = self._read_tokens(emitted_d)      # (B, k+1)
         accept = self._read_tokens(accept_d)        # (B,)
         finishing: List[_PagedRequest] = []
@@ -1170,6 +1230,7 @@ class PagedServingEngine:
             self._commit_accepted(
                 self._active[lane], lane, emitted, int(accept[lane]),
                 int(draft_len[lane]), finishing,
+                tree_shape=f"t{k + 1}" if self._spec_tree else "",
             )
         for req in finishing:
             self._maybe_finish(req)
@@ -1192,9 +1253,11 @@ class PagedServingEngine:
             return False
         t = self._mixed_t
         proposals: Dict[int, List[int]] = {}
+        tree_parents: Dict[int, List[int]] = {}
         if self._spec_k:
+            proposals, tree_parents = self._collect_drafts()
             # row 0 of a decode lane is its resident token
-            proposals = {l: d[: t - 1] for l, d in self._collect_drafts().items()}
+            proposals = {l: d[: t - 1] for l, d in proposals.items()}
             if proposals:
                 self._prepare_spec_blocks(proposals)
         self._ensure_decode_blocks()
@@ -1225,9 +1288,14 @@ class PagedServingEngine:
             row_start[lane] = start
             row_len[lane] = len(piece)
             forced[lane] = 1
+        # a tree's parents in node space (0 = the resident root); forced
+        # lanes' rows are ignored: mixed_step puts them on the chain
+        parents = np.zeros((eng.max_batch, t), np.int32)
         for lane, d in proposals.items():
             rows[lane, : len(d)] = d
             row_len[lane] = len(d)
+            if self._spec_tree:
+                parents[lane, 1 : 1 + len(d)] = tree_parents[lane][: len(d)]
         kv_need = max(
             max(start for _, start, _, _ in pieces.values()),
             max((int(self._positions[l]) for l in decode_lanes), default=0),
@@ -1241,6 +1309,7 @@ class PagedServingEngine:
                 self._d_tables, self._upload(rows), self._upload(row_start),
                 self._upload(row_len), self._upload(forced),
                 kv_limit=kv_limit, pos_cap=self._pos_cap,
+                parents=self._upload(parents) if self._spec_tree else None,
             )
         )
         self.metrics.mixed_dispatches += 1
@@ -1252,8 +1321,12 @@ class PagedServingEngine:
         if decode_lanes:
             self.metrics.decode_steps += 1
         if proposals:
+            drafted = sum(len(d) for d in proposals.values())
             self.metrics.verify_steps += 1
-            self.metrics.draft_tokens += sum(len(d) for d in proposals.values())
+            self.metrics.draft_tokens += drafted
+            if self._spec_tree:
+                self.metrics.tree_verify_steps += 1
+                self.metrics.tree_draft_tokens += drafted
         emitted = self._read_tokens(emitted_d)      # (B, t)
         accept = self._read_tokens(accept_d)        # (B,)
         wall_ms = (time.perf_counter() - t_d) * 1e3
@@ -1292,6 +1365,7 @@ class PagedServingEngine:
             self._commit_accepted(
                 self._active[lane], lane, emitted, int(accept[lane]),
                 int(row_len[lane]), finishing,
+                tree_shape=f"t{t}" if self._spec_tree else "",
             )
         for req in finishing:
             self._maybe_finish(req)

@@ -31,7 +31,11 @@ from neuronx_distributed_llama3_2_tpu.models.llama import (
     LlamaForCausalLM as JaxLlama,
 )
 from neuronx_distributed_llama3_2_tpu.quantization import kv_cache as jkv
-from neuronx_distributed_llama3_2_tpu_torch.inference.model import LlamaDecode
+from neuronx_distributed_llama3_2_tpu_torch.inference.model import (
+    LlamaDecode,
+    tree_bits_of,
+)
+from neuronx_distributed_llama3_2_tpu_torch.inference.speculative import tree_topology
 from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
 from neuronx_distributed_llama3_2_tpu_torch.models.llama import (
     LLAMA_CONFIGS,
@@ -101,10 +105,6 @@ def test_unported_modes_raise():
     q, kp, vp, tables, positions = (
         torch.as_tensor(x) for x in _case(1, seed=0)
     )
-    with pytest.raises(NotImplementedError, match="tree_bits"):
-        pa.paged_flash_decode(
-            q, kp, vp, tables, positions, tree_bits=torch.zeros(B, 1, dtype=torch.int32),
-        )
     # the quantized arguments now reach the plain version
     kq, ks = kv.kv_quantize(kp, torch.int8)
     vq, vs = kv.kv_quantize(vp, torch.int8)
@@ -582,3 +582,152 @@ def test_quantized_cache_outside_the_paged_path_raises(weights):
         dec.init_paged_cache(16, 8, torch.float16, kv_cache_dtype="int8", device="cpu")
     with pytest.raises(ValueError, match="kv_cache_dtype must be one of"):
         dec.init_paged_cache(16, 8, kv_cache_dtype="int4", device="cpu")
+
+
+# -- tree_bits: packed draft trees (mode 5) --------------------------------------
+
+
+def _tree_bits(parents: np.ndarray) -> np.ndarray:
+    """(b, t) int32 ancestor bitmasks of packed parents (b, t), through the
+    port's tree_topology and the model's packing."""
+    _, anc = tree_topology(torch.as_tensor(parents))
+    return tree_bits_of(anc).numpy()
+
+
+def _random_parents(rng, b, t):
+    """Packed random trees, each node's parent among the three before it
+    (deep and branching)."""
+    parents = np.zeros((b, t), np.int32)
+    for j in range(1, t):
+        parents[:, j] = rng.integers(max(0, j - 3), j, size=b)
+    return parents
+
+
+def _chain_bits(b, t):
+    return _tree_bits(np.broadcast_to(np.maximum(np.arange(t) - 1, 0), (b, t)).copy())
+
+
+@pytest.mark.parametrize("live", [False, True], ids=["all-rows", "row_live"])
+@pytest.mark.parametrize("pool", ["float32", "int8"])
+@pytest.mark.parametrize("t", [5, 9])
+def test_tree_bits_matches_jax_kernel(t, pool, live):
+    """Mode 5 against JAX's interpret-mode kernel on random branching trees
+    over _live_case's lanes (row_live's padding rows included), fp32 q, a
+    float32 or int8 (mode 3) pool: whole outputs within 1e-5 (summation
+    order)."""
+    rng = np.random.default_rng(300 + t)
+    q, kp, vp, tables, positions, row_live = (
+        torch.as_tensor(x) for x in _live_case(t, 300 + t)
+    )
+    bits = torch.as_tensor(_tree_bits(_random_parents(rng, len(row_live), t)))
+    scales = {}
+    if pool == "int8":
+        kp, ks = kv.kv_quantize(kp, torch.int8)
+        vp, vs = kv.kv_quantize(vp, torch.int8)
+        scales = dict(k_scale=ks, v_scale=vs)
+    kw = dict(kv_limit=KV_LIMIT, num_splits=4)
+    extra = dict(row_live=row_live) if live else {}
+    ref = jax_paged_flash_decode(
+        *(_jax(x) for x in (q, kp, vp, tables, positions)), tree_bits=_jax(bits),
+        **kw, **{k: _jax(v) for k, v in dict(scales, **extra).items()},
+    )
+    out = pa.paged_flash_decode(q, kp, vp, tables, positions, tree_bits=bits,
+                                **kw, **scales, **extra)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+    # the ancestor mask is not the block-causal one on these trees
+    causal = pa.paged_flash_decode(q, kp, vp, tables, positions, **kw, **scales, **extra)
+    assert not torch.allclose(causal, out, atol=1e-3)
+
+
+@pytest.mark.parametrize("t", [17, 32])
+def test_wide_tree_bf16_matches_jax_kernel(t):
+    """A tree as wide as the kernel takes (t * G = 64 at t = 32 and G = 2)
+    on a bf16 pool with bf16 q, with row_live: whole outputs within 2 bf16
+    ulps of the largest (the JAX kernel rounds its softmax weights to bf16,
+    the plain version does not)."""
+    rng = np.random.default_rng(400 + t)
+    q, kp, vp, tables, positions = (torch.as_tensor(x) for x in _case(t, 400 + t))
+    q, kp, vp = (x.bfloat16() for x in (q, kp, vp))
+    bits = torch.as_tensor(_tree_bits(_random_parents(rng, B, t)))
+    live = torch.as_tensor([t, t // 2, 1], dtype=torch.int32)
+    kw = dict(kv_limit=KV_LIMIT, num_splits=4)
+    ref = jax_paged_flash_decode(
+        *(_jax(x) for x in (q, kp, vp, tables, positions)), tree_bits=_jax(bits),
+        row_live=_jax(live), **kw,
+    )
+    out = pa.paged_flash_decode(q, kp, vp, tables, positions, tree_bits=bits,
+                                row_live=live, **kw)
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert np.abs(out.float().numpy() - ref).max() <= _bf16_band(ref)
+
+
+@pytest.mark.parametrize("pool", ["float32", "int8"])
+def test_chain_tree_bits_are_the_block_causal_mask(pool):
+    """A chain tree (bits[q] = (1 << (q + 1)) - 1) gives bitwise what the
+    launch without tree_bits gives, with and without row_live; and rows
+    past a lane's frontier block are never read under a tree either."""
+    t = 8
+    q, kp, vp, tables, positions, live = (torch.as_tensor(x) for x in _live_case(t, 5))
+    scales = {}
+    if pool == "int8":
+        kp, ks = kv.kv_quantize(kp, torch.int8)
+        vp, vs = kv.kv_quantize(vp, torch.int8)
+        scales = dict(k_scale=ks, v_scale=vs)
+    chain = torch.as_tensor(_chain_bits(len(live), t))
+    assert chain[0].tolist() == [(1 << (j + 1)) - 1 for j in range(t)]
+    kw = dict(kv_limit=KV_LIMIT, num_splits=4, **scales)
+    for extra in ({}, dict(row_live=live)):
+        out = pa.paged_flash_decode(q, kp, vp, tables, positions, tree_bits=chain, **kw, **extra)
+        assert torch.equal(out, pa.paged_flash_decode(q, kp, vp, tables, positions, **kw, **extra))
+    bits = torch.as_tensor(_tree_bits(_random_parents(np.random.default_rng(6), len(live), t)))
+    out = pa.paged_flash_decode(q, kp, vp, tables, positions, tree_bits=bits, **kw)
+    cut = tables.clone()
+    for j, p in enumerate(positions.tolist()):
+        cut[j, (p + t - 1) // BS + 1:] = 0
+    assert torch.equal(pa.paged_flash_decode(q, kp, vp, cut, positions, tree_bits=bits, **kw), out)
+
+
+def test_tree_bits_are_validated_as_jax_does():
+    """t > 32 and a shape other than (b, t) raise in the wrapper, the plain
+    version and the JAX kernel alike; on the card the launch also needs
+    int32, contiguous, on q's device."""
+    q, kp, vp, tables, positions = (torch.as_tensor(x) for x in _case(4, seed=0))
+    wide = torch.as_tensor(np.random.default_rng(0).standard_normal((B, 33, N, D)),
+                           dtype=torch.float32)
+    for qq, bits, match in (
+        (wide, torch.zeros((B, 33), dtype=torch.int32), "must be <= 32"),
+        (q, torch.zeros((B, 3), dtype=torch.int32), "tree_bits must be"),
+        (q, torch.zeros((2, 4), dtype=torch.int32), "tree_bits must be"),
+    ):
+        for fn in (pa.paged_flash_decode, pa.paged_flash_decode_reference):
+            with pytest.raises(ValueError, match=match):
+                fn(qq, kp, vp, tables, positions, tree_bits=bits)
+        with pytest.raises(ValueError, match=match):
+            jax_paged_flash_decode(
+                _jax(qq), _jax(kp), _jax(vp), _jax(tables), _jax(positions),
+                tree_bits=_jax(bits),
+            )
+    bf = (q.bfloat16(), kp.bfloat16(), vp.bfloat16(), tables, positions, 8, 1, 8)
+    ok = torch.zeros((B, 4), dtype=torch.int32)
+    for bits, match in (
+        (ok.long(), "tree_bits must be int32"),
+        (torch.zeros((4, B), dtype=torch.int32).t(), "tree_bits must be contiguous"),
+        (ok.to("meta"), "tree_bits is on meta"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            pa._launch(*bf, tree_bits=bits)
+
+
+def test_wide_tiles_reach_the_launch():
+    """No t * G cap is left before the CUDA launch: a linear t = 32 block at
+    G = 2 (64 rows) and a t = 40 block (80 rows, two row chunks on the
+    card) pass every check the launcher makes of its arguments and stop
+    only at its block-size check; on the CPU both run the plain version."""
+    for t in (32, 40):
+        q, kp, vp, tables, positions = (torch.as_tensor(x) for x in _case(t, seed=t))
+        positions = torch.as_tensor([0, 17, 0], dtype=torch.int32)
+        out = pa.paged_flash_decode(q, kp, vp, tables, positions, kv_limit=KV_LIMIT)
+        assert out.shape == q.shape and bool(torch.isfinite(out).all())
+        bf = (q.bfloat16(), kp.bfloat16(), vp.bfloat16(), tables, positions, 8, 1, 8)
+        with pytest.raises(ValueError, match="block_size 16 and head_dim"):
+            pa._launch(*bf)

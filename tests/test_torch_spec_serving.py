@@ -18,6 +18,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from neuronx_distributed_llama3_2_tpu.inference import (
     GenerationConfig as JaxGenerationConfig,
@@ -370,3 +371,169 @@ def test_greedy_and_overflow_guards(weights):
     with pytest.raises(ValueError, match="greedy"):
         JaxPagedServingEngine(jeng, jax_sampled, JaxPagedConfig(block_size=8, spec_draft_tokens=4),
                               precompile=False)
+
+
+# -- tree speculation ---------------------------------------------------------
+
+
+def _tree_prompts(rng, lengths):
+    """Prompts of two 4-token patterns that share their first three tokens
+    (a b c x a b c y ...): every (a, b, c) site is followed by x or by y,
+    so the n-gram drafter's trie opens a second branch."""
+    out = []
+    for n in lengths:
+        a, b, c, x, y = rng.choice(np.arange(1, 40), size=5, replace=False).tolist()
+        out.append(([a, b, c, x, a, b, c, y] * (n // 8 + 1))[:n])
+    return out
+
+
+class _ChainOnly:
+    """The n-gram drafter without ``propose_tree``: the engine proposes its
+    chain as a one-branch tree."""
+
+    def __init__(self):
+        self.inner = NGramDrafter()
+
+    def propose(self, history, max_tokens):
+        return self.inner.propose(history, max_tokens)
+
+
+class _DecoyOracle:
+    """Knows the greedy streams: while a lane's history is a prefix of one,
+    proposes a two-branch tree, a decoy token first (the greedy stream's
+    next token plus one) and then the greedy continuation, so that every
+    accept goes through nodes whose index is one past their depth and the
+    frontier commit moves rows. Abstains otherwise."""
+
+    def __init__(self, streams, vocab):
+        self.streams, self.vocab = [list(s) for s in streams], vocab
+
+    def propose(self, history, max_tokens):
+        return []
+
+    def propose_tree(self, history, max_nodes, branches=2):
+        h = list(history)
+        for s in self.streams:
+            if len(h) < len(s) and s[: len(h)] == h:
+                cont = s[len(h): len(h) + max_nodes - 1]
+                if not cont:
+                    return [], []
+                tokens = [(cont[0] + 1) % self.vocab] + cont
+                return tokens, [0, 0] + list(range(2, len(cont) + 1))
+        return [], []
+
+
+TREE_COUNTERS = COUNTERS + ("tree_verify_steps", "tree_draft_tokens")
+
+
+def _assert_same_tree(jax_eng, port, j_out, p_out):
+    _assert_same(jax_eng, port, j_out, p_out)
+    jm, pm = jax_eng.metrics, port.metrics
+    assert {c: getattr(pm, c) for c in TREE_COUNTERS} == {c: getattr(jm, c) for c in TREE_COUNTERS}
+    assert pm.tree_accept_by_shape == jm.tree_accept_by_shape
+
+
+TREE_LEGS = [(d, f) for d in ("ngram", "chain") for f in ("unfused", "fused")]
+
+
+@pytest.mark.parametrize("drafter,fused", TREE_LEGS, ids=["-".join(x) for x in TREE_LEGS])
+def test_tree_legs_match_jax(weights, drafter, fused):
+    """spec_tree on the kernel path, unfused (tree verify dispatches) and
+    fused (trees inside the mixed step while prompts prefill in chunks),
+    with the branching n-gram drafter and with a chain-only one: streams,
+    bookkeeping, every counter, tree_accept_by_shape and accepted_tokens
+    equal the JAX engine's. The n-gram legs dispatch trees that branch; the
+    chain-only legs give the tokens and accepts of linear speculation."""
+    prompts = [_tree_prompts(np.random.default_rng(51), (23, 17, 30))]
+    kw = dict(block_size=8, num_blocks=64, spec_draft_tokens=5, spec_tree=True,
+              prefill_chunk_tokens=6 if fused == "fused" else None,
+              fused_step=fused == "fused")
+    mk = (lambda: _ChainOnly()) if drafter == "chain" else (lambda: None)
+    jax_eng, port = _engines(weights, 10, drafter=mk(), **kw)
+    branched = []
+    inner = port.model.tree_verify_step if fused == "unfused" else port.model.mixed_step
+
+    def spy(*a, **k):
+        # a tree branches where two live nodes share a parent
+        if fused == "unfused":
+            par, live = a[5], a[6]
+        else:
+            par, live = k["parents"], torch.where(a[8] > 0, 1, a[7] + 1)
+        branched.extend(len(set(par[i, 1:n].tolist())) < n - 1
+                        for i, n in enumerate(live.tolist()))
+        return inner(*a, **k)
+
+    if fused == "unfused":
+        port.model.tree_verify_step = spy
+    else:
+        port.model.mixed_step = spy
+    j_out, p_out = _run(jax_eng, prompts), _run(port, prompts)
+    _assert_same_tree(jax_eng, port, j_out, p_out)
+    m = port.metrics
+    assert m.tree_verify_steps > 0 and m.tree_draft_tokens == m.draft_tokens > 0
+    assert (m.mixed_dispatches > 0) == (fused == "fused")
+    assert port.model.attention_paths["gather"] == 0
+    if drafter == "ngram":
+        assert any(branched)
+    else:
+        # the same drafter through linear speculation: the same tokens,
+        # drafts and accepts
+        _, lin = _engines(weights, 10, drafter=mk(), **dict(kw, spec_tree=False))
+        assert _run(lin, prompts) == p_out
+        for c in ("verify_steps", "draft_tokens", "accepted_tokens"):
+            assert getattr(lin.metrics, c) == getattr(m, c)
+
+
+@pytest.mark.parametrize("model", ["kernel", "gather"])
+def test_tree_commits_through_the_second_branch_match_jax(weights, model):
+    """The decoy oracle's trees, fused: every accept runs through the
+    second branch, so each step that accepts moves rows to the frontier
+    (in the mixed step while prompts prefill, in the tree verify after).
+    The streams are the plain greedy streams, and equal JAX's with every
+    counter; the pools after the serve agree with JAX's (an identity
+    commit fails here: the tiny model's streams do not show it)."""
+    prompts = [_prompts(np.random.default_rng(52), (19, 26, 11))]
+    _, plain = _engines(weights, 12, kernel=model == "kernel", block_size=8, num_blocks=64)
+    greedy = _run(plain, prompts)
+    oracle = _DecoyOracle([p + greedy[r] for r, p in enumerate(prompts[0])],
+                          LLAMA_CONFIGS["tiny"].vocab_size)
+    jax_eng, port = _engines(
+        weights, 12, kernel=model == "kernel", drafter=oracle, block_size=8, num_blocks=64,
+        spec_draft_tokens=4, spec_tree=True, prefill_chunk_tokens=6, fused_step=True,
+    )
+    moved = {5: 0, 6: 0}  # lanes whose commit moved rows, by width (verify, mixed)
+    inner = port.model._tree_frontier_commit
+
+    def spy(cache, tables, positions, depths, ancestors, best):
+        moved[depths.shape[1]] += int((best != depths.gather(1, best.long()[:, None])[:, 0]).sum())
+        return inner(cache, tables, positions, depths, ancestors, best)
+
+    port.model._tree_frontier_commit = spy
+    j_out, p_out = _run(jax_eng, prompts), _run(port, prompts)
+    _assert_same_tree(jax_eng, port, j_out, p_out)
+    assert p_out == greedy
+    assert port.metrics.accepted_tokens > 0
+    assert moved[5] > 0 and moved[6] > 0
+    # the pools agree after the serve, committed rows included (block 0,
+    # the null block, takes every lane's garbage rows in no set order)
+    for pool in ("k", "v"):
+        np.testing.assert_allclose(getattr(port.cache, pool)[:, 1:].numpy(),
+                                   np.asarray(getattr(jax_eng.cache, pool))[:, 1:], atol=1e-5)
+
+
+def test_tree_knobs_are_validated_as_jax_does(weights):
+    jp, model = weights
+    eng = InferenceEngine(_configs(True)[1], model, **ENGINE_KW)
+    jeng = JaxInferenceEngine(_configs(True)[0], jp, **ENGINE_KW)
+    for kw, match in (
+        (dict(spec_tree=True), "requires spec_draft_tokens"),
+        (dict(spec_tree=True, spec_draft_tokens=32), "must be <= 31"),
+        (dict(spec_draft_tokens=2, spec_tree_branches=0), "spec_tree_branches"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            PagedServingEngine(eng, paged=PagedConfig(block_size=8, **kw))
+        with pytest.raises(ValueError, match=match):
+            JaxPagedServingEngine(jeng, paged=JaxPagedConfig(block_size=8, **kw),
+                                  precompile=False)
+    tree = PagedServingEngine(eng, paged=PagedConfig(spec_draft_tokens=31, spec_tree=True))
+    assert tree._spec_tree and isinstance(tree.drafter, NGramDrafter)
