@@ -34,8 +34,7 @@
    share their first three tokens, a context with two continuations):
    trees of up to 31 nodes verified at t = 32, and 32-token prefill
    chunks in t = 32 mixed steps, whose K4 calls carry per-node ancestor
-   masks (tree_bits, mode 5) over 128 tile rows (two row chunks of the
-   kernel). T is checked against the plain forward on all eight requests
+   masks (tree_bits, mode 5) over 128 tile rows. T is checked against the plain forward on all eight requests
    and logged against an fp32 copy; its prompts are served once more with
    a drafter whose every tree branches, a decoy branch before the plain
    forward's greedy continuation, so that every accept moves rows to the
@@ -50,11 +49,16 @@
    loss and gradients through the kernels against the same step through
    the plain attention (which must also reject a backward through a
    planted kernel fault), and a profiled step.
+   Every serve checks which source took its K4 calls: each bf16 call at
+   t > 1 csrc/paged_decode_tile.cu (one block owning the whole query tile,
+   on the tensor cores), every other call csrc/paged_decode.cu.
 6. Kernels: runs each kernel on the card at a grid of shapes and at every
    geometry the main paths launched, against its plain PyTorch version,
    with the tolerance stated, and times the kernel, the plain version and
    one PyTorch library call computing the same function (a yardstick the
-   port never calls), beside the bound the card could reach. The
+   port never calls), beside the bound the card could reach; at every
+   call the tile kernel takes, csrc/paged_decode.cu is held and timed at
+   the same call too (split_ms). The
    paged-decode kernel runs so for the bf16 pool and for each of the six
    quantized combinations {int8, fp8 e4m3, fp8 e5m2} x {mode 3, mode 6},
    at the median call of each served geometry, and once more on a probe
@@ -70,7 +74,10 @@
    25 and 32 (1B and 3B, bf16 and int8 mode 3), where a chain's masks must
    give bitwise the launch without tree_bits and the block-causal mask in
    place of the ancestor mask must fail the check; and a linear t = 32
-   block (128 tile rows) with and without row_live.
+   block (128 tile rows) with and without row_live. The tile kernel runs
+   once more on a probe whose lanes' walks end in a block of 16 fresh
+   rows, where a walk without its last staged block must fail the check;
+   ptxas must report no spills for it.
 
 Every failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -84,6 +91,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -163,8 +171,8 @@ F_FAULT_PICK = 6
 # the tree-speculative serve T: PagedConfig knobs (the tree's node budget is
 # the draft budget, 31; the fused step packs 32-token prefill chunks), and
 # the kernel's widest fresh block: t = 32 for both the tree verify (31
-# nodes and the root) and the mixed step, 128 tile rows at G = 4, two row
-# chunks of the kernel
+# nodes and the root) and the mixed step, 128 tile rows at G = 4, one block
+# of csrc/paged_decode_tile.cu
 TREE_KNOBS = dict(spec_draft_tokens=31, spec_tree=True, spec_tree_branches=2,
                   prefill_chunk_tokens=32, fused_step=True)
 TREE_MAX_T = 32
@@ -330,6 +338,23 @@ def median_call(calls: list) -> list:
     return sorted(calls, key=sum)[(len(calls) - 1) // 2]
 
 
+def check_routes(label: str, cfg, geoms: dict, launches: int, tile: int,
+                 kv_dtype: str = "bf16") -> str:
+    """The counted serve's K4 launches by source: csrc/paged_decode_tile.cu
+    must have taken exactly the calls ``kernel_route`` gives it (every
+    bf16 call at t > 1 here, none from a quantized pool) and
+    csrc/paged_decode.cu the rest. Returns the log's summary."""
+    def source(key):
+        return k4_source(kv_dtype, key[1], cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+
+    want = sum(e["calls"] for k, e in geoms.items() if source(k) == "tile")
+    split_t = sorted({k[1] for k in geoms if source(k) == "split"})
+    check(tile == want and launches - tile == sum(e["calls"] for e in geoms.values()) - want,
+          f"{label}: {tile} tile launches of {launches}, the route gives it {want}")
+    return (f"paged_decode_tile.cu {tile} launches, paged_decode.cu {launches - tile} "
+            f"(t in {split_t})")
+
+
 def paged_cases(cfg, served: dict):
     """The fixed grid of shapes, then one case for each geometry the
     counted serve gave the kernel, at the positions of its median call."""
@@ -407,6 +432,56 @@ def mode_label(kv_dtype: str, mxu: bool) -> str:
     return f"{kv_dtype} mode {6 if mxu else 3}"
 
 
+def forced_launch(kernel: str, q, kp, vp, tables, pos, *, kv_limit, num_splits=None, **kw):
+    """The call ``paged_flash_decode(q, ...)`` makes (q 4-dim), launched on
+    the source ``kernel`` names ("split": csrc/paged_decode.cu, "tile":
+    csrc/paged_decode_tile.cu) whatever the route would pick."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+
+    nblk, splits, bps = pa._geometry(q, kp, tables, kv_limit, num_splits)
+    return pa._launch(q, kp, vp, tables, pos, nblk, splits, bps, kernel=kernel, **kw)
+
+
+#: csrc/paged_decode.cu at a call the tile kernel takes: the same-run yardstick
+split_launch = functools.partial(forced_launch, "split")
+
+
+def k4_source(kv_dtype: str, t: int, n: int, nkv: int, d: int) -> str:
+    """The K4 source the port picks for a call: "tile" or "split"."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+    from neuronx_distributed_llama3_2_tpu_torch.quantization import kv_cache as kv
+
+    return pa.kernel_route(kv.kv_cache_torch_dtype(kv_dtype), t, n // nkv, d)
+
+
+def split_yardstick(c: DecodeCase, kv_dtype: str, call, ref, label: str):
+    """For a case the tile kernel serves (None for any other): (device ms
+    of csrc/paged_decode.cu at the same call, ``call(fn, i)`` with fn =
+    split_launch, held to the same check; device ms of the tile launch's
+    split kernel and of its combine)."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+
+    if k4_source(kv_dtype, c.t, c.n, c.nkv, c.d) != "tile":
+        return None
+    elem, rel = decode_agreement(call(split_launch, 0), ref)
+    check(elem <= 1.0 and rel <= LANE_REL_L2,
+          f"{label}: paged_decode.cu disagrees with the plain version ({elem}, {rel})")
+    (split_ms,), _ = device_ms(functools.partial(call, split_launch))
+    (main_ms, combine_ms), _ = device_ms(
+        functools.partial(call, pa.paged_flash_decode),
+        matches=("paged_decode_tile_kernel", "paged_decode_tile_combine"))
+    return split_ms, main_ms, combine_ms
+
+
+def source_note(yard) -> str:
+    """Which source served a logged case, with paged_decode.cu's time beside
+    the tile kernel's (``split_yardstick``'s result)."""
+    if yard is None:
+        return "paged_decode.cu"
+    return (f"paged_decode_tile.cu (its split kernel {yard[1]:.6f} ms, combine "
+            f"{yard[2]:.6f}); split_ms={yard[0]:.6f} (paged_decode.cu, same call)")
+
+
 def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
                            mxu: bool = False, grid_iters: int = 50) -> dict:
     """K4 on one pool dtype and mode against its plain version at the grid
@@ -420,6 +495,7 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
     mode = mode_label(kv_dtype, mxu)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst, worst_elem, worst_rel, record, record_launches = 0.0, 0.0, 0.0, None, -1
+    tile_err = 0.0
     for c in paged_cases(cfg, served):
         q, kp, vp, tables, pos = build_case(c, gen)
         L = c.layers
@@ -499,6 +575,13 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
         (ms,), wall_ms = device_ms(kernel, iters)
         (plain_ms,), plain_wall_ms = device_ms(plain, iters)
         (library_ms,), library_wall_ms = device_ms(library, iters)
+        yard = split_yardstick(
+            c, kv_dtype,
+            lambda fn, i: fn(q, kp[i % L], vp[i % L], tables, pos, kv_limit=c.kv_limit,
+                             num_splits=c.splits),
+            ref, f"{mode} {c.name}")
+        if yard is not None:
+            tile_err = max(tile_err, err)
         bound_ms, bound_by, kv_bytes = paged_bound(c, kv_dtype, mxu)
         splits = min(c.splits or pa.DEFAULT_NUM_SPLITS, nblk)
         served_by = f", {c.serve_launches} serve launches" if c.serve_launches else ""
@@ -511,7 +594,7 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
             f"{lib_elem:.4f} x, {lib_rel:.6g}) kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
             f"library_ms={library_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}; "
             f"K+V bytes read {kv_bytes} / 3.35 TB/s); wall per call {wall_ms:.6f} / "
-            f"{plain_wall_ms:.6f} / {library_wall_ms:.6f} ms | {card}"
+            f"{plain_wall_ms:.6f} / {library_wall_ms:.6f} ms; {source_note(yard)} | {card}"
         )
         # the JSON record times the geometry the serve launched most
         if c.serve_launches > record_launches:
@@ -533,6 +616,7 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
         "pool), fp32 accumulation in another order, bf16-rounded softmax weights"
     )
     record["max_abs_err"] = worst
+    record["tile_err"] = tile_err
     return record
 
 
@@ -707,7 +791,7 @@ def run_row_live_phase(cfg, f_served: dict, card: str) -> dict:
     from neuronx_distributed_llama3_2_tpu_torch.quantization import kv_cache as kv
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    worst, worst_elem, worst_rel, record = 0.0, 0.0, 0.0, None
+    worst, worst_elem, worst_rel, record, tile_err = 0.0, 0.0, 0.0, None, 0.0
     for kv_dtype in ("bf16", "int8"):
         mode = mode_label(kv_dtype, False)
         for c in live_cases(cfg, f_served):
@@ -766,6 +850,9 @@ def run_row_live_phase(cfg, f_served: dict, card: str) -> dict:
                 functools.partial(call, pa.paged_flash_decode, with_live=False))
             (plain_ms,), _ = device_ms(functools.partial(call, pa.paged_flash_decode_reference))
             (library_ms,), _ = device_ms(library)
+            yard = split_yardstick(c, kv_dtype, call, ref, f"row_live {mode} {c.name}")
+            if yard is not None:
+                tile_err = max(tile_err, err)
             bound_ms, bound_by, kv_bytes = walk_bound(c, kv_dtype)
             served_by = f", {c.serve_launches} serve launches" if c.serve_launches else ""
             log(f"kernel paged_decode row_live [{mode}] [{c.name}] b={b} N={c.n} NKV={c.nkv} "
@@ -776,10 +863,10 @@ def run_row_live_phase(cfg, f_served: dict, card: str) -> dict:
                 f"without row_live; kernel_ms={ms:.6f} (without row_live {full_ms:.6f}) "
                 f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} bound_ms={bound_ms:.6f} "
                 f"({bound_by}; K+V bytes of the walked blocks {kv_bytes} / 3.35 TB/s); wall "
-                f"per call {wall_ms:.6f} ms | {card}")
+                f"per call {wall_ms:.6f} ms; {source_note(yard)} | {card}")
             if record is None:
                 record = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                              bound_ms=bound_ms, bound_by=bound_by)
+                              bound_ms=bound_ms, bound_by=bound_by, split_ms=yard[0])
             del q, kp, vp, ks, vs, k_all, v_all
         torch.cuda.empty_cache()
     elem, rel = run_row_live_probe(card)
@@ -789,6 +876,7 @@ def run_row_live_phase(cfg, f_served: dict, card: str) -> dict:
         f"limit), each (lane, head) within relative L2 {LANE_REL_L2} (worst "
         f"{max(worst_rel, rel):.6g}); worst abs err {worst:.6g}")
     record["max_abs_err"] = worst
+    record["tile_err"] = tile_err
     return record
 
 
@@ -940,6 +1028,7 @@ def run_tree_kernel_phase(cfg, t_served: dict, card: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     worst, worst_elem, worst_rel, record, probe = 0.0, 0.0, 0.0, None, []
+    tile_err = 0.0
     cases = tree_cases(cfg, t_served)
     for kv_dtype in ("bf16", "int8"):
         mode = mode_label(kv_dtype, False)
@@ -1025,6 +1114,9 @@ def run_tree_kernel_phase(cfg, t_served: dict, card: str) -> dict:
             (ms,), wall_ms = device_ms(functools.partial(call, pa.paged_flash_decode))
             (plain_ms,), _ = device_ms(functools.partial(call, pa.paged_flash_decode_reference))
             (library_ms,), _ = device_ms(library)
+            yard = split_yardstick(c, kv_dtype, call, ref, f"tree {mode} {c.name}")
+            if yard is not None:
+                tile_err = max(tile_err, err)
             bound_ms, bound_by, kv_bytes = walk_bound(c, kv_dtype)
             served_by = f", {c.serve_launches} serve launches" if c.serve_launches else ""
             extra = "" if c.row_live is None else f" row_live={list(map(int, c.row_live))}"
@@ -1035,11 +1127,13 @@ def run_tree_kernel_phase(cfg, t_served: dict, card: str) -> dict:
                 f"{rel:.6g}; library {lib_elem:.4f} x, {lib_rel:.6g}); {'; '.join(notes or ['linear'])}; "
                 f"kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
                 f"bound_ms={bound_ms:.6f} ({bound_by}; K+V bytes of the walked blocks "
-                f"{kv_bytes} / 3.35 TB/s); wall per call {wall_ms:.6f} ms | {card}")
+                f"{kv_bytes} / 3.35 TB/s); wall per call {wall_ms:.6f} ms; "
+                f"{source_note(yard)} | {card}")
             if c.serve_launches and kv_dtype == "bf16" and (
                     record is None or c.serve_launches > record["launches"]):
                 record = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                              bound_ms=bound_ms, bound_by=bound_by, launches=c.serve_launches)
+                              bound_ms=bound_ms, bound_by=bound_by, launches=c.serve_launches,
+                              split_ms=yard[0])
             del q, kp, vp, ks, vs, k_all, v_all
         torch.cuda.empty_cache()
     log(f"paged_decode tree_bits and wide tiles: every case agrees with the plain version "
@@ -1050,7 +1144,51 @@ def run_tree_kernel_phase(cfg, t_served: dict, card: str) -> dict:
         f"every random tree case ({min(probe):.6g} x the element limit at least)")
     del record["launches"]
     record["max_abs_err"] = worst
+    record["tile_err"] = tile_err
     return record
+
+
+# the probe of run_tile_probe: first fresh rows per lane of the 1B geometry
+# at t = 32 (128 tile rows) in contexts of 32-512 rows; every lane's last
+# fresh row closes a pool block, so the last block its walk stages holds
+# the fresh block's last 16 rows, which 16 of its 32 queries see
+TILE_PROBE_POSITIONS = (0, 16, 48, 96, 160, 240, 336, 480)
+TILE_PROBE_KV_LIMIT = 512
+
+
+def run_tile_probe(card: str):
+    """csrc/paged_decode_tile.cu against the plain version on
+    TILE_PROBE_POSITIONS; then the same launch with each lane's walk cut
+    before the last pool block it stages (a row_live that ends the lane's
+    live rows at that block's first row: the ring neither stages nor
+    computes it) must fail the same check. Returns the sound (element
+    ratio, lane relative L2)."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    c = DecodeCase("tile probe", 32, 8, 64, TREE_MAX_T, TILE_PROBE_KV_LIMIT, 4,
+                   np.asarray(TILE_PROBE_POSITIONS), layers=1)
+    q, kp, vp, tables, pos = build_case(c, gen)
+    kw = dict(kv_limit=c.kv_limit, num_splits=c.splits)
+    tile0 = pa.tile_launches.count
+    out = pa.paged_flash_decode(q, kp[0], vp[0], tables, pos, **kw)
+    check(pa.tile_launches.count == tile0 + 1, "the tile probe did not reach the tile kernel")
+    ref = pa.paged_flash_decode_reference(q, kp[0], vp[0], tables, pos, kv_limit=c.kv_limit)
+    elem, rel = decode_agreement(out, ref)
+    log(f"kernel paged_decode_tile [probe] positions {list(TILE_PROBE_POSITIONS)} t={c.t} "
+        f"({c.t * c.n // c.nkv} tile rows): {elem:.6g} x its element limit, lane relative "
+        f"L2 {rel:.6g} (limits 1, {LANE_REL_L2}) | {card}")
+    check(elem <= 1.0 and rel <= LANE_REL_L2,
+          f"tile probe: disagrees with the plain version ({elem}, {rel})")
+    last_block = (pos + c.t - 1) // c.bs * c.bs
+    short = forced_launch("tile", q, kp[0], vp[0], tables, pos, row_live=last_block - pos, **kw)
+    f_elem, f_rel = decode_agreement(short, ref)
+    log(f"kernel paged_decode_tile [probe] planted fault (the walk without its last staged "
+        f"block): error {f_elem:.6g} x its element limit, lane relative L2 {f_rel:.6g} "
+        f"(limits 1, {LANE_REL_L2})")
+    check(f_elem > 1.0 or f_rel > LANE_REL_L2,
+          "the tile check passes a walk without its last staged block")
+    return elem, rel
 
 
 # -- 3. serve -------------------------------------------------------------------
@@ -1141,6 +1279,7 @@ def run_serve_phase(cfg, model, card: str):
     geoms: dict = {}
     with model_kernel_call(recording(geoms, keep_positions=False)):
         pa.launches.reset()
+        pa.tile_launches.reset()
         server.model.attention_paths.clear()
         steps0 = server.metrics.decode_steps
         torch.cuda.synchronize()
@@ -1149,7 +1288,7 @@ def run_serve_phase(cfg, model, card: str):
         outs = server.run_to_completion()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = pa.launches.count
+        launches, tile = pa.launches.count, pa.tile_launches.count
     paths = dict(server.model.attention_paths)
     decode_steps = server.metrics.decode_steps - steps0
 
@@ -1176,13 +1315,14 @@ def run_serve_phase(cfg, model, card: str):
         f"{generated / wall:.6f} tokens/s; TTFT p50 {ttft:.6f} ms, TPOT p50 "
         f"{tpot:.6f} ms; cached_tokens {[i['cached_tokens'] for i in infos]}; "
         f"{decode_steps} decode steps | {card}")
-    log(f"serve: paged_decode kernel launches {launches}; attention calls by "
+    routes = check_routes("serve", cfg, geoms, launches, tile)
+    log(f"serve: paged_decode kernel launches {launches} ({routes}); attention calls by "
         f"path {paths} (context = whole-prompt prefill in plain torch, kernel = "
         f"paged-decode kernel, gather = block-table gather + plain torch) | {card}")
     for (b, t, kv_limit, splits, w), e in sorted(served.items()):
         log(f"serve: kernel geometry b={b} t={t} kv_limit={kv_limit} "
             f"num_splits={splits} W={w}: {e['calls']} launches")
-    return prompts, outs, rids, launches, served, server.metrics.pool_bytes_total
+    return prompts, outs, rids, launches, tile, served, server.metrics.pool_bytes_total
 
 
 def run_profile_phase(cfg, model, prompts, card: str, label: str = "serve",
@@ -1210,10 +1350,14 @@ def run_profile_phase(cfg, model, prompts, card: str, label: str = "serve",
     paged_ms = sum(
         e.self_device_time_total for e in events if "paged_decode" in e.key
     ) / 1e3
+    tile_ms = sum(
+        e.self_device_time_total for e in events if "paged_decode_tile" in e.key
+    ) / 1e3
     log(f"profile: {label} wall {wall_ms:.6f} ms (profiler on), device busy "
         f"{busy_ms:.6f} ms = {100 * busy_ms / wall_ms:.6f}% of it; paged_decode "
         f"kernels {paged_ms:.6f} ms = {100 * paged_ms / busy_ms:.6f}% of device "
-        f"time; {server.metrics.decode_steps} decode steps | {card}")
+        f"time, of them paged_decode_tile {tile_ms:.6f} ms = "
+        f"{100 * tile_ms / busy_ms:.6f}%; {server.metrics.decode_steps} decode steps | {card}")
     for e in events[:12]:
         log(f"  device {e.self_device_time_total / 1e3:.6f} ms, {e.count} calls: "
             f"{e.key[:100]}")
@@ -1312,13 +1456,14 @@ def run_quant_serve_phase(cfg, model, label: str, kv_dtype: str, mxu: bool,
     geoms: dict = {}
     with model_kernel_call(recording(geoms, keep_positions=False)):
         pa.launches.reset()
+        pa.tile_launches.reset()
         server.model.attention_paths.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rids, outs = serve_staged(server, prompts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = pa.launches.count
+        launches, tile = pa.launches.count, pa.tile_launches.count
     paths = dict(server.model.attention_paths)
     m = server.metrics
     infos = [server.request_info(r) for r in rids]
@@ -1350,8 +1495,9 @@ def run_quant_serve_phase(cfg, model, label: str, kv_dtype: str, mxu: bool,
         f"{generated / wall:.6f} tokens/s; TTFT p50 {ttft:.6f} ms, TPOT p50 {tpot:.6f} ms; "
         f"cached_tokens {[i['cached_tokens'] for i in infos]}; prefill_chunks "
         f"{m.prefill_chunks}; {m.decode_steps} decode steps | {card}")
-    log(f"serve {label}: paged_decode kernel launches {launches} ({mode_label(kv_dtype, mxu)}); "
-        f"attention calls by path {paths}; pool_bytes_total {m.pool_bytes_total} = "
+    routes = check_routes(label, cfg, geoms, launches, tile, kv_dtype)
+    log(f"serve {label}: paged_decode kernel launches {launches} ({mode_label(kv_dtype, mxu)}; "
+        f"{routes}); attention calls by path {paths}; pool_bytes_total {m.pool_bytes_total} = "
         f"formula {formula} = bytes held, {bf16_pool_bytes / m.pool_bytes_total:.6f}x "
         f"fewer than the bf16 serve's {bf16_pool_bytes} | {card}")
     for (b, t, kv_limit, splits, w), e in sorted(served.items()):
@@ -1472,6 +1618,7 @@ def run_spec_serve_phase(cfg, model, card: str):
     with model_kernel_call(recording(geoms, keep_positions=False)):
         pa.launches.reset()
         pa.row_live_launches.reset()
+        pa.tile_launches.reset()
         server.model.attention_paths.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1479,6 +1626,7 @@ def run_spec_serve_phase(cfg, model, card: str):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, live_launches = pa.launches.count, pa.row_live_launches.count
+        tile = pa.tile_launches.count
     paths = dict(server.model.attention_paths)
     m = server.metrics
     infos = [server.request_info(r) for r in rids]
@@ -1521,14 +1669,15 @@ def run_spec_serve_phase(cfg, model, card: str):
         f"{m.draft_tokens}, accepted_tokens {m.accepted_tokens} (accept rate "
         f"{m.accept_rate():.6f}), spec_disabled_lanes {m.spec_disabled_lanes}; "
         f"prefill_chunks {m.prefill_chunks} | {card}")
-    log(f"serve F: paged_decode kernel launches {launches}, of them with row_live "
-        f"{live_launches} (= {m.mixed_dispatches} mixed steps x {cfg.num_layers} layers); "
-        f"attention calls by path {paths} | {card}")
+    routes = check_routes("F", cfg, geoms, launches, tile)
+    log(f"serve F: paged_decode kernel launches {launches} ({routes}), of them with "
+        f"row_live {live_launches} (= {m.mixed_dispatches} mixed steps x {cfg.num_layers} "
+        f"layers); attention calls by path {paths} | {card}")
     for key, e in sorted(served.items(), key=lambda ke: (len(ke[0]), ke[0][:5])):
         b, t, kv_limit, splits, w = key[:5]
         log(f"serve F: kernel geometry b={b} t={t} kv_limit={kv_limit} num_splits="
             f"{splits} W={w}{' row_live' if len(key) == 6 else ''}: {e['calls']} launches")
-    return prompts, outs, rids, launches, live_launches, served
+    return prompts, outs, rids, launches, live_launches, tile, served
 
 
 def per_request_gaps(model, prompts, outs, rids) -> list:
@@ -1738,13 +1887,14 @@ def run_tree_serve_phase(cfg, model, card: str):
         pa.launches.reset()
         pa.row_live_launches.reset()
         pa.tree_launches.reset()
+        pa.tile_launches.reset()
         server.model.attention_paths.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rids, outs = serve_staged(server, prompts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = pa.launches.count
+        launches, tile = pa.launches.count, pa.tile_launches.count
         live_launches, tree_launches = pa.row_live_launches.count, pa.tree_launches.count
     paths = dict(server.model.attention_paths)
     m = server.metrics
@@ -1801,14 +1951,15 @@ def run_tree_serve_phase(cfg, model, card: str):
         f"{m.accepted_tokens} (accept rate {m.accept_rate():.6f}); tree_accept_by_shape "
         f"{ {s: (v['lanes'], v['accepted']) for s, v in m.tree_accept_by_shape.items()} } "
         f"(lanes, accepted); prefill_chunks {m.prefill_chunks} | {card}")
-    log(f"serve T: paged_decode kernel launches {launches}, of them with tree_bits "
-        f"{tree_launches} (= {len(calls)} tree dispatches x {cfg.num_layers} layers), with "
-        f"row_live {live_launches}; attention calls by path {paths} | {card}")
+    routes = check_routes("T", cfg, geoms, launches, tile)
+    log(f"serve T: paged_decode kernel launches {launches} ({routes}), of them with "
+        f"tree_bits {tree_launches} (= {len(calls)} tree dispatches x {cfg.num_layers} "
+        f"layers), with row_live {live_launches}; attention calls by path {paths} | {card}")
     for key, e in sorted(served.items(), key=lambda ke: (len(ke[0]), ke[0][:5])):
         b, t, kv_limit, splits, w = key[:5]
         log(f"serve T: kernel geometry b={b} t={t} kv_limit={kv_limit} num_splits="
             f"{splits} W={w} {' '.join(key[5:])}: {e['calls']} launches")
-    return prompts, outs, rids, launches, tree_launches, served
+    return prompts, outs, rids, launches, tree_launches, tile, served
 
 
 def fp32_copy(cfg, model):
@@ -2410,9 +2561,14 @@ def main() -> int:
         for line in r.ptxas.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {r.name}: {line.strip()}")
+    tile_ptxas = built["paged_decode_tile"].ptxas
+    if tile_ptxas:  # empty when the library was built by an earlier process
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", tile_ptxas)]
+        check(len(spills) >= 4 and not any(spills),
+              f"paged_decode_tile spills (ptxas: {spills} bytes of spill stores/loads)")
 
     cfg, model = load_model()
-    prompts, outs, rids, launches, served, bf16_pool = run_serve_phase(cfg, model, card)
+    prompts, outs, rids, launches, tile, served, bf16_pool = run_serve_phase(cfg, model, card)
     run_e2e_phase(cfg, model, prompts, outs, rids)
     run_profile_phase(cfg, model, prompts, card)
     quant = {}  # label -> (kv dtype, mxu, K4 launches, served geometries)
@@ -2424,12 +2580,12 @@ def main() -> int:
                           kv_cache_dtype=kv_dtype, quant_mxu=mxu,
                           prefill_chunk_tokens=QUANT_CHUNK)
         quant[label] = (kv_dtype, mxu, q_launches, q_served)
-    f_prompts, f_outs, f_rids, _, f_live_launches, f_served = run_spec_serve_phase(
+    f_prompts, f_outs, f_rids, _, f_live_launches, f_tile, f_served = run_spec_serve_phase(
         cfg, model, card)
     run_spec_e2e_phase(cfg, model, f_prompts, f_outs, f_rids)
     run_spec_witness_phase(cfg, model, f_prompts, [f_outs[r] for r in f_rids])
     run_profile_phase(spec_config(cfg), model, f_prompts, card, label="serve F", **SPEC_KNOBS)
-    t_prompts, t_outs, t_rids, _, t_tree_launches, t_served = run_tree_serve_phase(
+    t_prompts, t_outs, t_rids, _, t_tree_launches, t_tile, t_served = run_tree_serve_phase(
         cfg, model, card)
     run_tree_e2e_phase(cfg, model, t_prompts, t_outs, t_rids)
     run_tree_branch_phase(cfg, model, t_prompts, card)
@@ -2439,6 +2595,7 @@ def main() -> int:
     paged = run_paged_kernel_phase(cfg, served, card)
     row_live = run_row_live_phase(cfg, f_served, card)
     tree = run_tree_kernel_phase(cfg, t_served, card)
+    run_tile_probe(card)
     # the six quantized combinations at the grid and at every geometry the
     # quantized serves launched (launch counts summed over both serves)
     q_geoms: dict = {}
@@ -2461,30 +2618,39 @@ def main() -> int:
 
     fa_src = "neuronx_distributed_llama3_2_tpu_torch/kernels/csrc/"
     pfa = "neuronx_distributed_llama3_2_tpu/kernels/pallas_flash_attention.py:"
+    k4 = "neuronx_distributed_llama3_2_tpu/kernels/paged_attention_pallas.py:419"
+    # the worst abs error of the calls the tile kernel served, over every phase
+    tile_err = max(r.pop("tile_err") for r in (paged, row_live, tree, *quant_records.values()))
+    # paged_decode: csrc/paged_decode.cu's launches in the bf16 serve (its t
+    # == 1 decode), timed at the serve's median decode call
     kernels = [dict(
         name="paged_decode", route="cuda", source=fa_src + "paged_decode.cu",
-        replaces="neuronx_distributed_llama3_2_tpu/kernels/paged_attention_pallas.py:419",
-        launches=launches, max_abs_err=paged["max_abs_err"], ms=paged["ms"],
-        plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
+        replaces=k4, launches=launches - tile, max_abs_err=paged["max_abs_err"],
+        ms=paged["ms"], plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
         bound_by=paged["bound_by"], library_ms=paged["library_ms"],
     )]
+    # paged_decode_tile: its launches over the bf16 serves (Serve's suffix
+    # prefills, F's verifies and mixed steps, T's tree verifies and mixed
+    # steps), timed at the call they launched most, F's median mixed call
+    kernels.append(dict(
+        name="paged_decode_tile", route="cuda", source=fa_src + "paged_decode_tile.cu",
+        replaces=k4, launches=tile + f_tile + t_tile, **dict(row_live, max_abs_err=tile_err),
+    ))
     # one entry per quantized mode the serves launched
     for label, (kv_dtype, mxu, q_launches, _) in quant.items():
         kernels.append(dict(
             name=f"paged_decode_{kv_dtype}{'_mxu' if mxu else ''}", route="cuda",
-            source=fa_src + "paged_decode.cu",
-            replaces="neuronx_distributed_llama3_2_tpu/kernels/paged_attention_pallas.py:419",
-            launches=q_launches, **quant_records[kv_dtype, mxu],
+            source=fa_src + "paged_decode.cu", replaces=k4, launches=q_launches,
+            **quant_records[kv_dtype, mxu],
         ))
+    # modes 4 and 5 of the bf16 serves, all on the tile kernel
     kernels.append(dict(
-        name="paged_decode_row_live", route="cuda", source=fa_src + "paged_decode.cu",
-        replaces="neuronx_distributed_llama3_2_tpu/kernels/paged_attention_pallas.py:419",
-        launches=f_live_launches, **row_live,
+        name="paged_decode_row_live", route="cuda", source=fa_src + "paged_decode_tile.cu",
+        replaces=k4, launches=f_live_launches, **row_live,
     ))
     kernels.append(dict(
-        name="paged_decode_tree", route="cuda", source=fa_src + "paged_decode.cu",
-        replaces="neuronx_distributed_llama3_2_tpu/kernels/paged_attention_pallas.py:419",
-        launches=t_tree_launches, **tree,
+        name="paged_decode_tree", route="cuda", source=fa_src + "paged_decode_tile.cu",
+        replaces=k4, launches=t_tree_launches, **tree,
     ))
     for kn, name, src, line in ((1, "flash_fwd", "flash_fwd.cu", 194),
                                 (2, "flash_bwd_dq", "flash_bwd.cu", 394),

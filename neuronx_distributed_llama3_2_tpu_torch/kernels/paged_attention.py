@@ -3,11 +3,15 @@ place through per-lane block tables.
 
 Counterpart of ``neuronx_distributed_llama3_2_tpu/kernels/paged_attention_pallas.py``
 (``paged_flash_decode``, same signature and semantics). On a CUDA tensor
-the wrapper launches the hand-written CUDA C++ kernel of
-``csrc/paged_decode.cu`` (built for ``sm_90a`` at first use, see
-:mod:`._build`); on a CPU tensor it runs :func:`paged_flash_decode_reference`,
-the plain PyTorch version of the same function. Any other device raises:
-there is no fallback from one to the other.
+the wrapper launches a hand-written CUDA C++ kernel (built for ``sm_90a``
+at first use, see :mod:`._build`): ``csrc/paged_decode_tile.cu``, one
+block owning a whole query tile on the tensor cores, for a bf16 pool with
+``t > 1`` and ``t * G <= TILE_MAX_ROWS``; ``csrc/paged_decode.cu`` for
+every other call (the t == 1 decode, the quantized pools, wider tiles).
+:func:`kernel_route` is the rule. On a CPU tensor it runs
+:func:`paged_flash_decode_reference`, the plain PyTorch version of the same
+function. Any other device raises: there is no fallback from one to the
+other.
 
 Logical row ``p`` of lane ``i`` lives at pool row
 ``block_tables[i, p // bs] * bs + p % bs``. A 3-dim q is the T == 1
@@ -64,9 +68,11 @@ from neuronx_distributed_llama3_2_tpu_torch.quantization.kv_cache import (
 # SMs past small decode batches without shrinking per-split work below a
 # few pool blocks
 DEFAULT_NUM_SPLITS = 4
-# what csrc/paged_decode.cu is compiled for
+# what csrc/paged_decode.cu and csrc/paged_decode_tile.cu are compiled for
 KERNEL_BLOCK_SIZE = 16
 KERNEL_HEAD_DIMS = (64, 128)
+# tile rows (t * G) one block of csrc/paged_decode_tile.cu owns
+TILE_MAX_ROWS = 128
 # tree_bits packs each node's ancestor set into one int32
 MAX_TREE_NODES = 32
 
@@ -89,6 +95,9 @@ launches = LaunchCounter()
 row_live_launches = LaunchCounter()
 #: of those, the launches with per-node ancestor masks (mode 5, ``tree_bits``)
 tree_launches = LaunchCounter()
+#: of those, the launches of csrc/paged_decode_tile.cu (the rest are
+#: csrc/paged_decode.cu's)
+tile_launches = LaunchCounter()
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -330,24 +339,53 @@ KV_KINDS = {
 }
 
 
-def _kernel():
-    """The C entry point of csrc/paged_decode.cu, built at first use, with
-    every pointer and the stream passed as ``c_void_p``."""
+def kernel_route(kv_dtype: torch.dtype, t: int, group: int, head_dim: int) -> str:
+    """Which CUDA source a launch goes to: ``"tile"``
+    (csrc/paged_decode_tile.cu) exactly for a bf16 pool, ``t > 1``, ``t *
+    group <= TILE_MAX_ROWS`` and ``head_dim`` in ``KERNEL_HEAD_DIMS``;
+    ``"split"`` (csrc/paged_decode.cu) for every other call."""
+    if (kv_dtype == torch.bfloat16 and t > 1 and t * group <= TILE_MAX_ROWS
+            and head_dim in KERNEL_HEAD_DIMS):
+        return "tile"
+    return "split"
+
+
+def _entry(source: str, n_ptrs: int, n_ints: int):
+    """The C entry point of csrc/<source>.cu, built at first use: ``n_ptrs``
+    pointers, ``n_ints`` ints, then the softmax scale and the stream (every
+    pointer and the stream passed as ``c_void_p``)."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels._build import load
 
-    fn = load("paged_decode").paged_decode
+    fn = getattr(load(source), source)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 12 + [
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
             ctypes.c_float, ctypes.c_void_p,
         ]
     return fn
 
 
+def _kernel():
+    return _entry("paged_decode", 13, 12)
+
+
+def _tile_kernel():
+    return _entry("paged_decode_tile", 11, 10)
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _launch(
     q, k_pool, v_pool, block_tables, positions, nblk, splits, bps, *,
     k_scale=None, v_scale=None, quant_mxu=False, row_live=None, tree_bits=None,
+    kernel="auto",
 ):
+    """Validate and launch one call. ``kernel`` is ``"auto"`` on every path
+    of the port (:func:`kernel_route` picks the source); ``"split"`` or
+    ``"tile"`` forces one, for a comparison of the two at the same call.
+    A build or launch error raises: nothing retries on the other source."""
     b, t, n, d = q.shape
     nb, bs, nkv, _ = k_pool.shape
     g = n // nkv
@@ -407,29 +445,48 @@ def _launch(
         )
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("the kernel's vector K/V loads need 16-byte aligned pools")
+    if kernel not in ("auto", "split", "tile"):
+        raise ValueError(f"kernel must be 'auto', 'split' or 'tile', got {kernel!r}")
+    route = "split" if kernel == "split" else kernel_route(k_pool.dtype, t, g, d)
+    if kernel == "tile" and route != "tile":
+        raise ValueError(
+            f"csrc/paged_decode_tile.cu takes a bf16 pool with 1 < t and t * G <= "
+            f"{TILE_MAX_ROWS}; got a {k_pool.dtype} pool, t {t}, G {g}"
+        )
 
-    fn = _kernel()
     tg = t * g
     o_parts = torch.empty((b, nkv, splits, tg, d), dtype=torch.float32, device=q.device)
     m_parts = torch.empty((b, nkv, splits, tg), dtype=torch.float32, device=q.device)
     l_parts = torch.empty_like(m_parts)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr() if quantized else None,
-        v_scale.data_ptr() if quantized else None,
-        block_tables.data_ptr(), positions.data_ptr(),
+    masks = (
         row_live.data_ptr() if row_live is not None else None,
         tree_bits.data_ptr() if tree_bits is not None else None,
-        o_parts.data_ptr(), m_parts.data_ptr(), l_parts.data_ptr(),
-        out.data_ptr(),
-        b, t, n, nkv, d, bs, block_tables.shape[1], nblk, splits, bps,
-        KV_KINDS[k_pool.dtype], int(quant_mxu), d ** -0.5, stream,
     )
+    parts = (o_parts.data_ptr(), m_parts.data_ptr(), l_parts.data_ptr(), out.data_ptr())
+    geometry = (b, t, n, nkv, d, bs, block_tables.shape[1], nblk, splits, bps)
+    head = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
+    lookup = (block_tables.data_ptr(), positions.data_ptr())
+    if route == "tile":
+        err = _tile_kernel()(
+            *head, *lookup, *masks, *parts, *geometry, d ** -0.5, _stream(q.device),
+        )
+    else:
+        scales = (
+            (k_scale.data_ptr(), v_scale.data_ptr()) if quantized else (None, None)
+        )
+        err = _kernel()(
+            *head, *scales, *lookup, *masks, *parts, *geometry,
+            KV_KINDS[k_pool.dtype], int(quant_mxu), d ** -0.5, _stream(q.device),
+        )
     if err != 0:
-        raise RuntimeError(f"paged_decode launch failed: cudaError_t {err}")
+        raise RuntimeError(
+            f"paged_decode{'_tile' if route == 'tile' else ''} launch failed: "
+            f"cudaError_t {err}"
+        )
     launches.count += 1
+    if route == "tile":
+        tile_launches.count += 1
     if row_live is not None:
         row_live_launches.count += 1
     if tree_bits is not None:

@@ -731,3 +731,134 @@ def test_wide_tiles_reach_the_launch():
         bf = (q.bfloat16(), kp.bfloat16(), vp.bfloat16(), tables, positions, 8, 1, 8)
         with pytest.raises(ValueError, match="block_size 16 and head_dim"):
             pa._launch(*bf)
+
+
+# -- the route between csrc/paged_decode.cu and csrc/paged_decode_tile.cu --------
+
+ROUTES = [
+    # (pool dtype, t, G, head_dim, source)
+    (torch.bfloat16, 2, 4, 64, "tile"),
+    (torch.bfloat16, 8, 4, 64, "tile"),
+    (torch.bfloat16, 32, 4, 64, "tile"),     # 128 rows, the widest tile
+    (torch.bfloat16, 16, 3, 128, "tile"),    # the 3B geometry
+    (torch.bfloat16, 1, 4, 64, "split"),     # the t == 1 decode
+    (torch.bfloat16, 1, 3, 128, "split"),
+    (torch.int8, 8, 4, 64, "split"),
+    (torch.float8_e4m3fn, 8, 4, 64, "split"),
+    (torch.float8_e5m2, 8, 4, 64, "split"),
+    (torch.bfloat16, 40, 4, 64, "split"),    # 160 rows
+    (torch.bfloat16, 8, 4, 32, "split"),     # a head_dim neither source takes
+]
+
+
+@pytest.mark.parametrize("dtype,t,g,d,want", ROUTES,
+                         ids=[f"{str(r[0])[6:]}-t{r[1]}-g{r[2]}-d{r[3]}" for r in ROUTES])
+def test_kernel_route(dtype, t, g, d, want):
+    assert pa.kernel_route(dtype, t, g, d) == want
+
+
+def _launch_case(t, pool="bf16", b=2, n=8, nkv=2, d=64, nb=6, w=4):
+    """CPU tensors that pass every check of the CUDA launch path: bf16 q,
+    16-row blocks, head_dim 64, G = 4."""
+    rng = np.random.default_rng(t)
+    q = torch.as_tensor(rng.standard_normal((b, t, n, d))).bfloat16()
+    kp = torch.as_tensor(rng.standard_normal((nb, 16, nkv, d))).bfloat16()
+    vp = torch.as_tensor(rng.standard_normal((nb, 16, nkv, d))).bfloat16()
+    scales = {}
+    if pool != "bf16":
+        kp, ks = kv.kv_quantize(kp, kv.kv_cache_torch_dtype(pool))
+        vp, vs = kv.kv_quantize(vp, kv.kv_cache_torch_dtype(pool))
+        scales = dict(k_scale=ks, v_scale=vs)
+    tables = torch.as_tensor(rng.integers(1, nb, size=(b, w)), dtype=torch.int32)
+    positions = torch.as_tensor([0, 9][:b], dtype=torch.int32)
+    return (q, kp, vp, tables, positions), scales
+
+
+@pytest.fixture
+def fake_entries(monkeypatch):
+    """The two C entry points replaced by recorders (no library is built):
+    ``calls`` gets (source, ints) for each launch."""
+    calls = []
+
+    def entry(source, n_ptrs):
+        def fn(*args):
+            assert len(args) == n_ptrs + (12 if source == "split" else 10) + 2
+            ints = args[n_ptrs:-2]
+            assert all(isinstance(x, int) for x in ints)
+            assert args[-2] == pytest.approx(args[n_ptrs + 4] ** -0.5)
+            calls.append((source, ints))
+            return 0
+        return lambda: fn
+
+    monkeypatch.setattr(pa, "_kernel", entry("split", 13))
+    monkeypatch.setattr(pa, "_tile_kernel", entry("tile", 11))
+    monkeypatch.setattr(pa, "_stream", lambda device: 0)
+    for c in (pa.launches, pa.row_live_launches, pa.tree_launches, pa.tile_launches):
+        c.reset()
+    return calls
+
+
+LAUNCHES = [
+    # (t, pool, row_live, tree_bits, kernel, source)
+    (4, "bf16", False, False, "auto", "tile"),
+    (4, "bf16", True, False, "auto", "tile"),
+    (4, "bf16", False, True, "auto", "tile"),
+    (4, "bf16", True, True, "auto", "tile"),
+    (4, "bf16", False, False, "split", "split"),
+    (4, "bf16", False, True, "split", "split"),
+    (1, "bf16", False, False, "auto", "split"),
+    (4, "int8", True, False, "auto", "split"),
+    (4, "fp8_e4m3", False, True, "auto", "split"),
+    (40, "bf16", False, False, "auto", "split"),
+]
+
+
+@pytest.mark.parametrize(
+    "t,pool,live,tree,kernel,source", LAUNCHES,
+    ids=[f"t{c[0]}-{c[1]}{'-live' if c[2] else ''}{'-tree' if c[3] else ''}-{c[4]}"
+         for c in LAUNCHES])
+def test_launch_calls_the_routed_entry(fake_entries, t, pool, live, tree, kernel, source):
+    """_launch hands the routed C entry point the geometry's ints (the split
+    source also its payload kind and quant_mxu) and ticks tile_launches for
+    the tile source only; row_live and tree_bits launches are counted as
+    before, whichever source takes them."""
+    args, scales = _launch_case(t, pool)
+    b = args[0].shape[0]
+    kw = dict(scales)
+    if live:
+        kw["row_live"] = torch.full((b,), max(1, t - 1), dtype=torch.int32)
+    if tree:
+        kw["tree_bits"] = torch.as_tensor(_chain_bits(b, t))
+    out = pa._launch(*args, 3, 2, 2, kernel=kernel, **kw)
+    assert out.shape == args[0].shape and out.dtype == torch.bfloat16
+    geometry = (b, t, 8, 2, 64, 16, 4, 3, 2, 2)
+    want = geometry if source == "tile" else geometry + (
+        pa.KV_KINDS[args[1].dtype], 0)
+    assert fake_entries == [(source, want)]
+    assert pa.launches.count == 1
+    assert pa.tile_launches.count == (source == "tile")
+    assert pa.row_live_launches.count == live
+    assert pa.tree_launches.count == tree
+
+
+@pytest.mark.parametrize("t,pool", [(1, "bf16"), (4, "int8"), (4, "fp8_e4m3"),
+                                    (4, "fp8_e5m2"), (40, "bf16")])
+def test_tile_kernel_takes_only_its_calls(fake_entries, t, pool):
+    """Forcing the tile source on a call it does not take raises before any
+    launch, as does a source name that does not exist."""
+    args, scales = _launch_case(t, pool)
+    with pytest.raises(ValueError, match="paged_decode_tile.cu takes"):
+        pa._launch(*args, 3, 2, 2, kernel="tile", **scales)
+    with pytest.raises(ValueError, match="kernel must be"):
+        pa._launch(*args, 3, 2, 2, kernel="cutlass", **scales)
+    assert fake_entries == [] and pa.launches.count == 0
+
+
+def test_a_tile_launch_error_raises(monkeypatch):
+    """A refused tile launch raises; nothing retries on the split source."""
+    monkeypatch.setattr(pa, "_tile_kernel", lambda: lambda *a: 1)
+    monkeypatch.setattr(pa, "_kernel", lambda: pytest.fail("retried on the split source"))
+    monkeypatch.setattr(pa, "_stream", lambda device: 0)
+    args, _ = _launch_case(4)
+    with pytest.raises(RuntimeError, match="paged_decode_tile launch failed"):
+        pa._launch(*args, 3, 2, 2)

@@ -484,22 +484,33 @@ def test_tree_legs_match_jax(weights, drafter, fused):
             assert getattr(lin.metrics, c) == getattr(m, c)
 
 
-@pytest.mark.parametrize("model", ["kernel", "gather"])
-def test_tree_commits_through_the_second_branch_match_jax(weights, model):
+COMMIT_LEGS = [(m, d) for d in ("fp32", "int8", "fp8_e4m3") for m in ("kernel", "gather")]
+
+
+@pytest.mark.parametrize(
+    "model,pool", COMMIT_LEGS,
+    ids=[m if d == "fp32" else f"{m}-{d}" for m, d in COMMIT_LEGS])
+def test_tree_commits_through_the_second_branch_match_jax(weights, model, pool):
     """The decoy oracle's trees, fused: every accept runs through the
     second branch, so each step that accepts moves rows to the frontier
     (in the mixed step while prompts prefill, in the tree verify after).
     The streams are the plain greedy streams, and equal JAX's with every
     counter; the pools after the serve agree with JAX's (an identity
-    commit fails here: the tiny model's streams do not show it)."""
+    commit fails here: the tiny model's streams do not show it). From the
+    model's own fp32 pool, and from int8 and fp8 e4m3 pools, whose
+    payloads and scales the commit moves together (byte views in the
+    port)."""
     prompts = [_prompts(np.random.default_rng(52), (19, 26, 11))]
-    _, plain = _engines(weights, 12, kernel=model == "kernel", block_size=8, num_blocks=64)
+    quant = {} if pool == "fp32" else dict(kv_cache_dtype=pool)
+    _, plain = _engines(weights, 12, kernel=model == "kernel", block_size=8, num_blocks=64,
+                        **quant)
     greedy = _run(plain, prompts)
     oracle = _DecoyOracle([p + greedy[r] for r, p in enumerate(prompts[0])],
                           LLAMA_CONFIGS["tiny"].vocab_size)
     jax_eng, port = _engines(
         weights, 12, kernel=model == "kernel", drafter=oracle, block_size=8, num_blocks=64,
         spec_draft_tokens=4, spec_tree=True, prefill_chunk_tokens=6, fused_step=True,
+        **quant,
     )
     moved = {5: 0, 6: 0}  # lanes whose commit moved rows, by width (verify, mixed)
     inner = port.model._tree_frontier_commit
@@ -516,9 +527,14 @@ def test_tree_commits_through_the_second_branch_match_jax(weights, model):
     assert moved[5] > 0 and moved[6] > 0
     # the pools agree after the serve, committed rows included (block 0,
     # the null block, takes every lane's garbage rows in no set order)
-    for pool in ("k", "v"):
-        np.testing.assert_allclose(getattr(port.cache, pool)[:, 1:].numpy(),
-                                   np.asarray(getattr(jax_eng.cache, pool))[:, 1:], atol=1e-5)
+    names = ("k", "v") if pool == "fp32" else ("k", "v", "k_scale", "v_scale")
+    for name in names:
+        got, want = getattr(port.cache, name)[:, 1:], np.asarray(getattr(jax_eng.cache, name))[:, 1:]
+        if pool == "fp32" or name.endswith("scale"):
+            np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32), atol=1e-5)
+        else:
+            # payload bytes: torch has no numpy view of its fp8 types
+            np.testing.assert_array_equal(got.view(torch.uint8).numpy(), want.view(np.uint8))
 
 
 def test_tree_knobs_are_validated_as_jax_does(weights):
