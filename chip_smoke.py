@@ -77,7 +77,10 @@
    block (128 tile rows) with and without row_live. The tile kernel runs
    once more on a probe whose lanes' walks end in a block of 16 fresh
    rows, where a walk without its last staged block must fail the check;
-   ptxas must report no spills for it.
+   ptxas must report no spills for it. K1-K3 (the flash kernels) run so at
+   six shapes; at the train shape the check must reject their outputs with
+   one kv tile left out, and K1's with the causal diagonal masked (col <
+   row); ptxas must report no spills for K1 either.
 
 Every failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -2344,9 +2347,10 @@ LSE_TOL = 1e-4
 # ulps of a tensor's largest value would be as large as a late causal
 # row's whole output. Both read bf16 operands, accumulate in fp32 in
 # another order and round o, dq, dk, dv to bf16 on their own; K1 rounds P
-# to bf16 against the running max of its 64-row kv tiles, the plain
-# version against that of 1024-row chunks, so their rounded P differ at
-# random by up to a bf16 ulp (2^-8) relative. Hence:
+# to bf16 against the running max of its kv tiles (64 rows at D = 64, 128
+# at D = 128; K2 and K3 rebuild P from lse), the plain version against
+# that of 1024-row chunks, so their rounded P differ at random by up to a
+# bf16 ulp (2^-8) relative. Hence:
 # - each output element within its ROW_ULPS limit (``element_ratio``);
 # - each (b, head, TILE-row tile) within TILE_REL_L2 relative L2 error:
 #   the P roundings give about 2^-9 relative and the output roundings as
@@ -2397,30 +2401,53 @@ def flash_agreement(out: torch.Tensor, ref: torch.Tensor):
 
 
 @contextlib.contextmanager
-def plain_skips_tile():
-    """While the block runs, the plain versions leave out the (q, kv) pairs
-    of FAULT_Q x FAULT_KV, as a kernel that skipped that tile would."""
+def _plain_mask(mask_of):
+    """While the block runs, the plain versions mask with
+    ``mask_of(inner)(q_pos, kv_pos, causal, segment_ids)``, ``inner`` being
+    their own mask."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import flash_attention as fa
 
     inner = fa._mask
-
-    def mask(q_pos, kv_pos, causal, segment_ids):
-        skip = (((q_pos >= FAULT_Q[0]) & (q_pos < FAULT_Q[1]))[:, None]
-                & ((kv_pos >= FAULT_KV[0]) & (kv_pos < FAULT_KV[1]))[None, :])
-        return inner(q_pos, kv_pos, causal, segment_ids) & ~skip
-
-    fa._mask = mask
+    fa._mask = mask_of(inner)
     try:
         yield
     finally:
         fa._mask = inner
 
 
+def plain_skips_tile(q_rows=FAULT_Q, kv_rows=FAULT_KV):
+    """While the block runs, the plain versions leave out the (q, kv) pairs
+    of q_rows x kv_rows, as a kernel that skipped that tile would."""
+    def mask_of(inner):
+        def mask(q_pos, kv_pos, causal, segment_ids):
+            skip = (((q_pos >= q_rows[0]) & (q_pos < q_rows[1]))[:, None]
+                    & ((kv_pos >= kv_rows[0]) & (kv_pos < kv_rows[1]))[None, :])
+            return inner(q_pos, kv_pos, causal, segment_ids) & ~skip
+        return mask
+    return _plain_mask(mask_of)
+
+
+def plain_misses_diagonal():
+    """While the block runs, the plain versions' causal mask is col < row in
+    place of col <= row, as a kernel that masks its diagonal tiles with the
+    strict compare would: every row loses its own key, and row 0 every
+    key."""
+    def mask_of(inner):
+        def mask(q_pos, kv_pos, causal, segment_ids):
+            ok = inner(q_pos, kv_pos, causal, segment_ids)
+            if causal:
+                ok = ok & (kv_pos[None, :] != q_pos[:, None])
+            return ok
+        return mask
+    return _plain_mask(mask_of)
+
+
 def run_flash_kernel_phase(card: str) -> dict:
     """K1, K2 and K3 against their plain versions at FLASH_CASES (held by
     ``flash_agreement``, lse within LSE_TOL), with kernel, plain, library
     and bound times. At the train shape the same check must also reject
-    the kernels' outputs with a planted fault (``plain_skips_tile``)."""
+    the kernels' outputs with a planted fault (``plain_skips_tile``), and
+    K1's with a causal mask of col < row (``plain_misses_diagonal``)."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2477,6 +2504,17 @@ def run_flash_kernel_phase(card: str) -> dict:
                 check(elem > 1.0 or rel > TILE_REL_L2,
                       f"the flash check passes a planted fault in {label}")
             del bad, planted
+            # the second planted K1 fault: the diagonal masked with col < row
+            with plain_misses_diagonal():
+                bad_o = fa.flash_fwd_reference(q, k, v, None, causal, sc, block_kv=1024)[0]
+            planted = (o.float() + bad_o.float() - refs["o"].float()).to(o.dtype)
+            elem, rel = flash_agreement(planted, refs["o"])
+            log(f"flash [{name}] planted fault (the causal diagonal masked with col < row): "
+                f"o error {elem:.6g} x its element limit, tile relative L2 {rel:.6g} "
+                f"(limits 1, {TILE_REL_L2})")
+            check(elem > 1.0 or rel > TILE_REL_L2,
+                  "the flash check passes a forward whose causal mask is col < row")
+            del bad_o, planted
         del refs, outs
 
         def fwd(i):
@@ -2561,11 +2599,14 @@ def main() -> int:
         for line in r.ptxas.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {r.name}: {line.strip()}")
-    tile_ptxas = built["paged_decode_tile"].ptxas
-    if tile_ptxas:  # empty when the library was built by an earlier process
-        spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", tile_ptxas)]
-        check(len(spills) >= 4 and not any(spills),
-              f"paged_decode_tile spills (ptxas: {spills} bytes of spill stores/loads)")
+    # the two instances (D = 64, 128) of each kernel written for one block
+    # to hold a whole tile in registers must not spill
+    for name in ("paged_decode_tile", "flash_fwd"):
+        ptxas = built[name].ptxas
+        if ptxas:  # empty when the library was built by an earlier process
+            spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas)]
+            check(len(spills) >= 4 and not any(spills),
+                  f"{name} spills (ptxas: {spills} bytes of spill stores/loads)")
 
     cfg, model = load_model()
     prompts, outs, rids, launches, tile, served, bf16_pool = run_serve_phase(cfg, model, card)

@@ -23,7 +23,7 @@ the input-dtype operands, ``sm_scale`` on the fp32 product, softmax weights
 rounded to the value dtype before P·V, dS rounded to the k/q dtype before
 the dq and dk products, dq/dk/dv accumulated in fp32 and cast once. They
 walk kv in chunks of ``block_kv`` as the TPU kernel walks its kv blocks;
-the CUDA kernels use tiles of their own (64 x 64, stated in the sources).
+the CUDA kernels use tiles of their own (stated in the sources).
 
 The ``segment_ids`` mode (packed documents) runs in the plain versions
 only; on a CUDA tensor it raises ``NotImplementedError``.
