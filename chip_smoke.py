@@ -78,9 +78,11 @@
    once more on a probe whose lanes' walks end in a block of 16 fresh
    rows, where a walk without its last staged block must fail the check;
    ptxas must report no spills for it. K1-K3 (the flash kernels) run so at
-   six shapes; at the train shape the check must reject their outputs with
-   one kv tile left out, and K1's with the causal diagonal masked (col <
-   row); ptxas must report no spills for K1 either.
+   six shapes; at the train shape the check must reject each of their
+   outputs (o, dq, dk, dv) with one kv tile left out, and each with the
+   causal diagonal masked (col < row), the compare that only the kernels'
+   diagonal tiles run; ptxas must report no spills for K1-K3 either, and
+   no wgmma product serialized (warning C7520).
 
 Every failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -2348,9 +2350,11 @@ LSE_TOL = 1e-4
 # row's whole output. Both read bf16 operands, accumulate in fp32 in
 # another order and round o, dq, dk, dv to bf16 on their own; K1 rounds P
 # to bf16 against the running max of its kv tiles (64 rows at D = 64, 128
-# at D = 128; K2 and K3 rebuild P from lse), the plain version against
-# that of 1024-row chunks, so their rounded P differ at random by up to a
-# bf16 ulp (2^-8) relative. Hence:
+# at D = 128), the plain version against that of 1024-row chunks, so their
+# rounded P differ at random by up to a bf16 ulp (2^-8) relative. K2 (kv
+# tiles of 64 rows) and K3 (q tiles of 64 rows) rebuild P from lse and
+# round P and dS where the plain version does, from fp32 scores summed in
+# another order, so a rounding may land one ulp apart. Hence:
 # - each output element within its ROW_ULPS limit (``element_ratio``);
 # - each (b, head, TILE-row tile) within TILE_REL_L2 relative L2 error:
 #   the P roundings give about 2^-9 relative and the output roundings as
@@ -2358,9 +2362,10 @@ LSE_TOL = 1e-4
 TILE_REL_L2 = 1e-2
 TILE = 64
 # the kernel phase's planted fault, at the train shape: kernels that leave
-# out the kv rows FAULT_KV for the q rows FAULT_Q (one 64 x 64 tile): 64
-# of the ~2000 keys of those q rows, 64 of the 1024 queries of those kv
-# rows. The check must reject every output the fault touches
+# out the kv rows FAULT_KV for the q rows FAULT_Q (one 64 x 64 tile: one
+# warpgroup's share of a K1 or K2 kv tile, one step of a K3 warpgroup's
+# walk): 64 of the ~2000 keys of those q rows, 64 of the 1024 queries of
+# those kv rows. The check must reject every output the fault touches
 FAULT_Q = (1984, 2048)
 FAULT_KV = (1024, 1088)
 
@@ -2446,8 +2451,9 @@ def run_flash_kernel_phase(card: str) -> dict:
     """K1, K2 and K3 against their plain versions at FLASH_CASES (held by
     ``flash_agreement``, lse within LSE_TOL), with kernel, plain, library
     and bound times. At the train shape the same check must also reject
-    the kernels' outputs with a planted fault (``plain_skips_tile``), and
-    K1's with a causal mask of col < row (``plain_misses_diagonal``)."""
+    each of the kernels' outputs with a planted fault
+    (``plain_skips_tile``), and each with a causal mask of col < row
+    (``plain_misses_diagonal``)."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2488,33 +2494,26 @@ def run_flash_kernel_phase(card: str) -> dict:
         del o_ref, lse_ref
 
         if record is None:
-            # the planted fault: the kernels' outputs plus what leaving out
-            # the tile changes in the plain versions
-            with plain_skips_tile():
-                bad = dict(zip(("o", "dq", "dk", "dv"), (
-                    fa.flash_fwd_reference(q, k, v, None, causal, sc, block_kv=1024)[0],
-                    *fa.flash_bwd_reference(q, k, v, o, lse, do, None, causal, sc,
-                                            block_kv=1024))))
-            for label, out in outs.items():
-                planted = (out.float() + bad[label].float() - refs[label].float()).to(out.dtype)
-                elem, rel = flash_agreement(planted, refs[label])
-                log(f"flash [{name}] planted fault (kv rows {FAULT_KV} left out for q rows "
-                    f"{FAULT_Q}): {label} error {elem:.6g} x its element limit, tile "
-                    f"relative L2 {rel:.6g} (limits 1, {TILE_REL_L2})")
-                check(elem > 1.0 or rel > TILE_REL_L2,
-                      f"the flash check passes a planted fault in {label}")
-            del bad, planted
-            # the second planted K1 fault: the diagonal masked with col < row
-            with plain_misses_diagonal():
-                bad_o = fa.flash_fwd_reference(q, k, v, None, causal, sc, block_kv=1024)[0]
-            planted = (o.float() + bad_o.float() - refs["o"].float()).to(o.dtype)
-            elem, rel = flash_agreement(planted, refs["o"])
-            log(f"flash [{name}] planted fault (the causal diagonal masked with col < row): "
-                f"o error {elem:.6g} x its element limit, tile relative L2 {rel:.6g} "
-                f"(limits 1, {TILE_REL_L2})")
-            check(elem > 1.0 or rel > TILE_REL_L2,
-                  "the flash check passes a forward whose causal mask is col < row")
-            del bad_o, planted
+            # the planted faults: the kernels' outputs plus what the fault
+            # changes in the plain versions
+            for fault, planted_mask in (
+                    (f"kv rows {FAULT_KV} left out for q rows {FAULT_Q}", plain_skips_tile()),
+                    ("the causal diagonal masked with col < row", plain_misses_diagonal())):
+                with planted_mask:
+                    bad = dict(zip(("o", "dq", "dk", "dv"), (
+                        fa.flash_fwd_reference(q, k, v, None, causal, sc, block_kv=1024)[0],
+                        *fa.flash_bwd_reference(q, k, v, o, lse, do, None, causal, sc,
+                                                block_kv=1024))))
+                for label, out in outs.items():
+                    planted = (out.float() + bad[label].float()
+                               - refs[label].float()).to(out.dtype)
+                    elem, rel = flash_agreement(planted, refs[label])
+                    log(f"flash [{name}] planted fault ({fault}): {label} error {elem:.6g} x "
+                        f"its element limit, tile relative L2 {rel:.6g} (limits 1, "
+                        f"{TILE_REL_L2})")
+                    check(elem > 1.0 or rel > TILE_REL_L2,
+                          f"the flash check passes a planted fault ({fault}) in {label}")
+                del bad, planted
         del refs, outs
 
         def fwd(i):
@@ -2599,14 +2598,16 @@ def main() -> int:
         for line in r.ptxas.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {r.name}: {line.strip()}")
-    # the two instances (D = 64, 128) of each kernel written for one block
-    # to hold a whole tile in registers must not spill
-    for name in ("paged_decode_tile", "flash_fwd"):
+    # the instances (D = 64, 128) of each kernel written for one block to
+    # hold a whole tile in registers must not spill, and ptxas must not
+    # serialize a wgmma product (warning C7520)
+    for name in ("paged_decode_tile", "flash_fwd", "flash_bwd"):
         ptxas = built[name].ptxas
         if ptxas:  # empty when the library was built by an earlier process
             spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas)]
             check(len(spills) >= 4 and not any(spills),
                   f"{name} spills (ptxas: {spills} bytes of spill stores/loads)")
+            check("C7520" not in ptxas, f"ptxas serialized a wgmma product in {name}")
 
     cfg, model = load_model()
     prompts, outs, rids, launches, tile, served, bf16_pool = run_serve_phase(cfg, model, card)

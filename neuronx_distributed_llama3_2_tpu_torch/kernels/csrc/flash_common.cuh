@@ -1,5 +1,6 @@
-// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// tile geometry, the bf16 tensor-core product and its fragment loads.
+// Pieces shared by the attention kernels (flash_fwd.cu, flash_bwd.cu,
+// paged_decode_tile.cu): the bf16 tensor-core product and its fragment
+// loads, accumulator-to-fragment rounding, the row store.
 //
 // Every product is mma.sync.m16n8k16 bf16 x bf16 -> fp32 (PTX ISA,
 // "Matrix fragments for mma.m16n8k16"). With g = lane / 4, t = lane % 4:
@@ -11,9 +12,9 @@
 // of C is spread over the four lanes 4g..4g+3, so a row reduction is the
 // lane's own values followed by two xor-shuffles (1, 2).
 //
-// Tiles live in shared memory as bf16 rows of D + kPad elements: the
-// padding shifts consecutive rows by 4 banks, so the fragment loads of a
-// warp touch 32 distinct banks.
+// paged_decode_tile.cu keeps tiles in shared memory as bf16 rows of D +
+// kPad elements: the padding shifts consecutive rows by 4 banks, so the
+// fragment loads of a warp touch 32 distinct banks.
 
 #pragma once
 
@@ -25,12 +26,7 @@
 
 namespace flash {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;  // rows of a q tile and of a kv tile; 16 per warp
-constexpr int kPad = 8;    // bf16 padding per shared-memory row
-constexpr int kNt = kTile / 8;    // 8-column C tiles across a 64-wide tile
-constexpr int kKc = kTile / 16;   // 16-deep k chunks across a 64-wide tile
+constexpr int kPad = 8;  // bf16 padding per shared-memory row
 
 typedef __nv_bfloat16 bf16;
 
@@ -53,16 +49,6 @@ __device__ __forceinline__ uint32_t pack_float(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// A(m, k) = s[m * ld + k]: 16 x 16 at s, row-major.
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* s, int ld,
-                                       int lane) {
-  const bf16* p = s + (lane >> 2) * ld + 2 * (lane & 3);
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-}
-
 // B(k, n) = s[n * ld + k]: the 16 x 8 B is the transpose of the 8 rows of
 // 16 at s (K^T read from row-major K).
 __device__ __forceinline__ void load_b_t(uint32_t b[2], const bf16* s, int ld,
@@ -80,32 +66,15 @@ __device__ __forceinline__ void load_b(uint32_t b[2], const bf16* s, int ld,
   b[1] = pack_bf16(s[(k + 8) * ld + g], s[(k + 9) * ld + g]);
 }
 
-// The A fragments of a 16 x 64 fp32 C block (kNt tiles of 16 x 8), rounded
+// The A fragments of a 16 x 64 fp32 C block (8 tiles of 16 x 8), rounded
 // to bf16: k chunk kc is made of C tiles 2kc and 2kc + 1.
-__device__ __forceinline__ void c_to_a(uint32_t a[kKc][4],
-                                       const float c[kNt][4]) {
+__device__ __forceinline__ void c_to_a(uint32_t a[4][4], const float c[8][4]) {
 #pragma unroll
-  for (int kc = 0; kc < kKc; ++kc) {
+  for (int kc = 0; kc < 4; ++kc) {
     a[kc][0] = pack_float(c[2 * kc][0], c[2 * kc][1]);
     a[kc][1] = pack_float(c[2 * kc][2], c[2 * kc][3]);
     a[kc][2] = pack_float(c[2 * kc + 1][0], c[2 * kc + 1][1]);
     a[kc][3] = pack_float(c[2 * kc + 1][2], c[2 * kc + 1][3]);
-  }
-}
-
-// Rows row0 .. row0 + kTile - 1 of a (rows, D) bf16 matrix at src into a
-// padded shared tile; rows at or past `rows` are zero. 16 bytes a thread.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
-                                          int rows, int tid) {
-  constexpr int kVecs = D / 8;
-  for (int e = tid; e < kTile * kVecs; e += kThreads) {
-    const int r = e / kVecs, c = e % kVecs;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < rows) {
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c * 8) = val;
   }
 }
 

@@ -73,8 +73,6 @@ using namespace sm90;
 constexpr int kWgRows = 64;                // q rows of a consumer warpgroup
 constexpr int kQRows = 2 * kWgRows;        // q rows of a block
 constexpr int kFwdThreads = 2 * 128;       // two consumer warpgroups
-constexpr int kBoxCols = 64;               // bf16 columns of one swizzled box
-constexpr int kRowBytes = 128;             // bytes of a box row
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -298,44 +296,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,  // (B N, Sq, D)
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so that nothing links
-// the driver library
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// a 3-D map over a (mats, rows, d) bf16 tensor, boxes of 64 columns x
-// box_rows rows x 1 in the 128-byte swizzle; rows past `rows` read as zero
-bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d, int rows,
-              int mats, int box_rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(mats)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * sizeof(bf16),
-                                 static_cast<cuuint64_t>(rows) * d * sizeof(bf16)};
-  const cuuint32_t box[3] = {kBoxCols, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) pieces of the flash-attention forward (flash_fwd.cu):
-// mbarriers, TMA tile loads, shared-memory matrix descriptors, the
+// Hopper (sm_90a) pieces of the flash-attention kernels (flash_fwd.cu, K1;
+// flash_bwd.cu, K2 and K3): mbarriers, TMA tile loads and the host code
+// that builds their tensor maps, shared-memory matrix descriptors, the
 // warpgroup products (wgmma) and exp2, in raw PTX, as flash_common.cuh
 // wraps mma.sync.
 //
@@ -28,6 +29,10 @@
 //   transpose bit): the 16 k rows of a step are two 8-row groups 1024 bytes
 //   apart (the stride offset), and columns 64 .. 127 lie in the next box
 //   (the leading offset: one box's bytes).
+//
+// A (rows, d) bf16 operand is staged through a 3-D tensor map over (mats,
+// rows, d) (make_map); an fp32 vector that a tile reads one value a row of
+// (lse, delta) through a 1-D map over all of it (make_vec_map), unswizzled.
 
 #pragma once
 
@@ -37,6 +42,9 @@
 #include <cstdint>
 
 namespace sm90 {
+
+constexpr int kBoxCols = 64;   // bf16 columns of one swizzled box
+constexpr int kRowBytes = 128; // bytes of a box row
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -93,6 +101,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The box at c0 of the 1-D tensor `map` describes into shared memory at
+// dst, as tma_load_3d.
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
 }
 
@@ -214,5 +233,59 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[16][4], const uint32_t a[4
 #undef SM90_ACC64
 #undef SM90_REGS32
 #undef SM90_REGS64
+
+// ---- tensor maps (host) -------------------------------------------------
+
+// cuTensorMapEncodeTiled, reached through the runtime so that nothing links
+// the driver library
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// a 3-D map over a (mats, rows, d) bf16 tensor, boxes of 64 columns x
+// box_rows rows x 1 in the 128-byte swizzle; rows past `rows` read as zero
+inline bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d,
+                     int rows, int mats, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(mats)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(rows) * d * 2};
+  const cuuint32_t box[3] = {kBoxCols, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a 1-D map over n fp32 values, boxes of `box` values, unswizzled. A box
+// may start anywhere; values past the end read as zero
+inline bool make_vec_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                         size_t n, int box) {
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {0};  // none at rank 1
+  const cuuint32_t box_dims[1] = {static_cast<cuuint32_t>(box)};
+  const cuuint32_t elem_strides[1] = {1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims,
+                strides, box_dims, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace sm90

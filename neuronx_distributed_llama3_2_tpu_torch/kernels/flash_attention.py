@@ -14,9 +14,13 @@ Counterpart of two JAX modules in one:
 On a CUDA tensor :func:`flash_fwd` launches the hand-written CUDA C++
 kernel K1 of ``csrc/flash_fwd.cu`` and :func:`flash_bwd` the kernels K2
 (dq) and K3 (dk/dv) of ``csrc/flash_bwd.cu`` (built for ``sm_90a`` at first
-use, see :mod:`._build`). On a CPU tensor they run their plain PyTorch
-versions :func:`flash_fwd_reference` / :func:`flash_bwd_reference`. Any
-other device raises: there is no fallback from one to the other.
+use, see :mod:`._build`). All three have one design: two warpgroups a
+block run every product on ``wgmma``, the block's own operand tile stays
+in shared memory, and the tiles it walks over stream through a TMA ring
+(the PTX pieces are in ``csrc/sm90.cuh``). On a CPU tensor they run their
+plain PyTorch versions :func:`flash_fwd_reference` /
+:func:`flash_bwd_reference`. Any other device raises: there is no
+fallback from one to the other.
 
 The plain versions round where the TPU kernels round: scores in fp32 from
 the input-dtype operands, ``sm_scale`` on the fp32 product, softmax weights
@@ -380,7 +384,7 @@ def _checked(q, k, v, **more):
             raise ValueError(f"the CUDA kernels take a {want} {name}, got {x.dtype}")
         x = x.contiguous()
         if x.data_ptr() % 16:
-            raise ValueError(f"the kernels' 16-byte loads need a 16-byte aligned {name}")
+            raise ValueError(f"the kernels' TMA copies need a 16-byte aligned {name}")
         out[name] = x
     return out
 
