@@ -49,16 +49,20 @@
    loss and gradients through the kernels against the same step through
    the plain attention (which must also reject a backward through a
    planted kernel fault), and a profiled step.
-   Every serve checks which source took its K4 calls: each bf16 call at
-   t > 1 csrc/paged_decode_tile.cu (one block owning the whole query tile,
-   on the tensor cores), every other call csrc/paged_decode.cu.
+   Every serve checks which source took its K4 calls: every t == 1 call
+   csrc/paged_decode_t1.cu (each lane's live blocks split evenly over a
+   split count that fills the card, the splits merged in the same launch),
+   each bf16 call at t > 1 csrc/paged_decode_tile.cu (one block owning the
+   whole query tile, on the tensor cores), every other call (the quantized
+   pools at t > 1) csrc/paged_decode.cu.
 6. Kernels: runs each kernel on the card at a grid of shapes and at every
    geometry the main paths launched, against its plain PyTorch version,
    with the tolerance stated, and times the kernel, the plain version and
    one PyTorch library call computing the same function (a yardstick the
    port never calls), beside the bound the card could reach; at every
-   call the tile kernel takes, csrc/paged_decode.cu is held and timed at
-   the same call too (split_ms). The
+   call the tile or the t1 kernel takes, csrc/paged_decode.cu is held and
+   timed at the same call too (split_ms), and at the served t == 1 call
+   launched most the t1 kernel is timed at 4, 8, 16 and 32 splits. The
    paged-decode kernel runs so for the bf16 pool and for each of the six
    quantized combinations {int8, fp8 e4m3, fp8 e5m2} x {mode 3, mode 6},
    at the median call of each served geometry, and once more on a probe
@@ -77,12 +81,18 @@
    block (128 tile rows) with and without row_live. The tile kernel runs
    once more on a probe whose lanes' walks end in a block of 16 fresh
    rows, where a walk without its last staged block must fail the check;
-   ptxas must report no spills for it. K1-K3 (the flash kernels) run so at
-   six shapes; at the train shape the check must reject each of their
-   outputs (o, dq, dk, dv) with one kv tile left out, and each with the
-   causal diagonal masked (col < row), the compare that only the kernels'
-   diagonal tiles run; ptxas must report no spills for K1-K3 either, and
-   no wgmma product serialized (warning C7520).
+   ptxas must report no spills for it. The t1 kernel runs once more on a
+   probe (lanes at row 0, at the last row under the limit and at rows that
+   open a pool block, walks shorter than the split count), where the check
+   must reject its output with every lane's newest row left out and with
+   every lane's last split range left out; it is held so there with
+   row_live and tree_bits at t = 1 too, and ptxas must report no spills
+   for it either. K1-K3 (the flash kernels) run so at six shapes; at the
+   train shape the check must reject each of their outputs (o, dq, dk,
+   dv) with one kv tile left out, and each with the causal diagonal
+   masked (col < row), the compare that only the kernels' diagonal tiles
+   run; ptxas must report no spills for K1-K3 either, and no wgmma
+   product serialized (warning C7520).
 
 Every failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -343,21 +353,28 @@ def median_call(calls: list) -> list:
     return sorted(calls, key=sum)[(len(calls) - 1) // 2]
 
 
-def check_routes(label: str, cfg, geoms: dict, launches: int, tile: int,
+def check_routes(label: str, cfg, geoms: dict, launches: int, tile: int, t1: int,
                  kv_dtype: str = "bf16") -> str:
-    """The counted serve's K4 launches by source: csrc/paged_decode_tile.cu
-    must have taken exactly the calls ``kernel_route`` gives it (every
-    bf16 call at t > 1 here, none from a quantized pool) and
-    csrc/paged_decode.cu the rest. Returns the log's summary."""
+    """The counted serve's K4 launches by source: csrc/paged_decode_t1.cu
+    must have taken exactly its t == 1 calls, csrc/paged_decode_tile.cu
+    exactly the calls ``kernel_route`` gives it (every bf16 call at t > 1
+    here, none from a quantized pool) and csrc/paged_decode.cu the rest.
+    Returns the log's summary."""
     def source(key):
         return k4_source(kv_dtype, key[1], cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
 
-    want = sum(e["calls"] for k, e in geoms.items() if source(k) == "tile")
+    want = {src: sum(e["calls"] for k, e in geoms.items() if source(k) == src)
+            for src in ("t1", "tile", "split")}
+    t1_calls = sum(e["calls"] for k, e in geoms.items() if k[1] == 1)
+    check(t1 == want["t1"] == t1_calls,
+          f"{label}: {t1} paged_decode_t1.cu launches, the route gives it {want['t1']} "
+          f"of {t1_calls} t == 1 calls")
+    check(tile == want["tile"] and launches - tile - t1 == want["split"],
+          f"{label}: {tile} tile and {launches - tile - t1} split launches of {launches}, "
+          f"the route gives them {want['tile']} and {want['split']}")
     split_t = sorted({k[1] for k in geoms if source(k) == "split"})
-    check(tile == want and launches - tile == sum(e["calls"] for e in geoms.values()) - want,
-          f"{label}: {tile} tile launches of {launches}, the route gives it {want}")
-    return (f"paged_decode_tile.cu {tile} launches, paged_decode.cu {launches - tile} "
-            f"(t in {split_t})")
+    return (f"paged_decode_t1.cu {t1} launches (every t == 1 call), paged_decode_tile.cu "
+            f"{tile}, paged_decode.cu {launches - tile - t1} (t in {split_t})")
 
 
 def paged_cases(cfg, served: dict):
@@ -378,6 +395,10 @@ def paged_cases(cfg, served: dict):
         "3b kv2048 t4 s4", 24, 8, 128, 4, 2048, 4,
         rng.integers(0, 2048 - 4 + 1, size=8),
     ))
+    # the D = 128 instances of csrc/paged_decode_t1.cu, at its own split count
+    pos = rng.integers(0, 2048, size=8)
+    pos[0], pos[-1] = 0, 2047
+    cases.append(DecodeCase("3b kv2048 t1", 24, 8, 128, 1, 2048, None, pos))
     for (b, t, kv_limit, splits, w), entry in sorted(served.items()):
         cases.append(DecodeCase(
             f"serve b{b} t{t} kv{kv_limit}", cfg.num_heads, cfg.num_kv_heads,
@@ -440,68 +461,88 @@ def mode_label(kv_dtype: str, mxu: bool) -> str:
 def forced_launch(kernel: str, q, kp, vp, tables, pos, *, kv_limit, num_splits=None, **kw):
     """The call ``paged_flash_decode(q, ...)`` makes (q 4-dim), launched on
     the source ``kernel`` names ("split": csrc/paged_decode.cu, "tile":
-    csrc/paged_decode_tile.cu) whatever the route would pick."""
+    csrc/paged_decode_tile.cu, "t1": csrc/paged_decode_t1.cu) whatever the
+    route would pick, at that source's own split count when ``num_splits``
+    is None."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
 
-    nblk, splits, bps = pa._geometry(q, kp, tables, kv_limit, num_splits)
+    nblk, splits, bps = pa._geometry(q, kp, tables, kv_limit, num_splits, source=kernel)
     return pa._launch(q, kp, vp, tables, pos, nblk, splits, bps, kernel=kernel, **kw)
 
 
-#: csrc/paged_decode.cu at a call the tile kernel takes: the same-run yardstick
+#: csrc/paged_decode.cu at a call another source takes: the same-run yardstick
 split_launch = functools.partial(forced_launch, "split")
 
 
 def k4_source(kv_dtype: str, t: int, n: int, nkv: int, d: int) -> str:
-    """The K4 source the port picks for a call: "tile" or "split"."""
+    """The K4 source the port picks for a call: "t1", "tile" or "split"."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
     from neuronx_distributed_llama3_2_tpu_torch.quantization import kv_cache as kv
 
     return pa.kernel_route(kv.kv_cache_torch_dtype(kv_dtype), t, n // nkv, d)
 
 
+# the device kernels each source launches for one call, as the profiler
+# names them: main kernel, then the combine where it is a launch of its own
+SOURCE_KERNELS = {
+    "tile": ("paged_decode_tile_kernel", "paged_decode_tile_combine"),
+    "t1": ("paged_decode_t1_kernel",),
+}
+
+
 def split_yardstick(c: DecodeCase, kv_dtype: str, call, ref, label: str):
-    """For a case the tile kernel serves (None for any other): (device ms
-    of csrc/paged_decode.cu at the same call, ``call(fn, i)`` with fn =
-    split_launch, held to the same check; device ms of the tile launch's
-    split kernel and of its combine)."""
+    """For a case that csrc/paged_decode_tile.cu or csrc/paged_decode_t1.cu
+    serves (None for any other): (device ms of csrc/paged_decode.cu at the
+    same call, ``call(fn, i)`` with fn = split_launch, held to the same
+    check; device ms of the serving source's main kernel; of its combine,
+    or None where the main kernel merges the splits itself)."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
 
-    if k4_source(kv_dtype, c.t, c.n, c.nkv, c.d) != "tile":
+    src = k4_source(kv_dtype, c.t, c.n, c.nkv, c.d)
+    if src == "split":
         return None
     elem, rel = decode_agreement(call(split_launch, 0), ref)
     check(elem <= 1.0 and rel <= LANE_REL_L2,
           f"{label}: paged_decode.cu disagrees with the plain version ({elem}, {rel})")
     (split_ms,), _ = device_ms(functools.partial(call, split_launch))
-    (main_ms, combine_ms), _ = device_ms(
-        functools.partial(call, pa.paged_flash_decode),
-        matches=("paged_decode_tile_kernel", "paged_decode_tile_combine"))
-    return split_ms, main_ms, combine_ms
+    times, _ = device_ms(functools.partial(call, pa.paged_flash_decode),
+                         matches=SOURCE_KERNELS[src])
+    return split_ms, times[0], (times[1] if len(times) > 1 else None)
 
 
-def source_note(yard) -> str:
+def source_note(c: DecodeCase, kv_dtype: str, yard) -> str:
     """Which source served a logged case, with paged_decode.cu's time beside
-    the tile kernel's (``split_yardstick``'s result)."""
+    the serving source's (``split_yardstick``'s result)."""
     if yard is None:
         return "paged_decode.cu"
-    return (f"paged_decode_tile.cu (its split kernel {yard[1]:.6f} ms, combine "
-            f"{yard[2]:.6f}); split_ms={yard[0]:.6f} (paged_decode.cu, same call)")
+    src = k4_source(kv_dtype, c.t, c.n, c.nkv, c.d)
+    combine = ("the splits merged in the same launch" if yard[2] is None
+               else f"combine {yard[2]:.6f}")
+    return (f"paged_decode_{src}.cu (its main kernel {yard[1]:.6f} ms, {combine}); "
+            f"split_ms={yard[0]:.6f} (paged_decode.cu, same call)")
 
 
 def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
-                           mxu: bool = False, grid_iters: int = 50) -> dict:
+                           mxu: bool = False, grid_iters: int = 50):
     """K4 on one pool dtype and mode against its plain version at the grid
     and the served geometries, timed beside the plain version, the library
     yardstick (SDPA on K/V dequantized and gathered beforehand) and the
-    bound. Returns the record of the served geometry launched most."""
+    bound; at the served t == 1 geometry launched most, csrc/paged_decode_t1.cu
+    is timed at T1_SWEEP splits too. Returns ({source: the record of the
+    served geometry it launched most}, {source: its worst abs error over the
+    cases it served})."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
     from neuronx_distributed_llama3_2_tpu_torch.quantization import kv_cache as kv
 
     quantized = kv_dtype != "bf16"
     mode = mode_label(kv_dtype, mxu)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst, worst_elem, worst_rel, record, record_launches = 0.0, 0.0, 0.0, None, -1
-    tile_err = 0.0
-    for c in paged_cases(cfg, served):
+    worst_elem, worst_rel, records, worst_by, nan_checked = 0.0, 0.0, {}, {}, set()
+    cases = paged_cases(cfg, served)
+    sweep_at = max((c for c in cases if c.t == 1 and c.serve_launches),
+                   key=lambda c: c.serve_launches, default=None)
+    for c in cases:
+        src = k4_source(kv_dtype, c.t, c.n, c.nkv, c.d)
         q, kp, vp, tables, pos = build_case(c, gen)
         L = c.layers
         ks = vs = None
@@ -534,18 +575,19 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
         check(elem <= 1.0 and rel <= LANE_REL_L2,
               f"{mode} {c.name}: disagrees with the plain version (error {elem} x its "
               f"element limit, lane relative L2 {rel}; max_abs_err {err})")
-        worst = max(worst, err)
+        worst_by[src] = max(worst_by.get(src, 0.0), err)
         worst_elem, worst_rel = max(worst_elem, elem), max(worst_rel, rel)
-        if mxu and kv_dtype != "int8" and record is None:
+        if mxu and kv_dtype != "int8" and src not in nan_checked:
             # the unsaturated fp8 cast of q: an element past the range
             # poisons its query row with NaN, in the kernel as in the plain
-            # version (and the reference)
+            # version (and the reference); once on each source
+            nan_checked.add(src)
             bad = q.clone()
             bad[-1, 0, 3, 5] = 1000.0 if kv_dtype == "fp8_e4m3" else 7e4
             nan_k, nan_p = kernel(0, bad).isnan(), plain(0, bad).isnan()
             check(bool((nan_k == nan_p).all()) and bool(nan_p.any()),
                   f"{mode}: the kernel's NaN rows differ from the plain version's")
-            log(f"kernel paged_decode [{mode}] q element past the fp8 range: "
+            log(f"kernel paged_decode [{mode}] [{c.name}] q element past the fp8 range: "
                 f"{int(nan_k.sum())} NaN outputs, as the plain version")
 
         # the yardstick: one library call over K/V dequantized and gathered
@@ -580,15 +622,15 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
         (ms,), wall_ms = device_ms(kernel, iters)
         (plain_ms,), plain_wall_ms = device_ms(plain, iters)
         (library_ms,), library_wall_ms = device_ms(library, iters)
-        yard = split_yardstick(
-            c, kv_dtype,
-            lambda fn, i: fn(q, kp[i % L], vp[i % L], tables, pos, kv_limit=c.kv_limit,
-                             num_splits=c.splits),
-            ref, f"{mode} {c.name}")
-        if yard is not None:
-            tile_err = max(tile_err, err)
+        def call(fn, i, num_splits=c.splits):
+            j = i % L
+            return fn(q, kp[j], vp[j], tables, pos, kv_limit=c.kv_limit,
+                      num_splits=num_splits, k_scale=None if ks is None else ks[j],
+                      v_scale=None if vs is None else vs[j], quant_mxu=mxu)
+
+        yard = split_yardstick(c, kv_dtype, call, ref, f"{mode} {c.name}")
         bound_ms, bound_by, kv_bytes = paged_bound(c, kv_dtype, mxu)
-        splits = min(c.splits or pa.DEFAULT_NUM_SPLITS, nblk)
+        splits = pa._geometry(q, kp[0], tables, c.kv_limit, c.splits)[1]
         served_by = f", {c.serve_launches} serve launches" if c.serve_launches else ""
         tag = "" if not quantized else f"[{mode}] "
         log(
@@ -599,14 +641,24 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
             f"{lib_elem:.4f} x, {lib_rel:.6g}) kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
             f"library_ms={library_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}; "
             f"K+V bytes read {kv_bytes} / 3.35 TB/s); wall per call {wall_ms:.6f} / "
-            f"{plain_wall_ms:.6f} / {library_wall_ms:.6f} ms; {source_note(yard)} | {card}"
+            f"{plain_wall_ms:.6f} / {library_wall_ms:.6f} ms; "
+            f"{source_note(c, kv_dtype, yard)} | {card}"
         )
-        # the JSON record times the geometry the serve launched most
-        if c.serve_launches > record_launches:
-            record_launches = c.serve_launches
-            record = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        if c is sweep_at:
+            # csrc/paged_decode_t1.cu's time against its split count, at the
+            # call the serve launched most (t1_num_splits picks the default)
+            sweep = [device_ms(functools.partial(call, pa.paged_flash_decode, num_splits=n))[0][0]
+                     for n in T1_SWEEP]
+            log(f"kernel paged_decode_t1 {tag}[{c.name}] split sweep: " + ", ".join(
+                f"{n} splits {t:.6f} ms" for n, t in zip(T1_SWEEP, sweep))
+                + f"; the default ({splits}) {ms:.6f} ms | {card}")
+        # the JSON records time, for each source, the geometry the serve
+        # launched most
+        if c.serve_launches > records.get(src, {}).get("launches", 0):
+            records[src] = dict(
+                launches=c.serve_launches, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
+                **({} if yard is None else dict(split_ms=yard[0])),
             )
         del q, kp, vp, ks, vs, k_all, v_all
     torch.cuda.empty_cache()
@@ -616,13 +668,18 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
         f"version: each element within {ROW_ULPS} bf16 ulps of its own value plus "
         f"{ROW_ULPS} of its (lane, token, head) row's largest (worst "
         f"{max(worst_elem, elem):.6g} x that limit), each (lane, head) within relative "
-        f"L2 {LANE_REL_L2} (worst {max(worst_rel, rel):.6g}); worst abs err {worst:.6g}; "
-        "tolerance: the same bf16 operands (dequantized and bf16-rounded for a quantized "
-        "pool), fp32 accumulation in another order, bf16-rounded softmax weights"
+        f"L2 {LANE_REL_L2} (worst {max(worst_rel, rel):.6g}); worst abs err by source "
+        f"{worst_by}; tolerance: the same bf16 operands (dequantized and bf16-rounded for "
+        "a quantized pool), fp32 accumulation in another order, bf16-rounded softmax weights"
     )
-    record["max_abs_err"] = worst
-    record["tile_err"] = tile_err
-    return record
+    for src, rec in records.items():
+        del rec["launches"]
+        rec["max_abs_err"] = worst_by[src]
+    return records, worst_by
+
+
+# the split counts csrc/paged_decode_t1.cu is timed at, at the served call
+T1_SWEEP = (4, 8, 16, 32)
 
 
 # the probe of run_paged_probe: 8 lanes of the 1B geometry over a 512-row
@@ -717,7 +774,9 @@ def run_paged_probe(kv_dtype: str, mxu: bool, card: str):
     mode = mode_label(kv_dtype, mxu)
     q, kp, vp, ks, vs, tables, pos = probe_case(kv_dtype, "cuda")
     kw = dict(kv_limit=PROBE_KV_LIMIT, k_scale=ks, v_scale=vs)
+    t1 = pa.t1_launches.count
     out = pa.paged_flash_decode(q, kp, vp, tables, pos, num_splits=4, quant_mxu=mxu, **kw)
+    check(pa.t1_launches.count == t1 + 1, f"{mode} probe: not on paged_decode_t1.cu")
     ref = pa.paged_flash_decode_reference(q, kp, vp, tables, pos, quant_mxu=mxu, **kw)
     check(bool(torch.isfinite(out).all()), f"{mode} probe: non-finite kernel output")
     elem, rel = decode_agreement(out, ref)
@@ -742,6 +801,100 @@ def run_paged_probe(kv_dtype: str, mxu: bool, card: str):
             f"{LANE_REL_L2})")
         check(f_elem > 1.0 or f_rel > LANE_REL_L2,
               f"the {mode} check passes a planted fault ({name})")
+    return elem, rel
+
+
+# the probe of run_t1_probe: 8 lanes of the 1B geometry over a 512-row
+# table, t = 1, at csrc/paged_decode_t1.cu's own split count (16 here)
+T1_PROBE_KV_LIMIT = 512
+
+
+def t1_probe_case(device: str = "cuda"):
+    """Inputs that reach every edge of csrc/paged_decode_t1.cu's partition,
+    made from a seeded numpy generator: lane 0 at row 0 (one block, one
+    visible row), lanes 1-3 at a row that opens a pool block in a short
+    context (the block holds the lane's newest row alone), lanes 4-6 at
+    random rows, lane 7 at the last row under the limit; lanes 0-3 walk
+    fewer blocks than the launch has splits. Random q and pools; blocks past
+    each lane's frontier are the null block, which holds garbage. Returns
+    (q (b, 1, N, D), k_pool, v_pool, tables, positions) for one layer."""
+    rng = np.random.default_rng(SEED + 9)
+    b, n, nkv, d, bs, rows = 8, 32, 8, 64, 16, T1_PROBE_KV_LIMIT
+    pos = np.empty(b, np.int64)
+    pos[0], pos[-1] = 0, rows - 1
+    pos[1:4] = bs * rng.choice(np.arange(1, 8), size=3, replace=False)
+    pos[4:7] = rng.integers(bs + 1, rows - 1, size=3)
+    w = rows // bs
+    tables = 1 + rng.permutation(b * w).reshape(b, w)
+    for i, p in enumerate(pos):
+        tables[i, p // bs + 1:] = 0
+    pools = rng.standard_normal((2, b * w + 1, bs, nkv, d))
+    q = rng.standard_normal((b, 1, n, d))
+
+    def on(x, dtype=torch.bfloat16):
+        return torch.as_tensor(x, device=device).to(dtype)
+
+    return on(q), on(pools[0]), on(pools[1]), on(tables, torch.int32), on(pos, torch.int32)
+
+
+def run_t1_probe(card: str):
+    """csrc/paged_decode_t1.cu against the plain version on
+    ``t1_probe_case``; then the same check must reject the kernel's output
+    with each planted fault (what the fault changes in the plain version,
+    added to the kernel's output): every lane's newest row left out (the
+    plain version at positions - 1), and every lane's last range of
+    ``t1_split_ranges`` left out (the plain version with its walk cut
+    before that range, by row_live). The kernel is held so too with
+    row_live and tree_bits at t = 1 (one-row blocks of modes 4 and 5).
+    Returns the sound (element ratio, lane relative L2)."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+
+    q, kp, vp, tables, pos = t1_probe_case()
+    kw = dict(kv_limit=T1_PROBE_KV_LIMIT)
+    t1 = pa.t1_launches.count
+    out = pa.paged_flash_decode(q, kp, vp, tables, pos, **kw)
+    check(pa.t1_launches.count == t1 + 1, "the t1 probe did not reach paged_decode_t1.cu")
+    ref = pa.paged_flash_decode_reference(q, kp, vp, tables, pos, **kw)
+    nblk, splits, _ = pa._geometry(q, kp, tables, T1_PROBE_KV_LIMIT, None)
+    ranges = pa.t1_split_ranges(pos, nblk, splits)
+    blocks = [r[-1][1] for r in ranges]
+    check(min(blocks) < splits and int(pos[0]) == 0 and int(pos[-1]) == T1_PROBE_KV_LIMIT - 1
+          and any(int(p) % 16 == 0 for p in pos[1:]),
+          f"the t1 probe misses an edge: positions {pos.tolist()}, blocks {blocks}")
+    elem, rel = decode_agreement(out, ref)
+    log(f"kernel paged_decode_t1 [probe] positions {pos.tolist()} ({splits} splits; blocks "
+        f"walked {blocks}, ranges {[len(r) for r in ranges]}): {elem:.6g} x its element "
+        f"limit, lane relative L2 {rel:.6g} (limits 1, {LANE_REL_L2}) | {card}")
+    check(elem <= 1.0 and rel <= LANE_REL_L2,
+          f"t1 probe: disagrees with the plain version ({elem}, {rel})")
+    last_range = torch.as_tensor([r[-1][0] * 16 for r in ranges], device="cuda") - pos
+    faults = {
+        "every lane's newest row left out": pa.paged_flash_decode_reference(
+            q, kp, vp, tables, pos - 1, **kw),
+        "every lane's last split range left out": pa.paged_flash_decode_reference(
+            q, kp, vp, tables, pos, row_live=last_range, **kw),
+    }
+    for name, bad in faults.items():
+        planted = (out.float() + bad.float() - ref.float()).to(out.dtype)
+        f_elem, f_rel = decode_agreement(planted, ref)
+        log(f"kernel paged_decode_t1 [probe] planted fault ({name}): error {f_elem:.6g} x its "
+            f"element limit, lane relative L2 {f_rel:.6g} (limits 1, {LANE_REL_L2})")
+        check(f_elem > 1.0 or f_rel > LANE_REL_L2,
+              f"the t1 check passes a planted fault ({name})")
+    rng = np.random.default_rng(SEED + 10)
+    live = torch.as_tensor(rng.integers(0, 2, size=len(pos)), dtype=torch.int32, device="cuda")
+    bits = torch.as_tensor(rng.integers(0, 2, size=(len(pos), 1)), dtype=torch.int32,
+                           device="cuda")
+    for extra in (dict(row_live=live), dict(tree_bits=bits), dict(row_live=live, tree_bits=bits)):
+        m_elem, m_rel = decode_agreement(
+            pa.paged_flash_decode(q, kp, vp, tables, pos, **extra, **kw),
+            pa.paged_flash_decode_reference(q, kp, vp, tables, pos, **extra, **kw))
+        log(f"kernel paged_decode_t1 [probe] with {' and '.join(extra)} "
+            f"{[x.flatten().tolist() for x in extra.values()]}: {m_elem:.6g} x its element "
+            f"limit, lane relative L2 {m_rel:.6g}")
+        check(m_elem <= 1.0 and m_rel <= LANE_REL_L2,
+              f"t1 probe with {' and '.join(extra)}: disagrees ({m_elem}, {m_rel})")
+    check(pa.t1_launches.count == t1 + 4, "the t1 probe's launches left paged_decode_t1.cu")
     return elem, rel
 
 
@@ -868,7 +1021,7 @@ def run_row_live_phase(cfg, f_served: dict, card: str) -> dict:
                 f"without row_live; kernel_ms={ms:.6f} (without row_live {full_ms:.6f}) "
                 f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} bound_ms={bound_ms:.6f} "
                 f"({bound_by}; K+V bytes of the walked blocks {kv_bytes} / 3.35 TB/s); wall "
-                f"per call {wall_ms:.6f} ms; {source_note(yard)} | {card}")
+                f"per call {wall_ms:.6f} ms; {source_note(c, kv_dtype, yard)} | {card}")
             if record is None:
                 record = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                               bound_ms=bound_ms, bound_by=bound_by, split_ms=yard[0])
@@ -1133,7 +1286,7 @@ def run_tree_kernel_phase(cfg, t_served: dict, card: str) -> dict:
                 f"kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
                 f"bound_ms={bound_ms:.6f} ({bound_by}; K+V bytes of the walked blocks "
                 f"{kv_bytes} / 3.35 TB/s); wall per call {wall_ms:.6f} ms; "
-                f"{source_note(yard)} | {card}")
+                f"{source_note(c, kv_dtype, yard)} | {card}")
             if c.serve_launches and kv_dtype == "bf16" and (
                     record is None or c.serve_launches > record["launches"]):
                 record = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -1285,6 +1438,7 @@ def run_serve_phase(cfg, model, card: str):
     with model_kernel_call(recording(geoms, keep_positions=False)):
         pa.launches.reset()
         pa.tile_launches.reset()
+        pa.t1_launches.reset()
         server.model.attention_paths.clear()
         steps0 = server.metrics.decode_steps
         torch.cuda.synchronize()
@@ -1293,7 +1447,7 @@ def run_serve_phase(cfg, model, card: str):
         outs = server.run_to_completion()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, tile = pa.launches.count, pa.tile_launches.count
+        launches, tile, t1 = pa.launches.count, pa.tile_launches.count, pa.t1_launches.count
     paths = dict(server.model.attention_paths)
     decode_steps = server.metrics.decode_steps - steps0
 
@@ -1320,14 +1474,14 @@ def run_serve_phase(cfg, model, card: str):
         f"{generated / wall:.6f} tokens/s; TTFT p50 {ttft:.6f} ms, TPOT p50 "
         f"{tpot:.6f} ms; cached_tokens {[i['cached_tokens'] for i in infos]}; "
         f"{decode_steps} decode steps | {card}")
-    routes = check_routes("serve", cfg, geoms, launches, tile)
+    routes = check_routes("serve", cfg, geoms, launches, tile, t1)
     log(f"serve: paged_decode kernel launches {launches} ({routes}); attention calls by "
         f"path {paths} (context = whole-prompt prefill in plain torch, kernel = "
         f"paged-decode kernel, gather = block-table gather + plain torch) | {card}")
     for (b, t, kv_limit, splits, w), e in sorted(served.items()):
         log(f"serve: kernel geometry b={b} t={t} kv_limit={kv_limit} "
             f"num_splits={splits} W={w}: {e['calls']} launches")
-    return prompts, outs, rids, launches, tile, served, server.metrics.pool_bytes_total
+    return prompts, outs, rids, tile, t1, served, server.metrics.pool_bytes_total
 
 
 def run_profile_phase(cfg, model, prompts, card: str, label: str = "serve",
@@ -1355,14 +1509,17 @@ def run_profile_phase(cfg, model, prompts, card: str, label: str = "serve",
     paged_ms = sum(
         e.self_device_time_total for e in events if "paged_decode" in e.key
     ) / 1e3
-    tile_ms = sum(
-        e.self_device_time_total for e in events if "paged_decode_tile" in e.key
-    ) / 1e3
+    by_source = {
+        src: sum(e.self_device_time_total for e in events if f"paged_decode_{src}" in e.key) / 1e3
+        for src in ("tile", "t1")
+    }
     log(f"profile: {label} wall {wall_ms:.6f} ms (profiler on), device busy "
         f"{busy_ms:.6f} ms = {100 * busy_ms / wall_ms:.6f}% of it; paged_decode "
         f"kernels {paged_ms:.6f} ms = {100 * paged_ms / busy_ms:.6f}% of device "
-        f"time, of them paged_decode_tile {tile_ms:.6f} ms = "
-        f"{100 * tile_ms / busy_ms:.6f}%; {server.metrics.decode_steps} decode steps | {card}")
+        f"time, of them " + ", ".join(
+            f"paged_decode_{src} {ms:.6f} ms = {100 * ms / busy_ms:.6f}%"
+            for src, ms in by_source.items())
+        + f"; {server.metrics.decode_steps} decode steps | {card}")
     for e in events[:12]:
         log(f"  device {e.self_device_time_total / 1e3:.6f} ms, {e.count} calls: "
             f"{e.key[:100]}")
@@ -1447,8 +1604,8 @@ def run_quant_serve_phase(cfg, model, label: str, kv_dtype: str, mxu: bool,
     """One quantized, chunked serve of the eight prompts after a warm-up
     serve of its own (which also records the positions of each kernel
     geometry's last call), the kernel counters zeroed just before and read
-    just after. Returns (prompts, outputs, rids, K4 launches, served
-    geometries)."""
+    just after. Returns (prompts, outputs, rids, K4 launches, of them
+    csrc/paged_decode_t1.cu's, served geometries)."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
 
     prompts = serve_prompts()
@@ -1462,13 +1619,14 @@ def run_quant_serve_phase(cfg, model, label: str, kv_dtype: str, mxu: bool,
     with model_kernel_call(recording(geoms, keep_positions=False)):
         pa.launches.reset()
         pa.tile_launches.reset()
+        pa.t1_launches.reset()
         server.model.attention_paths.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rids, outs = serve_staged(server, prompts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, tile = pa.launches.count, pa.tile_launches.count
+        launches, tile, t1 = pa.launches.count, pa.tile_launches.count, pa.t1_launches.count
     paths = dict(server.model.attention_paths)
     m = server.metrics
     infos = [server.request_info(r) for r in rids]
@@ -1500,7 +1658,7 @@ def run_quant_serve_phase(cfg, model, label: str, kv_dtype: str, mxu: bool,
         f"{generated / wall:.6f} tokens/s; TTFT p50 {ttft:.6f} ms, TPOT p50 {tpot:.6f} ms; "
         f"cached_tokens {[i['cached_tokens'] for i in infos]}; prefill_chunks "
         f"{m.prefill_chunks}; {m.decode_steps} decode steps | {card}")
-    routes = check_routes(label, cfg, geoms, launches, tile, kv_dtype)
+    routes = check_routes(label, cfg, geoms, launches, tile, t1, kv_dtype)
     log(f"serve {label}: paged_decode kernel launches {launches} ({mode_label(kv_dtype, mxu)}; "
         f"{routes}); attention calls by path {paths}; pool_bytes_total {m.pool_bytes_total} = "
         f"formula {formula} = bytes held, {bf16_pool_bytes / m.pool_bytes_total:.6f}x "
@@ -1508,7 +1666,7 @@ def run_quant_serve_phase(cfg, model, label: str, kv_dtype: str, mxu: bool,
     for (b, t, kv_limit, splits, w), e in sorted(served.items()):
         log(f"serve {label}: kernel geometry b={b} t={t} kv_limit={kv_limit} "
             f"num_splits={splits} W={w}: {e['calls']} launches")
-    return prompts, outs, rids, launches, served
+    return prompts, outs, rids, launches, t1, served
 
 
 def quant_e2e_gaps(cfg, model, kv_dtype: str, prompts, outs, rids):
@@ -1609,7 +1767,8 @@ def run_spec_serve_phase(cfg, model, card: str):
     serve of its own (which also records each kernel geometry's calls),
     submitted as the quantized serves are (``serve_staged``), K4's launch
     counters zeroed just before and read just after. Returns (prompts,
-    outputs, rids, K4 launches, row_live launches, served geometries)."""
+    outputs, rids, row_live launches, csrc/paged_decode_tile.cu's and
+    csrc/paged_decode_t1.cu's launches, served geometries)."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
 
     fcfg = spec_config(cfg)
@@ -1624,6 +1783,7 @@ def run_spec_serve_phase(cfg, model, card: str):
         pa.launches.reset()
         pa.row_live_launches.reset()
         pa.tile_launches.reset()
+        pa.t1_launches.reset()
         server.model.attention_paths.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1631,7 +1791,7 @@ def run_spec_serve_phase(cfg, model, card: str):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, live_launches = pa.launches.count, pa.row_live_launches.count
-        tile = pa.tile_launches.count
+        tile, t1 = pa.tile_launches.count, pa.t1_launches.count
     paths = dict(server.model.attention_paths)
     m = server.metrics
     infos = [server.request_info(r) for r in rids]
@@ -1674,7 +1834,7 @@ def run_spec_serve_phase(cfg, model, card: str):
         f"{m.draft_tokens}, accepted_tokens {m.accepted_tokens} (accept rate "
         f"{m.accept_rate():.6f}), spec_disabled_lanes {m.spec_disabled_lanes}; "
         f"prefill_chunks {m.prefill_chunks} | {card}")
-    routes = check_routes("F", cfg, geoms, launches, tile)
+    routes = check_routes("F", cfg, geoms, launches, tile, t1)
     log(f"serve F: paged_decode kernel launches {launches} ({routes}), of them with "
         f"row_live {live_launches} (= {m.mixed_dispatches} mixed steps x {cfg.num_layers} "
         f"layers); attention calls by path {paths} | {card}")
@@ -1682,7 +1842,7 @@ def run_spec_serve_phase(cfg, model, card: str):
         b, t, kv_limit, splits, w = key[:5]
         log(f"serve F: kernel geometry b={b} t={t} kv_limit={kv_limit} num_splits="
             f"{splits} W={w}{' row_live' if len(key) == 6 else ''}: {e['calls']} launches")
-    return prompts, outs, rids, launches, live_launches, tile, served
+    return prompts, outs, rids, live_launches, tile, t1, served
 
 
 def per_request_gaps(model, prompts, outs, rids) -> list:
@@ -1874,8 +2034,8 @@ def run_tree_serve_phase(cfg, model, card: str):
     warm-up serve of its own (which also records each kernel geometry's
     calls, ancestor masks included), submitted as F is (``serve_staged``),
     K4's launch counters zeroed just before and read just after. Returns
-    (prompts, outputs, rids, K4 launches, tree launches, served
-    geometries)."""
+    (prompts, outputs, rids, tree launches, csrc/paged_decode_tile.cu's and
+    csrc/paged_decode_t1.cu's launches, served geometries)."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
 
     tcfg = tree_config(cfg)
@@ -1893,13 +2053,14 @@ def run_tree_serve_phase(cfg, model, card: str):
         pa.row_live_launches.reset()
         pa.tree_launches.reset()
         pa.tile_launches.reset()
+        pa.t1_launches.reset()
         server.model.attention_paths.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rids, outs = serve_staged(server, prompts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, tile = pa.launches.count, pa.tile_launches.count
+        launches, tile, t1 = pa.launches.count, pa.tile_launches.count, pa.t1_launches.count
         live_launches, tree_launches = pa.row_live_launches.count, pa.tree_launches.count
     paths = dict(server.model.attention_paths)
     m = server.metrics
@@ -1956,7 +2117,7 @@ def run_tree_serve_phase(cfg, model, card: str):
         f"{m.accepted_tokens} (accept rate {m.accept_rate():.6f}); tree_accept_by_shape "
         f"{ {s: (v['lanes'], v['accepted']) for s, v in m.tree_accept_by_shape.items()} } "
         f"(lanes, accepted); prefill_chunks {m.prefill_chunks} | {card}")
-    routes = check_routes("T", cfg, geoms, launches, tile)
+    routes = check_routes("T", cfg, geoms, launches, tile, t1)
     log(f"serve T: paged_decode kernel launches {launches} ({routes}), of them with "
         f"tree_bits {tree_launches} (= {len(calls)} tree dispatches x {cfg.num_layers} "
         f"layers), with row_live {live_launches}; attention calls by path {paths} | {card}")
@@ -1964,7 +2125,7 @@ def run_tree_serve_phase(cfg, model, card: str):
         b, t, kv_limit, splits, w = key[:5]
         log(f"serve T: kernel geometry b={b} t={t} kv_limit={kv_limit} num_splits="
             f"{splits} W={w} {' '.join(key[5:])}: {e['calls']} launches")
-    return prompts, outs, rids, launches, tree_launches, tile, served
+    return prompts, outs, rids, tree_launches, tile, t1, served
 
 
 def fp32_copy(cfg, model):
@@ -2600,56 +2761,61 @@ def main() -> int:
                 log(f"  {r.name}: {line.strip()}")
     # the instances (D = 64, 128) of each kernel written for one block to
     # hold a whole tile in registers must not spill, and ptxas must not
-    # serialize a wgmma product (warning C7520)
-    for name in ("paged_decode_tile", "flash_fwd", "flash_bwd"):
+    # serialize a wgmma product (warning C7520); the spill readings each
+    # source must show (two a kernel: stores, loads), paged_decode_t1's
+    # twelve kernels (D x payload layout x group of 4 or 8) among them
+    for name, readings in (("paged_decode_tile", 4), ("paged_decode_t1", 24),
+                           ("flash_fwd", 4), ("flash_bwd", 4)):
         ptxas = built[name].ptxas
         if ptxas:  # empty when the library was built by an earlier process
             spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas)]
-            check(len(spills) >= 4 and not any(spills),
+            check(len(spills) >= readings and not any(spills),
                   f"{name} spills (ptxas: {spills} bytes of spill stores/loads)")
             check("C7520" not in ptxas, f"ptxas serialized a wgmma product in {name}")
 
     cfg, model = load_model()
-    prompts, outs, rids, launches, tile, served, bf16_pool = run_serve_phase(cfg, model, card)
+    prompts, outs, rids, tile, t1, served, bf16_pool = run_serve_phase(cfg, model, card)
     run_e2e_phase(cfg, model, prompts, outs, rids)
     run_profile_phase(cfg, model, prompts, card)
-    quant = {}  # label -> (kv dtype, mxu, K4 launches, served geometries)
+    quant = {}  # label -> (kv dtype, mxu, K4 launches, t1 launches, served geometries)
     for label, kv_dtype, mxu in QUANT_SERVES:
-        q_prompts, q_outs, q_rids, q_launches, q_served = run_quant_serve_phase(
+        q_prompts, q_outs, q_rids, q_launches, q_t1, q_served = run_quant_serve_phase(
             cfg, model, label, kv_dtype, mxu, bf16_pool, card)
         run_quant_e2e_phase(cfg, model, label, kv_dtype, mxu, q_prompts, q_outs, q_rids)
         run_profile_phase(cfg, model, q_prompts, card, label=f"serve {label}",
                           kv_cache_dtype=kv_dtype, quant_mxu=mxu,
                           prefill_chunk_tokens=QUANT_CHUNK)
-        quant[label] = (kv_dtype, mxu, q_launches, q_served)
-    f_prompts, f_outs, f_rids, _, f_live_launches, f_tile, f_served = run_spec_serve_phase(
+        quant[label] = (kv_dtype, mxu, q_launches, q_t1, q_served)
+    f_prompts, f_outs, f_rids, f_live_launches, f_tile, f_t1, f_served = run_spec_serve_phase(
         cfg, model, card)
     run_spec_e2e_phase(cfg, model, f_prompts, f_outs, f_rids)
     run_spec_witness_phase(cfg, model, f_prompts, [f_outs[r] for r in f_rids])
     run_profile_phase(spec_config(cfg), model, f_prompts, card, label="serve F", **SPEC_KNOBS)
-    t_prompts, t_outs, t_rids, _, t_tree_launches, t_tile, t_served = run_tree_serve_phase(
+    t_prompts, t_outs, t_rids, t_tree_launches, t_tile, t_t1, t_served = run_tree_serve_phase(
         cfg, model, card)
     run_tree_e2e_phase(cfg, model, t_prompts, t_outs, t_rids)
     run_tree_branch_phase(cfg, model, t_prompts, card)
     run_profile_phase(tree_config(cfg), model, t_prompts, card, label="serve T", **TREE_KNOBS)
     del model
     torch.cuda.empty_cache()
-    paged = run_paged_kernel_phase(cfg, served, card)
+    paged, paged_err = run_paged_kernel_phase(cfg, served, card)
     row_live = run_row_live_phase(cfg, f_served, card)
     tree = run_tree_kernel_phase(cfg, t_served, card)
     run_tile_probe(card)
+    run_t1_probe(card)
     # the six quantized combinations at the grid and at every geometry the
     # quantized serves launched (launch counts summed over both serves)
     q_geoms: dict = {}
-    for _, _, _, q_served in quant.values():
+    for *_, q_served in quant.values():
         for k, e in q_served.items():
             entry = q_geoms.setdefault(k, dict(calls=0, positions=e["positions"]))
             entry["calls"] += e["calls"]
-    quant_records = {}
+    quant_records, quant_errs = {}, []
     for kv_dtype in ("int8", "fp8_e4m3", "fp8_e5m2"):
         for mxu in (False, True):
-            quant_records[kv_dtype, mxu] = run_paged_kernel_phase(
+            quant_records[kv_dtype, mxu], err = run_paged_kernel_phase(
                 cfg, q_geoms, card, kv_dtype=kv_dtype, mxu=mxu, grid_iters=20)
+            quant_errs.append(err)
 
     model, state, step, batch, train_launches = run_train_phase(card)
     run_train_e2e_phase(model, card)
@@ -2662,14 +2828,14 @@ def main() -> int:
     pfa = "neuronx_distributed_llama3_2_tpu/kernels/pallas_flash_attention.py:"
     k4 = "neuronx_distributed_llama3_2_tpu/kernels/paged_attention_pallas.py:419"
     # the worst abs error of the calls the tile kernel served, over every phase
-    tile_err = max(r.pop("tile_err") for r in (paged, row_live, tree, *quant_records.values()))
-    # paged_decode: csrc/paged_decode.cu's launches in the bf16 serve (its t
-    # == 1 decode), timed at the serve's median decode call
+    tile_err = max([r.pop("tile_err") for r in (row_live, tree)]
+                   + [e.get("tile", 0.0) for e in (paged_err, *quant_errs)])
+    # paged_decode_t1: its launches over the bf16 serves (the t == 1 decode
+    # of Serve, F and T), timed at the bf16 serve's median decode call, with
+    # csrc/paged_decode.cu at the same call (split_ms)
     kernels = [dict(
-        name="paged_decode", route="cuda", source=fa_src + "paged_decode.cu",
-        replaces=k4, launches=launches - tile, max_abs_err=paged["max_abs_err"],
-        ms=paged["ms"], plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
-        bound_by=paged["bound_by"], library_ms=paged["library_ms"],
+        name="paged_decode_t1", route="cuda", source=fa_src + "paged_decode_t1.cu",
+        replaces=k4, launches=t1 + f_t1 + t_t1, **paged["t1"],
     )]
     # paged_decode_tile: its launches over the bf16 serves (Serve's suffix
     # prefills, F's verifies and mixed steps, T's tree verifies and mixed
@@ -2678,13 +2844,23 @@ def main() -> int:
         name="paged_decode_tile", route="cuda", source=fa_src + "paged_decode_tile.cu",
         replaces=k4, launches=tile + f_tile + t_tile, **dict(row_live, max_abs_err=tile_err),
     ))
-    # one entry per quantized mode the serves launched
-    for label, (kv_dtype, mxu, q_launches, _) in quant.items():
+    # one entry per quantized mode the serves launched, on each source: the
+    # t == 1 decode on csrc/paged_decode_t1.cu, the suffix prefills (t > 1)
+    # on csrc/paged_decode.cu
+    for label, (kv_dtype, mxu, q_launches, q_t1, _) in quant.items():
+        tag = f"{kv_dtype}{'_mxu' if mxu else ''}"
+        records = quant_records[kv_dtype, mxu]
         kernels.append(dict(
-            name=f"paged_decode_{kv_dtype}{'_mxu' if mxu else ''}", route="cuda",
-            source=fa_src + "paged_decode.cu", replaces=k4, launches=q_launches,
-            **quant_records[kv_dtype, mxu],
+            name=f"paged_decode_t1_{tag}", route="cuda", source=fa_src + "paged_decode_t1.cu",
+            replaces=k4, launches=q_t1, **records["t1"],
         ))
+        check((q_launches > q_t1) == ("split" in records),
+              f"{label}: {q_launches - q_t1} paged_decode.cu launches, records {list(records)}")
+        if "split" in records:
+            kernels.append(dict(
+                name=f"paged_decode_{tag}", route="cuda", source=fa_src + "paged_decode.cu",
+                replaces=k4, launches=q_launches - q_t1, **records["split"],
+            ))
     # modes 4 and 5 of the bf16 serves, all on the tile kernel
     kernels.append(dict(
         name="paged_decode_row_live", route="cuda", source=fa_src + "paged_decode_tile.cu",
@@ -2701,6 +2877,9 @@ def main() -> int:
             name=name, route="cuda", source=fa_src + src, replaces=f"{pfa}{line}",
             launches=train_launches[kn - 1], **flash[kn],
         ))
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a kernel of the main path was never launched: "
+          f"{[(k['name'], k['launches']) for k in kernels]}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.3f} s of "
         f"wall time | {card}")
     log(json.dumps({"kernels": kernels}))

@@ -93,6 +93,8 @@
 
 #include <cstdint>
 
+#include "paged_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -100,53 +102,6 @@ constexpr int kBlockRows = 16;     // pool block size (rows per block)
 constexpr int kMaxTileRows = 64;   // tile rows one block owns (a row chunk)
 constexpr int kMaxTreeNodes = 32;  // tree_bits: one int32 ancestor mask per node
 constexpr int kCombineThreads = 256;
-
-// payload kinds, as kernels/paged_attention.py KV_KINDS numbers them
-enum KvKind : int { kBf16 = 0, kInt8 = 1, kE4m3 = 2, kE5m2 = 3 };
-
-// The element layouts the split kernel is compiled for: the element type
-// and the shared-memory carve differ between them. fp8 e4m3 and e5m2 share
-// one layout and quant_mxu is one more flag: both are uniform over a launch
-// and are read at run time.
-enum Layout : int { kLayoutBf16 = 0, kLayoutInt8 = 1, kLayoutFp8 = 2 };
-
-// One layout: its element type, the vector that holds 8 elements, and the
-// widening of one element to fp32 (exact for every kind; e5m2 picks the
-// fp8 interpretation).
-template <int L>
-struct Payload;
-
-template <>
-struct Payload<kLayoutBf16> {
-  using T = __nv_bfloat16;
-  using Vec = uint4;
-  static __device__ float widen(T x, bool) { return __bfloat162float(x); }
-};
-
-template <>
-struct Payload<kLayoutInt8> {
-  using T = int8_t;
-  using Vec = uint2;
-  static __device__ float widen(T x, bool) { return static_cast<float>(x); }
-};
-
-__device__ __forceinline__ __nv_fp8_interpretation_t fp8_interp(bool e5m2) {
-  return e5m2 ? __NV_E5M2 : __NV_E4M3;
-}
-
-template <>
-struct Payload<kLayoutFp8> {
-  using T = __nv_fp8_storage_t;
-  using Vec = uint2;
-  static __device__ float widen(T x, bool e5m2) {
-    return __half2float(static_cast<__half>(__nv_cvt_fp8_to_halfraw(x, fp8_interp(e5m2))));
-  }
-};
-
-// the dequantized value the TPU kernel forms: fp32 product, rounded to bf16
-__device__ __forceinline__ float dequant(float payload, __half scale) {
-  return __bfloat162float(__float2bfloat16(__fmul_rn(payload, __half2float(scale))));
-}
 
 // Shared memory of the split kernel, in 4-byte words, carved in this order,
 // for a chunk of tr tile rows.

@@ -1,7 +1,8 @@
 // Paged flash-decoding of a query tile (t > 1 fresh tokens per lane) over a
 // bf16 block-pooled KV cache, on Hopper's tensor cores (sm_90a). The t = 1
-// decode, the quantized pools and tiles wider than kMaxRows stay with
-// paged_decode.cu; kernels/paged_attention.py (kernel_route) picks the source.
+// decode goes to paged_decode_t1.cu; the quantized pools at t > 1 and tiles
+// wider than kMaxRows stay with paged_decode.cu; kernels/paged_attention.py
+// (kernel_route) picks the source.
 //
 // Replaces: neuronx_distributed_llama3_2_tpu/kernels/paged_attention_pallas.py
 //   _decode_kernel (:73), launched by paged_flash_decode (:245, pallas_call
@@ -60,6 +61,7 @@
 // within the kernel tolerance, not bitwise.
 
 #include "flash_common.cuh"
+#include "paged_common.cuh"
 
 namespace {
 
@@ -71,20 +73,6 @@ constexpr int kMaxWarps = kMaxRows / 16;         // one warp per 16 tile rows
 constexpr int kStages = 4;                       // K/V ring depth
 constexpr int kMaxTreeNodes = 32;                // tree_bits: one int32 mask per node
 constexpr int kCombineThreads = 256;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Pool block blk of kv head h, K and V, into one ring stage: 16 rows of D
 // values each, one 16-byte cp.async per vector. This head's rows of the

@@ -4,10 +4,14 @@ place through per-lane block tables.
 Counterpart of ``neuronx_distributed_llama3_2_tpu/kernels/paged_attention_pallas.py``
 (``paged_flash_decode``, same signature and semantics). On a CUDA tensor
 the wrapper launches a hand-written CUDA C++ kernel (built for ``sm_90a``
-at first use, see :mod:`._build`): ``csrc/paged_decode_tile.cu``, one
+at first use, see :mod:`._build`) from one of three sources:
+``csrc/paged_decode_t1.cu`` for every t == 1 call (any payload, ``G <=
+T1_MAX_GROUP``), each lane's live blocks split evenly over a split count
+that fills the card (:func:`t1_num_splits`, :func:`t1_split_ranges`) and
+the splits merged in the same launch; ``csrc/paged_decode_tile.cu``, one
 block owning a whole query tile on the tensor cores, for a bf16 pool with
 ``t > 1`` and ``t * G <= TILE_MAX_ROWS``; ``csrc/paged_decode.cu`` for
-every other call (the t == 1 decode, the quantized pools, wider tiles).
+every other call (the quantized pools at t > 1, wider tiles).
 :func:`kernel_route` is the rule. On a CPU tensor it runs
 :func:`paged_flash_decode_reference`, the plain PyTorch version of the same
 function. Any other device raises: there is no fallback from one to the
@@ -64,15 +68,20 @@ from neuronx_distributed_llama3_2_tpu_torch.quantization.kv_cache import (
     kv_dequantize,
 )
 
-# kv-length split count: enough blocks to spread a long context over the
-# SMs past small decode batches without shrinking per-split work below a
-# few pool blocks
+# kv-length split count of csrc/paged_decode.cu and csrc/paged_decode_tile.cu
+# (t > 1): enough blocks to spread a long context over the SMs past small
+# decode batches without shrinking per-split work below a few pool blocks
 DEFAULT_NUM_SPLITS = 4
-# what csrc/paged_decode.cu and csrc/paged_decode_tile.cu are compiled for
+# what the three CUDA sources are compiled for
 KERNEL_BLOCK_SIZE = 16
 KERNEL_HEAD_DIMS = (64, 128)
 # tile rows (t * G) one block of csrc/paged_decode_tile.cu owns
 TILE_MAX_ROWS = 128
+# query heads of one kv head (G) a block of csrc/paged_decode_t1.cu serves
+T1_MAX_GROUP = 8
+# thread blocks (splits x NKV x lanes) t1_num_splits aims a t == 1 launch
+# at: four on each of the H100's 132 SMs
+T1_MIN_BLOCKS = 4 * 132
 # tree_bits packs each node's ancestor set into one int32
 MAX_TREE_NODES = 32
 
@@ -95,9 +104,11 @@ launches = LaunchCounter()
 row_live_launches = LaunchCounter()
 #: of those, the launches with per-node ancestor masks (mode 5, ``tree_bits``)
 tree_launches = LaunchCounter()
-#: of those, the launches of csrc/paged_decode_tile.cu (the rest are
-#: csrc/paged_decode.cu's)
+#: of those, the launches of csrc/paged_decode_tile.cu
 tile_launches = LaunchCounter()
+#: of those, the launches of csrc/paged_decode_t1.cu (the rest, neither
+#: tile nor t1, are csrc/paged_decode.cu's)
+t1_launches = LaunchCounter()
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -145,7 +156,35 @@ def fp8_query(q: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.where(over, torch.copysign(torch.full_like(qf, float("inf")), qf), out)
 
 
-def _geometry(q, k_pool, block_tables, kv_limit, num_splits):
+def t1_num_splits(b: int, nkv: int, nblk: int) -> int:
+    """The split count of a t == 1 launch that passes no ``num_splits``:
+    the smallest power of two that gives at least ``T1_MIN_BLOCKS`` thread
+    blocks (splits x NKV x b), never more than the ``nblk`` blocks a lane
+    can walk nor fewer than 1."""
+    want = _ceil_div(T1_MIN_BLOCKS, b * nkv)
+    return max(1, min(1 << (want - 1).bit_length(), nblk))
+
+
+def t1_split_ranges(positions, nblk: int, splits: int, row_live=None,
+                    bs: int = KERNEL_BLOCK_SIZE) -> list:
+    """Each lane's walk at t == 1 as csrc/paged_decode_t1.cu cuts it: the
+    ``nb`` blocks :func:`walked_rows` gives the lane, in ranges of ``c =
+    ceil(nb / splits)`` blocks, ``[(first, stop), ...]`` (split s takes the
+    s-th; the splits past the last range walk nothing). A lane that walks
+    no block has no range."""
+    ranges = []
+    for rows in walked_rows(positions, 1, nblk, bs, row_live).tolist():
+        nb = rows // bs
+        c = _ceil_div(nb, splits)
+        ranges.append([(lb, min(lb + c, nb)) for lb in range(0, nb, c)] if nb else [])
+    return ranges
+
+
+def _geometry(q, k_pool, block_tables, kv_limit, num_splits, source="auto"):
+    """(nblk, splits, blocks per split) of a call on ``source`` ("auto":
+    the one :func:`kernel_route` picks): ``num_splits`` when given, else
+    :func:`t1_num_splits` on csrc/paged_decode_t1.cu and
+    ``DEFAULT_NUM_SPLITS`` on the other two; never more than nblk."""
     b, t, n, d = q.shape
     _, bs, nkv, _ = k_pool.shape
     if n % nkv:
@@ -155,7 +194,14 @@ def _geometry(q, k_pool, block_tables, kv_limit, num_splits):
     nblk = _ceil_div(limit, bs)
     if nblk > w:
         raise ValueError(f"kv_limit {limit} exceeds table capacity {w * bs}")
-    splits = num_splits if num_splits is not None else DEFAULT_NUM_SPLITS
+    if source == "auto":
+        source = kernel_route(k_pool.dtype, t, n // nkv, d)
+    if num_splits is not None:
+        splits = num_splits
+    elif source == "t1":
+        splits = t1_num_splits(b, nkv, nblk)
+    else:
+        splits = DEFAULT_NUM_SPLITS
     splits = max(1, min(splits, nblk))
     return nblk, splits, _ceil_div(nblk, splits)
 
@@ -227,10 +273,28 @@ def paged_flash_decode_reference(
     dequantized and rounded to q's dtype; under ``quant_mxu`` the scores
     are ``acc * q_scale * k_scale * sm_scale`` (int8) or ``acc * k_scale *
     sm_scale`` (fp8), multiplied in that order."""
-    quantized = _check_scales(k_pool, k_scale, v_scale, quant_mxu)
     squeeze = q.dim() == 3
-    if squeeze:
-        q = q[:, None]
+    q4 = q[:, None] if squeeze else q
+    scores, mask, v_all = _masked_scores(
+        q4, k_pool, v_pool, block_tables, positions, kv_limit=kv_limit,
+        k_scale=k_scale, v_scale=v_scale, quant_mxu=quant_mxu, row_live=row_live,
+        tree_bits=tree_bits,
+    )
+    b, t, n, d = q4.shape
+    # a row with no visible key softmaxes to NaN; the kernel gives it 0
+    probs = torch.softmax(scores, dim=-1).masked_fill(~mask, 0.0)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v_all).reshape(b, t, n, d)
+    out = out.to(q.dtype)
+    return out[:, 0] if squeeze else out
+
+
+def _masked_scores(q, k_pool, v_pool, block_tables, positions, *, kv_limit,
+                   k_scale, v_scale, quant_mxu, row_live, tree_bits):
+    """The plain version's fp32 scores of a 4-dim q over the gathered rows,
+    (b, NKV, G, t, nblk * bs), -inf where masked; the mask, broadcastable
+    to them; and the gathered V in fp32 (dequantized and rounded to q's
+    dtype on a quantized pool), (b, nblk * bs, NKV, D)."""
+    quantized = _check_scales(k_pool, k_scale, v_scale, quant_mxu)
     b, t, n, d = q.shape
     _, bs, nkv, _ = k_pool.shape
     g = n // nkv
@@ -279,12 +343,7 @@ def paged_flash_decode_reference(
     walked = walked_rows(positions, t, nblk, bs, row_live)        # (b,)
     mask = seen & (rows[None, None, :] < walked[:, None, None])
     mask = mask[:, None, None]
-    scores = scores.masked_fill(~mask, float("-inf"))
-    # a row with no visible key softmaxes to NaN; the kernel gives it 0
-    probs = torch.softmax(scores, dim=-1).masked_fill(~mask, 0.0)
-    out = torch.einsum("bkgts,bskd->btkgd", probs, v_all).reshape(b, t, n, d)
-    out = out.to(q.dtype)
-    return out[:, 0] if squeeze else out
+    return scores.masked_fill(~mask, float("-inf")), mask, v_all
 
 
 def paged_flash_decode(
@@ -330,7 +389,7 @@ def paged_flash_decode(
     return out[:, 0] if squeeze else out
 
 
-#: the kernel's payload kinds, by pool dtype (csrc/paged_decode.cu KvKind)
+#: the kernels' payload kinds, by pool dtype (csrc/paged_common.cuh KvKind)
 KV_KINDS = {
     torch.bfloat16: 0,
     torch.int8: 1,
@@ -338,15 +397,18 @@ KV_KINDS = {
     torch.float8_e5m2: 3,
 }
 
-
 def kernel_route(kv_dtype: torch.dtype, t: int, group: int, head_dim: int) -> str:
-    """Which CUDA source a launch goes to: ``"tile"``
-    (csrc/paged_decode_tile.cu) exactly for a bf16 pool, ``t > 1``, ``t *
-    group <= TILE_MAX_ROWS`` and ``head_dim`` in ``KERNEL_HEAD_DIMS``;
-    ``"split"`` (csrc/paged_decode.cu) for every other call."""
-    if (kv_dtype == torch.bfloat16 and t > 1 and t * group <= TILE_MAX_ROWS
-            and head_dim in KERNEL_HEAD_DIMS):
-        return "tile"
+    """Which CUDA source a launch goes to, for ``head_dim`` in
+    ``KERNEL_HEAD_DIMS``: ``"t1"`` (csrc/paged_decode_t1.cu) for every t ==
+    1 call with ``group <= T1_MAX_GROUP``, any payload; ``"tile"``
+    (csrc/paged_decode_tile.cu) for a bf16 pool, ``t > 1`` and ``t * group
+    <= TILE_MAX_ROWS``; ``"split"`` (csrc/paged_decode.cu) for every other
+    call."""
+    if head_dim in KERNEL_HEAD_DIMS:
+        if t == 1 and group <= T1_MAX_GROUP:
+            return "t1"
+        if kv_dtype == torch.bfloat16 and t > 1 and t * group <= TILE_MAX_ROWS:
+            return "tile"
     return "split"
 
 
@@ -373,6 +435,23 @@ def _tile_kernel():
     return _entry("paged_decode_tile", 11, 10)
 
 
+def _t1_kernel():
+    return _entry("paged_decode_t1", 14, 10)
+
+
+# each device's (lane, kv head) arrival counters of csrc/paged_decode_t1.cu:
+# zero between launches (the last split of a lane to arrive resets its own),
+# so one buffer serves every launch on the device's stream
+_T1_ARRIVALS: dict = {}
+
+
+def _t1_arrivals(device: torch.device, n: int) -> torch.Tensor:
+    buf = _T1_ARRIVALS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _T1_ARRIVALS[device] = torch.zeros(n, dtype=torch.int32, device=device)
+    return buf
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -383,9 +462,13 @@ def _launch(
     kernel="auto",
 ):
     """Validate and launch one call. ``kernel`` is ``"auto"`` on every path
-    of the port (:func:`kernel_route` picks the source); ``"split"`` or
-    ``"tile"`` forces one, for a comparison of the two at the same call.
-    A build or launch error raises: nothing retries on the other source."""
+    of the port (:func:`kernel_route` picks the source); ``"split"``,
+    ``"tile"`` or ``"t1"`` forces one, for a comparison of two sources at
+    the same call (``"tile"`` and ``"t1"`` raise on a call that their
+    source does not take). ``splits`` and ``bps`` are ``_geometry``'s for
+    the source; csrc/paged_decode_t1.cu cuts each lane's own walk into at
+    most ``splits`` ranges and takes no ``bps``. A build or launch error
+    raises: nothing retries on another source."""
     b, t, n, d = q.shape
     nb, bs, nkv, _ = k_pool.shape
     g = n // nkv
@@ -445,48 +528,62 @@ def _launch(
         )
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("the kernel's vector K/V loads need 16-byte aligned pools")
-    if kernel not in ("auto", "split", "tile"):
-        raise ValueError(f"kernel must be 'auto', 'split' or 'tile', got {kernel!r}")
+    if kernel not in ("auto", "split", "tile", "t1"):
+        raise ValueError(
+            f"kernel must be 'auto', 'split', 'tile' or 't1', got {kernel!r}")
     route = "split" if kernel == "split" else kernel_route(k_pool.dtype, t, g, d)
     if kernel == "tile" and route != "tile":
         raise ValueError(
             f"csrc/paged_decode_tile.cu takes a bf16 pool with 1 < t and t * G <= "
             f"{TILE_MAX_ROWS}; got a {k_pool.dtype} pool, t {t}, G {g}"
         )
+    if kernel == "t1" and route != "t1":
+        raise ValueError(
+            f"csrc/paged_decode_t1.cu takes t == 1 and G <= {T1_MAX_GROUP}; got t "
+            f"{t}, G {g}"
+        )
 
     tg = t * g
-    o_parts = torch.empty((b, nkv, splits, tg, d), dtype=torch.float32, device=q.device)
-    m_parts = torch.empty((b, nkv, splits, tg), dtype=torch.float32, device=q.device)
-    l_parts = torch.empty_like(m_parts)
+    parts = torch.empty(b * nkv * splits * tg * (d + 2), dtype=torch.float32,
+                        device=q.device)
+    o_parts, m_parts, l_parts = parts.split(
+        (b * nkv * splits * tg * d, b * nkv * splits * tg, b * nkv * splits * tg))
     out = torch.empty_like(q)
     masks = (
         row_live.data_ptr() if row_live is not None else None,
         tree_bits.data_ptr() if tree_bits is not None else None,
     )
-    parts = (o_parts.data_ptr(), m_parts.data_ptr(), l_parts.data_ptr(), out.data_ptr())
-    geometry = (b, t, n, nkv, d, bs, block_tables.shape[1], nblk, splits, bps)
+    ptrs = (o_parts.data_ptr(), m_parts.data_ptr(), l_parts.data_ptr(), out.data_ptr())
     head = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
     lookup = (block_tables.data_ptr(), positions.data_ptr())
-    if route == "tile":
-        err = _tile_kernel()(
-            *head, *lookup, *masks, *parts, *geometry, d ** -0.5, _stream(q.device),
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quantized else (None, None)
+    mode = (KV_KINDS[k_pool.dtype], int(quant_mxu))
+    w = block_tables.shape[1]
+    if route == "t1":
+        arrivals = _t1_arrivals(q.device, b * nkv)
+        err = _t1_kernel()(
+            *head, *scales, *lookup, *masks, *ptrs, arrivals.data_ptr(),
+            b, n, nkv, d, bs, w, nblk, splits, *mode, d ** -0.5, _stream(q.device),
         )
     else:
-        scales = (
-            (k_scale.data_ptr(), v_scale.data_ptr()) if quantized else (None, None)
-        )
-        err = _kernel()(
-            *head, *scales, *lookup, *masks, *parts, *geometry,
-            KV_KINDS[k_pool.dtype], int(quant_mxu), d ** -0.5, _stream(q.device),
-        )
+        geometry = (b, t, n, nkv, d, bs, w, nblk, splits, bps)
+        if route == "tile":
+            err = _tile_kernel()(
+                *head, *lookup, *masks, *ptrs, *geometry, d ** -0.5, _stream(q.device),
+            )
+        else:
+            err = _kernel()(
+                *head, *scales, *lookup, *masks, *ptrs, *geometry, *mode, d ** -0.5,
+                _stream(q.device),
+            )
     if err != 0:
-        raise RuntimeError(
-            f"paged_decode{'_tile' if route == 'tile' else ''} launch failed: "
-            f"cudaError_t {err}"
-        )
+        source = "paged_decode" if route == "split" else f"paged_decode_{route}"
+        raise RuntimeError(f"{source} launch failed: cudaError_t {err}")
     launches.count += 1
     if route == "tile":
         tile_launches.count += 1
+    if route == "t1":
+        t1_launches.count += 1
     if row_live is not None:
         row_live_launches.count += 1
     if tree_bits is not None:

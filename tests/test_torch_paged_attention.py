@@ -733,7 +733,7 @@ def test_wide_tiles_reach_the_launch():
             pa._launch(*bf)
 
 
-# -- the route between csrc/paged_decode.cu and csrc/paged_decode_tile.cu --------
+# -- the route between csrc/paged_decode.cu, paged_decode_tile.cu, paged_decode_t1.cu
 
 ROUTES = [
     # (pool dtype, t, G, head_dim, source)
@@ -741,8 +741,16 @@ ROUTES = [
     (torch.bfloat16, 8, 4, 64, "tile"),
     (torch.bfloat16, 32, 4, 64, "tile"),     # 128 rows, the widest tile
     (torch.bfloat16, 16, 3, 128, "tile"),    # the 3B geometry
-    (torch.bfloat16, 1, 4, 64, "split"),     # the t == 1 decode
-    (torch.bfloat16, 1, 3, 128, "split"),
+    (torch.bfloat16, 1, 4, 64, "t1"),        # the t == 1 decode
+    (torch.bfloat16, 1, 3, 128, "t1"),
+    (torch.int8, 1, 4, 64, "t1"),            # every payload at t == 1
+    (torch.int8, 1, 3, 128, "t1"),
+    (torch.float8_e4m3fn, 1, 4, 64, "t1"),
+    (torch.float8_e4m3fn, 1, 3, 128, "t1"),
+    (torch.float8_e5m2, 1, 4, 64, "t1"),
+    (torch.float8_e5m2, 1, 3, 128, "t1"),
+    (torch.bfloat16, 1, 16, 64, "split"),    # G past T1_MAX_GROUP
+    (torch.bfloat16, 1, 4, 32, "split"),     # a head_dim no source takes
     (torch.int8, 8, 4, 64, "split"),
     (torch.float8_e4m3fn, 8, 4, 64, "split"),
     (torch.float8_e5m2, 8, 4, 64, "split"),
@@ -774,26 +782,34 @@ def _launch_case(t, pool="bf16", b=2, n=8, nkv=2, d=64, nb=6, w=4):
     return (q, kp, vp, tables, positions), scales
 
 
+# the ints of each C entry point, and where head_dim sits among them
+ENTRY_INTS = {"split": (12, 4), "tile": (10, 4), "t1": (10, 3)}
+
+
 @pytest.fixture
 def fake_entries(monkeypatch):
-    """The two C entry points replaced by recorders (no library is built):
-    ``calls`` gets (source, ints) for each launch."""
+    """The three C entry points replaced by recorders (no library is
+    built): ``calls`` gets (source, ints, pointers) for each launch."""
     calls = []
 
     def entry(source, n_ptrs):
+        n_ints, head_dim = ENTRY_INTS[source]
+
         def fn(*args):
-            assert len(args) == n_ptrs + (12 if source == "split" else 10) + 2
+            assert len(args) == n_ptrs + n_ints + 2
             ints = args[n_ptrs:-2]
             assert all(isinstance(x, int) for x in ints)
-            assert args[-2] == pytest.approx(args[n_ptrs + 4] ** -0.5)
-            calls.append((source, ints))
+            assert args[-2] == pytest.approx(ints[head_dim] ** -0.5)
+            calls.append((source, ints, args[:n_ptrs]))
             return 0
         return lambda: fn
 
     monkeypatch.setattr(pa, "_kernel", entry("split", 13))
     monkeypatch.setattr(pa, "_tile_kernel", entry("tile", 11))
+    monkeypatch.setattr(pa, "_t1_kernel", entry("t1", 14))
     monkeypatch.setattr(pa, "_stream", lambda device: 0)
-    for c in (pa.launches, pa.row_live_launches, pa.tree_launches, pa.tile_launches):
+    for c in (pa.launches, pa.row_live_launches, pa.tree_launches, pa.tile_launches,
+              pa.t1_launches):
         c.reset()
     return calls
 
@@ -806,7 +822,15 @@ LAUNCHES = [
     (4, "bf16", True, True, "auto", "tile"),
     (4, "bf16", False, False, "split", "split"),
     (4, "bf16", False, True, "split", "split"),
-    (1, "bf16", False, False, "auto", "split"),
+    (1, "bf16", False, False, "auto", "t1"),
+    (1, "bf16", True, False, "auto", "t1"),
+    (1, "bf16", False, True, "auto", "t1"),
+    (1, "int8", False, False, "auto", "t1"),
+    (1, "fp8_e4m3", False, False, "auto", "t1"),
+    (1, "fp8_e5m2", False, False, "auto", "t1"),
+    (1, "bf16", False, False, "t1", "t1"),
+    (1, "bf16", False, False, "split", "split"),  # the same-call yardstick
+    (1, "int8", False, False, "split", "split"),
     (4, "int8", True, False, "auto", "split"),
     (4, "fp8_e4m3", False, True, "auto", "split"),
     (40, "bf16", False, False, "auto", "split"),
@@ -819,9 +843,10 @@ LAUNCHES = [
          for c in LAUNCHES])
 def test_launch_calls_the_routed_entry(fake_entries, t, pool, live, tree, kernel, source):
     """_launch hands the routed C entry point the geometry's ints (the split
-    source also its payload kind and quant_mxu) and ticks tile_launches for
-    the tile source only; row_live and tree_bits launches are counted as
-    before, whichever source takes them."""
+    and t1 sources also the payload kind and quant_mxu; t1 takes no t and
+    no blocks per split) and ticks tile_launches or t1_launches for its own
+    source only; row_live and tree_bits launches are counted as before,
+    whichever source takes them."""
     args, scales = _launch_case(t, pool)
     b = args[0].shape[0]
     kw = dict(scales)
@@ -831,14 +856,49 @@ def test_launch_calls_the_routed_entry(fake_entries, t, pool, live, tree, kernel
         kw["tree_bits"] = torch.as_tensor(_chain_bits(b, t))
     out = pa._launch(*args, 3, 2, 2, kernel=kernel, **kw)
     assert out.shape == args[0].shape and out.dtype == torch.bfloat16
-    geometry = (b, t, 8, 2, 64, 16, 4, 3, 2, 2)
-    want = geometry if source == "tile" else geometry + (
-        pa.KV_KINDS[args[1].dtype], 0)
-    assert fake_entries == [(source, want)]
+    mode = (pa.KV_KINDS[args[1].dtype], 0)
+    want = {
+        "tile": (b, t, 8, 2, 64, 16, 4, 3, 2, 2),
+        "split": (b, t, 8, 2, 64, 16, 4, 3, 2, 2) + mode,
+        "t1": (b, 8, 2, 64, 16, 4, 3, 2) + mode,
+    }[source]
+    assert [(s, i) for s, i, _ in fake_entries] == [(source, want)]
     assert pa.launches.count == 1
     assert pa.tile_launches.count == (source == "tile")
+    assert pa.t1_launches.count == (source == "t1")
     assert pa.row_live_launches.count == live
     assert pa.tree_launches.count == tree
+
+
+T1_POOLS = [("bf16", False)] + [(p, m) for p in QDTYPES for m in (False, True)]
+
+
+@pytest.mark.parametrize("pool,mxu", T1_POOLS,
+                         ids=[f"{p}{'-mxu' if m else ''}" for p, m in T1_POOLS])
+def test_t1_launch_passes_its_pointers(fake_entries, pool, mxu):
+    """csrc/paged_decode_t1.cu gets 14 pointers: q, the pools, the scales
+    (null for a bf16 pool), tables, positions, row_live and tree_bits (null
+    unless passed), the three scratch parts, the output, and the
+    (lane, kv head) arrival counters, zero and one per (lane, kv head) at
+    least; its last two ints are the payload kind and quant_mxu."""
+    args, scales = _launch_case(1, pool)
+    q, kp = args[0], args[1]
+    out = pa._launch(*args, 3, 2, 2, quant_mxu=mxu, **scales)
+    ((source, ints, ptrs),) = fake_entries
+    assert source == "t1" and ints[-2:] == (pa.KV_KINDS[kp.dtype], int(mxu))
+    assert ptrs[:3] == (q.data_ptr(), kp.data_ptr(), args[2].data_ptr())
+    if scales:
+        assert ptrs[3:5] == (scales["k_scale"].data_ptr(), scales["v_scale"].data_ptr())
+    else:
+        assert ptrs[3:5] == (None, None)
+    assert ptrs[5:7] == (args[3].data_ptr(), args[4].data_ptr())
+    assert ptrs[7:9] == (None, None)
+    assert ptrs[12] == out.data_ptr()
+    arrivals = pa._T1_ARRIVALS[q.device]
+    assert ptrs[13] == arrivals.data_ptr()
+    assert arrivals.dtype == torch.int32 and arrivals.numel() >= q.shape[0] * kp.shape[2]
+    assert not arrivals.any()
+    assert pa.t1_launches.count == 1
 
 
 @pytest.mark.parametrize("t,pool", [(1, "bf16"), (4, "int8"), (4, "fp8_e4m3"),
@@ -854,6 +914,34 @@ def test_tile_kernel_takes_only_its_calls(fake_entries, t, pool):
     assert fake_entries == [] and pa.launches.count == 0
 
 
+@pytest.mark.parametrize("t,pool,n", [(4, "bf16", 8), (4, "int8", 8), (40, "bf16", 8),
+                                      (1, "bf16", 18)])
+def test_t1_kernel_takes_only_its_calls(fake_entries, t, pool, n):
+    """Forcing csrc/paged_decode_t1.cu on a call it does not take (t > 1, or
+    G = 9 past T1_MAX_GROUP) raises before any launch; at G = 9 and t == 1
+    the route picks csrc/paged_decode.cu."""
+    args, scales = _launch_case(t, pool, n=n)
+    with pytest.raises(ValueError, match="paged_decode_t1.cu takes"):
+        pa._launch(*args, 3, 2, 2, kernel="t1", **scales)
+    assert fake_entries == [] and pa.launches.count == 0
+    if t == 1:
+        pa._launch(*args, 3, 2, 2, **scales)
+        assert [s for s, _, _ in fake_entries] == ["split"] and pa.t1_launches.count == 0
+
+
+def test_a_t1_launch_error_raises(monkeypatch):
+    """A refused t1 launch raises; nothing retries on another source."""
+    monkeypatch.setattr(pa, "_t1_kernel", lambda: lambda *a: 1)
+    monkeypatch.setattr(pa, "_kernel", lambda: pytest.fail("retried on the split source"))
+    monkeypatch.setattr(pa, "_tile_kernel", lambda: pytest.fail("retried on the tile source"))
+    monkeypatch.setattr(pa, "_stream", lambda device: 0)
+    pa.t1_launches.reset()
+    args, _ = _launch_case(1)
+    with pytest.raises(RuntimeError, match="paged_decode_t1 launch failed"):
+        pa._launch(*args, 3, 2, 2)
+    assert pa.t1_launches.count == 0
+
+
 def test_a_tile_launch_error_raises(monkeypatch):
     """A refused tile launch raises; nothing retries on the split source."""
     monkeypatch.setattr(pa, "_tile_kernel", lambda: lambda *a: 1)
@@ -862,3 +950,131 @@ def test_a_tile_launch_error_raises(monkeypatch):
     args, _ = _launch_case(4)
     with pytest.raises(RuntimeError, match="paged_decode_tile launch failed"):
         pa._launch(*args, 3, 2, 2)
+
+
+# -- csrc/paged_decode_t1.cu's partition of each lane's walk -----------------------
+
+T1_KV_LIMIT, T1_BS = 512, 16
+T1_NBLK = T1_KV_LIMIT // T1_BS
+# lane 0 at row 0, lanes whose row opens a pool block (16, 64, 256), lanes
+# inside one, and the last row under kv_limit
+T1_POSITIONS = [0, 15, 16, 17, 64, 100, 256, T1_KV_LIMIT - 1]
+
+
+@pytest.mark.parametrize("live", [False, True], ids=["walk", "row_live"])
+@pytest.mark.parametrize("splits", [1, 3, 4, 16, 64])
+def test_t1_split_ranges_cover_the_walk(splits, live):
+    """Each lane's ranges are disjoint and contiguous, at most ``splits`` of
+    them, all of ceil(nb / splits) blocks but the last, and cover exactly
+    the blocks the walk reads (walked_rows): from block 0 to the block
+    holding the lane's row, none for a walk of no block. Splits beyond a
+    lane's blocks (64 splits, or row 0's single block) take nothing."""
+    positions = torch.as_tensor(T1_POSITIONS, dtype=torch.int32)
+    # row_live 0 ends the walk at the block holding pos - 1 (none at row 0)
+    row_live = torch.as_tensor([0, 1, 0, 0, 1, 0, 0, 1], dtype=torch.int32) if live else None
+    ranges = pa.t1_split_ranges(positions, T1_NBLK, splits, row_live, bs=T1_BS)
+    walked = (pa.walked_rows(positions, 1, T1_NBLK, T1_BS, row_live) // T1_BS).tolist()
+    assert len(ranges) == len(T1_POSITIONS)
+    for lane, (nb, r) in enumerate(zip(walked, ranges)):
+        pos = T1_POSITIONS[lane]
+        frontier = pos if row_live is None else pos + int(row_live[lane]) - 1
+        assert nb == (0 if frontier < 0 else min(T1_NBLK, frontier // T1_BS + 1))
+        if nb == 0:
+            assert r == []
+            continue
+        c = -(-nb // splits)
+        assert 1 <= len(r) <= splits
+        assert r[0][0] == 0 and r[-1][1] == nb
+        assert all(a[1] == b[0] for a, b in zip(r, r[1:]))
+        assert all(hi - lo == c for lo, hi in r[:-1]) and 0 < r[-1][1] - r[-1][0] <= c
+    assert walked[0] == (0 if live else 1) and walked[-1] == T1_NBLK
+
+
+def _split_merge(q, pool, tables, positions, splits, mxu):
+    """The plain version's fp32 scores cut at each lane's
+    t1_split_ranges, each range's (acc, m, l) taken alone and merged by
+    log-sum-exp as csrc/paged_decode_t1.cu's last split merges them."""
+    kp, vp, ks, vs = pool
+    q4 = q[:, None]
+    scores, mask, v_all = pa._masked_scores(
+        q4, kp, vp, tables, positions, kv_limit=KV_LIMIT, k_scale=ks, v_scale=vs,
+        quant_mxu=mxu, row_live=None, tree_bits=None,
+    )
+    nblk = KV_LIMIT // BS
+    out = torch.zeros(q.shape, dtype=torch.float32)
+    for i, lane in enumerate(pa.t1_split_ranges(positions, nblk, splits, bs=BS)):
+        parts = []
+        for lo, hi in lane:
+            sc = scores[i, ..., 0, lo * BS:hi * BS]               # (NKV, G, rows)
+            m = sc.amax(dim=-1)
+            p = torch.where(sc == float("-inf"), 0.0, torch.exp(sc - m[..., None]))
+            acc = torch.einsum("kgs,skd->kgd", p, v_all[i, lo * BS:hi * BS])
+            parts.append((acc, m, p.sum(dim=-1)))
+        m_star = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+        l_tot = torch.zeros_like(m_star)
+        acc_tot = torch.zeros_like(parts[0][0])
+        for acc, m, l in parts:
+            wgt = torch.where(m == float("-inf"), 0.0, torch.exp(m - m_star))
+            l_tot += wgt * l
+            acc_tot += wgt[..., None] * acc
+        out[i] = (acc_tot / torch.where(l_tot == 0, 1.0, l_tot)[..., None]).reshape(N, D)
+    return out
+
+
+T1_MERGE_CASES = [("float32", False)] + [(p, m) for p in ("int8", "fp8_e4m3")
+                                         for m in (False, True)]
+
+
+@pytest.mark.parametrize("splits", [3, 16])
+@pytest.mark.parametrize("pool,mxu", T1_MERGE_CASES,
+                         ids=[f"{p}{'-mode6' if m else '-mode3' if p != 'float32' else ''}"
+                              for p, m in T1_MERGE_CASES])
+def test_t1_split_merge_is_the_plain_version(pool, mxu, splits):
+    """Attention over each range of t1_split_ranges alone, merged by
+    log-sum-exp, is the plain version in fp32 (within 1e-6: summation
+    order), on _case's garbage-filled tables at t == 1; and it matches
+    JAX's interpret-mode kernel at test_matches_jax_kernel's 2e-5, on the
+    float32 pool and on int8 / fp8 e4m3 pools in modes 3 and 6."""
+    if pool == "float32":
+        q, kp, vp, tables, positions = (torch.as_tensor(x) for x in _case(1, seed=40 + splits))
+        quant = (kp, vp, None, None)
+    else:
+        q, quant, tables, positions = _quantized_case(1, 40 + splits, pool)
+    q = q[:, 0]
+    merged = _split_merge(q, quant, tables, positions, splits, mxu)
+    kp, vp, ks, vs = quant
+    kw = dict(kv_limit=KV_LIMIT, k_scale=ks, v_scale=vs, quant_mxu=mxu)
+    ref = pa.paged_flash_decode_reference(q, kp, vp, tables, positions, **kw)
+    torch.testing.assert_close(merged, ref, atol=1e-6, rtol=1e-5)
+    jax_kw = {k: (_jax(v) if isinstance(v, torch.Tensor) else v) for k, v in kw.items()
+              if v is not None}
+    want = jax_paged_flash_decode(
+        _jax(q), _jax(kp), _jax(vp), _jax(tables), _jax(positions), num_splits=4, **jax_kw)
+    np.testing.assert_allclose(merged.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("b,nkv,nblk", [(8, 8, 64), (8, 8, 8), (1, 8, 128), (1, 8, 2),
+                                        (64, 8, 64), (1, 1, 1), (3, 2, 1000), (8, 2, 128)])
+def test_t1_num_splits_fills_the_card(b, nkv, nblk):
+    """At least 1 and at most nblk splits; within that, the smallest power
+    of two that gives T1_MIN_BLOCKS thread blocks."""
+    s = pa.t1_num_splits(b, nkv, nblk)
+    assert 1 <= s <= nblk
+    if s < nblk:
+        assert b * nkv * s >= pa.T1_MIN_BLOCKS and s & (s - 1) == 0
+        assert s == 1 or b * nkv * (s // 2) < pa.T1_MIN_BLOCKS
+
+
+def test_t1_split_count_of_a_call():
+    """A t == 1 call without num_splits takes t1_num_splits, a num_splits
+    the caller passes overrides it (capped at nblk), and a source forced to
+    csrc/paged_decode.cu keeps DEFAULT_NUM_SPLITS, as the t > 1 calls do."""
+    args, _ = _launch_case(1, b=2, nkv=2, w=64)
+    q, kp, _, tables, _ = args
+    nblk = 1024 // 16
+    assert pa._geometry(q, kp, tables, 1024, None)[1] == pa.t1_num_splits(2, 2, nblk) == 64
+    assert pa._geometry(q, kp, tables, 1024, 3)[1] == 3
+    assert pa._geometry(q, kp, tables, 1024, 100)[1] == nblk
+    assert pa._geometry(q, kp, tables, 1024, None, source="split")[1] == pa.DEFAULT_NUM_SPLITS
+    q4, _ = _launch_case(4, b=2, nkv=2, w=64)
+    assert pa._geometry(q4[0], q4[1], q4[3], 1024, None)[1] == pa.DEFAULT_NUM_SPLITS
