@@ -52,9 +52,11 @@
    Every serve checks which source took its K4 calls: every t == 1 call
    csrc/paged_decode_t1.cu (each lane's live blocks split evenly over a
    split count that fills the card, the splits merged in the same launch),
-   each bf16 call at t > 1 csrc/paged_decode_tile.cu (one block owning the
-   whole query tile, on the tensor cores), every other call (the quantized
-   pools at t > 1) csrc/paged_decode.cu.
+   every call at t > 1 with at most 128 tile rows csrc/paged_decode_tile.cu
+   (one block owning the whole query tile, on the tensor cores; bf16, and
+   the quantized pools in modes 3 and 6, Q1's and Q2's suffix prefills
+   among them), and csrc/paged_decode.cu the rest (none of the served
+   calls).
 6. Kernels: runs each kernel on the card at a grid of shapes and at every
    geometry the main paths launched, against its plain PyTorch version,
    with the tolerance stated, and times the kernel, the plain version and
@@ -66,9 +68,10 @@
    paged-decode kernel runs so for the bf16 pool and for each of the six
    quantized combinations {int8, fp8 e4m3, fp8 e5m2} x {mode 3, mode 6},
    at the median call of each served geometry, and once more on a probe
-   built to expose the faults a quantized kernel could hide: there the
-   check must reject the kernel's output with dequantized values left
-   unrounded, and (mode 6) with mode 3's arithmetic in place of mode 6's.
+   built to expose the faults a quantized kernel could hide, at t = 1 (the
+   t1 kernel) and at t = 8 (the tile kernel): there the check must reject
+   the kernel's output with dequantized values left unrounded, and (mode
+   6) with mode 3's arithmetic in place of mode 6's.
    K4's row_live mode runs so at F's median mixed-step call and at t = 16
    cases of the 1B and 3B geometries, bf16 and int8 mode 3, with its live
    rows bitwise equal to the same launch without row_live, and on a probe
@@ -80,8 +83,9 @@
    place of the ancestor mask must fail the check; and a linear t = 32
    block (128 tile rows) with and without row_live. The tile kernel runs
    once more on a probe whose lanes' walks end in a block of 16 fresh
-   rows, where a walk without its last staged block must fail the check;
-   ptxas must report no spills for it. The t1 kernel runs once more on a
+   rows, on a bf16 and an int8 (mode 6) pool, where a walk without its
+   last staged block must fail the check; ptxas must report no spills for
+   any of its instances. The t1 kernel runs once more on a
    probe (lanes at row 0, at the last row under the limit and at rows that
    open a pool block, walks shorter than the split count), where the check
    must reject its output with every lane's newest row left out and with
@@ -357,9 +361,9 @@ def check_routes(label: str, cfg, geoms: dict, launches: int, tile: int, t1: int
                  kv_dtype: str = "bf16") -> str:
     """The counted serve's K4 launches by source: csrc/paged_decode_t1.cu
     must have taken exactly its t == 1 calls, csrc/paged_decode_tile.cu
-    exactly the calls ``kernel_route`` gives it (every bf16 call at t > 1
-    here, none from a quantized pool) and csrc/paged_decode.cu the rest.
-    Returns the log's summary."""
+    exactly the calls ``kernel_route`` gives it (every call at t > 1 here,
+    from any pool: at most 128 tile rows) and csrc/paged_decode.cu the rest
+    (none here). Returns the log's summary."""
     def source(key):
         return k4_source(kv_dtype, key[1], cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
 
@@ -662,9 +666,10 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
             )
         del q, kp, vp, ks, vs, k_all, v_all
     torch.cuda.empty_cache()
-    elem, rel = run_paged_probe(kv_dtype, mxu, card)
+    probes = [run_paged_probe(kv_dtype, mxu, card, t) for t in (1, PROBE_TILE_T)]
+    elem, rel = (max(x) for x in zip(*probes))
     log(
-        f"paged_decode [{mode}]: every case and the probe agree with the plain "
+        f"paged_decode [{mode}]: every case and the probes agree with the plain "
         f"version: each element within {ROW_ULPS} bf16 ulps of its own value plus "
         f"{ROW_ULPS} of its (lane, token, head) row's largest (worst "
         f"{max(worst_elem, elem):.6g} x that limit), each (lane, head) within relative "
@@ -683,12 +688,15 @@ T1_SWEEP = (4, 8, 16, 32)
 
 
 # the probe of run_paged_probe: 8 lanes of the 1B geometry over a 512-row
-# table, t = 1. Odd positions give the V lanes an even number of rows
+# table, each lane's last fresh row; odd rows give the V lanes an even
+# number of rows to the last query. Held at t = 1 (csrc/paged_decode_t1.cu)
+# and at PROBE_TILE_T, the served suffix prefill (csrc/paged_decode_tile.cu)
 PROBE_POSITIONS = (511, 299, 201, 401, 511, 299, 201, 401)
 PROBE_KV_LIMIT = 512
+PROBE_TILE_T = 8
 
 
-def probe_case(kv_dtype: str, device: str):
+def probe_case(kv_dtype: str, device: str, t: int = 1):
     """Inputs on which the faults a quantized K4 could make move its output
     far past the tolerance, where on random data they stay within it
     (made from a seeded numpy generator, so that they are the same on any
@@ -702,9 +710,10 @@ def probe_case(kv_dtype: str, device: str):
     kernel and the plain version, and V rows alternate in sign at a
     magnitude of 2-3: the output is a mean that cancels to a few
     thousandths and moves by many of its ulps if V's bf16 rounding after
-    dequantization is skipped.
-    Returns (q, k_pool, v_pool, k_scale, v_scale, tables, positions) for
-    one layer; the scales are None for the bf16 pool."""
+    dequantization is skipped. At t > 1 each lane's t fresh rows end at
+    its PROBE_POSITIONS row.
+    Returns (q (b, t, N, D), k_pool, v_pool, k_scale, v_scale, tables,
+    positions) for one layer; the scales are None for the bf16 pool."""
     from neuronx_distributed_llama3_2_tpu_torch.quantization import kv_cache as kv
 
     rng = np.random.default_rng(SEED + 2)
@@ -719,7 +728,7 @@ def probe_case(kv_dtype: str, device: str):
     sign = np.where(np.arange(rows) % 2 == 0, 1.0, -1.0)[None, :, None, None]
     m = 1.0 + 0.1 * rng.random((4, rows, 1, 1))
     v[4:] = sign * m * (2.0 + rng.random((4, 1, nkv, d)))
-    q = rng.standard_normal((b, 1, n, d))
+    q = rng.standard_normal((b, t, n, d))
     q[:4] *= 10.0
     # a shuffled table; blocks past each lane's frontier are the null block
     w = rows // bs
@@ -742,7 +751,7 @@ def probe_case(kv_dtype: str, device: str):
         qdt = kv.kv_cache_torch_dtype(kv_dtype)
         kp, ks = kv.kv_quantize(kp, qdt)
         vp, vs = kv.kv_quantize(vp, qdt)
-    pos = on(np.asarray(PROBE_POSITIONS), torch.int32)
+    pos = on(np.asarray(PROBE_POSITIONS) - (t - 1), torch.int32)
     return on(q), kp, vp, ks, vs, on(tables, torch.int32), pos
 
 
@@ -761,9 +770,10 @@ def plain_dequant_unrounded():
         pa.kv_dequantize = inner
 
 
-def run_paged_probe(kv_dtype: str, mxu: bool, card: str):
-    """K4 against its plain version on ``probe_case``'s inputs, held by
-    ``decode_agreement``; then, for a quantized pool, the same check must
+def run_paged_probe(kv_dtype: str, mxu: bool, card: str, t: int = 1):
+    """K4 against its plain version on ``probe_case``'s inputs at t, held by
+    ``decode_agreement``, on the source the route gives the call (which it
+    must have taken); then, for a quantized pool, the same check must
     reject the kernel's output with each planted fault (what the fault
     changes in the plain version, added to the kernel's output): the
     dequantized values left unrounded, and under quant_mxu mode 3's
@@ -772,19 +782,21 @@ def run_paged_probe(kv_dtype: str, mxu: bool, card: str):
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
 
     mode = mode_label(kv_dtype, mxu)
-    q, kp, vp, ks, vs, tables, pos = probe_case(kv_dtype, "cuda")
+    q, kp, vp, ks, vs, tables, pos = probe_case(kv_dtype, "cuda", t)
     kw = dict(kv_limit=PROBE_KV_LIMIT, k_scale=ks, v_scale=vs)
-    t1 = pa.t1_launches.count
+    src = k4_source(kv_dtype, t, q.shape[2], kp.shape[2], q.shape[3])
+    counter = {"t1": pa.t1_launches, "tile": pa.tile_launches}[src]
+    before = counter.count
     out = pa.paged_flash_decode(q, kp, vp, tables, pos, num_splits=4, quant_mxu=mxu, **kw)
-    check(pa.t1_launches.count == t1 + 1, f"{mode} probe: not on paged_decode_t1.cu")
+    check(counter.count == before + 1, f"{mode} probe t={t}: not on paged_decode_{src}.cu")
     ref = pa.paged_flash_decode_reference(q, kp, vp, tables, pos, quant_mxu=mxu, **kw)
-    check(bool(torch.isfinite(out).all()), f"{mode} probe: non-finite kernel output")
+    check(bool(torch.isfinite(out).all()), f"{mode} probe t={t}: non-finite kernel output")
     elem, rel = decode_agreement(out, ref)
-    log(f"kernel paged_decode [{mode}] [probe] positions {list(PROBE_POSITIONS)}: "
-        f"{elem:.6g} x its element limit, lane relative L2 {rel:.6g} (limits 1, "
-        f"{LANE_REL_L2}) | {card}")
+    log(f"kernel paged_decode [{mode}] [probe t={t}, paged_decode_{src}.cu] positions "
+        f"{pos.tolist()}: {elem:.6g} x its element limit, lane relative L2 {rel:.6g} "
+        f"(limits 1, {LANE_REL_L2}) | {card}")
     check(elem <= 1.0 and rel <= LANE_REL_L2,
-          f"{mode} probe: disagrees with the plain version ({elem}, {rel})")
+          f"{mode} probe t={t}: disagrees with the plain version ({elem}, {rel})")
     faults = {}
     if kv_dtype != "bf16":
         with plain_dequant_unrounded():
@@ -796,11 +808,11 @@ def run_paged_probe(kv_dtype: str, mxu: bool, card: str):
     for name, bad in faults.items():
         planted = (out.float() + bad.float() - ref.float()).to(out.dtype)
         f_elem, f_rel = decode_agreement(planted, ref)
-        log(f"kernel paged_decode [{mode}] [probe] planted fault ({name}): error "
+        log(f"kernel paged_decode [{mode}] [probe t={t}] planted fault ({name}): error "
             f"{f_elem:.6g} x its element limit, lane relative L2 {f_rel:.6g} (limits 1, "
             f"{LANE_REL_L2})")
         check(f_elem > 1.0 or f_rel > LANE_REL_L2,
-              f"the {mode} check passes a planted fault ({name})")
+              f"the {mode} check passes a planted fault ({name}) at t={t}")
     return elem, rel
 
 
@@ -1314,38 +1326,49 @@ TILE_PROBE_POSITIONS = (0, 16, 48, 96, 160, 240, 336, 480)
 TILE_PROBE_KV_LIMIT = 512
 
 
-def run_tile_probe(card: str):
+def run_tile_probe(card: str, kv_dtype: str = "bf16", mxu: bool = False):
     """csrc/paged_decode_tile.cu against the plain version on
-    TILE_PROBE_POSITIONS; then the same launch with each lane's walk cut
-    before the last pool block it stages (a row_live that ends the lane's
-    live rows at that block's first row: the ring neither stages nor
-    computes it) must fail the same check. Returns the sound (element
-    ratio, lane relative L2)."""
+    TILE_PROBE_POSITIONS, on a ``kv_dtype`` pool (mode 6 under ``mxu``);
+    then the same launch with each lane's walk cut before the last pool
+    block it stages (a row_live that ends the lane's live rows at that
+    block's first row: the ring neither stages nor computes it) must fail
+    the same check. Returns the sound (element ratio, lane relative L2)."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+    from neuronx_distributed_llama3_2_tpu_torch.quantization import kv_cache as kv
 
+    mode = mode_label(kv_dtype, mxu)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     c = DecodeCase("tile probe", 32, 8, 64, TREE_MAX_T, TILE_PROBE_KV_LIMIT, 4,
                    np.asarray(TILE_PROBE_POSITIONS), layers=1)
     q, kp, vp, tables, pos = build_case(c, gen)
-    kw = dict(kv_limit=c.kv_limit, num_splits=c.splits)
+    kp, vp = kp[0], vp[0]
+    scales = {}
+    if kv_dtype != "bf16":
+        qdt = kv.kv_cache_torch_dtype(kv_dtype)
+        kp, ks = kv.kv_quantize(kp, qdt)
+        vp, vs = kv.kv_quantize(vp, qdt)
+        scales = dict(k_scale=ks, v_scale=vs, quant_mxu=mxu)
+    kw = dict(kv_limit=c.kv_limit, num_splits=c.splits, **scales)
     tile0 = pa.tile_launches.count
-    out = pa.paged_flash_decode(q, kp[0], vp[0], tables, pos, **kw)
-    check(pa.tile_launches.count == tile0 + 1, "the tile probe did not reach the tile kernel")
-    ref = pa.paged_flash_decode_reference(q, kp[0], vp[0], tables, pos, kv_limit=c.kv_limit)
+    out = pa.paged_flash_decode(q, kp, vp, tables, pos, **kw)
+    check(pa.tile_launches.count == tile0 + 1,
+          f"the {mode} tile probe did not reach the tile kernel")
+    ref = pa.paged_flash_decode_reference(q, kp, vp, tables, pos, kv_limit=c.kv_limit,
+                                          **scales)
     elem, rel = decode_agreement(out, ref)
-    log(f"kernel paged_decode_tile [probe] positions {list(TILE_PROBE_POSITIONS)} t={c.t} "
-        f"({c.t * c.n // c.nkv} tile rows): {elem:.6g} x its element limit, lane relative "
-        f"L2 {rel:.6g} (limits 1, {LANE_REL_L2}) | {card}")
+    log(f"kernel paged_decode_tile [{mode}] [probe] positions {list(TILE_PROBE_POSITIONS)} "
+        f"t={c.t} ({c.t * c.n // c.nkv} tile rows): {elem:.6g} x its element limit, lane "
+        f"relative L2 {rel:.6g} (limits 1, {LANE_REL_L2}) | {card}")
     check(elem <= 1.0 and rel <= LANE_REL_L2,
-          f"tile probe: disagrees with the plain version ({elem}, {rel})")
+          f"{mode} tile probe: disagrees with the plain version ({elem}, {rel})")
     last_block = (pos + c.t - 1) // c.bs * c.bs
-    short = forced_launch("tile", q, kp[0], vp[0], tables, pos, row_live=last_block - pos, **kw)
+    short = forced_launch("tile", q, kp, vp, tables, pos, row_live=last_block - pos, **kw)
     f_elem, f_rel = decode_agreement(short, ref)
-    log(f"kernel paged_decode_tile [probe] planted fault (the walk without its last staged "
-        f"block): error {f_elem:.6g} x its element limit, lane relative L2 {f_rel:.6g} "
-        f"(limits 1, {LANE_REL_L2})")
+    log(f"kernel paged_decode_tile [{mode}] [probe] planted fault (the walk without its last "
+        f"staged block): error {f_elem:.6g} x its element limit, lane relative L2 "
+        f"{f_rel:.6g} (limits 1, {LANE_REL_L2})")
     check(f_elem > 1.0 or f_rel > LANE_REL_L2,
-          "the tile check passes a walk without its last staged block")
+          f"the {mode} tile check passes a walk without its last staged block")
     return elem, rel
 
 
@@ -2762,9 +2785,11 @@ def main() -> int:
     # the instances (D = 64, 128) of each kernel written for one block to
     # hold a whole tile in registers must not spill, and ptxas must not
     # serialize a wgmma product (warning C7520); the spill readings each
-    # source must show (two a kernel: stores, loads), paged_decode_t1's
-    # twelve kernels (D x payload layout x group of 4 or 8) among them
-    for name, readings in (("paged_decode_tile", 4), ("paged_decode_t1", 24),
+    # source must show (two a kernel: stores, loads), paged_decode_tile's
+    # ten main kernels (D x bf16, int8 and fp8 in modes 3 and 6) and
+    # paged_decode_t1's twelve (D x payload layout x group of 4 or 8) among
+    # them
+    for name, readings in (("paged_decode_tile", 20), ("paged_decode_t1", 24),
                            ("flash_fwd", 4), ("flash_bwd", 4)):
         ptxas = built[name].ptxas
         if ptxas:  # empty when the library was built by an earlier process
@@ -2801,7 +2826,8 @@ def main() -> int:
     paged, paged_err = run_paged_kernel_phase(cfg, served, card)
     row_live = run_row_live_phase(cfg, f_served, card)
     tree = run_tree_kernel_phase(cfg, t_served, card)
-    run_tile_probe(card)
+    for kv_dtype, mxu in (("bf16", False), ("int8", True)):
+        run_tile_probe(card, kv_dtype, mxu)
     run_t1_probe(card)
     # the six quantized combinations at the grid and at every geometry the
     # quantized serves launched (launch counts summed over both serves)
@@ -2846,7 +2872,8 @@ def main() -> int:
     ))
     # one entry per quantized mode the serves launched, on each source: the
     # t == 1 decode on csrc/paged_decode_t1.cu, the suffix prefills (t > 1)
-    # on csrc/paged_decode.cu
+    # on csrc/paged_decode_tile.cu, with csrc/paged_decode.cu at the same
+    # call (split_ms)
     for label, (kv_dtype, mxu, q_launches, q_t1, _) in quant.items():
         tag = f"{kv_dtype}{'_mxu' if mxu else ''}"
         records = quant_records[kv_dtype, mxu]
@@ -2854,12 +2881,13 @@ def main() -> int:
             name=f"paged_decode_t1_{tag}", route="cuda", source=fa_src + "paged_decode_t1.cu",
             replaces=k4, launches=q_t1, **records["t1"],
         ))
-        check((q_launches > q_t1) == ("split" in records),
-              f"{label}: {q_launches - q_t1} paged_decode.cu launches, records {list(records)}")
-        if "split" in records:
+        check((q_launches > q_t1) == ("tile" in records) and "split" not in records,
+              f"{label}: {q_launches - q_t1} t > 1 launches, records {list(records)}")
+        if "tile" in records:
             kernels.append(dict(
-                name=f"paged_decode_{tag}", route="cuda", source=fa_src + "paged_decode.cu",
-                replaces=k4, launches=q_launches - q_t1, **records["split"],
+                name=f"paged_decode_{tag}", route="cuda",
+                source=fa_src + "paged_decode_tile.cu", replaces=k4,
+                launches=q_launches - q_t1, **records["tile"],
             ))
     # modes 4 and 5 of the bf16 serves, all on the tile kernel
     kernels.append(dict(

@@ -9,9 +9,10 @@ at first use, see :mod:`._build`) from one of three sources:
 T1_MAX_GROUP``), each lane's live blocks split evenly over a split count
 that fills the card (:func:`t1_num_splits`, :func:`t1_split_ranges`) and
 the splits merged in the same launch; ``csrc/paged_decode_tile.cu``, one
-block owning a whole query tile on the tensor cores, for a bf16 pool with
-``t > 1`` and ``t * G <= TILE_MAX_ROWS``; ``csrc/paged_decode.cu`` for
-every other call (the quantized pools at t > 1, wider tiles).
+block owning a whole query tile on the tensor cores, for every call with
+``t > 1`` and ``t * G <= TILE_MAX_ROWS`` (any payload: bf16, or int8 / fp8
+in modes 3 and 6); ``csrc/paged_decode.cu`` for every other call (tiles
+wider than ``TILE_MAX_ROWS``, ``G > T1_MAX_GROUP`` at t == 1).
 :func:`kernel_route` is the rule. On a CPU tensor it runs
 :func:`paged_flash_decode_reference`, the plain PyTorch version of the same
 function. Any other device raises: there is no fallback from one to the
@@ -400,14 +401,15 @@ KV_KINDS = {
 def kernel_route(kv_dtype: torch.dtype, t: int, group: int, head_dim: int) -> str:
     """Which CUDA source a launch goes to, for ``head_dim`` in
     ``KERNEL_HEAD_DIMS``: ``"t1"`` (csrc/paged_decode_t1.cu) for every t ==
-    1 call with ``group <= T1_MAX_GROUP``, any payload; ``"tile"``
-    (csrc/paged_decode_tile.cu) for a bf16 pool, ``t > 1`` and ``t * group
-    <= TILE_MAX_ROWS``; ``"split"`` (csrc/paged_decode.cu) for every other
-    call."""
+    1 call with ``group <= T1_MAX_GROUP``; ``"tile"``
+    (csrc/paged_decode_tile.cu) for every call with ``t > 1`` and ``t *
+    group <= TILE_MAX_ROWS``; ``"split"`` (csrc/paged_decode.cu) for every
+    other call. Each source takes every payload ``kv_dtype`` may name
+    (bf16, int8, fp8 e4m3 or e5m2), so the pool's dtype moves no call."""
     if head_dim in KERNEL_HEAD_DIMS:
         if t == 1 and group <= T1_MAX_GROUP:
             return "t1"
-        if kv_dtype == torch.bfloat16 and t > 1 and t * group <= TILE_MAX_ROWS:
+        if t > 1 and t * group <= TILE_MAX_ROWS:
             return "tile"
     return "split"
 
@@ -432,7 +434,7 @@ def _kernel():
 
 
 def _tile_kernel():
-    return _entry("paged_decode_tile", 11, 10)
+    return _entry("paged_decode_tile", 13, 12)
 
 
 def _t1_kernel():
@@ -534,8 +536,8 @@ def _launch(
     route = "split" if kernel == "split" else kernel_route(k_pool.dtype, t, g, d)
     if kernel == "tile" and route != "tile":
         raise ValueError(
-            f"csrc/paged_decode_tile.cu takes a bf16 pool with 1 < t and t * G <= "
-            f"{TILE_MAX_ROWS}; got a {k_pool.dtype} pool, t {t}, G {g}"
+            f"csrc/paged_decode_tile.cu takes 1 < t and t * G <= {TILE_MAX_ROWS}; got "
+            f"t {t}, G {g}"
         )
     if kernel == "t1" and route != "t1":
         raise ValueError(
@@ -566,16 +568,11 @@ def _launch(
             b, n, nkv, d, bs, w, nblk, splits, *mode, d ** -0.5, _stream(q.device),
         )
     else:
-        geometry = (b, t, n, nkv, d, bs, w, nblk, splits, bps)
-        if route == "tile":
-            err = _tile_kernel()(
-                *head, *lookup, *masks, *ptrs, *geometry, d ** -0.5, _stream(q.device),
-            )
-        else:
-            err = _kernel()(
-                *head, *scales, *lookup, *masks, *ptrs, *geometry, *mode, d ** -0.5,
-                _stream(q.device),
-            )
+        entry = _tile_kernel() if route == "tile" else _kernel()
+        err = entry(
+            *head, *scales, *lookup, *masks, *ptrs, b, t, n, nkv, d, bs, w, nblk, splits,
+            bps, *mode, d ** -0.5, _stream(q.device),
+        )
     if err != 0:
         source = "paged_decode" if route == "split" else f"paged_decode_{route}"
         raise RuntimeError(f"{source} launch failed: cudaError_t {err}")

@@ -222,28 +222,43 @@ def _live_case(t, seed):
     return q, kp, vp, tables, positions, live
 
 
+# the pools the row_live and tree_bits cases run on: float32, int8 in mode 3,
+# fp8 e4m3 in mode 6
+MASK_POOLS = ["float32", "int8", "fp8_e4m3-mode6"]
+
+
+def _mask_pool(kp, vp, pool):
+    """(k_pool, v_pool, the quantized-pool keywords) of a MASK_POOLS name."""
+    if pool == "float32":
+        return kp, vp, {}
+    name, _, mode = pool.partition("-")
+    kp, ks = kv.kv_quantize(kp, kv.KV_CACHE_DTYPES[name])
+    vp, vs = kv.kv_quantize(vp, kv.KV_CACHE_DTYPES[name])
+    return kp, vp, dict(k_scale=ks, v_scale=vs, quant_mxu=mode == "mode6")
+
+
+def _jax_kw(kw: dict) -> dict:
+    return {k: _jax(v) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+
+
 def _live_run(t, seed, pool, splits):
     """(the port's output, JAX's interpret-mode kernel output, the case
-    as torch tensors), fp32 q, a float32 or int8 (mode 3) pool."""
+    as torch tensors), fp32 q, a MASK_POOLS pool."""
     q, kp, vp, tables, positions, live = (
         torch.as_tensor(x) for x in _live_case(t, seed)
     )
-    scales = {}
-    if pool == "int8":
-        kp, ks = kv.kv_quantize(kp, torch.int8)
-        vp, vs = kv.kv_quantize(vp, torch.int8)
-        scales = dict(k_scale=ks, v_scale=vs)
+    kp, vp, scales = _mask_pool(kp, vp, pool)
     kw = dict(kv_limit=KV_LIMIT, num_splits=splits)
     ref = jax_paged_flash_decode(
         *(_jax(x) for x in (q, kp, vp, tables, positions)), row_live=_jax(live),
-        **kw, **{k: _jax(v) for k, v in scales.items()},
+        **kw, **_jax_kw(scales),
     )
     out = pa.paged_flash_decode(q, kp, vp, tables, positions, row_live=live, **kw, **scales)
     return out, np.asarray(ref), (q, kp, vp, tables, positions, live, scales)
 
 
 @pytest.mark.parametrize("splits", [1, 4])
-@pytest.mark.parametrize("pool", ["float32", "int8"])
+@pytest.mark.parametrize("pool", MASK_POOLS)
 @pytest.mark.parametrize("t", [4, 8, 16])
 def test_row_live_matches_jax_kernel(t, pool, splits):
     """Mode 4 against JAX's interpret-mode kernel on whole outputs, padding
@@ -608,28 +623,23 @@ def _chain_bits(b, t):
 
 
 @pytest.mark.parametrize("live", [False, True], ids=["all-rows", "row_live"])
-@pytest.mark.parametrize("pool", ["float32", "int8"])
+@pytest.mark.parametrize("pool", MASK_POOLS)
 @pytest.mark.parametrize("t", [5, 9])
 def test_tree_bits_matches_jax_kernel(t, pool, live):
     """Mode 5 against JAX's interpret-mode kernel on random branching trees
     over _live_case's lanes (row_live's padding rows included), fp32 q, a
-    float32 or int8 (mode 3) pool: whole outputs within 1e-5 (summation
-    order)."""
+    MASK_POOLS pool: whole outputs within 1e-5 (summation order)."""
     rng = np.random.default_rng(300 + t)
     q, kp, vp, tables, positions, row_live = (
         torch.as_tensor(x) for x in _live_case(t, 300 + t)
     )
     bits = torch.as_tensor(_tree_bits(_random_parents(rng, len(row_live), t)))
-    scales = {}
-    if pool == "int8":
-        kp, ks = kv.kv_quantize(kp, torch.int8)
-        vp, vs = kv.kv_quantize(vp, torch.int8)
-        scales = dict(k_scale=ks, v_scale=vs)
+    kp, vp, scales = _mask_pool(kp, vp, pool)
     kw = dict(kv_limit=KV_LIMIT, num_splits=4)
     extra = dict(row_live=row_live) if live else {}
     ref = jax_paged_flash_decode(
         *(_jax(x) for x in (q, kp, vp, tables, positions)), tree_bits=_jax(bits),
-        **kw, **{k: _jax(v) for k, v in dict(scales, **extra).items()},
+        **kw, **_jax_kw(dict(scales, **extra)),
     )
     out = pa.paged_flash_decode(q, kp, vp, tables, positions, tree_bits=bits,
                                 **kw, **scales, **extra)
@@ -751,11 +761,16 @@ ROUTES = [
     (torch.float8_e5m2, 1, 3, 128, "t1"),
     (torch.bfloat16, 1, 16, 64, "split"),    # G past T1_MAX_GROUP
     (torch.bfloat16, 1, 4, 32, "split"),     # a head_dim no source takes
-    (torch.int8, 8, 4, 64, "split"),
-    (torch.float8_e4m3fn, 8, 4, 64, "split"),
-    (torch.float8_e5m2, 8, 4, 64, "split"),
+    (torch.int8, 8, 4, 64, "tile"),          # every payload at t > 1
+    (torch.float8_e4m3fn, 8, 4, 64, "tile"),
+    (torch.float8_e5m2, 8, 4, 64, "tile"),
+    (torch.int8, 16, 3, 128, "tile"),        # a quantized pool, the 3B geometry
+    (torch.float8_e5m2, 16, 3, 128, "tile"),
     (torch.bfloat16, 40, 4, 64, "split"),    # 160 rows
+    (torch.int8, 40, 4, 64, "split"),
     (torch.bfloat16, 8, 4, 32, "split"),     # a head_dim neither source takes
+    (torch.int8, 8, 4, 32, "split"),
+    (torch.float8_e4m3fn, 1, 4, 32, "split"),
 ]
 
 
@@ -783,7 +798,7 @@ def _launch_case(t, pool="bf16", b=2, n=8, nkv=2, d=64, nb=6, w=4):
 
 
 # the ints of each C entry point, and where head_dim sits among them
-ENTRY_INTS = {"split": (12, 4), "tile": (10, 4), "t1": (10, 3)}
+ENTRY_INTS = {"split": (12, 4), "tile": (12, 4), "t1": (10, 3)}
 
 
 @pytest.fixture
@@ -805,7 +820,7 @@ def fake_entries(monkeypatch):
         return lambda: fn
 
     monkeypatch.setattr(pa, "_kernel", entry("split", 13))
-    monkeypatch.setattr(pa, "_tile_kernel", entry("tile", 11))
+    monkeypatch.setattr(pa, "_tile_kernel", entry("tile", 13))
     monkeypatch.setattr(pa, "_t1_kernel", entry("t1", 14))
     monkeypatch.setattr(pa, "_stream", lambda device: 0)
     for c in (pa.launches, pa.row_live_launches, pa.tree_launches, pa.tile_launches,
@@ -831,9 +846,15 @@ LAUNCHES = [
     (1, "bf16", False, False, "t1", "t1"),
     (1, "bf16", False, False, "split", "split"),  # the same-call yardstick
     (1, "int8", False, False, "split", "split"),
-    (4, "int8", True, False, "auto", "split"),
-    (4, "fp8_e4m3", False, True, "auto", "split"),
+    (4, "int8", False, False, "auto", "tile"),
+    (4, "int8", True, False, "auto", "tile"),
+    (4, "fp8_e4m3", False, True, "auto", "tile"),
+    (4, "fp8_e5m2", True, True, "auto", "tile"),
+    (4, "int8", False, False, "tile", "tile"),
+    (4, "int8", True, False, "split", "split"),  # the same-call yardstick at t > 1
+    (4, "fp8_e5m2", False, True, "split", "split"),
     (40, "bf16", False, False, "auto", "split"),
+    (40, "int8", False, False, "auto", "split"),
 ]
 
 
@@ -842,11 +863,11 @@ LAUNCHES = [
     ids=[f"t{c[0]}-{c[1]}{'-live' if c[2] else ''}{'-tree' if c[3] else ''}-{c[4]}"
          for c in LAUNCHES])
 def test_launch_calls_the_routed_entry(fake_entries, t, pool, live, tree, kernel, source):
-    """_launch hands the routed C entry point the geometry's ints (the split
-    and t1 sources also the payload kind and quant_mxu; t1 takes no t and
-    no blocks per split) and ticks tile_launches or t1_launches for its own
-    source only; row_live and tree_bits launches are counted as before,
-    whichever source takes them."""
+    """_launch hands the routed C entry point the geometry's ints, then the
+    payload kind and quant_mxu (t1 takes no t and no blocks per split) and
+    ticks tile_launches or t1_launches for its own source only; row_live and
+    tree_bits launches are counted as before, whichever source takes
+    them."""
     args, scales = _launch_case(t, pool)
     b = args[0].shape[0]
     kw = dict(scales)
@@ -858,7 +879,7 @@ def test_launch_calls_the_routed_entry(fake_entries, t, pool, live, tree, kernel
     assert out.shape == args[0].shape and out.dtype == torch.bfloat16
     mode = (pa.KV_KINDS[args[1].dtype], 0)
     want = {
-        "tile": (b, t, 8, 2, 64, 16, 4, 3, 2, 2),
+        "tile": (b, t, 8, 2, 64, 16, 4, 3, 2, 2) + mode,
         "split": (b, t, 8, 2, 64, 16, 4, 3, 2, 2) + mode,
         "t1": (b, 8, 2, 64, 16, 4, 3, 2) + mode,
     }[source]
@@ -901,11 +922,12 @@ def test_t1_launch_passes_its_pointers(fake_entries, pool, mxu):
     assert pa.t1_launches.count == 1
 
 
-@pytest.mark.parametrize("t,pool", [(1, "bf16"), (4, "int8"), (4, "fp8_e4m3"),
-                                    (4, "fp8_e5m2"), (40, "bf16")])
+@pytest.mark.parametrize("t,pool", [(1, "bf16"), (1, "int8"), (40, "fp8_e4m3"),
+                                    (40, "fp8_e5m2"), (40, "bf16")])
 def test_tile_kernel_takes_only_its_calls(fake_entries, t, pool):
-    """Forcing the tile source on a call it does not take raises before any
-    launch, as does a source name that does not exist."""
+    """Forcing the tile source on a call it does not take (t == 1, or t * G
+    past TILE_MAX_ROWS), whatever the payload, raises before any launch, as
+    does a source name that does not exist."""
     args, scales = _launch_case(t, pool)
     with pytest.raises(ValueError, match="paged_decode_tile.cu takes"):
         pa._launch(*args, 3, 2, 2, kernel="tile", **scales)
@@ -940,6 +962,31 @@ def test_a_t1_launch_error_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="paged_decode_t1 launch failed"):
         pa._launch(*args, 3, 2, 2)
     assert pa.t1_launches.count == 0
+
+
+@pytest.mark.parametrize("live", [False, True], ids=["walk", "row_live"])
+@pytest.mark.parametrize("pool,mxu", T1_POOLS,
+                         ids=[f"{p}{'-mxu' if m else ''}" for p, m in T1_POOLS])
+def test_tile_launch_passes_its_scales(fake_entries, pool, mxu, live):
+    """csrc/paged_decode_tile.cu gets 13 pointers: q, the pools, the scales
+    (null for a bf16 pool), tables, positions, row_live and tree_bits (null
+    unless passed), the three scratch parts and the output; its last two
+    ints are the payload kind and quant_mxu."""
+    args, scales = _launch_case(8, pool)
+    q, kp, vp, tables, positions = args
+    kw = dict(row_live=torch.full((q.shape[0],), 5, dtype=torch.int32)) if live else {}
+    out = pa._launch(*args, 3, 2, 2, quant_mxu=mxu, **scales, **kw)
+    ((source, ints, ptrs),) = fake_entries
+    assert source == "tile" and ints[-2:] == (pa.KV_KINDS[kp.dtype], int(mxu))
+    assert ptrs[:3] == (q.data_ptr(), kp.data_ptr(), vp.data_ptr())
+    if scales:
+        assert ptrs[3:5] == (scales["k_scale"].data_ptr(), scales["v_scale"].data_ptr())
+    else:
+        assert ptrs[3:5] == (None, None)
+    assert ptrs[5:7] == (tables.data_ptr(), positions.data_ptr())
+    assert ptrs[7:9] == ((kw["row_live"].data_ptr() if live else None), None)
+    assert ptrs[12] == out.data_ptr()
+    assert pa.tile_launches.count == 1 and pa.launches.count == 1
 
 
 def test_a_tile_launch_error_raises(monkeypatch):
@@ -1078,3 +1125,156 @@ def test_t1_split_count_of_a_call():
     assert pa._geometry(q, kp, tables, 1024, None, source="split")[1] == pa.DEFAULT_NUM_SPLITS
     q4, _ = _launch_case(4, b=2, nkv=2, w=64)
     assert pa._geometry(q4[0], q4[1], q4[3], 1024, None)[1] == pa.DEFAULT_NUM_SPLITS
+
+
+# -- csrc/paged_decode_tile.cu's walk on the quantized pools ----------------------
+
+TILE_BS = 16  # the kernel's pool block
+TILE_KV_LIMIT = 160  # ten blocks: four splits of 3, 3, 3 and 1
+TILE_NB = 48
+
+
+def _tile_quant_case(t, seed, name):
+    """fp32 q and a pool of 16-row blocks quantized to ``name``, over
+    tables that hold distinct real blocks up to each lane's frontier and
+    random ids (0 among them) past it; lanes at row 0, inside a block, at a
+    row whose fresh block opens a pool block, further on, and at the last
+    rows under TILE_KV_LIMIT. Random live counts (0 at row 0) and random
+    branching trees. Returns (q, (k, v, k_scale, v_scale), tables,
+    positions, row_live, tree_bits) as torch tensors."""
+    rng = np.random.default_rng(seed)
+    positions = np.asarray([0, 21, 48 - t + 1, 97, TILE_KV_LIMIT - t], np.int32)
+    b = len(positions)
+    q = rng.standard_normal((b, t, N, D)).astype(np.float32)
+    kp = torch.as_tensor(rng.standard_normal((TILE_NB, TILE_BS, NKV, D)), dtype=torch.float32)
+    vp = torch.as_tensor(rng.standard_normal((TILE_NB, TILE_BS, NKV, D)), dtype=torch.float32)
+    w = TILE_KV_LIMIT // TILE_BS + 2
+    tables = rng.integers(0, TILE_NB, size=(b, w)).astype(np.int32)
+    ids = rng.permutation(np.arange(1, TILE_NB))
+    for j, p in enumerate(positions):
+        n = (p + t - 1) // TILE_BS + 1
+        tables[j, :n], ids = ids[:n], ids[n:]
+    live = rng.integers(1, t + 1, size=b).astype(np.int32)
+    live[0] = 0
+    bits = _tree_bits(_random_parents(rng, b, t))
+    qdt = kv.KV_CACHE_DTYPES[name]
+    kq, ks = kv.kv_quantize(kp, qdt)
+    vq, vs = kv.kv_quantize(vp, qdt)
+    return (torch.as_tensor(q), (kq, vq, ks, vs), torch.as_tensor(tables),
+            torch.as_tensor(positions), torch.as_tensor(live), torch.as_tensor(bits))
+
+
+def _tile_walk(q, pool, tables, positions, mxu, row_live, tree_bits):
+    """csrc/paged_decode_tile.cu's arithmetic, block by block, in torch: for
+    each (lane, split) of the tile source's geometry, the walk over the
+    split's 16-row blocks up to the one holding pos + t - 1, broken at the
+    live frontier under row_live; each block's scores (mode 3: q . K
+    dequantized to q's dtype; mode 6 on int8: the int32 dot of q
+    requantized per tile row with the payload, times q_scale, k_scale and
+    sm_scale in that order; on fp8: q cast to the payload's type . the
+    payload, times k_scale and sm_scale), masked as the kernel masks them;
+    the online softmax with its m == -inf guards, p rounded to q's dtype
+    for P.V; then the combine's log-sum-exp merge of the splits."""
+    kp, vp, ks, vs = pool
+    b, t, n, d = q.shape
+    nkv = kp.shape[2]
+    g = n // nkv
+    tg = t * g
+    sm_scale = d ** -0.5
+    nblk, splits, bps = pa._geometry(q, kp, tables, TILE_KV_LIMIT, None, source="tile")
+    # tile row r = ti * G + gi of kv head h holds q[:, ti, h * G + gi]
+    qt = q.float().reshape(b, t, nkv, g, d).permute(0, 2, 1, 3, 4).reshape(b, nkv, tg, d)
+    int8_mxu = mxu and kp.dtype == torch.int8
+    if int8_mxu:
+        q_scl = qt.abs().amax(dim=-1).clamp_min(1e-6) / 127.0                 # (b, nkv, tg)
+        q_op = torch.clamp(torch.round(qt / q_scl[..., None]), -127.0, 127.0)
+    elif mxu:
+        q_op = pa.fp8_query(qt, kp.dtype)
+    else:
+        q_op = qt
+    k_deq = kv.kv_dequantize(kp, ks, q.dtype).float()
+    v_deq = kv.kv_dequantize(vp, vs, q.dtype).float()
+    ti = torch.arange(tg) // g
+    neg = float("-inf")
+    out = torch.zeros(b, nkv, tg, d)
+    for i in range(b):
+        pos = int(positions[i])
+        frontier = (pos + t - 1) // TILE_BS + 1
+        live_all = frontier if row_live is None else min(
+            frontier, (pos + int(row_live[i]) + TILE_BS - 1) // TILE_BS)
+        parts = []
+        for s in range(splits):
+            lb_stop = min((s + 1) * bps, nblk, frontier)
+            live_stop = min(lb_stop, live_all)
+            m = torch.full((nkv, tg), neg)
+            l = torch.zeros(nkv, tg)
+            acc = torch.zeros(nkv, tg, d)
+            for lb in range(s * bps, lb_stop):
+                if lb >= live_stop:
+                    break
+                blk = int(tables[i, lb])
+                if mxu:
+                    dot = torch.einsum("krd,ckd->krc", q_op[i], kp[blk].float())
+                    k_col = ks[blk].float().t()[:, None, :]                    # (nkv, 1, 16)
+                    sc = (dot * q_scl[i][..., None] * k_col if int8_mxu else dot * k_col)
+                    sc = sc * sm_scale
+                else:
+                    sc = torch.einsum("krd,ckd->krc", q_op[i], k_deq[blk]) * sm_scale
+                u = lb * TILE_BS + torch.arange(TILE_BS) - pos
+                if tree_bits is None:
+                    ok = u[None, :] <= ti[:, None]
+                else:
+                    node = tree_bits[i].long()[ti][:, None]
+                    ok = (u[None, :] < 0) | ((u[None, :] < t)
+                                             & (((node >> u.clamp(0, 31)[None, :]) & 1) > 0))
+                sc = torch.where(ok[None], sc, neg)
+                m_new = torch.maximum(m, sc.amax(dim=-1))
+                alpha = torch.where(m == neg, 0.0, torch.exp(m - m_new))
+                p = torch.where(sc == neg, 0.0, torch.exp(sc - m_new[..., None]))
+                l = l * alpha + p.sum(dim=-1)
+                pv = torch.einsum("krc,ckd->krd", p.to(q.dtype).float(), v_deq[blk])
+                acc = acc * alpha[..., None] + pv
+                m = m_new
+            parts.append((acc, m, l))
+        m_star = torch.stack([pm for _, pm, _ in parts]).amax(dim=0)
+        l_tot = torch.zeros(nkv, tg)
+        acc_tot = torch.zeros(nkv, tg, d)
+        for pacc, pm, pl in parts:
+            wgt = torch.where(pm == neg, 0.0, torch.exp(pm - m_star))
+            l_tot += wgt * pl
+            acc_tot += wgt[..., None] * pacc
+        out[i] = acc_tot / torch.where(l_tot == 0, 1.0, l_tot)[..., None]
+    return out.reshape(b, nkv, t, g, d).permute(0, 2, 1, 3, 4).reshape(b, t, n, d)
+
+
+TILE_MERGE_CASES = [(p, m, masks) for p in QDTYPES for m in (False, True)
+                    for masks in ("walk", "row_live", "tree_bits", "row_live+tree_bits")]
+
+
+@pytest.mark.parametrize(
+    "pool,mxu,masks", TILE_MERGE_CASES,
+    ids=[f"{p}-mode{6 if m else 3}-{k}" for p, m, k in TILE_MERGE_CASES])
+def test_tile_quant_split_merge_is_the_plain_version(pool, mxu, masks):
+    """The tile source's walk on a quantized pool, block by block and split
+    by split (``_tile_walk``), merged by log-sum-exp, is the plain version in
+    fp32 (within 1e-6: summation order) and matches JAX's interpret-mode
+    kernel within 2e-5, in modes 3 and 6 on int8, fp8 e4m3 and e5m2 pools,
+    with and without row_live and tree_bits."""
+    t = 6
+    q, quant, tables, positions, live, bits = _tile_quant_case(t, 60 + len(masks), pool)
+    kp, vp, ks, vs = quant
+    extra = {}
+    if "row_live" in masks:
+        extra["row_live"] = live
+    if "tree_bits" in masks:
+        extra["tree_bits"] = bits
+    assert pa.kernel_route(kp.dtype, t, N // NKV, 64) == "tile"
+    walked = _tile_walk(q, quant, tables, positions, mxu, extra.get("row_live"),
+                        extra.get("tree_bits"))
+    kw = dict(kv_limit=TILE_KV_LIMIT, k_scale=ks, v_scale=vs, quant_mxu=mxu, **extra)
+    ref = pa.paged_flash_decode_reference(q, kp, vp, tables, positions, **kw)
+    torch.testing.assert_close(walked, ref, atol=1e-6, rtol=1e-5)
+    want = jax_paged_flash_decode(
+        _jax(q), _jax(kp), _jax(vp), _jax(tables), _jax(positions), num_splits=4,
+        **_jax_kw(kw))
+    np.testing.assert_allclose(walked.numpy(), np.asarray(want), atol=2e-5)
