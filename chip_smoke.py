@@ -40,6 +40,19 @@
    forward's greedy continuation, so that every accept moves rows to the
    frontier, and a serve whose frontier commit is the identity must read
    above the margin. T is profiled.
+   Each serve (Serve, Q1, Q2, F, T, and QF: F's knobs from an int8 pool,
+   served and checked eagerly first) has a prewarmed twin: a server with
+   PagedConfig.prewarm captures every decode-time key of its catalog
+   (decode per kv rung, verify / tree verify per (kv, k), mixed per
+   (t, kv)) as a CUDA graph, then serves the same requests by replaying
+   them; its greedy streams must equal the eager serve's (or first differ
+   at a near tie, and then pass the eager serve's e2e check), and no
+   capture may follow the freeze. The twins of Serve, Q1, Q2, F and T are
+   profiled beside the eager serves (wall, busy share, TPOT, TTFT,
+   tokens/s), and K4's launches by source, counted from the profiler's
+   kernel records, must equal the eager serve's. Serve's planted fault
+   is captured into a twin's graphs, and the e2e check must reject that
+   serve too. Every phase logs its seconds.
 5. Train: Llama-3.2 1B at full width and depth in bench.py's training
    configuration (batch 12 x 2048, remat "full", flash attention, loss
    chunked at 256, AdamW with bf16 state) through TrainingConfig ->
@@ -109,6 +122,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import re
 import subprocess
@@ -164,7 +178,9 @@ QUANT_CHUNK = 256
 # of 0.0625 (Q1) and 0.203125 (Q2) over all eight requests, the planted
 # scale fault of run_quant_e2e_phase 3.81 and 4.10; each margin is twice
 # the sound reading, and run_quant_e2e_phase fails unless the fault lands
-# above it
+# above it. QF (F's knobs from an int8 pool) is held to the int8 margin by
+# the same check, and its own planted scale fault must land above it; its
+# sound serve reads 0.046875 on an H100
 QUANT_LOGIT_MARGIN = {"int8": 0.125, "fp8_e4m3": 0.40625}
 # the fused speculative serve F: PagedConfig knobs, the kernel's widest
 # fresh block (the mixed step's t = max(chunk, drafts + 1) = 16: 64 tile
@@ -1507,22 +1523,41 @@ def run_serve_phase(cfg, model, card: str):
     return prompts, outs, rids, tile, t1, served, server.metrics.pool_bytes_total
 
 
+#: K4's main kernel of each source, as the profiler names it (the tile and
+#: split sources also launch a combine kernel a call)
+K4_KERNELS = {"t1": "paged_decode_t1_kernel", "tile": "paged_decode_tile_kernel",
+              "split": "paged_decode_split_kernel"}
+
+
+def serve_stats(server, rids, outs, wall_s: float) -> dict:
+    """tokens/s, TTFT p50 and TPOT p50 (ms) of a finished serve."""
+    infos = [server.request_info(r) for r in rids]
+    return dict(
+        tokens_s=sum(len(outs[r]) for r in rids) / wall_s,
+        ttft=float(np.median([i["ttft_ms"] for i in infos])),
+        tpot=float(np.median([i["tpot_ms"] for i in infos])),
+    )
+
+
 def run_profile_phase(cfg, model, prompts, card: str, label: str = "serve",
-                      **knobs) -> None:
+                      prewarm: bool = False, **knobs) -> dict:
     """The same requests once more on a fresh pool, under torch.profiler:
     the share of the wall time the card was busy, and the kernels that
-    took it. ``knobs`` are a quantized serve's PagedConfig knobs; its
-    requests are submitted as it submits them (``serve_staged``)."""
-    server = make_server(cfg, model, **knobs)
+    took it. ``knobs`` are a quantized or speculative serve's PagedConfig
+    knobs; its requests are submitted as it submits them
+    (``serve_staged``). ``prewarm``: the server captures its decode-time
+    programs as CUDA graphs before the profiler starts. Returns the
+    serve's wall and busy ms, K4's launches by source as the profiler
+    counted its kernels, the outputs in prompt order and ``serve_stats``."""
+    server = make_server(cfg, model, prewarm=prewarm, **knobs)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if knobs:
-            serve_staged(server, prompts)
+            rids, outs = serve_staged(server, prompts)
         else:
-            for p in prompts:
-                server.submit(p)
-            server.run_to_completion()
+            rids = [server.submit(p) for p in prompts]
+            outs = server.run_to_completion()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = sorted(
@@ -1536,6 +1571,8 @@ def run_profile_phase(cfg, model, prompts, card: str, label: str = "serve",
         src: sum(e.self_device_time_total for e in events if f"paged_decode_{src}" in e.key) / 1e3
         for src in ("tile", "t1")
     }
+    launches = {src: sum(e.count for e in events if name in e.key)
+                for src, name in K4_KERNELS.items()}
     log(f"profile: {label} wall {wall_ms:.6f} ms (profiler on), device busy "
         f"{busy_ms:.6f} ms = {100 * busy_ms / wall_ms:.6f}% of it; paged_decode "
         f"kernels {paged_ms:.6f} ms = {100 * paged_ms / busy_ms:.6f}% of device "
@@ -1546,6 +1583,8 @@ def run_profile_phase(cfg, model, prompts, card: str, label: str = "serve",
     for e in events[:12]:
         log(f"  device {e.self_device_time_total / 1e3:.6f} ms, {e.count} calls: "
             f"{e.key[:100]}")
+    return dict(wall=wall_ms, busy=busy_ms, launches=launches,
+                outs=[outs[r] for r in rids], **serve_stats(server, rids, outs, wall_ms / 1e3))
 
 
 # -- 4. end to end --------------------------------------------------------------
@@ -1569,6 +1608,13 @@ def e2e_gaps(model, prompts, outs, rids, picks=None):
     return worst_gap, exact, total
 
 
+def newest_row_dropped(inner, q, k_pool, v_pool, tables, positions, **kw):
+    """A ``model_kernel_call`` wrapper planting a kernel fault: the newest
+    visible row of every query masked off (at decode, the token's own
+    K/V)."""
+    return inner(q, k_pool, v_pool, tables, (positions - 1).clamp_min(0), **kw)
+
+
 def run_e2e_phase(cfg, model, prompts, outs, rids) -> None:
     """Every served token of every request must be the plain forward's
     argmax or within E2E_LOGIT_MARGIN of it; and the same check must reject
@@ -1580,10 +1626,6 @@ def run_e2e_phase(cfg, model, prompts, outs, rids) -> None:
         f"worst logit gap {gap:.6g} (margin {E2E_LOGIT_MARGIN}); every request "
         f"(worst gap, argmax tokens): {per_request_gaps(model, prompts, outs, rids)}")
     check(gap <= E2E_LOGIT_MARGIN, f"a served token is {gap} below the argmax logit")
-
-    def newest_row_dropped(inner, q, k_pool, v_pool, tables, positions, **kw):
-        return inner(q, k_pool, v_pool, tables, (positions - 1).clamp_min(0), **kw)
-
     with model_kernel_call(newest_row_dropped):
         server = make_server(cfg, model)
         bad_rids = [server.submit(p) for p in prompts]
@@ -1728,6 +1770,12 @@ def quant_e2e_gaps(cfg, model, kv_dtype: str, prompts, outs, rids):
     return worst_gap, exact, total, each
 
 
+def v_scale_as_k_scale(inner, q, k_pool, v_pool, tables, positions, **kw):
+    """A planted fault of the quantized e2e checks: every kernel call reads
+    V's scales as K's."""
+    return inner(q, k_pool, v_pool, tables, positions, **dict(kw, k_scale=kw["v_scale"]))
+
+
 def run_quant_e2e_phase(cfg, model, label: str, kv_dtype: str, mxu: bool,
                         prompts, outs, rids) -> None:
     """The served tokens must be the reference pass's argmax or within the
@@ -1739,10 +1787,6 @@ def run_quant_e2e_phase(cfg, model, label: str, kv_dtype: str, mxu: bool,
         f"pass over a {kv_dtype} pool; worst logit gap {gap:.6g} (margin {margin}); "
         f"every request (worst gap, argmax tokens): {each}")
     check(gap <= margin, f"{label}: a served token is {gap} below the argmax logit")
-
-    def v_scale_as_k_scale(inner, q, k_pool, v_pool, tables, positions, **kw):
-        return inner(q, k_pool, v_pool, tables, positions, **dict(kw, k_scale=kw["v_scale"]))
-
     with model_kernel_call(v_scale_as_k_scale):
         bad_rids, bad_outs = serve_staged(
             make_server(cfg, model, kv_cache_dtype=kv_dtype, quant_mxu=mxu,
@@ -2012,17 +2056,18 @@ def tree_config(cfg):
 def tree_dispatch_spy(server, calls: list) -> None:
     """Keep, for every tree dispatch of ``server`` (a tree verify, or a
     mixed step, which carries trees whenever spec_tree is on), its
-    (parents, live nodes) device tensors: no host sync while it serves."""
+    (parents, live nodes) device tensors, copied on the device (the engine
+    reuses its payload buffers): no host sync while it serves."""
     dec = server.model
     verify, mixed = dec.tree_verify_step, dec.mixed_step
 
     def tree_verify_step(params, cache, tokens, positions, tables, parents, node_len, **kw):
-        calls.append((parents, node_len))
+        calls.append((parents.clone(), node_len.clone()))
         return verify(params, cache, tokens, positions, tables, parents, node_len, **kw)
 
     def mixed_step(params, cache, tokens, positions, tables, rows, row_start, row_len,
                    forced, **kw):
-        calls.append((kw["parents"], torch.where(forced > 0, 1, row_len + 1)))
+        calls.append((kw["parents"].clone(), torch.where(forced > 0, 1, row_len + 1)))
         return mixed(params, cache, tokens, positions, tables, rows, row_start, row_len,
                      forced, **kw)
 
@@ -2267,6 +2312,199 @@ def run_tree_branch_phase(cfg, model, prompts, card: str) -> None:
         f"are the argmax; worst logit gap {bad_gap:.6g} (margin {T_LOGIT_MARGIN})")
     check(bad_gap > T_LOGIT_MARGIN,
           f"the T e2e check passes an identity frontier commit (gap {bad_gap})")
+
+
+# -- 4e. the prewarmed twins: every decode-time step a CUDA graph --------------
+
+def first_difference(a: list, b: list) -> Optional[int]:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: str,
+                    gaps, margin: float, **knobs) -> dict:
+    """The prewarmed twin of serve ``label``: a server built with
+    ``PagedConfig.prewarm``, which captures every decode-time key of its
+    catalog as a CUDA graph, serves the same requests as the eager serve
+    (``eager_outs``, in prompt order) and must emit the same greedy tokens.
+    Where a stream differs, the first token that differs must be a near
+    tie, the two tokens' logits under the plain forward within
+    LOGIT_MARGIN, and the twin's worst e2e gap (``gaps(outs, rids)``) must
+    then lie within ``margin``, as the eager serve's does. No capture may
+    follow the freeze. K4's launch counters are zeroed before the server
+    is built and read after the serve: the captures and the eager prefill
+    calls tick them. Returns the capture count and seconds."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+
+    counters = {"t1": pa.t1_launches, "tile": pa.tile_launches, "all": pa.launches}
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server = make_server(scfg, model, prewarm=True, **knobs)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    captured = {src: c.count for src, c in counters.items()}
+    registry = server.program_registry()
+    m = server.metrics
+    check(list(registry) == server.catalog.graph_keys()
+          and all(r.graph is not None for r in registry.values())
+          and m.prewarm_compiles == len(registry) == m.programs_compiled,
+          f"graph {label}: registry {sorted(map(str, registry))} vs the catalog's "
+          f"{server.catalog.describe()}, prewarm_compiles {m.prewarm_compiles}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if knobs:
+        rids, outs = serve_staged(server, prompts)
+    else:
+        rids = [server.submit(p) for p in prompts]
+        outs = server.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = serve_stats(server, rids, outs, wall)
+    eager_calls = {src: c.count - captured[src] for src, c in counters.items()}
+    check(m.steadystate_compiles == 0 and len(server.program_registry()) == len(registry),
+          f"graph {label}: {m.steadystate_compiles} captures after the freeze")
+    check(captured["t1"] > 0 and captured["all"] > 0,
+          f"graph {label}: the captures launched K4 {captured}")
+    differ = [(j, first_difference(outs[r], e)) for j, (r, e) in enumerate(zip(rids, eager_outs))]
+    differ = [(j, i) for j, i in differ if i is not None]
+    for j, i in differ:
+        served = outs[rids[j]]
+        logits = model(torch.as_tensor([prompts[j] + served[:i]], device="cuda"))[0, -1].float()
+        a, b = served[i], eager_outs[j][i]
+        tie = abs(logits[a] - logits[b]).item()
+        log(f"graph {label}: request {j} first differs from the eager serve at token {i} "
+            f"({a} against {b}); their plain-forward logits lie {tie:.6g} apart (near-tie "
+            f"limit {LOGIT_MARGIN})")
+        check(tie <= LOGIT_MARGIN, f"graph {label}: request {j} differs at token {i}, "
+              f"not a near tie ({tie})")
+    if differ:
+        gap = gaps(outs, rids)
+        log(f"graph {label}: worst e2e gap {gap:.6g} (margin {margin})")
+        check(gap <= margin, f"graph {label}: a served token is {gap} below the argmax")
+    log(f"graph {label}: {len(registry)} keys captured as CUDA graphs in {capture_s:.6f} s "
+        f"(engine construction and prewarm; {server.catalog.describe()}); {len(rids)} "
+        f"requests, {sum(len(outs[r]) for r in rids)} tokens in {wall:.6f} s = "
+        f"{stats['tokens_s']:.6f} tokens/s; TTFT p50 {stats['ttft']:.6f} ms, TPOT p50 "
+        f"{stats['tpot']:.6f} ms; greedy streams equal to the eager serve's on "
+        f"{len(rids) - len(differ)} of {len(rids)} requests; steadystate_compiles "
+        f"{m.steadystate_compiles}, prewarm_compiles {m.prewarm_compiles}; replays "
+        f"{sum(r.replays for r in registry.values())}; K4 launches captured {captured}, "
+        f"eager (the prefills) {eager_calls} | {card}")
+    del server, registry
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(keys=m.prewarm_compiles, capture_s=capture_s, same=not differ, **stats)
+
+
+def run_graph_profile_phase(scfg, model, label: str, prompts, eager: dict, launched: dict,
+                            card: str, same: bool, **knobs) -> None:
+    """The prewarmed twin's profiled serve beside the eager serve's of the
+    same run (``eager``, run_profile_phase's numbers): wall, busy ms and
+    share, TPOT p50, TTFT p50, tokens/s, and K4's launches by source as the
+    profiler counted its kernels. Those must equal ``launched``, what the
+    eager serve's wrappers counted for the same requests, where the twin's
+    streams equal the eager ones (``same``). The profiler can lose kernel
+    records in a long trace (the eager profile's counts may read low, as
+    device_ms's windows may): a twin's profile that counts fewer than
+    ``launched`` is run again, up to twice, never counted up."""
+    def profile():
+        return run_profile_phase(scfg, model, prompts, card, label=f"{label} (CUDA graphs)",
+                                 prewarm=True, **knobs)
+
+    graph = profile()
+    for _ in range(2):
+        if all(graph["launches"][s] >= n for s, n in launched.items()):
+            break
+        log(f"graph profile {label}: the profiler lost kernel records "
+            f"({graph['launches']} against {launched}); profiled once more")
+        graph = profile()
+    rows = []
+    for name, st in (("eager", eager), ("graphs", graph)):
+        rows.append(f"{name}: wall {st['wall']:.6f} ms, busy {st['busy']:.6f} ms = "
+                    f"{100 * st['busy'] / st['wall']:.6f}%, TPOT p50 {st['tpot']:.6f} ms, "
+                    f"TTFT p50 {st['ttft']:.6f} ms, {st['tokens_s']:.6f} tokens/s, K4 "
+                    f"launches (profiler) {st['launches']}")
+    log(f"graph profile {label} (profiler on): " + "; ".join(rows) + f"; the eager serve's "
+        f"wrappers counted {launched} | {card}")
+    if same:
+        check(graph["outs"] == eager["outs"],
+              f"graph profile {label}: the profiled streams differ from the eager ones")
+        check(graph["launches"] == launched and launched["t1"] > 0,
+              f"graph profile {label}: K4 launches {graph['launches']} (profiler, graphs) "
+              f"against {launched} (the eager serve's wrappers)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_graph_fault_phase(cfg, model, prompts, card: str) -> None:
+    """The planted fault of run_e2e_phase (every kernel call's newest row
+    masked off) captured into the prewarmed Serve's graphs, the serve run
+    after the wrapper is gone: the eager prefill calls are sound, and only
+    the replays carry the fault. The e2e check must read it above
+    E2E_LOGIT_MARGIN, as it reads the eager fault."""
+    with model_kernel_call(newest_row_dropped):
+        server = make_server(cfg, model, prewarm=True)
+    rids = [server.submit(p) for p in prompts]
+    outs = server.run_to_completion()
+    gap, exact, total = e2e_gaps(model, prompts, outs, rids)
+    log(f"e2e planted fault captured into the graphs (newest row masked off in every "
+        f"replayed kernel call, {server.metrics.prewarm_compiles} graphs, "
+        f"{sum(r.replays for r in server.program_registry().values())} replays): "
+        f"{exact}/{total} served tokens are the plain forward's argmax; worst logit gap "
+        f"{gap:.6g} (margin {E2E_LOGIT_MARGIN}) | {card}")
+    check(gap > E2E_LOGIT_MARGIN,
+          f"the e2e check passes a planted kernel fault replayed from the graphs (gap {gap})")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_quant_spec_serve_phase(cfg, model, card: str):
+    """F's prompts and knobs from an int8 pool (mode 3): the widest reach
+    of the tile source's quantized instances, every verify and mixed call.
+    A warm-up serve, then the counted serve; every token within Q1's int8
+    margin (QUANT_LOGIT_MARGIN, the same check: one whole-prompt pass over
+    a fresh int8 pool) of that pass's argmax; and a serve whose every
+    kernel call reads V's scales as K's must read above it. Returns
+    (prompts, outputs in prompt order)."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+
+    fcfg, prompts = spec_config(cfg), spec_prompts()
+    knobs = dict(SPEC_KNOBS, kv_cache_dtype="int8")
+    serve_staged(make_server(fcfg, model, **knobs), prompts)
+    server = make_server(fcfg, model, **knobs)
+    for c in (pa.launches, pa.tile_launches, pa.row_live_launches):
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids, outs = serve_staged(server, prompts)
+    torch.cuda.synchronize()
+    stats = serve_stats(server, rids, outs, time.perf_counter() - t0)
+    m = server.metrics
+    for r in rids:
+        check(len(outs[r]) == MAX_NEW, f"QF: request {r} produced {len(outs[r])} tokens")
+    check(m.mixed_dispatches > 0 and m.verify_steps > 0 and pa.tile_launches.count > 0
+          and pa.row_live_launches.count == m.mixed_dispatches * cfg.num_layers,
+          f"QF: mixed {m.mixed_dispatches}, verify {m.verify_steps}, tile launches "
+          f"{pa.tile_launches.count}, row_live launches {pa.row_live_launches.count}")
+    margin = QUANT_LOGIT_MARGIN["int8"]
+    gap, exact, total, each = quant_e2e_gaps(cfg, model, "int8", prompts, outs, rids)
+    log(f"serve QF (F's knobs from an int8 pool, mode 3): {stats['tokens_s']:.6f} tokens/s, "
+        f"TTFT p50 {stats['ttft']:.6f} ms, TPOT p50 {stats['tpot']:.6f} ms; {m.mixed_dispatches} "
+        f"mixed, {m.verify_steps} verify, accepted_tokens {m.accepted_tokens}; K4 launches "
+        f"{pa.launches.count}, tile {pa.tile_launches.count}; e2e: {exact}/{total} served "
+        f"tokens are the argmax of one whole-prompt pass over an int8 pool, worst gap "
+        f"{gap:.6g} (margin {margin}); every request: {each} | {card}")
+    check(gap <= margin, f"QF: a served token is {gap} below the argmax logit")
+    with model_kernel_call(v_scale_as_k_scale):
+        bad_rids, bad_outs = serve_staged(make_server(fcfg, model, **knobs), prompts)
+    bad_gap, bad_exact, _, _ = quant_e2e_gaps(cfg, model, "int8", prompts, bad_outs, bad_rids)
+    log(f"e2e QF planted fault (v_scale passed as k_scale in every kernel call): "
+        f"{bad_exact}/{total} served tokens are the argmax; worst logit gap {bad_gap:.6g} "
+        f"(margin {margin})")
+    check(bad_gap > margin, f"the QF e2e check passes a planted scale fault (gap {bad_gap})")
+    return prompts, [outs[r] for r in rids]
 
 
 # -- 5. train -------------------------------------------------------------------
@@ -2760,6 +2998,14 @@ def run_flash_kernel_phase(card: str) -> dict:
     return record
 
 
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds logged under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(f"phase {name}: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2798,37 +3044,78 @@ def main() -> int:
                   f"{name} spills (ptxas: {spills} bytes of spill stores/loads)")
             check("C7520" not in ptxas, f"ptxas serialized a wgmma product in {name}")
 
-    cfg, model = load_model()
-    prompts, outs, rids, tile, t1, served, bf16_pool = run_serve_phase(cfg, model, card)
-    run_e2e_phase(cfg, model, prompts, outs, rids)
-    run_profile_phase(cfg, model, prompts, card)
+    cfg, model = timed("load", load_model)
+    prompts, outs, rids, tile, t1, served, bf16_pool = timed(
+        "serve", run_serve_phase, cfg, model, card)
+    timed("serve e2e", run_e2e_phase, cfg, model, prompts, outs, rids)
+    prof = timed("serve profile", run_profile_phase, cfg, model, prompts, card)
+    # each serve's prewarmed twin: every decode-time step a CUDA graph
+    graph = timed("serve graphs", run_graph_phase, cfg, model, "serve", prompts,
+                  [outs[r] for r in rids], card,
+                  lambda o, r: e2e_gaps(model, prompts, o, r)[0], E2E_LOGIT_MARGIN)
+    timed("serve graphs profile", run_graph_profile_phase, cfg, model, "serve", prompts,
+          prof, dict(t1=t1, tile=tile, split=0), card, graph["same"])
+    timed("serve graphs fault", run_graph_fault_phase, cfg, model, prompts, card)
     quant = {}  # label -> (kv dtype, mxu, K4 launches, t1 launches, served geometries)
     for label, kv_dtype, mxu in QUANT_SERVES:
-        q_prompts, q_outs, q_rids, q_launches, q_t1, q_served = run_quant_serve_phase(
-            cfg, model, label, kv_dtype, mxu, bf16_pool, card)
-        run_quant_e2e_phase(cfg, model, label, kv_dtype, mxu, q_prompts, q_outs, q_rids)
-        run_profile_phase(cfg, model, q_prompts, card, label=f"serve {label}",
-                          kv_cache_dtype=kv_dtype, quant_mxu=mxu,
-                          prefill_chunk_tokens=QUANT_CHUNK)
+        qk = dict(kv_cache_dtype=kv_dtype, quant_mxu=mxu, prefill_chunk_tokens=QUANT_CHUNK)
+        q_prompts, q_outs, q_rids, q_launches, q_t1, q_served = timed(
+            f"serve {label}", run_quant_serve_phase, cfg, model, label, kv_dtype, mxu,
+            bf16_pool, card)
+        timed(f"serve {label} e2e", run_quant_e2e_phase, cfg, model, label, kv_dtype, mxu,
+              q_prompts, q_outs, q_rids)
+        q_prof = timed(f"serve {label} profile", run_profile_phase, cfg, model, q_prompts,
+                       card, label=f"serve {label}", **qk)
+        graph = timed(
+            f"serve {label} graphs", run_graph_phase, cfg, model, f"serve {label}", q_prompts,
+            [q_outs[r] for r in q_rids], card,
+            lambda o, r: quant_e2e_gaps(cfg, model, kv_dtype, q_prompts, o, r)[0],
+            QUANT_LOGIT_MARGIN[kv_dtype], **qk)
+        timed(f"serve {label} graphs profile", run_graph_profile_phase, cfg, model,
+              f"serve {label}", q_prompts, q_prof,
+              dict(t1=q_t1, tile=q_launches - q_t1, split=0), card, graph["same"], **qk)
         quant[label] = (kv_dtype, mxu, q_launches, q_t1, q_served)
-    f_prompts, f_outs, f_rids, f_live_launches, f_tile, f_t1, f_served = run_spec_serve_phase(
-        cfg, model, card)
-    run_spec_e2e_phase(cfg, model, f_prompts, f_outs, f_rids)
-    run_spec_witness_phase(cfg, model, f_prompts, [f_outs[r] for r in f_rids])
-    run_profile_phase(spec_config(cfg), model, f_prompts, card, label="serve F", **SPEC_KNOBS)
-    t_prompts, t_outs, t_rids, t_tree_launches, t_tile, t_t1, t_served = run_tree_serve_phase(
-        cfg, model, card)
-    run_tree_e2e_phase(cfg, model, t_prompts, t_outs, t_rids)
-    run_tree_branch_phase(cfg, model, t_prompts, card)
-    run_profile_phase(tree_config(cfg), model, t_prompts, card, label="serve T", **TREE_KNOBS)
+    fcfg = spec_config(cfg)
+    f_prompts, f_outs, f_rids, f_live_launches, f_tile, f_t1, f_served = timed(
+        "serve F", run_spec_serve_phase, cfg, model, card)
+    timed("serve F e2e", run_spec_e2e_phase, cfg, model, f_prompts, f_outs, f_rids)
+    timed("serve F witness", run_spec_witness_phase, cfg, model, f_prompts,
+          [f_outs[r] for r in f_rids])
+    f_prof = timed("serve F profile", run_profile_phase, fcfg, model, f_prompts, card,
+                   label="serve F", **SPEC_KNOBS)
+    graph = timed("serve F graphs", run_graph_phase, fcfg, model, "serve F", f_prompts,
+                  [f_outs[r] for r in f_rids], card,
+                  lambda o, r: e2e_gaps(model, f_prompts, o, r)[0], F_LOGIT_MARGIN,
+                  **SPEC_KNOBS)
+    timed("serve F graphs profile", run_graph_profile_phase, fcfg, model, "serve F",
+          f_prompts, f_prof, dict(t1=f_t1, tile=f_tile, split=0), card, graph["same"],
+          **SPEC_KNOBS)
+    qf_prompts, qf_outs = timed("serve QF", run_quant_spec_serve_phase, cfg, model, card)
+    timed("serve QF graphs", run_graph_phase, fcfg, model, "serve QF", qf_prompts, qf_outs,
+          card, lambda o, r: quant_e2e_gaps(cfg, model, "int8", qf_prompts, o, r)[0],
+          QUANT_LOGIT_MARGIN["int8"], kv_cache_dtype="int8", **SPEC_KNOBS)
+    tcfg = tree_config(cfg)
+    t_prompts, t_outs, t_rids, t_tree_launches, t_tile, t_t1, t_served = timed(
+        "serve T", run_tree_serve_phase, cfg, model, card)
+    timed("serve T e2e", run_tree_e2e_phase, cfg, model, t_prompts, t_outs, t_rids)
+    timed("serve T branches", run_tree_branch_phase, cfg, model, t_prompts, card)
+    t_prof = timed("serve T profile", run_profile_phase, tcfg, model, t_prompts, card,
+                   label="serve T", **TREE_KNOBS)
+    graph = timed("serve T graphs", run_graph_phase, tcfg, model, "serve T", t_prompts,
+                  [t_outs[r] for r in t_rids], card,
+                  lambda o, r: e2e_gaps(model, t_prompts, o, r)[0], T_LOGIT_MARGIN,
+                  **TREE_KNOBS)
+    timed("serve T graphs profile", run_graph_profile_phase, tcfg, model, "serve T",
+          t_prompts, t_prof, dict(t1=t_t1, tile=t_tile, split=0), card, graph["same"],
+          **TREE_KNOBS)
     del model
     torch.cuda.empty_cache()
-    paged, paged_err = run_paged_kernel_phase(cfg, served, card)
-    row_live = run_row_live_phase(cfg, f_served, card)
-    tree = run_tree_kernel_phase(cfg, t_served, card)
+    paged, paged_err = timed("K4 bf16", run_paged_kernel_phase, cfg, served, card)
+    row_live = timed("K4 row_live", run_row_live_phase, cfg, f_served, card)
+    tree = timed("K4 tree", run_tree_kernel_phase, cfg, t_served, card)
     for kv_dtype, mxu in (("bf16", False), ("int8", True)):
-        run_tile_probe(card, kv_dtype, mxu)
-    run_t1_probe(card)
+        timed(f"K4 tile probe {kv_dtype}", run_tile_probe, card, kv_dtype, mxu)
+    timed("K4 t1 probe", run_t1_probe, card)
     # the six quantized combinations at the grid and at every geometry the
     # quantized serves launched (launch counts summed over both serves)
     q_geoms: dict = {}
@@ -2839,16 +3126,17 @@ def main() -> int:
     quant_records, quant_errs = {}, []
     for kv_dtype in ("int8", "fp8_e4m3", "fp8_e5m2"):
         for mxu in (False, True):
-            quant_records[kv_dtype, mxu], err = run_paged_kernel_phase(
+            quant_records[kv_dtype, mxu], err = timed(
+                f"K4 {mode_label(kv_dtype, mxu)}", run_paged_kernel_phase,
                 cfg, q_geoms, card, kv_dtype=kv_dtype, mxu=mxu, grid_iters=20)
             quant_errs.append(err)
 
-    model, state, step, batch, train_launches = run_train_phase(card)
-    run_train_e2e_phase(model, card)
-    run_train_profile_phase(state, step, batch, card)
+    model, state, step, batch, train_launches = timed("train", run_train_phase, card)
+    timed("train e2e", run_train_e2e_phase, model, card)
+    timed("train profile", run_train_profile_phase, state, step, batch, card)
     del model, state, step, batch
     torch.cuda.empty_cache()
-    flash = run_flash_kernel_phase(card)
+    flash = timed("flash kernels", run_flash_kernel_phase, card)
 
     fa_src = "neuronx_distributed_llama3_2_tpu_torch/kernels/csrc/"
     pfa = "neuronx_distributed_llama3_2_tpu/kernels/pallas_flash_attention.py:"

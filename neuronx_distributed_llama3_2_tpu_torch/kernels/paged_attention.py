@@ -443,13 +443,25 @@ def _t1_kernel():
 
 # each device's (lane, kv head) arrival counters of csrc/paged_decode_t1.cu:
 # zero between launches (the last split of a lane to arrive resets its own),
-# so one buffer serves every launch on the device's stream
+# so one buffer serves every launch on the device's stream, a CUDA graph's
+# replays included. A graph keeps the address it captured, so the buffer
+# must be sized by an eager launch of the same (lane, kv head) count before
+# any capture, and raises if it would grow under one
 _T1_ARRIVALS: dict = {}
 
 
 def _t1_arrivals(device: torch.device, n: int) -> torch.Tensor:
     buf = _T1_ARRIVALS.get(device)
     if buf is None or buf.numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            # memory allocated under a capture belongs to the graph's pool,
+            # which other graphs reuse: eager launches would then share
+            # their counters with whatever a replay writes there
+            raise RuntimeError(
+                f"_t1_arrivals: {n} arrival counters on {device} would be "
+                "allocated during a CUDA graph capture; an eager launch at "
+                "this batch must size them before the first capture"
+            )
         buf = _T1_ARRIVALS[device] = torch.zeros(n, dtype=torch.int32, device=device)
     return buf
 

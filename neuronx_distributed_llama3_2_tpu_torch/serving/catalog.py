@@ -1,18 +1,46 @@
-"""Serving bucket ladders: the padded lengths every dispatch rounds up to.
+"""Serving bucket ladders and the catalog manifest of decode-time programs.
 
-Counterpart of the ladder helpers of
-``neuronx_distributed_llama3_2_tpu/serving/catalog.py`` (``default_buckets``,
-``pick_bucket``, ``complete_ladder``), copied unchanged. The JAX module
-also expands the ladder into a manifest of compiled programs (the AOT
-catalog and its golden file); here every program is an eager call, so that
-part comes with the prewarm / CUDA-graph sub-slice of the port.
+Counterpart of ``neuronx_distributed_llama3_2_tpu/serving/catalog.py``:
+the ladder helpers (``default_buckets``, ``pick_bucket``,
+``complete_ladder``), :class:`BucketLadder`, :class:`CatalogManifest`,
+:func:`validate_ladder` and the key rendering (``format_key``). A
+:class:`BucketLadder` declares every shape the engine pads a dispatch
+into; a :class:`CatalogManifest` expands it into the exact key set of the
+engine's program registry. The keys keep the JAX package's tuple layout,
+so that their lines are the JAX package's for the same configuration; the
+knobs that add keys or flags there (the degradation ladder's gather twins,
+the finite-logit check, the spill tier, fused on-device sampling) are not
+ported, so their gather and checked bits are always False and their kinds
+never appear.
+
+Where the JAX package compiles every key, ``PagedConfig.prewarm`` here
+captures the decode-time kinds (:data:`GRAPH_KINDS`: ``pdecode``,
+``pverify``, ``ptree``, ``pmixed``) as CUDA graphs before traffic; the
+other kinds (the prefills ``pctx`` / ``psfx`` and the in-place state
+writes ``copy_block``, ``lane_set``, ``table_delta``) stay eager calls.
+``nearest_key`` and the golden catalog file, which serve the JAX
+package's static analyzers, are not ported.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import dataclasses
+from typing import Any, FrozenSet, List, Sequence, Tuple
 
-__all__ = ["complete_ladder", "default_buckets", "pick_bucket"]
+__all__ = [
+    "GRAPH_KINDS",
+    "BucketLadder",
+    "CatalogManifest",
+    "complete_ladder",
+    "default_buckets",
+    "format_key",
+    "pick_bucket",
+    "validate_ladder",
+]
+
+#: the catalog kinds that prewarm captures as CUDA graphs; every other
+#: kind runs as an eager call
+GRAPH_KINDS = frozenset({"pdecode", "pverify", "ptree", "pmixed"})
 
 
 def default_buckets(max_seq_len: int, min_bucket: int = 128) -> List[int]:
@@ -55,3 +83,232 @@ def complete_ladder(buckets: Sequence[int], max_seq_len: int) -> List[int]:
     if out[-1] < max_seq_len:
         out.append(max_seq_len)
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketLadder:
+    """The declared shape ladder every serving dispatch pads into.
+
+    ``prefill_buckets`` are padded prompt/chunk token counts (pctx/psfx
+    programs), ``kv_buckets`` the kv_limit attention extents
+    (psfx/pdecode/pverify), ``verify_t`` the speculative draft widths
+    (one per configured ``spec_draft_tokens`` — the verify program's T is
+    ``k + 1``). ``decode_batch`` is the fixed lane count B every batched
+    program is traced at. Both bucket ladders end at ``max_seq_len``
+    (see :func:`complete_ladder`)."""
+
+    decode_batch: int
+    max_seq_len: int
+    prefill_buckets: Tuple[int, ...]
+    kv_buckets: Tuple[int, ...]
+    verify_t: Tuple[int, ...] = ()
+    # fused-step row-width rungs (PagedConfig.fused_step): each rung is
+    # the fixed query-row count T of a pmixed program packing
+    # prefill-chunk, verify and decode rows into one grid — one rung per
+    # engine today (max(prefill_chunk_tokens or 8, spec_k + 1))
+    mixed_t: Tuple[int, ...] = ()
+
+    def kv_bucket(self, needed: int) -> int:
+        """Smallest kv rung covering ``needed`` rows, clamped to the full
+        cache past the ladder top."""
+        for b in self.kv_buckets:
+            if b >= needed:
+                return b
+        return self.kv_buckets[-1]
+
+    def prefill_bucket(self, length: int) -> int:
+        return pick_bucket(self.prefill_buckets, max(length, 1))
+
+    def suffix_pairs(self) -> List[Tuple[int, int]]:
+        """Legal (prefill bucket, kv_limit) pairs for suffix prefill: a
+        psfx dispatch at bucket ``b`` carries
+        ``kv_limit = kv_bucket(min(cached + b, max_seq_len))`` with
+        ``cached >= 1`` (cached == 0 routes to pctx), so exactly the kv
+        rungs >= ``kv_bucket(min(1 + b, max_seq_len))`` are reachable."""
+        out = []
+        for b in self.prefill_buckets:
+            lo = self.kv_bucket(min(1 + b, self.max_seq_len))
+            out.extend((b, kv) for kv in self.kv_buckets if kv >= lo)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class CatalogManifest:
+    """Ladder × variant-flag expansion into the exact legal key set of
+    the engine's ``_programs`` registry. Every key's gather and checked
+    bits are False (see the module docstring)."""
+
+    ladder: BucketLadder
+    # SamplingConfig (frozen/hashable — rides inside keys)
+    sampling: Any
+    quantized: bool = False
+    # PagedConfig.fused_step: prefill suffixes ride the pmixed grid, so
+    # the psfx keys leave the universe entirely and the mixed_t × kv
+    # ladder replaces the psfx suffix-pair product
+    fused_step: bool = False
+    # PagedConfig.spec_tree: verify rungs become ptree keys (packed-tree
+    # ancestor-masked verify) instead of pverify — same kv × k product,
+    # so the manifest stays exactly as bounded as linear speculation's
+    spec_tree: bool = False
+
+    @classmethod
+    def from_engine(cls, engine: Any) -> "CatalogManifest":
+        """Derive the manifest a :class:`PagedServingEngine` (duck-typed)
+        declares: its serving ladders, sampling config, quantization,
+        fused step and tree speculation."""
+        spec_k = int(getattr(engine, "_spec_k", 0) or 0)
+        mixed_t = int(getattr(engine, "_mixed_t", 0) or 0)
+        ladder = BucketLadder(
+            decode_batch=engine.engine.max_batch,
+            max_seq_len=engine.engine.max_seq_len,
+            prefill_buckets=tuple(engine._prefill_buckets),
+            kv_buckets=tuple(engine._kv_buckets),
+            verify_t=(spec_k,) if spec_k else (),
+            mixed_t=(mixed_t,) if mixed_t else (),
+        )
+        return cls(
+            ladder=ladder,
+            sampling=engine.gen.sampling,
+            quantized=bool(getattr(engine, "_kv_quantized", False)),
+            fused_step=bool(getattr(engine, "_fused_step", False)),
+            spec_tree=bool(getattr(engine, "_spec_tree", False)),
+        )
+
+    def _expand(self) -> List[tuple]:
+        lad, cfg, g = self.ladder, self.sampling, False
+        keys: List[tuple] = [
+            ("copy_block", self.quantized),
+            ("lane_set",),
+            ("table_delta",),
+        ]
+        for b in lad.prefill_buckets:
+            keys.append(("pctx", b, cfg, g))
+        if not self.fused_step:
+            # fused mode NEVER dispatches a suffix prefill: cached > 0
+            # admissions route to the pmixed grid, so the psfx
+            # suffix-pair product leaves the universe entirely
+            for b, kv in lad.suffix_pairs():
+                keys.append(("psfx", b, kv, cfg, g))
+        for kv in lad.kv_buckets:
+            keys.append(("pdecode", cfg, kv, g, g))
+        verify_kind = "ptree" if self.spec_tree else "pverify"
+        for k in lad.verify_t:
+            for kv in lad.kv_buckets:
+                keys.append((verify_kind, kv, k, g, g))
+        for t in lad.mixed_t:
+            for kv in lad.kv_buckets:
+                keys.append(("pmixed", t, kv, cfg, g, g))
+        return keys
+
+    def keys(self) -> FrozenSet[tuple]:
+        """Every key the engine may legally hold."""
+        return frozenset(self._expand())
+
+    def prewarm_keys(self) -> List[tuple]:
+        """The manifest in the JAX package's deterministic compile order."""
+        return self._expand()
+
+    def graph_keys(self) -> List[tuple]:
+        """The part of :meth:`prewarm_keys` that the port's ``prewarm``
+        captures as CUDA graphs (:data:`GRAPH_KINDS`), in the same
+        order."""
+        return [k for k in self.prewarm_keys() if k[0] in GRAPH_KINDS]
+
+    def lines(self) -> List[str]:
+        """Sorted human/golden-file rendering of :meth:`keys`."""
+        return sorted(format_key(k) for k in self.keys())
+
+    def describe(self) -> str:
+        lad = self.ladder
+        kinds = {k[0] for k in self.graph_keys()}
+        flags = [f for f, on in (
+            ("quant", self.quantized), ("fused-step", self.fused_step),
+            ("spec-tree", self.spec_tree),
+        ) if on]
+        return (
+            f"B={lad.decode_batch} prefill={list(lad.prefill_buckets)} "
+            f"kv={list(lad.kv_buckets)} verify_t={list(lad.verify_t)} "
+            f"mixed_t={list(lad.mixed_t)} "
+            f"cfg={_format_sampling(self.sampling)}"
+            + (f" [{','.join(flags)}]" if flags else "")
+            + f" -> {len(self.keys())} keys, {len(self.graph_keys())} "
+            f"captured as CUDA graphs ({', '.join(sorted(kinds))}), the rest "
+            "eager"
+        )
+
+
+def validate_ladder(model: Any, ladder: BucketLadder) -> List[str]:
+    """Declaration-time warnings a prewarmed catalog should surface
+    instead of discovering at first dispatch: a verify or mixed width past
+    the paged CUDA kernel's bound (``paged_kernel_max_t``), whose every
+    dispatch then pays the dense gather. Advisory (the gather paths are
+    correct), returned as strings for the engine to log."""
+    out = []
+    path_of = getattr(model, "paged_dispatch_path", None)
+    if path_of is None:
+        return out
+    for k in ladder.verify_t:
+        if path_of(k + 1) != "kernel":
+            out.append(
+                f"verify_t={k} (T={k + 1}) exceeds the paged kernel's "
+                "paged_kernel_max_t — every verify dispatch at this width takes "
+                "the dense-gather path"
+            )
+    for t in ladder.mixed_t:
+        if path_of(t) != "kernel":
+            out.append(
+                f"mixed_t={t} exceeds the paged kernel's paged_kernel_max_t — "
+                "every fused mixed-mode dispatch takes the dense-gather "
+                "path (shrink prefill_chunk_tokens / spec_draft_tokens)"
+            )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Key rendering
+# ---------------------------------------------------------------------------
+
+
+def _format_sampling(cfg: Any) -> str:
+    """Compact, comma-free SamplingConfig rendering for key strings."""
+    if getattr(cfg, "greedy", False):
+        return "greedy"
+    bits = [f"T{cfg.temperature:g}"]
+    if getattr(cfg, "top_k", 0):
+        bits.append(f"k{cfg.top_k}")
+    if getattr(cfg, "top_p", 1.0) < 1.0:
+        bits.append(f"p{cfg.top_p:g}")
+    return "-".join(bits)
+
+
+def format_key(key: tuple) -> str:
+    """Stable one-line rendering of a ``_programs`` registry key —
+    ``kind[field=value,...,gather,checked]``, the JAX package's lines
+    for the same key."""
+    kind = key[0]
+    bits: List[str] = []
+    gather = checked = False
+    if kind == "pctx":
+        _, b, cfg, gather = key
+        bits = [f"bucket={b}", f"cfg={_format_sampling(cfg)}"]
+    elif kind == "psfx":
+        _, b, kv, cfg, gather = key
+        bits = [f"bucket={b}", f"kv_limit={kv}", f"cfg={_format_sampling(cfg)}"]
+    elif kind == "pdecode":
+        _, cfg, kv, gather, checked = key
+        bits = [f"kv_limit={kv}", f"cfg={_format_sampling(cfg)}"]
+    elif kind in ("pverify", "ptree"):
+        _, kv, k, gather, checked = key
+        bits = [f"kv_limit={kv}", f"k={k}"]
+    elif kind == "pmixed":
+        _, t, kv, cfg, gather, checked = key
+        bits = [f"t={t}", f"kv_limit={kv}", f"cfg={_format_sampling(cfg)}"]
+    elif kind == "copy_block":
+        bits = [f"quantized={key[1]}"]
+    else:  # lane_set / table_delta: render fields raw
+        bits = [str(f) for f in key[1:]]
+    if gather:
+        bits.append("gather")
+    if checked:
+        bits.append("checked")
+    return str(kind) + (f"[{','.join(bits)}]" if bits else "")

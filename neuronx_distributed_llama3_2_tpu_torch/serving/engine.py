@@ -51,11 +51,18 @@ for the synchronous FIFO loop:
   per prefilling lane and a verify dispatch (speculation) or one batched
   T=1 decode over every active lane, read back.
 
-The JAX package compiles each of these as a jitted program and keeps a
-program registry and an AOT catalog; here every program is a plain eager
-call, so neither has a counterpart yet. The decode state (tokens,
-positions, block tables) lives on the device as in the JAX package and is
-updated in place from host mirrors when a lane changes.
+The JAX package compiles each of these as a jitted program, kept in a
+program registry and bounded by the catalog manifest
+(:class:`.catalog.CatalogManifest`). Here every decode, verify and mixed
+dispatch goes through the registry too (:class:`ProgramRecord`): it
+copies its per-step payload into the family's static buffers and calls
+its key's record, which runs the step eagerly, or, under
+``PagedConfig.prewarm`` on the card, replays the CUDA graph that
+:meth:`PagedServingEngine.prewarm` captured before traffic;
+:meth:`PagedServingEngine.mark_steady` freezes the key set. The prefills
+and the in-place state writes stay eager calls. The decode state
+(tokens, positions, block tables) lives on the device as in the JAX
+package and is updated in place from host mirrors when a lane changes.
 
 ``PagedConfig`` keeps every field of the JAX package. A knob whose feature
 is not ported makes the constructor raise ``NotImplementedError`` naming
@@ -67,7 +74,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -87,8 +94,12 @@ from neuronx_distributed_llama3_2_tpu_torch.serving.block_allocator import (
     kv_pool_bytes_per_rank,
 )
 from neuronx_distributed_llama3_2_tpu_torch.serving.catalog import (
+    GRAPH_KINDS,
+    CatalogManifest,
     complete_ladder,
+    format_key,
     pick_bucket,
+    validate_ladder,
 )
 from neuronx_distributed_llama3_2_tpu_torch.serving.drafter import NGramDrafter
 from neuronx_distributed_llama3_2_tpu_torch.serving.metrics import ServingMetrics
@@ -188,7 +199,10 @@ class PagedConfig:
 
 #: PagedConfig fields whose feature is not ported yet, with that feature.
 #: Any value other than the default (a falsy value counts as the default
-#: where the default is falsy) makes PagedServingEngine raise.
+#: where the default is falsy) makes PagedServingEngine raise. ``prewarm``
+#: is ported (the decode-time programs as CUDA graphs), for greedy
+#: sampling only: with sampled decoding it raises in
+#: :meth:`PagedServingEngine.prewarm` until on-device sampling is ported.
 UNPORTED_KNOBS: Dict[str, str] = {
     "async_loop": "the async double-buffered decode loop",
     # read only by the FIFO policy's async branch, after a dry drafter
@@ -198,7 +212,6 @@ UNPORTED_KNOBS: Dict[str, str] = {
     "host_tier_bytes": "tiered KV storage",
     "restore_crossover": "tiered KV storage",
     "spill_queue_depth": "tiered KV storage",
-    "prewarm": "program prewarm (CUDA graphs)",
     "cost_accounting": "the device-cost ledger",
     "hbm_budget_bytes": "the HBM budget ledger",
     "trace_enabled": "the flight recorder export",
@@ -232,6 +245,42 @@ def check_ported(paged: PagedConfig) -> None:
                 f"PagedConfig.{name}={value!r}: {feature} is not ported to "
                 "the PyTorch package yet"
             )
+
+
+@dataclasses.dataclass
+class ProgramRecord:
+    """One decode-time program of the catalog (counterpart of the JAX
+    package's ``ProgramRecord``): the step it runs and, under prewarm on a
+    CUDA engine, the CUDA graph that step was captured into.
+
+    ``fn`` runs the step over the engine's resident decode state and
+    ``inputs``, the static payload buffers its family shares (drafts,
+    rows, ...); it writes the step's new tokens and positions back into
+    the residents in place and returns the tensors the engine reads back.
+    Where ``graph`` is set, each call replays it, and ``outputs`` are the
+    tensors of the capture, in the memory pool every graph of the engine
+    shares: the next replay of any graph may overwrite them, so the engine
+    reads them before its next dispatch. Otherwise (no prewarm, or a CPU
+    engine) ``graph`` is None and each call runs ``fn`` eagerly through
+    the same buffers.
+    ``replays`` counts the calls (under a graph, the kernels' Python launch
+    counters tick only while it is captured)."""
+
+    key: tuple
+    kind: str
+    fn: Callable[[], tuple]
+    inputs: Dict[str, torch.Tensor]
+    graph: Any = None
+    outputs: tuple = ()
+    replays: int = 0
+
+    def __call__(self) -> tuple:
+        if self.graph is None:
+            self.outputs = self.fn()
+        else:
+            self.graph.replay()
+        self.replays += 1
+        return self.outputs
 
 
 #: service classes a request may be submitted under (a scheduling hint and
@@ -475,14 +524,33 @@ class PagedServingEngine:
         # asks about; the sync loop reads every decode back before returning
         self._pending: Optional[tuple] = None
         self._wait_ms = 0.0
+        # the decode-time program registry (prewarm): key -> ProgramRecord,
+        # every family's static payload buffers, the memory pool the
+        # graphs share, and the key set mark_steady froze
+        self.catalog = CatalogManifest.from_engine(self)
+        self._programs: Dict[tuple, ProgramRecord] = {}
+        self._graph_inputs: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._graph_pool = None
+        self._warm_stream = None
+        self._frozen_keys: Optional[frozenset] = None
+        self._prewarming = False
+        if paged.prewarm:
+            self.prewarm()
 
     # -- host<->device choke points ---------------------------------------
 
     def _upload(self, x, dtype=torch.int32) -> torch.Tensor:
         """Every host->device transfer on the serving path funnels through
-        here, so the uploads are countable."""
+        here, so the uploads are countable. Always a copy: on a CPU engine
+        a resident must not share memory with its host mirror."""
         self.metrics.h2d_uploads += 1
-        return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
+        return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device, copy=True)
+
+    def _upload_into(self, dst: torch.Tensor, x) -> None:
+        """:meth:`_upload` into a graph's static input ``dst``, in place:
+        one counted transfer, as the eager dispatch's own upload is."""
+        self.metrics.h2d_uploads += 1
+        dst.copy_(torch.as_tensor(np.asarray(x), dtype=dst.dtype))
 
     def _read_tokens(self, toks: torch.Tensor) -> np.ndarray:
         """Every device->host token readback funnels through here; the
@@ -512,6 +580,206 @@ class PagedServingEngine:
         c = self.cache
         for x in (c.k, c.v) + ((c.k_scale, c.v_scale) if c.quantized else ()):
             x[:, dst] = x[:, src]
+
+    # -- programs (prewarm) ---------------------------------------------------
+
+    def _family_inputs(self, kind: str) -> Dict[str, torch.Tensor]:
+        """The static payload buffers every program of ``kind`` reads, made
+        once (int32, zeros): a dispatch uploads its payload into them
+        before it calls its program."""
+        inputs = self._graph_inputs.get(kind)
+        if inputs is None:
+            b, k, t = self.engine.max_batch, self._spec_k, self._mixed_t
+            shapes = {
+                "pdecode": {},
+                "pverify": dict(drafts=(b, k), draft_len=(b,)),
+                "ptree": dict(drafts=(b, k), parents=(b, k + 1), node_len=(b,)),
+                "pmixed": dict(
+                    rows=(b, t), row_start=(b,), row_len=(b,), forced=(b,),
+                    **(dict(parents=(b, t)) if self._spec_tree else {}),
+                ),
+            }[kind]
+            inputs = self._graph_inputs[kind] = {
+                name: torch.zeros(shape, dtype=torch.int32, device=self.device)
+                for name, shape in shapes.items()
+            }
+        return inputs
+
+    def _write_back(self, tokens: torch.Tensor, positions: torch.Tensor) -> None:
+        """A program's new resident tokens and positions, written into the
+        residents in place: the graphs read them at their captured
+        addresses."""
+        self._d_tokens.copy_(tokens)
+        self._d_positions.copy_(positions)
+
+    def _step_fn(self, key_: tuple, inputs: Dict[str, torch.Tensor]) -> Callable[[], tuple]:
+        """The step a catalog key runs: the model's own ``decode_step`` /
+        ``verify_step`` / ``tree_verify_step`` / ``mixed_step`` over the
+        residents and ``inputs``, then the write-back. Returns a callable
+        giving ``(tokens,)`` (pdecode; the resident itself) or
+        ``(emitted, accept)``."""
+        model, params, cap = self.model, self.engine.params, self._pos_cap
+        kind = key_[0]
+        if kind == "pdecode":
+            _, cfg, kv, _g, _c = key_
+
+            def fn():
+                logits, positions, _ = model.decode_step(
+                    params, self.cache, self._d_tokens, self._d_positions,
+                    self._d_tables, kv_limit=kv, pos_cap=cap,
+                )
+                self._write_back(sample(logits, self._generator, cfg), positions)
+                return (self._d_tokens,)
+        elif kind in ("pverify", "ptree"):
+            _, kv, _k, _g, _c = key_
+
+            def fn():
+                tokens = torch.cat([self._d_tokens[:, None], inputs["drafts"]], dim=1)
+                if kind == "ptree":
+                    step = model.tree_verify_step(
+                        params, self.cache, tokens, self._d_positions, self._d_tables,
+                        inputs["parents"], inputs["node_len"], kv_limit=kv, pos_cap=cap,
+                    )
+                else:
+                    step = model.verify_step(
+                        params, self.cache, tokens, self._d_positions, self._d_tables,
+                        inputs["draft_len"], kv_limit=kv, pos_cap=cap,
+                    )
+                emitted, accept, new_tokens, new_positions, _ = step
+                self._write_back(new_tokens, new_positions)
+                return emitted, accept
+        else:  # pmixed
+            _, _t, kv, _cfg, _g, _c = key_
+
+            def fn():
+                emitted, accept, new_tokens, new_positions, _ = model.mixed_step(
+                    params, self.cache, self._d_tokens, self._d_positions,
+                    self._d_tables, inputs["rows"], inputs["row_start"],
+                    inputs["row_len"], inputs["forced"], kv_limit=kv, pos_cap=cap,
+                    parents=inputs.get("parents"),
+                )
+                self._write_back(new_tokens, new_positions)
+                return emitted, accept
+        return fn
+
+    def _capture(self, fn: Callable[[], tuple]):
+        """Capture ``fn`` as a CUDA graph into the engine's shared pool.
+        First an eager warm-up call on a side stream (as torch.cuda.graphs
+        asks): it builds the kernel sources, the cuBLAS handles, the
+        model's rope tables and the t1 kernel's arrival counters before
+        the capture, so nothing lazily built is allocated from the graphs'
+        pool; the resident tokens and positions are put back after it.
+        Returns ``(graph, outputs)``. A failure raises."""
+        dev = self.device
+        saved = (self._d_tokens.clone(), self._d_positions.clone())
+        main = torch.cuda.current_stream(dev)
+        if self._warm_stream is None:
+            self._warm_stream = torch.cuda.Stream(dev)
+        self._warm_stream.wait_stream(main)
+        with torch.cuda.stream(self._warm_stream):
+            fn()
+        main.wait_stream(self._warm_stream)
+        self._write_back(*saved)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool):
+            outputs = fn()
+        if self._graph_pool is None:
+            self._graph_pool = graph.pool()
+        return graph, outputs
+
+    def _register_program(self, key_: tuple) -> ProgramRecord:
+        """Build and register the program of ``key_``: under
+        ``PagedConfig.prewarm`` on a CUDA engine its graph
+        (:meth:`_capture`), otherwise the step itself, which each call
+        runs eagerly. Counts in ``programs_compiled``, and in
+        ``prewarm_compiles`` during :meth:`prewarm` or
+        ``steadystate_compiles`` after :meth:`mark_steady`."""
+        kind = key_[0]
+        if kind not in GRAPH_KINDS:
+            raise ValueError(
+                f"{format_key(key_)}: the port runs {kind!r} programs as eager "
+                "calls, not as CUDA graphs"
+            )
+        inputs = self._family_inputs(kind)
+        fn = self._step_fn(key_, inputs)
+        rec = ProgramRecord(key=key_, kind=kind, fn=fn, inputs=inputs)
+        if self.paged.prewarm and self.device.type == "cuda":
+            rec.graph, rec.outputs = self._capture(fn)
+        self._programs[key_] = rec
+        self.metrics.programs_compiled += 1
+        if self._prewarming:
+            self.metrics.prewarm_compiles += 1
+        elif self._frozen_keys is not None:
+            # a capture after the freeze is a stall under live traffic:
+            # the runtime twin of the JAX package's GC008
+            self.metrics.steadystate_compiles += 1
+        return rec
+
+    def _program(self, key_: tuple) -> ProgramRecord:
+        """The registered program of ``key_``, registered now if it is not
+        yet (under prewarm, a key past the manifest: it is captured and
+        then replayed, never run eagerly in its place)."""
+        rec = self._programs.get(key_)
+        return rec if rec is not None else self._register_program(key_)
+
+    def program_registry(self) -> Dict[tuple, ProgramRecord]:
+        """key -> :class:`ProgramRecord` for every program this engine has
+        registered (captured, under prewarm on the card)."""
+        return dict(self._programs)
+
+    def catalog_manifest(self) -> CatalogManifest:
+        """The declared program catalog (:mod:`.catalog`), static for the
+        engine's lifetime."""
+        return self.catalog
+
+    def mark_steady(self) -> None:
+        """Freeze the program registry: every later capture counts in
+        ``metrics.steadystate_compiles``. Called at the end of
+        :meth:`prewarm`; a harness warming up through real traffic can
+        call it once its working set is captured."""
+        self._frozen_keys = frozenset(self._programs)
+
+    def prewarm(self) -> None:
+        """Capture every decode-time key of the catalog
+        (``catalog.graph_keys()``: ``pdecode`` per kv rung, ``pverify`` /
+        ``ptree`` per (kv, k), ``pmixed`` per (t, kv)) before any traffic,
+        then :meth:`mark_steady`. Called by the constructor when
+        ``PagedConfig.prewarm`` is set; every decode, verify and mixed
+        dispatch then replays its key's graph. The prefill and state-write
+        keys stay eager calls. A key that fails to capture raises: nothing
+        falls back to an eager call.
+
+        Each capture's warm-up runs with the resident state as it is, and
+        every table row still null, so its writes land in the null block;
+        the residents are put back after it, and no transfer counts in
+        ``h2d_uploads``. On a CPU engine nothing is captured or run: the
+        records run their steps eagerly when dispatched. A graph reads
+        the weights, the KV pool and the residents at their captured
+        addresses: nothing may move them after this (no ``.to()``, no
+        ``load_state_dict`` that replaces a tensor). Greedy sampling only:
+        the host sampler's draws cannot be replayed, so sampled decoding
+        waits for on-device sampling."""
+        if not self.gen.sampling.greedy:
+            raise NotImplementedError(
+                "prewarm with sampled decoding: the host sampler's draws are "
+                "not captured; it comes with on-device sampling (use "
+                "SamplingConfig(greedy=True))"
+            )
+        t0 = time.perf_counter()
+        self._prewarming = True
+        try:
+            for key_ in self.catalog.graph_keys():
+                if key_ not in self._programs:
+                    self._register_program(key_)
+        finally:
+            self._prewarming = False
+        self.mark_steady()
+        for warning in validate_ladder(self.model, self.catalog.ladder):
+            logger.warning("catalog: %s", warning)
+        logger.info(
+            "prewarmed %d program(s) in %.3f s: %s", self.metrics.prewarm_compiles,
+            time.perf_counter() - t0, self.catalog.describe(),
+        )
 
     # -- request lifecycle ------------------------------------------------
 
@@ -1022,16 +1290,10 @@ class PagedServingEngine:
         if not decode_lanes:
             return bool(self._active or self._queue)  # re-admit next step
         self._flush_state()
-        eng = self.engine
         kv_need = int(max(self._positions[l] for l in decode_lanes)) + 1
         kv_limit = self._kv_bucket(kv_need)
         self.metrics.note_decode_dispatch(kv_limit, kv_need)
-        logits, self._d_positions, self.cache = self.model.decode_step(
-            eng.params, self.cache, self._d_tokens, self._d_positions,
-            self._d_tables, kv_limit=kv_limit, pos_cap=self._pos_cap,
-        )
-        toks = sample(logits, self._generator, self.gen.sampling)
-        self._d_tokens = toks
+        (toks,) = self._program(("pdecode", self.gen.sampling, kv_limit, False, False))()
         self._emit_action(
             ActionType.DECODE_DISPATCH, mode="sync",
             lanes=list(decode_lanes), kv=kv_limit,
@@ -1197,20 +1459,17 @@ class PagedServingEngine:
         kv_need = int(max(self._positions[l] for l in decode_lanes)) + k + 1
         kv_limit = self._kv_bucket(kv_need)
         self.metrics.note_decode_dispatch(kv_limit, kv_need)
-        tokens = torch.cat([self._d_tokens[:, None], self._upload(drafts)], dim=1)
+        kind = "ptree" if self._spec_tree else "pverify"
+        # the payload lands before the lookup: a late capture's warm-up
+        # call then writes the rows the replay writes
+        inputs = self._family_inputs(kind)
+        self._upload_into(inputs["drafts"], drafts)
         if self._spec_tree:
-            step = self.model.tree_verify_step(
-                eng.params, self.cache, tokens, self._d_positions, self._d_tables,
-                self._upload(parents), self._upload(draft_len + 1),
-                kv_limit=kv_limit, pos_cap=self._pos_cap,
-            )
+            self._upload_into(inputs["parents"], parents)
+            self._upload_into(inputs["node_len"], draft_len + 1)
         else:
-            step = self.model.verify_step(
-                eng.params, self.cache, tokens, self._d_positions,
-                self._d_tables, self._upload(draft_len), kv_limit=kv_limit,
-                pos_cap=self._pos_cap,
-            )
-        emitted_d, accept_d, self._d_tokens, self._d_positions, self.cache = step
+            self._upload_into(inputs["draft_len"], draft_len)
+        emitted_d, accept_d = self._program((kind, kv_limit, k, False, False))()
         drafted = int(draft_len.sum())
         tree_meta = dict(tree=True, nodes=drafted) if self._spec_tree else {}
         self._emit_action(
@@ -1303,15 +1562,15 @@ class PagedServingEngine:
         kv_limit = self._kv_bucket(kv_need)
         self.metrics.note_decode_dispatch(kv_limit, kv_need)
         t_d = time.perf_counter()
-        emitted_d, accept_d, self._d_tokens, self._d_positions, self.cache = (
-            self.model.mixed_step(
-                eng.params, self.cache, self._d_tokens, self._d_positions,
-                self._d_tables, self._upload(rows), self._upload(row_start),
-                self._upload(row_len), self._upload(forced),
-                kv_limit=kv_limit, pos_cap=self._pos_cap,
-                parents=self._upload(parents) if self._spec_tree else None,
-            )
-        )
+        inputs = self._family_inputs("pmixed")
+        payload = dict(rows=rows, row_start=row_start, row_len=row_len, forced=forced)
+        if self._spec_tree:
+            payload["parents"] = parents
+        for name, x in payload.items():
+            self._upload_into(inputs[name], x)
+        emitted_d, accept_d = self._program(
+            ("pmixed", t, kv_limit, self.gen.sampling, False, False)
+        )()
         self.metrics.mixed_dispatches += 1
         self._emit_action(
             ActionType.MIXED_DISPATCH,
@@ -1526,8 +1785,9 @@ def make_serving_engine(
     """The serving-path config flag: a :class:`PagedConfig` selects the
     paged engine. ``paged=None`` selects the dense slot-scheduled engine
     of the JAX package, which is not ported yet and raises. The JAX
-    package's ``precompile`` argument has no counterpart: every program
-    here is an eager call, compiled by nothing ahead of it."""
+    package's ``precompile`` argument (its ``_warmup``) has no
+    counterpart: ``PagedConfig.prewarm`` captures the decode-time
+    programs ahead of traffic, and everything else is an eager call."""
     if paged is None:
         raise NotImplementedError(
             "paged=None selects the dense ContinuousBatchingEngine, which "
