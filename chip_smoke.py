@@ -42,17 +42,29 @@
    above the margin. T is profiled.
    Each serve (Serve, Q1, Q2, F, T, and QF: F's knobs from an int8 pool,
    served and checked eagerly first) has a prewarmed twin: a server with
-   PagedConfig.prewarm captures every decode-time key of its catalog
-   (decode per kv rung, verify / tree verify per (kv, k), mixed per
-   (t, kv)) as a CUDA graph, then serves the same requests by replaying
-   them; its greedy streams must equal the eager serve's (or first differ
-   at a near tie, and then pass the eager serve's e2e check), and no
-   capture may follow the freeze. The twins of Serve, Q1, Q2, F and T are
+   PagedConfig.prewarm captures every program key of its catalog (whole
+   prompt prefill per prefill rung, suffix prefill per (prefill rung, kv
+   rung) pair, decode per kv rung, verify / tree verify per (kv, k),
+   mixed per (t, kv)) as a CUDA graph, then serves the same requests by
+   replaying them; its greedy streams must equal the eager serve's (or
+   first differ at a near tie, and then pass the eager serve's e2e check),
+   no capture may follow the freeze, the captures must have launched K4's
+   t1 and tile sources (Serve's t = 8 suffix prefills among them) and no
+   K4 wrapper may count a launch during the serve: every call is a
+   replay. Each twin logs its keys by kind, capture seconds and the
+   reserved bytes its graphs added. Serve, Q1 and F have an async twin
+   too: prewarm with PagedConfig.async_loop, the steady state
+   dispatching step N+1 before it reads step N back; held as the twins
+   are, it must have run async steps and discarded lame-duck tokens, and
+   it logs a decode step's own device time (the most replayed decode-time
+   graph, replayed alone). The twins of Serve, Q1, Q2, F and T are
    profiled beside the eager serves (wall, busy share, TPOT, TTFT,
-   tokens/s), and K4's launches by source, counted from the profiler's
-   kernel records, must equal the eager serve's. Serve's planted fault
-   is captured into a twin's graphs, and the e2e check must reject that
-   serve too. Every phase logs its seconds.
+   tokens/s), Serve's and F's async twins beside them, and K4's launches
+   by source, counted from the profiler's kernel records, must equal the
+   eager serve's. Serve's planted fault is
+   captured into a twin's graphs, and the e2e check must reject that
+   serve too, and a serve with the fault in its suffix prefills' graphs
+   alone. Every phase logs its seconds.
 5. Train: Llama-3.2 1B at full width and depth in bench.py's training
    configuration (batch 12 x 2048, remat "full", flash attention, loss
    chunked at 256, AdamW with bf16 state) through TrainingConfig ->
@@ -1539,25 +1551,32 @@ def serve_stats(server, rids, outs, wall_s: float) -> dict:
     )
 
 
+def serve_requests(server, prompts, staged: bool):
+    """Submit ``prompts`` and run the server to completion: all at once, or
+    as ``serve_staged`` submits them (the quantized and speculative serves).
+    Returns (rids in prompt order, outputs by rid)."""
+    if staged:
+        return serve_staged(server, prompts)
+    rids = [server.submit(p) for p in prompts]
+    return rids, server.run_to_completion()
+
+
 def run_profile_phase(cfg, model, prompts, card: str, label: str = "serve",
-                      prewarm: bool = False, **knobs) -> dict:
+                      prewarm: bool = False, async_loop: bool = False, **knobs) -> dict:
     """The same requests once more on a fresh pool, under torch.profiler:
     the share of the wall time the card was busy, and the kernels that
     took it. ``knobs`` are a quantized or speculative serve's PagedConfig
     knobs; its requests are submitted as it submits them
-    (``serve_staged``). ``prewarm``: the server captures its decode-time
-    programs as CUDA graphs before the profiler starts. Returns the
-    serve's wall and busy ms, K4's launches by source as the profiler
-    counted its kernels, the outputs in prompt order and ``serve_stats``."""
-    server = make_server(cfg, model, prewarm=prewarm, **knobs)
+    (``serve_staged``). ``prewarm``: the server captures its programs as
+    CUDA graphs before the profiler starts; ``async_loop``: it runs the
+    async decode loop. Returns the serve's wall and busy ms, K4's launches
+    by source as the profiler counted its kernels, the outputs in prompt
+    order and ``serve_stats``."""
+    server = make_server(cfg, model, prewarm=prewarm, async_loop=async_loop, **knobs)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if knobs:
-            rids, outs = serve_staged(server, prompts)
-        else:
-            rids = [server.submit(p) for p in prompts]
-            outs = server.run_to_completion()
+        rids, outs = serve_requests(server, prompts, staged=bool(knobs))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = sorted(
@@ -1579,7 +1598,8 @@ def run_profile_phase(cfg, model, prompts, card: str, label: str = "serve",
         f"time, of them " + ", ".join(
             f"paged_decode_{src} {ms:.6f} ms = {100 * ms / busy_ms:.6f}%"
             for src, ms in by_source.items())
-        + f"; {server.metrics.decode_steps} decode steps | {card}")
+        + f"; {server.metrics.decode_steps} decode steps, "
+        f"{server.metrics.decode_steps_async} of them async | {card}")
     for e in events[:12]:
         log(f"  device {e.self_device_time_total / 1e3:.6f} ms, {e.count} calls: "
             f"{e.key[:100]}")
@@ -2320,52 +2340,92 @@ def first_difference(a: list, b: list) -> Optional[int]:
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
+def reserved_bytes() -> int:
+    """The caching allocator's reserved bytes on the card, its free cached
+    blocks outside the graphs' private pools handed back first."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_stats()["reserved_bytes.all.current"]
+
+
+def step_device_ms(server) -> tuple:
+    """A decode step's own time on the card: the decode-time record the
+    serve replayed most, replayed again after the serve (every lane
+    released and flushed, so its writes land in the null block) under
+    ``device_ms``. Returns (its key's line, device ms, events ms) per
+    replay."""
+    from neuronx_distributed_llama3_2_tpu_torch.serving.catalog import format_key
+
+    server._flush_state()
+    rec = max((r for r in server.program_registry().values()
+               if r.kind not in ("pctx", "psfx")), key=lambda r: r.replays)
+    (dev,), wall = device_ms(lambda i: rec(), iters=20, windows=3)
+    return format_key(rec.key), dev, wall
+
+
 def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: str,
-                    gaps, margin: float, **knobs) -> dict:
+                    gaps, margin: float, async_loop: bool = False, **knobs) -> dict:
     """The prewarmed twin of serve ``label``: a server built with
-    ``PagedConfig.prewarm``, which captures every decode-time key of its
-    catalog as a CUDA graph, serves the same requests as the eager serve
-    (``eager_outs``, in prompt order) and must emit the same greedy tokens.
-    Where a stream differs, the first token that differs must be a near
-    tie, the two tokens' logits under the plain forward within
-    LOGIT_MARGIN, and the twin's worst e2e gap (``gaps(outs, rids)``) must
-    then lie within ``margin``, as the eager serve's does. No capture may
-    follow the freeze. K4's launch counters are zeroed before the server
-    is built and read after the serve: the captures and the eager prefill
-    calls tick them. Returns the capture count and seconds."""
+    ``PagedConfig.prewarm``, which captures every prefill and decode-time
+    key of its catalog as a CUDA graph, serves the same requests as the
+    eager serve (``eager_outs``, in prompt order) and must emit the same
+    greedy tokens. Where a stream differs, the first token that differs
+    must be a near tie, the two tokens' logits under the plain forward
+    within LOGIT_MARGIN, and the twin's worst e2e gap (``gaps(outs,
+    rids)``) must then lie within ``margin``, as the eager serve's does.
+    No capture may follow the freeze. K4's launch counters are zeroed
+    before the server is built and read after the serve: the captures
+    must have launched the t1 and the tile sources, and nothing may tick
+    them during the serve (every K4 call is a replay). ``async_loop``: the
+    twin also runs the async decode loop, and must have dispatched async
+    steps and discarded lame-duck tokens, and logs a decode step's own
+    device time (``step_device_ms``). Logs the keys by kind, the capture
+    seconds, the reserved bytes the construction added beyond the KV pool
+    (the graphs' pool, the static buffers) and the serve's numbers.
+    Returns the capture count and seconds."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+    from neuronx_distributed_llama3_2_tpu_torch.serving.catalog import GRAPH_KINDS
 
     counters = {"t1": pa.t1_launches, "tile": pa.tile_launches, "all": pa.launches}
     for c in counters.values():
         c.reset()
-    torch.cuda.synchronize()
+    reserved0 = reserved_bytes()
     t0 = time.perf_counter()
-    server = make_server(scfg, model, prewarm=True, **knobs)
+    server = make_server(scfg, model, prewarm=True, async_loop=async_loop, **knobs)
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
+    m = server.metrics
+    graph_bytes = reserved_bytes() - reserved0 - m.pool_bytes_total
     captured = {src: c.count for src, c in counters.items()}
     registry = server.program_registry()
-    m = server.metrics
+    kinds = {k: sum(key[0] == k for key in registry) for k in sorted(GRAPH_KINDS)}
     check(list(registry) == server.catalog.graph_keys()
           and all(r.graph is not None for r in registry.values())
-          and m.prewarm_compiles == len(registry) == m.programs_compiled,
+          and m.prewarm_compiles == len(registry) == m.programs_compiled
+          and kinds["pctx"] > 0 and (kinds["psfx"] > 0) != bool(knobs.get("fused_step")),
           f"graph {label}: registry {sorted(map(str, registry))} vs the catalog's "
           f"{server.catalog.describe()}, prewarm_compiles {m.prewarm_compiles}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if knobs:
-        rids, outs = serve_staged(server, prompts)
-    else:
-        rids = [server.submit(p) for p in prompts]
-        outs = server.run_to_completion()
+    rids, outs = serve_requests(server, prompts, staged=bool(knobs))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stats = serve_stats(server, rids, outs, wall)
     eager_calls = {src: c.count - captured[src] for src, c in counters.items()}
     check(m.steadystate_compiles == 0 and len(server.program_registry()) == len(registry),
           f"graph {label}: {m.steadystate_compiles} captures after the freeze")
-    check(captured["t1"] > 0 and captured["all"] > 0,
+    check(captured["t1"] > 0 and captured["tile"] > 0,
           f"graph {label}: the captures launched K4 {captured}")
+    check(not any(eager_calls.values()),
+          f"graph {label}: K4 launched outside a replay during the serve {eager_calls}")
+    check(m.compute_dispatches == sum(r.replays for r in registry.values()),
+          f"graph {label}: {m.compute_dispatches} dispatches, "
+          f"{sum(r.replays for r in registry.values())} replays")
+    if async_loop:
+        check(m.decode_steps_async > 0 and m.lame_duck_tokens > 0,
+              f"graph {label}: decode_steps_async {m.decode_steps_async}, "
+              f"lame_duck_tokens {m.lame_duck_tokens}")
     differ = [(j, first_difference(outs[r], e)) for j, (r, e) in enumerate(zip(rids, eager_outs))]
     differ = [(j, i) for j, i in differ if i is not None]
     for j, i in differ:
@@ -2382,15 +2442,24 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
         gap = gaps(outs, rids)
         log(f"graph {label}: worst e2e gap {gap:.6g} (margin {margin})")
         check(gap <= margin, f"graph {label}: a served token is {gap} below the argmax")
-    log(f"graph {label}: {len(registry)} keys captured as CUDA graphs in {capture_s:.6f} s "
-        f"(engine construction and prewarm; {server.catalog.describe()}); {len(rids)} "
-        f"requests, {sum(len(outs[r]) for r in rids)} tokens in {wall:.6f} s = "
+    step = ""
+    if async_loop:
+        step_key, step_dev, step_wall = step_device_ms(server)
+        step = (f"; one replay of {step_key} takes {step_dev:.6f} ms of device time "
+                f"({step_wall:.6f} ms by events)")
+    log(f"graph {label}: {len(registry)} keys captured as CUDA graphs ({kinds}) in "
+        f"{capture_s:.6f} s (engine construction and prewarm; {server.catalog.describe()}); "
+        f"reserved bytes beyond the {m.pool_bytes_total}-byte KV pool: {graph_bytes} (the "
+        f"graphs' pool and the static buffers); {len(rids)} requests, "
+        f"{sum(len(outs[r]) for r in rids)} tokens in {wall:.6f} s = "
         f"{stats['tokens_s']:.6f} tokens/s; TTFT p50 {stats['ttft']:.6f} ms, TPOT p50 "
         f"{stats['tpot']:.6f} ms; greedy streams equal to the eager serve's on "
         f"{len(rids) - len(differ)} of {len(rids)} requests; steadystate_compiles "
         f"{m.steadystate_compiles}, prewarm_compiles {m.prewarm_compiles}; replays "
-        f"{sum(r.replays for r in registry.values())}; K4 launches captured {captured}, "
-        f"eager (the prefills) {eager_calls} | {card}")
+        f"{sum(r.replays for r in registry.values())}; decode steps {m.decode_steps}, "
+        f"async {m.decode_steps_async}, lame_duck_tokens {m.lame_duck_tokens}, "
+        f"sync_fallbacks {m.sync_fallbacks}; K4 launches captured {captured}, during "
+        f"the serve {eager_calls}{step} | {card}")
     del server, registry
     gc.collect()
     torch.cuda.empty_cache()
@@ -2398,7 +2467,8 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
 
 
 def run_graph_profile_phase(scfg, model, label: str, prompts, eager: dict, launched: dict,
-                            card: str, same: bool, **knobs) -> None:
+                            card: str, same: bool, with_async: bool = False,
+                            **knobs) -> None:
     """The prewarmed twin's profiled serve beside the eager serve's of the
     same run (``eager``, run_profile_phase's numbers): wall, busy ms and
     share, TPOT p50, TTFT p50, tokens/s, and K4's launches by source as the
@@ -2407,10 +2477,14 @@ def run_graph_profile_phase(scfg, model, label: str, prompts, eager: dict, launc
     streams equal the eager ones (``same``). The profiler can lose kernel
     records in a long trace (the eager profile's counts may read low, as
     device_ms's windows may): a twin's profile that counts fewer than
-    ``launched`` is run again, up to twice, never counted up."""
-    def profile():
-        return run_profile_phase(scfg, model, prompts, card, label=f"{label} (CUDA graphs)",
-                                 prewarm=True, **knobs)
+    ``launched`` is run again, up to twice, never counted up.
+    ``with_async``: the async twin (prewarm and the async loop) is
+    profiled too and logged beside them; its lookahead steps past the
+    last finish add t1 launches, so its counts are logged, not held."""
+    def profile(async_loop=False):
+        return run_profile_phase(
+            scfg, model, prompts, card, prewarm=True, async_loop=async_loop,
+            label=f"{label} (CUDA graphs{', async loop' if async_loop else ''})", **knobs)
 
     graph = profile()
     for _ in range(2):
@@ -2419,8 +2493,11 @@ def run_graph_profile_phase(scfg, model, label: str, prompts, eager: dict, launc
         log(f"graph profile {label}: the profiler lost kernel records "
             f"({graph['launches']} against {launched}); profiled once more")
         graph = profile()
+    serves = [("eager", eager), ("graphs", graph)]
+    if with_async:
+        serves.append(("graphs, async loop", profile(async_loop=True)))
     rows = []
-    for name, st in (("eager", eager), ("graphs", graph)):
+    for name, st in serves:
         rows.append(f"{name}: wall {st['wall']:.6f} ms, busy {st['busy']:.6f} ms = "
                     f"{100 * st['busy'] / st['wall']:.6f}%, TPOT p50 {st['tpot']:.6f} ms, "
                     f"TTFT p50 {st['ttft']:.6f} ms, {st['tokens_s']:.6f} tokens/s, K4 "
@@ -2437,27 +2514,60 @@ def run_graph_profile_phase(scfg, model, label: str, prompts, eager: dict, launc
     torch.cuda.empty_cache()
 
 
+def prefix_read_from_null_block(inner, q, k_pool, v_pool, tables, positions, **kw):
+    """A ``model_kernel_call`` wrapper planting a kernel fault: every table
+    entry below the block of a lane's first fresh row read as the null
+    block, so that a suffix prefill reads its cached prefix from the wrong
+    block (computed on the card: it may be captured)."""
+    cols = torch.arange(tables.shape[1], device=tables.device)
+    prefix = cols[None, :] < (positions // k_pool.shape[1])[:, None]
+    return inner(q, k_pool, v_pool, torch.where(prefix, torch.zeros_like(tables), tables),
+                 positions, **kw)
+
+
+def suffix_only(fault):
+    """A ``model_kernel_call`` wrapper that plants ``fault`` in the suffix
+    prefills' calls alone (one lane: b == 1) and passes every other call
+    through."""
+    def wrap(inner, q, *args, **kw):
+        if q.shape[0] == 1:
+            return fault(inner, q, *args, **kw)
+        return inner(q, *args, **kw)
+    return wrap
+
+
 def run_graph_fault_phase(cfg, model, prompts, card: str) -> None:
     """The planted fault of run_e2e_phase (every kernel call's newest row
     masked off) captured into the prewarmed Serve's graphs, the serve run
-    after the wrapper is gone: the eager prefill calls are sound, and only
-    the replays carry the fault. The e2e check must read it above
-    E2E_LOGIT_MARGIN, as it reads the eager fault."""
-    with model_kernel_call(newest_row_dropped):
-        server = make_server(cfg, model, prewarm=True)
-    rids = [server.submit(p) for p in prompts]
-    outs = server.run_to_completion()
-    gap, exact, total = e2e_gaps(model, prompts, outs, rids)
-    log(f"e2e planted fault captured into the graphs (newest row masked off in every "
-        f"replayed kernel call, {server.metrics.prewarm_compiles} graphs, "
-        f"{sum(r.replays for r in server.program_registry().values())} replays): "
-        f"{exact}/{total} served tokens are the plain forward's argmax; worst logit gap "
-        f"{gap:.6g} (margin {E2E_LOGIT_MARGIN}) | {card}")
-    check(gap > E2E_LOGIT_MARGIN,
-          f"the e2e check passes a planted kernel fault replayed from the graphs (gap {gap})")
-    del server
-    gc.collect()
-    torch.cuda.empty_cache()
+    after the wrapper is gone: only the replays carry the fault. The e2e
+    check must read it above E2E_LOGIT_MARGIN, as it reads the eager
+    fault. Then a fault in the suffix prefills' graphs alone (psfx, the
+    t = 8 tile calls of the prefix pair): there the newest row masked off
+    moves no served token (one row of some 260 that random weights weigh
+    about evenly), so the planted fault is the cached prefix read from
+    the null block (``prefix_read_from_null_block``), which the check
+    must reject too."""
+    for name, fault in (
+        ("newest row masked off in every kernel call", newest_row_dropped),
+        ("cached prefix read from the null block in the suffix prefills' kernel calls",
+         suffix_only(prefix_read_from_null_block)),
+    ):
+        with model_kernel_call(fault):
+            server = make_server(cfg, model, prewarm=True)
+        rids = [server.submit(p) for p in prompts]
+        outs = server.run_to_completion()
+        gap, exact, total = e2e_gaps(model, prompts, outs, rids)
+        log(f"e2e planted fault captured into the graphs ({name}, "
+            f"{server.metrics.prewarm_compiles} graphs, "
+            f"{sum(r.replays for r in server.program_registry().values())} replays): "
+            f"{exact}/{total} served tokens are the plain forward's argmax; worst logit gap "
+            f"{gap:.6g} (margin {E2E_LOGIT_MARGIN}) | {card}")
+        check(gap > E2E_LOGIT_MARGIN,
+              f"the e2e check passes a planted kernel fault replayed from the graphs "
+              f"({name}; gap {gap})")
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def run_quant_spec_serve_phase(cfg, model, card: str):
@@ -3049,12 +3159,16 @@ def main() -> int:
         "serve", run_serve_phase, cfg, model, card)
     timed("serve e2e", run_e2e_phase, cfg, model, prompts, outs, rids)
     prof = timed("serve profile", run_profile_phase, cfg, model, prompts, card)
-    # each serve's prewarmed twin: every decode-time step a CUDA graph
+    # each serve's prewarmed twin: every prefill and decode-time step a CUDA
+    # graph; Serve's, Q1's and F's async twins run the async loop on them
     graph = timed("serve graphs", run_graph_phase, cfg, model, "serve", prompts,
                   [outs[r] for r in rids], card,
                   lambda o, r: e2e_gaps(model, prompts, o, r)[0], E2E_LOGIT_MARGIN)
+    timed("serve async", run_graph_phase, cfg, model, "serve async", prompts,
+          [outs[r] for r in rids], card,
+          lambda o, r: e2e_gaps(model, prompts, o, r)[0], E2E_LOGIT_MARGIN, async_loop=True)
     timed("serve graphs profile", run_graph_profile_phase, cfg, model, "serve", prompts,
-          prof, dict(t1=t1, tile=tile, split=0), card, graph["same"])
+          prof, dict(t1=t1, tile=tile, split=0), card, graph["same"], with_async=True)
     timed("serve graphs fault", run_graph_fault_phase, cfg, model, prompts, card)
     quant = {}  # label -> (kv dtype, mxu, K4 launches, t1 launches, served geometries)
     for label, kv_dtype, mxu in QUANT_SERVES:
@@ -3071,6 +3185,11 @@ def main() -> int:
             [q_outs[r] for r in q_rids], card,
             lambda o, r: quant_e2e_gaps(cfg, model, kv_dtype, q_prompts, o, r)[0],
             QUANT_LOGIT_MARGIN[kv_dtype], **qk)
+        if label == "Q1":
+            timed(f"serve {label} async", run_graph_phase, cfg, model, f"serve {label} async",
+                  q_prompts, [q_outs[r] for r in q_rids], card,
+                  lambda o, r: quant_e2e_gaps(cfg, model, kv_dtype, q_prompts, o, r)[0],
+                  QUANT_LOGIT_MARGIN[kv_dtype], async_loop=True, **qk)
         timed(f"serve {label} graphs profile", run_graph_profile_phase, cfg, model,
               f"serve {label}", q_prompts, q_prof,
               dict(t1=q_t1, tile=q_launches - q_t1, split=0), card, graph["same"], **qk)
@@ -3087,9 +3206,13 @@ def main() -> int:
                   [f_outs[r] for r in f_rids], card,
                   lambda o, r: e2e_gaps(model, f_prompts, o, r)[0], F_LOGIT_MARGIN,
                   **SPEC_KNOBS)
+    timed("serve F async", run_graph_phase, fcfg, model, "serve F async", f_prompts,
+          [f_outs[r] for r in f_rids], card,
+          lambda o, r: e2e_gaps(model, f_prompts, o, r)[0], F_LOGIT_MARGIN,
+          async_loop=True, **SPEC_KNOBS)
     timed("serve F graphs profile", run_graph_profile_phase, fcfg, model, "serve F",
           f_prompts, f_prof, dict(t1=f_t1, tile=f_tile, split=0), card, graph["same"],
-          **SPEC_KNOBS)
+          with_async=True, **SPEC_KNOBS)
     qf_prompts, qf_outs = timed("serve QF", run_quant_spec_serve_phase, cfg, model, card)
     timed("serve QF graphs", run_graph_phase, fcfg, model, "serve QF", qf_prompts, qf_outs,
           card, lambda o, r: quant_e2e_gaps(cfg, model, "int8", qf_prompts, o, r)[0],

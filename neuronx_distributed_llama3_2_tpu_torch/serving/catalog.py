@@ -1,4 +1,4 @@
-"""Serving bucket ladders and the catalog manifest of decode-time programs.
+"""Serving bucket ladders and the catalog manifest of the serving programs.
 
 Counterpart of ``neuronx_distributed_llama3_2_tpu/serving/catalog.py``:
 the ladder helpers (``default_buckets``, ``pick_bucket``,
@@ -14,10 +14,10 @@ ported, so their gather and checked bits are always False and their kinds
 never appear.
 
 Where the JAX package compiles every key, ``PagedConfig.prewarm`` here
-captures the decode-time kinds (:data:`GRAPH_KINDS`: ``pdecode``,
-``pverify``, ``ptree``, ``pmixed``) as CUDA graphs before traffic; the
-other kinds (the prefills ``pctx`` / ``psfx`` and the in-place state
-writes ``copy_block``, ``lane_set``, ``table_delta``) stay eager calls.
+captures the program kinds (:data:`GRAPH_KINDS`: the prefills ``pctx`` /
+``psfx`` and the decode-time ``pdecode``, ``pverify``, ``ptree``,
+``pmixed``) as CUDA graphs before traffic; the in-place state writes
+(``copy_block``, ``lane_set``, ``table_delta``) stay eager calls.
 ``nearest_key`` and the golden catalog file, which serve the JAX
 package's static analyzers, are not ported.
 """
@@ -39,8 +39,8 @@ __all__ = [
 ]
 
 #: the catalog kinds that prewarm captures as CUDA graphs; every other
-#: kind runs as an eager call
-GRAPH_KINDS = frozenset({"pdecode", "pverify", "ptree", "pmixed"})
+#: kind (the in-place state writes) runs as an eager call
+GRAPH_KINDS = frozenset({"pctx", "psfx", "pdecode", "pverify", "ptree", "pmixed"})
 
 
 def default_buckets(max_seq_len: int, min_bucket: int = 128) -> List[int]:

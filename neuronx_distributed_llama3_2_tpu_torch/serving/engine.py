@@ -3,7 +3,7 @@ preempt-and-requeue under pool pressure.
 
 Counterpart of ``neuronx_distributed_llama3_2_tpu/serving/engine.py``
 (``PagedConfig``, ``PagedServingEngine``, ``make_serving_engine``), ported
-for the synchronous FIFO loop:
+for the FIFO loop, synchronous or async:
 
 - KV rows live in a global pool of fixed-size blocks
   (:class:`..inference.model.PagedKVCache`); each request carries a block
@@ -50,19 +50,27 @@ for the synchronous FIFO loop:
   mixed dispatch while a lane prefills under ``fused_step``, else one chunk
   per prefilling lane and a verify dispatch (speculation) or one batched
   T=1 decode over every active lane, read back.
+- ``PagedConfig.async_loop`` runs the steady state (no waiting request,
+  no lane mid-prefill) as a depth-1 lookahead: step N+1 is dispatched from
+  the device-resident state before step N's tokens are read back, so a
+  finish is seen one step late and the finished lane's lookahead token is
+  discarded (the lame-duck drain). A step that would have to preempt, and
+  every step that admits, prefills, verifies or runs the mixed step, drops
+  to the synchronous sequence, which drains the lookahead first.
 
 The JAX package compiles each of these as a jitted program, kept in a
 program registry and bounded by the catalog manifest
-(:class:`.catalog.CatalogManifest`). Here every decode, verify and mixed
-dispatch goes through the registry too (:class:`ProgramRecord`): it
-copies its per-step payload into the family's static buffers and calls
+(:class:`.catalog.CatalogManifest`). Here every prefill, decode, verify
+and mixed dispatch goes through the registry too (:class:`ProgramRecord`):
+it copies its per-step payload into the family's static buffers and calls
 its key's record, which runs the step eagerly, or, under
 ``PagedConfig.prewarm`` on the card, replays the CUDA graph that
 :meth:`PagedServingEngine.prewarm` captured before traffic;
-:meth:`PagedServingEngine.mark_steady` freezes the key set. The prefills
-and the in-place state writes stay eager calls. The decode state
-(tokens, positions, block tables) lives on the device as in the JAX
-package and is updated in place from host mirrors when a lane changes.
+:meth:`PagedServingEngine.mark_steady` freezes the key set. The in-place
+state writes (copy-on-write, lane sets, table deltas) stay eager calls.
+The decode state (tokens, positions, block tables) lives on the device as
+in the JAX package and is updated in place from host mirrors when a lane
+changes.
 
 ``PagedConfig`` keeps every field of the JAX package. A knob whose feature
 is not ported makes the constructor raise ``NotImplementedError`` naming
@@ -200,13 +208,10 @@ class PagedConfig:
 #: PagedConfig fields whose feature is not ported yet, with that feature.
 #: Any value other than the default (a falsy value counts as the default
 #: where the default is falsy) makes PagedServingEngine raise. ``prewarm``
-#: is ported (the decode-time programs as CUDA graphs), for greedy
-#: sampling only: with sampled decoding it raises in
+#: is ported (every prefill and decode-time program as a CUDA graph), for
+#: greedy sampling only: with sampled decoding it raises in
 #: :meth:`PagedServingEngine.prewarm` until on-device sampling is ported.
 UNPORTED_KNOBS: Dict[str, str] = {
-    "async_loop": "the async double-buffered decode loop",
-    # read only by the FIFO policy's async branch, after a dry drafter
-    "spec_retry_steps": "the async double-buffered decode loop",
     "on_device_sampling": "fused on-device sampling",
     "spill_enabled": "tiered KV storage",
     "host_tier_bytes": "tiered KV storage",
@@ -249,14 +254,15 @@ def check_ported(paged: PagedConfig) -> None:
 
 @dataclasses.dataclass
 class ProgramRecord:
-    """One decode-time program of the catalog (counterpart of the JAX
-    package's ``ProgramRecord``): the step it runs and, under prewarm on a
-    CUDA engine, the CUDA graph that step was captured into.
+    """One prefill or decode-time program of the catalog (counterpart of
+    the JAX package's ``ProgramRecord``): the step it runs and, under
+    prewarm on a CUDA engine, the CUDA graph that step was captured into.
 
-    ``fn`` runs the step over the engine's resident decode state and
-    ``inputs``, the static payload buffers its family shares (drafts,
-    rows, ...); it writes the step's new tokens and positions back into
-    the residents in place and returns the tensors the engine reads back.
+    ``fn`` runs the step over the engine's KV pool, its resident decode
+    state and ``inputs``, the static payload buffers its family shares
+    (a prefill's ids, start, length and table row; drafts, rows, ...); a
+    decode-time step writes its new tokens and positions back into the
+    residents in place; it returns the tensors the engine reads back.
     Where ``graph`` is set, each call replays it, and ``outputs`` are the
     tensors of the capture, in the memory pool every graph of the engine
     shares: the next replay of any graph may overwrite them, so the engine
@@ -307,6 +313,7 @@ class _PagedRequest:
     prefill_pos: int = 0
     prefill_target: int = 0
     # the (1, W) block-table row on the device, uploaded once per chunk walk
+    # and copied into the prefill programs' static row for each chunk
     table_dev: Any = None
     # speculation: drafts offered / accepted over the request's life; a lane
     # whose accept rate stays below spec_min_accept_rate past probation
@@ -520,11 +527,29 @@ class PagedServingEngine:
         # next decode, and single block-table entries from decode growth
         self._dirty_lanes: set = set()
         self._table_delta_list: List[tuple] = []  # (lane, col, block_id)
-        # the async loop's in-flight lookahead step, which the step policy
-        # asks about; the sync loop reads every decode back before returning
+        # the async loop's in-flight lookahead step (_snapshot's tuple),
+        # which the step policy asks about; the sync loop reads every
+        # decode back before returning. Each decode dispatch's tokens are
+        # copied, in stream order right after it, into one of two host
+        # buffers (pinned on the card), taken in turn with their events:
+        # the next dispatch rewrites the resident tokens in place
         self._pending: Optional[tuple] = None
+        pin = self.device.type == "cuda"
+        self._host_tokens = [
+            (
+                torch.zeros((engine.max_batch,), dtype=torch.int32, pin_memory=pin),
+                torch.cuda.Event() if pin else None,
+            )
+            for _ in range(2)
+        ]
+        self._host_turn = 0
+        # decode, verify and mixed dispatches so far, and how many of them
+        # lay between the last readback's dispatch and its read (1 for an
+        # async step's)
+        self._dispatch_count = 0
+        self._last_readback_lag = 0
         self._wait_ms = 0.0
-        # the decode-time program registry (prewarm): key -> ProgramRecord,
+        # the program registry (prewarm): key -> ProgramRecord,
         # every family's static payload buffers, the memory pool the
         # graphs share, and the key set mark_steady froze
         self.catalog = CatalogManifest.from_engine(self)
@@ -552,13 +577,33 @@ class PagedServingEngine:
         self.metrics.h2d_uploads += 1
         dst.copy_(torch.as_tensor(np.asarray(x), dtype=dst.dtype))
 
-    def _read_tokens(self, toks: torch.Tensor) -> np.ndarray:
+    def _read_tokens(self, toks: torch.Tensor, ready=None) -> np.ndarray:
         """Every device->host token readback funnels through here; the
-        blocking wait is accounted as device time."""
+        blocking wait is accounted as device time. ``ready`` is the CUDA
+        event after which ``toks``, a host buffer of :meth:`_snapshot`,
+        holds its copy: the wait is on it."""
         t0 = time.perf_counter()
-        arr = toks.cpu().numpy()
+        if ready is not None:
+            ready.synchronize()
+        # a copy: a host buffer is rewritten two dispatches later
+        arr = toks.cpu().numpy().copy()
         self._wait_ms += (time.perf_counter() - t0) * 1e3
         return arr
+
+    def _snapshot(self, toks: torch.Tensor, lanes: List[int]) -> tuple:
+        """A decode dispatch's readback, enqueued: ``toks`` (the resident
+        tokens, which the next dispatch rewrites in place) copied into the
+        next host buffer without blocking, and an event recorded after the
+        copy on the same stream, so the copy lands before any later
+        dispatch writes. Returns the pending tuple ``(host buffer, event,
+        lanes, dispatch index)`` that :meth:`_read_and_apply` reads. On a
+        CPU engine the copy is made at once (``.cpu()`` would alias)."""
+        host, ready = self._host_tokens[self._host_turn]
+        self._host_turn ^= 1
+        host.copy_(toks, non_blocking=ready is not None)
+        if ready is not None:
+            ready.record()
+        return host, ready, lanes, self._dispatch_count
 
     def _emit_action(self, atype: ActionType, mode: str = "", **meta) -> None:
         """Record one executed step action into this step's trace entry."""
@@ -585,12 +630,19 @@ class PagedServingEngine:
 
     def _family_inputs(self, kind: str) -> Dict[str, torch.Tensor]:
         """The static payload buffers every program of ``kind`` reads, made
-        once (int32, zeros): a dispatch uploads its payload into them
-        before it calls its program."""
+        once (int32, zeros; a prefill's length 1): a dispatch uploads its
+        payload into them before it calls its program."""
         inputs = self._graph_inputs.get(kind)
         if inputs is None:
             b, k, t = self.engine.max_batch, self._spec_k, self._mixed_t
+            # a prefill key reads ids[:, :bucket], a view at a fixed address
+            prefill = dict(
+                ids=(1, self._prefill_buckets[-1]), start=(1,), length=(1,),
+                table=(1, self.table_width),
+            )
             shapes = {
+                "pctx": prefill,
+                "psfx": prefill,
                 "pdecode": {},
                 "pverify": dict(drafts=(b, k), draft_len=(b,)),
                 "ptree": dict(drafts=(b, k), parents=(b, k + 1), node_len=(b,)),
@@ -603,6 +655,9 @@ class PagedServingEngine:
                 name: torch.zeros(shape, dtype=torch.int32, device=self.device)
                 for name, shape in shapes.items()
             }
+            if "length" in inputs:
+                # a capture's warm-up gathers row length - 1: keep it a row
+                inputs["length"].fill_(1)
         return inputs
 
     def _write_back(self, tokens: torch.Tensor, positions: torch.Tensor) -> None:
@@ -613,14 +668,36 @@ class PagedServingEngine:
         self._d_positions.copy_(positions)
 
     def _step_fn(self, key_: tuple, inputs: Dict[str, torch.Tensor]) -> Callable[[], tuple]:
-        """The step a catalog key runs: the model's own ``decode_step`` /
-        ``verify_step`` / ``tree_verify_step`` / ``mixed_step`` over the
-        residents and ``inputs``, then the write-back. Returns a callable
-        giving ``(tokens,)`` (pdecode; the resident itself) or
-        ``(emitted, accept)``."""
+        """The step a catalog key runs: a prefill's ``forward`` over the
+        pool, then the last real row's logits and the sample; or the
+        model's own ``decode_step`` / ``verify_step`` / ``tree_verify_step``
+        / ``mixed_step`` over the residents and ``inputs``, then the
+        write-back. Returns a callable giving ``(tokens,)`` (a prefill's
+        (1,) token; pdecode's resident itself) or ``(emitted, accept)``."""
         model, params, cap = self.model, self.engine.params, self._pos_cap
         kind = key_[0]
-        if kind == "pdecode":
+        if kind in ("pctx", "psfx"):
+            if kind == "pctx":
+                _, bucket, cfg, _g = key_
+                kv = None
+            else:
+                _, bucket, kv, cfg, _g = key_
+
+            @torch.no_grad()  # the LM head runs outside the no-grad forward
+            def fn():
+                # pctx: the whole prompt from row 0 (start stays 0), plain
+                # attention over the fresh block; psfx: the suffix after
+                # the cached prefix, attending it through the table
+                hidden, _ = model.forward(
+                    params, self.cache, inputs["ids"][:, :bucket], inputs["start"],
+                    None, context_encode=kind == "pctx", return_hidden=True,
+                    block_tables=inputs["table"], kv_limit=kv,
+                )
+                # the last real row, at the length on the device (a Python
+                # int would be frozen into a graph)
+                last = torch.index_select(hidden, 1, (inputs["length"] - 1).long())
+                return (sample(params._logits(last[:, 0]), self._generator, cfg),)
+        elif kind == "pdecode":
             _, cfg, kv, _g, _c = key_
 
             def fn():
@@ -697,7 +774,7 @@ class PagedServingEngine:
         kind = key_[0]
         if kind not in GRAPH_KINDS:
             raise ValueError(
-                f"{format_key(key_)}: the port runs {kind!r} programs as eager "
+                f"{format_key(key_)}: the port runs {kind!r} writes as eager "
                 "calls, not as CUDA graphs"
             )
         inputs = self._family_inputs(kind)
@@ -740,17 +817,19 @@ class PagedServingEngine:
         self._frozen_keys = frozenset(self._programs)
 
     def prewarm(self) -> None:
-        """Capture every decode-time key of the catalog
-        (``catalog.graph_keys()``: ``pdecode`` per kv rung, ``pverify`` /
-        ``ptree`` per (kv, k), ``pmixed`` per (t, kv)) before any traffic,
-        then :meth:`mark_steady`. Called by the constructor when
-        ``PagedConfig.prewarm`` is set; every decode, verify and mixed
-        dispatch then replays its key's graph. The prefill and state-write
-        keys stay eager calls. A key that fails to capture raises: nothing
+        """Capture every program key of the catalog
+        (``catalog.graph_keys()``: ``pctx`` per prefill rung, ``psfx`` per
+        (prefill rung, kv rung) pair, ``pdecode`` per kv rung, ``pverify``
+        / ``ptree`` per (kv, k), ``pmixed`` per (t, kv)) before any
+        traffic, then :meth:`mark_steady`. Called by the constructor when
+        ``PagedConfig.prewarm`` is set; every prefill, decode, verify and
+        mixed dispatch then replays its key's graph. The state-write keys
+        stay eager calls. A key that fails to capture raises: nothing
         falls back to an eager call.
 
         Each capture's warm-up runs with the resident state as it is, and
-        every table row still null, so its writes land in the null block;
+        every table row (the prefills' static row too) still null, so its
+        writes land in the null block;
         the residents are put back after it, and no transfer counts in
         ``h2d_uploads``. On a CPU engine nothing is captured or run: the
         records run their steps eagerly when dispatched. A graph reads
@@ -803,7 +882,10 @@ class PagedServingEngine:
     def _fail_request(self, req: _PagedRequest, error: str) -> None:
         """Terminal failure: blocks released, lane freed, the request lands
         in ``_finished`` with ``failed=True`` and its partial output. Nothing
-        is registered in the prefix index."""
+        is registered in the prefix index. Only with no lookahead in flight
+        (callers drain first)."""
+        if self._pending is not None:
+            raise RuntimeError("failing a lane with a step in flight")
         if req.rid in self._finished:
             return
         req.failed = True
@@ -908,6 +990,7 @@ class PagedServingEngine:
             raise KeyError(f"unknown request id {rid}")
         if req.done:
             return False
+        self._drain_pending()
         self._fail_request(req, reason)
         self.metrics.cancelled_requests += 1
         self.metrics.queued_requests = len(self._queue)
@@ -1048,19 +1131,20 @@ class PagedServingEngine:
                     self.index.insert(seq[: n_full * bs], table[:n_full])
             self._maybe_finish(req)
 
-    @torch.no_grad()
     def _prefill(
         self, suffix: List[int], cached: int, table: List[int], table_dev=None,
     ) -> int:
-        """Run one (whole or chunk) prefill over the request's table and
-        read its sampled token back: the whole prompt (``pctx``,
-        plain-torch attention over the fresh block) when nothing is cached,
-        else the suffix after the cached prefix (``psfx``, attending the
-        earlier rows through the table). ``table_dev`` is the (1, W) table
-        row already on the device (a chunk walk uploads it once). No
-        autograd: the LM head here runs outside the model's own no-grad
-        forward."""
+        """Run one (whole or chunk) prefill and read its sampled token back:
+        the whole prompt (``pctx``, plain-torch attention over the fresh
+        block) when nothing is cached, else the suffix after the cached
+        prefix (``psfx``, attending the earlier rows through the table).
+        The payload (ids, start, length and the table row) lands in the
+        family's static buffers and the key's record runs. ``table_dev`` is
+        the (1, W) table row already on the device (a chunk walk uploads it
+        once), copied into the static row."""
         eng = self.engine
+        kind = "pctx" if cached == 0 else "psfx"
+        inputs = self._family_inputs(kind)
         bucket = pick_bucket(self._prefill_buckets, max(len(suffix), 1))
         ids = np.zeros((1, bucket), np.int32)
         ids[0, : len(suffix)] = suffix
@@ -1068,23 +1152,18 @@ class PagedServingEngine:
         if table_dev is None:
             tbl = np.full((1, self.table_width), NULL_BLOCK, np.int32)
             tbl[0, : len(table)] = table
-            table_dev = self._upload(tbl)
+            self._upload_into(inputs["table"], tbl)
+        else:
+            inputs["table"].copy_(table_dev)
+        self._upload_into(inputs["ids"][:, :bucket], ids)
+        self._upload_into(inputs["length"], [length])
         if cached == 0:
-            hidden, self.cache = self.model.forward(
-                eng.params, self.cache, self._upload(ids),
-                torch.zeros((1,), dtype=torch.int32, device=self.device), None,
-                context_encode=True, return_hidden=True, block_tables=table_dev,
-            )
+            key_ = ("pctx", bucket, self.gen.sampling, False)
         else:
             kv_limit = self._kv_bucket(min(cached + bucket, eng.max_seq_len))
-            hidden, self.cache = self.model.forward(
-                eng.params, self.cache, self._upload(ids),
-                self._upload([cached]), None, return_hidden=True,
-                block_tables=table_dev, kv_limit=kv_limit,
-            )
-        # last-token gather before the LM head
-        logits = eng.params._logits(hidden[:, length - 1])
-        tok = sample(logits, self._generator, self.gen.sampling)
+            self._upload_into(inputs["start"], [cached])
+            key_ = ("psfx", bucket, kv_limit, self.gen.sampling, False)
+        (tok,) = self._program(key_)()
         self.metrics.note_prefill_dispatch(bucket, length)
         return int(self._read_tokens(tok)[0])
 
@@ -1195,6 +1274,26 @@ class PagedServingEngine:
                 if victim is req:
                     break  # preempted ourselves; nothing left to back
 
+    def _ensure_decode_blocks_async(self) -> bool:
+        """The async dispatch's :meth:`_ensure_decode_blocks`, without
+        preempting: back every decode lane's next write row from the pool
+        (evicting cached LRU blocks is host bookkeeping), but report False
+        where that would need an active lane preempted, so that the step
+        drops to the synchronous sequence, which drains the in-flight step
+        first and preempts with a consistent view."""
+        bs = self.paged.block_size
+        for lane in sorted(self._active, key=lambda l: self._active[l].rid):
+            req = self._active[lane]
+            if req.prefilling:
+                continue
+            if int(self._positions[lane]) // bs < len(req.table):
+                continue
+            nb = self.allocator.alloc()
+            if nb is None:
+                return False  # pool dry: preemption needed -> sync fallback
+            self._append_block(lane, req, nb)
+        return True
+
     def _append_block(self, lane: int, req: _PagedRequest, nb: int) -> None:
         req.table.append(nb)
         col = len(req.table) - 1
@@ -1232,11 +1331,17 @@ class PagedServingEngine:
     def _flush_state(self) -> None:
         """Push queued host-side lane mutations into the device-resident
         arrays, in place: single block-table entries from decode growth,
-        then whole lanes that were admitted, finished or preempted."""
+        then whole lanes that were admitted, finished or preempted. A table
+        delta is a scalar write into the resident, queued behind any step
+        in flight without blocking the host, so deltas may go out while a
+        lookahead runs; a full-lane sync uploads from host memory, which
+        would wait for it, and runs only with no step pending (lanes are
+        dirtied only by scheduler events, which drain first)."""
+        in_flight = self._pending is not None
         if self._table_delta_list:
             self._emit_action(
                 ActionType.TABLE_DELTA_FLUSH, n=len(self._table_delta_list),
-                in_flight=False,
+                in_flight=in_flight,
             )
             for lane, col, val in self._table_delta_list:
                 if lane in self._dirty_lanes:
@@ -1246,6 +1351,8 @@ class PagedServingEngine:
                 self.metrics.table_deltas += 1
             self._table_delta_list.clear()
         if self._dirty_lanes:
+            if in_flight:
+                raise RuntimeError("full-lane sync with a step in flight")
             lanes = sorted(self._dirty_lanes)
             self._emit_action(ActionType.LANE_SET_FLUSH, lanes=lanes, in_flight=False)
             idx = self._upload(lanes, torch.long)
@@ -1255,26 +1362,107 @@ class PagedServingEngine:
             self.metrics.lane_syncs += len(lanes)
             self._dirty_lanes.clear()
 
-    def _read_and_apply(self, toks: torch.Tensor, lanes: List[int]) -> None:
-        """Read one decode call's sampled tokens and advance request state;
-        finished lanes release their blocks."""
-        arr = self._read_tokens(toks)
-        eng = self.engine
-        finishing: List[_PagedRequest] = []
+    def _commit_tokens(
+        self, arr: np.ndarray, lanes: List[int], finishing: List[_PagedRequest],
+        dead: frozenset = frozenset(),
+    ) -> None:
+        """Append one decode step's token to each of ``lanes``' requests
+        and note the ones now due to finish. A lane in ``dead`` finished
+        one step earlier: its lookahead token is discarded and its frontier
+        mirror stepped back (the lame-duck drain)."""
         for lane in lanes:
+            if lane in dead:
+                self.metrics.lame_duck_tokens += 1
+                self._positions[lane] -= 1
+                continue
             req = self._active.get(lane)
             if req is None:
                 continue  # lane torn down between dispatch and readback
             req.out.append(int(arr[lane]))
             req.position += 1
             self._tokens[lane] = arr[lane]
-            if req.position >= eng.max_seq_len - 1:
+            if req.position >= self.engine.max_seq_len - 1:
                 req.done = True
             if self._finish_due(req):
                 finishing.append(req)
-        self._emit_action(ActionType.READBACK, lanes=list(lanes), lag=0)
+
+    def _read_and_apply(self, pending: tuple) -> None:
+        """Read one decode dispatch's tokens (``pending``, from
+        :meth:`_snapshot`) and advance request state. If a lane finished,
+        the lookahead step in flight, if any, is its lame-duck step: it is
+        read too and applied to the surviving lanes (for them an ordinary
+        step), the finished lanes' tokens from it are discarded, and only
+        then are the finished lanes' blocks released: stream order puts
+        the lame-duck step's KV writes before anything later that reuses
+        those blocks."""
+        host, ready, lanes, idx = pending
+        arr = self._read_tokens(host, ready)
+        self._last_readback_lag = self._dispatch_count - idx
+        finishing: List[_PagedRequest] = []
+        self._commit_tokens(arr, lanes, finishing)
+        self._emit_action(ActionType.READBACK, lanes=list(lanes), lag=self._last_readback_lag)
+        if finishing and self._pending is not None:
+            host2, ready2, lanes2, idx2 = self._pending
+            self._pending = None
+            arr2 = self._read_tokens(host2, ready2)
+            self._last_readback_lag = self._dispatch_count - idx2
+            self._commit_tokens(
+                arr2, lanes2, finishing, dead=frozenset(r.lane for r in finishing),
+            )
+            self._emit_action(
+                ActionType.READBACK, lanes=list(lanes2),
+                lag=self._last_readback_lag, lame_duck=True,
+            )
         for req in finishing:
             self._maybe_finish(req)
+
+    def _drain_pending(self) -> None:
+        """Retire the lookahead step in flight, if any, before the scheduler
+        changes lane state: after it the readback lag is 0 and full-lane
+        syncs are legal again."""
+        if self._pending is None:
+            return
+        pending, self._pending = self._pending, None
+        self._read_and_apply(pending)
+
+    def _async_eligible(self) -> bool:
+        """Steady state: nothing for the scheduler to do this step but
+        advance the decode lanes (no waiting request, no lane
+        mid-prefill)."""
+        if self._queue or not self._active:
+            return False
+        return not any(r.prefilling for r in self._active.values())
+
+    def _dispatch_decode(self, mode: str) -> tuple:
+        """Flush lane state and dispatch one T=1 step over every decode
+        lane (``mode`` "sync" or "async", for the action trace). Returns
+        the step's pending readback (:meth:`_snapshot`)."""
+        self._flush_state()
+        decode_lanes = [l for l, r in self._active.items() if not r.prefilling]
+        kv_need = int(max(self._positions[l] for l in decode_lanes)) + 1
+        kv_limit = self._kv_bucket(kv_need)
+        self.metrics.note_decode_dispatch(kv_limit, kv_need)
+        (toks,) = self._program(("pdecode", self.gen.sampling, kv_limit, False, False))()
+        self._dispatch_count += 1
+        self._emit_action(
+            ActionType.DECODE_DISPATCH, mode=mode, lanes=list(decode_lanes), kv=kv_limit,
+        )
+        for lane in decode_lanes:
+            self._positions[lane] += 1  # mirror the on-device advance
+        self.metrics.decode_steps += 1
+        return self._snapshot(toks, decode_lanes)
+
+    def _step_async(self) -> bool:
+        """One lookahead decode step: dispatch step N+1 from the
+        device-resident state alone (no host-to-device upload unless a
+        lane grew a block), then read back step N, which the device
+        finished while the host scheduled, for the finish checks one step
+        late."""
+        prev, self._pending = self._pending, self._dispatch_decode("async")
+        self.metrics.decode_steps_async += 1
+        if prev is not None:
+            self._read_and_apply(prev)
+        return bool(self._active or self._queue)
 
     def _dispatch_sync_decode(self) -> bool:
         """The decode tail of a synchronous step: back the write rows,
@@ -1286,22 +1474,9 @@ class PagedServingEngine:
         if not any(not r.prefilling for r in self._active.values()):
             return bool(self._active or self._queue)
         self._ensure_decode_blocks()
-        decode_lanes = [l for l, r in self._active.items() if not r.prefilling]
-        if not decode_lanes:
+        if all(r.prefilling for r in self._active.values()):
             return bool(self._active or self._queue)  # re-admit next step
-        self._flush_state()
-        kv_need = int(max(self._positions[l] for l in decode_lanes)) + 1
-        kv_limit = self._kv_bucket(kv_need)
-        self.metrics.note_decode_dispatch(kv_limit, kv_need)
-        (toks,) = self._program(("pdecode", self.gen.sampling, kv_limit, False, False))()
-        self._emit_action(
-            ActionType.DECODE_DISPATCH, mode="sync",
-            lanes=list(decode_lanes), kv=kv_limit,
-        )
-        for lane in decode_lanes:
-            self._positions[lane] += 1
-        self.metrics.decode_steps += 1
-        self._read_and_apply(toks, decode_lanes)
+        self._read_and_apply(self._dispatch_decode("sync"))
         return bool(self._active or self._queue)
 
     # -- speculative decoding and the fused mixed-mode step ------------------
@@ -1470,6 +1645,7 @@ class PagedServingEngine:
         else:
             self._upload_into(inputs["draft_len"], draft_len)
         emitted_d, accept_d = self._program((kind, kv_limit, k, False, False))()
+        self._dispatch_count += 1
         drafted = int(draft_len.sum())
         tree_meta = dict(tree=True, nodes=drafted) if self._spec_tree else {}
         self._emit_action(
@@ -1484,6 +1660,7 @@ class PagedServingEngine:
             self.metrics.tree_draft_tokens += drafted
         emitted = self._read_tokens(emitted_d)      # (B, k+1)
         accept = self._read_tokens(accept_d)        # (B,)
+        self._last_readback_lag = 0
         finishing: List[_PagedRequest] = []
         for lane in decode_lanes:
             self._commit_accepted(
@@ -1571,6 +1748,7 @@ class PagedServingEngine:
         emitted_d, accept_d = self._program(
             ("pmixed", t, kv_limit, self.gen.sampling, False, False)
         )()
+        self._dispatch_count += 1
         self.metrics.mixed_dispatches += 1
         self._emit_action(
             ActionType.MIXED_DISPATCH,
@@ -1588,6 +1766,7 @@ class PagedServingEngine:
                 self.metrics.tree_draft_tokens += drafted
         emitted = self._read_tokens(emitted_d)      # (B, t)
         accept = self._read_tokens(accept_d)        # (B,)
+        self._last_readback_lag = 0
         wall_ms = (time.perf_counter() - t_d) * 1e3
         bs = self.paged.block_size
         finishing: List[_PagedRequest] = []
@@ -1638,9 +1817,7 @@ class PagedServingEngine:
         """Run one policy-scheduled action."""
         t = act.type
         if t is ActionType.READBACK:
-            # READBACK retires the async loop's lookahead, which is not
-            # ported: the sync decode reads itself back
-            pass
+            self._drain_pending()
         elif t is ActionType.ADMIT:
             self._admit()
         elif t is ActionType.PREFILL_CHUNK:
@@ -1656,6 +1833,15 @@ class PagedServingEngine:
             self._last_verify_drafted = self._verify_phase()
         elif t is ActionType.MIXED_DISPATCH:
             self._last_mixed_dispatched = self._mixed_phase()
+        elif t is ActionType.DECODE_DISPATCH and act.mode == "async":
+            if self._ensure_decode_blocks_async():
+                self._last_async_fell_back = False
+                self._step_async()
+            else:
+                # pool dry: preempting changes lane state, so the policy
+                # reads this and drops to the synchronous sequence
+                self._last_async_fell_back = True
+                self.metrics.sync_fallbacks += 1
         elif t is ActionType.DECODE_DISPATCH and act.mode == "sync":
             self._dispatch_sync_decode()
         else:
@@ -1680,7 +1866,10 @@ class PagedServingEngine:
         """Execute one step schedule of the FIFO policy: admit waiting
         requests (prefilling each inline), then advance every active lane
         one token. Pool exhaustion preempts and requeues instead of
-        raising. Returns False when nothing is left to do."""
+        raising. With ``PagedConfig.async_loop`` the steady state runs one
+        step ahead of its readback, so request state trails the device by
+        a step until the lookahead drains. Returns False when nothing is
+        left to do."""
         t0 = time.perf_counter()
         self._wait_ms = 0.0
         self._step_index += 1
@@ -1786,8 +1975,9 @@ def make_serving_engine(
     paged engine. ``paged=None`` selects the dense slot-scheduled engine
     of the JAX package, which is not ported yet and raises. The JAX
     package's ``precompile`` argument (its ``_warmup``) has no
-    counterpart: ``PagedConfig.prewarm`` captures the decode-time
-    programs ahead of traffic, and everything else is an eager call."""
+    counterpart: ``PagedConfig.prewarm`` captures the prefill and
+    decode-time programs ahead of traffic, and the state writes are eager
+    calls."""
     if paged is None:
         raise NotImplementedError(
             "paged=None selects the dense ContinuousBatchingEngine, which "

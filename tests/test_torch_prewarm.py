@@ -127,14 +127,17 @@ def test_manifest_lines_match_jax(weights, case):
 
 @pytest.mark.parametrize("case", ["plain", "spec", "tree-fused"])
 def test_registry_is_the_captured_manifest(weights, case):
-    """After prewarm the registry holds exactly the manifest's pdecode /
-    pverify / ptree / pmixed keys, each counted as a prewarm capture, and
-    nothing counts as a steady-state capture. On the CPU no record holds
-    a graph."""
+    """After prewarm the registry holds exactly the manifest's pctx /
+    psfx / pdecode / pverify / ptree / pmixed keys, each counted as a
+    prewarm capture, and nothing counts as a steady-state capture. On the
+    CPU no record holds a graph."""
     eng = _engine(weights[1], prewarm=True, **CASES[case])
     registry = eng.program_registry()
     want = _graph_keys(eng.catalog)
     assert set(registry) == want and want
+    # the prefills too; a fused serve has no suffix prefill
+    kinds = {k[0] for k in registry}
+    assert "pctx" in kinds and ("psfx" in kinds) != bool(CASES[case].get("fused_step"))
     assert eng.catalog.graph_keys() == [
         k for k in eng.catalog.prewarm_keys() if k in want
     ]
@@ -146,6 +149,74 @@ def test_registry_is_the_captured_manifest(weights, case):
     # the families share one set of static input buffers
     for rec in registry.values():
         assert rec.inputs is eng._family_inputs(rec.kind)
+
+
+def test_served_ladder_captures_the_prefills(weights):
+    """At the served ladder (8 lanes, 2048-token sequences, prefill rungs 8
+    .. 2048, kv rungs 128 .. 2048) the captured keys are 9 pctx, the 31
+    (prefill, kv) pairs of psfx and 5 pdecode; fused with drafts of 4, the
+    psfx pairs leave and pverify and pmixed come in. The manifest's lines
+    are the JAX engine's (built, not run)."""
+    jp, model = weights
+    kw = dict(max_batch=8, max_seq_len=2048)
+    paged = dict(block_size=16, num_blocks=8, prefill_buckets=tuple(8 << i for i in range(9)))
+    counts = {}
+    for name, knobs in (("plain", {}), ("fused", dict(spec_draft_tokens=4,
+                                                      prefill_chunk_tokens=16, fused_step=True))):
+        port = PagedServingEngine(
+            InferenceEngine(TINY, model, **kw), GenerationConfig(),
+            PagedConfig(**paged, **knobs),
+        )
+        jax_eng = JaxPagedServingEngine(
+            JaxInferenceEngine(JAX_TINY, jp, **kw), JaxGenerationConfig(),
+            JaxPagedConfig(**paged, **knobs), precompile=False,
+        )
+        assert port.catalog.lines() == jax_eng.catalog.lines()
+        keys = port.catalog.graph_keys()
+        counts[name] = {k: sum(key[0] == k for key in keys) for k in sorted({x[0] for x in keys})}
+        assert len(keys) == len(set(keys))
+    assert counts == {
+        "plain": {"pctx": 9, "pdecode": 5, "psfx": 31},
+        "fused": {"pctx": 9, "pdecode": 5, "pmixed": 5, "pverify": 5},
+    }
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_prefill_records_are_the_direct_forward(weights, kv):
+    """A pctx and then a psfx dispatch through their records (the static
+    ids, start, length and table buffers; the last real row gathered at
+    the length on the device) give the token and the pool that the
+    model's forward gives when called directly on a copy of the pool."""
+    model = weights[1]
+    eng = _engine(model, kv_cache_dtype=kv)
+    dec, params = eng.model, eng.engine.params
+    ref = type(eng.cache)(*(None if x is None else x.clone() for x in eng.cache))
+    rng = np.random.default_rng(9)
+    prompt = rng.integers(0, TINY.vocab_size, size=(21,)).tolist()
+    table = [3, 5, 7, 2]
+    tbl = torch.zeros((1, eng.table_width), dtype=torch.int32)
+    tbl[0, : len(table)] = torch.tensor(table)
+    for start, stop in ((0, 13), (13, 21)):
+        piece = prompt[start:stop]
+        tok = eng._prefill(piece, start, table)
+        bucket = 16 if start == 0 else 8
+        ids = torch.zeros((1, bucket), dtype=torch.int32)
+        ids[0, : len(piece)] = torch.tensor(piece)
+        kw = dict(context_encode=True) if start == 0 else dict(
+            kv_limit=eng._kv_bucket(start + bucket))
+        hidden, _ = dec.forward(
+            params, ref, ids, torch.tensor([start], dtype=torch.int32), None,
+            return_hidden=True, block_tables=tbl, **kw,
+        )
+        with torch.no_grad():
+            want = int(torch.argmax(params._logits(hidden[:, len(piece) - 1]), dim=-1))
+        assert tok == want
+        for a, b in zip(eng.cache, ref):
+            if a is not None:
+                assert torch.equal(a, b)
+    keys = sorted(k[0] for k in eng.program_registry())
+    assert keys == ["pctx", "psfx"]
+    assert eng.metrics.compute_dispatches == 2
 
 
 def _jax_engine(jp, knobs):
@@ -173,6 +244,7 @@ COUNTERS = (
     "mixed_dispatches", "decode_steps", "prefill_chunks",
 )
 DISPATCHES = (ActionType.DECODE_DISPATCH, ActionType.VERIFY, ActionType.MIXED_DISPATCH)
+PREFILL_KINDS = ("pctx", "psfx")
 
 
 @pytest.mark.parametrize("case", ["plain", "int8-mxu-chunk", "spec-fused", "tree-fused"])
@@ -203,7 +275,16 @@ def test_prewarmed_streams_match_jax(weights, case):
     dispatched = sum(
         a.type in DISPATCHES for _, _, acts in warm.action_trace for a in acts
     )
-    assert sum(r.replays for r in warm.program_registry().values()) == dispatched > 0
+    assert sum(
+        r.replays for r in warm.program_registry().values() if r.kind not in PREFILL_KINDS
+    ) == dispatched > 0
+    # every dispatch, each prefill and chunk too, is one call of a record
+    assert sum(r.replays for r in warm.program_registry().values()) == (
+        warm.metrics.compute_dispatches
+    )
+    assert {k[0] for k, r in warm.program_registry().items() if r.replays} >= {"pctx", "psfx"} - (
+        {"psfx"} if CASES[case].get("fused_step") else set()
+    )
     # the pools end equal outside the null block, which holds garbage
     for a, b in zip(warm.cache, eager.cache):
         if a is not None:
@@ -212,7 +293,9 @@ def test_prewarmed_streams_match_jax(weights, case):
     # key registered on first use (and none counted as a prewarm)
     assert eager.metrics.prewarm_compiles == eager.metrics.steadystate_compiles == 0
     assert set(eager.program_registry()) <= _graph_keys(eager.catalog)
-    assert sum(r.replays for r in eager.program_registry().values()) == dispatched
+    assert sum(r.replays for r in eager.program_registry().values()) == (
+        eager.metrics.compute_dispatches
+    )
     assert eager.metrics.programs_compiled == len(eager.program_registry()) > 0
 
 
@@ -231,7 +314,7 @@ def test_out_of_catalog_capture_is_counted(weights):
     assert key_ in eng.program_registry() and key_ not in eng._frozen_keys
     assert eng.metrics.prewarm_compiles == before
     with pytest.raises(ValueError, match="eager"):
-        eng._program(("pctx", 8, GREEDY, False))
+        eng._program(("copy_block", False))
 
 
 @pytest.mark.parametrize("case", ["plain", "tree-fused"])
