@@ -64,7 +64,25 @@
    eager serve's. Serve's planted fault is
    captured into a twin's graphs, and the e2e check must reject that
    serve too, and a serve with the fault in its suffix prefills' graphs
-   alone. Every phase logs its seconds.
+   alone. Then on-device sampling (PagedConfig.on_device_sampling): the
+   sampler (sample_lanes) on the card at every served shape (Serve's
+   decode (8, V), F's verify (8, 5, V) and mixed (8, 16, V), T's (8, 32,
+   V)) over the model's own logits and mixed per-lane configs, greedy
+   sentinels among them, against the same function on a CPU copy (a
+   difference only at a near tie), timed, and a frequency check against
+   the filtered softmax that must reject the draws with the temperature
+   applied twice; Serve, F and T served sampled (temperature 0.8, top-p
+   0.95), eagerly (every token the plain forward's draw at its landing
+   index, up to near ties) and by their prewarmed twins, Serve by its
+   async twin too (the twins' streams the eager ones, no capture after
+   the freeze, no K4 launch outside a replay, sampled_steps > 0, no host
+   fallback), Serve's sampled twin profiled beside the greedy twin; a
+   greedy config under on_device_sampling prewarmed (the greedy twin's
+   streams); Serve sampled on a pool small enough to preempt (the
+   unpreempted streams); and F's prompts served sampled without
+   speculation, then with F's knobs and a drafter proposing those
+   streams (accepted drafts, the same streams, and F's sampled streams
+   the same too). Every phase logs its seconds.
 5. Train: Llama-3.2 1B at full width and depth in bench.py's training
    configuration (batch 12 x 2048, remat "full", flash attention, loss
    chunked at 256, AdamW with bf16 state) through TrainingConfig ->
@@ -1440,12 +1458,13 @@ def load_model():
     return cfg, model
 
 
-def make_server(cfg, model, drafter=None, **paged_kw):
+def make_server(cfg, model, drafter=None, sampling=None, **paged_kw):
     """The paged engine as served here: 8 lanes, 2048-token sequences, a
     2049-block pool of 16-row blocks (block 0 the null block); ``paged_kw``
-    adds PagedConfig knobs (the quantized serves' pool dtype, quant_mxu
-    and prefill chunk, speculation), ``drafter`` replaces the n-gram
-    drafter."""
+    adds or replaces PagedConfig knobs (the quantized serves' pool dtype,
+    quant_mxu and prefill chunk, speculation, on-device sampling, a
+    smaller pool), ``drafter`` replaces the n-gram drafter, ``sampling``
+    (a SamplingConfig) the greedy default."""
     from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
         GenerationConfig,
         InferenceEngine,
@@ -1456,13 +1475,15 @@ def make_server(cfg, model, drafter=None, **paged_kw):
     )
 
     engine = InferenceEngine(cfg, model, max_batch=8, max_seq_len=2048)
-    paged = PagedConfig(
-        block_size=16, num_blocks=2049,
-        # small rungs let a short suffix prefill ride the kernel (t <= 8)
-        prefill_buckets=(8, 16, 32, 64, 128, 256, 512, 1024, 2048), **paged_kw,
-    )
-    return PagedServingEngine(engine, GenerationConfig(max_new_tokens=MAX_NEW), paged,
-                              drafter=drafter)
+    paged = PagedConfig(**{
+        **dict(block_size=16, num_blocks=2049,
+               # small rungs let a short suffix prefill ride the kernel (t <= 8)
+               prefill_buckets=(8, 16, 32, 64, 128, 256, 512, 1024, 2048)),
+        **paged_kw,
+    })
+    gen = GenerationConfig(max_new_tokens=MAX_NEW,
+                           **(dict(sampling=sampling) if sampling is not None else {}))
+    return PagedServingEngine(engine, gen, paged, drafter=drafter)
 
 
 def run_serve_phase(cfg, model, card: str):
@@ -1551,6 +1572,13 @@ def serve_stats(server, rids, outs, wall_s: float) -> dict:
     )
 
 
+def staged_serve(knobs: dict) -> bool:
+    """Whether a serve with PagedConfig ``knobs`` submits as ``serve_staged``
+    does: the quantized and speculative serves (chunked prefill), not
+    Serve, whatever its sampling."""
+    return bool(set(knobs) - {"on_device_sampling"})
+
+
 def serve_requests(server, prompts, staged: bool):
     """Submit ``prompts`` and run the server to completion: all at once, or
     as ``serve_staged`` submits them (the quantized and speculative serves).
@@ -1562,21 +1590,23 @@ def serve_requests(server, prompts, staged: bool):
 
 
 def run_profile_phase(cfg, model, prompts, card: str, label: str = "serve",
-                      prewarm: bool = False, async_loop: bool = False, **knobs) -> dict:
+                      prewarm: bool = False, async_loop: bool = False, sampling=None,
+                      **knobs) -> dict:
     """The same requests once more on a fresh pool, under torch.profiler:
     the share of the wall time the card was busy, and the kernels that
     took it. ``knobs`` are a quantized or speculative serve's PagedConfig
     knobs; its requests are submitted as it submits them
     (``serve_staged``). ``prewarm``: the server captures its programs as
     CUDA graphs before the profiler starts; ``async_loop``: it runs the
-    async decode loop. Returns the serve's wall and busy ms, K4's launches
-    by source as the profiler counted its kernels, the outputs in prompt
-    order and ``serve_stats``."""
-    server = make_server(cfg, model, prewarm=prewarm, async_loop=async_loop, **knobs)
+    async decode loop; ``sampling``: its SamplingConfig. Returns the serve's
+    wall and busy ms, K4's launches by source as the profiler counted its
+    kernels, the outputs in prompt order and ``serve_stats``."""
+    server = make_server(cfg, model, prewarm=prewarm, async_loop=async_loop,
+                         sampling=sampling, **knobs)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rids, outs = serve_requests(server, prompts, staged=bool(knobs))
+        rids, outs = serve_requests(server, prompts, staged=staged_serve(knobs))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = sorted(
@@ -2365,7 +2395,8 @@ def step_device_ms(server) -> tuple:
 
 
 def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: str,
-                    gaps, margin: float, async_loop: bool = False, **knobs) -> dict:
+                    gaps, margin: float, async_loop: bool = False, sampling=None,
+                    **knobs) -> dict:
     """The prewarmed twin of serve ``label``: a server built with
     ``PagedConfig.prewarm``, which captures every prefill and decode-time
     key of its catalog as a CUDA graph, serves the same requests as the
@@ -2380,10 +2411,15 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
     them during the serve (every K4 call is a replay). ``async_loop``: the
     twin also runs the async decode loop, and must have dispatched async
     steps and discarded lame-duck tokens, and logs a decode step's own
-    device time (``step_device_ms``). Logs the keys by kind, the capture
-    seconds, the reserved bytes the construction added beyond the KV pool
-    (the graphs' pool, the static buffers) and the serve's numbers.
-    Returns the capture count and seconds."""
+    device time (``step_device_ms``). ``sampling``: a sampled config (with
+    ``on_device_sampling`` among ``knobs``): the streams are held by the
+    sampled near-tie rule (``same_streams``), ``gaps`` and ``margin`` are
+    in tempered logits, and the twin must have drawn on the device
+    (``sampled_steps`` > 0, no host fallback). Logs the keys by kind, the
+    capture seconds, the reserved bytes the construction added beyond the
+    KV pool (the graphs' pool, the static buffers) and the serve's
+    numbers. Returns the capture count and seconds, the streams in prompt
+    order and ``serve_stats``."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
     from neuronx_distributed_llama3_2_tpu_torch.serving.catalog import GRAPH_KINDS
 
@@ -2392,7 +2428,8 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
         c.reset()
     reserved0 = reserved_bytes()
     t0 = time.perf_counter()
-    server = make_server(scfg, model, prewarm=True, async_loop=async_loop, **knobs)
+    server = make_server(scfg, model, prewarm=True, async_loop=async_loop,
+                         sampling=sampling, **knobs)
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
     m = server.metrics
@@ -2408,7 +2445,7 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
           f"{server.catalog.describe()}, prewarm_compiles {m.prewarm_compiles}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rids, outs = serve_requests(server, prompts, staged=bool(knobs))
+    rids, outs = serve_requests(server, prompts, staged=staged_serve(knobs))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stats = serve_stats(server, rids, outs, wall)
@@ -2426,18 +2463,13 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
         check(m.decode_steps_async > 0 and m.lame_duck_tokens > 0,
               f"graph {label}: decode_steps_async {m.decode_steps_async}, "
               f"lame_duck_tokens {m.lame_duck_tokens}")
-    differ = [(j, first_difference(outs[r], e)) for j, (r, e) in enumerate(zip(rids, eager_outs))]
-    differ = [(j, i) for j, i in differ if i is not None]
-    for j, i in differ:
-        served = outs[rids[j]]
-        logits = model(torch.as_tensor([prompts[j] + served[:i]], device="cuda"))[0, -1].float()
-        a, b = served[i], eager_outs[j][i]
-        tie = abs(logits[a] - logits[b]).item()
-        log(f"graph {label}: request {j} first differs from the eager serve at token {i} "
-            f"({a} against {b}); their plain-forward logits lie {tie:.6g} apart (near-tie "
-            f"limit {LOGIT_MARGIN})")
-        check(tie <= LOGIT_MARGIN, f"graph {label}: request {j} differs at token {i}, "
-              f"not a near tie ({tie})")
+    if knobs.get("on_device_sampling"):
+        sampled = sampling is not None and not sampling.greedy
+        check(m.host_sample_fallbacks == 0 and (m.sampled_steps > 0) == sampled,
+              f"graph {label}: sampled_steps {m.sampled_steps}, host_sample_fallbacks "
+              f"{m.host_sample_fallbacks}")
+    differ = same_streams(f"graph {label}", model, prompts, [outs[r] for r in rids],
+                          eager_outs, rids, sampling)
     if differ:
         gap = gaps(outs, rids)
         log(f"graph {label}: worst e2e gap {gap:.6g} (margin {margin})")
@@ -2453,17 +2485,19 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
         f"graphs' pool and the static buffers); {len(rids)} requests, "
         f"{sum(len(outs[r]) for r in rids)} tokens in {wall:.6f} s = "
         f"{stats['tokens_s']:.6f} tokens/s; TTFT p50 {stats['ttft']:.6f} ms, TPOT p50 "
-        f"{stats['tpot']:.6f} ms; greedy streams equal to the eager serve's on "
+        f"{stats['tpot']:.6f} ms; streams equal to the eager serve's on "
         f"{len(rids) - len(differ)} of {len(rids)} requests; steadystate_compiles "
         f"{m.steadystate_compiles}, prewarm_compiles {m.prewarm_compiles}; replays "
-        f"{sum(r.replays for r in registry.values())}; decode steps {m.decode_steps}, "
+        f"{sum(r.replays for r in registry.values())}; sampled_steps {m.sampled_steps}, "
+        f"host_sample_fallbacks {m.host_sample_fallbacks}; decode steps {m.decode_steps}, "
         f"async {m.decode_steps_async}, lame_duck_tokens {m.lame_duck_tokens}, "
         f"sync_fallbacks {m.sync_fallbacks}; K4 launches captured {captured}, during "
         f"the serve {eager_calls}{step} | {card}")
     del server, registry
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(keys=m.prewarm_compiles, capture_s=capture_s, same=not differ, **stats)
+    return dict(keys=m.prewarm_compiles, capture_s=capture_s, same=not differ,
+                outs=[outs[r] for r in rids], **stats)
 
 
 def run_graph_profile_phase(scfg, model, label: str, prompts, eager: dict, launched: dict,
@@ -2480,7 +2514,8 @@ def run_graph_profile_phase(scfg, model, label: str, prompts, eager: dict, launc
     ``launched`` is run again, up to twice, never counted up.
     ``with_async``: the async twin (prewarm and the async loop) is
     profiled too and logged beside them; its lookahead steps past the
-    last finish add t1 launches, so its counts are logged, not held."""
+    last finish add t1 launches, so its counts are logged, not held.
+    Returns the twin's profile (``run_profile_phase``'s numbers)."""
     def profile(async_loop=False):
         return run_profile_phase(
             scfg, model, prompts, card, prewarm=True, async_loop=async_loop,
@@ -2512,6 +2547,7 @@ def run_graph_profile_phase(scfg, model, label: str, prompts, eager: dict, launc
               f"against {launched} (the eager serve's wrappers)")
     gc.collect()
     torch.cuda.empty_cache()
+    return graph
 
 
 def prefix_read_from_null_block(inner, q, k_pool, v_pool, tables, positions, **kw):
@@ -2615,6 +2651,379 @@ def run_quant_spec_serve_phase(cfg, model, card: str):
         f"(margin {margin})")
     check(bad_gap > margin, f"the QF e2e check passes a planted scale fault (gap {bad_gap})")
     return prompts, [outs[r] for r in rids]
+
+
+# -- 4f. on-device sampling (PagedConfig.on_device_sampling) --------------------
+
+# the sampled serves' config: nucleus sampling at temperature 0.8, as chat
+# traffic is served
+SAMPLED = dict(greedy=False, temperature=0.8, top_p=0.95)
+# the sampler phase: per-lane (temperature, top_k, top_p) of its 8 lanes,
+# greedy sentinels (temperature 0) among them, and the landing index of
+# each lane's first row
+SAMPLER_LANES = ((0.0, 0, 1.0), (0.8, 0, 0.95), (0.7, 50, 1.0), (1.0, 0, 1.0),
+                 (1.2, 40, 0.9), (0.6, 1000, 0.5), (0.8, 0, 0.95), (0.0, 0, 1.0))
+SAMPLER_INDEX0 = 700
+# its shapes: Serve's decode, F's verify and mixed steps, T's tree verify
+# and mixed steps (rows of one lane; all at B = 8, V = 128256)
+SAMPLER_SHAPES = (("Serve decode", 1), ("F verify", 5), ("F mixed", 16),
+                  ("T verify / mixed", 32))
+# a draw the card and the CPU disagree on must be a near tie there: its
+# top two perturbed values within this relative distance
+SAMPLER_TIE = 1e-5
+# the frequency check: a sharp config, FREQ_DRAWS landing indices for each
+# of the first FREQ_LANES lanes, drawn FREQ_CHUNK indices at a time; the
+# chi-square statistic over the kept tokens of all lanes must lie within
+# FREQ_SIGMAS standard deviations of its degrees of freedom, and the same
+# draws with the temperature applied twice must lie outside
+FREQ_CONFIG = (0.7, 50, 1.0)
+FREQ_LANES = 4
+FREQ_DRAWS = 4096
+FREQ_CHUNK = 512
+FREQ_SIGMAS = 5.0
+# the replay serve's pool: 112 usable blocks against the ~170 Serve's eight
+# requests hold at once, and one block of admission headroom, so that
+# admissions wait and decode growth preempts lanes (two preemptions: the
+# block accounting depends on lengths alone, so a CPU run shows it)
+REPLAY_BLOCKS = 113
+
+
+def sampling_config(**kw):
+    from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import SamplingConfig
+
+    return SamplingConfig(**kw)
+
+
+def lane_key(rid: int) -> np.ndarray:
+    """Request ``rid``'s base key data, as the engine installs it
+    (``PagedServingEngine._lane_rng`` at GenerationConfig's seed 0)."""
+    return np.random.SeedSequence([0, int(rid)]).generate_state(2).astype(np.int64)
+
+
+def sampled_rows(logits, rid: int, start: int, sampling):
+    """The sampled view of ``logits (n, V)``, rows landing at sequence
+    indices start .. start + n - 1 of request ``rid``: (gumbel noise of
+    each row's key, tempered logits, filtered tempered logits, each row's
+    top-p / top-k cutoff value), all (n, V) or (n,) float32 on the
+    logits' device."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import (
+        filtered_logits,
+        gumbel,
+        lane_keys,
+    )
+
+    n, v = logits.shape
+    dev = logits.device
+    lf = logits.float()
+    key = torch.as_tensor(lane_key(rid), device=dev)[None].expand(n, 2)
+    g = gumbel(lane_keys(key, start + torch.arange(n, device=dev)), v)
+    filt = filtered_logits(
+        lf, torch.full((n,), sampling.temperature, device=dev),
+        torch.full((n,), sampling.top_k, dtype=torch.int32, device=dev),
+        torch.full((n,), sampling.top_p, device=dev),
+    )
+    cutoff = torch.where(torch.isfinite(filt), filt, torch.full_like(filt, float("inf")))
+    return g, lf / sampling.temperature, filt, cutoff.amin(dim=-1)
+
+
+def sampled_e2e_gaps(model, prompts, outs, rids, sampling):
+    """The sampled twin of ``e2e_gaps``: teacher-forced, each served token
+    against the draw the plain full-sequence forward gives at its landing
+    index with the request's key. A token's gap is how far its perturbed
+    value (gumbel + tempered logit) lies below the largest perturbed value
+    of the filtered logits, or, where the filter dropped it, how far its
+    tempered logit lies below the filter's cutoff: bf16 noise moves the
+    draw only across such near ties. Returns the largest gap (tempered
+    logits), and how many served tokens were the plain forward's draw,
+    of how many."""
+    worst, exact, total = 0.0, 0, 0
+    for j, prompt in enumerate(prompts):
+        gen = outs[rids[j]]
+        ids = torch.as_tensor([prompt + gen[:-1]], device="cuda")
+        logits = model(ids)[0, len(prompt) - 1:].float()
+        check(bool(torch.isfinite(logits).all()), "non-finite plain logits")
+        g, x, filt, cutoff = sampled_rows(logits, rids[j], len(prompt), sampling)
+        tok = torch.as_tensor(gen, device="cuda")
+        rows = torch.arange(len(gen), device="cuda")
+        pert = g + filt
+        mine = g[rows, tok] + x[rows, tok]
+        gap = torch.maximum(pert.max(dim=-1).values - mine,
+                            (cutoff - x[rows, tok]).clamp_min(0))
+        worst = max(worst, gap.max().item())
+        exact += int((pert.argmax(dim=-1) == tok).sum())
+        total += len(gen)
+    return worst, exact, total
+
+
+def same_streams(label: str, model, prompts, outs: list, want: list, rids, sampling=None):
+    """Where one of ``outs`` differs from ``want`` (both in prompt order),
+    the first token that differs must be a near tie under the plain
+    forward: greedy, the two tokens' logits within LOGIT_MARGIN; sampled
+    (``sampling``), their perturbed values at the token's landing index
+    (request ``rids[j]``'s key) within LOGIT_MARGIN / temperature, or one
+    of them within that of the filter's cutoff. Logs each difference.
+    Returns the (request, token) pairs that differ."""
+    differ = [(j, first_difference(o, w)) for j, (o, w) in enumerate(zip(outs, want))]
+    differ = [(j, i) for j, i in differ if i is not None]
+    for j, i in differ:
+        served = outs[j]
+        logits = model(torch.as_tensor([prompts[j] + served[:i]], device="cuda"))[0, -1:].float()
+        a, b = served[i], want[j][i]
+        if sampling is None or sampling.greedy:
+            tie, limit = abs(logits[0, a] - logits[0, b]).item(), LOGIT_MARGIN
+            what = "plain-forward logits"
+        else:
+            g, x, _, cutoff = sampled_rows(logits, rids[j], len(prompts[j]) + i, sampling)
+            val = g[0] + x[0]
+            tie = min(abs(val[a] - val[b]).item(), abs(x[0, a] - cutoff[0]).item(),
+                      abs(x[0, b] - cutoff[0]).item())
+            limit = LOGIT_MARGIN / sampling.temperature
+            what = "perturbed plain-forward values (or one of them and the cutoff)"
+        log(f"{label}: request {j} first differs at token {i} ({a} against {b}); their "
+            f"{what} lie {tie:.6g} apart (near-tie limit {limit:.6g})")
+        check(tie <= limit, f"{label}: request {j} differs at token {i}, not a near tie ({tie})")
+    return differ
+
+
+def lane_tensors(device: str, b: int = 8):
+    """The sampler phase's per-lane (key data, temperature, top_k, top_p)
+    on ``device``: SAMPLER_LANES, each lane keyed as request ``lane``."""
+    rows = SAMPLER_LANES[:b]
+    return (
+        torch.as_tensor(np.stack([lane_key(i) for i in range(b)]), device=device),
+        torch.tensor([r[0] for r in rows], dtype=torch.float32, device=device),
+        torch.tensor([r[1] for r in rows], dtype=torch.int32, device=device),
+        torch.tensor([r[2] for r in rows], dtype=torch.float32, device=device),
+    )
+
+
+def chi_square(draws: torch.Tensor, logits: torch.Tensor, temperature: float, k: int):
+    """Pearson's chi-square of ``draws (L, n)`` against the filtered softmax
+    of ``logits (L, V)`` at (temperature, top_k k), summed over the lanes,
+    with its degrees of freedom, and the draws outside each lane's top k."""
+    stat, dof, outside = 0.0, 0, 0
+    n = draws.shape[1]
+    for lane in range(draws.shape[0]):
+        lf = logits[lane].float()
+        kth = torch.topk(lf, k).values[-1]
+        kept = lf >= kth
+        probs = torch.softmax(torch.where(kept, lf / temperature,
+                                          torch.full_like(lf, float("-inf"))), dim=0)
+        counts = torch.bincount(draws[lane].long(), minlength=lf.numel()).double()
+        outside += int(counts[~kept].sum())
+        e = probs[kept].double() * n
+        stat += float(((counts[kept] - e) ** 2 / e).sum())
+        dof += int(kept.sum()) - 1
+    return stat, dof, outside
+
+
+def run_sampler_phase(cfg, model, card: str) -> dict:
+    """``sample_lanes`` on the card at each served shape (SAMPLER_SHAPES, B
+    = 8, V = 128256), over the model's own logits of 8 random sequences
+    and SAMPLER_LANES' mixed configs: its draws against the same function
+    on a CPU copy of the same logits (a difference must be a near tie, its
+    top two perturbed values within SAMPLER_TIE relative; a greedy lane's
+    never differs), its device time, and the bytes it must move (the bf16
+    logits read once, the tokens written). Then the frequency check at
+    FREQ_CONFIG against the filtered softmax, which must reject the same
+    draws with the temperature applied twice. Returns shape -> device
+    ms."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import (
+        perturbed_logits,
+        sample_lanes,
+    )
+
+    b, v, t_max = 8, cfg.vocab_size, SAMPLER_SHAPES[-1][1]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    ids = torch.randint(0, v, (b, 64), device="cuda", generator=gen)
+    with torch.no_grad():
+        logits = model(ids)[:, -t_max:]                                  # (8, 32, V)
+    check(bool(torch.isfinite(logits).all()), "non-finite sampler logits")
+    dev_args, cpu_args = lane_tensors("cuda"), lane_tensors("cpu")
+    out = {}
+    for name, t in SAMPLER_SHAPES:
+        lg = logits[:, -1] if t == 1 else logits[:, :t].contiguous()
+        index = SAMPLER_INDEX0 + torch.arange(t, device="cuda")[None, :].expand(b, t)
+        index = index[:, 0].contiguous() if t == 1 else index.contiguous()
+        got = sample_lanes(lg, dev_args[0], index, *dev_args[1:]).cpu()
+        lg_cpu, idx_cpu = lg.cpu(), index.cpu()
+        want = sample_lanes(lg_cpu, cpu_args[0], idx_cpu, *cpu_args[1:])
+        rows = (got != want).reshape(b, -1)
+        ties = []
+        for lane, j in torch.nonzero(rows).tolist():
+            check(SAMPLER_LANES[lane][0] > 0,
+                  f"sampler {name}: greedy lane {lane} drew {got.reshape(b, -1)[lane, j]} "
+                  f"on the card, {want.reshape(b, -1)[lane, j]} on the CPU")
+            row = lg_cpu.reshape(b, -1, v)[lane, j][None]
+            pert = perturbed_logits(row, cpu_args[0][lane:lane + 1],
+                                    idx_cpu.reshape(b, -1)[lane, j:j + 1],
+                                    *(a[lane:lane + 1] for a in cpu_args[1:]))[0]
+            top2 = torch.topk(pert, 2).values
+            rel = ((top2[0] - top2[1]) / top2.abs().max()).item()
+            ties.append((lane, j, rel))
+            check(rel <= SAMPLER_TIE, f"sampler {name}: lane {lane} row {j} drew "
+                  f"{got.reshape(b, -1)[lane, j]} on the card, {want.reshape(b, -1)[lane, j]} "
+                  f"on the CPU, top two perturbed values {rel:.3g} apart (relative)")
+        (ms,), wall = device_ms(
+            lambda i: sample_lanes(lg, dev_args[0], index, *dev_args[1:]),
+            iters=10, windows=3)
+        nbytes = lg.numel() * lg.element_size() + b * t * 4
+        out[name] = ms
+        log(f"sampler {name}: (8, {t}, {v}) logits, {b * t} draws: card = CPU on "
+            f"{b * t - len(ties)} of {b * t}, near ties {ties}; device {ms:.6f} ms "
+            f"({wall:.6f} ms by events) per call; it must move {nbytes} bytes "
+            f"(bytes bound {nbytes / 3.35e12 * 1e3:.6f} ms) | {card}")
+    # frequency check
+    temp, k, top_p = FREQ_CONFIG
+    lanes = logits[:FREQ_LANES, -1]
+    args = (torch.as_tensor(np.stack([lane_key(i) for i in range(FREQ_LANES)]), device="cuda"),
+            torch.full((FREQ_LANES,), temp, device="cuda"),
+            torch.full((FREQ_LANES,), k, dtype=torch.int32, device="cuda"),
+            torch.full((FREQ_LANES,), top_p, device="cuda"))
+    readings = {}
+    for case, t_draw in (("sound", temp), ("temperature applied twice", temp * temp)):
+        draws = []
+        for c0 in range(0, FREQ_DRAWS, FREQ_CHUNK):
+            rows = lanes[:, None].expand(FREQ_LANES, FREQ_CHUNK, v)
+            index = (c0 + torch.arange(FREQ_CHUNK, device="cuda"))[None].expand(FREQ_LANES, -1)
+            draws.append(sample_lanes(rows, args[0], index.contiguous(),
+                                      torch.full_like(args[1], t_draw), *args[2:]))
+        stat, dof, outside = chi_square(torch.cat(draws, dim=1), lanes, temp, k)
+        readings[case] = (stat, outside)
+        log(f"sampler frequency ({case}): {FREQ_LANES} lanes x {FREQ_DRAWS} landing indices "
+            f"at temperature {temp}, top_k {k}: chi-square {stat:.6g} on {dof} degrees of "
+            f"freedom (limit {dof + FREQ_SIGMAS * (2 * dof) ** 0.5:.6g}), {outside} draws "
+            f"outside the top {k} | {card}")
+    limit = dof + FREQ_SIGMAS * (2 * dof) ** 0.5
+    check(readings["sound"][0] <= limit and readings["sound"][1] == 0,
+          f"sampler frequencies: chi-square {readings['sound']} against limit {limit}")
+    check(readings["temperature applied twice"][0] > limit,
+          f"the frequency check passes the temperature applied twice "
+          f"({readings['temperature applied twice']}, limit {limit})")
+    return out
+
+
+def run_sampled_serve_phase(scfg, model, label: str, prompts, card: str, sampling,
+                            margin: float, **knobs):
+    """Serve ``label``'s requests eagerly under on-device sampling with the
+    sampled config ``sampling`` (warm-up serve first): every draw on the
+    card (``sampled_steps`` > 0, no host fallback), K4's t1 and tile
+    sources launched (their counters zeroed just before the serve and read
+    just after), and every served token the plain forward's draw or within
+    ``margin`` / temperature of it (``sampled_e2e_gaps``). Returns (streams
+    in prompt order, rids, ``serve_stats``)."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+
+    knobs = dict(knobs, on_device_sampling=True)
+    staged = staged_serve(knobs)
+    serve_requests(make_server(scfg, model, sampling=sampling, **knobs), prompts, staged)
+    server = make_server(scfg, model, sampling=sampling, **knobs)
+    counters = {"t1": pa.t1_launches, "tile": pa.tile_launches}
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids, outs = serve_requests(server, prompts, staged)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {src: c.count for src, c in counters.items()}
+    check(launched["t1"] > 0 and launched["tile"] > 0,
+          f"sampled {label}: K4 launches {launched}")
+    stats = serve_stats(server, rids, outs, wall)
+    m = server.metrics
+    check(all(len(outs[r]) == MAX_NEW for r in rids), f"sampled {label}: short streams")
+    check(m.sampled_steps > 0 and m.host_sample_fallbacks == 0
+          and m.rng_reseeds == len(prompts) + m.preemptions,
+          f"sampled {label}: sampled_steps {m.sampled_steps}, host_sample_fallbacks "
+          f"{m.host_sample_fallbacks}, rng_reseeds {m.rng_reseeds}")
+    gap, exact, total = sampled_e2e_gaps(model, prompts, outs, rids, sampling)
+    limit = margin / sampling.temperature
+    log(f"sampled {label} ({sampling}): {len(rids)} requests, {total} tokens in "
+        f"{wall:.6f} s = {stats['tokens_s']:.6f} tokens/s; TTFT p50 {stats['ttft']:.6f} ms, "
+        f"TPOT p50 {stats['tpot']:.6f} ms; sampled_steps {m.sampled_steps}, "
+        f"rng_reseeds {m.rng_reseeds}, decode steps {m.decode_steps}, verify steps "
+        f"{m.verify_steps}, accepted {m.accepted_tokens}; K4 launches {launched}; e2e: "
+        f"{exact}/{total} served "
+        f"tokens are the plain forward's draw, worst gap {gap:.6g} (limit {limit:.6g}) "
+        f"| {card}")
+    check(gap <= limit, f"sampled {label}: a served token lies {gap} below the plain draw")
+    return [outs[r] for r in rids], rids, stats
+
+
+def run_sampled_replay_phase(cfg, model, prompts, want: list, card: str, sampling) -> None:
+    """Serve's requests sampled on a pool of REPLAY_BLOCKS blocks, small
+    enough that lanes are preempted and resume by re-prefilling their
+    generated tokens: each draw is keyed by its landing index and the
+    request's key is re-installed at re-admission, so the streams must be
+    the unpreempted sampled serve's (``want``), up to near ties
+    (``same_streams``: the resumed rows' K/V come from a prefill, not the
+    decode steps, and differ in bf16 rounding)."""
+    server = make_server(cfg, model, sampling=sampling, on_device_sampling=True,
+                         num_blocks=REPLAY_BLOCKS, decode_reserve_blocks=1)
+    rids, outs = serve_requests(server, prompts, staged=False)
+    m = server.metrics
+    check(m.preemptions > 0, f"replay: no lane was preempted ({REPLAY_BLOCKS} blocks)")
+    check(m.rng_reseeds == len(prompts) + m.preemptions and m.host_sample_fallbacks == 0,
+          f"replay: rng_reseeds {m.rng_reseeds}, preemptions {m.preemptions}")
+    differ = same_streams("replay", model, prompts, [outs[r] for r in rids], want, rids,
+                          sampling)
+    log(f"replay: sampled Serve on {REPLAY_BLOCKS} blocks: {m.preemptions} preemptions, "
+        f"{m.rng_reseeds} key installs, admit_blocked {m.admit_blocked}; streams equal to "
+        f"the unpreempted sampled serve's on {len(rids) - len(differ)} of {len(rids)} "
+        f"requests | {card}")
+
+
+class StreamDrafter:
+    """Proposes the continuation of whichever of ``seqs`` (prompt + the
+    non-speculative sampled stream) a lane's history starts, so that
+    sampled drafts are accepted; elsewhere it abstains."""
+
+    def __init__(self, seqs):
+        self.seqs = seqs
+
+    def propose(self, history, max_tokens):
+        for s in self.seqs:
+            if s[: len(history)] == list(history):
+                return s[len(history): len(history) + max_tokens]
+        return []
+
+
+def run_sampled_spec_phase(fcfg, model, prompts, f_outs: list, card: str, sampling) -> None:
+    """Sampled speculation: F's prompts served sampled without speculation
+    (16-token chunks, no fused step, the same seed and rids), then with
+    F's knobs and a drafter proposing that serve's streams (so that drafts
+    are accepted: the accept rule compares them with the draws at their
+    landing indices). Both the drafted serve's streams and those of F's
+    sampled serve (``f_outs``, the n-gram drafter) must equal the plain
+    sampled streams up to near ties."""
+    plain = make_server(fcfg, model, sampling=sampling, on_device_sampling=True,
+                        prefill_chunk_tokens=SPEC_KNOBS["prefill_chunk_tokens"])
+    rids, outs = serve_requests(plain, prompts, staged=True)
+    want = [outs[r] for r in rids]
+    drafter = StreamDrafter([p + w for p, w in zip(prompts, want)])
+    spec = make_server(fcfg, model, drafter=drafter, sampling=sampling,
+                       on_device_sampling=True, **SPEC_KNOBS)
+    s_rids, s_outs = serve_requests(spec, prompts, staged=True)
+    m = spec.metrics
+    check(s_rids == rids and m.verify_steps > 0 and m.accepted_tokens > 0
+          and m.sampled_steps > 0 and m.host_sample_fallbacks == 0,
+          f"sampled speculation: rids {s_rids} / {rids}, verify_steps {m.verify_steps}, "
+          f"accepted {m.accepted_tokens}, sampled_steps {m.sampled_steps}")
+    d_spec = same_streams("sampled speculation", model, prompts, [s_outs[r] for r in rids],
+                          want, rids, sampling)
+    d_f = same_streams("sampled F against the plain sampled serve", model, prompts, f_outs,
+                       want, rids, sampling)
+    log(f"sampled speculation: drafts {m.draft_tokens}, accepted {m.accepted_tokens} in "
+        f"{m.verify_steps} verify steps ({m.mixed_dispatches} mixed); streams equal to the "
+        f"non-speculative sampled serve's on {len(rids) - len(d_spec)} of {len(rids)} "
+        f"requests (the n-gram-drafted F serve: {len(rids) - len(d_f)}) | {card}")
+
+
+def sampled_summary(rows, card: str) -> None:
+    """One line of serve numbers: (label, serve_stats) pairs."""
+    log("sampled serves against the greedy twins of this run: " + "; ".join(
+        f"{name}: {st['tokens_s']:.6f} tokens/s, TTFT p50 {st['ttft']:.6f} ms, TPOT p50 "
+        f"{st['tpot']:.6f} ms" for name, st in rows) + f" | {card}")
 
 
 # -- 5. train -------------------------------------------------------------------
@@ -3164,11 +3573,14 @@ def main() -> int:
     graph = timed("serve graphs", run_graph_phase, cfg, model, "serve", prompts,
                   [outs[r] for r in rids], card,
                   lambda o, r: e2e_gaps(model, prompts, o, r)[0], E2E_LOGIT_MARGIN)
-    timed("serve async", run_graph_phase, cfg, model, "serve async", prompts,
-          [outs[r] for r in rids], card,
-          lambda o, r: e2e_gaps(model, prompts, o, r)[0], E2E_LOGIT_MARGIN, async_loop=True)
-    timed("serve graphs profile", run_graph_profile_phase, cfg, model, "serve", prompts,
-          prof, dict(t1=t1, tile=tile, split=0), card, graph["same"], with_async=True)
+    serve_twin = graph
+    serve_async = timed("serve async", run_graph_phase, cfg, model, "serve async", prompts,
+                        [outs[r] for r in rids], card,
+                        lambda o, r: e2e_gaps(model, prompts, o, r)[0], E2E_LOGIT_MARGIN,
+                        async_loop=True)
+    serve_twin_prof = timed("serve graphs profile", run_graph_profile_phase, cfg, model,
+                            "serve", prompts, prof, dict(t1=t1, tile=tile, split=0), card,
+                            graph["same"], with_async=True)
     timed("serve graphs fault", run_graph_fault_phase, cfg, model, prompts, card)
     quant = {}  # label -> (kv dtype, mxu, K4 launches, t1 launches, served geometries)
     for label, kv_dtype, mxu in QUANT_SERVES:
@@ -3202,7 +3614,7 @@ def main() -> int:
           [f_outs[r] for r in f_rids])
     f_prof = timed("serve F profile", run_profile_phase, fcfg, model, f_prompts, card,
                    label="serve F", **SPEC_KNOBS)
-    graph = timed("serve F graphs", run_graph_phase, fcfg, model, "serve F", f_prompts,
+    graph = f_twin = timed("serve F graphs", run_graph_phase, fcfg, model, "serve F", f_prompts,
                   [f_outs[r] for r in f_rids], card,
                   lambda o, r: e2e_gaps(model, f_prompts, o, r)[0], F_LOGIT_MARGIN,
                   **SPEC_KNOBS)
@@ -3224,13 +3636,60 @@ def main() -> int:
     timed("serve T branches", run_tree_branch_phase, cfg, model, t_prompts, card)
     t_prof = timed("serve T profile", run_profile_phase, tcfg, model, t_prompts, card,
                    label="serve T", **TREE_KNOBS)
-    graph = timed("serve T graphs", run_graph_phase, tcfg, model, "serve T", t_prompts,
+    graph = t_twin = timed("serve T graphs", run_graph_phase, tcfg, model, "serve T", t_prompts,
                   [t_outs[r] for r in t_rids], card,
                   lambda o, r: e2e_gaps(model, t_prompts, o, r)[0], T_LOGIT_MARGIN,
                   **TREE_KNOBS)
     timed("serve T graphs profile", run_graph_profile_phase, tcfg, model, "serve T",
           t_prompts, t_prof, dict(t1=t_t1, tile=t_tile, split=0), card, graph["same"],
           **TREE_KNOBS)
+    # on-device sampling: the sampler at the served shapes; Serve, F and T
+    # sampled, each eagerly and by its prewarmed twin (Serve by its async
+    # twin too); the greedy sentinel; preempt-resume; sampled speculation
+    timed("sampler", run_sampler_phase, cfg, model, card)
+    sampled = sampling_config(**SAMPLED)
+    lane = dict(on_device_sampling=True)
+    stats = []
+    for label, scfg, s_prompts, margin, knobs, twin in (
+            ("serve", cfg, prompts, E2E_LOGIT_MARGIN, {}, serve_twin),
+            ("serve F", fcfg, f_prompts, F_LOGIT_MARGIN, SPEC_KNOBS, f_twin),
+            ("serve T", tcfg, t_prompts, T_LOGIT_MARGIN, TREE_KNOBS, t_twin)):
+        s_outs, _, s_stats = timed(f"{label} sampled", run_sampled_serve_phase, scfg, model,
+                                   label, s_prompts, card, sampled, margin, **knobs)
+        gaps = functools.partial(sampled_e2e_gaps, model, s_prompts, sampling=sampled)
+        s_twin = timed(f"{label} sampled graphs", run_graph_phase, scfg, model,
+                       f"{label} sampled", s_prompts, s_outs, card,
+                       lambda o, r, gaps=gaps: gaps(o, r)[0], margin / sampled.temperature,
+                       sampling=sampled, **lane, **knobs)
+        stats += [(f"{label} sampled eager", s_stats), (f"{label} sampled twin", s_twin),
+                  (f"{label} greedy twin", twin)]
+        if label == "serve":
+            s_async = timed("serve sampled async", run_graph_phase, cfg, model,
+                            "serve sampled async", prompts, s_outs, card,
+                            lambda o, r, gaps=gaps: gaps(o, r)[0],
+                            E2E_LOGIT_MARGIN / sampled.temperature, async_loop=True,
+                            sampling=sampled, **lane)
+            stats += [("serve sampled async twin", s_async), ("serve greedy async twin",
+                                                              serve_async)]
+            s_prof = timed("serve sampled graphs profile", run_profile_phase, cfg, model,
+                           prompts, card, label="serve sampled (CUDA graphs)", prewarm=True,
+                           sampling=sampled, **lane)
+            share = (s_prof["busy"] - serve_twin_prof["busy"]) / s_prof["busy"]
+            log(f"profile: serve sampled twin busy {s_prof['busy']:.6f} ms of "
+                f"{s_prof['wall']:.6f} ms = {100 * s_prof['busy'] / s_prof['wall']:.6f}% "
+                f"against the greedy twin's {serve_twin_prof['busy']:.6f} ms of "
+                f"{serve_twin_prof['wall']:.6f} ms; the sampler's share of the sampled "
+                f"twin's device time (its busy ms less the greedy twin's) "
+                f"{100 * share:.6f}% | {card}")
+            timed("serve greedy sentinel graphs", run_graph_phase, cfg, model,
+                  "serve greedy sentinel", prompts, serve_twin["outs"], card,
+                  lambda o, r: e2e_gaps(model, prompts, o, r)[0], E2E_LOGIT_MARGIN, **lane)
+            timed("serve sampled replay", run_sampled_replay_phase, cfg, model, prompts,
+                  s_outs, card, sampled)
+        if label == "serve F":
+            timed("serve F sampled speculation", run_sampled_spec_phase, fcfg, model,
+                  f_prompts, s_outs, card, sampled)
+    sampled_summary(stats, card)
     del model
     torch.cuda.empty_cache()
     paged, paged_err = timed("K4 bf16", run_paged_kernel_phase, cfg, served, card)

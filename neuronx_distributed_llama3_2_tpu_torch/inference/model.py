@@ -46,8 +46,13 @@ in the null block would reach a live lane whose walk reads a null-backed
 block, since a masked row's weight 0 times NaN is NaN. Zero rotates those
 rows to q = k = 0, and every value stays finite.
 
-Not ported yet: the dense per-slot ``KVCache`` (dense-engine slice),
-on-device sampling and the finite-logit check, tensor parallelism.
+With ``sampling=`` the steps draw their tokens on the device
+(:func:`..inference.sampling.sample_lanes`, ``PagedConfig.
+on_device_sampling``), each keyed by the token's landing index, as the
+JAX package's steps are.
+
+Not ported yet: the dense per-slot ``KVCache`` (dense-engine slice), the
+finite-logit check, tensor parallelism.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import sample_lanes
 from neuronx_distributed_llama3_2_tpu_torch.inference.speculative import (
     accept_rule,
     tree_accept_rule,
@@ -155,10 +161,9 @@ def _unported(feature: str, slice_name: str):
     )
 
 
-#: the optional arguments of the verify and mixed steps, with the feature
-#: each belongs to and the slice that brings it
+#: the optional arguments of the verify and mixed steps that are not
+#: ported, with the feature each belongs to and the slice that brings it
 _STEP_FEATURES = {
-    "sampling": ("on-device sampling", "on-device sampling"),
     "logit_poison": ("the finite-logit check", "fault-tolerance"),
 }
 
@@ -168,6 +173,14 @@ def _check_unported_step_args(**args) -> None:
         if value is not None:
             feature, slice_name = _STEP_FEATURES[name]
             raise _unported(f"{name}= ({feature})", slice_name)
+
+
+def _sample_at(logits: torch.Tensor, sampling: tuple, index: torch.Tensor) -> torch.Tensor:
+    """:func:`..inference.sampling.sample_lanes` of ``logits`` with the
+    per-lane ``sampling`` tuple ``(rng_data, temperature, top_k, top_p)``,
+    each draw keyed by its landing ``index``."""
+    rng_data, temperature, top_k, top_p = sampling
+    return sample_lanes(logits, rng_data, index, temperature, top_k, top_p)
 
 
 class LlamaDecode:
@@ -438,12 +451,20 @@ class LlamaDecode:
         *,
         kv_limit: Optional[int] = None,
         pos_cap: Optional[int] = None,
+        sampling: Optional[tuple] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, PagedKVCache]:
         """One resident-state decode step: T=1 paged forward plus the state
         advance. Returns ``(logits (b, V), new_positions, cache)`` with
         ``new_positions = positions + 1``, clamped to ``pos_cap``: idle
         lanes keep stepping with all-null tables, and the cap keeps a
-        long-idle lane's position inside the rope table."""
+        long-idle lane's position inside the rope table.
+
+        ``sampling`` (on-device sampling) is a ``(rng_data (b, 2),
+        temperature (b,), top_k (b,), top_p (b,))`` tuple of per-lane
+        tensors: the first return is then the sampled int32 tokens, drawn
+        by :func:`..inference.sampling.sample_lanes` with each lane's key
+        folded by the landing index ``positions + 1`` (before the cap,
+        which binds only on garbage lanes)."""
         logits, cache = self.forward(
             params, cache, tokens[:, None], positions, None,
             block_tables=block_tables, kv_limit=kv_limit,
@@ -451,7 +472,10 @@ class LlamaDecode:
         new_positions = positions + 1
         if pos_cap is not None:
             new_positions = torch.clamp(new_positions, max=pos_cap)
-        return logits[:, 0, :], new_positions, cache
+        out = logits[:, 0, :]
+        if sampling is not None:
+            out = _sample_at(out, sampling, positions + 1)
+        return out, new_positions, cache
 
     @torch.no_grad()
     def verify_step(
@@ -482,15 +506,23 @@ class LlamaDecode:
         accept[i]]`` its new resident token and ``new_positions =
         positions + accept + 1`` (clamped to ``pos_cap``) its write row.
         Rejected rows need no rollback: the next step overwrites them
-        before any mask admits them. ``sampling`` (on-device sampling) and
-        ``logit_poison`` (the finite-logit check) are not ported."""
-        _check_unported_step_args(logit_poison=logit_poison, sampling=sampling)
+        before any mask admits them. With ``sampling`` (the tuple of
+        :meth:`decode_step`) the targets are the draws the lane WOULD make
+        at rows ``positions + j + 1``, keyed by that landing index, so the
+        accept comparison replays the sequential sampled stream.
+        ``logit_poison`` (the finite-logit check) is not ported."""
+        _check_unported_step_args(logit_poison=logit_poison)
         logits, cache = self.forward(
             params, cache, tokens, positions, None,
             block_tables=block_tables, kv_limit=kv_limit,
         )
-        # targets[i, j]: the target's argmax for row positions[i] + j + 1
-        targets = torch.argmax(logits, dim=-1).to(torch.int32)
+        # targets[i, j]: the target's argmax, or its draw, for row
+        # positions[i] + j + 1
+        if sampling is None:
+            targets = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            ar = torch.arange(tokens.shape[1], dtype=positions.dtype, device=positions.device)
+            targets = _sample_at(logits, sampling, positions[:, None] + 1 + ar)
         accept, emitted = accept_rule(tokens[:, 1:], targets, draft_len=draft_len)
         new_tokens = torch.gather(emitted, 1, accept[:, None].long())[:, 0]
         new_positions = positions + accept + 1
@@ -546,10 +578,13 @@ class LlamaDecode:
 
         Returns the :meth:`verify_step` tuple with ``new_positions =
         eff_pos + accept + 1`` (clamped to ``pos_cap``), ``eff_pos`` being
-        ``row_start`` on forced lanes and ``positions`` otherwise.
-        ``sampling`` (on-device sampling) and ``logit_poison`` (the
-        finite-logit check) are not ported."""
-        _check_unported_step_args(logit_poison=logit_poison, sampling=sampling)
+        ``row_start`` on forced lanes and ``positions`` otherwise. With
+        ``sampling`` (the tuple of :meth:`decode_step`) row ``j``'s target
+        is drawn at landing index ``eff_pos + 1 + j`` (``eff_pos + 1 +
+        depth(j)`` on a tree), a forced lane's last row at ``row_start +
+        row_len``, the suffix prefill's index. ``logit_poison`` (the
+        finite-logit check) is not ported."""
+        _check_unported_step_args(logit_poison=logit_poison)
         t = rows.shape[1]
         is_forced = forced > 0
         eff_pos = torch.where(is_forced, row_start, positions)
@@ -571,7 +606,14 @@ class LlamaDecode:
             params, cache, block, eff_pos, None,
             block_tables=block_tables, kv_limit=kv_limit, row_live=live, tree=topo,
         )
-        targets = torch.argmax(logits, dim=-1).to(torch.int32)
+        if sampling is None:
+            targets = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            offsets = (
+                torch.arange(t, dtype=eff_pos.dtype, device=eff_pos.device)[None, :]
+                if topo is None else topo[0]
+            )
+            targets = _sample_at(logits, sampling, eff_pos[:, None] + 1 + offsets)
         # forced lanes carry draft_len 0 (linear) / node_len 1 (tree), so
         # the rule hands back their targets (the root's bonus) untouched;
         # their accept is then set to the chunk's last row, whose target is
@@ -626,15 +668,21 @@ class LlamaDecode:
         step).
 
         Returns the :meth:`verify_step` tuple ``(emitted (b, t), accept
-        (b,), new_tokens (b,), new_positions (b,), cache)``.
-        ``sampling`` and ``logit_poison`` are not ported."""
-        _check_unported_step_args(logit_poison=logit_poison, sampling=sampling)
+        (b,), new_tokens (b,), new_positions (b,), cache)``. With
+        ``sampling`` (the tuple of :meth:`decode_step`) node ``j``'s target
+        is the draw at its child's landing index ``positions + 1 +
+        depth(j)``, the draw the sequential sampled decode of the accepted
+        path makes. ``logit_poison`` is not ported."""
+        _check_unported_step_args(logit_poison=logit_poison)
         depths, ancestors = tree_topology(parents)
         logits, cache = self.forward(
             params, cache, tokens, positions, None,
             block_tables=block_tables, kv_limit=kv_limit, tree=(depths, ancestors),
         )
-        targets = torch.argmax(logits, dim=-1).to(torch.int32)
+        if sampling is None:
+            targets = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            targets = _sample_at(logits, sampling, positions[:, None] + 1 + depths)
         accept, emitted, best = tree_accept_rule(
             tokens, targets, parents, node_len=node_len, topology=(depths, ancestors),
         )

@@ -7,9 +7,10 @@ the ladder helpers (``default_buckets``, ``pick_bucket``,
 :class:`BucketLadder` declares every shape the engine pads a dispatch
 into; a :class:`CatalogManifest` expands it into the exact key set of the
 engine's program registry. The keys keep the JAX package's tuple layout,
-so that their lines are the JAX package's for the same configuration; the
-knobs that add keys or flags there (the degradation ladder's gather twins,
-the finite-logit check, the spill tier, fused on-device sampling) are not
+so that their lines are the JAX package's for the same configuration
+(under on-device sampling the sampling slot is the ``"lane"`` sentinel,
+as there); the knobs that add keys or flags there (the degradation
+ladder's gather twins, the finite-logit check, the spill tier) are not
 ported, so their gather and checked bits are always False and their kinds
 never appear.
 
@@ -139,7 +140,8 @@ class CatalogManifest:
     bits are False (see the module docstring)."""
 
     ladder: BucketLadder
-    # SamplingConfig (frozen/hashable — rides inside keys)
+    # SamplingConfig (frozen/hashable — rides inside keys), or "lane"
+    # under on-device sampling
     sampling: Any
     quantized: bool = False
     # PagedConfig.fused_step: prefill suffixes ride the pmixed grid, so
@@ -168,7 +170,12 @@ class CatalogManifest:
         )
         return cls(
             ladder=ladder,
-            sampling=engine.gen.sampling,
+            # on-device sampling replaces the static SamplingConfig slot
+            # with the "lane" sentinel: the per-lane parameters are
+            # runtime residents, so one program serves every config
+            sampling=(
+                "lane" if getattr(engine, "_fused", False) else engine.gen.sampling
+            ),
             quantized=bool(getattr(engine, "_kv_quantized", False)),
             fused_step=bool(getattr(engine, "_fused_step", False)),
             spec_tree=bool(getattr(engine, "_spec_tree", False)),
@@ -270,7 +277,10 @@ def validate_ladder(model: Any, ladder: BucketLadder) -> List[str]:
 
 
 def _format_sampling(cfg: Any) -> str:
-    """Compact, comma-free SamplingConfig rendering for key strings."""
+    """Compact, comma-free SamplingConfig rendering for key strings (the
+    on-device sampling "lane" sentinel passes through verbatim)."""
+    if isinstance(cfg, str):
+        return cfg
     if getattr(cfg, "greedy", False):
         return "greedy"
     bits = [f"T{cfg.temperature:g}"]

@@ -33,7 +33,8 @@ for the FIFO loop, synchronous or async:
   a drafter (:class:`.drafter.NGramDrafter` by default) proposes up to k
   tokens per lane, one verify dispatch scores ``[cur, drafts]`` for every
   decode lane and accepts the agreeing prefix on the device
-  (:meth:`..inference.model.LlamaDecode.verify_step`). Greedy only.
+  (:meth:`..inference.model.LlamaDecode.verify_step`). Host sampling
+  must be greedy; ``on_device_sampling`` lifts that.
 - ``PagedConfig.spec_tree`` verifies a packed candidate tree of up to k
   nodes per lane instead (the drafter's ``propose_tree``, up to
   ``spec_tree_branches`` branches), scored in one ancestor-masked forward;
@@ -44,7 +45,16 @@ for the FIFO loop, synchronous or async:
   the plain decode lanes of a step into one ``mixed_step`` dispatch while
   any lane is mid-prefill; every cached-prefix admission chunks through it,
   with the lane's table live at once and its resident row parked past the
-  prompt. Greedy only.
+  prompt. Host sampling must be greedy; ``on_device_sampling`` lifts that.
+- ``PagedConfig.on_device_sampling`` draws every token on the device
+  (:func:`..inference.sampling.sample_lanes`): each lane's temperature,
+  top-k, top-p and threefry key data are device residents beside its token
+  and position, written only by the lane-set flush, and each draw is keyed
+  by the token's landing index, so sampled steady-state decode uploads
+  nothing, sampled speculation and the fused step replay the plain
+  sampled stream, a preempted request resumes it token for token, and one
+  captured graph serves every sampling config. The draws are the JAX
+  engine's bit for bit.
 - Each :meth:`PagedServingEngine.step` runs the FIFO policy's schedule
   (serving/policy.py): drain, admit (with inline prefill), then one fused
   mixed dispatch while a lane prefills under ``fused_step``, else one chunk
@@ -91,7 +101,11 @@ from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
     GenerationConfig,
     InferenceEngine,
 )
-from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import sample
+from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import (
+    GREEDY_TEMPERATURE,
+    sample,
+    sample_lanes,
+)
 from neuronx_distributed_llama3_2_tpu_torch.quantization.kv_cache import (
     kv_cache_torch_dtype,
     kv_scale_itemsize,
@@ -208,11 +222,10 @@ class PagedConfig:
 #: PagedConfig fields whose feature is not ported yet, with that feature.
 #: Any value other than the default (a falsy value counts as the default
 #: where the default is falsy) makes PagedServingEngine raise. ``prewarm``
-#: is ported (every prefill and decode-time program as a CUDA graph), for
-#: greedy sampling only: with sampled decoding it raises in
-#: :meth:`PagedServingEngine.prewarm` until on-device sampling is ported.
+#: is ported (every prefill and decode-time program as a CUDA graph) for
+#: greedy decoding and, under ``on_device_sampling``, sampled decoding;
+#: host-sampled decoding raises in :meth:`PagedServingEngine.prewarm`.
 UNPORTED_KNOBS: Dict[str, str] = {
-    "on_device_sampling": "fused on-device sampling",
     "spill_enabled": "tiered KV storage",
     "host_tier_bytes": "tiered KV storage",
     "restore_crossover": "tiered KV storage",
@@ -390,21 +403,28 @@ class PagedServingEngine:
             )
         if paged.spec_tree_branches < 1:
             raise ValueError("spec_tree_branches must be >= 1")
-        if self._spec_k and not gen.sampling.greedy:
-            # acceptance compares the target's argmax; a sampled stream
-            # would silently stop matching the plain loop (on-device
-            # sampling, which lifts this in the JAX package, is not ported)
+        # on-device sampling: per-lane sampling residents, every draw keyed
+        # by its landing index (sample_lanes)
+        self._fused = bool(paged.on_device_sampling)
+        if self._spec_k and not gen.sampling.greedy and not self._fused:
+            # host-sampled acceptance compares the target's argmax; a
+            # sampled stream would silently stop matching the plain loop.
+            # Fused sampling lifts this: the accept targets become the
+            # landing-index-keyed draws of sequential decoding
             raise ValueError(
                 "speculative serving with host sampling requires greedy "
-                "(SamplingConfig(greedy=True))"
+                "(SamplingConfig(greedy=True)) — or turn on "
+                "PagedConfig.on_device_sampling for sampled verify"
             )
         self._fused_step = bool(paged.fused_step)
-        if self._fused_step and not gen.sampling.greedy:
+        if self._fused_step and not gen.sampling.greedy and not self._fused:
             # one mixed dispatch draws every row's token: a host-sampled
-            # stream cannot replay the unfused engine's draw order
+            # stream cannot replay the unfused engine's draw order; fused
+            # draws are keyed by landing index, whatever the dispatch shape
             raise ValueError(
                 "fused_step with host sampling requires greedy "
-                "(SamplingConfig(greedy=True))"
+                "(SamplingConfig(greedy=True)) — or turn on "
+                "PagedConfig.on_device_sampling for sampled mixed steps"
             )
         # the mixed row width covers the chunk budget and the widest verify
         self._mixed_t = (
@@ -520,6 +540,21 @@ class PagedServingEngine:
         self._d_tokens = self._upload(self._tokens)
         self._d_positions = self._upload(self._positions)
         self._d_tables = self._upload(self._tables)
+        # on-device sampling residents: each lane's temperature, top-k,
+        # top-p and raw threefry key data (two 32-bit words, carried in
+        # int64), written in place by the lane-set flush only and read by
+        # every fused dispatch; an idle lane sits at the greedy sentinel
+        # with a null key
+        self._temps = np.full((engine.max_batch,), GREEDY_TEMPERATURE, np.float32)
+        self._topks = np.zeros((engine.max_batch,), np.int32)
+        self._topps = np.ones((engine.max_batch,), np.float32)
+        self._rng = np.zeros((engine.max_batch, 2), np.uint32)
+        self._d_temps = self._d_topks = self._d_topps = self._d_rng = None
+        if self._fused:
+            self._d_temps = self._upload(self._temps, torch.float32)
+            self._d_topks = self._upload(self._topks)
+            self._d_topps = self._upload(self._topps, torch.float32)
+            self._d_rng = self._upload(self._rng.astype(np.int64), torch.int64)
         # advanced positions are clamped here: keeps a long-idle garbage
         # lane's position inside the rope table (see LlamaDecode.decode_step)
         self._pos_cap = self.table_width * bs - 1
@@ -630,8 +665,10 @@ class PagedServingEngine:
 
     def _family_inputs(self, kind: str) -> Dict[str, torch.Tensor]:
         """The static payload buffers every program of ``kind`` reads, made
-        once (int32, zeros; a prefill's length 1): a dispatch uploads its
-        payload into them before it calls its program."""
+        once (int32 zeros, but a prefill's length 1; under on-device
+        sampling a prefill's lane sampling parameters too: the key data
+        int64, temperature and top-p float32, top-p 1): a dispatch uploads
+        its payload into them before it calls its program."""
         inputs = self._graph_inputs.get(kind)
         if inputs is None:
             b, k, t = self.engine.max_batch, self._spec_k, self._mixed_t
@@ -639,6 +676,7 @@ class PagedServingEngine:
             prefill = dict(
                 ids=(1, self._prefill_buckets[-1]), start=(1,), length=(1,),
                 table=(1, self.table_width),
+                **(dict(rng=(1, 2), temp=(1,), topk=(1,), topp=(1,)) if self._fused else {}),
             )
             shapes = {
                 "pctx": prefill,
@@ -651,14 +689,34 @@ class PagedServingEngine:
                     **(dict(parents=(b, t)) if self._spec_tree else {}),
                 ),
             }[kind]
+            dtypes = dict(rng=torch.int64, temp=torch.float32, topp=torch.float32)
             inputs = self._graph_inputs[kind] = {
-                name: torch.zeros(shape, dtype=torch.int32, device=self.device)
+                name: torch.zeros(
+                    shape, dtype=dtypes.get(name, torch.int32), device=self.device
+                )
                 for name, shape in shapes.items()
             }
             if "length" in inputs:
                 # a capture's warm-up gathers row length - 1: keep it a row
                 inputs["length"].fill_(1)
+            if "topp" in inputs:
+                inputs["topp"].fill_(1.0)
         return inputs
+
+    def _decode_cfg(self):
+        """The sampling slot of the pctx / psfx / pdecode / pmixed keys: the
+        static :class:`SamplingConfig` on the host-sampling path, the
+        ``"lane"`` sentinel under on-device sampling, where the per-lane
+        parameters are runtime residents and one program serves every
+        sampling config."""
+        return "lane" if self._fused else self.gen.sampling
+
+    def _lane_sampling(self) -> Optional[tuple]:
+        """The ``sampling=`` tuple of the model's steps under on-device
+        sampling, the residents themselves; None on the host path."""
+        if not self._fused:
+            return None
+        return self._d_rng, self._d_temps, self._d_topks, self._d_topps
 
     def _write_back(self, tokens: torch.Tensor, positions: torch.Tensor) -> None:
         """A program's new resident tokens and positions, written into the
@@ -696,16 +754,29 @@ class PagedServingEngine:
                 # the last real row, at the length on the device (a Python
                 # int would be frozen into a graph)
                 last = torch.index_select(hidden, 1, (inputs["length"] - 1).long())
-                return (sample(params._logits(last[:, 0]), self._generator, cfg),)
+                logits = params._logits(last[:, 0])
+                if cfg != "lane":
+                    return (sample(logits, self._generator, cfg),)
+                # the sampled token lands at sequence index start + length
+                # (pctx: start 0), the index a decode step from the last
+                # prompt row would fold
+                index = inputs["length"] + (inputs["start"] if kind == "psfx" else 0)
+                return (sample_lanes(
+                    logits, inputs["rng"], index, inputs["temp"], inputs["topk"],
+                    inputs["topp"],
+                ),)
         elif kind == "pdecode":
             _, cfg, kv, _g, _c = key_
 
             def fn():
-                logits, positions, _ = model.decode_step(
+                out, positions, _ = model.decode_step(
                     params, self.cache, self._d_tokens, self._d_positions,
                     self._d_tables, kv_limit=kv, pos_cap=cap,
+                    sampling=self._lane_sampling(),
                 )
-                self._write_back(sample(logits, self._generator, cfg), positions)
+                if cfg != "lane":
+                    out = sample(out, self._generator, cfg)
+                self._write_back(out, positions)
                 return (self._d_tokens,)
         elif kind in ("pverify", "ptree"):
             _, kv, _k, _g, _c = key_
@@ -716,11 +787,13 @@ class PagedServingEngine:
                     step = model.tree_verify_step(
                         params, self.cache, tokens, self._d_positions, self._d_tables,
                         inputs["parents"], inputs["node_len"], kv_limit=kv, pos_cap=cap,
+                        sampling=self._lane_sampling(),
                     )
                 else:
                     step = model.verify_step(
                         params, self.cache, tokens, self._d_positions, self._d_tables,
                         inputs["draft_len"], kv_limit=kv, pos_cap=cap,
+                        sampling=self._lane_sampling(),
                     )
                 emitted, accept, new_tokens, new_positions, _ = step
                 self._write_back(new_tokens, new_positions)
@@ -733,7 +806,7 @@ class PagedServingEngine:
                     params, self.cache, self._d_tokens, self._d_positions,
                     self._d_tables, inputs["rows"], inputs["row_start"],
                     inputs["row_len"], inputs["forced"], kv_limit=kv, pos_cap=cap,
-                    parents=inputs.get("parents"),
+                    parents=inputs.get("parents"), sampling=self._lane_sampling(),
                 )
                 self._write_back(new_tokens, new_positions)
                 return emitted, accept
@@ -835,13 +908,15 @@ class PagedServingEngine:
         records run their steps eagerly when dispatched. A graph reads
         the weights, the KV pool and the residents at their captured
         addresses: nothing may move them after this (no ``.to()``, no
-        ``load_state_dict`` that replaces a tensor). Greedy sampling only:
-        the host sampler's draws cannot be replayed, so sampled decoding
-        waits for on-device sampling."""
-        if not self.gen.sampling.greedy:
+        ``load_state_dict`` that replaces a tensor). Sampled decoding needs
+        ``PagedConfig.on_device_sampling``: its per-lane parameters and
+        keys are residents the graphs read, so one capture serves every
+        sampling config, greedy or sampled; the host sampler's draws are
+        not captured."""
+        if not self.gen.sampling.greedy and not self._fused:
             raise NotImplementedError(
                 "prewarm with sampled decoding: the host sampler's draws are "
-                "not captured; it comes with on-device sampling (use "
+                "not captured; turn on PagedConfig.on_device_sampling (or use "
                 "SamplingConfig(greedy=True))"
             )
         t0 = time.perf_counter()
@@ -860,6 +935,86 @@ class PagedServingEngine:
             time.perf_counter() - t0, self.catalog.describe(),
         )
 
+    # -- on-device sampling lane state (PagedConfig.on_device_sampling) ------
+
+    def _lane_rng(self, rid: int) -> np.ndarray:
+        """Per-request base key data (2,) uint32, derived from ``(gen.seed,
+        rid)`` by SeedSequence as the JAX engine derives it: a preempted
+        request re-installs the SAME key on re-admission, and with every
+        draw keyed by its landing index the resumed stream replays the
+        unpreempted run token for token."""
+        return np.random.SeedSequence(
+            [int(self.gen.seed), int(rid)]
+        ).generate_state(2).astype(np.uint32)
+
+    def _sampling_mode(self) -> str:
+        """Tracer label and counter bucket of a decode / verify / mixed
+        dispatch: ``"greedy"`` (argmax, in either mode), ``"fused"`` (drawn
+        on the device from the residents) or ``"host"`` (the host-path
+        sampler)."""
+        if self.gen.sampling.greedy:
+            return "greedy"
+        return "fused" if self._fused else "host"
+
+    def _note_sampling_dispatch(self) -> str:
+        mode = self._sampling_mode()
+        if mode == "fused":
+            self.metrics.sampled_steps += 1
+        elif mode == "host":
+            self.metrics.host_sample_fallbacks += 1
+        return mode
+
+    def _trace_dispatch(self, t_d: float, key_: tuple, mode: str, smode: str,
+                        lanes: int, kv_limit: int) -> None:
+        """One decode / verify / mixed dispatch on the tracer's step
+        timeline, with its program key and sampling label."""
+        self.tracer.complete(
+            "dispatch", t_d, program=format_key(key_), mode=mode, sampling=smode,
+            lanes=lanes, kv_bucket=kv_limit,
+        )
+
+    def _install_lane_sampling(self, lane: int, req: _PagedRequest) -> None:
+        """Admission-time install of a lane's sampling parameters and base
+        key into the host mirrors (the next lane-set flush writes the
+        residents). A greedy GenerationConfig installs the temperature
+        sentinel, so the fused draw is the exact argmax for the lane."""
+        if not self._fused:
+            return
+        s = self.gen.sampling
+        if s.greedy:
+            self._temps[lane] = GREEDY_TEMPERATURE
+            self._topks[lane] = 0
+            self._topps[lane] = 1.0
+        else:
+            self._temps[lane] = s.temperature
+            self._topks[lane] = s.top_k
+            self._topps[lane] = s.top_p
+        self._rng[lane] = self._lane_rng(req.rid)
+        self.metrics.rng_reseeds += 1
+
+    def _clear_lane_sampling(self, lane: int) -> None:
+        """Teardown twin of :meth:`_install_lane_sampling`: park the lane
+        at the greedy sentinel with a null key (idle lanes keep stepping in
+        the resident batch)."""
+        if not self._fused:
+            return
+        self._temps[lane] = GREEDY_TEMPERATURE
+        self._topks[lane] = 0
+        self._topps[lane] = 1.0
+        self._rng[lane] = 0
+
+    def _upload_lane_sampling(self, inputs: Dict[str, torch.Tensor], lane: int) -> None:
+        """A fused prefill's sampling payload: ``lane``'s key data,
+        temperature, top-k and top-p uploaded into the prefill family's
+        static (1, ...) buffers, four counted transfers (the JAX engine's
+        ``_lane_sampling_args``); prefills pay per-call uploads anyway, and
+        only decode-time steps must read residents alone."""
+        s = slice(lane, lane + 1)
+        self._upload_into(inputs["rng"], self._rng[s].astype(np.int64))
+        self._upload_into(inputs["temp"], self._temps[s])
+        self._upload_into(inputs["topk"], self._topks[s])
+        self._upload_into(inputs["topp"], self._topps[s])
+
     # -- request lifecycle ------------------------------------------------
 
     def _release_lane(self, req: _PagedRequest) -> None:
@@ -876,6 +1031,7 @@ class PagedServingEngine:
         self._tables[lane, :] = NULL_BLOCK
         self._tokens[lane] = 0
         self._positions[lane] = 0
+        self._clear_lane_sampling(lane)
         self._dirty_lanes.add(lane)
         req.lane = None
 
@@ -1070,6 +1226,9 @@ class PagedServingEngine:
             req.cached_tokens += cached
             self._tables[lane, :] = NULL_BLOCK
             self._active[lane] = req
+            # on-device sampling: (re-)install the lane's parameters and base
+            # key before any prefill of this admission draws from them
+            self._install_lane_sampling(lane, req)
             self.metrics.admitted += 1
             self.metrics.cached_tokens += cached
             if req.admitted_at is None:  # queue_ms = first admission wait
@@ -1111,7 +1270,7 @@ class PagedServingEngine:
                 continue
             suffix = seq[cached:]
             t_p = time.perf_counter()
-            first = self._prefill(suffix, cached, table)
+            first = self._prefill(suffix, cached, table, lane=lane)
             req.prefill_ms += (time.perf_counter() - t_p) * 1e3
             req.out.append(first)
             req.position = len(seq)
@@ -1133,15 +1292,17 @@ class PagedServingEngine:
 
     def _prefill(
         self, suffix: List[int], cached: int, table: List[int], table_dev=None,
+        lane: Optional[int] = None,
     ) -> int:
         """Run one (whole or chunk) prefill and read its sampled token back:
         the whole prompt (``pctx``, plain-torch attention over the fresh
         block) when nothing is cached, else the suffix after the cached
         prefix (``psfx``, attending the earlier rows through the table).
-        The payload (ids, start, length and the table row) lands in the
-        family's static buffers and the key's record runs. ``table_dev`` is
-        the (1, W) table row already on the device (a chunk walk uploads it
-        once), copied into the static row."""
+        The payload (ids, start, length and the table row; under on-device
+        sampling ``lane``'s sampling mirrors, :meth:`_upload_lane_sampling`)
+        lands in the family's static buffers and the key's record runs.
+        ``table_dev`` is the (1, W) table row already on the device (a chunk
+        walk uploads it once), copied into the static row."""
         eng = self.engine
         kind = "pctx" if cached == 0 else "psfx"
         inputs = self._family_inputs(kind)
@@ -1157,12 +1318,14 @@ class PagedServingEngine:
             inputs["table"].copy_(table_dev)
         self._upload_into(inputs["ids"][:, :bucket], ids)
         self._upload_into(inputs["length"], [length])
+        if self._fused:
+            self._upload_lane_sampling(inputs, lane)
         if cached == 0:
-            key_ = ("pctx", bucket, self.gen.sampling, False)
+            key_ = ("pctx", bucket, self._decode_cfg(), False)
         else:
             kv_limit = self._kv_bucket(min(cached + bucket, eng.max_seq_len))
             self._upload_into(inputs["start"], [cached])
-            key_ = ("psfx", bucket, kv_limit, self.gen.sampling, False)
+            key_ = ("psfx", bucket, kv_limit, self._decode_cfg(), False)
         (tok,) = self._program(key_)()
         self.metrics.note_prefill_dispatch(bucket, length)
         return int(self._read_tokens(tok)[0])
@@ -1198,7 +1361,7 @@ class PagedServingEngine:
                 tbl[0, : len(req.table)] = req.table
                 req.table_dev = self._upload(tbl)
             t_p = time.perf_counter()
-            tok = self._prefill(piece, start, req.table, req.table_dev)
+            tok = self._prefill(piece, start, req.table, req.table_dev, lane=lane)
             req.prefill_ms += (time.perf_counter() - t_p) * 1e3
             req.prefill_pos = start + len(piece)
             self.metrics.prefill_tokens += len(piece)
@@ -1359,6 +1522,15 @@ class PagedServingEngine:
             self._d_tokens[idx] = self._upload(self._tokens[lanes])
             self._d_positions[idx] = self._upload(self._positions[lanes])
             self._d_tables[idx] = self._upload(self._tables[lanes])
+            if self._fused:
+                # the sampling residents change only here, so a sampled
+                # steady-state step uploads nothing
+                self._d_temps[idx] = self._upload(self._temps[lanes], torch.float32)
+                self._d_topks[idx] = self._upload(self._topks[lanes])
+                self._d_topps[idx] = self._upload(self._topps[lanes], torch.float32)
+                self._d_rng[idx] = self._upload(
+                    self._rng[lanes].astype(np.int64), torch.int64
+                )
             self.metrics.lane_syncs += len(lanes)
             self._dirty_lanes.clear()
 
@@ -1442,7 +1614,11 @@ class PagedServingEngine:
         kv_need = int(max(self._positions[l] for l in decode_lanes)) + 1
         kv_limit = self._kv_bucket(kv_need)
         self.metrics.note_decode_dispatch(kv_limit, kv_need)
-        (toks,) = self._program(("pdecode", self.gen.sampling, kv_limit, False, False))()
+        smode = self._note_sampling_dispatch()
+        key_ = ("pdecode", self._decode_cfg(), kv_limit, False, False)
+        t_d = self.tracer.now()
+        (toks,) = self._program(key_)()
+        self._trace_dispatch(t_d, key_, mode, smode, len(decode_lanes), kv_limit)
         self._dispatch_count += 1
         self._emit_action(
             ActionType.DECODE_DISPATCH, mode=mode, lanes=list(decode_lanes), kv=kv_limit,
@@ -1635,16 +1811,20 @@ class PagedServingEngine:
         kv_limit = self._kv_bucket(kv_need)
         self.metrics.note_decode_dispatch(kv_limit, kv_need)
         kind = "ptree" if self._spec_tree else "pverify"
+        smode = self._note_sampling_dispatch()
         # the payload lands before the lookup: a late capture's warm-up
         # call then writes the rows the replay writes
         inputs = self._family_inputs(kind)
+        t_d = self.tracer.now()
         self._upload_into(inputs["drafts"], drafts)
         if self._spec_tree:
             self._upload_into(inputs["parents"], parents)
             self._upload_into(inputs["node_len"], draft_len + 1)
         else:
             self._upload_into(inputs["draft_len"], draft_len)
-        emitted_d, accept_d = self._program((kind, kv_limit, k, False, False))()
+        key_ = (kind, kv_limit, k, False, False)
+        emitted_d, accept_d = self._program(key_)()
+        self._trace_dispatch(t_d, key_, "verify", smode, len(decode_lanes), kv_limit)
         self._dispatch_count += 1
         drafted = int(draft_len.sum())
         tree_meta = dict(tree=True, nodes=drafted) if self._spec_tree else {}
@@ -1738,6 +1918,7 @@ class PagedServingEngine:
         ) + t
         kv_limit = self._kv_bucket(kv_need)
         self.metrics.note_decode_dispatch(kv_limit, kv_need)
+        smode = self._note_sampling_dispatch()
         t_d = time.perf_counter()
         inputs = self._family_inputs("pmixed")
         payload = dict(rows=rows, row_start=row_start, row_len=row_len, forced=forced)
@@ -1745,9 +1926,11 @@ class PagedServingEngine:
             payload["parents"] = parents
         for name, x in payload.items():
             self._upload_into(inputs[name], x)
-        emitted_d, accept_d = self._program(
-            ("pmixed", t, kv_limit, self.gen.sampling, False, False)
-        )()
+        key_ = ("pmixed", t, kv_limit, self._decode_cfg(), False, False)
+        emitted_d, accept_d = self._program(key_)()
+        self._trace_dispatch(
+            t_d, key_, "mixed", smode, len(decode_lanes) + len(forced_lanes), kv_limit,
+        )
         self._dispatch_count += 1
         self.metrics.mixed_dispatches += 1
         self._emit_action(

@@ -67,6 +67,10 @@ CASES = {
     "spec-fused": dict(spec_draft_tokens=3, prefill_chunk_tokens=6, fused_step=True),
     "tree-fused": dict(spec_draft_tokens=3, spec_tree=True, prefill_chunk_tokens=6,
                        fused_step=True),
+    # on-device sampling: the "lane" sentinel in every sampling slot
+    "lane": dict(on_device_sampling=True),
+    "tree-fused-lane": dict(spec_draft_tokens=3, spec_tree=True, prefill_chunk_tokens=6,
+                            fused_step=True, on_device_sampling=True),
 }
 POOL = dict(block_size=8, num_blocks=64)
 
@@ -125,7 +129,7 @@ def test_manifest_lines_match_jax(weights, case):
     assert f"{len(manifest.graph_keys())} captured as CUDA graphs" in manifest.describe()
 
 
-@pytest.mark.parametrize("case", ["plain", "spec", "tree-fused"])
+@pytest.mark.parametrize("case", ["plain", "spec", "tree-fused", "lane"])
 def test_registry_is_the_captured_manifest(weights, case):
     """After prewarm the registry holds exactly the manifest's pctx /
     psfx / pdecode / pverify / ptree / pmixed keys, each counted as a
@@ -247,7 +251,8 @@ DISPATCHES = (ActionType.DECODE_DISPATCH, ActionType.VERIFY, ActionType.MIXED_DI
 PREFILL_KINDS = ("pctx", "psfx")
 
 
-@pytest.mark.parametrize("case", ["plain", "int8-mxu-chunk", "spec-fused", "tree-fused"])
+@pytest.mark.parametrize("case", ["plain", "int8-mxu-chunk", "spec-fused", "tree-fused",
+                                  "tree-fused-lane"])
 def test_prewarmed_streams_match_jax(weights, case):
     """The prewarmed engine's greedy streams, per-request cached tokens
     and counters equal the JAX engine's and the eager port engine's on the
@@ -338,10 +343,13 @@ def test_prewarm_leaves_the_engine_as_it_found_it(weights, case):
 
 
 def test_prewarm_with_sampled_decoding_raises(weights):
+    """Host-sampled decoding cannot be captured: prewarm raises, naming
+    on_device_sampling (tests/test_torch_sampling.py holds prewarm with it)."""
     gen = GenerationConfig(
         max_new_tokens=4, sampling=SamplingConfig(greedy=False, temperature=0.7)
     )
-    with pytest.raises(NotImplementedError, match="prewarm with sampled decoding"):
+    with pytest.raises(NotImplementedError,
+                       match="prewarm with sampled decoding.*on_device_sampling"):
         _engine(weights[1], gen=gen, prewarm=True)
     # without prewarm the sampled engine is built as before
     assert not _engine(weights[1], gen=gen).program_registry()

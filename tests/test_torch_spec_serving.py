@@ -337,9 +337,9 @@ def test_int8_fused_spec_leg_matches_jax(weights):
 
 def test_greedy_and_overflow_guards(weights):
     """As in the JAX engine: speculation and fused_step need greedy
-    sampling here (on-device sampling is not ported), and k rows past
-    max_seq_len must fit the table's overflow region. A drafter is
-    accepted, and one is made when spec is on."""
+    sampling on the host-sampling path (on_device_sampling lifts that),
+    and k rows past max_seq_len must fit the table's overflow region. A
+    drafter is accepted, and one is made when spec is on."""
     _, model = weights
     eng = InferenceEngine(_configs(True)[1], model, **ENGINE_KW)
     sampled = GenerationConfig(
@@ -351,6 +351,10 @@ def test_greedy_and_overflow_guards(weights):
     ):
         with pytest.raises(ValueError, match=match):
             PagedServingEngine(eng, sampled, PagedConfig(block_size=8, **kw))
+        lifted = PagedServingEngine(
+            eng, sampled, PagedConfig(block_size=8, on_device_sampling=True, **kw)
+        )
+        assert lifted._fused and lifted.catalog.sampling == "lane"
     with pytest.raises(ValueError, match="overflow region"):
         PagedServingEngine(eng, paged=PagedConfig(block_size=8, spec_draft_tokens=65))
     with pytest.raises(ValueError, match="spec_draft_tokens must be >= 0"):

@@ -307,13 +307,11 @@ def test_steps_raise_on_unported_arguments(weights):
     tables = torch.zeros((1, 4), dtype=torch.int32)
     rows = torch.zeros((1, 3), dtype=torch.int32)
     for kw, match in (
-        (dict(sampling=(z,)), "on-device sampling"),
         (dict(logit_poison=z), "finite-logit check"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             dec.verify_step(model, cache, rows, z, tables, z, **kw)
     for kw, match in (
-        (dict(sampling=(z,)), "on-device sampling"),
         (dict(logit_poison=z), "finite-logit check"),
     ):
         with pytest.raises(NotImplementedError, match=match):
