@@ -64,7 +64,19 @@
    eager serve's. Serve's planted fault is
    captured into a twin's graphs, and the e2e check must reject that
    serve too, and a serve with the fault in its suffix prefills' graphs
-   alone. Then on-device sampling (PagedConfig.on_device_sampling): the
+   alone. Then fault tolerance on Serve's configuration: a prewarmed twin
+   with the finite-logit check and the invariant auditor every step
+   (detect_nonfinite, audit_interval=1) serves the unchecked twin's
+   streams with no quarantine, no violation, no capture after the freeze
+   and no upload on a steady step (its TPOT and tokens/s logged beside the
+   unchecked twin's); the same twin under a FaultPlan of one nan and one
+   device fault fails exactly the two victims with the JAX engine's error
+   strings, the six others token for token the clean twin's, no leak and
+   no K4 launch outside a replay; and NaN K rows written into a block one
+   lane alone holds get that lane quarantined by the on-device isfinite,
+   the others unaffected, where the same serve without detection commits
+   the lane's garbage tokens and fails nothing, and the verdict must tell
+   the two apart. Then on-device sampling (PagedConfig.on_device_sampling): the
    sampler (sample_lanes) on the card at every served shape (Serve's
    decode (8, V), F's verify (8, 5, V) and mixed (8, 16, V), T's (8, 32,
    V)) over the model's own logits and mixed per-lane configs, greedy
@@ -139,7 +151,18 @@
    dv) with one kv tile left out, and each with the causal diagonal
    masked (col < row), the compare that only the kernels' diagonal tiles
    run; ptxas must report no spills for K1-K3 either, and no wgmma
-   product serialized (warning C7520).
+   product serialized (warning C7520). Then K1-K3's packed-document mode
+   (segment_ids) at three packed shapes (the train shape causal, the 3B
+   geometry full, S 1000 causal), with seeded document ids (boundaries on
+   a 64-row tile's first row, its last row and mid-tile, a document of one
+   row and one longer than 1024, an id that comes back after another),
+   driven once through the public flash_attention(segment_ids=) forward
+   and backward with the launch counters zeroed just before (one launch
+   of each kernel), held the same way, timed beside SDPA with the boolean
+   block-diagonal mask; at the packed train shape the check must reject
+   each output with a document boundary moved by one row and with the
+   segment compare applied only on the tiles the causal or edge mask
+   crosses.
 
 Every failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -1458,13 +1481,14 @@ def load_model():
     return cfg, model
 
 
-def make_server(cfg, model, drafter=None, sampling=None, **paged_kw):
+def make_server(cfg, model, drafter=None, sampling=None, injector=None, **paged_kw):
     """The paged engine as served here: 8 lanes, 2048-token sequences, a
     2049-block pool of 16-row blocks (block 0 the null block); ``paged_kw``
     adds or replaces PagedConfig knobs (the quantized serves' pool dtype,
     quant_mxu and prefill chunk, speculation, on-device sampling, a
-    smaller pool), ``drafter`` replaces the n-gram drafter, ``sampling``
-    (a SamplingConfig) the greedy default."""
+    smaller pool, the fault-tolerance knobs), ``drafter`` replaces the
+    n-gram drafter, ``sampling`` (a SamplingConfig) the greedy default,
+    ``injector`` hooks a FaultInjector in."""
     from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
         GenerationConfig,
         InferenceEngine,
@@ -1483,7 +1507,7 @@ def make_server(cfg, model, drafter=None, sampling=None, **paged_kw):
     })
     gen = GenerationConfig(max_new_tokens=MAX_NEW,
                            **(dict(sampling=sampling) if sampling is not None else {}))
-    return PagedServingEngine(engine, gen, paged, drafter=drafter)
+    return PagedServingEngine(engine, gen, paged, drafter=drafter, injector=injector)
 
 
 def run_serve_phase(cfg, model, card: str):
@@ -2606,6 +2630,219 @@ def run_graph_fault_phase(cfg, model, prompts, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# the fault phase's schedule: a nan fault, then a device fault, each at the
+# first decode dispatch at or after its step (every lane decodes from step
+# 2 on, after the one admission wave of step 1)
+FAULT_SCHEDULE = ((5, "nan"), (9, "device"))
+# the genuine non-finite: K rows turned to NaN after this step
+NAN_AFTER_STEP = 3
+CHECKED_KNOBS = dict(detect_nonfinite=True, audit_interval=1)
+
+
+def steady_upload_steps(server) -> tuple:
+    """Run ``server`` to completion one step at a time; returns (its
+    outputs, the steady steps' upload counts): a steady step dispatches
+    and reads back decode steps and audits, nothing else (no admission,
+    finish, lane flush or table delta)."""
+    steady = {"DECODE_DISPATCH", "READBACK", "AUDIT"}
+    uploads = []
+    alive = True
+    while alive:
+        before = server.metrics.h2d_uploads
+        alive = server.step()
+        actions = {a.type.value for a in server.action_trace[-1][2]}
+        if actions <= steady and "DECODE_DISPATCH" in actions:
+            uploads.append(server.metrics.h2d_uploads - before)
+    return {rid: r.out for rid, r in sorted(server._finished.items())}, uploads
+
+
+def nan_victim(server):
+    """The decoding lane whose last block only it holds (refcount 1, not
+    in the prefix index) and holds the most of its written rows: (lane,
+    request, block, rows written in it)."""
+    bs = server.paged.block_size
+    best = None
+    for lane, req in server._active.items():
+        bid, rows = req.table[-1], req.position % bs
+        if (req.prefilling or rows == 0 or server.allocator.refcount(bid) != 1
+                or server.allocator.is_registered(bid)):
+            continue
+        if best is None or rows > best[3]:
+            best = (lane, req, bid, rows)
+    check(best is not None, "faults: no decoding lane holds a private written block")
+    return best
+
+
+def run_nan_serve(cfg, model, prompts, detect: bool):
+    """An eager Serve whose victim lane's last block gets NaN K rows (every
+    row it has written, layer 0) after step NAN_AFTER_STEP. Returns the
+    server, the rids, the victim's rid and its token count at the write."""
+    server = make_server(cfg, model, detect_nonfinite=detect)
+    rids = [server.submit(p) for p in prompts]
+    for _ in range(NAN_AFTER_STEP):
+        server.step()
+    lane, req, bid, rows = nan_victim(server)
+    server.cache.k[0, bid, :rows] = float("nan")
+    n_at_write = len(req.out)
+    server.run_to_completion()
+    return server, rids, req.rid, n_at_write
+
+
+def nan_quarantined(server, victim: int, n_at_write: int) -> bool:
+    """The genuine-NaN verdict: the victim, and only it, failed by the
+    on-device isfinite (no injector, so no poison mask), having committed
+    no token after the write."""
+    info = server.request_info(victim)
+    return (server.injector is None and server.metrics.lane_quarantines == 1
+            and server.metrics.failed_requests == 1 and info["status"] == "failed"
+            and info["error"] == "non-finite logits at decode step (lane quarantined)"
+            and info["generated_tokens"] == n_at_write)
+
+
+def run_fault_phase(cfg, model, prompts, eager_outs: list, unchecked: dict,
+                    card: str) -> None:
+    """Fault tolerance on Serve's configuration (1B, bf16, 8 lanes).
+
+    - The clean checked twin: prewarmed with CHECKED_KNOBS, no injector.
+      Its streams equal the unchecked twin's (``unchecked``, the serve
+      graphs phase, near-tie rule), no quarantine, no audit violation, no
+      capture after the freeze, every pdecode key checked, and its steady
+      steps upload nothing. Its TPOT p50 and tokens/s beside the unchecked
+      twin's are the cost of the check (and of the per-step host audit).
+    - Scheduled faults: the same twin with FaultPlan(schedule=
+      FAULT_SCHEDULE). Exactly the two victims fail, with the JAX engine's
+      error strings; the other six streams equal the clean twin's token
+      for token; one quarantine, two failed requests, two faults, no leak,
+      and no K4 launch outside a replay.
+    - A genuine non-finite (``run_nan_serve``): NaN K rows in a block only
+      the victim lane holds. With detection its lane is quarantined by the
+      on-device isfinite and the other streams equal the eager serve's;
+      the planted fault is the same serve with detection off, which
+      commits the victim's garbage tokens and fails nothing: the verdict
+      (``nan_quarantined``) must tell the two apart."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+    from neuronx_distributed_llama3_2_tpu_torch.serving.faults import (
+        FaultInjector,
+        FaultPlan,
+    )
+
+    # the clean checked twin
+    t0 = time.perf_counter()
+    server = make_server(cfg, model, prewarm=True, **CHECKED_KNOBS)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    m = server.metrics
+    keys = server.program_registry()
+    check(server._check_logits and all(k[-1] for k in keys if k[0] == "pdecode")
+          and any(k[0] == "pdecode" for k in keys),
+          f"faults: the checked twin's pdecode keys are not all checked: {sorted(map(str, keys))}")
+    t0 = time.perf_counter()
+    rids = [server.submit(p) for p in prompts]
+    outs, uploads = steady_upload_steps(server)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    clean = serve_stats(server, rids, outs, wall)
+    clean_outs = [outs[r] for r in rids]
+    differ = same_streams("faults checked twin", model, prompts, clean_outs,
+                          unchecked["outs"], rids)
+    check(m.lane_quarantines == 0 and m.audit_violations == 0 and m.failed_requests == 0,
+          f"faults: the clean checked twin quarantined {m.lane_quarantines}, audit "
+          f"violations {m.audit_violations}, failed {m.failed_requests}")
+    check(m.steadystate_compiles == 0, f"faults: {m.steadystate_compiles} captures after "
+          "the freeze in the checked twin")
+    check(len(uploads) > 0 and not any(uploads),
+          f"faults: the checked twin's steady steps uploaded {uploads}")
+    check(server.allocator.leak_check() == [], "faults: the checked twin leaks blocks")
+    log(f"faults: clean checked twin ({CHECKED_KNOBS}, prewarmed: {m.prewarm_compiles} "
+        f"graphs in {capture_s:.6f} s): streams equal to the unchecked twin's on "
+        f"{len(rids) - len(differ)} of {len(rids)} requests (the rest near ties); "
+        f"{len(uploads)} steady steps, h2d_uploads a steady step {max(uploads)}; "
+        f"lane_quarantines {m.lane_quarantines}, audit_violations {m.audit_violations} over "
+        f"{m.engine_steps} audits, steadystate_compiles {m.steadystate_compiles}; TPOT p50 "
+        f"{clean['tpot']:.6f} ms, {clean['tokens_s']:.6f} tokens/s against the unchecked "
+        f"twin's {unchecked['tpot']:.6f} ms, {unchecked['tokens_s']:.6f} tokens/s (TPOT "
+        f"{100 * (clean['tpot'] / unchecked['tpot'] - 1):+.4f}%: the on-device check, the "
+        f"finite readback and the host audit each step) | {card}")
+    del server, keys
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # scheduled faults on the same twin
+    counters = {"t1": pa.t1_launches, "tile": pa.tile_launches, "all": pa.launches}
+    for c in counters.values():
+        c.reset()
+    injector = FaultInjector(FaultPlan(schedule=FAULT_SCHEDULE))
+    server = make_server(cfg, model, prewarm=True, injector=injector, **CHECKED_KNOBS)
+    captured = {src: c.count for src, c in counters.items()}
+    rids = [server.submit(p) for p in prompts]
+    outs = server.run_to_completion()
+    torch.cuda.synchronize()
+    during = {src: c.count - captured[src] for src, c in counters.items()}
+    m = server.metrics
+    fired = list(injector.fired)
+    check([f[1:3] for f in fired] == [("nan", "decode"), ("device", "decode")],
+          f"faults: fired {fired}, not one nan and one device fault at decode dispatches")
+    (nan_lane,), (dev_lane,) = fired[0][3], fired[1][3]
+    failed = {r: server.request_info(r)["error"] for r in rids
+              if server.request_info(r)["status"] == "failed"}
+    want_errors = sorted(["non-finite logits at decode step (lane quarantined)",
+                          f"injected device fault at decode (lanes [{dev_lane}])"])
+    check(len(failed) == 2 and sorted(failed.values()) == want_errors,
+          f"faults: failed requests {failed}, want the errors {want_errors}")
+    survivors = [j for j, r in enumerate(rids) if r not in failed]
+    same = [outs[rids[j]] == clean_outs[j] for j in survivors]
+    check(all(same), f"faults: survivors' streams differ from the clean twin's: {same}")
+    for j, r in enumerate(rids):
+        if r in failed:
+            check(outs[r] == clean_outs[j][: len(outs[r])],
+                  f"faults: request {j}'s partial output is not a prefix of its clean stream")
+    check((m.lane_quarantines, m.failed_requests, m.faults_injected) == (1, 2, 2),
+          f"faults: lane_quarantines {m.lane_quarantines}, failed_requests "
+          f"{m.failed_requests}, faults_injected {m.faults_injected}")
+    check(server.allocator.leak_check() == [] and server.allocator.active_blocks == 0,
+          "faults: the faulted twin leaks blocks")
+    check(not any(during.values()) and m.steadystate_compiles == 0,
+          f"faults: K4 launched outside a replay {during}, steadystate_compiles "
+          f"{m.steadystate_compiles}")
+    log(f"faults: scheduled {FAULT_SCHEDULE} on the checked twin: fired {fired}; failed "
+        f"{failed}; {len(survivors)} survivors token for token the clean twin's; "
+        f"lane_quarantines {m.lane_quarantines}, failed_requests {m.failed_requests}, "
+        f"faults_injected {m.faults_injected}, leak_check [], K4 launches outside a "
+        f"replay {during} | {card}")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a genuine non-finite, with and without detection
+    verdicts = {}
+    for detect in (True, False):
+        server, n_rids, victim, n_at_write = run_nan_serve(cfg, model, prompts, detect)
+        verdicts[detect] = nan_quarantined(server, victim, n_at_write)
+        j_victim = n_rids.index(victim)
+        others = [j for j in range(len(n_rids)) if j != j_victim]
+        info = server.request_info(victim)
+        if detect:
+            same_streams("faults genuine NaN", model, [prompts[j] for j in others],
+                         [server._finished[n_rids[j]].out for j in others],
+                         [eager_outs[j] for j in others], [n_rids[j] for j in others])
+        else:
+            check(info["generated_tokens"] > n_at_write and server.metrics.failed_requests == 0,
+                  f"faults: the serve without detection committed "
+                  f"{info['generated_tokens'] - n_at_write} NaN-lane tokens and failed "
+                  f"{server.metrics.failed_requests}")
+        log(f"faults: genuine NaN (K rows of request {j_victim}'s private last block, layer "
+            f"0, after step {NAN_AFTER_STEP}), detect_nonfinite={detect}: victim "
+            f"{info['status']} ({info['error']}), {info['generated_tokens'] - n_at_write} "
+            f"tokens after the write; lane_quarantines {server.metrics.lane_quarantines}, "
+            f"failed_requests {server.metrics.failed_requests}; verdict quarantined "
+            f"{verdicts[detect]} | {card}")
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(verdicts == {True: True, False: False},
+          f"faults: the genuine-NaN verdict does not tell detection from none: {verdicts}")
+
+
 def run_quant_spec_serve_phase(cfg, model, card: str):
     """F's prompts and knobs from an int8 pool (mode 3): the widest reach
     of the tile source's quantized instances, every verify and mixed call.
@@ -3174,8 +3411,8 @@ def k3_skips_diagonal():
 
     inner = fa._launch_bwd
 
-    def faulty(q, k, v, do, lse, delta, causal, sm_scale):
-        dq, dk, dv = inner(q, k, v, do, lse, delta, causal, sm_scale)
+    def faulty(q, k, v, do, lse, delta, segment_ids, causal, sm_scale):
+        dq, dk, dv = inner(q, k, v, do, lse, delta, segment_ids, causal, sm_scale)
         if causal:
             dk_diag, dv_diag = diagonal_tile_part(
                 q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(),
@@ -3284,6 +3521,15 @@ FLASH_CASES = (
     ("unaligned S 1000 causal", 2, 32, 8, 1000, 64, True, 10),
     ("unaligned S 1000 full", 2, 32, 8, 1000, 64, False, 10),
 )
+# the packed-document cases (segment_ids, ``packed_segments``), same layout;
+# the first is the train shape, where the planted segment faults run
+PACKED_CASES = (
+    ("train causal, packed", 12, 32, 8, 2048, 64, True, 10),
+    ("3b full, packed (D 128, G 3)", 2, 24, 8, 2048, 128, False, 10),
+    ("unaligned S 1000 causal, packed", 2, 32, 8, 1000, 64, True, 10),
+)
+# the one document of row 0 longer than the seeded lengths' 1024 rows
+PACKED_LONG = 1100
 # lse is fp32 from the same bf16 products in another order
 LSE_TOL = 1e-4
 # K1-K3 vs their plain versions, held element by element and tile by tile:
@@ -3311,23 +3557,99 @@ FAULT_Q = (1984, 2048)
 FAULT_KV = (1024, 1088)
 
 
-def flash_bound(b, n, nkv, s, d, causal, k: int):
+def flash_bound(b, n, nkv, s, d, causal, k: int, segment_ids=None):
     """Least time of K1 (k=1), K2 (k=2) or K3 (k=3) at this shape: FLOPs
     of 4, 6 or 8 x D per attended (q, kv) pair over the bf16 peak, against
-    each input read once and each output written once over HBM bandwidth."""
+    each input read once and each output written once over HBM bandwidth.
+    With ``segment_ids`` only the pairs the segment (and causal) mask lets
+    attend count, and the ids are read once."""
     from neuronx_distributed_llama3_2_tpu_torch import flops as fl
 
-    pairs = b * n * (s * (s + 1) // 2 if causal else s * s)
+    if segment_ids is None:
+        pairs = b * n * (s * (s + 1) // 2 if causal else s * s)
+    else:
+        pairs = n * attended_pairs(segment_ids, causal)
     flops = (2 + 2 * k) * d * pairs
     qo = b * n * s * d * 2     # one (B, N, S, D) bf16 tensor
     kv = b * nkv * s * d * 2   # one (B, Nkv, S, D) bf16 tensor
     vec = b * n * s * 4        # one (B, N, S) fp32 vector
-    nbytes = {1: 2 * qo + 2 * kv + vec,            # q, k, v -> o, lse
-              2: 3 * qo + 2 * kv + 2 * vec,        # q, k, v, do, lse, delta -> dq
-              3: 2 * qo + 4 * kv + 2 * vec}[k]     # q, k, v, do, lse, delta -> dk, dv
+    ids = 0 if segment_ids is None else b * s * 4
+    nbytes = ids + {1: 2 * qo + 2 * kv + vec,            # q, k, v -> o, lse
+                    2: 3 * qo + 2 * kv + 2 * vec,        # q, k, v, do, lse, delta -> dq
+                    3: 2 * qo + 4 * kv + 2 * vec}[k]     # q, k, v, do, lse, delta -> dk, dv
     t_ops = flops / fl.H100_BF16_FLOPS_PER_S * 1e3
     t_bytes = nbytes / fl.H100_HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attended_pairs(segment_ids, causal: bool) -> int:
+    """The (q, kv) pairs of one head that a (B, S) id array lets attend:
+    per id with c rows in a batch row, c^2, or c (c + 1) / 2 under the
+    causal mask (the i-th row of an id sees i of its rows). Ids are
+    compared, not assumed contiguous."""
+    total = 0
+    for row in np.asarray(torch.as_tensor(segment_ids).cpu()):
+        counts = np.unique(row, return_counts=True)[1].astype(np.int64)
+        total += int((counts * (counts + 1) // 2 if causal else counts * counts).sum())
+    return total
+
+
+def packed_segments(b: int, s: int, seed: int = SEED) -> torch.Tensor:
+    """(B, S) int32 document ids of a packed batch, made from ``seed``: each
+    row filled with documents of seeded lengths 1-1024. Row 0 starts with
+    documents whose boundaries fall on a 64-row tile's first row (64, 128),
+    on its last row (127: a document of one row) and mid-tile (158), then,
+    where S allows, a document of PACKED_LONG rows; row 1 starts with two
+    short documents and takes the ids 0, 1, 0, 1, ... in turn, so an id
+    comes back after another one."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((b, s), np.int32)
+    for r in range(b):
+        starts = [0]
+        if r == 0:
+            starts += [64, 127, 128, 158]
+            if 158 + PACKED_LONG < s:
+                starts.append(158 + PACKED_LONG)
+        elif r == 1:
+            starts += [int(rng.integers(1, s // 3))]
+            starts += [starts[-1] + int(rng.integers(1, s // 3))]
+        while starts[-1] + 1 < s:
+            starts.append(starts[-1] + int(rng.integers(1, 1025)))
+        starts = [x for x in starts if x < s]
+        ids = np.arange(len(starts), dtype=np.int32)
+        if r == 1:
+            ids %= 2
+        out[r] = np.repeat(ids, np.diff(starts + [s]))
+    return torch.from_numpy(out)
+
+
+def plain_moves_boundary(segment_ids: torch.Tensor, row: int = 64) -> torch.Tensor:
+    """The planted fault (a): ``segment_ids`` with the document boundary at
+    ``row`` of batch row 0 moved one row later (row ``row`` keeps the
+    earlier document's id), for the plain versions to run with."""
+    bad = segment_ids.clone()
+    assert bad[0, row] != bad[0, row - 1], "no boundary at the fault's row"
+    bad[0, row] = bad[0, row - 1]
+    return bad
+
+
+def plain_segments_on_crossing_tiles_only(tile: int = TILE):
+    """The planted fault (b): while the block runs, the plain versions apply
+    the segment compare only on the (tile x tile) tiles that the causal
+    diagonal or the kv edge crosses, as a kernel that kept its "masks only
+    where needed" rule under segment ids would."""
+    def mask_of(inner):
+        def mask(q_pos, kv_pos, causal, segment_ids):
+            with_ids = inner(q_pos, kv_pos, causal, segment_ids)
+            if segment_ids is None:
+                return with_ids
+            s = segment_ids.shape[1]
+            crossing = kv_pos[None, :] // tile == q_pos[:, None] // tile
+            if s % tile:  # the ragged last kv tile
+                crossing = crossing | (kv_pos[None, :] // tile == (s - 1) // tile)
+            return torch.where(crossing, with_ids, inner(q_pos, kv_pos, causal, None))
+        return mask
+    return _plain_mask(mask_of)
 
 
 def flash_agreement(out: torch.Tensor, ref: torch.Tensor):
@@ -3388,32 +3710,72 @@ def plain_misses_diagonal():
     return _plain_mask(mask_of)
 
 
-def run_flash_kernel_phase(card: str) -> dict:
+def packed_library_mask(segment_ids: torch.Tensor, causal: bool) -> torch.Tensor:
+    """The boolean (B, 1, S, S) mask of the packed batch for SDPA: the
+    block-diagonal same-id mask, under the causal one."""
+    seg = segment_ids.cuda()
+    mask = seg[:, None, :, None] == seg[:, None, None, :]
+    if causal:
+        s = seg.shape[1]
+        mask &= torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
+    return mask
+
+
+def run_flash_kernel_phase(card: str, packed: bool = False) -> dict:
     """K1, K2 and K3 against their plain versions at FLASH_CASES (held by
     ``flash_agreement``, lse within LSE_TOL), with kernel, plain, library
     and bound times. At the train shape the same check must also reject
     each of the kernels' outputs with a planted fault
     (``plain_skips_tile``), and each with a causal mask of col < row
-    (``plain_misses_diagonal``)."""
+    (``plain_misses_diagonal``).
+
+    ``packed``: the same at PACKED_CASES with ``packed_segments`` ids, the
+    kernels driven once through the public ``flash_attention(segment_ids=)``
+    (forward and backward, each launch counter 1 after it), the library
+    time SDPA's with the boolean block-diagonal mask built once, the bounds
+    over the attended pairs; the planted faults at the packed train shape
+    are a document boundary moved by one row (``plain_moves_boundary``)
+    and the segment compare only on crossing tiles
+    (``plain_segments_on_crossing_tiles_only``). Returns the record of
+    K1-K3 (the first case's times, the worst errors, and under ``packed``
+    the public entry's launches)."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {1: 0.0, 2: 0.0, 3: 0.0}
     worst_elem, worst_rel = 0.0, 0.0
+    launches = {1: 0, 2: 0, 3: 0}
     record = None
-    for name, b, n, nkv, s, d, causal, iters in FLASH_CASES:
+    for name, b, n, nkv, s, d, causal, iters in PACKED_CASES if packed else FLASH_CASES:
         def randn(*shape):
             return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
 
         q, k, v, do = randn(b, n, s, d), randn(b, nkv, s, d), randn(b, nkv, s, d), randn(b, n, s, d)
+        seg = packed_segments(b, s).cuda() if packed else None
         sc = d ** -0.5
-        o, lse = fa.flash_fwd(q, k, v, None, causal, sc)
-        dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, None, causal, sc)
+        if packed:
+            # the public entry, (B, S, N, D), forward and backward: one launch
+            # of each kernel, counted from 0
+            for counter in (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches):
+                counter.count = 0
+            qe, ke, ve = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            fa.flash_attention(qe, ke, ve, causal=causal, segment_ids=seg).backward(
+                do.transpose(1, 2))
+            torch.cuda.synchronize()
+            counts = list(flash_counts())
+            check(counts == [1, 1, 1],
+                  f"flash {name}: flash_attention(segment_ids=) launched K1-K3 {counts} "
+                  "times, not once each")
+            for kn, c in zip((1, 2, 3), counts):
+                launches[kn] += c
+            del qe, ke, ve
+        o, lse = fa.flash_fwd(q, k, v, seg, causal, sc)
+        dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, seg, causal, sc)
         outs = {"o": o, "dq": dq, "dk": dk, "dv": dv}
-        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, None, causal, sc, block_kv=1024)
+        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, seg, causal, sc, block_kv=1024)
         refs = dict(zip(("o", "dq", "dk", "dv"), (o_ref, *fa.flash_bwd_reference(
-            q, k, v, o, lse, do, None, causal, sc, block_kv=1024))))
+            q, k, v, o, lse, do, seg, causal, sc, block_kv=1024))))
         torch.cuda.synchronize()
         errs = {}
         for kn, label in ((1, "o"), (2, "dq"), (3, "dk"), (3, "dv")):
@@ -3437,13 +3799,21 @@ def run_flash_kernel_phase(card: str) -> dict:
         if record is None:
             # the planted faults: the kernels' outputs plus what the fault
             # changes in the plain versions
-            for fault, planted_mask in (
-                    (f"kv rows {FAULT_KV} left out for q rows {FAULT_Q}", plain_skips_tile()),
-                    ("the causal diagonal masked with col < row", plain_misses_diagonal())):
+            if packed:
+                faults = (("a document boundary moved by one row", plain_moves_boundary(seg),
+                           contextlib.nullcontext()),
+                          ("the segment compare only on crossing tiles", seg,
+                           plain_segments_on_crossing_tiles_only()))
+            else:
+                faults = ((f"kv rows {FAULT_KV} left out for q rows {FAULT_Q}", None,
+                           plain_skips_tile()),
+                          ("the causal diagonal masked with col < row", None,
+                           plain_misses_diagonal()))
+            for fault, bad_seg, planted_mask in faults:
                 with planted_mask:
                     bad = dict(zip(("o", "dq", "dk", "dv"), (
-                        fa.flash_fwd_reference(q, k, v, None, causal, sc, block_kv=1024)[0],
-                        *fa.flash_bwd_reference(q, k, v, o, lse, do, None, causal, sc,
+                        fa.flash_fwd_reference(q, k, v, bad_seg, causal, sc, block_kv=1024)[0],
+                        *fa.flash_bwd_reference(q, k, v, o, lse, do, bad_seg, causal, sc,
                                                 block_kv=1024))))
                 for label, out in outs.items():
                     planted = (out.float() + bad[label].float()
@@ -3458,22 +3828,27 @@ def run_flash_kernel_phase(card: str) -> dict:
         del refs, outs
 
         def fwd(i):
-            return fa.flash_fwd(q, k, v, None, causal, sc)
+            return fa.flash_fwd(q, k, v, seg, causal, sc)
 
         def bwd(i):
-            return fa.flash_bwd(q, k, v, o, lse, do, None, causal, sc)
+            return fa.flash_bwd(q, k, v, o, lse, do, seg, causal, sc)
 
         def fwd_plain(i):
-            return fa.flash_fwd_reference(q, k, v, None, causal, sc, block_kv=1024)
+            return fa.flash_fwd_reference(q, k, v, seg, causal, sc, block_kv=1024)
 
         def bwd_plain(i):
-            return fa.flash_bwd_reference(q, k, v, o, lse, do, None, causal, sc, block_kv=1024)
+            return fa.flash_bwd_reference(q, k, v, o, lse, do, seg, causal, sc, block_kv=1024)
+
+        # the library yardstick: SDPA, with the packed batch's boolean mask
+        # built once (never a path of the port)
+        lib_kw = (dict(attn_mask=packed_library_mask(seg, causal)) if packed
+                  else dict(is_causal=causal))
 
         def fwd_lib(i):
-            return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+            return sdpa(q, k, v, enable_gqa=True, **lib_kw)
 
         ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
-        o_lib = sdpa(ql, kl, vl, is_causal=causal, enable_gqa=True)
+        o_lib = sdpa(ql, kl, vl, enable_gqa=True, **lib_kw)
 
         def bwd_lib(i):
             return torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True)
@@ -3485,12 +3860,16 @@ def run_flash_kernel_phase(card: str) -> dict:
         (plain_bwd,), _ = device_ms(bwd_plain, max(2, iters // 5))
         (lib_fwd,), _ = device_ms(fwd_lib, iters)
         (lib_bwd,), _ = device_ms(bwd_lib, iters)
-        bounds = {kn: flash_bound(b, n, nkv, s, d, causal, kn) for kn in (1, 2, 3)}
+        bounds = {kn: flash_bound(b, n, nkv, s, d, causal, kn, segment_ids=seg)
+                  for kn in (1, 2, 3)}
         err_txt = ", ".join(
             f"{lb} {e:.6g} ({el:.4f} x its element limit, tile rel L2 {rl:.6g}; "
             f"{100 * f:.4f}% differ)" for lb, (e, el, rl, f) in errs.items()
         )
-        log(f"kernel flash [{name}] B={b} N={n} Nkv={nkv} S={s} D={d}: {err_txt}, lse "
+        pairs = "" if seg is None else (
+            f" (packed: {attended_pairs(seg, causal)} attended pairs a head, "
+            f"{len(torch.unique(seg[0]))} ids in row 0)")
+        log(f"kernel flash [{name}] B={b} N={n} Nkv={nkv} S={s} D={d}{pairs}: {err_txt}, lse "
             f"{lse_err:.6g}; K1 {times[1]:.6f} ms (bound {bounds[1][0]:.6f}, {bounds[1][1]}), "
             f"K2 {times[2]:.6f} ms (bound {bounds[2][0]:.6f}), K3 {times[3]:.6f} ms "
             f"(bound {bounds[3][0]:.6f}); plain fwd {plain_fwd:.6f} / bwd {plain_bwd:.6f} "
@@ -3502,18 +3881,20 @@ def run_flash_kernel_phase(card: str) -> dict:
                          library_ms=lib_fwd if kn == 1 else lib_bwd)
                 for kn in (1, 2, 3)
             }
-        del q, k, v, do, o, lse, dq, dk, dv, ql, kl, vl, o_lib
+        del q, k, v, do, o, lse, dq, dk, dv, ql, kl, vl, o_lib, lib_kw, seg
         torch.cuda.empty_cache()
-    log(f"flash: every case agrees with the plain version: each element within "
-        f"{ROW_ULPS} bf16 ulps of its own value plus {ROW_ULPS} of its row's largest "
-        f"(worst {worst_elem:.6g} x that limit), each {TILE}-row tile within relative "
-        f"L2 {TILE_REL_L2} (worst {worst_rel:.6g}); worst abs err K1 {worst[1]:.6g}, "
+    log(f"flash{' packed' if packed else ''}: every case agrees with the plain version: "
+        f"each element within {ROW_ULPS} bf16 ulps of its own value plus {ROW_ULPS} of its "
+        f"row's largest (worst {worst_elem:.6g} x that limit), each {TILE}-row tile within "
+        f"relative L2 {TILE_REL_L2} (worst {worst_rel:.6g}); worst abs err K1 {worst[1]:.6g}, "
         f"K2 {worst[2]:.6g}, K3 {worst[3]:.6g}; lse within {LSE_TOL}; tolerance: bf16 "
         "operands and outputs, fp32 accumulation in another order, P rounded against "
         "another running max; K2's and K3's plain and library times are of dq, dk and "
         "dv together, and K2 and K3 are timed in one window of flash_bwd")
     for kn in (1, 2, 3):
         record[kn]["max_abs_err"] = worst[kn]
+        if packed:
+            record[kn]["launches"] = launches[kn]
     return record
 
 
@@ -3582,6 +3963,8 @@ def main() -> int:
                             "serve", prompts, prof, dict(t1=t1, tile=tile, split=0), card,
                             graph["same"], with_async=True)
     timed("serve graphs fault", run_graph_fault_phase, cfg, model, prompts, card)
+    timed("faults", run_fault_phase, cfg, model, prompts, [outs[r] for r in rids],
+          serve_twin, card)
     quant = {}  # label -> (kv dtype, mxu, K4 launches, t1 launches, served geometries)
     for label, kv_dtype, mxu in QUANT_SERVES:
         qk = dict(kv_cache_dtype=kv_dtype, quant_mxu=mxu, prefill_chunk_tokens=QUANT_CHUNK)
@@ -3719,6 +4102,7 @@ def main() -> int:
     del model, state, step, batch
     torch.cuda.empty_cache()
     flash = timed("flash kernels", run_flash_kernel_phase, card)
+    flash_packed = timed("flash kernels packed", run_flash_kernel_phase, card, packed=True)
 
     fa_src = "neuronx_distributed_llama3_2_tpu_torch/kernels/csrc/"
     pfa = "neuronx_distributed_llama3_2_tpu/kernels/pallas_flash_attention.py:"
@@ -3774,6 +4158,11 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=fa_src + src, replaces=f"{pfa}{line}",
             launches=train_launches[kn - 1], **flash[kn],
+        ))
+        # the segment_ids mode, driven through flash_attention(segment_ids=)
+        kernels.append(dict(
+            name=f"{name}_segment_ids", route="cuda", source=fa_src + src,
+            replaces=f"{pfa}{line}", **flash_packed[kn],
         ))
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the main path was never launched: "

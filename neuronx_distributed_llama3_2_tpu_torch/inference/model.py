@@ -49,10 +49,14 @@ rows to q = k = 0, and every value stays finite.
 With ``sampling=`` the steps draw their tokens on the device
 (:func:`..inference.sampling.sample_lanes`, ``PagedConfig.
 on_device_sampling``), each keyed by the token's landing index, as the
-JAX package's steps are.
+JAX package's steps are. With ``logit_poison=`` (the serving engine's
+checked programs, ``PagedConfig.detect_nonfinite``) each step runs
+:meth:`LlamaDecode.finite_logit_check` on its logits before sampling and
+before the accept rule, and returns one ``finite`` bool per lane beside
+its tokens.
 
-Not ported yet: the dense per-slot ``KVCache`` (dense-engine slice), the
-finite-logit check, tensor parallelism.
+Not ported yet: the dense per-slot ``KVCache`` (dense-engine slice),
+tensor parallelism.
 """
 
 from __future__ import annotations
@@ -159,20 +163,6 @@ def _unported(feature: str, slice_name: str):
     return NotImplementedError(
         f"{feature} is not ported yet: it comes with the {slice_name} slice"
     )
-
-
-#: the optional arguments of the verify and mixed steps that are not
-#: ported, with the feature each belongs to and the slice that brings it
-_STEP_FEATURES = {
-    "logit_poison": ("the finite-logit check", "fault-tolerance"),
-}
-
-
-def _check_unported_step_args(**args) -> None:
-    for name, value in args.items():
-        if value is not None:
-            feature, slice_name = _STEP_FEATURES[name]
-            raise _unported(f"{name}= ({feature})", slice_name)
 
 
 def _sample_at(logits: torch.Tensor, sampling: tuple, index: torch.Tensor) -> torch.Tensor:
@@ -452,7 +442,8 @@ class LlamaDecode:
         kv_limit: Optional[int] = None,
         pos_cap: Optional[int] = None,
         sampling: Optional[tuple] = None,
-    ) -> Tuple[torch.Tensor, torch.Tensor, PagedKVCache]:
+        logit_poison: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, ...]:
         """One resident-state decode step: T=1 paged forward plus the state
         advance. Returns ``(logits (b, V), new_positions, cache)`` with
         ``new_positions = positions + 1``, clamped to ``pos_cap``: idle
@@ -464,7 +455,10 @@ class LlamaDecode:
         tensors: the first return is then the sampled int32 tokens, drawn
         by :func:`..inference.sampling.sample_lanes` with each lane's key
         folded by the landing index ``positions + 1`` (before the cap,
-        which binds only on garbage lanes)."""
+        which binds only on garbage lanes). ``logit_poison`` (b,) int32
+        makes it the checked step: :meth:`finite_logit_check` runs on the
+        logits before sampling, and a ``finite`` (b,) bool follows the
+        first return: ``(out, finite, new_positions, cache)``."""
         logits, cache = self.forward(
             params, cache, tokens[:, None], positions, None,
             block_tables=block_tables, kv_limit=kv_limit,
@@ -473,9 +467,32 @@ class LlamaDecode:
         if pos_cap is not None:
             new_positions = torch.clamp(new_positions, max=pos_cap)
         out = logits[:, 0, :]
+        finite = None
+        if logit_poison is not None:
+            out, finite = self.finite_logit_check(out, logit_poison)
         if sampling is not None:
             out = _sample_at(out, sampling, positions + 1)
+        if finite is not None:
+            return out, finite, new_positions, cache
         return out, new_positions, cache
+
+    @staticmethod
+    def finite_logit_check(
+        logits: torch.Tensor, poison_mask: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The per-lane logit health check of the serving engine's checked
+        programs: returns ``(logits, finite (b,) bool)``, ``finite[i]``
+        being the on-device ``isfinite`` reduction over lane i's logits, so
+        one bool a lane rides the token readback. ``poison_mask`` (b,)
+        int32 is the fault injector's hook: a lane with a nonzero mask has
+        its logits overwritten with NaN before the check (and before
+        sampling or the accept rule), so an injected fault takes the path a
+        genuine numerical blow-up takes."""
+        if poison_mask is not None:
+            bad = (poison_mask > 0).reshape(poison_mask.shape + (1,) * (logits.ndim - 1))
+            logits = torch.where(bad, torch.full_like(logits, float("nan")), logits)
+        finite = torch.isfinite(logits).flatten(1).all(dim=1)
+        return logits, finite
 
     @torch.no_grad()
     def verify_step(
@@ -510,12 +527,17 @@ class LlamaDecode:
         :meth:`decode_step`) the targets are the draws the lane WOULD make
         at rows ``positions + j + 1``, keyed by that landing index, so the
         accept comparison replays the sequential sampled stream.
-        ``logit_poison`` (the finite-logit check) is not ported."""
-        _check_unported_step_args(logit_poison=logit_poison)
+        ``logit_poison`` (b,) int32 runs :meth:`finite_logit_check` before
+        the accept rule, and the return grows a ``finite`` (b,) bool before
+        the cache: ``(emitted, accept, new_tokens, new_positions, finite,
+        cache)``."""
         logits, cache = self.forward(
             params, cache, tokens, positions, None,
             block_tables=block_tables, kv_limit=kv_limit,
         )
+        finite = None
+        if logit_poison is not None:
+            logits, finite = self.finite_logit_check(logits, logit_poison)
         # targets[i, j]: the target's argmax, or its draw, for row
         # positions[i] + j + 1
         if sampling is None:
@@ -528,6 +550,8 @@ class LlamaDecode:
         new_positions = positions + accept + 1
         if pos_cap is not None:
             new_positions = torch.clamp(new_positions, max=pos_cap)
+        if finite is not None:
+            return emitted, accept, new_tokens, new_positions, finite, cache
         return emitted, accept, new_tokens, new_positions, cache
 
     @torch.no_grad()
@@ -582,9 +606,9 @@ class LlamaDecode:
         ``sampling`` (the tuple of :meth:`decode_step`) row ``j``'s target
         is drawn at landing index ``eff_pos + 1 + j`` (``eff_pos + 1 +
         depth(j)`` on a tree), a forced lane's last row at ``row_start +
-        row_len``, the suffix prefill's index. ``logit_poison`` (the
-        finite-logit check) is not ported."""
-        _check_unported_step_args(logit_poison=logit_poison)
+        row_len``, the suffix prefill's index. ``logit_poison`` composes
+        as in :meth:`verify_step` (over every row of a lane, forced or
+        not)."""
         t = rows.shape[1]
         is_forced = forced > 0
         eff_pos = torch.where(is_forced, row_start, positions)
@@ -606,6 +630,9 @@ class LlamaDecode:
             params, cache, block, eff_pos, None,
             block_tables=block_tables, kv_limit=kv_limit, row_live=live, tree=topo,
         )
+        finite = None
+        if logit_poison is not None:
+            logits, finite = self.finite_logit_check(logits, logit_poison)
         if sampling is None:
             targets = torch.argmax(logits, dim=-1).to(torch.int32)
         else:
@@ -636,6 +663,8 @@ class LlamaDecode:
         new_positions = eff_pos + accept + 1
         if pos_cap is not None:
             new_positions = torch.clamp(new_positions, max=pos_cap)
+        if finite is not None:
+            return emitted, accept, new_tokens, new_positions, finite, cache
         return emitted, accept, new_tokens, new_positions, cache
 
     @torch.no_grad()
@@ -672,13 +701,15 @@ class LlamaDecode:
         ``sampling`` (the tuple of :meth:`decode_step`) node ``j``'s target
         is the draw at its child's landing index ``positions + 1 +
         depth(j)``, the draw the sequential sampled decode of the accepted
-        path makes. ``logit_poison`` is not ported."""
-        _check_unported_step_args(logit_poison=logit_poison)
+        path makes. ``logit_poison`` composes as in :meth:`verify_step`."""
         depths, ancestors = tree_topology(parents)
         logits, cache = self.forward(
             params, cache, tokens, positions, None,
             block_tables=block_tables, kv_limit=kv_limit, tree=(depths, ancestors),
         )
+        finite = None
+        if logit_poison is not None:
+            logits, finite = self.finite_logit_check(logits, logit_poison)
         if sampling is None:
             targets = torch.argmax(logits, dim=-1).to(torch.int32)
         else:
@@ -693,6 +724,8 @@ class LlamaDecode:
         new_positions = positions + accept + 1
         if pos_cap is not None:
             new_positions = torch.clamp(new_positions, max=pos_cap)
+        if finite is not None:
+            return emitted, accept, new_tokens, new_positions, finite, cache
         return emitted, accept, new_tokens, new_positions, cache
 
     def _tree_frontier_commit(

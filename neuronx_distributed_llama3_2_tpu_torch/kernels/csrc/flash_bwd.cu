@@ -8,7 +8,8 @@
 //   the GQA group sum that _flash_bwd runs after the dk/dv kernel
 //   (:466-468). delta = rowsum(o * do) stays a torch op outside (:353).
 //   Modes ported: causal and full masks with the padding masks to q_len and
-//   kv_len. The segment_ids mode is later work (the wrapper raises on it).
+//   kv_len, and the segment_ids mode (packed documents, :263 and :320): a
+//   (q, kv) pair attends only where seg[b, q] == seg[b, kv].
 //
 // What bounds them on the H100: operations. Per (q, kv) pair, K2 runs
 // Q K^T, dO V^T and dS K (6 * D FLOPs), K3 runs K Q^T, V dO^T, P^T dO and
@@ -53,7 +54,15 @@
 // - masks only where needed: the causal compare on tiles that cross the
 //   warpgroup's diagonal, the ragged compare (kv >= Skv in K2, q >= Sq in
 //   K3; the other side's rows past the end are dropped at the store) on the
-//   last tile; a tile wholly outside the causal mask is skipped;
+//   last tile; a tile wholly outside the causal mask is skipped. With
+//   segment ids the id compare runs on every tile (any tile may hold a
+//   document boundary; ids are compared, never assumed contiguous): each
+//   thread reads the ids of its two rows once and those of its columns of
+//   each tile from global memory (L1 / L2) beside the TMA stage, the reads
+//   past S guarded. Every real q row sees at least its own key, so its lse
+//   is finite and a masked score gives P = 2^-inf = 0. The mode is a
+//   compile-time instance of each kernel (SEG), so the causal and full
+//   masks run the same code as without it;
 // - P = 2^(s * scale * log2 e - lse * log2 e), one FMA and ex2.approx.ftz.
 // Tiles, chosen by what the card measured: K2 walks 64-row kv tiles through
 // three stages, two blocks an SM at D = 64 (122 registers); K3 streams q
@@ -126,7 +135,10 @@ struct Dkv {
   static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
 };
 
-template <int D>
+// SEG: the segment_ids mode, a compile-time instance of its own in both
+// kernels, so that the causal and full masks run the same code with or
+// without it
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kBwdThreads, Dq<D>::kMinBlocks)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,   // (B N, Sq, D)
                     const __grid_constant__ CUtensorMap k_map,   // (B Nkv, Skv, D)
@@ -135,6 +147,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,   // (B N, Sq, D)
                     const float* __restrict__ lse,               // (B, N, Sq)
                     const float* __restrict__ delta,             // (B, N, Sq)
                     bf16* __restrict__ dq,                       // (B, N, Sq, D)
+                    const int* __restrict__ seg,  // (B, S) ids (SEG only)
                     int n_heads, int nkv, int sq, int skv, int causal,
                     float sm_scale, float scale_log2) {
   using F = Dq<D>;
@@ -151,6 +164,17 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,   // (B N, Sq, D)
   const int wq0 = q0 + wg * kWgRows;  // the warpgroup's first q row
   const int t = lane & 3;
   const int row_lo = wq0 + (warp & 3) * 16 + (lane >> 2);  // rows row_lo, + 8
+  // segment mode (sq == skv): the batch row's ids, and those of the
+  // thread's two q rows (rows past S are not stored: any id will do)
+  const int* seg_b = SEG ? seg + static_cast<size_t>(bi) * skv : nullptr;
+  int seg_r[2] = {0, 0};
+  if constexpr (SEG) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_lo + 8 * r;
+      seg_r[r] = row < sq ? __ldg(seg_b + row) : -1;
+    }
+  }
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -246,15 +270,19 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,   // (B N, Sq, D)
       fence_acc(sc);
 
       // masks: the causal compare only where the tile crosses the
-      // warpgroup's diagonal, the Skv compare only on a ragged last tile
-      if ((causal && kv0 + KV - 1 > wq0) || kv0 + KV > skv) {
+      // warpgroup's diagonal, the Skv compare only on a ragged last tile,
+      // the segment compare on every tile
+      if (SEG || (causal && kv0 + KV - 1 > wq0) || kv0 + KV > skv) {
 #pragma unroll
         for (int j = 0; j < kNs; ++j) {
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int row = row_lo + (c >> 1) * 8;
             const int col = kv0 + j * 8 + 2 * t + (c & 1);
-            if (col >= skv || (causal && col > row)) sc[j][c] = -CUDART_INF_F;
+            if (col >= skv || (causal && col > row) ||
+                (SEG && __ldg(seg_b + col) != seg_r[c >> 1])) {
+              sc[j][c] = -CUDART_INF_F;
+            }
           }
         }
       }
@@ -304,7 +332,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,   // (B N, Sq, D)
                 sm_scale, lane);
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map,      // (B Nkv, Skv, D)
                      const __grid_constant__ CUtensorMap v_map,      // (B Nkv, Skv, D)
@@ -314,6 +342,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map,      // (B Nkv, 
                      const __grid_constant__ CUtensorMap delta_map,  // (B N Sq)
                      bf16* __restrict__ dk,                          // (B, Nkv, Skv, D)
                      bf16* __restrict__ dv,                          // (B, Nkv, Skv, D)
+                     const int* __restrict__ seg,  // (B, S) ids (SEG only)
                      int n_heads, int nkv, int sq, int skv, int causal,
                      float sm_scale, float scale_log2) {
   using F = Dkv<D>;
@@ -328,6 +357,17 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map,      // (B Nkv, 
   const int wk0 = kv0 + wg * kWgRows;  // the warpgroup's first kv row
   const int t = lane & 3;
   const int row_lo = wk0 + (warp & 3) * 16 + (lane >> 2);  // kv rows row_lo, + 8
+  // segment mode (sq == skv): the batch row's ids, and those of the
+  // thread's two kv rows (rows past S are not stored: any id will do)
+  const int* seg_b = SEG ? seg + static_cast<size_t>(bkv / nkv) * skv : nullptr;
+  int seg_r[2] = {0, 0};
+  if constexpr (SEG) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_lo + 8 * r;
+      seg_r[r] = row < skv ? __ldg(seg_b + row) : -1;
+    }
+  }
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -429,15 +469,19 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map,      // (B Nkv, 
 
       // masks (rows are kv positions j, columns q positions i; causal keeps
       // j <= i): the causal compare only where the tile crosses the
-      // warpgroup's diagonal, the Sq compare only on a ragged last q tile
-      if ((causal && q0 < wk0 + kWgRows - 1) || q0 + QT > sq) {
+      // warpgroup's diagonal, the Sq compare only on a ragged last q tile,
+      // the segment compare on every tile
+      if (SEG || (causal && q0 < wk0 + kWgRows - 1) || q0 + QT > sq) {
 #pragma unroll
         for (int j = 0; j < kNs; ++j) {
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int row = row_lo + (c >> 1) * 8;
             const int col = q0 + j * 8 + 2 * t + (c & 1);
-            if (col >= sq || (causal && row > col)) sc[j][c] = -CUDART_INF_F;
+            if (col >= sq || (causal && row > col) ||
+                (SEG && __ldg(seg_b + col) != seg_r[c >> 1])) {
+              sc[j][c] = -CUDART_INF_F;
+            }
           }
         }
       }
@@ -499,8 +543,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map,      // (B Nkv, 
 template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
-                      void* dq, int b, int n_heads, int nkv, int sq, int skv,
-                      int causal, float sm_scale, cudaStream_t stream) {
+                      void* dq, const int* seg, int b, int n_heads, int nkv, int sq,
+                      int skv, int causal, float sm_scale, cudaStream_t stream) {
   using F = Dq<D>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
@@ -511,21 +555,22 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       !make_map(encode, &do_map, dout, D, sq, b * n_heads, kBlockRows)) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, F::kSmem);
+  auto kernel = seg != nullptr ? flash_bwd_dq_kernel<D, true> : flash_bwd_dq_kernel<D, false>;
+  cudaError_t err = allow_smem(kernel, F::kSmem);
   if (err != cudaSuccess) return err;
   const int n_qt = (sq + kBlockRows - 1) / kBlockRows;
-  flash_bwd_dq_kernel<D><<<dim3(b * n_heads, n_qt), kBwdThreads, F::kSmem, stream>>>(
+  kernel<<<dim3(b * n_heads, n_qt), kBwdThreads, F::kSmem, stream>>>(
       q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), n_heads, nkv, sq, skv,
-      causal, sm_scale, sm_scale * kLog2e);
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), seg, n_heads, nkv, sq,
+      skv, causal, sm_scale, sm_scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int b, int n_heads, int nkv, int sq,
-                       int skv, int causal, float sm_scale,
+                       void* dk, void* dv, const int* seg, int b, int n_heads,
+                       int nkv, int sq, int skv, int causal, float sm_scale,
                        cudaStream_t stream) {
   using F = Dkv<D>;
   EncodeTiled encode = encode_tiled();
@@ -540,20 +585,23 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       !make_vec_map(encode, &delta_map, delta, n_vec, F::kQt)) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, F::kSmem);
+  auto kernel =
+      seg != nullptr ? flash_bwd_dkv_kernel<D, true> : flash_bwd_dkv_kernel<D, false>;
+  cudaError_t err = allow_smem(kernel, F::kSmem);
   if (err != cudaSuccess) return err;
   const int n_kb = (skv + kBlockRows - 1) / kBlockRows;
-  flash_bwd_dkv_kernel<D><<<dim3(b * nkv, n_kb), kBwdThreads, F::kSmem, stream>>>(
+  kernel<<<dim3(b * nkv, n_kb), kBwdThreads, F::kSmem, stream>>>(
       k_map, v_map, q_map, do_map, lse_map, delta_map, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), n_heads, nkv, sq, skv, causal, sm_scale,
+      static_cast<bf16*>(dv), seg, n_heads, nkv, sq, skv, causal, sm_scale,
       sm_scale * kLog2e);
   return cudaGetLastError();
 }
 
 // grid extents within 65535; the 1-D lse/delta coordinates (b N Sq plus a
-// tile) within an int
-bool valid(int b, int n_heads, int nkv, int sq, int skv) {
+// tile) within an int; segment ids only with Sq == Skv
+bool valid(const int* seg, int b, int n_heads, int nkv, int sq, int skv) {
   return b >= 1 && nkv >= 1 && n_heads % nkv == 0 && sq >= 1 && skv >= 1 &&
+         (seg == nullptr || sq == skv) &&
          (sq + kBlockRows - 1) / kBlockRows <= 65535 &&
          (skv + kBlockRows - 1) / kBlockRows <= 65535 &&
          static_cast<long long>(b) * n_heads * sq + kBlockRows <= 0x7fffffffLL;
@@ -562,25 +610,28 @@ bool valid(int b, int n_heads, int nkv, int sq, int skv) {
 }  // namespace
 
 // C entry points, bound with ctypes. Pointers are device pointers of
-// contiguous, 16-byte aligned tensors allocated by the caller; the stream
-// is the caller's current CUDA stream. Each returns a cudaError_t: 0 when
-// the launch was accepted.
+// contiguous, 16-byte aligned tensors allocated by the caller; seg is a
+// contiguous (B, S) int32 array of segment ids (S = Sq = Skv), or null for
+// no segments. The stream is the caller's current CUDA stream. Each
+// returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
-                                 const void* delta, void* dq, int b,
-                                 int n_heads, int nkv, int sq, int skv,
+                                 const void* delta, void* dq, const int* seg,
+                                 int b, int n_heads, int nkv, int sq, int skv,
                                  int head_dim, int causal, float sm_scale,
                                  void* stream) {
-  if (!valid(b, n_heads, nkv, sq, skv)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(seg, b, n_heads, nkv, sq, skv)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return static_cast<int>(launch_dq<64>(q, k, v, dout, lse, delta, dq, b,
-                                            n_heads, nkv, sq, skv, causal,
+      return static_cast<int>(launch_dq<64>(q, k, v, dout, lse, delta, dq, seg,
+                                            b, n_heads, nkv, sq, skv, causal,
                                             sm_scale, st));
     case 128:
-      return static_cast<int>(launch_dq<128>(q, k, v, dout, lse, delta, dq, b,
-                                             n_heads, nkv, sq, skv, causal,
+      return static_cast<int>(launch_dq<128>(q, k, v, dout, lse, delta, dq, seg,
+                                             b, n_heads, nkv, sq, skv, causal,
                                              sm_scale, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -589,20 +640,22 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
 
 extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
-                                  const void* delta, void* dk, void* dv, int b,
-                                  int n_heads, int nkv, int sq, int skv,
-                                  int head_dim, int causal, float sm_scale,
-                                  void* stream) {
-  if (!valid(b, n_heads, nkv, sq, skv)) return static_cast<int>(cudaErrorInvalidValue);
+                                  const void* delta, void* dk, void* dv,
+                                  const int* seg, int b, int n_heads, int nkv,
+                                  int sq, int skv, int head_dim, int causal,
+                                  float sm_scale, void* stream) {
+  if (!valid(seg, b, n_heads, nkv, sq, skv)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
       return static_cast<int>(launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv,
-                                             b, n_heads, nkv, sq, skv, causal,
-                                             sm_scale, st));
+                                             seg, b, n_heads, nkv, sq, skv,
+                                             causal, sm_scale, st));
     case 128:
       return static_cast<int>(launch_dkv<128>(q, k, v, dout, lse, delta, dk,
-                                              dv, b, n_heads, nkv, sq, skv,
+                                              dv, seg, b, n_heads, nkv, sq, skv,
                                               causal, sm_scale, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -4,8 +4,9 @@
 //
 // Replaces: neuronx_distributed_llama3_2_tpu/kernels/pallas_flash_attention.py
 //   _fwd_kernel (:44), launched by _flash_fwd (:145, pallas_call at :194).
-//   Modes ported: causal and full masks with the padding mask to kv_len.
-//   The segment_ids mode is later work (the wrapper raises on it).
+//   Modes ported: causal and full masks with the padding mask to kv_len,
+//   and the segment_ids mode (packed documents, :88-90): a (q, kv) pair
+//   attends only where seg[b, q] == seg[b, kv].
 //
 // What bounds it on the H100: operations. A (q, kv) pair costs 4 * D FLOPs
 // (Q K^T and P V, 2 * D each); at the training shape (B 12, N 32,
@@ -35,7 +36,16 @@
 //   warpgroup's diagonal, the Skv compare on the last kv tile; a tile
 //   wholly above the warpgroup's diagonal is skipped; the causal loop ends
 //   at the diagonal, and the heaviest q tiles launch first, so the short
-//   ones fill the grid's tail;
+//   ones fill the grid's tail. With segment ids every tile may hold a
+//   document boundary, so the id compare runs on every tile: each thread
+//   reads its two q rows' ids once and its columns' ids of each tile from
+//   global memory (L1 / L2; 4 bytes a row beside K's and V's 128 or 256),
+//   the reads past S guarded. The ids are compared, not assumed
+//   contiguous: an id may come back after another one. The mode is a
+//   compile-time instance of its own (SEG), so the causal and full masks
+//   run the same code as without it: a runtime test of the id pointer on
+//   every tile cost the unsegmented K1 3.6 % and K3 6 % in turns on the
+//   card. Skipping tiles by segment range is later work;
 // - the exponentials run on the special-function unit with subnormal
 //   results flushed (exp2_ftz), which saves exp2f's three-instruction
 //   rescale around each: the softmax, not the products, takes most of a
@@ -58,7 +68,9 @@
 // normal number either); masked scores are -inf; the m == -inf guards of
 // the TPU kernel (:96-99, :115-118): a row with no key so far has alpha = 0
 // and p = 0 (its max enters the FMA as 0, so 2^-inf = 0), and a row with no
-// key at all gets o = 0 and lse = -inf; p is rounded to bf16 before P V
+// key at all gets o = 0 and lse = -inf (under segment ids a row sees no
+// key in each kv tile before its document starts, causal or not); p is
+// rounded to bf16 before P V
 // (:105) while the denominator l sums the unrounded p; lse = m + log(l) in
 // natural log.
 
@@ -94,13 +106,16 @@ struct Fwd {
   static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
 };
 
-template <int D>
+// SEG: the segment_ids mode, a compile-time instance of its own, so that
+// the causal and full masks run the same code with or without it
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kFwdThreads, D == 64 ? 2 : 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,  // (B N, Sq, D)
                  const __grid_constant__ CUtensorMap k_map,  // (B Nkv, Skv, D)
                  const __grid_constant__ CUtensorMap v_map,  // (B Nkv, Skv, D)
                  bf16* __restrict__ o,                       // (B, N, Sq, D)
                  float* __restrict__ lse,                    // (B, N, Sq)
+                 const int* __restrict__ seg,  // (B, S) ids (SEG only)
                  int n_heads, int nkv, int sq, int skv, int causal,
                  float scale_log2) {
   using F = Fwd<D>;
@@ -117,6 +132,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,  // (B N, Sq, D)
   const int wq0 = q0 + wg * kWgRows;  // the warpgroup's first q row
   const int t = lane & 3;
   const int row_lo = wq0 + (warp & 3) * 16 + (lane >> 2);  // rows row_lo, + 8
+  // segment mode (sq == skv): the batch row's ids, and those of the
+  // thread's two q rows (rows past S are not stored: any id will do)
+  const int* seg_b = SEG ? seg + static_cast<size_t>(bi) * skv : nullptr;
+  int seg_q[2] = {0, 0};
+  if constexpr (SEG) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_lo + 8 * r;
+      seg_q[r] = row < sq ? __ldg(seg_b + row) : -1;
+    }
+  }
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -192,15 +218,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,  // (B N, Sq, D)
       fence_acc(sc);
 
       // masks: the causal compare only where the tile crosses the
-      // warpgroup's diagonal, the Skv compare only on a ragged last tile
-      if ((causal && kv0 + KV - 1 > wq0) || kv0 + KV > skv) {
+      // warpgroup's diagonal, the Skv compare only on a ragged last tile,
+      // the segment compare on every tile
+      if (SEG || (causal && kv0 + KV - 1 > wq0) || kv0 + KV > skv) {
 #pragma unroll
         for (int j = 0; j < kNs; ++j) {
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int row = row_lo + (c >> 1) * 8;
             const int col = kv0 + j * 8 + 2 * t + (c & 1);
-            if (col >= skv || (causal && col > row)) sc[j][c] = -CUDART_INF_F;
+            if (col >= skv || (causal && col > row) ||
+                (SEG && __ldg(seg_b + col) != seg_q[c >> 1])) {
+              sc[j][c] = -CUDART_INF_F;
+            }
           }
         }
       }
@@ -300,8 +330,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,  // (B N, Sq, D)
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                   int b, int n_heads, int nkv, int sq, int skv, int causal,
-                   float sm_scale, cudaStream_t stream) {
+                   const int* seg, int b, int n_heads, int nkv, int sq, int skv,
+                   int causal, float sm_scale, cudaStream_t stream) {
   using F = Fwd<D>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
@@ -311,37 +341,40 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
       !make_map(encode, &v_map, v, D, skv, b * nkv, F::kKv)) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = allow_smem(flash_fwd_kernel<D>, F::kSmem);
+  auto kernel = seg != nullptr ? flash_fwd_kernel<D, true> : flash_fwd_kernel<D, false>;
+  cudaError_t err = allow_smem(kernel, F::kSmem);
   if (err != cudaSuccess) return err;
   const int n_qt = (sq + kQRows - 1) / kQRows;
-  flash_fwd_kernel<D><<<dim3(b * n_heads, n_qt), kFwdThreads, F::kSmem, stream>>>(
-      q_map, k_map, v_map, static_cast<bf16*>(o), static_cast<float*>(lse), n_heads, nkv,
-      sq, skv, causal, sm_scale * kLog2e);
+  kernel<<<dim3(b * n_heads, n_qt), kFwdThreads, F::kSmem, stream>>>(
+      q_map, k_map, v_map, static_cast<bf16*>(o), static_cast<float*>(lse), seg, n_heads,
+      nkv, sq, skv, causal, sm_scale * kLog2e);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes. Pointers are device pointers of
-// contiguous, 16-byte aligned tensors allocated by the caller; the stream
-// is the caller's current CUDA stream. Returns a cudaError_t: 0 when the
-// launch was accepted.
+// contiguous, 16-byte aligned tensors allocated by the caller; seg is a
+// contiguous (B, S) int32 array of segment ids (S = Sq = Skv), or null for
+// no segments. The stream is the caller's current CUDA stream. Returns a
+// cudaError_t: 0 when the launch was accepted.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int b, int n_heads, int nkv,
-                              int sq, int skv, int head_dim, int causal,
-                              float sm_scale, void* stream) {
+                              void* o, void* lse, const int* seg, int b,
+                              int n_heads, int nkv, int sq, int skv,
+                              int head_dim, int causal, float sm_scale,
+                              void* stream) {
   if (b < 1 || nkv < 1 || n_heads % nkv != 0 || sq < 1 || skv < 1 ||
-      (sq + kQRows - 1) / kQRows > 65535) {
+      (sq + kQRows - 1) / kQRows > 65535 || (seg != nullptr && sq != skv)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return static_cast<int>(launch<64>(q, k, v, o, lse, b, n_heads, nkv, sq,
-                                         skv, causal, sm_scale, st));
+      return static_cast<int>(launch<64>(q, k, v, o, lse, seg, b, n_heads, nkv,
+                                         sq, skv, causal, sm_scale, st));
     case 128:
-      return static_cast<int>(launch<128>(q, k, v, o, lse, b, n_heads, nkv, sq,
-                                          skv, causal, sm_scale, st));
+      return static_cast<int>(launch<128>(q, k, v, o, lse, seg, b, n_heads, nkv,
+                                          sq, skv, causal, sm_scale, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

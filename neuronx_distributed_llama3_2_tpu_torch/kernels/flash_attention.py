@@ -29,8 +29,10 @@ the dq and dk products, dq/dk/dv accumulated in fp32 and cast once. They
 walk kv in chunks of ``block_kv`` as the TPU kernel walks its kv blocks;
 the CUDA kernels use tiles of their own (stated in the sources).
 
-The ``segment_ids`` mode (packed documents) runs in the plain versions
-only; on a CUDA tensor it raises ``NotImplementedError``.
+The ``segment_ids`` mode (packed documents: a (q, kv) pair attends only
+where the two positions carry the same id) needs Sq == Skv and one (B, S)
+id array; on a CUDA tensor the ids go to all three kernels as contiguous
+int32, where every tile compares them.
 """
 
 from __future__ import annotations
@@ -173,18 +175,26 @@ def flash_bwd_reference(
 # the kernel pair: CUDA kernels on cuda tensors, plain versions on cpu
 # ---------------------------------------------------------------------------
 
-def _route(name: str, x: torch.Tensor, segment_ids) -> str:
-    dev = x.device.type
+def _route(name: str, q: torch.Tensor, k: torch.Tensor, segment_ids) -> str:
+    """The device the kernel pair runs on, after checking ``segment_ids``:
+    one (B, S) array with S = Sq = Skv, as ``_seg_operands`` pads one array
+    for both sides in the JAX package."""
+    dev = q.device.type
     if dev not in ("cpu", "cuda"):
         raise RuntimeError(
             f"{name} runs its CUDA kernels on cuda tensors and its plain "
             f"version on cpu tensors; got a {dev!r} tensor"
         )
-    if dev == "cuda" and segment_ids is not None:
-        raise NotImplementedError(
-            f"{name}(segment_ids=...) on the card is a later sub-slice of the "
-            "port: the CUDA kernels take causal and full masks only"
-        )
+    if segment_ids is not None:
+        b, _, sq, _ = q.shape
+        if q.shape[2] != k.shape[2] or tuple(segment_ids.shape) != (b, sq):
+            raise ValueError(
+                f"{name}: segment_ids must be (B, S) = ({b}, {sq}) with Sq == "
+                f"Skv; got segment_ids {tuple(segment_ids.shape)}, q "
+                f"{tuple(q.shape)}, k {tuple(k.shape)}"
+            )
+        if segment_ids.dtype.is_floating_point or segment_ids.dtype == torch.bool:
+            raise ValueError(f"{name}: segment_ids must be integer ids, got {segment_ids.dtype}")
     return dev
 
 
@@ -195,11 +205,11 @@ def flash_fwd(q, k, v, segment_ids, causal, sm_scale,
     dtype, lse (B, N, Sq) fp32. ``block_q`` / ``block_kv`` are TPU tile
     sizes: they set the chunking of the plain version only."""
     del block_q  # the plain version is not tiled over q
-    if _route("flash_fwd", q, segment_ids) == "cpu":
+    if _route("flash_fwd", q, k, segment_ids) == "cpu":
         return flash_fwd_reference(
             q, k, v, segment_ids, causal, sm_scale, block_kv=block_kv
         )
-    return _launch_fwd(q, k, v, causal, sm_scale)
+    return _launch_fwd(q, k, v, segment_ids, causal, sm_scale)
 
 
 def flash_bwd(q, k, v, o, lse, do, segment_ids, causal, sm_scale,
@@ -208,13 +218,13 @@ def flash_bwd(q, k, v, o, lse, do, segment_ids, causal, sm_scale,
     """-> (dq, dk, dv) in q's, k's and v's dtypes. δ = rowsum(o·do) is a
     plain torch op outside the kernels, as in the JAX package."""
     del block_q
-    if _route("flash_bwd", q, segment_ids) == "cpu":
+    if _route("flash_bwd", q, k, segment_ids) == "cpu":
         return flash_bwd_reference(
             q, k, v, o, lse, do, segment_ids, causal, sm_scale,
             block_kv=block_kv,
         )
     delta = (o.float() * do.float()).sum(dim=-1)
-    return _launch_bwd(q, k, v, do, lse, delta, causal, sm_scale)
+    return _launch_bwd(q, k, v, do, lse, delta, segment_ids, causal, sm_scale)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -349,8 +359,8 @@ def flash_attention_reference(q, k, v, causal: bool = True, segment_ids=None,
 
 def _kernel(lib: str, name: str, n_ptrs: int):
     """The C entry point ``name`` of csrc/<lib>.cu, built at first use:
-    ``n_ptrs`` pointers, then b, N, Nkv, Sq, Skv, D, causal as ints, the
-    scale and the stream."""
+    ``n_ptrs`` pointers (the last the segment ids, null for none), then b,
+    N, Nkv, Sq, Skv, D, causal as ints, the scale and the stream."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels._build import load
 
     fn = getattr(load(lib), name)
@@ -394,16 +404,32 @@ def _geometry(q, k):
     return b, n, k.shape[1], sq, k.shape[2], d
 
 
-def _launch_fwd(q, k, v, causal, sm_scale):
+def _seg_ids(segment_ids, q):
+    """The kernels' segment operand: the ids as contiguous int32 on q's
+    device (kept alive by the caller until the launch is queued), or None,
+    passed as a null pointer."""
+    if segment_ids is None:
+        return None
+    if segment_ids.device != q.device:
+        raise ValueError(f"segment_ids is on {segment_ids.device}, q on {q.device}")
+    return segment_ids.to(torch.int32).contiguous()
+
+
+def _ptr(x) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def _launch_fwd(q, k, v, segment_ids, causal, sm_scale):
     t = _checked(q, k, v)
+    seg = _seg_ids(segment_ids, q)
     b, n, nkv, sq, skv, d = _geometry(q, k)
     o = torch.empty((b, n, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel("flash_fwd", "flash_fwd_bf16", 5)(
+    err = _kernel("flash_fwd", "flash_fwd_bf16", 6)(
         t["q"].data_ptr(), t["k"].data_ptr(), t["v"].data_ptr(),
-        o.data_ptr(), lse.data_ptr(), b, n, nkv, sq, skv, d, int(causal),
-        float(sm_scale), stream,
+        o.data_ptr(), lse.data_ptr(), _ptr(seg), b, n, nkv, sq, skv, d,
+        int(causal), float(sm_scale), stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_fwd_bf16 launch failed: cudaError_t {err}")
@@ -411,8 +437,9 @@ def _launch_fwd(q, k, v, causal, sm_scale):
     return o, lse
 
 
-def _launch_bwd(q, k, v, do, lse, delta, causal, sm_scale):
+def _launch_bwd(q, k, v, do, lse, delta, segment_ids, causal, sm_scale):
     t = _checked(q, k, v, do=do, lse=lse, delta=delta)
+    seg = _seg_ids(segment_ids, q)
     b, n, nkv, sq, skv, d = _geometry(q, k)
     if t["do"].shape != q.shape or t["lse"].shape != (b, n, sq):
         raise ValueError(
@@ -424,15 +451,17 @@ def _launch_bwd(q, k, v, do, lse, delta, causal, sm_scale):
     dims = (b, n, nkv, sq, skv, d, int(causal), float(sm_scale), stream)
 
     dq = torch.empty_like(t["q"])
-    err = _kernel("flash_bwd", "flash_bwd_dq_bf16", 7)(*ptrs, dq.data_ptr(), *dims)
+    err = _kernel("flash_bwd", "flash_bwd_dq_bf16", 8)(
+        *ptrs, dq.data_ptr(), _ptr(seg), *dims
+    )
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq_bf16 launch failed: cudaError_t {err}")
     bwd_dq_launches.count += 1
 
     dk = torch.empty_like(t["k"])
     dv = torch.empty_like(t["v"])
-    err = _kernel("flash_bwd", "flash_bwd_dkv_bf16", 8)(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims
+    err = _kernel("flash_bwd", "flash_bwd_dkv_bf16", 9)(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), _ptr(seg), *dims
     )
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv_bf16 launch failed: cudaError_t {err}")

@@ -9,10 +9,12 @@ into; a :class:`CatalogManifest` expands it into the exact key set of the
 engine's program registry. The keys keep the JAX package's tuple layout,
 so that their lines are the JAX package's for the same configuration
 (under on-device sampling the sampling slot is the ``"lane"`` sentinel,
-as there); the knobs that add keys or flags there (the degradation
-ladder's gather twins, the finite-logit check, the spill tier) are not
-ported, so their gather and checked bits are always False and their kinds
-never appear.
+as there). The decode-time keys' checked bit is the engine's
+``_check_logits`` (``PagedConfig.detect_nonfinite``, or a fault plan that
+can fire ``nan``), as there: an engine holds only checked or only
+unchecked decode-time programs. The knobs that add other keys or flags
+there (the degradation ladder's gather twins, the spill tier) are not
+ported, so the gather bit is always False and their kinds never appear.
 
 Where the JAX package compiles every key, ``PagedConfig.prewarm`` here
 captures the program kinds (:data:`GRAPH_KINDS`: the prefills ``pctx`` /
@@ -136,14 +138,18 @@ class BucketLadder:
 @dataclasses.dataclass(frozen=True)
 class CatalogManifest:
     """Ladder × variant-flag expansion into the exact legal key set of
-    the engine's ``_programs`` registry. Every key's gather and checked
-    bits are False (see the module docstring)."""
+    the engine's ``_programs`` registry. Every key's gather bit is False;
+    the decode-time keys' checked bit is ``checked`` (see the module
+    docstring)."""
 
     ladder: BucketLadder
     # SamplingConfig (frozen/hashable — rides inside keys), or "lane"
     # under on-device sampling
     sampling: Any
     quantized: bool = False
+    # the engine's fixed _check_logits bit: the checked (finite-verified)
+    # decode-time programs replace the unchecked ones
+    checked: bool = False
     # PagedConfig.fused_step: prefill suffixes ride the pmixed grid, so
     # the psfx keys leave the universe entirely and the mixed_t × kv
     # ladder replaces the psfx suffix-pair product
@@ -157,7 +163,7 @@ class CatalogManifest:
     def from_engine(cls, engine: Any) -> "CatalogManifest":
         """Derive the manifest a :class:`PagedServingEngine` (duck-typed)
         declares: its serving ladders, sampling config, quantization,
-        fused step and tree speculation."""
+        checked bit, fused step and tree speculation."""
         spec_k = int(getattr(engine, "_spec_k", 0) or 0)
         mixed_t = int(getattr(engine, "_mixed_t", 0) or 0)
         ladder = BucketLadder(
@@ -177,12 +183,13 @@ class CatalogManifest:
                 "lane" if getattr(engine, "_fused", False) else engine.gen.sampling
             ),
             quantized=bool(getattr(engine, "_kv_quantized", False)),
+            checked=bool(getattr(engine, "_check_logits", False)),
             fused_step=bool(getattr(engine, "_fused_step", False)),
             spec_tree=bool(getattr(engine, "_spec_tree", False)),
         )
 
     def _expand(self) -> List[tuple]:
-        lad, cfg, g = self.ladder, self.sampling, False
+        lad, cfg, g, chk = self.ladder, self.sampling, False, self.checked
         keys: List[tuple] = [
             ("copy_block", self.quantized),
             ("lane_set",),
@@ -197,14 +204,14 @@ class CatalogManifest:
             for b, kv in lad.suffix_pairs():
                 keys.append(("psfx", b, kv, cfg, g))
         for kv in lad.kv_buckets:
-            keys.append(("pdecode", cfg, kv, g, g))
+            keys.append(("pdecode", cfg, kv, g, chk))
         verify_kind = "ptree" if self.spec_tree else "pverify"
         for k in lad.verify_t:
             for kv in lad.kv_buckets:
-                keys.append((verify_kind, kv, k, g, g))
+                keys.append((verify_kind, kv, k, g, chk))
         for t in lad.mixed_t:
             for kv in lad.kv_buckets:
-                keys.append(("pmixed", t, kv, cfg, g, g))
+                keys.append(("pmixed", t, kv, cfg, g, chk))
         return keys
 
     def keys(self) -> FrozenSet[tuple]:
@@ -229,7 +236,8 @@ class CatalogManifest:
         lad = self.ladder
         kinds = {k[0] for k in self.graph_keys()}
         flags = [f for f, on in (
-            ("quant", self.quantized), ("fused-step", self.fused_step),
+            ("quant", self.quantized), ("checked", self.checked),
+            ("fused-step", self.fused_step),
             ("spec-tree", self.spec_tree),
         ) if on]
         return (

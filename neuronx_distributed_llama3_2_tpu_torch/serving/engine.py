@@ -67,6 +67,21 @@ for the FIFO loop, synchronous or async:
   discarded (the lame-duck drain). A step that would have to preempt, and
   every step that admits, prefills, verifies or runs the mixed step, drops
   to the synchronous sequence, which drains the lookahead first.
+- Fault tolerance: a fault aborts only the request it hits. An
+  ``injector`` (:class:`.faults.FaultInjector`) fires at the JAX engine's
+  funnels: before every prefill, decode, verify and mixed dispatch (the
+  victim lane's request fails, survivors redispatch from untouched
+  state), at the drafter (absorbed), at ``BlockAllocator.alloc``
+  (back-off) and at the transfers (latency). ``PagedConfig.
+  detect_nonfinite`` (or a plan that can fire ``nan``) runs the checked
+  programs: every decode-time step returns one ``finite`` bool a lane
+  beside its tokens (``LlamaDecode.finite_logit_check``), and a lane whose
+  logits are not finite is quarantined (failed, nothing committed).
+  ``audit_interval`` / ``audit_debug`` run the invariant auditor
+  (:mod:`.invariants`), ``stall_step_limit`` the stall watchdog
+  (:class:`.faults.EngineStalledError`), ``trace_enabled`` the flight
+  recorder (:meth:`PagedServingEngine.export_trace`) and
+  ``metrics_log_every`` the periodic metrics line.
 
 The JAX package compiles each of these as a jitted program, kept in a
 program registry and bounded by the catalog manifest
@@ -124,6 +139,16 @@ from neuronx_distributed_llama3_2_tpu_torch.serving.catalog import (
     validate_ladder,
 )
 from neuronx_distributed_llama3_2_tpu_torch.serving.drafter import NGramDrafter
+from neuronx_distributed_llama3_2_tpu_torch.serving.faults import (
+    EngineStalledError,
+    FaultInjector,
+    InjectedFault,
+)
+from neuronx_distributed_llama3_2_tpu_torch.serving.invariants import (
+    InvariantViolation,
+    audit_engine,
+    summarize_violations,
+)
 from neuronx_distributed_llama3_2_tpu_torch.serving.metrics import ServingMetrics
 from neuronx_distributed_llama3_2_tpu_torch.serving.policy import (
     ActionType,
@@ -224,7 +249,10 @@ class PagedConfig:
 #: where the default is falsy) makes PagedServingEngine raise. ``prewarm``
 #: is ported (every prefill and decode-time program as a CUDA graph) for
 #: greedy decoding and, under ``on_device_sampling``, sampled decoding;
-#: host-sampled decoding raises in :meth:`PagedServingEngine.prewarm`.
+#: host-sampled decoding raises in :meth:`PagedServingEngine.prewarm`. The
+#: fault-tolerance knobs (``detect_nonfinite``, ``audit_interval``,
+#: ``audit_debug``, ``stall_step_limit``, ``trace_enabled``,
+#: ``metrics_log_every``) are ported; the degradation ladder is not.
 UNPORTED_KNOBS: Dict[str, str] = {
     "spill_enabled": "tiered KV storage",
     "host_tier_bytes": "tiered KV storage",
@@ -232,7 +260,6 @@ UNPORTED_KNOBS: Dict[str, str] = {
     "spill_queue_depth": "tiered KV storage",
     "cost_accounting": "the device-cost ledger",
     "hbm_budget_bytes": "the HBM budget ledger",
-    "trace_enabled": "the flight recorder export",
     "slo_ttft_p99_ms": "SLO monitoring",
     "slo_tpot_p99_ms": "SLO monitoring",
     "slo_eval_steps": "SLO monitoring",
@@ -242,11 +269,6 @@ UNPORTED_KNOBS: Dict[str, str] = {
     "degrade_after_faults": "the degradation ladder",
     "degrade_window_steps": "the degradation ladder",
     "degrade_recover_steps": "the degradation ladder",
-    "detect_nonfinite": "the finite-logit check",
-    "stall_step_limit": "the stall watchdog",
-    "metrics_log_every": "periodic metrics logging",
-    "audit_interval": "the invariant auditor",
-    "audit_debug": "the invariant auditor",
     "step_policy": "step policies other than fifo",
     "policy_table_path": "certified policy tables",
 }
@@ -360,15 +382,10 @@ class PagedServingEngine:
         gen: GenerationConfig = GenerationConfig(),
         paged: PagedConfig = PagedConfig(),
         drafter: Optional[Any] = None,
-        injector: Optional[Any] = None,
+        injector: Optional[FaultInjector] = None,
         policy: Optional[StepPolicy] = None,
     ) -> None:
         check_ported(paged)
-        if injector is not None:
-            raise NotImplementedError(
-                "injector: fault injection is not ported to the PyTorch "
-                "package yet"
-            )
         if policy is not None and not isinstance(policy, FifoPolicy):
             raise NotImplementedError(
                 f"policy={type(policy).__name__}: only the FIFO step policy "
@@ -379,6 +396,8 @@ class PagedServingEngine:
         self.gen = gen
         self.paged = paged
         self.device = engine.device
+        # the chaos source; every hook below is guarded by `is not None`
+        self.injector = injector
         bs = paged.block_size
         if bs < 1:
             raise ValueError("block_size must be positive")
@@ -499,11 +518,30 @@ class PagedServingEngine:
         self.allocator = BlockAllocator(paged.num_blocks, bs)
         self.index = RadixPrefixIndex(self.allocator)
         self.metrics = ServingMetrics()
-        # the flight recorder is called at every step boundary; its export
-        # (trace_enabled) is not ported, so it records nothing
+        # the flight recorder: every hook is a no-op attribute test unless
+        # trace_enabled, and none touches device state
         self.tracer = EngineTracer(
-            enabled=False, buffer_steps=paged.trace_buffer_steps or 256,
+            enabled=paged.trace_enabled, buffer_steps=paged.trace_buffer_steps or 256,
         )
+        if injector is not None:
+            # fault firings land in the flight recorder as they fire, and
+            # alloc() consults the plan
+            injector.on_fire = self._trace_fault
+            self.allocator.fault_hook = injector.alloc_fault
+        # the checked programs (a separate catalog key each): every
+        # decode-time step reads its family's static (B,) poison mask and
+        # returns one `finite` bool a lane; chosen by the knob, or implied by
+        # a plan that can fire nan faults
+        self._check_logits = bool(
+            paged.detect_nonfinite or (injector is not None and injector.wants("nan"))
+        )
+        # families whose poison mask holds a fired nan fault: cleared by
+        # their next dispatch, so a clean checked step uploads nothing
+        self._poisoned: set = set()
+        # stall watchdog and periodic metrics log
+        self._stall_steps = 0
+        self._last_progress_sig: Optional[tuple] = None
+        self._last_log_step = 0
         mc = self.model.config
         pool_bytes = kv_pool_bytes_per_rank(
             num_layers=mc.num_layers, num_blocks=paged.num_blocks,
@@ -577,6 +615,12 @@ class PagedServingEngine:
             )
             for _ in range(2)
         ]
+        # a checked dispatch's `finite` rides beside its tokens, in the
+        # same turn's host buffer
+        self._host_finite = [
+            torch.ones((engine.max_batch,), dtype=torch.bool, pin_memory=pin)
+            for _ in range(2)
+        ]
         self._host_turn = 0
         # decode, verify and mixed dispatches so far, and how many of them
         # lay between the last readback's dispatch and its read (1 for an
@@ -603,12 +647,16 @@ class PagedServingEngine:
         """Every host->device transfer on the serving path funnels through
         here, so the uploads are countable. Always a copy: on a CPU engine
         a resident must not share memory with its host mirror."""
+        if self.injector is not None:
+            self.injector.maybe_latency("upload")
         self.metrics.h2d_uploads += 1
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device, copy=True)
 
     def _upload_into(self, dst: torch.Tensor, x) -> None:
         """:meth:`_upload` into a graph's static input ``dst``, in place:
         one counted transfer, as the eager dispatch's own upload is."""
+        if self.injector is not None:
+            self.injector.maybe_latency("upload")
         self.metrics.h2d_uploads += 1
         dst.copy_(torch.as_tensor(np.asarray(x), dtype=dst.dtype))
 
@@ -617,28 +665,39 @@ class PagedServingEngine:
         blocking wait is accounted as device time. ``ready`` is the CUDA
         event after which ``toks``, a host buffer of :meth:`_snapshot`,
         holds its copy: the wait is on it."""
+        if self.injector is not None:
+            self.injector.maybe_latency("read")
         t0 = time.perf_counter()
         if ready is not None:
             ready.synchronize()
         # a copy: a host buffer is rewritten two dispatches later
         arr = toks.cpu().numpy().copy()
-        self._wait_ms += (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        self._wait_ms += (t1 - t0) * 1e3
+        if self.tracer.enabled:
+            self.tracer.complete("readback", t0, t1, n=int(arr.size))
         return arr
 
-    def _snapshot(self, toks: torch.Tensor, lanes: List[int]) -> tuple:
+    def _snapshot(self, toks: torch.Tensor, lanes: List[int],
+                  finite: Optional[torch.Tensor] = None) -> tuple:
         """A decode dispatch's readback, enqueued: ``toks`` (the resident
-        tokens, which the next dispatch rewrites in place) copied into the
-        next host buffer without blocking, and an event recorded after the
-        copy on the same stream, so the copy lands before any later
-        dispatch writes. Returns the pending tuple ``(host buffer, event,
-        lanes, dispatch index)`` that :meth:`_read_and_apply` reads. On a
-        CPU engine the copy is made at once (``.cpu()`` would alias)."""
+        tokens, which the next dispatch rewrites in place) and a checked
+        dispatch's ``finite`` (a graph output the next replay may
+        overwrite) copied into the next host buffers without blocking, and
+        an event recorded after the copies on the same stream, so they land
+        before any later dispatch writes. Returns the pending tuple ``(host
+        tokens, event, lanes, dispatch index, host finite or None)`` that
+        :meth:`_read_and_apply` reads. On a CPU engine the copies are made
+        at once (``.cpu()`` would alias)."""
         host, ready = self._host_tokens[self._host_turn]
+        host_fin = self._host_finite[self._host_turn] if finite is not None else None
         self._host_turn ^= 1
         host.copy_(toks, non_blocking=ready is not None)
+        if host_fin is not None:
+            host_fin.copy_(finite, non_blocking=ready is not None)
         if ready is not None:
             ready.record()
-        return host, ready, lanes, self._dispatch_count
+        return host, ready, lanes, self._dispatch_count, host_fin
 
     def _emit_action(self, atype: ActionType, mode: str = "", **meta) -> None:
         """Record one executed step action into this step's trace entry."""
@@ -667,8 +726,10 @@ class PagedServingEngine:
         """The static payload buffers every program of ``kind`` reads, made
         once (int32 zeros, but a prefill's length 1; under on-device
         sampling a prefill's lane sampling parameters too: the key data
-        int64, temperature and top-p float32, top-p 1): a dispatch uploads
-        its payload into them before it calls its program."""
+        int64, temperature and top-p float32, top-p 1; for the checked
+        decode-time programs the (B,) poison mask, :meth:`_nan_mask`): a
+        dispatch uploads its payload into them before it calls its
+        program."""
         inputs = self._graph_inputs.get(kind)
         if inputs is None:
             b, k, t = self.engine.max_batch, self._spec_k, self._mixed_t
@@ -689,6 +750,8 @@ class PagedServingEngine:
                     **(dict(parents=(b, t)) if self._spec_tree else {}),
                 ),
             }[kind]
+            if self._check_logits and kind not in ("pctx", "psfx"):
+                shapes = dict(shapes, poison=(b,))
             dtypes = dict(rng=torch.int64, temp=torch.float32, topp=torch.float32)
             inputs = self._graph_inputs[kind] = {
                 name: torch.zeros(
@@ -731,9 +794,14 @@ class PagedServingEngine:
         model's own ``decode_step`` / ``verify_step`` / ``tree_verify_step``
         / ``mixed_step`` over the residents and ``inputs``, then the
         write-back. Returns a callable giving ``(tokens,)`` (a prefill's
-        (1,) token; pdecode's resident itself) or ``(emitted, accept)``."""
+        (1,) token; pdecode's resident itself) or ``(emitted, accept)``; a
+        checked key's (its last field) step reads the family's poison mask
+        and returns its (B,) ``finite`` last."""
         model, params, cap = self.model, self.engine.params, self._pos_cap
         kind = key_[0]
+        # the decode-time keys end in their checked bit
+        poison = inputs.get("poison") if kind not in ("pctx", "psfx") and key_[-1] else None
+        checked = poison is not None
         if kind in ("pctx", "psfx"):
             if kind == "pctx":
                 _, bucket, cfg, _g = key_
@@ -769,15 +837,26 @@ class PagedServingEngine:
             _, cfg, kv, _g, _c = key_
 
             def fn():
-                out, positions, _ = model.decode_step(
+                # under on-device sampling the step checks its logits before
+                # the draw; on the host path the check runs here, first
+                step = model.decode_step(
                     params, self.cache, self._d_tokens, self._d_positions,
                     self._d_tables, kv_limit=kv, pos_cap=cap,
                     sampling=self._lane_sampling(),
+                    logit_poison=poison if cfg == "lane" else None,
                 )
+                out, positions = step[0], step[-2]
+                finite = step[1] if checked and cfg == "lane" else None
                 if cfg != "lane":
+                    if checked:
+                        out, finite = model.finite_logit_check(out, poison)
+                        if not cfg.greedy:
+                            # a quarantined lane's draw is discarded, but the
+                            # host sampler must not see its NaN row
+                            out = torch.where(finite[:, None], out, torch.zeros_like(out))
                     out = sample(out, self._generator, cfg)
                 self._write_back(out, positions)
-                return (self._d_tokens,)
+                return (self._d_tokens,) + ((finite,) if checked else ())
         elif kind in ("pverify", "ptree"):
             _, kv, _k, _g, _c = key_
 
@@ -787,29 +866,31 @@ class PagedServingEngine:
                     step = model.tree_verify_step(
                         params, self.cache, tokens, self._d_positions, self._d_tables,
                         inputs["parents"], inputs["node_len"], kv_limit=kv, pos_cap=cap,
-                        sampling=self._lane_sampling(),
+                        sampling=self._lane_sampling(), logit_poison=poison,
                     )
                 else:
                     step = model.verify_step(
                         params, self.cache, tokens, self._d_positions, self._d_tables,
                         inputs["draft_len"], kv_limit=kv, pos_cap=cap,
-                        sampling=self._lane_sampling(),
+                        sampling=self._lane_sampling(), logit_poison=poison,
                     )
-                emitted, accept, new_tokens, new_positions, _ = step
+                emitted, accept, new_tokens, new_positions = step[:4]
                 self._write_back(new_tokens, new_positions)
-                return emitted, accept
+                return (emitted, accept) + ((step[4],) if checked else ())
         else:  # pmixed
             _, _t, kv, _cfg, _g, _c = key_
 
             def fn():
-                emitted, accept, new_tokens, new_positions, _ = model.mixed_step(
+                step = model.mixed_step(
                     params, self.cache, self._d_tokens, self._d_positions,
                     self._d_tables, inputs["rows"], inputs["row_start"],
                     inputs["row_len"], inputs["forced"], kv_limit=kv, pos_cap=cap,
                     parents=inputs.get("parents"), sampling=self._lane_sampling(),
+                    logit_poison=poison,
                 )
+                emitted, accept, new_tokens, new_positions = step[:4]
                 self._write_back(new_tokens, new_positions)
-                return emitted, accept
+                return (emitted, accept) + ((step[4],) if checked else ())
         return fn
 
     def _capture(self, fn: Callable[[], tuple]):
@@ -1059,11 +1140,123 @@ class PagedServingEngine:
         self._finished[req.rid] = req
         self.metrics.failed_requests += 1
         self._note_terminal(req)
+        self.tracer.instant("request_failed", rid=req.rid, error=req.error[:160])
         self.tracer.request_state(req.rid, "failed")
         logger.warning(
             "request %d failed after %d tokens: %s",
             req.rid, len(req.out), req.error,
         )
+        if self.paged.audit_debug:
+            self._audit(strict=True)
+
+    # -- fault handling ---------------------------------------------------
+
+    def _chaos_device(self, site: str, lanes: Sequence[int]) -> None:
+        """The chaos funnel in front of a program dispatch. It raises before
+        the call, so the pool and the resident decode state are never
+        half-mutated: failing the victim lane and redispatching the
+        survivors is sound. (Under prewarm the family's static buffers may
+        already hold the payload of the dispatch that never ran; the next
+        dispatch writes its own over it.)"""
+        if self.injector is None:
+            return
+        victim = self.injector.device_fault(site, lanes)
+        if victim is not None:
+            raise InjectedFault("device", site, lanes=(victim,))
+
+    def _nan_mask(self, kind: str, lanes: Sequence[int], site: str) -> None:
+        """Set a checked dispatch's poison mask, the (B,) static buffer of
+        the ``kind`` family that its programs read: written (one counted
+        upload) only when the injector fires a nan fault, cleared on the
+        device by the family's next dispatch, untouched otherwise, so a
+        clean checked step uploads nothing."""
+        poison = self.injector.nan_lanes(site, lanes) if self.injector is not None else []
+        mask = self._family_inputs(kind)["poison"]
+        if poison:
+            m = np.zeros((self.engine.max_batch,), np.int32)
+            m[poison] = 1
+            self._upload_into(mask, m)
+            self._poisoned.add(kind)
+        elif kind in self._poisoned:
+            mask.zero_()
+            self._poisoned.discard(kind)
+
+    def _quarantine(self, req: _PagedRequest, site: str) -> None:
+        """Non-finite logits on this lane: its tokens (and any KV written
+        from them) are garbage, so the request fails instead of committing.
+        The other lanes are untouched: attention is per lane."""
+        self.metrics.lane_quarantines += 1
+        self._fail_request(req, f"non-finite logits at {site} step (lane quarantined)")
+
+    def _recover_fault(self, fault: InjectedFault) -> bool:
+        """A device fault raised at a dispatch funnel: retire the lookahead
+        in flight (its tokens are valid: it ran before the fault), fail the
+        victim lanes' requests, and keep serving; the survivors redispatch
+        next step from untouched state."""
+        self._drain_pending()
+        for lane in fault.lanes:
+            req = self._active.get(lane)
+            if req is not None:
+                self._fail_request(req, str(fault))
+        return bool(self._active or self._queue)
+
+    def _trace_fault(self, step: int, kind: str, site: str, lanes) -> None:
+        """``FaultInjector.on_fire``: every firing lands in the flight
+        recorder as an instant."""
+        self.tracer.instant("fault", kind=kind, site=site, lanes=list(lanes))
+
+    def _progress_sig(self) -> tuple:
+        """Everything that moves when the engine does useful work: two
+        equal signatures in a row with work outstanding are a stalled
+        step."""
+        m = self.metrics
+        return (
+            m.admitted, m.finished, m.failed_requests, m.preemptions,
+            m.prefill_chunks, m.prefill_tokens, len(self._queue),
+            sum(len(r.out) for r in self._active.values()),
+            sum(r.prefill_pos for r in self._active.values() if r.prefilling),
+        )
+
+    def _check_stall(self) -> None:
+        """The stall watchdog (``PagedConfig.stall_step_limit``): raise
+        :class:`.faults.EngineStalledError`, naming the stuck work, after
+        that many steps in a row without progress."""
+        limit = self.paged.stall_step_limit
+        if not limit:
+            return
+        if not (self._active or self._queue):
+            self._stall_steps = 0
+            self._last_progress_sig = None
+            return
+        sig = self._progress_sig()
+        if sig == self._last_progress_sig:
+            self._stall_steps += 1
+            if self._stall_steps >= limit:
+                raise EngineStalledError(
+                    limit,
+                    {lane: r.rid for lane, r in self._active.items()},
+                    [r.rid for r in self._queue],
+                )
+        else:
+            self._stall_steps = 0
+        self._last_progress_sig = sig
+
+    def _audit(self, strict: bool = False) -> List[str]:
+        """Run the invariant auditor (:mod:`.invariants`): log and count
+        violations, raise :class:`.invariants.InvariantViolation` only when
+        ``strict`` (``PagedConfig.audit_debug``)."""
+        violations = audit_engine(self)
+        self._emit_action(ActionType.AUDIT, strict=strict, violations=len(violations))
+        if violations:
+            self.metrics.audit_violations += len(violations)
+            logger.error("serving invariant violations: %s", violations)
+            self.tracer.instant(
+                "invariant_violation", count=len(violations),
+                detail=summarize_violations(violations),
+            )
+            if strict:
+                raise InvariantViolation(violations)
+        return violations
 
     def _note_first_token(self, req: _PagedRequest) -> None:
         """First sampled token for this request: stamp TTFT."""
@@ -1270,8 +1463,18 @@ class PagedServingEngine:
                 continue
             suffix = seq[cached:]
             t_p = time.perf_counter()
-            first = self._prefill(suffix, cached, table, lane=lane)
-            req.prefill_ms += (time.perf_counter() - t_p) * 1e3
+            try:
+                self._chaos_device("prefill", (lane,))
+                first = self._prefill(suffix, cached, table, lane=lane)
+            except InjectedFault as fault:
+                # an admission prefill fault: only this request dies, and its
+                # teardown leaves the admission wave consistent
+                self._fail_request(req, str(fault))
+                continue
+            t_p1 = time.perf_counter()
+            req.prefill_ms += (t_p1 - t_p) * 1e3
+            self.tracer.complete("prefill", t_p, t_p1, rid=req.rid, tokens=len(suffix),
+                                 cached=cached)
             req.out.append(first)
             req.position = len(seq)
             self._note_first_token(req)
@@ -1361,8 +1564,18 @@ class PagedServingEngine:
                 tbl[0, : len(req.table)] = req.table
                 req.table_dev = self._upload(tbl)
             t_p = time.perf_counter()
-            tok = self._prefill(piece, start, req.table, req.table_dev, lane=lane)
-            req.prefill_ms += (time.perf_counter() - t_p) * 1e3
+            try:
+                self._chaos_device("prefill", (lane,))
+                tok = self._prefill(piece, start, req.table, req.table_dev, lane=lane)
+            except InjectedFault as fault:
+                # a chunk fault: this lane's walk dies, the other lanes are
+                # untouched
+                self._fail_request(req, str(fault))
+                continue
+            t_p1 = time.perf_counter()
+            req.prefill_ms += (t_p1 - t_p) * 1e3
+            self.tracer.complete("prefill_chunk", t_p, t_p1, rid=req.rid,
+                                 tokens=len(piece), final=final)
             req.prefill_pos = start + len(piece)
             self.metrics.prefill_tokens += len(piece)
             self.metrics.prefill_chunks += 1
@@ -1408,11 +1621,14 @@ class PagedServingEngine:
         req.preemptions += 1
         self.metrics.preemptions += 1
         self._emit_action(ActionType.PREEMPT, rid=req.rid, lane=lane, shed=False)
+        self.tracer.instant("preempt", rid=req.rid, shed=False)
         self.tracer.request_state(req.rid, "preempted")
         logger.debug(
             "preempted request %d (pool exhausted): %d generated so far",
             req.rid, len(req.out),
         )
+        if self.paged.audit_debug:
+            self._audit(strict=True)
 
     def _ensure_decode_blocks(self) -> None:
         """Every active lane's next write row must be backed by a real
@@ -1490,6 +1706,8 @@ class PagedServingEngine:
         self.metrics.finished += 1
         self._note_terminal(req)
         self.tracer.request_state(req.rid, "finished")
+        if self.paged.audit_debug:
+            self._audit(strict=True)
 
     def _flush_state(self) -> None:
         """Push queued host-side lane mutations into the device-resident
@@ -1535,13 +1753,16 @@ class PagedServingEngine:
             self._dirty_lanes.clear()
 
     def _commit_tokens(
-        self, arr: np.ndarray, lanes: List[int], finishing: List[_PagedRequest],
+        self, arr: np.ndarray, fin: Optional[np.ndarray], lanes: List[int],
+        finishing: List[_PagedRequest], quarantined: List[_PagedRequest],
         dead: frozenset = frozenset(),
     ) -> None:
         """Append one decode step's token to each of ``lanes``' requests
         and note the ones now due to finish. A lane in ``dead`` finished
-        one step earlier: its lookahead token is discarded and its frontier
-        mirror stepped back (the lame-duck drain)."""
+        (or was quarantined) one step earlier: its lookahead token is
+        discarded and its frontier mirror stepped back (the lame-duck
+        drain). A lane whose checked logits were not finite (``fin``)
+        commits nothing and is noted in ``quarantined``."""
         for lane in lanes:
             if lane in dead:
                 self.metrics.lame_duck_tokens += 1
@@ -1550,6 +1771,9 @@ class PagedServingEngine:
             req = self._active.get(lane)
             if req is None:
                 continue  # lane torn down between dispatch and readback
+            if fin is not None and not bool(fin[lane]):
+                quarantined.append(req)
+                continue
             req.out.append(int(arr[lane]))
             req.position += 1
             self._tokens[lane] = arr[lane]
@@ -1557,6 +1781,16 @@ class PagedServingEngine:
                 req.done = True
             if self._finish_due(req):
                 finishing.append(req)
+
+    def _read_pending(self, pending: tuple) -> tuple:
+        """``(tokens, finite or None, lanes)`` of a pending readback, read
+        back (the finite flags after the tokens' event, through the same
+        funnel), and the readback lag noted."""
+        host, ready, lanes, idx, host_fin = pending
+        arr = self._read_tokens(host, ready)
+        fin = None if host_fin is None else self._read_tokens(host_fin)
+        self._last_readback_lag = self._dispatch_count - idx
+        return arr, fin, lanes
 
     def _read_and_apply(self, pending: tuple) -> None:
         """Read one decode dispatch's tokens (``pending``, from
@@ -1566,27 +1800,28 @@ class PagedServingEngine:
         step), the finished lanes' tokens from it are discarded, and only
         then are the finished lanes' blocks released: stream order puts
         the lame-duck step's KV writes before anything later that reuses
-        those blocks."""
-        host, ready, lanes, idx = pending
-        arr = self._read_tokens(host, ready)
-        self._last_readback_lag = self._dispatch_count - idx
+        those blocks. A lane whose checked dispatch reported non-finite
+        logits commits nothing and is quarantined like a finishing lane:
+        the lookahead, dispatched from its garbage token, is its lame-duck
+        step, and its request fails."""
+        arr, fin, lanes = self._read_pending(pending)
         finishing: List[_PagedRequest] = []
-        self._commit_tokens(arr, lanes, finishing)
+        quarantined: List[_PagedRequest] = []
+        self._commit_tokens(arr, fin, lanes, finishing, quarantined)
         self._emit_action(ActionType.READBACK, lanes=list(lanes), lag=self._last_readback_lag)
-        if finishing and self._pending is not None:
-            host2, ready2, lanes2, idx2 = self._pending
+        if (finishing or quarantined) and self._pending is not None:
+            arr2, fin2, lanes2 = self._read_pending(self._pending)
             self._pending = None
-            arr2 = self._read_tokens(host2, ready2)
-            self._last_readback_lag = self._dispatch_count - idx2
-            self._commit_tokens(
-                arr2, lanes2, finishing, dead=frozenset(r.lane for r in finishing),
-            )
+            dead = frozenset(r.lane for r in finishing + quarantined)
+            self._commit_tokens(arr2, fin2, lanes2, finishing, quarantined, dead=dead)
             self._emit_action(
                 ActionType.READBACK, lanes=list(lanes2),
                 lag=self._last_readback_lag, lame_duck=True,
             )
         for req in finishing:
             self._maybe_finish(req)
+        for req in quarantined:
+            self._quarantine(req, "decode")
 
     def _drain_pending(self) -> None:
         """Retire the lookahead step in flight, if any, before the scheduler
@@ -1607,17 +1842,21 @@ class PagedServingEngine:
 
     def _dispatch_decode(self, mode: str) -> tuple:
         """Flush lane state and dispatch one T=1 step over every decode
-        lane (``mode`` "sync" or "async", for the action trace). Returns
-        the step's pending readback (:meth:`_snapshot`)."""
+        lane (``mode`` "sync" or "async", for the action trace), the chaos
+        funnel before it. Returns the step's pending readback
+        (:meth:`_snapshot`)."""
         self._flush_state()
         decode_lanes = [l for l, r in self._active.items() if not r.prefilling]
+        self._chaos_device("decode", decode_lanes)
         kv_need = int(max(self._positions[l] for l in decode_lanes)) + 1
         kv_limit = self._kv_bucket(kv_need)
         self.metrics.note_decode_dispatch(kv_limit, kv_need)
         smode = self._note_sampling_dispatch()
-        key_ = ("pdecode", self._decode_cfg(), kv_limit, False, False)
+        key_ = ("pdecode", self._decode_cfg(), kv_limit, False, self._check_logits)
+        if self._check_logits:
+            self._nan_mask("pdecode", decode_lanes, "decode")
         t_d = self.tracer.now()
-        (toks,) = self._program(key_)()
+        toks, *finite = self._program(key_)()
         self._trace_dispatch(t_d, key_, mode, smode, len(decode_lanes), kv_limit)
         self._dispatch_count += 1
         self._emit_action(
@@ -1626,7 +1865,7 @@ class PagedServingEngine:
         for lane in decode_lanes:
             self._positions[lane] += 1  # mirror the on-device advance
         self.metrics.decode_steps += 1
-        return self._snapshot(toks, decode_lanes)
+        return self._snapshot(toks, decode_lanes, *finite)
 
     def _step_async(self) -> bool:
         """One lookahead decode step: dispatch step N+1 from the
@@ -1685,6 +1924,8 @@ class PagedServingEngine:
                 continue
             history = req.prompt + req.out
             try:
+                if self.injector is not None:
+                    self.injector.drafter_fault()
                 if propose_tree is not None:
                     drafts, parents = propose_tree(
                         history, limit, self.paged.spec_tree_branches
@@ -1795,6 +2036,7 @@ class PagedServingEngine:
         if not proposals:
             return False
         decode_lanes = [l for l, r in self._active.items() if not r.prefilling]
+        self._chaos_device("verify", decode_lanes)
         self._flush_state()
         eng = self.engine
         k = self._spec_k
@@ -1822,8 +2064,10 @@ class PagedServingEngine:
             self._upload_into(inputs["node_len"], draft_len + 1)
         else:
             self._upload_into(inputs["draft_len"], draft_len)
-        key_ = (kind, kv_limit, k, False, False)
-        emitted_d, accept_d = self._program(key_)()
+        if self._check_logits:
+            self._nan_mask(kind, decode_lanes, "verify")
+        key_ = (kind, kv_limit, k, False, self._check_logits)
+        emitted_d, accept_d, *finite_d = self._program(key_)()
         self._trace_dispatch(t_d, key_, "verify", smode, len(decode_lanes), kv_limit)
         self._dispatch_count += 1
         drafted = int(draft_len.sum())
@@ -1840,9 +2084,16 @@ class PagedServingEngine:
             self.metrics.tree_draft_tokens += drafted
         emitted = self._read_tokens(emitted_d)      # (B, k+1)
         accept = self._read_tokens(accept_d)        # (B,)
+        fin = self._read_tokens(*finite_d) if finite_d else None
         self._last_readback_lag = 0
         finishing: List[_PagedRequest] = []
+        quarantined: List[_PagedRequest] = []
         for lane in decode_lanes:
+            if fin is not None and not bool(fin[lane]):
+                # a poisoned verify: every emitted token and the accept
+                # length are garbage, so the lane commits nothing
+                quarantined.append(self._active[lane])
+                continue
             self._commit_accepted(
                 self._active[lane], lane, emitted, int(accept[lane]),
                 int(draft_len[lane]), finishing,
@@ -1850,6 +2101,8 @@ class PagedServingEngine:
             )
         for req in finishing:
             self._maybe_finish(req)
+        for req in quarantined:
+            self._quarantine(req, "verify")
         return True
 
     def _mixed_phase(self) -> bool:
@@ -1887,6 +2140,7 @@ class PagedServingEngine:
         decode_lanes = [l for l, r in self._active.items() if not r.prefilling]
         if not forced_lanes:
             return False
+        self._chaos_device("mixed", forced_lanes + decode_lanes)
         self._flush_state()
         eng = self.engine
         rows = np.zeros((eng.max_batch, t), np.int32)
@@ -1926,8 +2180,10 @@ class PagedServingEngine:
             payload["parents"] = parents
         for name, x in payload.items():
             self._upload_into(inputs[name], x)
-        key_ = ("pmixed", t, kv_limit, self._decode_cfg(), False, False)
-        emitted_d, accept_d = self._program(key_)()
+        if self._check_logits:
+            self._nan_mask("pmixed", forced_lanes + decode_lanes, "mixed")
+        key_ = ("pmixed", t, kv_limit, self._decode_cfg(), False, self._check_logits)
+        emitted_d, accept_d, *finite_d = self._program(key_)()
         self._trace_dispatch(
             t_d, key_, "mixed", smode, len(decode_lanes) + len(forced_lanes), kv_limit,
         )
@@ -1949,11 +2205,16 @@ class PagedServingEngine:
                 self.metrics.tree_draft_tokens += drafted
         emitted = self._read_tokens(emitted_d)      # (B, t)
         accept = self._read_tokens(accept_d)        # (B,)
+        fin = self._read_tokens(*finite_d) if finite_d else None
         self._last_readback_lag = 0
         wall_ms = (time.perf_counter() - t_d) * 1e3
         bs = self.paged.block_size
         finishing: List[_PagedRequest] = []
+        quarantined: List[_PagedRequest] = []
         for lane, (req, start, piece, final) in pieces.items():
+            if fin is not None and not bool(fin[lane]):
+                quarantined.append(req)
+                continue
             req.prefill_pos = start + len(piece)
             req.prefill_ms += wall_ms
             self.metrics.prefill_tokens += len(piece)
@@ -1983,6 +2244,9 @@ class PagedServingEngine:
             if self._finish_due(req):
                 finishing.append(req)
         for lane in decode_lanes:
+            if fin is not None and not bool(fin[lane]):
+                quarantined.append(self._active[lane])
+                continue
             self._commit_accepted(
                 self._active[lane], lane, emitted, int(accept[lane]),
                 int(row_len[lane]), finishing,
@@ -1990,6 +2254,8 @@ class PagedServingEngine:
             )
         for req in finishing:
             self._maybe_finish(req)
+        for req in quarantined:
+            self._quarantine(req, "mixed")
         return True
 
     # -- serving loop -------------------------------------------------------
@@ -2027,6 +2293,8 @@ class PagedServingEngine:
                 self.metrics.sync_fallbacks += 1
         elif t is ActionType.DECODE_DISPATCH and act.mode == "sync":
             self._dispatch_sync_decode()
+        elif t is ActionType.AUDIT:
+            self._audit(strict=False)
         else:
             raise NotImplementedError(
                 f"step action {t.value}[{act.mode}] is not ported to the "
@@ -2052,7 +2320,14 @@ class PagedServingEngine:
         raising. With ``PagedConfig.async_loop`` the steady state runs one
         step ahead of its readback, so request state trails the device by
         a step until the lookahead drains. Returns False when nothing is
-        left to do."""
+        left to do.
+
+        Failure domains: an injected device fault aborts only its victim
+        lane (terminal ``failed`` status, blocks released; the survivors
+        redispatch from untouched state); every ``audit_interval`` steps
+        the invariant auditor runs; a ``stall_step_limit`` raises
+        :class:`.faults.EngineStalledError` instead of letting
+        :meth:`run_to_completion` spin on a wedged lane."""
         t0 = time.perf_counter()
         self._wait_ms = 0.0
         self._step_index += 1
@@ -2062,22 +2337,47 @@ class PagedServingEngine:
             (self._step_index, self._pending is not None, self._step_actions)
         )
         self.tracer.begin_step(self._step_index)
-        alive = self._step_inner()
+        if self.injector is not None:
+            self.injector.begin_step(self._step_index)
+        try:
+            alive = self._step_inner()
+        except InjectedFault as fault:
+            alive = self._recover_fault(fault)
+        if self.injector is not None:
+            self.metrics.faults_injected = self.injector.total_fired
         total_ms = (time.perf_counter() - t0) * 1e3
         self.metrics.device_wait_ms += self._wait_ms
         self.metrics.host_schedule_ms += max(total_ms - self._wait_ms, 0.0)
         self.metrics.hist_step_ms.observe(total_ms)
         self.metrics.hist_queue_depth.observe(len(self._queue))
         self.metrics.queued_requests = len(self._queue)
+        if self.paged.audit_interval and self._step_index % self.paged.audit_interval == 0:
+            self._audit(strict=False)
+        every = self.paged.metrics_log_every
+        steps = self.metrics.decode_steps
+        if every and steps and steps % every == 0 and steps != self._last_log_step:
+            self._last_log_step = steps
+            self.metrics.log(logger, self.allocator, self.index)
+        self._check_stall()
         self.tracer.end_step(
             queue=len(self._queue), active=len(self._active),
             wait_ms=round(self._wait_ms, 3),
         )
         return alive
 
+    def export_trace(self, path: str, fmt: str = "chrome") -> str:
+        """Write the flight recorder (the last ``trace_buffer_steps`` steps
+        and every request span) to ``path``: ``fmt="chrome"`` for
+        trace-event JSON, ``"jsonl"`` for one event a line. Needs
+        ``PagedConfig.trace_enabled`` (the file is valid but empty
+        otherwise)."""
+        return self.tracer.export(path, fmt=fmt)
+
     def run_to_completion(self) -> Dict[int, List[int]]:
-        """Step until idle. Cancelled requests are included with their
-        partial output — check ``request_info(rid)["status"]``."""
+        """Step until idle. Requests that failed (cancelled, faulted,
+        quarantined) are included with their partial output — check
+        ``request_info(rid)["status"]``. Bounded by the stall watchdog when
+        ``PagedConfig.stall_step_limit`` is set."""
         while self.step():
             pass
         return {rid: r.out for rid, r in sorted(self._finished.items())}
@@ -2152,16 +2452,21 @@ def make_serving_engine(
     gen: GenerationConfig = GenerationConfig(),
     paged: Optional[PagedConfig] = None,
     drafter: Optional[Any] = None,
-    injector: Optional[Any] = None,
+    injector: Optional[FaultInjector] = None,
 ) -> PagedServingEngine:
     """The serving-path config flag: a :class:`PagedConfig` selects the
-    paged engine. ``paged=None`` selects the dense slot-scheduled engine
-    of the JAX package, which is not ported yet and raises. The JAX
+    paged engine (``drafter`` overrides the n-gram proposer under
+    speculation; ``injector`` hooks a :class:`.faults.FaultInjector` into
+    its funnels). ``paged=None`` selects the dense slot-scheduled engine
+    of the JAX package, which is not ported yet and raises (with an
+    injector, the JAX package's ``ValueError``). The JAX
     package's ``precompile`` argument (its ``_warmup``) has no
     counterpart: ``PagedConfig.prewarm`` captures the prefill and
     decode-time programs ahead of traffic, and the state writes are eager
     calls."""
     if paged is None:
+        if injector is not None:
+            raise ValueError("fault injection requires the paged engine")
         raise NotImplementedError(
             "paged=None selects the dense ContinuousBatchingEngine, which "
             "comes with the dense-engine slice of the port"

@@ -164,6 +164,54 @@ def test_segment_ids_reference_matches_pallas(causal):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=5e-5, err_msg=name)
 
 
+# two batch rows whose ids are not contiguous: an id comes back after
+# another (0, 1, 0 ...; 3, 7, 3), with a document of one row
+REPEATED = np.stack([
+    np.repeat([0, 1, 0, 2, 1], [50, 30, 40, 1, 79]),
+    np.repeat([3, 7, 3], [100, 64, 36]),
+]).astype(np.int32)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_repeated_segment_ids_match_pallas(causal):
+    """flash_fwd / flash_bwd with ids that repeat after another id: the
+    wrappers compare ids (as the kernels do), never assume a document is
+    contiguous; held to JAX's interpret-mode kernels (fp32, B 2)."""
+    q, k, v, do = _inputs(2, seed=7, b=2)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    seg = jnp.asarray(REPEATED)
+    jo, jlse = jpfa._flash_fwd(jq, jk, jv, seg, causal, D ** -0.5, BLOCK, BLOCK)
+    jgrads = jpfa._flash_bwd(jq, jk, jv, jo, jlse, jdo, seg, causal, D ** -0.5, BLOCK, BLOCK)
+    tq, tk, tv, tdo = (torch.as_tensor(x) for x in (q, k, v, do))
+    tseg = torch.as_tensor(REPEATED)
+    to, tlse = tfa.flash_fwd(tq, tk, tv, tseg, causal, D ** -0.5, BLOCK, BLOCK)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=2e-5)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=1e-5)
+    tgrads = tfa.flash_bwd(tq, tk, tv, to, tlse, tdo, tseg, causal, D ** -0.5, BLOCK, BLOCK)
+    for name, t, j in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=5e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("fn", ["flash_fwd", "flash_bwd"])
+def test_segment_ids_shape_is_checked(fn):
+    """segment_ids must be one (B, S) array with Sq == Skv: anything else
+    raises ValueError before any kernel or plain version runs."""
+    q, k, v, do = (torch.as_tensor(x) for x in _inputs(2, seed=8, b=2, s=32))
+    good = torch.zeros((2, 32), dtype=torch.int32)
+
+    def call(q, k, v, seg):
+        if fn == "flash_fwd":
+            return tfa.flash_fwd(q, k, v, seg, True, D ** -0.5)
+        return tfa.flash_bwd(q, k, v, q, q[..., 0], q, seg, True, D ** -0.5)
+
+    call(q, k, v, good)
+    for bad in (good[:1], good[:, :31], good[None], good.float()):
+        with pytest.raises(ValueError, match="segment_ids"):
+            call(q, k, v, bad)
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        call(q[:, :, :16], k, v, good[:, :16])
+
+
 @pytest.mark.parametrize("segmented", [False, True], ids=["plain", "segments"])
 def test_blockwise_reference_and_grads_match_jax(segmented):
     """The plain blockwise flash_attention_reference and its autograd

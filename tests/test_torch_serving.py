@@ -38,6 +38,7 @@ from neuronx_distributed_llama3_2_tpu_torch.models.llama import (
     LlamaForCausalLM,
     params_from_jax,
 )
+from neuronx_distributed_llama3_2_tpu_torch.serving.faults import FaultInjector, FaultPlan
 from neuronx_distributed_llama3_2_tpu_torch.serving.engine import (
     UNPORTED_KNOBS,
     PagedConfig,
@@ -209,8 +210,11 @@ def test_engine_options_that_raise(weights):
     drafter = object()
     spec = PagedServingEngine(eng, paged=PagedConfig(spec_draft_tokens=2), drafter=drafter)
     assert spec.drafter is drafter and spec._spec_k == 2
-    with pytest.raises(NotImplementedError, match="injector"):
-        PagedServingEngine(eng, injector=object())
+    # an injector is accepted and hooked into the allocator (fault
+    # tolerance is ported; tests/test_torch_faults.py holds it to JAX)
+    inj = FaultInjector(FaultPlan(alloc_rate=0.5))
+    faulty = PagedServingEngine(eng, injector=inj)
+    assert faulty.injector is inj and faulty.allocator.fault_hook == inj.alloc_fault
     with pytest.raises(NotImplementedError, match="dense"):
         make_serving_engine(eng, paged=None)
     assert isinstance(

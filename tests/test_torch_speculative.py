@@ -300,24 +300,35 @@ def test_verify_beside_a_lane_idle_at_pos_cap_stays_finite(weights, kernel):
 
 
 def test_steps_raise_on_unported_arguments(weights):
+    """No step argument of the JAX package is left unported: each step
+    takes the JAX step's keyword arguments, ``logit_poison`` (the
+    finite-logit check) the last of them, and returns one ``finite`` bool
+    a lane with it, False where the poison mask is set."""
+    import inspect
+
+    from neuronx_distributed_llama3_2_tpu.inference.model import LlamaDecode as JaxDecode
+
+    for name in ("decode_step", "verify_step", "mixed_step", "tree_verify_step"):
+        def kwonly(fn):
+            return {p.name for p in inspect.signature(fn).parameters.values()
+                    if p.kind is inspect.Parameter.KEYWORD_ONLY}
+        assert kwonly(getattr(JaxDecode, name)) <= kwonly(getattr(LlamaDecode, name)), name
     _, model = weights
     dec = LlamaDecode(TINY)
     cache = dec.init_paged_cache(4, 8, device="cpu")
-    z = torch.zeros((1,), dtype=torch.int32)
-    tables = torch.zeros((1, 4), dtype=torch.int32)
-    rows = torch.zeros((1, 3), dtype=torch.int32)
-    for kw, match in (
-        (dict(logit_poison=z), "finite-logit check"),
-    ):
-        with pytest.raises(NotImplementedError, match=match):
-            dec.verify_step(model, cache, rows, z, tables, z, **kw)
-    for kw, match in (
-        (dict(logit_poison=z), "finite-logit check"),
-    ):
-        with pytest.raises(NotImplementedError, match=match):
-            dec.mixed_step(model, cache, z, z, tables, rows, z, z, z, **kw)
-        with pytest.raises(NotImplementedError, match=match):
-            dec.tree_verify_step(model, cache, rows, z, tables, rows, z, **kw)
+    z = torch.zeros((2,), dtype=torch.int32)
+    poison = torch.tensor([0, 1], dtype=torch.int32)
+    tables = torch.zeros((2, 4), dtype=torch.int32)
+    rows = torch.zeros((2, 3), dtype=torch.int32)
+    outs = (
+        dec.decode_step(model, cache, z, z, tables, logit_poison=poison),
+        dec.verify_step(model, cache, rows, z, tables, z, logit_poison=poison),
+        dec.mixed_step(model, cache, z, z, tables, rows, z, z, z, logit_poison=poison),
+        dec.tree_verify_step(model, cache, rows, z, tables, rows, z, logit_poison=poison),
+    )
+    for out in outs:
+        finite = out[1] if len(out) == 4 else out[4]
+        assert finite.dtype == torch.bool and finite.tolist() == [True, False]
 
 
 
