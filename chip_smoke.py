@@ -76,7 +76,25 @@
    lane alone holds get that lane quarantined by the on-device isfinite,
    the others unaffected, where the same serve without detection commits
    the lane's garbage tokens and fails nothing, and the verdict must tell
-   the two apart. Then on-device sampling (PagedConfig.on_device_sampling): the
+   the two apart. Then tiered KV storage (PagedConfig.spill_enabled):
+   Serve's prompts as a churn (the prefix's seed alone, six fillers, two
+   re-hits of the 256-token prefix with other tails) on a pool cut so
+   that the fillers evict every prefix block: the blocks spill to pinned
+   host memory and the first re-hit restores all 16, each bitwise equal
+   to the block that was spilled; eagerly, from Q1's int8 pool (the scale
+   tiles with the payloads) and in a prewarmed async twin whose graphs
+   read the restored blocks. The streams equal the resident serve's (or
+   first differ at a near tie), the re-prefill serve (spill off) passes
+   the e2e margin, and a restore writing V's payload into K, and one
+   leaving the fresh block's scale tiles as they were, must read above
+   their margins; K4's t1 and tile sources must read the restored blocks.
+   The same restores without the bit check, eager and prewarmed, are
+   clocked part by part beside the re-prefill and resident serves. The
+   host link's per-block copy times, the restore path's effective rate,
+   the price a restore gets at restore_crossover 1.0 and each twin's
+   cost ledger (cost_profiled_programs, mfu_est, bandwidth_util_est, the
+   HBM ledger's parameter and pool bytes, which must be the tensors' own)
+   are logged. Then on-device sampling (PagedConfig.on_device_sampling): the
    sampler (sample_lanes) on the card at every served shape (Serve's
    decode (8, V), F's verify (8, 5, V) and mixed (8, 16, V), T's (8, 32,
    V)) over the model's own logits and mixed per-lane configs, greedy
@@ -563,12 +581,14 @@ SOURCE_KERNELS = {
 }
 
 
-def split_yardstick(c: DecodeCase, kv_dtype: str, call, ref, label: str):
+def split_yardstick(c: DecodeCase, kv_dtype: str, call, ref, label: str,
+                    timing: bool = True):
     """For a case that csrc/paged_decode_tile.cu or csrc/paged_decode_t1.cu
     serves (None for any other): (device ms of csrc/paged_decode.cu at the
     same call, ``call(fn, i)`` with fn = split_launch, held to the same
     check; device ms of the serving source's main kernel; of its combine,
-    or None where the main kernel merges the splits itself)."""
+    or None where the main kernel merges the splits itself). Without
+    ``timing`` only the check runs, and the times are None."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
 
     src = k4_source(kv_dtype, c.t, c.n, c.nkv, c.d)
@@ -577,6 +597,8 @@ def split_yardstick(c: DecodeCase, kv_dtype: str, call, ref, label: str):
     elem, rel = decode_agreement(call(split_launch, 0), ref)
     check(elem <= 1.0 and rel <= LANE_REL_L2,
           f"{label}: paged_decode.cu disagrees with the plain version ({elem}, {rel})")
+    if not timing:
+        return None, None, None
     (split_ms,), _ = device_ms(functools.partial(call, split_launch))
     times, _ = device_ms(functools.partial(call, pa.paged_flash_decode),
                          matches=SOURCE_KERNELS[src])
@@ -589,6 +611,8 @@ def source_note(c: DecodeCase, kv_dtype: str, yard) -> str:
     if yard is None:
         return "paged_decode.cu"
     src = k4_source(kv_dtype, c.t, c.n, c.nkv, c.d)
+    if yard[0] is None:
+        return f"paged_decode_{src}.cu; paged_decode.cu agrees at the same call"
     combine = ("the splits merged in the same launch" if yard[2] is None
                else f"combine {yard[2]:.6f}")
     return (f"paged_decode_{src}.cu (its main kernel {yard[1]:.6f} ms, {combine}); "
@@ -596,12 +620,14 @@ def source_note(c: DecodeCase, kv_dtype: str, yard) -> str:
 
 
 def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
-                           mxu: bool = False, grid_iters: int = 50):
+                           mxu: bool = False, time_grid: bool = True):
     """K4 on one pool dtype and mode against its plain version at the grid
     and the served geometries, timed beside the plain version, the library
     yardstick (SDPA on K/V dequantized and gathered beforehand) and the
     bound; at the served t == 1 geometry launched most, csrc/paged_decode_t1.cu
-    is timed at T1_SWEEP splits too. Returns ({source: the record of the
+    is timed at T1_SWEEP splits too. Without ``time_grid`` the grid's cases
+    are checked (against the plain version, the yardstick and
+    csrc/paged_decode.cu) and not timed. Returns ({source: the record of the
     served geometry it launched most}, {source: its worst abs error over the
     cases it served})."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
@@ -691,17 +717,19 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
         # 6's arithmetic)
         check(mxu or lib_rel <= LANE_REL_L2,
               f"{mode} {c.name}: library yardstick disagrees (lane relative L2 {lib_rel})")
-        iters = 50 if c.serve_launches else grid_iters
-        (ms,), wall_ms = device_ms(kernel, iters)
-        (plain_ms,), plain_wall_ms = device_ms(plain, iters)
-        (library_ms,), library_wall_ms = device_ms(library, iters)
+        timing = time_grid or c.serve_launches > 0
+        if timing:
+            (ms,), wall_ms = device_ms(kernel)
+            (plain_ms,), plain_wall_ms = device_ms(plain)
+            (library_ms,), library_wall_ms = device_ms(library)
+
         def call(fn, i, num_splits=c.splits):
             j = i % L
             return fn(q, kp[j], vp[j], tables, pos, kv_limit=c.kv_limit,
                       num_splits=num_splits, k_scale=None if ks is None else ks[j],
                       v_scale=None if vs is None else vs[j], quant_mxu=mxu)
 
-        yard = split_yardstick(c, kv_dtype, call, ref, f"{mode} {c.name}")
+        yard = split_yardstick(c, kv_dtype, call, ref, f"{mode} {c.name}", timing)
         bound_ms, bound_by, kv_bytes = paged_bound(c, kv_dtype, mxu)
         splits = pa._geometry(q, kp[0], tables, c.kv_limit, c.splits)[1]
         served_by = f", {c.serve_launches} serve launches" if c.serve_launches else ""
@@ -711,11 +739,13 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
             f"t={c.t} kv_limit={c.kv_limit} splits={splits} positions="
             f"{list(map(int, c.positions))}{served_by}: max_abs_err={err:.6g} "
             f"({elem:.4f} x its element limit, lane rel L2 {rel:.6g}; library "
-            f"{lib_elem:.4f} x, {lib_rel:.6g}) kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
-            f"library_ms={library_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}; "
-            f"K+V bytes read {kv_bytes} / 3.35 TB/s); wall per call {wall_ms:.6f} / "
-            f"{plain_wall_ms:.6f} / {library_wall_ms:.6f} ms; "
-            f"{source_note(c, kv_dtype, yard)} | {card}"
+            f"{lib_elem:.4f} x, {lib_rel:.6g}) "
+            + (f"kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
+               if timing else "not timed (the grid of a quantized phase) ")
+            + f"bound_ms={bound_ms:.6f} ({bound_by}; K+V bytes read {kv_bytes} / 3.35 TB/s)"
+            + (f"; wall per call {wall_ms:.6f} / {plain_wall_ms:.6f} / {library_wall_ms:.6f} ms"
+               if timing else "")
+            + f"; {source_note(c, kv_dtype, yard)} | {card}"
         )
         if c is sweep_at:
             # csrc/paged_decode_t1.cu's time against its split count, at the
@@ -1586,6 +1616,52 @@ K4_KERNELS = {"t1": "paged_decode_t1_kernel", "tile": "paged_decode_tile_kernel"
               "split": "paged_decode_split_kernel"}
 
 
+def k4_counts() -> dict:
+    """K4's wrapper launch counters by source (``K4_KERNELS``' keys)."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+
+    t1, tile = pa.t1_launches.count, pa.tile_launches.count
+    return dict(t1=t1, tile=tile, split=pa.launches.count - t1 - tile)
+
+
+@contextlib.contextmanager
+def counted_captures():
+    """Within the block, every ``torch.cuda.graph`` capture records the K4
+    launches its wrappers counted while it captured (the kernels the graph
+    holds, which each replay launches again) in the yielded dict, keyed by
+    the graph's ``id``."""
+    held = {}
+    plain = torch.cuda.graph
+
+    class graph(plain):
+        def __enter__(self):
+            self._k4_at = k4_counts()
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            out = super().__exit__(*exc)
+            now = k4_counts()
+            held[id(self.cuda_graph)] = {s: now[s] - self._k4_at[s] for s in now}
+            return out
+
+    torch.cuda.graph = graph
+    try:
+        yield held
+    finally:
+        torch.cuda.graph = plain
+
+
+def replayed_k4(server, held: dict) -> dict:
+    """K4's launches by source in a prewarmed server's replays so far: each
+    record's replays times the launches its graph captured (``held``, from
+    ``counted_captures``)."""
+    total = dict.fromkeys(K4_KERNELS, 0)
+    for rec in server.program_registry().values():
+        for s, n in held[id(rec.graph)].items():
+            total[s] += rec.replays * n
+    return total
+
+
 def serve_stats(server, rids, outs, wall_s: float) -> dict:
     """tokens/s, TTFT p50 and TPOT p50 (ms) of a finished serve."""
     infos = [server.request_info(r) for r in rids]
@@ -1624,9 +1700,12 @@ def run_profile_phase(cfg, model, prompts, card: str, label: str = "serve",
     CUDA graphs before the profiler starts; ``async_loop``: it runs the
     async decode loop; ``sampling``: its SamplingConfig. Returns the serve's
     wall and busy ms, K4's launches by source as the profiler counted its
-    kernels, the outputs in prompt order and ``serve_stats``."""
-    server = make_server(cfg, model, prewarm=prewarm, async_loop=async_loop,
-                         sampling=sampling, **knobs)
+    kernels, the outputs in prompt order and ``serve_stats``; under
+    ``prewarm`` also K4's launches by source in the serve's replays
+    (``replayed_k4``), which the profiler's count must not exceed."""
+    with counted_captures() as held:
+        server = make_server(cfg, model, prewarm=prewarm, async_loop=async_loop,
+                             sampling=sampling, **knobs)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1657,7 +1736,8 @@ def run_profile_phase(cfg, model, prompts, card: str, label: str = "serve",
     for e in events[:12]:
         log(f"  device {e.self_device_time_total / 1e3:.6f} ms, {e.count} calls: "
             f"{e.key[:100]}")
-    return dict(wall=wall_ms, busy=busy_ms, launches=launches,
+    replayed = replayed_k4(server, held) if prewarm else None
+    return dict(wall=wall_ms, busy=busy_ms, launches=launches, replayed=replayed,
                 outs=[outs[r] for r in rids], **serve_stats(server, rids, outs, wall_ms / 1e3))
 
 
@@ -2498,6 +2578,23 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
         gap = gaps(outs, rids)
         log(f"graph {label}: worst e2e gap {gap:.6g} (margin {margin})")
         check(gap <= margin, f"graph {label}: a served token is {gap} below the argmax")
+    # the device-cost ledger, harvested at the end of prewarm: a profile a
+    # captured key, the H100's peaks, and the ledger's parameter and pool
+    # bytes those of the tensors themselves
+    params = sum(p.nbytes for p in server.engine.params.parameters())
+    pool = sum(x.nbytes for x in server._pool_tensors())
+    led = server.hbm
+    check(m.cost_profiled_programs == len(registry) and led.param_bytes == params
+          and led.pool_bytes == pool == m.pool_bytes_total,
+          f"graph {label}: cost_profiled_programs {m.cost_profiled_programs} of "
+          f"{len(registry)} keys; ledger params {led.param_bytes} / {params}, pool "
+          f"{led.pool_bytes} / {pool}")
+    cost = (f"; cost_profiled_programs {m.cost_profiled_programs}, dispatched_flops "
+            f"{m.dispatched_flops:.6g}, mfu_est {m.mfu_estimate():.6f}, bandwidth_util_est "
+            f"{m.bandwidth_util_estimate():.6f} (against 989 TFLOP/s, 3.35 TB/s); HBM ledger "
+            f"param_bytes {led.param_bytes}, pool_bytes {led.pool_bytes}, footprint "
+            f"{led.footprint_bytes} of budget {led.budget_bytes} beside "
+            f"torch.cuda.memory_allocated() {torch.cuda.memory_allocated()}")
     step = ""
     if async_loop:
         step_key, step_dev, step_wall = step_device_ms(server)
@@ -2516,7 +2613,7 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
         f"host_sample_fallbacks {m.host_sample_fallbacks}; decode steps {m.decode_steps}, "
         f"async {m.decode_steps_async}, lame_duck_tokens {m.lame_duck_tokens}, "
         f"sync_fallbacks {m.sync_fallbacks}; K4 launches captured {captured}, during "
-        f"the serve {eager_calls}{step} | {card}")
+        f"the serve {eager_calls}{cost}{step} | {card}")
     del server, registry
     gc.collect()
     torch.cuda.empty_cache()
@@ -2529,13 +2626,16 @@ def run_graph_profile_phase(scfg, model, label: str, prompts, eager: dict, launc
                             **knobs) -> None:
     """The prewarmed twin's profiled serve beside the eager serve's of the
     same run (``eager``, run_profile_phase's numbers): wall, busy ms and
-    share, TPOT p50, TTFT p50, tokens/s, and K4's launches by source as the
-    profiler counted its kernels. Those must equal ``launched``, what the
-    eager serve's wrappers counted for the same requests, where the twin's
-    streams equal the eager ones (``same``). The profiler can lose kernel
-    records in a long trace (the eager profile's counts may read low, as
-    device_ms's windows may): a twin's profile that counts fewer than
-    ``launched`` is run again, up to twice, never counted up.
+    share, TPOT p50, TTFT p50, tokens/s, and K4's launches by source. Where
+    the twin's streams equal the eager ones (``same``), the twin's replays
+    must have launched K4 exactly as often, by source, as the eager
+    serve's wrappers counted for the same requests (``launched``): each
+    record's replays times the launches its graph captured. The profiler
+    must have seen those kernels run on the card, a count above 0 for each
+    source launched and never above the exact one; it can lose kernel
+    records in a long trace (519-527 of 528 t1 launches read in some
+    runs, eager and replayed alike), so its count is logged beside the
+    exact one, not held equal to it.
     ``with_async``: the async twin (prewarm and the async loop) is
     profiled too and logged beside them; its lookahead steps past the
     last finish add t1 launches, so its counts are logged, not held.
@@ -2546,12 +2646,6 @@ def run_graph_profile_phase(scfg, model, label: str, prompts, eager: dict, launc
             label=f"{label} (CUDA graphs{', async loop' if async_loop else ''})", **knobs)
 
     graph = profile()
-    for _ in range(2):
-        if all(graph["launches"][s] >= n for s, n in launched.items()):
-            break
-        log(f"graph profile {label}: the profiler lost kernel records "
-            f"({graph['launches']} against {launched}); profiled once more")
-        graph = profile()
     serves = [("eager", eager), ("graphs", graph)]
     if with_async:
         serves.append(("graphs, async loop", profile(async_loop=True)))
@@ -2560,15 +2654,20 @@ def run_graph_profile_phase(scfg, model, label: str, prompts, eager: dict, launc
         rows.append(f"{name}: wall {st['wall']:.6f} ms, busy {st['busy']:.6f} ms = "
                     f"{100 * st['busy'] / st['wall']:.6f}%, TPOT p50 {st['tpot']:.6f} ms, "
                     f"TTFT p50 {st['ttft']:.6f} ms, {st['tokens_s']:.6f} tokens/s, K4 "
-                    f"launches (profiler) {st['launches']}")
+                    f"launches (profiler) {st['launches']}"
+                    + (f", in the replays {st['replayed']}" if st["replayed"] else ""))
     log(f"graph profile {label} (profiler on): " + "; ".join(rows) + f"; the eager serve's "
         f"wrappers counted {launched} | {card}")
     if same:
         check(graph["outs"] == eager["outs"],
               f"graph profile {label}: the profiled streams differ from the eager ones")
-        check(graph["launches"] == launched and launched["t1"] > 0,
-              f"graph profile {label}: K4 launches {graph['launches']} (profiler, graphs) "
+        check(graph["replayed"] == launched and launched["t1"] > 0,
+              f"graph profile {label}: K4 launches {graph['replayed']} (the twin's replays) "
               f"against {launched} (the eager serve's wrappers)")
+        check(all(0 < graph["launches"][s] <= n if n else graph["launches"][s] == 0
+                  for s, n in graph["replayed"].items()),
+              f"graph profile {label}: the profiler counted K4 launches {graph['launches']} "
+              f"on the card against {graph['replayed']} in the twin's replays")
     gc.collect()
     torch.cuda.empty_cache()
     return graph
@@ -3261,6 +3360,442 @@ def sampled_summary(rows, card: str) -> None:
     log("sampled serves against the greedy twins of this run: " + "; ".join(
         f"{name}: {st['tokens_s']:.6f} tokens/s, TTFT p50 {st['ttft']:.6f} ms, TPOT p50 "
         f"{st['tpot']:.6f} ms" for name, st in rows) + f" | {card}")
+
+
+# -- 4h. tiered KV storage (host-RAM spill and restore) ---------------------------
+
+#: the spill serves' pool of 16-row blocks, cut so that the fillers'
+#: admissions evict every block of the shared prefix (the seed's cached
+#: blocks are the oldest in the LRU) and preempt no lane: the churn spills
+#: all 16 prefix blocks on 128 blocks and fewer (15 on 129), and preempts
+#: a lane on 123; 125 keeps three blocks from each edge
+SPILL_BLOCKS = 125
+SPILL_KNOBS = dict(num_blocks=SPILL_BLOCKS, spill_enabled=True, host_tier_bytes=1 << 30,
+                   restore_crossover=1e9)
+#: the blocks of the 256-token shared prefix, all of which must come back
+PREFIX_BLOCKS = 16
+#: the index of the first re-hit in spill_prompts
+REHIT = 7
+
+
+def spill_prompts():
+    """The spill serves' requests, from Serve's prompts: the seed (prompt 3,
+    the 256-token shared prefix and 5 more tokens), the six prompts that
+    share nothing (the fillers), and two re-hits of the prefix with other
+    tails (prompt 4's 8 tokens, and 11 fresh ones)."""
+    prompts = serve_prompts()
+    rng = np.random.default_rng(SEED + 16)
+    rehit = prompts[3][:256] + rng.integers(0, 128256, size=11).tolist()
+    return [prompts[3]] + [prompts[j] for j in (0, 1, 2, 5, 6, 7)] + [prompts[4], rehit]
+
+
+def serve_churn(server, prompts, before_rehits=None):
+    """The seed alone, then the fillers, then the two re-hits, each wave
+    run to completion; ``before_rehits`` is called just before the re-hits
+    are submitted. Returns (rids in prompt order, outputs by rid)."""
+    rids = []
+    for wave in (prompts[:1], prompts[1:REHIT], prompts[REHIT:]):
+        if len(rids) == REHIT and before_rehits is not None:
+            before_rehits()
+        rids += [server.submit(p) for p in wave]
+        outs = server.run_to_completion()
+    return rids, outs
+
+
+def spill_spy(server) -> dict:
+    """Keep a copy, on the card, of every block the server spills (taken
+    just before its own snapshot, at the same point of the stream) and, at
+    each restore, compare the restored pool block bit for bit with the copy
+    of the block that was spilled, on the card, right after the restore's
+    writes and before any later one (no sync inside the serve:
+    ``spill_tally`` reads the verdicts after it). Returns the tally:
+    {"copies": sid -> tensors, "verdicts": [bool tensors]}."""
+    tally = dict(copies={}, verdicts=[])
+    hook, restore = server.allocator.spill_hook, server._restore_block
+
+    def on_spill(bid):
+        copy = tuple(x[:, bid].clone() for x in server._pool_tensors())
+        sid = server.host_tier._next_sid
+        moved = hook(bid)
+        if moved:
+            tally["copies"][sid] = copy
+        return moved
+
+    def on_restore(sid, nb, payload):
+        restore(sid, nb, payload)
+        want = tally["copies"].pop(sid)
+        tally["verdicts"].append(torch.stack([
+            (x[:, nb].contiguous().view(torch.uint8) == w.view(torch.uint8)).all()
+            for x, w in zip(server._pool_tensors(), want)]).all())
+
+    server.allocator.spill_hook = on_spill
+    server._restore_block = on_restore
+    return tally
+
+
+def spill_tally(tally: dict) -> dict:
+    """The spy's verdicts, read after the serve: restored blocks, and those
+    bitwise equal to their spilled copies."""
+    verdicts = [bool(v) for v in tally["verdicts"]]
+    tally["copies"].clear()
+    return dict(restored=len(verdicts), equal=sum(verdicts))
+
+
+def restore_breakdown(server) -> dict:
+    """Host-clock ms inside the admissions that restored (``_maybe_restore``
+    calls that added a restore hit), split by what they ran: the drain of
+    the queued snapshots, the snapshots of the blocks that the restore's
+    own allocations evicted (``spill_ms``, with the pinned buffers they
+    took fresh and reused) and the uploads into the pool (``upload_ms``).
+    Wraps the server's methods, a clock read each; no device sync."""
+    acc = dict(restores=0, total_ms=0.0, drain_ms=0.0, spill_ms=0.0, upload_ms=0.0,
+               pinned_fresh=0, pinned_reused=0)
+    cur: dict = {}
+
+    def clocked(name, fn):
+        def run(*args):
+            if name not in cur:
+                return fn(*args)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                cur[name] += (time.perf_counter() - t0) * 1e3
+        return run
+
+    server._drain_spills = clocked("drain_ms", server._drain_spills)
+    server.allocator.spill_hook = clocked("spill_ms", server.allocator.spill_hook)
+    server._restore_block = clocked("upload_ms", server._restore_block)
+    take = server._pinned_take
+
+    def counted_take(like):
+        if cur:
+            fresh = not server._pinned_free.get((tuple(like.shape), like.dtype))
+            cur["pinned_fresh" if fresh else "pinned_reused"] += 1
+        return take(like)
+
+    server._pinned_take = counted_take
+    admit = server._maybe_restore
+
+    def on_admit(*args):
+        hits = server.metrics.restore_hits
+        cur.update({k: 0 for k in acc if k not in ("restores", "total_ms")})
+        t0 = time.perf_counter()
+        try:
+            return admit(*args)
+        finally:
+            total = (time.perf_counter() - t0) * 1e3
+            if server.metrics.restore_hits > hits:
+                acc["restores"] += 1
+                acc["total_ms"] += total
+                for k, v in cur.items():
+                    acc[k] += v
+            cur.clear()
+
+    server._maybe_restore = on_admit
+    return acc
+
+
+def restore_v_into_k(server) -> None:
+    """A planted restore fault: V's payload written into K as well."""
+    restore = server._restore_block
+    server._restore_block = lambda sid, nb, p: restore(sid, nb, (p[1], p[1]) + tuple(p[2:]))
+
+
+def restore_keeps_scales(server) -> None:
+    """A planted restore fault: the payloads restored, the fresh block's
+    scale tiles left as they were."""
+    restore = server._restore_block
+    server._restore_block = lambda sid, nb, p: restore(sid, nb, tuple(p[:2]))
+
+
+def churn_serve(cfg, model, label: str, spy: bool = True, fault=None, breakdown=False,
+                **knobs) -> dict:
+    """The churn (``serve_churn``) on a server built with ``knobs``: every
+    request finishes with MAX_NEW tokens, the audit is clean and nothing
+    leaks. With spill on, ``spill_spy`` holds each restore's bits (unless
+    ``spy`` is off) and each restore's price is recorded; ``fault`` plants
+    a restore fault; ``breakdown`` clocks the restores'
+    parts (``restore_breakdown``). K4's launch counters (all, t1, tile) are
+    read at the construction's end, before the re-hits and at the serve's
+    end: returns them with the streams, the first re-hit's TTFT and the
+    spill counters."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+    from neuronx_distributed_llama3_2_tpu_torch.serving.invariants import audit_engine
+
+    prompts = spill_prompts()
+    k4 = (pa.launches, pa.t1_launches, pa.tile_launches)
+    for c in k4:
+        c.reset()
+    server = make_server(cfg, model, **knobs)
+    built, built_t1, built_tile = (c.count for c in k4)
+    tally = spill_spy(server) if server._spill and spy else None
+    parts = restore_breakdown(server) if breakdown else None
+    if fault is not None:
+        fault(server)
+    prices = []
+    price = server._restore_price
+    server._restore_price = lambda n, g: prices.append(price(n, g)) or prices[-1]
+    waits = []
+    drain = server._drain_spills
+
+    def timed_drain():
+        t0 = time.perf_counter()
+        drain()
+        waits.append(time.perf_counter() - t0)
+
+    server._drain_spills = timed_drain
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks = []
+    rids, outs = serve_churn(server, prompts, lambda: marks.extend(c.count for c in k4[1:]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = server.metrics
+    infos = [server.request_info(r) for r in rids]
+    for r, info in zip(rids, infos):
+        check(info["status"] == "finished" and len(outs[r]) == MAX_NEW,
+              f"spill {label}: request {r} is {info['status']} with {len(outs[r])} tokens")
+    violations, leaks = audit_engine(server), server.allocator.leak_check()
+    check(not violations and not leaks and not server._spill_pending,
+          f"spill {label}: audit {violations}, leaks {leaks}")
+    # under trace_enabled, the admission's restore span and the first
+    # re-hit's prefill span (ms)
+    spans = [(e["name"], e["dur"] / 1e3, e["args"].get("rid"))
+             for e in server.tracer.chrome_events() if e.get("ph") == "X"]
+    restore_ms = sum(d for n, d, _ in spans if n == "restore")
+    rehit_prefill_ms = sum(d for n, d, rid in spans if n == "prefill" and rid == rids[REHIT])
+    out = dict(
+        label=label, prompts=prompts, rids=rids, outs=[outs[r] for r in rids], wall=wall,
+        restore_ms=restore_ms, rehit_prefill_ms=rehit_prefill_ms,
+        rehit_ttft=infos[REHIT]["ttft_ms"], rehit_cached=infos[REHIT]["cached_tokens"],
+        tally=None if tally is None else spill_tally(tally), prices=prices,
+        drain_s=sum(waits), built=built, built_t1=built_t1, built_tile=built_tile,
+        serve_launches=pa.launches.count - built, rehit_t1=pa.t1_launches.count - marks[0],
+        rehit_tile=pa.tile_launches.count - marks[1], parts=parts, wait_ms=m.device_wait_ms,
+        **{c: getattr(m, c) for c in (
+            "blocks_spilled", "blocks_restored", "restore_hits", "restore_bytes",
+            "restore_declined", "restore_fallbacks", "restore_uploads", "spill_bytes",
+            "preemptions", "steadystate_compiles", "decode_steps_async")},
+        evictions=server.allocator.evictions,
+    )
+    log(f"spill {label}: {len(rids)} requests in {wall:.6f} s; the first re-hit's TTFT "
+        f"{out['rehit_ttft']:.6f} ms, cached_tokens {out['rehit_cached']}; blocks_spilled "
+        f"{m.blocks_spilled}, blocks_restored {m.blocks_restored}, restore_hits "
+        f"{m.restore_hits}, restore_declined {m.restore_declined}, restore_fallbacks "
+        f"{m.restore_fallbacks}, restore_bytes {m.restore_bytes}, spill_bytes "
+        f"{m.spill_bytes}, restore_uploads {m.restore_uploads}; evictions "
+        f"{server.allocator.evictions}, preemptions {m.preemptions}; device_wait_ms "
+        f"{m.device_wait_ms:.6f}, spill drains {sum(waits) * 1e3:.6f} ms; K4 launches "
+        f"captured {built} (t1 {built_t1}, tile {built_tile}), in the re-hit wave t1 "
+        f"{out['rehit_t1']}, tile {out['rehit_tile']}"
+        + ("" if parts is None else "; the restores ({restores}) on the host clock "
+           "{total_ms:.6f} ms: drain {drain_ms:.6f}, eviction snapshots {spill_ms:.6f} "
+           "(pinned buffers fresh {pinned_fresh}, reused {pinned_reused}), uploads "
+           "{upload_ms:.6f}".format(**parts))
+        + (f"; traced: the restore {restore_ms:.6f} ms, the first re-hit's prefill "
+           f"{rehit_prefill_ms:.6f} ms" if server.tracer.enabled else "")
+        + (f"; restored blocks bitwise equal to their spilled copies {out['tally']['equal']} "
+           f"of {out['tally']['restored']}" if tally is not None else ""))
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_restored(res: dict) -> None:
+    """Every block of the shared prefix spilled and came back, bit for
+    bit where the spy watched, through one restore, and no restore fell
+    back; K4's t1 and tile sources read the restored blocks: launched in
+    the re-hit wave by an eager serve, captured by a prewarmed one (whose
+    serve launches K4 only from replays)."""
+    label = res["label"]
+    check(res["blocks_spilled"] >= PREFIX_BLOCKS and res["restore_hits"] >= 1
+          and res["blocks_restored"] >= PREFIX_BLOCKS and res["restore_fallbacks"] == 0,
+          f"spill {label}: spilled {res['blocks_spilled']}, restore_hits "
+          f"{res['restore_hits']}, restored {res['blocks_restored']}, fallbacks "
+          f"{res['restore_fallbacks']}")
+    t = res["tally"]
+    if t is not None:
+        check(t["restored"] == res["blocks_restored"] == t["equal"],
+              f"spill {label}: {t['equal']} of {t['restored']} restored blocks hold their bits")
+    t1, tile = ((res["built_t1"], res["built_tile"]) if res["built"]
+                else (res["rehit_t1"], res["rehit_tile"]))
+    check(t1 > 0 and tile > 0, f"spill {label}: K4 t1 {t1}, tile {tile} launches "
+          f"{'captured' if res['built'] else 'in the re-hit wave'}")
+    check(res["rehit_cached"] >= 256, f"spill {label}: the re-hit cached {res['rehit_cached']}")
+    check(res["preemptions"] == 0, f"spill {label}: {res['preemptions']} preemptions")
+
+
+def host_link_ms(cfg, iters: int = 50):
+    """The engine's own copies of one 1B pool block (16 rows, bf16), timed
+    with CUDA events over ``iters`` rounds: the spill's snapshot (a clone of
+    the block's K and V on the card, copied into pinned host memory without
+    blocking) and the restore's (each pinned tensor uploaded and copied
+    into the block in place). Returns (bytes a block, D2H ms, H2D ms, ms of
+    one pinned allocation of K's half of a block)."""
+    shape = (cfg.num_layers, 64, 16, cfg.num_kv_heads, cfg.head_dim)
+    pool = [torch.randn(shape, device="cuda").to(torch.bfloat16) for _ in range(2)]
+    host = [torch.empty(x[:, 1].shape, dtype=x.dtype, pin_memory=True) for x in pool]
+
+    def d2h():
+        for h, x in zip(host, pool):
+            h.copy_(x[:, 1].clone(), non_blocking=True)
+
+    def h2d():
+        for h, x in zip(host, pool):
+            x[:, 2].copy_(h.to(x.device, non_blocking=True))
+
+    # a spill with no dropped payload's buffers to reuse pins fresh memory
+    # (the host tier holds the earlier ones): 32 such allocations, held,
+    # on the host's clock
+    t0 = time.perf_counter()
+    held = [torch.empty(host[0].shape, dtype=host[0].dtype, pin_memory=True) for _ in range(32)]
+    alloc_ms = (time.perf_counter() - t0) * 1e3 / len(held)
+    del held
+    times = []
+    for fn in (d2h, h2d):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    check(torch.equal(pool[0][:, 1], pool[0][:, 2]), "host link: the block did not come back")
+    return sum(h.nbytes for h in host), times[0], times[1], alloc_ms
+
+
+def run_spill_phase(cfg, model, card: str) -> None:
+    """Tiered KV storage at full width: Serve's prompts as a churn
+    (``spill_prompts``), the serves below, each on a fresh server.
+
+    (a) spill: SPILL_BLOCKS blocks, spill on, every restore priced in; (b)
+    resident: Serve's 2049-block pool, where the prefix never leaves; (c)
+    re-prefill: (a)'s pool with spill off; (d) int8: (a) with Q1's knobs,
+    the scale tiles spilled and restored with the payloads, beside (d0),
+    Q1's knobs on the resident pool; (e) the prewarmed async twin of (a),
+    whose graphs read the restored blocks, beside (e0), the same twin with
+    spill off (device_wait_ms with and without the drains); (a1), (e1):
+    (a) and (e) without the spy, each restore's parts on the host clock
+    (``restore_breakdown``), beside (e2), the twin on Serve's pool; (f)
+    priced: (a) at restore_crossover 1.0, the port's restore rate and the
+    H100's peak deciding. (a), (a1), (d), (e), (e1) must spill and
+    restore every prefix block (bit for bit where the spy watches), and
+    K4's t1 and tile sources must read the restored blocks; their streams
+    equal (b)'s or (d0)'s, or first differ at a near tie (then within the
+    e2e margin); (c) within Serve's e2e margin; (e), (e1) capture nothing
+    after the freeze and launch K4 only from replays. Planted faults: a
+    restore writing V's payload into K (bf16) and one leaving the fresh
+    block's scale tiles as they were (int8) must read above their margins
+    on the re-hits. Logs the host link's per-block rates and the restore
+    path's effective rate."""
+    from neuronx_distributed_llama3_2_tpu_torch.serving.accounting import (
+        HOST_LINK_BW_BYTES_PER_S,
+    )
+
+    q1 = dict(kv_cache_dtype="int8", prefill_chunk_tokens=QUANT_CHUNK)
+    nbytes, d2h, h2d, alloc_ms = host_link_ms(cfg)
+    log(f"spill: host link, one 1B block ({nbytes} bytes, K and V): pinned D2H snapshot "
+        f"{d2h:.6f} ms = {nbytes / d2h / 1e6:.6f} GB/s, H2D restore {h2d:.6f} ms = "
+        f"{nbytes / h2d / 1e6:.6f} GB/s (CUDA events, 50 rounds); one fresh pinned "
+        f"allocation of {nbytes // 2} bytes {alloc_ms:.6f} ms (host clock, 32 held) | {card}")
+    b = churn_serve(cfg, model, "(b) resident")
+    a = churn_serve(cfg, model, "(a) spill", trace_enabled=True, **SPILL_KNOBS)
+    check_restored(a)
+    prompts, rids = a["prompts"], a["rids"]
+    gaps = lambda o, r, picks=None: e2e_gaps(model, prompts, dict(zip(r, o)), r, picks)[0]
+    differ = same_streams("spill (a)", model, prompts, a["outs"], b["outs"], rids)
+    if differ:
+        check(gaps(a["outs"], rids) <= E2E_LOGIT_MARGIN, "spill (a): e2e gap past the margin")
+    c = churn_serve(cfg, model, "(c) re-prefill", num_blocks=SPILL_BLOCKS, trace_enabled=True)
+    check(c["evictions"] >= PREFIX_BLOCKS and c["blocks_spilled"] == 0,
+          f"spill (c): evictions {c['evictions']}")
+    c_gap = gaps(c["outs"], c["rids"])
+    check(c_gap <= E2E_LOGIT_MARGIN, f"spill (c): a token {c_gap} below the argmax")
+    d0 = churn_serve(cfg, model, "(d0) Q1 resident", **q1)
+    d = churn_serve(cfg, model, "(d) Q1 spill", **SPILL_KNOBS, **q1)
+    check_restored(d)
+    d_differ = same_streams("spill (d)", model, prompts, d["outs"], d0["outs"], rids)
+    if d_differ:
+        gap = quant_e2e_gaps(cfg, model, "int8", prompts, dict(zip(rids, d["outs"])), rids)[0]
+        check(gap <= QUANT_LOGIT_MARGIN["int8"], f"spill (d): e2e gap {gap}")
+    twin = dict(SPILL_KNOBS, prewarm=True, async_loop=True)
+    e = churn_serve(cfg, model, "(e) prewarmed async twin", **twin)
+    check_restored(e)
+    check(e["steadystate_compiles"] == 0 and e["serve_launches"] == 0 and e["built"] > 0
+          and e["decode_steps_async"] > 0,
+          f"spill (e): steadystate_compiles {e['steadystate_compiles']}, K4 launches in the "
+          f"serve {e['serve_launches']}, captured {e['built']}, async steps "
+          f"{e['decode_steps_async']}")
+    e_differ = same_streams("spill (e)", model, prompts, e["outs"], b["outs"], rids)
+    if e_differ:
+        check(gaps(e["outs"], rids) <= E2E_LOGIT_MARGIN, "spill (e): e2e gap past the margin")
+    e0 = churn_serve(cfg, model, "(e0) prewarmed async twin, spill off",
+                     **dict(twin, spill_enabled=False, host_tier_bytes=0,
+                            restore_crossover=1.0))
+    # the restores as a user runs them: no spy, no tracer, each restore's
+    # parts on the host clock
+    a1 = churn_serve(cfg, model, "(a1) spill, unwatched", spy=False, breakdown=True,
+                     **SPILL_KNOBS)
+    check_restored(a1)
+    e1 = churn_serve(cfg, model, "(e1) prewarmed async twin, unwatched", spy=False,
+                     breakdown=True, **twin)
+    check_restored(e1)
+    check(e1["serve_launches"] == 0 and e1["steadystate_compiles"] == 0,
+          f"spill (e1): K4 launches in the serve {e1['serve_launches']}")
+    e2 = churn_serve(cfg, model, "(e2) prewarmed async twin, resident",
+                     prewarm=True, async_loop=True)
+    for r in (a1, e1):
+        if same_streams(f"spill {r['label']}", model, prompts, r["outs"], b["outs"], rids):
+            check(gaps(r["outs"], rids) <= E2E_LOGIT_MARGIN,
+                  f"spill {r['label']}: e2e gap past the margin")
+    f = churn_serve(cfg, model, "(f) priced", spy=False,
+                    **dict(SPILL_KNOBS, restore_crossover=1.0))
+    check(len(f["prices"]) >= 1, f"spill (f): no spilled run was priced {f['prices']}")
+    (restore_s, recompute_s), decided = f["prices"][0], (
+        "restore" if f["restore_hits"] else "re-prefill")
+    check(decided == ("restore" if restore_s <= recompute_s else "re-prefill"),
+          f"spill (f): decided {decided} at {f['prices']}")
+    # the planted faults, each read on the re-hits
+    picks = [REHIT, REHIT + 1]
+    fa = churn_serve(cfg, model, "planted fault: V's payload restored into K", spy=False,
+                     fault=restore_v_into_k, **SPILL_KNOBS)
+    fa_gap = gaps(fa["outs"], fa["rids"], picks)
+    fd = churn_serve(cfg, model, "planted fault: scale tiles left as they were", spy=False,
+                     fault=restore_keeps_scales, **SPILL_KNOBS, **q1)
+    fd_gap = quant_e2e_gaps(cfg, model, "int8", [prompts[j] for j in picks],
+                            dict(zip(fd["rids"], fd["outs"])),
+                            [fd["rids"][j] for j in picks])[0]
+    check(fa["restore_hits"] >= 1 and fd["restore_hits"] >= 1, "spill faults: no restore")
+    log(f"spill: streams equal to the resident serve's: (a) {len(rids) - len(differ)}, (e) "
+        f"{len(rids) - len(e_differ)} of {len(rids)}; (d) {len(rids) - len(d_differ)} of "
+        f"{len(rids)} against Q1's resident serve; (c) worst e2e gap {c_gap:.6g} (margin "
+        f"{E2E_LOGIT_MARGIN}); the first re-hit's TTFT (a) {a['rehit_ttft']:.6f} ms, (c) "
+        f"{c['rehit_ttft']:.6f} ms, (d) {d['rehit_ttft']:.6f}, (e) {e['rehit_ttft']:.6f} ms | "
+        f"{card}")
+    for r, plain, resident in ((a1, c, b), (e1, e0, e2)):
+        ms = r["parts"]["total_ms"]
+        log(f"spill {r['label']}: the first re-hit's TTFT {r['rehit_ttft']:.6f} ms against "
+            f"{plain['rehit_ttft']:.6f} ms re-prefilling ({plain['label']}) and "
+            f"{resident['rehit_ttft']:.6f} ms resident ({resident['label']}); the restore "
+            f"path {r['restore_bytes']} bytes in {ms:.6f} ms on the host clock = "
+            f"{r['restore_bytes'] / ms / 1e6:.6f} GB/s effective | {card}")
+    log(f"spill: the async twin's device_wait_ms {e['wait_ms']:.6f} with spill (its drains "
+        f"{e['drain_s'] * 1e3:.6f} ms, {e['blocks_spilled']} blocks) against "
+        f"{e0['wait_ms']:.6f} without, wall {e['wall']:.6f} against {e0['wall']:.6f} s | {card}")
+    log(f"spill (f): restore_crossover 1.0 priced the first spilled run at restore_s "
+        f"{restore_s:.9f} s against recompute_s {recompute_s:.9f} s (restore rate "
+        f"{HOST_LINK_BW_BYTES_PER_S:.6g} B/s, 989 TFLOP/s): {decided}; every priced run {f['prices']}; "
+        f"restore_hits {f['restore_hits']}, restore_declined {f['restore_declined']} | {card}")
+    log(f"spill planted faults on the re-hits: V's payload into K reads {fa_gap:.6g} "
+        f"(margin {E2E_LOGIT_MARGIN}); the scale tiles left as they were read {fd_gap:.6g} "
+        f"(margin {QUANT_LOGIT_MARGIN['int8']})")
+    check(fa_gap > E2E_LOGIT_MARGIN, f"the spill check passes V's payload in K ({fa_gap})")
+    check(fd_gap > QUANT_LOGIT_MARGIN["int8"],
+          f"the spill check passes stale scale tiles ({fd_gap})")
 
 
 # -- 5. train -------------------------------------------------------------------
@@ -3965,6 +4500,9 @@ def main() -> int:
     timed("serve graphs fault", run_graph_fault_phase, cfg, model, prompts, card)
     timed("faults", run_fault_phase, cfg, model, prompts, [outs[r] for r in rids],
           serve_twin, card)
+    # tiered KV storage: Serve's prompts as a churn that spills the shared
+    # prefix to host RAM and restores it
+    timed("spill", run_spill_phase, cfg, model, card)
     quant = {}  # label -> (kv dtype, mxu, K4 launches, t1 launches, served geometries)
     for label, kv_dtype, mxu in QUANT_SERVES:
         qk = dict(kv_cache_dtype=kv_dtype, quant_mxu=mxu, prefill_chunk_tokens=QUANT_CHUNK)
@@ -4081,8 +4619,9 @@ def main() -> int:
     for kv_dtype, mxu in (("bf16", False), ("int8", True)):
         timed(f"K4 tile probe {kv_dtype}", run_tile_probe, card, kv_dtype, mxu)
     timed("K4 t1 probe", run_t1_probe, card)
-    # the six quantized combinations at the grid and at every geometry the
-    # quantized serves launched (launch counts summed over both serves)
+    # the six quantized combinations at the grid (checked, not timed) and at
+    # every geometry the quantized serves launched (launch counts summed
+    # over both serves)
     q_geoms: dict = {}
     for *_, q_served in quant.values():
         for k, e in q_served.items():
@@ -4093,7 +4632,7 @@ def main() -> int:
         for mxu in (False, True):
             quant_records[kv_dtype, mxu], err = timed(
                 f"K4 {mode_label(kv_dtype, mxu)}", run_paged_kernel_phase,
-                cfg, q_geoms, card, kv_dtype=kv_dtype, mxu=mxu, grid_iters=20)
+                cfg, q_geoms, card, kv_dtype=kv_dtype, mxu=mxu, time_grid=False)
             quant_errs.append(err)
 
     model, state, step, batch, train_launches = timed("train", run_train_phase, card)

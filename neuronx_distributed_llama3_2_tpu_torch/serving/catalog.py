@@ -12,15 +12,17 @@ so that their lines are the JAX package's for the same configuration
 as there). The decode-time keys' checked bit is the engine's
 ``_check_logits`` (``PagedConfig.detect_nonfinite``, or a fault plan that
 can fire ``nan``), as there: an engine holds only checked or only
-unchecked decode-time programs. The knobs that add other keys or flags
-there (the degradation ladder's gather twins, the spill tier) are not
-ported, so the gather bit is always False and their kinds never appear.
+unchecked decode-time programs. ``PagedConfig.spill_enabled`` adds the
+tiered KV storage's ``("block_save", quantized)`` and ``("block_restore",
+quantized)`` keys, as there. The degradation ladder's gather twins are
+not ported, so the gather bit is always False.
 
 Where the JAX package compiles every key, ``PagedConfig.prewarm`` here
 captures the program kinds (:data:`GRAPH_KINDS`: the prefills ``pctx`` /
 ``psfx`` and the decode-time ``pdecode``, ``pverify``, ``ptree``,
 ``pmixed``) as CUDA graphs before traffic; the in-place state writes
-(``copy_block``, ``lane_set``, ``table_delta``) stay eager calls.
+(``copy_block``, ``lane_set``, ``table_delta``, and the spill tier's
+``block_save`` / ``block_restore``) stay eager calls.
 ``nearest_key`` and the golden catalog file, which serve the JAX
 package's static analyzers, are not ported.
 """
@@ -154,6 +156,9 @@ class CatalogManifest:
     # the psfx keys leave the universe entirely and the mixed_t × kv
     # ladder replaces the psfx suffix-pair product
     fused_step: bool = False
+    # PagedConfig.spill_enabled: the host spill tier adds the block_save /
+    # block_restore state writes to the universe (and only then)
+    spill: bool = False
     # PagedConfig.spec_tree: verify rungs become ptree keys (packed-tree
     # ancestor-masked verify) instead of pverify — same kv × k product,
     # so the manifest stays exactly as bounded as linear speculation's
@@ -163,7 +168,7 @@ class CatalogManifest:
     def from_engine(cls, engine: Any) -> "CatalogManifest":
         """Derive the manifest a :class:`PagedServingEngine` (duck-typed)
         declares: its serving ladders, sampling config, quantization,
-        checked bit, fused step and tree speculation."""
+        checked bit, fused step, spill tier and tree speculation."""
         spec_k = int(getattr(engine, "_spec_k", 0) or 0)
         mixed_t = int(getattr(engine, "_mixed_t", 0) or 0)
         ladder = BucketLadder(
@@ -185,6 +190,7 @@ class CatalogManifest:
             quantized=bool(getattr(engine, "_kv_quantized", False)),
             checked=bool(getattr(engine, "_check_logits", False)),
             fused_step=bool(getattr(engine, "_fused_step", False)),
+            spill=bool(getattr(engine, "_spill", False)),
             spec_tree=bool(getattr(engine, "_spec_tree", False)),
         )
 
@@ -195,6 +201,9 @@ class CatalogManifest:
             ("lane_set",),
             ("table_delta",),
         ]
+        if self.spill:
+            keys.append(("block_save", self.quantized))
+            keys.append(("block_restore", self.quantized))
         for b in lad.prefill_buckets:
             keys.append(("pctx", b, cfg, g))
         if not self.fused_step:
@@ -237,7 +246,7 @@ class CatalogManifest:
         kinds = {k[0] for k in self.graph_keys()}
         flags = [f for f, on in (
             ("quant", self.quantized), ("checked", self.checked),
-            ("fused-step", self.fused_step),
+            ("fused-step", self.fused_step), ("spill", self.spill),
             ("spec-tree", self.spec_tree),
         ) if on]
         return (
@@ -321,7 +330,7 @@ def format_key(key: tuple) -> str:
     elif kind == "pmixed":
         _, t, kv, cfg, gather, checked = key
         bits = [f"t={t}", f"kv_limit={kv}", f"cfg={_format_sampling(cfg)}"]
-    elif kind == "copy_block":
+    elif kind in ("copy_block", "block_save", "block_restore"):
         bits = [f"quantized={key[1]}"]
     else:  # lane_set / table_delta: render fields raw
         bits = [str(f) for f in key[1:]]

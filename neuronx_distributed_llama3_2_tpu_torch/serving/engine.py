@@ -82,6 +82,23 @@ for the FIFO loop, synchronous or async:
   (:class:`.faults.EngineStalledError`), ``trace_enabled`` the flight
   recorder (:meth:`PagedServingEngine.export_trace`) and
   ``metrics_log_every`` the periodic metrics line.
+- Tiered KV storage (``PagedConfig.spill_enabled``): a cached block the
+  allocator evicts is not discarded; its payload (K, V, and the scale
+  tiles of a quantized pool) is snapshotted on the device, copied into
+  pinned host memory behind an event and committed to a byte-budgeted
+  :class:`.block_allocator.HostTier`, and its radix node stays matchable
+  in a spilled state. An admission whose prefix runs into spilled nodes
+  prices restoring the payloads against re-prefilling them
+  (``restore_crossover``, :mod:`.accounting`) and, when restoring wins,
+  copies them back into fresh pool blocks in place, through the counted
+  upload funnel.
+- Cost accounting (``cost_accounting``, on by default): at the end of
+  :meth:`PagedServingEngine.prewarm` every registered program gets an
+  analytic :class:`.accounting.CostProfile` and the engine an
+  :class:`.accounting.HBMLedger`; every dispatch then adds its program's
+  FLOPs and bytes to the metrics, which report a serve MFU and bandwidth
+  utilization against the H100's peaks. ``slo_ttft_p99_ms`` /
+  ``slo_tpot_p99_ms`` arm the burn-rate monitor (:mod:`.slo`).
 
 The JAX package compiles each of these as a jitted program, kept in a
 program registry and bounded by the catalog manifest
@@ -93,9 +110,10 @@ its key's record, which runs the step eagerly, or, under
 :meth:`PagedServingEngine.prewarm` captured before traffic;
 :meth:`PagedServingEngine.mark_steady` freezes the key set. The in-place
 state writes (copy-on-write, lane sets, table deltas) stay eager calls.
-The decode state (tokens, positions, block tables) lives on the device as
-in the JAX package and is updated in place from host mirrors when a lane
-changes.
+The spill tier's block saves and restores are eager in-place
+writes too. The decode state (tokens, positions, block tables) lives on
+the device as in the JAX package and is updated in place from host
+mirrors when a lane changes.
 
 ``PagedConfig`` keeps every field of the JAX package. A knob whose feature
 is not ported makes the constructor raise ``NotImplementedError`` naming
@@ -112,6 +130,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from neuronx_distributed_llama3_2_tpu_torch import flops as flops_mod
 from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
     GenerationConfig,
     InferenceEngine,
@@ -125,9 +144,18 @@ from neuronx_distributed_llama3_2_tpu_torch.quantization.kv_cache import (
     kv_cache_torch_dtype,
     kv_scale_itemsize,
 )
+from neuronx_distributed_llama3_2_tpu_torch.serving.accounting import (
+    COMPUTE_KINDS,
+    HOST_LINK_BW_BYTES_PER_S,
+    EngineDims,
+    analytic_cost,
+    harvest_cost_profiles,
+    hbm_ledger,
+)
 from neuronx_distributed_llama3_2_tpu_torch.serving.block_allocator import (
     NULL_BLOCK,
     BlockAllocator,
+    HostTier,
     kv_pool_bytes_per_rank,
 )
 from neuronx_distributed_llama3_2_tpu_torch.serving.catalog import (
@@ -159,8 +187,10 @@ from neuronx_distributed_llama3_2_tpu_torch.serving.policy import (
     make_policy,
 )
 from neuronx_distributed_llama3_2_tpu_torch.serving.radix_index import (
+    SPILLED_BLOCK,
     RadixPrefixIndex,
 )
+from neuronx_distributed_llama3_2_tpu_torch.serving.slo import SLOMonitor, SLOPolicy
 from neuronx_distributed_llama3_2_tpu_torch.serving.tracing import EngineTracer
 from neuronx_distributed_llama3_2_tpu_torch.utils.logger import get_logger
 
@@ -185,10 +215,20 @@ class PagedConfig:
     # prompt before it is admitted, delaying the first preemption
     decode_reserve_blocks: int = 2
     enable_prefix_caching: bool = True
-    # tiered KV storage (host-RAM spill tier behind the radix index)
+    # tiered KV storage: spill eviction victims' payloads into a host-RAM
+    # tier behind the radix index instead of discarding them; a later
+    # prefix hit restores them when the cost model says the transfer beats
+    # re-prefilling. Needs enable_prefix_caching and host_tier_bytes > 0
     spill_enabled: bool = False
+    # the host tier's byte budget; its own LRU evicts past it (dropping the
+    # spilled trie nodes whose payloads are gone)
     host_tier_bytes: int = 0
+    # restore a spilled run when restore_seconds <= restore_crossover *
+    # recompute_seconds (payload bytes over the host link against prefill
+    # FLOPs at the padded rung, at the H100's rates): 1.0 break-even, a
+    # large value always restores, 0 never does (while still spilling)
     restore_crossover: float = 1.0
+    # enqueued-but-undrained spill snapshots; past it the oldest drains
     spill_queue_depth: int = 8
     cache_dtype: Any = None
     # quantized KV pool: "bf16" = the pool at the model (or cache_dtype)
@@ -229,10 +269,13 @@ class PagedConfig:
     kv_buckets: Optional[tuple] = None
     prefill_buckets: Optional[tuple] = None
     prewarm: bool = False
-    # device-cost ledger and HBM budget (the JAX package's graftmeter)
+    # device-cost ledger: cost profiles and the HBM ledger at the end of
+    # prewarm, the per-dispatch FLOP fold (host only)
     cost_accounting: bool = True
+    # the ledger's device-memory budget (None: the card's total memory)
     hbm_budget_bytes: Optional[int] = None
-    # latency objectives and burn-rate alerts
+    # latency objectives (p99 targets in ms; None = not declared) and the
+    # burn-rate alerts; slo_degrade feeds the (unported) degradation ladder
     slo_ttft_p99_ms: Optional[float] = None
     slo_tpot_p99_ms: Optional[float] = None
     slo_eval_steps: int = 16
@@ -252,20 +295,11 @@ class PagedConfig:
 #: host-sampled decoding raises in :meth:`PagedServingEngine.prewarm`. The
 #: fault-tolerance knobs (``detect_nonfinite``, ``audit_interval``,
 #: ``audit_debug``, ``stall_step_limit``, ``trace_enabled``,
-#: ``metrics_log_every``) are ported; the degradation ladder is not.
+#: ``metrics_log_every``), the tiered KV storage, the cost accounting and
+#: the SLO objectives are ported; the degradation ladder, which an SLO
+#: alert feeds under ``slo_degrade``, is not.
 UNPORTED_KNOBS: Dict[str, str] = {
-    "spill_enabled": "tiered KV storage",
-    "host_tier_bytes": "tiered KV storage",
-    "restore_crossover": "tiered KV storage",
-    "spill_queue_depth": "tiered KV storage",
-    "cost_accounting": "the device-cost ledger",
-    "hbm_budget_bytes": "the HBM budget ledger",
-    "slo_ttft_p99_ms": "SLO monitoring",
-    "slo_tpot_p99_ms": "SLO monitoring",
-    "slo_eval_steps": "SLO monitoring",
-    "slo_burn_window": "SLO monitoring",
-    "slo_burn_threshold": "SLO monitoring",
-    "slo_degrade": "SLO monitoring",
+    "slo_degrade": "the degradation ladder",
     "degrade_after_faults": "the degradation ladder",
     "degrade_window_steps": "the degradation ladder",
     "degrade_recover_steps": "the degradation ladder",
@@ -517,6 +551,38 @@ class PagedServingEngine:
         )
         self.allocator = BlockAllocator(paged.num_blocks, bs)
         self.index = RadixPrefixIndex(self.allocator)
+        # tiered KV storage: the host-RAM spill tier behind the radix index,
+        # set before the catalog (spill adds its state-write keys)
+        self._spill = bool(paged.spill_enabled)
+        self.host_tier: Optional[HostTier] = None
+        # enqueued-but-undrained snapshots: (sid, host payload, event or
+        # None, nbytes)
+        self._spill_pending: deque = deque()
+        # on the card, the pinned host buffers of every payload alive in
+        # the queue or the tier (sid -> tensors), and the buffers of those
+        # dropped since, free for the next spill of the same shape, each
+        # behind the event recorded at its drop ((shape, dtype) -> [(buffer,
+        # event)]): a spill reuses one instead of pinning fresh memory
+        self._pinned_live: Dict[int, tuple] = {}
+        self._pinned_free: Dict[tuple, list] = {}
+        self._restore_dims: Optional[EngineDims] = None
+        # the rate a restore's bytes are priced at: the restore path's
+        # measured rate, host work included (accounting.py)
+        self.host_link_bw = HOST_LINK_BW_BYTES_PER_S
+        if self._spill:
+            if not paged.enable_prefix_caching:
+                raise ValueError(
+                    "spill_enabled requires enable_prefix_caching (the "
+                    "spilled residency state lives in the radix index)"
+                )
+            if paged.host_tier_bytes <= 0:
+                raise ValueError("spill_enabled requires a positive host_tier_bytes")
+            self.host_tier = HostTier(
+                paged.host_tier_bytes, on_evict=self.index.invalidate_spilled,
+            )
+            self.allocator.host_tier = self.host_tier
+            self.allocator.spill_hook = self._spill_block
+            self.index.on_spill_drop = self._drop_spill_payload
         self.metrics = ServingMetrics()
         # the flight recorder: every hook is a no-op attribute test unless
         # trace_enabled, and none touches device state
@@ -638,6 +704,21 @@ class PagedServingEngine:
         self._warm_stream = None
         self._frozen_keys: Optional[frozenset] = None
         self._prewarming = False
+        # the device-cost ledger (serving/accounting.py), filled by
+        # ensure_cost_profiles(), at the end of prewarm() when
+        # cost_accounting is on; _flops_by_key holds (flops, bytes) per
+        # model-program key for the per-dispatch fold
+        self.cost_profiles: Optional[Dict[tuple, Any]] = None
+        self.hbm: Optional[Any] = None
+        self._flops_by_key: Dict[tuple, tuple] = {}
+        self.metrics.peak_flops_per_chip = flops_mod.H100_BF16_FLOPS_PER_S
+        self.metrics.peak_hbm_bw_per_chip = flops_mod.H100_HBM_BYTES_PER_S
+        # the SLO burn-rate monitor (serving/slo.py), built only when an
+        # objective is declared
+        slo_policy = SLOPolicy.from_paged(paged)
+        self._slo: Optional[SLOMonitor] = (
+            SLOMonitor(slo_policy, self.metrics) if slo_policy.active else None
+        )
         if paged.prewarm:
             self.prewarm()
 
@@ -659,6 +740,15 @@ class PagedServingEngine:
             self.injector.maybe_latency("upload")
         self.metrics.h2d_uploads += 1
         dst.copy_(torch.as_tensor(np.asarray(x), dtype=dst.dtype))
+
+    def _upload_tensor(self, t: torch.Tensor) -> torch.Tensor:
+        """:meth:`_upload` of a host tensor of any dtype (a spilled block's
+        bf16, int8 or fp8 payload and fp16 scales, which numpy cannot
+        hold): one counted transfer, asynchronous from pinned memory."""
+        if self.injector is not None:
+            self.injector.maybe_latency("upload")
+        self.metrics.h2d_uploads += 1
+        return t.to(self.device, non_blocking=True)
 
     def _read_tokens(self, toks: torch.Tensor, ready=None) -> np.ndarray:
         """Every device->host token readback funnels through here; the
@@ -716,8 +806,7 @@ class PagedServingEngine:
         place (the JAX package donates the pool to a copy program). A
         quantized pool's scales are part of the block's value and are
         copied with its payload."""
-        c = self.cache
-        for x in (c.k, c.v) + ((c.k_scale, c.v_scale) if c.quantized else ()):
+        for x in self._pool_tensors():
             x[:, dst] = x[:, src]
 
     # -- programs (prewarm) ---------------------------------------------------
@@ -963,6 +1052,50 @@ class PagedServingEngine:
         engine's lifetime."""
         return self.catalog
 
+    def ensure_cost_profiles(self) -> Dict[tuple, Any]:
+        """Harvest the device-cost ledger (:mod:`.accounting`): a
+        :class:`.accounting.CostProfile` for every registered program
+        (analytic figures; a captured record's outputs its graph's), the
+        :class:`.accounting.HBMLedger` against ``PagedConfig.
+        hbm_budget_bytes`` or the card's memory, each kv rung's decode
+        roofline, and the per-key figures the dispatch fold adds. Host
+        arithmetic only; runs at the end of :meth:`prewarm` when
+        ``PagedConfig.cost_accounting`` is on."""
+        profiles = harvest_cost_profiles(self)
+        self.cost_profiles = profiles
+        self._flops_by_key = {
+            k: (p.flops, p.bytes_accessed) for k, p in profiles.items()
+            if p.kind in COMPUTE_KINDS
+        }
+        ledger = hbm_ledger(self, profiles=profiles, budget_bytes=self.paged.hbm_budget_bytes)
+        self.hbm = ledger
+        m = self.metrics
+        m.cost_profiled_programs = len(profiles)
+        m.hbm_budget_bytes = ledger.budget_bytes
+        m.hbm_footprint_bytes = ledger.footprint_bytes
+        m.hbm_headroom_bytes = ledger.headroom_bytes
+        # each kv rung's roofline ceiling, from its plain (unchecked)
+        # decode profile: the MFU the memory system allows a decode there
+        peak_flops = m.peak_flops_per_chip * max(m.tp_size, 1)
+        peak_bw = m.peak_hbm_bw_per_chip * max(m.tp_size, 1)
+        by_rung: Dict[int, dict] = {}
+        for key_, p in profiles.items():
+            if p.kind != "pdecode" or key_[3] or key_[4]:
+                continue
+            by_rung[int(key_[2])] = {
+                "flops": p.flops,
+                "bytes": p.bytes_accessed,
+                "arithmetic_intensity": round(p.arithmetic_intensity(), 6),
+                "roofline_mfu": round(p.roofline_mfu(peak_flops, peak_bw), 6),
+            }
+        m.mfu_by_rung = by_rung
+        return profiles
+
+    def _dispatch_cost(self, key_: tuple) -> tuple:
+        """(flops, bytes) of a model program's profile, (0, 0) before the
+        harvest: what a dispatch adds to the metrics."""
+        return self._flops_by_key.get(key_) or (0.0, 0.0)
+
     def mark_steady(self) -> None:
         """Freeze the program registry: every later capture counts in
         ``metrics.steadystate_compiles``. Called at the end of
@@ -1015,6 +1148,9 @@ class PagedServingEngine:
             "prewarmed %d program(s) in %.3f s: %s", self.metrics.prewarm_compiles,
             time.perf_counter() - t0, self.catalog.describe(),
         )
+        if self.paged.cost_accounting:
+            # every captured key is registered now: harvest the ledger
+            self.ensure_cost_profiles()
 
     # -- on-device sampling lane state (PagedConfig.on_device_sampling) ------
 
@@ -1345,6 +1481,196 @@ class PagedServingEngine:
         self.metrics.queued_requests = len(self._queue)
         return True
 
+    # -- tiered KV storage (host-RAM spill tier) ----------------------------
+
+    def _pool_tensors(self) -> tuple:
+        """The pool tensors a block's value spans: K and V, and a quantized
+        pool's scale tiles."""
+        c = self.cache
+        return (c.k, c.v) + ((c.k_scale, c.v_scale) if c.quantized else ())
+
+    def _spill_block(self, bid: int) -> bool:
+        """``BlockAllocator.spill_hook``: move the eviction victim's
+        payload toward host RAM instead of discarding it. The block is
+        snapshotted on the device (a clone of each pool tensor's slice, on
+        the compute stream: after every write the block has had, before
+        any write of its next owner, which the allocator hands the id to
+        at once), the snapshot is copied into pinned host memory without
+        blocking and an event recorded after the copy; the radix node
+        turns spilled and the entry joins the bounded drain queue, which
+        waits on the event. On a CPU engine the clone is the host payload.
+        False: no index node to keep, and the allocator discards the
+        block."""
+        if not self._spill or bid not in self.index._by_block:
+            return False
+        snap = tuple(x[:, bid].clone() for x in self._pool_tensors())
+        sid = self.host_tier.allocate_sid()
+        ready = None
+        if self.device.type == "cuda":
+            host = tuple(self._pinned_take(t) for t in snap)
+            for h, t in zip(host, snap):
+                h.copy_(t, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            snap = self._pinned_live[sid] = host
+        nbytes = sum(t.numel() * t.element_size() for t in snap)
+        self.index.mark_spilled(bid, sid)
+        self._spill_pending.append((sid, snap, ready, nbytes))
+        self.metrics.blocks_spilled += 1
+        # bounded queue: past the depth, the oldest snapshot drains now
+        while len(self._spill_pending) > self.paged.spill_queue_depth:
+            self._drain_one_spill()
+        return True
+
+    def _pinned_take(self, like: torch.Tensor) -> torch.Tensor:
+        """A pinned host buffer of ``like``'s shape and dtype: one a
+        dropped payload freed, once the compute stream has passed the
+        event recorded at its drop (a stream wait, not a host one), else
+        freshly pinned memory."""
+        free = self._pinned_free.get((tuple(like.shape), like.dtype))
+        if not free:
+            return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+        buf, dropped = free.pop()
+        torch.cuda.current_stream(self.device).wait_event(dropped)
+        return buf
+
+    def _drain_one_spill(self) -> None:
+        sid, payload, ready, nbytes = self._spill_pending.popleft()
+        if sid not in self.index._spilled:
+            return  # the node was dropped while the snapshot waited
+        if ready is not None:
+            t0 = time.perf_counter()
+            ready.synchronize()  # the copy into pinned memory has landed
+            self._wait_ms += (time.perf_counter() - t0) * 1e3
+        self.host_tier.put_at(sid, payload, nbytes)
+        self.metrics.spill_bytes += nbytes
+
+    def _drain_spills(self) -> None:
+        """Commit every enqueued snapshot to the host tier: at the end of
+        :meth:`step` and before a restore prices a spilled run. The wait is
+        on each snapshot's event, counted as device wait."""
+        if not self._spill_pending:
+            return
+        t0 = time.perf_counter()
+        n = len(self._spill_pending)
+        while self._spill_pending:
+            self._drain_one_spill()
+        self.tracer.complete("spill_drain", t0, time.perf_counter(), blocks=n)
+
+    def _drop_spill_payload(self, sid: int) -> None:
+        """``RadixPrefixIndex.on_spill_drop``: forget a spilled payload
+        wherever it is, in the host tier or in the drain queue. Its pinned
+        buffers go back to the free list behind an event recorded now,
+        after every copy enqueued from or into them (the snapshot's, a
+        restore's upload)."""
+        if self.host_tier is not None:
+            self.host_tier.drop(sid)
+        if self._spill_pending:
+            self._spill_pending = deque(e for e in self._spill_pending if e[0] != sid)
+        host = self._pinned_live.pop(sid, None)
+        if host is not None:
+            dropped = torch.cuda.Event()
+            dropped.record()
+            for t in host:
+                self._pinned_free.setdefault((tuple(t.shape), t.dtype), []).append((t, dropped))
+
+    def _restore_price(self, n_bytes: int, gain: int) -> tuple:
+        """``(restore_seconds, recompute_seconds)`` of a spilled run: its
+        payload bytes at the restore path's rate (``host_link_bw``)
+        against the prefill FLOPs of ``gain`` tokens at the padded rung
+        over the peak (``metrics.peak_flops_per_chip``). Every cost
+        profile of the port is this same analytic figure (torch has no
+        compiler cost analysis to prefer), so the formula is read
+        directly."""
+        if self._restore_dims is None:
+            self._restore_dims = EngineDims.from_engine(self)
+        bucket = pick_bucket(self._prefill_buckets, max(gain, 1))
+        flops = analytic_cost(("pctx", bucket), self._restore_dims)[0]
+        peak = self.metrics.peak_flops_per_chip * max(self.metrics.tp_size, 1)
+        return n_bytes / self.host_link_bw, flops / max(peak, 1.0)
+
+    def _restore_block(self, sid: int, nb: int, payload: tuple) -> None:
+        """Write spilled payload ``sid`` into fresh pool block ``nb`` in
+        place (the captured graphs read the pool at its addresses), each
+        tensor through the counted upload funnel."""
+        for x, t in zip(self._pool_tensors(), payload):
+            x[:, nb].copy_(self._upload_tensor(t))
+        self.metrics.restore_uploads += len(payload)
+
+    def _maybe_restore(self, seq: List[int], matched: int, mblocks: List[int]) -> tuple:
+        """Restore or recompute, at admission: when the radix walk runs
+        past the resident prefix into spilled nodes, price the spilled run
+        and, when restoring wins, write the payloads into fresh blocks,
+        heal the nodes back to resident and hand the longer match to the
+        admission. An injected host-tier fault (or a payload the tier's
+        budget dropped) drops the spilled run inside its own failure
+        domain and the admission re-prefills it; resident blocks are
+        untouched. Returns ``(matched, blocks)``."""
+        ext_matched, chain = self.index.walk(seq)
+        spilled = [n for n in chain if n.block == SPILLED_BLOCK]
+        gain = ext_matched - matched
+        if not spilled or gain <= 0:
+            return matched, mblocks
+        self._drain_spills()  # the payloads must be in the host tier
+        if self.injector is not None and self.injector.host_tier_fault():
+            # the shallowest spilled node's subtree, the whole spilled run,
+            # is the failure domain: drop it and re-prefill
+            self.index.invalidate_spilled(spilled[0].sid)
+            self.metrics.restore_fallbacks += 1
+            return matched, mblocks
+        payloads = []
+        for node in spilled:
+            p = self.host_tier.get(node.sid)
+            if p is None:
+                self.metrics.restore_fallbacks += 1
+                return matched, mblocks
+            payloads.append(p)
+        total_bytes = sum(t.numel() * t.element_size() for p in payloads for t in p)
+        restore_s, recompute_s = self._restore_price(total_bytes, gain)
+        xo = self.paged.restore_crossover
+        alloc = self.allocator
+        if xo <= 0 or restore_s > xo * recompute_s or alloc.available() < len(spilled) + 1:
+            self.metrics.restore_declined += 1
+            return matched, mblocks
+        t0 = time.perf_counter()
+        # hold the chain's resident blocks, so that our own allocations
+        # cannot evict them; restored blocks join the held list, and all
+        # are released (parked cached) once the chain is healed
+        held: List[int] = []
+        for node in chain:
+            if node.block >= 0:
+                alloc.incref(node.block)
+                held.append(node.block)
+        ok = True
+        n_restored = 0
+        for node, payload in zip(spilled, payloads):
+            if node.sid not in self.index._spilled:
+                ok = False
+                break
+            nb = alloc.alloc()
+            if nb is None:
+                ok = False
+                break
+            self._restore_block(node.sid, nb, payload)
+            self.index.heal(node, nb)  # drops the host payload too
+            held.append(nb)
+            n_restored += 1
+        for b in held:
+            alloc.release(b)
+        if not ok:
+            self.metrics.restore_fallbacks += 1
+            return matched, mblocks
+        self.metrics.blocks_restored += n_restored
+        self.metrics.restore_hits += 1
+        self.metrics.restore_bytes += total_bytes
+        self.index.hit_tokens += gain  # restored tokens are prefix hits
+        self.tracer.complete(
+            "restore", t0, time.perf_counter(), blocks=n_restored, bytes=total_bytes,
+            tokens=gain,
+        )
+        self._emit_action(ActionType.RESTORE, lanes=[], blocks=n_restored, tokens=gain)
+        return ext_matched, [n.block for n in chain]
+
     # -- admission and prefill ----------------------------------------------
 
     def _admit(self) -> None:
@@ -1371,6 +1697,11 @@ class PagedServingEngine:
             seq = req.prompt + req.out  # resume re-prefills generated tokens
             if self.paged.enable_prefix_caching:
                 matched, mblocks = self.index.match(seq)
+                if self._spill and self.index.num_spilled:
+                    # the walk may run past the resident prefix into
+                    # spilled nodes: restore them when the bytes beat
+                    # re-prefilling
+                    matched, mblocks = self._maybe_restore(seq, matched, mblocks)
             else:
                 matched, mblocks = 0, []
             # always leave >= 1 token to prefill: the admission forward must
@@ -1530,7 +1861,7 @@ class PagedServingEngine:
             self._upload_into(inputs["start"], [cached])
             key_ = ("psfx", bucket, kv_limit, self._decode_cfg(), False)
         (tok,) = self._program(key_)()
-        self.metrics.note_prefill_dispatch(bucket, length)
+        self.metrics.note_prefill_dispatch(bucket, length, *self._dispatch_cost(key_))
         return int(self._read_tokens(tok)[0])
 
     def _advance_prefills(self, budget_tokens: Optional[int] = None) -> None:
@@ -1850,9 +2181,9 @@ class PagedServingEngine:
         self._chaos_device("decode", decode_lanes)
         kv_need = int(max(self._positions[l] for l in decode_lanes)) + 1
         kv_limit = self._kv_bucket(kv_need)
-        self.metrics.note_decode_dispatch(kv_limit, kv_need)
-        smode = self._note_sampling_dispatch()
         key_ = ("pdecode", self._decode_cfg(), kv_limit, False, self._check_logits)
+        self.metrics.note_decode_dispatch(kv_limit, kv_need, *self._dispatch_cost(key_))
+        smode = self._note_sampling_dispatch()
         if self._check_logits:
             self._nan_mask("pdecode", decode_lanes, "decode")
         t_d = self.tracer.now()
@@ -2051,8 +2382,9 @@ class PagedServingEngine:
                 parents[lane, 1 : 1 + len(d)] = tree_parents[lane][: len(d)]
         kv_need = int(max(self._positions[l] for l in decode_lanes)) + k + 1
         kv_limit = self._kv_bucket(kv_need)
-        self.metrics.note_decode_dispatch(kv_limit, kv_need)
         kind = "ptree" if self._spec_tree else "pverify"
+        key_ = (kind, kv_limit, k, False, self._check_logits)
+        self.metrics.note_decode_dispatch(kv_limit, kv_need, *self._dispatch_cost(key_))
         smode = self._note_sampling_dispatch()
         # the payload lands before the lookup: a late capture's warm-up
         # call then writes the rows the replay writes
@@ -2066,7 +2398,6 @@ class PagedServingEngine:
             self._upload_into(inputs["draft_len"], draft_len)
         if self._check_logits:
             self._nan_mask(kind, decode_lanes, "verify")
-        key_ = (kind, kv_limit, k, False, self._check_logits)
         emitted_d, accept_d, *finite_d = self._program(key_)()
         self._trace_dispatch(t_d, key_, "verify", smode, len(decode_lanes), kv_limit)
         self._dispatch_count += 1
@@ -2171,7 +2502,8 @@ class PagedServingEngine:
             max((int(self._positions[l]) for l in decode_lanes), default=0),
         ) + t
         kv_limit = self._kv_bucket(kv_need)
-        self.metrics.note_decode_dispatch(kv_limit, kv_need)
+        key_ = ("pmixed", t, kv_limit, self._decode_cfg(), False, self._check_logits)
+        self.metrics.note_decode_dispatch(kv_limit, kv_need, *self._dispatch_cost(key_))
         smode = self._note_sampling_dispatch()
         t_d = time.perf_counter()
         inputs = self._family_inputs("pmixed")
@@ -2182,7 +2514,6 @@ class PagedServingEngine:
             self._upload_into(inputs[name], x)
         if self._check_logits:
             self._nan_mask("pmixed", forced_lanes + decode_lanes, "mixed")
-        key_ = ("pmixed", t, kv_limit, self._decode_cfg(), False, self._check_logits)
         emitted_d, accept_d, *finite_d = self._program(key_)()
         self._trace_dispatch(
             t_d, key_, "mixed", smode, len(decode_lanes) + len(forced_lanes), kv_limit,
@@ -2343,6 +2674,10 @@ class PagedServingEngine:
             alive = self._step_inner()
         except InjectedFault as fault:
             alive = self._recover_fault(fault)
+        if self._spill_pending:
+            # commit this step's spill snapshots to the host tier; nothing
+            # here dispatches or uploads
+            self._drain_spills()
         if self.injector is not None:
             self.metrics.faults_injected = self.injector.total_fired
         total_ms = (time.perf_counter() - t0) * 1e3
@@ -2351,6 +2686,10 @@ class PagedServingEngine:
         self.metrics.hist_step_ms.observe(total_ms)
         self.metrics.hist_queue_depth.observe(len(self._queue))
         self.metrics.queued_requests = len(self._queue)
+        if self._slo is not None:
+            # burn evaluation; slo_degrade's ladder is not ported, so an
+            # alert feeds nothing
+            self._slo.on_step(self._step_index, tracer=self.tracer)
         if self.paged.audit_interval and self._step_index % self.paged.audit_interval == 0:
             self._audit(strict=False)
         every = self.paged.metrics_log_every

@@ -31,8 +31,9 @@ Fault classes:
 - ``latency``: a host<->device transfer stalls (``time.sleep``), which the
   stall watchdog must tolerate.
 - ``host_tier``: a spilled KV block's host payload is lost before its
-  restore. Declared with the others; the engine calls its hook with the
-  tiered KV storage, which is not ported yet.
+  restore (tiered KV storage). The engine drops the spilled run inside its
+  own failure domain and re-prefills it; every other request's tokens are
+  unchanged.
 
 Determinism: all randomness comes from one ``np.random.default_rng(seed)``
 consumed in engine-call order, so a chaos run is reproducible from

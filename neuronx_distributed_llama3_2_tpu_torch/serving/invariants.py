@@ -41,8 +41,14 @@ Invariants checked, each against the port's own structures:
    sit at the greedy sentinel with a null key, active lanes carry the
    GenerationConfig's parameters and their request's base key. Without
    the knob the four residents are None.
-9. Spilled residency: the tiered KV storage is not ported, so the radix
-   index's spilled set must be empty.
+9. Spilled residency: with ``PagedConfig.spill_enabled`` every node of
+   the radix index's spilled set carries the ``SPILLED_BLOCK`` sentinel
+   (never a live pool id), round-trips through its sid, keeps its parent
+   link, and has its payload somewhere: in the host tier or still queued
+   for the drain. The host tier holds no more than its budget. Without
+   the knob the spilled set and the drain queue are empty and there is
+   no host tier (pool conservation over all four residency states, free,
+   active, cached and spilled, is checks 1 and 9 together).
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import (
 from neuronx_distributed_llama3_2_tpu_torch.serving.block_allocator import (
     NULL_BLOCK,
 )
+from neuronx_distributed_llama3_2_tpu_torch.serving.radix_index import SPILLED_BLOCK
 
 
 class InvariantViolation(AssertionError):
@@ -198,9 +205,34 @@ def audit_engine(engine) -> List[str]:
             f"arrays present=(k={has_k}, v={has_v})"
         )
 
-    # 9. spilled residency: no spill tier in the port, so nothing spilled
-    if index.num_spilled:
-        v.append(f"{index.num_spilled} spilled radix node(s) without a spill tier")
+    # 9. spilled residency (checked before 8: that one returns early)
+    tier = engine.host_tier
+    spilled = index._spilled
+    pending_sids = {e[0] for e in engine._spill_pending}
+    if not engine._spill:
+        if spilled:
+            v.append(f"{len(spilled)} spilled radix node(s) without spill_enabled")
+        if pending_sids:
+            v.append("spill drain queue non-empty without spill_enabled")
+        if tier is not None:
+            v.append("host tier present without spill_enabled")
+    else:
+        for sid, node in spilled.items():
+            if node.block != SPILLED_BLOCK:
+                v.append(f"spilled node sid {sid}: block {node.block} != SPILLED_BLOCK sentinel")
+            if node.sid != sid:
+                v.append(f"spilled node sid {sid}: claims sid {node.sid}")
+            if node.parent is not None and node.parent.children.get(node.key) is not node:
+                v.append(f"spilled node sid {sid}: broken parent link")
+            if not tier.has(sid) and sid not in pending_sids:
+                v.append(
+                    f"spilled node sid {sid}: payload neither resident in the host tier "
+                    "nor queued for drain"
+                )
+        if tier.resident_bytes > tier.budget_bytes:
+            v.append(
+                f"host tier over budget: {tier.resident_bytes} > {tier.budget_bytes} bytes"
+            )
 
     # 8. on-device sampling residents match the on_device_sampling knob
     residents = {

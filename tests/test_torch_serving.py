@@ -204,6 +204,47 @@ def test_unported_knobs_raise(weights, knob):
         PagedServingEngine(eng, GenerationConfig(), PagedConfig(**{knob: value}))
 
 
+#: the knobs ported with the tiered KV storage, the cost ledger and the SLO
+#: monitor, each with a value other than its default (and what it needs)
+PORTED_KNOBS = {
+    "spill_enabled": dict(spill_enabled=True, host_tier_bytes=1 << 20),
+    "host_tier_bytes": dict(host_tier_bytes=1 << 20),
+    "restore_crossover": dict(spill_enabled=True, host_tier_bytes=1 << 20,
+                              restore_crossover=0.5),
+    "spill_queue_depth": dict(spill_enabled=True, host_tier_bytes=1 << 20,
+                              spill_queue_depth=1),
+    "cost_accounting": dict(cost_accounting=False, prewarm=True),
+    "hbm_budget_bytes": dict(hbm_budget_bytes=1 << 28, prewarm=True),
+    "slo_ttft_p99_ms": dict(slo_ttft_p99_ms=100.0),
+    "slo_tpot_p99_ms": dict(slo_tpot_p99_ms=5.0),
+    "slo_eval_steps": dict(slo_tpot_p99_ms=5.0, slo_eval_steps=2),
+    "slo_burn_window": dict(slo_tpot_p99_ms=5.0, slo_burn_window=2),
+    "slo_burn_threshold": dict(slo_tpot_p99_ms=5.0, slo_burn_threshold=2.0),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(PORTED_KNOBS))
+def test_ported_knobs_build_an_engine(weights, knob):
+    """Each knob that left UNPORTED_KNOBS builds an engine on the CPU and
+    serves a request."""
+    assert knob not in UNPORTED_KNOBS
+    eng = PagedServingEngine(
+        InferenceEngine(TINY, weights[1], **ENGINE_KW), GenerationConfig(max_new_tokens=3),
+        PagedConfig(block_size=8, num_blocks=16, kv_buckets=(8, 16), prefill_buckets=(8, 16),
+                    **PORTED_KNOBS[knob]),
+    )
+    assert getattr(eng.paged, knob) == PORTED_KNOBS[knob][knob]
+    rid = eng.submit(_prompts(4, (9,))[0])
+    assert len(eng.run_to_completion()[rid]) == 3
+
+
+def test_unported_knobs_are_the_ladder_and_policies():
+    assert sorted(UNPORTED_KNOBS) == sorted([
+        "slo_degrade", "degrade_after_faults", "degrade_window_steps",
+        "degrade_recover_steps", "step_policy", "policy_table_path",
+    ])
+
+
 def test_engine_options_that_raise(weights):
     eng = InferenceEngine(TINY, weights[1], **ENGINE_KW)
     # a drafter is accepted and used with speculation on
