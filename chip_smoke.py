@@ -88,6 +88,23 @@
    the e2e margin, and a restore writing V's payload into K, and one
    leaving the fresh block's scale tiles as they were, must read above
    their margins; K4's t1 and tile sources must read the restored blocks.
+   (Before it, the degradation ladder and the front door, on Serve's
+   prewarmed async twin: three device faults with degrade_after_faults=1
+   climb the ladder 1 -> 2 -> 3 and back to 0, exactly the victims fail
+   with the JAX engine's error strings, the survivors serve the clean
+   twin's streams, rung 3 runs the gather twins captured at their first
+   use, which launch K4 0 times, K4's t1 source is replayed again after
+   the recovery, and a ladder whose _step_model keeps the kernel model
+   must read K4 launches at rung 3; four faults reach rung 4, which sheds
+   the youngest lane by preemption, and it resumes to its clean stream.
+   GraftServer over the async twin under step_policy="slo" serves the
+   eight prompts to an in-process asyncio client on a loopback port, four
+   streamed (SSE) and four not, each equal to the async twin's batch run,
+   a ninth cancelled after its fourth token, /metrics and /snapshot
+   parsed, no capture after the freeze, no upload on a steady step, K4
+   only from replays; a pump that drops each stream's last token must
+   fail the stream check, and the TTFT p50 by class under slo is logged
+   beside the same traffic under fifo.)
    The same restores without the bit check, eager and prewarmed, are
    clocked part by part beside the re-prefill and resident serves. The
    host link's per-block copy times, the restore path's effective rate,
@@ -190,6 +207,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import dataclasses
 import functools
@@ -3362,6 +3380,522 @@ def sampled_summary(rows, card: str) -> None:
         f"{st['tpot']:.6f} ms" for name, st in rows) + f" | {card}")
 
 
+# -- 4g. the degradation ladder and the front door ------------------------------
+
+#: the ladder phase (Serve's prewarmed async twin): one event a rung; three
+#: device faults climb to the kernel-shed rung 3 at step 7, which holds for
+#: LADDER_RECOVER steps, and the ladder is back at 0 after 3 x LADDER_RECOVER
+#: clean steps with Serve's last tokens still to decode; a fourth fault
+#: reaches rung 4, which sheds the youngest lane
+LADDER_RECOVER = 6
+LADDER_FAULTS = ((3, "device"), (5, "device"), (7, "device"))
+LADDER_SHED_FAULTS = LADDER_FAULTS + ((9, "device"),)
+LADDER_KNOBS = dict(degrade_after_faults=1, degrade_window_steps=16,
+                    degrade_recover_steps=LADDER_RECOVER)
+
+
+def gather_bit(key) -> bool:
+    """A program key's gather bit (the kernel-shed rung's twins)."""
+    return bool(key[4] if key[0] in ("psfx", "pmixed") else key[3])
+
+
+def kernel_kept_at_rung_3(server) -> None:
+    """A planted ladder fault: from rung 3 on the program keys carry the
+    gather bit, but ``_step_model`` keeps the kernel model, so the gather
+    twins still launch K4."""
+    server._step_model = lambda: server.model
+    server._gather_shed = lambda: server._degrade_level >= 3
+
+
+def ladder_serve(cfg, model, prompts, schedule, fault=None) -> dict:
+    """Serve's prewarmed async twin with the ladder armed (LADDER_KNOBS)
+    and a FaultPlan of ``schedule``, stepped one step at a time inside
+    ``counted_captures``. Records per step the level its dispatches ran at,
+    the level after it, its host wall ms, its actions and each record's
+    replays in it, and times every capture after the freeze (the gather
+    twins'). ``fault`` plants a fault into the built server. Returns the
+    server, its rids and outputs, the steps, the captured launches, the
+    capture seconds and K4's wrapper launches during the serve (outside
+    any replay)."""
+    from neuronx_distributed_llama3_2_tpu_torch.serving.faults import (
+        FaultInjector,
+        FaultPlan,
+    )
+
+    with counted_captures() as held:
+        server = make_server(cfg, model, prewarm=True, async_loop=True,
+                             injector=FaultInjector(FaultPlan(schedule=schedule)),
+                             **LADDER_KNOBS)
+        if fault is not None:
+            fault(server)
+        captures = []
+        capture = server._capture
+
+        def timed_capture(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = capture(fn)
+            torch.cuda.synchronize()
+            captures.append(time.perf_counter() - t0)
+            return out
+
+        server._capture = timed_capture
+        k4_before = k4_counts()
+        rids = [server.submit(p) for p in prompts]
+        steps, alive = [], True
+        while alive:
+            level = server._degrade_level
+            before = {k: r.replays for k, r in server.program_registry().items()}
+            t0 = time.perf_counter()
+            alive = server.step()
+            ms = (time.perf_counter() - t0) * 1e3
+            replayed = {k: r.replays - before.get(k, 0)
+                        for k, r in server.program_registry().items()
+                        if r.replays != before.get(k, 0)}
+            steps.append(dict(level=level, after=server._degrade_level, ms=ms,
+                              replayed=replayed,
+                              actions={a.type.value for a in server.action_trace[-1][2]}))
+        torch.cuda.synchronize()
+        k4_during = {s: n - k4_before[s] for s, n in k4_counts().items()}
+    outs = {rid: r.out for rid, r in sorted(server._finished.items())}
+    return dict(server=server, rids=rids, outs=outs, steps=steps, held=held,
+                captures=captures, k4_during=k4_during)
+
+
+def rung3_k4(run: dict) -> int:
+    """K4's launches, by replay, in the steps a serve dispatched at ladder
+    level 3 or more: each replayed record's replays in the step times the
+    launches its graph captured."""
+    held, registry = run["held"], run["server"].program_registry()
+    return sum(n * sum(held[id(registry[k].graph)].values())
+               for st in run["steps"] if st["level"] >= 3
+               for k, n in st["replayed"].items())
+
+
+def ladder_levels(steps) -> list:
+    """The levels a serve passed through, each once a visit (from 0)."""
+    seq = [0]
+    for st in steps:
+        if st["after"] != seq[-1]:
+            seq.append(st["after"])
+    return seq
+
+
+def fault_errors(run: dict) -> tuple:
+    """(failed rid -> error, the JAX engine's error strings for the fired
+    device faults): each fault fails the request on its victim lane."""
+    server = run["server"]
+    failed = {r: server.request_info(r)["error"] for r in run["rids"]
+              if server.request_info(r)["status"] == "failed"}
+    want = sorted(f"injected device fault at decode (lanes [{lanes[0]}])"
+                  for _, kind, site, lanes in server.injector.fired)
+    return failed, want
+
+
+def check_ladder_streams(label: str, model, prompts, run: dict, clean: list) -> None:
+    """The survivors' streams equal the clean twin's (``clean``, in prompt
+    order) under the near-tie rule, a failed request's partial stream is a
+    prefix of its clean stream (the same rule), and every served token is
+    within E2E_LOGIT_MARGIN of the plain forward's argmax."""
+    rids, outs = run["rids"], run["outs"]
+    failed = {r for r in rids if run["server"].request_info(r)["status"] == "failed"}
+    for j, r in enumerate(rids):
+        if r not in failed:
+            check(len(outs[r]) == MAX_NEW, f"{label}: request {j} produced {len(outs[r])}")
+    same_streams(label, model, prompts, [outs[r] for r in rids],
+                 [clean[j][: len(outs[r])] for j, r in enumerate(rids)], rids)
+    picks = [j for j, r in enumerate(rids) if outs[r]]
+    gap, exact, total = e2e_gaps(model, prompts, outs, rids, picks=picks)
+    log(f"{label}: {exact}/{total} served tokens are the plain forward's argmax; worst "
+        f"logit gap {gap:.6g} (margin {E2E_LOGIT_MARGIN})")
+    check(gap <= E2E_LOGIT_MARGIN, f"{label}: a served token is {gap} below the argmax")
+
+
+def check_clean_engine(label: str, server) -> None:
+    from neuronx_distributed_llama3_2_tpu_torch.serving.invariants import audit_engine
+
+    violations = audit_engine(server)
+    check(server._pending is None and server.allocator.active_blocks == 0
+          and server.allocator.leak_check() == [] and not violations,
+          f"{label}: pending {server._pending is not None}, active blocks "
+          f"{server.allocator.active_blocks}, leaks {server.allocator.leak_check()}, "
+          f"audit {violations}")
+
+
+def run_ladder_phase(cfg, model, prompts, clean: list, card: str) -> None:
+    """The degradation ladder on Serve's prewarmed async twin
+    (``degrade_after_faults=1``, LADDER_KNOBS), against the clean async
+    twin's streams (``clean``, in prompt order).
+
+    - Three device faults (LADDER_FAULTS): the ladder climbs 1 -> 2 -> 3
+      and back to 0, three degradations; rung 3 holds for at least 6
+      decode steps and the ladder is back at 0 with at least 4 decode
+      steps left. Exactly the victims fail, with the JAX engine's error
+      strings; the survivors' streams are the clean twin's (near-tie
+      rule) and every token is within E2E_LOGIT_MARGIN of the plain
+      forward. Rung 3 runs the gather twins, captured at their first use:
+      each launched K4 0 times when it was captured, every replay at
+      level >= 3 is of one, and K4 launches (by replay) at rung 3 are 0;
+      after the recovery the t1 source launches again by replay. Nothing
+      counts in steadystate_compiles, no K4 launch happens outside a
+      replay, the audit is clean and nothing leaks. Logs the levels step
+      by step, the capture seconds of the gather twins and the median
+      step ms by level (2 and 3 both synchronous: the gather against the
+      kernel).
+    - The same serve with the planted fault ``kernel_kept_at_rung_3``:
+      the rung-3 K4 count must read above 0.
+    - Four faults (LADDER_SHED_FAULTS): rung 4 sheds the youngest lane
+      (one preemption, one PREEMPT action with shed=True), which resumes
+      and ends with its clean stream."""
+    from neuronx_distributed_llama3_2_tpu_torch.serving.catalog import format_key
+
+    run = ladder_serve(cfg, model, prompts, LADDER_FAULTS)
+    server, steps = run["server"], run["steps"]
+    m = server.metrics
+    levels = ladder_levels(steps)
+    log(f"ladder: levels by step {[st['after'] for st in steps]}")
+    check(levels == [0, 1, 2, 3, 2, 1, 0] and m.degradations == 3,
+          f"ladder: the levels ran {levels}, degradations {m.degradations}")
+    decode = [st for st in steps if "DECODE_DISPATCH" in st["actions"]]
+    at3 = [st for st in decode if st["level"] >= 3]
+    last3 = max(i for i, st in enumerate(steps) if st["level"] >= 3)
+    back = max(i for i, st in enumerate(steps) if st["level"] > 0 or st["after"] > 0)
+    after0 = [st for st in steps[back + 1:] if "DECODE_DISPATCH" in st["actions"]]
+    check(len(at3) >= 6 and len(after0) >= 4,
+          f"ladder: {len(at3)} decode steps at rung 3, {len(after0)} back at level 0")
+    failed, want = fault_errors(run)
+    check(len(failed) == 3 and sorted(failed.values()) == want,
+          f"ladder: failed {failed}, want the errors {want}")
+    check_ladder_streams("ladder", model, prompts, run, clean)
+    registry = server.program_registry()
+    gathers = {k: r for k, r in registry.items() if gather_bit(k)}
+    check(any(k[0] == "pdecode" for k in gathers)
+          and all(not any(run["held"][id(r.graph)].values()) for r in gathers.values()),
+          f"ladder: gather twins {[format_key(k) for k in gathers]} captured K4 "
+          f"{[run['held'][id(r.graph)] for r in gathers.values()]}")
+    stray = [format_key(k) for st in steps if st["level"] >= 3 for k in st["replayed"]
+             if not gather_bit(k)]
+    check(not stray, f"ladder: replays at rung 3 of kernel records {stray}")
+    k4_at3 = rung3_k4(run)
+    check(k4_at3 == 0, f"ladder: {k4_at3} K4 launches at rung 3")
+    t1_after = sum(n * run["held"][id(registry[k].graph)]["t1"]
+                   for st in steps[last3 + 1:] for k, n in st["replayed"].items())
+    check(t1_after > 0, "ladder: the t1 source was not replayed after the recovery")
+    check(m.steadystate_compiles == 0 and not any(run["k4_during"].values()),
+          f"ladder: steadystate_compiles {m.steadystate_compiles}, K4 launched outside a "
+          f"replay {run['k4_during']}")
+    check_clean_engine("ladder", server)
+    by_level = {lv: float(np.median([st["ms"] for st in decode if st["level"] == lv]))
+                for lv in sorted({st["level"] for st in decode})}
+    log(f"ladder: {LADDER_FAULTS} on Serve's prewarmed async twin ({LADDER_KNOBS}): "
+        f"levels {levels}, degradations {m.degradations}; failed {failed}; "
+        f"{len(at3)} decode steps at rung 3, {len(after0)} back at level 0; gather twins "
+        f"{len(gathers)} ({[format_key(k) for k in gathers]}) captured at first use in "
+        f"{[round(s, 6) for s in run['captures']]} s, K4 launches at rung 3 {k4_at3}, "
+        f"t1 launches by replay after the recovery {t1_after}; median step ms by level "
+        f"{ {lv: round(v, 6) for lv, v in by_level.items()} } (levels 2 and 3 synchronous: "
+        f"kernel against gather), programs {m.programs_compiled} (prewarm "
+        f"{m.prewarm_compiles}), steadystate_compiles {m.steadystate_compiles} | {card}")
+    del run, server, registry, gathers
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    planted = ladder_serve(cfg, model, prompts, LADDER_FAULTS, fault=kernel_kept_at_rung_3)
+    bad = rung3_k4(planted)
+    log(f"ladder planted fault (_step_model keeps the kernel model at rung 3): K4 launches "
+        f"at rung 3 {bad}, outside a replay {planted['k4_during']}")
+    check(bad > 0, "ladder: the rung-3 K4 check passes a ladder that keeps the kernel")
+    del planted
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    run = ladder_serve(cfg, model, prompts, LADDER_SHED_FAULTS)
+    server, steps = run["server"], run["steps"]
+    m = server.metrics
+    shed = [(step, a.meta["rid"]) for step, _, acts in server.action_trace for a in acts
+            if a.type.value == "PREEMPT"]
+    shed_true = [(step, a.meta["rid"]) for step, _, acts in server.action_trace
+                 for a in acts if a.type.value == "PREEMPT" and a.meta["shed"]]
+    failed, want = fault_errors(run)
+    check(max(st["after"] for st in steps) == 4 and m.degradations == 4
+          and m.preemptions == 1 and len(shed) == 1 and shed == shed_true,
+          f"ladder shed: levels {ladder_levels(steps)}, degradations {m.degradations}, "
+          f"preemptions {m.preemptions}, PREEMPT actions {shed}")
+    check(len(failed) == 4 and sorted(failed.values()) == want,
+          f"ladder shed: failed {failed}, want {want}")
+    shed_rid = shed[0][1]
+    check(server.request_info(shed_rid)["status"] == "finished"
+          and server.request_info(shed_rid)["preemptions"] == 1,
+          f"ladder shed: the shed request {server.request_info(shed_rid)}")
+    check_ladder_streams("ladder shed", model, prompts, run, clean)
+    check(m.steadystate_compiles == 0 and not any(run["k4_during"].values()),
+          f"ladder shed: steadystate_compiles {m.steadystate_compiles}, K4 outside a "
+          f"replay {run['k4_during']}")
+    check_clean_engine("ladder shed", server)
+    log(f"ladder shed: {LADDER_SHED_FAULTS}: levels {ladder_levels(steps)}, degradations "
+        f"{m.degradations}; rung 4 shed request {shed_rid} at step {shed[0][0]} (PREEMPT "
+        f"shed=True), which resumed and finished with its clean stream; preemptions "
+        f"{m.preemptions}; failed {failed}; gather twins captured at first use "
+        f"{sorted(format_key(k) for k in server.program_registry() if gather_bit(k))} in "
+        f"{[round(s, 6) for s in run['captures']]} s | {card}")
+    del run, server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+#: the front door's objectives: every class's TTFT and TPOT (p99, ms)
+DOOR_SLO = dict(slo_ttft_p99_ms=250.0, slo_tpot_p99_ms=25.0)
+DOOR_CANCEL_AT = 4
+
+
+def door_prompt():
+    """The front door's ninth request (cancelled mid-stream): 100 seeded
+    tokens."""
+    return np.random.default_rng(SEED + 17).integers(0, 128256, size=100).tolist()
+
+
+async def http_call(host: str, port: int, method: str, target: str, body=None) -> tuple:
+    """One HTTP/1.1 request on a fresh loopback connection (the server
+    closes it after the response): (status, body bytes)."""
+    reader, writer = await asyncio.open_connection(host, port)
+    payload = b"" if body is None else json.dumps(body).encode()
+    writer.write(f"{method} {target} HTTP/1.1\r\nHost: {host}\r\nContent-Type: "
+                 f"application/json\r\nContent-Length: {len(payload)}\r\n\r\n".encode()
+                 + payload)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    await writer.wait_closed()
+    head, _, data = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), data
+
+
+def last_token_dropped(server_cls):
+    """A planted front-door fault: a ``GraftServer`` whose ``_pump`` never
+    pushes a finished request's last token into its stream."""
+    from neuronx_distributed_llama3_2_tpu_torch.serving.server import _DONE
+
+    class Dropping(server_cls):
+        def _pump(self):
+            for rid in list(self._streams):
+                q, sent = self._streams[rid]
+                toks = self.engine.request_tokens(rid)
+                done = self.engine.request_info(rid)["done"]
+                upto = len(toks) - 1 if done else len(toks)
+                for t in toks[sent:upto]:
+                    q.put_nowait(t)
+                self._streams[rid] = (q, max(upto, sent))
+                if done:
+                    q.put_nowait(_DONE)
+                    del self._streams[rid]
+
+    return Dropping
+
+
+def front_door(engine, prompts, server_cls=None) -> dict:
+    """``prompts`` through a ``GraftServer`` over ``engine`` listening on
+    ``serve_http("127.0.0.1", 0)``, from an in-process asyncio client:
+    request j POSTs /v1/completions with ``"stream"`` for j < 4 (SSE) and
+    without for the rest, class interactive / batch alternating, tenant
+    alpha / beta in pairs; the ninth request (``door_prompt``) is submitted
+    on the server and cancelled through POST /v1/requests/<rid>/cancel
+    after its DOOR_CANCEL_AT-th token. Then /metrics and /snapshot. The
+    engine's steady steps' uploads are recorded (a wrapper around its
+    ``step``). Returns each request's streamed tokens (SSE) and final
+    payload, the ninth's tokens, cancel answer and payload, the two
+    scrapes, the steady uploads and K4's wrapper launches during the run."""
+    from neuronx_distributed_llama3_2_tpu_torch.serving.server import GraftServer
+
+    server_cls = server_cls or GraftServer
+    steady = {"DECODE_DISPATCH", "READBACK", "AUDIT"}
+    uploads = []
+    inner = engine.step
+
+    def step():
+        before = engine.metrics.h2d_uploads
+        alive = inner()
+        actions = {a.type.value for a in engine.action_trace[-1][2]}
+        if actions <= steady and "DECODE_DISPATCH" in actions:
+            uploads.append(engine.metrics.h2d_uploads - before)
+        return alive
+
+    engine.step = step
+    k4_before = k4_counts()
+
+    async def main():
+        srv = server_cls(engine, idle_poll_s=0.002)
+        host, port = await srv.serve_http("127.0.0.1", 0)
+        try:
+            async def one(j):
+                status, data = await http_call(host, port, "POST", "/v1/completions", dict(
+                    prompt=prompts[j], stream=j < 4,
+                    service_class=("interactive", "batch")[j % 2],
+                    tenant=("alpha", "beta")[(j // 2) % 2]))
+                check(status == 200, f"front door: request {j} answered {status}")
+                if j >= 4:
+                    return None, json.loads(data)
+                text = data.decode()
+                events = [json.loads(line[len("data: "):]) for line in text.split("\n\n")
+                          if line.startswith("data: ") and line != "data: [DONE]"]
+                check("data: [DONE]" in text, f"front door: request {j}'s stream has no end")
+                return ([e["token"] for e in events if "token" in e],
+                        [e for e in events if "choices" in e][-1])
+
+            async def ninth():
+                rid = srv.submit(door_prompt(), service_class="interactive", tenant="alpha")
+                toks, answer = [], None
+                async for t in srv.stream(rid):
+                    toks.append(t)
+                    if len(toks) == DOOR_CANCEL_AT:
+                        status, data = await http_call(host, port, "POST",
+                                                       f"/v1/requests/{rid}/cancel")
+                        answer = (status, json.loads(data))
+                return rid, toks, answer, srv.response(rid)
+
+            results = await asyncio.gather(*(one(j) for j in range(len(prompts))), ninth())
+            scrapes = {}
+            for target in ("/metrics", "/snapshot"):
+                status, data = await http_call(host, port, "GET", target)
+                check(status == 200, f"front door: GET {target} answered {status}")
+                scrapes[target] = data.decode()
+            return results, scrapes
+        finally:
+            await srv.close()
+
+    t0 = time.perf_counter()
+    results, scrapes = asyncio.run(main())
+    wall = time.perf_counter() - t0
+    del engine.step  # the class's step again
+    torch.cuda.synchronize()
+    k4_during = {s: n - k4_before[s] for s, n in k4_counts().items()}
+    *door, (rid9, toks9, answer9, payload9) = results
+    return dict(streams=[d[0] for d in door], payloads=[d[1] for d in door], rid9=rid9,
+                toks9=toks9, answer9=answer9, payload9=payload9, scrapes=scrapes,
+                uploads=uploads, k4_during=k4_during, wall=wall)
+
+
+def door_streams_differ(model, prompts, run: dict, want: list) -> list:
+    """The requests whose streamed tokens (SSE) or payload token_ids are
+    not ``want`` (in prompt order): a length that differs, or a first
+    difference that is not a near tie (``same_streams`` fails on that)."""
+    bad = []
+    for kind, got in (("stream", run["streams"]),
+                      ("payload", [p["choices"][0]["token_ids"] for p in run["payloads"]])):
+        for j, toks in enumerate(got):
+            if toks is not None and len(toks) != len(want[j]):
+                bad.append((kind, j, len(toks)))
+        picks = [j for j, t in enumerate(got) if t is not None and len(t) == len(want[j])]
+        same_streams(f"front door {kind}s", model, [prompts[j] for j in picks],
+                     [got[j] for j in picks], [want[j] for j in picks], picks)
+    return bad
+
+
+def parse_metrics(text: str) -> int:
+    """The Prometheus text's samples, each ``name{labels} value`` with a
+    float value; raises on a line that is neither that nor a comment."""
+    n = 0
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, value = line.rsplit(" ", 1)
+        float(value)
+        check(bool(re.match(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})?$", name)),
+              f"front door: /metrics line {line!r}")
+        n += 1
+    return n
+
+
+def door_ttft(run: dict) -> dict:
+    """TTFT p50 (ms) by service class of the eight HTTP requests."""
+    by = {}
+    for p in run["payloads"]:
+        by.setdefault(p["service_class"], []).append(p["timing"]["ttft_ms"])
+    return {c: float(np.median(v)) for c, v in sorted(by.items())}
+
+
+def run_front_door_phase(cfg, model, prompts, clean: list, card: str) -> None:
+    """``GraftServer`` (serving/server.py) over Serve's prewarmed async
+    twin with ``step_policy="slo"`` and both objectives (DOOR_SLO),
+    listening on a loopback port (``front_door``). Each request's streamed
+    tokens (SSE) and payload token_ids equal the async twin's batch run
+    (``clean``, near-tie rule); the ninth request, cancelled after its
+    DOOR_CANCEL_AT-th token, ends failed with error type ``cancelled``;
+    /metrics and /snapshot parse, with active_streams 0;
+    steadystate_compiles 0, no upload on a steady step, no K4 launch
+    outside a replay; the audit is clean and nothing leaks. The planted
+    fault (``last_token_dropped``) serves the same traffic on a twin of
+    its own, and the stream check must fail on it. The same traffic under
+    the FIFO policy (a twin of its own) gives the TTFT p50 by class beside
+    the SLO policy's (logged, no limit). Each serve starts from a cold
+    prefix cache: a second serve of the same prompts on one engine
+    prefills them from the cache, another path in bf16."""
+    from neuronx_distributed_llama3_2_tpu_torch.serving.scheduler import SloPolicy
+    from neuronx_distributed_llama3_2_tpu_torch.serving.server import GraftServer
+
+    ttft = {}
+    for policy, planted in (("slo", False), ("slo", True), ("fifo", False)):
+        t0 = time.perf_counter()
+        engine = make_server(cfg, model, prewarm=True, async_loop=True, step_policy=policy,
+                             **DOOR_SLO)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        check(isinstance(engine.policy, SloPolicy) == (policy == "slo"),
+              f"front door: the {policy} twin runs {type(engine.policy).__name__}")
+        if planted:
+            run = front_door(engine, prompts, last_token_dropped(GraftServer))
+            bad = door_streams_differ(model, prompts, run, clean)
+            log(f"front door planted fault (each stream's last token dropped): differing "
+                f"{bad}")
+            check(bool(bad), "front door: the stream check passes a pump that drops the "
+                  "last token")
+            del engine, run
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        run = front_door(engine, prompts)
+        m = engine.metrics
+        bad = door_streams_differ(model, prompts, run, clean)
+        check(not bad, f"front door {policy}: streams differ {bad}")
+        info9 = engine.request_info(run["rid9"])
+        p9 = run["payload9"]
+        check(run["answer9"] == (200, {"rid": run["rid9"], "cancelled": True})
+              and info9["status"] == "failed" and p9["error"]["type"] == "cancelled"
+              and p9["choices"][0]["finish_reason"] == "cancelled"
+              and DOOR_CANCEL_AT <= len(run["toks9"]) < MAX_NEW
+              and p9["choices"][0]["token_ids"] == run["toks9"]
+              and m.cancelled_requests == 1 and m.finished == len(prompts),
+              f"front door {policy}: the cancelled request {info9}, answer {run['answer9']}, "
+              f"{len(run['toks9'])} tokens streamed, finished {m.finished}")
+        samples = parse_metrics(run["scrapes"]["/metrics"])
+        snap = json.loads(run["scrapes"]["/snapshot"])
+        check(snap["active_streams"] == 0 and m.active_streams == 0
+              and snap["finished"] == len(prompts) and samples > 0,
+              f"front door {policy}: snapshot active_streams {snap['active_streams']}, "
+              f"finished {snap['finished']}, {samples} metric samples")
+        check(m.steadystate_compiles == 0 and not any(run["k4_during"].values())
+              and run["uploads"] and not any(run["uploads"]),
+              f"front door {policy}: steadystate_compiles {m.steadystate_compiles}, K4 "
+              f"outside a replay {run['k4_during']}, steady uploads {run['uploads']}")
+        check_clean_engine(f"front door {policy}", engine)
+        ttft[policy] = door_ttft(run)
+        log(f"front door {policy}: GraftServer over Serve's prewarmed async twin "
+            f"(step_policy={policy}, {DOOR_SLO}; {m.prewarm_compiles} graphs in "
+            f"{capture_s:.6f} s) on a loopback port: {len(prompts)} requests (4 SSE, 4 "
+            f"plain) in {run['wall']:.6f} s, streams and payloads equal to the async "
+            f"twin's batch run; request 9 cancelled after {len(run['toks9'])} tokens "
+            f"({p9['error']}); /metrics {samples} samples, /snapshot active_streams "
+            f"{snap['active_streams']}, slo_alerts {snap['slo_alerts']}, slo_burn_ttft "
+            f"{snap['slo_burn_ttft']}, slo_burn_tpot {snap['slo_burn_tpot']}; "
+            f"{len(run['uploads'])} steady steps, uploads a steady step "
+            f"{max(run['uploads'])}; steadystate_compiles {m.steadystate_compiles}; TTFT "
+            f"p50 by class {ttft[policy]} ms | {card}")
+        del engine, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"front door: TTFT p50 by class, slo {ttft['slo']} against fifo {ttft['fifo']} ms "
+        f"(the same traffic, each on a twin of its own) | {card}")
+
+
 # -- 4h. tiered KV storage (host-RAM spill and restore) ---------------------------
 
 #: the spill serves' pool of 16-row blocks, cut so that the fillers'
@@ -4500,6 +5034,9 @@ def main() -> int:
     timed("serve graphs fault", run_graph_fault_phase, cfg, model, prompts, card)
     timed("faults", run_fault_phase, cfg, model, prompts, [outs[r] for r in rids],
           serve_twin, card)
+    # the degradation ladder and the front door, on Serve's async twin
+    timed("ladder", run_ladder_phase, cfg, model, prompts, serve_async["outs"], card)
+    timed("front door", run_front_door_phase, cfg, model, prompts, serve_async["outs"], card)
     # tiered KV storage: Serve's prompts as a churn that spills the shared
     # prefix to host RAM and restores it
     timed("spill", run_spill_phase, cfg, model, card)

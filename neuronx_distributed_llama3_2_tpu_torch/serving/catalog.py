@@ -14,8 +14,13 @@ as there). The decode-time keys' checked bit is the engine's
 can fire ``nan``), as there: an engine holds only checked or only
 unchecked decode-time programs. ``PagedConfig.spill_enabled`` adds the
 tiered KV storage's ``("block_save", quantized)`` and ``("block_restore",
-quantized)`` keys, as there. The degradation ladder's gather twins are
-not ported, so the gather bit is always False.
+quantized)`` keys, as there. ``PagedConfig.degrade_after_faults`` (the
+degradation ladder armed) adds the kernel-shed rung's gather twin of
+every prefill and decode-time key to the legal universe
+(:meth:`CatalogManifest.keys`), as there; ``prewarm`` captures none of
+them (:meth:`CatalogManifest.graph_keys` is gather-free, as the JAX
+package's ``prewarm_keys`` is): the rung captures each twin at its first
+use.
 
 Where the JAX package compiles every key, ``PagedConfig.prewarm`` here
 captures the program kinds (:data:`GRAPH_KINDS`: the prefills ``pctx`` /
@@ -140,9 +145,11 @@ class BucketLadder:
 @dataclasses.dataclass(frozen=True)
 class CatalogManifest:
     """Ladder × variant-flag expansion into the exact legal key set of
-    the engine's ``_programs`` registry. Every key's gather bit is False;
-    the decode-time keys' checked bit is ``checked`` (see the module
-    docstring)."""
+    the engine's ``_programs`` registry. ``gather_variants`` admits the
+    degradation ladder's kernel-shed twins (gather bit True) as legal keys
+    without capturing them: :meth:`prewarm_keys` and :meth:`graph_keys`
+    are the gather-free subset. The decode-time keys' checked bit is
+    ``checked`` (see the module docstring)."""
 
     ladder: BucketLadder
     # SamplingConfig (frozen/hashable — rides inside keys), or "lane"
@@ -152,6 +159,9 @@ class CatalogManifest:
     # the engine's fixed _check_logits bit: the checked (finite-verified)
     # decode-time programs replace the unchecked ones
     checked: bool = False
+    # PagedConfig.degrade_after_faults: the kernel-shed rung's gather twins
+    # are legal keys (captured at first use, never by prewarm)
+    gather_variants: bool = False
     # PagedConfig.fused_step: prefill suffixes ride the pmixed grid, so
     # the psfx keys leave the universe entirely and the mixed_t × kv
     # ladder replaces the psfx suffix-pair product
@@ -168,7 +178,8 @@ class CatalogManifest:
     def from_engine(cls, engine: Any) -> "CatalogManifest":
         """Derive the manifest a :class:`PagedServingEngine` (duck-typed)
         declares: its serving ladders, sampling config, quantization,
-        checked bit, fused step, spill tier and tree speculation."""
+        checked bit, whether the degradation ladder may mint gather twins,
+        fused step, spill tier and tree speculation."""
         spec_k = int(getattr(engine, "_spec_k", 0) or 0)
         mixed_t = int(getattr(engine, "_mixed_t", 0) or 0)
         ladder = BucketLadder(
@@ -189,13 +200,14 @@ class CatalogManifest:
             ),
             quantized=bool(getattr(engine, "_kv_quantized", False)),
             checked=bool(getattr(engine, "_check_logits", False)),
+            gather_variants=bool(engine.paged.degrade_after_faults),
             fused_step=bool(getattr(engine, "_fused_step", False)),
             spill=bool(getattr(engine, "_spill", False)),
             spec_tree=bool(getattr(engine, "_spec_tree", False)),
         )
 
-    def _expand(self) -> List[tuple]:
-        lad, cfg, g, chk = self.ladder, self.sampling, False, self.checked
+    def _expand(self, gathers: Tuple[bool, ...]) -> List[tuple]:
+        lad, cfg, chk = self.ladder, self.sampling, self.checked
         keys: List[tuple] = [
             ("copy_block", self.quantized),
             ("lane_set",),
@@ -204,32 +216,37 @@ class CatalogManifest:
         if self.spill:
             keys.append(("block_save", self.quantized))
             keys.append(("block_restore", self.quantized))
-        for b in lad.prefill_buckets:
-            keys.append(("pctx", b, cfg, g))
-        if not self.fused_step:
-            # fused mode NEVER dispatches a suffix prefill: cached > 0
-            # admissions route to the pmixed grid, so the psfx
-            # suffix-pair product leaves the universe entirely
-            for b, kv in lad.suffix_pairs():
-                keys.append(("psfx", b, kv, cfg, g))
-        for kv in lad.kv_buckets:
-            keys.append(("pdecode", cfg, kv, g, chk))
-        verify_kind = "ptree" if self.spec_tree else "pverify"
-        for k in lad.verify_t:
+        for g in gathers:
+            for b in lad.prefill_buckets:
+                keys.append(("pctx", b, cfg, g))
+            if not self.fused_step:
+                # fused mode NEVER dispatches a suffix prefill: cached > 0
+                # admissions route to the pmixed grid, so the psfx
+                # suffix-pair product leaves the universe entirely
+                for b, kv in lad.suffix_pairs():
+                    keys.append(("psfx", b, kv, cfg, g))
             for kv in lad.kv_buckets:
-                keys.append((verify_kind, kv, k, g, chk))
-        for t in lad.mixed_t:
-            for kv in lad.kv_buckets:
-                keys.append(("pmixed", t, kv, cfg, g, chk))
+                keys.append(("pdecode", cfg, kv, g, chk))
+            verify_kind = "ptree" if self.spec_tree else "pverify"
+            for k in lad.verify_t:
+                for kv in lad.kv_buckets:
+                    keys.append((verify_kind, kv, k, g, chk))
+            for t in lad.mixed_t:
+                for kv in lad.kv_buckets:
+                    keys.append(("pmixed", t, kv, cfg, g, chk))
         return keys
 
     def keys(self) -> FrozenSet[tuple]:
-        """Every key the engine may legally hold."""
-        return frozenset(self._expand())
+        """Every key the engine may legally hold (the gather twins included
+        when the degradation ladder is armed)."""
+        gathers = (False, True) if self.gather_variants else (False,)
+        return frozenset(self._expand(gathers))
 
     def prewarm_keys(self) -> List[tuple]:
-        """The manifest in the JAX package's deterministic compile order."""
-        return self._expand()
+        """The gather-free manifest in the JAX package's deterministic
+        compile order: the kernel-shed rung registers its gather twins at
+        their first use."""
+        return self._expand((False,))
 
     def graph_keys(self) -> List[tuple]:
         """The part of :meth:`prewarm_keys` that the port's ``prewarm``
@@ -246,8 +263,8 @@ class CatalogManifest:
         kinds = {k[0] for k in self.graph_keys()}
         flags = [f for f, on in (
             ("quant", self.quantized), ("checked", self.checked),
-            ("fused-step", self.fused_step), ("spill", self.spill),
-            ("spec-tree", self.spec_tree),
+            ("gather-variants", self.gather_variants), ("fused-step", self.fused_step),
+            ("spill", self.spill), ("spec-tree", self.spec_tree),
         ) if on]
         return (
             f"B={lad.decode_batch} prefill={list(lad.prefill_buckets)} "

@@ -3,7 +3,7 @@ preempt-and-requeue under pool pressure.
 
 Counterpart of ``neuronx_distributed_llama3_2_tpu/serving/engine.py``
 (``PagedConfig``, ``PagedServingEngine``, ``make_serving_engine``), ported
-for the FIFO loop, synchronous or async:
+for the FIFO and the SLO-aware step policies, synchronous or async:
 
 - KV rows live in a global pool of fixed-size blocks
   (:class:`..inference.model.PagedKVCache`); each request carries a block
@@ -55,11 +55,15 @@ for the FIFO loop, synchronous or async:
   sampled stream, a preempted request resumes it token for token, and one
   captured graph serves every sampling config. The draws are the JAX
   engine's bit for bit.
-- Each :meth:`PagedServingEngine.step` runs the FIFO policy's schedule
-  (serving/policy.py): drain, admit (with inline prefill), then one fused
-  mixed dispatch while a lane prefills under ``fused_step``, else one chunk
-  per prefilling lane and a verify dispatch (speculation) or one batched
-  T=1 decode over every active lane, read back.
+- Each :meth:`PagedServingEngine.step` runs its step policy's schedule
+  (serving/policy.py; FIFO by default): drain, admit (with inline
+  prefill), then one fused mixed dispatch while a lane prefills under
+  ``fused_step``, else one chunk per prefilling lane and a verify dispatch
+  (speculation) or one batched T=1 decode over every active lane, read
+  back. ``step_policy="slo"`` (or ``policy=SloPolicy(...)``,
+  :mod:`.scheduler`) ranks the waiting queue by service class, burn and
+  tenant (an ADMIT's ``admit_order``) and caps a step's prefill chunks
+  (a PREFILL_CHUNK's ``budget_tokens``).
 - ``PagedConfig.async_loop`` runs the steady state (no waiting request,
   no lane mid-prefill) as a depth-1 lookahead: step N+1 is dispatched from
   the device-resident state before step N's tokens are read back, so a
@@ -82,6 +86,16 @@ for the FIFO loop, synchronous or async:
   (:class:`.faults.EngineStalledError`), ``trace_enabled`` the flight
   recorder (:meth:`PagedServingEngine.export_trace`) and
   ``metrics_log_every`` the periodic metrics line.
+- The degradation ladder (``PagedConfig.degrade_after_faults``): every
+  failed request, fault without a victim, pool-pressure preemption,
+  drafter fault and (under ``slo_degrade``) SLO alert is an event; that
+  many events inside ``degrade_window_steps`` climb one rung (1 sheds
+  speculation, 2 the async lookahead, 3 the paged-attention kernel: every
+  program then binds a ``use_paged_kernel=False`` twin of the decode
+  model, the catalog's gather twins, 4 sheds the youngest lane by
+  preemption), and ``degrade_recover_steps`` clean steps step one rung
+  back down. Under prewarm a gather twin is captured at its first use
+  and does not count in ``steadystate_compiles``.
 - Tiered KV storage (``PagedConfig.spill_enabled``): a cached block the
   allocator evicts is not discarded; its payload (K, V, and the scale
   tiles of a quantized pool) is snapshotted on the device, copied into
@@ -181,7 +195,6 @@ from neuronx_distributed_llama3_2_tpu_torch.serving.metrics import ServingMetric
 from neuronx_distributed_llama3_2_tpu_torch.serving.policy import (
     ActionType,
     EngineView,
-    FifoPolicy,
     StepAction,
     StepPolicy,
     make_policy,
@@ -275,14 +288,15 @@ class PagedConfig:
     # the ledger's device-memory budget (None: the card's total memory)
     hbm_budget_bytes: Optional[int] = None
     # latency objectives (p99 targets in ms; None = not declared) and the
-    # burn-rate alerts; slo_degrade feeds the (unported) degradation ladder
+    # burn-rate alerts; slo_degrade feeds an alert to the degradation ladder
     slo_ttft_p99_ms: Optional[float] = None
     slo_tpot_p99_ms: Optional[float] = None
     slo_eval_steps: int = 16
     slo_burn_window: int = 4
     slo_burn_threshold: float = 1.0
     slo_degrade: bool = False
-    # step scheduling: only the FIFO policy is ported
+    # step scheduling: "fifo" or "slo" (serving/scheduler.py); the
+    # certified policy tables of "table" are not ported
     step_policy: str = "fifo"
     policy_table_path: Optional[str] = None
 
@@ -292,19 +306,15 @@ class PagedConfig:
 #: where the default is falsy) makes PagedServingEngine raise. ``prewarm``
 #: is ported (every prefill and decode-time program as a CUDA graph) for
 #: greedy decoding and, under ``on_device_sampling``, sampled decoding;
-#: host-sampled decoding raises in :meth:`PagedServingEngine.prewarm`. The
-#: fault-tolerance knobs (``detect_nonfinite``, ``audit_interval``,
-#: ``audit_debug``, ``stall_step_limit``, ``trace_enabled``,
-#: ``metrics_log_every``), the tiered KV storage, the cost accounting and
-#: the SLO objectives are ported; the degradation ladder, which an SLO
-#: alert feeds under ``slo_degrade``, is not.
+#: host-sampled decoding raises in :meth:`PagedServingEngine.prewarm`.
+#: Every other knob is ported but the policy tables, which the analyzer
+#: ``analysis/graftplan.py`` certifies (``step_policy="table"`` raises in
+#: :func:`.policy.make_policy` for the same reason).
 UNPORTED_KNOBS: Dict[str, str] = {
-    "slo_degrade": "the degradation ladder",
-    "degrade_after_faults": "the degradation ladder",
-    "degrade_window_steps": "the degradation ladder",
-    "degrade_recover_steps": "the degradation ladder",
-    "step_policy": "step policies other than fifo",
-    "policy_table_path": "certified policy tables",
+    "policy_table_path": (
+        "certified policy tables (TablePolicy and analysis/graftplan.py, which "
+        "come with the analyzer slice)"
+    ),
 }
 
 
@@ -420,11 +430,6 @@ class PagedServingEngine:
         policy: Optional[StepPolicy] = None,
     ) -> None:
         check_ported(paged)
-        if policy is not None and not isinstance(policy, FifoPolicy):
-            raise NotImplementedError(
-                f"policy={type(policy).__name__}: only the FIFO step policy "
-                "is ported to the PyTorch package"
-            )
         self.engine = engine
         self.model = engine.model
         self.gen = gen
@@ -489,8 +494,15 @@ class PagedServingEngine:
             self.drafter = NGramDrafter(
                 max_n=paged.spec_ngram_max, min_n=paged.spec_ngram_min
             )
-        # the degradation ladder is not ported: the policy reads level 0
+        # the degradation ladder: level 0 = everything on; 1 sheds
+        # speculation, 2 the async lookahead (both read by the policy), 3
+        # the paged-attention kernel (the programs bind a gather twin of
+        # the decode model, _step_model), 4 sheds the youngest lane by
+        # preemption on each further climb
         self._degrade_level = 0
+        self._event_steps: deque = deque()  # step indices of recent events
+        self._last_event_step = 0
+        self._gather_model = None  # the use_paged_kernel=False twin, lazily
         self.policy = policy if policy is not None else make_policy(
             paged.step_policy
         )
@@ -863,6 +875,26 @@ class PagedServingEngine:
         sampling config."""
         return "lane" if self._fused else self.gen.sampling
 
+    def _step_model(self):
+        """The decode model a program registered now binds: ``self.model``,
+        or at ladder level >= 3 a ``use_paged_kernel=False`` twin of it,
+        built at the first climb, so that every program registered on that
+        rung takes the block-table gather instead of the paged-attention
+        kernel. The twin holds no weights (the steps take the engine's
+        ``params``) and reads the same pool, so a rung only changes which
+        registered program a dispatch picks."""
+        if self._degrade_level >= 3 and self.model.config.use_paged_kernel:
+            if self._gather_model is None:
+                self._gather_model = type(self.model)(
+                    dataclasses.replace(self.model.config, use_paged_kernel=False)
+                )
+            return self._gather_model
+        return self.model
+
+    def _gather_shed(self) -> bool:
+        """The gather bit of the program keys: the kernel-shed rung."""
+        return self._step_model() is not self.model
+
     def _lane_sampling(self) -> Optional[tuple]:
         """The ``sampling=`` tuple of the model's steps under on-device
         sampling, the residents themselves; None on the host path."""
@@ -885,8 +917,10 @@ class PagedServingEngine:
         write-back. Returns a callable giving ``(tokens,)`` (a prefill's
         (1,) token; pdecode's resident itself) or ``(emitted, accept)``; a
         checked key's (its last field) step reads the family's poison mask
-        and returns its (B,) ``finite`` last."""
-        model, params, cap = self.model, self.engine.params, self._pos_cap
+        and returns its (B,) ``finite`` last. The step binds
+        :meth:`_step_model`: a gather key's (registered on the kernel-shed
+        rung) the gather twin."""
+        model, params, cap = self._step_model(), self.engine.params, self._pos_cap
         kind = key_[0]
         # the decode-time keys end in their checked bit
         poison = inputs.get("poison") if kind not in ("pctx", "psfx") and key_[-1] else None
@@ -1013,7 +1047,22 @@ class PagedServingEngine:
         (:meth:`_capture`), otherwise the step itself, which each call
         runs eagerly. Counts in ``programs_compiled``, and in
         ``prewarm_compiles`` during :meth:`prewarm` or
-        ``steadystate_compiles`` after :meth:`mark_steady`."""
+        ``steadystate_compiles`` after :meth:`mark_steady`, but for the
+        kernel-shed rung's gather twins, which ``prewarm`` never captures
+        and the rung registers at their first use, as the JAX package
+        exempts them.
+
+        Such a capture happens mid-serve, and drains the device first:
+        ``torch.cuda.graph`` synchronizes before it begins, so every
+        replay, spill copy and lookahead step in flight has finished (a
+        lookahead's tokens already sit in their host buffer behind its
+        event; the FIFO and SLO policies turn the async loop off at rung 2
+        anyway). Its warm-up call runs the step the replay then runs (the
+        dispatch's payload is in the static buffers already, and the
+        residents are put back after it), so its pool writes are the
+        replay's own, and it allocates from the graphs' shared pool, whose
+        graphs replay one at a time on the compute stream. A twin that
+        fails to capture raises, as any key does."""
         kind = key_[0]
         if kind not in GRAPH_KINDS:
             raise ValueError(
@@ -1023,15 +1072,17 @@ class PagedServingEngine:
         inputs = self._family_inputs(kind)
         fn = self._step_fn(key_, inputs)
         rec = ProgramRecord(key=key_, kind=kind, fn=fn, inputs=inputs)
+        gather = self._gather_shed()
         if self.paged.prewarm and self.device.type == "cuda":
             rec.graph, rec.outputs = self._capture(fn)
         self._programs[key_] = rec
         self.metrics.programs_compiled += 1
         if self._prewarming:
             self.metrics.prewarm_compiles += 1
-        elif self._frozen_keys is not None:
+        elif self._frozen_keys is not None and not gather:
             # a capture after the freeze is a stall under live traffic:
-            # the runtime twin of the JAX package's GC008
+            # the runtime twin of the JAX package's GC008. The kernel-shed
+            # rung's gather twins are exempt: it mints them on purpose
             self.metrics.steadystate_compiles += 1
         return rec
 
@@ -1255,8 +1306,8 @@ class PagedServingEngine:
     def _fail_request(self, req: _PagedRequest, error: str) -> None:
         """Terminal failure: blocks released, lane freed, the request lands
         in ``_finished`` with ``failed=True`` and its partial output. Nothing
-        is registered in the prefix index. Only with no lookahead in flight
-        (callers drain first)."""
+        is registered in the prefix index. A degradation-ladder event. Only
+        with no lookahead in flight (callers drain first)."""
         if self._pending is not None:
             raise RuntimeError("failing a lane with a step in flight")
         if req.rid in self._finished:
@@ -1278,6 +1329,7 @@ class PagedServingEngine:
         self._note_terminal(req)
         self.tracer.instant("request_failed", rid=req.rid, error=req.error[:160])
         self.tracer.request_state(req.rid, "failed")
+        self._note_event()
         logger.warning(
             "request %d failed after %d tokens: %s",
             req.rid, len(req.out), req.error,
@@ -1328,18 +1380,69 @@ class PagedServingEngine:
         """A device fault raised at a dispatch funnel: retire the lookahead
         in flight (its tokens are valid: it ran before the fault), fail the
         victim lanes' requests, and keep serving; the survivors redispatch
-        next step from untouched state."""
+        next step from untouched state. The fault is one ladder event."""
         self._drain_pending()
+        failed_any = False
         for lane in fault.lanes:
             req = self._active.get(lane)
             if req is not None:
                 self._fail_request(req, str(fault))
+                failed_any = True
+        if not failed_any:
+            self._note_event()  # _fail_request notes it otherwise
         return bool(self._active or self._queue)
 
     def _trace_fault(self, step: int, kind: str, site: str, lanes) -> None:
         """``FaultInjector.on_fire``: every firing lands in the flight
         recorder as an instant."""
         self.tracer.instant("fault", kind=kind, site=site, lanes=list(lanes))
+
+    def _note_event(self) -> None:
+        """Record one fault or pressure event for the degradation ladder."""
+        self._last_event_step = self._step_index
+        if self.paged.degrade_after_faults:
+            self._event_steps.append(self._step_index)
+
+    def _update_ladder(self) -> None:
+        """Climb one rung when ``degrade_after_faults`` events fall inside
+        the last ``degrade_window_steps`` steps; step one rung back down
+        after ``degrade_recover_steps`` steps without one. A climb consumes
+        its window, and at the top rung every climb sheds the youngest lane
+        by preemption (after draining the lookahead), which is not itself
+        an event."""
+        cfg = self.paged
+        if not cfg.degrade_after_faults:
+            return
+        horizon = self._step_index - cfg.degrade_window_steps
+        while self._event_steps and self._event_steps[0] <= horizon:
+            self._event_steps.popleft()
+        if len(self._event_steps) >= cfg.degrade_after_faults:
+            self._event_steps.clear()
+            self._last_event_step = self._step_index
+            if self._degrade_level < 4:
+                self._degrade_level += 1
+                self.metrics.degradations += 1
+                self.metrics.degradation_level = self._degrade_level
+                logger.warning("degradation ladder: climbing to level %d", self._degrade_level)
+                self.tracer.instant(
+                    "degradation", level=self._degrade_level, direction="climb",
+                )
+            if self._degrade_level >= 4 and len(self._active) > 1:
+                self._drain_pending()
+                victim = max(self._active.values(), key=lambda r: r.rid)
+                self._preempt(victim, shed=True)
+        elif (
+            self._degrade_level
+            and self._step_index - self._last_event_step >= cfg.degrade_recover_steps
+        ):
+            self._degrade_level -= 1
+            self.metrics.degradation_level = self._degrade_level
+            # one rung per clean window
+            self._last_event_step = self._step_index
+            logger.info("degradation ladder: recovered to level %d", self._degrade_level)
+            self.tracer.instant(
+                "degradation", level=self._degrade_level, direction="recover",
+            )
 
     def _progress_sig(self) -> tuple:
         """Everything that moves when the engine does useful work: two
@@ -1673,6 +1776,16 @@ class PagedServingEngine:
 
     # -- admission and prefill ----------------------------------------------
 
+    def _reorder_queue(self, order: Sequence[int]) -> None:
+        """Reorder the waiting queue to ``order``, a ranking of rids (an
+        ADMIT's ``admit_order``). Rids no longer queued are ignored;
+        queued requests ``order`` leaves out keep their FCFS order behind
+        the ranked ones, so a policy can promote a request but not lose
+        one."""
+        by_rid = {r.rid: r for r in self._queue}
+        ranked = [by_rid.pop(rid) for rid in order if rid in by_rid]
+        self._queue = ranked + [r for r in self._queue if r.rid in by_rid]
+
     def _admit(self) -> None:
         """Admission wave, recorded as one ADMIT action."""
         if not (self._queue and self._free_lanes):
@@ -1855,11 +1968,11 @@ class PagedServingEngine:
         if self._fused:
             self._upload_lane_sampling(inputs, lane)
         if cached == 0:
-            key_ = ("pctx", bucket, self._decode_cfg(), False)
+            key_ = ("pctx", bucket, self._decode_cfg(), self._gather_shed())
         else:
             kv_limit = self._kv_bucket(min(cached + bucket, eng.max_seq_len))
             self._upload_into(inputs["start"], [cached])
-            key_ = ("psfx", bucket, kv_limit, self._decode_cfg(), False)
+            key_ = ("psfx", bucket, kv_limit, self._decode_cfg(), self._gather_shed())
         (tok,) = self._program(key_)()
         self.metrics.note_prefill_dispatch(bucket, length, *self._dispatch_cost(key_))
         return int(self._read_tokens(tok)[0])
@@ -1871,19 +1984,22 @@ class PagedServingEngine:
         through the suffix path, attending the earlier chunks through the
         table. A non-final chunk's sampled token is discarded; bucket
         padding is safe because padded writes land at rows a later chunk
-        overwrites before any mask admits them. ``budget_tokens`` (a cap
-        on the wave's prefill tokens, set only by the SLO-aware policies)
-        is not ported; FIFO passes None."""
-        if budget_tokens is not None:
-            raise NotImplementedError(
-                "PREFILL_CHUNK budget_tokens comes with the SLO-aware step "
-                "policies, which are not ported to the PyTorch package yet"
-            )
+        overwrites before any mask admits them.
+
+        ``budget_tokens`` (a PREFILL_CHUNK's meta, from the SLO-aware
+        policy) caps the wave's prefill tokens: once one chunk ran and the
+        budget is spent, the other prefilling lanes wait for the next step,
+        so a budget paces prefill and never starves it. It does not change
+        a chunk's size, so every chunk still lands on a catalog key. None
+        (FIFO's) is the unbounded wave."""
         chunk = self.paged.prefill_chunk_tokens
         bs = self.paged.block_size
+        spent = 0
         for lane, req in list(self._active.items()):
             if not req.prefilling:
                 continue
+            if budget_tokens is not None and spent > 0 and spent >= budget_tokens:
+                break
             seq = req.prompt + req.out
             start = req.prefill_pos
             piece = seq[start: start + chunk]
@@ -1908,6 +2024,7 @@ class PagedServingEngine:
             self.tracer.complete("prefill_chunk", t_p, t_p1, rid=req.rid,
                                  tokens=len(piece), final=final)
             req.prefill_pos = start + len(piece)
+            spent += len(piece)
             self.metrics.prefill_tokens += len(piece)
             self.metrics.prefill_chunks += 1
             self._emit_action(
@@ -1936,10 +2053,13 @@ class PagedServingEngine:
 
     # -- decode -----------------------------------------------------------
 
-    def _preempt(self, req: _PagedRequest) -> None:
+    def _preempt(self, req: _PagedRequest, shed: bool = False) -> None:
         """Pool exhausted: bump the request back to the queue head. Its
         registered prefix blocks park in the cached LRU, so re-admission
-        usually re-shares them instead of re-prefilling from scratch."""
+        usually re-shares them instead of re-prefilling from scratch. A
+        pool-pressure preemption is a degradation-ladder event; the top
+        rung's own load shedding (``shed=True``) is not, so that shedding
+        does not climb the ladder again."""
         lane = req.lane
         self._release_lane(req)
         req.position = 0
@@ -1951,9 +2071,11 @@ class PagedServingEngine:
         self._queue.insert(0, req)
         req.preemptions += 1
         self.metrics.preemptions += 1
-        self._emit_action(ActionType.PREEMPT, rid=req.rid, lane=lane, shed=False)
-        self.tracer.instant("preempt", rid=req.rid, shed=False)
+        self._emit_action(ActionType.PREEMPT, rid=req.rid, lane=lane, shed=shed)
+        self.tracer.instant("preempt", rid=req.rid, shed=shed)
         self.tracer.request_state(req.rid, "preempted")
+        if not shed:
+            self._note_event()  # sustained pool pressure feeds the ladder
         logger.debug(
             "preempted request %d (pool exhausted): %d generated so far",
             req.rid, len(req.out),
@@ -2181,7 +2303,7 @@ class PagedServingEngine:
         self._chaos_device("decode", decode_lanes)
         kv_need = int(max(self._positions[l] for l in decode_lanes)) + 1
         kv_limit = self._kv_bucket(kv_need)
-        key_ = ("pdecode", self._decode_cfg(), kv_limit, False, self._check_logits)
+        key_ = ("pdecode", self._decode_cfg(), kv_limit, self._gather_shed(), self._check_logits)
         self.metrics.note_decode_dispatch(kv_limit, kv_need, *self._dispatch_cost(key_))
         smode = self._note_sampling_dispatch()
         if self._check_logits:
@@ -2268,6 +2390,7 @@ class PagedServingEngine:
                 # a drafter bug costs this lane its speculation for one
                 # step, never the request: the lane takes a plain step
                 self.metrics.drafter_faults += 1
+                self._note_event()
                 logger.warning("drafter failed for request %d: %s", req.rid, exc)
                 continue
             if drafts:
@@ -2383,7 +2506,7 @@ class PagedServingEngine:
         kv_need = int(max(self._positions[l] for l in decode_lanes)) + k + 1
         kv_limit = self._kv_bucket(kv_need)
         kind = "ptree" if self._spec_tree else "pverify"
-        key_ = (kind, kv_limit, k, False, self._check_logits)
+        key_ = (kind, kv_limit, k, self._gather_shed(), self._check_logits)
         self.metrics.note_decode_dispatch(kv_limit, kv_need, *self._dispatch_cost(key_))
         smode = self._note_sampling_dispatch()
         # the payload lands before the lookup: a late capture's warm-up
@@ -2502,7 +2625,8 @@ class PagedServingEngine:
             max((int(self._positions[l]) for l in decode_lanes), default=0),
         ) + t
         kv_limit = self._kv_bucket(kv_need)
-        key_ = ("pmixed", t, kv_limit, self._decode_cfg(), False, self._check_logits)
+        key_ = ("pmixed", t, kv_limit, self._decode_cfg(), self._gather_shed(),
+                self._check_logits)
         self.metrics.note_decode_dispatch(kv_limit, kv_need, *self._dispatch_cost(key_))
         smode = self._note_sampling_dispatch()
         t_d = time.perf_counter()
@@ -2599,6 +2723,11 @@ class PagedServingEngine:
         if t is ActionType.READBACK:
             self._drain_pending()
         elif t is ActionType.ADMIT:
+            # a policy may rank the waiting queue before the wave; the wave
+            # itself stays strict head of line over the reordered queue
+            order = act.meta.get("admit_order") if act.meta else None
+            if order is not None:
+                self._reorder_queue(order)
             self._admit()
         elif t is ActionType.PREFILL_CHUNK:
             if self._fused_step:
@@ -2633,6 +2762,9 @@ class PagedServingEngine:
             )
 
     def _step_inner(self) -> bool:
+        # the ladder's rungs 1 and 2 are the policy's (it reads
+        # view.degrade_level); rung 3 is applied at program selection
+        # (_step_model), rung 4 in _update_ladder
         n = 0
         for act in self.policy.actions(self._view):
             n += 1
@@ -2645,9 +2777,9 @@ class PagedServingEngine:
         return bool(self._active or self._queue)
 
     def step(self) -> bool:
-        """Execute one step schedule of the FIFO policy: admit waiting
-        requests (prefilling each inline), then advance every active lane
-        one token. Pool exhaustion preempts and requeues instead of
+        """Execute one step schedule of the step policy (FIFO's: admit
+        waiting requests, prefilling each inline, then advance every active
+        lane one token). Pool exhaustion preempts and requeues instead of
         raising. With ``PagedConfig.async_loop`` the steady state runs one
         step ahead of its readback, so request state trails the device by
         a step until the lookahead drains. Returns False when nothing is
@@ -2656,7 +2788,8 @@ class PagedServingEngine:
         Failure domains: an injected device fault aborts only its victim
         lane (terminal ``failed`` status, blocks released; the survivors
         redispatch from untouched state); every ``audit_interval`` steps
-        the invariant auditor runs; a ``stall_step_limit`` raises
+        the invariant auditor runs; repeated faults or sustained pool
+        pressure climb the degradation ladder; a ``stall_step_limit`` raises
         :class:`.faults.EngineStalledError` instead of letting
         :meth:`run_to_completion` spin on a wedged lane."""
         t0 = time.perf_counter()
@@ -2687,9 +2820,12 @@ class PagedServingEngine:
         self.metrics.hist_queue_depth.observe(len(self._queue))
         self.metrics.queued_requests = len(self._queue)
         if self._slo is not None:
-            # burn evaluation; slo_degrade's ladder is not ported, so an
-            # alert feeds nothing
-            self._slo.on_step(self._step_index, tracer=self.tracer)
+            # the burn evaluation before the ladder's update, so that an
+            # alert's event (slo_degrade) lands in this step's window
+            self._slo.on_step(
+                self._step_index, tracer=self.tracer, note_event=self._note_event,
+            )
+        self._update_ladder()
         if self.paged.audit_interval and self._step_index % self.paged.audit_interval == 0:
             self._audit(strict=False)
         every = self.paged.metrics_log_every

@@ -181,6 +181,16 @@ class EngineView:
         budget is quantized against."""
         return tuple(self._engine._prefill_buckets)
 
+    @property
+    def catalog_description(self) -> str:
+        """``CatalogManifest.describe()`` for the engine's declared
+        ladders: the human-readable shape a budget heuristic can log."""
+        from neuronx_distributed_llama3_2_tpu_torch.serving.catalog import (
+            CatalogManifest,
+        )
+
+        return CatalogManifest.from_engine(self._engine).describe()
+
     def pad_by_rung(self, kind: str) -> Dict[int, dict]:
         """Copy of the graftmeter pad-waste rung table (``kind`` is
         ``"prefill"`` or ``"decode"``): rung -> {dispatches, need_tokens,
@@ -333,8 +343,19 @@ register_policy(FifoPolicy)
 
 def make_policy(name: str) -> StepPolicy:
     """Instantiate a registered policy by name (``PagedConfig.step_policy``).
-    The SLO-aware policies of ``serving/scheduler.py`` are not ported yet,
-    so only the policies registered in this module resolve."""
+    The SLO-aware policy lives in ``serving/scheduler.py``, imported here
+    on first need (a caller building an engine may not have imported it).
+    ``"table"`` (the JAX package's ``TablePolicy``) reads certified policy
+    tables of the analyzer ``analysis/graftplan.py``, which is not ported
+    yet, and raises ``NotImplementedError``."""
+    if name == "table":
+        raise NotImplementedError(
+            "step_policy 'table' (TablePolicy) reads certified policy tables "
+            "from the analyzers (analysis/graftplan.py), which come with the "
+            "analyzer slice of the port"
+        )
+    if name not in POLICIES:
+        import neuronx_distributed_llama3_2_tpu_torch.serving.scheduler  # noqa: F401
     try:
         cls = POLICIES[name]
     except KeyError:

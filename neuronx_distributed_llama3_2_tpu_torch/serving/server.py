@@ -1,0 +1,449 @@
+"""Asyncio streaming front door for the paged engine.
+
+Counterpart of ``neuronx_distributed_llama3_2_tpu/serving/server.py``:
+:class:`GraftServer` turns a :class:`.engine.PagedServingEngine` into a
+request / response service with token streaming, an OpenAI-style
+completions payload, client cancellation and metrics endpoints, with no
+dependency beyond the standard library: the HTTP transport is a
+hand-written HTTP/1.1 loop over ``asyncio.start_server``, so the CPU
+tests drive the whole stack on a tiny engine.
+
+Concurrency: one driver coroutine owns the engine and alone calls
+:meth:`.engine.PagedServingEngine.step`, yielding to the event loop
+between steps. ``submit``, ``cancel`` and the stream consumers therefore
+run between engine steps (the contract the engine's methods assume), with
+no lock. Token streams are fed by diffing
+:meth:`.engine.PagedServingEngine.request_tokens` after every step: the
+readback is the only source of tokens, as for a batch caller.
+
+A cancel is the engine's own failure domain
+(:meth:`.engine.PagedServingEngine.cancel`: drain, then fail the
+request), so a cancelled request ends ``failed`` with ``error="cancelled
+by client"`` and the other lanes' state untouched. The payload reports an
+engine failure as ``{"type": "cancelled" | "engine_failure", "message":
+<request_info error>}``.
+
+HTTP surface (``serve_http``):
+
+- ``POST /v1/completions``: body ``{"prompt": [ids], "service_class",
+  "tenant", "stream"}``; without ``stream`` the completion payload, with
+  ``"stream": true`` a ``text/event-stream`` of one ``data: {"token": id}``
+  event a token, the final payload and ``data: [DONE]``.
+- ``GET /v1/requests/<rid>``: the completion payload in any lifecycle
+  state; ``POST /v1/requests/<rid>/cancel``: a client cancel.
+- ``GET /metrics``: ``metrics.prometheus()``; ``GET /snapshot``:
+  ``metrics.snapshot()`` as JSON.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+from typing import AsyncIterator, Dict, Optional, Sequence, Tuple
+
+from neuronx_distributed_llama3_2_tpu_torch.serving.engine import (
+    PagedServingEngine,
+)
+from neuronx_distributed_llama3_2_tpu_torch.utils.logger import get_logger
+
+__all__ = ["GraftServer"]
+
+logger = get_logger()
+
+#: Stream sentinel: the request reached a terminal state.
+_DONE = object()
+
+
+class GraftServer:
+    """Async front door over one engine (see module docstring).
+
+    Use as an async context manager (or ``await start()`` / ``await
+    close()``); the driver coroutine steps the engine whenever work
+    exists and parks on an event when idle. ``idle_poll_s`` bounds how
+    long a wake (submit/cancel) can wait while parked."""
+
+    def __init__(
+        self,
+        engine: PagedServingEngine,
+        idle_poll_s: float = 0.02,
+        model: str = "graft-paged",
+    ) -> None:
+        self.engine = engine
+        self.idle_poll_s = float(idle_poll_s)
+        self.model = model
+        # rid -> (queue, tokens already pushed); one open stream per rid
+        self._streams: Dict[int, Tuple[asyncio.Queue, int]] = {}
+        self._wake: Optional[asyncio.Event] = None
+        self._driver: Optional[asyncio.Task] = None
+        self._http: Optional[asyncio.AbstractServer] = None
+        self._closed = False
+
+    # -- lifecycle ---------------------------------------------------------
+
+    async def start(self) -> "GraftServer":
+        if self._driver is None:
+            self._wake = asyncio.Event()
+            self._driver = asyncio.get_running_loop().create_task(
+                self._drive()
+            )
+        return self
+
+    async def close(self) -> None:
+        self._closed = True
+        if self._wake is not None:
+            self._wake.set()
+        if self._http is not None:
+            self._http.close()
+            await self._http.wait_closed()
+            self._http = None
+        if self._driver is not None:
+            await self._driver
+            self._driver = None
+
+    async def __aenter__(self) -> "GraftServer":
+        return await self.start()
+
+    async def __aexit__(self, *exc) -> None:
+        await self.close()
+
+    # -- the driver: sole owner of engine.step() ---------------------------
+
+    async def _drive(self) -> None:
+        try:
+            while not self._closed:
+                if self.engine._queue or self.engine._active:
+                    self.engine.step()
+                    self._pump()
+                    # yield between steps: submits, cancels, and stream
+                    # consumers run here, honoring the engine's
+                    # between-steps mutation contract
+                    await asyncio.sleep(0)
+                else:
+                    self._pump()
+                    self._wake.clear()
+                    try:
+                        await asyncio.wait_for(
+                            self._wake.wait(), self.idle_poll_s
+                        )
+                    except asyncio.TimeoutError:
+                        pass
+        except Exception:
+            logger.exception("server driver crashed")
+            raise
+
+    def _pump(self) -> None:
+        """Push newly committed tokens into every open stream; close the
+        stream (sentinel) once its request is terminal."""
+        for rid in list(self._streams):
+            q, sent = self._streams[rid]
+            toks = self.engine.request_tokens(rid)
+            for t in toks[sent:]:
+                q.put_nowait(t)
+            self._streams[rid] = (q, len(toks))
+            if self.engine.request_info(rid)["done"]:
+                q.put_nowait(_DONE)
+                del self._streams[rid]
+
+    # -- client API --------------------------------------------------------
+
+    def submit(
+        self,
+        prompt: Sequence[int],
+        *,
+        service_class: str = "batch",
+        tenant: str = "default",
+    ) -> int:
+        """Enqueue a completion; returns the request id. Raises
+        ``RuntimeError`` after close, ``ValueError`` on an invalid
+        prompt/class (engine validation)."""
+        if self._closed:
+            raise RuntimeError("server is closed")
+        rid = self.engine.submit(
+            prompt, service_class=service_class, tenant=tenant
+        )
+        if self._wake is not None:
+            self._wake.set()
+        return rid
+
+    async def stream(self, rid: int) -> AsyncIterator[int]:
+        """Async iterator of generated token ids for ``rid``, starting
+        from the beginning (already-committed tokens replay first), until
+        the request is terminal. One open stream per rid."""
+        if rid in self._streams:
+            raise RuntimeError(f"request {rid} already has an open stream")
+        q: asyncio.Queue = asyncio.Queue()
+        toks = self.engine.request_tokens(rid)
+        for t in toks:
+            q.put_nowait(t)
+        if self.engine.request_info(rid)["done"]:
+            q.put_nowait(_DONE)
+        else:
+            self._streams[rid] = (q, len(toks))
+        m = self.engine.metrics
+        m.active_streams += 1
+        try:
+            while True:
+                item = await q.get()
+                if item is _DONE:
+                    break
+                yield item
+        finally:
+            m.active_streams -= 1
+            self._streams.pop(rid, None)
+
+    def cancel(self, rid: int, reason: str = "cancelled by client") -> bool:
+        """Client cancel: terminal-fail the request through the engine's
+        failure domain and close its stream. True if the request
+        transitioned now, False if it was already terminal."""
+        changed = self.engine.cancel(rid, reason=reason)
+        entry = self._streams.pop(rid, None)
+        if entry is not None:
+            q, sent = entry
+            for t in self.engine.request_tokens(rid)[sent:]:
+                q.put_nowait(t)
+            q.put_nowait(_DONE)
+        if self._wake is not None:
+            self._wake.set()
+        return changed
+
+    async def complete(
+        self,
+        prompt: Sequence[int],
+        *,
+        service_class: str = "batch",
+        tenant: str = "default",
+    ) -> dict:
+        """Submit and await the full completion payload (the
+        non-streaming request path)."""
+        rid = self.submit(
+            prompt, service_class=service_class, tenant=tenant
+        )
+        async for _ in self.stream(rid):
+            pass
+        return self.response(rid)
+
+    def response(self, rid: int) -> dict:
+        """OpenAI-style completion payload for ``rid`` at any lifecycle
+        state: token ids, usage (incl. the per-request prefix-cache
+        report), terminal timing (ttft_ms/tpot_ms once defined), and a
+        structured ``error`` for failed requests."""
+        info = self.engine.request_info(rid)
+        tokens = self.engine.request_tokens(rid)
+        status = info["status"]
+        error = None
+        finish_reason: Optional[str] = None
+        if status == "failed":
+            msg = info["error"] or ""
+            kind = (
+                "cancelled" if "cancel" in msg.lower() else "engine_failure"
+            )
+            error = {"type": kind, "message": msg}
+            finish_reason = kind
+        elif status == "finished":
+            finish_reason = (
+                "length"
+                if len(tokens) >= self.engine.gen.max_new_tokens
+                else "stop"
+            )
+        return {
+            "id": f"cmpl-{rid}",
+            "object": "completion",
+            "model": self.model,
+            "status": status,
+            "service_class": info["service_class"],
+            "tenant": info["tenant"],
+            "choices": [{
+                "index": 0,
+                "token_ids": tokens,
+                "finish_reason": finish_reason,
+            }],
+            "usage": {
+                "prompt_tokens": info["prompt_tokens"],
+                "completion_tokens": info["generated_tokens"],
+                "total_tokens": (
+                    info["prompt_tokens"] + info["generated_tokens"]
+                ),
+                "cached_tokens": info["cached_tokens"],
+            },
+            "timing": {
+                "queue_ms": info["queue_ms"],
+                "prefill_ms": info["prefill_ms"],
+                "ttft_ms": info["ttft_ms"],
+                "tpot_ms": info["tpot_ms"],
+            },
+            "error": error,
+        }
+
+    def snapshot(self) -> dict:
+        return self.engine.metrics.snapshot()
+
+    def prometheus(self) -> str:
+        return self.engine.metrics.prometheus()
+
+    # -- stdlib HTTP transport ---------------------------------------------
+
+    async def serve_http(
+        self, host: str = "127.0.0.1", port: int = 0
+    ) -> Tuple[str, int]:
+        """Start the asyncio-socket HTTP listener; returns the bound
+        (host, port) — pass ``port=0`` to let the OS pick (tests)."""
+        await self.start()
+        self._http = await asyncio.start_server(
+            self._handle_http, host, port
+        )
+        addr = self._http.sockets[0].getsockname()
+        return addr[0], addr[1]
+
+    async def _handle_http(
+        self,
+        reader: asyncio.StreamReader,
+        writer: asyncio.StreamWriter,
+    ) -> None:
+        try:
+            request_line = (await reader.readline()).decode("latin-1")
+            if not request_line.strip():
+                return
+            method, target, _ = request_line.split(None, 2)
+            headers: Dict[str, str] = {}
+            while True:
+                line = (await reader.readline()).decode("latin-1")
+                if line in ("\r\n", "\n", ""):
+                    break
+                k, _, v = line.partition(":")
+                headers[k.strip().lower()] = v.strip()
+            body = b""
+            length = int(headers.get("content-length", 0) or 0)
+            if length:
+                body = await reader.readexactly(length)
+            await self._route(writer, method.upper(), target, body)
+        except (asyncio.IncompleteReadError, ConnectionError):
+            pass
+        except Exception as exc:  # malformed request: answer, don't die
+            logger.warning("server http error: %s", exc)
+            try:
+                await self._send(
+                    writer, 400, "application/json",
+                    json.dumps({"error": str(exc)}).encode(),
+                )
+            except ConnectionError:
+                pass
+        finally:
+            try:
+                writer.close()
+                await writer.wait_closed()
+            except ConnectionError:
+                pass
+
+    async def _route(
+        self,
+        writer: asyncio.StreamWriter,
+        method: str,
+        target: str,
+        body: bytes,
+    ) -> None:
+        if method == "GET" and target == "/metrics":
+            await self._send(
+                writer, 200, "text/plain; version=0.0.4",
+                self.prometheus().encode(),
+            )
+            return
+        if method == "GET" and target == "/snapshot":
+            await self._send(
+                writer, 200, "application/json",
+                json.dumps(self.snapshot()).encode(),
+            )
+            return
+        if method == "POST" and target == "/v1/completions":
+            req = json.loads(body.decode() or "{}")
+            prompt = req.get("prompt")
+            if not isinstance(prompt, list):
+                raise ValueError("'prompt' must be a list of token ids")
+            rid = self.submit(
+                [int(t) for t in prompt],
+                service_class=req.get("service_class", "batch"),
+                tenant=req.get("tenant", "default"),
+            )
+            if req.get("stream"):
+                await self._send_stream(writer, rid)
+            else:
+                async for _ in self.stream(rid):
+                    pass
+                await self._send(
+                    writer, 200, "application/json",
+                    json.dumps(self.response(rid)).encode(),
+                )
+            return
+        if target.startswith("/v1/requests/"):
+            tail = target[len("/v1/requests/"):]
+            if method == "POST" and tail.endswith("/cancel"):
+                rid = int(tail[: -len("/cancel")].rstrip("/"))
+                try:
+                    cancelled = self.cancel(rid)
+                except KeyError:
+                    await self._send(
+                        writer, 404, "application/json",
+                        json.dumps({"error": f"unknown rid {rid}"}).encode(),
+                    )
+                    return
+                await self._send(
+                    writer, 200, "application/json",
+                    json.dumps({"rid": rid, "cancelled": cancelled}).encode(),
+                )
+                return
+            if method == "GET":
+                rid = int(tail.rstrip("/"))
+                try:
+                    payload = self.response(rid)
+                except KeyError:
+                    await self._send(
+                        writer, 404, "application/json",
+                        json.dumps({"error": f"unknown rid {rid}"}).encode(),
+                    )
+                    return
+                await self._send(
+                    writer, 200, "application/json",
+                    json.dumps(payload).encode(),
+                )
+                return
+        await self._send(
+            writer, 404, "application/json",
+            json.dumps({"error": f"no route {method} {target}"}).encode(),
+        )
+
+    async def _send_stream(
+        self, writer: asyncio.StreamWriter, rid: int
+    ) -> None:
+        writer.write(
+            b"HTTP/1.1 200 OK\r\n"
+            b"Content-Type: text/event-stream\r\n"
+            b"Cache-Control: no-cache\r\n"
+            b"Connection: close\r\n\r\n"
+        )
+        await writer.drain()
+        async for tok in self.stream(rid):
+            writer.write(
+                f"data: {json.dumps({'token': tok})}\n\n".encode()
+            )
+            await writer.drain()
+        final = json.dumps(self.response(rid))
+        writer.write(f"data: {final}\n\ndata: [DONE]\n\n".encode())
+        await writer.drain()
+
+    @staticmethod
+    async def _send(
+        writer: asyncio.StreamWriter,
+        status: int,
+        content_type: str,
+        body: bytes,
+    ) -> None:
+        reason = {200: "OK", 400: "Bad Request", 404: "Not Found"}.get(
+            status, "OK"
+        )
+        writer.write(
+            f"HTTP/1.1 {status} {reason}\r\n"
+            f"Content-Type: {content_type}\r\n"
+            f"Content-Length: {len(body)}\r\n"
+            f"Connection: close\r\n\r\n".encode()
+        )
+        writer.write(body)
+        await writer.drain()

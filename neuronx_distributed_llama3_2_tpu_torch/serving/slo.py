@@ -17,10 +17,11 @@ evaluations because the engine's clock is its step loop.
 
 When the windowed burn of an objective reaches ``burn_threshold`` with a
 full window, the monitor raises an alert: ``metrics.slo_alerts`` counts
-it and the tracer records an ``slo_burn`` instant. ``PagedConfig.
-slo_degrade``, which would feed the alert to the degradation ladder, is
-not ported with the ladder: the engine passes no ``note_event``. Host
-ints and floats only; no device work.
+it and the tracer records an ``slo_burn`` instant. Under ``PagedConfig.
+slo_degrade`` the alert is also one degradation-ladder event: the engine
+passes its ``_note_event`` to :meth:`SLOMonitor.on_step`, before the
+ladder's update of the same step. Host ints and floats only; no device
+work.
 """
 
 from __future__ import annotations

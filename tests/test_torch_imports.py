@@ -33,6 +33,9 @@ def test_sources_exist():
     for sub in ("inference", "kernels", "models", "quantization", "serving", "trainer"):
         assert PORT / sub / "__init__.py" in SOURCES
     assert PORT / "quantization" / "kv_cache.py" in SOURCES
+    # the SLO-aware scheduler and the front door
+    assert PORT / "serving" / "scheduler.py" in SOURCES
+    assert PORT / "serving" / "server.py" in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

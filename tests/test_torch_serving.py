@@ -204,8 +204,9 @@ def test_unported_knobs_raise(weights, knob):
         PagedServingEngine(eng, GenerationConfig(), PagedConfig(**{knob: value}))
 
 
-#: the knobs ported with the tiered KV storage, the cost ledger and the SLO
-#: monitor, each with a value other than its default (and what it needs)
+#: the knobs ported with the tiered KV storage, the cost ledger, the SLO
+#: monitor, the degradation ladder and the SLO-aware step policy, each with
+#: a value other than its default (and what it needs)
 PORTED_KNOBS = {
     "spill_enabled": dict(spill_enabled=True, host_tier_bytes=1 << 20),
     "host_tier_bytes": dict(host_tier_bytes=1 << 20),
@@ -220,6 +221,11 @@ PORTED_KNOBS = {
     "slo_eval_steps": dict(slo_tpot_p99_ms=5.0, slo_eval_steps=2),
     "slo_burn_window": dict(slo_tpot_p99_ms=5.0, slo_burn_window=2),
     "slo_burn_threshold": dict(slo_tpot_p99_ms=5.0, slo_burn_threshold=2.0),
+    "slo_degrade": dict(slo_degrade=True, slo_tpot_p99_ms=5.0, degrade_after_faults=1),
+    "degrade_after_faults": dict(degrade_after_faults=2),
+    "degrade_window_steps": dict(degrade_after_faults=1, degrade_window_steps=8),
+    "degrade_recover_steps": dict(degrade_after_faults=1, degrade_recover_steps=8),
+    "step_policy": dict(step_policy="slo"),
 }
 
 
@@ -239,10 +245,9 @@ def test_ported_knobs_build_an_engine(weights, knob):
 
 
 def test_unported_knobs_are_the_ladder_and_policies():
-    assert sorted(UNPORTED_KNOBS) == sorted([
-        "slo_degrade", "degrade_after_faults", "degrade_window_steps",
-        "degrade_recover_steps", "step_policy", "policy_table_path",
-    ])
+    # the ladder and the SLO-aware policy are ported; the certified policy
+    # tables come with the analyzers
+    assert sorted(UNPORTED_KNOBS) == ["policy_table_path"]
 
 
 def test_engine_options_that_raise(weights):
@@ -437,11 +442,20 @@ def test_quantized_and_chunked_knobs_are_validated(weights):
     ):
         with pytest.raises(ValueError, match=match):
             PagedServingEngine(eng, GenerationConfig(), PagedConfig(**kw))
+    # a PREFILL_CHUNK budget caps the wave: one 8-token chunk spends a
+    # budget of 8, and the other prefilling lane waits; no budget advances
+    # every prefilling lane one chunk
     paged = PagedServingEngine(
-        eng, GenerationConfig(), PagedConfig(prefill_chunk_tokens=8),
+        eng, GenerationConfig(max_new_tokens=8), PagedConfig(prefill_chunk_tokens=8),
     )
-    with pytest.raises(NotImplementedError, match="budget_tokens"):
-        paged._advance_prefills(budget_tokens=16)
+    for p in _prompts(8, (20, 20)):
+        paged.submit(p)
+    paged._admit()
+    assert sum(r.prefilling for r in paged._active.values()) == 2
+    paged._advance_prefills(budget_tokens=8)
+    assert paged.metrics.prefill_chunks == 1
+    paged._advance_prefills()
+    assert paged.metrics.prefill_chunks == 3
     # quant_mxu rides a twin of the decode model; the caller's is untouched
     mxu = PagedServingEngine(
         eng, GenerationConfig(), PagedConfig(kv_cache_dtype="fp8_e4m3", quant_mxu=True),
