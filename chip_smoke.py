@@ -129,7 +129,27 @@
    unpreempted streams); and F's prompts served sampled without
    speculation, then with F's knobs and a drafter proposing those
    streams (accepted drafts, the same streams, and F's sampled streams
-   the same too). Every phase logs its seconds.
+   the same too). Then the dense engine (InferenceEngine, every program
+   a CUDA graph, tokens and positions on the card between steps): Serve's
+   prompts greedy through generate() at on_device_steps 1 and 8 (the
+   streams equal, every token within 0.125 of the plain forward, the
+   eager paged serve's streams up to near ties, no program built after
+   the first token, the cache 536,870,912 B; a decode whose kv read leaves
+   out each slot's newest row must read above 0.125; TTFT / TPOT p50 and
+   a graphed decode step's device time logged); the continuous-batching
+   churn (16 requests over 8 slots, no program built under traffic, each
+   stream its prompt's generate() stream); generate() sampled at
+   on_device_steps 1 and 8 (equal streams) and sample() on the card
+   against a CPU copy (a difference only at a near tie); draft-model
+   speculation (the 1B's first 4 layers, shared tensors, gamma 4) and
+   Medusa (three seeded random heads, the default tree), each stream the
+   greedy generate() stream; and Serve's config host-sampled (no
+   on_device_sampling) prewarmed against its eager serve: the streams
+   equal (the key chain is the JAX engine's, split inside the graphs; a
+   difference only at a near tie with the eager draw's key), no capture
+   after the freeze, 0 uploads a steady step, K4 only from replays, the
+   audit clean, no leak; a twin whose captures leave the key advanced
+   must fail the stream check. Every phase logs its seconds.
 5. Train: Llama-3.2 1B at full width and depth in bench.py's training
    configuration (batch 12 x 2048, remat "full", flash attention, loss
    chunked at 256, AdamW with bf16 state) through TrainingConfig ->
@@ -4967,6 +4987,514 @@ def run_flash_kernel_phase(card: str, packed: bool = False) -> dict:
     return record
 
 
+# -- 4i. the dense engine -----------------------------------------------------------
+
+#: generate()'s on_device_steps: the per-token loop and 8 tokens a round trip
+DENSE_STEPS = (1, 8)
+#: K and V of the 1B's dense cache, 8 slots of 2048 rows: 2 x 16 layers x 8
+#: x 2048 x 8 kv heads x 64 x 2 bytes
+DENSE_CACHE_BYTES = 536870912
+#: the churn: Serve's eight prompts twice over the 8 slots, one admitted
+#: every DENSE_ADMIT_EVERY decode steps
+DENSE_ADMIT_EVERY = 4
+DENSE_SEED = 7
+#: replays of the graphed decode step under the profiler (its kernel list)
+DENSE_PROFILE_REPLAYS = 10
+SPEC_DRAFT_LAYERS = 4
+SPEC_GAMMA = 4
+
+
+def dense_engine(cfg, model, max_batch: int = 8):
+    """The dense engine as served here: 2048-row slots, the default
+    buckets (128 ... 2048)."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference.engine import InferenceEngine
+
+    return InferenceEngine(cfg, model, max_batch=max_batch, max_seq_len=2048)
+
+
+def dense_generate(engine, prompts, steps: int, sampling=None, seed: int = 0) -> dict:
+    """``engine.generate(prompts)`` with precompile, MAX_NEW tokens at
+    ``on_device_steps`` ``steps``. Returns the streams, the latency report,
+    the program-table size right after the first token and after the
+    run, and the wall seconds."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference.engine import GenerationConfig
+
+    gen = GenerationConfig(max_new_tokens=MAX_NEW, on_device_steps=steps, seed=seed,
+                           precompile=True,
+                           **(dict(sampling=sampling) if sampling is not None else {}))
+    table = {}
+    inner = engine._prefill_dev
+
+    def first_token(*a, **kw):
+        out = inner(*a, **kw)
+        table["first"] = len(engine._programs)
+        return out
+
+    engine._prefill_dev = first_token
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.generate(prompts, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del engine._prefill_dev
+    return dict(seqs=res.sequences, report=res.benchmark.report(), first=table["first"],
+                after=len(engine._programs), wall=wall)
+
+
+@contextlib.contextmanager
+def dense_newest_row_dropped(engine):
+    """A planted fault in ``engine``'s dense decode: the kv_limit read's
+    mask leaves out each slot's newest row (at decode, the token's own
+    K/V). Install it before the engine captures anything."""
+    model = engine.model
+    inner = model._cache_attention
+
+    def planted(q, k_all, v_all, pos_block, positions=None, tree=None):
+        return inner(q, k_all, v_all, pos_block - 1, positions, tree)
+
+    model._cache_attention = planted
+    try:
+        yield
+    finally:
+        del model._cache_attention
+
+
+def run_dense_phase(cfg, model, prompts, paged_outs: list, card: str):
+    """The dense engine (``InferenceEngine.generate``, every program a CUDA
+    graph) on Serve's eight prompts, greedy, at on_device_steps 1 and 8:
+    the two runs' streams equal, every token within E2E_LOGIT_MARGIN of
+    the plain forward's argmax, the streams the eager paged serve's (the
+    near-tie rule), no program built after the first token, the cache
+    DENSE_CACHE_BYTES; a planted decode whose kv read leaves out each
+    slot's newest row must read above the margin. Logs TTFT / TPOT p50 and
+    one graphed decode step's device time (b 8, at the served kv bucket,
+    1024) beside its bytes bound. Returns (engine, streams)."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import SamplingConfig
+
+    engine = dense_engine(cfg, model)
+    runs = {}
+    for steps in DENSE_STEPS:
+        r = runs[steps] = dense_generate(engine, prompts, steps)
+        check(r["after"] == r["first"],
+              f"dense: {r['after'] - r['first']} programs built after the first token "
+              f"(on_device_steps {steps})")
+        check(all(len(s) == MAX_NEW for s in r["seqs"]), f"dense: stream lengths "
+              f"{[len(s) for s in r['seqs']]}")
+    seqs = runs[1]["seqs"]
+    check(runs[8]["seqs"] == seqs, "dense: the streams at on_device_steps 8 differ from 1's")
+    cache = engine.cache
+    cache_bytes = cache.k.nbytes + cache.v.nbytes
+    check(cache_bytes == DENSE_CACHE_BYTES, f"dense: the cache is {cache_bytes} B")
+    rids = list(range(len(prompts)))
+    gap, exact, total = e2e_gaps(model, prompts, dict(enumerate(seqs)), rids)
+    check(gap <= E2E_LOGIT_MARGIN, f"dense: a token is {gap} below the argmax logit")
+    differ = same_streams("dense", model, prompts, seqs, paged_outs, rids)
+    # one graphed greedy decode step at the served kv bucket (1024 for
+    # Serve's prompts), replayed alone
+    kv = max(k[-1] for k in engine._programs if k[0] == "decode")
+    key_ = ("decode", 8, SamplingConfig(), kv)
+    prog = engine._programs[key_]
+    check(prog.graph is not None, f"dense: {key_} was not captured")
+    (step_ms,), step_ev = device_ms(lambda i: prog(), iters=20, windows=3)
+    # where a replay's device time goes, kernel by kernel
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(DENSE_PROFILE_REPLAYS):
+            prog()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    weight_bytes = sum(p.nbytes for p in model.parameters())
+    kv_bytes = 2 * cfg.num_layers * 8 * kv * cfg.num_kv_heads * cfg.head_dim * 2
+    bound = (weight_bytes + kv_bytes) / 3.35e12 * 1e3
+    # the planted fault, captured into a fresh engine's graphs
+    bad = dense_engine(cfg, model)
+    with dense_newest_row_dropped(bad):
+        bad_seqs = dense_generate(bad, prompts, 1)["seqs"]
+    bad_gap, bad_exact, _ = e2e_gaps(model, prompts, dict(enumerate(bad_seqs)), rids)
+    del bad
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(bad_gap > E2E_LOGIT_MARGIN,
+          f"dense: the e2e check passes a decode that leaves out the newest row ({bad_gap})")
+    for steps, r in runs.items():
+        rep = r["report"]
+        log(f"dense generate (on_device_steps {steps}): {len(prompts)} prompts, "
+            f"{sum(map(len, r['seqs']))} tokens in {r['wall']:.6f} s (capture included "
+            f"on the first run); TTFT p50 {rep['ttft']['p50_ms']:.6f} ms, TPOT p50 "
+            f"{rep['per_token']['p50_ms']:.6f} ms (p90 {rep['per_token']['p90_ms']:.6f}); "
+            f"programs {r['first']} after the first token, {r['after']} after the run | {card}")
+    log(f"dense: streams equal at on_device_steps 1 and 8; {exact}/{total} tokens the plain "
+        f"forward's argmax, worst logit gap {gap:.6g} (margin {E2E_LOGIT_MARGIN}); equal to "
+        f"the eager paged serve's on {len(prompts) - len(differ)} of {len(prompts)} requests "
+        f"(the rest near ties); cache {cache_bytes} B; {len(engine._programs)} programs "
+        f"({sorted({k[0] for k in engine._programs})}); one replay of {key_[0]} b 8 kv {kv} "
+        f"{step_ms:.6f} ms of device time ({step_ev:.6f} ms by events), bytes bound "
+        f"{bound:.6f} ms ({weight_bytes} B of weights + {kv_bytes} B of K/V) | {card}")
+    n = DENSE_PROFILE_REPLAYS
+    log(f"dense decode replay profile: {sum(e.count for e in events) / n:.1f} kernels a "
+        f"replay, {sum(e.self_device_time_total for e in events) / 1e3 / n:.6f} ms of device "
+        f"time a replay; the largest by device time: | {card}")
+    for e in events[:10]:
+        log(f"  device {e.self_device_time_total / 1e3 / n:.6f} ms a replay, {e.count / n:.1f} "
+            f"calls: {e.key[:100]}")
+    log(f"dense planted fault (each slot's newest row left out of the kv read): "
+        f"{bad_exact}/{total} tokens the plain forward's argmax, worst logit gap "
+        f"{bad_gap:.6g} (margin {E2E_LOGIT_MARGIN})")
+    return engine, seqs
+
+
+def run_dense_churn_phase(engine, model, prompts, dense_seqs: list, card: str) -> None:
+    """``benchmark_serving_churn``'s loop over the dense engine: Serve's
+    prompts twice (16 requests over 8 slots, one admitted every
+    DENSE_ADMIT_EVERY steps, so slots are freed and refilled mid-run). No
+    program built under traffic, and each stream that prompt's greedy
+    generate() stream (the near-tie rule). Logs requests/s and tokens/s."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference.runner import (
+        benchmark_serving_churn,
+    )
+
+    churn = prompts + prompts
+    rep = benchmark_serving_churn(engine, prompts=churn, max_new_tokens=MAX_NEW,
+                                  admit_every=DENSE_ADMIT_EVERY)
+    outs = [rep["outputs"][i] for i in range(len(churn))]
+    check(rep["compiled_under_traffic"] == 0,
+          f"dense churn: {rep['compiled_under_traffic']} programs built under traffic")
+    check(all(len(o) == MAX_NEW for o in outs), f"dense churn: lengths {list(map(len, outs))}")
+    differ = same_streams("dense churn", model, churn, outs, dense_seqs + dense_seqs,
+                          list(range(len(churn))))
+    log(f"dense churn: {rep['n_requests']} requests over 8 slots, one admitted every "
+        f"{DENSE_ADMIT_EVERY} steps: {rep['decode_steps']} steps, {rep['requests_per_s']:.6f} "
+        f"requests/s, {rep['tokens_per_s']:.6f} tokens/s; programs {rep['programs_after_warmup']} "
+        f"after the warm-up, {rep['programs_after_run']} after the run; streams equal to "
+        f"generate()'s on {len(churn) - len(differ)} of {len(churn)} | {card}")
+
+
+def host_perturbed(logits, key, sampling):
+    """The values ``sample(logits, key, sampling)`` takes the argmax of, on
+    the CPU: the gumbel noise of ``key`` over the whole (b, V) array plus
+    the tempered, filtered logits. Returns ((b, V) perturbed, (b, V)
+    tempered, (b,) cutoff)."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import (
+        filtered_logits,
+        gumbel,
+    )
+
+    b, v = logits.shape
+    lf = logits.float().cpu()
+    noise = gumbel(key.cpu().long()[None], b * v).reshape(b, v)
+    filt = filtered_logits(lf, torch.full((b,), sampling.temperature),
+                           torch.full((b,), sampling.top_k, dtype=torch.int32),
+                           torch.full((b,), sampling.top_p))
+    cutoff = torch.where(torch.isfinite(filt), filt, torch.full_like(filt, float("inf")))
+    return noise + filt, lf / sampling.temperature, cutoff.amin(dim=-1)
+
+
+def run_dense_sampled_phase(engine, model, prompts, card: str) -> None:
+    """generate() at SAMPLED (temperature 0.8, top-p 0.95) with seed
+    DENSE_SEED: the streams at on_device_steps 1 and 8 equal (each sampled
+    step splits the resident key inside its graph, in the per-token
+    loop's order). Then ``sample`` on the card against ``sample`` on a CPU
+    copy of the same logits (the model's own, 8 rows) and keys (16 splits
+    of one chain): the draws equal, a difference allowed only where the
+    top two perturbed values lie within SAMPLER_TIE relative."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import key, sample, split
+
+    sampled = sampling_config(**SAMPLED)
+    runs = {steps: dense_generate(engine, prompts, steps, sampled, DENSE_SEED)
+            for steps in DENSE_STEPS}
+    check(runs[8]["seqs"] == runs[1]["seqs"],
+          "dense sampled: the streams at on_device_steps 8 differ from 1's")
+    check(runs[1]["after"] == runs[1]["first"], "dense sampled: programs built after the "
+          "first token")
+    greedy = dense_generate(engine, prompts, 1)["seqs"]
+    differs_from_greedy = sum(a != b for a, b in zip(runs[1]["seqs"], greedy))
+    check(differs_from_greedy > 0, "dense sampled: the sampled streams are the greedy ones")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    ids = torch.randint(0, model.config.vocab_size, (8, 64), device="cuda", generator=gen)
+    with torch.no_grad():
+        logits = model(ids)[:, -1].float()
+    k = key(DENSE_SEED, device="cuda")
+    equal, ties = 0, []
+    for _ in range(16):
+        keys = split(k)
+        k, sub = keys[0], keys[1]
+        got = sample(logits, sub, sampled).cpu()
+        want = sample(logits.cpu(), sub.cpu(), sampled)
+        pert, _, _ = host_perturbed(logits, sub, sampled)
+        for row in torch.nonzero(got != want).flatten().tolist():
+            top2 = torch.topk(pert[row], 2).values
+            rel = ((top2[0] - top2[1]) / top2.abs().max()).item()
+            ties.append(rel)
+            check(rel <= SAMPLER_TIE, f"dense sampled: row {row} drew {got[row]} on the card, "
+                  f"{want[row]} on the CPU, top two perturbed values {rel:.3g} apart")
+        equal += int((got == want).sum())
+    (ms,), ev = device_ms(lambda i: sample(logits, sub, sampled), iters=10, windows=3)
+    for steps, r in runs.items():
+        rep = r["report"]
+        log(f"dense sampled (on_device_steps {steps}, {SAMPLED}, seed {DENSE_SEED}): "
+            f"TTFT p50 {rep['ttft']['p50_ms']:.6f} ms, TPOT p50 "
+            f"{rep['per_token']['p50_ms']:.6f} ms; {differs_from_greedy} of "
+            f"{len(prompts)} streams differ from the greedy ones | {card}")
+    log(f"dense sampled: streams equal at on_device_steps 1 and 8; sample() on the card = "
+        f"CPU on {equal} of {16 * 8} draws, near ties {ties}; one (8, "
+        f"{model.config.vocab_size}) draw {ms:.6f} ms of device time ({ev:.6f} ms by "
+        f"events) | {card}")
+
+
+def shallow_model(model, n_layers: int):
+    """A LlamaForCausalLM over ``model``'s first ``n_layers`` layers, its
+    embedding and its final norm: the same tensors, no copy."""
+    import copy
+
+    d = copy.copy(model)
+    d._modules = dict(model._modules)
+    d.layers = torch.nn.ModuleList(list(model.layers)[:n_layers])
+    d.config = dataclasses.replace(model.config, num_layers=n_layers)
+    return d
+
+
+def run_spec_draft_phase(cfg, model, prompts, dense_seqs: list, card: str) -> None:
+    """SpeculativeDecoder with the 1B's first SPEC_DRAFT_LAYERS layers as
+    the draft (shared tensors) and gamma SPEC_GAMMA, one B = 1 engine
+    each, over Serve's prompts: every stream the target's greedy
+    generate() stream (the near-tie rule). Logs the mean accepted tokens
+    a round and tokens/s."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference import SpeculativeDecoder
+
+    draft_model = shallow_model(model, SPEC_DRAFT_LAYERS)
+    check(draft_model.layers[0] is model.layers[0]
+          and draft_model.embed is model.embed, "spec draft: the draft copied the weights")
+    target = dense_engine(cfg, model, max_batch=1)
+    draft = dense_engine(draft_model.config, draft_model, max_batch=1)
+    spec = SpeculativeDecoder(target, draft, gamma=SPEC_GAMMA)
+    outs, accepted = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts:
+        res = spec.generate(p, MAX_NEW)
+        outs.append(res.tokens)
+        accepted += res.accepted_per_round
+    wall = time.perf_counter() - t0
+    check(all(len(o) == MAX_NEW for o in outs), f"spec draft: lengths {list(map(len, outs))}")
+    differ = same_streams("spec draft", model, prompts, outs, dense_seqs,
+                          list(range(len(prompts))))
+    log(f"spec draft ({SPEC_DRAFT_LAYERS}-layer draft sharing the target's tensors, gamma "
+        f"{SPEC_GAMMA}): {len(accepted)} rounds, mean accepted {np.mean(accepted):.6f}; "
+        f"{sum(map(len, outs))} tokens in {wall:.6f} s (captures included); streams equal "
+        f"to generate()'s on {len(prompts) - len(differ)} of {len(prompts)} | {card}")
+    del spec, target, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_medusa_phase(cfg, model, prompts, dense_seqs: list, card: str) -> None:
+    """MedusaDecoder with three seeded random heads (bf16) and the default
+    tree over a B = 1 engine: every stream the greedy generate() stream
+    (the near-tie rule). Logs the mean accepted tokens a round."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference.medusa import (
+        MedusaDecoder,
+        MedusaHeads,
+    )
+
+    engine = dense_engine(cfg, model, max_batch=1)
+    heads = MedusaHeads(cfg.hidden_size, cfg.vocab_size, 3, dtype=cfg.dtype,
+                        device="cuda").init_weights(SEED + 18)
+    dec = MedusaDecoder(engine, heads)
+    outs, accepted = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts:
+        res = dec.generate(p, MAX_NEW)
+        outs.append(res.tokens)
+        accepted += res.accepted_per_round
+    wall = time.perf_counter() - t0
+    check(all(len(o) == MAX_NEW for o in outs), f"medusa: lengths {list(map(len, outs))}")
+    differ = same_streams("medusa", model, prompts, outs, dense_seqs, list(range(len(prompts))))
+    log(f"medusa (3 random heads, tree of {dec.buffers.tree_len} nodes): {len(accepted)} "
+        f"rounds, mean accepted {np.mean(accepted):.6f}; {sum(map(len, outs))} tokens in "
+        f"{wall:.6f} s; streams equal to generate()'s on {len(prompts) - len(differ)} of "
+        f"{len(prompts)} | {card}")
+    del dec, engine, heads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def host_draw_spy(server, draws: list):
+    """Record each host-sampled draw of ``server`` (an eager one: the spy
+    reads the key back): ``(key (2,), (b, V), {row: (rid, index of the
+    token in its stream)})``. A (1, V) draw is the admission prefill of
+    the one active request with no token yet; a (b, V) draw is a decode
+    step over the decoding lanes."""
+    from neuronx_distributed_llama3_2_tpu_torch.serving import engine as serving_engine
+
+    inner = serving_engine.sample
+
+    def spy(logits, key, cfg):
+        out = inner(logits, key, cfg)
+        if key is not None:
+            if logits.shape[0] == 1:
+                req = [r for r in server._active.values() if not r.out][-1]
+                rows = {0: (req.rid, 0)}
+            else:
+                rows = {lane: (r.rid, len(r.out)) for lane, r in server._active.items()
+                        if not r.prefilling}
+            draws.append((key.detach().cpu(), tuple(logits.shape), rows))
+        return out
+
+    serving_engine.sample = spy
+    try:
+        yield
+    finally:
+        serving_engine.sample = inner
+
+
+def host_sampled_differences(model, prompts, outs: list, want: list, rids, draws: list,
+                             sampling) -> list:
+    """Where one of ``outs`` differs from ``want`` (prompt order), the first
+    token that differs, and how near a tie it is under the plain forward
+    with the key ``want``'s draw used (``draws`` of ``host_draw_spy``):
+    the two tokens' perturbed values (gumbel of the whole draw + tempered
+    logit), or one of them and the top-p cutoff. Returns [(request, token,
+    tie)]."""
+    where = {}
+    for key, shape, rows in draws:
+        for row, (rid, idx) in rows.items():
+            where[rid, idx] = (key, shape, row)
+    out = []
+    for j, (o, w) in enumerate(zip(outs, want)):
+        i = first_difference(o, w)
+        if i is None:
+            continue
+        key, (b, v), row = where[rids[j], i]
+        with torch.no_grad():
+            logits = model(torch.as_tensor([prompts[j] + o[:i]], device="cuda"))[0, -1:].float()
+        full = torch.zeros((b, v))
+        full[row] = logits[0].cpu()
+        pert, x, cutoff = host_perturbed(full, key, sampling)
+        a, c = o[i], w[i]
+        tie = min(abs(pert[row, a] - pert[row, c]).item(), abs(x[row, a] - cutoff[row]).item(),
+                  abs(x[row, c] - cutoff[row]).item())
+        out.append((j, i, tie))
+    return out
+
+
+@contextlib.contextmanager
+def capture_leaves_key_advanced():
+    """A planted fault in the paged engine's capture: the warm-up's split of
+    the host-sampling key is left in place (the key one split ahead after
+    each capture)."""
+    from neuronx_distributed_llama3_2_tpu_torch.serving.engine import PagedServingEngine
+
+    inner = PagedServingEngine._capture
+
+    def planted(self, fn):
+        out = inner(self, fn)
+        self._draw_key(self.gen.sampling)
+        return out
+
+    PagedServingEngine._capture = planted
+    try:
+        yield
+    finally:
+        PagedServingEngine._capture = inner
+
+
+def run_host_sampled_graph_phase(cfg, model, prompts, card: str) -> None:
+    """Serve's config host-sampled (SAMPLED, no on_device_sampling),
+    prewarmed, against the eager host-sampled serve: every program splits
+    the engine's resident key where the JAX engine splits its key, inside
+    the graph on the twin, so the streams are equal token for token (a
+    first difference must be a near tie under the plain forward with the
+    eager draw's key). The twin: no capture after the freeze, 0 uploads a
+    steady step, K4 launched by the captures only (every call in the serve
+    a replay), the audit clean and no leak. A planted twin whose captures
+    leave the key advanced must fail the stream check."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+
+    sampled = sampling_config(**SAMPLED)
+    limit = LOGIT_MARGIN / sampled.temperature
+    draws: list = []
+    eager = make_server(cfg, model, sampling=sampled)
+    with host_draw_spy(eager, draws):
+        e_rids = [eager.submit(p) for p in prompts]
+        e_outs = eager.run_to_completion()
+    want = [e_outs[r] for r in e_rids]
+    check(eager.metrics.host_sample_fallbacks > 0 and eager.metrics.sampled_steps == 0,
+          f"sampled-host: eager sampled_steps {eager.metrics.sampled_steps}, "
+          f"host_sample_fallbacks {eager.metrics.host_sample_fallbacks}")
+    check(len(draws) == eager.metrics.decode_steps + len(prompts),
+          f"sampled-host: {len(draws)} draws for {eager.metrics.decode_steps} decode steps and "
+          f"{len(prompts)} prefills")
+    del eager
+    counters = {"t1": pa.t1_launches, "tile": pa.tile_launches, "all": pa.launches}
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    twin = make_server(cfg, model, sampling=sampled, prewarm=True)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    captured = {src: c.count for src, c in counters.items()}
+    m = twin.metrics
+    registry = twin.program_registry()
+    check(list(registry) == twin.catalog.graph_keys()
+          and all(r.graph is not None for r in registry.values())
+          and not any("lane" in map(str, k) for k in registry),
+          f"sampled-host: registry {sorted(map(str, registry))}")
+    rids = [twin.submit(p) for p in prompts]
+    t0 = time.perf_counter()
+    outs, uploads = steady_upload_steps(twin)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = serve_stats(twin, rids, outs, wall)
+    served = [outs[r] for r in rids]
+    eager_calls = {src: c.count - captured[src] for src, c in counters.items()}
+    check(m.steadystate_compiles == 0, f"sampled-host: {m.steadystate_compiles} captures "
+          "after the freeze")
+    check(len(uploads) > 0 and not any(uploads),
+          f"sampled-host: the twin's steady steps uploaded {uploads}")
+    check(captured["t1"] > 0 and not any(eager_calls.values()),
+          f"sampled-host: K4 launches captured {captured}, during the serve {eager_calls}")
+    check(m.compute_dispatches == sum(r.replays for r in registry.values()),
+          f"sampled-host: {m.compute_dispatches} dispatches, "
+          f"{sum(r.replays for r in registry.values())} replays")
+    check_clean_engine("sampled-host twin", twin)
+    differ = host_sampled_differences(model, prompts, served, want, rids, draws, sampled)
+    for j, i, tie in differ:
+        log(f"sampled-host: request {j} first differs at token {i}; perturbed plain-forward "
+            f"values {tie:.6g} apart (near-tie limit {limit:.6g})")
+        check(tie <= limit, f"sampled-host: request {j} differs at token {i}, not a near tie")
+    greedy_like = sum(len(set(s)) == 1 for s in served)
+    del twin, registry
+    gc.collect()
+    torch.cuda.empty_cache()
+    with capture_leaves_key_advanced():
+        bad = make_server(cfg, model, sampling=sampled, prewarm=True)
+    b_rids = [bad.submit(p) for p in prompts]
+    b_outs = bad.run_to_completion()
+    bad_differ = host_sampled_differences(model, prompts, [b_outs[r] for r in b_rids], want,
+                                          b_rids, draws, sampled)
+    del bad
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(any(tie > limit for _, _, tie in bad_differ),
+          f"sampled-host: the stream check passes a twin whose captures leave the key "
+          f"advanced ({bad_differ})")
+    log(f"graph serve sampled-host ({SAMPLED}, host sampling on the JAX key chain): "
+        f"{m.prewarm_compiles} keys captured in {capture_s:.6f} s; streams equal to the eager "
+        f"host-sampled serve's on {len(prompts) - len(differ)} of {len(prompts)} requests; "
+        f"{len(draws)} draws recorded; steadystate_compiles {m.steadystate_compiles}; "
+        f"{len(uploads)} steady steps, h2d_uploads a steady step {max(uploads)}; K4 launches "
+        f"captured {captured}, during the serve {eager_calls}; {greedy_like} streams of one "
+        f"token; TTFT p50 {stats['ttft']:.6f} ms, TPOT p50 {stats['tpot']:.6f} ms, "
+        f"{stats['tokens_s']:.6f} tokens/s | {card}")
+    log(f"sampled-host planted fault (captures leave the key advanced): "
+        f"{len(bad_differ)} of {len(prompts)} requests differ, first-difference ties "
+        f"{[round(t, 6) for _, _, t in bad_differ]} (limit {limit:.6g})")
+
+
 def timed(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its wall seconds logged under ``name``."""
     t0 = time.perf_counter()
@@ -5148,6 +5676,19 @@ def main() -> int:
             timed("serve F sampled speculation", run_sampled_spec_phase, fcfg, model,
                   f_prompts, s_outs, card, sampled)
     sampled_summary(stats, card)
+    # the dense engine: generate (greedy, sampled), continuous batching under
+    # churn, draft-model and Medusa speculation; host sampling on the JAX
+    # key chain, prewarmed
+    paged_outs = [outs[r] for r in rids]
+    dense, dense_seqs = timed("dense", run_dense_phase, cfg, model, prompts, paged_outs, card)
+    timed("dense churn", run_dense_churn_phase, dense, model, prompts, dense_seqs, card)
+    timed("dense sampled", run_dense_sampled_phase, dense, model, prompts, card)
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("spec draft", run_spec_draft_phase, cfg, model, prompts, dense_seqs, card)
+    timed("medusa", run_medusa_phase, cfg, model, prompts, dense_seqs, card)
+    timed("graph serve sampled-host", run_host_sampled_graph_phase, cfg, model, prompts, card)
     del model
     torch.cuda.empty_cache()
     paged, paged_err = timed("K4 bf16", run_paged_kernel_phase, cfg, served, card)

@@ -1,10 +1,21 @@
-"""Paged KV-cache decoder model.
+"""KV-cache decoder model: the dense per-slot cache and the paged pool.
 
 Counterpart of ``neuronx_distributed_llama3_2_tpu/inference/model.py``
-(``PagedKVCache`` and the paged path of ``LlamaDecode``). One function
-covers every forward mode of the paged serving engine::
+(``KVCache``, ``PagedKVCache`` and ``LlamaDecode``). One function covers
+every forward mode of both engines::
 
+    forward(params, cache, tokens (b, T), positions (b,), slots (b,))
     forward(params, cache, tokens (b, T), positions (b,), block_tables=...)
+
+The dense cache (:class:`KVCache`, :class:`..inference.engine.
+InferenceEngine`) reserves a ``max_len`` row per slot: the fresh K/V land
+at ``(slots, positions + t)``, a prefill (``context_encode=True``) attends
+the fresh block only, and every other block attends the first
+``kv_limit`` rows of its slots through :meth:`LlamaDecode._cache_attention`
+(``tree=`` for Medusa's candidate trees). A row past ``max_len`` is
+dropped, as JAX's scatter drops it (:meth:`LlamaDecode._attend_dense`).
+
+The paged pool serves these modes:
 
 - whole-prompt prefill  = ``context_encode=True``, positions == 0: attention
   over the fresh block only (:func:`..models.llama.core_attention`); the
@@ -55,8 +66,9 @@ checked programs, ``PagedConfig.detect_nonfinite``) each step runs
 before the accept rule, and returns one ``finite`` bool per lane beside
 its tokens.
 
-Not ported yet: the dense per-slot ``KVCache`` (dense-engine slice),
-tensor parallelism.
+Not ported yet: tensor parallelism (the dense cache's ``cache_specs``),
+and the decode families other than Llama (``MixtralDecode``,
+``GPTNeoXDecode``, ``decode_model_for``).
 """
 
 from __future__ import annotations
@@ -93,6 +105,22 @@ from neuronx_distributed_llama3_2_tpu_torch.utils.device import (
     DeviceLike,
     resolve_device,
 )
+
+
+class KVCache(NamedTuple):
+    """Stacked-layer dense KV cache: k/v (L, B, S_max, n_kv, head_dim), one
+    ``S_max``-row slot per request."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def max_batch(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
 
 
 class PagedKVCache(NamedTuple):
@@ -159,12 +187,6 @@ def tree_bits_of(ancestors: torch.Tensor) -> torch.Tensor:
     return bits.to(torch.int32).contiguous()
 
 
-def _unported(feature: str, slice_name: str):
-    return NotImplementedError(
-        f"{feature} is not ported yet: it comes with the {slice_name} slice"
-    )
-
-
 def _sample_at(logits: torch.Tensor, sampling: tuple, index: torch.Tensor) -> torch.Tensor:
     """:func:`..inference.sampling.sample_lanes` of ``logits`` with the
     per-lane ``sampling`` tuple ``(rng_data, temperature, top_k, top_p)``,
@@ -206,6 +228,20 @@ class LlamaDecode:
 
     # -- cache ------------------------------------------------------------
 
+    def init_cache(
+        self, max_batch: int, max_len: int, dtype=None, device: DeviceLike = "cuda",
+    ) -> KVCache:
+        """Zeroed dense cache of ``max_batch`` slots of ``max_len`` rows, at
+        ``dtype or config.dtype``, on ``device``."""
+        c = self.config
+        shape = (c.num_layers, max_batch, max_len, c.num_kv_heads, c.head_dim)
+        dev = resolve_device(device)
+        dtype = dtype or c.dtype
+        return KVCache(
+            k=torch.zeros(shape, dtype=dtype, device=dev),
+            v=torch.zeros(shape, dtype=dtype, device=dev),
+        )
+
     def init_paged_cache(
         self, num_blocks: int, block_size: int, dtype=None,
         kv_cache_dtype: Optional[str] = None, device: DeviceLike = "cuda",
@@ -243,10 +279,10 @@ class LlamaDecode:
     def forward(
         self,
         params: LlamaForCausalLM,
-        cache: PagedKVCache,
+        cache,                     # KVCache (dense) or PagedKVCache
         tokens: torch.Tensor,      # (b, T) int
         positions: torch.Tensor,   # (b,) int — absolute start position
-        slots: Optional[torch.Tensor] = None,
+        slots: Optional[torch.Tensor] = None,  # (b,) int dense cache rows
         *,
         context_encode: bool = False,
         return_hidden: bool = False,
@@ -254,12 +290,23 @@ class LlamaDecode:
         kv_limit: Optional[int] = None,
         block_tables: Optional[torch.Tensor] = None,  # (b, W) int32
         row_live: Optional[torch.Tensor] = None,
-    ) -> Tuple[torch.Tensor, PagedKVCache]:
-        """Block-causal forward over the paged cache.
+    ):
+        """Block-causal forward over the cache.
 
         Returns (logits (b, T, V) — or the final-norm hidden states with
-        ``return_hidden`` — , cache). Row ``i``'s logical position ``p``
-        lives at pool row ``block_tables[i, p // bs] * bs + p % bs``;
+        ``return_hidden`` — , cache). The cache is written in place and the
+        cache returned is the one that came in.
+
+        Dense (``block_tables`` None, a :class:`KVCache`): row ``i`` of the
+        batch lives in cache slot ``slots[i]`` (``None``: slot ``i``), its
+        fresh rows land at ``positions[i] + t`` and the rope tables span
+        ``cache.max_len`` rows. ``context_encode=True`` asserts positions
+        == 0 and attends the fresh block only (bucket-causal, the training
+        model's :func:`..models.llama.core_attention`); otherwise the first
+        ``kv_limit`` rows of each slot are read (all of them for None).
+
+        Paged: row ``i``'s logical position ``p`` lives at pool row
+        ``block_tables[i, p // bs] * bs + p % bs``;
         ``kv_limit`` bounds the logical rows attention reads, and the caller
         guarantees ``position + T <= kv_limit``. ``slots`` is ignored: the
         table is the indirection. A quantized cache's layer slices travel as
@@ -279,19 +326,17 @@ class LlamaDecode:
         ``position + depths[j]``, and attends the committed prefix plus its
         own ancestors. The kernel takes the ancestors as ``tree_bits``
         (t <= 32), the gather as a mask."""
-        if cache.quantized and block_tables is None:
+        quantized = getattr(cache, "k_scale", None) is not None
+        if quantized and block_tables is None:
             raise ValueError(
                 "quantized KV storage is paged-only: the dense slot cache "
                 "has no scale arrays (use block_tables / PagedServingEngine)"
             )
-        if block_tables is None:
-            raise _unported("the dense per-slot KV cache", "dense-engine")
         if context_encode and tree is not None:
             raise ValueError(
                 "tree verification runs through the cache-attention path; "
                 "context_encode=True would silently ignore the ancestor mask"
             )
-        del slots
         b, t = tokens.shape
         positions = positions.to(torch.int32)
         write_rows = positions[:, None] + torch.arange(
@@ -307,23 +352,29 @@ class LlamaDecode:
                 ancestors = ancestors[None].expand(b, t, t)
             tree = (depths, ancestors)
             pos_block = positions[:, None] + depths.to(torch.int32)
-            if self._paged_kernel_eligible(t, tree):
+            if block_tables is not None and self._paged_kernel_eligible(t, tree):
                 tree_bits = tree_bits_of(ancestors)
-        # paged: logical capacity is the table width (write positions can
-        # reach the bucket-padding overflow region past max_seq_len)
-        rope_len = block_tables.shape[1] * cache.block_size
+        if block_tables is None:
+            if slots is None:
+                slots = torch.arange(b, device=tokens.device)
+            slots = slots.long()
+            rope_len = cache.max_len
+        else:
+            # paged: logical capacity is the table width (write positions can
+            # reach the bucket-padding overflow region past max_seq_len)
+            rope_len = block_tables.shape[1] * cache.block_size
         sin, cos = self._rope_tables(rope_len, tokens.device)
 
         x = params.embed(tokens)
         for i, layer in enumerate(params.layers):
             kc, vc = cache.k[i], cache.v[i]
-            if cache.quantized:
+            if quantized:
                 kc, vc = (kc, cache.k_scale[i]), (vc, cache.v_scale[i])
             x = self._decode_layer(
                 layer, x, kc, vc, sin, cos, pos_block, write_rows,
                 positions, context_encode=context_encode, kv_limit=kv_limit,
                 block_tables=block_tables, row_live=row_live, tree=tree,
-                tree_bits=tree_bits,
+                tree_bits=tree_bits, slots=slots,
             )
         x = params.final_norm(x)
         if return_hidden:
@@ -333,9 +384,10 @@ class LlamaDecode:
     def _decode_layer(
         self, layer: LlamaDecoderLayer, x, kc, vc, sin, cos, pos_block,
         write_rows, positions, *, context_encode: bool, kv_limit=None,
-        block_tables=None, row_live=None, tree=None, tree_bits=None,
+        block_tables=None, row_live=None, tree=None, tree_bits=None, slots=None,
     ) -> torch.Tensor:
         """One decoder layer with cache write and read. kc/vc: this layer's
+        (B, S_max, NKV, D) dense slice (``block_tables`` None), or its
         (num_blocks, block_size, NKV, D) pool slice, or (payload, scale)
         pairs of a quantized pool; x: (b, T, H). Fresh K/V land at
         ``write_rows``, roped at ``pos_block`` (the two differ for a tree)."""
@@ -344,13 +396,60 @@ class LlamaDecode:
         q, k, v = layer.attn.project_qkv(layer.attn_norm(x))
         q = apply_rope(q, sin, cos, pos_block)
         k = apply_rope(k, sin, cos, pos_block)
-        att = self._attend_paged(
-            q, k, v, kc, vc, block_tables, write_rows, pos_block, positions,
-            context_encode=context_encode, kv_limit=kv_limit, row_live=row_live,
-            tree=tree, tree_bits=tree_bits,
-        )
+        if block_tables is None:
+            att = self._attend_dense(
+                q, k, v, kc, vc, slots, write_rows, pos_block, positions,
+                context_encode=context_encode, kv_limit=kv_limit, tree=tree,
+            )
+        else:
+            att = self._attend_paged(
+                q, k, v, kc, vc, block_tables, write_rows, pos_block, positions,
+                context_encode=context_encode, kv_limit=kv_limit, row_live=row_live,
+                tree=tree, tree_bits=tree_bits,
+            )
         x = x + layer.attn.o(att.reshape(b, t, c.num_heads * c.head_dim))
         return x + layer.mlp(layer.mlp_norm(x))
+
+    def _attend_dense(
+        self, q, k, v, kc, vc, slots, write_rows, pos_block, positions,
+        *, context_encode: bool, kv_limit=None, tree=None,
+    ) -> torch.Tensor:
+        """Dense cache write + attention (JAX ``_attend_with_cache``'s dense
+        branch): the fresh K/V, cast to the cache's dtype, land at ``(slots,
+        write_rows)`` of this layer's (B, S_max, NKV, D) slices in place, so
+        a captured graph holds the cache's address. Then the bucket-causal
+        attention over the fresh block (``context_encode``), or the first
+        ``kv_limit`` rows of the batch's slots through
+        :meth:`_cache_attention` (its ancestor mask for a ``tree``).
+
+        A row at or past ``S_max`` is dropped, as JAX's scatter drops it:
+        out-of-range indices would be a device-side assert on the card. Its
+        write is sent to row 0 of its slot with the value already there;
+        such a row exists only when the block starts past row 0 (a block is
+        never longer than the cache), so no live write shares that row. A
+        prefill starts at row 0 and never needs it. Returns att (b, T, N,
+        D)."""
+        b, t = write_rows.shape
+        s_max = kc.shape[1]
+        rows = write_rows.long()
+        sl = slots[:, None].expand(b, t)
+        kw, vw = k.to(kc.dtype), v.to(vc.dtype)
+        if not context_encode:
+            valid = (rows < s_max)[..., None, None]
+            rows = torch.where(rows < s_max, rows, torch.zeros_like(rows))
+            kw = torch.where(valid, kw, kc[sl, rows])
+            vw = torch.where(valid, vw, vc[sl, rows])
+        kc.index_put_((sl, rows), kw)
+        vc.index_put_((sl, rows), vw)
+        if context_encode:
+            self.attention_paths["context"] += 1
+            return core_attention(q, k, v, causal=True)
+        self.attention_paths["dense"] += 1
+        kr = kc if kv_limit is None else kc[:, :kv_limit]
+        vr = vc if kv_limit is None else vc[:, :kv_limit]
+        k_all = kr.index_select(0, slots).to(q.dtype)  # (b, S<=max, NKV, D)
+        v_all = vr.index_select(0, slots).to(q.dtype)
+        return self._cache_attention(q, k_all, v_all, pos_block, positions, tree)
 
     def _attend_paged(
         self, q, k, v, kc, vc, block_tables, write_rows, pos_block, positions,

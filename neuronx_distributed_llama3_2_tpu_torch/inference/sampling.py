@@ -2,24 +2,28 @@
 
 Counterpart of ``neuronx_distributed_llama3_2_tpu/inference/sampling.py``
 (``SamplingConfig``, ``GREEDY_TEMPERATURE``, ``sample``, ``lane_keys``,
-``sample_lanes``).
+``sample_lanes``), with the pieces of ``jax.random`` they stand on.
 
-- :func:`sample` — the host-loop path: a static :class:`SamplingConfig`
-  and an explicit ``torch.Generator`` on the logits' device instead of a
-  JAX key, so a host-sampled stream is valid but does not match the JAX
-  package's draws; the greedy path (argmax, first maximum on ties, as
-  ``jnp.argmax`` picks) matches exactly.
+- :func:`sample` — the host-loop path (the dense engine, and the paged
+  engine without ``on_device_sampling``): a static :class:`SamplingConfig`
+  and one key for the whole ``(..., V)`` draw, JAX ``sample`` draw for
+  draw. The key is data, a ``(2,)`` tensor of threefry words on the
+  logits' device: :func:`key` is ``jax.random.key``, :func:`split` is
+  ``jax.random.split`` (the partitionable threefry, JAX's default), so a
+  caller chains keys as a JAX caller does, and a step that splits its
+  resident key in place runs inside a captured CUDA graph.
 - :func:`sample_lanes` — the fused serving path
   (``PagedConfig.on_device_sampling``): per-lane ``(temperature, top_k,
   top_p)`` tensors and per-lane key *data* live on the device beside the
   tokens and positions, the token landing at sequence index ``i`` is drawn
   with ``fold_in(lane_key, i)``, and ``temperature <= 0`` is the greedy
-  sentinel (exact argmax). The key is data, not a generator: the draws are
-  JAX's counter-based threefry2x32 reproduced bit for bit in torch integer
-  ops (:func:`threefry2x32`), and JAX's gumbel-argmax ``categorical`` over
-  the same bits, so a fused sampled stream is the JAX engine's token for
-  token. Every op is a plain tensor op, so the whole draw runs inside a
-  captured CUDA graph.
+  sentinel (exact argmax).
+
+Both draw JAX's counter-based threefry2x32 reproduced bit for bit in torch
+integer ops (:func:`threefry2x32`), and JAX's gumbel-argmax
+``categorical`` over the same bits, so a sampled stream is the JAX
+package's token for token. Every op is a plain tensor op, so the whole
+draw runs inside a captured CUDA graph.
 
 The 32-bit words of threefry are carried in int64 tensors, each value in
 ``[0, 2**32)`` and masked back after every add and shift: int32 shifts
@@ -29,9 +33,14 @@ are arithmetic and most CUDA ops lack uint32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
+
+from neuronx_distributed_llama3_2_tpu_torch.utils.device import (
+    DeviceLike,
+    resolve_device,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,13 +68,17 @@ GREEDY_TEMPERATURE = 0.0
 
 
 def sample(
-    logits: torch.Tensor,
-    generator: Optional[torch.Generator],
-    config: SamplingConfig,
+    logits: torch.Tensor, key: torch.Tensor, config: SamplingConfig
 ) -> torch.Tensor:
-    """Sample token ids from (..., V) logits. Returns (...,) int32.
-    ``generator`` lives on the logits' device; greedy sampling draws
-    nothing from it."""
+    """Sample token ids from (..., V) logits (JAX ``sample``). Returns
+    (...,) int32. ``key`` is one key's data (:func:`key`, :func:`split`)
+    on the logits' device; greedy sampling draws nothing from it.
+
+    The draw is :func:`categorical` of the filtered logits: divided by the
+    temperature, then the top-k filter (a value threshold, ties with the
+    k-th value survive) and the top-p filter (the minimal prefix whose
+    mass reaches ``top_p``, the boundary token and its ties included),
+    each applied only where the config asks for it, as JAX applies them."""
     if config.greedy:
         # torch.argmax returns the first maximal index, like jnp.argmax
         return torch.argmax(logits, dim=-1).to(torch.int32)
@@ -76,7 +89,9 @@ def sample(
         logits = logits.masked_fill(logits < kth, float("-inf"))
     if config.top_p < 1.0:
         sorted_logits = torch.sort(logits, dim=-1, descending=True).values
-        probs = torch.softmax(sorted_logits, dim=-1)
+        # jax.nn.softmax's arithmetic: exp(x - max) / sum
+        e = torch.exp(sorted_logits - sorted_logits.amax(dim=-1, keepdim=True))
+        probs = e / e.sum(dim=-1, keepdim=True)
         cum = torch.cumsum(probs, dim=-1)
         # keep the minimal prefix whose mass reaches top_p: a token is kept
         # if the cumulative mass *before* it is < top_p. The cutoff is the
@@ -85,12 +100,9 @@ def sample(
         keep = (cum - probs) < config.top_p
         cutoff = torch.where(
             keep, sorted_logits, torch.full_like(sorted_logits, float("inf"))
-        ).min(dim=-1).values
+        ).amin(dim=-1)
         logits = logits.masked_fill(logits < cutoff[..., None], float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    flat = probs.reshape(-1, probs.shape[-1])
-    drawn = torch.multinomial(flat, 1, generator=generator)
-    return drawn.reshape(probs.shape[:-1]).to(torch.int32)
+    return categorical(key, logits)
 
 
 # -- threefry2x32, as jax.random's default PRNG computes it ---------------------
@@ -139,6 +151,49 @@ def fold_in(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
         (key[..., 0], key[..., 1]), (torch.zeros_like(key[..., 0]), data.long())
     )
     return torch.stack([y0, y1], dim=-1)
+
+
+def key(seed: int, device: DeviceLike = "cuda") -> torch.Tensor:
+    """``jax.random.key(seed)``'s threefry key data: the words ``(seed >>
+    32, seed & 0xFFFFFFFF)`` as a (2,) int64 tensor on ``device``. A seed
+    in int32's range has a zero high word (JAX's 32-bit seeds, negative
+    ones as their two's complement)."""
+    seed = int(seed)
+    hi = 0 if -(2 ** 31) <= seed < 2 ** 31 else (seed >> 32) & _MASK32
+    return torch.tensor([hi, seed & _MASK32], dtype=torch.int64,
+                        device=resolve_device(device))
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` on key data (2,): the partitionable
+    threefry (``jax_threefry_partitionable``, JAX's default) hashes the
+    counters ``(0, i)``, so key ``i`` is ``fold_in(key, i)``. Returns
+    (num, 2) int64 on the key's device; no value crosses to the host."""
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    return fold_in(key.long()[None, :].expand(num, 2), i)
+
+
+def next_key(key: torch.Tensor) -> torch.Tensor:
+    """``key, sub = jax.random.split(key)`` on a resident key, in place:
+    ``key`` (2,) takes the first half and ``sub`` is returned, all on the
+    key's device, so a captured CUDA graph advances the chain."""
+    keys = split(key)
+    key.copy_(keys[0])
+    return keys[1]
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` with one key (2,)
+    over the whole ``(..., V)`` array: the argmax of the gumbel noise plus
+    the logits, the noise drawn from ``key`` over the flattened shape
+    (element ``j`` of the row-major order takes the bits of counter
+    ``(0, j)``). Returns (...,) int32."""
+    lf = logits.float()
+    n = lf.numel()
+    if n >= 2 ** 32:
+        raise ValueError(f"{n} draws need the counters' high word, not ported")
+    noise = gumbel(key.long()[None, :], n).reshape(lf.shape)
+    return torch.argmax(noise + lf, dim=-1).to(torch.int32)
 
 
 def lane_keys(rng_data: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,10 @@
-"""The speculative accept/reject rules, linear and tree.
+"""Speculative decoding: the accept/reject rules, linear and tree, and the
+draft-model decoder.
 
 Counterpart of ``neuronx_distributed_llama3_2_tpu/inference/speculative.py``
-(``accept_rule``, ``tree_topology``, ``tree_accept_rule``), on torch
-tensors. The verify step scores the block ``[cur, d_0 .. d_{k-1}]`` in one
+(``accept_rule``, ``tree_topology``, ``tree_accept_rule``,
+``SpeculativeResult``, ``SpeculativeDecoder``), on torch tensors. The
+verify step scores the block ``[cur, d_0 .. d_{k-1}]`` in one
 block-causal forward and keeps the longest draft prefix that agrees with
 the target's greedy choice, plus one correction (or bonus) token. Rejected
 rows past the accepted frontier need no rollback: the block-causal mask
@@ -11,13 +13,16 @@ speculation scores a packed candidate tree instead (node 0 the resident
 token, parents before children) and keeps the deepest accepted
 root-anchored path.
 
-Not ported yet: the draft-model ``SpeculativeDecoder`` (the dense-engine
-slice).
+:class:`SpeculativeDecoder` runs the rule over two dense engines
+(:class:`..inference.engine.InferenceEngine`): the draft engine's B=1
+decode program proposes ``gamma`` tokens, the target's verify program
+scores them in one forward, and the output is the target's greedy stream.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -125,3 +130,123 @@ def tree_accept_rule(
     bonus = torch.gather(targets, -1, best.long()[..., None])
     emitted = torch.where(iota == accept[..., None], bonus, emitted)
     return accept, emitted, best
+
+
+@dataclasses.dataclass
+class SpeculativeResult:
+    tokens: List[int]
+    accepted_per_round: List[int]  # acceptance telemetry
+
+    @property
+    def mean_accepted(self) -> float:
+        if not self.accepted_per_round:
+            return 0.0
+        return sum(self.accepted_per_round) / len(self.accepted_per_round)
+
+
+class SpeculativeDecoder:
+    """Greedy speculative decode of a single sequence over two dense
+    engines (slot 0 of each cache). The output is the target's plain
+    greedy decode, whatever the draft proposes.
+
+    Each round the draft's B=1 decode program proposes ``gamma`` tokens
+    one by one, the target's verify program scores ``[cur, d_0 ..
+    d_{gamma-1}]`` in one forward, and :func:`accept_rule` keeps the
+    longest agreeing prefix plus one correction or bonus token. The
+    draft may share the target's weights (e.g. its first layers)."""
+
+    def __init__(self, target, draft, gamma: int = 4) -> None:
+        from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import (
+            SamplingConfig,
+        )
+
+        if gamma < 1:
+            raise ValueError("gamma must be >= 1")
+        self.target = target
+        self.draft = draft
+        self.gamma = gamma
+        self._greedy = SamplingConfig(greedy=True)
+
+    def _prefill(self, engine, prompt: Sequence[int]) -> int:
+        return int(engine.prefill_batch([prompt], [0], self._greedy)[0])
+
+    def generate(
+        self, prompt: Sequence[int], max_new_tokens: int, eos_token_id=None
+    ) -> SpeculativeResult:
+        from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
+            read_host_tokens,
+        )
+
+        target, draft, g = self.target, self.draft, self.gamma
+        # every verify round writes up to g+1 rows past the frontier, so
+        # the whole run must fit both caches
+        if len(prompt) + max_new_tokens + g + 1 > target.max_seq_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) "
+                f"+ gamma+1 ({g + 1}) exceeds target cache capacity "
+                f"({target.max_seq_len})"
+            )
+        if len(prompt) + max_new_tokens + g + 1 > draft.max_seq_len:
+            raise ValueError(
+                f"speculation run exceeds draft cache capacity "
+                f"({draft.max_seq_len})"
+            )
+        decode_d = draft._decode_program(1, self._greedy)
+        verify_t = target._verify_program(1, g + 1)
+
+        t0 = self._prefill(target, prompt)
+        self._prefill(draft, prompt)
+
+        out: List[int] = [t0]
+        accepted_log: List[int] = []
+        # `cur` = newest emitted token, not yet written to either cache;
+        # `pos` = its write position (= number of committed cache rows)
+        cur = t0
+        pos = len(prompt)
+
+        while len(out) < max_new_tokens:
+            if eos_token_id is not None and out[-1] == eos_token_id:
+                break
+            # 1) the draft proposes gamma tokens autoregressively
+            drafts: List[int] = []
+            dtok, dpos = cur, pos
+            for _ in range(g):
+                toks, _ = draft._load(decode_d, tokens=[dtok], positions=[dpos])()
+                dtok = int(read_host_tokens(toks)[0])
+                drafts.append(dtok)
+                dpos += 1
+
+            # 2) the target scores [cur, d_0..d_{g-1}] in one forward
+            (logits,) = target._load(
+                verify_t, tokens=[[cur] + drafts], positions=[pos]
+            )()
+            # greedy[i] = the target's token for position pos+i+1
+            greedy = read_host_tokens(torch.argmax(logits[0], dim=-1))
+
+            # 3) the longest agreeing prefix + one correction/bonus token
+            a_arr, em_arr = accept_rule(
+                torch.as_tensor(drafts)[None, :], torch.as_tensor(greedy)[None, :]
+            )
+            a = int(a_arr[0])
+            emitted = [int(x) for x in em_arr[0, : a + 1]]
+            accepted_log.append(a)
+            if a == g:
+                # full acceptance: the draft wrote rows pos..pos+g-1 ([cur,
+                # d_0..d_{g-2}]) but never d_{g-1}'s K/V at row pos+g, which
+                # the next round's mask admits: one throwaway draft decode
+                # writes it
+                draft._load(decode_d, tokens=[drafts[-1]], positions=[pos + g])()
+            for tok in emitted:
+                out.append(tok)
+                if eos_token_id is not None and tok == eos_token_id:
+                    break
+                if len(out) >= max_new_tokens:
+                    break
+            cur = out[-1]
+            pos = pos + a + 1
+            if pos + g + 1 >= target.max_seq_len:
+                break
+
+        return SpeculativeResult(
+            tokens=out[:max_new_tokens], accepted_per_round=accepted_log
+        )

@@ -129,6 +129,14 @@ writes too. The decode state (tokens, positions, block tables) lives on
 the device as in the JAX package and is updated in place from host
 mirrors when a lane changes.
 
+Host sampling (a sampled ``GenerationConfig`` without
+``on_device_sampling``) draws on JAX's key chain: the engine's resident
+key (``_key``, threefry key data on the device, seeded by
+``GenerationConfig.seed``) is split in place by every host-sampled
+prefill, chunk and decode program, where the JAX engine splits its key,
+so the sampled streams are the JAX engine's and a captured graph
+advances the chain as the eager step does.
+
 ``PagedConfig`` keeps every field of the JAX package. A knob whose feature
 is not ported makes the constructor raise ``NotImplementedError`` naming
 it (see :data:`UNPORTED_KNOBS`).
@@ -151,6 +159,8 @@ from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
 )
 from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import (
     GREEDY_TEMPERATURE,
+    key as key_of,
+    next_key,
     sample,
     sample_lanes,
 )
@@ -305,8 +315,7 @@ class PagedConfig:
 #: Any value other than the default (a falsy value counts as the default
 #: where the default is falsy) makes PagedServingEngine raise. ``prewarm``
 #: is ported (every prefill and decode-time program as a CUDA graph) for
-#: greedy decoding and, under ``on_device_sampling``, sampled decoding;
-#: host-sampled decoding raises in :meth:`PagedServingEngine.prewarm`.
+#: greedy, host-sampled and on-device-sampled decoding.
 #: Every other knob is ported but the policy tables, which the analyzer
 #: ``analysis/graftplan.py`` certifies (``step_policy="table"`` raises in
 #: :func:`.policy.make_policy` for the same reason).
@@ -639,10 +648,10 @@ class PagedServingEngine:
         self._finished: Dict[int, _PagedRequest] = {}
         self._requests: Dict[int, _PagedRequest] = {}
         self._free_lanes = list(range(engine.max_batch))
-        # host sampling draws from one generator on the engine's device;
-        # greedy sampling draws nothing
-        self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(gen.seed)
+        # host sampling's key chain (JAX's jax.random.key(gen.seed)), on the
+        # device: every host-sampled program splits it in place; greedy
+        # sampling draws nothing and leaves it be
+        self._key = key_of(gen.seed, device=self.device)
         # host MIRRORS of the decode state; the scheduler reads these for
         # kv-bucket routing and block accounting
         self._tokens = np.zeros((engine.max_batch,), np.int32)
@@ -902,6 +911,19 @@ class PagedServingEngine:
             return None
         return self._d_rng, self._d_temps, self._d_topks, self._d_topps
 
+    def _draw_key(self, cfg) -> Optional[torch.Tensor]:
+        """The key of a host-sampled draw: ``key, sub = split(key)`` on the
+        resident key, in place on the device (the JAX engine's host split),
+        ``sub`` returned; None for greedy sampling, which draws nothing."""
+        return None if cfg.greedy else next_key(self._key)
+
+    def _skip_draw(self) -> None:
+        """Advance the host-sampling key chain by the split of a prefill
+        that an injected fault stopped: the JAX engine splits its key
+        before the fault fires."""
+        if not self._fused:
+            self._draw_key(self.gen.sampling)
+
     def _write_back(self, tokens: torch.Tensor, positions: torch.Tensor) -> None:
         """A program's new resident tokens and positions, written into the
         residents in place: the graphs read them at their captured
@@ -947,7 +969,7 @@ class PagedServingEngine:
                 last = torch.index_select(hidden, 1, (inputs["length"] - 1).long())
                 logits = params._logits(last[:, 0])
                 if cfg != "lane":
-                    return (sample(logits, self._generator, cfg),)
+                    return (sample(logits, self._draw_key(cfg), cfg),)
                 # the sampled token lands at sequence index start + length
                 # (pctx: start 0), the index a decode step from the last
                 # prompt row would fold
@@ -977,7 +999,7 @@ class PagedServingEngine:
                             # a quarantined lane's draw is discarded, but the
                             # host sampler must not see its NaN row
                             out = torch.where(finite[:, None], out, torch.zeros_like(out))
-                    out = sample(out, self._generator, cfg)
+                    out = sample(out, self._draw_key(cfg), cfg)
                 self._write_back(out, positions)
                 return (self._d_tokens,) + ((finite,) if checked else ())
         elif kind in ("pverify", "ptree"):
@@ -1022,10 +1044,12 @@ class PagedServingEngine:
         asks): it builds the kernel sources, the cuBLAS handles, the
         model's rope tables and the t1 kernel's arrival counters before
         the capture, so nothing lazily built is allocated from the graphs'
-        pool; the resident tokens and positions are put back after it.
-        Returns ``(graph, outputs)``. A failure raises."""
+        pool; the resident tokens, positions and host-sampling key are
+        put back after it, so the capture leaves the key chain where it
+        was. Returns ``(graph, outputs)``. A failure raises."""
         dev = self.device
         saved = (self._d_tokens.clone(), self._d_positions.clone())
+        saved_key = self._key.clone()
         main = torch.cuda.current_stream(dev)
         if self._warm_stream is None:
             self._warm_stream = torch.cuda.Stream(dev)
@@ -1034,6 +1058,7 @@ class PagedServingEngine:
             fn()
         main.wait_stream(self._warm_stream)
         self._write_back(*saved)
+        self._key.copy_(saved_key)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._graph_pool):
             outputs = fn()
@@ -1173,17 +1198,12 @@ class PagedServingEngine:
         records run their steps eagerly when dispatched. A graph reads
         the weights, the KV pool and the residents at their captured
         addresses: nothing may move them after this (no ``.to()``, no
-        ``load_state_dict`` that replaces a tensor). Sampled decoding needs
-        ``PagedConfig.on_device_sampling``: its per-lane parameters and
-        keys are residents the graphs read, so one capture serves every
-        sampling config, greedy or sampled; the host sampler's draws are
-        not captured."""
-        if not self.gen.sampling.greedy and not self._fused:
-            raise NotImplementedError(
-                "prewarm with sampled decoding: the host sampler's draws are "
-                "not captured; turn on PagedConfig.on_device_sampling (or use "
-                "SamplingConfig(greedy=True))"
-            )
+        ``load_state_dict`` that replaces a tensor). Under
+        ``PagedConfig.on_device_sampling`` the per-lane parameters and keys
+        are residents the graphs read, so one capture serves every
+        sampling config, greedy or sampled; a host-sampled program splits
+        the resident key inside its graph, so each replay advances the
+        chain as the eager step does."""
         t0 = time.perf_counter()
         self._prewarming = True
         try:
@@ -1913,6 +1933,7 @@ class PagedServingEngine:
             except InjectedFault as fault:
                 # an admission prefill fault: only this request dies, and its
                 # teardown leaves the admission wave consistent
+                self._skip_draw()
                 self._fail_request(req, str(fault))
                 continue
             t_p1 = time.perf_counter()
@@ -2017,6 +2038,7 @@ class PagedServingEngine:
             except InjectedFault as fault:
                 # a chunk fault: this lane's walk dies, the other lanes are
                 # untouched
+                self._skip_draw()
                 self._fail_request(req, str(fault))
                 continue
             t_p1 = time.perf_counter()
@@ -2926,26 +2948,28 @@ def make_serving_engine(
     engine: InferenceEngine,
     gen: GenerationConfig = GenerationConfig(),
     paged: Optional[PagedConfig] = None,
+    precompile: bool = True,
     drafter: Optional[Any] = None,
     injector: Optional[FaultInjector] = None,
-) -> PagedServingEngine:
-    """The serving-path config flag: a :class:`PagedConfig` selects the
-    paged engine (``drafter`` overrides the n-gram proposer under
-    speculation; ``injector`` hooks a :class:`.faults.FaultInjector` into
-    its funnels). ``paged=None`` selects the dense slot-scheduled engine
-    of the JAX package, which is not ported yet and raises (with an
-    injector, the JAX package's ``ValueError``). The JAX
-    package's ``precompile`` argument (its ``_warmup``) has no
-    counterpart: ``PagedConfig.prewarm`` captures the prefill and
+):
+    """The serving-path config flag: ``paged=None`` selects the dense
+    slot-scheduled :class:`..inference.engine.ContinuousBatchingEngine`
+    (``precompile`` builds its programs ahead of traffic; an ``injector``
+    raises ``ValueError``: fault injection needs the paged engine); a
+    :class:`PagedConfig` selects the paged engine (``drafter`` overrides
+    the n-gram proposer under speculation; ``injector`` hooks a
+    :class:`.faults.FaultInjector` into its funnels). The paged engine has
+    no ``precompile``: ``PagedConfig.prewarm`` captures its prefill and
     decode-time programs ahead of traffic, and the state writes are eager
     calls."""
     if paged is None:
         if injector is not None:
             raise ValueError("fault injection requires the paged engine")
-        raise NotImplementedError(
-            "paged=None selects the dense ContinuousBatchingEngine, which "
-            "comes with the dense-engine slice of the port"
+        from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
+            ContinuousBatchingEngine,
         )
+
+        return ContinuousBatchingEngine(engine, gen, precompile=precompile)
     return PagedServingEngine(
         engine, gen, paged, drafter=drafter, injector=injector,
     )

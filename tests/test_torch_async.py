@@ -243,14 +243,16 @@ def test_dry_drafter_hands_steps_to_async_like_jax(weights, retry):
 
 
 def test_eager_async_host_sampling_is_the_sync_stream(weights):
-    """Host sampling draws from the engine's generator in dispatch order:
-    the async loop dispatches the same steps in the same order as the sync
+    """Host sampling splits the engine's key chain in dispatch order: the
+    async loop dispatches the same steps in the same order as the sync
     loop (the lame-duck step last), so its sampled streams are the sync
-    loop's."""
-    gen = GenerationConfig(
-        max_new_tokens=10, seed=3,
-        sampling=SamplingConfig(greedy=False, temperature=0.9, top_k=40),
+    loop's, and both are the JAX async engine's (the same chain)."""
+    from neuronx_distributed_llama3_2_tpu.inference.sampling import (
+        SamplingConfig as JaxSamplingConfig,
     )
+
+    sampling = dict(greedy=False, temperature=0.9, top_k=40)
+    gen = GenerationConfig(max_new_tokens=10, seed=3, sampling=SamplingConfig(**sampling))
     prompts = _prompts(13, (7, 19, 4, 11, 25, 9))
     outs = []
     for async_loop in (False, True):
@@ -258,6 +260,13 @@ def test_eager_async_host_sampling_is_the_sync_stream(weights):
         outs.append(_run(eng, prompts))
     assert outs[0] == outs[1]
     assert eng.metrics.decode_steps_async > 0 and eng.metrics.lame_duck_tokens > 0
+    jax_eng = JaxPagedServingEngine(
+        JaxInferenceEngine(JAX_TINY, weights[0], **ENGINE_KW),
+        JaxGenerationConfig(max_new_tokens=10, seed=3,
+                            sampling=JaxSamplingConfig(**sampling)),
+        JaxPagedConfig(block_size=8, num_blocks=64, async_loop=True), precompile=False,
+    )
+    assert _run(jax_eng, prompts) == outs[1]
 
 
 def test_async_prewarmed_records_match_jax(weights):

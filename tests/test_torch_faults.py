@@ -606,3 +606,24 @@ def test_metrics_log_every(weights):
     assert len(lines) == port.metrics.decode_steps // 3 >= 2
     steps = [json.loads(line.split("serving metrics: ", 1)[1])["decode_steps"] for line in lines]
     assert steps == [3 * (i + 1) for i in range(len(lines))]
+
+
+@pytest.mark.parametrize("paged,step", [(PLAIN, 0), (dict(PLAIN, prefill_chunk_tokens=6), 1)],
+                         ids=["prefill", "chunk"])
+def test_host_sampled_prefill_fault_keeps_the_key_chain(weights, paged, step):
+    """Host sampling under a device fault that stops a prefill (an
+    admission's, or a chunk's): the JAX engine split its key before the
+    fault fired, so the port advances its chain there too, and every
+    survivor's sampled stream stays the JAX engine's token for token."""
+    jp, model = weights
+    plan = dict(schedule=((step, "device"),))
+    jax_eng = _jax(jp, 8, paged, plan, sampled=True)
+    port = _port(model, 8, paged, plan, sampled=True)
+    prompts = _prompts(3, (5, 12, 20, 9))
+    _run(jax_eng, prompts)
+    _run(port, prompts)
+    got, want = _outcome(port), _outcome(jax_eng)
+    assert got == want
+    assert [f[2] for f in got["fired"]] == ["prefill"] and _n_failed(got) == 1
+    _clean(port)
+    assert sum(len(o) for o in got["outs"].values()) > 3 * 8 - 8

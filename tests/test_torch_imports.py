@@ -36,6 +36,11 @@ def test_sources_exist():
     # the SLO-aware scheduler and the front door
     assert PORT / "serving" / "scheduler.py" in SOURCES
     assert PORT / "serving" / "server.py" in SOURCES
+    # the dense engine's modules and the generate script
+    for mod in ("benchmark.py", "runner.py", "medusa.py", "engine.py", "speculative.py"):
+        assert PORT / "inference" / mod in SOURCES
+    assert PORT / "scripts" / "__init__.py" in SOURCES
+    assert PORT / "scripts" / "generate.py" in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -11,6 +11,7 @@ to the JAX engine's and to the port's engine without prewarm on the same
 prompts: they must be identical.
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -343,16 +344,83 @@ def test_prewarm_leaves_the_engine_as_it_found_it(weights, case):
 
 
 def test_prewarm_with_sampled_decoding_raises(weights):
-    """Host-sampled decoding cannot be captured: prewarm raises, naming
-    on_device_sampling (tests/test_torch_sampling.py holds prewarm with it)."""
+    """Host-sampled decoding prewarms now (it raised before the key chain
+    moved onto the device): every catalog key is registered, none after
+    the freeze, and the prewarmed engine serves the eager host-sampled
+    streams (tests/test_torch_sampling.py holds them to the JAX engine's)."""
     gen = GenerationConfig(
         max_new_tokens=4, sampling=SamplingConfig(greedy=False, temperature=0.7)
     )
-    with pytest.raises(NotImplementedError,
-                       match="prewarm with sampled decoding.*on_device_sampling"):
-        _engine(weights[1], gen=gen, prewarm=True)
-    # without prewarm the sampled engine is built as before
-    assert not _engine(weights[1], gen=gen).program_registry()
+    warm = _engine(weights[1], gen=gen, prewarm=True)
+    assert [r.key for r in warm.program_registry().values()] == warm.catalog.graph_keys()
+    prompts = _prompts()
+    eager = _engine(weights[1], gen=gen)
+    assert not eager.program_registry()
+    assert _serve(warm, prompts) == _serve(eager, prompts)
+    assert warm.metrics.steadystate_compiles == 0
+    assert sum(r.replays for r in warm.program_registry().values()) == \
+        warm.metrics.compute_dispatches
+
+
+class _FakeStream:
+    def wait_stream(self, other):
+        pass
+
+
+class _FakeGraph:
+    def pool(self):
+        return None
+
+
+@pytest.mark.parametrize("planted", [False, True], ids=["capture", "planted"])
+def test_capture_leaves_the_key_chain_where_it_was(weights, monkeypatch, planted):
+    """A capture runs its step once as a warm-up, which splits the
+    host-sampling key: _capture puts the key back, so the graph's first
+    replay draws with the key the eager step would. The CUDA calls are
+    stood in for on the CPU (a capture records and runs nothing, so the
+    stand-in puts back what its body wrote). A planted capture that keeps
+    its warm-up's split leaves the chain one split ahead, and the check
+    sees it."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import split
+
+    gen = GenerationConfig(
+        max_new_tokens=4, sampling=SamplingConfig(greedy=False, temperature=0.7)
+    )
+    eng = _engine(weights[1], gen=gen)
+
+    class _Capture:
+        def __init__(self, graph, pool=None):
+            pass
+
+        def __enter__(self):
+            self.saved = [x.clone() for x in (eng._key, eng._d_tokens, eng._d_positions)]
+
+        def __exit__(self, *exc):
+            for dst, x in zip((eng._key, eng._d_tokens, eng._d_positions), self.saved):
+                dst.copy_(x)
+            return False
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "Stream", lambda dev=None: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _Capture)
+    key_ = next(k for k in eng.catalog.graph_keys() if k[0] == "pdecode")
+    fn = eng._step_fn(key_, eng._family_inputs("pdecode"))
+    k0 = eng._key.clone()
+    if planted:
+        fn()  # the warm-up, its split kept
+        with _Capture(None):
+            fn()
+    else:
+        eng._capture(fn)
+    moved = not torch.equal(eng._key, k0)
+    assert moved == planted
+    if planted:
+        assert torch.equal(eng._key, split(k0)[0])
+    # a replay (the eager step here) then advances the chain by one split
+    fn()
+    assert torch.equal(eng._key, split(split(k0)[0] if planted else k0)[0])
 
 
 def test_t1_arrivals_raise_when_they_would_grow_under_capture(monkeypatch):

@@ -139,6 +139,77 @@ def test_gumbel_matches_jax():
                                    atol=4 * np.spacing(np.float32(16)))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 5, 42, -3, 2 ** 31 - 1, 123456789])
+def test_key_and_split_match_jax(seed):
+    """key(seed) is jax.random.key(seed)'s key data, and split(key, num) is
+    jax.random.split's, chained three deep, under the partitionable
+    threefry that JAX 0.9 uses by default (the mode is held here: the
+    other mode splits differently)."""
+    assert jax.config.jax_threefry_partitionable
+    jk = jax.random.key(seed)
+    tk = sampling.key(seed, device="cpu")
+    assert tk.dtype == torch.int64 and tuple(tk.shape) == (2,)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jax.random.key_data(jk)))
+    for num in (2, 3, 7):
+        np.testing.assert_array_equal(
+            sampling.split(tk, num).numpy(),
+            np.asarray(jax.random.key_data(jax.random.split(jk, num))).astype(np.int64))
+    for _ in range(3):
+        jk, jsub = jax.random.split(jk)
+        keys = sampling.split(tk)
+        tk, tsub = keys[0], keys[1]
+        np.testing.assert_array_equal(tk.numpy(), np.asarray(jax.random.key_data(jk)))
+        np.testing.assert_array_equal(tsub.numpy(), np.asarray(jax.random.key_data(jsub)))
+
+
+SAMPLE_CONFIGS = [
+    dict(greedy=True),
+    dict(greedy=False, temperature=0.7),
+    dict(greedy=False, temperature=1.0, top_k=8),
+    dict(greedy=False, temperature=0.8, top_p=0.95),
+    dict(greedy=False, temperature=1.3, top_k=40, top_p=0.9),
+    dict(greedy=False, temperature=1.0, top_k=1),
+    dict(greedy=False, temperature=0.5, top_k=100000, top_p=0.5),
+]
+
+
+@pytest.mark.parametrize("shape", [(4, 256), (3, 2, 50), (2, 128256)],
+                         ids=["b4-V256", "b3x2-V50", "b2-V128256"])
+@pytest.mark.parametrize("cfg", range(len(SAMPLE_CONFIGS)))
+def test_sample_matches_jax(shape, cfg):
+    """sample(logits, key, config) is JAX sample's draw for draw over
+    seeds, shapes (the key draws over the whole (..., V) array) and
+    filters; greedy is the first-maximum argmax, and the sampled configs
+    do not all draw the argmax (the check can fail)."""
+    kw = SAMPLE_CONFIGS[cfg]
+    rng = np.random.default_rng(cfg * 7 + len(shape))
+    off = 0
+    for seed in range(4 if shape[-1] > 1000 else 8):
+        logits = (rng.standard_normal(shape) * 3).astype(np.float32)
+        want = np.asarray(jax_sampling.sample(
+            jnp.asarray(logits), jax.random.key(seed), jax_sampling.SamplingConfig(**kw)))
+        got = sampling.sample(torch.as_tensor(logits), sampling.key(seed, device="cpu"),
+                              SamplingConfig(**kw))
+        assert got.dtype == torch.int32 and tuple(got.shape) == shape[:-1]
+        np.testing.assert_array_equal(got.numpy(), want)
+        off += int((got.numpy() != logits.argmax(-1)).sum())
+    assert (off == 0) == (kw.get("greedy") or kw.get("top_k") == 1)
+
+
+def test_categorical_draws_over_the_flat_array():
+    """categorical with one key over (b, V) draws row i from the bits of
+    counters i*V .. i*V + V-1: row i of a (b, V) draw is not the draw of
+    the same key over row i alone (but row 0 is)."""
+    logits = torch.zeros((3, 64))
+    k = sampling.key(9, device="cpu")
+    batch = sampling.categorical(k, logits)
+    alone = [int(sampling.categorical(k, logits[i:i + 1])[0]) for i in range(3)]
+    assert int(batch[0]) == alone[0]
+    assert batch[1:].tolist() != alone[1:]
+    want = jax.random.categorical(jax.random.key(9), jnp.zeros((3, 64)))
+    np.testing.assert_array_equal(batch.numpy(), np.asarray(want))
+
+
 def _lane_args(rows, seed):
     rng = np.random.default_rng(seed)
     b = len(rows)
@@ -443,7 +514,7 @@ def _port(model, gen, drafter=None, **paged_kw):
     )
 
 
-def _jax(jp, max_new, sampled=True, drafter=None, **paged_kw):
+def _jax(jp, max_new, sampled=True, drafter=None, seed=0, **paged_kw):
     from neuronx_distributed_llama3_2_tpu.inference.sampling import (
         SamplingConfig as JaxSamplingConfig,
     )
@@ -451,7 +522,7 @@ def _jax(jp, max_new, sampled=True, drafter=None, **paged_kw):
     s = JaxSamplingConfig(**SAMPLED) if sampled else JaxSamplingConfig()
     return JaxPagedServingEngine(
         JaxInferenceEngine(JAX_TINY, jp, **ENGINE_KW),
-        JaxGenerationConfig(max_new_tokens=max_new, sampling=s),
+        JaxGenerationConfig(max_new_tokens=max_new, sampling=s, seed=seed),
         JaxPagedConfig(**dict(POOL, **paged_kw)), drafter=drafter, precompile=False,
     )
 
@@ -595,6 +666,39 @@ def test_sampled_run_metrics_and_determinism(weights):
     assert _run(_port(model, _gen(8, sampled=False)), prompts) != out
 
 
+#: (id, the PagedConfig knobs of both engines) of the host-sampled legs
+HOST_LEGS = {
+    "plain": {},
+    "chunked": dict(prefill_chunk_tokens=6),
+    "async": dict(async_loop=True),
+    "prefix": dict(enable_prefix_caching=True),
+}
+
+
+@pytest.mark.parametrize("leg", sorted(HOST_LEGS))
+def test_host_sampled_streams_match_jax(weights, leg):
+    """Host sampling (no on_device_sampling): the engine's key chain is
+    JAX's, split by each prefill, chunk and decode program in the JAX
+    engine's order, so the sampled streams are the JAX engine's token for
+    token, eager and async; a prewarmed engine (its records run eagerly
+    here) serves the same streams."""
+    jp, model = weights
+    knobs = HOST_LEGS[leg]
+    prompts = _prompts(13, (7, 19, 4, 11, 25, 9))
+    if leg == "prefix":
+        prompts = [prompts[1] + [3, 4], prompts[1] + [5]] + prompts[2:]
+    gen = _gen(10, seed=3)
+    jax_eng = _jax(jp, 10, seed=3, **knobs)
+    want = _run(jax_eng, prompts)
+    assert len({tuple(o) for o in want.values()}) == len(prompts)
+    assert _run(_port(model, gen, **knobs), prompts) == want
+    warm = _port(model, gen, prewarm=True, **knobs)
+    assert _run(warm, prompts) == want
+    assert warm.metrics.steadystate_compiles == 0
+    if leg == "prefix":
+        assert warm.metrics.cached_tokens > 0
+
+
 def test_host_sampling_counts_fallbacks(weights):
     _, model = weights
     eng = _port(model, _gen(6))
@@ -704,10 +808,13 @@ def test_fused_catalog_uses_lane_sentinel(weights):
 
 
 def test_sampled_prewarm_needs_fused_sampling(weights):
-    """prewarm with a sampled config: the engine builds every record under
-    on_device_sampling, and still raises without it."""
+    """prewarm with a sampled config builds every record, with or without
+    on_device_sampling: a host-sampled record splits the resident key
+    inside its step, so it is captured like any other (the keys then
+    carry the static SamplingConfig where the fused ones carry "lane")."""
     _, model = weights
-    with pytest.raises(NotImplementedError, match="on_device_sampling"):
-        _port(model, _gen(4), prewarm=True)
+    host = _port(model, _gen(4), prewarm=True)
+    assert [r.key for r in host.program_registry().values()] == host.catalog.graph_keys()
     eng = _port(model, _gen(4), prewarm=True, on_device_sampling=True)
     assert [r.key for r in eng.program_registry().values()] == eng.catalog.graph_keys()
+    assert "lane" not in " ".join(map(str, host.catalog.graph_keys()))

@@ -261,8 +261,14 @@ def test_engine_options_that_raise(weights):
     inj = FaultInjector(FaultPlan(alloc_rate=0.5))
     faulty = PagedServingEngine(eng, injector=inj)
     assert faulty.injector is inj and faulty.allocator.fault_hook == inj.alloc_fault
-    with pytest.raises(NotImplementedError, match="dense"):
-        make_serving_engine(eng, paged=None)
+    # paged=None is the dense continuous-batching loop (ported with the
+    # dense engine; tests/test_torch_dense_engine.py holds it to JAX's)
+    from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
+        ContinuousBatchingEngine,
+    )
+
+    assert isinstance(make_serving_engine(eng, paged=None, precompile=False),
+                      ContinuousBatchingEngine)
     assert isinstance(
         make_serving_engine(eng, paged=PagedConfig(block_size=8, num_blocks=16)),
         PagedServingEngine,

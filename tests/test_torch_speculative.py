@@ -619,3 +619,86 @@ def test_tree_mixed_step_matches_jax(weights, kernel):
                           kv_limit=32, pos_cap=79)
     assert lin[0][0].tolist() == t_out[0][0].tolist()
     assert int(lin[2][0]) == int(t_out[2][0]) and int(lin[3][0]) == int(t_out[3][0])
+
+
+# -- the draft-model SpeculativeDecoder over dense engines --------------------------
+
+
+def _shallow(model, n_layers):
+    """A LlamaForCausalLM sharing ``model``'s first ``n_layers`` layers and
+    its embedding and norm (the same tensors, no copy)."""
+    import copy
+
+    from torch import nn
+
+    d = copy.copy(model)
+    d._modules = dict(model._modules)
+    d.layers = nn.ModuleList(list(model.layers)[:n_layers])
+    d.config = dataclasses.replace(model.config, num_layers=n_layers)
+    return d
+
+
+@pytest.fixture(scope="module")
+def dense_weights():
+    """The speculative cases' weights with the decoder layers scaled up
+    (tests/test_torch_async.py), so that greedy streams do not repeat one
+    token; and a second, independent set for the adversarial draft."""
+    from tests.test_torch_async import _scaled
+
+    out = []
+    for seed in (2, 42):
+        jp = jax.tree_util.tree_map_with_path(
+            _scaled, JaxLlama(JAX_TINY).init(jax.random.key(seed)))
+        model = LlamaForCausalLM(TINY, device="cpu")
+        model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jp), TINY, device="cpu"))
+        out.append((jp, model))
+    return out
+
+
+@pytest.mark.parametrize("draft", ["same", "other", "first-2-layers"])
+def test_speculative_decoder_equals_greedy_and_jax(dense_weights, draft):
+    """Speculative decode with any draft emits the target's plain greedy
+    stream, and the JAX SpeculativeDecoder's tokens and per-round accept
+    counts: the same model drafts near-perfectly, an independent model
+    adversarially, the target's first two layers (shared tensors) in
+    between."""
+    from neuronx_distributed_llama3_2_tpu.inference import (
+        GenerationConfig as JaxGen,
+        InferenceEngine as JaxEngine,
+        SpeculativeDecoder as JaxSpec,
+    )
+    from neuronx_distributed_llama3_2_tpu_torch.inference import (
+        GenerationConfig,
+        InferenceEngine,
+        SpeculativeDecoder,
+    )
+
+    (jp, model), (jp_other, other) = dense_weights
+    prompt = np.random.default_rng(7).integers(0, TINY.vocab_size, size=12).tolist()
+    kw = dict(max_batch=1, max_seq_len=64)
+    ref = InferenceEngine(TINY, model, **kw).generate(
+        [prompt], GenerationConfig(max_new_tokens=14)).sequences[0]
+    if draft == "same":
+        d_port, d_cfg, d_jax, d_jcfg = model, TINY, jp, JAX_TINY
+    elif draft == "other":
+        d_port, d_cfg, d_jax, d_jcfg = other, TINY, jp_other, JAX_TINY
+    else:
+        d_port = _shallow(model, 2)
+        d_cfg = d_port.config
+        d_jax = dict(jp, layers=jax.tree.map(lambda a: a[:2], jp["layers"]))
+        d_jcfg = dataclasses.replace(JAX_TINY, num_layers=2)
+    spec = SpeculativeDecoder(
+        InferenceEngine(TINY, model, **kw), InferenceEngine(d_cfg, d_port, **kw), gamma=3)
+    res = spec.generate(prompt, max_new_tokens=14)
+    assert res.tokens == ref
+    jres = JaxSpec(JaxEngine(JAX_TINY, jp, **kw), JaxEngine(d_jcfg, d_jax, **kw),
+                   gamma=3).generate(prompt, max_new_tokens=14)
+    assert res.tokens == list(map(int, jres.tokens))
+    assert res.accepted_per_round == jres.accepted_per_round
+    assert list(map(int, JaxEngine(JAX_TINY, jp, **kw).generate(
+        [prompt], JaxGen(max_new_tokens=14)).sequences[0])) == ref
+    if draft == "same":
+        assert res.mean_accepted > 2.5
+    # the draft shares the target's tensors: no weight was copied
+    if draft == "first-2-layers":
+        assert d_port.layers[0].attn.qkv.q_kernel is model.layers[0].attn.qkv.q_kernel
