@@ -158,7 +158,27 @@
    and read after each; the loss must be finite and fall. Then one step's
    loss and gradients through the kernels against the same step through
    the plain attention (which must also reject a backward through a
-   planted kernel fault), and a profiled step.
+   planted kernel fault), and a profiled step. Then the remat policies:
+   one step's loss and gradients at batch 2 x 2048 (flash on) under each of
+   "full", "none", "selective", "dots", "hybrid", "kv" from the same weights
+   and batch, each within the train e2e bands of "full"'s, with K1 launched
+   once a layer where the policy keeps the attention output and its
+   residuals and twice where the backward recomputes it (K2, K3 once), its
+   peak memory and step time logged. Then the pretrain script
+   (scripts.pretrain.main, in process): the 1B at full width and depth
+   under its default remat "selective", the native token loader over a
+   token file of repeated motifs written here, 8 steps at batch 4 x 2048
+   saving at step 4 and at the end in the JAX package's checkpoint format;
+   the final tag moved aside, the same command resumes from step 4 and
+   must repeat the losses (1e-3 relative) and end within one bf16 ulp of
+   the first run's weights; the TensorBoard scalars, the timeline and the
+   metrics file read back. The saves', the load's and the host copy's
+   times are logged. The trained checkpoint is then loaded into T's
+   configuration (its weights bitwise the trained state's) and served
+   eagerly (every token within T's margin of the plain forward; the lane
+   trees that branch logged) and by its prewarmed twin (the eager streams,
+   no K4 launch outside a replay), and scripts.generate --ckpt-dir must
+   give InferenceEngine.generate's greedy stream.
    Every serve checks which source took its K4 calls: every t == 1 call
    csrc/paged_decode_t1.cu (each lane's live blocks split evenly over a
    split count that fills the card, the splits merged in the same launch),
@@ -233,6 +253,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2289,13 +2310,15 @@ def one_dispatch_steps(server) -> tuple:
     return mixed, other
 
 
-def run_tree_serve_phase(cfg, model, card: str):
+def run_tree_serve_phase(cfg, model, card: str, summary: Optional[dict] = None):
     """T: the tree-speculative fused serve of ``tree_prompts`` after a
     warm-up serve of its own (which also records each kernel geometry's
     calls, ancestor masks included), submitted as F is (``serve_staged``),
     K4's launch counters zeroed just before and read just after. Returns
     (prompts, outputs, rids, tree launches, csrc/paged_decode_tile.cu's and
-    csrc/paged_decode_t1.cu's launches, served geometries)."""
+    csrc/paged_decode_t1.cu's launches, served geometries); ``summary``, if
+    given, receives the lane trees dispatched and branched and the
+    accepted tokens."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
 
     tcfg = tree_config(cfg)
@@ -2377,6 +2400,10 @@ def run_tree_serve_phase(cfg, model, card: str):
         f"{m.accepted_tokens} (accept rate {m.accept_rate():.6f}); tree_accept_by_shape "
         f"{ {s: (v['lanes'], v['accepted']) for s, v in m.tree_accept_by_shape.items()} } "
         f"(lanes, accepted); prefill_chunks {m.prefill_chunks} | {card}")
+    if summary is not None:
+        summary.update(lane_trees=sum(int(par.shape[0]) for par, _ in calls),
+                       branched=branched, accepted=m.accepted_tokens,
+                       draft=m.draft_tokens, accept_rate=m.accept_rate())
     routes = check_routes("T", cfg, geoms, launches, tile, t1)
     log(f"serve T: paged_decode kernel launches {launches} ({routes}), of them with "
         f"tree_bits {tree_launches} (= {len(calls)} tree dispatches x {cfg.num_layers} "
@@ -4597,6 +4624,335 @@ def run_train_profile_phase(state, step, batch, card: str) -> None:
         log(f"  device {e.self_device_time_total / 1e3:.6f} ms, {e.count} calls: {e.key[:100]}")
 
 
+# -- 5b. remat, pretrain and resume, the trained serve ----------------------------
+
+REMAT_POLICIES = ("full", "none", "selective", "dots", "hybrid", "kv")
+REMAT_BATCH = 2
+REMAT_TIMED = 3
+
+
+def run_remat_phase(card: str) -> None:
+    """One step's loss and gradients (forward and backward, no optimizer)
+    of the 1B at full width and depth, flash attention on, batch
+    REMAT_BATCH x 2048, from the same weights and batch under each of the
+    six remat policies: the loss within LOSS_BAND and every gradient
+    within GRAD_BAND (largest per-parameter relative L2) of "full"'s, and
+    (K1, K2, K3) launched (FLASH_FWD_PER_LAYER x layers, layers, layers)
+    times in each step. Each policy's step runs once untimed (which also
+    grows the allocator's pools to its needs), then REMAT_TIMED times with
+    the launch counters reset before each; logs the median wall ms (each
+    ending in a read of the loss) and the peak max_memory_allocated over
+    them, less what was allocated before the phase and less "full"'s
+    gradients, held for the comparison: the weights, the gradients and
+    the policy's activations."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import flash_attention as fa
+    from neuronx_distributed_llama3_2_tpu_torch.models.llama import (
+        FLASH_FWD_PER_LAYER,
+        LlamaForCausalLM,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    cfg, _ = train_configs()
+    model = LlamaForCausalLM(cfg, device="cuda").init_weights(SEED)
+    batch = train_batch(cfg, REMAT_BATCH)
+    params = dict(model.named_parameters())
+    ref = None
+    for policy in REMAT_POLICIES:
+        model.config = dataclasses.replace(cfg, remat=policy)
+        gc.collect()
+        torch.cuda.empty_cache()
+        loss_and_grads(model, batch)  # warm-up
+        want = (FLASH_FWD_PER_LAYER[policy] * cfg.num_layers, cfg.num_layers, cfg.num_layers)
+        held = 0 if ref is None else sum(g.nbytes for g in ref[1].values())
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        for _ in range(REMAT_TIMED):
+            grads = None
+            for c in (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches):
+                c.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = model.loss(batch["input_ids"], batch["labels"])
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+            loss = loss.item()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            launches = flash_counts()
+            check(launches == want, f"remat {policy}: (K1, K2, K3) launches {launches}, "
+                                    f"expected {want}")
+        peak = torch.cuda.max_memory_allocated() - base - held
+        ms = float(np.median(step_ms))
+        if ref is None:
+            ref = (loss, grads)
+            loss_gap, gap, at = 0.0, 0.0, "-"
+        else:
+            loss_gap = abs(loss - ref[0])
+            gap, at = grad_gap(grads, ref[1])
+        log(f"remat {policy}: loss {loss:.6f} (gap to full {loss_gap:.6g}, band {LOSS_BAND}); "
+            f"largest gradient relative L2 error against full {gap:.6g} at {at} (band "
+            f"{GRAD_BAND}); (K1, K2, K3) launches {launches} a step, expected {want}; step "
+            f"median {ms:.6f} ms of {[round(t, 6) for t in step_ms]}; peak memory {peak} B = "
+            f"{peak / 2**30:.6f} GiB (weights, gradients, activations) | {card}")
+        check(np.isfinite(loss) and loss_gap <= LOSS_BAND, f"remat {policy}: loss gap {loss_gap}")
+        check(gap <= GRAD_BAND, f"remat {policy}: gradient gap {gap} at {at}")
+        if policy != REMAT_POLICIES[0]:
+            del grads
+    del model, params, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+PRETRAIN_STEPS = 8
+PRETRAIN_SAVE_EVERY = 4
+PRETRAIN_BATCH = 4
+PRETRAIN_SAMPLES = 64
+MOTIF = 64
+#: resumed losses against the uninterrupted run's, relative
+RESUME_LOSS_TOL = 1e-3
+
+
+def pretrain_tokens() -> np.ndarray:
+    """PRETRAIN_SAMPLES x 2048 tokens of MOTIF-token motifs in seeded
+    order: T's four 8-token prompt patterns (two 4-token patterns sharing
+    their first three tokens, ``tree_prompts``) each repeated to a motif,
+    and three seeded random motifs of ids 64-511."""
+    prompts = tree_prompts()
+    motifs = [(prompts[j][:8] * (MOTIF // 8)) for j in SPEC_REP_PROMPTS]
+    rng = np.random.default_rng(SEED + 19)
+    motifs += [rng.integers(64, 512, size=MOTIF).tolist() for _ in range(3)]
+    order = rng.integers(0, len(motifs), size=PRETRAIN_SAMPLES * TRAIN_SEQ // MOTIF)
+    return np.asarray([t for i in order for t in motifs[i]], dtype=np.int32)
+
+
+def work_dir():
+    """The phases' scratch directory, inside the checkout (git-ignored)."""
+    from pathlib import Path
+
+    return Path(__file__).resolve().parent / ".chipscratch" / "pretrain"
+
+
+class LogLines:
+    """Collect the port's log lines (its logger does not propagate)."""
+
+    def __init__(self):
+        import logging
+
+        from neuronx_distributed_llama3_2_tpu_torch.utils.logger import get_logger
+
+        self.lines: list = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.lines.append(record.getMessage())
+        self.logger = get_logger()
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+@contextlib.contextmanager
+def host_copy_spy(copies: list):
+    """Record (bytes, seconds) of each CheckpointIOState.add_tree: the copy
+    of a kind's tensors into host memory, synchronize included."""
+    from neuronx_distributed_llama3_2_tpu_torch.checkpoint import checkpoint as ckpt
+
+    inner = ckpt.CheckpointIOState.add_tree
+
+    def add_tree(self, kind, tree):
+        t0 = time.perf_counter()
+        inner(self, kind, tree)
+        secs = time.perf_counter() - t0
+        host = self._work[-1][2]
+        copies.append((kind, sum(a.nbytes for a in host.values()), secs))
+
+    ckpt.CheckpointIOState.add_tree = add_tree
+    try:
+        yield
+    finally:
+        ckpt.CheckpointIOState.add_tree = inner
+
+
+def tag_bytes(path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def run_pretrain_phase(card: str) -> dict:
+    """scripts.pretrain.main in process on a token file of repeated
+    motifs (``pretrain_tokens``, written with write_token_file): the 1B at
+    full width and depth under its default remat "selective", the native
+    loader, batch PRETRAIN_BATCH x 2048, lr 1e-3 after 2 warm-up steps,
+    TensorBoard, timeline and metrics file. Run A: PRETRAIN_STEPS steps,
+    saving every PRETRAIN_SAVE_EVERY. Its final tag is moved out of the
+    root (kept for the trained serve), and run B, the same command, must
+    resume from the middle tag: its losses equal A's within
+    RESUME_LOSS_TOL relative (the exact differences logged), its final
+    weights A's within one bf16 ulp. Both ran the native loader; A's
+    TensorBoard file reads back PRETRAIN_STEPS train/loss scalars equal to
+    its losses, B's the resumed ones; the timeline parses; A's losses are
+    finite and fall. Logs the free disk before the runs, each tag's bytes,
+    each save's and the load's seconds (sync), and the host copy's GB/s.
+    Returns A's final tag's path and its weights (on the card)."""
+    import shutil
+
+    from neuronx_distributed_llama3_2_tpu_torch.checkpoint import checkpoint as ckpt
+    from neuronx_distributed_llama3_2_tpu_torch.data import write_token_file
+    from neuronx_distributed_llama3_2_tpu_torch.scripts import pretrain
+    from neuronx_distributed_llama3_2_tpu_torch.trainer.tensorboard import read_scalars
+
+    work = work_dir()
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    free = shutil.disk_usage(work).free
+    log(f"pretrain: {free} B free on the checkout's disk before the runs")
+    tokens = pretrain_tokens()
+    write_token_file(str(work / "tokens.npy"), tokens)
+    root, kept = work / "ckpt", work / "ckpt_a"
+    argv = ["--model", "llama3.2-1b", "--data", str(work / "tokens.npy"), "--native-loader",
+            "--seq-len", str(TRAIN_SEQ), "--global-batch", str(PRETRAIN_BATCH),
+            "--lr", "1e-3", "--warmup-steps", "2", "--steps", str(PRETRAIN_STEPS),
+            "--save-every", str(PRETRAIN_SAVE_EVERY), "--ckpt-dir", str(root),
+            "--tensorboard-dir", str(work / "tb"), "--timeline", str(work / "timeline.json"),
+            "--metrics-file", str(work / "metrics.jsonl"), "--seed", str(SEED)]
+    final = f"step_{PRETRAIN_STEPS}"
+    mid = f"step_{PRETRAIN_SAVE_EVERY}"
+    copies: list = []
+    runs = {}
+    for name in ("A", "B"):
+        with LogLines() as lines, host_copy_spy(copies):
+            t0 = time.perf_counter()
+            out = pretrain.main(argv)
+            wall = time.perf_counter() - t0
+        json.loads((work / "timeline.json").read_text())  # must parse
+        runs[name] = out
+        log(f"pretrain run {name}: {wall:.6f} s; start step {out['start_step']}, losses "
+            f"{out['losses']}; dataset {out['dataset']}; saves {out['save_seconds']} s, load "
+            f"{out['load_seconds']} s (sync) | {card}")
+        if name == "A":
+            sizes = {t: tag_bytes(root / t) for t in (mid, final)}
+            log(f"pretrain: tag bytes {sizes}; {shutil.disk_usage(work).free} B free after run A")
+            params_a = {k: p.detach().clone() for k, p in out["state"].params.items()}
+            kept.mkdir()
+            os.replace(root / final, kept / final)  # B must not find it; the serve loads it
+            tb_a = sorted((work / "tb").iterdir())
+        else:
+            check(any(f"resumed from {mid} at step {PRETRAIN_SAVE_EVERY}" in line
+                      for line in lines.lines),
+                  f"pretrain run B did not resume from {mid}: {lines.lines[:5]}")
+        check(any(f"done: {PRETRAIN_STEPS} steps" in line for line in lines.lines),
+              f"pretrain run {name} did not finish")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs["A"], runs["B"]
+    losses = [a["losses"][s] for s in range(PRETRAIN_STEPS)]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"pretrain: losses not finite and falling: {losses}")
+    check(a["dataset"] == b["dataset"] == "NativeTokenDataset",
+          f"pretrain: datasets {a['dataset']}, {b['dataset']} (the native loader must run)")
+    diffs = {s: b["losses"][s] - a["losses"][s] for s in range(PRETRAIN_SAVE_EVERY, PRETRAIN_STEPS)}
+    check(sorted(b["losses"]) == list(range(PRETRAIN_SAVE_EVERY, PRETRAIN_STEPS))
+          and all(abs(d) <= RESUME_LOSS_TOL * abs(a["losses"][s]) for s, d in diffs.items()),
+          f"pretrain: resumed losses {b['losses']} vs {a['losses']}")
+    worst_ulps, differing, total = 0.0, 0, 0
+    for k, p in b["state"].params.items():
+        ref = params_a[k]
+        d = (p.float() - ref.float()).abs()
+        worst_ulps = max(worst_ulps, (d / bf16_ulp(ref.float())).max().item())
+        differing += int((d > 0).sum())
+        total += d.numel()
+    log(f"pretrain: resumed losses minus run A's {diffs} (tolerance {RESUME_LOSS_TOL} "
+        f"relative); final weights: {differing} of {total} elements differ, the worst by "
+        f"{worst_ulps:.6g} bf16 ulps | {card}")
+    check(worst_ulps <= 1.0, f"pretrain: resumed weights {worst_ulps} ulps from run A's")
+    scal_a = read_scalars(str(tb_a[0]))["train/loss"]
+    tb_b = [f for f in sorted((work / "tb").iterdir()) if f not in tb_a]
+    scal_b = read_scalars(str(tb_b[0]))["train/loss"] if len(tb_b) == 1 else {}
+    check(len(tb_a) == 1 and sorted(scal_a) == list(range(PRETRAIN_STEPS))
+          and all(abs(scal_a[s] - a["losses"][s]) <= 1e-6 * abs(a["losses"][s])
+                  for s in scal_a)
+          and sorted(scal_b) == list(range(PRETRAIN_SAVE_EVERY, PRETRAIN_STEPS)),
+          f"pretrain: TensorBoard scalars A {scal_a}, B {scal_b}")
+    metrics = [json.loads(line) for line in open(work / "metrics.jsonl")]
+    check(len(metrics) == PRETRAIN_STEPS + PRETRAIN_STEPS - PRETRAIN_SAVE_EVERY,
+          f"pretrain: {len(metrics)} metrics lines")
+    rates = [f"{kind} {n} B in {sec:.6f} s = {n / sec / 1e9:.6f} GB/s" for kind, n, sec in copies]
+    log(f"pretrain: host copies (CheckpointIOState.add_tree, each a save's kind; the first "
+        f"allocates the page-locked buffers): {rates} | {card}")
+    ckpt._IO_STATES.pop(str(root), None)  # the root's page-locked host buffers
+    del b
+    runs.clear()
+    shutil.rmtree(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(tag_dir=kept, tag=final, params=params_a)
+
+
+def run_trained_serve_phase(cfg, trained: dict, card: str) -> None:
+    """The pretrained checkpoint served: run A's final tag loaded through
+    load_checkpoint into the 1B (``cfg``: the paged kernel on), its weights
+    bitwise the trained state's; T (tree speculation) served eagerly, every
+    request within T_LOGIT_MARGIN of the plain forward over the loaded
+    weights, and by its prewarmed twin (the eager streams, no K4 launch
+    outside a replay); the lane trees that branched and the accepted
+    tokens logged beside the random-weight runs' 0 of 256. Then
+    scripts.generate --ckpt-dir on the card, greedy: its stream equals
+    InferenceEngine.generate's over the loaded weights. Deletes the
+    scratch directory at the end."""
+    import shutil
+
+    from neuronx_distributed_llama3_2_tpu_torch.checkpoint import load_checkpoint
+    from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
+        GenerationConfig,
+        InferenceEngine,
+    )
+    from neuronx_distributed_llama3_2_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_llama3_2_tpu_torch.scripts import generate
+
+    root, tag = trained["tag_dir"], trained["tag"]
+    model = LlamaForCausalLM(cfg, device="cuda")
+    t0 = time.perf_counter()
+    loaded = load_checkpoint(str(root), tag, model=dict(model.named_parameters()))
+    model.load_state_dict(loaded["model"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del loaded
+    same = all(torch.equal(p, trained["params"][k]) for k, p in model.named_parameters())
+    log(f"trained serve: {root.name}/{tag} loaded (model kind) in {load_s:.6f} s; weights "
+        f"bitwise the trained state's: {same} | {card}")
+    check(same, "trained serve: the loaded weights differ from the trained state's")
+    trained["params"].clear()
+    summary: dict = {}
+    t_prompts, t_outs, t_rids, *_ = run_tree_serve_phase(cfg, model, card, summary=summary)
+    run_tree_e2e_phase(cfg, model, t_prompts, t_outs, t_rids)
+    twin = run_graph_phase(tree_config(cfg), model, "serve T trained", t_prompts,
+                           [t_outs[r] for r in t_rids], card,
+                           lambda o, r: e2e_gaps(model, t_prompts, o, r)[0], T_LOGIT_MARGIN,
+                           **TREE_KNOBS)
+    log(f"trained serve T: {summary['branched']} of {summary['lane_trees']} lane trees "
+        f"branched (random weights: 0 of 256, runs S, U); accepted tokens "
+        f"{summary['accepted']} of {summary['draft']} drafted (accept rate "
+        f"{summary['accept_rate']:.6f}), {summary['accepted'] / max(summary['lane_trees'], 1):.6f} "
+        f"a lane tree; prewarmed twin's streams equal: {twin['same']}, TPOT p50 "
+        f"{twin['tpot']:.6f} ms | {card}")
+    prompt = t_prompts[SPEC_REP_PROMPTS[0]][:64]
+    got = generate.main(["--model", "llama3.2-1b", "--ckpt-dir", str(root), "--tag", tag,
+                         "--prompt-ids", ",".join(map(str, prompt)), "--greedy",
+                         "--max-new-tokens", "16", "--max-seq-len", "256"])
+    engine = InferenceEngine(cfg, model, max_batch=1, max_seq_len=256)
+    want = engine.generate([prompt], GenerationConfig(max_new_tokens=16)).sequences
+    log(f"trained serve: scripts.generate --ckpt-dir {got['sequences']}, "
+        f"InferenceEngine.generate {want}; per-token p50 "
+        f"{got['report']['per_token']['p50_ms']:.6f} ms | {card}")
+    check(got["sequences"] == want, "trained serve: scripts.generate's stream differs")
+    del engine, model
+    shutil.rmtree(work_dir(), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # -- 6. flash kernels -----------------------------------------------------------
 
 # (name, B, N, Nkv, S, D, causal, timing iterations); the first is the
@@ -5718,6 +6074,12 @@ def main() -> int:
     timed("train profile", run_train_profile_phase, state, step, batch, card)
     del model, state, step, batch
     torch.cuda.empty_cache()
+    # every remat policy; the pretrain script with a save, a resume and the
+    # native loader; its checkpoint served
+    timed("remat", run_remat_phase, card)
+    trained = timed("pretrain", run_pretrain_phase, card)
+    timed("trained serve", run_trained_serve_phase, cfg, trained, card)
+    del trained
     flash = timed("flash kernels", run_flash_kernel_phase, card)
     flash_packed = timed("flash kernels packed", run_flash_kernel_phase, card, packed=True)
 

@@ -13,22 +13,43 @@ crosses between the packages through :func:`params_from_jax` /
 - the LM head is tied to the embedding unless the config says otherwise.
 
 Training runs on one device: :meth:`LlamaForCausalLM.loss` (the chunked
-cross-entropy of ``loss_chunk_size``), per-layer remat ``"none"`` /
-``"full"`` through ``torch.utils.checkpoint``, and the flash-attention
-kernels when ``use_flash_attention`` is set. Sequence and context
-parallelism wait for the multi-GPU slice; the other remat policies raise.
+cross-entropy of ``loss_chunk_size``) and the flash-attention kernels when
+``use_flash_attention`` is set. Sequence and context parallelism wait for
+the multi-GPU slice. Each decoder layer runs under the config's remat
+policy (JAX ``_remat_policy``), through ``torch.utils.checkpoint``:
+
+- ``"none"`` keeps every activation; ``"full"`` keeps only the layer's
+  input and recomputes the layer in the backward (``nothing_saveable``);
+- ``"selective"`` keeps the outputs of the projections (``aten.mm``), not
+  the attention's batched products (``dots_with_no_batch_dims_saveable``),
+  and ``"dots"`` keeps every product's (``dots_saveable``): selective
+  activation checkpointing with a policy over aten ops;
+- ``"hybrid"`` keeps post-RoPE q, k, v and the attention output, and
+  ``"kv"`` all of them but q (JAX's ``checkpoint_name`` sites ``q_rope``,
+  ``kv_rope``, ``attn_out``): checkpointed segments between those tensors
+  (:meth:`LlamaDecoderLayer.forward_named`).
+
+The flash kernels are launched through ctypes inside an autograd function,
+which selective checkpointing cannot keep: under every policy that does
+not keep the attention output its forward (K1) runs again in the backward
+(``FLASH_FWD_PER_LAYER``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from neuronx_distributed_llama3_2_tpu_torch.kernels.flash_attention import (
     DEFAULT_BLOCK_KV,
@@ -334,12 +355,24 @@ class LlamaAttention(nn.Module):
             v.reshape(b, t, c.num_kv_heads, c.head_dim),
         )
 
-    def forward(self, x, sin, cos, positions) -> torch.Tensor:
+    def project(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """One of the three projections ("q", "k" or "v") alone, pre-RoPE,
+        (b, t, heads, D): the same product as :meth:`project_qkv`'s."""
         c = self.config
-        b, s = x.shape[:2]
-        q, k, v = self.project_qkv(x)
-        q = apply_rope(q, sin, cos, positions)
-        k = apply_rope(k, sin, cos, positions)
+        y = x @ getattr(self.qkv, f"{name}_kernel")
+        bias = getattr(self.qkv, f"{name}_bias")
+        if bias is not None:
+            y = y + bias
+        if c.clip_qkv is not None:
+            y = y.clamp(-c.clip_qkv, c.clip_qkv)
+        heads = c.num_heads if name == "q" else c.num_kv_heads
+        return y.reshape(*x.shape[:2], heads, c.head_dim)
+
+    def attend(self, q, k, v) -> torch.Tensor:
+        """Causal attention of the post-RoPE q, k, v -> (b, s, N*D), the
+        attention output (JAX's ``attn_out``)."""
+        c = self.config
+        b, s = q.shape[:2]
         if c.use_flash_attention:
             attn = flash_attention(
                 q, k, v, causal=True,
@@ -348,7 +381,13 @@ class LlamaAttention(nn.Module):
             )
         else:
             attn = core_attention(q, k, v, causal=True)
-        return self.o(attn.reshape(b, s, c.num_heads * c.head_dim))
+        return attn.reshape(b, s, c.num_heads * c.head_dim)
+
+    def forward(self, x, sin, cos, positions) -> torch.Tensor:
+        q, k, v = self.project_qkv(x)
+        q = apply_rope(q, sin, cos, positions)
+        k = apply_rope(k, sin, cos, positions)
+        return self.o(self.attend(q, k, v))
 
 
 class LlamaMLP(nn.Module):
@@ -380,6 +419,36 @@ class LlamaMLP(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# Remat policies
+# ---------------------------------------------------------------------------
+
+_aten = torch.ops.aten
+#: the aten products whose outputs ``"selective"`` and ``"dots"`` keep (JAX
+#: ``dots_with_no_batch_dims_saveable`` / ``dots_saveable``): the
+#: projections are ``mm`` (a 3-D input folded into 2-D), the attention's
+#: products ``bmm`` (batched over batch and heads)
+_SAVED_OPS = {
+    "selective": frozenset({_aten.mm.default, _aten.addmm.default}),
+    "dots": frozenset({_aten.mm.default, _aten.addmm.default,
+                       _aten.bmm.default, _aten.baddbmm.default}),
+}
+
+
+def _save_ops_policy(ops):
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+#: K1 (flash forward) launches per layer in one train step under each
+#: policy with flash attention on: 2 where the backward recomputes the
+#: attention's forward, 1 where its output and residuals are kept. K2 and
+#: K3 run once a layer under every policy.
+FLASH_FWD_PER_LAYER = {"none": 1, "full": 2, "selective": 2, "dots": 2, "hybrid": 1, "kv": 2}
+
+
+# ---------------------------------------------------------------------------
 # Decoder layer / model
 # ---------------------------------------------------------------------------
 
@@ -400,6 +469,47 @@ class LlamaDecoderLayer(nn.Module):
     def forward(self, x, sin, cos, positions):
         x = x + self.attn(self.attn_norm(x), sin, cos, positions)
         return x + self.mlp(self.mlp_norm(x))
+
+    def _rest(self, x, attn):
+        """The layer after its attention: o-proj, residual, the MLP block."""
+        x = x + self.attn.o(attn)
+        return x + self.mlp(self.mlp_norm(x))
+
+    def forward_named(self, x, sin, cos, positions, keep_q: bool):
+        """The layer in checkpointed segments whose boundaries are JAX's
+        named saves: the post-RoPE q (``q_rope``, when ``keep_q``), k and v
+        (``kv_rope``) and the attention output (``attn_out``) are kept for
+        the backward, everything between them is recomputed. With flash
+        attention and ``keep_q`` the kernel's own residuals (o, lse) are
+        kept too, so its forward runs once; without ``keep_q`` the q
+        projection is recomputed with the attention, whose forward then
+        runs again in the backward."""
+        a = self.attn
+
+        def rope(y):
+            return apply_rope(y, sin, cos, positions)
+
+        if keep_q:
+            def qkv(x):
+                q, k, v = a.project_qkv(self.attn_norm(x))
+                return rope(q), rope(k), v
+
+            q, k, v = checkpoint(qkv, x, use_reentrant=False)
+            if a.config.use_flash_attention:
+                attn = a.attend(q, k, v)
+            else:  # the scores are recomputed, from the kept q, k, v
+                attn = checkpoint(a.attend, q, k, v, use_reentrant=False)
+        else:
+            def kv(x):
+                h = self.attn_norm(x)
+                return rope(a.project(h, "k")), a.project(h, "v")
+
+            def q_attend(x, k, v):
+                return a.attend(rope(a.project(self.attn_norm(x), "q")), k, v)
+
+            k, v = checkpoint(kv, x, use_reentrant=False)
+            attn = checkpoint(q_attend, x, k, v, use_reentrant=False)
+        return checkpoint(self._rest, x, attn, use_reentrant=False)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -452,28 +562,31 @@ class LlamaForCausalLM(nn.Module):
             device=device if device is not None else self.device,
         )
 
+    def _layer(self, layer, remat: str, x, sin, cos, positions):
+        """One decoder layer under ``remat`` (module docstring)."""
+        if remat == "none":
+            return layer(x, sin, cos, positions)
+        if remat in ("hybrid", "kv"):
+            return layer.forward_named(x, sin, cos, positions, keep_q=remat == "hybrid")
+        kw = {}
+        if remat in _SAVED_OPS:
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_ops_policy(_SAVED_OPS[remat])
+            )
+        return checkpoint(layer, x, sin, cos, positions, use_reentrant=False, **kw)
+
     def _backbone(self, input_ids: torch.Tensor) -> torch.Tensor:
         """Embed + decoder stack + final norm -> hidden states (B, S, H).
-        While autograd records, ``remat="full"`` runs each layer under
-        ``torch.utils.checkpoint`` (nothing inside is kept; the backward
-        recomputes the layer), as the JAX package's ``nothing_saveable``
-        policy does; ``"none"`` keeps every activation."""
+        While autograd records, each layer runs under ``config.remat``; the
+        serving and eval forward (no autograd) keeps nothing either way."""
         c = self.config
-        remat = torch.is_grad_enabled() and c.remat == "full"
-        if torch.is_grad_enabled() and c.remat not in ("none", "full"):
-            raise NotImplementedError(
-                f"remat={c.remat!r} is not ported yet: the port trains with "
-                "remat 'none' or 'full'"
-            )
+        remat = c.remat if torch.is_grad_enabled() else "none"
         b, s = input_ids.shape
         positions = torch.arange(s, device=input_ids.device).expand(b, s)
         sin, cos = self._rope(s)
         x = self.embed(input_ids)
         for layer in self.layers:
-            if remat:
-                x = checkpoint(layer, x, sin, cos, positions, use_reentrant=False)
-            else:
-                x = layer(x, sin, cos, positions)
+            x = self._layer(layer, remat, x, sin, cos, positions)
         return self.final_norm(x)
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:

@@ -17,10 +17,15 @@ Examples::
         --model tiny --random-init --prompt-ids 1,2,3 --temperature 0.8 \\
         --top-p 0.95 --device cpu
 
-Weights from an HF checkpoint (``--hf-dir``) or a native checkpoint
-(``--ckpt-dir``), a text ``--prompt`` (it needs the HF tokenizer) and
-``--tp > 1`` are not ported yet: each raises, naming the slice it comes
-with.
+    # the weights of a checkpoint written by scripts.pretrain (or by the
+    # JAX package), greedy
+    python -m neuronx_distributed_llama3_2_tpu_torch.scripts.generate \\
+        --model llama3.2-1b --ckpt-dir ckpt --tag latest --prompt-ids 12,99,4,7 \\
+        --greedy
+
+Weights from an HF checkpoint (``--hf-dir``), a text ``--prompt`` (it
+needs the HF tokenizer) and ``--tp > 1`` are not ported yet: each raises,
+naming the slice it comes with.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--model", required=True, help="model registry key (LLAMA_CONFIGS)")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--hf-dir", help="HF checkpoint directory (not ported yet)")
-    src.add_argument("--ckpt-dir", help="native checkpoint root (not ported yet)")
+    src.add_argument("--ckpt-dir", help="native checkpoint root (the JAX package's format)")
     src.add_argument("--random-init", action="store_true",
                      help="random weights from --seed (smoke and latency runs)")
     p.add_argument("--tag", default="latest", help="native checkpoint tag")
@@ -59,6 +64,8 @@ def parse_args(argv: Optional[List[str]] = None):
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
+    """Run the script; returns {"sequences": the generated token ids per
+    request, "report": the latency report it prints}."""
     args = parse_args(argv)
     from neuronx_distributed_llama3_2_tpu_torch.inference import (
         GenerationConfig,
@@ -77,10 +84,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
             "--hf-dir: the HF checkpoint converter is not ported yet "
             "(ROADMAP.md, slice 5 item 7)"
         )
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpointing is not ported yet (ROADMAP.md, slice 4)"
-        )
     if args.tp > 1:
         raise NotImplementedError(
             "--tp > 1: tensor-parallel decode is not ported yet "
@@ -89,7 +92,19 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.model not in LLAMA_CONFIGS:
         raise SystemExit(f"unknown model {args.model!r}; one of {sorted(LLAMA_CONFIGS)}")
     config = LLAMA_CONFIGS[args.model]
-    params = LlamaForCausalLM(config, device=args.device).init_weights(args.seed)
+    params = LlamaForCausalLM(config, device=args.device)
+    if args.ckpt_dir:
+        from neuronx_distributed_llama3_2_tpu_torch.checkpoint import load_checkpoint
+
+        loaded = load_checkpoint(args.ckpt_dir, tag=args.tag,
+                                 model=dict(params.named_parameters()))
+        if loaded is None:
+            raise SystemExit(f"no checkpoint {args.tag} under {args.ckpt_dir}")
+        params.load_state_dict(loaded["model"])
+        logger.info("loaded the model of %s/%s", args.ckpt_dir, loaded["tag"])
+        del loaded
+    else:
+        params.init_weights(args.seed)
 
     if args.prompt_ids:
         prompt = [int(t) for t in args.prompt_ids.split(",")]
@@ -124,7 +139,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         print(f"--- request {i}: {toks}")
     report = result.benchmark.report()
     print(json.dumps(report, indent=2))
-    return report
+    return {"sequences": result.sequences, "report": report}
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Single-device training: configuration, AdamW, the train and eval steps.
-``TensorBoardLogger`` is not ported yet (``ROADMAP.md``)."""
+"""Single-device training: configuration, AdamW, the train and eval steps,
+and the TensorBoard scalar writer."""
 
 from neuronx_distributed_llama3_2_tpu_torch.trainer.config import (  # noqa: F401
     OptimizerConfig,
@@ -15,6 +15,9 @@ from neuronx_distributed_llama3_2_tpu_torch.trainer.optimizer import (  # noqa: 
     init_optimizer_state,
     opt_state_from_jax,
     opt_state_to_jax,
+)
+from neuronx_distributed_llama3_2_tpu_torch.trainer.tensorboard import (  # noqa: F401
+    TensorBoardLogger,
 )
 from neuronx_distributed_llama3_2_tpu_torch.trainer.trainer import (  # noqa: F401
     TrainState,

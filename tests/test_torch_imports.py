@@ -41,6 +41,13 @@ def test_sources_exist():
         assert PORT / "inference" / mod in SOURCES
     assert PORT / "scripts" / "__init__.py" in SOURCES
     assert PORT / "scripts" / "generate.py" in SOURCES
+    # data and checkpoint, TensorBoard, the profiler, the pretrain script
+    for sub, mods in (("checkpoint", ("__init__.py", "storage.py", "checkpoint.py")),
+                      ("data", ("__init__.py", "dataset.py", "native_loader.py")),
+                      ("trainer", ("tensorboard.py",)), ("utils", ("profiler.py",)),
+                      ("scripts", ("pretrain.py",))):
+        for mod in mods:
+            assert PORT / sub / mod in SOURCES, (sub, mod)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -294,14 +294,60 @@ def test_parallel_knobs_raise_naming_the_knob(knob, value):
         ttrainer.make_train_step(model, tc)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_loss_and_grads(remat, flash):
+    """The JAX model's loss and gradients under ``remat`` (one jitted
+    value_and_grad), from seed-0 weights, on ``_batch()``; as numpy."""
+    cfg = dataclasses.replace(
+        jllama.LLAMA_CONFIGS["tiny"], remat=remat, use_flash_attention=flash,
+        loss_chunk_size=8,
+    )
+    jstate.destroy_model_parallel()
+    jtrainer.TrainingConfig().initialize(devices=jax.devices()[:1])
+    try:
+        model = jllama.LlamaForCausalLM(cfg)
+        params = model.init(jax.random.key(0))
+        ids, labels = _batch()
+        loss, grads = jax.jit(jax.value_and_grad(model.loss))(
+            params, jnp.asarray(ids, jnp.int32), jnp.asarray(labels, jnp.int32)
+        )
+        return (jax.tree.map(np.asarray, params), float(loss),
+                jax.tree.map(np.asarray, grads))
+    finally:
+        jstate.destroy_model_parallel()
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["core", "flash"])
 @pytest.mark.parametrize("remat", ["selective", "hybrid", "kv", "dots"])
-def test_unported_remat_policies_raise_only_when_training(remat):
-    cfg = dataclasses.replace(tllama.LLAMA_CONFIGS["tiny"], remat=remat)
-    model = tllama.LlamaForCausalLM(cfg, device="cpu").init_weights(0)
-    ids = torch.zeros((1, 8), dtype=torch.long)
-    assert model(ids).shape == (1, 8, cfg.vocab_size)  # serving forward: no remat
-    with pytest.raises(NotImplementedError, match=remat):
-        model.loss(ids, ids)
+def test_remat_policy_matches_jax(remat, flash, monkeypatch):
+    """Loss and gradients under each remat policy against the JAX model's
+    under the same policy (loss 1e-5 relative, as the train step's; each
+    gradient leaf 1e-4 relative in L2, the grad norm's tolerance). The
+    serving forward keeps no remat: its logits equal the remat-free
+    model's bit for bit. With flash on, the attention forward runs
+    ``FLASH_FWD_PER_LAYER`` times a layer in one forward and backward."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import flash_attention as fa
+
+    np_params, want_loss, want_grads = _jax_loss_and_grads(remat, flash)
+    kw = dict(remat=remat, use_flash_attention=flash, loss_chunk_size=8)
+    cfg, model = _port_model(kw, np_params)
+    ids, labels = _batch()
+    ids_t, labels_t = torch.as_tensor(ids), torch.as_tensor(labels)
+    calls = []
+    fwd = fa.flash_fwd
+    monkeypatch.setattr(fa, "flash_fwd", lambda *a, **k: calls.append(1) or fwd(*a, **k))
+    params = dict(model.named_parameters())
+    loss = model.loss(ids_t, labels_t)
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    np.testing.assert_allclose(float(loss.detach()), want_loss, rtol=1e-5)
+    got = dict(_leaves(tllama.params_to_jax(grads, cfg)))
+    for path, ref in _leaves(want_grads):
+        err = np.linalg.norm(got[path] - ref) / max(np.linalg.norm(ref), 1e-30)
+        assert err <= 1e-4, (path, err)
+    if flash:
+        assert len(calls) == tllama.FLASH_FWD_PER_LAYER[remat] * cfg.num_layers
+    _, plain = _port_model(dict(kw, remat="none"), np_params)
+    assert torch.equal(model(ids_t), plain(ids_t))
 
 
 def test_initialize_parallel_model_draws_seeded_weights():
