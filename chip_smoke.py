@@ -12,7 +12,7 @@
    distinct geometry the model gives the kernel is recorded.
 4. End to end: teacher-forced check of the served tokens against the plain
    full-sequence forward on the card, which must also reject a serve
-   through a planted kernel fault; then a profiled rerun of the serve.
+   through a planted kernel fault.
    Then two more serves of the same prompts from a quantized KV pool with
    chunked prefill (256-token chunks): Q1, int8 with the kernel's mode 3
    (dequantize in the kernel), and Q2, fp8 e4m3 with quant_mxu (mode 6,
@@ -29,7 +29,7 @@
    serve whose row_live walks stop one row short must read above the
    tighter margin on request 6, where F reads within it. Witnesses are
    logged (the gather path, the fused step without speculation, an fp32
-   copy of the model), and F is profiled. Then T, a tree-speculative fused
+   copy of the model), and F's twin is profiled. Then T, a tree-speculative fused
    serve of the same prompts (four of them rebuilt from two patterns that
    share their first three tokens, a context with two continuations):
    trees of up to 31 nodes verified at t = 32, and 32-token prefill
@@ -39,7 +39,7 @@
    a drafter whose every tree branches, a decoy branch before the plain
    forward's greedy continuation, so that every accept moves rows to the
    frontier, and a serve whose frontier commit is the identity must read
-   above the margin. T is profiled.
+   above the margin. T's twin is profiled.
    Each serve (Serve, Q1, Q2, F, T, and QF: F's knobs from an int8 pool,
    served and checked eagerly first) has a prewarmed twin: a server with
    PagedConfig.prewarm captures every program key of its catalog (whole
@@ -58,10 +58,10 @@
    are, it must have run async steps and discarded lame-duck tokens, and
    it logs a decode step's own device time (the most replayed decode-time
    graph, replayed alone). The twins of Serve, Q1, Q2, F and T are
-   profiled beside the eager serves (wall, busy share, TPOT, TTFT,
-   tokens/s), Serve's and F's async twins beside them, and K4's launches
-   by source, counted from the profiler's kernel records, must equal the
-   eager serve's. Serve's planted fault is
+   profiled (wall, busy share, TPOT, TTFT, tokens/s), their streams must
+   equal the eager serve's, and K4's launches by source in their replays
+   must equal the eager serve's wrappers' counts (the profiler's count of
+   those kernels above 0 and never above it). Serve's planted fault is
    captured into a twin's graphs, and the e2e check must reject that
    serve too, and a serve with the fault in its suffix prefills' graphs
    alone. Then fault tolerance on Serve's configuration: a prewarmed twin
@@ -239,6 +239,27 @@
    segment compare applied only on the tiles the causal or edge mask
    crosses.
 
+Tensor parallelism last (NCCL refuses two ranks on one device): "tp nccl"
+runs NCCL at world size 1 through the tp code path (a mesh of one rank,
+each row-parallel layer's all-reduce and the LM head's all-gather issued
+and, in the prewarmed twin, captured in its graphs; the single-device
+serve's streams; none issued outside a replay); "tp2 serve" runs two
+ranks on the card over gloo at tp = 2, the 1B at full width and depth,
+Serve's prompts eagerly, each rank's pool 537,133,056 bytes, both ranks'
+streams equal and held to the tp = 1 serve's under the near-tie rule, K4
+held against its plain version at a rank's 16 q / 4 kv heads at the
+served geometries; a rank 1 whose K4 reads rank 0's kv-head slice must
+fail the stream check; "tp2 train" holds one tp = 2 step's loss and
+gathered gradients to the tp = 1 step within the train bands, with and
+without sequence parallelism (K1-K3 launched 32 / 16 / 16 times a rank,
+held at the rank's shape), a
+row-parallel layer without its all-reduce must fall outside them, and a
+dp = 2 ZeRO-1 step halves each rank's fp32 state. To keep the script
+inside its limit the eager serves' profiles, the async twins' profiles,
+the timing of the bf16 K4 grid and of the tree cases no serve launched
+are left out, and a timing window is 25 calls (it was 50); every check
+stays.
+
 Every failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
 JSON record. Without a CUDA card, or outside the repository, the script
@@ -398,7 +419,7 @@ def decode_agreement(out: torch.Tensor, ref: torch.Tensor):
     return element_ratio(out, ref), rel
 
 
-def device_ms(fn, iters: int = 50, windows: int = 3, matches=(None,)):
+def device_ms(fn, iters: int = 25, windows: int = 3, matches=(None,)):
     """([device ms for each entry of ``matches``], wall ms) per call of
     ``fn(i)``, each the median over ``windows`` runs of ``iters`` calls
     after three warm-up calls. Device time is the summed duration of the
@@ -463,12 +484,14 @@ def model_kernel_call(wrap):
     module at each call). The kernel's own launch counter is untouched."""
     import neuronx_distributed_llama3_2_tpu_torch.inference.model as im
 
-    inner = im.paged_flash_decode
+    inner, inner_tp = im.paged_flash_decode, im.paged_flash_decode_tp
     im.paged_flash_decode = functools.partial(wrap, inner)
+    # a rank of a tp group calls the tp wrapper (its own heads)
+    im.paged_flash_decode_tp = functools.partial(wrap, inner_tp)
     try:
         yield
     finally:
-        im.paged_flash_decode = inner
+        im.paged_flash_decode, im.paged_flash_decode_tp = inner, inner_tp
 
 
 def recording(geometries: dict, keep_positions: bool):
@@ -679,16 +702,19 @@ def source_note(c: DecodeCase, kv_dtype: str, yard) -> str:
 
 
 def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
-                           mxu: bool = False, time_grid: bool = True):
+                           mxu: bool = False, time_grid: bool = True, grid: bool = True,
+                           probes: bool = True):
     """K4 on one pool dtype and mode against its plain version at the grid
     and the served geometries, timed beside the plain version, the library
     yardstick (SDPA on K/V dequantized and gathered beforehand) and the
     bound; at the served t == 1 geometry launched most, csrc/paged_decode_t1.cu
     is timed at T1_SWEEP splits too. Without ``time_grid`` the grid's cases
     are checked (against the plain version, the yardstick and
-    csrc/paged_decode.cu) and not timed. Returns ({source: the record of the
-    served geometry it launched most}, {source: its worst abs error over the
-    cases it served})."""
+    csrc/paged_decode.cu) and not timed; without ``grid`` only the served
+    geometries run (a tp rank's, at its own head counts), and without
+    ``probes`` the planted-fault probes are left to the full phase. Returns
+    ({source: the record of the served geometry it launched most}, {source:
+    its worst abs error over the cases it served})."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
     from neuronx_distributed_llama3_2_tpu_torch.quantization import kv_cache as kv
 
@@ -697,6 +723,8 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst_elem, worst_rel, records, worst_by, nan_checked = 0.0, 0.0, {}, {}, set()
     cases = paged_cases(cfg, served)
+    if not grid:
+        cases = [c for c in cases if c.serve_launches]
     sweep_at = max((c for c in cases if c.t == 1 and c.serve_launches),
                    key=lambda c: c.serve_launches, default=None)
     for c in cases:
@@ -824,8 +852,8 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
             )
         del q, kp, vp, ks, vs, k_all, v_all
     torch.cuda.empty_cache()
-    probes = [run_paged_probe(kv_dtype, mxu, card, t) for t in (1, PROBE_TILE_T)]
-    elem, rel = (max(x) for x in zip(*probes))
+    probed = [run_paged_probe(kv_dtype, mxu, card, t) for t in (1, PROBE_TILE_T)] if probes else []
+    elem, rel = (max(x) for x in zip(*probed)) if probed else (0.0, 0.0)
     log(
         f"paged_decode [{mode}]: every case and the probes agree with the plain "
         f"version: each element within {ROW_ULPS} bf16 ulps of its own value plus "
@@ -1347,10 +1375,12 @@ def run_tree_kernel_phase(cfg, t_served: dict, card: str) -> dict:
     give bitwise what it gives without tree_bits, and a launch with the
     block-causal mask in place of the ancestor mask (the planted fault)
     must fail the check; on a row_live case the live rows must be bitwise
-    what the launch without row_live gives. Timed beside the plain version,
-    the library yardstick (SDPA with the walk's ancestor mask on K/V
-    gathered and dequantized beforehand) and the bound. Returns the record
-    of T's tree geometry launched most."""
+    what the launch without row_live gives. T's served geometries are
+    timed beside the plain version, the library yardstick (SDPA with the
+    walk's ancestor mask on K/V gathered and dequantized beforehand) and
+    the bound; the other cases are checked, not timed (the script's timing
+    depth, PERF.md section 7). Returns the record of T's tree geometry
+    launched most."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
     from neuronx_distributed_llama3_2_tpu_torch.quantization import kv_cache as kv
 
@@ -1439,10 +1469,12 @@ def run_tree_kernel_phase(cfg, t_served: dict, card: str) -> dict:
             lib_elem, lib_rel = decode_agreement(library(0).transpose(1, 2), ref)
             check(lib_rel <= LANE_REL_L2,
                   f"tree {mode} {c.name}: library yardstick disagrees ({lib_rel})")
-            (ms,), wall_ms = device_ms(functools.partial(call, pa.paged_flash_decode))
-            (plain_ms,), _ = device_ms(functools.partial(call, pa.paged_flash_decode_reference))
-            (library_ms,), _ = device_ms(library)
-            yard = split_yardstick(c, kv_dtype, call, ref, f"tree {mode} {c.name}")
+            timing = c.serve_launches > 0
+            if timing:
+                (ms,), wall_ms = device_ms(functools.partial(call, pa.paged_flash_decode))
+                (plain_ms,), _ = device_ms(functools.partial(call, pa.paged_flash_decode_reference))
+                (library_ms,), _ = device_ms(library)
+            yard = split_yardstick(c, kv_dtype, call, ref, f"tree {mode} {c.name}", timing)
             if yard is not None:
                 tile_err = max(tile_err, err)
             bound_ms, bound_by, kv_bytes = walk_bound(c, kv_dtype)
@@ -1453,10 +1485,12 @@ def run_tree_kernel_phase(cfg, t_served: dict, card: str) -> dict:
                 f"positions={list(map(int, c.positions))}{extra}{served_by}: "
                 f"max_abs_err={err:.6g} ({elem:.4f} x its element limit, lane rel L2 "
                 f"{rel:.6g}; library {lib_elem:.4f} x, {lib_rel:.6g}); {'; '.join(notes or ['linear'])}; "
-                f"kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
-                f"bound_ms={bound_ms:.6f} ({bound_by}; K+V bytes of the walked blocks "
-                f"{kv_bytes} / 3.35 TB/s); wall per call {wall_ms:.6f} ms; "
-                f"{source_note(c, kv_dtype, yard)} | {card}")
+                + (f"kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
+                   if timing else "not timed (not a served geometry) ")
+                + f"bound_ms={bound_ms:.6f} ({bound_by}; K+V bytes of the walked blocks "
+                f"{kv_bytes} / 3.35 TB/s); "
+                + (f"wall per call {wall_ms:.6f} ms; " if timing else "")
+                + f"{source_note(c, kv_dtype, yard)} | {card}")
             if c.serve_launches and kv_dtype == "bf16" and (
                     record is None or c.serve_launches > record["launches"]):
                 record = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -2539,6 +2573,19 @@ def first_difference(a: list, b: list) -> Optional[int]:
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
+def collective_counts() -> dict:
+    """The tp collectives issued so far in this process, by kind
+    (``parallel.mappings.COLLECTIVE_COUNTS``)."""
+    from neuronx_distributed_llama3_2_tpu_torch.parallel.mappings import COLLECTIVE_COUNTS
+
+    return dict(COLLECTIVE_COUNTS)
+
+
+def counts_since(before: dict) -> dict:
+    now = collective_counts()
+    return {k: n - before.get(k, 0) for k, n in now.items() if n - before.get(k, 0)}
+
+
 def reserved_bytes() -> int:
     """The caching allocator's reserved bytes on the card, its free cached
     blocks outside the graphs' private pools handed back first."""
@@ -2596,11 +2643,16 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
     for c in counters.values():
         c.reset()
     reserved0 = reserved_bytes()
+    coll0 = collective_counts()
     t0 = time.perf_counter()
     server = make_server(scfg, model, prewarm=True, async_loop=async_loop,
                          sampling=sampling, **knobs)
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
+    # the tp collectives issued while the graphs were captured (a model
+    # built under a mesh; 0 on one device)
+    coll_captured = counts_since(coll0)
+    coll1 = collective_counts()
     m = server.metrics
     graph_bytes = reserved_bytes() - reserved0 - m.pool_bytes_total
     captured = {src: c.count for src, c in counters.items()}
@@ -2617,6 +2669,7 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
     rids, outs = serve_requests(server, prompts, staged=staged_serve(knobs))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    coll_serve = counts_since(coll1)
     stats = serve_stats(server, rids, outs, wall)
     eager_calls = {src: c.count - captured[src] for src, c in counters.items()}
     check(m.steadystate_compiles == 0 and len(server.program_registry()) == len(registry),
@@ -2678,17 +2731,19 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
         f"host_sample_fallbacks {m.host_sample_fallbacks}; decode steps {m.decode_steps}, "
         f"async {m.decode_steps_async}, lame_duck_tokens {m.lame_duck_tokens}, "
         f"sync_fallbacks {m.sync_fallbacks}; K4 launches captured {captured}, during "
-        f"the serve {eager_calls}{cost}{step} | {card}")
+        f"the serve {eager_calls}; tp collectives captured {coll_captured}, issued during "
+        f"the serve {coll_serve}{cost}{step} | {card}")
     del server, registry
     gc.collect()
     torch.cuda.empty_cache()
     return dict(keys=m.prewarm_compiles, capture_s=capture_s, same=not differ,
-                outs=[outs[r] for r in rids], **stats)
+                outs=[outs[r] for r in rids], collectives_captured=coll_captured,
+                collectives_serve=coll_serve, **stats)
 
 
-def run_graph_profile_phase(scfg, model, label: str, prompts, eager: dict, launched: dict,
-                            card: str, same: bool, with_async: bool = False,
-                            **knobs) -> None:
+def run_graph_profile_phase(scfg, model, label: str, prompts, eager: Optional[dict],
+                            launched: dict, card: str, same: bool,
+                            eager_outs: Optional[list] = None, **knobs) -> None:
     """The prewarmed twin's profiled serve beside the eager serve's of the
     same run (``eager``, run_profile_phase's numbers): wall, busy ms and
     share, TPOT p50, TTFT p50, tokens/s, and K4's launches by source. Where
@@ -2701,19 +2756,13 @@ def run_graph_profile_phase(scfg, model, label: str, prompts, eager: dict, launc
     records in a long trace (519-527 of 528 t1 launches read in some
     runs, eager and replayed alike), so its count is logged beside the
     exact one, not held equal to it.
-    ``with_async``: the async twin (prewarm and the async loop) is
-    profiled too and logged beside them; its lookahead steps past the
-    last finish add t1 launches, so its counts are logged, not held.
+    ``eager`` None: the eager serve was not profiled (the script's timing
+    depth, PERF.md section 7); the twin's streams are then held to
+    ``eager_outs``, the counted eager serve's, in prompt order.
     Returns the twin's profile (``run_profile_phase``'s numbers)."""
-    def profile(async_loop=False):
-        return run_profile_phase(
-            scfg, model, prompts, card, prewarm=True, async_loop=async_loop,
-            label=f"{label} (CUDA graphs{', async loop' if async_loop else ''})", **knobs)
-
-    graph = profile()
-    serves = [("eager", eager), ("graphs", graph)]
-    if with_async:
-        serves.append(("graphs, async loop", profile(async_loop=True)))
+    graph = run_profile_phase(scfg, model, prompts, card, prewarm=True,
+                              label=f"{label} (CUDA graphs)", **knobs)
+    serves = ([("eager", eager)] if eager else []) + [("graphs", graph)]
     rows = []
     for name, st in serves:
         rows.append(f"{name}: wall {st['wall']:.6f} ms, busy {st['busy']:.6f} ms = "
@@ -2724,7 +2773,7 @@ def run_graph_profile_phase(scfg, model, label: str, prompts, eager: dict, launc
     log(f"graph profile {label} (profiler on): " + "; ".join(rows) + f"; the eager serve's "
         f"wrappers counted {launched} | {card}")
     if same:
-        check(graph["outs"] == eager["outs"],
+        check(graph["outs"] == (eager["outs"] if eager else eager_outs),
               f"graph profile {label}: the profiled streams differ from the eager ones")
         check(graph["replayed"] == launched and launched["t1"] > 0,
               f"graph profile {label}: K4 launches {graph['replayed']} (the twin's replays) "
@@ -4761,9 +4810,9 @@ def host_copy_spy(copies: list):
 
     inner = ckpt.CheckpointIOState.add_tree
 
-    def add_tree(self, kind, tree):
+    def add_tree(self, kind, tree, specs=None):
         t0 = time.perf_counter()
-        inner(self, kind, tree)
+        inner(self, kind, tree, specs)
         secs = time.perf_counter() - t0
         host = self._work[-1][2]
         copies.append((kind, sum(a.nbytes for a in host.values()), secs))
@@ -4773,6 +4822,25 @@ def host_copy_spy(copies: list):
         yield
     finally:
         ckpt.CheckpointIOState.add_tree = inner
+
+
+@contextlib.contextmanager
+def skip_save(skipped: str):
+    """``save_checkpoint`` calls for the tag ``skipped`` return without
+    writing while the block runs (the other tags are saved)."""
+    import neuronx_distributed_llama3_2_tpu_torch.checkpoint as ckpt_pkg
+
+    inner = ckpt_pkg.save_checkpoint
+
+    def save(path, tag, *args, **kwargs):
+        if tag != skipped:
+            inner(path, tag, *args, **kwargs)
+
+    ckpt_pkg.save_checkpoint = save
+    try:
+        yield
+    finally:
+        ckpt_pkg.save_checkpoint = inner
 
 
 def tag_bytes(path) -> int:
@@ -4792,7 +4860,8 @@ def run_pretrain_phase(card: str) -> dict:
     weights A's within one bf16 ulp. Both ran the native loader; A's
     TensorBoard file reads back PRETRAIN_STEPS train/loss scalars equal to
     its losses, B's the resumed ones; the timeline parses; A's losses are
-    finite and fall. Logs the free disk before the runs, each tag's bytes,
+    finite and fall. B's final save is not written (``skip_save``: the
+    machine's disk-write budget). Logs the free disk before the runs, each tag's bytes,
     each save's and the load's seconds (sync), and the host copy's GB/s.
     Returns A's final tag's path and its weights (on the card)."""
     import shutil
@@ -4821,7 +4890,11 @@ def run_pretrain_phase(card: str) -> dict:
     copies: list = []
     runs = {}
     for name in ("A", "B"):
-        with LogLines() as lines, host_copy_spy(copies):
+        # B's final tag is not written: three 17.3 GB tags would pass the
+        # chip machine's budget of bytes written to its disk (45 GiB, freed
+        # blocks included); A's two saves are written, timed and served
+        skip = skip_save(final) if name == "B" else contextlib.nullcontext()
+        with LogLines() as lines, host_copy_spy(copies), skip:
             t0 = time.perf_counter()
             out = pretrain.main(argv)
             wall = time.perf_counter() - t0
@@ -5166,7 +5239,7 @@ def packed_library_mask(segment_ids: torch.Tensor, causal: bool) -> torch.Tensor
     return mask
 
 
-def run_flash_kernel_phase(card: str, packed: bool = False) -> dict:
+def run_flash_kernel_phase(card: str, packed: bool = False, cases=None) -> dict:
     """K1, K2 and K3 against their plain versions at FLASH_CASES (held by
     ``flash_agreement``, lse within LSE_TOL), with kernel, plain, library
     and bound times. At the train shape the same check must also reject
@@ -5181,9 +5254,10 @@ def run_flash_kernel_phase(card: str, packed: bool = False) -> dict:
     over the attended pairs; the planted faults at the packed train shape
     are a document boundary moved by one row (``plain_moves_boundary``)
     and the segment compare only on crossing tiles
-    (``plain_segments_on_crossing_tiles_only``). Returns the record of
-    K1-K3 (the first case's times, the worst errors, and under ``packed``
-    the public entry's launches)."""
+    (``plain_segments_on_crossing_tiles_only``). ``cases`` replaces
+    FLASH_CASES (a tp rank's shapes; the planted faults run at the first).
+    Returns the record of K1-K3 (the first case's times, the worst errors,
+    and under ``packed`` the public entry's launches)."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -5192,7 +5266,7 @@ def run_flash_kernel_phase(card: str, packed: bool = False) -> dict:
     worst_elem, worst_rel = 0.0, 0.0
     launches = {1: 0, 2: 0, 3: 0}
     record = None
-    for name, b, n, nkv, s, d, causal, iters in PACKED_CASES if packed else FLASH_CASES:
+    for name, b, n, nkv, s, d, causal, iters in cases or (PACKED_CASES if packed else FLASH_CASES):
         def randn(*shape):
             return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
 
@@ -5851,6 +5925,530 @@ def run_host_sampled_graph_phase(cfg, model, prompts, card: str) -> None:
         f"{[round(t, 6) for _, _, t in bad_differ]} (limit {limit:.6g})")
 
 
+# -- 4j. tensor parallelism -----------------------------------------------------------
+#
+# The card is one: NCCL refuses two ranks on one device, so NCCL runs at world
+# size 1 (every tp region issuing its collective over a group of one rank,
+# the prewarmed twin capturing them), and tp = 2 runs as two processes on the
+# card over gloo, which carries every collective the port issues on CUDA
+# tensors (PERF.md section 6) but cannot be captured in a CUDA graph:
+# those serves run eagerly. Times over gloo are gloo's (host copies), not
+# NCCL's.
+
+#: the tp = 2 serve's KV pool on each rank: 2049 blocks x 16 rows x 4 of the
+#: 1B's 8 kv heads x 64 x 2 bytes x 16 layers x K and V
+TP_POOL_BYTES = 537133056
+#: the tp = 2 train phase's layer whose row-parallel o-projection skips its
+#: all-reduce (the planted fault, ``without_tp_reduce``)
+TP_FAULT_LAYER = 8
+
+
+@contextlib.contextmanager
+def without_tp_reduce(layer):
+    """A planted fault: ``layer``, a ``RowParallelLinear``, returns its
+    rank's partial product without the tp all-reduce."""
+    layer.forward = lambda x: x @ layer.kernel
+    try:
+        yield
+    finally:
+        del layer.forward
+
+
+@contextlib.contextmanager
+def without_zero1_gather():
+    """A planted fault: the train step skips ZeRO-1's all-gather and
+    broadcast of the updated parts, so each dp rank keeps the old values
+    of the parts it does not update."""
+    from neuronx_distributed_llama3_2_tpu_torch.trainer import trainer as tr
+
+    inner = tr.zero1_gather_params
+    tr.zero1_gather_params = lambda params, parts: None
+    try:
+        yield
+    finally:
+        tr.zero1_gather_params = inner
+
+
+def run_tp_nccl_phase(prompts, eager_outs: list, card: str) -> dict:
+    """World size 1 on NCCL through the tp code path: a mesh of one rank,
+    the 1B built under it (its row-parallel layers all-reduce, its LM head
+    all-gathers, each a one-rank NCCL collective), Serve's config eagerly
+    and as a prewarmed twin (``run_graph_phase``: the single-device eager
+    serve's streams under the near-tie rule, ``steadystate_compiles`` 0,
+    K4 launched only by replays). The collectives must run in the eager
+    serve and be captured in the twin's graphs, none issued outside a
+    replay during its serve. The process group and the mesh are taken down
+    after."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import multihost
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as ps
+
+    multihost.initialize_distributed(device="cuda")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"tp nccl: backend {dist.get_backend()}, world {dist.get_world_size()}")
+    ps.initialize_model_parallel(tensor_model_parallel_size=1, device="cuda")
+    try:
+        cfg, model = load_model()
+        server = make_server(cfg, model)
+        c0 = collective_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [server.submit(p) for p in prompts]
+        outs = server.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eager = counts_since(c0)
+        stats = serve_stats(server, rids, outs, wall)
+        del server
+        differ = same_streams("tp nccl eager", model, prompts, [outs[r] for r in rids],
+                              eager_outs, rids)
+        steps = cfg.num_layers * 2  # o and down of every layer, a forward
+        check(eager.get("all_reduce", 0) >= steps and eager.get("all_gather", 0) > 0,
+              f"tp nccl eager: collectives {eager}")
+        log(f"tp nccl eager: world 1 over NCCL, {len(rids)} requests, "
+            f"{sum(len(outs[r]) for r in rids)} tokens in {wall:.6f} s = "
+            f"{stats['tokens_s']:.6f} tokens/s; TTFT p50 {stats['ttft']:.6f} ms, TPOT p50 "
+            f"{stats['tpot']:.6f} ms; streams equal to the single-device serve's on "
+            f"{len(rids) - len(differ)} of {len(rids)}; collectives issued {eager} | {card}")
+        twin = run_graph_phase(cfg, model, "tp nccl", prompts, eager_outs, card,
+                               lambda o, r: e2e_gaps(model, prompts, o, r)[0],
+                               E2E_LOGIT_MARGIN)
+        cap, during = twin["collectives_captured"], twin["collectives_serve"]
+        check(cap.get("all_reduce", 0) >= steps and cap.get("all_gather", 0) > 0,
+              f"tp nccl twin: collectives captured {cap}")
+        check(not during, f"tp nccl twin: collectives issued outside a replay {during}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(eager=stats, twin=twin, captured=cap)
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+
+
+def tp_spawn(body, *args) -> list:
+    """``body(rank, 2, *args)`` on two ranks on the card over gloo
+    (``multihost.spawn_gloo_ranks``), joined through a file under the
+    phases' scratch directory; their results by rank. A rank that fails
+    fails the run."""
+    from neuronx_distributed_llama3_2_tpu_torch.parallel.multihost import spawn_gloo_ranks
+
+    os.makedirs(work_dir(), exist_ok=True)
+    return spawn_gloo_ranks(body, 2, *args, device="cuda", tmp_dir=str(work_dir()))
+
+
+def rank_log(rank: int, *parts) -> None:
+    if rank == 0:
+        log(*parts)
+
+
+def heads_of_rank0_kv(cfg, model):
+    """The planted fault of the tp serve: a copy of the model whose rank 1
+    projects rank 0's kv heads (its q heads its own), so that its pool, and
+    the K4 that reads it, hold the other rank's head slice."""
+    from neuronx_distributed_llama3_2_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as ps
+
+    fault = LlamaForCausalLM(cfg, device="cuda")
+    if ps.get_tensor_model_parallel_rank() == 1:
+        for layer in fault.layers:
+            layer.attn.qkv.tp_rank = 0  # the weights drawn are rank 0's slices
+    fault.init_weights(SEED)
+    with torch.no_grad():
+        for mine, bad in zip(model.layers, fault.layers):
+            bad.attn.qkv.tp_rank = mine.attn.qkv.tp_rank
+            bad.attn.qkv.q_kernel.copy_(mine.attn.qkv.q_kernel)
+    return fault
+
+
+def beyond_near_tie(model, prompts, outs: list, want: list) -> list:
+    """(request, token, tie) of each request whose first difference from
+    ``want`` is not a near tie under the plain forward (``same_streams``'
+    rule, without its check)."""
+    bad = []
+    for j, (o, w) in enumerate(zip(outs, want)):
+        i = first_difference(o, w)
+        if i is None:
+            continue
+        logits = model(torch.as_tensor([prompts[j] + o[:i]], device="cuda"))[0, -1].float()
+        tie = abs(logits[o[i]] - logits[w[i]]).item()
+        if tie > LOGIT_MARGIN:
+            bad.append((j, i, tie))
+    return bad
+
+
+def tp_serve_rank(rank: int, nproc: int, prompts, want: list, card: str) -> dict:
+    """A rank of the tp = 2 serve: the 1B at full width and depth under a
+    tp = 2 mesh, Serve's eight prompts eagerly, K4 on this rank's 16 q / 4
+    kv heads (the served calls recorded); streams held to the tp = 1 eager
+    serve's under the near-tie rule, and every served token teacher-forced
+    through the tp = 2 model's plain forward within E2E_LOGIT_MARGIN of its
+    argmax (``e2e_gaps``); the pool TP_POOL_BYTES; then the planted fault
+    (rank 1's K4 reading rank 0's kv-head slice), which must read beyond a
+    near tie and beyond the e2e margin. Rank 0 then holds K4 against its plain version
+    at the served per-rank geometries (kernel-agreement limits) while rank
+    1 waits."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as ps
+
+    ps.initialize_model_parallel(tensor_model_parallel_size=2, device="cuda")
+    try:
+        cfg, model = load_model()
+        check(model.layers[0].attn.n_heads == 16 and model.layers[0].attn.n_kv_heads == 4,
+              f"rank {rank}: heads {model.layers[0].attn.n_heads} / "
+              f"{model.layers[0].attn.n_kv_heads}")
+        warm = make_server(cfg, model)
+        for p in prompts[:2]:
+            warm.submit(p)
+        warm.run_to_completion()
+        del warm
+        server = make_server(cfg, model)
+        m = server.metrics
+        pool = sum(x.nbytes for x in server._pool_tensors())
+        check(m.tp_size == 2 and m.pool_bytes_per_rank == pool == TP_POOL_BYTES
+              and 2 * m.pool_bytes_per_rank == m.pool_bytes_total,
+              f"rank {rank}: tp_size {m.tp_size}, pool bytes {m.pool_bytes_per_rank} / "
+              f"{pool} / {m.pool_bytes_total}")
+        geoms: dict = {}
+        for c in (pa.launches, pa.t1_launches, pa.tile_launches):
+            c.reset()
+        with model_kernel_call(recording(geoms, keep_positions=True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rids = [server.submit(p) for p in prompts]
+            outs = server.run_to_completion()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(t1=pa.t1_launches.count, tile=pa.tile_launches.count,
+                        all=pa.launches.count)
+        stats = serve_stats(server, rids, outs, wall)
+        paths = dict(server.model.attention_paths)
+        del server
+        check(paths.get("kernel", 0) == launches["all"] > 0 and not paths.get("gather"),
+              f"rank {rank}: attention paths {paths}, K4 launches {launches}")
+        streams = [outs[r] for r in rids]
+        differ = same_streams(f"tp2 serve rank {rank}", model, prompts, streams, want, rids)
+        gap, exact, total = e2e_gaps(model, prompts, outs, rids)
+        rank_log(rank, f"tp2 serve e2e: {exact}/{total} served tokens are the tp = 2 plain "
+                 f"forward's argmax; worst logit gap {gap:.6g} (margin {E2E_LOGIT_MARGIN})")
+        check(gap <= E2E_LOGIT_MARGIN, f"tp2 serve: a served token is {gap} below the argmax logit")
+        both = [None, None]
+        dist.all_gather_object(both, streams)
+        check(both[0] == both[1], "tp2 serve: the two ranks' streams differ")
+        rank_log(rank, f"tp2 serve: two ranks over gloo on one card, 16 q / 4 kv heads each, "
+                 f"{len(rids)} requests, {sum(map(len, streams))} tokens in {wall:.6f} s = "
+                 f"{stats['tokens_s']:.6f} tokens/s; TTFT p50 {stats['ttft']:.6f} ms, TPOT p50 "
+                 f"{stats['tpot']:.6f} ms (gloo's collectives: host copies); streams equal "
+                 f"to the tp = 1 eager serve's on {len(rids) - len(differ)} of {len(rids)}, "
+                 f"the ranks' equal; pool {TP_POOL_BYTES} B a rank; K4 launches {launches} "
+                 f"| {card}")
+        for (b, t, kv_limit, splits, w), e in sorted(geoms.items()):
+            rank_log(rank, f"tp2 serve: K4 geometry b={b} t={t} kv_limit={kv_limit} "
+                     f"num_splits={splits} W={w}: {e['calls']} launches a rank")
+
+        # the planted fault: rank 1's K4 reads rank 0's kv-head slice
+        fault = heads_of_rank0_kv(cfg, model)
+        server = make_server(cfg, fault)
+        rids = [server.submit(p) for p in prompts]
+        f_outs = server.run_to_completion()
+        del server, fault
+        bad = beyond_near_tie(model, prompts, [f_outs[r] for r in rids], want)
+        bad_gap, bad_exact, bad_total = e2e_gaps(model, prompts, f_outs, rids)
+        rank_log(rank, f"tp2 serve planted fault (rank 1's K4 reads rank 0's kv-head slice): "
+                 f"{len(bad)} of {len(rids)} requests differ beyond a near tie {bad[:3]}; "
+                 f"{bad_exact}/{bad_total} served tokens the argmax, worst logit gap {bad_gap:.6g} "
+                 f"(margin {E2E_LOGIT_MARGIN})")
+        check(bool(bad), "the tp2 stream check passes a rank reading the other's head slice")
+        check(bad_gap > E2E_LOGIT_MARGIN,
+              f"the tp2 e2e check passes a rank reading the other's head slice ({bad_gap})")
+
+        records = None
+        if rank == 0:
+            served = {k: dict(calls=e["calls"], positions=median_call(e["positions"]))
+                      for k, e in geoms.items()}
+            rank_cfg = dataclasses.replace(cfg, num_heads=16, num_kv_heads=4)
+            records, _ = run_paged_kernel_phase(rank_cfg, served, card, grid=False,
+                                                probes=False)
+            for src in records:
+                records[src]["launches"] = launches[src]
+        dist.barrier()
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(streams=streams, stats=stats, launches=launches, records=records)
+    finally:
+        ps.destroy_model_parallel()
+
+
+def rel_l2_parts(grads: dict, ref: dict, specs: dict) -> dict:
+    """Per parameter, (squared error, squared reference) of this rank's
+    gradient against its slice of the tp = 1 gradient, a tp-replicated
+    leaf counted on tp rank 0 alone, so that the sums over the ranks are
+    the gathered gradient's."""
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as ps
+    from neuronx_distributed_llama3_2_tpu_torch.parallel.layout import mesh_coords, port_slice
+
+    coords = mesh_coords()
+    out = {}
+    for name, g in grads.items():
+        leaf = specs[name]
+        layer = int(name.split(".")[1]) if leaf.stacked else None
+        _, index = port_slice(leaf, coords, layer)
+        r = ref[name][index].float()
+        own = ps.get_tensor_model_parallel_rank() == 0 or leaf.mentions("tp")
+        err = ((g.float() - r).square().sum().item(), r.square().sum().item())
+        out[name] = err if own else (0.0, 0.0)
+    return out
+
+
+def gathered_gap(parts: dict) -> tuple:
+    """The largest per-parameter relative L2 error of the gradient
+    gathered over the ranks (``rel_l2_parts`` summed over them)."""
+    import torch.distributed as dist
+
+    names = sorted(parts)
+    t = torch.tensor([parts[n] for n in names], dtype=torch.float64)
+    dist.all_reduce(t)
+    errs = (t[:, 0] / t[:, 1].clamp_min(1e-30)).sqrt()
+    i = int(errs.argmax())
+    return errs[i].item(), names[i]
+
+
+def tp_train_rank(rank: int, nproc: int, card: str) -> dict:
+    """A rank of the tp train phase (bench's config, the 1B, flash on,
+    batch 2 x 2048, remat full). First the tp = 1 step's loss and
+    gradients (no mesh); then at tp = 2 one step's loss and gradients,
+    gathered, within the train bands of them, K1 / K2 / K3 launched 32 / 16
+    / 16 times at 16 q / 4 kv heads; a layer whose o-projection skips its
+    all-reduce must fall outside the bands; the same step under sequence
+    parallelism within the bands too; rank 0 holds K1-K3 against
+    their plain versions at the rank's shape. Then dp = 2 with ZeRO-1
+    (fp32 master, mu, nu): one train step, its loss within the loss band
+    of the tp = 1 loss and its grad norm within the gradient band of the
+    tp = 1 norm; each rank's fp32 state bytes half the dp = 1 bytes; the
+    update of its master parts and of its gathered parameters within the
+    gradient band of the same step at dp = 1 (``zero1_update_gap``); and
+    a step that skips the gather of the updated parts outside it."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import flash_attention as fa
+    from neuronx_distributed_llama3_2_tpu_torch.models.llama import LlamaForCausalLM, param_specs
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as ps
+    from neuronx_distributed_llama3_2_tpu_torch.trainer import (
+        OptimizerConfig,
+        TrainingConfig,
+        initialize_parallel_model,
+        make_train_step,
+    )
+    from neuronx_distributed_llama3_2_tpu_torch.trainer.optimizer import state_bytes, zero1_parts
+
+    cfg, _ = train_configs()
+    batch = train_batch(cfg, E2E_BATCH)
+    ref_model = LlamaForCausalLM(cfg, device="cuda").init_weights(SEED)
+    ref_loss, ref_grads = loss_and_grads(ref_model, batch)
+    ref_norm = torch.sqrt(sum(g.float().square().sum() for g in ref_grads.values())).item()
+    n_params = sum(p.numel() for p in ref_model.parameters())
+    del ref_model
+    torch.cuda.empty_cache()
+
+    ps.initialize_model_parallel(tensor_model_parallel_size=2, device="cuda")
+    try:
+        model = LlamaForCausalLM(cfg, device="cuda").init_weights(SEED)
+        specs = param_specs(cfg)
+        for c in (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches):
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(model, batch)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = flash_counts()
+        check(launches == STEP_LAUNCHES,
+              f"tp2 train rank {rank}: (K1, K2, K3) launches {launches}, want {STEP_LAUNCHES}")
+        gap, at = gathered_gap(rel_l2_parts(grads, ref_grads, specs))
+        loss_gap = abs(loss - ref_loss)
+        rank_log(rank, f"tp2 train: two ranks over gloo on one card, 16 q / 4 kv heads each, "
+                 f"loss {loss:.6f} against {ref_loss:.6f} at tp = 1 (gap {loss_gap:.6g}, band "
+                 f"{LOSS_BAND}); the gathered gradient's largest relative L2 error {gap:.6g} at "
+                 f"{at} (band {GRAD_BAND}); forward and backward {step_ms:.6f} ms (gloo's "
+                 f"collectives); (K1, K2, K3) launches {launches} a rank | {card}")
+        check(np.isfinite(loss) and loss_gap <= LOSS_BAND, f"tp2 train loss gap {loss_gap}")
+        check(gap <= GRAD_BAND, f"tp2 train gradient gap {gap} at {at}")
+        del grads
+        with without_tp_reduce(model.layers[TP_FAULT_LAYER].attn.o):
+            bad_loss, bad_grads = loss_and_grads(model, batch)
+        bad_gap, bad_at = gathered_gap(rel_l2_parts(bad_grads, ref_grads, specs))
+        del bad_grads
+        rank_log(rank, f"tp2 train planted fault (layer {TP_FAULT_LAYER}'s o-projection skips "
+                 f"its all-reduce): loss gap {abs(bad_loss - ref_loss):.6g}, gradient "
+                 f"{bad_gap:.6g} at {bad_at} (bands {LOSS_BAND}, {GRAD_BAND})")
+        check(abs(bad_loss - ref_loss) > LOSS_BAND or bad_gap > GRAD_BAND,
+              "the tp2 train bands pass a row-parallel layer without its all-reduce")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        # Megatron sequence parallelism: the norms and residual adds on
+        # sequence shards, attention on the all-gathered sequence
+        ps.destroy_model_parallel()
+        ps.initialize_model_parallel(tensor_model_parallel_size=2, sequence_parallel=True,
+                                     device="cuda")
+        model = LlamaForCausalLM(cfg, device="cuda").init_weights(SEED)
+        check(model.sequence_parallel, "tp2 sp: the model runs without sequence parallelism")
+        sp_loss, sp_grads = loss_and_grads(model, batch)
+        sp_gap, sp_at = gathered_gap(rel_l2_parts(sp_grads, ref_grads, specs))
+        del model, sp_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        rank_log(rank, f"tp2 sp train: loss {sp_loss:.6f} (gap {abs(sp_loss - ref_loss):.6g}), "
+                 f"the gathered gradient's largest relative L2 error {sp_gap:.6g} at {sp_at} "
+                 f"(bands {LOSS_BAND}, {GRAD_BAND}) | {card}")
+        check(abs(sp_loss - ref_loss) <= LOSS_BAND and sp_gap <= GRAD_BAND,
+              f"tp2 sp train: loss gap {abs(sp_loss - ref_loss)}, gradient {sp_gap} at {sp_at}")
+        flash = None
+        if rank == 0:
+            flash = run_flash_kernel_phase(card, cases=(
+                ("tp2 rank, train causal", E2E_BATCH, 16, 4, TRAIN_SEQ, 64, True, 10),))
+        dist.barrier()
+    finally:
+        ps.destroy_model_parallel()
+
+    # dp = 2, ZeRO-1, against the same step at dp = 1 from the same weights
+    del ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = OptimizerConfig(zero_one_enabled=True, warmup_steps=1, use_master_weights=True,
+                          state_dtype="float32")
+    before, ref_master, ref_dp_loss = dp1_step(cfg, batch, opt)
+    tc = TrainingConfig(optimizer=opt)
+    tc.initialize("cuda")
+    try:
+        model = LlamaForCausalLM(cfg, device="cuda")
+        state, state_specs = initialize_parallel_model(model, tc, key=SEED)
+        parts = zero1_parts(state_specs.opt)
+        held = state_bytes(state.opt)
+        whole = 3 * 4 * n_params
+        step = make_train_step(model, tc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        dp_loss = float(m["loss"])
+        dp_ms = (time.perf_counter() - t0) * 1e3
+        norm_gap = abs(float(m["grad_norm"]) - ref_norm) / ref_norm
+        upd = zero1_update_gap(state, parts, before, ref_master)
+        rank_log(rank, f"tp dp2 zero1: loss {dp_loss:.6f} against {ref_loss:.6f} at dp = 1 "
+                 f"(gap {abs(dp_loss - ref_loss):.6g}), grad norm {float(m['grad_norm']):.6f} "
+                 f"against {ref_norm:.6f} (relative {norm_gap:.6g}); fp32 state bytes a rank "
+                 f"{held} of {whole} at dp = 1 ({held / whole:.6f}); the step {dp_ms:.6f} ms "
+                 f"(gloo's reduce-scatter and all-gather) | {card}")
+        rank_log(rank, f"tp dp2 zero1 update: against the dp = 1 step (two microbatches of a "
+                 f"row, loss {ref_dp_loss:.6f}), the update's relative L2 error {upd[0]:.6g} "
+                 f"over the ranks' fp32 master parts and {upd[1]:.6g} over their gathered "
+                 f"parameters, the largest a leaf {upd[3]:.6g} at {upd[2]} (band {GRAD_BAND})")
+        check(abs(dp_loss - ref_loss) <= LOSS_BAND and norm_gap <= GRAD_BAND,
+              f"dp2 zero1: loss {dp_loss} / {ref_loss}, norm gap {norm_gap}")
+        check(0.45 <= held / whole <= 0.55, f"dp2 zero1: state bytes {held} of {whole}")
+        check(max(upd[:2]) <= GRAD_BAND, f"dp2 zero1: update gaps {upd}")
+        # the planted fault: the same step without the all-gather and the
+        # broadcast of the updated parts
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        state, _ = initialize_parallel_model(model, tc, key=SEED)
+        with without_zero1_gather():
+            state, _ = step(state, batch)
+        bad = zero1_update_gap(state, parts, before, ref_master)
+        rank_log(rank, f"tp dp2 zero1 planted fault (the updated parts neither all-gathered "
+                 f"nor broadcast): the update's relative L2 error {bad[0]:.6g} over the "
+                 f"master parts, {bad[1]:.6g} over the parameters (band {GRAD_BAND})")
+        check(max(bad[:2]) > GRAD_BAND,
+              f"the dp2 zero1 update check passes a step that skips the gather ({bad})")
+        del model, state, step, before, ref_master
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        ps.destroy_model_parallel()
+    return dict(launches=launches, flash=flash, state_ratio=held / whole)
+
+
+def dp1_step(cfg, batch, opt) -> tuple:
+    """The dp = 1 step ZeRO-1 at dp = 2 must reproduce, with no mesh: the
+    weights of SEED, the batch's two rows as two microbatches of one row
+    (each dp = 2 rank's row), their gradients summed in fp32 as the dp = 2
+    ranks' are. Returns (the parameters before it, the fp32 master after
+    it, its loss)."""
+    from neuronx_distributed_llama3_2_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_llama3_2_tpu_torch.trainer import (
+        TrainingConfig,
+        initialize_parallel_model,
+        make_train_step,
+    )
+
+    model = LlamaForCausalLM(cfg, device="cuda")
+    tc = TrainingConfig(num_microbatches=2,
+                        optimizer=dataclasses.replace(opt, zero_one_enabled=False))
+    state, _ = initialize_parallel_model(model, tc, key=SEED)
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    state, m = make_train_step(model, tc)(state, batch)
+    loss = float(m["loss"])
+    master = state.opt.master
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return before, master, loss
+
+
+def zero1_update_gap(state, parts, before: dict, ref_master: dict) -> tuple:
+    """How far a dp = 2 ZeRO-1 step moved the weights from where the dp = 1
+    step (``dp1_step``) moved them: the relative L2 error of the update
+    (after minus ``before``) over every leaf, of the rank's fp32 master
+    parts, and of its whole parameters (what the gather made of them), each
+    summed over both ranks. Returns (master gap, parameter gap, the
+    parameter whose own gap is largest, that gap)."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_llama3_2_tpu_torch.trainer.optimizer import _part_of
+
+    sums = torch.zeros(4, dtype=torch.float64)
+    names = sorted(state.params)
+    leaves = torch.zeros(len(names), 2, dtype=torch.float64)
+    for i, k in enumerate(names):
+        p, base, ref = state.params[k], before[k].float(), ref_master[k]
+        ref_p = ref.to(p.dtype).float()
+        leaves[i, 0] = (p.float() - ref_p).square().sum().item()
+        leaves[i, 1] = (ref_p - base).square().sum().item()
+        if k in state.opt.master:
+            part = parts[k]
+            ref_m = _part_of(ref, part)
+            sums[0] += (state.opt.master[k] - ref_m).square().sum().item()
+            sums[1] += (ref_m - _part_of(base, part)).square().sum().item()
+    sums[2:] = leaves.sum(0)
+    dist.all_reduce(sums)
+    dist.all_reduce(leaves)
+    own = (leaves[:, 0] / leaves[:, 1].clamp_min(1e-30)).sqrt()
+    i = int(own.argmax())
+    return ((sums[0] / sums[1]).sqrt().item(), (sums[2] / sums[3]).sqrt().item(),
+            names[i], own[i].item())
+
+
+def run_tp_serve_phase(prompts, want: list, card: str) -> dict:
+    """The tp = 2 serve (``tp_serve_rank`` on two ranks): rank 0's K4
+    records at its served geometries and both ranks' launches."""
+    outs = tp_spawn(tp_serve_rank, prompts, want, card)
+    check(outs[0]["streams"] == outs[1]["streams"], "tp2 serve: the ranks' streams differ")
+    check(outs[0]["launches"] == outs[1]["launches"],
+          f"tp2 serve: K4 launches {outs[0]['launches']} / {outs[1]['launches']}")
+    return outs[0]
+
+
+def run_tp_train_phase(card: str) -> dict:
+    outs = tp_spawn(tp_train_rank, card)
+    check(outs[0]["launches"] == outs[1]["launches"] == STEP_LAUNCHES,
+          f"tp2 train: launches {outs[0]['launches']} / {outs[1]['launches']}")
+    return outs[0]
+
+
 def timed(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its wall seconds logged under ``name``."""
     t0 = time.perf_counter()
@@ -5901,7 +6499,6 @@ def main() -> int:
     prompts, outs, rids, tile, t1, served, bf16_pool = timed(
         "serve", run_serve_phase, cfg, model, card)
     timed("serve e2e", run_e2e_phase, cfg, model, prompts, outs, rids)
-    prof = timed("serve profile", run_profile_phase, cfg, model, prompts, card)
     # each serve's prewarmed twin: every prefill and decode-time step a CUDA
     # graph; Serve's, Q1's and F's async twins run the async loop on them
     graph = timed("serve graphs", run_graph_phase, cfg, model, "serve", prompts,
@@ -5913,8 +6510,8 @@ def main() -> int:
                         lambda o, r: e2e_gaps(model, prompts, o, r)[0], E2E_LOGIT_MARGIN,
                         async_loop=True)
     serve_twin_prof = timed("serve graphs profile", run_graph_profile_phase, cfg, model,
-                            "serve", prompts, prof, dict(t1=t1, tile=tile, split=0), card,
-                            graph["same"], with_async=True)
+                            "serve", prompts, None, dict(t1=t1, tile=tile, split=0), card,
+                            graph["same"], eager_outs=[outs[r] for r in rids])
     timed("serve graphs fault", run_graph_fault_phase, cfg, model, prompts, card)
     timed("faults", run_fault_phase, cfg, model, prompts, [outs[r] for r in rids],
           serve_twin, card)
@@ -5932,8 +6529,6 @@ def main() -> int:
             bf16_pool, card)
         timed(f"serve {label} e2e", run_quant_e2e_phase, cfg, model, label, kv_dtype, mxu,
               q_prompts, q_outs, q_rids)
-        q_prof = timed(f"serve {label} profile", run_profile_phase, cfg, model, q_prompts,
-                       card, label=f"serve {label}", **qk)
         graph = timed(
             f"serve {label} graphs", run_graph_phase, cfg, model, f"serve {label}", q_prompts,
             [q_outs[r] for r in q_rids], card,
@@ -5945,8 +6540,9 @@ def main() -> int:
                   lambda o, r: quant_e2e_gaps(cfg, model, kv_dtype, q_prompts, o, r)[0],
                   QUANT_LOGIT_MARGIN[kv_dtype], async_loop=True, **qk)
         timed(f"serve {label} graphs profile", run_graph_profile_phase, cfg, model,
-              f"serve {label}", q_prompts, q_prof,
-              dict(t1=q_t1, tile=q_launches - q_t1, split=0), card, graph["same"], **qk)
+              f"serve {label}", q_prompts, None,
+              dict(t1=q_t1, tile=q_launches - q_t1, split=0), card, graph["same"],
+              eager_outs=[q_outs[r] for r in q_rids], **qk)
         quant[label] = (kv_dtype, mxu, q_launches, q_t1, q_served)
     fcfg = spec_config(cfg)
     f_prompts, f_outs, f_rids, f_live_launches, f_tile, f_t1, f_served = timed(
@@ -5954,8 +6550,6 @@ def main() -> int:
     timed("serve F e2e", run_spec_e2e_phase, cfg, model, f_prompts, f_outs, f_rids)
     timed("serve F witness", run_spec_witness_phase, cfg, model, f_prompts,
           [f_outs[r] for r in f_rids])
-    f_prof = timed("serve F profile", run_profile_phase, fcfg, model, f_prompts, card,
-                   label="serve F", **SPEC_KNOBS)
     graph = f_twin = timed("serve F graphs", run_graph_phase, fcfg, model, "serve F", f_prompts,
                   [f_outs[r] for r in f_rids], card,
                   lambda o, r: e2e_gaps(model, f_prompts, o, r)[0], F_LOGIT_MARGIN,
@@ -5965,8 +6559,8 @@ def main() -> int:
           lambda o, r: e2e_gaps(model, f_prompts, o, r)[0], F_LOGIT_MARGIN,
           async_loop=True, **SPEC_KNOBS)
     timed("serve F graphs profile", run_graph_profile_phase, fcfg, model, "serve F",
-          f_prompts, f_prof, dict(t1=f_t1, tile=f_tile, split=0), card, graph["same"],
-          with_async=True, **SPEC_KNOBS)
+          f_prompts, None, dict(t1=f_t1, tile=f_tile, split=0), card, graph["same"],
+          eager_outs=[f_outs[r] for r in f_rids], **SPEC_KNOBS)
     qf_prompts, qf_outs = timed("serve QF", run_quant_spec_serve_phase, cfg, model, card)
     timed("serve QF graphs", run_graph_phase, fcfg, model, "serve QF", qf_prompts, qf_outs,
           card, lambda o, r: quant_e2e_gaps(cfg, model, "int8", qf_prompts, o, r)[0],
@@ -5976,15 +6570,13 @@ def main() -> int:
         "serve T", run_tree_serve_phase, cfg, model, card)
     timed("serve T e2e", run_tree_e2e_phase, cfg, model, t_prompts, t_outs, t_rids)
     timed("serve T branches", run_tree_branch_phase, cfg, model, t_prompts, card)
-    t_prof = timed("serve T profile", run_profile_phase, tcfg, model, t_prompts, card,
-                   label="serve T", **TREE_KNOBS)
     graph = t_twin = timed("serve T graphs", run_graph_phase, tcfg, model, "serve T", t_prompts,
                   [t_outs[r] for r in t_rids], card,
                   lambda o, r: e2e_gaps(model, t_prompts, o, r)[0], T_LOGIT_MARGIN,
                   **TREE_KNOBS)
     timed("serve T graphs profile", run_graph_profile_phase, tcfg, model, "serve T",
-          t_prompts, t_prof, dict(t1=t_t1, tile=t_tile, split=0), card, graph["same"],
-          **TREE_KNOBS)
+          t_prompts, None, dict(t1=t_t1, tile=t_tile, split=0), card, graph["same"],
+          eager_outs=[t_outs[r] for r in t_rids], **TREE_KNOBS)
     # on-device sampling: the sampler at the served shapes; Serve, F and T
     # sampled, each eagerly and by its prewarmed twin (Serve by its async
     # twin too); the greedy sentinel; preempt-resume; sampled speculation
@@ -6047,7 +6639,10 @@ def main() -> int:
     timed("graph serve sampled-host", run_host_sampled_graph_phase, cfg, model, prompts, card)
     del model
     torch.cuda.empty_cache()
-    paged, paged_err = timed("K4 bf16", run_paged_kernel_phase, cfg, served, card)
+    # the bf16 grid checked, not timed (the script's timing depth, PERF.md
+    # section 7); the served geometries timed
+    paged, paged_err = timed("K4 bf16", run_paged_kernel_phase, cfg, served, card,
+                             time_grid=False)
     row_live = timed("K4 row_live", run_row_live_phase, cfg, f_served, card)
     tree = timed("K4 tree", run_tree_kernel_phase, cfg, t_served, card)
     for kv_dtype, mxu in (("bf16", False), ("int8", True)):
@@ -6082,6 +6677,12 @@ def main() -> int:
     del trained
     flash = timed("flash kernels", run_flash_kernel_phase, card)
     flash_packed = timed("flash kernels packed", run_flash_kernel_phase, card, packed=True)
+    # tensor parallelism: NCCL at world size 1 through the tp code path
+    # (eager and captured), then two ranks on the card over gloo: Serve at
+    # tp = 2, and the train step at tp = 2 and at dp = 2 with ZeRO-1
+    timed("tp nccl", run_tp_nccl_phase, prompts, [outs[r] for r in rids], card)
+    tp_serve = timed("tp2 serve", run_tp_serve_phase, prompts, [outs[r] for r in rids], card)
+    tp_train = timed("tp2 train", run_tp_train_phase, card)
 
     fa_src = "neuronx_distributed_llama3_2_tpu_torch/kernels/csrc/"
     pfa = "neuronx_distributed_llama3_2_tpu/kernels/pallas_flash_attention.py:"
@@ -6142,6 +6743,21 @@ def main() -> int:
         kernels.append(dict(
             name=f"{name}_segment_ids", route="cuda", source=fa_src + src,
             replaces=f"{pfa}{line}", **flash_packed[kn],
+        ))
+    # K4 and K1-K3 at a tp = 2 rank's heads (16 q / 4 kv): rank 0's launches
+    # in the tp phases, its records at its served geometries / its shape
+    for src, file in (("t1", "paged_decode_t1.cu"), ("tile", "paged_decode_tile.cu")):
+        kernels.append(dict(
+            name=f"paged_decode_{src}_tp2_rank", route="cuda", source=fa_src + file,
+            replaces=k4, **tp_serve["records"][src],
+        ))
+    for kn, name, src, line in ((1, "flash_fwd", "flash_fwd.cu", 194),
+                                (2, "flash_bwd_dq", "flash_bwd.cu", 394),
+                                (3, "flash_bwd_dkv", "flash_bwd.cu", 433)):
+        kernels.append(dict(
+            name=f"{name}_tp2_rank", route="cuda", source=fa_src + src,
+            replaces=f"{pfa}{line}", launches=tp_train["launches"][kn - 1],
+            **tp_train["flash"][kn],
         ))
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the main path was never launched: "

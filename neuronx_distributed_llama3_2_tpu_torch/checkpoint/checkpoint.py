@@ -29,9 +29,22 @@ buffers (each stacked leaf written layer by layer into its preallocated
 ``(L, ...)`` buffer), one synchronize, then the files are written, on a
 background thread under ``async_save``. The host buffers are kept per
 checkpoint root and reused by the next save, which waits for the previous
-one first. A multi-process save raises (the multi-GPU slice ports it); a
-JAX tag written by several hosts (``sharded`` entries of chunk files) is
-read whole, its chunks put together into the full array.
+one first.
+
+Several processes (JAX ``:125-380``): each rank holds shards, which the
+caller describes with the trees' specs (``model_specs`` /
+``optimizer_specs``, :func:`..trainer.trainer.state_specs`), and every
+entry is ``sharded``: a list of chunk files, one per distinct region of the
+leaf over the mesh (JAX ``plan_chunk_writers`` / ``_chunk_plan``), each
+written by the lowest rank holding it, under the JAX package's file names.
+Rank 0 writes the manifests, ``meta.json`` and the markers; each rank
+leaves ``done.shard.<nonce>.<rank>`` when its chunks are down, and rank 0
+writes ``done`` only once it has seen all of them (JAX
+``_wait_for_shard_markers``), the nonce agreed at ``begin`` so that an
+old save's markers never count. A load with specs reads the region each
+tensor of the rank needs from whichever files hold it (JAX
+``_read_region``), so a tag saved at one (tp, dp) loads at another, and a
+tag of either package, whole or chunked, loads on any mesh.
 """
 
 from __future__ import annotations
@@ -51,6 +64,8 @@ from neuronx_distributed_llama3_2_tpu_torch.checkpoint.storage import (
     FilesysCheckpointStorage,
     create_checkpoint_storage,
 )
+from neuronx_distributed_llama3_2_tpu_torch.parallel import layout as playout
+from neuronx_distributed_llama3_2_tpu_torch.parallel.layout import LeafSpec
 from neuronx_distributed_llama3_2_tpu_torch.utils.logger import get_logger
 
 logger = get_logger()
@@ -65,7 +80,7 @@ _LAYERS = "layers"
 # ---------------------------------------------------------------------------
 
 def _is_leaf(x) -> bool:
-    return isinstance(x, (torch.Tensor, np.ndarray, np.generic, int, float, bool))
+    return isinstance(x, (torch.Tensor, np.ndarray, np.generic, int, float, bool, LeafSpec))
 
 
 def _split_key(prefix: Tuple[str, ...], key) -> Tuple[Tuple[str, ...], Optional[int]]:
@@ -106,7 +121,8 @@ def _walk(tree: Any, fn: Callable, prefix: Tuple[str, ...] = (),
 def _flatten(tree: Any) -> Dict[str, List[Tuple[Optional[int], Any]]]:
     """JAX key -> [(layer, leaf), ...] in the JAX flatten order (dict keys
     sorted at every level, named-tuple fields in order); a stacked leaf
-    lists its layers in order, checked to be 0 .. L-1."""
+    lists its layers in order, checked to be one run (0 .. L-1, or the run
+    of layers a ZeRO-1 rank holds)."""
     flat: Dict[Tuple[str, ...], list] = {}
 
     def visit(path, layer, leaf):
@@ -119,9 +135,9 @@ def _flatten(tree: Any) -> Dict[str, List[Tuple[Optional[int], Any]]]:
         items = flat[path]
         layers = [i for i, _ in items]
         if layers != [None]:
-            if None in layers or sorted(layers) != list(range(len(layers))):
+            if None in layers or sorted(layers) != list(range(min(layers), min(layers) + len(layers))):
                 raise ValueError(
-                    f"{_SEP.join(path)}: layers {layers} are not one stack 0 .. L-1"
+                    f"{_SEP.join(path)}: layers {layers} are not one run of the stack"
                 )
             items = sorted(items, key=lambda it: it[0])
         out[_SEP.join(path)] = items
@@ -207,6 +223,36 @@ def _multi_process() -> bool:
     return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if _multi_process() else 0
+
+
+def _is_writer() -> bool:
+    """Only rank 0 touches the shared files (manifests, markers, GC,
+    retention); every rank writes its own chunks."""
+    return _rank() == 0
+
+
+def _chunk_file(kind: str, key: str, index) -> str:
+    """The JAX package's chunk file name, a function of the chunk's global
+    index alone, so that every rank names a chunk alike."""
+    span = "_".join(f"{a}-{b}" for a, b in index)
+    return f"{kind}/{key.replace(_SEP, '.')}.shard.{span}.npy"
+
+
+def _specs_by_key(specs: Any) -> Dict[str, LeafSpec]:
+    """JAX key -> the LeafSpec of a specs tree shaped like the saved one."""
+    if specs is None:
+        return {}
+    return {key: items[0][1] for key, items in _flatten(specs).items()}
+
+
+def _mesh_sizes() -> Dict[str, int]:
+    return {axis: size for axis, (_, size) in playout.mesh_coords().items()}
+
+
 # ---------------------------------------------------------------------------
 # save
 # ---------------------------------------------------------------------------
@@ -225,22 +271,33 @@ class CheckpointIOState:
         self._tag: Optional[str] = None
         self._work: List = []
         self._error: List[BaseException] = []
+        self._nonce: Optional[str] = None
         # (kind, key) -> host buffer, reused save after save
         self._host: Dict[Tuple[str, str], torch.Tensor] = {}
 
     def begin(self, tag: str) -> None:
-        if _multi_process():
-            raise NotImplementedError(
-                "a multi-process checkpoint save waits for the multi-GPU slice of "
-                "the port (ROADMAP.md, slice 5 item 1)"
-            )
         self._tag = str(tag)
         self._work = []
-        self.storage.makedirs(self._tag)
-        # overwriting a completed tag: drop its done marker first, so that a
-        # torn overwrite reads as incomplete
-        self.storage.unmark_done(self._tag)
-        self.storage.mark_checkpoint(self._tag)
+        self._nonce = None
+        if _is_writer():
+            self.storage.makedirs(self._tag)
+            # overwriting a completed tag: drop its done marker first, so that a
+            # torn overwrite reads as incomplete
+            self.storage.unmark_done(self._tag)
+            self.storage.mark_checkpoint(self._tag)
+        if _multi_process():
+            # agree a fresh save generation; the broadcast doubles as the
+            # barrier that keeps every rank from writing before rank 0 has
+            # dropped the old done marker
+            import uuid
+
+            from neuronx_distributed_llama3_2_tpu_torch.parallel.multihost import (
+                broadcast_from_host0,
+            )
+
+            self._nonce = broadcast_from_host0(uuid.uuid4().hex[:12])
+            if not _is_writer():
+                self.storage.makedirs(self._tag)
 
     def _host_buffer(self, kind: str, key: str, shape, dtype, pin: bool) -> torch.Tensor:
         buf = self._host.get((kind, key))
@@ -249,7 +306,19 @@ class CheckpointIOState:
             self._host[kind, key] = buf
         return buf
 
-    def add_tree(self, kind: str, tree: Any) -> None:
+    def add_tree(self, kind: str, tree: Any, specs: Any = None) -> None:
+        """Stage ``tree`` for ``kind``. Over several processes ``specs``
+        (a tree of :class:`..parallel.layout.LeafSpec` shaped like
+        ``tree``) says which part of each leaf the rank holds; a leaf
+        without one is replicated."""
+        if _multi_process():
+            if specs is None:
+                raise ValueError(
+                    f"a save over several processes needs the specs of its {kind} "
+                    "tree (model_specs / optimizer_specs): which part of each "
+                    "leaf every rank holds"
+                )
+            return self._add_sharded(kind, tree, _specs_by_key(specs))
         manifest: Dict[str, Any] = {}
         staged: List[Tuple[str, str, Any]] = []  # (key, file, host tensor or array)
         on_card = False
@@ -266,6 +335,9 @@ class CheckpointIOState:
                 staged.append((key, fname, host))
                 continue
             stacked = items[0][0] is not None
+            if stacked and items[0][0] != 0:
+                raise ValueError(f"{key}: layers start at {items[0][0]}, not 0 (a part of "
+                                 "the stack is saved over several processes)")
             first = leaves[0]
             shape = (len(leaves), *first.shape) if stacked else tuple(first.shape)
             pin = first.is_cuda
@@ -294,25 +366,90 @@ class CheckpointIOState:
             host_files[fname] = arr
         self._work.append((kind, manifest, host_files))
 
+    def _add_sharded(self, kind: str, tree: Any, specs: Dict[str, LeafSpec]) -> None:
+        """One process's part of a multi-process save: the manifest lists
+        every chunk of every leaf (the same on each rank), and this rank
+        stages the chunks it writes (module docstring)."""
+        coords = playout.mesh_coords()
+        sizes = _mesh_sizes()
+        manifest: Dict[str, Any] = {}
+        staged: List[Tuple[str, Any]] = []
+        on_card = False
+        for key, items in _flatten(tree).items():
+            leaves = [leaf for _, leaf in items]
+            stacked = items[0][0] is not None
+            first = leaves[0]
+            if not isinstance(first, torch.Tensor):
+                first = torch.as_tensor(np.asarray(first, np.int32) if isinstance(first, (int, np.integer))
+                                        and not isinstance(first, bool) else np.asarray(first))
+                leaves = [first]
+            leaf_spec = specs.get(key)
+            if leaf_spec is None:  # replicated, whole on every rank
+                shape = ((len(leaves),) if stacked else ()) + tuple(first.shape)
+                leaf_spec = LeafSpec(shape, (None,) * len(shape), stacked)
+            bf16 = first.dtype == torch.bfloat16
+            manifest[key] = {
+                "sharded": True,
+                "chunks": [{"file": _chunk_file(kind, key, reg), "index": [list(p) for p in reg]}
+                           for reg in playout.all_regions(leaf_spec, sizes)],
+                "shape": list(leaf_spec.shape),
+                "dtype": "bfloat16" if bf16 else str(torch.empty((), dtype=first.dtype).numpy().dtype),
+            }
+            reg = playout.region(leaf_spec, coords)
+            if not playout.is_writer(leaf_spec, coords):
+                continue
+            if stacked:
+                layers = [i for i, _ in items]
+                if layers != list(range(reg[0][0], reg[0][1])):
+                    raise ValueError(f"{key}: this rank holds layers {layers}, its region is {reg[0]}")
+            shape = tuple(b - a for a, b in reg)
+            pin = first.is_cuda
+            on_card |= pin
+            host = self._host_buffer(kind, key, shape, first.dtype, pin)
+            with torch.no_grad():
+                if stacked:
+                    for i, t in enumerate(leaves):
+                        host[i].copy_(t.detach(), non_blocking=pin)
+                else:
+                    host.copy_(first.detach().reshape(shape), non_blocking=pin)
+            staged.append((_chunk_file(kind, key, reg), host))
+        if on_card:
+            torch.cuda.synchronize()
+        files = {fname: _numpy_of(host)[0] for fname, host in staged}
+        self._work.append((kind, manifest, files))
+
     def add_json(self, name: str, obj: Any) -> None:
         self._work.append((name, None, obj))
 
     def end(self, save_seq: int, num_kept_ckpts: Optional[int] = None) -> None:
-        tag, work, storage = self._tag, self._work, self.storage
+        tag, work, storage, nonce = self._tag, self._work, self.storage, self._nonce
+        writer, rank = _is_writer(), _rank()
+        multi = nonce is not None
+        nproc = _world()
 
         def write():
             try:
                 for kind, manifest, payload in work:
                     if manifest is None:
-                        storage.save_json(payload, f"{tag}/{kind}.json")
+                        if writer:
+                            storage.save_json(payload, f"{tag}/{kind}.json")
                         continue
                     for fname, arr in payload.items():
                         _save_npy(storage, arr, f"{tag}/{fname}")
-                    storage.save_json(manifest, f"{tag}/{kind}.manifest.json")
+                    if writer:
+                        storage.save_json(manifest, f"{tag}/{kind}.manifest.json")
+                if multi:
+                    # this rank's chunks are down: say so through the files
+                    # (no collective on a writer thread)
+                    storage.save_text("ok", f"{tag}/done.shard.{nonce}.{rank}")
+                if not writer:
+                    return
                 storage.save_json(
-                    {"save_seq": save_seq, "saved_at": time.time(), "process_count": 1},
+                    {"save_seq": save_seq, "saved_at": time.time(), "process_count": nproc},
                     f"{tag}/meta.json",
                 )
+                if multi:
+                    _wait_for_shard_markers(storage, tag, nonce, nproc)
                 storage.mark_done(tag)
                 logger.info("checkpoint tag %s complete", tag)
                 if num_kept_ckpts is not None:
@@ -337,6 +474,33 @@ class CheckpointIOState:
             err = self._error[:]
             self._error = []
             raise RuntimeError(f"async checkpoint save failed: {err[0]}") from err[0]
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if _multi_process() else 1
+
+
+def _wait_for_shard_markers(storage: BaseCheckpointStorage, tag: str, nonce: str,
+                            nproc: int) -> None:
+    """Rank 0 waits until every rank's ``done.shard.<nonce>.<rank>`` is
+    visible (JAX ``_wait_for_shard_markers``): ``done`` must appear only
+    once every chunk of every rank is down. ``NXDT_CKPT_SYNC_TIMEOUT_S``
+    (600 by default) bounds the wait."""
+    timeout = float(os.environ.get("NXDT_CKPT_SYNC_TIMEOUT_S", "600"))
+    deadline = time.monotonic() + timeout
+    missing = set(range(nproc))
+    while missing:
+        missing = {i for i in missing if not storage.file_exists(f"{tag}/done.shard.{nonce}.{i}")}
+        if not missing:
+            return
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"checkpoint {tag}: ranks {sorted(missing)} never finished their "
+                f"shard writes within {timeout:.0f}s"
+            )
+        time.sleep(0.05)
 
 
 _IO_STATES: Dict[str, CheckpointIOState] = {}
@@ -374,13 +538,18 @@ def save_checkpoint(
     user_content: Any = None,
     async_save: bool = False,
     num_kept_ckpts: Optional[int] = None,
+    model_specs: Any = None,
+    optimizer_specs: Any = None,
 ) -> None:
     """Save under ``path/tag/``: ``model`` (the port's parameters, a dict
     keyed by parameter name, or any nested dict of tensors / arrays),
     ``optimizer`` (the port's ``OptimizerState``), ``scheduler`` and
     ``user_content`` (JSON). Waits for the root's previous async save,
     collects incomplete tags, then saves; ``num_kept_ckpts`` keeps that
-    many completed tags, the newest."""
+    many completed tags, the newest. Over several processes every rank
+    calls it, with ``model_specs`` / ``optimizer_specs`` (the train state's
+    specs, :func:`..trainer.trainer.state_specs`) saying which part of each
+    leaf the rank holds; the chunks it writes are its own."""
     if num_kept_ckpts is not None and num_kept_ckpts < 1:
         raise ValueError(
             f"num_kept_ckpts must be >= 1 (or None for keep-all), got {num_kept_ckpts}"
@@ -388,22 +557,23 @@ def save_checkpoint(
     storage = create_checkpoint_storage(path)
     io_state = _io_state(storage, async_save)
     io_state.wait_all()  # one in-flight async save per root
-    storage.makedirs("")
-    # GC only after the in-flight save completed: an in-progress tag looks
-    # exactly like an interrupted one
-    storage.garbage_collect_incomplete()
     save_seq = 0
-    done = storage.list_tags()
-    if done:
-        try:
-            save_seq = storage.load_json(f"{done[-1]}/meta.json").get("save_seq", 0) + 1
-        except Exception:
-            save_seq = len(done)
+    if _is_writer():
+        storage.makedirs("")
+        # GC only after the in-flight save completed: an in-progress tag looks
+        # exactly like an interrupted one
+        storage.garbage_collect_incomplete()
+        done = storage.list_tags()
+        if done:
+            try:
+                save_seq = storage.load_json(f"{done[-1]}/meta.json").get("save_seq", 0) + 1
+            except Exception:
+                save_seq = len(done)
     io_state.begin(tag)
     if model is not None:
-        io_state.add_tree("model", model)
+        io_state.add_tree("model", model, model_specs)
     if optimizer is not None:
-        io_state.add_tree("optim", optimizer)
+        io_state.add_tree("optim", optimizer, optimizer_specs)
     if scheduler is not None:
         io_state.add_json("scheduler", scheduler)
     if user_content is not None:
@@ -482,7 +652,66 @@ def _read_entry(storage: BaseCheckpointStorage, tag: str, entry: Dict) -> np.nda
     return _load_npy(storage, f"{tag}/{entry['file']}")
 
 
-def _load_tree(storage: BaseCheckpointStorage, tag: str, kind: str, template: Any) -> Any:
+def _load_region(storage: BaseCheckpointStorage, tag: str, entry: Dict, region: tuple,
+                 cache: Dict) -> np.ndarray:
+    """One global region of an entry, whole-file or chunked."""
+    if entry.get("sharded"):
+        return _read_region(storage, tag, entry, region, cache)
+    arr = cache.get(entry["file"])
+    if arr is None:
+        name = f"{tag}/{entry['file']}"
+        if isinstance(storage, FilesysCheckpointStorage):
+            arr = np.load(storage._p(name), mmap_mode="r", allow_pickle=False)
+        else:
+            arr = _load_npy(storage, name)
+        cache[entry["file"]] = arr
+    return np.asarray(arr[tuple(slice(a, b) for a, b in region)])
+
+
+def _load_parts(storage: BaseCheckpointStorage, tag: str, kind: str, template: Any,
+                specs: Any) -> Any:
+    """Each template tensor filled with the region of its leaf this rank
+    holds by ``specs`` on the live mesh, from whichever files hold it."""
+    manifest = storage.load_json(f"{tag}/{kind}.manifest.json")
+    by_key = _specs_by_key(specs)
+    coords = playout.mesh_coords()
+    cache: Dict = {}
+
+    def load(path, layer, tmpl):
+        key = _SEP.join(path)
+        entry = manifest.get(key)
+        if entry is None:
+            raise KeyError(f"checkpoint {tag}/{kind} missing tensor {key!r}")
+        leaf = by_key.get(key)
+        if leaf is None:
+            shape = tuple(entry["shape"])
+            leaf = LeafSpec(shape, (None,) * len(shape), layer is not None)
+        if list(entry["shape"]) != list(leaf.shape):
+            raise ValueError(f"shape mismatch for {key}: checkpoint {entry['shape']} "
+                             f"vs expected {list(leaf.shape)}")
+        reg = playout.region(leaf, coords)
+        if layer is not None:
+            reg = ((layer, layer + 1),) + reg[1:]
+        arr = _load_region(storage, tag, entry, reg, cache)
+        if layer is not None:
+            arr = arr[0]
+        bf16 = entry["dtype"] == "bfloat16"
+        if isinstance(tmpl, torch.Tensor):
+            if tuple(arr.shape) != tuple(tmpl.shape):
+                raise ValueError(f"shape mismatch for {key}: region {tuple(arr.shape)} vs "
+                                 f"template {tuple(tmpl.shape)}")
+            return _torch_of(arr, bf16).to(device=tmpl.device, dtype=tmpl.dtype)
+        if isinstance(tmpl, (bool, int, float)):
+            return type(tmpl)(arr)
+        return np.asarray(arr, dtype=np.asarray(tmpl).dtype)
+
+    return _walk(template, load)
+
+
+def _load_tree(storage: BaseCheckpointStorage, tag: str, kind: str, template: Any,
+               specs: Any = None) -> Any:
+    if specs is not None:
+        return _load_parts(storage, tag, kind, template, specs)
     manifest = storage.load_json(f"{tag}/{kind}.manifest.json")
     flat = _flatten(template)
     arrays: Dict[str, Tuple[np.ndarray, bool]] = {}
@@ -526,11 +755,16 @@ def load_checkpoint(
     tag: str = "latest",
     model: Any = None,
     optimizer: Any = None,
+    model_specs: Any = None,
+    optimizer_specs: Any = None,
 ) -> Optional[Dict[str, Any]]:
     """Load a tag written by either package. ``model`` / ``optimizer`` are
     templates (the port's own parameters and ``OptimizerState``, or any
     tree shaped like the saved one): each leaf comes back as a new tensor
-    on the template's device and in its dtype (an int stays an int).
+    on the template's device and in its dtype (an int stays an int). With
+    ``model_specs`` / ``optimizer_specs`` each tensor is the part of its
+    leaf this rank holds on the live mesh, read from whichever files hold it
+    (a tag saved at another tp or dp included).
     Returns {"model", "optimizer", "scheduler", "user_content", "tag"} with
     the requested kinds and the JSON files present, or None for
     ``latest_if_exists`` / ``*_if_exists`` when there is no such tag."""
@@ -540,9 +774,9 @@ def load_checkpoint(
         return None
     result: Dict[str, Any] = {"tag": resolved}
     if model is not None:
-        result["model"] = _load_tree(storage, resolved, "model", model)
+        result["model"] = _load_tree(storage, resolved, "model", model, model_specs)
     if optimizer is not None:
-        result["optimizer"] = _load_tree(storage, resolved, "optim", optimizer)
+        result["optimizer"] = _load_tree(storage, resolved, "optim", optimizer, optimizer_specs)
     if storage.file_exists(f"{resolved}/scheduler.json"):
         result["scheduler"] = storage.load_json(f"{resolved}/scheduler.json")
     if storage.file_exists(f"{resolved}/user_content.json"):

@@ -6,9 +6,12 @@ shuffle with resume at any step and the ``sample_range`` holdout
 (:class:`DistributedDataLoader`), batch for batch the JAX package's. The
 loader yields numpy batches; :func:`batch_to_device` puts one on the card.
 
-The port trains on one process: ``__iter__`` yields whole global batches,
-and a ``torch.distributed`` world of more than one process raises (the
-multi-GPU slice shards the rows).
+Over several processes each data-parallel rank reads only its rows of
+each global batch: dp rank r the r-th of dp contiguous blocks, the JAX
+package's ``process_index`` split with the dp rank in the place of the
+process (the tp ranks of one dp group read the same rows). The position
+(:class:`LoaderState`) is the same on every rank, so each resumes its own
+rows.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
+from neuronx_distributed_llama3_2_tpu_torch.parallel.multihost import world_size
 from neuronx_distributed_llama3_2_tpu_torch.utils.device import (
     DeviceLike,
     resolve_device,
@@ -138,32 +143,45 @@ class DistributedDataLoader:
             return self.dataset.gather(np.asarray(idx, np.int64))
         return np.stack([self.dataset[int(i)] for i in idx])
 
-    def __iter__(self) -> Iterator[np.ndarray]:
-        """Yields each global batch in turn, from ``state.step`` on. Feed
-        through :func:`batch_to_device`."""
-        import torch.distributed as dist
-
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "a data loader over several processes waits for the multi-GPU "
-                "slice of the port (ROADMAP.md, slice 5 item 1)"
+    def rows(self) -> Optional[slice]:
+        """This process's rows of each global batch: its dp rank's block
+        (None, the whole batch, on one process)."""
+        if world_size() == 1:
+            return None
+        if not parallel_state.model_parallel_is_initialized():
+            raise RuntimeError(
+                "a data loader over several processes reads the rows of its dp "
+                "rank: call initialize_model_parallel (or TrainingConfig."
+                "initialize) first"
             )
+        dp = parallel_state.get_data_parallel_size()
+        if self.gbs % dp != 0:
+            raise ValueError(f"global batch {self.gbs} not divisible by {dp} dp ranks")
+        per = self.gbs // dp
+        r = parallel_state.get_data_parallel_rank()
+        return slice(r * per, (r + 1) * per)
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        """Yields this process's rows of each global batch in turn (the
+        whole batch on one process), from ``state.step`` on. Feed through
+        :func:`batch_to_device`."""
+        rows = self.rows()
         prefetching = hasattr(self.dataset, "prefetch")
         if prefetching:
             # native double-buffering: the C++ worker gathers step k+1 while
             # the accelerator runs step k
             self.dataset.prefetch(
-                np.asarray(self._step_indices(self.state.step, None), np.int64)
+                np.asarray(self._step_indices(self.state.step, rows), np.int64)
             )
         while True:
             if prefetching:
                 batch = self.dataset.wait()
                 self.state.step += 1
                 self.dataset.prefetch(
-                    np.asarray(self._step_indices(self.state.step, None), np.int64)
+                    np.asarray(self._step_indices(self.state.step, rows), np.int64)
                 )
             else:
-                batch = self.batch_at(self.state.step)
+                batch = self.batch_at(self.state.step, rows=rows)
                 self.state.step += 1
             yield batch
 

@@ -34,8 +34,12 @@ a step, or once a chunk of ``on_device_steps``.
 Divergences from the JAX package: the cache is allocated at the first
 dense program, not in the constructor (the paged engine also builds an
 ``InferenceEngine`` and reads no dense cache); ``_live_params`` is the
-identity (quantized weights wait for ``quantization/layers.py``); tensor
-parallel decode waits for the mesh.
+identity (quantized weights wait for ``quantization/layers.py``).
+
+Under tensor parallelism (a model built under a live mesh, one process a
+rank) the cache holds this rank's kv heads (``LlamaDecode.cache_specs``,
+JAX ``inference/engine.py:140-154``) and every rank generates the same
+tokens from the gathered logits; its CUDA graphs need NCCL.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from neuronx_distributed_llama3_2_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
 )
+from neuronx_distributed_llama3_2_tpu_torch.parallel.multihost import require_capturable_collectives
 from neuronx_distributed_llama3_2_tpu_torch.serving import catalog
 from neuronx_distributed_llama3_2_tpu_torch.utils.logger import get_logger
 
@@ -259,7 +264,10 @@ class InferenceEngine:
         decode or verify runs at positions ``max_seq_len``, whose writes
         the cache drops; a prefill's lands in its slots' rows, which the
         prefill itself writes. Returns ``(graph, outputs)``; a failure
-        raises."""
+        raises. Under tp the graph holds the model's collectives, which
+        only NCCL can be captured with: over gloo it raises."""
+        if getattr(self.params, "tp", 1) > 1:
+            require_capturable_collectives("the dense engine's CUDA graphs")
         dev = self.device
         saved = {name: x.clone() for name, x in prog.inputs.items()}
         saved_key = self._key.clone()

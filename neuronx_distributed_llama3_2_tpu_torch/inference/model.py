@@ -66,8 +66,19 @@ checked programs, ``PagedConfig.detect_nonfinite``) each step runs
 before the accept rule, and returns one ``finite`` bool per lane beside
 its tokens.
 
-Not ported yet: tensor parallelism (the dense cache's ``cache_specs``),
-and the decode families other than Llama (``MixtralDecode``,
+Under tensor parallelism (a model built under a live mesh, one process
+per rank) each rank's caches hold its kv heads: ``NKV/tp`` when tp divides
+them (:meth:`LlamaDecode.paged_cache_specs` / :meth:`LlamaDecode.
+cache_specs`, JAX ``:187``/``:207``), the heads its q heads read otherwise;
+the block dim stays whole, so the block tables index alike on every rank.
+The kernel takes a call on a pure-tp mesh whose tp divides both head
+counts (:meth:`LlamaDecode._paged_kernel_eligible`, JAX's gate), each rank
+running K4 on its own heads (:func:`..kernels.paged_attention.
+paged_flash_decode_tp`); the row-parallel o-projection all-reduces after
+it, and the LM head's vocab slices are gathered before sampling, so every
+rank draws the same token.
+
+Not ported yet: the decode families other than Llama (``MixtralDecode``,
 ``GPTNeoXDecode``, ``decode_model_for``).
 """
 
@@ -86,7 +97,10 @@ from neuronx_distributed_llama3_2_tpu_torch.inference.speculative import (
 )
 from neuronx_distributed_llama3_2_tpu_torch.kernels.paged_attention import (
     paged_flash_decode,
+    paged_flash_decode_tp,
 )
+from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
+from neuronx_distributed_llama3_2_tpu_torch.parallel.layers import kv_mode
 from neuronx_distributed_llama3_2_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaDecoderLayer,
@@ -207,6 +221,14 @@ class LlamaDecode:
         self.config = config
         self.attention_paths: collections.Counter = collections.Counter()
         self._rope: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, ...]] = {}
+        c = config
+        # this rank's heads under the live mesh's tp (all of them at tp = 1):
+        # the kv heads its attention layer projects (parallel/layers.py)
+        self.tp = parallel_state.tensor_parallel_size_or(1)
+        mode = kv_mode(c.num_heads, c.num_kv_heads, c.head_dim, self.tp)
+        self.n_heads = c.num_heads // self.tp
+        self.kv_heads = {"sharded": c.num_kv_heads // self.tp, "flat": 1,
+                         "replicated": self.n_heads}[mode]
 
     def _rope_tables(self, max_len: int, device: torch.device):
         """Rotary tables for ``max_len`` rows, built once per (length,
@@ -228,13 +250,36 @@ class LlamaDecode:
 
     # -- cache ------------------------------------------------------------
 
+    def _head_axis(self) -> Optional[str]:
+        """"tp" where the kv heads split over tp, None where each rank
+        keeps its own copy (JAX ``_head_axis``)."""
+        c = self.config
+        return parallel_state.TP_AXIS if self.tp > 1 and c.num_kv_heads % self.tp == 0 else None
+
+    def paged_cache_specs(self, quantized: bool = False) -> PagedKVCache:
+        """Each pool's split, per dim (JAX ``paged_cache_specs``): kv heads
+        over tp when tp divides them, the block dim whole, so that any
+        block is writable by any request and the tables index alike on
+        every rank; the scale arrays split their kv-head axis alike."""
+        spec = (None, None, None, self._head_axis(), None)
+        if not quantized:
+            return PagedKVCache(k=spec, v=spec)
+        return PagedKVCache(k=spec, v=spec, k_scale=spec[:-1], v_scale=spec[:-1])
+
+    def cache_specs(self, max_batch: Optional[int] = None) -> KVCache:
+        """The dense cache's split, per dim (JAX ``cache_specs``): kv heads
+        over tp when divisible. The batch stays whole: each process serves
+        every slot of its tp group (dp replicas are engines of their own)."""
+        spec = (None, None, None, self._head_axis(), None)
+        return KVCache(k=spec, v=spec)
+
     def init_cache(
         self, max_batch: int, max_len: int, dtype=None, device: DeviceLike = "cuda",
     ) -> KVCache:
         """Zeroed dense cache of ``max_batch`` slots of ``max_len`` rows, at
         ``dtype or config.dtype``, on ``device``."""
         c = self.config
-        shape = (c.num_layers, max_batch, max_len, c.num_kv_heads, c.head_dim)
+        shape = (c.num_layers, max_batch, max_len, self.kv_heads, c.head_dim)
         dev = resolve_device(device)
         dtype = dtype or c.dtype
         return KVCache(
@@ -251,7 +296,7 @@ class LlamaDecode:
         ``kv_cache_dtype`` None / "bf16", else the int8 / fp8 payload pools
         plus their (L, num_blocks, block_size, n_kv) fp16 scale arrays."""
         c = self.config
-        shape = (c.num_layers, num_blocks, block_size, c.num_kv_heads, c.head_dim)
+        shape = (c.num_layers, num_blocks, block_size, self.kv_heads, c.head_dim)
         dev = resolve_device(device)
         if kv_cache_dtype in (None, "bf16"):
             dtype = dtype or c.dtype
@@ -407,7 +452,7 @@ class LlamaDecode:
                 context_encode=context_encode, kv_limit=kv_limit, row_live=row_live,
                 tree=tree, tree_bits=tree_bits,
             )
-        x = x + layer.attn.o(att.reshape(b, t, c.num_heads * c.head_dim))
+        x = x + layer.attn.o(att.reshape(b, t, layer.attn.n_heads * c.head_dim))
         return x + layer.mlp(layer.mlp_norm(x))
 
     def _attend_dense(
@@ -510,12 +555,16 @@ class LlamaDecode:
             # the (b, limit, NKV, D) K/V copy below never materializes; a
             # tree's branches share its one read of each block
             self.attention_paths["kernel"] += 1
-            return paged_flash_decode(
-                q, kc, vc, block_tables, positions, kv_limit=limit,
-                k_scale=ksc, v_scale=vsc,
-                quant_mxu=self.config.quant_mxu and quantized,
-                row_live=row_live, tree_bits=tree_bits,
-            )
+            kw = dict(kv_limit=limit, k_scale=ksc, v_scale=vsc,
+                      quant_mxu=self.config.quant_mxu and quantized,
+                      row_live=row_live, tree_bits=tree_bits)
+            if self.tp > 1:
+                # each rank's K4 on its own heads; o's all-reduce follows
+                c = self.config
+                return paged_flash_decode_tp(
+                    q, kc, vc, block_tables, positions, num_heads=c.num_heads,
+                    num_kv_heads=c.num_kv_heads, tp_size=self.tp, **kw)
+            return paged_flash_decode(q, kc, vc, block_tables, positions, **kw)
         self.attention_paths["gather"] += 1
         jlog = torch.arange(limit, device=q.device)
         rd_phys = tables[:, jlog // bs] * bs + (jlog % bs)[None, :]
@@ -871,13 +920,25 @@ class LlamaDecode:
         opt-in and a fresh block of at most ``paged_kernel_max_t`` tokens —
         T == 1 token-gen, verify blocks (linear, or packed trees of at most
         32 nodes, whose ancestor masks ride in as ``tree_bits``) and short
-        suffix prefills; longer blocks take the gather. Single device
-        (tensor parallelism is not ported)."""
+        suffix prefills; longer blocks take the gather. Over several
+        ranks (JAX's tp gate, ``:1106-1142``) the kernel needs a pure-tp
+        mesh whose tp divides both head counts, each rank then running it
+        on its own heads; a mesh with dp, or heads tp does not divide, takes
+        the gather."""
         if not self.config.use_paged_kernel:
             return False
         if not 1 <= t <= self.config.paged_kernel_max_t:
             return False
-        return tree is None or t <= 32
+        if tree is not None and t > 32:
+            return False
+        if (parallel_state.model_parallel_is_initialized()
+                and parallel_state.get_parallel_state().world_size > 1):
+            if not parallel_state.mesh_is_tp_only():
+                return False
+            tp = parallel_state.get_tensor_model_parallel_size()
+            if self.config.num_kv_heads % tp or self.config.num_heads % tp:
+                return False
+        return True
 
     def paged_dispatch_path(self, t: int, tree=None) -> str:
         """``"kernel"`` when :meth:`_paged_kernel_eligible` admits the

@@ -390,6 +390,57 @@ def paged_flash_decode(
     return out[:, 0] if squeeze else out
 
 
+def paged_flash_decode_tp(
+    q: torch.Tensor,             # (b, N/tp, D) — or (b, t, N/tp, D): this rank's q heads
+    k_pool: torch.Tensor,        # (num_blocks, bs, NKV/tp, D): this rank's pool slice
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # (b, W) int32, the same on every rank
+    positions: torch.Tensor,     # (b,) int32, the same on every rank
+    *,
+    num_heads: int,
+    num_kv_heads: int,
+    tp_size: int,
+    kv_limit: Optional[int] = None,
+    num_splits: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,  # (num_blocks, bs, NKV/tp)
+    v_scale: Optional[torch.Tensor] = None,
+    quant_mxu: bool = False,
+    row_live: Optional[torch.Tensor] = None,  # (b,), the same on every rank
+    tree_bits: Optional[torch.Tensor] = None,  # (b, t), the same on every rank
+) -> torch.Tensor:
+    """:func:`paged_flash_decode` for one rank of a tensor-parallel group
+    (JAX ``paged_flash_decode_tp``, paged_attention_pallas.py:452-540).
+
+    The JAX wrapper is a ``shard_map`` over the kv-head axis; in the port
+    each rank is a process that already holds only its slice, so this runs
+    the unchanged kernel (every route: t1, tile, split; every optional
+    operand) on the rank's ``NKV/tp`` kv heads and ``N/tp`` q heads. Rank
+    r's q heads ``[r N/tp, (r+1) N/tp)`` are exactly the groups of its kv
+    heads ``[r NKV/tp, (r+1) NKV/tp)``, so the group size G is unchanged;
+    the block dim of the pool stays whole, so the tables, positions,
+    ``row_live`` and ``tree_bits`` index alike on every rank. There is no
+    collective inside: the row-parallel o-projection after attention does
+    the tp reduction. Raises where tp divides either head count not, or
+    where the slices are not this rank's sizes."""
+    n_local = q.shape[-2]
+    nkv_local = k_pool.shape[2]
+    if num_heads % tp_size or num_kv_heads % tp_size:
+        raise ValueError(
+            f"q heads ({num_heads}) and kv heads ({num_kv_heads}) must both divide "
+            f"tp ({tp_size}); the caller (_paged_kernel_eligible) takes the gather then"
+        )
+    if (n_local, nkv_local) != (num_heads // tp_size, num_kv_heads // tp_size):
+        raise ValueError(
+            f"rank slices of {n_local} q / {nkv_local} kv heads, expected "
+            f"{num_heads // tp_size} / {num_kv_heads // tp_size} at tp={tp_size}"
+        )
+    return paged_flash_decode(
+        q, k_pool, v_pool, block_tables, positions, kv_limit=kv_limit,
+        num_splits=num_splits, k_scale=k_scale, v_scale=v_scale, quant_mxu=quant_mxu,
+        row_live=row_live, tree_bits=tree_bits,
+    )
+
+
 #: the kernels' payload kinds, by pool dtype (csrc/paged_common.cuh KvKind)
 KV_KINDS = {
     torch.bfloat16: 0,

@@ -12,11 +12,22 @@ crosses between the packages through :func:`params_from_jax` /
 - norm scales are fp32 whatever the compute dtype;
 - the LM head is tied to the embedding unless the config says otherwise.
 
-Training runs on one device: :meth:`LlamaForCausalLM.loss` (the chunked
-cross-entropy of ``loss_chunk_size``) and the flash-attention kernels when
-``use_flash_attention`` is set. Sequence and context parallelism wait for
-the multi-GPU slice. Each decoder layer runs under the config's remat
-policy (JAX ``_remat_policy``), through ``torch.utils.checkpoint``:
+A model built under a live parallel state (:mod:`..parallel.state`) holds
+this rank's shards, the ones the JAX ``specs()`` give it (:func:`param_specs`):
+the attention heads and the SwiGLU's intermediate width split over tp
+through :mod:`..parallel.layers`, the embedding (and the LM head tied to
+it) split along the vocab, the norms replicated. Under sequence
+parallelism the norms and residual adds run on sequence shards (the
+embedding reduce-scatters, each column-parallel product all-gathers the
+sequence, each row-parallel one reduce-scatters it), and attention, K1-K3
+with ``use_flash_attention``, sees the whole sequence. Context, pipeline
+and expert parallelism wait for later slices (``ROADMAP.md``).
+
+Training runs :meth:`LlamaForCausalLM.loss` (the chunked cross-entropy of
+``loss_chunk_size``, vocab-parallel under tp) and the flash-attention
+kernels when ``use_flash_attention`` is set. Each decoder layer runs under
+the config's remat policy (JAX ``_remat_policy``), through
+``torch.utils.checkpoint``:
 
 - ``"none"`` keeps every activation; ``"full"`` keeps only the layer's
   input and recomputes the layer in the backward (``nothing_saveable``);
@@ -56,13 +67,28 @@ from neuronx_distributed_llama3_2_tpu_torch.kernels.flash_attention import (
     DEFAULT_BLOCK_Q,
     flash_attention,
 )
+from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
 from neuronx_distributed_llama3_2_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
     GQAQKVColumnParallelLinear,
     KERNEL_INIT_STD,
     ParallelEmbedding,
     RowParallelLinear,
+    _enter,
+    divide,
+    kv_mode,
     normal_init_,
+)
+from neuronx_distributed_llama3_2_tpu_torch.parallel.layout import (
+    LeafSpec,
+    mesh_coords,
+    port_slice,
+)
+from neuronx_distributed_llama3_2_tpu_torch.parallel.mappings import (
+    all_gather,
+    copy_to_tensor_model_parallel_region,
+    gather_from_sequence_parallel_region,
+    gather_from_tensor_model_parallel_region,
 )
 from neuronx_distributed_llama3_2_tpu_torch.parallel.loss import (
     fused_linear_cross_entropy,
@@ -176,14 +202,24 @@ LLAMA_CONFIGS: Dict[str, LlamaConfig] = {
 # RMSNorm + RoPE
 # ---------------------------------------------------------------------------
 
+def _sp_weight(w, sequence_parallel: bool):
+    """A replicated weight read on a sequence shard: its gradient is this
+    shard's part, summed over tp in the backward (the reference's
+    ``allreduce_sequence_parallel_gradients``, grads.py:313)."""
+    if w is None or not sequence_parallel:
+        return w
+    return copy_to_tensor_model_parallel_region(w)
+
+
 class RMSNorm(nn.Module):
     """RMS layer norm with fp32 accumulation and an fp32 ``scale``."""
 
     def __init__(self, dim: int, eps: float = 1e-5, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, sequence_parallel: bool = False):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
+        self.sequence_parallel = sequence_parallel
         self.scale = nn.Parameter(
             torch.ones(dim, dtype=torch.float32, device=device)
         )
@@ -196,7 +232,7 @@ class RMSNorm(nn.Module):
         h = x.float()
         var = h.square().mean(dim=-1, keepdim=True)
         h = h * torch.rsqrt(var + self.eps)
-        return (h * self.scale).to(self.dtype)
+        return (h * _sp_weight(self.scale, self.sequence_parallel)).to(self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -204,10 +240,11 @@ class LayerNorm(nn.Module):
     DBRX/GPT-NeoX-family norm). Same parameter names as :class:`RMSNorm`."""
 
     def __init__(self, dim: int, eps: float = 1e-5, dtype=torch.bfloat16,
-                 bias: bool = False, device=None):
+                 bias: bool = False, device=None, sequence_parallel: bool = False):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
+        self.sequence_parallel = sequence_parallel
         self.scale = nn.Parameter(
             torch.ones(dim, dtype=torch.float32, device=device)
         )
@@ -226,21 +263,21 @@ class LayerNorm(nn.Module):
         h = x.float()
         h = h - h.mean(dim=-1, keepdim=True)
         var = h.square().mean(dim=-1, keepdim=True)
-        h = h * torch.rsqrt(var + self.eps) * self.scale
+        h = h * torch.rsqrt(var + self.eps) * _sp_weight(self.scale, self.sequence_parallel)
         if self.bias is not None:
-            h = h + self.bias
+            h = h + _sp_weight(self.bias, self.sequence_parallel)
         return h.to(self.dtype)
 
 
-def make_norm(config: LlamaConfig, device=None) -> nn.Module:
+def make_norm(config: LlamaConfig, device=None, sequence_parallel: bool = False) -> nn.Module:
     """Norm block per ``config.norm_type``."""
     if config.norm_type == "layernorm":
         return LayerNorm(
             config.hidden_size, config.rms_norm_eps, config.dtype,
-            bias=config.norm_bias, device=device,
+            bias=config.norm_bias, device=device, sequence_parallel=sequence_parallel,
         )
     return RMSNorm(config.hidden_size, config.rms_norm_eps, config.dtype,
-                   device=device)
+                   device=device, sequence_parallel=sequence_parallel)
 
 
 def precompute_rope(
@@ -321,19 +358,23 @@ def core_attention(
 
 class LlamaAttention(nn.Module):
     """GQA attention block: fused QKV, RoPE, core attention, output
-    projection."""
+    projection; this rank's ``n_heads`` q heads over ``n_kv_heads`` kv
+    heads (all of them at tp = 1)."""
 
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None, sequence_parallel: bool = False):
         super().__init__()
         c = config
         self.config = c
+        self.sequence_parallel = sequence_parallel
         self.qkv = GQAQKVColumnParallelLinear(
             c.hidden_size, c.num_heads, c.num_kv_heads, c.head_dim,
-            dtype=c.dtype, device=device,
+            sequence_parallel=sequence_parallel, dtype=c.dtype, device=device,
         )
+        self.n_heads = self.qkv.q_local_heads
+        self.n_kv_heads = self.qkv.kv_local_heads
         self.o = RowParallelLinear(
             c.num_heads * c.head_dim, c.hidden_size, dtype=c.dtype,
-            device=device,
+            sequence_parallel=sequence_parallel, device=device,
         )
 
     def reset_parameters(self, generator) -> None:
@@ -349,24 +390,22 @@ class LlamaAttention(nn.Module):
             q = q.clamp(-c.clip_qkv, c.clip_qkv)
             k = k.clamp(-c.clip_qkv, c.clip_qkv)
             v = v.clamp(-c.clip_qkv, c.clip_qkv)
+        t = q.shape[1]  # the whole sequence, after the SP all-gather
         return (
-            q.reshape(b, t, c.num_heads, c.head_dim),
-            k.reshape(b, t, c.num_kv_heads, c.head_dim),
-            v.reshape(b, t, c.num_kv_heads, c.head_dim),
+            q.reshape(b, t, self.n_heads, c.head_dim),
+            k.reshape(b, t, self.n_kv_heads, c.head_dim),
+            v.reshape(b, t, self.n_kv_heads, c.head_dim),
         )
 
     def project(self, x: torch.Tensor, name: str) -> torch.Tensor:
         """One of the three projections ("q", "k" or "v") alone, pre-RoPE,
         (b, t, heads, D): the same product as :meth:`project_qkv`'s."""
         c = self.config
-        y = x @ getattr(self.qkv, f"{name}_kernel")
-        bias = getattr(self.qkv, f"{name}_bias")
-        if bias is not None:
-            y = y + bias
+        y = self.qkv.project(_enter(x, self.sequence_parallel), name)
         if c.clip_qkv is not None:
             y = y.clamp(-c.clip_qkv, c.clip_qkv)
-        heads = c.num_heads if name == "q" else c.num_kv_heads
-        return y.reshape(*x.shape[:2], heads, c.head_dim)
+        heads = self.n_heads if name == "q" else self.n_kv_heads
+        return y.reshape(*y.shape[:2], heads, c.head_dim)
 
     def attend(self, q, k, v) -> torch.Tensor:
         """Causal attention of the post-RoPE q, k, v -> (b, s, N*D), the
@@ -381,7 +420,7 @@ class LlamaAttention(nn.Module):
             )
         else:
             attn = core_attention(q, k, v, causal=True)
-        return attn.reshape(b, s, c.num_heads * c.head_dim)
+        return attn.reshape(b, s, self.n_heads * c.head_dim)
 
     def forward(self, x, sin, cos, positions) -> torch.Tensor:
         q, k, v = self.project_qkv(x)
@@ -393,25 +432,32 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     """SwiGLU MLP with the fused ``gate_up`` (H, 2, I) kernel."""
 
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None, sequence_parallel: bool = False):
         super().__init__()
         c = config
+        self.tp = parallel_state.tensor_parallel_size_or(1)
+        self.tp_rank = parallel_state.tensor_parallel_rank_or(0)
+        self.sequence_parallel = sequence_parallel
+        # gate_up splits its intermediate width over tp (JAX spec (None, None, tp))
         self.gate_up = nn.Parameter(
             torch.empty(
-                (c.hidden_size, 2, c.intermediate_size), dtype=c.dtype,
+                (c.hidden_size, 2, divide(c.intermediate_size, self.tp)), dtype=c.dtype,
                 device=device,
             )
         )
         self.down = RowParallelLinear(
-            c.intermediate_size, c.hidden_size, dtype=c.dtype, device=device
+            c.intermediate_size, c.hidden_size, dtype=c.dtype,
+            sequence_parallel=sequence_parallel, device=device,
         )
 
     def reset_parameters(self, generator) -> None:
-        normal_init_(self.gate_up, generator, KERNEL_INIT_STD)
+        h, _, i = self.gate_up.shape
+        normal_init_(self.gate_up, generator, KERNEL_INIT_STD, (h, 2, i * self.tp), 2, self.tp_rank)
         self.down.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h_dim, _, i_dim = self.gate_up.shape
+        x = _enter(x, self.sequence_parallel)
         # one (H, 2I) product; the view splits gate from up
         y = (x @ self.gate_up.reshape(h_dim, 2 * i_dim)).unflatten(-1, (2, i_dim))
         gate, up = y[..., 0, :], y[..., 1, :]
@@ -453,12 +499,13 @@ FLASH_FWD_PER_LAYER = {"none": 1, "full": 2, "selective": 2, "dots": 2, "hybrid"
 # ---------------------------------------------------------------------------
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None, sequence_parallel: bool = False):
         super().__init__()
-        self.attn_norm = make_norm(config, device)
-        self.attn = LlamaAttention(config, device)
-        self.mlp_norm = make_norm(config, device)
-        self.mlp = LlamaMLP(config, device)
+        sp = sequence_parallel
+        self.attn_norm = make_norm(config, device, sp)
+        self.attn = LlamaAttention(config, device, sp)
+        self.mlp_norm = make_norm(config, device, sp)
+        self.mlp = LlamaMLP(config, device, sp)
 
     def reset_parameters(self, generator) -> None:
         self.attn_norm.reset_parameters()
@@ -525,13 +572,17 @@ class LlamaForCausalLM(nn.Module):
         dev = resolve_device(device)
         c = config
         self.config = c
+        self.tp = parallel_state.tensor_parallel_size_or(1)
+        # Megatron SP only means something across several tp ranks
+        self.sequence_parallel = parallel_state.sequence_parallel_enabled() and self.tp > 1
+        sp = self.sequence_parallel
         self.embed = ParallelEmbedding(
             c.vocab_size, c.hidden_size, dtype=c.dtype, device=dev
         )
         self.layers = nn.ModuleList(
-            LlamaDecoderLayer(c, dev) for _ in range(c.num_layers)
+            LlamaDecoderLayer(c, dev, sp) for _ in range(c.num_layers)
         )
-        self.final_norm = make_norm(c, dev)
+        self.final_norm = make_norm(c, dev, sp)
         self.lm_head = (
             None if c.tie_word_embeddings
             else ColumnParallelLinear(
@@ -584,15 +635,30 @@ class LlamaForCausalLM(nn.Module):
         b, s = input_ids.shape
         positions = torch.arange(s, device=input_ids.device).expand(b, s)
         sin, cos = self._rope(s)
-        x = self.embed(input_ids)
+        # under SP the embedding reduce-scatters along the sequence and the
+        # layers run on sequence shards; attention sees the whole sequence
+        x = self.embed(input_ids, sequence_parallel=self.sequence_parallel)
         for layer in self.layers:
             x = self._layer(layer, remat, x, sin, cos, positions)
-        return self.final_norm(x)
+        x = self.final_norm(x)
+        if self.sequence_parallel:
+            # leave the SP region; the LM head's input region sums the
+            # gradient over tp, so the backward keeps this rank's part
+            x = gather_from_sequence_parallel_region(x, dim=1, to_model_parallel=False)
+        return x
+
+    def _local_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """This rank's (..., V/tp) slice of the logits (all of them at tp
+        = 1): the vocab-parallel LM head, tied to the embedding unless the
+        config says otherwise."""
+        if self.lm_head is None:
+            return copy_to_tensor_model_parallel_region(hidden) @ self.embed.embedding.T
+        return self.lm_head(hidden)
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        if self.lm_head is None:
-            return hidden @ self.embed.embedding.T
-        return self.lm_head(hidden)
+        """Logits over the whole vocab (..., V): the slices gathered over tp
+        (serving samples from them on every rank alike)."""
+        return gather_from_tensor_model_parallel_region(self._local_logits(hidden), -1)
 
     @torch.no_grad()
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
@@ -610,11 +676,11 @@ class LlamaForCausalLM(nn.Module):
         shifted = labels[:, 1:]
         if self.config.loss_chunk_size is not None:
             loss_sum, count = fused_linear_cross_entropy(
-                hidden[:, :-1, :], self._logits, shifted,
+                hidden[:, :-1, :], self._local_logits, shifted,
                 chunk_size=self.config.loss_chunk_size,
             )
             return loss_sum / torch.clamp(count, min=1.0)
-        per_tok = parallel_cross_entropy(self._logits(hidden[:, :-1, :]), shifted)
+        per_tok = parallel_cross_entropy(self._local_logits(hidden[:, :-1, :]), shifted)
         # the CE's own validity rule, so the denominator never counts a
         # token whose numerator was zeroed
         valid = valid_token_mask(shifted, self.config.vocab_size).float()
@@ -650,72 +716,138 @@ def _dig(tree: Mapping, path: Tuple[str, ...]):
     return tree
 
 
+def jax_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """(path of the JAX leaf, layer index or None) of a port parameter
+    name."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return ("layers",) + next(p for p, n in _LAYER_LEAVES if n == ".".join(parts[2:])), int(parts[1])
+    return tuple(parts), None
+
+
+def param_specs(config: LlamaConfig, tp: Optional[int] = None) -> Dict[str, LeafSpec]:
+    """Each port parameter name -> the :class:`..parallel.layout.LeafSpec`
+    of its JAX leaf: the global shape (L first for the stacked layer
+    leaves) and the JAX ``LlamaForCausalLM.specs()`` split, at tensor
+    parallel size ``tp`` (the live one by default)."""
+    c = config
+    tp = parallel_state.tensor_parallel_size_or(1) if tp is None else tp
+    L, H, I, D = c.num_layers, c.hidden_size, c.intermediate_size, c.head_dim
+    T = parallel_state.TP_AXIS
+    kv = T if kv_mode(c.num_heads, c.num_kv_heads, D, tp) != "replicated" else None
+    layer = {
+        "attn_norm.scale": ((L, H), (None, None)),
+        "attn.qkv.q_kernel": ((L, H, c.num_heads * D), (None, None, T)),
+        "attn.qkv.k_kernel": ((L, H, c.num_kv_heads * D), (None, None, kv)),
+        "attn.qkv.v_kernel": ((L, H, c.num_kv_heads * D), (None, None, kv)),
+        "attn.o.kernel": ((L, c.num_heads * D, H), (None, T, None)),
+        "mlp_norm.scale": ((L, H), (None, None)),
+        "mlp.gate_up": ((L, H, 2, I), (None, None, None, T)),
+        "mlp.down.kernel": ((L, I, H), (None, T, None)),
+    }
+    specs = {"embed.embedding": LeafSpec((c.vocab_size, H), (T, None))}
+    for i in range(L):
+        for name, (shape, spec) in layer.items():
+            specs[f"layers.{i}.{name}"] = LeafSpec(shape, spec, stacked=True)
+    specs["final_norm.scale"] = LeafSpec((H,), (None,))
+    if not c.tie_word_embeddings:
+        specs["lm_head.kernel"] = LeafSpec((H, c.vocab_size), (None, T))
+    return specs
+
+
 def params_from_jax(
     np_params: Mapping[str, Any], config: LlamaConfig,
-    device: DeviceLike = "cuda",
+    device: DeviceLike = "cuda", *, tp_rank: Optional[int] = None,
+    tp_size: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """The JAX package's Llama pytree, as numpy arrays, -> a state dict for
-    :class:`LlamaForCausalLM`. ``layers`` leaves are stacked on a leading L
-    axis (the fused MLP weight is ``gate_up`` (L, H, 2, I)); they are
-    unstacked per layer here. Norm scales stay fp32, kernels take
-    ``config.dtype``."""
+    :class:`LlamaForCausalLM`: rank ``tp_rank``'s shard of each leaf at
+    tensor parallel size ``tp_size`` (the live parallel state's by
+    default; whole tensors without one), cut by JAX's ``specs()``
+    (:func:`param_specs`). ``layers`` leaves are stacked on a leading L axis
+    (the fused MLP weight is ``gate_up`` (L, H, 2, I)) and unstacked per
+    layer here. Norm scales stay fp32, kernels take ``config.dtype``."""
+    coords = dict(mesh_coords())
+    if tp_size is not None:
+        coords[parallel_state.TP_AXIS] = (tp_rank or 0, tp_size)
+    elif tp_rank is not None:
+        raise ValueError("tp_rank needs tp_size")
     return tree_from_jax(
         np_params, config,
         lambda name: torch.float32 if name.endswith("scale") else config.dtype,
-        device,
+        device, specs=param_specs(config, coords[parallel_state.TP_AXIS][1]), coords=coords,
     )
 
 
 def tree_from_jax(
     np_tree: Mapping[str, Any], config: LlamaConfig,
     dtype_of: Callable[[str], torch.dtype], device: DeviceLike = "cuda",
+    specs: Optional[Mapping[str, LeafSpec]] = None, coords=None,
 ) -> Dict[str, torch.Tensor]:
     """Any pytree shaped like the JAX package's Llama parameters (the
     weights, or one of AdamW's moments) -> a dict keyed by the port's
-    parameter names, leaf ``name`` cast to ``dtype_of(name)``."""
+    parameter names, leaf ``name`` cast to ``dtype_of(name)``. With
+    ``specs`` each tensor is the part of its leaf the rank at ``coords``
+    holds (the live mesh's by default), and a layer tensor the rank holds
+    no part of (ZeRO-1 split along the layer stack) is left out."""
     dev = resolve_device(device)
-
-    def t(a, name):
-        return torch.tensor(np.asarray(a, dtype=np.float32)).to(
+    coords = mesh_coords() if coords is None else coords
+    if specs is None:
+        specs = param_specs(config, 1)
+        coords = {}
+    cache: Dict[Tuple[str, ...], np.ndarray] = {}
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaf in specs.items():
+        path, layer = jax_path(name)
+        arr = cache.get(path)
+        if arr is None:
+            arr = cache[path] = np.asarray(_dig(np_tree, path))
+        held, index = port_slice(leaf, coords, layer)
+        if not held:
+            continue
+        part = arr[layer] if layer is not None else arr
+        sd[name] = torch.tensor(np.asarray(part[index], dtype=np.float32)).to(
             device=dev, dtype=dtype_of(name)
         )
-
-    sd: Dict[str, torch.Tensor] = {
-        "embed.embedding": t(np_tree["embed"]["embedding"], "embed.embedding"),
-        "final_norm.scale": t(np_tree["final_norm"]["scale"], "final_norm.scale"),
-    }
-    for path, name in _LAYER_LEAVES:
-        stacked = np.asarray(_dig(np_tree["layers"], path))
-        for i in range(config.num_layers):
-            sd[f"layers.{i}.{name}"] = t(stacked[i], f"layers.{i}.{name}")
-    if not config.tie_word_embeddings:
-        sd["lm_head.kernel"] = t(np_tree["lm_head"]["kernel"], "lm_head.kernel")
     return sd
 
 
+def gather_leaf(tensors: Dict[Optional[int], torch.Tensor], leaf: LeafSpec) -> np.ndarray:
+    """The whole JAX leaf, as fp32 numpy, from this rank's tensors of it
+    (by layer index, or None for an unstacked leaf), gathered over every
+    mesh axis its spec splits. Every rank of the mesh must call it."""
+    if leaf.stacked:
+        t = torch.stack([tensors[i] for i in sorted(tensors)])
+    else:
+        t = tensors[None]
+    t = t.detach().float()
+    for dim, axis in enumerate(leaf.spec):
+        if axis is not None and parallel_state.model_parallel_is_initialized():
+            t = all_gather(t, dim, parallel_state.get_parallel_state().group(axis))
+    return t.cpu().numpy()
+
+
 def params_to_jax(
-    state_dict: Mapping[str, torch.Tensor], config: LlamaConfig
+    state_dict: Mapping[str, torch.Tensor], config: LlamaConfig,
+    specs: Optional[Mapping[str, LeafSpec]] = None,
 ) -> Dict[str, Any]:
     """Inverse of :func:`params_from_jax` (and of :func:`tree_from_jax`): a
     dict keyed by :class:`LlamaForCausalLM` parameter names -> the JAX
-    package's pytree as fp32 numpy arrays, layers stacked."""
-
-    def n(x):
-        return x.detach().to("cpu", torch.float32).numpy()
-
-    layers: Dict[str, Any] = {}
-    for path, name in _LAYER_LEAVES:
-        node = layers
+    package's pytree as fp32 numpy arrays, layers stacked, every shard
+    gathered back over the mesh by ``specs`` (:func:`param_specs` at the
+    live tp by default). Under a mesh every rank must call it."""
+    specs = param_specs(config) if specs is None else specs
+    by_path: Dict[Tuple[str, ...], Dict[Optional[int], torch.Tensor]] = {}
+    leaves: Dict[Tuple[str, ...], LeafSpec] = {}
+    for name, leaf in specs.items():
+        path, layer = jax_path(name)
+        leaves[path] = leaf
+        if name in state_dict:
+            by_path.setdefault(path, {})[layer] = state_dict[name]
+    out: Dict[str, Any] = {}
+    for path, leaf in leaves.items():
+        node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = np.stack(
-            [n(state_dict[f"layers.{i}.{name}"]) for i in range(config.num_layers)]
-        )
-    out: Dict[str, Any] = {
-        "embed": {"embedding": n(state_dict["embed.embedding"])},
-        "layers": layers,
-        "final_norm": {"scale": n(state_dict["final_norm.scale"])},
-    }
-    if not config.tie_word_embeddings:
-        out["lm_head"] = {"kernel": n(state_dict["lm_head.kernel"])}
+        node[path[-1]] = gather_leaf(by_path.get(path, {}), leaf)
     return out

@@ -23,14 +23,22 @@ Examples::
         --model llama3.2-1b --ckpt-dir ckpt --tag latest --prompt-ids 12,99,4,7 \\
         --greedy
 
-Weights from an HF checkpoint (``--hf-dir``), a text ``--prompt`` (it
-needs the HF tokenizer) and ``--tp > 1`` are not ported yet: each raises,
-naming the slice it comes with.
+    # tensor parallel over two ranks: torchrun on the card, --nproc on the CPU
+    torchrun --nproc-per-node 2 -m neuronx_distributed_llama3_2_tpu_torch.scripts.generate \
+        --model llama3.2-1b --random-init --prompt-ids 12,99,4,7 --greedy --tp 2
+
+``--tp N`` runs one process per rank (``torchrun``, or, on the CPU,
+``--nproc``, which starts the N ranks over gloo itself): each holds its
+shard of the weights and of the cache, and every rank generates the same
+tokens; rank 0 prints them. Weights from an
+HF checkpoint (``--hf-dir``) and a text ``--prompt`` (it needs the HF
+tokenizer) are not ported yet: each raises, naming the slice it comes with.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 import json
 from typing import List, Optional
 
@@ -56,6 +64,8 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--on-device-steps", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--nproc", action="store_true",
+                   help="start the --tp ranks over gloo on the CPU (instead of torchrun)")
     p.add_argument("--aot", action="store_true",
                    help="build (on the card: capture) every bucket program before the "
                         "first request")
@@ -65,8 +75,27 @@ def parse_args(argv: Optional[List[str]] = None):
 
 def main(argv: Optional[List[str]] = None) -> dict:
     """Run the script; returns {"sequences": the generated token ids per
-    request, "report": the latency report it prints}."""
+    request, "report": the latency report it prints} (rank 0's, with
+    ``--nproc``)."""
     args = parse_args(argv)
+    if args.nproc and args.tp > 1:
+        if args.device != "cpu":
+            raise SystemExit("--nproc starts CPU ranks (--device cpu); on the card use torchrun")
+        from neuronx_distributed_llama3_2_tpu_torch.parallel.multihost import spawn_gloo_ranks
+
+        argv = list(sys.argv[1:] if argv is None else argv)
+        return spawn_gloo_ranks(_rank_main, args.tp, argv)[0]
+    return _run(args)
+
+
+def _rank_main(rank: int, nproc: int, argv) -> dict:
+    del rank, nproc
+    return _run(parse_args(argv))
+
+
+def _run(args) -> dict:
+    import os
+
     from neuronx_distributed_llama3_2_tpu_torch.inference import (
         GenerationConfig,
         InferenceEngine,
@@ -84,20 +113,34 @@ def main(argv: Optional[List[str]] = None) -> dict:
             "--hf-dir: the HF checkpoint converter is not ported yet "
             "(ROADMAP.md, slice 5 item 7)"
         )
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp > 1: tensor-parallel decode is not ported yet "
-            "(ROADMAP.md, slice 5 item 1)"
-        )
     if args.model not in LLAMA_CONFIGS:
         raise SystemExit(f"unknown model {args.model!r}; one of {sorted(LLAMA_CONFIGS)}")
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
+    from neuronx_distributed_llama3_2_tpu_torch.parallel.multihost import (
+        initialize_distributed,
+        is_coordinator,
+        world_size,
+    )
+
+    if args.tp > 1:
+        if world_size() == 1 and "WORLD_SIZE" not in os.environ:
+            raise SystemExit(
+                f"--tp {args.tp}: one process a rank: start them with torchrun, or "
+                f"with --nproc on the CPU"
+            )
+        initialize_distributed(device=args.device)
+        parallel_state.initialize_model_parallel(
+            tensor_model_parallel_size=args.tp, device=args.device)
     config = LLAMA_CONFIGS[args.model]
     params = LlamaForCausalLM(config, device=args.device)
     if args.ckpt_dir:
         from neuronx_distributed_llama3_2_tpu_torch.checkpoint import load_checkpoint
+        from neuronx_distributed_llama3_2_tpu_torch.models.llama import param_specs
 
+        # each rank reads the regions of its shards (whole tensors at tp 1)
         loaded = load_checkpoint(args.ckpt_dir, tag=args.tag,
-                                 model=dict(params.named_parameters()))
+                                 model=dict(params.named_parameters()),
+                                 model_specs=param_specs(config) if args.tp > 1 else None)
         if loaded is None:
             raise SystemExit(f"no checkpoint {args.tag} under {args.ckpt_dir}")
         params.load_state_dict(loaded["model"])
@@ -135,10 +178,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
         logger.info("built every bucket program in %.1fs", secs)
 
     result = engine.generate([prompt] * args.batch, gen)
-    for i, toks in enumerate(result.sequences):
-        print(f"--- request {i}: {toks}")
     report = result.benchmark.report()
-    print(json.dumps(report, indent=2))
+    if is_coordinator():
+        for i, toks in enumerate(result.sequences):
+            print(f"--- request {i}: {toks}")
+        print(json.dumps(report, indent=2))
     return {"sequences": result.sequences, "report": report}
 
 

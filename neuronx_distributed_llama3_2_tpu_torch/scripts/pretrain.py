@@ -18,15 +18,24 @@ Example (the 1B at full width under its default remat "selective")::
         --global-batch 4 --seq-len 2048 --steps 100 --lr 1e-3 \\
         --ckpt-dir ckpt --save-every 50 --tensorboard-dir tb
 
-The port trains on one device and the Llama family (``LLAMA_CONFIGS``):
-another model family, ``--tp`` / ``--pp`` / ``--ep`` above 1, ``--sp``,
-``--pp-schedule``, ``--model-chunks`` and ``--cpu-devices`` raise
-``SystemExit`` naming the slice that ports them.
+Tensor parallelism (``--tp``, with ``--sp`` for Megatron sequence
+parallelism) and data parallelism with ZeRO-1 (``--dp``, what the world
+size leaves by default) run one process per rank: under ``torchrun``
+(``torchrun --nproc-per-node 4 -m neuronx_distributed_llama3_2_tpu_torch.
+scripts.pretrain --tp 2 --dp 2 ...``), or, on the CPU, with the JAX
+script's ``--cpu-devices N``, which starts N processes over gloo itself.
+Each dp rank reads its rows of every global batch; each rank saves and
+loads its own shards of the checkpoint.
+
+The port pretrains the Llama family (``LLAMA_CONFIGS``): another model
+family, ``--pp`` / ``--ep`` above 1, ``--pp-schedule`` and
+``--model-chunks`` raise ``SystemExit`` naming the slice that ports them.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 import atexit
 import dataclasses
 import os
@@ -50,6 +59,8 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--pp", type=int, default=1)
     p.add_argument("--ep", type=int, default=1)
     p.add_argument("--sp", action="store_true", help="sequence parallelism")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel ranks (0: what the world size leaves after --tp)")
     p.add_argument("--global-batch", type=int, default=8)
     p.add_argument("--microbatches", type=int, default=1)
     p.add_argument("--pp-schedule", default=None,
@@ -83,7 +94,8 @@ def parse_args(argv: Optional[List[str]] = None):
                    help="MoE capacity factor (MoE models only)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--cpu-devices", type=int, default=0,
-                   help="(JAX's virtual CPU mesh; the port trains on one device)")
+                   help="start this many ranks over gloo on the CPU (instead of torchrun; "
+                        "the JAX script's virtual CPU mesh)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -97,19 +109,16 @@ def _refuse_unported(args, llama_configs) -> None:
         )
     if args.model not in llama_configs:
         raise SystemExit(f"unknown model {args.model!r}; one of {sorted(llama_configs)}")
-    for flag in ("tp", "pp", "ep"):
+    for flag, item in (("pp", "3 (the pipeline)"), ("ep", "4 (MoE)")):
         if getattr(args, flag) != 1:
             raise SystemExit(
-                f"--{flag} {getattr(args, flag)}: parallel training waits for the "
-                "multi-GPU slice of the port (ROADMAP.md, slice 5 item 1)"
+                f"--{flag} {getattr(args, flag)}: waits for ROADMAP.md slice 5 item {item}"
             )
-    for flag, value in (("sp", args.sp), ("pp-schedule", args.pp_schedule),
-                        ("model-chunks", args.model_chunks),
-                        ("cpu-devices", args.cpu_devices)):
+    for flag, value in (("pp-schedule", args.pp_schedule),
+                        ("model-chunks", args.model_chunks)):
         if value:
             raise SystemExit(
-                f"--{flag} {value}: waits for the multi-GPU slice of the port "
-                "(ROADMAP.md, slice 5 item 1); it trains on one device (--device)"
+                f"--{flag} {value}: waits for ROADMAP.md slice 5 item 3 (the pipeline)"
             )
     if args.capacity_factor is not None:
         raise SystemExit(f"--capacity-factor: {args.model} is not a MoE model")
@@ -119,8 +128,32 @@ def main(argv: Optional[List[str]] = None) -> dict:
     """Run the script; returns what it did: ``start_step``, ``losses``
     ({step: loss}), ``eval_losses``, the final ``state``, the ``dataset``
     class name, the resumed ``tag`` and the seconds each save and the load
-    took."""
+    took. With ``--cpu-devices`` it starts the ranks and returns rank 0's
+    record, without the state."""
     args = parse_args(argv)
+    if args.cpu_devices > 1:
+        if args.device != "cpu":
+            raise SystemExit("--cpu-devices starts CPU ranks (--device cpu); on the card "
+                             "use torchrun")
+        from neuronx_distributed_llama3_2_tpu_torch.parallel.multihost import spawn_gloo_ranks
+
+        argv = list(sys.argv[1:] if argv is None else argv)
+        return spawn_gloo_ranks(_rank_main, args.cpu_devices, argv)[0]
+    return _run(args)
+
+
+def _rank_main(rank: int, nproc: int, argv) -> Optional[dict]:
+    """One rank of a ``--cpu-devices`` run: rank 0's record without the
+    state, nothing from the others."""
+    del nproc
+    out = _run(parse_args(argv))
+    if rank == 0:
+        out.pop("state")
+        return out
+    return None
+
+
+def _run(args) -> dict:
     import numpy as np
 
     from neuronx_distributed_llama3_2_tpu_torch.checkpoint import (
@@ -168,7 +201,28 @@ def main(argv: Optional[List[str]] = None) -> dict:
     model_cfg = dataclasses.replace(
         model_cfg, max_seq_len=max(args.seq_len, model_cfg.max_seq_len)
     )
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
+    from neuronx_distributed_llama3_2_tpu_torch.parallel.multihost import (
+        initialize_distributed,
+        is_coordinator,
+        sync_global_devices,
+        world_size,
+    )
+
+    ranks = args.tp * max(args.dp, 1)
+    if ranks > 1 and world_size() == 1 and "WORLD_SIZE" not in os.environ:
+        raise SystemExit(
+            f"--tp {args.tp} --dp {args.dp}: {ranks} ranks run one process each: start "
+            f"them with torchrun, or with --cpu-devices {ranks} on the CPU"
+        )
+    if "WORLD_SIZE" in os.environ:
+        # one process per rank, from torchrun's environment
+        initialize_distributed(device=args.device)
+    if args.dp and ranks != world_size():
+        raise SystemExit(f"--tp {args.tp} x --dp {args.dp} != the {world_size()} processes")
     config = TrainingConfig(
+        tensor_parallel_size=args.tp,
+        sequence_parallel=args.sp,
         num_microbatches=args.microbatches,
         seed=args.seed,
         optimizer=OptimizerConfig(
@@ -184,13 +238,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
     data_path = args.data
     if args.synthetic:
         data_path = os.path.join(args.ckpt_dir, "synthetic_tokens.npy")
-        if not os.path.exists(data_path):
+        if not os.path.exists(data_path) and is_coordinator():
             os.makedirs(args.ckpt_dir, exist_ok=True)
             rng = np.random.default_rng(args.seed)
             write_token_file(
                 data_path,
                 rng.integers(0, model_cfg.vocab_size, args.synthetic, dtype=np.int32),
             )
+        sync_global_devices("synthetic data written")
     if not data_path:
         raise SystemExit("pass --data FILE.npy or --synthetic N")
     dataset = None
@@ -230,12 +285,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
     eval_step_fn = None
 
     # -- model / optimizer state (fresh, then maybe replaced by a resume) --
-    state, _ = initialize_parallel_model(model, config)
-    step_fn = make_train_step(model, config)
+    state, specs = initialize_parallel_model(model, config)
+    # each dp rank is given its rows of the global batch by the loader
+    step_fn = make_train_step(model, config, local_batch=True)
+    sharded = parallel_state.model_parallel_is_initialized() and world_size() > 1
+    spec_kw = dict(model_specs=specs.params, optimizer_specs=specs.opt) if sharded else {}
     start_step = 0
     t0 = time.perf_counter()
     loaded = load_checkpoint(
         args.ckpt_dir, tag="latest_if_exists", model=state.params, optimizer=state.opt,
+        **spec_kw,
     )
     load_s = None
     resumed = None
@@ -255,8 +314,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
         logger.info("resumed from %s at step %d", resumed, start_step)
 
     # -- train loop --------------------------------------------------------
-    tb = TensorBoardLogger(args.tensorboard_dir) if args.tensorboard_dir else None
-    metrics_file = TrainingMetrics(args.metrics_file) if args.metrics_file else None
+    # rank 0 alone writes the scalars and the metrics file
+    tb = TensorBoardLogger(args.tensorboard_dir) if args.tensorboard_dir and is_coordinator() else None
+    metrics_file = (TrainingMetrics(args.metrics_file)
+                    if args.metrics_file and is_coordinator() else None)
     throughput = Throughput(args.global_batch)
     batches = iter(loader)
     save_s: List[float] = []
@@ -271,10 +332,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
             user_content={"step": tag_step, "loader": loader.state.to_json()},
             async_save=args.async_save,
             num_kept_ckpts=args.keep_ckpts,
+            **spec_kw,
         )
         save_s.append(time.perf_counter() - t)
 
-    timeline = Timeline(args.timeline)
+    timeline = Timeline(args.timeline if is_coordinator() else None)
     profile_ctx = None
 
     def stop_profile():
@@ -289,7 +351,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     losses, eval_losses = {}, {}
     try:
         for step in range(start_step, args.steps):
-            if args.profile_dir and step == start_step + 2:
+            if args.profile_dir and step == start_step + 2 and is_coordinator():
                 profile_ctx = device_trace(args.profile_dir)
                 profile_ctx.__enter__()
             with timeline.event("load_batch", cat="data"):

@@ -86,6 +86,18 @@ for the FIFO and the SLO-aware step policies, synchronous or async:
   (:class:`.faults.EngineStalledError`), ``trace_enabled`` the flight
   recorder (:meth:`PagedServingEngine.export_trace`) and
   ``metrics_log_every`` the periodic metrics line.
+- Tensor parallelism: an engine over a model built under a live pure-tp
+  mesh (one process per rank, every rank constructing the same engine and
+  calling the same methods) holds its NKV/tp kv heads in its pool
+  (``metrics.pool_bytes_per_rank``, ``metrics.tp_size``), runs K4 on them
+  and gathers the LM head's vocab slices before sampling, so every rank
+  draws the same tokens and runs the same host loop. What rank-local state
+  or a clock decides is made on rank 0 and broadcast once a step
+  (:meth:`PagedServingEngine._agree_across_ranks`: the SLO burn gauges the
+  step policy reads, the ladder's events, the stall counter, the restore
+  price's link rate); a fault injector must be built from the same plan on
+  every rank. CUDA-graph capture (``prewarm``) needs NCCL, whose
+  collectives a graph holds; under gloo it raises.
 - The degradation ladder (``PagedConfig.degrade_after_faults``): every
   failed request, fault without a victim, pool-pressure preemption,
   drafter fault and (under ``slo_degrade``) SLO alert is an event; that
@@ -145,12 +157,14 @@ it (see :data:`UNPORTED_KNOBS`).
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from neuronx_distributed_llama3_2_tpu_torch import flops as flops_mod
 from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
@@ -163,6 +177,10 @@ from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import (
     next_key,
     sample,
     sample_lanes,
+)
+from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
+from neuronx_distributed_llama3_2_tpu_torch.parallel.multihost import (
+    require_capturable_collectives,
 )
 from neuronx_distributed_llama3_2_tpu_torch.quantization.kv_cache import (
     kv_cache_torch_dtype,
@@ -444,6 +462,14 @@ class PagedServingEngine:
         self.gen = gen
         self.paged = paged
         self.device = engine.device
+        # the tp group this engine runs across (one rank without a mesh)
+        self._tp = parallel_state.tensor_parallel_size_or(1)
+        if self._tp > 1:
+            if getattr(engine.params, "sequence_parallel", False):
+                raise ValueError(
+                    "serving runs without sequence parallelism: build the model "
+                    "under a mesh with sequence_parallel=False"
+                )
         # the chaos source; every hook below is guarded by `is not None`
         self.injector = injector
         bs = paged.block_size
@@ -630,16 +656,18 @@ class PagedServingEngine:
         self._last_progress_sig: Optional[tuple] = None
         self._last_log_step = 0
         mc = self.model.config
-        pool_bytes = kv_pool_bytes_per_rank(
+        # under tp each rank's pool holds NKV/tp heads (paged_cache_specs):
+        # the same per-card memory holds a tp-times larger logical pool
+        pool_dims = dict(
             num_layers=mc.num_layers, num_blocks=paged.num_blocks,
             block_size=bs, num_kv_heads=mc.num_kv_heads,
             head_dim=mc.head_dim, dtype_bytes=self.cache.k.element_size(),
             scale_bytes=kv_scale_itemsize(paged.kv_cache_dtype),
         )
-        self.metrics.tp_size = 1
+        self.metrics.tp_size = self._tp
         self.metrics.kv_dtype = paged.kv_cache_dtype
-        self.metrics.pool_bytes_total = pool_bytes
-        self.metrics.pool_bytes_per_rank = pool_bytes
+        self.metrics.pool_bytes_total = kv_pool_bytes_per_rank(**pool_dims)
+        self.metrics.pool_bytes_per_rank = kv_pool_bytes_per_rank(**pool_dims, tp_size=self._tp)
         self._step_index = 0
 
         self._next_rid = 0
@@ -1176,7 +1204,10 @@ class PagedServingEngine:
         """Freeze the program registry: every later capture counts in
         ``metrics.steadystate_compiles``. Called at the end of
         :meth:`prewarm`; a harness warming up through real traffic can
-        call it once its working set is captured."""
+        call it once its working set is captured. Under tp it needs NCCL
+        (a gloo collective cannot live in a CUDA graph)."""
+        if self._tp > 1:
+            require_capturable_collectives("mark_steady")
         self._frozen_keys = frozenset(self._programs)
 
     def prewarm(self) -> None:
@@ -1203,7 +1234,11 @@ class PagedServingEngine:
         are residents the graphs read, so one capture serves every
         sampling config, greedy or sampled; a host-sampled program splits
         the resident key inside its graph, so each replay advances the
-        chain as the eager step does."""
+        chain as the eager step does. Under tp the graphs hold the
+        collectives, which only NCCL can be captured with: over gloo it
+        raises before capturing anything."""
+        if self._tp > 1:
+            require_capturable_collectives("prewarm")
         t0 = time.perf_counter()
         self._prewarming = True
         try:
@@ -1463,6 +1498,51 @@ class PagedServingEngine:
             self.tracer.instant(
                 "degradation", level=self._degrade_level, direction="recover",
             )
+
+    def _agree_across_ranks(self) -> None:
+        """Under tp, rank 0's readings of what a clock or rank-local state
+        decides, broadcast to every rank once a step, before the ladder
+        acts on them: the ladder's event steps, the SLO burn gauges the
+        step policy reads next step, the stall counter and the link rate a
+        restore is priced at. Every rank then takes the same decisions in
+        the same order (the tokens agree already: every rank samples the
+        same gathered logits).
+
+        The readings travel as one float64 tensor of fixed length, one
+        ``dist.broadcast`` a step (on the card under NCCL, on the host
+        under gloo): the counters, the gauges (NaN where a class has no
+        gauge yet) and the newest ``degrade_after_faults`` event steps,
+        the only ones the ladder can read (it climbs on that many inside
+        its window and then clears them). Every value is an int below
+        2**53 or a float64, so each lands exactly."""
+        if self._tp == 1:
+            return
+        m = self.metrics
+        cap = self.paged.degrade_after_faults
+        events = list(self._event_steps)[-cap:] if cap else []
+        classes = sorted(SERVICE_CLASSES)
+        kinds = ("ttft", "tpot")
+        values = [
+            self._last_event_step, self._stall_steps, m.slo_burn_ttft, m.slo_burn_tpot,
+            self.host_link_bw, len(events),
+        ] + [m.slo_burn_by_class.get(c, {}).get(k, math.nan) for c in classes for k in kinds]
+        values += events + [0] * (cap - len(events))
+        group = parallel_state.get_tensor_model_parallel_group()
+        on_card = dist.get_backend(group) == "nccl"
+        buf = torch.tensor(values, dtype=torch.float64, device="cuda" if on_card else "cpu")
+        dist.broadcast(buf, src=dist.get_global_rank(group, 0), group=group)
+        agreed = buf.tolist()
+        last, stall, ttft, tpot, link_bw, n = agreed[:6]
+        burn = agreed[6:6 + len(classes) * len(kinds)]
+        self._last_event_step, self._stall_steps = int(last), int(stall)
+        m.slo_burn_ttft, m.slo_burn_tpot, self.host_link_bw = ttft, tpot, link_bw
+        self._event_steps = deque(int(x) for x in agreed[len(agreed) - cap:][:int(n)])
+        m.slo_burn_by_class.clear()
+        for i, c in enumerate(classes):
+            row = {k: burn[i * len(kinds) + j] for j, k in enumerate(kinds)
+                   if not math.isnan(burn[i * len(kinds) + j])}
+            if row:
+                m.slo_burn_by_class[c] = row
 
     def _progress_sig(self) -> tuple:
         """Everything that moves when the engine does useful work: two
@@ -2847,6 +2927,7 @@ class PagedServingEngine:
             self._slo.on_step(
                 self._step_index, tracer=self.tracer, note_event=self._note_event,
             )
+        self._agree_across_ranks()
         self._update_ladder()
         if self.paged.audit_interval and self._step_index % self.paged.audit_interval == 0:
             self._audit(strict=False)

@@ -2,11 +2,14 @@
 
 Counterpart of ``neuronx_distributed_llama3_2_tpu/trainer/config.py``:
 the same fields with the same defaults, so a configuration reads the same
-in both packages. The port trains on one device: :meth:`TrainingConfig.initialize`
-refuses every parallel size above 1 and ``sequence_parallel`` (the
-multi-GPU slice ports them). ``zero_one_enabled`` shards optimizer state
-over data parallelism, which one device does not have; it is accepted and
-has no effect, as in the JAX package at dp = 1.
+in both packages. :meth:`TrainingConfig.initialize` builds the mesh of
+tensor parallelism (with or without Megatron sequence parallelism) and
+data parallelism over the processes of the group (one process per rank,
+started by ``torchrun`` or by the caller), as the JAX one builds its
+``Mesh``; ``zero_one_enabled`` splits the optimizer state over the dp
+ranks (ZeRO-1, a no-op at dp = 1 as in the JAX package). Pipeline, context
+and expert parallelism and the pipeline knobs raise, each naming the
+ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
+from neuronx_distributed_llama3_2_tpu_torch.parallel.multihost import world_size
 from neuronx_distributed_llama3_2_tpu_torch.utils.device import (
     DeviceLike,
     resolve_device,
@@ -86,27 +91,46 @@ class TrainingConfig:
     num_model_chunks: Optional[int] = None
     seed: int = 42
 
-    def require_single_device(self) -> None:
-        """Raise NotImplementedError naming the first knob the single-device
-        port cannot honour."""
-        for knob in ("tensor_parallel_size", "pipeline_parallel_size",
-                     "expert_parallel_size", "context_parallel_size"):
-            if getattr(self, knob) != 1:
-                raise NotImplementedError(
-                    f"{knob}={getattr(self, knob)} waits for the multi-GPU "
-                    "slice of the port: it trains on one device"
-                )
-        for knob in ("sequence_parallel", "pipeline_schedule", "num_model_chunks"):
+    def require_ported(self) -> None:
+        """Raise NotImplementedError naming the first knob the port does not
+        run yet (pipeline, context and expert parallelism, the pipeline
+        knobs) and the ROADMAP.md item that ports it."""
+        parallel_state.ParallelConfig(
+            tensor_parallel_size=self.tensor_parallel_size,
+            pipeline_parallel_size=self.pipeline_parallel_size,
+            expert_parallel_size=self.expert_parallel_size,
+            context_parallel_size=self.context_parallel_size,
+            sequence_parallel=self.sequence_parallel,
+        ).require_ported()
+        for knob in ("pipeline_schedule", "num_model_chunks"):
             if getattr(self, knob):
                 raise NotImplementedError(
-                    f"{knob}={getattr(self, knob)!r} waits for the multi-GPU "
-                    "slice of the port: it trains on one device"
+                    f"{knob}={getattr(self, knob)!r} waits for ROADMAP.md slice 5 "
+                    "item 3 (the pipeline)"
                 )
 
     def initialize(self, device: DeviceLike = "cuda") -> torch.device:
-        """Check that the configuration runs on one device and return that
-        device (the card unless the caller names another)."""
-        self.require_single_device()
+        """Check the configuration and return the device (the card unless
+        the caller names another). Tensor or sequence parallelism, or a
+        process group of several ranks, builds the mesh
+        (:func:`..parallel.state.initialize_model_parallel`; dp is what the
+        world size leaves) unless one is live, which must then agree."""
+        self.require_ported()
         if self.num_microbatches < 1:
             raise ValueError(f"num_microbatches must be >= 1, got {self.num_microbatches}")
-        return resolve_device(device)
+        dev = resolve_device(device)
+        if parallel_state.model_parallel_is_initialized():
+            st = parallel_state.get_parallel_state()
+            if (st.tensor_parallel_size, st.sequence_parallel) != (
+                    self.tensor_parallel_size, self.sequence_parallel):
+                raise ValueError(
+                    f"the live mesh has tp={st.tensor_parallel_size}, "
+                    f"sequence_parallel={st.sequence_parallel}; this config asks for "
+                    f"tp={self.tensor_parallel_size}, sequence_parallel={self.sequence_parallel}"
+                )
+        elif self.tensor_parallel_size > 1 or self.sequence_parallel or world_size() > 1:
+            parallel_state.initialize_model_parallel(
+                tensor_model_parallel_size=self.tensor_parallel_size,
+                sequence_parallel=self.sequence_parallel, device=dev,
+            )
+        return dev

@@ -1,9 +1,16 @@
-"""Training facade, single device.
+"""Training facade.
 
-Counterpart of ``neuronx_distributed_llama3_2_tpu/trainer/trainer.py``:
-``initialize_parallel_model`` → ``make_train_step`` → ``step(state,
-batch)``, with the JAX package's microbatching (strided split, each
-microbatch weighted by its valid-token count) and its eval step.
+Counterpart of ``neuronx_distributed_llama3_2_tpu/trainer/trainer.py``
+(:81-258): ``initialize_parallel_model`` → ``make_train_step`` →
+``step(state, batch)``, with the JAX package's microbatching (strided
+split, each microbatch weighted by its valid-token count) and its eval
+step, on one device or over the mesh of :meth:`..trainer.config.
+TrainingConfig.initialize`. Each rank holds its shard of the model and
+of the optimizer state (ZeRO-1 under dp); a step takes the rank's rows of
+the global batch by JAX's rule (dp rank r the r-th contiguous block),
+sums the gradients over dp (reduce-scattered into ZeRO-1's parts), clips
+by the norm over every rank's parts and all-gathers the updated
+parameters.
 
 A :class:`TrainState` holds the model's own parameters (a dict keyed by
 parameter name, the same tensor objects as ``model.named_parameters()``)
@@ -18,12 +25,20 @@ from typing import Callable, Dict, Iterable, Mapping, NamedTuple, Optional, Tupl
 
 import torch
 
+from neuronx_distributed_llama3_2_tpu_torch.models.llama import param_specs
+from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
 from neuronx_distributed_llama3_2_tpu_torch.parallel.loss import valid_token_mask
+from neuronx_distributed_llama3_2_tpu_torch.parallel.mappings import all_reduce
 from neuronx_distributed_llama3_2_tpu_torch.trainer.config import TrainingConfig
 from neuronx_distributed_llama3_2_tpu_torch.trainer.optimizer import (
     OptimizerState,
     apply_gradients,
     init_optimizer_state,
+    norm_owned,
+    optimizer_state_specs,
+    zero1_gather_params,
+    zero1_parts,
+    zero1_reduce_grads,
 )
 
 Params = Dict[str, torch.nn.Parameter]
@@ -34,17 +49,26 @@ class TrainState(NamedTuple):
     opt: OptimizerState
 
 
+def state_specs(model: torch.nn.Module, config: TrainingConfig) -> TrainState:
+    """The :class:`..parallel.layout.LeafSpec` of every leaf of the train
+    state on the live mesh (JAX's state specs): the parameters' by
+    ``specs()``, the optimizer state's with ZeRO-1's dp split."""
+    specs = param_specs(model.config)
+    return TrainState(specs, optimizer_state_specs(specs, config.optimizer))
+
+
 def initialize_parallel_model(
     model: torch.nn.Module, config: TrainingConfig, key: Optional[int] = None,
-) -> Tuple[TrainState, None]:
+) -> Tuple[TrainState, TrainState]:
     """Draw the model's weights from seed ``key`` (``config.seed`` by
-    default) and build its optimizer state. Returns (state, None): the
-    second element stands where the JAX package returns the partition
-    specs, which one device does not have."""
-    config.require_single_device()
+    default; every rank draws the whole tensors and keeps its shard) and
+    build this rank's optimizer state. Returns (state, specs), the specs
+    as :func:`state_specs` gives them."""
+    config.require_ported()
     model.init_weights(config.seed if key is None else key)
     params = dict(model.named_parameters())
-    return TrainState(params, init_optimizer_state(params, config.optimizer)), None
+    specs = state_specs(model, config)
+    return TrainState(params, init_optimizer_state(params, config.optimizer, specs.opt)), specs
 
 
 def default_weight_decay_mask(params: Mapping[str, torch.Tensor]) -> Dict[str, bool]:
@@ -76,30 +100,55 @@ def _valid_count(labels: torch.Tensor, vocab_size: int) -> torch.Tensor:
     return valid_token_mask(labels[:, 1:], vocab_size).float().sum()
 
 
-def make_train_step(model: torch.nn.Module, config: TrainingConfig) -> Callable:
+def dp_rows(batch: torch.Tensor) -> torch.Tensor:
+    """This dp rank's rows of a global batch: the r-th of dp contiguous
+    blocks (JAX shards the batch dim over ("dp", "ep"))."""
+    dp = parallel_state.data_parallel_size_or(1)
+    if dp == 1:
+        return batch
+    if batch.shape[0] % dp:
+        raise ValueError(f"global batch {batch.shape[0]} not divisible by dp={dp}")
+    per = batch.shape[0] // dp
+    r = parallel_state.get_data_parallel_rank()
+    return batch[r * per:(r + 1) * per]
+
+
+def make_train_step(model: torch.nn.Module, config: TrainingConfig,
+                    local_batch: bool = False) -> Callable:
     """A train step ``(state, batch) -> (state, metrics)``.
 
     ``batch = {"input_ids": (GBS, S), "labels": (GBS, S)}`` on the model's
-    device. The global batch is split into ``config.num_microbatches``
-    strided microbatches (row m of microbatch k is global row
-    k + m * num_microbatches); each contributes its gradients weighted by
-    its valid-token count, accumulated in fp32 under
+    device, the global batch on every rank; each dp rank takes its rows
+    (:func:`dp_rows`), or is given them with ``local_batch`` (what
+    :class:`..data.dataset.DistributedDataLoader` yields). The rank's rows
+    are split into ``config.num_microbatches`` strided microbatches (row m
+    of microbatch k is row k + m * num_microbatches, so each microbatch
+    takes rows of every dp shard, as in JAX); each contributes its
+    gradients weighted by its valid-token count, accumulated in fp32 under
     ``use_fp32_grad_acc`` (else in the parameters' dtype), so the step
-    equals the global-batch mean CE. Then one AdamW step. ``metrics`` holds
-    the loss and the pre-clip grad norm as fp32 device scalars, the
-    learning rate after the step and the step count. The state is updated
-    in place (module docstring)."""
-    config.require_single_device()
+    equals the global-batch mean CE. The gradients are summed over dp
+    (into ZeRO-1's parts), then one AdamW step on every rank's part and the
+    parameters gathered again. ``metrics`` holds the loss and the pre-clip
+    grad norm as fp32 device scalars, the learning rate after the step and
+    the step count. The state is updated in place (module docstring)."""
+    config.require_ported()
     opt_cfg = config.optimizer
     n_micro = config.num_microbatches
     vocab = model.config.vocab_size
+    specs = state_specs(model, config)
+    dp = parallel_state.data_parallel_size_or(1)
+    sharded = parallel_state.model_parallel_is_initialized() and parallel_state.get_parallel_state().world_size > 1
+    parts = zero1_parts(specs.opt) if opt_cfg.zero_one_enabled else None
+    owned = norm_owned(specs.params, parts, opt_cfg.zero_one_enabled) if sharded else None
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
         _check_params(model, state.params)
         input_ids, labels = batch["input_ids"], batch["labels"]
+        if not local_batch:
+            input_ids, labels = dp_rows(input_ids), dp_rows(labels)
         names = list(state.params)
         leaves = [state.params[k] for k in names]
-        if n_micro == 1:
+        if n_micro == 1 and dp == 1:
             loss = model.loss(input_ids, labels)
             grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
             if opt_cfg.use_fp32_grad_acc:
@@ -109,7 +158,8 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig) -> Callable:
             gbs = input_ids.shape[0]
             if gbs % n_micro:
                 raise ValueError(
-                    f"global batch {gbs} is not a multiple of num_microbatches {n_micro}"
+                    f"batch {gbs} (the rank's rows) is not a multiple of "
+                    f"num_microbatches {n_micro}"
                 )
             grads = {
                 k: torch.zeros(p.shape, device=p.device,
@@ -127,6 +177,11 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig) -> Callable:
                     acc += g.to(acc.dtype) * n.to(acc.dtype)
                 loss_sum += loss.detach() * n
                 tok_sum += n
+            if dp > 1:
+                group = parallel_state.get_data_parallel_group()
+                loss_sum = all_reduce(loss_sum, group)
+                tok_sum = all_reduce(tok_sum, group)
+                grads = zero1_reduce_grads(grads, parts)
             denom = torch.clamp(tok_sum, min=1.0)
             for g in grads.values():
                 g /= denom.to(g.dtype)
@@ -134,7 +189,9 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig) -> Callable:
         _, opt, grad_norm = apply_gradients(
             state.opt, grads, state.params, opt_cfg,
             weight_decay_mask=default_weight_decay_mask(state.params),
+            parts=parts, owned=owned,
         )
+        zero1_gather_params(state.params, parts)
         metrics = {
             "loss": loss.float(),
             "grad_norm": grad_norm,

@@ -179,8 +179,12 @@ def test_shape_mismatch_and_missing_key_raise(tmp_path):
 
 
 def test_multi_process_save_raises(tmp_path, monkeypatch):
+    """Over several processes a save needs the specs of its trees (which
+    part of each leaf the rank holds); without them it raises."""
     monkeypatch.setattr(tckpt, "_multi_process", lambda: True)
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    monkeypatch.setattr(tckpt, "_rank", lambda: 0)
+    monkeypatch.setattr(tckpt, "_world", lambda: 2)
+    with pytest.raises(ValueError, match="needs the specs"):
         save_checkpoint(str(tmp_path / "c"), "t", model={"w": torch.zeros(2)})
 
 
@@ -395,3 +399,100 @@ def test_host_buffers_are_reused_and_refreshed(tmp_path):
     stacked = np.load(tmp_path / "ckpt/b/model/layers.mlp.gate_up.npy")
     assert stacked.shape == (3, 2, 2) and stacked[2, 0, 0] == 12.0
     assert load_checkpoint(root, "a", model={"w": w, **layers})["model"]["w"].sum() == 0
+
+
+# -- over several processes ------------------------------------------------------
+
+from tests import torch_dist_workers as W  # noqa: E402
+
+
+def _jax_start_params():
+    jcfg = dataclasses.replace(jllama.LLAMA_CONFIGS["tiny"], loss_chunk_size=8)
+    return jax.tree.map(np.asarray, jllama.LlamaForCausalLM(jcfg).init(jax.random.key(0)))
+
+
+def _jax_load(root, tp, dp=1):
+    """JAX's load_checkpoint of ``root``'s latest tag, whole (tp = 1) or
+    placed on a (dp, tp) mesh of virtual CPU devices by its specs."""
+    jcfg = jllama.LLAMA_CONFIGS["tiny"]
+    jtc = jtrainer.TrainingConfig(tensor_parallel_size=tp,
+                                  optimizer=jtrainer.OptimizerConfig(**_opt_kw()))
+    model = jllama.LlamaForCausalLM(jcfg)
+    params_t = jax.eval_shape(model.init, jax.random.key(0))
+    opt_t = jax.eval_shape(lambda p: jtrainer.init_optimizer_state(p, jtc.optimizer), params_t)
+    if tp * dp == 1:
+        return jckpt.load_checkpoint(root, "latest", model=params_t, optimizer=opt_t)
+    jstate.destroy_model_parallel()
+    st = jtc.initialize(devices=jax.devices()[:tp * dp])
+    try:
+        _, specs = jtrainer.initialize_parallel_model(model, jtc)
+        out = jckpt.load_checkpoint(root, "latest", model=params_t, optimizer=opt_t,
+                                    model_specs=specs.params, optimizer_specs=specs.opt,
+                                    mesh=st.mesh)
+        return jax.tree.map(np.asarray, out)
+    finally:
+        jstate.destroy_model_parallel()
+
+
+def _assert_bitwise(got_tree, want_tree, what):
+    got = dict(_leaves(jax.tree.map(np.asarray, got_tree)))
+    for path, ref in _leaves(jax.tree.map(lambda x: np.asarray(x, np.float32), want_tree)):
+        assert np.array_equal(np.asarray(got[path], np.float32), ref), (what, path)
+
+
+@pytest.mark.parametrize("tp,dp", [(2, 1), (2, 2)], ids=["tp2", "tp2_dp2_zero1"])
+def test_multi_process_port_tag_loads_in_jax_and_the_port(tmp_path, tp, dp):
+    """Each rank writes its own chunks (ZeRO-1's parts too under dp 2):
+    JAX loads the tag whole (tp 1) and on its own (dp, tp) mesh, and the
+    port loads it in one process, each bit for bit equal to the state the
+    ranks gathered."""
+    root = str(tmp_path / "ck")
+    ids, labels = _batch()
+    outs = W.run(W.ckpt_worker, tp * dp, tmp_path, tp, "save", root, _jax_start_params(),
+                 _opt_kw(), ids, labels)
+    saved = outs[0]
+    manifest = json.loads((tmp_path / "ck/step_1/optim.manifest.json").read_text())
+    assert all(e.get("sharded") for e in manifest.values())
+    assert len(manifest["mu/layers/attn/qkv/q_kernel"]["chunks"]) == tp * dp
+    assert (tmp_path / "ck/step_1/done").exists()
+    for jtp, jdp in ((1, 1), (tp, dp)):
+        out = _jax_load(root, jtp, jdp)
+        _assert_bitwise(out["model"], saved["params"], ("jax", jtp, jdp, "model"))
+        for name in ("master", "mu", "nu"):
+            _assert_bitwise(getattr(out["optimizer"], name), getattr(saved["opt"], name),
+                            ("jax", jtp, jdp, name))
+    cfg = dataclasses.replace(tllama.LLAMA_CONFIGS["tiny"], loss_chunk_size=8)
+    model, tc, state = _port_state(cfg, ttrainer.OptimizerConfig(**_opt_kw()))
+    out = load_checkpoint(root, "latest", model=state.params, optimizer=state.opt)
+    _assert_bitwise(tllama.params_to_jax(out["model"], cfg), saved["params"], "port tp1")
+    jopt = ttrainer.opt_state_to_jax(out["optimizer"], cfg)
+    for name in ("master", "mu", "nu"):
+        _assert_bitwise(getattr(jopt, name), getattr(saved["opt"], name), ("port tp1", name))
+
+
+def test_jax_tp2_tag_loads_in_the_port_at_tp1_and_tp2(tmp_path):
+    """A tag JAX saved from a tp = 2 mesh: the port's two tp ranks read
+    their regions of it, and one process reads it whole, bit for bit."""
+    jcfg = dataclasses.replace(jllama.LLAMA_CONFIGS["tiny"], loss_chunk_size=8)
+    jtc = jtrainer.TrainingConfig(tensor_parallel_size=2,
+                                  optimizer=jtrainer.OptimizerConfig(**_opt_kw()))
+    jstate.destroy_model_parallel()
+    jtc.initialize(devices=jax.devices()[:2])
+    try:
+        state, _ = jtrainer.initialize_parallel_model(jllama.LlamaForCausalLM(jcfg), jtc)
+        root = str(tmp_path / "jax")
+        jckpt.save_checkpoint(root, "step_0", model=state.params, optimizer=state.opt,
+                              user_content={"step": 0})
+        want = jax.tree.map(np.asarray, state)
+    finally:
+        jstate.destroy_model_parallel()
+    outs = W.run(W.ckpt_worker, 2, tmp_path, 2, "load", root, None, _opt_kw(), None, None)
+    for o in outs:
+        assert o["user_content"] == {"step": 0}
+        _assert_bitwise(o["params"], want.params, "port tp2")
+        for name in ("master", "mu", "nu"):
+            _assert_bitwise(getattr(o["opt"], name), getattr(want.opt, name), ("port tp2", name))
+    cfg = dataclasses.replace(tllama.LLAMA_CONFIGS["tiny"], loss_chunk_size=8)
+    model, tc, pstate = _port_state(cfg, ttrainer.OptimizerConfig(**_opt_kw()))
+    out = load_checkpoint(root, "latest", model=pstate.params, optimizer=pstate.opt)
+    _assert_bitwise(tllama.params_to_jax(out["model"], cfg), want.params, "port tp1")

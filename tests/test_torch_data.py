@@ -113,5 +113,34 @@ def test_loader_refuses_several_processes(token_file, monkeypatch):
 
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    # several processes read the rows of their dp rank, which needs the mesh
+    with pytest.raises(RuntimeError, match="initialize_model_parallel"):
         next(iter(DistributedDataLoader(TokenDataset(token_file, 64), 4)))
+
+
+def test_two_dp_ranks_read_jax_process_rows_and_resume(token_file, tmp_path, monkeypatch):
+    """Two processes at dp = 2: each reads its block of every global batch,
+    the rows JAX's loader gives ``jax.process_index()`` of two processes;
+    the blocks are disjoint and make up the batch, and each rank's loader
+    resumed at a step yields its own rows from there on."""
+    import jax
+
+    from tests import torch_dist_workers as W
+
+    gbs, steps, resume_at = 4, 5, 3
+    outs = W.run(W.loader_worker, 2, tmp_path, token_file, gbs, 64, steps, resume_at)
+    whole = DistributedDataLoader(TokenDataset(token_file, 64), gbs, seed=3)
+    for o in outs:
+        r = o["dp_rank"]
+        monkeypatch.setattr(jax, "process_count", lambda: 2)
+        monkeypatch.setattr(jax, "process_index", lambda r=r: r)
+        jit = iter(jdata.DistributedDataLoader(jdata.TokenDataset(token_file, 64), gbs, seed=3))
+        for step in range(steps):
+            np.testing.assert_array_equal(o["first"][step], next(jit))
+            np.testing.assert_array_equal(
+                o["first"][step], whole.batch_at(step)[r * gbs // 2:(r + 1) * gbs // 2])
+        for k, batch in enumerate(o["resumed"]):
+            np.testing.assert_array_equal(batch, o["first"][resume_at + k])
+    for step in range(steps):
+        np.testing.assert_array_equal(
+            np.concatenate([outs[0]["first"][step], outs[1]["first"][step]]), whole.batch_at(step))

@@ -48,6 +48,10 @@ def test_sources_exist():
                       ("scripts", ("pretrain.py",))):
         for mod in mods:
             assert PORT / sub / mod in SOURCES, (sub, mod)
+    # the parallel layer: the mesh, the regions, the layers, the loss
+    for mod in ("state.py", "multihost.py", "mappings.py", "random.py", "pad.py",
+                "layers.py", "layout.py", "loss.py", "grads.py"):
+        assert PORT / "parallel" / mod in SOURCES, mod
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -69,8 +69,8 @@ def _preempt_at(monkeypatch, n_steps):
 
     make = trainer.make_train_step
 
-    def make_train_step(model, config):
-        step, calls = make(model, config), []
+    def make_train_step(model, config, **kw):
+        step, calls = make(model, config, **kw), []
 
         def stepped(state, batch):
             if len(calls) == n_steps:
@@ -146,7 +146,7 @@ def test_native_loader_tensorboard_timeline_eval_profile(tmp_path):
     (["--model", "nope"], "unknown model"),
     (["--tp", "2"], "--tp 2"),
     (["--pp", "2"], "--pp 2"),
-    (["--sp"], "--sp"),
+    (["--dp", "3"], "--dp 3"),
     (["--pp-schedule", "1f1b"], "--pp-schedule"),
     (["--model-chunks", "2"], "--model-chunks"),
     (["--capacity-factor", "1.25"], "not a MoE model"),
@@ -185,3 +185,43 @@ def test_generate_from_a_checkpoint_equals_random_init(tmp_path):
     assert other["sequences"] != random["sequences"]
     with pytest.raises(SystemExit, match="no checkpoint"):
         generate.main(common + ["--ckpt-dir", str(tmp_path / "ck"), "--tag", "step_1_if_exists"])
+
+
+# -- several ranks (--cpu-devices / --nproc start them over gloo on the CPU) -----
+
+@pytest.mark.parametrize("extra", [{"tp": 2, "sp": True}, {"dp": 2}],
+                         ids=["tp2_sp", "dp2_zero1"])
+def test_parallel_pretrain_matches_one_process(tmp_path, extra):
+    """Two steps at tp = 2 with sequence parallelism, and at dp = 2 with
+    ZeRO-1, on two CPU ranks: the losses of the one-process run (fp32 in
+    another summation order, 1e-5 relative), and a final tag every rank
+    wrote its chunks of."""
+    one = pretrain.main(_argv(tmp_path, "one", 2, save_every=0))
+    two = pretrain.main(_argv(tmp_path, "two", 2, save_every=0, cpu_devices=2, **extra))
+    assert sorted(two["losses"]) == [0, 1]
+    for step, loss in one["losses"].items():
+        np.testing.assert_allclose(two["losses"][step], loss, rtol=1e-5)
+    manifest = json.loads((tmp_path / "two/step_2/model.manifest.json").read_text())
+    assert all(e.get("sharded") for e in manifest.values())
+    assert (tmp_path / "two/step_2/done").exists()
+
+
+def test_generate_at_tp2_equals_one_process(tmp_path, monkeypatch):
+    """--tp 2 on two CPU ranks generates the tokens of one process, for
+    random weights and for a tag saved by one process; from the command
+    line too (the ranks parse the process's own arguments)."""
+    common = ["--model", "tiny", "--prompt-ids", "5,17,3,9", "--greedy", "--device", "cpu",
+              "--max-seq-len", "64", "--max-new-tokens", "8"]
+    model = tllama.LlamaForCausalLM(tllama.LLAMA_CONFIGS["tiny"], device="cpu").init_weights(4)
+    save_checkpoint(str(tmp_path / "ck"), "step_1", model=dict(model.named_parameters()))
+    for src in (["--random-init", "--seed", "3"], ["--ckpt-dir", str(tmp_path / "ck")]):
+        one = generate.main(common + src)
+        two = generate.main(common + src + ["--tp", "2", "--nproc"])
+        assert two["sequences"] == one["sequences"] and len(one["sequences"][0]) == 8
+    with pytest.raises(SystemExit, match="--tp 2"):
+        generate.main(common + ["--random-init", "--tp", "2"])
+    import sys
+
+    argv = common + ["--random-init", "--seed", "3"]
+    monkeypatch.setattr(sys, "argv", ["generate"] + argv + ["--tp", "2", "--nproc"])
+    assert generate.main()["sequences"] == generate.main(argv)["sequences"]

@@ -281,13 +281,16 @@ def test_eval_step_and_evaluate_match_jax():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("tensor_parallel_size", 2), ("pipeline_parallel_size", 2),
-    ("expert_parallel_size", 2), ("context_parallel_size", 2),
-    ("sequence_parallel", True), ("pipeline_schedule", "1f1b"), ("num_model_chunks", 2),
+    ("pipeline_parallel_size", 2), ("pipeline_parallel_size", 4),
+    ("expert_parallel_size", 2), ("context_parallel_size", 2), ("context_parallel_size", 4),
+    ("pipeline_schedule", "1f1b"), ("num_model_chunks", 2),
 ])
 def test_parallel_knobs_raise_naming_the_knob(knob, value):
+    """The knobs of later slices raise, naming the knob and the ROADMAP
+    item that ports it (tensor and sequence parallelism run: see
+    test_torch_tp_train.py)."""
     tc = ttrainer.TrainingConfig(**{knob: value})
-    with pytest.raises(NotImplementedError, match=knob):
+    with pytest.raises(NotImplementedError, match=f"{knob}.*ROADMAP.md slice 5 item"):
         tc.initialize("cpu")
     model = tllama.LlamaForCausalLM(tllama.LLAMA_CONFIGS["tiny"], device="cpu")
     with pytest.raises(NotImplementedError, match=knob):
@@ -361,3 +364,13 @@ def test_initialize_parallel_model_draws_seeded_weights():
         assert a.opt.mu[k].dtype == torch.bfloat16 and not a.opt.mu[k].any()
         assert torch.equal(a.opt.master[k], a.params[k].to(torch.bfloat16))
     assert a.opt.step == 0
+
+
+def test_tensor_parallelism_needs_its_ranks():
+    """tp = 2 in a single process: the mesh has no second rank to lay out,
+    and initialize says so without starting a process group."""
+    import torch.distributed as dist
+
+    with pytest.raises(ValueError, match="world size 1 not divisible by tp"):
+        ttrainer.TrainingConfig(tensor_parallel_size=2).initialize("cpu")
+    assert not dist.is_initialized()

@@ -1,0 +1,401 @@
+"""Child processes for the port's multi-process tests on the CPU.
+
+The port runs one process per rank over ``torch.distributed``; these tests
+start the ranks with ``torch.multiprocessing`` ``spawn`` over gloo, each
+rank joining through a file under the test's own temporary directory
+(``file://``, never a fixed TCP port, so tests on several pytest-xdist
+workers do not meet). The children import torch and the port only, never
+JAX: a worker function takes its weights and inputs as numpy arrays from
+the parent and returns numpy results, which :func:`run` collects rank by
+rank.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, List
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from neuronx_distributed_llama3_2_tpu_torch.parallel.multihost import spawn_gloo_ranks
+
+
+def run(fn: Callable, world: int, tmp, *args) -> List[Any]:
+    """``fn(rank, world, *args)`` in ``world`` spawned processes joined over
+    gloo (``multihost.spawn_gloo_ranks``), one thread each; the list of
+    their return values, by rank. A child's exception fails the call."""
+    return spawn_gloo_ranks(_one_thread, world, fn, *args, tmp_dir=str(tmp))
+
+
+def _one_thread(rank, world, fn, *args):
+    torch.set_num_threads(1)
+    return fn(rank, world, *args)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def train_worker(rank, world, tp, sp, cfg_kw, opt_kw, n_micro, steps, np_params, ids, labels):
+    """``steps`` train steps at (tp, dp = world / tp) from the JAX start
+    weights. Returns per-step metrics, the gradient of the first step's
+    loss gathered whole, the parameters and optimizer state after the
+    steps gathered whole, this rank's own ZeRO-1 parts and its coordinates."""
+    from neuronx_distributed_llama3_2_tpu_torch import trainer as T
+    from neuronx_distributed_llama3_2_tpu_torch.models import llama as L
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+
+    tc = T.TrainingConfig(tensor_parallel_size=tp, sequence_parallel=sp,
+                          num_microbatches=n_micro, optimizer=T.OptimizerConfig(**opt_kw))
+    try:
+        tc.initialize("cpu")
+        cfg = dataclasses.replace(L.LLAMA_CONFIGS["tiny"], **cfg_kw)
+        model = L.LlamaForCausalLM(cfg, device="cpu")
+        model.load_state_dict(L.params_from_jax(np_params, cfg, device="cpu"))
+        params = dict(model.named_parameters())
+        specs = T.trainer.state_specs(model, tc)
+        state = T.TrainState(params, T.init_optimizer_state(params, tc.optimizer, specs.opt))
+        ids_t, lbl_t = torch.as_tensor(ids), torch.as_tensor(labels)
+        grads = _first_grads(model, ids_t, lbl_t, cfg)
+        step = T.make_train_step(model, tc)
+        metrics = []
+        for _ in range(steps):
+            state, m = step(state, {"input_ids": ids_t, "labels": lbl_t})
+            metrics.append({k: float(v) for k, v in m.items()})
+        return {
+            "coords": (S.get_data_parallel_rank(), S.get_tensor_model_parallel_rank()),
+            "metrics": metrics,
+            "grads": L.params_to_jax(grads, cfg),
+            "params": L.params_to_jax(state.params, cfg),
+            "opt": T.opt_state_to_jax(state.opt, cfg, specs.opt),
+            "mu_local": {k: _np(v) for k, v in state.opt.mu.items()},
+            "state_bytes": T.optimizer.state_bytes(state.opt),
+            "specs": {k: (s.shape, s.spec) for k, s in specs.opt.mu.items()},
+        }
+    finally:
+        S.destroy_model_parallel()
+
+
+def _first_grads(model, ids, labels, cfg):
+    """The gradient of the global batch's mean loss, summed over dp."""
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+    from neuronx_distributed_llama3_2_tpu_torch.parallel.mappings import all_reduce
+    from neuronx_distributed_llama3_2_tpu_torch.trainer.trainer import _valid_count, dp_rows
+
+    ids, labels = dp_rows(ids), dp_rows(labels)
+    names = [k for k, _ in model.named_parameters()]
+    loss = model.loss(ids, labels)
+    n = _valid_count(labels, cfg.vocab_size)
+    grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+    group = S.get_data_parallel_group()
+    total = all_reduce(n, group)
+    return {k: all_reduce(g * n, group) / total for k, g in zip(names, grads)}
+
+
+# ---------------------------------------------------------------------------
+# the mesh, the regions, the TP layers, the vocab-parallel loss, the norm
+# ---------------------------------------------------------------------------
+
+def _part(full: np.ndarray, dim: int, rank: int, n: int) -> torch.Tensor:
+    w = full.shape[dim] // n
+    return torch.tensor(np.take(full, np.arange(rank * w, (rank + 1) * w), axis=dim))
+
+
+def _set(p: torch.nn.Parameter, value: torch.Tensor) -> None:
+    with torch.no_grad():
+        p.copy_(value)
+
+
+def _grad_gather(t: torch.Tensor, dim, group) -> np.ndarray:
+    from neuronx_distributed_llama3_2_tpu_torch.parallel.mappings import all_gather
+
+    t = t.detach()
+    return _np(t if dim is None else all_gather(t.contiguous(), dim, group))
+
+
+def parallel_worker(rank, world, tp, sp, inputs):
+    """Every check of test_torch_parallel.py that needs the ranks, at
+    tensor parallel size ``tp`` (dp = world / tp); returns what each
+    computed (the parent holds it against the JAX package)."""
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import layers as PL
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import mappings as M
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+    from neuronx_distributed_llama3_2_tpu_torch.parallel.grads import global_norm, world_group
+    from neuronx_distributed_llama3_2_tpu_torch.parallel.loss import parallel_cross_entropy
+
+    st = S.initialize_model_parallel(tensor_model_parallel_size=tp, sequence_parallel=sp, device="cpu")
+    try:
+        out: dict = {}
+        g_tp, g_dp = S.get_tensor_model_parallel_group(), S.get_data_parallel_group()
+        r = S.get_tensor_model_parallel_rank()
+        out["mesh"] = dict(
+            shape=tuple(st.mesh.shape), tp=st.tensor_parallel_size, dp=st.data_parallel_size,
+            tp_rank=r, dp_rank=S.get_data_parallel_rank(),
+            tp_ranks=dist.get_process_group_ranks(g_tp), dp_ranks=dist.get_process_group_ranks(g_dp),
+            tp_only=S.mesh_is_tp_only(), kv4=S.kv_head_shard_size(4), kv3=S.kv_head_shard_size(3),
+            sp=S.sequence_parallel_enabled(), axes=S.get_data_parallel_axes(),
+        )
+
+        # the regions: forward and backward of x (rank-dependent) with an
+        # upstream gradient g (rank-dependent)
+        x0, g0 = inputs["x"], inputs["g"]
+        regions = {
+            "copy_to": lambda x: M.copy_to_tensor_model_parallel_region(x),
+            "reduce_from": lambda x: M.reduce_from_tensor_model_parallel_region(x),
+            "gather_from": lambda x: M.gather_from_tensor_model_parallel_region(x, -1),
+            "scatter_to": lambda x: M.scatter_to_tensor_model_parallel_region(x, -1),
+            "sp_scatter_to": lambda x: M.scatter_to_sequence_parallel_region(x, 1),
+            "sp_gather_from": lambda x: M.gather_from_sequence_parallel_region(x, 1),
+            "sp_gather_from_split": lambda x: M.gather_from_sequence_parallel_region(
+                x, 1, to_model_parallel=False),
+            "sp_reduce_scatter": lambda x: M.reduce_scatter_to_sequence_parallel_region(x, 1),
+        }
+        out["regions"] = {}
+        for name, fn in regions.items():
+            x = torch.tensor(x0 + r).requires_grad_(True)
+            y = fn(x)
+            g = torch.tensor(g0[tuple(slice(0, n) for n in y.shape)] * (r + 1))
+            y.backward(g)
+            out["regions"][name] = (_np(y), _np(x.grad))
+
+        # the TP layers: full weights in, this rank's slice loaded; each
+        # output gathered and each weight gradient gathered (or whole)
+        xin = torch.tensor(inputs["xin"])
+        lay = {}
+        for gather_output in (False, True):
+            col = PL.ColumnParallelLinear(16, 24, use_bias=True, gather_output=gather_output)
+            _set(col.kernel, _part(inputs["w_col"], 1, r, tp))
+            _set(col.bias, _part(inputs["b_col"], 0, r, tp))
+            x = xin.clone().requires_grad_(True)
+            y = col(x)
+            gy = torch.tensor(inputs["gy_col"])
+            (y * (gy if gather_output else _part(inputs["gy_col"], 2, r, tp))).sum().backward()
+            lay[f"col{int(gather_output)}"] = (
+                _np(y) if gather_output else _grad_gather(y, 2, g_tp), _np(x.grad),
+                _grad_gather(col.kernel.grad, 1, g_tp), _grad_gather(col.bias.grad, 0, g_tp))
+        for row_sp in (False, True):
+            row = PL.RowParallelLinear(24, 16, use_bias=True, sequence_parallel=row_sp)
+            _set(row.kernel, _part(inputs["w_row"], 0, r, tp))
+            _set(row.bias, torch.tensor(inputs["b_row"]))
+            x = _part(inputs["xrow"], 2, r, tp).requires_grad_(True)
+            y = row(x)
+            gy = inputs["gy_row"]
+            (y * (_part(gy, 1, r, tp) if row_sp else torch.tensor(gy))).sum().backward()
+            lay[f"row{int(row_sp)}"] = (
+                _grad_gather(y, 1, g_tp) if row_sp else _np(y), _grad_gather(x.grad, 2, g_tp),
+                _grad_gather(row.kernel.grad, 0, g_tp), _np(row.bias.grad))
+        ids = torch.tensor(inputs["ids"])
+        for shard_dim, dim in (("vocab", 0), ("embed", 1)):
+            emb = PL.ParallelEmbedding(32, 16, shard_dim=shard_dim)
+            _set(emb.embedding, _part(inputs["w_emb"], dim, r, tp))
+            y = emb(ids)
+            (y * torch.tensor(inputs["gy_emb"])).sum().backward()
+            lay[f"emb_{shard_dim}"] = (_np(y), _grad_gather(emb.embedding.grad, dim, g_tp))
+        for key, (n, nkv, d) in inputs["gqa"].items():
+            if n % tp:
+                continue
+            qkv = PL.GQAQKVColumnParallelLinear(16, n, nkv, d, use_bias=True)
+            split = qkv.kv_split
+            for nm in ("q", "k", "v"):
+                whole = nm != "q" and not split
+                _set(getattr(qkv, f"{nm}_kernel"),
+                     torch.tensor(inputs[f"gqa_{key}_w{nm}"]) if whole else
+                     _part(inputs[f"gqa_{key}_w{nm}"], 1, r, tp))
+                _set(getattr(qkv, f"{nm}_bias"),
+                     torch.tensor(inputs[f"gqa_{key}_b{nm}"]) if whole else
+                     _part(inputs[f"gqa_{key}_b{nm}"], 0, r, tp))
+            x = xin.clone().requires_grad_(True)
+            q, k, v = qkv(x)
+            loss = (q * _part(inputs[f"gqa_{key}_gq"], 2, r, tp)).sum()
+            loss = loss + (k * torch.tensor(inputs[f"gqa_{key}_gk"][r])).sum()
+            loss = loss + (v * torch.tensor(inputs[f"gqa_{key}_gv"][r])).sum()
+            loss.backward()
+            lay[f"gqa_{key}"] = dict(
+                mode=PL.kv_mode(n, nkv, d, tp), q=_grad_gather(q, 2, g_tp), k=_np(k), v=_np(v),
+                dx=_np(x.grad),
+                **{f"d{nm}": _grad_gather(getattr(qkv, f"{nm}_kernel").grad,
+                                          1 if (nm == "q" or split) else None, g_tp)
+                   for nm in ("q", "k", "v")},
+            )
+        out["layers"] = lay
+
+        # the vocab-parallel cross-entropy, with and without smoothing
+        ce = {}
+        for ls in (0.0, 0.1):
+            logits = _part(inputs["logits"], 2, r, tp).requires_grad_(True)
+            loss = parallel_cross_entropy(logits, torch.tensor(inputs["labels"]), ls)
+            (loss * torch.tensor(inputs["w_ce"])).sum().backward()
+            ce[ls] = (_np(loss), _grad_gather(logits.grad, 2, g_tp))
+        out["ce"] = ce
+
+        # the random streams: the tp one per tp rank, the dp one shared
+        from neuronx_distributed_llama3_2_tpu_torch.parallel.random import (
+            data_parallel_generator,
+            tensor_parallel_generator,
+        )
+
+        out["rng"] = (_np(torch.rand(4, generator=tensor_parallel_generator(5, "cpu"))),
+                      _np(torch.rand(4, generator=data_parallel_generator(5, "cpu"))))
+
+        # the norm: a tp-sharded leaf counts on every rank, a replicated one
+        # on tp rank 0 alone
+        grads = {"shard": torch.tensor(inputs["x"][0] * (r + 1)), "rep": torch.tensor(inputs["g"][0])}
+        owned = {"shard": S.get_data_parallel_rank() == 0, "rep": r == 0 and S.get_data_parallel_rank() == 0}
+        out["norm"] = float(global_norm(grads, owned, world_group()))
+        return out
+    finally:
+        S.destroy_model_parallel()
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and the data loader over several processes
+# ---------------------------------------------------------------------------
+
+def ckpt_worker(rank, world, tp, mode, root, np_params, opt_kw, ids, labels):
+    """``mode="save"``: from the JAX weights, one train step at (tp, dp =
+    world / tp), then a save of the rank's shards; ``mode="load"``: a fresh
+    model loads the latest tag into its shards. Returns the state gathered
+    whole (JAX layout) and the tag's user content."""
+    from neuronx_distributed_llama3_2_tpu_torch import trainer as T
+    from neuronx_distributed_llama3_2_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from neuronx_distributed_llama3_2_tpu_torch.models import llama as L
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+
+    tc = T.TrainingConfig(tensor_parallel_size=tp, optimizer=T.OptimizerConfig(**opt_kw))
+    try:
+        tc.initialize("cpu")
+        cfg = dataclasses.replace(L.LLAMA_CONFIGS["tiny"], loss_chunk_size=8)
+        model = L.LlamaForCausalLM(cfg, device="cpu")
+        state, specs = T.initialize_parallel_model(model, tc)
+        content = None
+        if mode == "save":
+            model.load_state_dict(L.params_from_jax(np_params, cfg, device="cpu"))
+            state = T.TrainState(state.params, T.init_optimizer_state(state.params, tc.optimizer, specs.opt))
+            state, _ = T.make_train_step(model, tc)(
+                state, {"input_ids": torch.as_tensor(ids), "labels": torch.as_tensor(labels)})
+            save_checkpoint(root, "step_1", model=state.params, optimizer=state.opt,
+                            user_content={"step": 1}, model_specs=specs.params,
+                            optimizer_specs=specs.opt)
+        else:
+            out = load_checkpoint(root, "latest", model=state.params, optimizer=state.opt,
+                                  model_specs=specs.params, optimizer_specs=specs.opt)
+            with torch.no_grad():
+                for k, p in state.params.items():
+                    p.copy_(out["model"][k])
+            state = T.TrainState(state.params, out["optimizer"])
+            content = out.get("user_content")
+        return {
+            "params": L.params_to_jax(state.params, cfg),
+            "opt": T.opt_state_to_jax(state.opt, cfg, specs.opt),
+            "user_content": content,
+        }
+    finally:
+        S.destroy_model_parallel()
+
+
+def loader_worker(rank, world, path, gbs, seq_len, steps, resume_at):
+    """The rows this rank's loader yields for ``steps`` steps, and for the
+    steps after ``resume_at`` from a loader resumed there (dp = world)."""
+    from neuronx_distributed_llama3_2_tpu_torch.data import (
+        DistributedDataLoader,
+        LoaderState,
+        TokenDataset,
+    )
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+
+    S.initialize_model_parallel(device="cpu")
+    try:
+        ds = TokenDataset(path, seq_len)
+        it = iter(DistributedDataLoader(ds, gbs, seed=3))
+        first = [next(it) for _ in range(steps)]
+        it2 = iter(DistributedDataLoader(ds, gbs, seed=3, state=LoaderState(step=resume_at)))
+        resumed = [next(it2) for _ in range(steps - resume_at)]
+        return {"dp_rank": S.get_data_parallel_rank(), "first": first, "resumed": resumed}
+    finally:
+        S.destroy_model_parallel()
+
+
+# ---------------------------------------------------------------------------
+# the paged engine over a tp group
+# ---------------------------------------------------------------------------
+
+def _trace(eng):
+    return [
+        (pending, [(a.type.value, a.mode, a.meta.get("lag"), a.meta.get("lame_duck"),
+                    a.meta.get("in_flight")) for a in acts])
+        for _, pending, acts in eng.action_trace
+    ]
+
+
+def serve_worker(rank, world, tp, np_params, cfg_kw, engine_kw, cells, prompts, max_new):
+    """Each cell's paged engine at (tp, dp = world / tp) over the same
+    prompts: the streams, the action trace, the metrics the test reads and
+    the kernel gate's answers."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference import GenerationConfig, InferenceEngine
+    from neuronx_distributed_llama3_2_tpu_torch.inference.model import LlamaDecode
+    from neuronx_distributed_llama3_2_tpu_torch.models import llama as L
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+    from neuronx_distributed_llama3_2_tpu_torch.serving.engine import PagedConfig, PagedServingEngine
+
+    S.initialize_model_parallel(tensor_model_parallel_size=tp, device="cpu")
+    try:
+        cfg = dataclasses.replace(L.LLAMA_CONFIGS["tiny"], **cfg_kw)
+        model = L.LlamaForCausalLM(cfg, device="cpu")
+        model.load_state_dict(L.params_from_jax(np_params, cfg, device="cpu"))
+        dec = LlamaDecode(cfg)
+        odd = LlamaDecode(dataclasses.replace(cfg, num_heads=6, num_kv_heads=3))
+        out = {
+            "gate": dict(
+                t1=dec._paged_kernel_eligible(1, None),
+                tmax=dec._paged_kernel_eligible(cfg.paged_kernel_max_t, None),
+                past=dec._paged_kernel_eligible(cfg.paged_kernel_max_t + 1, None),
+                tree=dec._paged_kernel_eligible(cfg.paged_kernel_max_t, object()),
+                odd=odd._paged_kernel_eligible(1, None),
+            ),
+            "kv_heads": dec.kv_heads,
+            "cells": {},
+        }
+        if cells:
+            # the dense engine over the tp group: its cache holds this rank's
+            # kv heads, and every rank generates the same tokens
+            dense = InferenceEngine(cfg, model, **engine_kw)
+            res = dense.generate(prompts, GenerationConfig(max_new_tokens=max_new))
+            out["dense"] = dict(sequences=res.sequences, cache_heads=dense._cache.k.shape[3],
+                                cache_specs=dense.model.cache_specs())
+        from neuronx_distributed_llama3_2_tpu_torch.serving.faults import FaultInjector, FaultPlan
+
+        for name, paged_kw in cells.items():
+            paged_kw = dict(paged_kw)
+            plan = paged_kw.pop("_fault_plan", None)
+            # a rank-local difference (a clock reading, say) planted on rank 1
+            paged_kw.update(paged_kw.pop("_rank1_paged", {}) if rank == 1 else {})
+            paged_kw.pop("_rank1_paged", None)
+            eng = PagedServingEngine(
+                InferenceEngine(cfg, model, **engine_kw),
+                GenerationConfig(max_new_tokens=max_new), PagedConfig(**paged_kw),
+                injector=FaultInjector(FaultPlan(**plan)) if plan else None,
+            )
+            for p in prompts:
+                eng.submit(p)
+            levels = []
+            while eng.step():
+                levels.append(eng._degrade_level)
+            streams = {rid: r.out for rid, r in sorted(eng._finished.items())}
+            m = eng.metrics
+            out["cells"][name] = dict(
+                levels=levels, status=[eng.request_info(r)["status"] for r in sorted(streams)],
+                streams=streams, trace=_trace(eng), tp_size=m.tp_size,
+                pool_bytes_per_rank=m.pool_bytes_per_rank, pool_bytes_total=m.pool_bytes_total,
+                pool_shape=tuple(eng.cache.k.shape), paths=dict(eng.model.attention_paths),
+                verify_steps=m.verify_steps, accepted=m.accepted_tokens,
+                async_steps=m.decode_steps_async, leaks=eng.allocator.leak_check(),
+            )
+        return out
+    finally:
+        S.destroy_model_parallel()
