@@ -254,11 +254,24 @@ gathered gradients to the tp = 1 step within the train bands, with and
 without sequence parallelism (K1-K3 launched 32 / 16 / 16 times a rank,
 held at the rank's shape), a
 row-parallel layer without its all-reduce must fall outside them, and a
-dp = 2 ZeRO-1 step halves each rank's fp32 state. To keep the script
-inside its limit the eager serves' profiles, the async twins' profiles,
-the timing of the bf16 K4 grid and of the tree cases no serve launched
-are left out, and a timing window is 25 calls (it was 50); every check
-stays.
+dp = 2 ZeRO-1 step halves each rank's fp32 state. Context parallelism
+after it: "cp2 train" runs the train step through
+``TrainingConfig(context_parallel_size=2)`` on two ranks on the card over
+gloo (the ring rotating by an all-gather: gloo's point-to-point refuses
+CUDA tensors), in the contiguous and the zigzag layout, each step's loss
+and the gradients summed over cp within the train bands of the cp = 1
+step, K1-K3 launched as the ring implies on each rank (``CP_LAUNCHES``),
+and planted faults in each layout (a visiting chunk left out of the
+merge; the zigzag positions cut in contiguous order; the ring backward's
+dk / dv one hop short of home) outside them; the forward's loss with fp32
+chunk outputs and from a second seed witnesses the loss gap's cause; K1-K3
+are held and timed at the ring's chunk shapes. To keep the script inside
+its limit the eager serves' profiles, the async twins' profiles, the
+timing of the bf16 K4 grid and of the tree cases no serve launched, the
+spill phase's unwatched serves (``chip_trials/spill_restore_trial.py``
+times the restores) and two of the sampler's three timing windows are
+left out, and a timing window is 25 calls (it was 50); every check of the
+phases that remain stays.
 
 Every failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -3314,9 +3327,10 @@ def run_sampler_phase(cfg, model, card: str) -> dict:
             check(rel <= SAMPLER_TIE, f"sampler {name}: lane {lane} row {j} drew "
                   f"{got.reshape(b, -1)[lane, j]} on the card, {want.reshape(b, -1)[lane, j]} "
                   f"on the CPU, top two perturbed values {rel:.3g} apart (relative)")
+        # one window (timing depth cut for the cp phase's time)
         (ms,), wall = device_ms(
             lambda i: sample_lanes(lg, dev_args[0], index, *dev_args[1:]),
-            iters=10, windows=3)
+            iters=10, windows=1)
         nbytes = lg.numel() * lg.element_size() + b * t * 4
         out[name] = ms
         log(f"sampler {name}: (8, {t}, {v}) logits, {b * t} draws: card = CPU on "
@@ -4308,16 +4322,16 @@ def run_spill_phase(cfg, model, card: str) -> None:
     the scale tiles spilled and restored with the payloads, beside (d0),
     Q1's knobs on the resident pool; (e) the prewarmed async twin of (a),
     whose graphs read the restored blocks, beside (e0), the same twin with
-    spill off (device_wait_ms with and without the drains); (a1), (e1):
-    (a) and (e) without the spy, each restore's parts on the host clock
-    (``restore_breakdown``), beside (e2), the twin on Serve's pool; (f)
-    priced: (a) at restore_crossover 1.0, the port's restore rate and the
-    H100's peak deciding. (a), (a1), (d), (e), (e1) must spill and
-    restore every prefix block (bit for bit where the spy watches), and
-    K4's t1 and tile sources must read the restored blocks; their streams
-    equal (b)'s or (d0)'s, or first differ at a near tie (then within the
-    e2e margin); (c) within Serve's e2e margin; (e), (e1) capture nothing
-    after the freeze and launch K4 only from replays. Planted faults: a
+    spill off (device_wait_ms with and without the drains); (f) priced:
+    (a) at restore_crossover 1.0, the port's restore rate and the H100's
+    peak deciding. (a), (d), (e) must spill and restore every prefix block
+    bit for bit, and K4's t1 and tile sources must read the restored
+    blocks; their streams equal (b)'s or (d0)'s, or first differ at a near
+    tie (then within the e2e margin); (c) within Serve's e2e margin; (e)
+    captures nothing after the freeze and launches K4 only from replays.
+    (The restores unwatched, each restore's parts on the host clock, are
+    ``chip_trials/spill_restore_trial.py``'s: this phase's timing depth was
+    cut for the cp phase's time.) Planted faults: a
     restore writing V's payload into K (bf16) and one leaving the fresh
     block's scale tiles as they were (int8) must read above their margins
     on the re-hits. Logs the host link's per-block rates and the restore
@@ -4366,22 +4380,6 @@ def run_spill_phase(cfg, model, card: str) -> None:
     e0 = churn_serve(cfg, model, "(e0) prewarmed async twin, spill off",
                      **dict(twin, spill_enabled=False, host_tier_bytes=0,
                             restore_crossover=1.0))
-    # the restores as a user runs them: no spy, no tracer, each restore's
-    # parts on the host clock
-    a1 = churn_serve(cfg, model, "(a1) spill, unwatched", spy=False, breakdown=True,
-                     **SPILL_KNOBS)
-    check_restored(a1)
-    e1 = churn_serve(cfg, model, "(e1) prewarmed async twin, unwatched", spy=False,
-                     breakdown=True, **twin)
-    check_restored(e1)
-    check(e1["serve_launches"] == 0 and e1["steadystate_compiles"] == 0,
-          f"spill (e1): K4 launches in the serve {e1['serve_launches']}")
-    e2 = churn_serve(cfg, model, "(e2) prewarmed async twin, resident",
-                     prewarm=True, async_loop=True)
-    for r in (a1, e1):
-        if same_streams(f"spill {r['label']}", model, prompts, r["outs"], b["outs"], rids):
-            check(gaps(r["outs"], rids) <= E2E_LOGIT_MARGIN,
-                  f"spill {r['label']}: e2e gap past the margin")
     f = churn_serve(cfg, model, "(f) priced", spy=False,
                     **dict(SPILL_KNOBS, restore_crossover=1.0))
     check(len(f["prices"]) >= 1, f"spill (f): no spilled run was priced {f['prices']}")
@@ -4406,13 +4404,6 @@ def run_spill_phase(cfg, model, card: str) -> None:
         f"{E2E_LOGIT_MARGIN}); the first re-hit's TTFT (a) {a['rehit_ttft']:.6f} ms, (c) "
         f"{c['rehit_ttft']:.6f} ms, (d) {d['rehit_ttft']:.6f}, (e) {e['rehit_ttft']:.6f} ms | "
         f"{card}")
-    for r, plain, resident in ((a1, c, b), (e1, e0, e2)):
-        ms = r["parts"]["total_ms"]
-        log(f"spill {r['label']}: the first re-hit's TTFT {r['rehit_ttft']:.6f} ms against "
-            f"{plain['rehit_ttft']:.6f} ms re-prefilling ({plain['label']}) and "
-            f"{resident['rehit_ttft']:.6f} ms resident ({resident['label']}); the restore "
-            f"path {r['restore_bytes']} bytes in {ms:.6f} ms on the host clock = "
-            f"{r['restore_bytes'] / ms / 1e6:.6f} GB/s effective | {card}")
     log(f"spill: the async twin's device_wait_ms {e['wait_ms']:.6f} with spill (its drains "
         f"{e['drain_s'] * 1e3:.6f} ms, {e['blocks_spilled']} blocks) against "
         f"{e0['wait_ms']:.6f} without, wall {e['wall']:.6f} against {e0['wall']:.6f} s | {card}")
@@ -5066,13 +5057,19 @@ LSE_TOL = 1e-4
 #   much again, a few thousandths in all.
 TILE_REL_L2 = 1e-2
 TILE = 64
-# the kernel phase's planted fault, at the train shape: kernels that leave
-# out the kv rows FAULT_KV for the q rows FAULT_Q (one 64 x 64 tile: one
-# warpgroup's share of a K1 or K2 kv tile, one step of a K3 warpgroup's
-# walk): 64 of the ~2000 keys of those q rows, 64 of the 1024 queries of
-# those kv rows. The check must reject every output the fault touches
-FAULT_Q = (1984, 2048)
-FAULT_KV = (1024, 1088)
+# the kernel phase's planted fault, at its first case's S: kernels that
+# leave out the kv rows of ``fault_tile(S)`` for its q rows (one 64 x 64
+# tile: one warpgroup's share of a K1 or K2 kv tile, one step of a K3
+# warpgroup's walk): at the train shape (S 2048) q rows 1984-2047 and kv
+# rows 1024-1087, 64 of the ~2000 keys of those q rows, 64 of the 1024
+# queries of those kv rows. The check must reject every output the fault
+# touches
+
+
+def fault_tile(s: int) -> tuple:
+    """(q rows, kv rows) of the planted tile fault at sequence length s:
+    the last q tile, the kv tile at the middle."""
+    return (s - TILE, s), (s // 2, s // 2 + TILE)
 
 
 def flash_bound(b, n, nkv, s, d, causal, k: int, segment_ids=None):
@@ -5201,7 +5198,7 @@ def _plain_mask(mask_of):
         fa._mask = inner
 
 
-def plain_skips_tile(q_rows=FAULT_Q, kv_rows=FAULT_KV):
+def plain_skips_tile(q_rows, kv_rows):
     """While the block runs, the plain versions leave out the (q, kv) pairs
     of q_rows x kv_rows, as a kernel that skipped that tile would."""
     def mask_of(inner):
@@ -5324,8 +5321,9 @@ def run_flash_kernel_phase(card: str, packed: bool = False, cases=None) -> dict:
                           ("the segment compare only on crossing tiles", seg,
                            plain_segments_on_crossing_tiles_only()))
             else:
-                faults = ((f"kv rows {FAULT_KV} left out for q rows {FAULT_Q}", None,
-                           plain_skips_tile()),
+                q_rows, kv_rows = fault_tile(s)
+                faults = ((f"kv rows {kv_rows} left out for q rows {q_rows}", None,
+                           plain_skips_tile(q_rows, kv_rows)),
                           ("the causal diagonal masked with col < row", None,
                            plain_misses_diagonal()))
             for fault, bad_seg, planted_mask in faults:
@@ -6449,6 +6447,286 @@ def run_tp_train_phase(card: str) -> dict:
     return outs[0]
 
 
+# -- 6b. context parallelism ---------------------------------------------------------
+#
+# cp = 2 at tp = 1 as two processes on the card over gloo, whose
+# point-to-point refuses CUDA tensors: the ring rotates by an all-gather over
+# the cp group (``parallel.mappings.ring_transport``; PERF.md section 6, PR
+# 21). Times over gloo are gloo's host copies.
+
+CP_LAYOUTS = ("contiguous", "zigzag")
+#: (K1, K2, K3) launches on (rank 0, rank 1) in one cp = 2 train step of the
+#: 16-layer model under remat "full" (the forward twice, the backward once),
+#: by layout. Contiguous: rank 0's visiting chunk is in the future, so it
+#: runs only its resident causal chunk (1 forward and 1 backward pair a
+#: layer); rank 1 runs its resident chunk and rank 0's, in the past (2
+#: each). Zigzag: every rank runs its three resident half-chunk pairs (early
+#: causal, late causal, late x early) and two a visit (5 each)
+CP_LAUNCHES = {
+    "contiguous": ((32, 16, 16), (64, 32, 32)),
+    "zigzag": ((160, 80, 80), (160, 80, 80)),
+}
+#: K1-K3 at the ring's chunk shapes of the 1B at batch 2 x 2048, cp = 2:
+#: contiguous chunks of 1024 (the resident causal call, the visiting full
+#: one), zigzag half-chunks of 512 (the causal resident halves, the full
+#: pairs); the planted tile faults run at each first case
+CP_FLASH_CASES = {
+    "contiguous": (("cp2 contiguous chunk, causal", E2E_BATCH, 32, 8, 1024, 64, True, 10),
+                   ("cp2 contiguous chunk, full", E2E_BATCH, 32, 8, 1024, 64, False, 10)),
+    "zigzag": (("cp2 zigzag half-chunk, causal", E2E_BATCH, 32, 8, 512, 64, True, 10),
+               ("cp2 zigzag half-chunk, full", E2E_BATCH, 32, 8, 512, 64, False, 10)),
+}
+
+
+@contextlib.contextmanager
+def step_gradients(read):
+    """While the block runs, ``read(grads)`` sees the gradients each train
+    step hands to AdamW: summed over cp (and dp), divided by the step's
+    token count."""
+    from neuronx_distributed_llama3_2_tpu_torch.trainer import trainer as tr
+
+    inner = tr.apply_gradients
+
+    def spy(state, grads, *args, **kwargs):
+        read(grads)
+        return inner(state, grads, *args, **kwargs)
+
+    tr.apply_gradients = spy
+    try:
+        yield
+    finally:
+        tr.apply_gradients = inner
+
+
+@contextlib.contextmanager
+def visiting_chunk_dropped():
+    """A planted fault: the kernel ring's merge keeps the running output,
+    so every visiting chunk is left out of it (the contiguous ring merges
+    nothing else)."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import ring_attention_pallas as rap
+
+    inner = rap._merge
+    rap._merge = lambda o1, lse1, o2, lse2: (o1, lse1)
+    try:
+        yield
+    finally:
+        rap._merge = inner
+
+
+@contextlib.contextmanager
+def home_hop_left_out(ring):
+    """A planted fault in the backward of the kernel ring ``ring``
+    (``_RingFlash`` or ``_ZigzagFlash``): the dk / dv accumulators stop one
+    hop short of home (the last hop undone), so each rank takes its
+    neighbour's dk / dv."""
+    from neuronx_distributed_llama3_2_tpu_torch.parallel.mappings import ring_shift
+
+    inner = ring.__dict__["backward"]
+
+    def faulty(ctx, do):
+        dq, dk, dv, *rest = inner.__func__(ctx, do)
+        dkv = ring_shift(torch.stack((dk, dv)), ctx.group, -1)
+        return (dq, dkv[0], dkv[1], *rest)
+
+    ring.backward = staticmethod(faulty)
+    try:
+        yield
+    finally:
+        ring.backward = inner
+
+
+@contextlib.contextmanager
+def chunk_outputs_in_fp32():
+    """A witness, not a fault: each ring chunk's output from K1's plain
+    version on fp32 queries, so it reaches the lse merge unrounded (K1
+    rounds it to bf16 first); P is still rounded to V's bf16, as in K1."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import ring_attention_pallas as rap
+    from neuronx_distributed_llama3_2_tpu_torch.kernels.flash_attention import (
+        flash_fwd_reference,
+    )
+
+    inner = rap._fwd_chunk
+    rap._fwd_chunk = lambda q, kc, vc, causal, sm_scale, block_q, block_kv: \
+        flash_fwd_reference(q.float(), kc, vc, None, causal, sm_scale)
+    try:
+        yield
+    finally:
+        rap._fwd_chunk = inner
+
+
+@contextlib.contextmanager
+def positions_in_contiguous_order(model):
+    """A planted fault: under zigzag the tokens are permuted into the ring's
+    layout but their positions (RoPE's) are cut in contiguous order."""
+    inner = model._cp_inputs
+
+    def faulty(ids, positions, plan):
+        return inner(ids, positions, plan)[0], inner(ids, positions, plan._replace(perm=None))[1]
+
+    model._cp_inputs = faulty
+    try:
+        yield
+    finally:
+        del model._cp_inputs
+
+
+def cp_train_rank(rank: int, nproc: int, card: str) -> dict:
+    """A rank of the cp = 2 train phase: the 1B at full width and depth,
+    train_configs' step (flash attention, remat full, CE chunked at 256,
+    AdamW bf16 state) on bench's batch cut to E2E_BATCH x 2048. Rank 0 takes
+    the tp = 1 step's loss and gradients first (no mesh). Then through the
+    trainer's entry points (``TrainingConfig(context_parallel_size=2)``,
+    ``initialize_parallel_model``, ``make_train_step``), in each layout one
+    step from SEED's weights: its loss within LOSS_BAND of the cp = 1 loss,
+    the gradients it hands to AdamW (summed over cp) within GRAD_BAND
+    (``grad_gap``), K1 / K2 / K3 launched as CP_LAUNCHES says on each rank;
+    then the same step through a planted fault (contiguous: every visiting
+    chunk left out of the merge; zigzag: the positions cut in contiguous
+    order), which must fall outside the bands, and through the ring's
+    backward with dk / dv one hop short of home, whose gradients must fall
+    outside GRAD_BAND; and, as witnesses of the loss gap's cause, the
+    forward's loss with K1's bf16 chunk outputs, with fp32 ones (K1's
+    plain version) and from a second seed's weights. Rank 0 then holds K1-K3
+    against their plain versions at the ring's chunk shapes
+    (CP_FLASH_CASES) while rank 1 waits."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_llama3_2_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as ps
+    from neuronx_distributed_llama3_2_tpu_torch.parallel.mappings import ring_transport
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import flash_attention as fa
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import ring_attention_pallas as rap
+    from neuronx_distributed_llama3_2_tpu_torch.trainer import (
+        TrainingConfig,
+        initialize_parallel_model,
+        make_train_step,
+    )
+
+    cfg, tc1 = train_configs()
+    batch = train_batch(cfg, E2E_BATCH)
+    ref_loss = ref_grads = ref_loss_b = None
+    if rank == 0:
+        ref_model = LlamaForCausalLM(cfg, device="cuda").init_weights(SEED)
+        ref_loss, ref_grads = loss_and_grads(ref_model, batch)
+        with torch.no_grad():  # the loss gap witness's second seed
+            ref_loss_b = float(ref_model.init_weights(SEED + 1).loss(batch["input_ids"],
+                                                                     batch["labels"]))
+        del ref_model
+        torch.cuda.empty_cache()
+    tc = TrainingConfig(context_parallel_size=2, optimizer=tc1.optimizer)
+    tc.initialize("cuda")
+    out = dict(launches={}, flash={})
+    try:
+        transport = ring_transport(ps.get_context_parallel_group())
+        rank_log(rank, f"cp2 train: two ranks over {dist.get_backend()} on one card, the ring's "
+                 f"transport {transport!r} (gloo's send / recv refuses CUDA tensors) | {card}")
+
+        def one_step(model, step, fault=contextlib.nullcontext()):
+            seen = {}
+
+            def read(grads):
+                if rank == 0:
+                    seen["gap"] = grad_gap(grads, ref_grads)
+
+            state, _ = initialize_parallel_model(model, tc, key=SEED)
+            for c in (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches):
+                c.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with fault, step_gradients(read):
+                state, m = step(state, batch)
+            loss = float(m["loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+            del state
+            return loss, seen.get("gap", (0.0, "")), flash_counts(), ms
+
+        for layout in CP_LAYOUTS:
+            model = LlamaForCausalLM(dataclasses.replace(cfg, cp_ring_layout=layout),
+                                     device="cuda")
+            step = make_train_step(model, tc)
+            loss, (gap, at), launches, ms = one_step(model, step)
+            want = CP_LAUNCHES[layout][rank]
+            check(launches == want, f"cp2 {layout} rank {rank}: (K1, K2, K3) launches "
+                  f"{launches}, want {want}")
+            both = [None, None]
+            dist.all_gather_object(both, (loss, launches))
+            check(both[0][0] == both[1][0], f"cp2 {layout}: the ranks' losses differ {both}")
+            out["launches"][layout] = tuple(sum(x) for x in zip(both[0][1], both[1][1]))
+            if rank == 0:
+                loss_gap = abs(loss - ref_loss)
+                log(f"cp2 {layout} train: loss {loss:.6f} against {ref_loss:.6f} at cp = 1 "
+                    f"(gap {loss_gap:.6g}, band {LOSS_BAND}); the gradients summed over cp, "
+                    f"largest relative L2 error {gap:.6g} at {at} (band {GRAD_BAND}); the step "
+                    f"{ms:.6f} ms over {transport} (forward, backward, the gradients' "
+                    f"all-reduce over gloo, AdamW); (K1, K2, K3) launches rank 0 {both[0][1]}, "
+                    f"rank 1 {both[1][1]} | {card}")
+                check(np.isfinite(loss) and loss_gap <= LOSS_BAND,
+                      f"cp2 {layout} train loss gap {loss_gap}")
+                check(gap <= GRAD_BAND, f"cp2 {layout} train gradient gap {gap} at {at}")
+            if layout == "contiguous":
+                # the loss band rejects this one: the forward alone, from
+                # SEED's weights (no gradients, no all-reduce over gloo)
+                label = "every visiting chunk left out of the merge"
+                model.init_weights(SEED)
+                with torch.no_grad(), visiting_chunk_dropped():
+                    bad_loss = float(model.loss(batch["input_ids"], batch["labels"]))
+                bad_gap, bad_at = float("nan"), "(forward only)"
+            else:
+                label = "the positions cut in contiguous order"
+                bad_loss, (bad_gap, bad_at), _, _ = one_step(
+                    model, step, positions_in_contiguous_order(model))
+                bad_at = f"at {bad_at}"
+            if rank == 0:
+                bad_loss_gap = abs(bad_loss - ref_loss)
+                log(f"cp2 {layout} train planted fault ({label}): loss gap {bad_loss_gap:.6g}, "
+                    f"gradient {bad_gap:.6g} {bad_at} (bands {LOSS_BAND}, {GRAD_BAND})")
+                check(bad_loss_gap > LOSS_BAND or bad_gap > GRAD_BAND,
+                      f"the cp2 {layout} train bands pass a planted fault ({label})")
+            # the ring's backward: dk / dv one hop short of home
+            ring = rap._ZigzagFlash if layout == "zigzag" else rap._RingFlash
+            _, (bad_gap, bad_at), _, _ = one_step(model, step, home_hop_left_out(ring))
+            # witnesses of the loss gap's cause, the forward alone: K1's bf16
+            # chunk outputs, fp32 ones, and a second seed's weights
+            with torch.no_grad():
+                model.init_weights(SEED)
+                fwd_loss = float(model.loss(batch["input_ids"], batch["labels"]))
+                with chunk_outputs_in_fp32():
+                    f32_loss = float(model.loss(batch["input_ids"], batch["labels"]))
+                model.init_weights(SEED + 1)
+                loss_b = float(model.loss(batch["input_ids"], batch["labels"]))
+            if rank == 0:
+                log(f"cp2 {layout} train planted fault (the backward's dk / dv one hop short "
+                    f"of home): gradient {bad_gap:.6g} at {bad_at} (band {GRAD_BAND})")
+                check(bad_gap > GRAD_BAND,
+                      f"the cp2 {layout} gradient band passes dk / dv one hop short of home "
+                      f"({bad_gap})")
+                log(f"cp2 {layout} loss gap witness, the forward alone: chunk outputs bf16 "
+                    f"(K1) {abs(fwd_loss - ref_loss):.6g}, fp32 (K1's plain version) "
+                    f"{abs(f32_loss - ref_loss):.6g}; seed {SEED + 1}'s weights, bf16 "
+                    f"{abs(loss_b - ref_loss_b):.6g} (band {LOSS_BAND}) | {card}")
+                check(np.isfinite(f32_loss), f"cp2 {layout} fp32-chunk loss {f32_loss}")
+            del model, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        if rank == 0:
+            del ref_grads
+            gc.collect()
+            torch.cuda.empty_cache()
+            for layout in CP_LAYOUTS:
+                out["flash"][layout] = run_flash_kernel_phase(card, cases=CP_FLASH_CASES[layout])
+        dist.barrier()
+    finally:
+        ps.destroy_model_parallel()
+    return out
+
+
+def run_cp_train_phase(card: str) -> dict:
+    outs = tp_spawn(cp_train_rank, card)
+    check(outs[0]["launches"] == outs[1]["launches"],
+          f"cp2 train: launches {outs[0]['launches']} / {outs[1]['launches']}")
+    return outs[0]
+
+
 def timed(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its wall seconds logged under ``name``."""
     t0 = time.perf_counter()
@@ -6683,6 +6961,9 @@ def main() -> int:
     timed("tp nccl", run_tp_nccl_phase, prompts, [outs[r] for r in rids], card)
     tp_serve = timed("tp2 serve", run_tp_serve_phase, prompts, [outs[r] for r in rids], card)
     tp_train = timed("tp2 train", run_tp_train_phase, card)
+    # context parallelism: the cp = 2 train step on two ranks over gloo, in
+    # both ring layouts
+    cp_train = timed("cp2 train", run_cp_train_phase, card)
 
     fa_src = "neuronx_distributed_llama3_2_tpu_torch/kernels/csrc/"
     pfa = "neuronx_distributed_llama3_2_tpu/kernels/pallas_flash_attention.py:"
@@ -6732,9 +7013,10 @@ def main() -> int:
         name="paged_decode_tree", route="cuda", source=fa_src + "paged_decode_tile.cu",
         replaces=k4, launches=t_tree_launches, **tree,
     ))
-    for kn, name, src, line in ((1, "flash_fwd", "flash_fwd.cu", 194),
-                                (2, "flash_bwd_dq", "flash_bwd.cu", 394),
-                                (3, "flash_bwd_dkv", "flash_bwd.cu", 433)):
+    flash_kernels = ((1, "flash_fwd", "flash_fwd.cu", 194),
+                     (2, "flash_bwd_dq", "flash_bwd.cu", 394),
+                     (3, "flash_bwd_dkv", "flash_bwd.cu", 433))
+    for kn, name, src, line in flash_kernels:
         kernels.append(dict(
             name=name, route="cuda", source=fa_src + src, replaces=f"{pfa}{line}",
             launches=train_launches[kn - 1], **flash[kn],
@@ -6751,14 +7033,21 @@ def main() -> int:
             name=f"paged_decode_{src}_tp2_rank", route="cuda", source=fa_src + file,
             replaces=k4, **tp_serve["records"][src],
         ))
-    for kn, name, src, line in ((1, "flash_fwd", "flash_fwd.cu", 194),
-                                (2, "flash_bwd_dq", "flash_bwd.cu", 394),
-                                (3, "flash_bwd_dkv", "flash_bwd.cu", 433)):
+    for kn, name, src, line in flash_kernels:
         kernels.append(dict(
             name=f"{name}_tp2_rank", route="cuda", source=fa_src + src,
             replaces=f"{pfa}{line}", launches=tp_train["launches"][kn - 1],
             **tp_train["flash"][kn],
         ))
+    # K1-K3 in the cp = 2 ring: both ranks' launches in one step of each
+    # layout, rank 0's records at the layout's chunk shape (CP_FLASH_CASES)
+    for layout in CP_LAYOUTS:
+        for kn, name, src, line in flash_kernels:
+            kernels.append(dict(
+                name=f"{name}_cp2_{layout}", route="cuda", source=fa_src + src,
+                replaces=f"{pfa}{line}", launches=cp_train["launches"][layout][kn - 1],
+                **cp_train["flash"][layout][kn],
+            ))
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the main path was never launched: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

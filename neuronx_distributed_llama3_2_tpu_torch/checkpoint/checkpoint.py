@@ -700,7 +700,9 @@ def _load_parts(storage: BaseCheckpointStorage, tag: str, kind: str, template: A
             if tuple(arr.shape) != tuple(tmpl.shape):
                 raise ValueError(f"shape mismatch for {key}: region {tuple(arr.shape)} vs "
                                  f"template {tuple(tmpl.shape)}")
-            return _torch_of(arr, bf16).to(device=tmpl.device, dtype=tmpl.dtype)
+            # a copy: a whole-file entry's region is a view of its read-only
+            # memory map, which the caller's in-place updates must not reach
+            return _torch_of(arr, bf16).to(device=tmpl.device, dtype=tmpl.dtype, copy=True)
         if isinstance(tmpl, (bool, int, float)):
             return type(tmpl)(arr)
         return np.asarray(arr, dtype=np.asarray(tmpl).dtype)

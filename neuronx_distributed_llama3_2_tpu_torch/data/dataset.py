@@ -145,7 +145,8 @@ class DistributedDataLoader:
 
     def rows(self) -> Optional[slice]:
         """This process's rows of each global batch: its dp rank's block
-        (None, the whole batch, on one process)."""
+        (None, the whole batch, on one process); the tp and cp ranks of one
+        dp rank read the same rows."""
         if world_size() == 1:
             return None
         if not parallel_state.model_parallel_is_initialized():

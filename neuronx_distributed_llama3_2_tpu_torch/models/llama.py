@@ -20,8 +20,14 @@ it) split along the vocab, the norms replicated. Under sequence
 parallelism the norms and residual adds run on sequence shards (the
 embedding reduce-scatters, each column-parallel product all-gathers the
 sequence, each row-parallel one reduce-scatters it), and attention, K1-K3
-with ``use_flash_attention``, sees the whole sequence. Context, pipeline
-and expert parallelism wait for later slices (``ROADMAP.md``).
+with ``use_flash_attention``, sees the whole sequence. Under context
+parallelism (a mesh with cp > 1) each cp rank holds one chunk of every
+sequence: the tokens, their positions and the shifted labels are permuted
+once into the ring's layout (``cp_ring_layout``) and cut before the
+embedding, attention is the ring over the cp group
+(:mod:`..kernels.ring_attention`), and the loss sums and token counts are
+all-reduced over cp. Pipeline and expert parallelism wait for later slices
+(``ROADMAP.md``).
 
 Training runs :meth:`LlamaForCausalLM.loss` (the chunked cross-entropy of
 ``loss_chunk_size``, vocab-parallel under tp) and the flash-attention
@@ -43,15 +49,18 @@ the config's remat policy (JAX ``_remat_policy``), through
 The flash kernels are launched through ctypes inside an autograd function,
 which selective checkpointing cannot keep: under every policy that does
 not keep the attention output its forward (K1) runs again in the backward
-(``FLASH_FWD_PER_LAYER``).
+(``FLASH_FWD_PER_LAYER``). A checkpointed segment's recompute runs after
+the forward has left the cp layout's declaration, so it re-enters the
+layout the forward ran under (:func:`_checkpoint`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,12 +69,23 @@ from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
+    noop_context_fn,
 )
 
 from neuronx_distributed_llama3_2_tpu_torch.kernels.flash_attention import (
     DEFAULT_BLOCK_KV,
     DEFAULT_BLOCK_Q,
     flash_attention,
+)
+from neuronx_distributed_llama3_2_tpu_torch.kernels.ring_attention import (
+    active_cp_layout,
+    cp_layout,
+    cp_layout_from_inv,
+    resolve_cp_layout,
+)
+from neuronx_distributed_llama3_2_tpu_torch.kernels.ring_attention_pallas import (
+    ring_attention_pallas,
+    zigzag_permutation,
 )
 from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
 from neuronx_distributed_llama3_2_tpu_torch.parallel.layers import (
@@ -86,11 +106,15 @@ from neuronx_distributed_llama3_2_tpu_torch.parallel.layout import (
 )
 from neuronx_distributed_llama3_2_tpu_torch.parallel.mappings import (
     all_gather,
+    all_reduce,
     copy_to_tensor_model_parallel_region,
     gather_from_sequence_parallel_region,
     gather_from_tensor_model_parallel_region,
+    reduce_from_tensor_model_parallel_region,
+    split,
 )
 from neuronx_distributed_llama3_2_tpu_torch.parallel.loss import (
+    IGNORE_INDEX,
     fused_linear_cross_entropy,
     parallel_cross_entropy,
     valid_token_mask,
@@ -147,6 +171,12 @@ class LlamaConfig:
     norm_bias: bool = False
     # clamp Q/K/V projections to [-clip_qkv, clip_qkv] (DBRX)
     clip_qkv: Optional[float] = None
+    # the cp ring's sequence layout: "auto" (zigzag on the card when the
+    # sequence splits into 2·cp halves, which balances the causal work over
+    # the ring; contiguous on the CPU), "contiguous" or "zigzag" (forced).
+    # The model permutes its tokens once outside the layer stack and the
+    # attention layers read the layout it declared
+    # (kernels.ring_attention.resolve_cp_layout)
     cp_ring_layout: str = "auto"
 
     def __post_init__(self):
@@ -161,6 +191,10 @@ class LlamaConfig:
         if self.norm_type not in ("rmsnorm", "layernorm"):
             raise ValueError(
                 f"norm_type must be rmsnorm|layernorm, got {self.norm_type!r}"
+            )
+        if self.cp_ring_layout not in ("auto", "contiguous", "zigzag"):
+            raise ValueError(
+                f"cp_ring_layout must be auto|contiguous|zigzag, got {self.cp_ring_layout!r}"
             )
 
 
@@ -409,10 +443,18 @@ class LlamaAttention(nn.Module):
 
     def attend(self, q, k, v) -> torch.Tensor:
         """Causal attention of the post-RoPE q, k, v -> (b, s, N*D), the
-        attention output (JAX's ``attn_out``)."""
+        attention output (JAX's ``attn_out``). Under context parallelism q,
+        k, v are this rank's chunk of the sequence (a kv head repeated past
+        the kv heads under tp is gathered over tp along the heads alone, so
+        the sequence stays split over cp) and attention is the ring over the
+        cp group, in the layout the backbone declared: the kernel ring (K1-K3
+        on the card, their plain versions on the CPU)."""
         c = self.config
         b, s = q.shape[:2]
-        if c.use_flash_attention:
+        if parallel_state.context_parallel_size_or(1) > 1:
+            attn = ring_attention_pallas(q, k, v, parallel_state.get_context_parallel_group(),
+                                         causal=True, zigzag=active_cp_layout() == "zigzag")
+        elif c.use_flash_attention:
             attn = flash_attention(
                 q, k, v, causal=True,
                 block_q=c.flash_block_q or DEFAULT_BLOCK_Q,
@@ -494,6 +536,34 @@ def _save_ops_policy(ops):
 FLASH_FWD_PER_LAYER = {"none": 1, "full": 2, "selective": 2, "dots": 2, "hybrid": 1, "kv": 2}
 
 
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
+
+
+def _checkpoint(fn, *args, context_fn=noop_context_fn):
+    """``torch.utils.checkpoint`` (non-reentrant) whose recompute, which
+    the backward runs outside the backbone's ``cp_layout`` block, re-enters
+    the cp layout active at the forward."""
+    layout = active_cp_layout()
+
+    def contexts():
+        forward_ctx, recompute_ctx = context_fn()
+        return forward_ctx, _both(recompute_ctx, cp_layout(layout))
+
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
+
+
+class CpPlan(NamedTuple):
+    """How a (B, S) batch sits on the cp ranks: the cp group, and the
+    zigzag permutation and its inverse (None for the contiguous layout)."""
+
+    group: Any
+    perm: Optional[torch.Tensor]
+    inv: Optional[torch.Tensor]
+
+
 # ---------------------------------------------------------------------------
 # Decoder layer / model
 # ---------------------------------------------------------------------------
@@ -541,11 +611,11 @@ class LlamaDecoderLayer(nn.Module):
                 q, k, v = a.project_qkv(self.attn_norm(x))
                 return rope(q), rope(k), v
 
-            q, k, v = checkpoint(qkv, x, use_reentrant=False)
+            q, k, v = _checkpoint(qkv, x)
             if a.config.use_flash_attention:
                 attn = a.attend(q, k, v)
             else:  # the scores are recomputed, from the kept q, k, v
-                attn = checkpoint(a.attend, q, k, v, use_reentrant=False)
+                attn = _checkpoint(a.attend, q, k, v)
         else:
             def kv(x):
                 h = self.attn_norm(x)
@@ -554,9 +624,9 @@ class LlamaDecoderLayer(nn.Module):
             def q_attend(x, k, v):
                 return a.attend(rope(a.project(self.attn_norm(x), "q")), k, v)
 
-            k, v = checkpoint(kv, x, use_reentrant=False)
-            attn = checkpoint(q_attend, x, k, v, use_reentrant=False)
-        return checkpoint(self._rest, x, attn, use_reentrant=False)
+            k, v = _checkpoint(kv, x)
+            attn = _checkpoint(q_attend, x, k, v)
+        return _checkpoint(self._rest, x, attn)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -624,22 +694,63 @@ class LlamaForCausalLM(nn.Module):
             kw["context_fn"] = functools.partial(
                 create_selective_checkpoint_contexts, _save_ops_policy(_SAVED_OPS[remat])
             )
-        return checkpoint(layer, x, sin, cos, positions, use_reentrant=False, **kw)
+        return _checkpoint(layer, x, sin, cos, positions, **kw)
 
-    def _backbone(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """Embed + decoder stack + final norm -> hidden states (B, S, H).
-        While autograd records, each layer runs under ``config.remat``; the
-        serving and eval forward (no autograd) keeps nothing either way."""
+    def _cp_plan(self, s: int, device) -> Optional[CpPlan]:
+        """The layout of a length-``s`` sequence over the live cp group
+        (JAX ``_zigzag_enter``'s decision, ``resolve_cp_layout`` on the
+        config's ``cp_ring_layout``); None at cp = 1."""
+        cp = parallel_state.context_parallel_size_or(1)
+        if cp == 1:
+            return None
+        if s % cp:
+            raise ValueError(f"sequence length {s} not divisible by cp={cp}")
+        layout = resolve_cp_layout(s, cp, causal=True, force=self.config.cp_ring_layout,
+                                   device=device)
+        perm = inv = None
+        if layout == "zigzag":
+            perm, inv = zigzag_permutation(s, cp, device=device)
+        return CpPlan(parallel_state.get_context_parallel_group(), perm, inv)
+
+    @staticmethod
+    def _cp_take(t: torch.Tensor, plan: Optional[CpPlan]) -> torch.Tensor:
+        """This rank's part of a (B, S, ...) tensor: permuted into the
+        plan's layout, then the rank's contiguous chunk."""
+        if plan is None:
+            return t
+        if plan.perm is not None:
+            t = t.index_select(1, plan.perm)
+        return split(t, 1, plan.group)
+
+    def _cp_inputs(self, input_ids, positions, plan: Optional[CpPlan]):
+        """This rank's token ids and their (global) positions."""
+        return self._cp_take(input_ids, plan), self._cp_take(positions, plan)
+
+    def _cp_labels(self, labels: torch.Tensor, plan: CpPlan) -> torch.Tensor:
+        """This rank's labels: shifted once over the whole sequence (label s
+        + 1 at position s, IGNORE_INDEX at the last), then permuted and cut
+        as the ids are."""
+        pad = torch.full_like(labels[:, :1], IGNORE_INDEX)
+        return self._cp_take(torch.cat([labels[:, 1:], pad], dim=1), plan)
+
+    def _backbone(self, input_ids: torch.Tensor, plan: Optional[CpPlan] = None) -> torch.Tensor:
+        """Embed + decoder stack + final norm -> hidden states (B, S, H),
+        or under context parallelism (``plan``) this rank's (B, S/cp, H)
+        chunk in the plan's layout. While autograd records, each layer runs
+        under ``config.remat``; the serving and eval forward (no autograd)
+        keeps nothing either way."""
         c = self.config
         remat = c.remat if torch.is_grad_enabled() else "none"
         b, s = input_ids.shape
         positions = torch.arange(s, device=input_ids.device).expand(b, s)
         sin, cos = self._rope(s)
+        input_ids, positions = self._cp_inputs(input_ids, positions, plan)
         # under SP the embedding reduce-scatters along the sequence and the
         # layers run on sequence shards; attention sees the whole sequence
         x = self.embed(input_ids, sequence_parallel=self.sequence_parallel)
-        for layer in self.layers:
-            x = self._layer(layer, remat, x, sin, cos, positions)
+        with cp_layout_from_inv(plan.inv if plan is not None else None):
+            for layer in self.layers:
+                x = self._layer(layer, remat, x, sin, cos, positions)
         x = self.final_norm(x)
         if self.sequence_parallel:
             # leave the SP region; the LM head's input region sums the
@@ -663,34 +774,58 @@ class LlamaForCausalLM(nn.Module):
     @torch.no_grad()
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """Full logits (B, S, V), without autograd: the serving and eval
-        forward. Training goes through :meth:`loss`."""
-        return self._logits(self._backbone(input_ids))
+        forward. Training goes through :meth:`loss`. Under context
+        parallelism the ranks' final hidden states are all-gathered over cp
+        and put back in sequence order first (JAX ``_zigzag_exit``)."""
+        plan = self._cp_plan(input_ids.shape[1], input_ids.device)
+        hidden = self._backbone(input_ids, plan)
+        if plan is not None:
+            hidden = all_gather(hidden, 1, plan.group)
+            if plan.inv is not None:
+                hidden = hidden.index_select(1, plan.inv)
+        return self._logits(hidden)
+
+    def _loss_sums(self, hidden: torch.Tensor, shifted: torch.Tensor):
+        """(sum of the masked CE, count of the tokens that carry loss), fp32
+        scalars, of ``hidden`` (B, T, H) against the already shifted labels
+        (B, T); chunked over the sequence
+        (:func:`..parallel.loss.fused_linear_cross_entropy`) when
+        ``loss_chunk_size`` is set, so the (B, T, V) logits never
+        materialize."""
+        if self.config.loss_chunk_size is not None:
+            return fused_linear_cross_entropy(
+                hidden, self._local_logits, shifted, chunk_size=self.config.loss_chunk_size,
+            )
+        per_tok = parallel_cross_entropy(self._local_logits(hidden), shifted)
+        # the CE's own validity rule, so the denominator never counts a
+        # token whose numerator was zeroed
+        valid = valid_token_mask(shifted, self.config.vocab_size).float()
+        return (per_tok * valid).sum(), valid.sum()
 
     def loss_from_hidden(
         self, hidden: torch.Tensor, labels: torch.Tensor
     ) -> torch.Tensor:
-        """LM head + masked-mean cross-entropy over the shifted labels;
-        chunked over the sequence (:func:`..parallel.loss.fused_linear_cross_entropy`)
-        when ``loss_chunk_size`` is set, so the (B, S, V) logits never
-        materialize."""
-        shifted = labels[:, 1:]
-        if self.config.loss_chunk_size is not None:
-            loss_sum, count = fused_linear_cross_entropy(
-                hidden[:, :-1, :], self._local_logits, shifted,
-                chunk_size=self.config.loss_chunk_size,
-            )
-            return loss_sum / torch.clamp(count, min=1.0)
-        per_tok = parallel_cross_entropy(self._local_logits(hidden[:, :-1, :]), shifted)
-        # the CE's own validity rule, so the denominator never counts a
-        # token whose numerator was zeroed
-        valid = valid_token_mask(shifted, self.config.vocab_size).float()
-        return (per_tok * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+        """LM head + masked-mean cross-entropy over the shifted labels
+        (:meth:`_loss_sums` of ``hidden[:, :-1]`` against ``labels[:, 1:]``)."""
+        loss_sum, count = self._loss_sums(hidden[:, :-1, :], labels[:, 1:])
+        return loss_sum / torch.clamp(count, min=1.0)
 
     def loss(self, input_ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """Mean next-token cross-entropy, fp32 scalar. ``labels`` are
         aligned with ``input_ids`` (HF convention: the shift happens here).
-        Records autograd unless the caller disables it."""
-        return self.loss_from_hidden(self._backbone(input_ids), labels)
+        Records autograd unless the caller disables it. Under context
+        parallelism each rank sums the CE of its chunk against its part of
+        the shifted labels (:meth:`_cp_labels`), and the sums and counts are
+        all-reduced over cp (the sum's backward is the identity: each rank's
+        gradient is its chunk's share, which the trainer sums over cp)."""
+        plan = self._cp_plan(input_ids.shape[1], input_ids.device)
+        hidden = self._backbone(input_ids, plan)
+        if plan is None:
+            return self.loss_from_hidden(hidden, labels)
+        loss_sum, count = self._loss_sums(hidden, self._cp_labels(labels, plan))
+        loss_sum = reduce_from_tensor_model_parallel_region(loss_sum, group=plan.group)
+        count = all_reduce(count.detach(), plan.group)
+        return loss_sum / torch.clamp(count, min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,10 @@ optimizer state cross between the packages rank by rank. A
 mesh axis it is split over (``"tp"``, ``"dp"`` for ZeRO-1's data-parallel
 split, which is JAX's ``("dp", "ep")`` at ep = 1) or None. Stacked leaves
 (the JAX package's ``layers`` subtree, a leading L dim) stand for the
-port's per-layer tensors ``layers.<i>.<name>``.
+port's per-layer tensors ``layers.<i>.<name>``. No leaf is split over cp:
+parameters and ZeRO-1's state are replicated over it (JAX
+``trainer/optimizer.py:85-94`` shards the state over ``("dp", "ep")``
+alone), so the cp ranks of one (dp, tp) coordinate hold the same parts.
 """
 
 from __future__ import annotations
@@ -51,13 +54,15 @@ class LeafSpec:
 
 
 def mesh_coords() -> Dict[str, Tuple[int, int]]:
-    """This process's (rank, size) on tp and dp; (0, 1) each without
+    """This process's (rank, size) on tp, dp and cp; (0, 1) each without
     parallel state."""
     return {
         parallel_state.TP_AXIS: (parallel_state.tensor_parallel_rank_or(0),
                                  parallel_state.tensor_parallel_size_or(1)),
         parallel_state.DP_AXIS: (parallel_state.data_parallel_rank_or(0),
                                  parallel_state.data_parallel_size_or(1)),
+        parallel_state.CP_AXIS: (parallel_state.context_parallel_rank_or(0),
+                                 parallel_state.context_parallel_size_or(1)),
     }
 
 
@@ -91,10 +96,11 @@ def all_regions(leaf: LeafSpec, sizes: Mapping[str, int]) -> list:
 
 def is_writer(leaf: LeafSpec, coords: Coords) -> bool:
     """Whether this rank is the lowest rank holding its region of ``leaf``
-    (the one that writes it)."""
+    (the one that writes it): rank 0 of every axis the leaf is replicated
+    over, cp rank 0 for every leaf."""
     return all(
         coords.get(axis, (0, 1))[0] == 0
-        for axis in (parallel_state.TP_AXIS, parallel_state.DP_AXIS)
+        for axis in (parallel_state.TP_AXIS, parallel_state.DP_AXIS, parallel_state.CP_AXIS)
         if not leaf.mentions(axis)
     )
 

@@ -21,13 +21,18 @@ gather_from_sequence_parallel_region         all-gather      reduce-scatter
 reduce_scatter_to_sequence_parallel_region   reduce-scatter  all-gather
 ===========================================  ==============  ===============
 
+:func:`ring_shift` is the context-parallel ring's rotation (JAX
+``lax.ppermute`` with ``perm = [(i, (i + 1) % cp)]``): rank i sends its
+tensor to rank i + 1 and gets rank i - 1's, and its backward rotates the
+gradient the other way.
+
 Without parallel state every region is the identity and issues nothing.
 Under a mesh each region issues its collective even over a group of one
 rank (NCCL at world size 1 then runs, and a CUDA graph captures, the
 collectives of the tp code path). Each raw collective adds one to
 :data:`COLLECTIVE_COUNTS` under its name when it is issued
-(``all_reduce``, ``all_gather``, ``reduce_scatter``), so a caller can count
-the collectives a step (or a captured CUDA graph) holds.
+(``all_reduce``, ``all_gather``, ``reduce_scatter``, ``ring_shift``), so a
+caller can count the collectives a step (or a captured CUDA graph) holds.
 """
 
 from __future__ import annotations
@@ -112,9 +117,55 @@ def split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return x.chunk(n, dim=dim)[dist.get_rank(group)].contiguous()
 
 
+def ring_transport(group) -> str:
+    """How :func:`ring_shift` moves a tensor over ``group``'s backend:
+    ``"send_recv"`` (``batch_isend_irecv`` pairs) under NCCL;
+    ``"all_gather"`` otherwise, since gloo's point-to-point refuses CUDA
+    tensors (``writev ... Bad address`` on an H100, torch 2.11:
+    ``chip_trials/gloo_p2p_trial.py``) while its all-gather carries them.
+    At two ranks the all-gather moves the bytes a send would. The CPU
+    takes the transport the card's gloo ranks take."""
+    return "send_recv" if dist.get_backend(group) == "nccl" else "all_gather"
+
+
+def ring_shift(x: torch.Tensor, group, hops: int = 1) -> torch.Tensor:
+    """What rank ``i - hops`` (mod the group's size) of ``group`` holds as
+    ``x``, on rank ``i`` (every rank sends its ``x`` to rank ``i + hops``).
+    Not differentiable: see :func:`ring_shift_region`."""
+    n = _world(group)
+    hops %= n
+    if hops == 0:
+        return x
+    i = dist.get_rank(group)
+    COLLECTIVE_COUNTS["ring_shift"] += 1
+    if ring_transport(group) == "all_gather":
+        src = x.contiguous().unsqueeze(0)
+        out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, src, group=group)
+        return out[(i - hops) % n]
+    src = x.contiguous()
+    out = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, dist.get_global_rank(group, (i + hops) % n), group),
+           dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (i - hops) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # autograd regions
 # ---------------------------------------------------------------------------
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return ring_shift(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_shift(g, ctx.group, -1), None
+
 
 class _CopyToRegion(torch.autograd.Function):
     @staticmethod
@@ -249,3 +300,10 @@ def all_reduce_max(x: torch.Tensor, group: Optional[object] = None) -> torch.Ten
     """Elementwise max over the tp group, without a gradient (the stable
     shift of the vocab-parallel softmax)."""
     return all_reduce(x.detach(), _tp_group(group), op=dist.ReduceOp.MAX)
+
+
+def ring_shift_region(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`ring_shift` by one rank with its dual backward (the gradient
+    rotated one rank back), for the plain ring that autograd
+    differentiates."""
+    return x if _world(group) == 1 else _RingShift.apply(x, group)

@@ -9,12 +9,16 @@ with the JAX package's axes and order::
 
     (pp, dp, cp, ep, tp)   with tp innermost (stride 1)
 
-so rank ``r`` sits at ``dp = r // tp``, ``tp = r % tp`` (pp = cp = ep = 1),
-where JAX's ``build_mesh`` puts device ``r``. Every process group comes from
-the mesh (``mesh.get_group("tp")``); no module builds its own.
+so rank ``r`` sits at ``tp = r % tp``, ``cp = (r // tp) % cp``, ``dp = r //
+(tp * cp)`` (pp = ep = 1), where JAX's ``build_mesh`` puts device ``r``.
+Every process group comes from the mesh (``mesh.get_group("tp")``); no
+module builds its own. The cp ranks of one (dp, tp) coordinate hold
+consecutive chunks of the sequence (context parallelism,
+:mod:`..kernels.ring_attention`); parameters and optimizer state are
+replicated over cp.
 
-Sizes above 1 of ``pp``, ``cp`` and ``ep`` are refused, each naming the
-ROADMAP item that ports it, so they never fall through to a one-rank path.
+Sizes above 1 of ``pp`` and ``ep`` are refused, each naming the ROADMAP
+item that ports it, so they never fall through to a one-rank path.
 """
 
 from __future__ import annotations
@@ -40,7 +44,6 @@ MESH_AXES = (PP_AXIS, DP_AXIS, CP_AXIS, EP_AXIS, TP_AXIS)
 #: the ROADMAP.md queue A item that ports each refused axis
 _WAITS_FOR = {
     "pipeline_parallel_size": "slice 5 item 3 (the pipeline)",
-    "context_parallel_size": "slice 5 item 2 (context parallelism)",
     "expert_parallel_size": "slice 5 item 4 (MoE)",
 }
 
@@ -225,6 +228,18 @@ def get_data_parallel_group():
     return get_parallel_state().group(DP_AXIS)
 
 
+def get_context_parallel_size() -> int:
+    return get_parallel_state().context_parallel_size
+
+
+def get_context_parallel_rank() -> int:
+    return get_parallel_state().rank(CP_AXIS)
+
+
+def get_context_parallel_group():
+    return get_parallel_state().group(CP_AXIS)
+
+
 def tensor_parallel_size_or(default: int = 1) -> int:
     """tp size if parallel state is live, else ``default`` (the JAX
     package's rule for layers built without a mesh)."""
@@ -241,6 +256,14 @@ def data_parallel_rank_or(default: int = 0) -> int:
 
 def data_parallel_size_or(default: int = 1) -> int:
     return get_data_parallel_size() if model_parallel_is_initialized() else default
+
+
+def context_parallel_size_or(default: int = 1) -> int:
+    return get_context_parallel_size() if model_parallel_is_initialized() else default
+
+
+def context_parallel_rank_or(default: int = 0) -> int:
+    return get_context_parallel_rank() if model_parallel_is_initialized() else default
 
 
 def mesh_is_tp_only() -> bool:

@@ -7,9 +7,11 @@ tensor parallelism (with or without Megatron sequence parallelism) and
 data parallelism over the processes of the group (one process per rank,
 started by ``torchrun`` or by the caller), as the JAX one builds its
 ``Mesh``; ``zero_one_enabled`` splits the optimizer state over the dp
-ranks (ZeRO-1, a no-op at dp = 1 as in the JAX package). Pipeline, context
-and expert parallelism and the pipeline knobs raise, each naming the
-ROADMAP.md item that ports it.
+ranks (ZeRO-1, a no-op at dp = 1 as in the JAX package). Context
+parallelism (``context_parallel_size``) splits each sequence over the cp
+ranks and runs attention as a ring (:mod:`..kernels.ring_attention`).
+Pipeline and expert parallelism and the pipeline knobs raise, each naming
+the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -93,8 +95,8 @@ class TrainingConfig:
 
     def require_ported(self) -> None:
         """Raise NotImplementedError naming the first knob the port does not
-        run yet (pipeline, context and expert parallelism, the pipeline
-        knobs) and the ROADMAP.md item that ports it."""
+        run yet (pipeline and expert parallelism, the pipeline knobs) and
+        the ROADMAP.md item that ports it."""
         parallel_state.ParallelConfig(
             tensor_parallel_size=self.tensor_parallel_size,
             pipeline_parallel_size=self.pipeline_parallel_size,
@@ -111,26 +113,29 @@ class TrainingConfig:
 
     def initialize(self, device: DeviceLike = "cuda") -> torch.device:
         """Check the configuration and return the device (the card unless
-        the caller names another). Tensor or sequence parallelism, or a
-        process group of several ranks, builds the mesh
+        the caller names another). Tensor, sequence or context parallelism,
+        or a process group of several ranks, builds the mesh
         (:func:`..parallel.state.initialize_model_parallel`; dp is what the
-        world size leaves) unless one is live, which must then agree."""
+        world size leaves, and a world that tp * cp does not divide raises)
+        unless one is live, which must then agree."""
         self.require_ported()
         if self.num_microbatches < 1:
             raise ValueError(f"num_microbatches must be >= 1, got {self.num_microbatches}")
         dev = resolve_device(device)
+        want = (self.tensor_parallel_size, self.context_parallel_size, self.sequence_parallel)
         if parallel_state.model_parallel_is_initialized():
             st = parallel_state.get_parallel_state()
-            if (st.tensor_parallel_size, st.sequence_parallel) != (
-                    self.tensor_parallel_size, self.sequence_parallel):
+            have = (st.tensor_parallel_size, st.context_parallel_size, st.sequence_parallel)
+            if have != want:
                 raise ValueError(
-                    f"the live mesh has tp={st.tensor_parallel_size}, "
-                    f"sequence_parallel={st.sequence_parallel}; this config asks for "
-                    f"tp={self.tensor_parallel_size}, sequence_parallel={self.sequence_parallel}"
+                    f"the live mesh has (tp, cp, sequence_parallel) = {have}; this config "
+                    f"asks for {want}"
                 )
-        elif self.tensor_parallel_size > 1 or self.sequence_parallel or world_size() > 1:
+        elif (self.tensor_parallel_size > 1 or self.context_parallel_size > 1
+              or self.sequence_parallel or world_size() > 1):
             parallel_state.initialize_model_parallel(
                 tensor_model_parallel_size=self.tensor_parallel_size,
+                context_parallel_size=self.context_parallel_size,
                 sequence_parallel=self.sequence_parallel, device=dev,
             )
         return dev

@@ -195,15 +195,16 @@ def norm_owned(specs: Mapping[str, LeafSpec], parts: Optional[Mapping[str, Zero1
                zero1: bool) -> Dict[str, bool]:
     """Which of this rank's gradients count in the global norm: a
     tp-replicated leaf on tp rank 0 only, a leaf whole on every dp rank on
-    dp rank 0 only (``parallel/grads.py``)."""
+    dp rank 0 only, and every leaf (all are replicated over cp) on cp rank
+    0 only (``parallel/grads.py``)."""
     coords = mesh_coords()
-    tp_r, dp_r = coords[TP][0], coords[DP][0]
+    tp_r, dp_r, cp_r = coords[TP][0], coords[DP][0], coords[parallel_state.CP_AXIS][0]
     out = {}
     for k, leaf in specs.items():
         part = parts[k] if parts else Zero1Part(True, None)
         dp_split = zero1 and (part.dim is not None or part.owner >= 0)
         out[k] = ((tp_r == 0 or leaf.mentions(TP))
-                  and (dp_r == 0 or dp_split))
+                  and (dp_r == 0 or dp_split) and cp_r == 0)
     return out
 
 

@@ -7,10 +7,11 @@ split, each microbatch weighted by its valid-token count) and its eval
 step, on one device or over the mesh of :meth:`..trainer.config.
 TrainingConfig.initialize`. Each rank holds its shard of the model and
 of the optimizer state (ZeRO-1 under dp); a step takes the rank's rows of
-the global batch by JAX's rule (dp rank r the r-th contiguous block),
-sums the gradients over dp (reduce-scattered into ZeRO-1's parts), clips
-by the norm over every rank's parts and all-gathers the updated
-parameters.
+the global batch by JAX's rule (dp rank r the r-th contiguous block; the
+cp ranks of one dp rank take the same rows and each its chunk of their
+sequences), sums the gradients over cp, then over dp (reduce-scattered
+into ZeRO-1's parts), clips by the norm over every rank's parts and
+all-gathers the updated parameters.
 
 A :class:`TrainState` holds the model's own parameters (a dict keyed by
 parameter name, the same tensor objects as ``model.named_parameters()``)
@@ -96,13 +97,15 @@ def _check_params(model: torch.nn.Module, params: Mapping[str, torch.Tensor]) ->
 
 
 def _valid_count(labels: torch.Tensor, vocab_size: int) -> torch.Tensor:
-    """Tokens that carry loss: the CE's own rule on the shifted labels."""
+    """Tokens that carry loss: the CE's own rule on the labels shifted over
+    the whole sequence (under cp, the count over every cp rank's chunk)."""
     return valid_token_mask(labels[:, 1:], vocab_size).float().sum()
 
 
 def dp_rows(batch: torch.Tensor) -> torch.Tensor:
     """This dp rank's rows of a global batch: the r-th of dp contiguous
-    blocks (JAX shards the batch dim over ("dp", "ep"))."""
+    blocks (JAX shards the batch dim over ("dp", "ep"), not over cp: the cp
+    ranks of one dp rank take the same rows)."""
     dp = parallel_state.data_parallel_size_or(1)
     if dp == 1:
         return batch
@@ -126,9 +129,11 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig,
     takes rows of every dp shard, as in JAX); each contributes its
     gradients weighted by its valid-token count, accumulated in fp32 under
     ``use_fp32_grad_acc`` (else in the parameters' dtype), so the step
-    equals the global-batch mean CE. The gradients are summed over dp
-    (into ZeRO-1's parts), then one AdamW step on every rank's part and the
-    parameters gathered again. ``metrics`` holds the loss and the pre-clip
+    equals the global-batch mean CE. Under context parallelism the model's
+    loss is the mean over every cp rank's chunk and each rank's gradient its
+    chunk's share: the gradients are summed over cp first. They are summed
+    over dp (into ZeRO-1's parts), then one AdamW step on every rank's part
+    and the parameters gathered again. ``metrics`` holds the loss and the pre-clip
     grad norm as fp32 device scalars, the learning rate after the step and
     the step count. The state is updated in place (module docstring)."""
     config.require_ported()
@@ -137,6 +142,12 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig,
     vocab = model.config.vocab_size
     specs = state_specs(model, config)
     dp = parallel_state.data_parallel_size_or(1)
+    cp = parallel_state.context_parallel_size_or(1)
+    if cp != config.context_parallel_size:
+        raise ValueError(
+            f"context_parallel_size={config.context_parallel_size}, but the live mesh has "
+            f"cp = {cp}: call config.initialize() first"
+        )
     sharded = parallel_state.model_parallel_is_initialized() and parallel_state.get_parallel_state().world_size > 1
     parts = zero1_parts(specs.opt) if opt_cfg.zero_one_enabled else None
     owned = norm_owned(specs.params, parts, opt_cfg.zero_one_enabled) if sharded else None
@@ -148,7 +159,7 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig,
             input_ids, labels = dp_rows(input_ids), dp_rows(labels)
         names = list(state.params)
         leaves = [state.params[k] for k in names]
-        if n_micro == 1 and dp == 1:
+        if n_micro == 1 and dp == 1 and cp == 1:
             loss = model.loss(input_ids, labels)
             grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
             if opt_cfg.use_fp32_grad_acc:
@@ -177,6 +188,9 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig,
                     acc += g.to(acc.dtype) * n.to(acc.dtype)
                 loss_sum += loss.detach() * n
                 tok_sum += n
+            if cp > 1:
+                group = parallel_state.get_context_parallel_group()
+                grads = {k: all_reduce(g, group) for k, g in grads.items()}
             if dp > 1:
                 group = parallel_state.get_data_parallel_group()
                 loss_sum = all_reduce(loss_sum, group)
@@ -206,7 +220,8 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig,
 def make_eval_step(model: torch.nn.Module, config: TrainingConfig) -> Callable:
     """An eval step ``(params, batch) -> loss`` (fp32 device scalar): the
     training loss over the whole batch, without autograd, microbatches or
-    an optimizer. ``params`` are the model's own (``state.params``)."""
+    an optimizer (under cp the mean over every cp rank's chunk, the same on
+    each). ``params`` are the model's own (``state.params``)."""
     del config
 
     @torch.no_grad()

@@ -304,7 +304,6 @@ def _leaves(tree, prefix=()):
 
 def test_unported_axes_raise_naming_their_item():
     for kw, item in (({"pipeline_model_parallel_size": 2}, "item 3"),
-                     ({"context_parallel_size": 2}, "item 2"),
                      ({"expert_model_parallel_size": 2}, "item 4")):
         with pytest.raises(NotImplementedError, match=item):
             tstate.initialize_model_parallel(device="cpu", **kw)

@@ -30,6 +30,7 @@ from neuronx_distributed_llama3_2_tpu.trainer.trainer import (
 )
 from neuronx_distributed_llama3_2_tpu_torch.models import llama as tllama
 from neuronx_distributed_llama3_2_tpu_torch import trainer as ttrainer
+from neuronx_distributed_llama3_2_tpu_torch.parallel import state as tstate
 from neuronx_distributed_llama3_2_tpu_torch.parallel.grads import clip_grad_norm, global_norm
 
 torch.set_num_threads(1)
@@ -282,18 +283,35 @@ def test_eval_step_and_evaluate_match_jax():
 
 @pytest.mark.parametrize("knob,value", [
     ("pipeline_parallel_size", 2), ("pipeline_parallel_size", 4),
-    ("expert_parallel_size", 2), ("context_parallel_size", 2), ("context_parallel_size", 4),
+    ("expert_parallel_size", 2),
     ("pipeline_schedule", "1f1b"), ("num_model_chunks", 2),
 ])
 def test_parallel_knobs_raise_naming_the_knob(knob, value):
     """The knobs of later slices raise, naming the knob and the ROADMAP
-    item that ports it (tensor and sequence parallelism run: see
-    test_torch_tp_train.py)."""
+    item that ports it (tensor, sequence and context parallelism run: see
+    test_torch_tp_train.py and test_torch_cp_train.py)."""
     tc = ttrainer.TrainingConfig(**{knob: value})
     with pytest.raises(NotImplementedError, match=f"{knob}.*ROADMAP.md slice 5 item"):
         tc.initialize("cpu")
     model = tllama.LlamaForCausalLM(tllama.LLAMA_CONFIGS["tiny"], device="cpu")
     with pytest.raises(NotImplementedError, match=knob):
+        ttrainer.make_train_step(model, tc)
+
+
+@pytest.mark.parametrize("cp", [2, 4])
+def test_context_parallel_needs_a_world_it_divides(cp):
+    """Context parallelism runs (test_torch_cp_train.py), over cp ranks of
+    the process group: on a world of one process the mesh refuses it
+    before it starts a group, and a train step refuses a config whose cp
+    the live mesh does not have."""
+    tc = ttrainer.TrainingConfig(context_parallel_size=cp)
+    with pytest.raises(ValueError, match="not divisible"):
+        tc.initialize("cpu")
+    with pytest.raises(ValueError, match="not divisible"):
+        tstate.initialize_model_parallel(context_parallel_size=cp, device="cpu")
+    assert not tstate.model_parallel_is_initialized()
+    model = tllama.LlamaForCausalLM(tllama.LLAMA_CONFIGS["tiny"], device="cpu")
+    with pytest.raises(ValueError, match=f"context_parallel_size={cp}.*cp = 1"):
         ttrainer.make_train_step(model, tc)
 
 

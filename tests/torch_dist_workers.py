@@ -61,29 +61,44 @@ def train_worker(rank, world, tp, sp, cfg_kw, opt_kw, n_micro, steps, np_params,
         params = dict(model.named_parameters())
         specs = T.trainer.state_specs(model, tc)
         state = T.TrainState(params, T.init_optimizer_state(params, tc.optimizer, specs.opt))
-        ids_t, lbl_t = torch.as_tensor(ids), torch.as_tensor(labels)
-        grads = _first_grads(model, ids_t, lbl_t, cfg)
-        step = T.make_train_step(model, tc)
-        metrics = []
-        for _ in range(steps):
-            state, m = step(state, {"input_ids": ids_t, "labels": lbl_t})
-            metrics.append({k: float(v) for k, v in m.items()})
-        return {
-            "coords": (S.get_data_parallel_rank(), S.get_tensor_model_parallel_rank()),
-            "metrics": metrics,
-            "grads": L.params_to_jax(grads, cfg),
-            "params": L.params_to_jax(state.params, cfg),
-            "opt": T.opt_state_to_jax(state.opt, cfg, specs.opt),
-            "mu_local": {k: _np(v) for k, v in state.opt.mu.items()},
-            "state_bytes": T.optimizer.state_bytes(state.opt),
-            "specs": {k: (s.shape, s.spec) for k, s in specs.opt.mu.items()},
-        }
+        out = _train_run(model, tc, state, specs, steps, ids, labels)
+        del out["state"]
+        return out
     finally:
         S.destroy_model_parallel()
 
 
+def _train_run(model, tc, state, specs, steps, ids, labels):
+    """The first step's gradient, then ``steps`` train steps from ``state``;
+    what :func:`train_worker` returns."""
+    from neuronx_distributed_llama3_2_tpu_torch import trainer as T
+    from neuronx_distributed_llama3_2_tpu_torch.models import llama as L
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+
+    cfg = model.config
+    ids_t, lbl_t = torch.as_tensor(ids), torch.as_tensor(labels)
+    grads = _first_grads(model, ids_t, lbl_t, cfg)
+    step = T.make_train_step(model, tc)
+    metrics = []
+    for _ in range(steps):
+        state, m = step(state, {"input_ids": ids_t, "labels": lbl_t})
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {
+        "coords": (S.get_data_parallel_rank(), S.get_tensor_model_parallel_rank()),
+        "metrics": metrics,
+        "grads": L.params_to_jax(grads, cfg),
+        "params": L.params_to_jax(state.params, cfg),
+        "opt": T.opt_state_to_jax(state.opt, cfg, specs.opt),
+        "mu_local": {k: _np(v) for k, v in state.opt.mu.items()},
+        "state_bytes": T.optimizer.state_bytes(state.opt),
+        "specs": {k: (s.shape, s.spec) for k, s in specs.opt.mu.items()},
+        "state": state,
+    }
+
+
 def _first_grads(model, ids, labels, cfg):
-    """The gradient of the global batch's mean loss, summed over dp."""
+    """The gradient of the global batch's mean loss, summed over cp (each
+    cp rank's is its chunk's share) and dp."""
     from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
     from neuronx_distributed_llama3_2_tpu_torch.parallel.mappings import all_reduce
     from neuronx_distributed_llama3_2_tpu_torch.trainer.trainer import _valid_count, dp_rows
@@ -93,9 +108,10 @@ def _first_grads(model, ids, labels, cfg):
     loss = model.loss(ids, labels)
     n = _valid_count(labels, cfg.vocab_size)
     grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
-    group = S.get_data_parallel_group()
+    group, cp_group = S.get_data_parallel_group(), S.get_context_parallel_group()
     total = all_reduce(n, group)
-    return {k: all_reduce(g * n, group) / total for k, g in zip(names, grads)}
+    return {k: all_reduce(all_reduce(g * n, cp_group), group) / total
+            for k, g in zip(names, grads)}
 
 
 # ---------------------------------------------------------------------------
@@ -399,3 +415,197 @@ def serve_worker(rank, world, tp, np_params, cfg_kw, engine_kw, cells, prompts, 
         return out
     finally:
         S.destroy_model_parallel()
+
+
+# ---------------------------------------------------------------------------
+# context parallelism: the rings, the model and the trainer over cp ranks
+# ---------------------------------------------------------------------------
+
+def _ring_case(st, inputs, case, causal, impl, block_kv=None, grads=False):
+    """``ring_attention_sharded`` over the mesh's cp group on the whole
+    numpy inputs ``inputs[case]``: the output and, with ``grads``, the
+    gradients of sum(out²), as numpy (rank 0's; every rank's are whole)."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels.flash_attention import DEFAULT_BLOCK_KV
+    from neuronx_distributed_llama3_2_tpu_torch.kernels.ring_attention import (
+        ring_attention_sharded,
+    )
+
+    q, k, v = (torch.tensor(x, requires_grad=grads) for x in inputs[case])
+    out = ring_attention_sharded(q, k, v, st.mesh, "cp", causal=causal, impl=impl,
+                                 block_kv=block_kv or DEFAULT_BLOCK_KV)
+    res = {"out": _np(out)}
+    if grads:
+        (out.float() ** 2).sum().backward()
+        res["grads"] = [_np(x.grad) for x in (q, k, v)]
+    return res
+
+
+def ring_worker(rank, world, inputs):
+    """Every ring check of test_torch_ring_attention.py, on four ranks:
+    cp = 4 (the plain and kernel rings, causal and full, gradients, GQA,
+    each rank's own chunk through the local executors, the rotation over
+    either transport), then
+    tp = 2 x cp = 2 (each tp rank's heads through the ring, gathered), then
+    dp = 2 x cp = 2 (a multi-block padded tail)."""
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import ring_attention as R
+    from neuronx_distributed_llama3_2_tpu_torch.kernels.ring_attention_pallas import (
+        ring_attention_pallas,
+    )
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import mappings as M
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+
+    out: dict = {}
+    st = S.initialize_model_parallel(context_parallel_size=4, device="cpu")
+    try:
+        group = S.get_context_parallel_group()
+        for causal in (True, False):
+            out["dense", causal] = _ring_case(st, inputs, "s128", causal, "auto")
+        out["grads"] = _ring_case(st, inputs, "s64", True, "jnp", grads=True)
+        for impl in ("pallas", "zigzag"):
+            for causal in (True, False):
+                try:
+                    out[impl, causal] = _ring_case(st, inputs, "s128", causal, impl)
+                except ValueError as e:
+                    out[impl, causal] = str(e)
+            out["grads", impl] = _ring_case(st, inputs, "s64", True, impl, grads=True)
+        for impl in ("jnp", "pallas", "zigzag"):
+            out["gqa", impl] = _ring_case(st, inputs, "gqa", True, impl)
+        # the local executors on this rank's contiguous chunk alone
+        q, k, v = (torch.tensor(x).chunk(4, dim=1)[rank] for x in inputs["s256"])
+        out["local"] = {"plain": _np(R.ring_attention(q, k, v, group, causal=True)),
+                        "kernel": _np(ring_attention_pallas(q, k, v, group, causal=True))}
+        # the rotation: rank i gets rank i - 1's tensor, and the gradient
+        # goes back to rank i - 1
+        x = torch.full((3,), float(rank), requires_grad=True)
+        before = M.COLLECTIVE_COUNTS["ring_shift"]
+        y = M.ring_shift_region(x, group)
+        (y * (rank + 1)).sum().backward()
+        out["shift"] = (M.ring_transport(group), _np(y), _np(x.grad),
+                        M.COLLECTIVE_COUNTS["ring_shift"] - before)
+        # NCCL's transport (batch_isend_irecv pairs) over gloo's CPU send /
+        # recv, beside the all-gather: the rotation both ways, and the
+        # kernel rings' outputs and gradients
+        x = torch.arange(6.0).reshape(2, 3) + 10 * rank
+        chosen = M.ring_transport
+        out["transports"] = {}
+        for transport in ("all_gather", "send_recv"):
+            M.ring_transport = lambda g, t=transport: t
+            try:
+                out["transports"][transport] = (
+                    [_np(M.ring_shift(x, group, hops)) for hops in (1, -1)],
+                    {impl: _ring_case(st, inputs, "s64", True, impl, grads=True)
+                     for impl in ("pallas", "zigzag")})
+            finally:
+                M.ring_transport = chosen
+    finally:
+        S.destroy_model_parallel()
+    st = S.initialize_model_parallel(tensor_model_parallel_size=2, context_parallel_size=2,
+                                     device="cpu")
+    try:
+        t = S.get_tensor_model_parallel_rank()
+        q, k, v = (torch.tensor(x).chunk(2, dim=2)[t] for x in inputs["s64"])
+        o = R.ring_attention_sharded(q, k, v, st.mesh, "cp", causal=True)
+        out["tp"] = _np(M.all_gather(o, 2, S.get_tensor_model_parallel_group()))
+    finally:
+        S.destroy_model_parallel()
+    st = S.initialize_model_parallel(context_parallel_size=2, device="cpu")
+    try:
+        for causal in (True, False):
+            out["multiblock", causal] = _ring_case(st, inputs, "s80", causal, "auto", block_kv=16)
+        out["multiblock grads"] = _ring_case(st, inputs, "s80", True, "auto", block_kv=16,
+                                             grads=True)
+    finally:
+        S.destroy_model_parallel()
+    return out
+
+
+def cp_mesh_worker(rank, world, np_params, ids, token_path, gbs, seq_len):
+    """Four ranks: at tp = 2 x cp = 2 the tiny model's eval logits and loss
+    from the JAX weights; then at dp = 2 x cp = 2 the rows each rank's data
+    loader yields for three steps, and its coordinates."""
+    from neuronx_distributed_llama3_2_tpu_torch.data import DistributedDataLoader, TokenDataset
+    from neuronx_distributed_llama3_2_tpu_torch.models import llama as L
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+
+    out: dict = {}
+    S.initialize_model_parallel(tensor_model_parallel_size=2, context_parallel_size=2,
+                                device="cpu")
+    try:
+        cfg = L.LLAMA_CONFIGS["tiny"]
+        model = L.LlamaForCausalLM(cfg, device="cpu")
+        model.load_state_dict(L.params_from_jax(np_params, cfg, device="cpu"))
+        ids_t = torch.as_tensor(ids)
+        out["logits"] = _np(model(ids_t))
+        with torch.no_grad():
+            out["loss"] = float(model.loss(ids_t, ids_t))
+    finally:
+        S.destroy_model_parallel()
+    S.initialize_model_parallel(context_parallel_size=2, device="cpu")
+    try:
+        it = iter(DistributedDataLoader(TokenDataset(token_path, seq_len), gbs, seed=3))
+        out["rows"] = [next(it) for _ in range(3)]
+        out["coords"] = (S.get_data_parallel_rank(), S.get_context_parallel_rank())
+    finally:
+        S.destroy_model_parallel()
+    return out
+
+
+def cp_train_worker(rank, world, layouts, cfg_kw, opt_kw, n_micro, steps, jax_root, save_root,
+                    ids, labels):
+    """cp = world ranks: in each layout, the train state loaded from the JAX
+    package's tag at ``jax_root`` (each cp rank reads the whole replicated
+    state), its eval loss, the first step's gradient and ``steps`` steps
+    (``_train_run``);
+    after the first layout's steps a save under ``save_root``, with the
+    files this rank wrote, and the tag loaded back on every rank."""
+    from neuronx_distributed_llama3_2_tpu_torch import trainer as T
+    from neuronx_distributed_llama3_2_tpu_torch.checkpoint import checkpoint as C
+    from neuronx_distributed_llama3_2_tpu_torch.models import llama as L
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+
+    tc = T.TrainingConfig(context_parallel_size=world, num_microbatches=n_micro,
+                          optimizer=T.OptimizerConfig(**opt_kw))
+    tc.initialize("cpu")
+    out: dict = {}
+    try:
+        for layout in layouts:
+            cfg = dataclasses.replace(L.LLAMA_CONFIGS["tiny"], cp_ring_layout=layout, **cfg_kw)
+            model = L.LlamaForCausalLM(cfg, device="cpu")
+            state, specs = T.initialize_parallel_model(model, tc)
+            start = C.load_checkpoint(jax_root, "latest", model=state.params, optimizer=state.opt,
+                                      model_specs=specs.params, optimizer_specs=specs.opt)
+            with torch.no_grad():
+                for k, p in state.params.items():
+                    p.copy_(start["model"][k])
+            state = T.TrainState(state.params, start["optimizer"])
+            batch = {"input_ids": torch.as_tensor(ids), "labels": torch.as_tensor(labels)}
+            eval_loss = T.evaluate(model, tc, state.params, [batch])
+            res = out[layout] = _train_run(model, tc, state, specs, steps, ids, labels)
+            res["eval_loss"] = eval_loss
+            state = res.pop("state")
+            if layout == layouts[0]:
+                written = res["written"] = []
+                inner = C._save_npy
+
+                def spy(storage, arr, name):
+                    written.append(name)
+                    return inner(storage, arr, name)
+
+                C._save_npy = spy
+                try:
+                    C.save_checkpoint(save_root, "step_1", model=state.params, optimizer=state.opt,
+                                      model_specs=specs.params, optimizer_specs=specs.opt)
+                finally:
+                    C._save_npy = inner
+                dist.barrier()  # rank 0 marks the tag done after every rank's chunks
+                back = C.load_checkpoint(save_root, "latest", model=state.params,
+                                         optimizer=state.opt, model_specs=specs.params,
+                                         optimizer_specs=specs.opt)
+                res["loaded_back"] = (
+                    all(torch.equal(back["model"][k], p) for k, p in state.params.items())
+                    and all(torch.equal(back["optimizer"].mu[k], m)
+                            for k, m in state.opt.mu.items()))
+        out["cp_rank"] = S.get_context_parallel_rank()
+    finally:
+        S.destroy_model_parallel()
+    return out
