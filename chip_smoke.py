@@ -355,8 +355,9 @@ SPEC_KNOBS = dict(spec_draft_tokens=4, prefill_chunk_tokens=16, fused_step=True)
 SPEC_MAX_T = 16
 SPEC_REP_PROMPTS = (0, 2, 6, 1)
 # F's e2e check holds every request. On an H100 the sound serve reads a
-# worst gap of 0.109375 (prompt 5, a near tie that the witness serves of
-# run_spec_witness_phase read too); the margin is twice that
+# worst gap of 0.109375 (prompt 5, a near tie that the same prompts served
+# through the gather path and without speculation read too); the margin is
+# twice that
 F_LOGIT_MARGIN = 0.21875
 # the planted row_live fault's own check: a walk one row short changes a
 # token only where a lane's last live row opens a pool block, and by the
@@ -2209,85 +2210,6 @@ def run_spec_e2e_phase(cfg, model, prompts, outs, rids) -> None:
         f"every request: {bad_each}")
     check(bad > LOGIT_MARGIN,
           f"the F e2e check passes a planted row_live fault (gap {bad})")
-
-
-def chunked_logits(dec, model, ids, chunk: int) -> torch.Tensor:
-    """Logits of ``ids`` fed through the decode model ``dec`` in
-    ``chunk``-row pieces over a fresh pool of 16-row blocks, as a chunked
-    prefill feeds them: (len(ids), vocab) fp32."""
-    nblk = -(-len(ids) // 16)
-    cache = dec.init_paged_cache(nblk + 1, 16, device="cuda")
-    table = torch.arange(1, nblk + 1, dtype=torch.int32, device="cuda")[None]
-    rows = []
-    for s in range(0, len(ids), chunk):
-        logits, _ = dec.forward(
-            model, cache, torch.as_tensor([ids[s:s + chunk]], device="cuda"),
-            torch.tensor([s], dtype=torch.int32, device="cuda"), None,
-            block_tables=table, kv_limit=nblk * 16,
-        )
-        rows.append(logits[0].float())
-    return torch.cat(rows)
-
-
-def run_spec_witness_phase(cfg, model, prompts, f_tokens) -> None:
-    """Second witnesses of F's per-request e2e readings, logged, not held.
-    (1) F's prompts served the same way through the gather path (no K4)
-    and through the fused step without speculation (no verify dispatch):
-    a reading F shares with the second and not the first comes from K4,
-    not from speculation. (2) An fp32 copy of the model as the reference:
-    F's readings against it, and each bf16 path's largest logit distance
-    from it over F's streams (prompt + served tokens, the served rows),
-    teacher-forced: the plain forward, and the decode model in 16-row
-    chunks through K4 and through the gather. The plain forward and the
-    gather round scores and probabilities to bf16, K4 keeps them fp32.
-    ``f_tokens``: F's served tokens in prompt order."""
-    from neuronx_distributed_llama3_2_tpu_torch.inference.model import LlamaDecode
-    from neuronx_distributed_llama3_2_tpu_torch.models.llama import LlamaForCausalLM
-
-    fcfg = spec_config(cfg)
-    gcfg = dataclasses.replace(fcfg, use_paged_kernel=False)
-    nospec = {k: v for k, v in SPEC_KNOBS.items() if k != "spec_draft_tokens"}
-    for label, wcfg, knobs in (("gather path", gcfg, SPEC_KNOBS),
-                               ("no speculation", fcfg, nospec)):
-        server = make_server(wcfg, model, **knobs)
-        rids, outs = serve_staged(server, prompts)
-        for r in rids:
-            check(len(outs[r]) == MAX_NEW, f"F witness {label}: request {r} is short")
-        each = per_request_gaps(model, prompts, outs, rids)
-        same = [sum(a == b for a, b in zip(outs[r], fo)) for r, fo in zip(rids, f_tokens)]
-        log(f"e2e F witness ({label}; attention calls by path "
-            f"{dict(server.model.attention_paths)}, {server.metrics.verify_steps} verify "
-            f"steps): every request (worst gap, argmax tokens): {each}; tokens equal "
-            f"to F's, by request: {same}")
-
-    ref = LlamaForCausalLM(dataclasses.replace(cfg, dtype=torch.float32), device="cuda")
-    ref.load_state_dict(model.state_dict())
-    rids = list(range(len(prompts)))
-    outs = dict(zip(rids, f_tokens))
-    log(f"e2e F witness (fp32 reference): every request (worst gap, argmax tokens): "
-        f"{per_request_gaps(ref, prompts, outs, rids)}")
-    decs = {"kernel": LlamaDecode(fcfg), "gather": LlamaDecode(gcfg)}
-    dist = {"plain": [], "kernel": [], "gather": []}
-    for prompt, gen in zip(prompts, f_tokens):
-        ids = prompt + gen[:-1]
-        want = ref(torch.as_tensor([ids], device="cuda"))[0].float()[len(prompt) - 1:]
-        got = {"plain": model(torch.as_tensor([ids], device="cuda"))[0].float()}
-        for name, dec in decs.items():
-            got[name] = chunked_logits(dec, model, ids, SPEC_MAX_T)
-        for name, g in got.items():
-            d = (g[len(prompt) - 1:] - want).abs().max().item()
-            check(np.isfinite(d), f"F witness: non-finite {name} logits")
-            dist[name].append(d)
-    check(decs["kernel"].attention_paths.get("kernel", 0) > 0
-          and not decs["kernel"].attention_paths.get("gather")
-          and not decs["gather"].attention_paths.get("kernel"),
-          f"F witness: paths {decs['kernel'].attention_paths} / "
-          f"{decs['gather'].attention_paths}")
-    log("e2e F witness: largest |logit - fp32 logit| over the served rows of F's "
-        "streams, by request: " + "; ".join(
-            f"{name} {[float(f'{d:.6g}') for d in ds]}" for name, ds in dist.items()))
-    del ref
-    torch.cuda.empty_cache()
 
 
 # -- 4d. the tree-speculative serve T --------------------------------------------
@@ -6558,16 +6480,16 @@ def chunk_outputs_in_fp32():
 def positions_in_contiguous_order(model):
     """A planted fault: under zigzag the tokens are permuted into the ring's
     layout but their positions (RoPE's) are cut in contiguous order."""
-    inner = model._cp_inputs
+    inner = model._positions
 
-    def faulty(ids, positions, plan):
-        return inner(ids, positions, plan)[0], inner(ids, positions, plan._replace(perm=None))[1]
+    def faulty(b, s, plan, device):
+        return inner(b, s, plan._replace(perm=None) if plan is not None else plan, device)
 
-    model._cp_inputs = faulty
+    model._positions = faulty
     try:
         yield
     finally:
-        del model._cp_inputs
+        del model._positions
 
 
 def cp_train_rank(rank: int, nproc: int, card: str) -> dict:
@@ -6727,6 +6649,282 @@ def run_cp_train_phase(card: str) -> dict:
     return outs[0]
 
 
+# -- 6c. pipeline parallelism --------------------------------------------------------
+#
+# pp = 2 at tp = 1 as two processes on the card over gloo: a stage boundary's
+# message goes through a host buffer (``parallel.mappings.pp_transport``:
+# gloo's send / recv refuses CUDA tensors). Times over gloo are its host copies.
+
+PP_BATCH, PP_MICRO = 4, 4
+#: (schedule, model chunks) of the three steps
+PP_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("interleaved", 2))
+#: K1-K3 at a microbatch's shape on one stage: B 1, the 1B's heads, S 2048
+PP_FLASH_CASES = (("pp2 stage microbatch, causal", 1, 32, 8, 2048, 64, True, 10),)
+#: round trips of one (1, 2048, 2048) bf16 message between the two stages
+PP_PING_PONGS = 8
+
+
+@contextlib.contextmanager
+def embedding_grad_unsummed():
+    """A planted fault: ``ReduceGradsTask`` leaves the tied embedding's
+    gradient unsummed over the first and the last stage (each keeps its own
+    part: the lookup's on the first, the head's on the last)."""
+    from neuronx_distributed_llama3_2_tpu_torch.pipeline.model import PipelinedCausalLM
+
+    inner = PipelinedCausalLM._reduce_shared_grads
+    PipelinedCausalLM._reduce_shared_grads = lambda self, acc: None
+    try:
+        yield
+    finally:
+        PipelinedCausalLM._reduce_shared_grads = inner
+
+
+@contextlib.contextmanager
+def stash_one_microbatch_ahead():
+    """A planted fault in 1F1B's steady state, where a stage has run the
+    forward of microbatch i + 1 before the backward of i: the backward of
+    i differentiates the stash of i + 1 (and that of i + 1 the stash of i)
+    against the gradient received for i. (A send of microbatch i + 1's
+    upstream gradient in place of i's cannot happen in this task order:
+    the receive of i's gradient comes before the send of i + 1's
+    activations it would need.)"""
+    from neuronx_distributed_llama3_2_tpu_torch.pipeline.model import PipelinedCausalLM
+
+    inner = PipelinedCausalLM.__dict__["_take_stash"]
+
+    def faulty(outputs, inputs, key):
+        pair = (key[0] ^ 1, key[1])
+        return inner.__func__(outputs, inputs, pair if pair in outputs else key)
+
+    PipelinedCausalLM._take_stash = staticmethod(faulty)
+    try:
+        yield
+    finally:
+        PipelinedCausalLM._take_stash = inner
+
+
+def message_ms(rank: int, shape, group) -> float:
+    """Mean ms of one host-staged stage-boundary message (``send_forward``
+    and ``recv_forward`` of a bf16 ``shape`` between the two stages), over
+    PP_PING_PONGS round trips after one warm-up."""
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import mappings
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as ps
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+    peer = ps.get_pipeline_model_parallel_next_rank()
+
+    def trip():
+        if rank == 0:
+            mappings.send_forward(x, peer, group)
+            got = mappings.recv_forward(shape, torch.bfloat16, "cuda", peer, group)
+        else:
+            got = mappings.recv_forward(shape, torch.bfloat16, "cuda", peer, group)
+            mappings.send_forward(got, peer, group)
+        mappings.finish_sends()
+        return got
+
+    check(torch.equal(trip(), x), "pp2: a stage-boundary message arrived changed")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PP_PING_PONGS):
+        trip()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (2 * PP_PING_PONGS)
+
+
+def pp_train_rank(rank: int, nproc: int, card: str) -> dict:
+    """A rank of the pp = 2 train phase: the 1B at full width and depth (8
+    layers a stage, 4 a chunk interleaved), train_configs' step (flash
+    attention, remat full, CE chunked at 256, AdamW bf16 state) on bench's
+    batch cut to PP_BATCH x 2048 in PP_MICRO microbatches. Each rank first
+    takes the pp = 1 step with ``num_microbatches`` PP_MICRO from SEED's
+    weights (no mesh) and keeps the gradients it handed to AdamW of the
+    leaves its stage holds. Then, through the trainer's entry points
+    (``TrainingConfig(pipeline_parallel_size=2, pipeline_schedule=...)``,
+    ``PipelinedCausalLM``, ``initialize_parallel_model``,
+    ``make_train_step``), one step from SEED's weights in each of
+    PP_SCHEDULES: its loss within LOSS_BAND of the pp = 1 loss, the
+    gradients it hands to AdamW within GRAD_BAND of the pp = 1 step's
+    (``grad_gap`` on each rank's leaves, the tied embedding summed over the
+    stages; the worst of the two ranks), K1 / K2 / K3 launched
+    (FLASH_FWD_PER_LAYER x 8 x PP_MICRO, 8 x PP_MICRO, 8 x PP_MICRO)
+    times on each rank, the point-to-point calls each rank issued equal to
+    its task list's sends and receives; its step ms and peak memory logged,
+    and the forward and backward's peak (before AdamW) under 1f1b below
+    gpipe's on each rank.
+    Two planted faults must read outside the bands: the tied embedding's
+    gradient left unsummed (gpipe), and 1F1B's backward on the stash one
+    microbatch ahead. The ms of one host-staged (1, 2048, 2048) bf16
+    message is logged. Rank 0 then holds K1-K3 against their plain
+    versions at a stage's shape (PP_FLASH_CASES) while rank 1 waits."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_llama3_2_tpu_torch.kernels import flash_attention as fa
+    from neuronx_distributed_llama3_2_tpu_torch.models.llama import (
+        FLASH_FWD_PER_LAYER,
+        LlamaForCausalLM,
+        jax_path,
+        param_specs,
+    )
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import mappings
+    from neuronx_distributed_llama3_2_tpu_torch.parallel.layout import holds, mesh_coords
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as ps
+    from neuronx_distributed_llama3_2_tpu_torch.pipeline import PipelinedCausalLM
+    from neuronx_distributed_llama3_2_tpu_torch.pipeline import scheduler as sch
+    from neuronx_distributed_llama3_2_tpu_torch.trainer import (
+        TrainingConfig,
+        initialize_parallel_model,
+        make_train_step,
+    )
+
+    cfg, tc1 = train_configs()
+    batch = train_batch(cfg, PP_BATCH)
+    # the pp = 1 reference, on each rank: its loss and the gradients it hands
+    # to AdamW, summed in bf16 over the microbatches (use_fp32_grad_acc off)
+    ref_model = LlamaForCausalLM(cfg, device="cuda")
+    tcr = TrainingConfig(num_microbatches=PP_MICRO, optimizer=tc1.optimizer)
+    state, _ = initialize_parallel_model(ref_model, tcr, key=SEED)
+    seen = {}
+    with step_gradients(lambda g: seen.update(g)):
+        ref_loss = float(make_train_step(ref_model, tcr)(state, batch)[1]["loss"])
+    del ref_model, state
+    tc = TrainingConfig(pipeline_parallel_size=2, optimizer=tc1.optimizer)
+    tc.initialize("cuda")
+    out = dict(launches=(0, 0, 0))
+    p2p = ("send_forward", "recv_forward", "send_backward", "recv_backward")
+    kinds = (sch.SendForwardTask, sch.RecvForwardTask, sch.SendBackwardTask, sch.RecvBackwardTask)
+    try:
+        stage = ps.get_pipeline_model_parallel_rank()
+        group = ps.get_pipeline_model_parallel_group()
+        transport = mappings.pp_transport(group)
+        # the leaves this stage holds under any of the schedules: the other
+        # stage's reference gradients are freed
+        names = {k for _, v in PP_SCHEDULES for k, leaf in param_specs(cfg, chunks=v).items()
+                 if holds(leaf, mesh_coords(), jax_path(k)[1])}
+        ref_grads = {k: g for k, g in seen.items() if k in names}
+        seen.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        rank_log(rank, f"pp2 train: two stages over {dist.get_backend()} on one card, the "
+                 f"boundary's transport {transport!r} (gloo's send / recv refuses CUDA tensors); "
+                 f"the pp = 1 step's loss {ref_loss:.6f} ({PP_MICRO} microbatches of 1 x "
+                 f"{TRAIN_SEQ}) | {card}")
+        per_layer = FLASH_FWD_PER_LAYER[cfg.remat]
+        layers = cfg.num_layers // 2
+        want = (per_layer * layers * PP_MICRO, layers * PP_MICRO, layers * PP_MICRO)
+
+        def one_step(schedule, chunks, fault=contextlib.nullcontext()):
+            tcs = dataclasses.replace(tc, pipeline_schedule=schedule, num_model_chunks=chunks)
+            model = PipelinedCausalLM(
+                LlamaForCausalLM(cfg, device="cuda", num_model_chunks=chunks),
+                num_microbatches=PP_MICRO, schedule=schedule, num_model_chunks=chunks)
+            state, _ = initialize_parallel_model(model, tcs, key=SEED)
+            step = make_train_step(model, tcs)
+            got = {}
+
+            def read(grads):
+                # the forward and backward's own peak, before AdamW's
+                got["fb_peak"] = torch.cuda.max_memory_allocated()
+                got["gap"] = grad_gap(grads, ref_grads)
+
+            for c in (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches):
+                c.reset()
+            before = dict(mappings.COLLECTIVE_COUNTS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            with fault, step_gradients(read):
+                state, m = step(state, batch)
+            loss = float(m["loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = (torch.cuda.max_memory_allocated(), base, got["fb_peak"])
+            sent = [mappings.COLLECTIVE_COUNTS[k] - before.get(k, 0) for k in p2p]
+            tasks = model.stats["tasks"]
+            listed = [sum(isinstance(t, c) for t in tasks) for c in kinds]
+            del state, step, model
+            gc.collect()
+            torch.cuda.empty_cache()
+            both = [None, None]
+            dist.all_gather_object(both, (loss, got["gap"], flash_counts(), sent, listed, ms,
+                                          peak))
+            return both
+
+        for schedule, chunks in PP_SCHEDULES:
+            both = one_step(schedule, chunks)
+            label = f"{schedule}" + (f" V = {chunks}" if chunks > 1 else "")
+            loss, loss1 = both[0][0], both[1][0]
+            (ms0, peak0), (ms1, peak1) = (b[5:] for b in both)
+            gap, at = max(b[1] for b in both)
+            for r, b in enumerate(both):
+                check(b[2] == want, f"pp2 {label} rank {r}: (K1, K2, K3) launches {b[2]}, "
+                      f"want {want}")
+                check(b[3] == b[4], f"pp2 {label} rank {r}: point-to-point calls {b[3]} "
+                      f"(send / recv forward, send / recv backward), the task list's {b[4]}")
+            check(loss == loss1, f"pp2 {label}: the ranks' losses differ ({loss}, {loss1})")
+            out["launches"] = tuple(a + both[0][2][i] + both[1][2][i]
+                                    for i, a in enumerate(out["launches"]))
+            loss_gap = abs(loss - ref_loss)
+            rank_log(rank, f"pp2 {label} train: loss {loss:.6f} against {ref_loss:.6f} at pp = 1 "
+                     f"(gap {loss_gap:.6g}, band {LOSS_BAND}); the gradients handed to AdamW, "
+                     f"largest relative L2 error {gap:.6g} at {at} (band {GRAD_BAND}); the "
+                     f"step {ms0:.6f} / {ms1:.6f} ms (rank 0 / 1, over {transport}); peak "
+                     f"memory {peak0[0] / 2**30:.6f} / {peak1[0] / 2**30:.6f} GiB, of it held "
+                     f"before the step {peak0[1] / 2**30:.6f} / {peak1[1] / 2**30:.6f} GiB "
+                     f"(the stage, its AdamW state, the kept pp = 1 gradients), the forward "
+                     f"and backward's peak (before AdamW) {peak0[2] / 2**30:.6f} / "
+                     f"{peak1[2] / 2**30:.6f} GiB; (K1, K2, K3) "
+                     f"launches {both[0][2]} / {both[1][2]}; point-to-point calls "
+                     f"{both[0][3]} / {both[1][3]} | {card}")
+            if rank == 0:
+                check(np.isfinite(loss) and loss_gap <= LOSS_BAND,
+                      f"pp2 {label} train loss gap {loss_gap}")
+                check(gap <= GRAD_BAND, f"pp2 {label} train gradient gap {gap} at {at}")
+            out.setdefault("steps", {})[label] = dict(ms=(ms0, ms1), peak=(peak0, peak1))
+        # 1F1B holds at most pp - rank microbatches' stage inputs where gpipe
+        # holds all PP_MICRO: its forward and backward's peak is lower on
+        # each rank
+        fb = {k: tuple(p[2] for p in v["peak"]) for k, v in out["steps"].items()}
+        check(all(a < b for a, b in zip(fb["1f1b"], fb["gpipe"])),
+              f"pp2: 1f1b's forward and backward peak {fb['1f1b']} is not below gpipe's "
+              f"{fb['gpipe']} on every rank")
+        for label, (schedule, chunks), fault in (
+                ("the tied embedding's gradient left unsummed", ("gpipe", 1),
+                 embedding_grad_unsummed()),
+                ("1F1B's backward on the stash one microbatch ahead", ("1f1b", 1),
+                 stash_one_microbatch_ahead())):
+            both = one_step(schedule, chunks, fault)
+            bad_gap, bad_at = max(b[1] for b in both)
+            bad_loss_gap = abs(both[0][0] - ref_loss)
+            rank_log(rank, f"pp2 train planted fault ({label}): loss gap {bad_loss_gap:.6g}, "
+                     f"gradient {bad_gap:.6g} at {bad_at} (bands {LOSS_BAND}, {GRAD_BAND})")
+            check(bad_loss_gap > LOSS_BAND or bad_gap > GRAD_BAND,
+                  f"the pp2 train bands pass a planted fault ({label})")
+        shape = (1, TRAIN_SEQ, cfg.hidden_size)
+        msg = message_ms(rank, shape, group)
+        rank_log(rank, f"pp2: one host-staged stage-boundary message of {shape} bf16 "
+                 f"({np.prod(shape) * 2 / 2**20:.0f} MiB) {msg:.6f} ms over {transport} "
+                 f"(D2H, gloo send / recv, H2D; {PP_PING_PONGS} round trips) | {card}")
+        out["message_ms"] = msg
+        del ref_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            out["flash"] = run_flash_kernel_phase(card, cases=PP_FLASH_CASES)
+        dist.barrier()
+    finally:
+        ps.destroy_model_parallel()
+    return out
+
+
+def run_pp_train_phase(card: str) -> dict:
+    outs = tp_spawn(pp_train_rank, card)
+    check(outs[0]["launches"] == outs[1]["launches"],
+          f"pp2 train: launches {outs[0]['launches']} / {outs[1]['launches']}")
+    return outs[0]
+
+
 def timed(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its wall seconds logged under ``name``."""
     t0 = time.perf_counter()
@@ -6826,8 +7024,6 @@ def main() -> int:
     f_prompts, f_outs, f_rids, f_live_launches, f_tile, f_t1, f_served = timed(
         "serve F", run_spec_serve_phase, cfg, model, card)
     timed("serve F e2e", run_spec_e2e_phase, cfg, model, f_prompts, f_outs, f_rids)
-    timed("serve F witness", run_spec_witness_phase, cfg, model, f_prompts,
-          [f_outs[r] for r in f_rids])
     graph = f_twin = timed("serve F graphs", run_graph_phase, fcfg, model, "serve F", f_prompts,
                   [f_outs[r] for r in f_rids], card,
                   lambda o, r: e2e_gaps(model, f_prompts, o, r)[0], F_LOGIT_MARGIN,
@@ -6964,6 +7160,9 @@ def main() -> int:
     # context parallelism: the cp = 2 train step on two ranks over gloo, in
     # both ring layouts
     cp_train = timed("cp2 train", run_cp_train_phase, card)
+    # pipeline parallelism: the pp = 2 train step on two ranks over gloo, in
+    # each schedule
+    pp_train = timed("pp2 train", run_pp_train_phase, card)
 
     fa_src = "neuronx_distributed_llama3_2_tpu_torch/kernels/csrc/"
     pfa = "neuronx_distributed_llama3_2_tpu/kernels/pallas_flash_attention.py:"
@@ -7048,6 +7247,14 @@ def main() -> int:
                 replaces=f"{pfa}{line}", launches=cp_train["launches"][layout][kn - 1],
                 **cp_train["flash"][layout][kn],
             ))
+    # K1-K3 in the pp = 2 stages: both ranks' launches in one step of each
+    # schedule, rank 0's records at a stage's microbatch (PP_FLASH_CASES)
+    for kn, name, src, line in flash_kernels:
+        kernels.append(dict(
+            name=f"{name}_pp2", route="cuda", source=fa_src + src,
+            replaces=f"{pfa}{line}", launches=pp_train["launches"][kn - 1],
+            **pp_train["flash"][kn],
+        ))
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the main path was never launched: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

@@ -45,6 +45,15 @@ old save's markers never count. A load with specs reads the region each
 tensor of the rank needs from whichever files hold it (JAX
 ``_read_region``), so a tag saved at one (tp, dp) loads at another, and a
 tag of either package, whole or chunked, loads on any mesh.
+
+Under a pipeline each pp rank holds its stage's part of the tree: its
+layers (one block, or the interleaved schedule's blocks) and the leaves its
+stage uses. The tag stays in the canonical ``(L, ...)`` layout that JAX's
+``examples/pretrain_llama.py`` saves a pipelined run in: each stage writes
+one chunk file per layer block of its own, the first stage holding a leaf
+writes the other leaves, and rank 0 writes the manifest of every rank's
+entries (gathered from all of them), so the tag loads at any pp, in either
+package.
 """
 
 from __future__ import annotations
@@ -121,8 +130,8 @@ def _walk(tree: Any, fn: Callable, prefix: Tuple[str, ...] = (),
 def _flatten(tree: Any) -> Dict[str, List[Tuple[Optional[int], Any]]]:
     """JAX key -> [(layer, leaf), ...] in the JAX flatten order (dict keys
     sorted at every level, named-tuple fields in order); a stacked leaf
-    lists its layers in order, checked to be one run (0 .. L-1, or the run
-    of layers a ZeRO-1 rank holds)."""
+    lists its layers in order, each once (0 .. L-1, or the layers a ZeRO-1
+    rank or a pipeline stage holds)."""
     flat: Dict[Tuple[str, ...], list] = {}
 
     def visit(path, layer, leaf):
@@ -135,9 +144,9 @@ def _flatten(tree: Any) -> Dict[str, List[Tuple[Optional[int], Any]]]:
         items = flat[path]
         layers = [i for i, _ in items]
         if layers != [None]:
-            if None in layers or sorted(layers) != list(range(min(layers), min(layers) + len(layers))):
+            if None in layers or len(set(layers)) != len(layers):
                 raise ValueError(
-                    f"{_SEP.join(path)}: layers {layers} are not one run of the stack"
+                    f"{_SEP.join(path)}: layers {layers} are not distinct layers of the stack"
                 )
             items = sorted(items, key=lambda it: it[0])
         out[_SEP.join(path)] = items
@@ -335,9 +344,9 @@ class CheckpointIOState:
                 staged.append((key, fname, host))
                 continue
             stacked = items[0][0] is not None
-            if stacked and items[0][0] != 0:
-                raise ValueError(f"{key}: layers start at {items[0][0]}, not 0 (a part of "
-                                 "the stack is saved over several processes)")
+            if stacked and [i for i, _ in items] != list(range(len(items))):
+                raise ValueError(f"{key}: layers {[i for i, _ in items]} are not the whole "
+                                 "stack (a part of the stack is saved over several processes)")
             first = leaves[0]
             shape = (len(leaves), *first.shape) if stacked else tuple(first.shape)
             pin = first.is_cuda
@@ -368,7 +377,8 @@ class CheckpointIOState:
 
     def _add_sharded(self, kind: str, tree: Any, specs: Dict[str, LeafSpec]) -> None:
         """One process's part of a multi-process save: the manifest lists
-        every chunk of every leaf (the same on each rank), and this rank
+        every chunk of every leaf (each rank's entries, gathered, so that
+        rank 0 lists the leaves of every pipeline stage), and this rank
         stages the chunks it writes (module docstring)."""
         coords = playout.mesh_coords()
         sizes = _mesh_sizes()
@@ -395,28 +405,32 @@ class CheckpointIOState:
                 "shape": list(leaf_spec.shape),
                 "dtype": "bfloat16" if bf16 else str(torch.empty((), dtype=first.dtype).numpy().dtype),
             }
-            reg = playout.region(leaf_spec, coords)
             if not playout.is_writer(leaf_spec, coords):
                 continue
-            if stacked:
-                layers = [i for i, _ in items]
-                if layers != list(range(reg[0][0], reg[0][1])):
-                    raise ValueError(f"{key}: this rank holds layers {layers}, its region is {reg[0]}")
-            shape = tuple(b - a for a, b in reg)
-            pin = first.is_cuda
-            on_card |= pin
-            host = self._host_buffer(kind, key, shape, first.dtype, pin)
-            with torch.no_grad():
+            by_layer = dict(items) if stacked else {}
+            for reg in playout.regions(leaf_spec, coords):
                 if stacked:
-                    for i, t in enumerate(leaves):
-                        host[i].copy_(t.detach(), non_blocking=pin)
-                else:
-                    host.copy_(first.detach().reshape(shape), non_blocking=pin)
-            staged.append((_chunk_file(kind, key, reg), host))
+                    want = list(range(*reg[0]))
+                    if any(i not in by_layer for i in want):
+                        raise ValueError(f"{key}: this rank holds layers {sorted(by_layer)}, "
+                                         f"its region is {reg[0]}")
+                    part = [by_layer[i] for i in want]
+                shape = tuple(b - a for a, b in reg)
+                pin = first.is_cuda
+                on_card |= pin
+                host = self._host_buffer(kind, f"{key}@{reg[0][0] if reg else 0}", shape,
+                                         first.dtype, pin)
+                with torch.no_grad():
+                    if stacked:
+                        for i, t in enumerate(part):
+                            host[i].copy_(t.detach(), non_blocking=pin)
+                    else:
+                        host.copy_(first.detach().reshape(shape), non_blocking=pin)
+                staged.append((_chunk_file(kind, key, reg), host))
         if on_card:
             torch.cuda.synchronize()
         files = {fname: _numpy_of(host)[0] for fname, host in staged}
-        self._work.append((kind, manifest, files))
+        self._work.append((kind, _gathered_manifest(manifest, specs), files))
 
     def add_json(self, name: str, obj: Any) -> None:
         self._work.append((name, None, obj))
@@ -480,6 +494,25 @@ def _world() -> int:
     import torch.distributed as dist
 
     return dist.get_world_size() if _multi_process() else 1
+
+
+def _gathered_manifest(manifest: Dict[str, Any], specs: Dict[str, LeafSpec]) -> Dict[str, Any]:
+    """Every rank's manifest entries in one manifest, in the JAX flatten
+    order of ``specs`` (a pipeline stage lists only the leaves it holds)
+    and the entries of ``specs``-less keys after them. Every rank calls
+    it."""
+    import torch.distributed as dist
+
+    if playout.mesh_coords()[playout.parallel_state.PP_AXIS][1] == 1:
+        return manifest
+    parts: List[Any] = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, manifest)
+    merged: Dict[str, Any] = {}
+    for part in parts:
+        for key, entry in part.items():
+            merged.setdefault(key, entry)
+    order = [k for k in specs if k in merged] + [k for k in merged if k not in specs]
+    return {k: merged[k] for k in order}
 
 
 def _wait_for_shard_markers(storage: BaseCheckpointStorage, tag: str, nonce: str,
@@ -689,9 +722,7 @@ def _load_parts(storage: BaseCheckpointStorage, tag: str, kind: str, template: A
         if list(entry["shape"]) != list(leaf.shape):
             raise ValueError(f"shape mismatch for {key}: checkpoint {entry['shape']} "
                              f"vs expected {list(leaf.shape)}")
-        reg = playout.region(leaf, coords)
-        if layer is not None:
-            reg = ((layer, layer + 1),) + reg[1:]
+        reg = playout.region(leaf, coords, layer)
         arr = _load_region(storage, tag, entry, reg, cache)
         if layer is not None:
             arr = arr[0]

@@ -9,7 +9,8 @@ loader yields numpy batches; :func:`batch_to_device` puts one on the card.
 Over several processes each data-parallel rank reads only its rows of
 each global batch: dp rank r the r-th of dp contiguous blocks, the JAX
 package's ``process_index`` split with the dp rank in the place of the
-process (the tp ranks of one dp group read the same rows). The position
+process (the tp, cp and pp ranks of one dp rank read the same rows: the
+first stage of a pipeline its tokens, the last its labels). The position
 (:class:`LoaderState`) is the same on every rank, so each resumes its own
 rows.
 """
@@ -145,8 +146,8 @@ class DistributedDataLoader:
 
     def rows(self) -> Optional[slice]:
         """This process's rows of each global batch: its dp rank's block
-        (None, the whole batch, on one process); the tp and cp ranks of one
-        dp rank read the same rows."""
+        (None, the whole batch, on one process); the tp, cp and pp ranks of
+        one dp rank read the same rows."""
         if world_size() == 1:
             return None
         if not parallel_state.model_parallel_is_initialized():

@@ -26,8 +26,12 @@ sequence: the tokens, their positions and the shifted labels are permuted
 once into the ring's layout (``cp_ring_layout``) and cut before the
 embedding, attention is the ring over the cp group
 (:mod:`..kernels.ring_attention`), and the loss sums and token counts are
-all-reduced over cp. Pipeline and expert parallelism wait for later slices
-(``ROADMAP.md``).
+all-reduced over cp. Under pipeline parallelism (a mesh with pp > 1) the
+model is one stage (:class:`Stage`): it holds its stage's decoder layers
+under their global names (``layers.<i>``), the embedding on the first stage
+(and on the last, when the head is tied to it), the final norm and the head
+on the last; :mod:`..pipeline` runs the stages. Expert parallelism waits
+for a later slice (``ROADMAP.md``).
 
 Training runs :meth:`LlamaForCausalLM.loss` (the chunked cross-entropy of
 ``loss_chunk_size``, vocab-parallel under tp) and the flash-attention
@@ -64,6 +68,7 @@ from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -103,6 +108,7 @@ from neuronx_distributed_llama3_2_tpu_torch.parallel.layout import (
     LeafSpec,
     mesh_coords,
     port_slice,
+    region,
 )
 from neuronx_distributed_llama3_2_tpu_torch.parallel.mappings import (
     all_gather,
@@ -629,15 +635,76 @@ class LlamaDecoderLayer(nn.Module):
         return _checkpoint(self._rest, x, attn)
 
 
+class Stage(NamedTuple):
+    """What one pipeline stage (pp rank ``rank`` of ``pp``) holds: the
+    layers of each of its ``chunks`` model chunks (chunk v is the layer
+    block of virtual stage ``v * pp + rank``, JAX ``to_pipeline``), and
+    whether it runs the embedding (the first stage) and the head (the
+    last)."""
+
+    rank: int
+    pp: int
+    chunk_layers: Tuple[Tuple[int, ...], ...]
+
+    @property
+    def chunks(self) -> int:
+        return len(self.chunk_layers)
+
+    @property
+    def layers(self) -> Tuple[int, ...]:
+        return tuple(i for block in self.chunk_layers for i in block)
+
+    @property
+    def first(self) -> bool:
+        return self.rank == 0
+
+    @property
+    def last(self) -> bool:
+        return self.rank == self.pp - 1
+
+
+def pipeline_stage(num_layers: int, pp: int, rank: int, chunks: int = 1) -> Stage:
+    """Stage ``rank`` of ``pp``: the layers split into ``pp * chunks`` equal
+    blocks, block ``u`` on rank ``u % pp`` (the reference's even
+    partition, partition.py:280; Megatron's chunk assignment under
+    interleaving)."""
+    if num_layers % (pp * chunks):
+        raise ValueError(f"num_layers {num_layers} not divisible by pp*chunks {pp}*{chunks}")
+    w = num_layers // (pp * chunks)
+    return Stage(rank, pp, tuple(tuple(range(u * w, (u + 1) * w))
+                                 for u in range(rank, pp * chunks, pp)))
+
+
+class LayerStack(nn.ModuleList):
+    """The decoder layers a stage holds, registered under their global
+    indices so that their parameters keep the names ``layers.<i>.*``.
+    Iteration and integer indexing go by position."""
+
+    def __init__(self, layers: Mapping[int, nn.Module]):
+        super().__init__()
+        for i, layer in layers.items():
+            self.add_module(str(i), layer)
+
+    def __getitem__(self, idx: int) -> nn.Module:
+        return list(self._modules.values())[idx]
+
+    def by_index(self) -> Dict[int, nn.Module]:
+        return {int(k): m for k, m in self._modules.items()}
+
+
 class LlamaForCausalLM(nn.Module):
     """Full causal LM: ``forward(input_ids)`` returns logits (B, S, V).
 
     Parameters are allocated on ``device`` (the card unless the caller asks
     for another) and left uninitialized: load them with
     ``load_state_dict(params_from_jax(...))`` or draw them from a seed with
-    :meth:`init_weights`."""
+    :meth:`init_weights`. Built under a mesh with pp > 1 the model is this
+    rank's pipeline stage (:class:`Stage`, ``num_model_chunks`` layer blocks
+    of it under the interleaved schedule), run by
+    :class:`..pipeline.PipelinedCausalLM`."""
 
-    def __init__(self, config: LlamaConfig, device: DeviceLike = "cuda"):
+    def __init__(self, config: LlamaConfig, device: DeviceLike = "cuda",
+                 num_model_chunks: int = 1):
         super().__init__()
         dev = resolve_device(device)
         c = config
@@ -646,35 +713,64 @@ class LlamaForCausalLM(nn.Module):
         # Megatron SP only means something across several tp ranks
         self.sequence_parallel = parallel_state.sequence_parallel_enabled() and self.tp > 1
         sp = self.sequence_parallel
-        self.embed = ParallelEmbedding(
-            c.vocab_size, c.hidden_size, dtype=c.dtype, device=dev
+        pp = parallel_state.pipeline_parallel_size_or(1)
+        self.stage = (
+            pipeline_stage(c.num_layers, pp, parallel_state.pipeline_parallel_rank_or(0),
+                           num_model_chunks)
+            if pp > 1 else None
         )
-        self.layers = nn.ModuleList(
-            LlamaDecoderLayer(c, dev, sp) for _ in range(c.num_layers)
+        if self.stage is None and num_model_chunks != 1:
+            raise ValueError("num_model_chunks > 1 needs a pipeline (pp > 1)")
+        st = self.stage
+        self.embed = (
+            ParallelEmbedding(c.vocab_size, c.hidden_size, dtype=c.dtype, device=dev)
+            if st is None or st.first or (st.last and c.tie_word_embeddings) else None
         )
-        self.final_norm = make_norm(c, dev, sp)
+        if st is None:
+            self.layers = nn.ModuleList(
+                LlamaDecoderLayer(c, dev, sp) for _ in range(c.num_layers)
+            )
+        else:
+            self.layers = LayerStack({i: LlamaDecoderLayer(c, dev, sp) for i in st.layers})
+        last = st is None or st.last
+        self.final_norm = make_norm(c, dev, sp) if last else None
         self.lm_head = (
-            None if c.tie_word_embeddings
+            None if c.tie_word_embeddings or not last
             else ColumnParallelLinear(
                 c.hidden_size, c.vocab_size, dtype=c.dtype, device=dev
             )
         )
+        self._device = dev
 
     @property
     def device(self) -> torch.device:
-        return self.embed.embedding.device
+        return self._device
 
     def init_weights(self, seed: int) -> "LlamaForCausalLM":
         """Random weights from ``seed`` (N(0, 0.02) kernels, unit norms),
-        drawn on the parameters' own device."""
+        drawn on the parameters' own device. A pipeline stage draws what the
+        whole model would, in the same order, and keeps its own: the parts
+        another stage holds are drawn into a throwaway module of the same
+        kind, so each stage's weights are the whole model's."""
         g = torch.Generator(device=self.device).manual_seed(seed)
-        self.embed.reset_parameters(g)
-        for layer in self.layers:
-            layer.reset_parameters(g)
-        self.final_norm.reset_parameters()
-        if self.lm_head is not None:
-            self.lm_head.reset_parameters(g)
+        c, dev, sp = self.config, self.device, self.sequence_parallel
+        (self.embed or ParallelEmbedding(c.vocab_size, c.hidden_size, dtype=c.dtype,
+                                         device=dev)).reset_parameters(g)
+        held = (dict(enumerate(self.layers)) if self.stage is None
+                else self.layers.by_index())
+        for i in range(c.num_layers):
+            (held.get(i) or LlamaDecoderLayer(c, dev, sp)).reset_parameters(g)
+        if self.final_norm is not None:
+            self.final_norm.reset_parameters()
+        if not c.tie_word_embeddings:
+            (self.lm_head or ColumnParallelLinear(c.hidden_size, c.vocab_size, dtype=c.dtype,
+                                                  device=dev)).reset_parameters(g)
         return self
+
+    def param_specs(self) -> Dict[str, "LeafSpec"]:
+        """:func:`param_specs` of this model on the live mesh (its stage's
+        chunks under a pipeline)."""
+        return param_specs(self.config, chunks=self.stage.chunks if self.stage else 1)
 
     def _rope(self, s: int, device=None):
         c = self.config
@@ -722,10 +818,6 @@ class LlamaForCausalLM(nn.Module):
             t = t.index_select(1, plan.perm)
         return split(t, 1, plan.group)
 
-    def _cp_inputs(self, input_ids, positions, plan: Optional[CpPlan]):
-        """This rank's token ids and their (global) positions."""
-        return self._cp_take(input_ids, plan), self._cp_take(positions, plan)
-
     def _cp_labels(self, labels: torch.Tensor, plan: CpPlan) -> torch.Tensor:
         """This rank's labels: shifted once over the whole sequence (label s
         + 1 at position s, IGNORE_INDEX at the last), then permuted and cut
@@ -733,30 +825,48 @@ class LlamaForCausalLM(nn.Module):
         pad = torch.full_like(labels[:, :1], IGNORE_INDEX)
         return self._cp_take(torch.cat([labels[:, 1:], pad], dim=1), plan)
 
+    def _positions(self, b: int, s: int, plan: Optional[CpPlan], device):
+        """(positions, sin, cos) of a (b, s) batch: this rank's positions
+        under context parallelism."""
+        positions = torch.arange(s, device=device).expand(b, s)
+        sin, cos = self._rope(s)
+        return self._cp_take(positions, plan), sin, cos
+
+    def _embed_tokens(self, input_ids: torch.Tensor, plan: Optional[CpPlan]) -> torch.Tensor:
+        """This rank's embedded tokens: its cp chunk, and under SP its
+        sequence shard (the embedding reduce-scatters along the sequence;
+        the layers run on shards and attention sees the whole sequence)."""
+        ids = self._cp_take(input_ids, plan)
+        return self.embed(ids, sequence_parallel=self.sequence_parallel)
+
+    def _run_layers(self, x: torch.Tensor, layers, positions, sin, cos,
+                    plan: Optional[CpPlan]) -> torch.Tensor:
+        """``layers`` in turn on ``x``, each under ``config.remat`` while
+        autograd records (the serving and eval forward keeps nothing either
+        way), in the cp layout of ``plan``."""
+        remat = self.config.remat if torch.is_grad_enabled() else "none"
+        with cp_layout_from_inv(plan.inv if plan is not None else None):
+            for layer in layers:
+                x = self._layer(layer, remat, x, sin, cos, positions)
+        return x
+
+    def _final(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm, then out of the SP region (the LM head's input
+        region sums the gradient over tp, so the backward keeps this rank's
+        part)."""
+        x = self.final_norm(x)
+        if self.sequence_parallel:
+            x = gather_from_sequence_parallel_region(x, dim=1, to_model_parallel=False)
+        return x
+
     def _backbone(self, input_ids: torch.Tensor, plan: Optional[CpPlan] = None) -> torch.Tensor:
         """Embed + decoder stack + final norm -> hidden states (B, S, H),
         or under context parallelism (``plan``) this rank's (B, S/cp, H)
-        chunk in the plan's layout. While autograd records, each layer runs
-        under ``config.remat``; the serving and eval forward (no autograd)
-        keeps nothing either way."""
-        c = self.config
-        remat = c.remat if torch.is_grad_enabled() else "none"
+        chunk in the plan's layout."""
         b, s = input_ids.shape
-        positions = torch.arange(s, device=input_ids.device).expand(b, s)
-        sin, cos = self._rope(s)
-        input_ids, positions = self._cp_inputs(input_ids, positions, plan)
-        # under SP the embedding reduce-scatters along the sequence and the
-        # layers run on sequence shards; attention sees the whole sequence
-        x = self.embed(input_ids, sequence_parallel=self.sequence_parallel)
-        with cp_layout_from_inv(plan.inv if plan is not None else None):
-            for layer in self.layers:
-                x = self._layer(layer, remat, x, sin, cos, positions)
-        x = self.final_norm(x)
-        if self.sequence_parallel:
-            # leave the SP region; the LM head's input region sums the
-            # gradient over tp, so the backward keeps this rank's part
-            x = gather_from_sequence_parallel_region(x, dim=1, to_model_parallel=False)
-        return x
+        positions, sin, cos = self._positions(b, s, plan, input_ids.device)
+        x = self._embed_tokens(input_ids, plan)
+        return self._final(self._run_layers(x, self.layers, positions, sin, cos, plan))
 
     def _local_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """This rank's (..., V/tp) slice of the logits (all of them at tp
@@ -810,21 +920,28 @@ class LlamaForCausalLM(nn.Module):
         loss_sum, count = self._loss_sums(hidden[:, :-1, :], labels[:, 1:])
         return loss_sum / torch.clamp(count, min=1.0)
 
+    def _head_sums(self, hidden: torch.Tensor, labels: torch.Tensor,
+                   plan: Optional[CpPlan]):
+        """(CE sum, count of the tokens that carry loss) of the final
+        hidden states against the unshifted labels: under context
+        parallelism this rank's chunk's, against its part of the shifted
+        labels (:meth:`_cp_labels`), both all-reduced over cp (the sum's
+        backward is the identity: each rank's gradient is its chunk's
+        share, which the trainer sums over cp)."""
+        if plan is None:
+            return self._loss_sums(hidden[:, :-1, :], labels[:, 1:])
+        loss_sum, count = self._loss_sums(hidden, self._cp_labels(labels, plan))
+        loss_sum = reduce_from_tensor_model_parallel_region(loss_sum, group=plan.group)
+        return loss_sum, all_reduce(count.detach(), plan.group)
+
     def loss(self, input_ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """Mean next-token cross-entropy, fp32 scalar. ``labels`` are
         aligned with ``input_ids`` (HF convention: the shift happens here).
         Records autograd unless the caller disables it. Under context
-        parallelism each rank sums the CE of its chunk against its part of
-        the shifted labels (:meth:`_cp_labels`), and the sums and counts are
-        all-reduced over cp (the sum's backward is the identity: each rank's
-        gradient is its chunk's share, which the trainer sums over cp)."""
+        parallelism the sums and counts are those of every rank's chunk
+        (:meth:`_head_sums`)."""
         plan = self._cp_plan(input_ids.shape[1], input_ids.device)
-        hidden = self._backbone(input_ids, plan)
-        if plan is None:
-            return self.loss_from_hidden(hidden, labels)
-        loss_sum, count = self._loss_sums(hidden, self._cp_labels(labels, plan))
-        loss_sum = reduce_from_tensor_model_parallel_region(loss_sum, group=plan.group)
-        count = all_reduce(count.detach(), plan.group)
+        loss_sum, count = self._head_sums(self._backbone(input_ids, plan), labels, plan)
         return loss_sum / torch.clamp(count, min=1.0)
 
 
@@ -860,40 +977,50 @@ def jax_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
     return tuple(parts), None
 
 
-def param_specs(config: LlamaConfig, tp: Optional[int] = None) -> Dict[str, LeafSpec]:
+def param_specs(config: LlamaConfig, tp: Optional[int] = None, pp: Optional[int] = None,
+                chunks: int = 1) -> Dict[str, LeafSpec]:
     """Each port parameter name -> the :class:`..parallel.layout.LeafSpec`
     of its JAX leaf: the global shape (L first for the stacked layer
     leaves) and the JAX ``LlamaForCausalLM.specs()`` split, at tensor
-    parallel size ``tp`` (the live one by default)."""
+    parallel size ``tp`` and pipeline size ``pp`` (the live ones by
+    default). At pp > 1 the layer stack is split over pp in ``pp * chunks``
+    blocks (:func:`pipeline_stage`), the embedding lives on the first stage
+    (and the last when tied), the final norm and an untied head on the
+    last (``LeafSpec.stages``)."""
     c = config
     tp = parallel_state.tensor_parallel_size_or(1) if tp is None else tp
+    pp = parallel_state.pipeline_parallel_size_or(1) if pp is None else pp
     L, H, I, D = c.num_layers, c.hidden_size, c.intermediate_size, c.head_dim
     T = parallel_state.TP_AXIS
+    Lx = parallel_state.PP_AXIS if pp > 1 else None
     kv = T if kv_mode(c.num_heads, c.num_kv_heads, D, tp) != "replicated" else None
     layer = {
-        "attn_norm.scale": ((L, H), (None, None)),
-        "attn.qkv.q_kernel": ((L, H, c.num_heads * D), (None, None, T)),
-        "attn.qkv.k_kernel": ((L, H, c.num_kv_heads * D), (None, None, kv)),
-        "attn.qkv.v_kernel": ((L, H, c.num_kv_heads * D), (None, None, kv)),
-        "attn.o.kernel": ((L, c.num_heads * D, H), (None, T, None)),
-        "mlp_norm.scale": ((L, H), (None, None)),
-        "mlp.gate_up": ((L, H, 2, I), (None, None, None, T)),
-        "mlp.down.kernel": ((L, I, H), (None, T, None)),
+        "attn_norm.scale": ((L, H), (Lx, None)),
+        "attn.qkv.q_kernel": ((L, H, c.num_heads * D), (Lx, None, T)),
+        "attn.qkv.k_kernel": ((L, H, c.num_kv_heads * D), (Lx, None, kv)),
+        "attn.qkv.v_kernel": ((L, H, c.num_kv_heads * D), (Lx, None, kv)),
+        "attn.o.kernel": ((L, c.num_heads * D, H), (Lx, T, None)),
+        "mlp_norm.scale": ((L, H), (Lx, None)),
+        "mlp.gate_up": ((L, H, 2, I), (Lx, None, None, T)),
+        "mlp.down.kernel": ((L, I, H), (Lx, T, None)),
     }
-    specs = {"embed.embedding": LeafSpec((c.vocab_size, H), (T, None))}
+    first, last = ((0,), (pp - 1,)) if pp > 1 else ((), ())
+    embed_stages = tuple(sorted(set(first + last))) if c.tie_word_embeddings else first
+    specs = {"embed.embedding": LeafSpec((c.vocab_size, H), (T, None), stages=embed_stages)}
     for i in range(L):
         for name, (shape, spec) in layer.items():
-            specs[f"layers.{i}.{name}"] = LeafSpec(shape, spec, stacked=True)
-    specs["final_norm.scale"] = LeafSpec((H,), (None,))
+            specs[f"layers.{i}.{name}"] = LeafSpec(shape, spec, stacked=True,
+                                                   chunks=chunks if pp > 1 else 1)
+    specs["final_norm.scale"] = LeafSpec((H,), (None,), stages=last)
     if not c.tie_word_embeddings:
-        specs["lm_head.kernel"] = LeafSpec((H, c.vocab_size), (None, T))
+        specs["lm_head.kernel"] = LeafSpec((H, c.vocab_size), (None, T), stages=last)
     return specs
 
 
 def params_from_jax(
     np_params: Mapping[str, Any], config: LlamaConfig,
     device: DeviceLike = "cuda", *, tp_rank: Optional[int] = None,
-    tp_size: Optional[int] = None,
+    tp_size: Optional[int] = None, chunks: int = 1,
 ) -> Dict[str, torch.Tensor]:
     """The JAX package's Llama pytree, as numpy arrays, -> a state dict for
     :class:`LlamaForCausalLM`: rank ``tp_rank``'s shard of each leaf at
@@ -901,7 +1028,9 @@ def params_from_jax(
     default; whole tensors without one), cut by JAX's ``specs()``
     (:func:`param_specs`). ``layers`` leaves are stacked on a leading L axis
     (the fused MLP weight is ``gate_up`` (L, H, 2, I)) and unstacked per
-    layer here. Norm scales stay fp32, kernels take ``config.dtype``."""
+    layer here (under a pipeline, the layers of this rank's stage in
+    ``chunks`` blocks, and the other leaves its stage holds). Norm scales
+    stay fp32, kernels take ``config.dtype``."""
     coords = dict(mesh_coords())
     if tp_size is not None:
         coords[parallel_state.TP_AXIS] = (tp_rank or 0, tp_size)
@@ -910,7 +1039,8 @@ def params_from_jax(
     return tree_from_jax(
         np_params, config,
         lambda name: torch.float32 if name.endswith("scale") else config.dtype,
-        device, specs=param_specs(config, coords[parallel_state.TP_AXIS][1]), coords=coords,
+        device, specs=param_specs(config, coords[parallel_state.TP_AXIS][1], chunks=chunks),
+        coords=coords,
     )
 
 
@@ -928,7 +1058,7 @@ def tree_from_jax(
     dev = resolve_device(device)
     coords = mesh_coords() if coords is None else coords
     if specs is None:
-        specs = param_specs(config, 1)
+        specs = param_specs(config, 1, 1)
         coords = {}
     cache: Dict[Tuple[str, ...], np.ndarray] = {}
     sd: Dict[str, torch.Tensor] = {}
@@ -950,16 +1080,39 @@ def tree_from_jax(
 def gather_leaf(tensors: Dict[Optional[int], torch.Tensor], leaf: LeafSpec) -> np.ndarray:
     """The whole JAX leaf, as fp32 numpy, from this rank's tensors of it
     (by layer index, or None for an unstacked leaf), gathered over every
-    mesh axis its spec splits. Every rank of the mesh must call it."""
+    mesh axis its spec splits: a leaf that lives on some stages of a
+    pipeline is broadcast from the first of them, the layer stack is
+    gathered over pp and its interleaved blocks put back in layer order.
+    Every rank of the mesh must call it."""
+    live = parallel_state.model_parallel_is_initialized()
+    coords = mesh_coords()
     if leaf.stacked:
-        t = torch.stack([tensors[i] for i in sorted(tensors)])
+        t = torch.stack([tensors[i] for i in sorted(tensors)]) if tensors else None
     else:
-        t = tensors[None]
+        t = tensors.get(None)
+    if leaf.stages and live and coords[parallel_state.PP_AXIS][1] > 1:
+        src = leaf.stages[0]
+        group = parallel_state.get_pipeline_model_parallel_group()
+        shape = [b - a for a, b in region(dataclasses.replace(leaf, stages=()), coords)]
+        buf = (t.detach().float().contiguous() if t is not None
+               else torch.empty(shape, dtype=torch.float32, device=_mesh_device()))
+        dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
+        t = buf
     t = t.detach().float()
     for dim, axis in enumerate(leaf.spec):
-        if axis is not None and parallel_state.model_parallel_is_initialized():
+        if axis is not None and live:
             t = all_gather(t, dim, parallel_state.get_parallel_state().group(axis))
-    return t.cpu().numpy()
+    if leaf.mentions(parallel_state.PP_AXIS) and leaf.chunks > 1:
+        # gathered rank-major (rank r's chunks in turn); block u = v*pp + r
+        pp, v = coords[parallel_state.PP_AXIS][1], leaf.chunks
+        blocks = t.chunk(pp * v, dim=0)
+        t = torch.cat([blocks[(u % pp) * v + u // pp] for u in range(pp * v)], dim=0)
+    # a copy: on the CPU the array would share the parameter's memory
+    return t.cpu().numpy().copy()
+
+
+def _mesh_device() -> torch.device:
+    return torch.device(parallel_state.get_parallel_state().mesh.device_type)
 
 
 def params_to_jax(

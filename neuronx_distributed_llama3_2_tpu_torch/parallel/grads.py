@@ -7,9 +7,10 @@ plain sum; the port's rank holds shards, and the norm is the reference's
 squares are summed on the ranks that hold a distinct part of it and
 skipped on the ranks that hold a copy (``owned``: a tp-replicated leaf
 counts on tp rank 0 alone, a leaf whole on every dp rank on dp rank 0
-alone, a ZeRO-1 shard on its own rank), then one all-reduce sums the parts
-over every rank. Nothing syncs with the host: the norm stays a device
-scalar.
+alone, a ZeRO-1 shard on its own rank, a pipeline's layer on its stage and
+the tied embedding on the first stage alone), then one all-reduce sums the
+parts over every rank, every pp rank's among them. Nothing syncs with the
+host: the norm stays a device scalar.
 """
 
 from __future__ import annotations

@@ -12,6 +12,16 @@ port's per-layer tensors ``layers.<i>.<name>``. No leaf is split over cp:
 parameters and ZeRO-1's state are replicated over it (JAX
 ``trainer/optimizer.py:85-94`` shards the state over ``("dp", "ep")``
 alone), so the cp ranks of one (dp, tp) coordinate hold the same parts.
+
+Under pipeline parallelism the layers of a stacked leaf are split over
+``"pp"`` along the layer dim, in ``pp * chunks`` equal blocks of which
+block ``u`` sits on pp rank ``u % pp`` (one contiguous block a stage, or
+the interleaved schedule's ``chunks`` blocks: JAX ``to_pipeline``'s
+``(V, pp, L/(pp·V), ...)`` layout read back in the canonical ``(L, ...)``
+one). A leaf outside the layers lives on the stages that use it
+(``stages``: the embedding on the first, and on the last when the head is
+tied to it; the final norm and an untied head on the last), the first of
+them writing it and counting it in the gradient norm.
 """
 
 from __future__ import annotations
@@ -32,6 +42,8 @@ class LeafSpec:
     shape: Tuple[int, ...]  # the JAX leaf's global shape (L first when stacked)
     spec: Spec              # mesh axis per dim, or None
     stacked: bool = False   # a (L, ...) stack of the port's per-layer tensors
+    chunks: int = 1         # layer blocks a pp rank holds ("pp" on the layer dim)
+    stages: Tuple[int, ...] = ()  # the pp ranks holding an unstacked leaf (all: ())
 
     def __post_init__(self):
         if len(self.spec) != len(self.shape):
@@ -54,9 +66,11 @@ class LeafSpec:
 
 
 def mesh_coords() -> Dict[str, Tuple[int, int]]:
-    """This process's (rank, size) on tp, dp and cp; (0, 1) each without
-    parallel state."""
+    """This process's (rank, size) on tp, dp, cp and pp; (0, 1) each
+    without parallel state."""
     return {
+        parallel_state.PP_AXIS: (parallel_state.pipeline_parallel_rank_or(0),
+                                 parallel_state.pipeline_parallel_size_or(1)),
         parallel_state.TP_AXIS: (parallel_state.tensor_parallel_rank_or(0),
                                  parallel_state.tensor_parallel_size_or(1)),
         parallel_state.DP_AXIS: (parallel_state.data_parallel_rank_or(0),
@@ -66,39 +80,99 @@ def mesh_coords() -> Dict[str, Tuple[int, int]]:
     }
 
 
-def region(leaf: LeafSpec, coords: Coords) -> Region:
-    """The global index ((start, stop) per dim) of the rank's part."""
-    out = []
-    for axis, n in zip(leaf.spec, leaf.shape):
-        if axis is None:
-            out.append((0, n))
-            continue
-        r, s = coords.get(axis, (0, 1))
-        if n % s:
-            raise ValueError(f"dim of size {n} does not split over {s} ranks of {axis}")
-        w = n // s
-        out.append((r * w, (r + 1) * w))
-    return tuple(out)
+def _pp_blocks(leaf: LeafSpec, pp_rank: int, pp: int) -> list:
+    """The (start, stop) blocks of the layer dim that pp rank ``pp_rank``
+    holds, in order."""
+    n = leaf.shape[0]
+    blocks = pp * leaf.chunks
+    if n % blocks:
+        raise ValueError(f"{n} layers do not split into {pp} stages x {leaf.chunks} chunks")
+    w = n // blocks
+    return [(u * w, (u + 1) * w) for u in range(pp_rank, blocks, pp)]
+
+
+def dim_range(leaf: LeafSpec, coords: Coords, dim: int) -> Tuple[int, int]:
+    """The (start, stop) of the rank's part along one dim (not the layer dim
+    of a leaf split over pp in several chunks: :func:`regions`)."""
+    axis, n = leaf.spec[dim], leaf.shape[dim]
+    if axis is None:
+        return (0, n)
+    r, s = coords.get(axis, (0, 1))
+    if axis == parallel_state.PP_AXIS:
+        blocks = _pp_blocks(leaf, r, s)
+        if len(blocks) != 1:
+            raise ValueError("a leaf split over pp in several chunks has several regions")
+        return blocks[0]
+    if n % s:
+        raise ValueError(f"dim of size {n} does not split over {s} ranks of {axis}")
+    w = n // s
+    return (r * w, (r + 1) * w)
+
+
+def region(leaf: LeafSpec, coords: Coords, layer: Optional[int] = None) -> Region:
+    """The global index ((start, stop) per dim) of the rank's part; with
+    ``layer``, of that layer's slice of a stacked leaf."""
+    if layer is None:
+        return tuple(dim_range(leaf, coords, i) for i in range(len(leaf.shape)))
+    return ((layer, layer + 1),) + tuple(dim_range(leaf, coords, i)
+                                         for i in range(1, len(leaf.shape)))
+
+
+def regions(leaf: LeafSpec, coords: Coords) -> list:
+    """Every region of ``leaf`` the rank holds: one, or one per layer block
+    of a leaf split over pp (none on a stage without the leaf)."""
+    pp_r = coords.get(parallel_state.PP_AXIS, (0, 1))[0]
+    if leaf.stages and pp_r not in leaf.stages:
+        return []
+    if not leaf.mentions(parallel_state.PP_AXIS):
+        return [region(leaf, coords)]
+    rest = [dim_range(leaf, coords, i) for i in range(1, len(leaf.shape))]
+    r, s = coords.get(parallel_state.PP_AXIS, (0, 1))
+    return [(block, *rest) for block in _pp_blocks(leaf, r, s)]
+
+
+def holds(leaf: LeafSpec, coords: Coords, layer: Optional[int] = None) -> bool:
+    """Whether the rank holds any part of ``leaf`` (of layer ``layer`` of a
+    stacked one)."""
+    regs = regions(leaf, coords)
+    if layer is None or not leaf.stacked:
+        return bool(regs)
+    return any(lo <= layer < hi for (lo, hi), *_ in regs)
 
 
 def all_regions(leaf: LeafSpec, sizes: Mapping[str, int]) -> list:
     """Every distinct region of ``leaf`` over the mesh, in the mesh's rank
-    order (dp outer, tp inner): the chunk list of a multi-process
-    checkpoint."""
+    order (pp outer, dp, tp inner; the layer blocks of a leaf split over pp
+    in layer order): the chunk list of a multi-process checkpoint."""
     seen: Dict[Region, None] = {}
     tp, dp = sizes.get(parallel_state.TP_AXIS, 1), sizes.get(parallel_state.DP_AXIS, 1)
-    for d in range(dp):
-        for t in range(tp):
-            seen.setdefault(region(leaf, {parallel_state.TP_AXIS: (t, tp),
-                                          parallel_state.DP_AXIS: (d, dp)}))
-    return list(seen)
+    pp = sizes.get(parallel_state.PP_AXIS, 1)
+    for p in range(pp):
+        for d in range(dp):
+            for t in range(tp):
+                coords = {parallel_state.TP_AXIS: (t, tp), parallel_state.DP_AXIS: (d, dp),
+                          parallel_state.PP_AXIS: (p, pp)}
+                for reg in regions(dataclasses.replace(leaf, stages=()), coords):
+                    seen.setdefault(reg)
+    return sorted(seen) if leaf.mentions(parallel_state.PP_AXIS) else list(seen)
+
+
+def pp_owner(leaf: LeafSpec, coords: Coords) -> bool:
+    """Whether this pp rank is the one that writes ``leaf`` and counts it in
+    the gradient norm: every stage its own layers, the first stage holding
+    any other leaf."""
+    pp_r = coords.get(parallel_state.PP_AXIS, (0, 1))[0]
+    if leaf.mentions(parallel_state.PP_AXIS):
+        return True
+    return pp_r == (leaf.stages[0] if leaf.stages else 0)
 
 
 def is_writer(leaf: LeafSpec, coords: Coords) -> bool:
     """Whether this rank is the lowest rank holding its region of ``leaf``
     (the one that writes it): rank 0 of every axis the leaf is replicated
-    over, cp rank 0 for every leaf."""
-    return all(
+    over, cp rank 0 for every leaf, and the pp rank :func:`pp_owner`
+    names."""
+    return pp_owner(leaf, coords) and all(
         coords.get(axis, (0, 1))[0] == 0
         for axis in (parallel_state.TP_AXIS, parallel_state.DP_AXIS, parallel_state.CP_AXIS)
         if not leaf.mentions(axis)
@@ -109,9 +183,9 @@ def port_slice(leaf: LeafSpec, coords: Coords, layer: Optional[int]):
     """(held, index) of one port tensor: whether this rank holds it, and
     the slices that cut it out of the full per-layer (``layer`` set) or
     unstacked array."""
-    reg = region(leaf, coords)
+    if not holds(leaf, coords, layer):
+        return False, ()
+    reg = region(leaf, coords, layer if leaf.stacked else None)
     if leaf.stacked:
-        lo, hi = reg[0]
-        return lo <= layer < hi, tuple(slice(a, b) for a, b in reg[1:])
+        return True, tuple(slice(a, b) for a, b in reg[1:])
     return True, tuple(slice(a, b) for a, b in reg)
-

@@ -26,13 +26,24 @@ reduce_scatter_to_sequence_parallel_region   reduce-scatter  all-gather
 tensor to rank i + 1 and gets rank i - 1's, and its backward rotates the
 gradient the other way.
 
+:func:`send_forward`, :func:`recv_forward`, :func:`send_backward` and
+:func:`recv_backward` carry a pipeline's stage boundary between two pp
+ranks (the reference's ``pipeline/comm.py``; JAX's ``jnp.roll`` of the
+stream): a send does not block, and its request is kept until
+:func:`finish_sends` at the end of the step; a receive waits. Messages
+between a pair of ranks are matched by their order, never by a tag (NCCL
+has none), which the schedules' task lists keep
+(``tests/test_torch_pipeline.py``).
+
 Without parallel state every region is the identity and issues nothing.
 Under a mesh each region issues its collective even over a group of one
 rank (NCCL at world size 1 then runs, and a CUDA graph captures, the
 collectives of the tp code path). Each raw collective adds one to
 :data:`COLLECTIVE_COUNTS` under its name when it is issued
-(``all_reduce``, ``all_gather``, ``reduce_scatter``, ``ring_shift``), so a
-caller can count the collectives a step (or a captured CUDA graph) holds.
+(``all_reduce``, ``all_gather``, ``reduce_scatter``, ``ring_shift``,
+``send_forward``, ``recv_forward``, ``send_backward``, ``recv_backward``),
+so a caller can count the collectives a step (or a captured CUDA graph)
+holds.
 """
 
 from __future__ import annotations
@@ -150,6 +161,69 @@ def ring_shift(x: torch.Tensor, group, hops: int = 1) -> torch.Tensor:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the pipeline's stage boundary (reference pipeline/comm.py)
+# ---------------------------------------------------------------------------
+
+def pp_transport(group) -> str:
+    """How a stage boundary's tensor moves over ``group``'s backend:
+    ``"send_recv"`` (``isend`` / ``irecv`` of the tensor itself) under
+    NCCL; ``"host_send_recv"`` otherwise: gloo's point-to-point refuses
+    CUDA tensors (``chip_trials/gloo_p2p_trial.py``) and carries CPU ones,
+    so the tensor is copied to a host buffer first and the receiver copies
+    it back to its device. The CPU takes the card's gloo path."""
+    return "send_recv" if dist.get_backend(group) == "nccl" else "host_send_recv"
+
+
+#: the sends of the step in flight: (request, buffer), kept alive until
+#: :func:`finish_sends`
+_PENDING_SENDS: list = []
+
+
+def _send(x: torch.Tensor, dst: int, group, kind: str) -> None:
+    COLLECTIVE_COUNTS[kind] += 1
+    buf = x.detach().contiguous()
+    if pp_transport(group) == "host_send_recv":
+        buf = buf.to("cpu", copy=True)
+    _PENDING_SENDS.append((dist.isend(buf, dst, group=group), buf))
+
+
+def _recv(shape, dtype, device, src: int, group, kind: str) -> torch.Tensor:
+    COLLECTIVE_COUNTS[kind] += 1
+    host = pp_transport(group) == "host_send_recv"
+    buf = torch.empty(tuple(shape), dtype=dtype, device="cpu" if host else device)
+    dist.irecv(buf, src, group=group).wait()
+    return buf.to(device) if host else buf
+
+
+def send_forward(x: torch.Tensor, dst: int, group) -> None:
+    """Send a stage's output to the next stage's global rank ``dst``."""
+    _send(x, dst, group, "send_forward")
+
+
+def recv_forward(shape, dtype, device, src: int, group) -> torch.Tensor:
+    """The previous stage's output (from global rank ``src``), on
+    ``device``; waits for it."""
+    return _recv(shape, dtype, device, src, group, "recv_forward")
+
+
+def send_backward(g: torch.Tensor, dst: int, group) -> None:
+    """Send the gradient of a stage's input to the previous stage."""
+    _send(g, dst, group, "send_backward")
+
+
+def recv_backward(shape, dtype, device, src: int, group) -> torch.Tensor:
+    """The gradient of this stage's output from the next stage; waits."""
+    return _recv(shape, dtype, device, src, group, "recv_backward")
+
+
+def finish_sends() -> None:
+    """Wait for every send in flight (the end of a step)."""
+    while _PENDING_SENDS:
+        req, _ = _PENDING_SENDS.pop(0)
+        req.wait()
 
 
 # ---------------------------------------------------------------------------

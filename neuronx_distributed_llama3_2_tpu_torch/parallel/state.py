@@ -9,23 +9,28 @@ with the JAX package's axes and order::
 
     (pp, dp, cp, ep, tp)   with tp innermost (stride 1)
 
-so rank ``r`` sits at ``tp = r % tp``, ``cp = (r // tp) % cp``, ``dp = r //
-(tp * cp)`` (pp = ep = 1), where JAX's ``build_mesh`` puts device ``r``.
-Every process group comes from the mesh (``mesh.get_group("tp")``); no
-module builds its own. The cp ranks of one (dp, tp) coordinate hold
-consecutive chunks of the sequence (context parallelism,
-:mod:`..kernels.ring_attention`); parameters and optimizer state are
-replicated over cp.
+so rank ``r`` sits at ``tp = r % tp``, ``cp = (r // tp) % cp``, ``dp = (r
+// (tp * cp)) % dp`` and ``pp = r // (dp * cp * tp)`` (ep = 1), where JAX's
+``build_mesh`` puts device ``r``. Every process group comes from the mesh
+(``mesh.get_group("tp")``); no module builds its own, except the group of
+the first and the last pipeline stage of each coordinate at pp > 2 (the
+tied embedding's gradient, :func:`get_embedding_group`). The cp ranks of
+one (dp, tp) coordinate hold consecutive chunks of the sequence (context
+parallelism, :mod:`..kernels.ring_attention`); parameters and optimizer
+state are replicated over cp. The pp ranks of one (dp, cp, tp) coordinate
+are the stages of one pipeline (:mod:`..pipeline`): each holds its own
+layers, and they pass activations and gradients point to point
+(:func:`..parallel.mappings.send_forward` and its siblings).
 
-Sizes above 1 of ``pp`` and ``ep`` are refused, each naming the ROADMAP
-item that ports it, so they never fall through to a one-rank path.
+A size above 1 of ``ep`` is refused, naming the ROADMAP item that ports
+it, so it never falls through to a one-rank path.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch.distributed as dist
 
@@ -43,7 +48,6 @@ MESH_AXES = (PP_AXIS, DP_AXIS, CP_AXIS, EP_AXIS, TP_AXIS)
 
 #: the ROADMAP.md queue A item that ports each refused axis
 _WAITS_FOR = {
-    "pipeline_parallel_size": "slice 5 item 3 (the pipeline)",
     "expert_parallel_size": "slice 5 item 4 (MoE)",
 }
 
@@ -87,6 +91,9 @@ class ParallelState:
 
     mesh: "torch.distributed.device_mesh.DeviceMesh"
     config: ParallelConfig
+    #: the first and the last pp rank of this rank's pipeline (the pp group
+    #: itself at pp = 2; None at pp = 1)
+    embedding_group: Any = None
 
     def _size(self, axis: str) -> int:
         return self.mesh.size(MESH_AXES.index(axis))
@@ -178,9 +185,27 @@ def initialize_model_parallel(
     mesh = init_device_mesh(
         dev.type, (pp, dp_total // ep, cp, ep, tp), mesh_dim_names=MESH_AXES
     )
-    _PARALLEL_STATE = ParallelState(mesh=mesh, config=config)
+    _PARALLEL_STATE = ParallelState(mesh=mesh, config=config,
+                                    embedding_group=_embedding_group(mesh, pp))
     logger.info("initialized parallel state: mesh=%s", dict(zip(MESH_AXES, mesh.shape)))
     return _PARALLEL_STATE
+
+
+def _embedding_group(mesh, pp: int):
+    """This rank's group of the first and the last stage of its pipeline
+    (Megatron's embedding group): none at pp = 1, the pp group at pp = 2,
+    else one new group per (dp, cp, ep, tp) coordinate, which every rank
+    creates in the same order."""
+    if pp <= 2:
+        return mesh.get_group(PP_AXIS) if pp == 2 else None
+    ranks = mesh.mesh.reshape(pp, -1)
+    mine = None
+    for col in range(ranks.shape[1]):
+        pair = [int(ranks[0, col]), int(ranks[-1, col])]
+        group = dist.new_group(pair)
+        if dist.get_rank() in pair:
+            mine = group
+    return mine
 
 
 def model_parallel_is_initialized() -> bool:
@@ -238,6 +263,53 @@ def get_context_parallel_rank() -> int:
 
 def get_context_parallel_group():
     return get_parallel_state().group(CP_AXIS)
+
+
+def get_pipeline_model_parallel_size() -> int:
+    return get_parallel_state().pipeline_parallel_size
+
+
+def get_pipeline_model_parallel_rank() -> int:
+    return get_parallel_state().rank(PP_AXIS)
+
+
+def get_pipeline_model_parallel_group():
+    return get_parallel_state().group(PP_AXIS)
+
+
+def is_pipeline_first_stage() -> bool:
+    return pipeline_parallel_rank_or(0) == 0
+
+
+def is_pipeline_last_stage() -> bool:
+    return pipeline_parallel_rank_or(0) == pipeline_parallel_size_or(1) - 1
+
+
+def get_pipeline_model_parallel_prev_rank() -> int:
+    """The global rank of the previous stage (the last stage's for the
+    first, as the interleaved schedule's chunks wrap round)."""
+    pp, r = get_pipeline_model_parallel_size(), get_pipeline_model_parallel_rank()
+    return dist.get_global_rank(get_pipeline_model_parallel_group(), (r - 1) % pp)
+
+
+def get_pipeline_model_parallel_next_rank() -> int:
+    """The global rank of the next stage (the first's for the last)."""
+    pp, r = get_pipeline_model_parallel_size(), get_pipeline_model_parallel_rank()
+    return dist.get_global_rank(get_pipeline_model_parallel_group(), (r + 1) % pp)
+
+
+def get_embedding_group():
+    """The group of the first and the last stage, which both hold the tied
+    embedding and sum its gradient (:func:`_embedding_group`)."""
+    return get_parallel_state().embedding_group
+
+
+def pipeline_parallel_size_or(default: int = 1) -> int:
+    return get_pipeline_model_parallel_size() if model_parallel_is_initialized() else default
+
+
+def pipeline_parallel_rank_or(default: int = 0) -> int:
+    return get_pipeline_model_parallel_rank() if model_parallel_is_initialized() else default
 
 
 def tensor_parallel_size_or(default: int = 1) -> int:

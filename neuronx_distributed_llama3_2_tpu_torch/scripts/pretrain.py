@@ -27,9 +27,17 @@ script's ``--cpu-devices N``, which starts N processes over gloo itself.
 Each dp rank reads its rows of every global batch; each rank saves and
 loads its own shards of the checkpoint.
 
+Pipeline parallelism (``--pp``, with the JAX script's rules): the model is
+wrapped in a :class:`..pipeline.PipelinedCausalLM` under ``--pp-schedule``
+(gpipe, 1f1b or interleaved with ``--model-chunks`` chunks a stage) with
+``max(--microbatches, --pp)`` microbatches, and the trainer's own
+microbatching stays at 1; each stage saves its own layers, in the
+canonical layout, so a run resumes at another pp. ``--pp-schedule`` and
+``--model-chunks`` need ``--pp`` above 1.
+
 The port pretrains the Llama family (``LLAMA_CONFIGS``): another model
-family, ``--pp`` / ``--ep`` above 1, ``--pp-schedule`` and
-``--model-chunks`` raise ``SystemExit`` naming the slice that ports them.
+family and ``--ep`` above 1 raise ``SystemExit`` naming the slice that
+ports them.
 """
 
 from __future__ import annotations
@@ -63,10 +71,10 @@ def parse_args(argv: Optional[List[str]] = None):
                    help="data-parallel ranks (0: what the world size leaves after --tp)")
     p.add_argument("--global-batch", type=int, default=8)
     p.add_argument("--microbatches", type=int, default=1)
-    p.add_argument("--pp-schedule", default=None,
+    p.add_argument("--pp-schedule", default="gpipe",
                    choices=["gpipe", "1f1b", "interleaved"], help="pipeline executor")
-    p.add_argument("--model-chunks", type=int, default=None,
-                   help="interleaved VPP chunks per pp lane")
+    p.add_argument("--model-chunks", type=int, default=1,
+                   help="interleaved VPP chunks per pp lane (--pp-schedule interleaved)")
     p.add_argument("--seq-len", type=int, default=2048)
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--lr", type=float, default=3e-4)
@@ -109,17 +117,13 @@ def _refuse_unported(args, llama_configs) -> None:
         )
     if args.model not in llama_configs:
         raise SystemExit(f"unknown model {args.model!r}; one of {sorted(llama_configs)}")
-    for flag, item in (("pp", "3 (the pipeline)"), ("ep", "4 (MoE)")):
-        if getattr(args, flag) != 1:
-            raise SystemExit(
-                f"--{flag} {getattr(args, flag)}: waits for ROADMAP.md slice 5 item {item}"
-            )
-    for flag, value in (("pp-schedule", args.pp_schedule),
-                        ("model-chunks", args.model_chunks)):
-        if value:
-            raise SystemExit(
-                f"--{flag} {value}: waits for ROADMAP.md slice 5 item 3 (the pipeline)"
-            )
+    if args.ep != 1:
+        raise SystemExit(f"--ep {args.ep}: waits for ROADMAP.md slice 5 item 4 (MoE)")
+    if args.pp == 1:
+        for flag, value, default in (("pp-schedule", args.pp_schedule, "gpipe"),
+                                     ("model-chunks", args.model_chunks, 1)):
+            if value != default:
+                raise SystemExit(f"--{flag} {value}: needs --pp above 1 (a pipeline)")
     if args.capacity_factor is not None:
         raise SystemExit(f"--capacity-factor: {args.model} is not a MoE model")
 
@@ -209,21 +213,29 @@ def _run(args) -> dict:
         world_size,
     )
 
-    ranks = args.tp * max(args.dp, 1)
+    ranks = args.tp * args.pp * max(args.dp, 1)
     if ranks > 1 and world_size() == 1 and "WORLD_SIZE" not in os.environ:
         raise SystemExit(
-            f"--tp {args.tp} --dp {args.dp}: {ranks} ranks run one process each: start "
-            f"them with torchrun, or with --cpu-devices {ranks} on the CPU"
+            f"--tp {args.tp} --pp {args.pp} --dp {args.dp}: {ranks} ranks run one process "
+            f"each: start them with torchrun, or with --cpu-devices {ranks} on the CPU"
         )
     if "WORLD_SIZE" in os.environ:
         # one process per rank, from torchrun's environment
         initialize_distributed(device=args.device)
     if args.dp and ranks != world_size():
-        raise SystemExit(f"--tp {args.tp} x --dp {args.dp} != the {world_size()} processes")
+        raise SystemExit(f"--tp {args.tp} x --pp {args.pp} x --dp {args.dp} != the "
+                         f"{world_size()} processes")
+    pipelined = args.pp > 1
     config = TrainingConfig(
         tensor_parallel_size=args.tp,
+        pipeline_parallel_size=args.pp,
+        # the pipeline knobs are pinned only when there is a pipeline
+        pipeline_schedule=args.pp_schedule if pipelined else None,
+        num_model_chunks=args.model_chunks if pipelined else None,
         sequence_parallel=args.sp,
-        num_microbatches=args.microbatches,
+        # under pp the pipelined model makes its own microbatches; the
+        # trainer must not split the batch again
+        num_microbatches=1 if pipelined else args.microbatches,
         seed=args.seed,
         optimizer=OptimizerConfig(
             learning_rate=args.lr,
@@ -232,7 +244,14 @@ def _run(args) -> dict:
         ),
     )
     device = config.initialize(args.device)
-    model = LlamaForCausalLM(model_cfg, device=device)
+    model = LlamaForCausalLM(model_cfg, device=device,
+                             num_model_chunks=args.model_chunks if pipelined else 1)
+    if pipelined:
+        from neuronx_distributed_llama3_2_tpu_torch.pipeline import PipelinedCausalLM
+
+        model = PipelinedCausalLM(model, num_microbatches=max(args.microbatches, args.pp),
+                                  schedule=args.pp_schedule,
+                                  num_model_chunks=args.model_chunks)
 
     # -- data -------------------------------------------------------------
     data_path = args.data

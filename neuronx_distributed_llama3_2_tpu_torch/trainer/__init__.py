@@ -1,4 +1,5 @@
-"""Training on one device or over a tensor / data-parallel mesh (ZeRO-1):
+"""Training on one device or over a tensor / context / pipeline /
+data-parallel mesh (ZeRO-1):
 configuration, AdamW, the train and eval steps,
 and the TensorBoard scalar writer."""
 

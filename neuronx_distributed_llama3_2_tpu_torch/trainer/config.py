@@ -95,8 +95,8 @@ class TrainingConfig:
 
     def require_ported(self) -> None:
         """Raise NotImplementedError naming the first knob the port does not
-        run yet (pipeline and expert parallelism, the pipeline knobs) and
-        the ROADMAP.md item that ports it."""
+        run yet (expert parallelism) and the ROADMAP.md item that ports
+        it."""
         parallel_state.ParallelConfig(
             tensor_parallel_size=self.tensor_parallel_size,
             pipeline_parallel_size=self.pipeline_parallel_size,
@@ -104,38 +104,61 @@ class TrainingConfig:
             context_parallel_size=self.context_parallel_size,
             sequence_parallel=self.sequence_parallel,
         ).require_ported()
-        for knob in ("pipeline_schedule", "num_model_chunks"):
-            if getattr(self, knob):
-                raise NotImplementedError(
-                    f"{knob}={getattr(self, knob)!r} waits for ROADMAP.md slice 5 "
-                    "item 3 (the pipeline)"
-                )
 
     def initialize(self, device: DeviceLike = "cuda") -> torch.device:
         """Check the configuration and return the device (the card unless
-        the caller names another). Tensor, sequence or context parallelism,
-        or a process group of several ranks, builds the mesh
+        the caller names another). Tensor, sequence, context or pipeline
+        parallelism, or a process group of several ranks, builds the mesh
         (:func:`..parallel.state.initialize_model_parallel`; dp is what the
-        world size leaves, and a world that tp * cp does not divide raises)
-        unless one is live, which must then agree."""
+        world size leaves, and a world that tp * pp * cp does not divide
+        raises) unless one is live, which must then agree."""
         self.require_ported()
         if self.num_microbatches < 1:
             raise ValueError(f"num_microbatches must be >= 1, got {self.num_microbatches}")
         dev = resolve_device(device)
-        want = (self.tensor_parallel_size, self.context_parallel_size, self.sequence_parallel)
+        want = (self.tensor_parallel_size, self.pipeline_parallel_size,
+                self.context_parallel_size, self.sequence_parallel)
         if parallel_state.model_parallel_is_initialized():
             st = parallel_state.get_parallel_state()
-            have = (st.tensor_parallel_size, st.context_parallel_size, st.sequence_parallel)
+            have = (st.tensor_parallel_size, st.pipeline_parallel_size,
+                    st.context_parallel_size, st.sequence_parallel)
             if have != want:
                 raise ValueError(
-                    f"the live mesh has (tp, cp, sequence_parallel) = {have}; this config "
-                    f"asks for {want}"
+                    f"the live mesh has (tp, pp, cp, sequence_parallel) = {have}; this "
+                    f"config asks for {want}"
                 )
         elif (self.tensor_parallel_size > 1 or self.context_parallel_size > 1
-              or self.sequence_parallel or world_size() > 1):
+              or self.pipeline_parallel_size > 1 or self.sequence_parallel
+              or world_size() > 1):
             parallel_state.initialize_model_parallel(
                 tensor_model_parallel_size=self.tensor_parallel_size,
+                pipeline_model_parallel_size=self.pipeline_parallel_size,
                 context_parallel_size=self.context_parallel_size,
                 sequence_parallel=self.sequence_parallel, device=dev,
             )
         return dev
+
+
+def validate_pipeline_config(model, config: TrainingConfig) -> None:
+    """Raise when the config's pipeline knobs disagree with the model being
+    trained (JAX ``_validate_pipeline_config``): the schedule lives on the
+    :class:`..pipeline.PipelinedCausalLM`, so a config asking for one
+    schedule must not train the model under another. An unpipelined model
+    takes neither knob."""
+    model_schedule = getattr(model, "schedule", None)
+    model_chunks = getattr(model, "num_model_chunks", None)
+    if model_schedule is None:
+        if config.pipeline_schedule is not None or config.num_model_chunks is not None:
+            raise ValueError(
+                f"TrainingConfig(pipeline_schedule={config.pipeline_schedule!r}, "
+                f"num_model_chunks={config.num_model_chunks}) but the model is not "
+                "pipelined: wrap it in PipelinedCausalLM(schedule=..., num_model_chunks=...) "
+                "or leave the config knobs at None"
+            )
+        return
+    if config.pipeline_schedule is not None and model_schedule != config.pipeline_schedule:
+        raise ValueError(f"model schedule {model_schedule!r} != TrainingConfig."
+                         f"pipeline_schedule {config.pipeline_schedule!r}")
+    if config.num_model_chunks is not None and model_chunks != config.num_model_chunks:
+        raise ValueError(f"model num_model_chunks {model_chunks} != TrainingConfig."
+                         f"num_model_chunks {config.num_model_chunks}")

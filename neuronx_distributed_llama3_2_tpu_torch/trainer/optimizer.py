@@ -54,8 +54,9 @@ from neuronx_distributed_llama3_2_tpu_torch.parallel.grads import (
 )
 from neuronx_distributed_llama3_2_tpu_torch.parallel.layout import (
     LeafSpec,
+    dim_range,
     mesh_coords,
-    region,
+    pp_owner,
 )
 from neuronx_distributed_llama3_2_tpu_torch.parallel.mappings import all_gather, all_reduce, reduce_scatter
 from neuronx_distributed_llama3_2_tpu_torch.trainer.config import OptimizerConfig
@@ -91,7 +92,7 @@ def zero1_part(leaf: LeafSpec, layer: Optional[int], coords=None) -> Zero1Part:
     if DP not in leaf.spec:
         return Zero1Part(True, None)
     i = leaf.spec.index(DP)
-    lo, hi = region(leaf, coords)[i]
+    lo, hi = dim_range(leaf, coords, i)
     if leaf.stacked and i == 0:
         per = hi - lo
         return Zero1Part(lo <= layer < hi, None, owner=layer // per)
@@ -195,8 +196,10 @@ def norm_owned(specs: Mapping[str, LeafSpec], parts: Optional[Mapping[str, Zero1
                zero1: bool) -> Dict[str, bool]:
     """Which of this rank's gradients count in the global norm: a
     tp-replicated leaf on tp rank 0 only, a leaf whole on every dp rank on
-    dp rank 0 only, and every leaf (all are replicated over cp) on cp rank
-    0 only (``parallel/grads.py``)."""
+    dp rank 0 only, every leaf (all are replicated over cp) on cp rank 0
+    only (``parallel/grads.py``), and under a pipeline each leaf on one
+    stage: a layer on its own, the tied embedding on the first, the final
+    norm on the last (:func:`..parallel.layout.pp_owner`)."""
     coords = mesh_coords()
     tp_r, dp_r, cp_r = coords[TP][0], coords[DP][0], coords[parallel_state.CP_AXIS][0]
     out = {}
@@ -204,7 +207,7 @@ def norm_owned(specs: Mapping[str, LeafSpec], parts: Optional[Mapping[str, Zero1
         part = parts[k] if parts else Zero1Part(True, None)
         dp_split = zero1 and (part.dim is not None or part.owner >= 0)
         out[k] = ((tp_r == 0 or leaf.mentions(TP))
-                  and (dp_r == 0 or dp_split) and cp_r == 0)
+                  and (dp_r == 0 or dp_split) and cp_r == 0 and pp_owner(leaf, coords))
     return out
 
 

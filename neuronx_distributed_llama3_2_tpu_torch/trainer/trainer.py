@@ -10,8 +10,12 @@ of the optimizer state (ZeRO-1 under dp); a step takes the rank's rows of
 the global batch by JAX's rule (dp rank r the r-th contiguous block; the
 cp ranks of one dp rank take the same rows and each its chunk of their
 sequences), sums the gradients over cp, then over dp (reduce-scattered
-into ZeRO-1's parts), clips by the norm over every rank's parts and
-all-gathers the updated parameters.
+into ZeRO-1's parts, within each pipeline stage's dp group), clips by the
+norm over every rank's parts (every pp rank's too) and all-gathers the
+updated parameters. A pipelined model (:class:`..pipeline.PipelinedCausalLM`,
+``uses_manual_vjp``) computes its own gradients and its own microbatches
+(JAX ``make_train_step`` :155-162); its eval step runs the forward-only
+schedule.
 
 A :class:`TrainState` holds the model's own parameters (a dict keyed by
 parameter name, the same tensor objects as ``model.named_parameters()``)
@@ -26,11 +30,13 @@ from typing import Callable, Dict, Iterable, Mapping, NamedTuple, Optional, Tupl
 
 import torch
 
-from neuronx_distributed_llama3_2_tpu_torch.models.llama import param_specs
 from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
 from neuronx_distributed_llama3_2_tpu_torch.parallel.loss import valid_token_mask
 from neuronx_distributed_llama3_2_tpu_torch.parallel.mappings import all_reduce
-from neuronx_distributed_llama3_2_tpu_torch.trainer.config import TrainingConfig
+from neuronx_distributed_llama3_2_tpu_torch.trainer.config import (
+    TrainingConfig,
+    validate_pipeline_config,
+)
 from neuronx_distributed_llama3_2_tpu_torch.trainer.optimizer import (
     OptimizerState,
     apply_gradients,
@@ -54,7 +60,7 @@ def state_specs(model: torch.nn.Module, config: TrainingConfig) -> TrainState:
     """The :class:`..parallel.layout.LeafSpec` of every leaf of the train
     state on the live mesh (JAX's state specs): the parameters' by
     ``specs()``, the optimizer state's with ZeRO-1's dp split."""
-    specs = param_specs(model.config)
+    specs = model.param_specs()
     return TrainState(specs, optimizer_state_specs(specs, config.optimizer))
 
 
@@ -66,6 +72,7 @@ def initialize_parallel_model(
     build this rank's optimizer state. Returns (state, specs), the specs
     as :func:`state_specs` gives them."""
     config.require_ported()
+    validate_pipeline_config(model, config)
     model.init_weights(config.seed if key is None else key)
     params = dict(model.named_parameters())
     specs = state_specs(model, config)
@@ -116,6 +123,22 @@ def dp_rows(batch: torch.Tensor) -> torch.Tensor:
     return batch[r * per:(r + 1) * per]
 
 
+def _check_mesh(model, config: TrainingConfig) -> None:
+    """The live mesh must be the config's (cp, pp), and a model built
+    under pp > 1 (a stage) must run through the pipeline."""
+    for what, axis, live, want in (
+            ("context_parallel_size", "cp", parallel_state.context_parallel_size_or(1),
+             config.context_parallel_size),
+            ("pipeline_parallel_size", "pp", parallel_state.pipeline_parallel_size_or(1),
+             config.pipeline_parallel_size)):
+        if live != want:
+            raise ValueError(f"{what}={want}, but the live mesh has {axis} = {live}: call "
+                             "config.initialize() first")
+    if getattr(model, "stage", None) is not None and not getattr(model, "uses_manual_vjp", False):
+        raise ValueError("the model is one stage of a pipeline (pp > 1): wrap it in "
+                         "PipelinedCausalLM")
+
+
 def make_train_step(model: torch.nn.Module, config: TrainingConfig,
                     local_batch: bool = False) -> Callable:
     """A train step ``(state, batch) -> (state, metrics)``.
@@ -133,24 +156,28 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig,
     loss is the mean over every cp rank's chunk and each rank's gradient its
     chunk's share: the gradients are summed over cp first. They are summed
     over dp (into ZeRO-1's parts), then one AdamW step on every rank's part
-    and the parameters gathered again. ``metrics`` holds the loss and the pre-clip
-    grad norm as fp32 device scalars, the learning rate after the step and
-    the step count. The state is updated in place (module docstring)."""
+    and the parameters gathered again. A model with ``uses_manual_vjp`` (a
+    :class:`..pipeline.PipelinedCausalLM`) gives each (trainer) microbatch's
+    loss and fp32 gradients itself (``loss_and_grad``: its own microbatches,
+    the pipeline's sends, the tied embedding's sum over the first and last
+    stage); ``config.num_microbatches`` is then 1 as a rule. ``metrics``
+    holds the loss and the pre-clip grad norm as fp32 device scalars, the
+    learning rate after the step and the step count. The state is updated
+    in place (module docstring)."""
     config.require_ported()
+    validate_pipeline_config(model, config)
+    _check_mesh(model, config)
     opt_cfg = config.optimizer
     n_micro = config.num_microbatches
     vocab = model.config.vocab_size
     specs = state_specs(model, config)
     dp = parallel_state.data_parallel_size_or(1)
     cp = parallel_state.context_parallel_size_or(1)
-    if cp != config.context_parallel_size:
-        raise ValueError(
-            f"context_parallel_size={config.context_parallel_size}, but the live mesh has "
-            f"cp = {cp}: call config.initialize() first"
-        )
     sharded = parallel_state.model_parallel_is_initialized() and parallel_state.get_parallel_state().world_size > 1
     parts = zero1_parts(specs.opt) if opt_cfg.zero_one_enabled else None
     owned = norm_owned(specs.params, parts, opt_cfg.zero_one_enabled) if sharded else None
+
+    manual = getattr(model, "uses_manual_vjp", False)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
         _check_params(model, state.params)
@@ -159,12 +186,19 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig,
             input_ids, labels = dp_rows(input_ids), dp_rows(labels)
         names = list(state.params)
         leaves = [state.params[k] for k in names]
+
+        def loss_and_grads(ids, lbl):
+            if manual:
+                loss, grads = model.loss_and_grad(ids, lbl)
+                return loss, [grads[k] for k in names]
+            loss = model.loss(ids, lbl)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
         if n_micro == 1 and dp == 1 and cp == 1:
-            loss = model.loss(input_ids, labels)
-            grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+            loss, got = loss_and_grads(input_ids, labels)
+            grads = dict(zip(names, got))
             if opt_cfg.use_fp32_grad_acc:
                 grads = {k: g.float() for k, g in grads.items()}
-            loss = loss.detach()
         else:
             gbs = input_ids.shape[0]
             if gbs % n_micro:
@@ -181,12 +215,12 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig,
             tok_sum = torch.zeros((), device=input_ids.device)
             for k in range(n_micro):
                 ids, lbl = input_ids[k::n_micro], labels[k::n_micro]
-                loss = model.loss(ids, lbl)
+                loss, got = loss_and_grads(ids, lbl)
                 n = _valid_count(lbl, vocab)
-                for name, g in zip(names, torch.autograd.grad(loss, leaves)):
+                for name, g in zip(names, got):
                     acc = grads[name]
                     acc += g.to(acc.dtype) * n.to(acc.dtype)
-                loss_sum += loss.detach() * n
+                loss_sum += loss * n
                 tok_sum += n
             if cp > 1:
                 group = parallel_state.get_context_parallel_group()
@@ -221,8 +255,9 @@ def make_eval_step(model: torch.nn.Module, config: TrainingConfig) -> Callable:
     """An eval step ``(params, batch) -> loss`` (fp32 device scalar): the
     training loss over the whole batch, without autograd, microbatches or
     an optimizer (under cp the mean over every cp rank's chunk, the same on
-    each). ``params`` are the model's own (``state.params``)."""
-    del config
+    each; a pipelined model's forward-only schedule, the loss on every pp
+    rank). ``params`` are the model's own (``state.params``)."""
+    validate_pipeline_config(model, config)
 
     @torch.no_grad()
     def eval_step(params: Mapping[str, torch.Tensor], batch: Mapping[str, torch.Tensor]):

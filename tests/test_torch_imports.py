@@ -48,6 +48,9 @@ def test_sources_exist():
                       ("scripts", ("pretrain.py",))):
         for mod in mods:
             assert PORT / sub / mod in SOURCES, (sub, mod)
+    # the pipeline: the schedules and the stage executor
+    for mod in ("__init__.py", "scheduler.py", "model.py"):
+        assert PORT / "pipeline" / mod in SOURCES, mod
     # the parallel layer: the mesh, the regions, the layers, the loss
     for mod in ("state.py", "multihost.py", "mappings.py", "random.py", "pad.py",
                 "layers.py", "layout.py", "loss.py", "grads.py"):

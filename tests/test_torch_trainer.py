@@ -287,15 +287,29 @@ def test_eval_step_and_evaluate_match_jax():
     ("pipeline_schedule", "1f1b"), ("num_model_chunks", 2),
 ])
 def test_parallel_knobs_raise_naming_the_knob(knob, value):
-    """The knobs of later slices raise, naming the knob and the ROADMAP
-    item that ports it (tensor, sequence and context parallelism run: see
-    test_torch_tp_train.py and test_torch_cp_train.py)."""
+    """Expert parallelism raises, naming the knob and the ROADMAP item that
+    ports it. The pipeline runs (test_torch_pp_train.py): pp on a world of
+    one process is refused before a group starts, and the pipeline knobs on
+    an unpipelined model are refused by the trainer, naming the knob (JAX
+    ``_validate_pipeline_config``)."""
     tc = ttrainer.TrainingConfig(**{knob: value})
-    with pytest.raises(NotImplementedError, match=f"{knob}.*ROADMAP.md slice 5 item"):
-        tc.initialize("cpu")
     model = tllama.LlamaForCausalLM(tllama.LLAMA_CONFIGS["tiny"], device="cpu")
-    with pytest.raises(NotImplementedError, match=knob):
-        ttrainer.make_train_step(model, tc)
+    if knob == "expert_parallel_size":
+        with pytest.raises(NotImplementedError, match=f"{knob}.*ROADMAP.md slice 5 item 4"):
+            tc.initialize("cpu")
+        with pytest.raises(NotImplementedError, match=knob):
+            ttrainer.make_train_step(model, tc)
+    elif knob == "pipeline_parallel_size":
+        with pytest.raises(ValueError, match="not divisible"):
+            tc.initialize("cpu")
+        with pytest.raises(ValueError, match=knob):
+            ttrainer.make_train_step(model, tc)
+    else:
+        tc.initialize("cpu")
+        with pytest.raises(ValueError, match=knob):
+            ttrainer.make_train_step(model, tc)
+        with pytest.raises(ValueError, match=knob):
+            ttrainer.initialize_parallel_model(model, tc)
 
 
 @pytest.mark.parametrize("cp", [2, 4])

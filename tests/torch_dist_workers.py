@@ -609,3 +609,154 @@ def cp_train_worker(rank, world, layouts, cfg_kw, opt_kw, n_micro, steps, jax_ro
     finally:
         S.destroy_model_parallel()
     return out
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism
+# ---------------------------------------------------------------------------
+
+def pp_train_worker(rank, world, cases, cfg_kw, opt_kw, n_micro, jax_root, ids, labels):
+    """Each case of ``cases`` (a dict: name, schedule, chunks,
+    memory_bounded, head_split, tp, sp, cp, pp (2 by default), zero1,
+    layout, save, logits) on a mesh of ``world`` ranks, through the trainer's entry points: the state
+    loaded from the JAX package's tag at ``jax_root`` (gathered back, to
+    hold the load), the eval loss (forward-only schedule), the first
+    step's gradient (``loss_and_grad``, summed over cp and dp, gathered
+    whole), the most stage inputs held at once and the point-to-point
+    calls against the task list, one train step's metrics and end state
+    gathered whole; with ``save``, a tag of the end state under that root,
+    the files this rank wrote, and the tag loaded back; with ``logits``
+    the forward's logits."""
+    from neuronx_distributed_llama3_2_tpu_torch import trainer as T
+    from neuronx_distributed_llama3_2_tpu_torch.checkpoint import checkpoint as C
+    from neuronx_distributed_llama3_2_tpu_torch.models import llama as L
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import mappings as MP
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+    from neuronx_distributed_llama3_2_tpu_torch.pipeline import PipelinedCausalLM
+    from neuronx_distributed_llama3_2_tpu_torch.pipeline import scheduler as PS
+
+    out = {}
+    batch = {"input_ids": torch.as_tensor(ids), "labels": torch.as_tensor(labels)}
+    p2p = ("send_forward", "recv_forward", "send_backward", "recv_backward")
+    kinds = (PS.SendForwardTask, PS.RecvForwardTask, PS.SendBackwardTask, PS.RecvBackwardTask)
+    for case in cases:
+        chunks = case.get("chunks", 1)
+        zero1 = case.get("zero1", False)
+        tc = T.TrainingConfig(
+            tensor_parallel_size=case.get("tp", 1), sequence_parallel=case.get("sp", False),
+            context_parallel_size=case.get("cp", 1), pipeline_parallel_size=case.get("pp", 2),
+            pipeline_schedule=case["schedule"], num_model_chunks=chunks,
+            optimizer=T.OptimizerConfig(zero_one_enabled=zero1, **opt_kw))
+        tc.initialize("cpu")
+        try:
+            cfg = dataclasses.replace(L.LLAMA_CONFIGS["tiny"],
+                                      cp_ring_layout=case.get("layout", "auto"), **cfg_kw)
+            model = PipelinedCausalLM(
+                L.LlamaForCausalLM(cfg, device="cpu", num_model_chunks=chunks),
+                num_microbatches=n_micro, schedule=case["schedule"], num_model_chunks=chunks,
+                memory_bounded_backward=case.get("memory_bounded", True),
+                head_sequence_split=case.get("head_split", True))
+            state, specs = T.initialize_parallel_model(model, tc)
+            start = C.load_checkpoint(jax_root, "latest", model=state.params,
+                                      optimizer=state.opt, model_specs=specs.params,
+                                      optimizer_specs=specs.opt)
+            with torch.no_grad():
+                for k, p in state.params.items():
+                    p.copy_(start["model"][k])
+            state = T.TrainState(state.params, start["optimizer"])
+            res = {"loaded": L.params_to_jax(state.params, cfg, specs.params),
+                   "eval_loss": T.evaluate(model, tc, state.params, [batch])}
+            if case.get("logits"):
+                res["logits"] = _np(model(batch["input_ids"]))
+                res["to_pipeline"] = model.to_pipeline(res["loaded"])
+            res["grads"] = L.params_to_jax(_pp_first_grads(model, ids, labels), cfg, specs.params)
+            tasks = model.stats["tasks"]
+            res["max_stashed"] = model.stats["max_stashed"]
+            before = dict(MP.COLLECTIVE_COUNTS)
+            step = T.make_train_step(model, tc)
+            state, m = step(state, batch)
+            res["p2p"] = [MP.COLLECTIVE_COUNTS[k] - before.get(k, 0) for k in p2p]
+            res["p2p_tasks"] = [sum(isinstance(t, c) for t in tasks) for c in kinds]
+            res["metrics"] = [{k: float(v) for k, v in m.items()}]
+            res["params"] = L.params_to_jax(state.params, cfg, specs.params)
+            res["opt"] = T.opt_state_to_jax(state.opt, cfg, specs.opt)
+            res["coords"] = {a: S.get_parallel_state().rank(a) for a in S.MESH_AXES}
+            res["holds"] = sorted(state.params)
+            if case.get("save"):
+                root = case["save"]
+                written = res["written"] = []
+                inner = C._save_npy
+
+                def spy(storage, arr, name):
+                    written.append(name)
+                    return inner(storage, arr, name)
+
+                C._save_npy = spy
+                try:
+                    C.save_checkpoint(root, "step_1", model=state.params, optimizer=state.opt,
+                                      model_specs=specs.params, optimizer_specs=specs.opt)
+                finally:
+                    C._save_npy = inner
+                dist.barrier()  # rank 0 marks the tag done after every rank's chunks
+                back = C.load_checkpoint(root, "latest", model=state.params, optimizer=state.opt,
+                                         model_specs=specs.params, optimizer_specs=specs.opt)
+                res["loaded_back"] = (
+                    all(torch.equal(back["model"][k], p) for k, p in state.params.items())
+                    and all(torch.equal(back["optimizer"].mu[k], v)
+                            for k, v in state.opt.mu.items()))
+            out[case["name"]] = res
+        finally:
+            S.destroy_model_parallel()
+    return out
+
+
+def _pp_first_grads(model, ids, labels):
+    """A pipelined model's gradient of the global batch's mean loss: the
+    rank's ``loss_and_grad`` of its dp rows, summed over cp and dp."""
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+    from neuronx_distributed_llama3_2_tpu_torch.parallel.mappings import all_reduce
+    from neuronx_distributed_llama3_2_tpu_torch.trainer.trainer import _valid_count, dp_rows
+
+    ids, labels = dp_rows(torch.as_tensor(ids)), dp_rows(torch.as_tensor(labels))
+    _, grads = model.loss_and_grad(ids, labels)
+    n = _valid_count(labels, model.config.vocab_size)
+    group, cp_group = S.get_data_parallel_group(), S.get_context_parallel_group()
+    total = all_reduce(n, group)
+    return {k: all_reduce(all_reduce(g * n, cp_group), group) / total for k, g in grads.items()}
+
+
+def pp_pretrain_worker(rank, world, runs):
+    """The pretrain script's ``_run`` in each rank for each (argv, preempt
+    at) of ``runs`` in turn (the mesh taken down between them): rank 0's
+    records without the state (None for a preempted run), and each run's
+    final parameters on this rank."""
+    from neuronx_distributed_llama3_2_tpu_torch import trainer
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+    from neuronx_distributed_llama3_2_tpu_torch.scripts import pretrain
+
+    make = trainer.make_train_step
+    records, params = [], []
+    for argv, preempt in runs:
+        def make_train_step(model, config, _n=preempt, **kw):
+            step, calls = make(model, config, **kw), []
+
+            def stepped(state, batch):
+                if _n is not None and len(calls) == _n:
+                    raise KeyboardInterrupt
+                calls.append(1)
+                return step(state, batch)
+
+            return stepped
+
+        trainer.make_train_step = make_train_step
+        try:
+            rec = pretrain._run(pretrain.parse_args(argv))
+            params.append({k: _np(p) for k, p in rec.pop("state").params.items()})
+            records.append(rec)
+        except KeyboardInterrupt:
+            records.append(None)
+            params.append(None)
+        finally:
+            trainer.make_train_step = make
+            S.destroy_model_parallel()
+    return {"records": records if rank == 0 else None, "params": params}
