@@ -263,15 +263,25 @@ and the gradients summed over cp within the train bands of the cp = 1
 step, K1-K3 launched as the ring implies on each rank (``CP_LAUNCHES``),
 and planted faults in each layout (a visiting chunk left out of the
 merge; the zigzag positions cut in contiguous order; the ring backward's
-dk / dv one hop short of home) outside them; the forward's loss with fp32
-chunk outputs and from a second seed witnesses the loss gap's cause; K1-K3
-are held and timed at the ring's chunk shapes. To keep the script inside
-its limit the eager serves' profiles, the async twins' profiles, the
-timing of the bf16 K4 grid and of the tree cases no serve launched, the
-spill phase's unwatched serves (``chip_trials/spill_restore_trial.py``
-times the restores) and two of the sampler's three timing windows are
-left out, and a timing window is 25 calls (it was 50); every check of the
-phases that remain stays.
+dk / dv one hop short of home) outside them; K1-K3 are held and timed at
+the ring's chunk shapes. The pipeline and expert parallelism follow on
+the same two ranks (every two-rank phase runs in one pair of processes):
+"pp2 train" in each schedule, and "ep2 train", Mixtral's widths at ep = 2
+against ep = 1 on the same expert choices. Then the MoE phases: "moe
+train" (Mixtral's widths, 2 layers, against the plain step on the kernel
+step's expert choices; K1-K3 at D 128, G 4) and "moe serve" (Mixtral's
+widths, 4 layers, bf16 at 8 and 4 lanes, a planted K4 fault, a prewarmed
+twin; int8 weights and their twin; DBRX's widths, 1 layer, and its twin:
+K4 at G 6), each served token teacher-forced on the serve's own expert
+choices. To keep the script
+inside its limit the eager serves' profiles, the async twins' profiles,
+the timing of the bf16 K4 grid and of the tree cases no serve launched,
+the spill phase's unwatched serves (``chip_trials/spill_restore_trial.py``
+times the restores), two of the sampler's three timing windows, the F
+witness phase and the cp2 phase's loss-gap witnesses are left out, a
+timing window is 25 calls (it was 50), and Q1's and Q2's twins are
+profiled on their graph phase's own serve; every check of the phases that
+remain stays.
 
 Every failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -1819,6 +1829,16 @@ def run_profile_phase(cfg, model, prompts, card: str, label: str = "serve",
         rids, outs = serve_requests(server, prompts, staged=staged_serve(knobs))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, launches = profile_reading(prof, wall_ms, server, label, card)
+    replayed = replayed_k4(server, held) if prewarm else None
+    return dict(wall=wall_ms, busy=busy_ms, launches=launches, replayed=replayed,
+                outs=[outs[r] for r in rids], **serve_stats(server, rids, outs, wall_ms / 1e3))
+
+
+def profile_reading(prof, wall_ms: float, server, label: str, card: str):
+    """A profiled serve's device busy ms and K4's launches by source as the
+    profiler counted its kernels; logs the share of the wall and the
+    kernels that took the most device time."""
     events = sorted(
         prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True,
     )
@@ -1843,9 +1863,7 @@ def run_profile_phase(cfg, model, prompts, card: str, label: str = "serve",
     for e in events[:12]:
         log(f"  device {e.self_device_time_total / 1e3:.6f} ms, {e.count} calls: "
             f"{e.key[:100]}")
-    replayed = replayed_k4(server, held) if prewarm else None
-    return dict(wall=wall_ms, busy=busy_ms, launches=launches, replayed=replayed,
-                outs=[outs[r] for r in rids], **serve_stats(server, rids, outs, wall_ms / 1e3))
+    return busy_ms, launches
 
 
 # -- 4. end to end --------------------------------------------------------------
@@ -2547,7 +2565,7 @@ def step_device_ms(server) -> tuple:
 
 def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: str,
                     gaps, margin: float, async_loop: bool = False, sampling=None,
-                    **knobs) -> dict:
+                    profile: Optional[dict] = None, **knobs) -> dict:
     """The prewarmed twin of serve ``label``: a server built with
     ``PagedConfig.prewarm``, which captures every prefill and decode-time
     key of its catalog as a CUDA graph, serves the same requests as the
@@ -2569,8 +2587,11 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
     (``sampled_steps`` > 0, no host fallback). Logs the keys by kind, the
     capture seconds, the reserved bytes the construction added beyond the
     KV pool (the graphs' pool, the static buffers) and the serve's
-    numbers. Returns the capture count and seconds, the streams in prompt
-    order and ``serve_stats``."""
+    numbers. ``profile`` (the eager serve's K4 launches by source): the
+    twin's serve runs under torch.profiler, as ``run_graph_profile_phase``'s
+    does, and is held to the same launch checks (``check_replayed``); its
+    times are then those of a profiled serve. Returns the capture count and
+    seconds, the streams in prompt order and ``serve_stats``."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
     from neuronx_distributed_llama3_2_tpu_torch.serving.catalog import GRAPH_KINDS
 
@@ -2580,8 +2601,9 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
     reserved0 = reserved_bytes()
     coll0 = collective_counts()
     t0 = time.perf_counter()
-    server = make_server(scfg, model, prewarm=True, async_loop=async_loop,
-                         sampling=sampling, **knobs)
+    with counted_captures() as held:
+        server = make_server(scfg, model, prewarm=True, async_loop=async_loop,
+                             sampling=sampling, **knobs)
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
     # the tp collectives issued while the graphs were captured (a model
@@ -2599,11 +2621,14 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
           and kinds["pctx"] > 0 and (kinds["psfx"] > 0) != bool(knobs.get("fused_step")),
           f"graph {label}: registry {sorted(map(str, registry))} vs the catalog's "
           f"{server.catalog.describe()}, prewarm_compiles {m.prewarm_compiles}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rids, outs = serve_requests(server, prompts, staged=staged_serve(knobs))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    prof = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+            if profile is not None else contextlib.nullcontext())
+    with prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids, outs = serve_requests(server, prompts, staged=staged_serve(knobs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     coll_serve = counts_since(coll1)
     stats = serve_stats(server, rids, outs, wall)
     eager_calls = {src: c.count - captured[src] for src, c in counters.items()}
@@ -2627,6 +2652,16 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
               f"{m.host_sample_fallbacks}")
     differ = same_streams(f"graph {label}", model, prompts, [outs[r] for r in rids],
                           eager_outs, rids, sampling)
+    if profile is not None:
+        busy_ms, launched = profile_reading(prof, wall * 1e3, server,
+                                            f"{label} (CUDA graphs)", card)
+        graph = dict(launches=launched, replayed=replayed_k4(server, held))
+        log(f"graph profile {label} (profiler on, the graph phase's own serve): wall "
+            f"{wall * 1e3:.6f} ms, busy {busy_ms:.6f} ms = {100 * busy_ms / (wall * 1e3):.6f}%, "
+            f"K4 launches (profiler) {launched}, in the replays {graph['replayed']}; the "
+            f"eager serve's wrappers counted {profile} | {card}")
+        if not differ:
+            check_replayed(label, graph, profile)
     if differ:
         gap = gaps(outs, rids)
         log(f"graph {label}: worst e2e gap {gap:.6g} (margin {margin})")
@@ -2676,6 +2711,20 @@ def run_graph_phase(scfg, model, label: str, prompts, eager_outs: list, card: st
                 collectives_serve=coll_serve, **stats)
 
 
+def check_replayed(label: str, graph: dict, launched: dict) -> None:
+    """A profiled twin whose streams equal the eager serve's: its replays
+    launched K4 by source as often as the eager serve's wrappers counted
+    (``launched``), and the profiler saw each source launched, never more
+    often than that."""
+    check(graph["replayed"] == launched and launched["t1"] > 0,
+          f"graph profile {label}: K4 launches {graph['replayed']} (the twin's replays) "
+          f"against {launched} (the eager serve's wrappers)")
+    check(all(0 < graph["launches"][s] <= n if n else graph["launches"][s] == 0
+              for s, n in graph["replayed"].items()),
+          f"graph profile {label}: the profiler counted K4 launches {graph['launches']} "
+          f"on the card against {graph['replayed']} in the twin's replays")
+
+
 def run_graph_profile_phase(scfg, model, label: str, prompts, eager: Optional[dict],
                             launched: dict, card: str, same: bool,
                             eager_outs: Optional[list] = None, **knobs) -> None:
@@ -2710,13 +2759,7 @@ def run_graph_profile_phase(scfg, model, label: str, prompts, eager: Optional[di
     if same:
         check(graph["outs"] == (eager["outs"] if eager else eager_outs),
               f"graph profile {label}: the profiled streams differ from the eager ones")
-        check(graph["replayed"] == launched and launched["t1"] > 0,
-              f"graph profile {label}: K4 launches {graph['replayed']} (the twin's replays) "
-              f"against {launched} (the eager serve's wrappers)")
-        check(all(0 < graph["launches"][s] <= n if n else graph["launches"][s] == 0
-                  for s, n in graph["replayed"].items()),
-              f"graph profile {label}: the profiler counted K4 launches {graph['launches']} "
-              f"on the card against {graph['replayed']} in the twin's replays")
+        check_replayed(label, graph, launched)
     gc.collect()
     torch.cuda.empty_cache()
     return graph
@@ -5175,8 +5218,10 @@ def run_flash_kernel_phase(card: str, packed: bool = False, cases=None) -> dict:
     and the segment compare only on crossing tiles
     (``plain_segments_on_crossing_tiles_only``). ``cases`` replaces
     FLASH_CASES (a tp rank's shapes; the planted faults run at the first).
-    Returns the record of K1-K3 (the first case's times, the worst errors,
-    and under ``packed`` the public entry's launches)."""
+    Only the first case is timed (the script's timing depth, PERF.md
+    section 7); the others are checked. Returns the record of K1-K3 (the
+    first case's times, the worst errors, and under ``packed`` the public
+    entry's launches)."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -5292,15 +5337,17 @@ def run_flash_kernel_phase(card: str, packed: bool = False, cases=None) -> dict:
         def bwd_lib(i):
             return torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True)
 
-        times = {1: device_ms(fwd, iters, matches=("flash_fwd_kernel",))[0][0]}
-        times[2], times[3] = device_ms(
-            bwd, iters, matches=("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))[0]
-        (plain_fwd,), _ = device_ms(fwd_plain, max(2, iters // 5))
-        (plain_bwd,), _ = device_ms(bwd_plain, max(2, iters // 5))
-        (lib_fwd,), _ = device_ms(fwd_lib, iters)
-        (lib_bwd,), _ = device_ms(bwd_lib, iters)
         bounds = {kn: flash_bound(b, n, nkv, s, d, causal, kn, segment_ids=seg)
                   for kn in (1, 2, 3)}
+        timing = record is None  # the first case (the record's) is timed
+        if timing:
+            times = {1: device_ms(fwd, iters, matches=("flash_fwd_kernel",))[0][0]}
+            times[2], times[3] = device_ms(
+                bwd, iters, matches=("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))[0]
+            (plain_fwd,), _ = device_ms(fwd_plain, max(2, iters // 5))
+            (plain_bwd,), _ = device_ms(bwd_plain, max(2, iters // 5))
+            (lib_fwd,), _ = device_ms(fwd_lib, iters)
+            (lib_bwd,), _ = device_ms(bwd_lib, iters)
         err_txt = ", ".join(
             f"{lb} {e:.6g} ({el:.4f} x its element limit, tile rel L2 {rl:.6g}; "
             f"{100 * f:.4f}% differ)" for lb, (e, el, rl, f) in errs.items()
@@ -5308,11 +5355,15 @@ def run_flash_kernel_phase(card: str, packed: bool = False, cases=None) -> dict:
         pairs = "" if seg is None else (
             f" (packed: {attended_pairs(seg, causal)} attended pairs a head, "
             f"{len(torch.unique(seg[0]))} ids in row 0)")
+        timed_txt = (
+            f"K1 {times[1]:.6f} ms (bound {bounds[1][0]:.6f}, {bounds[1][1]}), K2 "
+            f"{times[2]:.6f} ms (bound {bounds[2][0]:.6f}), K3 {times[3]:.6f} ms (bound "
+            f"{bounds[3][0]:.6f}); plain fwd {plain_fwd:.6f} / bwd {plain_bwd:.6f} ms; library "
+            f"(SDPA) fwd {lib_fwd:.6f} / bwd {lib_bwd:.6f} ms" if timing else
+            f"checked, not timed (bounds {bounds[1][0]:.6f} / {bounds[2][0]:.6f} / "
+            f"{bounds[3][0]:.6f} ms)")
         log(f"kernel flash [{name}] B={b} N={n} Nkv={nkv} S={s} D={d}{pairs}: {err_txt}, lse "
-            f"{lse_err:.6g}; K1 {times[1]:.6f} ms (bound {bounds[1][0]:.6f}, {bounds[1][1]}), "
-            f"K2 {times[2]:.6f} ms (bound {bounds[2][0]:.6f}), K3 {times[3]:.6f} ms "
-            f"(bound {bounds[3][0]:.6f}); plain fwd {plain_fwd:.6f} / bwd {plain_bwd:.6f} "
-            f"ms; library (SDPA) fwd {lib_fwd:.6f} / bwd {lib_bwd:.6f} ms | {card}")
+            f"{lse_err:.6g}; {timed_txt} | {card}")
         if record is None:
             record = {
                 kn: dict(ms=times[kn], bound_ms=bounds[kn][0], bound_by=bounds[kn][1],
@@ -6352,18 +6403,16 @@ def zero1_update_gap(state, parts, before: dict, ref_master: dict) -> tuple:
             names[i], own[i].item())
 
 
-def run_tp_serve_phase(prompts, want: list, card: str) -> dict:
-    """The tp = 2 serve (``tp_serve_rank`` on two ranks): rank 0's K4
-    records at its served geometries and both ranks' launches."""
-    outs = tp_spawn(tp_serve_rank, prompts, want, card)
+def tp_serve_result(outs: list) -> dict:
+    """The tp = 2 serve (``tp_serve_rank``'s results on two ranks): rank 0's
+    K4 records at its served geometries and both ranks' launches."""
     check(outs[0]["streams"] == outs[1]["streams"], "tp2 serve: the ranks' streams differ")
     check(outs[0]["launches"] == outs[1]["launches"],
           f"tp2 serve: K4 launches {outs[0]['launches']} / {outs[1]['launches']}")
     return outs[0]
 
 
-def run_tp_train_phase(card: str) -> dict:
-    outs = tp_spawn(tp_train_rank, card)
+def tp_train_result(outs: list) -> dict:
     check(outs[0]["launches"] == outs[1]["launches"] == STEP_LAUNCHES,
           f"tp2 train: launches {outs[0]['launches']} / {outs[1]['launches']}")
     return outs[0]
@@ -6458,25 +6507,6 @@ def home_hop_left_out(ring):
 
 
 @contextlib.contextmanager
-def chunk_outputs_in_fp32():
-    """A witness, not a fault: each ring chunk's output from K1's plain
-    version on fp32 queries, so it reaches the lse merge unrounded (K1
-    rounds it to bf16 first); P is still rounded to V's bf16, as in K1."""
-    from neuronx_distributed_llama3_2_tpu_torch.kernels import ring_attention_pallas as rap
-    from neuronx_distributed_llama3_2_tpu_torch.kernels.flash_attention import (
-        flash_fwd_reference,
-    )
-
-    inner = rap._fwd_chunk
-    rap._fwd_chunk = lambda q, kc, vc, causal, sm_scale, block_q, block_kv: \
-        flash_fwd_reference(q.float(), kc, vc, None, causal, sm_scale)
-    try:
-        yield
-    finally:
-        rap._fwd_chunk = inner
-
-
-@contextlib.contextmanager
 def positions_in_contiguous_order(model):
     """A planted fault: under zigzag the tokens are permuted into the ring's
     layout but their positions (RoPE's) are cut in contiguous order."""
@@ -6506,9 +6536,7 @@ def cp_train_rank(rank: int, nproc: int, card: str) -> dict:
     chunk left out of the merge; zigzag: the positions cut in contiguous
     order), which must fall outside the bands, and through the ring's
     backward with dk / dv one hop short of home, whose gradients must fall
-    outside GRAD_BAND; and, as witnesses of the loss gap's cause, the
-    forward's loss with K1's bf16 chunk outputs, with fp32 ones (K1's
-    plain version) and from a second seed's weights. Rank 0 then holds K1-K3
+    outside GRAD_BAND. Rank 0 then holds K1-K3
     against their plain versions at the ring's chunk shapes
     (CP_FLASH_CASES) while rank 1 waits."""
     import torch.distributed as dist
@@ -6526,13 +6554,10 @@ def cp_train_rank(rank: int, nproc: int, card: str) -> dict:
 
     cfg, tc1 = train_configs()
     batch = train_batch(cfg, E2E_BATCH)
-    ref_loss = ref_grads = ref_loss_b = None
+    ref_loss = ref_grads = None
     if rank == 0:
         ref_model = LlamaForCausalLM(cfg, device="cuda").init_weights(SEED)
         ref_loss, ref_grads = loss_and_grads(ref_model, batch)
-        with torch.no_grad():  # the loss gap witness's second seed
-            ref_loss_b = float(ref_model.init_weights(SEED + 1).loss(batch["input_ids"],
-                                                                     batch["labels"]))
         del ref_model
         torch.cuda.empty_cache()
     tc = TrainingConfig(context_parallel_size=2, optimizer=tc1.optimizer)
@@ -6607,26 +6632,12 @@ def cp_train_rank(rank: int, nproc: int, card: str) -> dict:
             # the ring's backward: dk / dv one hop short of home
             ring = rap._ZigzagFlash if layout == "zigzag" else rap._RingFlash
             _, (bad_gap, bad_at), _, _ = one_step(model, step, home_hop_left_out(ring))
-            # witnesses of the loss gap's cause, the forward alone: K1's bf16
-            # chunk outputs, fp32 ones, and a second seed's weights
-            with torch.no_grad():
-                model.init_weights(SEED)
-                fwd_loss = float(model.loss(batch["input_ids"], batch["labels"]))
-                with chunk_outputs_in_fp32():
-                    f32_loss = float(model.loss(batch["input_ids"], batch["labels"]))
-                model.init_weights(SEED + 1)
-                loss_b = float(model.loss(batch["input_ids"], batch["labels"]))
             if rank == 0:
                 log(f"cp2 {layout} train planted fault (the backward's dk / dv one hop short "
                     f"of home): gradient {bad_gap:.6g} at {bad_at} (band {GRAD_BAND})")
                 check(bad_gap > GRAD_BAND,
                       f"the cp2 {layout} gradient band passes dk / dv one hop short of home "
                       f"({bad_gap})")
-                log(f"cp2 {layout} loss gap witness, the forward alone: chunk outputs bf16 "
-                    f"(K1) {abs(fwd_loss - ref_loss):.6g}, fp32 (K1's plain version) "
-                    f"{abs(f32_loss - ref_loss):.6g}; seed {SEED + 1}'s weights, bf16 "
-                    f"{abs(loss_b - ref_loss_b):.6g} (band {LOSS_BAND}) | {card}")
-                check(np.isfinite(f32_loss), f"cp2 {layout} fp32-chunk loss {f32_loss}")
             del model, step
             gc.collect()
             torch.cuda.empty_cache()
@@ -6642,8 +6653,7 @@ def cp_train_rank(rank: int, nproc: int, card: str) -> dict:
     return out
 
 
-def run_cp_train_phase(card: str) -> dict:
-    outs = tp_spawn(cp_train_rank, card)
+def cp_train_result(outs: list) -> dict:
     check(outs[0]["launches"] == outs[1]["launches"],
           f"cp2 train: launches {outs[0]['launches']} / {outs[1]['launches']}")
     return outs[0]
@@ -6918,12 +6928,802 @@ def pp_train_rank(rank: int, nproc: int, card: str) -> dict:
     return out
 
 
-def run_pp_train_phase(card: str) -> dict:
-    outs = tp_spawn(pp_train_rank, card)
+def pp_train_result(outs: list) -> dict:
     check(outs[0]["launches"] == outs[1]["launches"],
           f"pp2 train: launches {outs[0]['launches']} / {outs[1]['launches']}")
     return outs[0]
 
+# -- 6d. MoE and quantized layers ------------------------------------------------
+#
+# Mixtral 8x7B and DBRX at their published widths (HF config.json values:
+# MIXTRAL_CONFIGS["mixtral-8x7b"], DBRX_CONFIGS["dbrx"]), depth cut: the
+# train step at 2 layers, the serves at 4 (Mixtral) and 1 (DBRX). Weights
+# are drawn on the card from SEED; no tag is written (a layer is 2.9 GB).
+
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_BATCH = 2
+#: K1-K3 at Mixtral's train shape: B 2, 32 / 8 heads (G 4), S 2048, D 128
+MOE_FLASH_CASES = (("mixtral train causal (D 128, G 4)", 2, 32, 8, 2048, 128, True, 10),)
+MOE_TIMED_STEPS = 2
+MOE_SERVE_LAYERS = 4
+DBRX_SERVE_LAYERS = 1
+#: JAX's band for int8 logits against bf16's (tests/test_quantization.py:
+#: 252-254, on tiny-moe, where the CPU test holds the port to it): logged
+#: here. At Mixtral's widths with random weights the logits lie close
+#: together (a median top-1 to top-2 gap of 0.19), and a correct int8
+#: rounding moves the largest of a prompt's 16 M logits by more than 0.25
+QUANT_LOGIT_BAND, QUANT_ARGMAX_AGREE = 0.25, 0.95
+#: the int8 logits' relative L2 distance from bf16's (on bf16's expert
+#: choices), held: per-channel int8 rounds each weight by at most half its
+#: channel's absmax / 127, ~0.9 % of the weights' spread for a normal
+#: draw over 4096 rows, so a few percent over the layers; 0.1 leaves room
+QUANT_REL_L2 = 0.1
+#: the MoE serves' e2e margin: twice the sound reading of the first 8-lane
+#: Mixtral serve on an H100 teacher-forced on its own expert choices
+#: (0.21875: Mixtral's logits lie closer together than the 1B's, a median
+#: top-1 to top-2 gap of 0.19, and its 4096-wide head sums more bf16
+#: products); the newest K/V row left out of every K4 call must read above
+MOE_LOGIT_MARGIN = 0.4375
+#: a shorter prefill ladder than Serve's (fewer graphs to capture), which
+#: still covers every prompt and takes the 5- and 8-token suffixes at t = 8
+MOE_PREFILL_BUCKETS = (8, 64, 1024)
+
+
+def moe_train_configs(layers: int):
+    """Mixtral 8x7B at full width and ``layers`` layers, with the 1B's
+    train knobs (flash attention, remat full, CE chunked at 256, AdamW bf16
+    state, no master weights): (model config, TrainingConfig)."""
+    from neuronx_distributed_llama3_2_tpu_torch.models.mixtral import MIXTRAL_CONFIGS
+
+    _, tc = train_configs()
+    cfg = dataclasses.replace(
+        MIXTRAL_CONFIGS["mixtral-8x7b"], num_layers=layers, remat="full",
+        max_seq_len=TRAIN_SEQ, use_flash_attention=True, flash_block_q=1024,
+        flash_block_kv=1024, loss_chunk_size=256,
+    )
+    return cfg, tc
+
+
+@contextlib.contextmanager
+def gates_not_renormalized(model):
+    """A planted fault: every MoE block of ``model`` keeps the raw softmax
+    affinities of the chosen experts (Mixtral renormalizes them to sum to
+    1)."""
+    blocks = model.moe_layers()
+    configs = [m.config for m in blocks]
+    for m in blocks:
+        m.config = dataclasses.replace(m.config, normalize_top_k=False)
+    try:
+        yield
+    finally:
+        for m, c in zip(blocks, configs):
+            m.config = c
+
+
+@contextlib.contextmanager
+def route_tape(tape: list, mode: str, rows=None):
+    """Record (``mode`` "record") each MoE routing call's expert choices
+    into ``tape``, or replay them ("replay"): each call takes the next
+    recorded choices (their ``rows`` slice, a rank's tokens of a recorded
+    global batch) in place of its own, gated by its own logits. Two steps
+    of one structure (the same layers, remat and microbatches) make their
+    routing calls in the same order. A bf16 forward through other kernels
+    moves a router logit by an ulp, and a token near a tie between two
+    experts then picks the other: a step that replays another's routing
+    differs from it only by arithmetic, not by expert choice."""
+    from neuronx_distributed_llama3_2_tpu_torch.moe import model as mm
+
+    inner = mm.MoE.route
+
+    def route(self, x):
+        logits, gates, idx = inner(self, x)
+        if mode == "record":
+            tape.append(idx.detach().clone())
+            return logits, gates, idx
+        idx = tape.pop(0)
+        if rows is not None:
+            idx = idx[rows[0]:rows[1]]
+        gates = torch.softmax(logits.float(), -1).gather(-1, idx)
+        if self.config.normalize_top_k:
+            gates = gates / gates.sum(-1, keepdim=True)
+        return logits, gates, idx
+
+    mm.MoE.route = route
+    try:
+        yield
+    finally:
+        mm.MoE.route = inner
+
+
+def moe_drops(model) -> tuple:
+    """(dropped assignments, assignments) of the last forward, over the
+    MoE layers."""
+    layers = [m.experts for m in model.moe_layers()]
+    return (sum(int(e.dropped) for e in layers), sum(e.assignments for e in layers))
+
+
+def run_moe_train_phase(card: str) -> dict:
+    """Mixtral 8x7B's train step at full width, MOE_TRAIN_LAYERS layers,
+    batch MOE_TRAIN_BATCH x 2048, capacity factor 4.0 (E·C = 32768 slots a
+    layer): one step's loss and gradients through K1-K3 against the same
+    step with plain attention (same weights) on the kernel step's expert
+    choices (``route_tape``; the plain step routing on its own logits is
+    logged as a witness): LOSS_BAND / GRAD_BAND, and a planted fault (gates
+    not renormalized) outside them; then a warm-up and
+    MOE_TIMED_STEPS steps through the trainer, (K1, K2, K3) launched
+    (FLASH_FWD_PER_LAYER x L, L, L) a step, the dropped assignments and the
+    peak memory logged; K1-K3 at the train shape against their plain
+    versions (MOE_FLASH_CASES). Returns the K1-K3 records and launches."""
+    from neuronx_distributed_llama3_2_tpu_torch.models.llama import FLASH_FWD_PER_LAYER
+    from neuronx_distributed_llama3_2_tpu_torch.models.mixtral import MixtralForCausalLM
+    from neuronx_distributed_llama3_2_tpu_torch.trainer import (
+        initialize_parallel_model,
+        make_train_step,
+    )
+
+    cfg, tc = moe_train_configs(MOE_TRAIN_LAYERS)
+    tc.initialize("cuda")
+    batch = train_batch(cfg, MOE_TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    model = MixtralForCausalLM(cfg, device="cuda")
+    state, _ = initialize_parallel_model(model, tc, key=SEED)
+    n_params = sum(p.numel() for p in state.params.values())
+    log(f"moe train: mixtral-8x7b widths (hidden {cfg.hidden_size}, intermediate "
+        f"{cfg.intermediate_size}, {cfg.num_heads} / {cfg.num_kv_heads} heads, head_dim "
+        f"{cfg.head_dim}, E {cfg.num_experts}, k {cfg.top_k}, capacity factor "
+        f"{cfg.capacity_factor}, vocab {cfg.vocab_size}), depth cut to {cfg.num_layers} of 32 "
+        f"layers: {n_params} parameters, bf16, seeded random weights; batch "
+        f"{MOE_TRAIN_BATCH} x {TRAIN_SEQ}, remat {cfg.remat}, flash attention, AdamW bf16 "
+        f"state | {card}")
+    plain = MixtralForCausalLM(dataclasses.replace(cfg, use_flash_attention=False),
+                               device="cuda")
+    plain.load_state_dict(model.state_dict())
+    tape: list = []
+    with route_tape(tape, "record"):
+        loss, grads = loss_and_grads(model, batch)
+    dropped, assigned = moe_drops(model)
+    # the witness: the plain step routing on its own logits
+    own: list = []
+    with route_tape(own, "record"):
+        free_loss, free_grads = loss_and_grads(plain, batch)
+    flips = [int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+             for a, b in zip(tape[:cfg.num_layers], own[:cfg.num_layers])]
+    free_gap = grad_gap(grads, free_grads)
+    del free_grads
+    # the check: the plain step given the kernel step's expert choices
+    with route_tape(list(tape), "replay"):
+        ref_loss, ref_grads = loss_and_grads(plain, batch)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_gap = abs(loss - ref_loss)
+    gap, at = grad_gap(grads, ref_grads)
+    del grads
+    log(f"moe train e2e: loss {loss:.6f} through the kernels vs {ref_loss:.6f} plain on the "
+        f"kernel step's expert choices (gap {loss_gap:.6g}, band {LOSS_BAND}); largest gradient "
+        f"relative L2 error {gap:.6g} at {at} (band {GRAD_BAND}); witness, the plain step "
+        f"routing on its own logits: {flips} of {batch['input_ids'].numel()} tokens choose "
+        f"other experts (by layer), loss {free_loss:.6f} (gap {abs(loss - free_loss):.6g}), "
+        f"gradient {free_gap[0]:.6g} at {free_gap[1]}; dropped assignments at capacity factor "
+        f"{cfg.capacity_factor}: {dropped} of {assigned} | {card}")
+    check(np.isfinite(loss) and loss_gap <= LOSS_BAND, f"moe train loss gap {loss_gap}")
+    check(gap <= GRAD_BAND, f"moe train gradient gap {gap} at {at}")
+    with gates_not_renormalized(model), route_tape(list(tape), "replay"):
+        bad_loss, bad_grads = loss_and_grads(model, batch)
+    bad_gap, bad_at = grad_gap(bad_grads, ref_grads)
+    del bad_grads, ref_grads
+    log(f"moe train planted fault (gates not renormalized): loss gap "
+        f"{abs(bad_loss - ref_loss):.6g}, gradient {bad_gap:.6g} at {bad_at}")
+    check(abs(bad_loss - ref_loss) > LOSS_BAND or bad_gap > GRAD_BAND,
+          "the moe train bands pass un-renormalized gates")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    step = make_train_step(model, tc)
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    losses = [float(m["loss"])]
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    want = (FLASH_FWD_PER_LAYER[cfg.remat] * cfg.num_layers, cfg.num_layers, cfg.num_layers)
+    launches, step_ms = (0, 0, 0), []
+    for i in range(MOE_TIMED_STEPS):
+        prev = flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        per_step = tuple(a - b for a, b in zip(flash_counts(), prev))
+        check(per_step == want, f"moe train step {i}: (K1, K2, K3) launches {per_step}, "
+              f"want {want}")
+        launches = tuple(a + b for a, b in zip(launches, per_step))
+    dropped, assigned = moe_drops(model)
+    check(all(np.isfinite(losses)), f"non-finite moe train loss: {losses}")
+    log(f"moe train: warm-up {warm_ms:.6f} ms, steps {[round(x, 6) for x in step_ms]} ms "
+        f"(median {float(np.median(step_ms)):.6f}), losses {losses}; (K1, K2, K3) launches "
+        f"{launches} over {MOE_TIMED_STEPS} steps; dropped assignments {dropped} of "
+        f"{assigned}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.6f} GiB | {card}")
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, flash=run_flash_kernel_phase(card, cases=MOE_FLASH_CASES))
+
+
+# ep = 2 as two processes on the card over gloo, whose all_to_all_single
+# carries CUDA tensors (chip_trials/gloo_a2a_trial.py)
+
+@contextlib.contextmanager
+def exit_blocks_swapped():
+    """A planted fault: the ep exit all-to-all returns the expert blocks in
+    the wrong order (the two ep ranks' outputs swapped)."""
+    from neuronx_distributed_llama3_2_tpu_torch.moe import model as mm
+
+    inner = mm.exit_expert_parallel_region
+
+    def faulty(x, group):
+        y = inner(x, group)
+        return y.roll(y.shape[0] // 2, dims=0)
+
+    mm.exit_expert_parallel_region = faulty
+    try:
+        yield
+    finally:
+        mm.exit_expert_parallel_region = inner
+
+
+def ep_part_gap(grads, ref, parts, ep_rank: int, ep: int):
+    """``grad_gap`` of a rank's gradients handed to AdamW (ZeRO-1's parts
+    of the dense leaves, its experts' slice of the expert leaves) against
+    the same slices of the ep = 1 gradients."""
+    cut = {}
+    for k, g in grads.items():
+        r = ref[k]
+        if ".experts." in k:
+            e = r.shape[0] // ep
+            r = r[ep_rank * e:(ep_rank + 1) * e]
+        part = parts[k] if parts else None
+        if part is not None and part.dim is not None:
+            r = r.narrow(part.dim, part.start, part.size)
+        cut[k] = r
+    return grad_gap(grads, cut)
+
+
+def ep_train_rank(rank: int, nproc: int, card: str) -> dict:
+    """A rank of the ep = 2 train phase: the moe train phase's model and
+    batch. Each rank first takes the ep = 1 step's loss and gradients (no
+    mesh, the ranks in turn) from SEED's weights and keeps them and its
+    expert choices (``route_tape``); then, through the
+    trainer's entry points (``TrainingConfig(expert_parallel_size=2)`` with
+    ZeRO-1 on, ``initialize_parallel_model``, ``make_train_step``), the ep =
+    2 step from the same weights, on the ep = 1 step's expert choices for
+    its tokens: each rank holds E / 2 experts and takes one row of the
+    batch, its capacity is its own (C = 2048 a rank, which
+    no assignment exceeds: zero drops, required), its loss within
+    LOSS_BAND of ep = 1's and its gradients within GRAD_BAND of the same
+    slices; the planted fault (the exit all-to-all's blocks swapped) outside
+    them. Logged: each rank's expert shard, its ZeRO-1 state bytes, the
+    step ms, one (8, 2048, 4096) bf16 all-to-all's ms."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_llama3_2_tpu_torch.models.mixtral import MixtralForCausalLM
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import mappings
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as ps
+    from neuronx_distributed_llama3_2_tpu_torch.trainer import (
+        TrainingConfig,
+        initialize_parallel_model,
+        make_train_step,
+    )
+    from neuronx_distributed_llama3_2_tpu_torch.trainer.optimizer import state_bytes, zero1_parts
+    from neuronx_distributed_llama3_2_tpu_torch.trainer.trainer import state_specs
+
+    cfg, tc1 = moe_train_configs(MOE_TRAIN_LAYERS)
+    batch = train_batch(cfg, MOE_TRAIN_BATCH)
+    # the ep = 1 step's loss and gradients (at one microbatch, those the
+    # trainer hands to AdamW), the ranks in turn: two at once do not fit
+    ref, tape = {}, []
+    for turn in range(nproc):
+        if turn == rank:
+            ref_model = MixtralForCausalLM(cfg, device="cuda").init_weights(SEED)
+            with route_tape(tape, "record"):
+                ref_loss, ref = loss_and_grads(ref_model, batch)
+            del ref_model
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    opt = dataclasses.replace(tc1.optimizer, zero_one_enabled=True)
+    tc = TrainingConfig(expert_parallel_size=2, optimizer=opt)
+    tc.initialize("cuda")
+    out = {}
+    try:
+        ep_rank = ps.get_expert_model_parallel_rank()
+
+        def one_step(fault=contextlib.nullcontext()):
+            model = MixtralForCausalLM(cfg, device="cuda")
+            state, specs = initialize_parallel_model(model, tc, key=SEED)
+            parts = zero1_parts(state_specs(model, tc).opt)
+            got = {}
+            step = make_train_step(model, tc)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with fault, step_gradients(lambda g: got.update(
+                    gap=ep_part_gap(g, ref, parts, ep_rank, 2))), \
+                    route_tape(list(tape), "replay", (ep_rank * TRAIN_SEQ, (ep_rank + 1) * TRAIN_SEQ)):
+                state, m = step(state, batch)
+            loss = float(m["loss"])
+            ms = 1e3 * (time.perf_counter() - t0)
+            shard = tuple(model.layers[0].moe.experts.gate_up.shape)
+            sbytes = state_bytes(state.opt)
+            drops = moe_drops(model)
+            del model, state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            both = [None, None]
+            dist.all_gather_object(both, (loss, got["gap"], drops, ms, shard, sbytes))
+            return both
+
+        both = one_step()
+        (loss, gap0, drops0, ms0, shard0, sb0), (loss1, gap1, drops1, ms1, shard1, sb1) = both
+        gap, at = max(gap0, gap1)
+        loss_gap = abs(loss - ref_loss)
+        rank_log(rank, f"ep2 train: two ranks over {dist.get_backend()} on one card, the expert "
+                 f"all-to-all by all_to_all_single on the CUDA tensors; each rank holds experts "
+                 f"gate_up {shard0} / {shard1} (E / ep = {cfg.num_experts // 2}), ZeRO-1 state "
+                 f"{sb0} / {sb1} B; loss {loss:.6f} against {ref_loss:.6f} at ep = 1 (gap "
+                 f"{loss_gap:.6g}, band {LOSS_BAND}); gradients handed to AdamW, largest relative "
+                 f"L2 error {gap:.6g} at {at} (band {GRAD_BAND}); dropped assignments {drops0} / "
+                 f"{drops1} (rank-local capacity); the step {ms0:.6f} / {ms1:.6f} ms | {card}")
+        check(loss == loss1, f"ep2 train: the ranks' losses differ ({loss}, {loss1})")
+        check(drops0[0] == 0 and drops1[0] == 0, f"ep2 train: dropped {drops0}, {drops1}")
+        check(np.isfinite(loss) and loss_gap <= LOSS_BAND, f"ep2 train loss gap {loss_gap}")
+        check(gap <= GRAD_BAND, f"ep2 train gradient gap {gap} at {at}")
+        bad = one_step(exit_blocks_swapped())
+        bad_gap, bad_at = max(b[1] for b in bad)
+        bad_loss_gap = abs(bad[0][0] - ref_loss)
+        rank_log(rank, f"ep2 train planted fault (the exit all-to-all's blocks swapped): loss gap "
+                 f"{bad_loss_gap:.6g}, gradient {bad_gap:.6g} at {bad_at}")
+        check(bad_loss_gap > LOSS_BAND or bad_gap > GRAD_BAND,
+              "the ep2 train bands pass a swapped exit all-to-all")
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        group = ps.get_expert_model_parallel_group()
+        buf = torch.randn((cfg.num_experts, TRAIN_SEQ, cfg.hidden_size), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(SEED + rank),
+                          ).to(torch.bfloat16)
+        back = mappings.all_to_all(mappings.all_to_all(buf, 0, 1, group), 1, 0, group)
+        check(torch.equal(back, buf), "ep2: the all-to-all and its inverse changed the buffer")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            mappings.all_to_all(buf, 0, 1, group)
+        torch.cuda.synchronize()
+        a2a_ms = 1e3 * (time.perf_counter() - t0) / 4
+        rank_log(rank, f"ep2: one all-to-all of the (8, {TRAIN_SEQ}, {cfg.hidden_size}) bf16 "
+                 f"dispatch buffer ({buf.numel() * 2 / 1e6:.3f} MB) {a2a_ms:.6f} ms over "
+                 f"{dist.get_backend()} | {card}")
+        out = dict(loss_gap=loss_gap, gap=gap, a2a_ms=a2a_ms)
+        dist.barrier()
+    finally:
+        ps.destroy_model_parallel()
+    return out
+
+
+#: the phases that run on two ranks over gloo, in order, on one pair of
+#: processes (one process start and CUDA context a rank for all of them)
+TWO_RANK_PHASES = ("tp2 serve", "tp2 train", "cp2 train", "pp2 train", "ep2 train")
+
+
+def two_rank_body(rank: int, nproc: int, prompts, want: list, card: str) -> dict:
+    """Each of TWO_RANK_PHASES's rank bodies in turn: {phase: this rank's
+    result}; each phase's seconds logged by rank 0."""
+    bodies = {"tp2 serve": (tp_serve_rank, (prompts, want, card)),
+              "tp2 train": (tp_train_rank, (card,)), "cp2 train": (cp_train_rank, (card,)),
+              "pp2 train": (pp_train_rank, (card,)), "ep2 train": (ep_train_rank, (card,))}
+    out = {}
+    for name in TWO_RANK_PHASES:
+        fn, args = bodies[name]
+        t0 = time.perf_counter()
+        out[name] = fn(rank, nproc, *args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rank_log(rank, f"phase {name}: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def run_two_rank_phases(prompts, want: list, card: str) -> dict:
+    """TWO_RANK_PHASES on two ranks on the card over gloo (``two_rank_body``):
+    {phase: rank 0's record}, each held to both ranks' agreement."""
+    outs = tp_spawn(two_rank_body, prompts, want, card)
+    by = {name: [o[name] for o in outs] for name in TWO_RANK_PHASES}
+    return {"tp2 serve": tp_serve_result(by["tp2 serve"]),
+            "tp2 train": tp_train_result(by["tp2 train"]),
+            "cp2 train": cp_train_result(by["cp2 train"]),
+            "pp2 train": pp_train_result(by["pp2 train"]),
+            "ep2 train": by["ep2 train"][0]}
+
+
+def moe_prompts(vocab: int) -> list:
+    """Serve's prompts with their ids taken modulo the model's vocab."""
+    return [[t % vocab for t in p] for p in serve_prompts()]
+
+
+@contextlib.contextmanager
+def serve_routing(server, prompts: list, tape: dict):
+    """While an eager serve of ``prompts`` runs on ``server``: each MoE
+    routing call's expert choices into ``tape``, keyed by (prompt index,
+    position, layer). A prefill's rows (one request) are the prompt whose
+    tokens they are, past its end padding; a decode step's row i is lane
+    i's request. A host sync per call: eager serves only."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference import model as im
+    from neuronx_distributed_llama3_2_tpu_torch.moe import model as mm
+
+    inner_fwd, inner_route = im.LlamaDecode.forward, mm.MoE.route
+    ctx: dict = {}
+    of_rid: dict = {}
+
+    def owner(i, toks, pos):
+        if len(ctx["tokens"]) == 1 and len(toks) > 1 or ctx["prefill"]:
+            for j, p in enumerate(prompts):
+                n = min(len(toks), len(p) - pos)
+                if n > 0 and p[pos:pos + n] == toks[:n]:
+                    return j
+            return None
+        req = server._active.get(i)
+        if req is None:
+            return None
+        if req.rid not in of_rid:
+            of_rid[req.rid] = next(j for j, p in enumerate(prompts) if list(req.prompt) == p)
+        return of_rid[req.rid]
+
+    def forward(self, params, cache, tokens, positions, *args, **kw):
+        ctx.update(tokens=tokens.tolist(), pos=positions.tolist(), layer=0,
+                   prefill=bool(kw.get("context_encode")))
+        return inner_fwd(self, params, cache, tokens, positions, *args, **kw)
+
+    def route(self, x):
+        logits, gates, idx = inner_route(self, x)
+        rows, toks = idx.tolist(), ctx["tokens"]
+        t = len(toks[0])
+        for i, row_toks in enumerate(toks):
+            j = owner(i, row_toks, ctx["pos"][i])
+            if j is None:
+                continue
+            for u in range(t):
+                pos = ctx["pos"][i] + u
+                if ctx["prefill"] or len(toks) == 1 and t > 1:
+                    if pos >= len(prompts[j]):
+                        break
+                tape[(j, pos, ctx["layer"])] = rows[i * t + u]
+        ctx["layer"] += 1
+        return logits, gates, idx
+
+    im.LlamaDecode.forward, mm.MoE.route = forward, route
+    try:
+        yield
+    finally:
+        im.LlamaDecode.forward, mm.MoE.route = inner_fwd, inner_route
+
+
+def replayed_logits(model, tape: dict, prompts: list, j: int, seq: list) -> torch.Tensor:
+    """``model``'s plain forward over ``seq`` (prompt ``j`` and served
+    tokens) with each position's expert choices the serve's (``tape``; a
+    position of a prefix the request shares with another prompt, which the
+    prefix cache served from that prompt's prefill, from that prompt's)."""
+    n_layers = model.config.num_layers
+    layers = []
+    for layer in range(n_layers):
+        rows = []
+        for pos in range(len(seq)):
+            key = (j, pos, layer)
+            if key not in tape:
+                key = next((q, pos, layer) for q, p in enumerate(prompts)
+                           if (q, pos, layer) in tape and p[:pos + 1] == seq[:pos + 1])
+            rows.append(tape[key])
+        layers.append(torch.as_tensor(rows, device="cuda"))
+    with route_tape(layers, "replay"):
+        return model(torch.as_tensor([seq], device="cuda"))[0].float()
+
+
+def moe_e2e(model, prompts, streams, tape, label: str, card: str,
+            check_margin: bool = True) -> float:
+    """Every served token (``streams`` in prompt order) teacher-forced
+    through ``model``'s plain forward on the serve's own expert choices
+    (``replayed_logits``): within MOE_LOGIT_MARGIN of its argmax. A bf16
+    forward through other kernels moves a router logit by an ulp, and a
+    token near a tie between two experts then takes the other, which moves
+    its logits by whole units (the witness logged: the plain forward
+    routing on its own). Returns the worst gap."""
+    worst, exact, total = 0.0, 0, 0
+    for j, gen in enumerate(streams):
+        logits = replayed_logits(model, tape, prompts, j, prompts[j] + gen[:-1])
+        logits = logits[len(prompts[j]) - 1:]
+        check(bool(torch.isfinite(logits).all()), f"{label}: non-finite plain logits")
+        tok = torch.as_tensor(gen, device="cuda")
+        chosen = logits[torch.arange(len(gen), device="cuda"), tok]
+        worst = max(worst, (logits.max(-1).values - chosen).max().item())
+        exact += int((logits.argmax(-1) == tok).sum())
+        total += len(gen)
+    free, free_exact, _ = e2e_gaps(model, prompts, dict(enumerate(streams)), range(len(streams)))
+    log(f"{label} e2e: {exact} of {total} served tokens are the argmax of the plain forward "
+        f"on the serve's expert choices, the worst within {worst:.6g} logits (margin "
+        f"{MOE_LOGIT_MARGIN}); witness, the plain forward routing on its own: {free_exact} "
+        f"exact, the worst {free:.6g} | {card}")
+    if check_margin:
+        check(worst <= MOE_LOGIT_MARGIN, f"{label}: a served token {worst} below the argmax")
+    return worst
+
+
+def moe_twin_streams(label: str, model, prompts, tape, want: list, got: list) -> int:
+    """A prewarmed serve's streams (``got``, in prompt order) against the
+    eager serve's (``want``): where one differs, its first differing token
+    must be a near tie (the two tokens' logits within LOGIT_MARGIN) under
+    the plain forward on the eager serve's expert choices. Returns how many
+    streams are equal."""
+    same = 0
+    for j, (o, w) in enumerate(zip(got, want)):
+        i = first_difference(o, w)
+        if i is None:
+            same += 1
+            continue
+        logits = replayed_logits(model, tape, prompts, j, prompts[j] + w[:i])[-1]
+        tie = abs(logits[o[i]] - logits[w[i]]).item()
+        log(f"{label}: request {j} first differs at token {i} ({o[i]} against {w[i]}); their "
+            f"plain-forward logits lie {tie:.6g} apart (near-tie limit {LOGIT_MARGIN})")
+        check(tie <= LOGIT_MARGIN, f"{label}: request {j} differs at token {i}, not a near tie")
+    return same
+
+
+def moe_serve(cfg, model, prompts, lanes: int, prewarm: bool, card: str, label: str):
+    """Serve ``prompts`` greedily through the paged engine (K4 on,
+    ``lanes`` lanes, MOE_PREFILL_BUCKETS), eager with every kernel call's
+    geometry and every routing call's expert choices recorded
+    (``serve_routing``), or prewarmed with K4's launches read from the
+    graphs' replays. Returns (streams in prompt order, {source: launches},
+    served geometries, moe_paths, routing tape)."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
+        GenerationConfig,
+        InferenceEngine,
+    )
+    from neuronx_distributed_llama3_2_tpu_torch.serving.engine import (
+        PagedConfig,
+        PagedServingEngine,
+    )
+
+    def server():
+        engine = InferenceEngine(cfg, model, max_batch=lanes, max_seq_len=2048)
+        paged = PagedConfig(block_size=16, num_blocks=2049, prefill_buckets=MOE_PREFILL_BUCKETS,
+                            prewarm=prewarm)
+        return PagedServingEngine(engine, GenerationConfig(max_new_tokens=MAX_NEW), paged)
+
+    geoms: dict = {}
+    tape: dict = {}
+    if prewarm:
+        before = k4_counts()
+        t0 = time.perf_counter()
+        with counted_captures() as held:
+            srv = server()
+        capture_s = time.perf_counter() - t0
+        check(k4_counts() != before, f"{label}: the captures launched no K4")
+        t0 = time.perf_counter()
+        rids = [srv.submit(p) for p in prompts]
+        outs = srv.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = replayed_k4(srv, held)
+        check(srv.metrics.steadystate_compiles == 0,
+              f"{label}: {srv.metrics.steadystate_compiles} captures after the freeze")
+    else:
+        capture_s = 0.0
+        srv = server()
+        before = k4_counts()
+        with model_kernel_call(recording(geoms, keep_positions=True)), \
+                serve_routing(srv, prompts, tape):
+            t0 = time.perf_counter()
+            rids = [srv.submit(p) for p in prompts]
+            outs = srv.run_to_completion()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {s: k4_counts()[s] - before[s] for s in before}
+    # counted in the eager calls and the captures' (a replay runs no Python)
+    paths = dict(srv.model.moe_paths)
+    for r in rids:
+        check(srv.request_info(r)["status"] == "finished" and len(outs[r]) == MAX_NEW,
+              f"{label}: request {r} {srv.request_info(r)['status']}, {len(outs[r])} tokens")
+    stats = serve_stats(srv, rids, outs, wall)
+    log(f"{label}: {len(rids)} requests over {lanes} lanes"
+        f"{' (prewarmed: graphs captured in %.3f s)' % capture_s if prewarm else ' (eager)'}: "
+        f"{stats['tokens_s']:.6f} tokens/s, TTFT p50 {stats['ttft']:.6f} ms, TPOT p50 "
+        f"{stats['tpot']:.6f} ms; K4 launches by source {launches}; expert paths by layer "
+        f"call {paths} | {card}")
+    served = {k: dict(calls=e["calls"], positions=median_call(e["positions"]))
+              for k, e in geoms.items()}
+    streams = [outs[r] for r in rids]
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return streams, launches, served, paths, tape
+
+
+@contextlib.contextmanager
+def per_tensor_dequant():
+    """A planted fault: every quantized layer dequantizes with its largest
+    (per-tensor) scale in place of its per-channel scales."""
+    from neuronx_distributed_llama3_2_tpu_torch.quantization.layers import DequantizeOnRead
+
+    inner = DequantizeOnRead.__getattr__
+
+    def faulty(self, name):
+        held = self.__dict__.get("_quantized")
+        if held is not None and name in held:
+            b = self.__dict__["_buffers"]
+            return (b[name + "_qvalue"].float() * b[name + "_scale"].max()).to(held[name])
+        return inner(self, name)
+
+    DequantizeOnRead.__getattr__ = faulty
+    try:
+        yield
+    finally:
+        DequantizeOnRead.__getattr__ = inner
+
+
+def logit_band(logits, ref) -> tuple:
+    """(relative L2 distance, max |logit difference|, argmax agreement) of
+    two (.., V) logits."""
+    d = logits.float() - ref.float()
+    return ((d.norm() / ref.float().norm()).item(), d.abs().max().item(),
+            (logits.argmax(-1) == ref.argmax(-1)).float().mean().item())
+
+
+def run_moe_serve_phase(card: str) -> dict:
+    """(a) Mixtral 8x7B widths, MOE_SERVE_LAYERS layers, bf16: Serve's
+    prompts (ids modulo the vocab) over 8 lanes (T·k = 16 > E: every expert
+    on every decode token) and over 4 lanes (T·k = 8 <= E: the selective
+    path), each eager with its expert choices recorded, every served token
+    teacher-forced against ``MixtralForCausalLM``'s plain forward on them
+    (``moe_e2e``); the 4-lane serve's prewarmed twin (every step a CUDA
+    graph) gives its streams (``moe_twin_streams``); ``moe_paths`` must show
+    both paths; K4 against its plain version at the 8-lane serve's
+    geometries (t1 at b 8, the tile at the t > 1 suffix). (b) the same
+    model quantized (``quantize_model``, int8 per channel): weight bytes
+    logged, the logits of a 511-token prompt within QUANT_LOGIT_BAND /
+    QUANT_ARGMAX_AGREE of bf16's (a per-tensor dequantize must fail it), an
+    eager 8-lane serve teacher-forced against the quantized model's plain
+    forward, its prewarmed twin's streams, and that twin's peak memory
+    above the quantized model below the bytes a whole-model dequantize
+    holds (which a planted whole-model dequantize must reach). (c) DBRX
+    widths, DBRX_SERVE_LAYERS layer, 4 lanes (selective decode), eager: K4
+    at G 6, LayerNorm and clip_qkv, teacher-forced against
+    ``DbrxForCausalLM``, its prewarmed twin's streams, K4 at its
+    geometries."""
+    from neuronx_distributed_llama3_2_tpu_torch.models.dbrx import DBRX_CONFIGS, DbrxForCausalLM
+    from neuronx_distributed_llama3_2_tpu_torch.models.mixtral import (
+        MIXTRAL_CONFIGS,
+        MixtralForCausalLM,
+    )
+    from neuronx_distributed_llama3_2_tpu_torch.quantization import (
+        QuantizationConfig,
+        quantize_model,
+    )
+    from neuronx_distributed_llama3_2_tpu_torch.quantization.quantize import weight_bytes
+
+    out = {}
+    cfg = dataclasses.replace(MIXTRAL_CONFIGS["mixtral-8x7b"], num_layers=MOE_SERVE_LAYERS,
+                              use_paged_kernel=True, max_seq_len=2048)
+    model = MixtralForCausalLM(cfg, device="cuda").init_weights(SEED)
+    bf16_bytes = weight_bytes(model)
+    prompts = moe_prompts(cfg.vocab_size)
+    log(f"moe serve: mixtral-8x7b widths, depth cut to {cfg.num_layers} of 32 layers, bf16, "
+        f"seeded random weights ({bf16_bytes} B); prompts of {[len(p) for p in prompts]} "
+        f"tokens (Serve's, ids modulo {cfg.vocab_size}) | {card}")
+    label = "moe serve mixtral bf16"
+    s8, l8, served, p8, tape8 = moe_serve(cfg, model, prompts, 8, False, card, label)
+    moe_e2e(model, prompts, s8, tape8, label, card)
+    del tape8
+    with model_kernel_call(newest_row_dropped):
+        sf, _, _, _, tapef = moe_serve(cfg, model, prompts, 8, False, card, label + " fault")
+    bad = moe_e2e(model, prompts, sf, tapef, label + " planted fault (K4's newest row left out)",
+                  card, check_margin=False)
+    check(bad > MOE_LOGIT_MARGIN, f"the moe serve e2e check passes a planted K4 fault ({bad})")
+    del tapef
+    s4, l4, _, p4, tape4 = moe_serve(cfg, model, prompts, 4, False, card, label + " 4 lanes")
+    moe_e2e(model, prompts, s4, tape4, label + " 4 lanes", card)
+    t4, lt4, _, _, _ = moe_serve(cfg, model, prompts, 4, True, card, label + " 4 lanes prewarmed")
+    same = moe_twin_streams(label + " 4 lanes prewarmed", model, prompts, tape4, s4, t4)
+    log(f"{label} 4 lanes prewarmed: {same} of {len(prompts)} streams equal to the eager "
+        f"serve's | {card}")
+    del tape4
+    paths = {k: p8.get(k, 0) + p4.get(k, 0) for k in ("selective", "all_experts")}
+    check(all(paths.values()), f"moe serve: expert paths {paths}: not both taken")
+    records, _ = run_paged_kernel_phase(cfg, served, card, grid=False, probes=False)
+    check(set(records) == {"t1", "tile"}, f"moe serve: K4 sources served {list(records)}")
+    out["k4"] = {s: dict(records[s], launches=l8[s] + l4[s] + lt4[s]) for s in ("t1", "tile")}
+
+    # (b) int8, per channel
+    # the int8 model's logits on the bf16 model's expert choices: the band
+    # holds the weights' rounding, not the routing flips it causes (logged)
+    probe = torch.as_tensor([prompts[5]], device="cuda")
+    routes: list = []
+    with route_tape(routes, "record"):
+        ref_logits = model(probe)
+    quantize_model(model, QuantizationConfig(quantized_dtype="int8"))
+    q_bytes = weight_bytes(model)
+    with route_tape(list(routes), "replay"):
+        rel, diff, agree = logit_band(model(probe), ref_logits)
+    free = logit_band(model(probe), ref_logits)
+    with per_tensor_dequant(), route_tape(list(routes), "replay"):
+        bad_rel, bad_diff, bad_agree = logit_band(model(probe), ref_logits)
+    log(f"moe serve int8: weights {q_bytes} B = {q_bytes / bf16_bytes:.6f} of bf16's; a "
+        f"{probe.shape[1]}-token prompt's logits against bf16's, on bf16's expert choices: "
+        f"relative L2 {rel:.6g} (band {QUANT_REL_L2}); JAX's tiny-model band (max |diff| < "
+        f"{QUANT_LOGIT_BAND}, argmax agreement > {QUANT_ARGMAX_AGREE}) reads {diff:.6g}, "
+        f"{agree:.6f}; witness, routing on its own: {free[0]:.6g}, {free[1]:.6g}, "
+        f"{free[2]:.6f}; planted fault (per-tensor scale in the dequantize): {bad_rel:.6g}, "
+        f"{bad_diff:.6g}, {bad_agree:.6f} | {card}")
+    check(rel <= QUANT_REL_L2, f"moe serve int8 logits: relative L2 {rel}")
+    check(bad_rel > QUANT_REL_L2, f"the int8 logit band passes a per-tensor dequantize "
+          f"({bad_rel})")
+    del ref_logits
+    label = "moe serve mixtral int8"
+    sq, lq, _, _, tapeq = moe_serve(cfg, model, prompts, 8, False, card, label)
+    moe_e2e(model, prompts, sq, tapeq, label, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tq, ltq, _, _, _ = moe_serve(cfg, model, prompts, 8, True, card, label + " prewarmed")
+    peak = torch.cuda.max_memory_allocated() - held
+    same = moe_twin_streams(label + " prewarmed", model, prompts, tapeq, sq, tq)
+    log(f"{label} prewarmed: {same} of {len(prompts)} streams equal to the eager serve's "
+        f"| {card}")
+    del tapeq
+    # what a whole-model dequantize holds at once: every quantized weight in bf16
+    quantized = [(m, n) for _, m in model.named_modules() for n in getattr(m, "_quantized", {})]
+    deq_bytes = sum(getattr(m, n + "_qvalue").numel() * 2 for m, n in quantized)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        whole = [getattr(m, n) for m, n in quantized]
+        model(probe)
+    fault_peak = torch.cuda.max_memory_allocated() - held
+    del whole
+    log(f"{label} memory: the prewarmed serve's peak {peak} B above the {held} B held before "
+        f"it (bound: the quantized weights in bf16, {deq_bytes} B, which a whole-model "
+        f"dequantize holds at once); planted fault (every layer dequantized at once, then a "
+        f"forward): {fault_peak} B | {card}")
+    check(peak < deq_bytes, f"{label}: peak {peak} B above the model, not below the "
+          f"dequantized weights' {deq_bytes}")
+    check(fault_peak >= deq_bytes, f"the memory check passes a whole-model dequantize "
+          f"({fault_peak})")
+    out["int8_launches"] = {s: lq[s] + ltq[s] for s in lq}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) DBRX
+    dcfg = dataclasses.replace(DBRX_CONFIGS["dbrx"], num_layers=DBRX_SERVE_LAYERS,
+                               use_paged_kernel=True, max_seq_len=2048)
+    dmodel = DbrxForCausalLM(dcfg, device="cuda").init_weights(SEED)
+    dprompts = moe_prompts(dcfg.vocab_size)
+    log(f"moe serve: dbrx widths (hidden {dcfg.hidden_size}, {dcfg.num_heads} / "
+        f"{dcfg.num_kv_heads} heads, E {dcfg.num_experts}, k {dcfg.top_k}, LayerNorm, clip_qkv "
+        f"{dcfg.clip_qkv}), depth cut to {dcfg.num_layers} of 40 layers, bf16 "
+        f"({weight_bytes(dmodel)} B) | {card}")
+    sd, ld, dserved, pd, taped = moe_serve(dcfg, dmodel, dprompts, 4, False, card,
+                                           "moe serve dbrx")
+    moe_e2e(dmodel, dprompts, sd, taped, "moe serve dbrx", card)
+    check(pd.get("selective", 0) > 0, f"moe serve dbrx: expert paths {pd}")
+    td, ltd, _, _, _ = moe_serve(dcfg, dmodel, dprompts, 4, True, card, "moe serve dbrx prewarmed")
+    same = moe_twin_streams("moe serve dbrx prewarmed", dmodel, dprompts, taped, sd, td)
+    log(f"moe serve dbrx prewarmed: {same} of {len(dprompts)} streams equal to the eager "
+        f"serve's | {card}")
+    drecords, _ = run_paged_kernel_phase(dcfg, dserved, card, grid=False, probes=False)
+    check(set(drecords) == {"t1", "tile"}, f"moe serve dbrx: K4 sources served {list(drecords)}")
+    out["k4_dbrx"] = {s: dict(drecords[s], launches=ld[s] + ltd[s]) for s in ("t1", "tile")}
+    del dmodel, taped
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 def timed(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its wall seconds logged under ``name``."""
@@ -7005,20 +7805,18 @@ def main() -> int:
             bf16_pool, card)
         timed(f"serve {label} e2e", run_quant_e2e_phase, cfg, model, label, kv_dtype, mxu,
               q_prompts, q_outs, q_rids)
-        graph = timed(
-            f"serve {label} graphs", run_graph_phase, cfg, model, f"serve {label}", q_prompts,
-            [q_outs[r] for r in q_rids], card,
-            lambda o, r: quant_e2e_gaps(cfg, model, kv_dtype, q_prompts, o, r)[0],
-            QUANT_LOGIT_MARGIN[kv_dtype], **qk)
+        # the twin's serve is the profiled one (the script's profiling depth,
+        # PERF.md section 7)
+        timed(f"serve {label} graphs", run_graph_phase, cfg, model, f"serve {label}", q_prompts,
+              [q_outs[r] for r in q_rids], card,
+              lambda o, r: quant_e2e_gaps(cfg, model, kv_dtype, q_prompts, o, r)[0],
+              QUANT_LOGIT_MARGIN[kv_dtype],
+              profile=dict(t1=q_t1, tile=q_launches - q_t1, split=0), **qk)
         if label == "Q1":
             timed(f"serve {label} async", run_graph_phase, cfg, model, f"serve {label} async",
                   q_prompts, [q_outs[r] for r in q_rids], card,
                   lambda o, r: quant_e2e_gaps(cfg, model, kv_dtype, q_prompts, o, r)[0],
                   QUANT_LOGIT_MARGIN[kv_dtype], async_loop=True, **qk)
-        timed(f"serve {label} graphs profile", run_graph_profile_phase, cfg, model,
-              f"serve {label}", q_prompts, None,
-              dict(t1=q_t1, tile=q_launches - q_t1, split=0), card, graph["same"],
-              eager_outs=[q_outs[r] for r in q_rids], **qk)
         quant[label] = (kv_dtype, mxu, q_launches, q_t1, q_served)
     fcfg = spec_config(cfg)
     f_prompts, f_outs, f_rids, f_live_launches, f_tile, f_t1, f_served = timed(
@@ -7155,14 +7953,17 @@ def main() -> int:
     # (eager and captured), then two ranks on the card over gloo: Serve at
     # tp = 2, and the train step at tp = 2 and at dp = 2 with ZeRO-1
     timed("tp nccl", run_tp_nccl_phase, prompts, [outs[r] for r in rids], card)
-    tp_serve = timed("tp2 serve", run_tp_serve_phase, prompts, [outs[r] for r in rids], card)
-    tp_train = timed("tp2 train", run_tp_train_phase, card)
-    # context parallelism: the cp = 2 train step on two ranks over gloo, in
-    # both ring layouts
-    cp_train = timed("cp2 train", run_cp_train_phase, card)
-    # pipeline parallelism: the pp = 2 train step on two ranks over gloo, in
-    # each schedule
-    pp_train = timed("pp2 train", run_pp_train_phase, card)
+    # on one pair of ranks over gloo: Serve at tp = 2, the train step at tp =
+    # 2 and at dp = 2 with ZeRO-1; context parallelism, the cp = 2 step in
+    # both ring layouts; pipeline parallelism, the pp = 2 step in each
+    # schedule; expert parallelism, the Mixtral-width step at ep = 2
+    two = timed("two-rank phases", run_two_rank_phases, prompts, [outs[r] for r in rids], card)
+    tp_serve, tp_train = two["tp2 serve"], two["tp2 train"]
+    cp_train, pp_train = two["cp2 train"], two["pp2 train"]
+    # MoE: Mixtral's train step at full width, the Mixtral (bf16 and int8)
+    # and DBRX serves
+    moe_train = timed("moe train", run_moe_train_phase, card)
+    moe_serve = timed("moe serve", run_moe_serve_phase, card)
 
     fa_src = "neuronx_distributed_llama3_2_tpu_torch/kernels/csrc/"
     pfa = "neuronx_distributed_llama3_2_tpu/kernels/pallas_flash_attention.py:"
@@ -7255,6 +8056,20 @@ def main() -> int:
             replaces=f"{pfa}{line}", launches=pp_train["launches"][kn - 1],
             **pp_train["flash"][kn],
         ))
+    # K1-K3 at Mixtral's train shape (D 128, G 4): the moe train phase's
+    # launches and records; K4 at Mixtral's (G 4) and DBRX's (G 6) serves
+    for kn, name, src, line in flash_kernels:
+        kernels.append(dict(
+            name=f"{name}_moe", route="cuda", source=fa_src + src,
+            replaces=f"{pfa}{line}", launches=moe_train["launches"][kn - 1],
+            **moe_train["flash"][kn],
+        ))
+    for src, file in (("t1", "paged_decode_t1.cu"), ("tile", "paged_decode_tile.cu")):
+        for tag, key in (("moe", "k4"), ("dbrx_moe", "k4_dbrx")):
+            kernels.append(dict(
+                name=f"paged_decode_{src}_{tag}", route="cuda", source=fa_src + file,
+                replaces=k4, **moe_serve[key][src],
+            ))
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the main path was never launched: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

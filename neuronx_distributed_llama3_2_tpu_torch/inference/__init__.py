@@ -4,9 +4,8 @@ draft-model and Medusa speculation, the accuracy gate and the latency
 benchmarks.
 
 Counterpart of ``neuronx_distributed_llama3_2_tpu/inference/__init__.py``,
-with the same exports but the other model families' decoders
-(``MixtralDecode``, ``decode_model_for``) and the Mllama decoder, which
-come with their model families.
+with the same exports but the GPT-NeoX and Mllama decoders, which come
+with their model families.
 """
 
 from neuronx_distributed_llama3_2_tpu_torch.inference.benchmark import (
@@ -24,7 +23,9 @@ from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
 from neuronx_distributed_llama3_2_tpu_torch.inference.model import (
     KVCache,
     LlamaDecode,
+    MixtralDecode,
     PagedKVCache,
+    decode_model_for,
 )
 from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import (
     SamplingConfig,
@@ -55,11 +56,13 @@ __all__ = [
     "KVCache",
     "LatencyCollector",
     "LlamaDecode",
+    "MixtralDecode",
     "MedusaBuffers",
     "MedusaDecoder",
     "MedusaHeads",
     "MedusaResult",
     "PagedKVCache",
+    "decode_model_for",
     "SamplingConfig",
     "SpeculativeDecoder",
     "SpeculativeResult",

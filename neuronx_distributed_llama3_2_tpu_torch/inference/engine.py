@@ -33,8 +33,12 @@ a step, or once a chunk of ``on_device_steps``.
 
 Divergences from the JAX package: the cache is allocated at the first
 dense program, not in the constructor (the paged engine also builds an
-``InferenceEngine`` and reads no dense cache); ``_live_params`` is the
-identity (quantized weights wait for ``quantization/layers.py``).
+``InferenceEngine`` and reads no dense cache); a quantized model
+(:func:`..quantization.quantize_model`) dequantizes each layer's weights
+inside that layer's forward, so ``_live_params`` hands the model on as it
+is (the JAX engine dequantizes the whole tree inside its jitted program,
+which XLA fuses into the products; a whole-tree dequantize here would
+materialize every layer's weights on each call).
 
 Under tensor parallelism (a model built under a live mesh, one process a
 rank) the cache holds this rank's kv heads (``LlamaDecode.cache_specs``,
@@ -55,7 +59,11 @@ from neuronx_distributed_llama3_2_tpu_torch.inference import sampling as samplin
 from neuronx_distributed_llama3_2_tpu_torch.inference.benchmark import (
     GenerationBenchmark,
 )
-from neuronx_distributed_llama3_2_tpu_torch.inference.model import KVCache, LlamaDecode
+from neuronx_distributed_llama3_2_tpu_torch.inference.model import (
+    KVCache,
+    LlamaDecode,
+    decode_model_for,
+)
 from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import (
     SamplingConfig,
     sample,
@@ -65,6 +73,7 @@ from neuronx_distributed_llama3_2_tpu_torch.models.llama import (
     LlamaForCausalLM,
 )
 from neuronx_distributed_llama3_2_tpu_torch.parallel.multihost import require_capturable_collectives
+from neuronx_distributed_llama3_2_tpu_torch.quantization.quantize import live_params
 from neuronx_distributed_llama3_2_tpu_torch.serving import catalog
 from neuronx_distributed_llama3_2_tpu_torch.utils.logger import get_logger
 
@@ -171,7 +180,7 @@ class InferenceEngine:
         cache_dtype: Any = None,
     ) -> None:
         self.config = config
-        self.model = LlamaDecode(config)
+        self.model = decode_model_for(config)
         self.params = params
         self.max_batch = max_batch
         self.max_seq_len = max_seq_len
@@ -206,9 +215,10 @@ class InferenceEngine:
         self._cache = value
 
     def _live_params(self, params):
-        """The weights a program runs on: the identity on float weights
-        (the JAX package dequantizes ``QuantizedTensor`` leaves here)."""
-        return params
+        """The weights a program runs on (JAX ``_live_params``, :157):
+        :func:`..quantization.live_params` of what is passed, checked at
+        every call (module docstring)."""
+        return live_params(params, self.config.dtype)
 
     def _kv_bucket(self, needed: int) -> int:
         """Token-gen cache bucket covering ``needed`` rows; positions past a

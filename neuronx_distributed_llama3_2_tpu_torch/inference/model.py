@@ -78,8 +78,16 @@ paged_flash_decode_tp`); the row-parallel o-projection all-reduces after
 it, and the LM head's vocab slices are gathered before sampling, so every
 rank draws the same token.
 
-Not ported yet: the decode families other than Llama (``MixtralDecode``,
-``GPTNeoXDecode``, ``decode_model_for``).
+:class:`MixtralDecode` is the MoE families' decode model (Mixtral, DBRX):
+the same attention and caches with each layer's MLP swapped for its MoE
+block, which never drops a token (JAX ``MixtralDecode``, :1204). A fresh
+block of T tokens whose T·k assignments do not exceed E gathers each
+token's chosen experts (the selective path), a larger one runs every
+expert on every token; ``moe_paths`` counts, per decoder-layer call, which
+ran. Both are static-shape ``topk`` / ``index_select`` / ``einsum`` code, so
+a step stays capturable in a CUDA graph. :func:`decode_model_for` picks the
+decode model of a config (JAX :1311). ``GPTNeoXDecode`` comes with its
+family (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -453,7 +461,11 @@ class LlamaDecode:
                 tree=tree, tree_bits=tree_bits,
             )
         x = x + layer.attn.o(att.reshape(b, t, layer.attn.n_heads * c.head_dim))
-        return x + layer.mlp(layer.mlp_norm(x))
+        return x + self._mlp_block(layer, layer.mlp_norm(x))
+
+    def _mlp_block(self, layer, h: torch.Tensor) -> torch.Tensor:
+        """The layer's feed-forward block on the normed hidden states."""
+        return layer.mlp(h)
 
     def _attend_dense(
         self, q, k, v, kc, vc, slots, write_rows, pos_block, positions,
@@ -974,3 +986,59 @@ class LlamaDecode:
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         pg = probs.reshape(b, nkv, g, t, s_max)
         return torch.einsum("bkgts,bskd->btkgd", pg, v_all).reshape(b, t, n, d)
+
+
+class MixtralDecode(LlamaDecode):
+    """Decode-mode Mixtral / DBRX over the weights of a
+    :class:`..models.mixtral.MixtralForCausalLM` (module docstring). The
+    training config's capacity factor is ignored: decode never drops a
+    token. Expert parallelism is refused, as in JAX (the Mixtral inference
+    of the reference is tp-only too)."""
+
+    def __init__(self, config) -> None:
+        super().__init__(config)
+        #: per decoder-layer call: "selective" or "all_experts"
+        self.moe_paths: collections.Counter = collections.Counter()
+
+    def _mlp_block(self, layer, h: torch.Tensor) -> torch.Tensor:
+        if parallel_state.expert_parallel_size_or(1) > 1:
+            raise NotImplementedError(
+                "MixtralDecode does not support expert parallelism: decode "
+                "under an ep>1 mesh would allgather every EP-sharded expert "
+                "weight per token. Serve MoE models with tp/dp sharding."
+            )
+        moe = layer.moe
+        b, t, hdim = h.shape
+        x = h.reshape(b * t, hdim)
+        _, gates, idx = moe.route(x)
+        k = idx.shape[1]
+        ex = moe.experts
+        if b * t * k <= ex.num_experts:
+            self.moe_paths["selective"] += 1
+            y = ex.forward_selective(x, gates, idx)
+        else:
+            self.moe_paths["all_experts"] += 1
+            y = ex.forward_all_experts(x, gates, idx)
+        return y.reshape(b, t, hdim)
+
+
+def decode_model_for(config) -> LlamaDecode:
+    """The decode model of a config (JAX ``decode_model_for``):
+    :class:`MixtralDecode` for the MoE families (Mixtral, DBRX),
+    :class:`LlamaDecode` for Llama. BERT has no KV-cache decode; GPT-NeoX
+    waits for its family's slice."""
+    from neuronx_distributed_llama3_2_tpu_torch.models.mixtral import MixtralConfig
+
+    name = type(config).__name__
+    if name.startswith("Bert"):
+        raise NotImplementedError(
+            "BERT is a bidirectional encoder — there is no KV-cache decode; "
+            "use BertForPreTraining's forward directly"
+        )
+    if name.startswith("GPTNeoX"):
+        raise NotImplementedError(
+            "GPTNeoXDecode waits for ROADMAP.md slice 5 item 6 (the GPT-NeoX family)"
+        )
+    if isinstance(config, MixtralConfig):
+        return MixtralDecode(config)
+    return LlamaDecode(config)

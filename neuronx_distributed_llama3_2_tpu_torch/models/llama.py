@@ -30,8 +30,10 @@ all-reduced over cp. Under pipeline parallelism (a mesh with pp > 1) the
 model is one stage (:class:`Stage`): it holds its stage's decoder layers
 under their global names (``layers.<i>``), the embedding on the first stage
 (and on the last, when the head is tied to it), the final norm and the head
-on the last; :mod:`..pipeline` runs the stages. Expert parallelism waits
-for a later slice (``ROADMAP.md``).
+on the last; :mod:`..pipeline` runs the stages. The MoE families
+(:mod:`.mixtral`, :mod:`.dbrx`) subclass :class:`LlamaForCausalLM` with
+their own decoder layer (``layer_class``); their expert leaves are split
+over ep (:func:`param_specs`).
 
 Training runs :meth:`LlamaForCausalLM.loss` (the chunked cross-entropy of
 ``loss_chunk_size``, vocab-parallel under tp) and the flash-attention
@@ -106,6 +108,7 @@ from neuronx_distributed_llama3_2_tpu_torch.parallel.layers import (
 )
 from neuronx_distributed_llama3_2_tpu_torch.parallel.layout import (
     LeafSpec,
+    axis_group,
     mesh_coords,
     port_slice,
     region,
@@ -504,10 +507,11 @@ class LlamaMLP(nn.Module):
         self.down.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h_dim, _, i_dim = self.gate_up.shape
+        w = self.gate_up  # read once: a quantized layer dequantizes on each read
+        h_dim, _, i_dim = w.shape
         x = _enter(x, self.sequence_parallel)
         # one (H, 2I) product; the view splits gate from up
-        y = (x @ self.gate_up.reshape(h_dim, 2 * i_dim)).unflatten(-1, (2, i_dim))
+        y = (x @ w.reshape(h_dim, 2 * i_dim)).unflatten(-1, (2, i_dim))
         gate, up = y[..., 0, :], y[..., 1, :]
         return self.down(nn.functional.silu(gate) * up)
 
@@ -703,6 +707,9 @@ class LlamaForCausalLM(nn.Module):
     of it under the interleaved schedule), run by
     :class:`..pipeline.PipelinedCausalLM`."""
 
+    #: the decoder layer of the family (the MoE families swap it)
+    layer_class = LlamaDecoderLayer
+
     def __init__(self, config: LlamaConfig, device: DeviceLike = "cuda",
                  num_model_chunks: int = 1):
         super().__init__()
@@ -728,10 +735,10 @@ class LlamaForCausalLM(nn.Module):
         )
         if st is None:
             self.layers = nn.ModuleList(
-                LlamaDecoderLayer(c, dev, sp) for _ in range(c.num_layers)
+                self.layer_class(c, dev, sp) for _ in range(c.num_layers)
             )
         else:
-            self.layers = LayerStack({i: LlamaDecoderLayer(c, dev, sp) for i in st.layers})
+            self.layers = LayerStack({i: self.layer_class(c, dev, sp) for i in st.layers})
         last = st is None or st.last
         self.final_norm = make_norm(c, dev, sp) if last else None
         self.lm_head = (
@@ -759,7 +766,7 @@ class LlamaForCausalLM(nn.Module):
         held = (dict(enumerate(self.layers)) if self.stage is None
                 else self.layers.by_index())
         for i in range(c.num_layers):
-            (held.get(i) or LlamaDecoderLayer(c, dev, sp)).reset_parameters(g)
+            (held.get(i) or self.layer_class(c, dev, sp)).reset_parameters(g)
         if self.final_norm is not None:
             self.final_norm.reset_parameters()
         if not c.tie_word_embeddings:
@@ -959,6 +966,9 @@ _LAYER_LEAVES = (
     (("mlp_norm", "scale"), "mlp_norm.scale"),
     (("mlp", "gate_up"), "mlp.gate_up"),
     (("mlp", "down", "kernel"), "mlp.down.kernel"),
+    (("moe", "router", "kernel"), "moe.router.kernel"),
+    (("moe", "experts", "gate_up"), "moe.experts.gate_up"),
+    (("moe", "experts", "down"), "moe.experts.down"),
 )
 
 
@@ -978,7 +988,7 @@ def jax_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
 
 
 def param_specs(config: LlamaConfig, tp: Optional[int] = None, pp: Optional[int] = None,
-                chunks: int = 1) -> Dict[str, LeafSpec]:
+                chunks: int = 1, ep: Optional[int] = None) -> Dict[str, LeafSpec]:
     """Each port parameter name -> the :class:`..parallel.layout.LeafSpec`
     of its JAX leaf: the global shape (L first for the stacked layer
     leaves) and the JAX ``LlamaForCausalLM.specs()`` split, at tensor
@@ -986,10 +996,14 @@ def param_specs(config: LlamaConfig, tp: Optional[int] = None, pp: Optional[int]
     default). At pp > 1 the layer stack is split over pp in ``pp * chunks``
     blocks (:func:`pipeline_stage`), the embedding lives on the first stage
     (and the last when tied), the final norm and an untied head on the
-    last (``LeafSpec.stages``)."""
+    last (``LeafSpec.stages``). A MoE family's layers hold ``moe.router.
+    kernel`` (replicated, fp32) and the experts ``moe.experts.gate_up`` /
+    ``down``, split over ep on E at expert parallel size ``ep`` (JAX
+    ``ExpertMLPs.specs``) and over tp on I, in place of the dense MLP."""
     c = config
     tp = parallel_state.tensor_parallel_size_or(1) if tp is None else tp
     pp = parallel_state.pipeline_parallel_size_or(1) if pp is None else pp
+    ep = parallel_state.expert_parallel_size_or(1) if ep is None else ep
     L, H, I, D = c.num_layers, c.hidden_size, c.intermediate_size, c.head_dim
     T = parallel_state.TP_AXIS
     Lx = parallel_state.PP_AXIS if pp > 1 else None
@@ -1004,6 +1018,14 @@ def param_specs(config: LlamaConfig, tp: Optional[int] = None, pp: Optional[int]
         "mlp.gate_up": ((L, H, 2, I), (Lx, None, None, T)),
         "mlp.down.kernel": ((L, I, H), (Lx, T, None)),
     }
+    if hasattr(c, "num_experts"):
+        E = parallel_state.EP_AXIS if ep > 1 else None
+        del layer["mlp.gate_up"], layer["mlp.down.kernel"]
+        layer.update({
+            "moe.router.kernel": ((L, H, c.num_experts), (Lx, None, None)),
+            "moe.experts.gate_up": ((L, c.num_experts, H, 2, I), (Lx, E, None, None, T)),
+            "moe.experts.down": ((L, c.num_experts, I, H), (Lx, E, T, None)),
+        })
     first, last = ((0,), (pp - 1,)) if pp > 1 else ((), ())
     embed_stages = tuple(sorted(set(first + last))) if c.tie_word_embeddings else first
     specs = {"embed.embedding": LeafSpec((c.vocab_size, H), (T, None), stages=embed_stages)}
@@ -1015,6 +1037,10 @@ def param_specs(config: LlamaConfig, tp: Optional[int] = None, pp: Optional[int]
     if not c.tie_word_embeddings:
         specs["lm_head.kernel"] = LeafSpec((H, c.vocab_size), (None, T), stages=last)
     return specs
+
+
+#: the parameters kept in fp32 whatever the compute dtype
+FP32_LEAVES = ("scale", "router.kernel")
 
 
 def params_from_jax(
@@ -1030,7 +1056,7 @@ def params_from_jax(
     (the fused MLP weight is ``gate_up`` (L, H, 2, I)) and unstacked per
     layer here (under a pipeline, the layers of this rank's stage in
     ``chunks`` blocks, and the other leaves its stage holds). Norm scales
-    stay fp32, kernels take ``config.dtype``."""
+    and the MoE router's kernel stay fp32, kernels take ``config.dtype``."""
     coords = dict(mesh_coords())
     if tp_size is not None:
         coords[parallel_state.TP_AXIS] = (tp_rank or 0, tp_size)
@@ -1038,7 +1064,7 @@ def params_from_jax(
         raise ValueError("tp_rank needs tp_size")
     return tree_from_jax(
         np_params, config,
-        lambda name: torch.float32 if name.endswith("scale") else config.dtype,
+        lambda name: torch.float32 if name.endswith(FP32_LEAVES) else config.dtype,
         device, specs=param_specs(config, coords[parallel_state.TP_AXIS][1], chunks=chunks),
         coords=coords,
     )
@@ -1101,7 +1127,7 @@ def gather_leaf(tensors: Dict[Optional[int], torch.Tensor], leaf: LeafSpec) -> n
     t = t.detach().float()
     for dim, axis in enumerate(leaf.spec):
         if axis is not None and live:
-            t = all_gather(t, dim, parallel_state.get_parallel_state().group(axis))
+            t = all_gather(t, dim, axis_group(axis))
     if leaf.mentions(parallel_state.PP_AXIS) and leaf.chunks > 1:
         # gathered rank-major (rank r's chunks in turn); block u = v*pp + r
         pp, v = coords[parallel_state.PP_AXIS][1], leaf.chunks

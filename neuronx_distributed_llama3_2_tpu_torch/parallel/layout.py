@@ -5,8 +5,10 @@ The JAX package describes a parameter's distribution by the
 those shards, one process per rank, so that a weight, a gradient and an
 optimizer state cross between the packages rank by rank. A
 :class:`LeafSpec` is that spec with the leaf's global shape: per dim the
-mesh axis it is split over (``"tp"``, ``"dp"`` for ZeRO-1's data-parallel
-split, which is JAX's ``("dp", "ep")`` at ep = 1) or None. Stacked leaves
+mesh axis it is split over (``"tp"``; ``"ep"`` for an MoE layer's experts;
+``"dp"`` for ZeRO-1's data-parallel split of a dense leaf, which is JAX's
+``("dp", "ep")``: the rank's index on the (dp, ep) plane; ``"edp"`` for
+ZeRO-1's split of an expert leaf, JAX's ``("dp",)``) or None. Stacked leaves
 (the JAX package's ``layers`` subtree, a leading L dim) stand for the
 port's per-layer tensors ``layers.<i>.<name>``. No leaf is split over cp:
 parameters and ZeRO-1's state are replicated over it (JAX
@@ -52,23 +54,40 @@ class LeafSpec:
     def mentions(self, axis: str) -> bool:
         return axis in self.spec
 
-    def with_dp_shard(self, dp: int) -> "LeafSpec":
+    @property
+    def expert(self) -> bool:
+        """An MoE layer's expert leaf (split over ep)."""
+        return self.mentions(parallel_state.EP_AXIS)
+
+    @property
+    def data_axis(self) -> str:
+        """The axis over which the leaf is data-parallel: "edp" for an
+        expert leaf, "dp" (the (dp, ep) plane) for the others."""
+        return parallel_state.EDP_AXIS if self.expert else parallel_state.DP_AXIS
+
+    def with_dp_shard(self, dp: int, edp: Optional[int] = None) -> "LeafSpec":
         """ZeRO-1's spec of an optimizer-state leaf (JAX ``_zero1_leaf_spec``):
-        dp added on the first free dim that dp divides; the leaf stays
-        replicated over dp where none does."""
-        if dp == 1:
+        the leaf's data axis (``dp`` ranks, ``edp`` for an expert leaf)
+        added on the first free dim that its size divides; the leaf stays
+        replicated where none does."""
+        n_dp = (dp if edp is None else edp) if self.expert else dp
+        if n_dp == 1:
             return self
         for i, (p, n) in enumerate(zip(self.spec, self.shape)):
-            if p is None and n % dp == 0:
-                spec = self.spec[:i] + (parallel_state.DP_AXIS,) + self.spec[i + 1:]
+            if p is None and n % n_dp == 0:
+                spec = self.spec[:i] + (self.data_axis,) + self.spec[i + 1:]
                 return dataclasses.replace(self, spec=spec)
         return self
 
 
 def mesh_coords() -> Dict[str, Tuple[int, int]]:
-    """This process's (rank, size) on tp, dp, cp and pp; (0, 1) each
-    without parallel state."""
+    """This process's (rank, size) on tp, dp (the (dp, ep) plane), cp, pp,
+    ep and edp (the mesh's dp alone); (0, 1) each without parallel state."""
     return {
+        parallel_state.EP_AXIS: (parallel_state.expert_parallel_rank_or(0),
+                                 parallel_state.expert_parallel_size_or(1)),
+        parallel_state.EDP_AXIS: (parallel_state.expert_data_parallel_rank_or(0),
+                                  parallel_state.expert_data_parallel_size_or(1)),
         parallel_state.PP_AXIS: (parallel_state.pipeline_parallel_rank_or(0),
                                  parallel_state.pipeline_parallel_size_or(1)),
         parallel_state.TP_AXIS: (parallel_state.tensor_parallel_rank_or(0),
@@ -145,15 +164,20 @@ def all_regions(leaf: LeafSpec, sizes: Mapping[str, int]) -> list:
     order (pp outer, dp, tp inner; the layer blocks of a leaf split over pp
     in layer order): the chunk list of a multi-process checkpoint."""
     seen: Dict[Region, None] = {}
-    tp, dp = sizes.get(parallel_state.TP_AXIS, 1), sizes.get(parallel_state.DP_AXIS, 1)
-    pp = sizes.get(parallel_state.PP_AXIS, 1)
+    tp, pp = sizes.get(parallel_state.TP_AXIS, 1), sizes.get(parallel_state.PP_AXIS, 1)
+    ep = sizes.get(parallel_state.EP_AXIS, 1)
+    edp = sizes.get(parallel_state.EDP_AXIS, sizes.get(parallel_state.DP_AXIS, 1) // ep)
     for p in range(pp):
-        for d in range(dp):
-            for t in range(tp):
-                coords = {parallel_state.TP_AXIS: (t, tp), parallel_state.DP_AXIS: (d, dp),
-                          parallel_state.PP_AXIS: (p, pp)}
-                for reg in regions(dataclasses.replace(leaf, stages=()), coords):
-                    seen.setdefault(reg)
+        for d in range(edp):
+            for e in range(ep):
+                for t in range(tp):
+                    coords = {parallel_state.TP_AXIS: (t, tp),
+                              parallel_state.DP_AXIS: (d * ep + e, edp * ep),
+                              parallel_state.EP_AXIS: (e, ep),
+                              parallel_state.EDP_AXIS: (d, edp),
+                              parallel_state.PP_AXIS: (p, pp)}
+                    for reg in regions(dataclasses.replace(leaf, stages=()), coords):
+                        seen.setdefault(reg)
     return sorted(seen) if leaf.mentions(parallel_state.PP_AXIS) else list(seen)
 
 
@@ -170,13 +194,23 @@ def pp_owner(leaf: LeafSpec, coords: Coords) -> bool:
 def is_writer(leaf: LeafSpec, coords: Coords) -> bool:
     """Whether this rank is the lowest rank holding its region of ``leaf``
     (the one that writes it): rank 0 of every axis the leaf is replicated
-    over, cp rank 0 for every leaf, and the pp rank :func:`pp_owner`
-    names."""
+    over (of its data axis, ``LeafSpec.data_axis``), cp rank 0 for every
+    leaf, and the pp rank :func:`pp_owner` names."""
     return pp_owner(leaf, coords) and all(
         coords.get(axis, (0, 1))[0] == 0
-        for axis in (parallel_state.TP_AXIS, parallel_state.DP_AXIS, parallel_state.CP_AXIS)
+        for axis in (parallel_state.TP_AXIS, leaf.data_axis, parallel_state.CP_AXIS)
         if not leaf.mentions(axis)
     )
+
+
+def axis_group(axis: str):
+    """The process group of a spec's axis on the live mesh: the (dp, ep)
+    plane's for "dp", the mesh's dp for "edp", the mesh's own otherwise."""
+    if axis == parallel_state.DP_AXIS:
+        return parallel_state.get_data_parallel_group()
+    if axis == parallel_state.EDP_AXIS:
+        return parallel_state.get_expert_data_parallel_group()
+    return parallel_state.get_parallel_state().group(axis)
 
 
 def port_slice(leaf: LeafSpec, coords: Coords, layer: Optional[int]):

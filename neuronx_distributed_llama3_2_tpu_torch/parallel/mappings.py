@@ -21,6 +21,13 @@ gather_from_sequence_parallel_region         all-gather      reduce-scatter
 reduce_scatter_to_sequence_parallel_region   reduce-scatter  all-gather
 ===========================================  ==============  ===============
 
+:func:`enter_expert_parallel_region` and :func:`exit_expert_parallel_region`
+carry an MoE layer's expert buffers between the ep ranks (JAX
+``all_to_all_expert_parallel`` / ``enter_`` / ``exit_expert_parallel_region``,
+:116-156): a tiled all-to-all that sends rank j the buffers of its experts
+and gathers every rank's tokens for this rank's own, and its inverse; the
+backward of each is the other.
+
 :func:`ring_shift` is the context-parallel ring's rotation (JAX
 ``lax.ppermute`` with ``perm = [(i, (i + 1) % cp)]``): rank i sends its
 tensor to rank i + 1 and gets rank i - 1's, and its backward rotates the
@@ -40,7 +47,7 @@ Under a mesh each region issues its collective even over a group of one
 rank (NCCL at world size 1 then runs, and a CUDA graph captures, the
 collectives of the tp code path). Each raw collective adds one to
 :data:`COLLECTIVE_COUNTS` under its name when it is issued
-(``all_reduce``, ``all_gather``, ``reduce_scatter``, ``ring_shift``,
+(``all_reduce``, ``all_gather``, ``reduce_scatter``, ``all_to_all``, ``ring_shift``,
 ``send_forward``, ``recv_forward``, ``send_backward``, ``recv_backward``),
 so a caller can count the collectives a step (or a captured CUDA graph)
 holds.
@@ -164,6 +171,33 @@ def ring_shift(x: torch.Tensor, group, hops: int = 1) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the expert-parallel all-to-all (reference mappings.py:311-486)
+# ---------------------------------------------------------------------------
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group) -> torch.Tensor:
+    """Tiled all-to-all over ``group`` (JAX ``lax.all_to_all(...,
+    tiled=True)``): ``x`` cut into n equal blocks along ``split_dim``,
+    block j sent to rank j; the n blocks received, in rank order,
+    concatenated along ``concat_dim``. One ``all_to_all_single`` on the
+    tensor where it lies: NCCL's, or gloo's, which carries CUDA tensors as
+    well as CPU ones (bit for bit on an H100, torch 2.11:
+    ``chip_trials/gloo_a2a_trial.py``)."""
+    n = _world(group)
+    if n == 1:
+        return x
+    split_dim, concat_dim = split_dim % x.dim(), concat_dim % x.dim()
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of shape {tuple(x.shape)} not divisible by {n} ranks")
+    COLLECTIVE_COUNTS["all_to_all"] += 1
+    # blocks leading: (n, ..., shape[split] / n, ...)
+    src = x.unflatten(split_dim, (n, -1)).movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    # block j, from rank j, concatenated in rank order along concat_dim
+    return out.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
+
+
+# ---------------------------------------------------------------------------
 # the pipeline's stage boundary (reference pipeline/comm.py)
 # ---------------------------------------------------------------------------
 
@@ -239,6 +273,18 @@ class _RingShift(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ring_shift(g, ctx.group, -1), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return all_to_all(g, concat_dim, split_dim, ctx.group), None, None, None
 
 
 class _CopyToRegion(torch.autograd.Function):
@@ -381,3 +427,21 @@ def ring_shift_region(x: torch.Tensor, group) -> torch.Tensor:
     rotated one rank back), for the plain ring that autograd
     differentiates."""
     return x if _world(group) == 1 else _RingShift.apply(x, group)
+
+
+# expert-parallel regions (reference mappings.py:412-486)
+
+def enter_expert_parallel_region(x: torch.Tensor, group) -> torch.Tensor:
+    """(E, C, H) -> (E/ep, ep·C, H): each ep rank receives every rank's
+    tokens for its own experts (reference :412); the backward is the exit."""
+    n = _world(group)
+    if x.shape[0] % n:
+        raise ValueError(f"num experts {x.shape[0]} not divisible by ep {n}")
+    return x if n == 1 else _AllToAll.apply(x, 0, 1, group)
+
+
+def exit_expert_parallel_region(x: torch.Tensor, group) -> torch.Tensor:
+    """Inverse of :func:`enter_expert_parallel_region` (reference :452):
+    (E/ep, ep·C, H) -> (E, C, H), each rank's outputs back to the rank
+    whose tokens they are."""
+    return x if _world(group) == 1 else _AllToAll.apply(x, 1, 0, group)

@@ -9,21 +9,28 @@ with the JAX package's axes and order::
 
     (pp, dp, cp, ep, tp)   with tp innermost (stride 1)
 
-so rank ``r`` sits at ``tp = r % tp``, ``cp = (r // tp) % cp``, ``dp = (r
-// (tp * cp)) % dp`` and ``pp = r // (dp * cp * tp)`` (ep = 1), where JAX's
-``build_mesh`` puts device ``r``. Every process group comes from the mesh
-(``mesh.get_group("tp")``); no module builds its own, except the group of
-the first and the last pipeline stage of each coordinate at pp > 2 (the
-tied embedding's gradient, :func:`get_embedding_group`). The cp ranks of
+so rank ``r`` sits at ``tp = r % tp``, ``ep = (r // tp) % ep``, ``cp = (r
+// (tp * ep)) % cp``, ``dp = (r // (tp * ep * cp)) % dp`` and ``pp = r //
+(dp * cp * ep * tp)``, where JAX's ``build_mesh`` puts device ``r``. Every
+process group comes from the mesh (``mesh.get_group("tp")``); no module
+builds its own, except the group of the first and the last pipeline stage
+of each coordinate at pp > 2 (the tied embedding's gradient,
+:func:`get_embedding_group`) and, at ep > 1 and dp > 1, the data-parallel
+group of the dense parameters over (dp, ep) (:func:`get_data_parallel_group`).
+
+Expert parallelism splits the data-parallel dimension as the JAX package
+and the reference do (dp = dp_exp * ep, reference ``parallel_state.py:86-95``):
+the ranks of one (dp, ep) plane hold different rows of the batch; a dense
+parameter is replicated over all of them (its gradient summed over the
+(dp, ep) group, the data-parallel rank ``dp_rank * ep + ep_rank``), and an
+MoE layer's experts are split over ep and replicated over dp alone (the
+expert data-parallel group, the mesh's "dp"). The cp ranks of
 one (dp, tp) coordinate hold consecutive chunks of the sequence (context
 parallelism, :mod:`..kernels.ring_attention`); parameters and optimizer
 state are replicated over cp. The pp ranks of one (dp, cp, tp) coordinate
 are the stages of one pipeline (:mod:`..pipeline`): each holds its own
 layers, and they pass activations and gradients point to point
 (:func:`..parallel.mappings.send_forward` and its siblings).
-
-A size above 1 of ``ep`` is refused, naming the ROADMAP item that ports
-it, so it never falls through to a one-rank path.
 """
 
 from __future__ import annotations
@@ -45,11 +52,13 @@ CP_AXIS = "cp"
 EP_AXIS = "ep"
 TP_AXIS = "tp"
 MESH_AXES = (PP_AXIS, DP_AXIS, CP_AXIS, EP_AXIS, TP_AXIS)
+#: not a mesh axis: the split of an expert leaf's ZeRO-1 state over the
+#: mesh's dp alone (JAX's ``("dp",)`` for expert leaves), where a dense
+#: leaf's "dp" stands for the (dp, ep) plane (JAX's ``("dp", "ep")``)
+EDP_AXIS = "edp"
 
-#: the ROADMAP.md queue A item that ports each refused axis
-_WAITS_FOR = {
-    "expert_parallel_size": "slice 5 item 4 (MoE)",
-}
+#: the ROADMAP.md queue A item that ports each refused axis (none is left)
+_WAITS_FOR: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +103,8 @@ class ParallelState:
     #: the first and the last pp rank of this rank's pipeline (the pp group
     #: itself at pp = 2; None at pp = 1)
     embedding_group: Any = None
+    #: the dense parameters' data-parallel group over (dp, ep)
+    data_parallel_group: Any = None
 
     def _size(self, axis: str) -> int:
         return self.mesh.size(MESH_AXES.index(axis))
@@ -186,7 +197,8 @@ def initialize_model_parallel(
         dev.type, (pp, dp_total // ep, cp, ep, tp), mesh_dim_names=MESH_AXES
     )
     _PARALLEL_STATE = ParallelState(mesh=mesh, config=config,
-                                    embedding_group=_embedding_group(mesh, pp))
+                                    embedding_group=_embedding_group(mesh, pp),
+                                    data_parallel_group=_dp_ep_group(mesh))
     logger.info("initialized parallel state: mesh=%s", dict(zip(MESH_AXES, mesh.shape)))
     return _PARALLEL_STATE
 
@@ -204,6 +216,23 @@ def _embedding_group(mesh, pp: int):
         pair = [int(ranks[0, col]), int(ranks[-1, col])]
         group = dist.new_group(pair)
         if dist.get_rank() in pair:
+            mine = group
+    return mine
+
+
+def _dp_ep_group(mesh):
+    """This rank's group over the (dp, ep) plane of its (pp, cp, tp)
+    coordinate: the mesh's own dp or ep group when one of the two has size
+    1, else one new group per coordinate, which every rank creates in the
+    same order."""
+    dp, ep = mesh.size(MESH_AXES.index(DP_AXIS)), mesh.size(MESH_AXES.index(EP_AXIS))
+    if ep == 1 or dp == 1:
+        return mesh.get_group(DP_AXIS if ep == 1 else EP_AXIS)
+    ranks = mesh.mesh.permute(0, 2, 4, 1, 3).reshape(-1, dp * ep)  # (pp·cp·tp, dp·ep)
+    mine = None
+    for row in ranks.tolist():
+        group = dist.new_group(row)
+        if dist.get_rank() in row:
             mine = group
     return mine
 
@@ -242,14 +271,44 @@ def get_tensor_model_parallel_group():
 
 
 def get_data_parallel_size() -> int:
+    """dp * ep: the ranks of one model replica's data-parallel plane."""
     return get_parallel_state().data_parallel_size
 
 
 def get_data_parallel_rank() -> int:
-    return get_parallel_state().rank(DP_AXIS)
+    """``dp_rank * ep + ep_rank``: the rank's block of the batch (JAX
+    shards the batch over ("dp", "ep"))."""
+    st = get_parallel_state()
+    return st.rank(DP_AXIS) * st.expert_parallel_size + st.rank(EP_AXIS)
 
 
 def get_data_parallel_group():
+    """The dense parameters' data-parallel group, over (dp, ep)."""
+    return get_parallel_state().data_parallel_group
+
+
+def get_expert_model_parallel_size() -> int:
+    return get_parallel_state().expert_parallel_size
+
+
+def get_expert_model_parallel_rank() -> int:
+    return get_parallel_state().rank(EP_AXIS)
+
+
+def get_expert_model_parallel_group():
+    return get_parallel_state().group(EP_AXIS)
+
+
+def get_expert_data_parallel_size() -> int:
+    """The mesh's dp alone: the ranks holding the same experts."""
+    return get_parallel_state()._size(DP_AXIS)
+
+
+def get_expert_data_parallel_rank() -> int:
+    return get_parallel_state().rank(DP_AXIS)
+
+
+def get_expert_data_parallel_group():
     return get_parallel_state().group(DP_AXIS)
 
 
@@ -328,6 +387,22 @@ def data_parallel_rank_or(default: int = 0) -> int:
 
 def data_parallel_size_or(default: int = 1) -> int:
     return get_data_parallel_size() if model_parallel_is_initialized() else default
+
+
+def expert_parallel_size_or(default: int = 1) -> int:
+    return get_expert_model_parallel_size() if model_parallel_is_initialized() else default
+
+
+def expert_parallel_rank_or(default: int = 0) -> int:
+    return get_expert_model_parallel_rank() if model_parallel_is_initialized() else default
+
+
+def expert_data_parallel_size_or(default: int = 1) -> int:
+    return get_expert_data_parallel_size() if model_parallel_is_initialized() else default
+
+
+def expert_data_parallel_rank_or(default: int = 0) -> int:
+    return get_expert_data_parallel_rank() if model_parallel_is_initialized() else default
 
 
 def context_parallel_size_or(default: int = 1) -> int:

@@ -41,6 +41,13 @@ the whole batch, known from the labels up front. Every rank runs the same
 task order for every message pair (sends never block), so a pair of ranks
 matches its messages by order.
 
+An MoE model (:class:`..models.mixtral.MixtralForCausalLM`) runs the same
+way: each (chunk, microbatch) visit's forward leaves the mean
+load-balancing loss of the chunk's layers, and the visit adds
+``router_aux_loss_coef`` times it over ``pp · V · M`` into its own backward,
+as a constant cotangent (JAX's 1F1B executor, :242-361, :454-508); the loss
+sums the visits' terms over every stage.
+
 By design, and unlike JAX: ``uses_manual_vjp`` is True for every schedule
 (no autodiff spans processes; each rank runs its backward steps itself),
 and ``head_sequence_split`` (JAX's way to spread the head over the SPMD
@@ -57,6 +64,7 @@ import numpy as np
 import torch
 
 from neuronx_distributed_llama3_2_tpu_torch.models.llama import LlamaForCausalLM, pipeline_stage
+from neuronx_distributed_llama3_2_tpu_torch.models.mixtral import MixtralForCausalLM, aux_term
 from neuronx_distributed_llama3_2_tpu_torch.parallel import mappings
 from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
 from neuronx_distributed_llama3_2_tpu_torch.parallel.loss import valid_token_mask
@@ -126,12 +134,13 @@ class PipelinedCausalLM:
 
     def __post_init__(self):
         if not isinstance(self.model, LlamaForCausalLM):
-            name = type(self.model).__name__
-            if "Mixtral" in name:
-                raise NotImplementedError(
-                    f"a pipelined {name} waits for ROADMAP.md slice 5 item 4 (MoE)"
-                )
-            raise TypeError(f"PipelinedCausalLM supports LlamaForCausalLM, got {name}")
+            raise TypeError("PipelinedCausalLM supports the port's LlamaForCausalLM and its "
+                            f"MoE subclasses, got {type(self.model).__name__}")
+        if parallel_state.expert_parallel_size_or(1) > 1:
+            raise NotImplementedError(
+                "a pipeline under expert parallelism (pp > 1 and ep > 1) is not ported: "
+                "a stage's expert gradients would take their weights from other ranks' "
+                "tokens (ROADMAP.md)")
         if self.schedule not in SCHEDULES:
             raise ValueError(f"schedule must be one of {SCHEDULES}, got {self.schedule!r}")
         if self.num_model_chunks < 1:
@@ -280,10 +289,15 @@ class PipelinedCausalLM:
         plan = m._cp_plan(s, dev)
         positions, sin, cos = m._positions(mbs, s, plan, dev)
         shape = self._stream_shape(mbs, s)
-        total = None
+        total = count = None
         if labels is not None:
-            total = torch.clamp(valid_token_mask(labels[:, 1:], c.vocab_size).float().sum(),
-                                min=1.0)
+            count = valid_token_mask(labels[:, 1:], c.vocab_size).float().sum()
+            total = torch.clamp(count, min=1.0)
+        moe = isinstance(m, MixtralForCausalLM) and total is not None
+        aux_scale = (c.router_aux_loss_coef / (pp * self.num_model_chunks * self.num_microbatches)
+                     if moe else 0.0)
+        aux_terms: Dict[Tuple[int, int], torch.Tensor] = {}
+        aux_sum = None
         names = [k for k, _ in m.named_parameters()]
         params = [p for _, p in m.named_parameters()]
         inputs: Dict[Tuple[int, int], Any] = {}
@@ -309,6 +323,11 @@ class PipelinedCausalLM:
                         x = m._embed_tokens(ids, plan) if u == 0 else inputs[key]
                         y = m._run_layers(x, self._chunk_layers(task.chunk), positions, sin,
                                           cos, plan)
+                        if moe:
+                            a = aux_scale * aux_term(m.aux, count) / total
+                            aux_sum = a.detach() if aux_sum is None else aux_sum + a.detach()
+                            if train:
+                                aux_terms[key] = a
                         if u == last_u:
                             hidden = m._final(y)
                             if want_logits:
@@ -331,6 +350,9 @@ class PipelinedCausalLM:
                     y, x = self._take_stash(outputs, inputs, key)
                     g = None if u == last_u else out_grads.pop(key)
                     wrt = ([x] if u > 0 else []) + params
+                    if key in aux_terms:  # the aux term's constant cotangent
+                        a = aux_terms.pop(key)
+                        y, g = (y + a, None) if u == last_u else ([y, a], [g, torch.ones_like(a)])
                     got = torch.autograd.grad(y, wrt, g, allow_unused=True)
                     if u > 0:
                         in_grads[key], got = got[0], got[1:]
@@ -346,6 +368,8 @@ class PipelinedCausalLM:
                 elif isinstance(task, ReduceGradsTask):
                     self._reduce_shared_grads(acc)
         mappings.finish_sends()
+        if aux_sum is not None:
+            loss = aux_sum if loss is None else loss + aux_sum
         self.stats.update(max_stashed=max_stashed, tasks=tasks)
         grads = None
         if train:

@@ -35,9 +35,13 @@ microbatching stays at 1; each stage saves its own layers, in the
 canonical layout, so a run resumes at another pp. ``--pp-schedule`` and
 ``--model-chunks`` need ``--pp`` above 1.
 
-The port pretrains the Llama family (``LLAMA_CONFIGS``): another model
-family and ``--ep`` above 1 raise ``SystemExit`` naming the slice that
-ports them.
+The port pretrains the Llama family (``LLAMA_CONFIGS``) and the MoE
+families (``MIXTRAL_CONFIGS``: ``mixtral-8x7b``, ``tiny-moe``;
+``DBRX_CONFIGS``: ``dbrx``, ``tiny-dbrx``), with ``--capacity-factor`` to
+set an MoE model's capacity and ``--ep`` to split its experts over ep ranks
+of the data-parallel ranks (JAX ``examples/run_mixtral_ep.sh``: ``--tp 4
+--ep 8 --sp``); the other families raise ``SystemExit`` naming the slice
+that ports them.
 """
 
 from __future__ import annotations
@@ -53,7 +57,6 @@ from typing import List, Optional
 #: the JAX package's other model families, and the slice of the port that
 #: brings each (ROADMAP.md, queue A)
 OTHER_FAMILIES = {
-    "mixtral-8x7b": 4, "tiny-moe": 4, "dbrx": 4, "tiny-dbrx": 4,
     "gpt-neox-20b": 6, "pythia-6.9b": 6, "tiny-neox": 6, "codegen25-7b": 6,
     "tiny-codegen": 6, "bert-base": 6, "bert-large": 6, "tiny-bert": 6,
     "llama3.2-11b-vision": 6, "tiny-mllama": 6,
@@ -62,7 +65,8 @@ OTHER_FAMILIES = {
 
 def parse_args(argv: Optional[List[str]] = None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--model", default="tiny", help="LLAMA_CONFIGS key")
+    p.add_argument("--model", default="tiny",
+                   help="LLAMA_CONFIGS, MIXTRAL_CONFIGS or DBRX_CONFIGS key")
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--pp", type=int, default=1)
     p.add_argument("--ep", type=int, default=1)
@@ -99,7 +103,7 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--profile-dir", default=None,
                    help="capture a torch.profiler trace of steps 2-4 into this dir")
     p.add_argument("--capacity-factor", type=float, default=None,
-                   help="MoE capacity factor (MoE models only)")
+                   help="MoE capacity factor (required for --ep > 1 on MoE models)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--cpu-devices", type=int, default=0,
                    help="start this many ranks over gloo on the CPU (instead of torchrun; "
@@ -108,24 +112,41 @@ def parse_args(argv: Optional[List[str]] = None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args, llama_configs) -> None:
+def model_families():
+    """{config key: (config, model class)} of every family the port
+    pretrains."""
+    from neuronx_distributed_llama3_2_tpu_torch.models.dbrx import DBRX_CONFIGS, DbrxForCausalLM
+    from neuronx_distributed_llama3_2_tpu_torch.models.llama import LLAMA_CONFIGS, LlamaForCausalLM
+    from neuronx_distributed_llama3_2_tpu_torch.models.mixtral import (
+        MIXTRAL_CONFIGS,
+        MixtralForCausalLM,
+    )
+
+    out = {k: (c, LlamaForCausalLM) for k, c in LLAMA_CONFIGS.items()}
+    out.update({k: (c, MixtralForCausalLM) for k, c in MIXTRAL_CONFIGS.items()})
+    out.update({k: (c, DbrxForCausalLM) for k, c in DBRX_CONFIGS.items()})
+    return out
+
+
+def _refuse_unported(args, families) -> None:
     if args.model in OTHER_FAMILIES:
         raise SystemExit(
             f"--model {args.model}: this model family is not ported yet "
             f"(ROADMAP.md, slice 5 item {OTHER_FAMILIES[args.model]}); the port "
-            f"pretrains the Llama family: {sorted(llama_configs)}"
+            f"pretrains: {sorted(families)}"
         )
-    if args.model not in llama_configs:
-        raise SystemExit(f"unknown model {args.model!r}; one of {sorted(llama_configs)}")
-    if args.ep != 1:
-        raise SystemExit(f"--ep {args.ep}: waits for ROADMAP.md slice 5 item 4 (MoE)")
+    if args.model not in families:
+        raise SystemExit(f"unknown model {args.model!r}; one of {sorted(families)}")
     if args.pp == 1:
         for flag, value, default in (("pp-schedule", args.pp_schedule, "gpipe"),
                                      ("model-chunks", args.model_chunks, 1)):
             if value != default:
                 raise SystemExit(f"--{flag} {value}: needs --pp above 1 (a pipeline)")
-    if args.capacity_factor is not None:
+    moe = hasattr(families[args.model][0], "capacity_factor")
+    if args.capacity_factor is not None and not moe:
         raise SystemExit(f"--capacity-factor: {args.model} is not a MoE model")
+    if args.ep != 1 and not moe:
+        raise SystemExit(f"--ep {args.ep}: {args.model} is not a MoE model")
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -172,10 +193,6 @@ def _run(args) -> dict:
         batch_to_device,
         write_token_file,
     )
-    from neuronx_distributed_llama3_2_tpu_torch.models.llama import (
-        LLAMA_CONFIGS,
-        LlamaForCausalLM,
-    )
     from neuronx_distributed_llama3_2_tpu_torch.trainer import (
         OptimizerConfig,
         TensorBoardLogger,
@@ -200,11 +217,14 @@ def _run(args) -> dict:
     import torch
 
     logger = get_logger()
-    _refuse_unported(args, LLAMA_CONFIGS)
-    model_cfg = LLAMA_CONFIGS[args.model]
+    families = model_families()
+    _refuse_unported(args, families)
+    model_cfg, model_cls = families[args.model]
     model_cfg = dataclasses.replace(
         model_cfg, max_seq_len=max(args.seq_len, model_cfg.max_seq_len)
     )
+    if args.capacity_factor is not None:
+        model_cfg = dataclasses.replace(model_cfg, capacity_factor=args.capacity_factor)
     from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
     from neuronx_distributed_llama3_2_tpu_torch.parallel.multihost import (
         initialize_distributed,
@@ -213,10 +233,12 @@ def _run(args) -> dict:
         world_size,
     )
 
-    ranks = args.tp * args.pp * max(args.dp, 1)
+    # the ep ranks are data-parallel ranks: --dp counts them (dp = dp_exp * ep)
+    ranks = args.tp * args.pp * max(args.dp, args.ep, 1)
     if ranks > 1 and world_size() == 1 and "WORLD_SIZE" not in os.environ:
+        ep = f" --ep {args.ep}" if args.ep > 1 else ""
         raise SystemExit(
-            f"--tp {args.tp} --pp {args.pp} --dp {args.dp}: {ranks} ranks run one process "
+            f"--tp {args.tp} --pp {args.pp} --dp {args.dp}{ep}: {ranks} ranks run one process "
             f"each: start them with torchrun, or with --cpu-devices {ranks} on the CPU"
         )
     if "WORLD_SIZE" in os.environ:
@@ -229,6 +251,7 @@ def _run(args) -> dict:
     config = TrainingConfig(
         tensor_parallel_size=args.tp,
         pipeline_parallel_size=args.pp,
+        expert_parallel_size=args.ep,
         # the pipeline knobs are pinned only when there is a pipeline
         pipeline_schedule=args.pp_schedule if pipelined else None,
         num_model_chunks=args.model_chunks if pipelined else None,
@@ -244,8 +267,8 @@ def _run(args) -> dict:
         ),
     )
     device = config.initialize(args.device)
-    model = LlamaForCausalLM(model_cfg, device=device,
-                             num_model_chunks=args.model_chunks if pipelined else 1)
+    model = model_cls(model_cfg, device=device,
+                      num_model_chunks=args.model_chunks if pipelined else 1)
     if pipelined:
         from neuronx_distributed_llama3_2_tpu_torch.pipeline import PipelinedCausalLM
 

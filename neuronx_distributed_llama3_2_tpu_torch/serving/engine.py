@@ -970,7 +970,8 @@ class PagedServingEngine:
         and returns its (B,) ``finite`` last. The step binds
         :meth:`_step_model`: a gather key's (registered on the kernel-shed
         rung) the gather twin."""
-        model, params, cap = self._step_model(), self.engine.params, self._pos_cap
+        model, cap = self._step_model(), self._pos_cap
+        params = self.engine._live_params(self.engine.params)
         kind = key_[0]
         # the decode-time keys end in their checked bit
         poison = inputs.get("poison") if kind not in ("pctx", "psfx") and key_[-1] else None

@@ -10,8 +10,10 @@ started by ``torchrun`` or by the caller), as the JAX one builds its
 ranks (ZeRO-1, a no-op at dp = 1 as in the JAX package). Context
 parallelism (``context_parallel_size``) splits each sequence over the cp
 ranks and runs attention as a ring (:mod:`..kernels.ring_attention`).
-Pipeline and expert parallelism and the pipeline knobs raise, each naming
-the ROADMAP.md item that ports it.
+Pipeline parallelism (``pipeline_parallel_size``) splits the layers into
+stages (:mod:`..pipeline`), and expert parallelism (``expert_parallel_size``)
+splits an MoE model's experts over the ep ranks of the (dp, ep) plane
+(:mod:`..moe`).
 """
 
 from __future__ import annotations
@@ -95,8 +97,7 @@ class TrainingConfig:
 
     def require_ported(self) -> None:
         """Raise NotImplementedError naming the first knob the port does not
-        run yet (expert parallelism) and the ROADMAP.md item that ports
-        it."""
+        run yet and the ROADMAP.md item that ports it (none is left)."""
         parallel_state.ParallelConfig(
             tensor_parallel_size=self.tensor_parallel_size,
             pipeline_parallel_size=self.pipeline_parallel_size,
@@ -107,32 +108,34 @@ class TrainingConfig:
 
     def initialize(self, device: DeviceLike = "cuda") -> torch.device:
         """Check the configuration and return the device (the card unless
-        the caller names another). Tensor, sequence, context or pipeline
-        parallelism, or a process group of several ranks, builds the mesh
-        (:func:`..parallel.state.initialize_model_parallel`; dp is what the
-        world size leaves, and a world that tp * pp * cp does not divide
-        raises) unless one is live, which must then agree."""
+        the caller names another). Tensor, sequence, context, pipeline or
+        expert parallelism, or a process group of several ranks, builds the
+        mesh (:func:`..parallel.state.initialize_model_parallel`; dp is what
+        the world size leaves, and a world that tp * pp * cp does not
+        divide, or whose dp ep does not divide, raises) unless one is live,
+        which must then agree."""
         self.require_ported()
         if self.num_microbatches < 1:
             raise ValueError(f"num_microbatches must be >= 1, got {self.num_microbatches}")
         dev = resolve_device(device)
         want = (self.tensor_parallel_size, self.pipeline_parallel_size,
-                self.context_parallel_size, self.sequence_parallel)
+                self.context_parallel_size, self.expert_parallel_size, self.sequence_parallel)
         if parallel_state.model_parallel_is_initialized():
             st = parallel_state.get_parallel_state()
             have = (st.tensor_parallel_size, st.pipeline_parallel_size,
-                    st.context_parallel_size, st.sequence_parallel)
+                    st.context_parallel_size, st.expert_parallel_size, st.sequence_parallel)
             if have != want:
                 raise ValueError(
-                    f"the live mesh has (tp, pp, cp, sequence_parallel) = {have}; this "
+                    f"the live mesh has (tp, pp, cp, ep, sequence_parallel) = {have}; this "
                     f"config asks for {want}"
                 )
         elif (self.tensor_parallel_size > 1 or self.context_parallel_size > 1
-              or self.pipeline_parallel_size > 1 or self.sequence_parallel
-              or world_size() > 1):
+              or self.pipeline_parallel_size > 1 or self.expert_parallel_size > 1
+              or self.sequence_parallel or world_size() > 1):
             parallel_state.initialize_model_parallel(
                 tensor_model_parallel_size=self.tensor_parallel_size,
                 pipeline_model_parallel_size=self.pipeline_parallel_size,
+                expert_model_parallel_size=self.expert_parallel_size,
                 context_parallel_size=self.context_parallel_size,
                 sequence_parallel=self.sequence_parallel, device=dev,
             )

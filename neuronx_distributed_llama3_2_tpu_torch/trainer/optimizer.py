@@ -17,7 +17,11 @@ then holds the whole state of its layers and none of the others'. The
 trainer reduce-scatters each gradient over dp (a reduce to the owning rank
 for a layer split), each rank updates its part, and the new parameters are
 all-gathered (broadcast from the owner) — :func:`zero1_reduce_grads`,
-:func:`apply_gradients` and :func:`zero1_gather_params`.
+:func:`apply_gradients` and :func:`zero1_gather_params`. Under expert
+parallelism the data-parallel ranks of a dense leaf are the (dp, ep) plane
+and those of an expert leaf (split over ep) the mesh's dp alone: its
+gradient is summed and its state split over dp only (JAX
+``optimizer_state_specs``, :85-94; ``LeafSpec.data_axis``).
 
 Parameters, gradients and the moments are dicts keyed by the model's
 parameter names. :func:`apply_gradients` updates parameters and state IN
@@ -55,6 +59,7 @@ from neuronx_distributed_llama3_2_tpu_torch.parallel.grads import (
 from neuronx_distributed_llama3_2_tpu_torch.parallel.layout import (
     LeafSpec,
     dim_range,
+    axis_group,
     mesh_coords,
     pp_owner,
 )
@@ -83,32 +88,36 @@ class Zero1Part:
     start: int = 0        # the part along ``dim``
     size: int = 0
     owner: int = -1       # dp rank holding the whole state, for a layer split
+    axis: str = DP        # the leaf's data axis ("edp" for an expert leaf)
 
 
 def zero1_part(leaf: LeafSpec, layer: Optional[int], coords=None) -> Zero1Part:
     """Where the rank at ``coords`` (the live mesh's by default) stands on
     one state leaf (:func:`optimizer_state_specs`)."""
     coords = mesh_coords() if coords is None else coords
-    if DP not in leaf.spec:
-        return Zero1Part(True, None)
-    i = leaf.spec.index(DP)
+    axis = leaf.data_axis
+    if axis not in leaf.spec:
+        return Zero1Part(True, None, axis=axis)
+    i = leaf.spec.index(axis)
     lo, hi = dim_range(leaf, coords, i)
     if leaf.stacked and i == 0:
         per = hi - lo
-        return Zero1Part(lo <= layer < hi, None, owner=layer // per)
-    return Zero1Part(True, i - 1 if leaf.stacked else i, lo, hi - lo)
+        return Zero1Part(lo <= layer < hi, None, owner=layer // per, axis=axis)
+    return Zero1Part(True, i - 1 if leaf.stacked else i, lo, hi - lo, axis=axis)
 
 
 def optimizer_state_specs(
     specs: Mapping[str, LeafSpec], config: OptimizerConfig, dp: Optional[int] = None,
+    edp: Optional[int] = None,
 ) -> OptimizerState:
     """The :class:`..parallel.layout.LeafSpec` of every state leaf (JAX
-    ``optimizer_state_specs``): the parameter's, with ZeRO-1's dp split
-    added under ``zero_one_enabled``; ``dp`` is the live mesh's by
-    default."""
+    ``optimizer_state_specs``): the parameter's, with ZeRO-1's split over
+    its data axis added under ``zero_one_enabled``; ``dp`` (the (dp, ep)
+    plane) and ``edp`` (the mesh's dp) are the live mesh's by default."""
     dp = parallel_state.data_parallel_size_or(1) if dp is None else dp
+    edp = parallel_state.expert_data_parallel_size_or(1) if edp is None else edp
     state = (
-        {k: s.with_dp_shard(dp) for k, s in specs.items()}
+        {k: s.with_dp_shard(dp, edp) for k, s in specs.items()}
         if config.zero_one_enabled else dict(specs)
     )
     return OptimizerState(
@@ -150,18 +159,29 @@ def init_optimizer_state(params: Mapping[str, torch.Tensor], config: OptimizerCo
     )
 
 
-def zero1_reduce_grads(grads: Tensors, parts: Optional[Mapping[str, Zero1Part]]) -> Tensors:
-    """Sum each gradient over the dp ranks and keep the rank's part: a
+def _data_group(axis: str):
+    """The group of a data axis, None when it has one rank."""
+    group = axis_group(axis)
+    return group if dist.get_world_size(group) > 1 else None
+
+
+def zero1_reduce_grads(grads: Tensors, parts: Optional[Mapping[str, Zero1Part]],
+                       specs: Optional[Mapping[str, LeafSpec]] = None) -> Tensors:
+    """Sum each gradient over its data-parallel ranks (an expert leaf's
+    over dp alone, ``specs`` telling them apart) and keep the rank's part: a
     reduce-scatter along the split dim, a reduce to the owner for a layer
     split, an all-reduce for a leaf whose state stays whole (or every leaf
     without ZeRO-1, ``parts`` None). Identity at dp = 1."""
     if parallel_state.data_parallel_size_or(1) == 1:
         return grads
-    group = parallel_state.get_data_parallel_group()
     out: Tensors = {}
     for k, g in grads.items():
-        part = parts[k] if parts else Zero1Part(True, None)
-        if part.dim is not None:
+        axis = specs[k].data_axis if specs is not None else DP
+        part = parts[k] if parts else Zero1Part(True, None, axis=axis)
+        group = _data_group(part.axis)
+        if group is None:
+            out[k] = g
+        elif part.dim is not None:
             out[k] = reduce_scatter(g, part.dim, group)
         elif part.owner >= 0:
             g = g.contiguous()
@@ -179,10 +199,12 @@ def zero1_gather_params(params: Mapping[str, torch.Tensor],
     parts all-gathered along their dim, a layer broadcast from its owner."""
     if not parts or parallel_state.data_parallel_size_or(1) == 1:
         return
-    group = parallel_state.get_data_parallel_group()
     with torch.no_grad():
         for k, p in params.items():
             part = parts[k]
+            group = _data_group(part.axis)
+            if group is None:
+                continue
             if part.dim is not None:
                 p.copy_(all_gather(_part_of(p, part), part.dim, group))
             elif part.owner >= 0:
@@ -199,13 +221,15 @@ def norm_owned(specs: Mapping[str, LeafSpec], parts: Optional[Mapping[str, Zero1
     dp rank 0 only, every leaf (all are replicated over cp) on cp rank 0
     only (``parallel/grads.py``), and under a pipeline each leaf on one
     stage: a layer on its own, the tied embedding on the first, the final
-    norm on the last (:func:`..parallel.layout.pp_owner`)."""
+    norm on the last (:func:`..parallel.layout.pp_owner`). An expert leaf
+    is distinct on every ep rank and whole on every rank of the mesh's dp."""
     coords = mesh_coords()
-    tp_r, dp_r, cp_r = coords[TP][0], coords[DP][0], coords[parallel_state.CP_AXIS][0]
+    tp_r, cp_r = coords[TP][0], coords[parallel_state.CP_AXIS][0]
     out = {}
     for k, leaf in specs.items():
         part = parts[k] if parts else Zero1Part(True, None)
         dp_split = zero1 and (part.dim is not None or part.owner >= 0)
+        dp_r = coords[leaf.data_axis][0]
         out[k] = ((tp_r == 0 or leaf.mentions(TP))
                   and (dp_r == 0 or dp_split) and cp_r == 0 and pp_owner(leaf, coords))
     return out

@@ -10,7 +10,9 @@ of the optimizer state (ZeRO-1 under dp); a step takes the rank's rows of
 the global batch by JAX's rule (dp rank r the r-th contiguous block; the
 cp ranks of one dp rank take the same rows and each its chunk of their
 sequences), sums the gradients over cp, then over dp (reduce-scattered
-into ZeRO-1's parts, within each pipeline stage's dp group), clips by the
+into ZeRO-1's parts, within each pipeline stage's dp group; under expert
+parallelism a dense leaf's over the (dp, ep) plane, whose ranks hold
+different rows, an expert leaf's over dp alone), clips by the
 norm over every rank's parts (every pp rank's too) and all-gathers the
 updated parameters. A pipelined model (:class:`..pipeline.PipelinedCausalLM`,
 ``uses_manual_vjp``) computes its own gradients and its own microbatches
@@ -124,9 +126,11 @@ def dp_rows(batch: torch.Tensor) -> torch.Tensor:
 
 
 def _check_mesh(model, config: TrainingConfig) -> None:
-    """The live mesh must be the config's (cp, pp), and a model built
+    """The live mesh must be the config's (cp, pp, ep), and a model built
     under pp > 1 (a stage) must run through the pipeline."""
     for what, axis, live, want in (
+            ("expert_parallel_size", "ep", parallel_state.expert_parallel_size_or(1),
+             config.expert_parallel_size),
             ("context_parallel_size", "cp", parallel_state.context_parallel_size_or(1),
              config.context_parallel_size),
             ("pipeline_parallel_size", "pp", parallel_state.pipeline_parallel_size_or(1),
@@ -150,9 +154,12 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig,
     are split into ``config.num_microbatches`` strided microbatches (row m
     of microbatch k is row k + m * num_microbatches, so each microbatch
     takes rows of every dp shard, as in JAX); each contributes its
-    gradients weighted by its valid-token count, accumulated in fp32 under
-    ``use_fp32_grad_acc`` (else in the parameters' dtype), so the step
-    equals the global-batch mean CE. Under context parallelism the model's
+    gradients weighted by its share of the step's valid tokens over every
+    dp rank (its backward seeded with that share, so that a gradient
+    crossing ranks, an expert's through the ep all-to-all, carries its own
+    rank's weight), accumulated in fp32 under ``use_fp32_grad_acc`` (else
+    in the parameters' dtype), so the step equals the global-batch mean
+    CE. Under context parallelism the model's
     loss is the mean over every cp rank's chunk and each rank's gradient its
     chunk's share: the gradients are summed over cp first. They are summed
     over dp (into ZeRO-1's parts), then one AdamW step on every rank's part
@@ -187,12 +194,16 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig,
         names = list(state.params)
         leaves = [state.params[k] for k in names]
 
-        def loss_and_grads(ids, lbl):
+        def loss_and_grads(ids, lbl, weight=None):
+            """The loss and the gradients of ``weight`` x the loss (of the
+            loss itself without a weight)."""
             if manual:
                 loss, grads = model.loss_and_grad(ids, lbl)
-                return loss, [grads[k] for k in names]
+                got = [grads[k] for k in names]
+                return loss, got if weight is None else [g * weight for g in got]
             loss = model.loss(ids, lbl)
-            return loss.detach(), torch.autograd.grad(loss, leaves)
+            seed = None if weight is None else weight.to(loss.dtype)
+            return loss.detach(), torch.autograd.grad(loss, leaves, seed)
 
         if n_micro == 1 and dp == 1 and cp == 1:
             loss, got = loss_and_grads(input_ids, labels)
@@ -211,28 +222,28 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig,
                                dtype=torch.float32 if opt_cfg.use_fp32_grad_acc else p.dtype)
                 for k, p in state.params.items()
             }
+            # the step's token count over every dp rank first: each
+            # microbatch's backward is seeded with its share of it, so a
+            # gradient that reaches another rank's parameters (an expert's,
+            # through the ep all-to-all) carries its own rank's weight
+            counts = [_valid_count(labels[k::n_micro], vocab) for k in range(n_micro)]
+            tok_sum = torch.stack(counts).sum()
+            if dp > 1:
+                tok_sum = all_reduce(tok_sum, parallel_state.get_data_parallel_group())
+            denom = torch.clamp(tok_sum, min=1.0)
             loss_sum = torch.zeros((), device=input_ids.device)
-            tok_sum = torch.zeros((), device=input_ids.device)
-            for k in range(n_micro):
+            for k, n in enumerate(counts):
                 ids, lbl = input_ids[k::n_micro], labels[k::n_micro]
-                loss, got = loss_and_grads(ids, lbl)
-                n = _valid_count(lbl, vocab)
+                loss, got = loss_and_grads(ids, lbl, n / denom)
                 for name, g in zip(names, got):
-                    acc = grads[name]
-                    acc += g.to(acc.dtype) * n.to(acc.dtype)
+                    grads[name] += g.to(grads[name].dtype)
                 loss_sum += loss * n
-                tok_sum += n
             if cp > 1:
                 group = parallel_state.get_context_parallel_group()
                 grads = {k: all_reduce(g, group) for k, g in grads.items()}
             if dp > 1:
-                group = parallel_state.get_data_parallel_group()
-                loss_sum = all_reduce(loss_sum, group)
-                tok_sum = all_reduce(tok_sum, group)
-                grads = zero1_reduce_grads(grads, parts)
-            denom = torch.clamp(tok_sum, min=1.0)
-            for g in grads.values():
-                g /= denom.to(g.dtype)
+                loss_sum = all_reduce(loss_sum, parallel_state.get_data_parallel_group())
+                grads = zero1_reduce_grads(grads, parts, specs.params)
             loss = loss_sum / denom
         _, opt, grad_norm = apply_gradients(
             state.opt, grads, state.params, opt_cfg,

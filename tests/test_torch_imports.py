@@ -51,6 +51,14 @@ def test_sources_exist():
     # the pipeline: the schedules and the stage executor
     for mod in ("__init__.py", "scheduler.py", "model.py"):
         assert PORT / "pipeline" / mod in SOURCES, mod
+    # MoE and quantized layers: the moe package, the MoE families, the
+    # weight quantization
+    for mod in ("__init__.py", "routing.py", "experts.py", "model.py", "loss.py"):
+        assert PORT / "moe" / mod in SOURCES, mod
+    for mod in ("mixtral.py", "dbrx.py"):
+        assert PORT / "models" / mod in SOURCES, mod
+    for mod in ("quantize.py", "layers.py"):
+        assert PORT / "quantization" / mod in SOURCES, mod
     # the parallel layer: the mesh, the regions, the layers, the loss
     for mod in ("state.py", "multihost.py", "mappings.py", "random.py", "pad.py",
                 "layers.py", "layout.py", "loss.py", "grads.py"):

@@ -303,10 +303,11 @@ def _leaves(tree, prefix=()):
 
 
 def test_unported_axes_raise_naming_their_item():
-    """ep waits for its ROADMAP item; pp runs (test_torch_pp_train.py), and
-    on a world of one process the mesh refuses pp = 2 before it starts a
-    group."""
-    with pytest.raises(NotImplementedError, match="item 4"):
+    """Every axis is ported (ep since the MoE slice, test_torch_ep_train.py;
+    pp, test_torch_pp_train.py): on a world of one process the mesh refuses
+    ep = 2 and pp = 2 before it starts a group, naming the sizes."""
+    assert tstate._WAITS_FOR == {}
+    with pytest.raises(ValueError, match="not divisible by expert_parallel_size 2"):
         tstate.initialize_model_parallel(device="cpu", expert_model_parallel_size=2)
     with pytest.raises(ValueError, match="not divisible"):
         tstate.initialize_model_parallel(device="cpu", pipeline_model_parallel_size=2)

@@ -242,16 +242,24 @@ def test_pipelined_model_checks():
 
 
 def test_mixtral_pipeline_and_ep_wait_for_item_4(tmp_path):
+    """Since the MoE slice (item 4) the port's Mixtral pipelines
+    (test_torch_ep_train.py) and the script takes --ep: only a model that is
+    not the port's is refused, and a one-process run asks for its ranks."""
     from neuronx_distributed_llama3_2_tpu.models.mixtral import MIXTRAL_CONFIGS, MixtralForCausalLM
+    from neuronx_distributed_llama3_2_tpu_torch.models import mixtral as tmix
 
-    with pytest.raises(NotImplementedError, match="slice 5 item 4"):
+    with pytest.raises(TypeError, match="got MixtralForCausalLM"):
         PipelinedCausalLM(MixtralForCausalLM(MIXTRAL_CONFIGS["tiny-moe"]), num_microbatches=2)
+    port = tmix.MixtralForCausalLM(tmix.MIXTRAL_CONFIGS["tiny-moe"], device="cpu")
+    assert PipelinedCausalLM(port, num_microbatches=2).uses_manual_vjp
     base = ["--ckpt-dir", str(tmp_path / "c"), "--synthetic", "1000", "--device", "cpu"]
-    for argv in (["--ep", "2"], ["--model", "tiny-moe", "--pp", "2"]):
-        with pytest.raises(SystemExit, match="slice 5 item 4"):
+    with pytest.raises(SystemExit, match="--ep 2: tiny is not a MoE model"):
+        pretrain.main(base + ["--ep", "2"])
+    for argv, match in ((["--model", "tiny-moe", "--ep", "2"], "--dp 0 --ep 2: 2 ranks"),
+                        (["--model", "tiny-moe", "--pp", "2"], "--pp 2 --dp 0: 2 ranks"),
+                        (["--pp", "2"], "--pp 2 --dp 0: 2 ranks")):
+        with pytest.raises(SystemExit, match=match):
             pretrain.main(base + argv)
-    with pytest.raises(SystemExit, match="--pp 2 --dp 0: 2 ranks"):
-        pretrain.main(base + ["--pp", "2"])
 
 
 def test_pipeline_config_mismatch_fails_loudly():

@@ -141,7 +141,7 @@ def test_native_loader_tensorboard_timeline_eval_profile(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model", "mixtral-8x7b"], "slice 5 item 4"),
+    (["--model", "mixtral-8x7b", "--ep", "3"], "--ep 3: 3 ranks"),
     (["--model", "tiny-bert"], "slice 5 item 6"),
     (["--model", "nope"], "unknown model"),
     (["--tp", "2"], "--tp 2"),

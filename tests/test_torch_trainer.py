@@ -287,17 +287,18 @@ def test_eval_step_and_evaluate_match_jax():
     ("pipeline_schedule", "1f1b"), ("num_model_chunks", 2),
 ])
 def test_parallel_knobs_raise_naming_the_knob(knob, value):
-    """Expert parallelism raises, naming the knob and the ROADMAP item that
-    ports it. The pipeline runs (test_torch_pp_train.py): pp on a world of
-    one process is refused before a group starts, and the pipeline knobs on
-    an unpipelined model are refused by the trainer, naming the knob (JAX
+    """Expert parallelism and the pipeline run (test_torch_ep_train.py,
+    test_torch_pp_train.py): ep or pp on a world of one process is refused
+    before a group starts, and the trainer refuses a config whose mesh is
+    not live, naming the knob; the pipeline knobs on an unpipelined model
+    are refused by the trainer, naming the knob (JAX
     ``_validate_pipeline_config``)."""
     tc = ttrainer.TrainingConfig(**{knob: value})
     model = tllama.LlamaForCausalLM(tllama.LLAMA_CONFIGS["tiny"], device="cpu")
     if knob == "expert_parallel_size":
-        with pytest.raises(NotImplementedError, match=f"{knob}.*ROADMAP.md slice 5 item 4"):
+        with pytest.raises(ValueError, match="not divisible by expert_parallel_size"):
             tc.initialize("cpu")
-        with pytest.raises(NotImplementedError, match=knob):
+        with pytest.raises(ValueError, match=knob):
             ttrainer.make_train_step(model, tc)
     elif knob == "pipeline_parallel_size":
         with pytest.raises(ValueError, match="not divisible"):

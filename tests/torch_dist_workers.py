@@ -760,3 +760,131 @@ def pp_pretrain_worker(rank, world, runs):
             trainer.make_train_step = make
             S.destroy_model_parallel()
     return {"records": records if rank == 0 else None, "params": params}
+
+
+# ---------------------------------------------------------------------------
+# quantized layers under tensor parallelism
+# ---------------------------------------------------------------------------
+
+def quant_linear_worker(rank, world, cases, w, x):
+    """For each (kind, QuantizationConfig kwargs) of ``cases``: a float
+    ``kind`` ("row" / "column") parallel linear holding this tp rank's
+    shard of the whole kernel ``w`` (in, out), converted to its quantized
+    counterpart; the output of ``x`` (the whole input; a row-parallel layer
+    reads its slice of the features) gathered whole, and the rank's payload
+    and scale, as fp32 numpy."""
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import layers as PL
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+    from neuronx_distributed_llama3_2_tpu_torch.quantization import QuantizationConfig, convert
+
+    S.initialize_model_parallel(tensor_model_parallel_size=world, device="cpu")
+    try:
+        out = []
+        for kind, q_kw in cases:
+            n_in, n_out = w.shape
+            cls = PL.RowParallelLinear if kind == "row" else PL.ColumnParallelLinear
+            mod = cls(n_in, n_out, dtype=torch.float32, device="cpu")
+            dim = 0 if kind == "row" else 1
+            with torch.no_grad():
+                mod.kernel.copy_(torch.as_tensor(w).chunk(world, dim)[rank])
+            qmod = convert(mod, QuantizationConfig(**q_kw))
+            xt = torch.as_tensor(x)
+            if kind == "row":
+                xt = xt.chunk(world, -1)[rank]
+            y = qmod(xt)
+            y = (_grad_gather(y, -1, S.get_tensor_model_parallel_group()) if kind == "column"
+                 else _np(y))
+            qt = qmod.quantized("kernel")
+            out.append(dict(y=y, qvalue=_np(qt.qvalue), scale=_np(qt.scale)))
+        return out
+    finally:
+        S.destroy_model_parallel()
+
+
+# ---------------------------------------------------------------------------
+# MoE: expert parallelism and the pipelined Mixtral
+# ---------------------------------------------------------------------------
+
+def moe_train_worker(rank, world, cases, cfg_kw, opt_kw, jax_root, batches):
+    """Each case of ``cases`` (a dict: name, tp, ep, sp, pp, schedule,
+    n_micro, zero1, batch (a key of ``batches``), save) with tiny-moe on a
+    mesh of ``world`` ranks, through the trainer's entry points: the state
+    loaded from the JAX package's tag at ``jax_root`` (gathered back); the
+    first step's gradient of the batch's mean loss (unpipelined: each
+    rank's backward seeded with its share of the tokens and the gradients
+    summed as the trainer sums them; pipelined: ``loss_and_grad``),
+    gathered whole; one train step's
+    metrics and end state gathered whole; the ZeRO-1 specs and this rank's
+    own mu; with ``save``, a tag of the end state under that root. An ep
+    case also tries an MoE block without a capacity factor."""
+    from neuronx_distributed_llama3_2_tpu_torch import trainer as T
+    from neuronx_distributed_llama3_2_tpu_torch.checkpoint import checkpoint as C
+    from neuronx_distributed_llama3_2_tpu_torch.models import llama as L
+    from neuronx_distributed_llama3_2_tpu_torch.models import mixtral as M
+    from neuronx_distributed_llama3_2_tpu_torch.moe.model import MoE
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+    from neuronx_distributed_llama3_2_tpu_torch.parallel.mappings import all_reduce
+    from neuronx_distributed_llama3_2_tpu_torch.pipeline import PipelinedCausalLM
+    from neuronx_distributed_llama3_2_tpu_torch.trainer.optimizer import zero1_reduce_grads
+    from neuronx_distributed_llama3_2_tpu_torch.trainer.trainer import _valid_count, dp_rows
+
+    out = {}
+    for case in cases:
+        pp = case.get("pp", 1)
+        tc = T.TrainingConfig(
+            tensor_parallel_size=case.get("tp", 1), expert_parallel_size=case.get("ep", 1),
+            sequence_parallel=case.get("sp", False), pipeline_parallel_size=pp,
+            pipeline_schedule=case.get("schedule"), num_microbatches=1 if pp > 1 else case["n_micro"],
+            optimizer=T.OptimizerConfig(zero_one_enabled=case.get("zero1", False), **opt_kw))
+        tc.initialize("cpu")
+        try:
+            cfg = dataclasses.replace(M.MIXTRAL_CONFIGS["tiny-moe"], **cfg_kw)
+            model = M.MixtralForCausalLM(cfg, device="cpu")
+            if pp > 1:
+                model = PipelinedCausalLM(model, num_microbatches=case["n_micro"],
+                                          schedule=case["schedule"])
+            state, specs = T.initialize_parallel_model(model, tc)
+            start = C.load_checkpoint(jax_root, "latest", model=state.params, optimizer=state.opt,
+                                      model_specs=specs.params, optimizer_specs=specs.opt)
+            with torch.no_grad():
+                for k, p in state.params.items():
+                    p.copy_(start["model"][k])
+            state = T.TrainState(state.params, start["optimizer"])
+            ids, labels = (torch.as_tensor(a) for a in batches[case["batch"]])
+            res = {"loaded": L.params_to_jax(state.params, cfg, specs.params)}
+            names = list(state.params)
+            if pp > 1:
+                _, grads = model.loss_and_grad(ids, labels)
+            else:
+                # each rank's backward seeded with its share of the tokens
+                # (an expert's gradient gathers other ranks' tokens' shares)
+                rows, lbl = dp_rows(ids), dp_rows(labels)
+                n = _valid_count(lbl, cfg.vocab_size)
+                total = all_reduce(n, S.get_data_parallel_group())
+                got = torch.autograd.grad(model.loss(rows, lbl),
+                                          [state.params[k] for k in names], n / total)
+                grads = zero1_reduce_grads(dict(zip(names, got)), None, specs.params)
+            res["grads"] = L.params_to_jax(grads, cfg, specs.params)
+            state, m = T.make_train_step(model, tc)(state, {"input_ids": ids, "labels": labels})
+            res["metrics"] = {k: float(v) for k, v in m.items()}
+            res["params"] = L.params_to_jax(state.params, cfg, specs.params)
+            res["opt"] = T.opt_state_to_jax(state.opt, cfg, specs.opt)
+            res["specs"] = {k: (s.shape, s.spec) for k, s in specs.opt.mu.items()}
+            res["mu_local"] = {k: _np(v) for k, v in state.opt.mu.items()}
+            res["coords"] = {a: S.get_parallel_state().rank(a) for a in S.MESH_AXES}
+            res["state_bytes"] = T.optimizer.state_bytes(state.opt)
+            if case.get("ep", 1) > 1:
+                block = MoE(dataclasses.replace(cfg.moe_config(), capacity_factor=None))
+                try:
+                    block(torch.zeros((1, 4, cfg.hidden_size)))
+                    res["refused"] = None
+                except ValueError as e:
+                    res["refused"] = str(e)
+            if case.get("save"):
+                C.save_checkpoint(case["save"], "step_1", model=state.params, optimizer=state.opt,
+                                  model_specs=specs.params, optimizer_specs=specs.opt)
+                dist.barrier()
+            out[case["name"]] = res
+        finally:
+            S.destroy_model_parallel()
+    return out
