@@ -21,6 +21,7 @@ from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
     pick_bucket,
 )
 from neuronx_distributed_llama3_2_tpu_torch.inference.model import (
+    GPTNeoXDecode,
     KVCache,
     LlamaDecode,
     MixtralDecode,
@@ -57,6 +58,7 @@ __all__ = [
     "LatencyCollector",
     "LlamaDecode",
     "MixtralDecode",
+    "GPTNeoXDecode",
     "MedusaBuffers",
     "MedusaDecoder",
     "MedusaHeads",

@@ -85,9 +85,10 @@ block of T tokens whose T·k assignments do not exceed E gathers each
 token's chosen experts (the selective path), a larger one runs every
 expert on every token; ``moe_paths`` counts, per decoder-layer call, which
 ran. Both are static-shape ``topk`` / ``index_select`` / ``einsum`` code, so
-a step stays capturable in a CUDA graph. :func:`decode_model_for` picks the
-decode model of a config (JAX :1311). ``GPTNeoXDecode`` comes with its
-family (``ROADMAP.md``).
+a step stays capturable in a CUDA graph. :class:`GPTNeoXDecode` is the
+GPT-NeoX / CodeGen family's (JAX :1248): the same caches and attention
+paths under its block and its partial rotary. :func:`decode_model_for`
+picks the decode model of a config (JAX :1311).
 """
 
 from __future__ import annotations
@@ -113,9 +114,7 @@ from neuronx_distributed_llama3_2_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaDecoderLayer,
     LlamaForCausalLM,
-    apply_rope,
     core_attention,
-    precompute_rope,
 )
 from neuronx_distributed_llama3_2_tpu_torch.quantization.kv_cache import (
     KV_SCALE_DTYPE,
@@ -238,20 +237,19 @@ class LlamaDecode:
         self.kv_heads = {"sharded": c.num_kv_heads // self.tp, "flat": 1,
                          "replicated": self.n_heads}[mode]
 
-    def _rope_tables(self, max_len: int, device: torch.device):
-        """Rotary tables for ``max_len`` rows, built once per (length,
+    def _rope_tables(self, params: LlamaForCausalLM, max_len: int, device: torch.device):
+        """Rotary tables for ``max_len`` rows, the model's own (its
+        ``_rope``: partial rotary for the GPT-NeoX family, as JAX's
+        ``_rope_tables`` reads the model's), built once per (length,
         device): every layer of every step shares them. ``max_len`` more
         rows of zeros follow, which a garbage lane's rows past the table
         read (the module note says why not NaN, as in the JAX package)."""
         key_ = (max_len, device)
         tables = self._rope.get(key_)
         if tables is None:
-            c = self.config
             tables = tuple(
                 torch.cat([x, torch.zeros_like(x)])
-                for x in precompute_rope(
-                    c.head_dim, max_len, c.rope_theta, c.rope_scaling, device=device
-                )
+                for x in params._rope(max_len, device=device)
             )
             self._rope[key_] = tables
         return tables
@@ -416,7 +414,7 @@ class LlamaDecode:
             # paged: logical capacity is the table width (write positions can
             # reach the bucket-padding overflow region past max_seq_len)
             rope_len = block_tables.shape[1] * cache.block_size
-        sin, cos = self._rope_tables(rope_len, tokens.device)
+        sin, cos = self._rope_tables(params, rope_len, tokens.device)
 
         x = params.embed(tokens)
         for i, layer in enumerate(params.layers):
@@ -444,11 +442,27 @@ class LlamaDecode:
         (num_blocks, block_size, NKV, D) pool slice, or (payload, scale)
         pairs of a quantized pool; x: (b, T, H). Fresh K/V land at
         ``write_rows``, roped at ``pos_block`` (the two differ for a tree)."""
+        h = layer.attn_norm(x)
+        att = self._attention(
+            layer, h, kc, vc, sin, cos, pos_block, write_rows, positions,
+            context_encode=context_encode, kv_limit=kv_limit, block_tables=block_tables,
+            row_live=row_live, tree=tree, tree_bits=tree_bits, slots=slots,
+        )
+        x = x + att
+        return x + self._mlp_block(layer, layer.mlp_norm(x))
+
+    def _attention(
+        self, layer, h, kc, vc, sin, cos, pos_block, write_rows, positions, *,
+        context_encode: bool, kv_limit=None, block_tables=None, row_live=None, tree=None,
+        tree_bits=None, slots=None,
+    ) -> torch.Tensor:
+        """The layer's attention block on the normed ``h`` (b, T, H), with
+        the cache write and read, through the o projection."""
         c = self.config
-        b, t, _ = x.shape
-        q, k, v = layer.attn.project_qkv(layer.attn_norm(x))
-        q = apply_rope(q, sin, cos, pos_block)
-        k = apply_rope(k, sin, cos, pos_block)
+        b, t, _ = h.shape
+        q, k, v = layer.attn.project_qkv(h)
+        q = layer.attn.rope(q, sin, cos, pos_block)
+        k = layer.attn.rope(k, sin, cos, pos_block)
         if block_tables is None:
             att = self._attend_dense(
                 q, k, v, kc, vc, slots, write_rows, pos_block, positions,
@@ -460,8 +474,7 @@ class LlamaDecode:
                 context_encode=context_encode, kv_limit=kv_limit, row_live=row_live,
                 tree=tree, tree_bits=tree_bits,
             )
-        x = x + layer.attn.o(att.reshape(b, t, layer.attn.n_heads * c.head_dim))
-        return x + self._mlp_block(layer, layer.mlp_norm(x))
+        return layer.attn.o(att.reshape(b, t, layer.attn.n_heads * c.head_dim))
 
     def _mlp_block(self, layer, h: torch.Tensor) -> torch.Tensor:
         """The layer's feed-forward block on the normed hidden states."""
@@ -1022,23 +1035,38 @@ class MixtralDecode(LlamaDecode):
         return y.reshape(b, t, hdim)
 
 
+class GPTNeoXDecode(LlamaDecode):
+    """Decode-mode GPT-NeoX / Pythia / CodeGen over the weights of a
+    :class:`..models.gptneox.GPTNeoXForCausalLM` (JAX ``GPTNeoXDecode``
+    :1248): the same caches and attention paths (K4 under
+    ``use_paged_kernel``) under the family's block, parallel or sequential
+    residual with its LayerNorms and biases (the layer's own ``block``),
+    and partial rotary in either convention (the attention's ``rope`` over
+    the model's ``rotary_dims``-wide tables)."""
+
+    def _decode_layer(self, layer, x, kc, vc, sin, cos, pos_block, write_rows, positions,
+                      **kw) -> torch.Tensor:
+        h1 = layer.attn_norm(x)
+        att = self._attention(layer, h1, kc, vc, sin, cos, pos_block, write_rows, positions,
+                              **kw)
+        return layer.block(x, h1, att)
+
+
 def decode_model_for(config) -> LlamaDecode:
-    """The decode model of a config (JAX ``decode_model_for``):
+    """The decode model of a config (JAX ``decode_model_for`` :1311):
     :class:`MixtralDecode` for the MoE families (Mixtral, DBRX),
-    :class:`LlamaDecode` for Llama. BERT has no KV-cache decode; GPT-NeoX
-    waits for its family's slice."""
+    :class:`GPTNeoXDecode` for GPT-NeoX / CodeGen, :class:`LlamaDecode` for
+    Llama. BERT has no KV-cache decode."""
+    from neuronx_distributed_llama3_2_tpu_torch.models.gptneox import GPTNeoXConfig
     from neuronx_distributed_llama3_2_tpu_torch.models.mixtral import MixtralConfig
 
-    name = type(config).__name__
-    if name.startswith("Bert"):
+    if not isinstance(config, LlamaConfig):
         raise NotImplementedError(
             "BERT is a bidirectional encoder — there is no KV-cache decode; "
             "use BertForPreTraining's forward directly"
         )
-    if name.startswith("GPTNeoX"):
-        raise NotImplementedError(
-            "GPTNeoXDecode waits for ROADMAP.md slice 5 item 6 (the GPT-NeoX family)"
-        )
+    if isinstance(config, GPTNeoXConfig):
+        return GPTNeoXDecode(config)
     if isinstance(config, MixtralConfig):
         return MixtralDecode(config)
     return LlamaDecode(config)

@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from neuronx_distributed_llama3_2_tpu_torch.kernels.paged_attention import (
     LaunchCounter,
+    refuse_queued_head_dim,
 )
 
 # plain-version chunking (the JAX dispatcher's defaults)
@@ -178,7 +179,9 @@ def flash_bwd_reference(
 def _route(name: str, q: torch.Tensor, k: torch.Tensor, segment_ids) -> str:
     """The device the kernel pair runs on, after checking ``segment_ids``:
     one (B, S) array with S = Sq = Skv, as ``_seg_operands`` pads one array
-    for both sides in the JAX package."""
+    for both sides in the JAX package. A queued head dim raises on every
+    device."""
+    refuse_queued_head_dim(q.shape[-1], f"flash attention ({name}, K1-K3)")
     dev = q.device.type
     if dev not in ("cpu", "cuda"):
         raise RuntimeError(

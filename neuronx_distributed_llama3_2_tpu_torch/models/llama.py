@@ -404,19 +404,20 @@ class LlamaAttention(nn.Module):
     projection; this rank's ``n_heads`` q heads over ``n_kv_heads`` kv
     heads (all of them at tp = 1)."""
 
-    def __init__(self, config: LlamaConfig, device=None, sequence_parallel: bool = False):
+    def __init__(self, config: LlamaConfig, device=None, sequence_parallel: bool = False,
+                 qkv_bias: bool = False, o_bias: bool = False):
         super().__init__()
         c = config
         self.config = c
         self.sequence_parallel = sequence_parallel
         self.qkv = GQAQKVColumnParallelLinear(
-            c.hidden_size, c.num_heads, c.num_kv_heads, c.head_dim,
+            c.hidden_size, c.num_heads, c.num_kv_heads, c.head_dim, use_bias=qkv_bias,
             sequence_parallel=sequence_parallel, dtype=c.dtype, device=device,
         )
         self.n_heads = self.qkv.q_local_heads
         self.n_kv_heads = self.qkv.kv_local_heads
         self.o = RowParallelLinear(
-            c.num_heads * c.head_dim, c.hidden_size, dtype=c.dtype,
+            c.num_heads * c.head_dim, c.hidden_size, use_bias=o_bias, dtype=c.dtype,
             sequence_parallel=sequence_parallel, device=device,
         )
 
@@ -473,10 +474,15 @@ class LlamaAttention(nn.Module):
             attn = core_attention(q, k, v, causal=True)
         return attn.reshape(b, s, self.n_heads * c.head_dim)
 
+    def rope(self, y: torch.Tensor, sin, cos, positions) -> torch.Tensor:
+        """RoPE on q or k (b, t, heads, D): the whole head, rotate-half (JAX
+        ``_apply_rope``; the partial-rotary families override it)."""
+        return apply_rope(y, sin, cos, positions)
+
     def forward(self, x, sin, cos, positions) -> torch.Tensor:
         q, k, v = self.project_qkv(x)
-        q = apply_rope(q, sin, cos, positions)
-        k = apply_rope(k, sin, cos, positions)
+        q = self.rope(q, sin, cos, positions)
+        k = self.rope(k, sin, cos, positions)
         return self.o(self.attend(q, k, v))
 
 
@@ -614,7 +620,7 @@ class LlamaDecoderLayer(nn.Module):
         a = self.attn
 
         def rope(y):
-            return apply_rope(y, sin, cos, positions)
+            return a.rope(y, sin, cos, positions)
 
         if keep_q:
             def qkv(x):
@@ -741,13 +747,14 @@ class LlamaForCausalLM(nn.Module):
             self.layers = LayerStack({i: self.layer_class(c, dev, sp) for i in st.layers})
         last = st is None or st.last
         self.final_norm = make_norm(c, dev, sp) if last else None
-        self.lm_head = (
-            None if c.tie_word_embeddings or not last
-            else ColumnParallelLinear(
-                c.hidden_size, c.vocab_size, dtype=c.dtype, device=dev
-            )
-        )
+        self.lm_head = None if c.tie_word_embeddings or not last else self._make_lm_head(dev)
         self._device = dev
+
+    def _make_lm_head(self, device) -> ColumnParallelLinear:
+        """The untied LM head (vocab-parallel; a family with a head bias
+        overrides it)."""
+        c = self.config
+        return ColumnParallelLinear(c.hidden_size, c.vocab_size, dtype=c.dtype, device=device)
 
     @property
     def device(self) -> torch.device:
@@ -770,8 +777,7 @@ class LlamaForCausalLM(nn.Module):
         if self.final_norm is not None:
             self.final_norm.reset_parameters()
         if not c.tie_word_embeddings:
-            (self.lm_head or ColumnParallelLinear(c.hidden_size, c.vocab_size, dtype=c.dtype,
-                                                  device=dev)).reset_parameters(g)
+            (self.lm_head or self._make_lm_head(dev)).reset_parameters(g)
         return self
 
     def param_specs(self) -> Dict[str, "LeafSpec"]:
@@ -956,22 +962,6 @@ class LlamaForCausalLM(nn.Module):
 # Weight bridge to the JAX package's parameter pytree
 # ---------------------------------------------------------------------------
 
-# (path in the JAX layer pytree, attribute path in LlamaDecoderLayer)
-_LAYER_LEAVES = (
-    (("attn_norm", "scale"), "attn_norm.scale"),
-    (("attn", "qkv", "q_kernel"), "attn.qkv.q_kernel"),
-    (("attn", "qkv", "k_kernel"), "attn.qkv.k_kernel"),
-    (("attn", "qkv", "v_kernel"), "attn.qkv.v_kernel"),
-    (("attn", "o", "kernel"), "attn.o.kernel"),
-    (("mlp_norm", "scale"), "mlp_norm.scale"),
-    (("mlp", "gate_up"), "mlp.gate_up"),
-    (("mlp", "down", "kernel"), "mlp.down.kernel"),
-    (("moe", "router", "kernel"), "moe.router.kernel"),
-    (("moe", "experts", "gate_up"), "moe.experts.gate_up"),
-    (("moe", "experts", "down"), "moe.experts.down"),
-)
-
-
 def _dig(tree: Mapping, path: Tuple[str, ...]):
     for k in path:
         tree = tree[k]
@@ -980,11 +970,18 @@ def _dig(tree: Mapping, path: Tuple[str, ...]):
 
 def jax_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
     """(path of the JAX leaf, layer index or None) of a port parameter
-    name."""
+    name: the port's names are the JAX paths with "." for "/", and
+    ``layers.<i>.<rest>`` is layer ``i`` of the stacked ``layers/<rest>``
+    leaf."""
     parts = name.split(".")
     if parts[0] == "layers":
-        return ("layers",) + next(p for p, n in _LAYER_LEAVES if n == ".".join(parts[2:])), int(parts[1])
+        return ("layers", *parts[2:]), int(parts[1])
     return tuple(parts), None
+
+
+#: config class -> the ``param_specs`` of a family outside the Llama
+#: lineage (models/bert.py registers BERT's)
+FAMILY_SPECS: Dict[type, Callable[..., Dict[str, LeafSpec]]] = {}
 
 
 def param_specs(config: LlamaConfig, tp: Optional[int] = None, pp: Optional[int] = None,
@@ -999,7 +996,14 @@ def param_specs(config: LlamaConfig, tp: Optional[int] = None, pp: Optional[int]
     last (``LeafSpec.stages``). A MoE family's layers hold ``moe.router.
     kernel`` (replicated, fp32) and the experts ``moe.experts.gate_up`` /
     ``down``, split over ep on E at expert parallel size ``ep`` (JAX
-    ``ExpertMLPs.specs``) and over tp on I, in place of the dense MLP."""
+    ``ExpertMLPs.specs``) and over tp on I, in place of the dense MLP. A
+    LayerNorm with a bias holds ``<norm>.bias`` beside each scale; the
+    GPT-NeoX family's biases and MLP are its own
+    (:func:`..models.gptneox.layer_leaves`). A family of
+    :data:`FAMILY_SPECS` gives its own specs."""
+    family = FAMILY_SPECS.get(type(config))
+    if family is not None:
+        return family(config, tp=tp, pp=pp, chunks=chunks, ep=ep)
     c = config
     tp = parallel_state.tensor_parallel_size_or(1) if tp is None else tp
     pp = parallel_state.pipeline_parallel_size_or(1) if pp is None else pp
@@ -1018,6 +1022,12 @@ def param_specs(config: LlamaConfig, tp: Optional[int] = None, pp: Optional[int]
         "mlp.gate_up": ((L, H, 2, I), (Lx, None, None, T)),
         "mlp.down.kernel": ((L, I, H), (Lx, T, None)),
     }
+    if c.norm_bias:
+        layer.update({"attn_norm.bias": ((L, H), (Lx, None)), "mlp_norm.bias": ((L, H), (Lx, None))})
+    from neuronx_distributed_llama3_2_tpu_torch.models import gptneox
+
+    if isinstance(c, gptneox.GPTNeoXConfig):
+        layer = gptneox.layer_leaves(c, layer, Lx, T, kv)
     if hasattr(c, "num_experts"):
         E = parallel_state.EP_AXIS if ep > 1 else None
         del layer["mlp.gate_up"], layer["mlp.down.kernel"]
@@ -1034,13 +1044,18 @@ def param_specs(config: LlamaConfig, tp: Optional[int] = None, pp: Optional[int]
             specs[f"layers.{i}.{name}"] = LeafSpec(shape, spec, stacked=True,
                                                    chunks=chunks if pp > 1 else 1)
     specs["final_norm.scale"] = LeafSpec((H,), (None,), stages=last)
+    if c.norm_bias:
+        specs["final_norm.bias"] = LeafSpec((H,), (None,), stages=last)
     if not c.tie_word_embeddings:
         specs["lm_head.kernel"] = LeafSpec((H, c.vocab_size), (None, T), stages=last)
+        if getattr(c, "lm_head_bias", False):
+            specs["lm_head.bias"] = LeafSpec((c.vocab_size,), (T,), stages=last)
     return specs
 
 
-#: the parameters kept in fp32 whatever the compute dtype
-FP32_LEAVES = ("scale", "router.kernel")
+#: the parameters kept in fp32 whatever the compute dtype (BERT's MLM
+#: decoder bias among them)
+FP32_LEAVES = ("scale", "norm.bias", "router.kernel", "mlm_bias")
 
 
 def params_from_jax(

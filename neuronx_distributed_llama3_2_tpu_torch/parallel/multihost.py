@@ -19,6 +19,7 @@ Where the JAX package starts ``jax.distributed``, the port starts a
 
 from __future__ import annotations
 
+import gc
 import os
 import pickle
 import tempfile
@@ -133,6 +134,14 @@ def _spawned_rank(rank: int, fn: Callable, nproc: int, d: str, device: str, args
         with open(os.path.join(d, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(result, f)
     finally:
+        from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
+
+        # release the mesh's groups while the interpreter is whole: a gloo
+        # group still referenced at exit is torn down after the threads it
+        # joins, and the process aborts ("terminate called without an
+        # active exception")
+        parallel_state.destroy_model_parallel()
+        gc.collect()
         dist.destroy_process_group()
 
 

@@ -33,6 +33,12 @@ shard of the weights and of the cache, and every rank generates the same
 tokens; rank 0 prints them. Weights from an
 HF checkpoint (``--hf-dir``) and a text ``--prompt`` (it needs the HF
 tokenizer) are not ported yet: each raises, naming the slice it comes with.
+
+``--model`` is any key of the model registry (:func:`..models.
+resolve_model`, as the JAX script resolves it): the Llama, Mixtral / DBRX
+and GPT-NeoX / CodeGen families serve; BERT has no KV-cache decode and the
+engine refuses it, as the JAX one does; an Mllama name raises, naming the
+slice that ports it.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from typing import List, Optional
 
 def parse_args(argv: Optional[List[str]] = None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--model", required=True, help="model registry key (LLAMA_CONFIGS)")
+    p.add_argument("--model", required=True, help="model registry key (models.model_registry)")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--hf-dir", help="HF checkpoint directory (not ported yet)")
     src.add_argument("--ckpt-dir", help="native checkpoint root (the JAX package's format)")
@@ -101,10 +107,7 @@ def _run(args) -> dict:
         InferenceEngine,
         SamplingConfig,
     )
-    from neuronx_distributed_llama3_2_tpu_torch.models.llama import (
-        LLAMA_CONFIGS,
-        LlamaForCausalLM,
-    )
+    from neuronx_distributed_llama3_2_tpu_torch.models import resolve_model
     from neuronx_distributed_llama3_2_tpu_torch.utils.logger import get_logger
 
     logger = get_logger()
@@ -113,8 +116,10 @@ def _run(args) -> dict:
             "--hf-dir: the HF checkpoint converter is not ported yet "
             "(ROADMAP.md, slice 5 item 7)"
         )
-    if args.model not in LLAMA_CONFIGS:
-        raise SystemExit(f"unknown model {args.model!r}; one of {sorted(LLAMA_CONFIGS)}")
+    try:
+        entry = resolve_model(args.model)
+    except (KeyError, NotImplementedError) as e:
+        raise SystemExit(str(e.args[0])) from e
     from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
     from neuronx_distributed_llama3_2_tpu_torch.parallel.multihost import (
         initialize_distributed,
@@ -131,16 +136,15 @@ def _run(args) -> dict:
         initialize_distributed(device=args.device)
         parallel_state.initialize_model_parallel(
             tensor_model_parallel_size=args.tp, device=args.device)
-    config = LLAMA_CONFIGS[args.model]
-    params = LlamaForCausalLM(config, device=args.device)
+    config = entry["config"]
+    params = entry["model_cls"](config, device=args.device)
     if args.ckpt_dir:
         from neuronx_distributed_llama3_2_tpu_torch.checkpoint import load_checkpoint
-        from neuronx_distributed_llama3_2_tpu_torch.models.llama import param_specs
 
         # each rank reads the regions of its shards (whole tensors at tp 1)
         loaded = load_checkpoint(args.ckpt_dir, tag=args.tag,
                                  model=dict(params.named_parameters()),
-                                 model_specs=param_specs(config) if args.tp > 1 else None)
+                                 model_specs=params.param_specs() if args.tp > 1 else None)
         if loaded is None:
             raise SystemExit(f"no checkpoint {args.tag} under {args.ckpt_dir}")
         params.load_state_dict(loaded["model"])

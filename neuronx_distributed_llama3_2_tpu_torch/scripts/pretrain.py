@@ -35,13 +35,20 @@ microbatching stays at 1; each stage saves its own layers, in the
 canonical layout, so a run resumes at another pp. ``--pp-schedule`` and
 ``--model-chunks`` need ``--pp`` above 1.
 
-The port pretrains the Llama family (``LLAMA_CONFIGS``) and the MoE
-families (``MIXTRAL_CONFIGS``: ``mixtral-8x7b``, ``tiny-moe``;
-``DBRX_CONFIGS``: ``dbrx``, ``tiny-dbrx``), with ``--capacity-factor`` to
-set an MoE model's capacity and ``--ep`` to split its experts over ep ranks
-of the data-parallel ranks (JAX ``examples/run_mixtral_ep.sh``: ``--tp 4
---ep 8 --sp``); the other families raise ``SystemExit`` naming the slice
-that ports them.
+Any model of the registry (:func:`..models.model_registry`) pretrains: the
+Llama family, the MoE families (``mixtral-8x7b``, ``tiny-moe``, ``dbrx``,
+``tiny-dbrx``, with ``--capacity-factor`` to set an MoE model's capacity
+and ``--ep`` to split its experts over ep ranks of the data-parallel ranks,
+JAX ``examples/run_mixtral_ep.sh``: ``--tp 4 --ep 8 --sp``), GPT-NeoX /
+CodeGen (``gpt-neox-20b``, ``pythia-6.9b``, ``codegen25-7b``,
+``tiny-neox``, ``tiny-codegen``) and BERT (``bert-large``, ``bert-base``,
+``tiny-bert``). BERT trains its MLM objective, as the JAX script does: its
+``--seq-len`` is bounded by the learned position table, and each step's
+batch is masked by :func:`mask_mlm` (15 % of the positions, from
+``np.random.default_rng(seed * 100003 + step)``; the eval batches from
+``seed * 7919 + i``), so a seed masks the positions the JAX script masks.
+The Mllama names raise ``SystemExit`` naming the slice that ports them
+(``models.resolve_model``).
 """
 
 from __future__ import annotations
@@ -54,19 +61,10 @@ import os
 import time
 from typing import List, Optional
 
-#: the JAX package's other model families, and the slice of the port that
-#: brings each (ROADMAP.md, queue A)
-OTHER_FAMILIES = {
-    "gpt-neox-20b": 6, "pythia-6.9b": 6, "tiny-neox": 6, "codegen25-7b": 6,
-    "tiny-codegen": 6, "bert-base": 6, "bert-large": 6, "tiny-bert": 6,
-    "llama3.2-11b-vision": 6, "tiny-mllama": 6,
-}
-
-
 def parse_args(argv: Optional[List[str]] = None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model", default="tiny",
-                   help="LLAMA_CONFIGS, MIXTRAL_CONFIGS or DBRX_CONFIGS key")
+                   help="a model registry key (models.model_registry)")
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--pp", type=int, default=1)
     p.add_argument("--ep", type=int, default=1)
@@ -114,29 +112,41 @@ def parse_args(argv: Optional[List[str]] = None):
 
 def model_families():
     """{config key: (config, model class)} of every family the port
-    pretrains."""
-    from neuronx_distributed_llama3_2_tpu_torch.models.dbrx import DBRX_CONFIGS, DbrxForCausalLM
-    from neuronx_distributed_llama3_2_tpu_torch.models.llama import LLAMA_CONFIGS, LlamaForCausalLM
-    from neuronx_distributed_llama3_2_tpu_torch.models.mixtral import (
-        MIXTRAL_CONFIGS,
-        MixtralForCausalLM,
-    )
+    pretrains (the model registry)."""
+    from neuronx_distributed_llama3_2_tpu_torch.models import model_registry
 
-    out = {k: (c, LlamaForCausalLM) for k, c in LLAMA_CONFIGS.items()}
-    out.update({k: (c, MixtralForCausalLM) for k, c in MIXTRAL_CONFIGS.items()})
-    out.update({k: (c, DbrxForCausalLM) for k, c in DBRX_CONFIGS.items()})
-    return out
+    return {k: (e["config"], e["model_cls"]) for k, e in model_registry().items()}
+
+
+def mask_mlm(tokens, rng, vocab_size: int, global_batch: Optional[int] = None,
+             rows: Optional[slice] = None):
+    """15 % MLM masking (JAX ``mask_mlm``): (masked ids, labels), the
+    labels carrying the true token at the masked positions and -100
+    elsewhere; the [MASK] surrogate is ``vocab_size - 1`` (a synthetic
+    stream has no reserved mask id). The draw covers the ``global_batch``
+    rows, of which ``tokens`` are ``rows`` (a dp rank's block), so every
+    rank masks what one process masks."""
+    import numpy as np
+
+    masked = np.array(tokens)
+    pick = rng.random((global_batch or masked.shape[0], masked.shape[1])) < 0.15
+    if rows is not None:
+        pick = pick[rows]
+    labels = np.full_like(masked, -100)
+    labels[pick] = masked[pick]
+    masked[pick] = vocab_size - 1
+    return masked, labels
 
 
 def _refuse_unported(args, families) -> None:
-    if args.model in OTHER_FAMILIES:
-        raise SystemExit(
-            f"--model {args.model}: this model family is not ported yet "
-            f"(ROADMAP.md, slice 5 item {OTHER_FAMILIES[args.model]}); the port "
-            f"pretrains: {sorted(families)}"
-        )
-    if args.model not in families:
-        raise SystemExit(f"unknown model {args.model!r}; one of {sorted(families)}")
+    from neuronx_distributed_llama3_2_tpu_torch.models import resolve_model
+
+    try:
+        resolve_model(args.model)
+    except NotImplementedError as e:  # a family the port has not reached yet
+        raise SystemExit(f"--model {e}") from e
+    except KeyError as e:
+        raise SystemExit(str(e.args[0])) from e
     if args.pp == 1:
         for flag, value, default in (("pp-schedule", args.pp_schedule, "gpipe"),
                                      ("model-chunks", args.model_chunks, 1)):
@@ -220,9 +230,20 @@ def _run(args) -> dict:
     families = model_families()
     _refuse_unported(args, families)
     model_cfg, model_cls = families[args.model]
-    model_cfg = dataclasses.replace(
-        model_cfg, max_seq_len=max(args.seq_len, model_cfg.max_seq_len)
-    )
+    # BERT (no max_seq_len): a learned position table and the MLM objective
+    is_bert = not hasattr(model_cfg, "max_seq_len")
+    if is_bert:
+        if args.seq_len > model_cfg.max_position_embeddings:
+            raise SystemExit(
+                f"--seq-len {args.seq_len} exceeds {args.model}'s learned position table "
+                f"({model_cfg.max_position_embeddings})"
+            )
+        if args.pp > 1:
+            raise SystemExit(f"--pp {args.pp}: {args.model} runs no pipeline")
+    else:
+        model_cfg = dataclasses.replace(
+            model_cfg, max_seq_len=max(args.seq_len, model_cfg.max_seq_len)
+        )
     if args.capacity_factor is not None:
         model_cfg = dataclasses.replace(model_cfg, capacity_factor=args.capacity_factor)
     from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
@@ -268,7 +289,7 @@ def _run(args) -> dict:
     )
     device = config.initialize(args.device)
     model = model_cls(model_cfg, device=device,
-                      num_model_chunks=args.model_chunks if pipelined else 1)
+                      **(dict(num_model_chunks=args.model_chunks) if pipelined else {}))
     if pipelined:
         from neuronx_distributed_llama3_2_tpu_torch.pipeline import PipelinedCausalLM
 
@@ -397,10 +418,19 @@ def _run(args) -> dict:
                 profile_ctx = device_trace(args.profile_dir)
                 profile_ctx.__enter__()
             with timeline.event("load_batch", cat="data"):
-                ids = batch_to_device(next(batches), device)
+                batch = next(batches)
+                if is_bert:
+                    # the MLM objective (causal next-token labels would make
+                    # the bidirectional encoder solve a copy task)
+                    batch, labels = mask_mlm(
+                        batch, np.random.default_rng(args.seed * 100003 + step),
+                        model_cfg.vocab_size, args.global_batch, loader.rows())
+                    ids, lbl = batch_to_device(batch, device), batch_to_device(labels, device)
+                else:
+                    ids = lbl = batch_to_device(batch, device)
             t0 = time.perf_counter()
             with timeline.event("train_step", cat="step"), step_annotation(step):
-                state, m = step_fn(state, {"input_ids": ids, "labels": ids})
+                state, m = step_fn(state, {"input_ids": ids, "labels": lbl})
                 loss = float(m["loss"])  # waits for the step
             if args.profile_dir and step == start_step + 4:
                 stop_profile()
@@ -430,8 +460,16 @@ def _run(args) -> dict:
                     # a fixed slice (batch_at): the same samples every
                     # interval, so successive eval losses compare
                     for i in range(args.eval_batches):
-                        ev = batch_to_device(eval_loader.batch_at(i), device)
-                        yield {"input_ids": ev, "labels": ev}
+                        ev = eval_loader.batch_at(i)
+                        if is_bert:
+                            # fixed-seed masking: the same positions each eval
+                            ev, lbl = mask_mlm(ev, np.random.default_rng(args.seed * 7919 + i),
+                                               model_cfg.vocab_size)
+                            yield {"input_ids": batch_to_device(ev, device),
+                                   "labels": batch_to_device(lbl, device)}
+                        else:
+                            ev = batch_to_device(ev, device)
+                            yield {"input_ids": ev, "labels": ev}
 
                 ev_loss = evaluate(model, config, state.params, eval_batches(),
                                    eval_step=eval_step_fn)

@@ -203,7 +203,10 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig,
                 return loss, got if weight is None else [g * weight for g in got]
             loss = model.loss(ids, lbl)
             seed = None if weight is None else weight.to(loss.dtype)
-            return loss.detach(), torch.autograd.grad(loss, leaves, seed)
+            # a parameter the loss does not read (BERT's NSP head under the
+            # MLM loss) gets a zero gradient, as under jax.grad
+            return loss.detach(), torch.autograd.grad(loss, leaves, seed, allow_unused=True,
+                                                      materialize_grads=True)
 
         if n_micro == 1 and dp == 1 and cp == 1:
             loss, got = loss_and_grads(input_ids, labels)

@@ -59,6 +59,11 @@ def test_sources_exist():
         assert PORT / "models" / mod in SOURCES, mod
     for mod in ("quantize.py", "layers.py"):
         assert PORT / "quantization" / mod in SOURCES, mod
+    # LoRA, the GPT-NeoX / CodeGen and BERT families, the model registry
+    for mod in ("__init__.py", "model.py"):
+        assert PORT / "lora" / mod in SOURCES, mod
+    for mod in ("__init__.py", "gptneox.py", "bert.py"):
+        assert PORT / "models" / mod in SOURCES, mod
     # the parallel layer: the mesh, the regions, the layers, the loss
     for mod in ("state.py", "multihost.py", "mappings.py", "random.py", "pad.py",
                 "layers.py", "layout.py", "loss.py", "grads.py"):

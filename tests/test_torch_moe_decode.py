@@ -31,8 +31,6 @@ from neuronx_distributed_llama3_2_tpu.inference import (
 )
 from neuronx_distributed_llama3_2_tpu.models import dbrx as jdbrx
 from neuronx_distributed_llama3_2_tpu.models import mixtral as jmix
-from neuronx_distributed_llama3_2_tpu.models.bert import BertConfig
-from neuronx_distributed_llama3_2_tpu.models.gptneox import GPTNeoXConfig
 from neuronx_distributed_llama3_2_tpu.serving import (
     PagedConfig as JaxPagedConfig,
     PagedServingEngine as JaxPagedServingEngine,
@@ -41,10 +39,13 @@ from neuronx_distributed_llama3_2_tpu_torch.inference import (
     GenerationConfig,
     InferenceEngine,
     LlamaDecode,
+    GPTNeoXDecode,
     MixtralDecode,
     decode_model_for,
 )
 from neuronx_distributed_llama3_2_tpu_torch.models import dbrx as tdbrx
+from neuronx_distributed_llama3_2_tpu_torch.models.bert import BertConfig
+from neuronx_distributed_llama3_2_tpu_torch.models.gptneox import GPTNeoXConfig
 from neuronx_distributed_llama3_2_tpu_torch.models import llama as tllama
 from neuronx_distributed_llama3_2_tpu_torch.models import mixtral as tmix
 from neuronx_distributed_llama3_2_tpu_torch.serving.engine import PagedConfig, PagedServingEngine
@@ -88,8 +89,9 @@ def test_decode_model_dispatch():
     assert isinstance(llama, LlamaDecode) and not isinstance(llama, MixtralDecode)
     with pytest.raises(NotImplementedError, match="no KV-cache decode"):
         decode_model_for(BertConfig())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        decode_model_for(GPTNeoXConfig())
+    # the GPT-NeoX family decodes through its own model (tests/test_torch_gptneox.py)
+    neox = decode_model_for(GPTNeoXConfig(dtype=torch.float32))
+    assert isinstance(neox, GPTNeoXDecode) and not isinstance(neox, MixtralDecode)
 
 
 @pytest.mark.parametrize("name", list(FAMILIES))

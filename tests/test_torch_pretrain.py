@@ -2,7 +2,10 @@
 tiny config: 4 steps and a save, then a resume to 6, against an
 uninterrupted 6-step run (the same losses bit for bit, the same metrics
 file, the JAX script's log lines); the refusals by name; and
-``scripts.generate --ckpt-dir`` over a tag it wrote."""
+``scripts.generate --ckpt-dir`` over a tag it wrote. The GPT-NeoX / CodeGen
+and BERT families: tiny-neox, tiny-codegen and tiny-bert run and resume,
+their tags cross with the JAX package's both ways, and BERT's MLM masks are
+the JAX script's recipe (``examples/pretrain_llama.py:144``)."""
 
 import json
 import logging
@@ -142,7 +145,7 @@ def test_native_loader_tensorboard_timeline_eval_profile(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--model", "mixtral-8x7b", "--ep", "3"], "--ep 3: 3 ranks"),
-    (["--model", "tiny-bert"], "slice 5 item 6"),
+    (["--model", "tiny-mllama"], "slice 5 item 6"),
     (["--model", "nope"], "unknown model"),
     (["--tp", "2"], "--tp 2"),
     (["--pp", "2"], "--pp 2"),
@@ -225,3 +228,114 @@ def test_generate_at_tp2_equals_one_process(tmp_path, monkeypatch):
     argv = common + ["--random-init", "--seed", "3"]
     monkeypatch.setattr(sys, "argv", ["generate"] + argv + ["--tp", "2", "--nproc"])
     assert generate.main()["sequences"] == generate.main(argv)["sequences"]
+
+
+# -- the GPT-NeoX / CodeGen and BERT families -------------------------------------
+
+def _family_argv(tmp_path, model, name, steps):
+    return ["--model", model, "--global-batch", "4", "--seq-len", "32", "--synthetic", "20000",
+            "--ckpt-dir", str(tmp_path / name), "--save-every", "2", "--lr", "1e-3",
+            "--warmup-steps", "2", "--steps", str(steps), "--device", "cpu"]
+
+
+@pytest.mark.parametrize("model", ["tiny-neox", "tiny-codegen", "tiny-bert"])
+def test_family_resumes_to_the_uninterrupted_run(tmp_path, log, monkeypatch, model):
+    """A 6-step run preempted after its step-4 save resumes to the
+    uninterrupted run's losses and weights bit for bit (BERT's masks drawn
+    from the step, so a resume masks what the whole run masked)."""
+    whole = pretrain.main(_family_argv(tmp_path, model, "whole", 6))
+    with monkeypatch.context() as m:
+        _preempt_at(m, 4)
+        with pytest.raises(_Preempted):
+            pretrain.main(_family_argv(tmp_path, model, "run", 6))
+    b = pretrain.main(_family_argv(tmp_path, model, "run", 6))
+    assert "resumed from step_4 at step 4" in log.read()
+    assert b["start_step"] == 4 and sorted(b["losses"]) == [4, 5]
+    for s in (4, 5):
+        assert b["losses"][s] == whole["losses"][s]
+    assert all(np.isfinite(list(whole["losses"].values())))
+    for k, p in b["state"].params.items():
+        assert torch.equal(p, whole["state"].params[k]), k
+
+
+def _jax_mask_mlm(tokens, rng, vocab_size):
+    """The JAX script's recipe (examples/pretrain_llama.py:144-152)."""
+    masked = np.array(tokens)
+    labels = np.full_like(masked, -100)
+    pick = rng.random(masked.shape) < 0.15
+    labels[pick] = masked[pick]
+    masked[pick] = vocab_size - 1
+    return masked, labels
+
+
+def test_mask_mlm_is_the_jax_recipe():
+    """The same seed masks the same positions, and a dp rank's rows of the
+    global batch get the rows of the global mask."""
+    tokens = np.random.default_rng(0).integers(0, 256, (8, 32))
+    for seed in (42 * 100003 + 3, 42 * 7919 + 1):
+        want = _jax_mask_mlm(tokens, np.random.default_rng(seed), 256)
+        got = pretrain.mask_mlm(tokens, np.random.default_rng(seed), 256)
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+        assert 0.05 < (got[1] != -100).mean() < 0.3
+        rows = slice(4, 8)
+        part = pretrain.mask_mlm(tokens[rows], np.random.default_rng(seed), 256, 8, rows)
+        assert all(np.array_equal(a, b[rows]) for a, b in zip(part, want))
+
+
+def test_bert_seq_len_is_bounded_by_its_position_table(tmp_path):
+    with pytest.raises(SystemExit, match="learned position table"):
+        pretrain.main(["--model", "tiny-bert", "--seq-len", "256", "--synthetic", "1000",
+                       "--ckpt-dir", str(tmp_path / "c"), "--device", "cpu"])
+
+
+@pytest.mark.parametrize("model", ["tiny-neox", "tiny-bert"])
+def test_family_tags_cross_with_jax(tmp_path, model):
+    """The port's final tag loads in the JAX package (weights and AdamW
+    state) bit for bit; a JAX tag of step 2 resumes here at step 2 with the
+    JAX state bit for bit."""
+    import jax
+
+    from neuronx_distributed_llama3_2_tpu import trainer as jtrainer
+    from neuronx_distributed_llama3_2_tpu.checkpoint import checkpoint as jckpt
+    from neuronx_distributed_llama3_2_tpu.models import resolve_model as jresolve
+    from neuronx_distributed_llama3_2_tpu_torch import trainer as ttrainer
+
+    run = pretrain.main(_family_argv(tmp_path, model, "port", 2))
+    entry = jresolve(model)
+    jm = entry["model_cls"](entry["config"])
+    opt = jtrainer.OptimizerConfig()
+    params_t = jax.eval_shape(jm.init, jax.random.key(0))
+    opt_t = jax.eval_shape(lambda p: jtrainer.init_optimizer_state(p, opt), params_t)
+    out = jckpt.load_checkpoint(str(tmp_path / "port"), "latest", model=params_t, optimizer=opt_t)
+    pcfg = pretrain.model_families()[model][0]
+    want = tllama.params_to_jax(run["state"].params, pcfg)
+
+    def leaves(tree, prefix=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, prefix + (k,))
+        else:
+            yield prefix, tree
+
+    got = dict(leaves(jax.tree.map(np.asarray, out["model"])))
+    for path, leaf in leaves(want):
+        assert np.array_equal(np.asarray(got[path], np.float32), leaf), path
+    jopt = ttrainer.opt_state_to_jax(run["state"].opt, pcfg)
+    assert int(out["optimizer"].step) == int(jopt.step) == 2
+    ref = dict(leaves(jax.tree.map(np.asarray, out["optimizer"].mu)))
+    for path, leaf in leaves(jopt.mu):
+        assert np.array_equal(np.asarray(ref[path], np.float32), leaf), path
+    # JAX's tag of step 2 (moved weights), resumed by the port at step 2
+    moved = jax.tree.map(lambda x: x + 0.25, out["model"])
+    root = tmp_path / "jax"
+    jckpt.save_checkpoint(str(root), "step_2", model=moved, optimizer=out["optimizer"],
+                          user_content={"step": 2})
+    write_token_file(str(root / "synthetic_tokens.npy"),
+                     np.random.default_rng(0).integers(0, 256, 20000, dtype=np.int32))
+    argv = _family_argv(tmp_path, model, "jax", 2)
+    resumed = pretrain.main(argv)
+    assert resumed["tag"] == "step_2" and resumed["losses"] == {}
+    got = tllama.params_to_jax(resumed["state"].params, pcfg)
+    want = dict(leaves(jax.tree.map(np.asarray, moved)))
+    for path, leaf in leaves(got):
+        assert np.array_equal(leaf, np.asarray(want[path], np.float32)), path

@@ -888,3 +888,116 @@ def moe_train_worker(rank, world, cases, cfg_kw, opt_kw, jax_root, batches):
         finally:
             S.destroy_model_parallel()
     return out
+
+
+# ---------------------------------------------------------------------------
+# LoRA, GPT-NeoX / CodeGen and BERT
+# ---------------------------------------------------------------------------
+
+def family_worker(rank, world, inputs):
+    """Every multi-rank check of ``tests/test_torch_gptneox.py`` in one
+    spawn of ``world`` = 2 ranks, the mesh rebuilt for each case: tiny-neox
+    and tiny-codegen at tp = 2 (logits, loss, gradients gathered whole),
+    tiny-bert at tp = 2 (MLM and NSP logits, the pretraining loss and its
+    gradients), LoRA over tiny at tp = 2 (logits, loss, adapter gradients,
+    the adapter tag saved at tp = 2 loaded back, JAX's adapter tag loaded),
+    LoRA's train steps at dp = 2 under ZeRO-1, tiny-neox at pp = 2 under
+    gpipe and 1f1b (loss and gradients). Returns {case: result} as numpy."""
+    from neuronx_distributed_llama3_2_tpu_torch import trainer as T
+    from neuronx_distributed_llama3_2_tpu_torch.checkpoint import checkpoint as C
+    from neuronx_distributed_llama3_2_tpu_torch.lora import (
+        LoraConfig,
+        LoraModel,
+        adapters_from_jax,
+        adapters_to_jax,
+    )
+    from neuronx_distributed_llama3_2_tpu_torch.models import bert as B
+    from neuronx_distributed_llama3_2_tpu_torch.models import gptneox as G
+    from neuronx_distributed_llama3_2_tpu_torch.models import llama as L
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+    from neuronx_distributed_llama3_2_tpu_torch.pipeline import PipelinedCausalLM
+
+    ids, labels = torch.as_tensor(inputs["ids"]), torch.as_tensor(inputs["labels"])
+    out = {}
+
+    def grads_of(model, loss, to_jax):
+        params = dict(model.named_parameters())
+        return to_jax(dict(zip(params, torch.autograd.grad(loss, list(params.values())))))
+
+    def mesh(**kw):
+        S.destroy_model_parallel()
+        T.TrainingConfig(**kw).initialize("cpu")
+
+    try:
+        mesh(tensor_parallel_size=2)
+        for name in ("tiny-neox", "tiny-codegen"):
+            cfg = G.GPTNEOX_CONFIGS[name]
+            model = G.GPTNeoXForCausalLM(cfg, device="cpu")
+            model.load_state_dict(L.params_from_jax(inputs[name], cfg, device="cpu"))
+            loss = model.loss(ids, labels)
+            out[f"{name} tp2"] = dict(
+                logits=_np(model(ids)), loss=float(loss),
+                grads=grads_of(model, loss, lambda g: L.params_to_jax(g, cfg)))
+        cfg = B.BERT_CONFIGS["tiny-bert"]
+        bp, bbatch = inputs["tiny-bert"]
+        model = B.BertForPreTraining(cfg, device="cpu")
+        model.load_state_dict(L.params_from_jax(bp, cfg, device="cpu"))
+        batch = {k: torch.as_tensor(v) for k, v in bbatch.items()}
+        mlm, nsp = model(batch["input_ids"], batch["token_type_ids"], batch["attention_mask"])
+        loss = model.pretraining_loss(batch)
+        out["tiny-bert tp2"] = dict(mlm=_np(mlm), nsp=_np(nsp), loss=float(loss),
+                                    grads=grads_of(model, loss,
+                                                   lambda g: L.params_to_jax(g, cfg)))
+        lp, ad, jroot, root = inputs["lora"]
+        cfg = L.LLAMA_CONFIGS["tiny"]
+        base = L.LlamaForCausalLM(cfg, device="cpu")
+        base.load_state_dict(L.params_from_jax(lp, cfg, device="cpu"))
+        lora = LoraModel(base, LoraConfig(r=4, alpha=8.0))
+        lora.load_state_dict(adapters_from_jax(ad, lora))
+        loss = lora.loss(ids, labels)
+        res = out["lora tp2"] = dict(
+            logits=_np(lora(ids)), loss=float(loss),
+            grads=grads_of(lora, loss, lambda g: adapters_to_jax(g, lora)))
+        own = dict(lora.named_parameters())
+        specs = lora.param_specs()
+        C.save_checkpoint(root, "adapters", model=own, model_specs=specs)
+        dist.barrier()  # rank 0 marks the tag done after every rank's chunks
+        back = C.load_checkpoint(root, "adapters", model=own, model_specs=specs)["model"]
+        res["own_tag_loaded"] = all(torch.equal(back[k], p) for k, p in own.items())
+        theirs = C.load_checkpoint(jroot, "adapters", model=own, model_specs=specs)["model"]
+        res["jax_tag_loaded"] = all(torch.equal(theirs[k], p) for k, p in own.items())
+        # the adapters' train steps at dp = 2 under ZeRO-1, from JAX's start
+        start, opt_kw, ids2, steps = inputs["lora_dp2"]
+        tc = T.TrainingConfig(optimizer=T.OptimizerConfig(zero_one_enabled=True, **opt_kw))
+        mesh(optimizer=tc.optimizer)
+        base = L.LlamaForCausalLM(cfg, device="cpu")
+        base.load_state_dict(L.params_from_jax(lp, cfg, device="cpu"))
+        lora = LoraModel(base, LoraConfig(r=4, alpha=8.0))
+        state, sspecs = T.initialize_parallel_model(lora, tc)
+        with torch.no_grad():
+            for k, v in adapters_from_jax(start, lora).items():
+                state.params[k].copy_(v)
+        state = T.TrainState(state.params, T.init_optimizer_state(state.params, tc.optimizer,
+                                                                  sspecs.opt))
+        step = T.make_train_step(lora, tc)
+        batch = {"input_ids": torch.as_tensor(ids2), "labels": torch.as_tensor(ids2)}
+        metrics = []
+        for _ in range(steps):
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        out["lora dp2 zero1"] = dict(
+            metrics=metrics, adapters=adapters_to_jax(state.params, lora),
+            dp=S.get_data_parallel_size(),
+            sharded=any(sp.mentions(S.DP_AXIS) for sp in sspecs.opt.mu.values()))
+        cfg = G.GPTNEOX_CONFIGS["tiny-neox"]
+        for sched in ("gpipe", "1f1b"):
+            mesh(pipeline_parallel_size=2, pipeline_schedule=sched)
+            stage = G.GPTNeoXForCausalLM(cfg, device="cpu")
+            stage.load_state_dict(L.params_from_jax(inputs["tiny-neox"], cfg, device="cpu"))
+            pm = PipelinedCausalLM(stage, num_microbatches=2, schedule=sched)
+            loss, grads = pm.loss_and_grad(ids, labels)
+            out[f"tiny-neox pp2 {sched}"] = dict(
+                loss=float(loss), grads=L.params_to_jax(grads, cfg, stage.param_specs()))
+    finally:
+        S.destroy_model_parallel()
+    return out
