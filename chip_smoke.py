@@ -286,7 +286,22 @@ MHA, G 1, D 128), "neox serve" (Pythia at 4 layers over 8 lanes, a
 planted K4 fault, a prewarmed twin, K4 at G 1; CodeGen2.5-7B at 2 layers
 over 4 lanes) and "bert train" (BERT-large's bf16 step against the fp32
 step, the padding mask left out outside the bands; the pretrain script
-on bert-large, four steps, no tag). To keep the script
+on bert-large, four steps, no tag). Last, Mllama, which runs no
+hand-written kernel (the JAX model reaches no Pallas call either):
+"mllama serve" (Llama-3.2 11B-Vision at full width and depth, bf16,
+gates seeded non-zero, behind ``MllamaDecoder``: a 2 x 2 image of 4
+tiles and a 1 x 2 image with 2 of 4 tiles valid, 64-token prompts
+attending the image from position 8, 16 greedy tokens each; the
+decoder's logits within a band of the full forward's, teacher-forced,
+every token the argmax or a near tie, ``project_kv`` 8 times a request,
+a second image moving the logits past the band; a step mask from the
+first prompt row must fail; the vision tower in bf16 against its fp32
+copy, and with the tile-validity bias left out outside the band) and
+"mllama train" (the 11B's widths, the vision tower at full depth, 5 text
+layers, remat full, 2 x 512 tokens with an image each: bf16 against fp32
+loss and gradients, every gate's gradient non-zero, the full-row mask
+left out outside the bands; four AdamW steps through the trainer, losses
+falling). To keep the script
 inside its limit the eager serves' profiles, the async twins' profiles,
 the timing of the bf16 K4 grid and of the tree cases no serve launched,
 the spill phase's unwatched serves (``chip_trials/spill_restore_trial.py``
@@ -317,6 +332,7 @@ import subprocess
 import sys
 import time
 from typing import Optional
+from unittest.mock import patch
 
 import numpy as np
 import torch
@@ -8328,6 +8344,462 @@ def run_bert_train_phase(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -- Mllama (Llama-3.2 11B-Vision) ------------------------------------------------
+
+#: the two requests: (aspect ratio id, valid tiles). HF's ratios for 4 tiles
+#: are ids 1-8 of (1,1) (1,2) (1,3) (1,4) (2,1) (2,2) (3,1) (4,1): a 2 x 2
+#: image of 4 tiles of 448^2, and a 1 x 2 image with 2 of its 4 tiles valid
+MLLAMA_REQUESTS = ((6, 4), (2, 2))
+MLLAMA_PROMPT = 64
+MLLAMA_NEW = 16
+#: the text attends the image from this position (the rows before it
+#: attend nothing: the full-row mask zeroes their MLP branch)
+MLLAMA_IMAGE_FROM = 8
+MLLAMA_MAX_SEQ = 96
+MLLAMA_CROSS_LAYERS = 8
+#: decode steps timed and traced apart from ``generate``
+MLLAMA_PROFILE_STEPS = 8
+#: bf16 bands, each about twice its sound reading on an H100 80GB HBM3 at
+#: 700 W (PERF.md §6, Mllama): the decoder's logits (prefill and each step)
+#: against the full forward's over the same tokens, max abs (sound 0.1875
+#: on both requests; the first-row step mask 4.04); the bf16 vision
+#: tower's output against its fp32 copy, relative L2 over the valid and
+#: over the invalid tiles (sound 0.0088 / 0.0091; the tile bias left out
+#: 0.129 / 0.131). A stream token must be the teacher-forced forward's
+#: argmax or within LOGIT_MARGIN of it (sound: every token the argmax)
+MLLAMA_LOGIT_BAND = 0.375
+MLLAMA_VISION_BAND = 0.02
+#: at N(0, 0.02) weights a vision layer's attention adds ~1 % to the
+#: residual stream (random scores spread each token's weights over ~4K
+#: keys, and the MLP dominates), so the bias it is steered by moves the
+#: output by about bf16's own error; the tower check runs with the
+#: attention output kernels scaled by this
+MLLAMA_VISION_ATTN_SCALE = 8.0
+#: the train phase: 11B widths, the vision tower at full depth, the text
+#: cut to one group of 5 layers with cross-attention at 3 (the 11B's offset)
+MLLAMA_TRAIN_LAYERS = 5
+MLLAMA_TRAIN_SEQ = 512
+MLLAMA_TRAIN_IMAGE_FROM = 16
+MLLAMA_TRAIN_STEPS = 4
+MLLAMA_TRAIN_LR = 1e-4
+#: bf16 against fp32 on the same weights (PERF.md §6, Mllama): the loss,
+#: abs (sound 0.00088); the largest per-leaf gradient relative L2 error
+#: over the leaves but the gates (0.0389); over the gates, each gate's
+#: |bf16 - fp32| gap over the largest |fp32 gate gradient| (0.0538). A
+#: gate's gradient is a sum over its whole branch: the smallest, 2000x
+#: below the largest, reads the largest relative gap (0.113), so its own
+#: relative gap says little. The full-row mask left out reads 0.186 on
+#: the leaves, 0.146 on the gates
+MLLAMA_LOSS_BAND = 0.002
+MLLAMA_GRAD_BAND = 0.08
+MLLAMA_GATE_GRAD_BAND = 0.08
+
+
+def mllama_gates(model, seed: int) -> None:
+    """Every gate of ``model`` set to a seeded value of 0.3-0.9, either
+    sign: at init the cross gates and the tile and position gates are 0,
+    and the image moves no logit."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("gate", "gate_attn", "gate_ffn")):
+                u = torch.rand(p.shape, generator=g) * 0.6 + 0.3
+                sign = torch.where(torch.rand(p.shape, generator=g) < 0.5, -1.0, 1.0)
+                p.copy_((u * sign).to(p.device, p.dtype))
+
+
+def mllama_request(cfg, ar_id: int, valid: int, seq: int, image_from: int, seed: int) -> dict:
+    """One request's inputs on the card: seeded pixels (1, 1, T, 3, H, W),
+    ``seq`` ids, the aspect ratio, its tile mask and the cross-attention
+    mask (its ``valid`` tiles attended from ``image_from`` on)."""
+    v = cfg.vision
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tiles = v.max_num_tiles
+    ar_mask = torch.zeros((1, 1, tiles), dtype=torch.long, device="cuda")
+    ar_mask[..., :valid] = 1
+    xmask = torch.zeros((1, seq, 1, tiles), dtype=torch.long, device="cuda")
+    xmask[:, image_from:, 0, :valid] = 1
+    return dict(
+        pix=torch.randn((1, 1, tiles, 3, v.image_size, v.image_size), generator=g, device="cuda"),
+        ids=torch.randint(0, cfg.text.vocab_size, (1, seq), generator=g, device="cuda"),
+        ar_ids=torch.tensor([[ar_id]], device="cuda"), ar_mask=ar_mask, xmask=xmask)
+
+
+def mllama_forward(model, req: dict, ids=None, xmask=None) -> torch.Tensor:
+    return model(req["ids"] if ids is None else ids, req["pix"], req["ar_ids"], req["ar_mask"],
+                 req["xmask"] if xmask is None else xmask)[0].float()
+
+
+def mllama_generate(dec, req: dict) -> dict:
+    """``dec.generate`` on one request, its decoder forwards spied: each
+    block's last-row logits, the prefill's and each step's time between CUDA
+    events (the card's work and the host's gaps between launches), the
+    vision encode + cross K/V time, and ``project_kv``'s calls."""
+    from neuronx_distributed_llama3_2_tpu_torch.models import mllama as M
+
+    rows, times, kv_calls = [], [], []
+    forward, precompute = dec.forward, dec.precompute_cross_kv
+    project_kv = M.TextCrossAttention.project_kv
+
+    def timed_call(fn, *a, **k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a, **k)
+        end.record()
+        return out, (start, end)
+
+    def spy_forward(*a, **k):
+        (logits, cache), ev = timed_call(forward, *a, **k)
+        rows.append(logits[0, -1].float())
+        times.append(ev)
+        return logits, cache
+
+    encode = []
+
+    def spy_precompute(*a, **k):
+        out, ev = timed_call(precompute, *a, **k)
+        encode.append(ev)
+        return out
+
+    def spy_kv(self, vt):
+        kv_calls.append(tuple(vt.shape))
+        return project_kv(self, vt)
+
+    dec.forward, dec.precompute_cross_kv = spy_forward, spy_precompute
+    try:
+        with patch.object(M.TextCrossAttention, "project_kv", spy_kv):
+            out = dec.generate([int(x) for x in req["ids"][0]], req["pix"], req["ar_ids"],
+                               req["ar_mask"], req["xmask"], max_new_tokens=MLLAMA_NEW)
+    finally:
+        del dec.forward, dec.precompute_cross_kv
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in times]
+    return dict(out=out, rows=torch.stack(rows), prefill_ms=ms[0], step_ms=ms[1:],
+                encode_ms=encode[0][0].elapsed_time(encode[0][1]), kv_calls=len(kv_calls))
+
+
+def mllama_decode_profile(dec, req: dict) -> dict:
+    """MLLAMA_PROFILE_STEPS decode steps over one request's cache, timed by
+    CUDA events on the request's binding (as ``generate`` runs them) and
+    with the model bound anew every step, then the bound steps traced
+    (torch.profiler, CUPTI): each a step's ms, the card's busy ms a step
+    (0 if the trace holds no device time) and the kernels a step
+    launches."""
+    from neuronx_distributed_llama3_2_tpu_torch.models.mllama import (
+        prepare_cross_attention_mask,
+    )
+
+    _, ks, vs = dec.precompute_cross_kv(req["pix"], req["ar_ids"], req["ar_mask"])
+    cache = dec.init_cache(ks, vs)
+    live = dec._live_params(dec.params)
+    bias, full_row = prepare_cross_attention_mask(dec.step_mask(req["xmask"]),
+                                                  dec.config.vision.num_patches)
+
+    def steps(params) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(MLLAMA_PROFILE_STEPS):
+            dec.forward(params, cache, req["ids"][:, i:i + 1],
+                        torch.tensor([i], dtype=torch.int32, device="cuda"), bias, full_row)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / MLLAMA_PROFILE_STEPS
+
+    steps(live)  # warm
+    bound_ms, rebound_ms = steps(live), steps(dec.params)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        traced_ms = steps(live)
+    events = prof.key_averages()
+    return dict(bound_ms=bound_ms, rebound_ms=rebound_ms, traced_ms=traced_ms,
+                busy_ms=sum(e.self_device_time_total for e in events) / 1e3
+                / MLLAMA_PROFILE_STEPS,
+                kernels=sum(e.count for e in events if e.self_device_time_total > 0)
+                / MLLAMA_PROFILE_STEPS)
+
+
+def mllama_stream_gaps(model, req: dict, run: dict) -> tuple:
+    """(the decoder's worst logit gap to the full forward over the prompt
+    and the generated tokens, teacher-forced, each generated row given the
+    last prompt row's cross mask as ``generate`` gives it; the worst gap
+    between a served token's logit and that forward's max)."""
+    out = run["out"]
+    ids = torch.cat([req["ids"], torch.tensor([out[:-1]], device="cuda")], dim=1)
+    xm = req["xmask"]
+    xmask = torch.cat([xm, xm[:, -1:].expand(1, len(out) - 1, *xm.shape[2:])], dim=1)
+    ref = mllama_forward(model, req, ids, xmask)[MLLAMA_PROMPT - 1:]
+    logit_gap = (run["rows"] - ref).abs().max().item()
+    tie = max((ref[j].max() - ref[j, t]).item() for j, t in enumerate(out))
+    return logit_gap, tie
+
+
+def run_mllama_serve_phase(card: str) -> None:
+    """Llama-3.2 11B-Vision at full width and depth (the vision tower's 32 +
+    8 layers, 40 text layers with cross-attention every 5th from 3), bf16,
+    seeded random weights with every gate seeded non-zero, behind
+    ``MllamaDecoder``: two requests (MLLAMA_REQUESTS, a 64-token prompt
+    attending its image from MLLAMA_IMAGE_FROM, 16 greedy tokens, EOS off).
+    Each: the decoder's prefill and step logits within MLLAMA_LOGIT_BAND of
+    the full forward's, teacher-forced over the stream (each generated row
+    given the last prompt row's mask), every token the forward's argmax or
+    within LOGIT_MARGIN of it, ``project_kv`` run 8 times; a second image
+    moves the forward's logits past the band; a serve whose step mask is
+    the first prompt row's must fail the check. The vision tower in bf16
+    against its fp32 copy on the 1 x 2 image within MLLAMA_VISION_BAND, and
+    the tile-validity bias left out of the bf16 tower above it."""
+    from neuronx_distributed_llama3_2_tpu_torch.inference import MllamaDecoder
+    from neuronx_distributed_llama3_2_tpu_torch.models import mllama as M
+    from neuronx_distributed_llama3_2_tpu_torch.models.mllama import (
+        MLLAMA_CONFIGS,
+        MllamaForConditionalGeneration,
+        MllamaVisionModel,
+    )
+
+    cfg = MLLAMA_CONFIGS["llama3.2-11b-vision"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = MllamaForConditionalGeneration(cfg, device="cuda").init_weights(SEED)
+    mllama_gates(model, SEED + 1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    vis = sum(p.numel() for n, p in model.named_parameters() if n.startswith("vision_model."))
+    log(f"mllama serve: llama3.2-11b-vision ({cfg.text.num_hidden_layers} text layers, cross "
+        f"at {cfg.text.cross_attention_layers}, vision {cfg.vision.num_hidden_layers} + "
+        f"{cfg.vision.num_global_layers} layers, {cfg.vision.max_num_tiles} tiles of "
+        f"{cfg.vision.image_size}^2): {n_params} parameters ({vis} vision), {weight_bytes} B "
+        f"bf16, seeded random weights and gates, drawn in {init_s:.6f} s | {card}")
+    dec = MllamaDecoder(cfg, model, max_seq_len=MLLAMA_MAX_SEQ)
+    reqs = [mllama_request(cfg, ar, valid, MLLAMA_PROMPT, MLLAMA_IMAGE_FROM, SEED + 10 + i)
+            for i, (ar, valid) in enumerate(MLLAMA_REQUESTS)]
+    for i, req in enumerate(reqs):
+        run = mllama_generate(dec, req)
+        gap, tie = mllama_stream_gaps(model, req, run)
+        other = dict(req, pix=torch.randn_like(req["pix"]))
+        moved = (mllama_forward(model, other) - mllama_forward(model, req)).abs().max().item()
+        log(f"mllama serve request {i} (aspect ratio id {MLLAMA_REQUESTS[i][0]}, "
+            f"{MLLAMA_REQUESTS[i][1]} valid tiles): stream {run['out']}; decoder logits vs the "
+            f"full forward, teacher-forced: worst gap {gap:.6g} (band {MLLAMA_LOGIT_BAND}), "
+            f"worst tie {tie:.6g} (margin {LOGIT_MARGIN}); project_kv calls {run['kv_calls']}; "
+            f"a second image moves the logits by {moved:.6g}; vision encode + cross K/V "
+            f"{run['encode_ms']:.6f} ms, prefill ({MLLAMA_PROMPT} tokens) "
+            f"{run['prefill_ms']:.6f} ms, TPOT p50 {float(np.median(run['step_ms'])):.6f} ms "
+            f"(wall time between CUDA events, the host's gaps included) | {card}")
+        check(len(run["out"]) == MLLAMA_NEW, f"mllama serve request {i}: {len(run['out'])} tokens")
+        check(gap <= MLLAMA_LOGIT_BAND, f"mllama serve request {i}: logit gap {gap}")
+        check(tie <= LOGIT_MARGIN, f"mllama serve request {i}: a token {tie} below the argmax")
+        check(run["kv_calls"] == MLLAMA_CROSS_LAYERS,
+              f"mllama serve request {i}: project_kv ran {run['kv_calls']} times")
+        check(moved > MLLAMA_LOGIT_BAND, f"mllama serve request {i}: a second image moves the "
+              f"logits by {moved} only")
+    prof = mllama_decode_profile(dec, reqs[0])
+    busy = (f"the card busy {prof['busy_ms']:.6f} ms a step "
+            f"({prof['busy_ms'] / prof['traced_ms']:.6g} of the traced step's wall)"
+            if prof["busy_ms"] > 0 else "the card's busy time not measured (no device time "
+            "in the trace)")
+    log(f"mllama serve decode steps ({MLLAMA_PROFILE_STEPS}, request 0's cache; wall time "
+        f"between CUDA events): {prof['bound_ms']:.6f} ms a step on the request's binding, "
+        f"{prof['rebound_ms']:.6f} ms binding the model every step; traced (torch.profiler): "
+        f"{prof['traced_ms']:.6f} ms a step, {busy}, {prof['kernels']:.6g} kernels a step "
+        f"| {card}")
+    # planted fault: the step mask from the first prompt row (which attends
+    # nothing) instead of the last
+    with patch.object(MllamaDecoder, "step_mask", staticmethod(lambda m: m[:, :1])):
+        run = mllama_generate(dec, reqs[0])
+    bad_gap, bad_tie = mllama_stream_gaps(model, reqs[0], run)
+    log(f"mllama serve planted fault (the step's cross mask from the first prompt row): "
+        f"logit gap {bad_gap:.6g}, worst tie {bad_tie:.6g} | {card}")
+    check(bad_gap > MLLAMA_LOGIT_BAND or bad_tie > LOGIT_MARGIN,
+          "the mllama serve check passes a step mask taken from the first prompt row")
+    # the vision tower in bf16 against its fp32 copy, and with the
+    # tile-validity bias left out of the bf16 tower; the attention output
+    # kernels scaled first (MLLAMA_VISION_ATTN_SCALE), so that attention,
+    # which the bias steers, carries the stream
+    req = reqs[1]
+    args = (req["pix"], req["ar_ids"], req["ar_mask"])
+    with torch.no_grad():
+        for stack in (model.vision_model.transformer, model.vision_model.global_transformer):
+            stack.self_attn.o.kernel.mul_(MLLAMA_VISION_ATTN_SCALE)
+    f32 = MllamaVisionModel(dataclasses.replace(cfg.vision, dtype=torch.float32), device="cuda")
+    f32.load_state_dict({k: v.float() for k, v in model.vision_model.state_dict().items()})
+    with torch.no_grad():
+        ref = f32(*args)
+        del f32
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = model.vision_model(*args).float()
+        torch.cuda.synchronize()
+        tower_ms = 1e3 * (time.perf_counter() - t0)
+        rel = vision_gaps(got, ref, MLLAMA_REQUESTS[1][1])
+        with patch.object(M, "tile_validity_bias", lambda mask, n, t: torch.zeros(
+                (), device=mask.device)):
+            bad = vision_gaps(model.vision_model(*args).float(), ref, MLLAMA_REQUESTS[1][1])
+    log(f"mllama serve vision tower (1 x 2 image, 2 of 4 tiles valid): bf16 vs fp32 relative "
+        f"L2 {rel[0]:.6g} over the valid tiles, {rel[1]:.6g} over the invalid ones (band "
+        f"{MLLAMA_VISION_BAND}); planted fault (the tile-validity bias left out of the bf16 "
+        f"tower): {bad[0]:.6g} / {bad[1]:.6g}; one bf16 tower {tower_ms:.6f} ms (host clock); "
+        f"peak memory {torch.cuda.max_memory_allocated()} B | {card}")
+    check(max(rel) <= MLLAMA_VISION_BAND, f"mllama vision tower bf16 vs fp32: {rel}")
+    check(max(bad) > MLLAMA_VISION_BAND,
+          f"the mllama vision check passes the tile bias left out ({bad})")
+    del model, dec, ref, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def vision_gaps(got: torch.Tensor, ref: torch.Tensor, valid: int) -> tuple:
+    """Relative L2 errors of a (B, M, T, P, D) vision output over the valid
+    tiles and over the invalid ones (whose tokens the tile-validity bias
+    keeps from attending each other)."""
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    return (rel(got[:, :, :valid], ref[:, :, :valid]), rel(got[:, :, valid:], ref[:, :, valid:]))
+
+
+#: Mllama's gates: one fp32 scalar each, whose gradient is a sum over every
+#: element of its branch's output
+MLLAMA_GATES = ("gate", "gate_attn", "gate_ffn")
+
+
+def gate_split_gaps(grads, ref) -> tuple:
+    """(largest relative gradient gap over the non-gate leaves, its leaf,
+    largest gap over the gates scaled by the largest fp32 gate gradient,
+    its gate, {gate: (|fp32 gradient|, its relative gap)})."""
+    gates = [k for k in grads if k.endswith(MLLAMA_GATES)]
+    each = {k: ((ref[k].float() - grads[k].float()).abs().max().item(),
+                ref[k].float().abs().max().item()) for k in gates}
+    scale = max(m for _, m in each.values())
+    gat = max(each, key=lambda k: each[k][0])
+    return (*grad_gap({k: v for k, v in grads.items() if k not in each}, ref),
+            each[gat][0] / scale, gat, {k: (m, d / max(m, 1e-30)) for k, (d, m) in each.items()})
+
+
+def gate_readings(gates: dict) -> str:
+    """The largest and smallest |fp32 gate gradient| and the gate of the
+    largest relative gap with its magnitude, for the log."""
+    worst = max(gates, key=lambda k: gates[k][1])
+    mags = [m for m, _ in gates.values()]
+    return (f"|fp32 gate gradient| {min(mags):.6g}-{max(mags):.6g}; the largest relative gap "
+            f"{gates[worst][1]:.6g} at {worst}, whose |gradient| is {gates[worst][0]:.6g}")
+
+
+def mllama_loss_and_grads(model, batch: dict):
+    params = dict(model.named_parameters())
+    loss = model.loss(batch["input_ids"], batch["labels"], batch["pixel_values"],
+                      batch["aspect_ratio_ids"], batch["aspect_ratio_mask"],
+                      batch["cross_attention_mask"])
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach().item(), dict(zip(params, grads))
+
+
+def run_mllama_train_phase(card: str) -> None:
+    """The 11B's widths with the vision tower at full depth and the text cut
+    to MLLAMA_TRAIN_LAYERS (cross-attention at 3), remat "full" on both
+    towers, gates seeded: a batch of 2 x 512 tokens, one image each
+    (MLLAMA_REQUESTS), the text attending it from MLLAMA_TRAIN_IMAGE_FROM.
+    The bf16 loss and gradients against an fp32 copy's within
+    MLLAMA_LOSS_BAND / MLLAMA_GRAD_BAND, every gate's gradient non-zero, the
+    full-row mask left out above a band; then MLLAMA_TRAIN_STEPS AdamW steps
+    through the trainer (bf16 state, the image inputs as batch entries),
+    losses falling."""
+    from neuronx_distributed_llama3_2_tpu_torch.models import mllama as M
+    from neuronx_distributed_llama3_2_tpu_torch.trainer import (
+        OptimizerConfig,
+        TrainingConfig,
+        TrainState,
+        init_optimizer_state,
+        make_train_step,
+        state_specs,
+    )
+
+    base = M.MLLAMA_CONFIGS["llama3.2-11b-vision"]
+    cfg = dataclasses.replace(
+        base, vision=dataclasses.replace(base.vision, remat="full"),
+        text=dataclasses.replace(base.text, num_hidden_layers=MLLAMA_TRAIN_LAYERS,
+                                 cross_attention_layers=(3,), remat="full"))
+    torch.cuda.reset_peak_memory_stats()
+    model = M.MllamaForConditionalGeneration(cfg, device="cuda").init_weights(SEED)
+    mllama_gates(model, SEED + 2)
+    reqs = [mllama_request(cfg, ar, valid, MLLAMA_TRAIN_SEQ, MLLAMA_TRAIN_IMAGE_FROM, SEED + 20 + i)
+            for i, (ar, valid) in enumerate(MLLAMA_REQUESTS)]
+    batch = {"input_ids": torch.cat([r["ids"] for r in reqs]),
+             "pixel_values": torch.cat([r["pix"] for r in reqs]),
+             "aspect_ratio_ids": torch.cat([r["ar_ids"] for r in reqs]),
+             "aspect_ratio_mask": torch.cat([r["ar_mask"] for r in reqs]),
+             "cross_attention_mask": torch.cat([r["xmask"] for r in reqs])}
+    batch["labels"] = batch["input_ids"]
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"mllama train: 11B widths, vision {cfg.vision.num_hidden_layers} + "
+        f"{cfg.vision.num_global_layers} layers, text cut to {cfg.text.num_hidden_layers} of 40 "
+        f"(cross-attention at 3), remat full on both towers: {n_params} parameters, bf16, "
+        f"seeded weights and gates; batch 2 x {MLLAMA_TRAIN_SEQ}, one image each | {card}")
+    f32cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, dtype=torch.float32),
+                                 text=dataclasses.replace(cfg.text, dtype=torch.float32))
+    f32 = M.MllamaForConditionalGeneration(f32cfg, device="cuda")
+    f32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_loss, ref_grads = mllama_loss_and_grads(f32, batch)
+    torch.cuda.synchronize()
+    f32_ms = 1e3 * (time.perf_counter() - t0)
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    loss, grads = mllama_loss_and_grads(model, batch)
+    torch.cuda.synchronize()
+    bf16_ms = 1e3 * (time.perf_counter() - t0)
+    gap, at, ggap, gat, gate_info = gate_split_gaps(grads, ref_grads)
+    gates = {k: g.float().abs().min().item() for k, g in grads.items()
+             if k.endswith(MLLAMA_GATES)}
+    del grads
+    orig = M.prepare_cross_attention_mask
+    with patch.object(M, "prepare_cross_attention_mask", lambda m, n: (orig(m, n)[0], None)):
+        bad_loss, bad_grads = mllama_loss_and_grads(model, batch)
+    bad_gap, bad_at, bad_ggap, bad_gat, _ = gate_split_gaps(bad_grads, ref_grads)
+    del bad_grads, ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_gap = abs(loss - ref_loss)
+    log(f"mllama train: bf16 loss {loss:.6f} vs fp32 {ref_loss:.6f} (gap {loss_gap:.6g}, band "
+        f"{MLLAMA_LOSS_BAND}); largest gradient relative L2 error {gap:.6g} at {at} (band "
+        f"{MLLAMA_GRAD_BAND}), over the gates {ggap:.6g} of the largest gate gradient at "
+        f"{gat} (band {MLLAMA_GATE_GRAD_BAND}); {gate_readings(gate_info)}; smallest |bf16 gate "
+        f"gradient| {min(gates.values()):.6g} over {len(gates)} gates; planted fault (the "
+        f"full-row mask left out): loss gap {abs(bad_loss - ref_loss):.6g}, gradient {bad_gap:.6g} at {bad_at}, gates "
+        f"{bad_ggap:.6g} at {bad_gat}; one forward and backward {bf16_ms:.6f} ms bf16, "
+        f"{f32_ms:.6f} ms fp32 (host clock) | {card}")
+    check(np.isfinite(loss) and loss_gap <= MLLAMA_LOSS_BAND, f"mllama train loss gap {loss_gap}")
+    check(gap <= MLLAMA_GRAD_BAND, f"mllama train gradient gap {gap} at {at}")
+    check(ggap <= MLLAMA_GATE_GRAD_BAND, f"mllama train gate gradient gap {ggap} at {gat}")
+    check(min(gates.values()) > 0, f"mllama train: a gate without gradient: {gates}")
+    check(abs(bad_loss - ref_loss) > MLLAMA_LOSS_BAND or bad_gap > MLLAMA_GRAD_BAND
+          or bad_ggap > MLLAMA_GATE_GRAD_BAND,
+          "the mllama train bands pass the full-row mask left out")
+    tc = TrainingConfig(optimizer=OptimizerConfig(
+        learning_rate=MLLAMA_TRAIN_LR, warmup_steps=1, state_dtype="bfloat16"))
+    tc.initialize("cuda")
+    params = dict(model.named_parameters())
+    state = TrainState(params, init_optimizer_state(params, tc.optimizer,
+                                                    state_specs(model, tc).opt))
+    step = make_train_step(model, tc)
+    losses, step_ms = [], []
+    for _ in range(MLLAMA_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    log(f"mllama train: {MLLAMA_TRAIN_STEPS} AdamW steps (lr {MLLAMA_TRAIN_LR}, bf16 state): "
+        f"losses {losses}, step ms {[round(x, 6) for x in step_ms]}; peak memory "
+        f"{torch.cuda.max_memory_allocated()} B | {card}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"mllama train losses {losses}")
+    del model, state, step, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def timed(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its wall seconds logged under ``name``."""
     t0 = time.perf_counter()
@@ -8571,6 +9043,10 @@ def main() -> int:
     neox_train = timed("neox train", run_neox_train_phase, card)
     neox_serve = timed("neox serve", run_neox_serve_phase, card)
     timed("bert train", run_bert_train_phase, card)
+    # Mllama: the 11B-Vision serve behind MllamaDecoder, and the 11B-widths
+    # train step (its vision tower at full depth)
+    timed("mllama serve", run_mllama_serve_phase, card)
+    timed("mllama train", run_mllama_train_phase, card)
 
     fa_src = "neuronx_distributed_llama3_2_tpu_torch/kernels/csrc/"
     pfa = "neuronx_distributed_llama3_2_tpu/kernels/pallas_flash_attention.py:"

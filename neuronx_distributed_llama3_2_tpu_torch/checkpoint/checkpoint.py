@@ -96,11 +96,21 @@ def _split_key(prefix: Tuple[str, ...], key) -> Tuple[Tuple[str, ...], Optional[
     """(JAX path, layer index) of one dict key under ``prefix``: a port
     parameter name ``layers.<i>.<rest>`` is layer ``i`` of the stacked
     ``layers/<rest>`` leaf; any other dotted name is a path (the port's
-    names are the JAX paths with "." for "/")."""
+    names are the JAX paths with "." for "/"; a bracketed component ``[i]``
+    is item ``i`` of a JAX list)."""
     parts = str(key).split(".")
-    if len(parts) > 2 and parts[0] == _LAYERS and parts[1].isdigit():
+    if playout.is_layer_name(str(key)):
         return prefix + (_LAYERS, *parts[2:]), int(parts[1])
-    return prefix + tuple(parts), None
+    return prefix + tuple(p[1:-1] if p.startswith("[") else p for p in parts), None
+
+
+def _rank_parts(key: str, parts: Tuple[str, ...]) -> list:
+    """The sort keys of a dict key's JAX path parts: by name, a list index
+    (a bracketed component) by its value."""
+    raw = key.split(".")
+    if len(raw) != len(parts):  # a layer of a stacked leaf: its index is not a part
+        return [(0, p) for p in parts]
+    return [(int(r[1:-1]), "") if r.startswith("[") else (0, p) for r, p in zip(raw, parts)]
 
 
 def _walk(tree: Any, fn: Callable, prefix: Tuple[str, ...] = (),
@@ -166,7 +176,7 @@ def _jax_order(tree: Any, paths: List[Tuple[str, ...]]) -> List[Tuple[str, ...]]
                 for k, v in node.items():
                     parts, _ = _split_key((), k)
                     if tuple(path[i:i + len(parts)]) == parts:
-                        out.extend((0, p) for p in parts)
+                        out.extend(_rank_parts(str(k), parts))
                         node, i = v, i + len(parts)
                         break
             elif isinstance(node, tuple) and hasattr(node, "_fields"):

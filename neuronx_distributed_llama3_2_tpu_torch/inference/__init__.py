@@ -4,8 +4,8 @@ draft-model and Medusa speculation, the accuracy gate and the latency
 benchmarks.
 
 Counterpart of ``neuronx_distributed_llama3_2_tpu/inference/__init__.py``,
-with the same exports but the GPT-NeoX and Mllama decoders, which come
-with their model families.
+with the same exports: the GPT-NeoX decode model beside Llama's and
+Mixtral's, and the Mllama decoder (:mod:`.mllama_decode`).
 """
 
 from neuronx_distributed_llama3_2_tpu_torch.inference.benchmark import (
@@ -27,6 +27,10 @@ from neuronx_distributed_llama3_2_tpu_torch.inference.model import (
     MixtralDecode,
     PagedKVCache,
     decode_model_for,
+)
+from neuronx_distributed_llama3_2_tpu_torch.inference.mllama_decode import (
+    MllamaCache,
+    MllamaDecoder,
 )
 from neuronx_distributed_llama3_2_tpu_torch.inference.sampling import (
     SamplingConfig,
@@ -58,6 +62,8 @@ __all__ = [
     "LatencyCollector",
     "LlamaDecode",
     "MixtralDecode",
+    "MllamaCache",
+    "MllamaDecoder",
     "GPTNeoXDecode",
     "MedusaBuffers",
     "MedusaDecoder",

@@ -42,6 +42,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from neuronx_distributed_llama3_2_tpu_torch.lora.stacks import (  # noqa: F401
+    _grouped_kernel_re,
+    register_grouped_stack,
+)
 from neuronx_distributed_llama3_2_tpu_torch.models.llama import (
     jax_path,
     params_to_jax,
@@ -102,30 +106,6 @@ def _iter_targets(specs: Mapping[str, LeafSpec], patterns) -> Dict[str, LeafSpec
         path: leaf for path, leaf in ((_path_of(k), v) for k, v in specs.items())
         if any(re.search(p, path) for p in patterns)
     }
-
-
-# Grouped-stack registry: path marker -> regex of the plain 2-D kernel
-# names that layout lifts to rank 4 (the only rank-4 shapes a two-stack
-# split may interpret). The model module that introduces a grouped layout
-# registers it.
-_GROUPED_STACK_LAYOUTS: Dict[str, "re.Pattern[str]"] = {}
-
-
-def register_grouped_stack(path_marker: str, kernel_patterns) -> None:
-    """Declare a parameter layout carrying TWO leading stack dims:
-    ``path_marker`` is a substring of the '/'-joined path identifying it,
-    ``kernel_patterns`` the regexes naming the 2-D kernels it stacks (any
-    other rank-4 leaf under the marker is refused as ambiguous)."""
-    _GROUPED_STACK_LAYOUTS[path_marker] = re.compile(
-        "|".join(f"(?:{p})" for p in kernel_patterns)
-    )
-
-
-def _grouped_kernel_re(path: str):
-    for marker, kernel_re in _GROUPED_STACK_LAYOUTS.items():
-        if marker in path:
-            return kernel_re
-    return None
 
 
 def _split_shape(shape, path: str = "") -> Tuple[Tuple[int, ...], int, Tuple[int, ...]]:
@@ -414,11 +394,12 @@ class LoraModel(nn.Module):
         self._require_attached()
         return self.base(*args, **kwargs)
 
-    def loss(self, input_ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    def loss(self, input_ids: torch.Tensor, labels: torch.Tensor, *args, **kwargs) -> torch.Tensor:
         """The base's loss over the adapted weights (autograd reaches the
-        adapters alone)."""
+        adapters alone); further arguments go to the base's (Mllama's image
+        inputs)."""
         self._require_attached()
-        return self.base.loss(input_ids, labels)
+        return self.base.loss(input_ids, labels, *args, **kwargs)
 
     def _require_attached(self) -> None:
         if not self._attached:

@@ -1,5 +1,6 @@
-"""Model families: Llama-3 / Llama-3.2, Mixtral, DBRX, GPT-NeoX / CodeGen and
-BERT, and the registry over them (JAX ``models/__init__.py:51-103``)."""
+"""Model families: Llama-3 / Llama-3.2, Mixtral, DBRX, GPT-NeoX / CodeGen,
+BERT and Llama-3.2 Vision (Mllama), and the registry over them (JAX
+``models/__init__.py:51-103``)."""
 
 from neuronx_distributed_llama3_2_tpu_torch.models.bert import (  # noqa: F401
     BERT_CONFIGS,
@@ -26,11 +27,11 @@ from neuronx_distributed_llama3_2_tpu_torch.models.mixtral import (  # noqa: F40
     MixtralConfig,
     MixtralForCausalLM,
 )
-
-#: the JAX package's Mllama configurations, which come with the next slice
-#: of the port (ROADMAP.md, slice 5 item 6: models/mllama.py,
-#: parallel/conv.py, inference/mllama_decode.py)
-MLLAMA_NAMES = ("llama3.2-11b-vision", "tiny-mllama")
+from neuronx_distributed_llama3_2_tpu_torch.models.mllama import (  # noqa: F401
+    MLLAMA_CONFIGS,
+    MllamaConfig,
+    MllamaForConditionalGeneration,
+)
 
 
 def model_registry():
@@ -40,22 +41,16 @@ def model_registry():
     reg = {}
     for configs, cls in ((LLAMA_CONFIGS, LlamaForCausalLM), (MIXTRAL_CONFIGS, MixtralForCausalLM),
                          (DBRX_CONFIGS, DbrxForCausalLM), (GPTNEOX_CONFIGS, GPTNeoXForCausalLM),
-                         (BERT_CONFIGS, BertForPreTraining)):
+                         (BERT_CONFIGS, BertForPreTraining),
+                         (MLLAMA_CONFIGS, MllamaForConditionalGeneration)):
         for name, cfg in configs.items():
             reg[name] = {"config": cfg, "model_cls": cls}
     return reg
 
 
 def resolve_model(name: str):
-    """The registry entry of ``name``; an Mllama name raises
-    NotImplementedError naming the slice that ports it, any other unknown
-    name KeyError (JAX ``resolve_model``)."""
-    if name in MLLAMA_NAMES:
-        raise NotImplementedError(
-            f"{name}: the Mllama family (models/mllama.py, parallel/conv.py, "
-            "inference/mllama_decode.py) is the next slice of the port (ROADMAP.md, slice 5 "
-            "item 6)"
-        )
+    """The registry entry of ``name``; an unknown name raises KeyError (JAX
+    ``resolve_model``)."""
     reg = model_registry()
     if name not in reg:
         raise KeyError(f"unknown model {name!r}; known: {', '.join(sorted(reg))}")

@@ -109,6 +109,7 @@ from neuronx_distributed_llama3_2_tpu_torch.parallel.layers import (
 from neuronx_distributed_llama3_2_tpu_torch.parallel.layout import (
     LeafSpec,
     axis_group,
+    is_layer_name,
     mesh_coords,
     port_slice,
     region,
@@ -964,19 +965,20 @@ class LlamaForCausalLM(nn.Module):
 
 def _dig(tree: Mapping, path: Tuple[str, ...]):
     for k in path:
-        tree = tree[k]
+        tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
     return tree
 
 
 def jax_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
     """(path of the JAX leaf, layer index or None) of a port parameter
-    name: the port's names are the JAX paths with "." for "/", and
+    name: the port's names are the JAX paths with "." for "/",
     ``layers.<i>.<rest>`` is layer ``i`` of the stacked ``layers/<rest>``
-    leaf."""
+    leaf, and a bracketed component ``[i]`` is item ``i`` of a JAX list
+    (Mllama's irregular text layers, ``layers/<i>/<rest>``)."""
     parts = name.split(".")
-    if parts[0] == "layers":
+    if is_layer_name(name):
         return ("layers", *parts[2:]), int(parts[1])
-    return tuple(parts), None
+    return tuple(p[1:-1] if p.startswith("[") else p for p in parts), None
 
 
 #: config class -> the ``param_specs`` of a family outside the Llama
@@ -1179,4 +1181,15 @@ def params_to_jax(
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = gather_leaf(by_path.get(path, {}), leaf)
+    return _lists(out)
+
+
+def _lists(tree):
+    """The JAX lists back: a dict keyed by list indices (bracketed
+    components of the port's names) as a list."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _lists(v) for k, v in tree.items()}
+    if out and all(k.isdigit() for k in out):
+        return [out[str(i)] for i in range(len(out))]
     return out

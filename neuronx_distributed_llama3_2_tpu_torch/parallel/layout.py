@@ -39,6 +39,14 @@ Region = Tuple[Tuple[int, int], ...]
 Coords = Mapping[str, Tuple[int, int]]
 
 
+def is_layer_name(name: str) -> bool:
+    """Whether the port parameter ``name`` is ``layers.<i>.<rest>``: one
+    layer's tensor of a stacked ``layers/<rest>`` leaf (a whole leaf, as
+    Mllama's ``layers.plain.<rest>``, is not one)."""
+    parts = name.split(".")
+    return len(parts) > 2 and parts[0] == "layers" and parts[1].isdigit()
+
+
 @dataclasses.dataclass(frozen=True)
 class LeafSpec:
     shape: Tuple[int, ...]  # the JAX leaf's global shape (L first when stacked)

@@ -103,6 +103,7 @@ def fused_linear_cross_entropy(
     labels: torch.Tensor,
     chunk_size: int = 512,
     label_smoothing: float = 0.0,
+    vocab_parallel: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sum of per-token CE and the valid-token count (fp32 scalars),
     running the LM head ``logits_fn(h_chunk) -> (B, c, V or V/tp)`` over
@@ -110,12 +111,18 @@ def fused_linear_cross_entropy(
     runs under ``torch.utils.checkpoint``, so one chunk's logits are alive
     at a time and the backward recomputes them (for Llama-3.2 1B at batch 12
     and chunk 256, one chunk's fp32 logits are 1.6 GB; all 8 would be 12.6
-    GB). ``hidden`` (B, T, H), ``labels`` (B, T)."""
+    GB). ``hidden`` (B, T, H), ``labels`` (B, T). With ``vocab_parallel``
+    False the logits are the whole vocab on every rank (a row-parallel
+    head's), and each chunk takes the plain CE."""
 
     def chunk(hc: torch.Tensor, lc: torch.Tensor):
         logits = logits_fn(hc)
-        per_tok = parallel_cross_entropy(logits, lc, label_smoothing)
-        valid = valid_token_mask(lc, vocab_size_of(logits)).float()
+        if vocab_parallel:
+            per_tok = parallel_cross_entropy(logits, lc, label_smoothing)
+            vocab = vocab_size_of(logits)
+        else:
+            per_tok, vocab = cross_entropy(logits, lc, label_smoothing), logits.shape[-1]
+        valid = valid_token_mask(lc, vocab).float()
         return (per_tok * valid).sum(), valid.sum()
 
     dev = hidden.device

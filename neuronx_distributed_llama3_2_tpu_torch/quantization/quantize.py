@@ -4,7 +4,8 @@ Counterpart of ``neuronx_distributed_llama3_2_tpu/quantization/quantize.py``
 (``QuantizationType``, ``QuantizationConfig``, ``QuantizedTensor``,
 ``quantize_array``, ``DEFAULT_TARGETS``, ``quantize_params``,
 ``dequantize_params``, ``quantization_error``, ``live_params``), over the
-port's parameter names (``layers.<i>.attn.qkv.q_kernel``, ...). A quantized
+port's parameter names (``layers.<i>.attn.qkv.q_kernel``, ...; Mllama's
+stacked leaves, held whole, are quantized as JAX quantizes them). A quantized
 weight is a :class:`QuantizedTensor`: the int8 / fp8 payload and an fp32
 scale shaped to broadcast against it, ``dequantize(dtype) = (payload ·
 scale)`` in fp32, cast to ``dtype``.
@@ -44,6 +45,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from neuronx_distributed_llama3_2_tpu_torch.parallel.layout import is_layer_name
 from neuronx_distributed_llama3_2_tpu_torch.quantization.kv_cache import QUANTIZED_DTYPES
 
 
@@ -115,7 +117,7 @@ def reduce_axes_for(name: str, ndim: int, config: QuantizationConfig,
     for a layer tensor (``layers.<i>....``), less the layer axis."""
     if config.quantization_type is QuantizationType.PER_TENSOR_SYMMETRIC:
         return tuple(range(ndim))
-    stacked = name.startswith("layers.") if stacked is None else stacked
+    stacked = is_layer_name(name) if stacked is None else stacked
     if not stacked:
         return _jax_reduce_axes(ndim, config, name)
     return tuple(a - 1 for a in _jax_reduce_axes(ndim + 1, config, name) if a > 0)
@@ -157,8 +159,10 @@ def quantize_array(w: torch.Tensor, config: QuantizationConfig = QuantizationCon
 
 
 #: the weights quantized by default: the attention and MLP projections and
-#: the fused expert weights; embeddings, norms, the router and the LM head
-#: stay float (JAX ``DEFAULT_TARGETS``, :191, on the port's names)
+#: the fused expert weights, and Mllama's separate q / k / v / o linears
+#: (text cross-attention, vision attention), its vision MLP and its
+#: projector; embeddings, norms, the router, the patch conv and the LM head
+#: stay float (JAX ``DEFAULT_TARGETS``, :191-202, on the port's names)
 DEFAULT_TARGETS = (
     r"attn\.qkv\.(q|k|v)_kernel$",
     r"attn\.o\.kernel$",
@@ -166,6 +170,9 @@ DEFAULT_TARGETS = (
     r"mlp\.(up|down)\.kernel$",
     r"experts\.gate_up$",
     r"experts\.down$",
+    r"(self_attn|cross_attn)\.(q|k|v|o)\.kernel$",
+    r"mlp\.fc(1|2)\.kernel$",
+    r"multi_modal_projector\.kernel$",
 )
 
 
@@ -177,7 +184,7 @@ def _leaf_of(name: str) -> str:
     """The JAX leaf a port tensor belongs to: the layer tensors of one name
     share ``layers.*.<rest>``."""
     parts = name.split(".")
-    return "layers.*." + ".".join(parts[2:]) if parts[0] == "layers" else name
+    return "layers.*." + ".".join(parts[2:]) if is_layer_name(name) else name
 
 
 def _groups(leaf, dims: Sequence[int]) -> list:

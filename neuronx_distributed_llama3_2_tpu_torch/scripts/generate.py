@@ -37,8 +37,8 @@ tokenizer) are not ported yet: each raises, naming the slice it comes with.
 ``--model`` is any key of the model registry (:func:`..models.
 resolve_model`, as the JAX script resolves it): the Llama, Mixtral / DBRX
 and GPT-NeoX / CodeGen families serve; BERT has no KV-cache decode and the
-engine refuses it, as the JAX one does; an Mllama name raises, naming the
-slice that ports it.
+engine refuses it, as the JAX one does; an Mllama name raises, as in JAX:
+multimodal decode needs image inputs (:class:`..inference.MllamaDecoder`).
 """
 
 from __future__ import annotations
@@ -107,7 +107,7 @@ def _run(args) -> dict:
         InferenceEngine,
         SamplingConfig,
     )
-    from neuronx_distributed_llama3_2_tpu_torch.models import resolve_model
+    from neuronx_distributed_llama3_2_tpu_torch.models import MllamaConfig, resolve_model
     from neuronx_distributed_llama3_2_tpu_torch.utils.logger import get_logger
 
     logger = get_logger()
@@ -118,8 +118,12 @@ def _run(args) -> dict:
         )
     try:
         entry = resolve_model(args.model)
-    except (KeyError, NotImplementedError) as e:
+    except KeyError as e:
         raise SystemExit(str(e.args[0])) from e
+    if isinstance(entry["config"], MllamaConfig):  # JAX examples/generate.py:88
+        raise SystemExit(
+            f"{args.model}: multimodal decode needs image inputs; use inference.MllamaDecoder "
+            "from the library instead of this text-only CLI.")
     from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
     from neuronx_distributed_llama3_2_tpu_torch.parallel.multihost import (
         initialize_distributed,

@@ -47,8 +47,9 @@ CodeGen (``gpt-neox-20b``, ``pythia-6.9b``, ``codegen25-7b``,
 batch is masked by :func:`mask_mlm` (15 % of the positions, from
 ``np.random.default_rng(seed * 100003 + step)``; the eval batches from
 ``seed * 7919 + i``), so a seed masks the positions the JAX script masks.
-The Mllama names raise ``SystemExit`` naming the slice that ports them
-(``models.resolve_model``).
+The Mllama names raise ``SystemExit``, as the JAX script does: the vision
+family needs image inputs, which the library's trainer takes
+(``make_train_step``'s batch entries).
 """
 
 from __future__ import annotations
@@ -139,14 +140,17 @@ def mask_mlm(tokens, rng, vocab_size: int, global_batch: Optional[int] = None,
 
 
 def _refuse_unported(args, families) -> None:
-    from neuronx_distributed_llama3_2_tpu_torch.models import resolve_model
+    from neuronx_distributed_llama3_2_tpu_torch.models import MllamaConfig, resolve_model
 
     try:
-        resolve_model(args.model)
-    except NotImplementedError as e:  # a family the port has not reached yet
-        raise SystemExit(f"--model {e}") from e
+        entry = resolve_model(args.model)
     except KeyError as e:
         raise SystemExit(str(e.args[0])) from e
+    if isinstance(entry["config"], MllamaConfig):  # JAX examples/pretrain_llama.py:160
+        raise SystemExit(
+            f"{args.model}: the vision family needs image inputs; this text-pretraining CLI "
+            "does not drive it. Use the library (models/mllama.py + trainer) for vision "
+            "fine-tunes.")
     if args.pp == 1:
         for flag, value, default in (("pp-schedule", args.pp_schedule, "gpipe"),
                                      ("model-chunks", args.model_chunks, 1)):

@@ -33,6 +33,7 @@ from typing import Callable, Dict, Iterable, Mapping, NamedTuple, Optional, Tupl
 import torch
 
 from neuronx_distributed_llama3_2_tpu_torch.parallel import state as parallel_state
+from neuronx_distributed_llama3_2_tpu_torch.parallel.layout import is_layer_name
 from neuronx_distributed_llama3_2_tpu_torch.parallel.loss import valid_token_mask
 from neuronx_distributed_llama3_2_tpu_torch.parallel.mappings import all_reduce
 from neuronx_distributed_llama3_2_tpu_torch.trainer.config import (
@@ -91,7 +92,7 @@ def default_weight_decay_mask(params: Mapping[str, torch.Tensor]) -> Dict[str, b
         lowered = name.lower()
         if "norm" in lowered or "bias" in lowered or "scale" in lowered:
             return False
-        return p.dim() + (1 if name.startswith("layers.") else 0) >= 2
+        return p.dim() + (1 if is_layer_name(name) else 0) >= 2
 
     return {name: decide(name, p) for name, p in params.items()}
 
@@ -148,7 +149,10 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig,
     """A train step ``(state, batch) -> (state, metrics)``.
 
     ``batch = {"input_ids": (GBS, S), "labels": (GBS, S)}`` on the model's
-    device, the global batch on every rank; each dp rank takes its rows
+    device, the global batch on every rank (any other entry, (GBS, ...),
+    goes to ``model.loss`` by name with the same rows: Mllama's
+    ``pixel_values``, ``aspect_ratio_ids``, ``aspect_ratio_mask`` and
+    ``cross_attention_mask``); each dp rank takes its rows
     (:func:`dp_rows`), or is given them with ``local_batch`` (what
     :class:`..data.dataset.DistributedDataLoader` yields). The rank's rows
     are split into ``config.num_microbatches`` strided microbatches (row m
@@ -189,19 +193,22 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig,
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
         _check_params(model, state.params)
         input_ids, labels = batch["input_ids"], batch["labels"]
+        # the batch's other inputs (Mllama's images and masks), row for row
+        extra = {k: v for k, v in batch.items() if k not in ("input_ids", "labels")}
         if not local_batch:
             input_ids, labels = dp_rows(input_ids), dp_rows(labels)
+            extra = {k: dp_rows(v) for k, v in extra.items()}
         names = list(state.params)
         leaves = [state.params[k] for k in names]
 
-        def loss_and_grads(ids, lbl, weight=None):
+        def loss_and_grads(ids, lbl, weight=None, rows=slice(None)):
             """The loss and the gradients of ``weight`` x the loss (of the
-            loss itself without a weight)."""
+            loss itself without a weight), over the batch's ``rows``."""
             if manual:
                 loss, grads = model.loss_and_grad(ids, lbl)
                 got = [grads[k] for k in names]
                 return loss, got if weight is None else [g * weight for g in got]
-            loss = model.loss(ids, lbl)
+            loss = model.loss(ids, lbl, **{k: v[rows] for k, v in extra.items()})
             seed = None if weight is None else weight.to(loss.dtype)
             # a parameter the loss does not read (BERT's NSP head under the
             # MLM loss) gets a zero gradient, as under jax.grad
@@ -237,7 +244,7 @@ def make_train_step(model: torch.nn.Module, config: TrainingConfig,
             loss_sum = torch.zeros((), device=input_ids.device)
             for k, n in enumerate(counts):
                 ids, lbl = input_ids[k::n_micro], labels[k::n_micro]
-                loss, got = loss_and_grads(ids, lbl, n / denom)
+                loss, got = loss_and_grads(ids, lbl, n / denom, slice(k, None, n_micro))
                 for name, g in zip(names, got):
                     grads[name] += g.to(grads[name].dtype)
                 loss_sum += loss * n

@@ -497,5 +497,5 @@ def test_generate_script_serves_any_family(tmp_path, model):
     assert got["sequences"][0] == want and len(set(want)) > 1
     with pytest.raises(NotImplementedError, match="no KV-cache decode"):
         generate.main(["--model", "tiny-bert", "--random-init"] + common)
-    with pytest.raises(SystemExit, match="Mllama"):
+    with pytest.raises(SystemExit, match="multimodal decode needs image inputs"):
         generate.main(["--model", "tiny-mllama", "--random-init"] + common)

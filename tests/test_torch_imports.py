@@ -64,9 +64,14 @@ def test_sources_exist():
         assert PORT / "lora" / mod in SOURCES, mod
     for mod in ("__init__.py", "gptneox.py", "bert.py"):
         assert PORT / "models" / mod in SOURCES, mod
+    # Mllama: the model, its decoder, the channel-parallel convs, LoRA's
+    # grouped-stack registry
+    assert PORT / "models" / "mllama.py" in SOURCES
+    assert PORT / "inference" / "mllama_decode.py" in SOURCES
+    assert PORT / "lora" / "stacks.py" in SOURCES
     # the parallel layer: the mesh, the regions, the layers, the loss
     for mod in ("state.py", "multihost.py", "mappings.py", "random.py", "pad.py",
-                "layers.py", "layout.py", "loss.py", "grads.py"):
+                "layers.py", "layout.py", "loss.py", "grads.py", "conv.py"):
         assert PORT / "parallel" / mod in SOURCES, mod
 
 

@@ -451,3 +451,79 @@ def test_remat_recompute_reads_the_adapters(remat):
         grads.append(torch.autograd.grad(lora.loss(ids, ids), params))
     for a, b in zip(*grads):
         torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# Mllama: the conv target on the patch conv, the grouped plain stack
+# ---------------------------------------------------------------------------
+
+def _mllama(seed=0):
+    """tiny-mllama in both packages: JAX's model and init weights, the
+    port's model over them."""
+    from neuronx_distributed_llama3_2_tpu.models import mllama as jml
+    from neuronx_distributed_llama3_2_tpu_torch.models import mllama as tml
+
+    jm = jml.MllamaForConditionalGeneration(jml.MLLAMA_CONFIGS["tiny-mllama"])
+    p = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.key(seed)))
+    cfg = tml.MLLAMA_CONFIGS["tiny-mllama"]
+    base = tml.MllamaForConditionalGeneration(cfg, device="cpu")
+    base.load_state_dict(tml.params_from_jax(p, cfg, device="cpu"))
+    return jm, p, base
+
+
+def test_conv_target_vision_lora_parity_mllama():
+    """JAX ``test_conv_target_vision_lora_parity`` (tests/test_lora.py:239)
+    on tiny-mllama: the patch conv's adapters (A (14, 14, 3, r), B (r,
+    32)) and the grouped plain stack's q kernel (A (G, k - 1, 32, r)); B =
+    0 merges to the base exactly; nudged adapters merge to JAX's
+    ``merged_params``, and the adapted forward is the forward of the merged
+    weights."""
+    from neuronx_distributed_llama3_2_tpu_torch.models import mllama as tml
+
+    jm, p, base = _mllama()
+    kw = dict(r=4, alpha=8.0, target_modules=(r"layers/plain/attn/qkv/q_kernel$",),
+              conv_target_modules=(r"vision_model/patch_embedding/kernel$",))
+    jl = JLoraModel(jm, p, JLoraConfig(**kw))
+    lora = LoraModel(base, LoraConfig(**kw))
+    conv = lora.adapter("vision_model.patch_embedding.kernel")
+    assert conv.a.shape == (14, 14, 3, 4) and conv.b.shape == (4, 32)
+    assert lora.adapter("layers.plain.attn.qkv.q_kernel").a.shape == (1, 1, 32, 4)
+    lora.init_weights(1)
+    zero = tml.params_to_jax(dict(lora.merged_params()), base.config)
+    np.testing.assert_array_equal(zero["vision_model"]["patch_embedding"]["kernel"],
+                                  p["vision_model"]["patch_embedding"]["kernel"])
+    ad = jax.tree.map(lambda x: np.asarray(x) + 0.05, jl.init(jax.random.key(1)))
+    lora.load_state_dict(adapters_from_jax(ad, lora))
+    want = jl.merged_params(jax.tree.map(jnp.asarray, ad))
+    got = tml.params_to_jax({k: v.detach() for k, v in lora.merged_params().items()},
+                            base.config)
+    for path in (("vision_model", "patch_embedding", "kernel"),
+                 ("layers", "plain", "attn", "qkv", "q_kernel")):
+        w, g = want, got
+        for k in path:
+            w, g = w[k], g[k]
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-6, atol=1e-6)
+        assert np.abs(np.asarray(w) - tllama._dig(p, path)).max() > 1e-3
+    # the adapted base reads base + scaling · A @ B through the stacked holder
+    from tests.test_torch_mllama import _t, inputs
+
+    batch = _t(inputs(b=2, s=12, vocab=128))
+    pix, ids, ar, arm, xm = batch
+    adapted = base(ids, pix, ar, arm, xm)
+    merged = tml.MllamaForConditionalGeneration(base.config, device="cpu")
+    merged.load_state_dict({k: v.detach() for k, v in lora.merged_params().items()})
+    np.testing.assert_allclose(adapted.numpy(), merged(ids, pix, ar, arm, xm).numpy(),
+                               rtol=1e-5, atol=1e-6)
+    lora.detach()
+
+
+def test_conv_and_linear_pattern_overlap_refused_mllama():
+    """JAX ``test_conv_and_linear_pattern_overlap_refused``
+    (tests/test_lora.py:297): the patch conv under both pattern lists."""
+    jm, p, base = _mllama()
+    kw = dict(target_modules=(r"patch_embedding/kernel$",),
+              conv_target_modules=(r"patch_embedding/kernel$",))
+    with pytest.raises(ValueError, match="both"):
+        LoraModel(base, LoraConfig(**kw))
+    with pytest.raises(ValueError, match="both"):
+        JLoraModel(jm, p, JLoraConfig(**kw))

@@ -145,7 +145,7 @@ def test_native_loader_tensorboard_timeline_eval_profile(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--model", "mixtral-8x7b", "--ep", "3"], "--ep 3: 3 ranks"),
-    (["--model", "tiny-mllama"], "slice 5 item 6"),
+    (["--model", "tiny-mllama"], "the vision family needs image inputs"),
     (["--model", "nope"], "unknown model"),
     (["--tp", "2"], "--tp 2"),
     (["--pp", "2"], "--pp 2"),

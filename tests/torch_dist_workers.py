@@ -1001,3 +1001,133 @@ def family_worker(rank, world, inputs):
     finally:
         S.destroy_model_parallel()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Mllama: the channel-parallel convs, the model under tp / SP, the
+# indivisible-vocab fallbacks, a ZeRO-1 step and tags
+# ---------------------------------------------------------------------------
+
+def _load_sharded(module, specs, full: dict) -> None:
+    """``module``'s parameters from whole numpy arrays, each cut to this
+    rank's part by ``specs`` (name -> LeafSpec)."""
+    from neuronx_distributed_llama3_2_tpu_torch.parallel.layout import mesh_coords, port_slice
+
+    coords = mesh_coords()
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            _, index = port_slice(specs[name], coords, None)
+            p.copy_(torch.as_tensor(full[name][index]))
+
+
+def _gather_grads(module, specs) -> dict:
+    from neuronx_distributed_llama3_2_tpu_torch.models.llama import gather_leaf
+
+    return {n: gather_leaf({None: p.grad}, specs[n]) for n, p in module.named_parameters()}
+
+
+def mllama_worker(rank, world, inputs):
+    """Every multi-rank check of ``tests/test_torch_mllama_tp.py`` in one
+    spawn of ``world`` = 4 ranks (tp 2 x dp 2), the mesh rebuilt for each
+    case: the conv layers at tp = 2 (the output-channel layer gathered,
+    the output -> input pair, the pair's gradients), the tiny Mllama's
+    logits, loss and gradients at tp = 2 with SP off and on, the
+    indivisible-vocab fallbacks (vocab 125: the embedding split on its dim,
+    the head row-parallel) under SP, one ZeRO-1 AdamW step through the
+    trainer with the step's tag saved and JAX's tag loaded. Returns {case:
+    result} as numpy."""
+    from neuronx_distributed_llama3_2_tpu_torch import trainer as T
+    from neuronx_distributed_llama3_2_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from neuronx_distributed_llama3_2_tpu_torch.models import mllama as M
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import conv as Cv
+    from neuronx_distributed_llama3_2_tpu_torch.parallel import state as S
+
+    out = {}
+
+    def mesh(**kw):
+        S.destroy_model_parallel()
+        tc = T.TrainingConfig(**kw)
+        tc.initialize("cpu")
+        return tc
+
+    def batch_of(b):
+        return [torch.as_tensor(b[k]) for k in ("ids", "pix", "ar_ids", "ar_mask", "xmask")]
+
+    try:
+        mesh(tensor_parallel_size=2)
+        cv = inputs["conv"]
+        x = torch.as_tensor(cv["x"])
+        one = Cv.OutputChannelParallelConv2d(16, 32, 3, padding=1, gather_output=True,
+                                             device="cpu")
+        _load_sharded(one, one.specs(), cv["one"])
+        c1 = Cv.OutputChannelParallelConv2d(16, 32, 3, padding=1, device="cpu")
+        c2 = Cv.InputChannelParallelConv2d(32, 8, 1, device="cpu")
+        _load_sharded(c1, c1.specs(), cv["c1"])
+        _load_sharded(c2, c2.specs(), cv["c2"])
+        mid = c1(x)
+        g1 = Cv.OutputChannelParallelConv2d(8, 16, 3, padding=1, device="cpu")
+        g2 = Cv.InputChannelParallelConv2d(16, 4, 1, device="cpu")
+        _load_sharded(g1, g1.specs(), cv["g1"])
+        _load_sharded(g2, g2.specs(), cv["g2"])
+        gx = torch.as_tensor(cv["gx"]).requires_grad_(True)
+        (g2(g1(gx)) ** 2).sum().backward()
+        out["conv tp2"] = dict(
+            one=_np(one(x)), pair=_np(c2(mid)), mid_channels=mid.shape[-1],
+            g1=_gather_grads(g1, g1.specs()), g2=_gather_grads(g2, g2.specs()), gx=_np(gx.grad))
+
+        cfg = inputs["cfg"]
+        for sp in (False, True):
+            mesh(tensor_parallel_size=2, sequence_parallel=sp)
+            model = M.MllamaForConditionalGeneration(cfg, device="cpu")
+            model.load_state_dict(M.params_from_jax(inputs["params"], cfg, device="cpu"))
+            ids, pix, ar, arm, xm = batch_of(inputs["batch"])
+            params = dict(model.named_parameters())
+            loss = model.loss(ids, ids, pix, ar, arm, xm)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            out[f"mllama tp2 sp={sp}"] = dict(
+                logits=_np(model(ids, pix, ar, arm, xm)), loss=float(loss.detach()),
+                grads=M.params_to_jax(dict(zip(params, grads)), cfg),
+                sequence_parallel=model.sequence_parallel)
+
+        cfg125 = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, vocab_size=125))
+        mesh(tensor_parallel_size=2, sequence_parallel=True)
+        model = M.MllamaForConditionalGeneration(cfg125, device="cpu")
+        model.load_state_dict(M.params_from_jax(inputs["params125"], cfg125, device="cpu"))
+        ids, pix, ar, arm, xm = batch_of(inputs["batch125"])
+        out["mllama tp2 vocab125"] = dict(
+            logits=_np(model(ids, pix, ar, arm, xm)),
+            loss=float(model.loss(ids, ids, pix, ar, arm, xm).detach()),
+            embed_spec=model.param_specs()["embed.embedding"].spec,
+            head_spec=model.param_specs()["lm_head.kernel"].spec,
+            head_is_column=model.head_is_column)
+
+        tc = mesh(tensor_parallel_size=2, sequence_parallel=True,
+                  optimizer=T.OptimizerConfig(**inputs["opt_kw"]))
+        model = M.MllamaForConditionalGeneration(cfg, device="cpu")
+        state, specs = T.initialize_parallel_model(model, tc)
+        model.load_state_dict(M.params_from_jax(inputs["params"], cfg, device="cpu"))
+        state = T.TrainState(state.params,
+                             T.init_optimizer_state(state.params, tc.optimizer, specs.opt))
+        ids, pix, ar, arm, xm = batch_of(inputs["train_batch"])
+        state, m = T.make_train_step(model, tc)(state, {
+            "input_ids": ids, "labels": ids, "pixel_values": pix, "aspect_ratio_ids": ar,
+            "aspect_ratio_mask": arm, "cross_attention_mask": xm})
+        save_checkpoint(inputs["port_root"], "step_1", model=state.params, optimizer=state.opt,
+                        model_specs=specs.params, optimizer_specs=specs.opt)
+        result = dict(
+            loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+            params=M.params_to_jax(state.params, cfg),
+            opt=T.opt_state_to_jax(state.opt, cfg, specs.opt),
+            dp_split=sorted(k for k, s in specs.opt.mu.items() if s.mentions(S.DP_AXIS)))
+        # JAX's tag of its own step, loaded at tp 2 x dp 2
+        fresh = M.MllamaForConditionalGeneration(cfg, device="cpu")
+        fstate, fspecs = T.initialize_parallel_model(fresh, tc)
+        got = load_checkpoint(inputs["jax_root"], "step_1", model=fstate.params,
+                              optimizer=fstate.opt, model_specs=fspecs.params,
+                              optimizer_specs=fspecs.opt)
+        result["jax_tag"] = dict(params=M.params_to_jax(got["model"], cfg),
+                                 opt=T.opt_state_to_jax(got["optimizer"], cfg, fspecs.opt))
+        out["mllama tp2 dp2 zero1"] = result
+        return out
+    finally:
+        S.destroy_model_parallel()
