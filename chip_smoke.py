@@ -757,17 +757,20 @@ def source_note(c: DecodeCase, kv_dtype: str, yard) -> str:
 
 def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
                            mxu: bool = False, time_grid: bool = True, grid: bool = True,
-                           probes: bool = True):
+                           probes: bool = True, time_served: bool = True):
     """K4 on one pool dtype and mode against its plain version at the grid
     and the served geometries, timed beside the plain version, the library
     yardstick (SDPA on K/V dequantized and gathered beforehand) and the
     bound. Without ``time_grid`` the grid's cases
     are checked (against the plain version, the yardstick and
-    csrc/paged_decode.cu) and not timed; without ``grid`` only the served
-    geometries run (a tp rank's, at its own head counts), and without
-    ``probes`` the planted-fault probes are left to the full phase. Returns
-    ({source: the record of the served geometry it launched most}, {source:
-    its worst abs error over the cases it served})."""
+    csrc/paged_decode.cu) and not timed, without ``time_served`` the served
+    geometries too (and nothing is recorded); without ``grid`` only the
+    served geometries run (a tp rank's, at its own head counts), and without
+    ``probes`` the planted-fault probes are left to the full phase. At head
+    dim 96 the check must also reject, once on each source, the kernel's
+    output with scores that leave out columns 64-95 (``columns_left_out``).
+    Returns ({source: the record of the served geometry it launched most},
+    {source: its worst abs error over the cases it served})."""
     from neuronx_distributed_llama3_2_tpu_torch.kernels import paged_attention as pa
     from neuronx_distributed_llama3_2_tpu_torch.quantization import kv_cache as kv
 
@@ -775,6 +778,7 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
     mode = mode_label(kv_dtype, mxu)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst_elem, worst_rel, records, worst_by, nan_checked = 0.0, 0.0, {}, {}, set()
+    cols_checked = set()
     cases = paged_cases(cfg, served)
     if not grid:
         cases = [c for c in cases if c.serve_launches]
@@ -826,6 +830,21 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
                   f"{mode}: the kernel's NaN rows differ from the plain version's")
             log(f"kernel paged_decode [{mode}] [{c.name}] q element past the fp8 range: "
                 f"{int(nan_k.sum())} NaN outputs, as the plain version")
+        if c.d == 96 and src not in cols_checked:
+            # the planted fault of a D 96 instance that reads one 64-column
+            # box of K: the plain version's change added to the kernel's output
+            cols_checked.add(src)
+            bad = pa.paged_flash_decode_reference(
+                q, columns_left_out(kp[0]), vp[0], tables, pos, kv_limit=c.kv_limit,
+                k_scale=None if ks is None else ks[0], v_scale=None if vs is None else vs[0],
+                quant_mxu=mxu)
+            f_elem, f_rel = decode_agreement((out.float() + bad.float() - ref.float()).to(
+                out.dtype), ref)
+            log(f"kernel paged_decode [{mode}] [{c.name}] planted fault (the scores leave out "
+                f"columns 64-95, paged_decode_{src}.cu's call): error {f_elem:.6g} x its "
+                f"element limit, lane relative L2 {f_rel:.6g} (limits 1, {LANE_REL_L2})")
+            check(f_elem > 1.0 or f_rel > LANE_REL_L2,
+                  f"the {mode} check passes scores without columns 64-95 on {src}")
 
         # the yardstick: one library call over K/V dequantized and gathered
         # beforehand (neither in its time), same mask
@@ -855,7 +874,7 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
         # 6's arithmetic)
         check(mxu or lib_rel <= LANE_REL_L2,
               f"{mode} {c.name}: library yardstick disagrees (lane relative L2 {lib_rel})")
-        timing = time_grid or c.serve_launches > 0
+        timing = time_served if c.serve_launches else time_grid
         if timing:
             (ms,), wall_ms = device_ms(kernel)
             (plain_ms,), plain_wall_ms = device_ms(plain)
@@ -887,7 +906,7 @@ def run_paged_kernel_phase(cfg, served: dict, card: str, kv_dtype: str = "bf16",
         )
         # the JSON records time, for each source, the geometry the serve
         # launched most
-        if c.serve_launches > records.get(src, {}).get("launches", 0):
+        if timing and c.serve_launches > records.get(src, {}).get("launches", 0):
             records[src] = dict(
                 launches=c.serve_launches, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
@@ -1908,6 +1927,16 @@ def newest_row_dropped(inner, q, k_pool, v_pool, tables, positions, **kw):
     visible row of every query masked off (at decode, the token's own
     K/V)."""
     return inner(q, k_pool, v_pool, tables, (positions - 1).clamp_min(0), **kw)
+
+
+def columns_left_out(x: torch.Tensor, first: int = 64) -> torch.Tensor:
+    """``x`` (K, or a K pool) with its head columns from ``first`` on set to
+    0: with it the plain versions compute the scores a D 96 kernel instance
+    that read one 64-column box of its operands would (the D 96 checks'
+    planted fault; a zero payload dequantizes to 0)."""
+    out = x.clone()
+    (out.view(torch.uint8) if out.element_size() == 1 else out)[..., first:] = 0
+    return out
 
 
 def run_e2e_phase(cfg, model, prompts, outs, rids) -> None:
@@ -5027,6 +5056,7 @@ PACKED_CASES = (
     ("train causal, packed", 12, 32, 8, 2048, 64, True, 10),
     ("3b full, packed (D 128, G 3)", 2, 24, 8, 2048, 128, False, 10),
     ("unaligned S 1000 causal, packed", 2, 32, 8, 1000, 64, True, 10),
+    ("D 96 causal, packed (G 4)", 2, 16, 4, 1000, 96, True, 10),
 )
 # the one document of row 0 longer than the seeded lengths' 1024 rows
 PACKED_LONG = 1100
@@ -5243,7 +5273,8 @@ def run_flash_kernel_phase(card: str, packed: bool = False, cases=None) -> dict:
     are a document boundary moved by one row (``plain_moves_boundary``)
     and the segment compare only on crossing tiles
     (``plain_segments_on_crossing_tiles_only``). ``cases`` replaces
-    FLASH_CASES (a tp rank's shapes; the planted faults run at the first).
+    FLASH_CASES (a tp rank's shapes; the planted faults run at the first,
+    and at D 96 one more: K1's scores without columns 64-95).
     Only the first case is timed (the script's timing depth, PERF.md
     section 7); the others are checked. Returns the record of K1-K3 (the
     first case's times, the worst errors, and under ``packed`` the public
@@ -5319,13 +5350,24 @@ def run_flash_kernel_phase(card: str, packed: bool = False, cases=None) -> dict:
                            plain_skips_tile(q_rows, kv_rows)),
                           ("the causal diagonal masked with col < row", None,
                            plain_misses_diagonal()))
-            for fault, bad_seg, planted_mask in faults:
-                with planted_mask:
-                    bad = dict(zip(("o", "dq", "dk", "dv"), (
-                        fa.flash_fwd_reference(q, k, v, bad_seg, causal, sc, block_kv=1024)[0],
-                        *fa.flash_bwd_reference(q, k, v, o, lse, do, bad_seg, causal, sc,
-                                                block_kv=1024))))
-                for label, out in outs.items():
+
+            def fault_outputs():
+                for fault, bad_seg, planted_mask in faults:
+                    with planted_mask:
+                        bad = dict(zip(("o", "dq", "dk", "dv"), (
+                            fa.flash_fwd_reference(q, k, v, bad_seg, causal, sc,
+                                                   block_kv=1024)[0],
+                            *fa.flash_bwd_reference(q, k, v, o, lse, do, bad_seg, causal, sc,
+                                                    block_kv=1024))))
+                    yield fault, bad
+                if d == 96:
+                    # a D 96 K1 whose S = Q K^T reads one 64-column box
+                    yield "the scores leave out columns 64-95", {"o": fa.flash_fwd_reference(
+                        q, columns_left_out(k), v, seg, causal, sc, block_kv=1024)[0]}
+
+            for fault, bad in fault_outputs():
+                for label in bad:
+                    out = outs[label]
                     planted = (out.float() + bad[label].float()
                                - refs[label].float()).to(out.dtype)
                     elem, rel = flash_agreement(planted, refs[label])
@@ -7500,13 +7542,14 @@ def moe_twin_streams(label: str, model, prompts, tape, want: list, got: list) ->
 
 
 def moe_serve(cfg, model, prompts, lanes: int, prewarm: bool, card: str, label: str,
-              routed: bool = True):
+              routed: bool = True, **paged_kw):
     """Serve ``prompts`` greedily through the paged engine (K4 on,
-    ``lanes`` lanes, MOE_PREFILL_BUCKETS), eager with every kernel call's
-    geometry and (``routed``, an MoE model) every routing call's expert
-    choices recorded (``serve_routing``), or prewarmed with K4's launches
-    read from the graphs' replays. Returns (streams in prompt order,
-    {source: launches}, served geometries, moe_paths, routing tape)."""
+    ``lanes`` lanes, MOE_PREFILL_BUCKETS, ``paged_kw`` over those
+    ``PagedConfig`` knobs), eager with every kernel call's geometry and
+    (``routed``, an MoE model) every routing call's expert choices recorded
+    (``serve_routing``), or prewarmed with K4's launches read from the
+    graphs' replays. Returns (streams in prompt order, {source: launches},
+    served geometries, moe_paths, routing tape)."""
     from neuronx_distributed_llama3_2_tpu_torch.inference.engine import (
         GenerationConfig,
         InferenceEngine,
@@ -7518,8 +7561,9 @@ def moe_serve(cfg, model, prompts, lanes: int, prewarm: bool, card: str, label: 
 
     def server():
         engine = InferenceEngine(cfg, model, max_batch=lanes, max_seq_len=2048)
-        paged = PagedConfig(block_size=16, num_blocks=2049, prefill_buckets=MOE_PREFILL_BUCKETS,
-                            prewarm=prewarm)
+        paged = PagedConfig(**dict(block_size=16, num_blocks=2049,
+                                   prefill_buckets=MOE_PREFILL_BUCKETS, prewarm=prewarm)
+                            | paged_kw)
         return PagedServingEngine(engine, GenerationConfig(max_new_tokens=MAX_NEW), paged)
 
     geoms: dict = {}
@@ -7775,8 +7819,22 @@ NEOX_TRAIN_LAYERS = 2
 NEOX_TRAIN_BATCH = 2
 #: K1-K3 at Pythia-6.9B's train shape: B 2, 32 / 32 heads (MHA, G 1), D 128
 NEOX_FLASH_CASES = (("pythia train causal (D 128, G 1)", 2, 32, 32, 2048, 128, True, 10),)
+#: K1-K3 at gpt-neox-20b's train shape (B 2, 64 / 64 heads, MHA, D 96),
+#: timed, with the planted faults; then D 96 under the full mask with a GQA
+#: group of 4 at an unaligned S (the CPU tests' other D 96 modes), checked
+NEOX20B_FLASH_CASES = (("gpt-neox-20b train causal (D 96, G 1)", 2, 64, 64, 2048, 96, True, 10),
+                       ("D 96 full, G 4, unaligned S 1000", 2, 16, 4, 1000, 96, False, 10))
 NEOX_TIMED_STEPS = 2
 NEOX_SERVE_LAYERS = 4
+#: the gpt-neox-20b serve's chunked twin: 256-token prefill chunks, each
+#: after a prompt's first taken by the paged kernel at t = 256 (256 tile
+#: rows at G 1, past paged_decode_tile.cu's 128: csrc/paged_decode.cu), the
+#: prefill ladder given the chunk's rung
+NEOX20B_CHUNK = 256
+NEOX20B_CHUNK_BUCKETS = (8, 64, 256, 1024)
+#: the pools K4 is held in at the gpt-neox-20b serve's geometries: bf16
+#: (timed), int8 in mode 3 and fp8 e4m3 in mode 6 (checked)
+NEOX20B_POOLS = (("bf16", False), ("int8", False), ("fp8_e4m3", True))
 CODEGEN_SERVE_LAYERS = 2
 #: the GPT-NeoX / CodeGen serves' e2e margin: twice the first sound reading
 #: of the 8-lane Pythia serve on an H100 (0.03125; CodeGen's read 0.03125
@@ -8052,50 +8110,57 @@ def run_lora_serve_phase(trained: dict, eager_outs: list, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def neox_train_configs(layers: int):
-    """Pythia-6.9B at full width and ``layers`` layers, with the 1B's train
-    knobs: (model config, TrainingConfig)."""
+def neox_train_configs(layers: int, name: str = "pythia-6.9b"):
+    """The GPT-NeoX config ``name`` at full width and ``layers`` layers,
+    with the 1B's train knobs: (model config, TrainingConfig)."""
     from neuronx_distributed_llama3_2_tpu_torch.models.gptneox import GPTNEOX_CONFIGS
 
     _, tc = train_configs()
     cfg = dataclasses.replace(
-        GPTNEOX_CONFIGS["pythia-6.9b"], num_layers=layers, remat="full",
+        GPTNEOX_CONFIGS[name], num_layers=layers, remat="full",
         max_seq_len=TRAIN_SEQ, use_flash_attention=True, flash_block_q=1024,
         flash_block_kv=1024, loss_chunk_size=256,
     )
     return cfg, tc
 
 
-def run_neox_train_phase(card: str) -> dict:
-    """Pythia-6.9B's train step at full width (hidden 4096, 32 heads MHA, D
-    128, rotary on 25 %, vocab 50432, untied), NEOX_TRAIN_LAYERS of 32
-    layers, batch NEOX_TRAIN_BATCH x 2048: one step's loss and gradients
-    through K1-K3 against the plain-attention step (same weights) within
-    LOSS_BAND / GRAD_BAND, a planted K3 fault above GRAD_BAND; a warm-up and
-    NEOX_TIMED_STEPS steps through the trainer, (K1, K2, K3) launched (2L,
-    L, L) a step; K1-K3 at the train shape against their plain versions
-    (NEOX_FLASH_CASES: the kernel check rejects a K3 with one kv tile left
-    out). Returns the K1-K3 records and launches."""
-    from neuronx_distributed_llama3_2_tpu_torch.models.gptneox import GPTNeoXForCausalLM
+def run_neox_train_phase(card: str, name: str = "pythia-6.9b", cases=NEOX_FLASH_CASES,
+                         label: str = "neox train") -> dict:
+    """The train step of the GPT-NeoX config ``name`` at full width
+    (Pythia-6.9B: hidden 4096, 32 heads MHA, D 128; gpt-neox-20b: hidden
+    6144, 64 heads MHA, D 96; both rotary on 25 %, vocab 50432, untied),
+    NEOX_TRAIN_LAYERS layers, batch NEOX_TRAIN_BATCH x 2048: one step's loss
+    and gradients through K1-K3 against the plain-attention step (same
+    weights) within LOSS_BAND / GRAD_BAND, a planted K3 fault above
+    GRAD_BAND; a warm-up and NEOX_TIMED_STEPS steps through the trainer,
+    (K1, K2, K3) launched (2L, L, L) a step; K1-K3 at the train shape
+    against their plain versions (``cases``, the first the train shape: the
+    kernel check rejects a K3 with one kv tile left out, and at D 96 a K1
+    whose scores leave out columns 64-95). Returns the K1-K3 records and
+    launches."""
+    from neuronx_distributed_llama3_2_tpu_torch.models.gptneox import (
+        GPTNEOX_CONFIGS,
+        GPTNeoXForCausalLM,
+    )
     from neuronx_distributed_llama3_2_tpu_torch.models.llama import FLASH_FWD_PER_LAYER
     from neuronx_distributed_llama3_2_tpu_torch.trainer import (
         initialize_parallel_model,
         make_train_step,
     )
 
-    cfg, tc = neox_train_configs(NEOX_TRAIN_LAYERS)
+    cfg, tc = neox_train_configs(NEOX_TRAIN_LAYERS, name)
     tc.initialize("cuda")
     batch = train_batch(cfg, NEOX_TRAIN_BATCH)
     torch.cuda.reset_peak_memory_stats()
     model = GPTNeoXForCausalLM(cfg, device="cuda")
     state, _ = initialize_parallel_model(model, tc, key=SEED)
     n_params = sum(p.numel() for p in state.params.values())
-    log(f"neox train: pythia-6.9b widths (hidden {cfg.hidden_size}, intermediate "
+    log(f"{label}: {name} widths (hidden {cfg.hidden_size}, intermediate "
         f"{cfg.intermediate_size}, {cfg.num_heads} / {cfg.num_kv_heads} heads, head_dim "
         f"{cfg.head_dim}, rotary {cfg.rotary_dims} of {cfg.head_dim}, vocab {cfg.vocab_size}, "
-        f"untied), depth cut to {cfg.num_layers} of 32 layers: {n_params} parameters, bf16, "
-        f"seeded random weights; batch {NEOX_TRAIN_BATCH} x {TRAIN_SEQ}, remat {cfg.remat}, "
-        f"flash attention | {card}")
+        f"untied), depth cut to {cfg.num_layers} of {GPTNEOX_CONFIGS[name].num_layers} layers: "
+        f"{n_params} parameters, bf16, seeded random weights; batch {NEOX_TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, remat {cfg.remat}, flash attention | {card}")
     plain = GPTNeoXForCausalLM(dataclasses.replace(cfg, use_flash_attention=False), device="cuda")
     plain.load_state_dict(model.state_dict())
     ref_loss, ref_grads = loss_and_grads(plain, batch)
@@ -8110,13 +8175,13 @@ def run_neox_train_phase(card: str) -> dict:
         _, bad_grads = loss_and_grads(model, batch)
     bad_gap, bad_at = grad_gap(bad_grads, ref_grads)
     del bad_grads, ref_grads
-    log(f"neox train e2e: loss {loss:.6f} through the kernels vs {ref_loss:.6f} plain (gap "
+    log(f"{label} e2e: loss {loss:.6f} through the kernels vs {ref_loss:.6f} plain (gap "
         f"{loss_gap:.6g}, band {LOSS_BAND}); largest gradient relative L2 error {gap:.6g} at "
         f"{at} (band {GRAD_BAND}); planted fault (K3 skips the diagonal kv tile): "
         f"{bad_gap:.6g} at {bad_at} | {card}")
-    check(np.isfinite(loss) and loss_gap <= LOSS_BAND, f"neox train loss gap {loss_gap}")
-    check(gap <= GRAD_BAND, f"neox train gradient gap {gap} at {at}")
-    check(bad_gap > GRAD_BAND, f"the neox train check passes a planted K3 fault ({bad_gap})")
+    check(np.isfinite(loss) and loss_gap <= LOSS_BAND, f"{label} loss gap {loss_gap}")
+    check(gap <= GRAD_BAND, f"{label} gradient gap {gap} at {at}")
+    check(bad_gap > GRAD_BAND, f"the {label} check passes a planted K3 fault ({bad_gap})")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -8135,18 +8200,18 @@ def run_neox_train_phase(card: str) -> dict:
         losses.append(float(m["loss"]))
         step_ms.append(1e3 * (time.perf_counter() - t0))
         per_step = tuple(a - b for a, b in zip(flash_counts(), prev))
-        check(per_step == want, f"neox train step {i}: (K1, K2, K3) launches {per_step}, "
+        check(per_step == want, f"{label} step {i}: (K1, K2, K3) launches {per_step}, "
               f"want {want}")
         launches = tuple(a + b for a, b in zip(launches, per_step))
-    check(all(np.isfinite(losses)), f"non-finite neox train loss: {losses}")
-    log(f"neox train: warm-up {warm_ms:.6f} ms, steps {[round(x, 6) for x in step_ms]} ms "
+    check(all(np.isfinite(losses)), f"non-finite {label} loss: {losses}")
+    log(f"{label}: warm-up {warm_ms:.6f} ms, steps {[round(x, 6) for x in step_ms]} ms "
         f"(median {float(np.median(step_ms)):.6f}), losses {losses}; (K1, K2, K3) launches "
         f"{launches} over {NEOX_TIMED_STEPS} steps; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.6f} GiB | {card}")
     del model, state, step
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(launches=launches, flash=run_flash_kernel_phase(card, cases=NEOX_FLASH_CASES))
+    return dict(launches=launches, flash=run_flash_kernel_phase(card, cases=cases))
 
 
 def neox_e2e(model, prompts, streams, label: str, card: str, check_margin: bool = True) -> float:
@@ -8161,16 +8226,80 @@ def neox_e2e(model, prompts, streams, label: str, card: str, check_margin: bool 
     return worst
 
 
+def neox_paged_serve(card: str, name: str, label: str, chunked: bool = False,
+                     pools=(("bf16", False),)) -> dict:
+    """The GPT-NeoX config ``name`` at full width, NEOX_SERVE_LAYERS layers,
+    bf16, K4 on: Serve's prompts (ids modulo the vocab) over 8 lanes, eager
+    with every K4 call's geometry recorded (``moe_serve`` unrouted, its short
+    prefill ladder), every served token within NEOX_LOGIT_MARGIN of the
+    plain forward; the same serve through a planted K4 fault (the newest row
+    left out) above it; the prewarmed twin's streams (the near-tie rule).
+    With ``chunked``, a twin with NEOX20B_CHUNK-token prefill chunks whose
+    every later chunk the kernel takes at t = NEOX20B_CHUNK (at G 1 past the
+    tile source's 128 rows: csrc/paged_decode.cu), its tokens within the
+    margin too. Then K4 at every geometry the eager serves launched against
+    its plain version, in each of ``pools`` (the first timed, the others
+    checked; at D 96 the check must reject scores that leave out columns
+    64-95). Returns the first pool's records by source, each with its
+    launches over the serves."""
+    from neuronx_distributed_llama3_2_tpu_torch.models.gptneox import (
+        GPTNEOX_CONFIGS,
+        GPTNeoXForCausalLM,
+    )
+    from neuronx_distributed_llama3_2_tpu_torch.quantization.quantize import weight_bytes
+
+    full = GPTNEOX_CONFIGS[name]
+    cfg = dataclasses.replace(full, num_layers=NEOX_SERVE_LAYERS, use_paged_kernel=True,
+                              max_seq_len=2048)
+    model = GPTNeoXForCausalLM(cfg, device="cuda").init_weights(SEED)
+    prompts = moe_prompts(cfg.vocab_size)
+    log(f"{label}: {name} widths ({cfg.num_heads} / {cfg.num_kv_heads} heads, G "
+        f"{cfg.num_heads // cfg.num_kv_heads}, D {cfg.head_dim}, hidden {cfg.hidden_size}), "
+        f"depth cut to {cfg.num_layers} of {full.num_layers} layers, bf16, seeded random "
+        f"weights ({weight_bytes(model)} B); Serve's prompts, ids modulo {cfg.vocab_size} | "
+        f"{card}")
+    s8, l8, served, _, _ = moe_serve(cfg, model, prompts, 8, False, card, label, routed=False)
+    neox_e2e(model, prompts, s8, label, card)
+    with model_kernel_call(newest_row_dropped):
+        sf, _, _, _, _ = moe_serve(cfg, model, prompts, 8, False, card, label + " fault",
+                                   routed=False)
+    bad = neox_e2e(model, prompts, sf, label + " planted fault (K4's newest row left out)",
+                   card, check_margin=False)
+    check(bad > NEOX_LOGIT_MARGIN, f"the {label} e2e check passes a planted K4 fault ({bad})")
+    t8, lt8, _, _, _ = moe_serve(cfg, model, prompts, 8, True, card, label + " prewarmed",
+                                 routed=False)
+    differ = same_streams(label + " prewarmed", model, prompts, t8, s8, list(range(len(prompts))))
+    log(f"{label} prewarmed: {len(prompts) - len(differ)} of {len(prompts)} streams equal to the "
+        f"eager serve's (the rest near ties) | {card}")
+    launched = {s: l8[s] + lt8[s] for s in l8}
+    if chunked:
+        ccfg = dataclasses.replace(cfg, paged_kernel_max_t=NEOX20B_CHUNK)
+        sc, lc, c_served, _, _ = moe_serve(
+            ccfg, model, prompts, 8, False, card, label + " chunked", routed=False,
+            prefill_chunk_tokens=NEOX20B_CHUNK, prefill_buckets=NEOX20B_CHUNK_BUCKETS)
+        neox_e2e(model, prompts, sc, label + " chunked", card)
+        check(lc["split"] > 0, f"{label} chunked: no chunk reached paged_decode.cu ({lc})")
+        launched = {s: launched[s] + lc[s] for s in launched}
+        for k, e in c_served.items():
+            served.setdefault(k, dict(e, calls=0))["calls"] += e["calls"]
+    records = {}
+    for i, (kv_dtype, mxu) in enumerate(pools):
+        got, _ = run_paged_kernel_phase(cfg, served, card, kv_dtype=kv_dtype, mxu=mxu,
+                                        grid=False, probes=False, time_served=i == 0)
+        records = records or got
+    want = {s for s, n in launched.items() if n}
+    check(set(records) == want, f"{label}: K4 sources served {list(records)}, launched {want}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {s: dict(records[s], launches=launched[s]) for s in records}
+
+
 def run_neox_serve_phase(card: str) -> dict:
-    """(a) Pythia-6.9B widths, NEOX_SERVE_LAYERS layers, bf16, K4 on:
-    Serve's prompts (ids modulo the vocab) over 8 lanes, eager with every
-    K4 call's geometry recorded (``moe_serve`` unrouted, its short prefill
-    ladder), every served token within NEOX_LOGIT_MARGIN of the plain
-    forward; the same serve through a planted K4 fault (the newest row left
-    out) above it; the prewarmed twin's streams (the near-tie rule); K4 t1
-    and tile at the served G 1 geometries against their plain versions.
-    (b) CodeGen2.5-7B widths (interleaved rotary on half the head, the
-    shared LayerNorm, gelu_new, the head's bias), CODEGEN_SERVE_LAYERS
+    """(a) Pythia-6.9B widths (32 / 32 heads, G 1, D 128): ``neox_paged_serve``,
+    K4 t1 and tile at the served G 1 geometries against their plain
+    versions. (b) CodeGen2.5-7B widths (interleaved rotary on half the head,
+    the shared LayerNorm, gelu_new, the head's bias), CODEGEN_SERVE_LAYERS
     layers, 4 lanes, eager, within the margin. Returns K4's records and
     launches at G 1."""
     from neuronx_distributed_llama3_2_tpu_torch.models.gptneox import (
@@ -8179,33 +8308,8 @@ def run_neox_serve_phase(card: str) -> dict:
     )
     from neuronx_distributed_llama3_2_tpu_torch.quantization.quantize import weight_bytes
 
-    cfg = dataclasses.replace(GPTNEOX_CONFIGS["pythia-6.9b"], num_layers=NEOX_SERVE_LAYERS,
-                              use_paged_kernel=True, max_seq_len=2048)
-    model = GPTNeoXForCausalLM(cfg, device="cuda").init_weights(SEED)
-    prompts = moe_prompts(cfg.vocab_size)
-    log(f"neox serve: pythia-6.9b widths (32 / 32 heads, G 1, D 128), depth cut to "
-        f"{cfg.num_layers} of 32 layers, bf16, seeded random weights ({weight_bytes(model)} B); "
-        f"Serve's prompts, ids modulo {cfg.vocab_size} | {card}")
-    label = "neox serve pythia"
-    s8, l8, served, _, _ = moe_serve(cfg, model, prompts, 8, False, card, label, routed=False)
-    neox_e2e(model, prompts, s8, label, card)
-    with model_kernel_call(newest_row_dropped):
-        sf, _, _, _, _ = moe_serve(cfg, model, prompts, 8, False, card, label + " fault",
-                                   routed=False)
-    bad = neox_e2e(model, prompts, sf, label + " planted fault (K4's newest row left out)",
-                   card, check_margin=False)
-    check(bad > NEOX_LOGIT_MARGIN, f"the neox serve e2e check passes a planted K4 fault ({bad})")
-    t8, lt8, _, _, _ = moe_serve(cfg, model, prompts, 8, True, card, label + " prewarmed",
-                                 routed=False)
-    differ = same_streams(label + " prewarmed", model, prompts, t8, s8, list(range(len(prompts))))
-    log(f"{label} prewarmed: {len(prompts) - len(differ)} of {len(prompts)} streams equal to the "
-        f"eager serve's (the rest near ties) | {card}")
-    records, _ = run_paged_kernel_phase(cfg, served, card, grid=False, probes=False)
-    check(set(records) == {"t1", "tile"}, f"neox serve: K4 sources served {list(records)}")
-    out = {s: dict(records[s], launches=l8[s] + lt8[s]) for s in ("t1", "tile")}
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    out = neox_paged_serve(card, "pythia-6.9b", "neox serve pythia")
+    check(set(out) == {"t1", "tile"}, f"neox serve: K4 sources served {list(out)}")
 
     ccfg = dataclasses.replace(GPTNEOX_CONFIGS["codegen25-7b"], num_layers=CODEGEN_SERVE_LAYERS,
                                use_paged_kernel=True, max_seq_len=2048)
@@ -8223,6 +8327,19 @@ def run_neox_serve_phase(card: str) -> dict:
     del cmodel
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def run_neox20b_serve_phase(card: str) -> dict:
+    """gpt-neox-20b widths (64 / 64 heads, G 1, D 96: K4's D 96 instances):
+    ``neox_paged_serve`` with the chunked twin, so that the serves launch
+    all three K4 sources (t1 the decode, tile the suffix prefills and short
+    last chunks, paged_decode.cu the 256-token chunks), and K4 at every
+    served geometry in NEOX20B_POOLS. Returns the bf16 records by source
+    with their launches."""
+    out = neox_paged_serve(card, "gpt-neox-20b", "neox20b serve", chunked=True,
+                           pools=NEOX20B_POOLS)
+    check(set(out) == {"t1", "tile", "split"}, f"neox20b serve: K4 sources served {list(out)}")
     return out
 
 
@@ -8830,15 +8947,16 @@ def main() -> int:
         for line in r.ptxas.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {r.name}: {line.strip()}")
-    # the instances (D = 64, 128) of each kernel written for one block to
-    # hold a whole tile in registers must not spill, and ptxas must not
+    # the instances (D = 64, 96, 128) of each kernel written for one block
+    # to hold a whole tile in registers must not spill, and ptxas must not
     # serialize a wgmma product (warning C7520); the spill readings each
-    # source must show (two a kernel: stores, loads), paged_decode_tile's
-    # ten main kernels (D x bf16, int8 and fp8 in modes 3 and 6) and
-    # paged_decode_t1's twelve (D x payload layout x group of 4 or 8) among
-    # them
-    for name, readings in (("paged_decode_tile", 20), ("paged_decode_t1", 24),
-                           ("flash_fwd", 4), ("flash_bwd", 4)):
+    # source must show at least (two a kernel: stores, loads):
+    # paged_decode_tile's fifteen main kernels (D x bf16, int8 and fp8 in
+    # modes 3 and 6), paged_decode_t1's eighteen (D x payload layout x group
+    # of 4 or 8), flash_fwd's six (D x the segment instance) and flash_bwd's
+    # twelve (D x K2, K3 x the segment instance)
+    for name, readings in (("paged_decode_tile", 30), ("paged_decode_t1", 36),
+                           ("flash_fwd", 12), ("flash_bwd", 24)):
         ptxas = built[name].ptxas
         if ptxas:  # empty when the library was built by an earlier process
             spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas)]
@@ -9042,6 +9160,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     neox_train = timed("neox train", run_neox_train_phase, card)
     neox_serve = timed("neox serve", run_neox_serve_phase, card)
+    # gpt-neox-20b (D 96): its step through K1-K3's D 96 instances, its
+    # serves through K4's (all three sources, every pool kind held)
+    neox20b_train = timed("neox20b train", run_neox_train_phase, card, "gpt-neox-20b",
+                          NEOX20B_FLASH_CASES, "neox20b train")
+    neox20b_serve = timed("neox20b serve", run_neox20b_serve_phase, card)
     timed("bert train", run_bert_train_phase, card)
     # Mllama: the 11B-Vision serve behind MllamaDecoder, and the 11B-widths
     # train step (its vision tower at full depth)
@@ -9153,11 +9276,13 @@ def main() -> int:
                 name=f"paged_decode_{src}_{tag}", route="cuda", source=fa_src + file,
                 replaces=k4, **moe_serve[key][src],
             ))
-    # K1-K3 at the LoRA step's shape (the 1B's heads, batch 2) and at
-    # Pythia's (MHA, G 1, D 128): the phases' launches and records; K4 at
-    # the Pythia serve's G 1 geometries (the t1 source pads G 1 to 4 rows),
-    # launched by the Pythia serves and the CodeGen serve
-    for tag, rec in (("lora", lora_train), ("neox", neox_train)):
+    # K1-K3 at the LoRA step's shape (the 1B's heads, batch 2), at Pythia's
+    # (MHA, G 1, D 128) and at gpt-neox-20b's (MHA, G 1, D 96): the phases'
+    # launches and records; K4 at the Pythia serve's G 1 geometries (the t1
+    # source pads G 1 to 4 rows), launched by the Pythia serves and the
+    # CodeGen serve, and at the gpt-neox-20b serves' (D 96; its chunked twin
+    # launches csrc/paged_decode.cu)
+    for tag, rec in (("lora", lora_train), ("neox", neox_train), ("neox20b", neox20b_train)):
         for kn, name, src, line in flash_kernels:
             kernels.append(dict(
                 name=f"{name}_{tag}", route="cuda", source=fa_src + src,
@@ -9167,6 +9292,12 @@ def main() -> int:
         kernels.append(dict(
             name=f"paged_decode_{src}_neox", route="cuda", source=fa_src + file, replaces=k4,
             **neox_serve[src],
+        ))
+    for src, file in (("t1", "paged_decode_t1.cu"), ("tile", "paged_decode_tile.cu"),
+                      ("split", "paged_decode.cu")):
+        kernels.append(dict(
+            name=f"paged_decode_{src}_neox20b", route="cuda", source=fa_src + file,
+            replaces=k4, **neox20b_serve[src],
         ))
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the main path was never launched: "

@@ -68,7 +68,13 @@
 // three stages, two blocks an SM at D = 64 (122 registers); K3 streams q
 // tiles of 64 rows through three stages, one block an SM (dk and dv, 64 x D
 // fp32 each a warpgroup, live across the walk: 168 registers at D = 64, 230
-// at D = 128). Neither instance of either kernel spills. In K2 the
+// at D = 128). Neither instance of either kernel spills. D = 96
+// (gpt-neox-20b) takes D = 128's layout, two 64-column boxes a row, the
+// second one's columns 96-127 zero-filled by the copy (flash_fwd.cu): the
+// score products run 6 k-steps, the gradient products are wgmma of n = 96
+// (dq 12 C tiles, dk and dv 12 each), one block an SM (K2 146-156, K3
+// 202-206 registers over the instances with and without segment ids, no
+// spill). In K2 the
 // exponentials of a tile run while its dP product does; the same overlap in
 // K3 measured no faster.
 //
@@ -96,15 +102,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
 
 // K2's tile geometry and shared-memory layout for head dim D: from a
-// 1024-byte aligned base, Q and dO (D / 64 boxes of 128 rows each), then
-// STAGES x (K tile, V tile) (D / 64 boxes of KV rows each), then the
-// mbarriers.
+// 1024-byte aligned base, Q and dO (ceil(D / 64) boxes of 128 rows each),
+// then STAGES x (K tile, V tile) (ceil(D / 64) boxes of KV rows each), then
+// the mbarriers.
 template <int D>
 struct Dq {
   static constexpr int kKv = 64;  // kv rows of a tile
   static constexpr int kStages = 3;
   static constexpr int kMinBlocks = D == 64 ? 2 : 1;  // blocks an SM
-  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;
   static constexpr int kQBox = kBlockRows * kRowBytes;  // bytes of a Q or dO box
   static constexpr int kKvBox = kKv * kRowBytes;        // bytes of a K or V box
   static constexpr int kQBytes = kBoxes * kQBox;        // Q (or dO)
@@ -115,14 +121,14 @@ struct Dq {
   static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
 };
 
-// K3's: K and V (D / 64 boxes of 128 rows each), then STAGES x (Q tile, dO
-// tile (D / 64 boxes of QT rows each), lse, delta (QT fp32 each)), each
-// stage rounded up to 1024 bytes, then the mbarriers.
+// K3's: K and V (ceil(D / 64) boxes of 128 rows each), then STAGES x (Q
+// tile, dO tile (ceil(D / 64) boxes of QT rows each), lse, delta (QT fp32
+// each)), each stage rounded up to 1024 bytes, then the mbarriers.
 template <int D>
 struct Dkv {
   static constexpr int kQt = 64;  // q rows of a streamed tile
   static constexpr int kStages = 3;
-  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;
   static constexpr int kKvBox = kBlockRows * kRowBytes;  // bytes of a K or V box
   static constexpr int kKvBytes = kBoxes * kKvBox;       // K (or V)
   static constexpr int kQBox = kQt * kRowBytes;          // bytes of a Q or dO box
@@ -629,6 +635,10 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
       return static_cast<int>(launch_dq<64>(q, k, v, dout, lse, delta, dq, seg,
                                             b, n_heads, nkv, sq, skv, causal,
                                             sm_scale, st));
+    case 96:
+      return static_cast<int>(launch_dq<96>(q, k, v, dout, lse, delta, dq, seg,
+                                            b, n_heads, nkv, sq, skv, causal,
+                                            sm_scale, st));
     case 128:
       return static_cast<int>(launch_dq<128>(q, k, v, dout, lse, delta, dq, seg,
                                              b, n_heads, nkv, sq, skv, causal,
@@ -651,6 +661,10 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
   switch (head_dim) {
     case 64:
       return static_cast<int>(launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv,
+                                             seg, b, n_heads, nkv, sq, skv,
+                                             causal, sm_scale, st));
+    case 96:
+      return static_cast<int>(launch_dkv<96>(q, k, v, dout, lse, delta, dk, dv,
                                              seg, b, n_heads, nkv, sq, skv,
                                              causal, sm_scale, st));
     case 128:

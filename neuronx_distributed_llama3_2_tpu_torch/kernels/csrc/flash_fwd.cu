@@ -56,7 +56,13 @@
 // one's loads and epilogue run beside the other's tiles (128 kv rows took
 // 155 registers, one block an SM, and 13 % longer at the train shape); at
 // D = 128, 128 kv rows, 225 KB and 182 registers, one block an SM. Neither
-// spills. A producer warp of its own (setmaxnreg) and scheduling the two
+// spills. D = 96 (gpt-neox-20b) is no multiple of the 64-column swizzled
+// box: its rows are D = 128's two boxes, the second one's columns 96-127
+// zero-filled by the copy (the map's inner extent is 96), so it takes
+// D = 128's tiles, 128 kv rows and 225 KB; S = Q K^T runs 6 k-steps, the
+// last two in the second box, and O += P V is one wgmma of n = 96 whose
+// last 32 columns are the second box's first 32 (173 registers, 175 with
+// segment ids, no spill). No operand is padded in device memory. A producer warp of its own (setmaxnreg) and scheduling the two
 // warpgroups' products in turns are later work; running S of tile kt
 // beside P V of tile kt - 1 in one warpgroup measured slower.
 //
@@ -89,13 +95,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // tile geometry and shared-memory layout for head dim D: from a 1024-byte
-// aligned base, Q (D / 64 boxes of 128 rows), then STAGES x (K tile, V
-// tile) (D / 64 boxes of KV rows each), then the mbarriers.
+// aligned base, Q (ceil(D / 64) boxes of 128 rows), then STAGES x (K tile,
+// V tile) (ceil(D / 64) boxes of KV rows each), then the mbarriers.
 template <int D>
 struct Fwd {
   static constexpr int kKv = D == 64 ? 64 : 128;        // kv rows of a tile
   static constexpr int kStages = 3;
-  static constexpr int kBoxes = D / kBoxCols;
+  // boxes of 64 columns: at D = 96 the second one's last 32 are zero
+  static constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;
   static constexpr int kQBox = kQRows * kRowBytes;      // bytes of a Q box
   static constexpr int kKvBox = kKv * kRowBytes;        // bytes of a K or V box
   static constexpr int kQBytes = kBoxes * kQBox;
@@ -371,6 +378,9 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   switch (head_dim) {
     case 64:
       return static_cast<int>(launch<64>(q, k, v, o, lse, seg, b, n_heads, nkv,
+                                         sq, skv, causal, sm_scale, st));
+    case 96:
+      return static_cast<int>(launch<96>(q, k, v, o, lse, seg, b, n_heads, nkv,
                                          sq, skv, causal, sm_scale, st));
     case 128:
       return static_cast<int>(launch<128>(q, k, v, o, lse, seg, b, n_heads, nkv,

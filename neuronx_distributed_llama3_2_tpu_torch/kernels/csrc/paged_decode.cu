@@ -119,8 +119,9 @@ __host__ __device__ constexpr size_t smem_words(int tr, int d, bool int8_mxu) {
 }
 
 // One pool block of one kv head: kBlockRows rows of D values, loaded as
-// vectors of 8 values, kVec vectors per thread per tensor, and the scale
-// of each row a thread's vectors cover.
+// vectors of 8 values, up to kVec vectors per thread per tensor (at D = 96
+// the block's 192 vectors are two for the first 64 threads, one for the
+// rest), and the scale of each row a thread's vectors cover.
 template <int L, int D>
 struct BlockTile {
   using P = Payload<L>;
@@ -128,10 +129,10 @@ struct BlockTile {
   using Vec = typename P::Vec;
   static constexpr bool kQuant = L != kLayoutBf16;
   static constexpr int kVecPerRow = D / 8;
-  static constexpr int kVec = kBlockRows * kVecPerRow / kThreads;
+  static constexpr int kVecs = kBlockRows * kVecPerRow;  // of one tensor
+  static constexpr int kVec = (kVecs + kThreads - 1) / kThreads;
   static_assert(sizeof(Vec) == 8 * sizeof(T), "a vector holds 8 values");
-  static_assert(kVec >= 1 && kBlockRows * kVecPerRow % kThreads == 0,
-                "tile must split evenly over the threads");
+  static_assert(D % 8 == 0 && kVecs >= kThreads, "every thread holds a vector");
   Vec k[kVec];
   Vec v[kVec];
   __half ks[kVec];
@@ -144,6 +145,7 @@ struct BlockTile {
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
       const int e = tid + j * kThreads;
+      if (kVecs % kThreads != 0 && e >= kVecs) break;  // e grows with j
       const int row = e / kVecPerRow, c = e % kVecPerRow;
       // this head's rows of the pool block are strided by NKV * D elements
       const size_t srow = (blk * kBlockRows + row) * nkv + h;
@@ -165,6 +167,7 @@ struct BlockTile {
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
       const int e = tid + j * kThreads;
+      if (kVecs % kThreads != 0 && e >= kVecs) break;
       const int row = e / kVecPerRow, c = e % kVecPerRow;
       const T* kb = reinterpret_cast<const T*>(&k[j]);
       const T* vb = reinterpret_cast<const T*>(&v[j]);
@@ -524,6 +527,8 @@ extern "C" int paged_decode(
   switch (head_dim) {
     case 64:
       return static_cast<int>(launch_kind<64>(a, kv_kind, quant_mxu != 0));
+    case 96:
+      return static_cast<int>(launch_kind<96>(a, kv_kind, quant_mxu != 0));
     case 128:
       return static_cast<int>(launch_kind<128>(a, kv_kind, quant_mxu != 0));
     default:

@@ -46,15 +46,20 @@
 //   One __syncthreads() a block step both publishes a stage and frees the
 //   one the next copy refills;
 // - the scores spread over all 128 threads: each warp takes its 4 rows of
-//   each 16-row block, D / 8 lanes a row, 8 columns a lane, with the query
-//   rows in shared memory (a layout whose float4 reads are free of bank
-//   conflicts). The G dot products of a row are reduce-scattered over its
-//   lanes, so that each lane ends with one (row, query head) score and the
-//   softmax's exponentials are not repeated on every lane of the row. Each
-//   warp keeps its own online softmax (m, l) of each query head; the rows'
-//   bf16-rounded p and the heads' rescale factors go to every lane of the
-//   warp through shared memory, and each lane accumulates p.V for D / 32
-//   columns of every query head. The warps' (acc, m, l) are merged once, at
+//   each 16-row block, a power of two of lanes a row (8 at D = 64, 16 at
+//   D = 96 and 128), 8 columns a lane, with the query rows in shared memory
+//   (a layout whose float4 reads are free of bank conflicts). At D = 96 the
+//   last 4 lanes of a row hold no column and add 0: a row's lanes stay an
+//   aligned power-of-two group, which the xor shuffles below need (12 lanes
+//   of 8 columns would not be, and 16 lanes of 6 columns would break the
+//   16-byte K loads and the 4-byte dp4a steps). The G dot products of a row
+//   are reduce-scattered over its lanes, so that each lane ends with one
+//   (row, query head) score and the softmax's exponentials are not repeated
+//   on every lane of the row. Each warp keeps its own online softmax (m, l)
+//   of each query head; the rows' bf16-rounded p and the heads' rescale
+//   factors go to every lane of the warp through shared memory, and each
+//   lane accumulates p.V for D / 32 columns (2, 3 or 4) of every query
+//   head. The warps' (acc, m, l) are merged once, at
 //   the end of the split, through shared memory that the ring no longer
 //   needs. The group is padded to 4 or 8 query rows at compile time, so
 //   that no loop over the heads branches;
@@ -124,9 +129,13 @@ __host__ __device__ constexpr int smem_bytes(int kg, int d, int elem, bool quant
                                  max_of(kWarps * kg * (d + 2) * 4, 2 * splits * kg * 4));
 }
 
-// N elements of type T, as one aligned load
+// the largest power of two that divides n
+__host__ __device__ constexpr int pow2_factor(int n) { return n & -n; }
+
+// N elements of type T, as one load aligned to the largest power of two
+// their bytes allow (N = 3 at D = 96: three element loads)
 template <typename T, int N>
-struct alignas(sizeof(T) * N) Pack {
+struct alignas(pow2_factor(sizeof(T) * N)) Pack {
   T v[N];
 };
 
@@ -144,11 +153,11 @@ __device__ __forceinline__ void stage_block(unsigned char* dst,
   using T = typename Payload<L>::T;
   constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;  // 16-byte chunks of a row
   constexpr int kPayload = kBlockRows * D * static_cast<int>(sizeof(T));
-  constexpr int kCopies = 2 * kBlockRows * kChunks;
-  static_assert(kCopies % kThreads == 0, "a stage's copies split evenly over the threads");
+  constexpr int kCopies = 2 * kBlockRows * kChunks;  // 192 for an 8-bit payload at D = 96
 #pragma unroll
-  for (int j = 0; j < kCopies / kThreads; ++j) {
+  for (int j = 0; j < (kCopies + kThreads - 1) / kThreads; ++j) {
     const int e = tid + j * kThreads;
+    if (kCopies % kThreads != 0 && e >= kCopies) break;  // e grows with j
     const int tensor = e / (kBlockRows * kChunks);  // 0: K, 1: V
     const int r = (e / kChunks) % kBlockRows, c = e % kChunks;
     const T* src = (tensor ? v_pool : k_pool) + ((blk * kBlockRows + r) * nkv + h) * D;
@@ -318,14 +327,16 @@ paged_decode_t1_kernel(
   using P = Payload<L>;
   using T = typename P::T;
   constexpr bool kQuant = L != kLayoutBf16;
-  constexpr int kLanesPerRow = D / kVec;                           // 8 or 16
+  constexpr int kLiveLanes = D / kVec;                             // lanes holding columns
+  constexpr int kLanesPerRow = kLiveLanes <= 8 ? 8 : 16;           // 8, or 16 at D = 96, 128
   constexpr int kRowsPerWarp = 32 / kLanesPerRow;                  // 4 or 2
   constexpr int kPasses = kBlockRows / (kWarps * kRowsPerWarp);    // 1 or 2
   constexpr int kWarpRows = kPasses * kRowsPerWarp;                // 4: a warp's rows of a block
-  constexpr int kCols = D / 32;                                    // p.V columns a lane owns
+  constexpr int kCols = D / 32;                                    // p.V columns a lane owns: 2-4
   constexpr int kPayload = kBlockRows * D * static_cast<int>(sizeof(T));
   constexpr int kPer = kG * D / kThreads;                          // q or output values a thread owns
-  static_assert(kG % 4 == 0 && kG <= kLanesPerRow && kG * D % kThreads == 0,
+  static_assert(kG % 4 == 0 && kG <= kLanesPerRow && kG * D % kThreads == 0 &&
+                    D % 32 == 0 && kLiveLanes <= kLanesPerRow,
                 "kG rows of D split over the threads and over a row's lanes");
   const bool int8_mxu = L == kLayoutInt8 && mxu;
   const bool fp8_mxu = L == kLayoutFp8 && mxu;
@@ -431,11 +442,13 @@ paged_decode_t1_kernel(
   }
 
   // this lane: row sub of its warp's rows of a pass and columns d0 .. d0 +
-  // 7 in the score step, after which it holds the score of query row my_g;
-  // columns c0 .. c0 + kCols - 1 of every query row in p.V
+  // 7 in the score step (none past D: the lane adds 0), after which it
+  // holds the score of query row my_g; columns c0 .. c0 + kCols - 1 of
+  // every query row in p.V
   const int sub = lane / kLanesPerRow;
   const int c8 = lane % kLanesPerRow;
   const int d0 = c8 * kVec;
+  const bool cols = kLiveLanes == kLanesPerRow || c8 < kLiveLanes;
   const int c0 = lane * kCols;
   const int my_g = scatter_index<kG, kLanesPerRow / 2>(lane);
   const float my_qscl = int8_mxu ? qscl_s[my_g] : 0.f;
@@ -478,20 +491,22 @@ paged_decode_t1_kernel(
 #pragma unroll
     for (int p = 0; p < kPasses; ++p) {
       const int r = (p * kWarps + warp) * kRowsPerWarp + sub;
-      const typename P::Vec kv = *reinterpret_cast<const typename P::Vec*>(k_s + r * D + d0);
-      const T* kb = reinterpret_cast<const T*>(&kv);
       __half ks = __float2half(0.f);
       if constexpr (kQuant) ks = ks_s[r * nkv + h];
       float score;
       if (int8_mxu) {
         int dot[kG];
 #pragma unroll
-        for (int g = 0; g < kG; ++g) {
-          dot[g] = 0;
-          if constexpr (L == kLayoutInt8) {
-            const uint2 qw = *reinterpret_cast<const uint2*>(qi_s + g * D + d0);
-            dot[g] = __dp4a(static_cast<int>(qw.x), static_cast<int>(kv.x), 0);
-            dot[g] = __dp4a(static_cast<int>(qw.y), static_cast<int>(kv.y), dot[g]);
+        for (int g = 0; g < kG; ++g) dot[g] = 0;
+        if constexpr (L == kLayoutInt8) {
+          if (cols) {
+            const uint2 kv = *reinterpret_cast<const uint2*>(k_s + r * D + d0);
+#pragma unroll
+            for (int g = 0; g < kG; ++g) {
+              const uint2 qw = *reinterpret_cast<const uint2*>(qi_s + g * D + d0);
+              dot[g] = __dp4a(static_cast<int>(qw.x), static_cast<int>(kv.x), 0);
+              dot[g] = __dp4a(static_cast<int>(qw.y), static_cast<int>(kv.y), dot[g]);
+            }
           }
         }
         reduce_scatter<kG, kLanesPerRow / 2>(dot, lane);
@@ -499,19 +514,26 @@ paged_decode_t1_kernel(
                                     __half2float(ks)),
                           sm_scale);
       } else {
-        float kf[kVec];
-#pragma unroll
-        for (int x = 0; x < kVec; ++x) {
-          const float raw = P::widen(kb[x], e5m2);
-          kf[x] = (kQuant && !mxu) ? dequant(raw, ks) : raw;
-        }
         float dot[kG];
 #pragma unroll
-        for (int g = 0; g < kG; ++g) {
-          const float4 qa = *reinterpret_cast<const float4*>(q_s + g * D + 4 * c8);
-          const float4 qb = *reinterpret_cast<const float4*>(q_s + g * D + D / 2 + 4 * c8);
-          dot[g] = qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
-                   qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
+        for (int g = 0; g < kG; ++g) dot[g] = 0.f;
+        if (cols) {
+          const typename P::Vec kv =
+              *reinterpret_cast<const typename P::Vec*>(k_s + r * D + d0);
+          const T* kb = reinterpret_cast<const T*>(&kv);
+          float kf[kVec];
+#pragma unroll
+          for (int x = 0; x < kVec; ++x) {
+            const float raw = P::widen(kb[x], e5m2);
+            kf[x] = (kQuant && !mxu) ? dequant(raw, ks) : raw;
+          }
+#pragma unroll
+          for (int g = 0; g < kG; ++g) {
+            const float4 qa = *reinterpret_cast<const float4*>(q_s + g * D + 4 * c8);
+            const float4 qb = *reinterpret_cast<const float4*>(q_s + g * D + D / 2 + 4 * c8);
+            dot[g] = qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
+                     qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
+          }
         }
         reduce_scatter<kG, kLanesPerRow / 2>(dot, lane);
         score = fp8_mxu ? __fmul_rn(__fmul_rn(dot[0], __half2float(ks)), sm_scale)
@@ -717,7 +739,7 @@ cudaError_t launch_kind(const Args& a, int kind, bool mxu) {
 // that share it must not run at the same time (one stream). kv_kind numbers
 // the payload (0 bf16, 1 int8, 2 fp8 e4m3, 3 fp8 e5m2) and quant_mxu
 // selects mode 6 for a quantized one; the stream is the caller's current
-// CUDA stream. Takes head_dim 64 or 128, block_size 16, G <= 8. Returns a
+// CUDA stream. Takes head_dim 64, 96 or 128, block_size 16, G <= 8. Returns a
 // cudaError_t: 0 when the launch was accepted.
 extern "C" int paged_decode_t1(
     const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
@@ -737,6 +759,8 @@ extern "C" int paged_decode_t1(
   switch (head_dim) {
     case 64:
       return static_cast<int>(launch_kind<64>(a, kv_kind, quant_mxu != 0));
+    case 96:
+      return static_cast<int>(launch_kind<96>(a, kv_kind, quant_mxu != 0));
     case 128:
       return static_cast<int>(launch_kind<128>(a, kv_kind, quant_mxu != 0));
     default:

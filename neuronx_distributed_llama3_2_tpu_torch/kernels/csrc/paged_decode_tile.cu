@@ -71,7 +71,10 @@
 //   (acc, m, l) go to an fp32 scratch in paged_decode.cu's layout, and a
 //   second kernel merges them (log-sum-exp) into the (b, t, N, D) output,
 //   one thread per output element.
-// No TMA or wgmma: a 16-row pool block is one m16 tile per warp.
+// No TMA or wgmma: a 16-row pool block is one m16 tile per warp. Nothing
+// here needs D to be a power of two: D = 96 (gpt-neox-20b) runs 12 C tiles,
+// 6 bf16 k chunks or 3 8-bit k steps, and its padded rows (104 bf16, 112
+// payload bytes) keep the fragment loads on 32 distinct banks.
 //
 // Numerics (the plain version is paged_flash_decode_reference in
 // kernels/paged_attention.py): scores are fp32 products of the bf16
@@ -691,7 +694,7 @@ cudaError_t launch_kind(const Args& a, int kind, bool mxu) {
 // passes per-node ancestor masks); kv_kind numbers the payload (0 bf16,
 // 1 int8, 2 fp8 e4m3, 3 fp8 e5m2) and quant_mxu selects mode 6 for a
 // quantized one; the stream is the caller's current CUDA stream. Takes
-// 2 <= t, t * G <= 128, head_dim 64 or 128, block_size 16, and t <= 32
+// 2 <= t, t * G <= 128, head_dim 64, 96 or 128, block_size 16, and t <= 32
 // under tree_bits. Returns a cudaError_t: 0 when both launches were
 // accepted.
 extern "C" int paged_decode_tile(
@@ -713,6 +716,8 @@ extern "C" int paged_decode_tile(
   switch (head_dim) {
     case 64:
       return static_cast<int>(launch_kind<64>(a, kv_kind, quant_mxu != 0));
+    case 96:
+      return static_cast<int>(launch_kind<96>(a, kv_kind, quant_mxu != 0));
     case 128:
       return static_cast<int>(launch_kind<128>(a, kv_kind, quant_mxu != 0));
     default:

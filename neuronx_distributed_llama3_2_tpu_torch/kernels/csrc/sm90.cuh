@@ -6,9 +6,11 @@
 //
 // Tiles are staged by TMA in the 128-byte swizzle: a box of 64 bf16 columns
 // (128 bytes) by R rows lands as R rows of 128 bytes, the 16-byte chunk c of
-// row r stored at chunk c ^ (r % 8). A wider row (D = 128) is two such
-// boxes, one after the other. The swizzle is a function of the shared
-// address, so every box starts on a 1024-byte boundary.
+// row r stored at chunk c ^ (r % 8). A wider row is ceil(D / 64) such
+// boxes, one after the other: at D = 128 two full ones, at D = 96 a full
+// one and one whose columns past the tensor's 96 are zero-filled by the
+// copy. The swizzle is a function of the shared address, so every box
+// starts on a 1024-byte boundary.
 //
 // wgmma (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply"): the four
 // warps of a warpgroup issue one 64 x N x 16 product together. Warp w owns
@@ -28,7 +30,8 @@
 // - MN-major (V as the B of P V, its n = D running along the row, with the
 //   transpose bit): the 16 k rows of a step are two 8-row groups 1024 bytes
 //   apart (the stride offset), and columns 64 .. 127 lie in the next box
-//   (the leading offset: one box's bytes).
+//   (the leading offset: one box's bytes). A product of n = 96 reads
+//   columns 64 .. 95 of that box and none of its zero-filled rest.
 //
 // A (rows, d) bf16 operand is staged through a 3-D tensor map over (mats,
 // rows, d) (make_map); an fp32 vector that a tile reads one value a row of
@@ -165,14 +168,22 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 #define SM90_ACC32                                                                 \
   SM90_ACC4(0), SM90_ACC4(1), SM90_ACC4(2), SM90_ACC4(3), SM90_ACC4(4), SM90_ACC4(5), \
       SM90_ACC4(6), SM90_ACC4(7)
-#define SM90_ACC64                                                                     \
-  SM90_ACC32, SM90_ACC4(8), SM90_ACC4(9), SM90_ACC4(10), SM90_ACC4(11), SM90_ACC4(12), \
-      SM90_ACC4(13), SM90_ACC4(14), SM90_ACC4(15)
+#define SM90_ACC48 \
+  SM90_ACC32, SM90_ACC4(8), SM90_ACC4(9), SM90_ACC4(10), SM90_ACC4(11)
+#define SM90_ACC64                                                                  \
+  SM90_ACC48, SM90_ACC4(12), SM90_ACC4(13), SM90_ACC4(14), SM90_ACC4(15)
 #define SM90_REGS32                                \
   "{%0, %1, %2, %3, %4, %5, %6, %7, "              \
   "%8, %9, %10, %11, %12, %13, %14, %15, "         \
   "%16, %17, %18, %19, %20, %21, %22, %23, "       \
   "%24, %25, %26, %27, %28, %29, %30, %31}"
+#define SM90_REGS48                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "              \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "         \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "       \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "       \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "       \
+  "%40, %41, %42, %43, %44, %45, %46, %47}"
 #define SM90_REGS64                                \
   "{%0, %1, %2, %3, %4, %5, %6, %7, "              \
   "%8, %9, %10, %11, %12, %13, %14, %15, "         \
@@ -218,6 +229,16 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[8][4], const uint32_t a[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[12][4], const uint32_t a[4],
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " SM90_REGS48
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : SM90_ACC48
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_rs_t(float (&d)[16][4], const uint32_t a[4],
                                            uint64_t b, int accumulate) {
   asm volatile(
@@ -230,8 +251,10 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[16][4], const uint32_t a[4
 
 #undef SM90_ACC4
 #undef SM90_ACC32
+#undef SM90_ACC48
 #undef SM90_ACC64
 #undef SM90_REGS32
+#undef SM90_REGS48
 #undef SM90_REGS64
 
 // ---- tensor maps (host) -------------------------------------------------

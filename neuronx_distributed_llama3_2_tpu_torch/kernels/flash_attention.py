@@ -43,16 +43,13 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from neuronx_distributed_llama3_2_tpu_torch.kernels.paged_attention import (
-    LaunchCounter,
-    refuse_queued_head_dim,
-)
+from neuronx_distributed_llama3_2_tpu_torch.kernels.paged_attention import LaunchCounter
 
 # plain-version chunking (the JAX dispatcher's defaults)
 DEFAULT_BLOCK_Q = 256
 DEFAULT_BLOCK_KV = 512
 # what csrc/flash_fwd.cu and csrc/flash_bwd.cu are compiled for
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 96, 128)
 
 #: launches of K1 (flash forward) in this process
 fwd_launches = LaunchCounter()
@@ -179,9 +176,7 @@ def flash_bwd_reference(
 def _route(name: str, q: torch.Tensor, k: torch.Tensor, segment_ids) -> str:
     """The device the kernel pair runs on, after checking ``segment_ids``:
     one (B, S) array with S = Sq = Skv, as ``_seg_operands`` pads one array
-    for both sides in the JAX package. A queued head dim raises on every
-    device."""
-    refuse_queued_head_dim(q.shape[-1], f"flash attention ({name}, K1-K3)")
+    for both sides in the JAX package."""
     dev = q.device.type
     if dev not in ("cpu", "cuda"):
         raise RuntimeError(

@@ -75,13 +75,7 @@ from neuronx_distributed_llama3_2_tpu_torch.quantization.kv_cache import (
 DEFAULT_NUM_SPLITS = 4
 # what the three CUDA sources are compiled for
 KERNEL_BLOCK_SIZE = 16
-KERNEL_HEAD_DIMS = (64, 128)
-#: head dims whose kernel instances are queued, with the ROADMAP.md item
-#: that adds them: a K1-K4 call at one of them raises on every device, so
-#: no path runs the plain version in a kernel's place
-QUEUED_HEAD_DIMS = {
-    96: "ROADMAP.md queue B item B1 (the D 96 instances of K1-K3 and K4, for gpt-neox-20b)",
-}
+KERNEL_HEAD_DIMS = (64, 96, 128)
 # tile rows (t * G) one block of csrc/paged_decode_tile.cu owns
 TILE_MAX_ROWS = 128
 # query heads of one kv head (G) a block of csrc/paged_decode_t1.cu serves
@@ -116,17 +110,6 @@ tile_launches = LaunchCounter()
 #: of those, the launches of csrc/paged_decode_t1.cu (the rest, neither
 #: tile nor t1, are csrc/paged_decode.cu's)
 t1_launches = LaunchCounter()
-
-
-def refuse_queued_head_dim(head_dim: int, what: str) -> None:
-    """Raise NotImplementedError when ``head_dim`` waits for its kernel
-    instances (:data:`QUEUED_HEAD_DIMS`), naming the item that adds them."""
-    item = QUEUED_HEAD_DIMS.get(head_dim)
-    if item is not None:
-        raise NotImplementedError(
-            f"{what} at head_dim {head_dim} waits for {item}; run the model with "
-            "use_flash_attention=False and use_paged_kernel=False (the plain path) until then"
-        )
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -381,7 +364,6 @@ def paged_flash_decode(
 ) -> torch.Tensor:
     """Gather-free paged decode attention; returns q's shape in q.dtype
     (see the module docstring for the semantics)."""
-    refuse_queued_head_dim(q.shape[-1], "the paged-decode kernel (K4)")
     _check_scales(k_pool, k_scale, v_scale, quant_mxu)
     squeeze = q.dim() == 3
     q4 = q[:, None] if squeeze else q

@@ -90,8 +90,8 @@ class GPTNeoXConfig(LlamaConfig):
 
 
 GPTNEOX_CONFIGS: Dict[str, GPTNeoXConfig] = {
-    # EleutherAI/gpt-neox-20b config.json (head_dim 96: flash attention and
-    # the paged kernel refuse it until their D 96 instances land, ROADMAP.md)
+    # EleutherAI/gpt-neox-20b config.json (head_dim 96: K1-K4 run it through
+    # their D 96 instances)
     "gpt-neox-20b": GPTNeoXConfig(
         vocab_size=50432, hidden_size=6144, intermediate_size=24576,
         num_layers=44, num_heads=64, num_kv_heads=64, head_dim=96,

@@ -5,7 +5,9 @@ On CPU tensors the port runs the plain versions of its CUDA kernels; the
 JAX side runs its Pallas kernels in interpret mode, as tests/test_kernels.py
 does. Inputs are drawn with numpy from a seed and handed to both. Shapes
 are small: S = 200 (not a multiple of the 128 block), D = 64, GQA groups
-of 2 and 4, causal and full.
+of 2 and 4, causal and full; and D = 96 (gpt-neox-20b's head dim, which
+K1-K3 take in instances of their own on the card) with G 1 and 2, causal
+and full, and under segment ids.
 
 Tolerances. fp32: both sides compute the same blockwise algorithm with the
 same kv blocks and differ only in summation order, so o and lse agree to
@@ -38,18 +40,20 @@ torch.set_num_threads(1)
 
 S, D, BLOCK = 200, 64, 128
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
-CASES = [(causal, dt, g) for causal in (True, False) for dt in DTYPES for g in (2, 4)]
-CASE_IDS = [f"{'causal' if c else 'full'}-{dt}-G{g}" for c, dt, g in CASES]
+CASES = [(causal, dt, g, D) for causal in (True, False) for dt in DTYPES for g in (2, 4)] + [
+    (causal, dt, g, 96) for causal in (True, False) for dt in DTYPES for g in (1, 2)]
+CASE_IDS = [f"{'causal' if c else 'full'}-{dt}-G{g}" + ("" if d == D else f"-D{d}")
+            for c, dt, g, d in CASES]
 
 
-def _inputs(g, seed=0, b=1, nkv=2, s=S):
-    """(B, N, S, D) q / do and (B, Nkv, S, D) k / v as fp32 numpy."""
+def _inputs(g, seed=0, b=1, nkv=2, s=S, d=D):
+    """(B, N, S, d) q / do and (B, Nkv, S, d) k / v as fp32 numpy."""
     rng = np.random.default_rng(seed)
     n = nkv * g
-    q = rng.standard_normal((b, n, s, D)).astype(np.float32)
-    k = rng.standard_normal((b, nkv, s, D)).astype(np.float32)
-    v = rng.standard_normal((b, nkv, s, D)).astype(np.float32)
-    do = rng.standard_normal((b, n, s, D)).astype(np.float32)
+    q = rng.standard_normal((b, n, s, d)).astype(np.float32)
+    k = rng.standard_normal((b, nkv, s, d)).astype(np.float32)
+    v = rng.standard_normal((b, nkv, s, d)).astype(np.float32)
+    do = rng.standard_normal((b, n, s, d)).astype(np.float32)
     return q, k, v, do
 
 
@@ -75,50 +79,51 @@ def _close(out, ref, dt, what, fp32_atol):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_fwd(causal, dt, g):
-    q, k, v, _ = _inputs(g)
+def _jax_fwd(causal, dt, g, d):
+    q, k, v, _ = _inputs(g, d=d)
     o, lse = jpfa._flash_fwd(
-        _j(q, dt), _j(k, dt), _j(v, dt), None, causal, D ** -0.5, BLOCK, BLOCK
+        _j(q, dt), _j(k, dt), _j(v, dt), None, causal, d ** -0.5, BLOCK, BLOCK
     )
     return np.asarray(o.astype(jnp.float32)), np.asarray(lse)
 
 
-@pytest.mark.parametrize("causal,dt,g", CASES, ids=CASE_IDS)
-def test_fwd_reference_matches_pallas(causal, dt, g):
-    q, k, v, _ = _inputs(g)
-    o_ref, lse_ref = _jax_fwd(causal, dt, g)
+@pytest.mark.parametrize("causal,dt,g,d", CASES, ids=CASE_IDS)
+def test_fwd_reference_matches_pallas(causal, dt, g, d):
+    q, k, v, _ = _inputs(g, d=d)
+    o_ref, lse_ref = _jax_fwd(causal, dt, g, d)
     o, lse = tfa.flash_fwd(
-        _t(q, dt), _t(k, dt), _t(v, dt), None, causal, D ** -0.5, BLOCK, BLOCK
+        _t(q, dt), _t(k, dt), _t(v, dt), None, causal, d ** -0.5, BLOCK, BLOCK
     )
     assert o.dtype == DTYPES[dt][1] and lse.dtype == torch.float32
     _close(o, o_ref, dt, "o", 2e-5)
     np.testing.assert_allclose(lse.numpy(), lse_ref, atol=1e-5, rtol=0, err_msg="lse")
 
 
-@pytest.mark.parametrize("causal,dt,g", CASES, ids=CASE_IDS)
-def test_bwd_reference_matches_pallas(causal, dt, g):
-    q, k, v, do = _inputs(g)
-    o_ref, lse_ref = _jax_fwd(causal, dt, g)
+@pytest.mark.parametrize("causal,dt,g,d", CASES, ids=CASE_IDS)
+def test_bwd_reference_matches_pallas(causal, dt, g, d):
+    q, k, v, do = _inputs(g, d=d)
+    o_ref, lse_ref = _jax_fwd(causal, dt, g, d)
     # both sides differentiate the same forward: JAX's o, in the input dtype
     o_np = np.asarray(_j(o_ref, dt).astype(jnp.float32))
     refs = jpfa._flash_bwd(
         _j(q, dt), _j(k, dt), _j(v, dt), _j(o_np, dt), jnp.asarray(lse_ref),
-        _j(do, dt), None, causal, D ** -0.5, BLOCK, BLOCK,
+        _j(do, dt), None, causal, d ** -0.5, BLOCK, BLOCK,
     )
     outs = tfa.flash_bwd(
         _t(q, dt), _t(k, dt), _t(v, dt), _t(o_np, dt), torch.tensor(lse_ref),
-        _t(do, dt), None, causal, D ** -0.5, BLOCK, BLOCK,
+        _t(do, dt), None, causal, d ** -0.5, BLOCK, BLOCK,
     )
     for name, out, ref in zip(("dq", "dk", "dv"), outs, refs):
         assert out.dtype == DTYPES[dt][1], name
         _close(out, np.asarray(ref.astype(jnp.float32)), dt, name, 5e-5)
 
 
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-def test_autograd_function_matches_jax_grad(causal):
+@pytest.mark.parametrize("causal,d", [(True, D), (False, D), (True, 96)],
+                         ids=["causal", "full", "causal-D96"])
+def test_autograd_function_matches_jax_grad(causal, d):
     """The port's (B, S, N, D) entry point through its autograd Function
     against jax.grad of the JAX package's pallas_flash_attention (fp32)."""
-    q, k, v, do = (x.transpose(0, 2, 1, 3) for x in _inputs(2, seed=1))
+    q, k, v, do = (x.transpose(0, 2, 1, 3) for x in _inputs(2, seed=1, d=d))
 
     def jloss(q, k, v):
         o = jpfa.pallas_flash_attention(q, k, v, causal=causal, block_q=BLOCK, block_kv=BLOCK)
@@ -140,25 +145,26 @@ def test_autograd_function_matches_jax_grad(causal):
 SEGMENTS = np.repeat([0, 1, 2], [70, 60, 70])[None, :].astype(np.int32)
 
 
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-def test_segment_ids_reference_matches_pallas(causal):
+@pytest.mark.parametrize("causal,d", [(True, D), (False, D), (True, 96), (False, 96)],
+                         ids=["causal", "full", "causal-D96", "full-D96"])
+def test_segment_ids_reference_matches_pallas(causal, d):
     """Packed-document masking: the plain versions against JAX's kernels
     with segment_ids (fp32; unaligned document boundaries). The rows of the
     third document (from 130) see no key in the first 128-row kv block, so
     the m == -inf guards carry them through it."""
-    q, k, v, do = _inputs(2, seed=2)
+    q, k, v, do = _inputs(2, seed=2, d=d)
     jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
     seg = jnp.asarray(SEGMENTS)
-    jo, jlse = jpfa._flash_fwd(jq, jk, jv, seg, causal, D ** -0.5, BLOCK, BLOCK)
-    jgrads = jpfa._flash_bwd(jq, jk, jv, jo, jlse, jdo, seg, causal, D ** -0.5, BLOCK, BLOCK)
+    jo, jlse = jpfa._flash_fwd(jq, jk, jv, seg, causal, d ** -0.5, BLOCK, BLOCK)
+    jgrads = jpfa._flash_bwd(jq, jk, jv, jo, jlse, jdo, seg, causal, d ** -0.5, BLOCK, BLOCK)
     tq, tk, tv, tdo = (torch.as_tensor(x) for x in (q, k, v, do))
     tseg = torch.as_tensor(SEGMENTS)
-    to, tlse = tfa.flash_fwd(tq, tk, tv, tseg, causal, D ** -0.5, BLOCK, BLOCK)
+    to, tlse = tfa.flash_fwd(tq, tk, tv, tseg, causal, d ** -0.5, BLOCK, BLOCK)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=2e-5)
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=1e-5)
     tgrads = tfa.flash_bwd(
         tq, tk, tv, torch.tensor(np.asarray(jo)), torch.tensor(np.asarray(jlse)),
-        tdo, tseg, causal, D ** -0.5, BLOCK, BLOCK,
+        tdo, tseg, causal, d ** -0.5, BLOCK, BLOCK,
     )
     for name, t, j in zip(("dq", "dk", "dv"), tgrads, jgrads):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=5e-5, err_msg=name)
@@ -269,3 +275,16 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
         tfa.flash_fwd(meta, k.to("meta"), v.to("meta"), None, True, D ** -0.5)
     with pytest.raises(RuntimeError, match="cuda tensors"):
         tfa.flash_attention(meta, k.to("meta"), v.to("meta"))
+
+
+@pytest.mark.parametrize("d", [64, 96, 128, 80])
+def test_launch_path_takes_the_kernel_head_dims(d):
+    """The CUDA launch path's checks take head dims 64, 96 and 128 (bf16,
+    16-byte aligned) and raise on any other before a kernel is built."""
+    q, k, v = (torch.zeros(shape, dtype=torch.bfloat16) for shape in
+               ((1, 4, 16, d), (1, 2, 16, d), (1, 2, 16, d)))
+    if d in tfa.KERNEL_HEAD_DIMS:
+        assert set(tfa._checked(q, k, v)) == {"q", "k", "v"}
+    else:
+        with pytest.raises(ValueError, match="head_dim in"):
+            tfa._checked(q, k, v)

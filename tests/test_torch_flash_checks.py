@@ -8,7 +8,8 @@ at another kv chunking (the kernels' tiles differ from the plain
 versions' chunks in the same way); and it rejects both planted faults, one
 kv tile left out and the causal diagonal masked with col < row, in o and
 in each of dq, dk and dv, at a small causal shape (B 1, N 4, Nkv 2,
-S 192, D 64). The packed-document mode (segment ids) the same way: the
+S 192, D 64), and at D 96 the check rejects K1's scores without columns
+64-95. The packed-document mode (segment ids) the same way: the
 ids ``packed_segments`` makes have the boundaries, lengths and repeated
 ids the card's cases need, the bound counts only the attended pairs, and
 both planted segment faults (a boundary moved by one row; the segment
@@ -41,14 +42,22 @@ def test_flash_bound_at_train_shape(kernel, ms):
     assert by == "operations"
 
 
-def _inputs():
+@pytest.mark.parametrize("kernel, ms", [(1, 0.104277), (2, 0.156415), (3, 0.208553)])
+def test_flash_bound_at_the_neox20b_train_shape(kernel, ms):
+    """gpt-neox-20b's step: B 2, 64 / 64 heads, S 2048, D 96, causal."""
+    bound, by = cs.flash_bound(2, 64, 64, 2048, 96, True, kernel)
+    assert round(bound, 6) == ms
+    assert by == "operations"
+
+
+def _inputs(d=D):
     rng = np.random.default_rng(0)
 
     def draw(*shape):
         x = rng.standard_normal(shape).astype(np.float32)
         return torch.from_numpy(x).to(torch.bfloat16)
 
-    return draw(B, N, S, D), draw(B, NKV, S, D), draw(B, NKV, S, D), draw(B, N, S, D)
+    return draw(B, N, S, d), draw(B, NKV, S, d), draw(B, NKV, S, d), draw(B, N, S, d)
 
 
 def _forward(q, k, v, block_kv):
@@ -75,6 +84,24 @@ def test_agreement_rejects_planted_fault(fault):
     with planted:
         bad = _forward(q, k, v, 1024)[0]
     assert fa._mask is inner
+    faulty = (out.float() + bad.float() - ref.float()).to(out.dtype)
+    elem, rel = cs.flash_agreement(faulty, ref)
+    assert elem > 1.0 or rel > cs.TILE_REL_L2
+
+
+def test_agreement_rejects_scores_without_columns_64_to_95():
+    """The D 96 checks' planted fault: K1's scores from K's first 64 columns
+    alone (``columns_left_out``), at D 96; the sound forward at another
+    chunking passes."""
+    q, k, v, _ = _inputs(96)
+    scale = 96 ** -0.5
+    out = fa.flash_fwd_reference(q, k, v, None, True, scale, block_kv=64)[0]
+    ref = fa.flash_fwd_reference(q, k, v, None, True, scale, block_kv=1024)[0]
+    elem, rel = cs.flash_agreement(out, ref)
+    assert elem <= 1.0 and rel <= cs.TILE_REL_L2
+    cut = cs.columns_left_out(k)
+    assert torch.equal(cut[..., :64], k[..., :64]) and not cut[..., 64:].any()
+    bad = fa.flash_fwd_reference(q, cut, v, None, True, scale, block_kv=1024)[0]
     faulty = (out.float() + bad.float() - ref.float()).to(out.dtype)
     elem, rel = cs.flash_agreement(faulty, ref)
     assert elem > 1.0 or rel > cs.TILE_REL_L2

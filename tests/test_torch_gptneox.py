@@ -17,9 +17,10 @@ they count) and token ids go through both:
   ``use_paged_kernel``, the kernel's plain version here) against the JAX
   engines', token for token; draft-model speculation equals greedy; an
   int8 model serves JAX's quantized tree's streams;
-- head_dim 96 (gpt-neox-20b's): flash attention and the paged kernel
-  refuse it, naming the ROADMAP.md item; with both off a D 96 config
-  matches JAX's logits, loss and gradients and decodes its streams.
+- head_dim 96 (gpt-neox-20b's), which K1-K4 take in D 96 instances: a
+  D 96 config matches JAX's logits, loss and gradients, with flash
+  attention on too, and serves the JAX engines' streams with the paged
+  kernel on and off.
 
 The tp = 2 and pp = 2 cases of this family, LoRA's and BERT's run in one
 gloo spawn (``tests/torch_dist_workers.py`` ``family_worker``): this
@@ -83,7 +84,7 @@ CASES = {
     "tiny-neox-sequential": (
         dataclasses.replace(jneox.GPTNEOX_CONFIGS["tiny-neox"], parallel_residual=False),
         dataclasses.replace(tneox.GPTNEOX_CONFIGS["tiny-neox"], parallel_residual=False)),
-    # gpt-neox-20b's head_dim, at tiny width (flash and the paged kernel off)
+    # gpt-neox-20b's head_dim, at tiny width
     "tiny-neox-d96": (
         dataclasses.replace(jneox.GPTNEOX_CONFIGS["tiny-neox"], num_heads=2, num_kv_heads=2,
                             head_dim=96),
@@ -350,24 +351,43 @@ def test_speculative_and_int8_serving():
 
 
 def test_head_dim_96_refused_under_the_kernels_and_served_plain():
-    """gpt-neox-20b's head_dim 96: the flash kernels and the paged kernel
-    refuse it naming the ROADMAP.md item (on the CPU too: no path runs the
-    plain version in a kernel's place); with both off the D 96 model
-    decodes JAX's greedy stream."""
-    ids = torch.as_tensor(_batch()[0])
-    _, flash = _port("tiny-neox-d96", use_flash_attention=True)
-    with pytest.raises(NotImplementedError, match=r"head_dim 96 waits for ROADMAP.md queue B item B1"):
-        flash.loss(ids, ids)
-    jcfg, _ = _jax("tiny-neox-d96", max_seq_len=128)
+    """gpt-neox-20b's head_dim 96, which flash attention (K1-K3) and the
+    paged kernel (K4) take in D 96 instances of their own (the name records
+    the refusal this test held before they existed): with flash attention
+    on, the loss and gradients match the JAX model's with its flash path on;
+    with the paged kernel on (its plain version here, JAX's Pallas kernel
+    there), the paged engine's greedy streams equal the JAX paged engine's;
+    and with both off the model decodes JAX's greedy streams."""
+    ids, labels = _batch()
+    _, jm = _jax("tiny-neox-d96", use_flash_attention=True)
+    jloss, jgrads = jax.value_and_grad(jm.loss)(
+        _jax_params("tiny-neox-d96"), jnp.asarray(ids, jnp.int32), jnp.asarray(labels, jnp.int32))
+    cfg, flash = _port("tiny-neox-d96", use_flash_attention=True)
+    params = dict(flash.named_parameters())
+    loss = flash.loss(torch.as_tensor(ids), torch.as_tensor(labels))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    _assert_grads(dict(_leaves(tllama.params_to_jax(dict(zip(params, grads)), cfg))), jgrads)
+
+    jcfg, _ = _jax("tiny-neox-d96", max_seq_len=128, use_paged_kernel=True)
     jp = jax.tree.map(jnp.asarray, _jax_params("tiny-neox-d96", scale=True))
     cfg, model = _port("tiny-neox-d96", scale=True, use_paged_kernel=True)
-    eng = PagedServingEngine(InferenceEngine(cfg, model, max_batch=1, max_seq_len=64,
-                                             buckets=[8, 16]),
-                             GenerationConfig(max_new_tokens=4), PagedConfig(block_size=8,
-                                                                             num_blocks=16))
-    eng.submit(list(range(1, 7)))
-    with pytest.raises(NotImplementedError, match=r"paged-decode kernel \(K4\) at head_dim 96"):
-        eng.run_to_completion()
+    kw = dict(max_batch=2, max_seq_len=64, buckets=[8, 16, 32])
+    shared = _prompts(2, (12,))[0]
+    prompts = _prompts(3, (5, 20, 9)) + [shared + [7, 8], shared + [9]]
+    outs = []
+    jeng = JaxPagedServingEngine(JaxEngine(jcfg, jp, **kw), JaxGen(max_new_tokens=8),
+                                 JaxPagedConfig(block_size=8, num_blocks=64), precompile=False)
+    peng = PagedServingEngine(InferenceEngine(cfg, model, **kw), GenerationConfig(max_new_tokens=8),
+                              PagedConfig(block_size=8, num_blocks=64))
+    for e in (jeng, peng):
+        for p in prompts:
+            e.submit(p)
+        outs.append(e.run_to_completion())
+    assert outs[1] == outs[0]
+    assert peng.model.attention_paths["kernel"] > 0
+
+    jcfg, _ = _jax("tiny-neox-d96", max_seq_len=128)
     cfg, model = _port("tiny-neox-d96", scale=True)
     prompts = _prompts(4, (6, 11))
     kw = dict(max_batch=2, max_seq_len=64, buckets=[16, 32])

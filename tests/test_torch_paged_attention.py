@@ -9,7 +9,11 @@ the gathered rows); the JAX side runs its Pallas kernel in interpret mode
 bf16 before p.V and the plain version does not, so the two agree within
 2 bf16 ulps of the largest output, the tolerance chip_smoke.py holds the
 CUDA kernel to. The CUDA kernel itself runs only on the card;
-``chip_smoke.py`` holds it against the plain version there.
+``chip_smoke.py`` holds it against the plain version there. Besides the
+small head dim D = 32, cases at D = 96 (gpt-neox-20b's, which the three
+CUDA sources take in instances of their own) run t = 1 and t > 1 on bf16,
+int8 and fp8 pools in modes 3-6, and the route and launch checks take it
+as they take 64 and 128.
 """
 
 import dataclasses
@@ -51,14 +55,14 @@ B, N, NKV, D, BS, NB, W = 3, 8, 4, 32, 8, 40, 12  # GQA group G = 2
 KV_LIMIT = 64  # below the table capacity W * BS = 96
 
 
-def _case(t, seed):
+def _case(t, seed, d=D):
     """Pool, tables and positions with garbage everywhere a read must not
     look: random pool contents (the null block included) and random block
     ids (0 among them) in every table entry past a lane's frontier."""
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((B, t, N, D)).astype(np.float32)
-    kp = rng.standard_normal((NB, BS, NKV, D)).astype(np.float32)
-    vp = rng.standard_normal((NB, BS, NKV, D)).astype(np.float32)
+    q = rng.standard_normal((B, t, N, d)).astype(np.float32)
+    kp = rng.standard_normal((NB, BS, NKV, d)).astype(np.float32)
+    vp = rng.standard_normal((NB, BS, NKV, d)).astype(np.float32)
     tables = rng.integers(0, NB, size=(B, W)).astype(np.int32)
     # ragged: the first row, mid-block, and the last rows under KV_LIMIT
     positions = np.asarray([0, 17, KV_LIMIT - t], np.int32)
@@ -68,10 +72,13 @@ def _case(t, seed):
     return q, kp, vp, tables, positions
 
 
-@pytest.mark.parametrize("splits", [1, 4])
-@pytest.mark.parametrize("t", [1, 4])
-def test_matches_jax_kernel(t, splits):
-    q, kp, vp, tables, positions = _case(t, seed=10 * t + splits)
+MATCH_CASES = [(t, splits, d) for d in (D, 96) for t in (1, 4) for splits in (1, 4)]
+
+
+@pytest.mark.parametrize("t,splits,d", MATCH_CASES,
+                         ids=[f"{t}-{s}" + ("" if d == D else f"-D{d}") for t, s, d in MATCH_CASES])
+def test_matches_jax_kernel(t, splits, d):
+    q, kp, vp, tables, positions = _case(t, seed=10 * t + splits, d=d)
     q_in = q[:, 0] if t == 1 else q  # t == 1 is the 3-dim token-gen form
     ref = jax_paged_flash_decode(
         jnp.asarray(q_in), jnp.asarray(kp), jnp.asarray(vp),
@@ -193,7 +200,7 @@ def test_kernel_launch_rejects_what_it_cannot_take():
 LIVE_NB = 200
 
 
-def _live_case(t, seed):
+def _live_case(t, seed, d=D):
     """Lanes with every live count 0..t, plus a lane with none at row 0.
     Even lanes sit where their last live row is the first row of a pool
     block (a walk one row short would miss that block); odd lanes at
@@ -211,9 +218,9 @@ def _live_case(t, seed):
         else:
             positions[j] = rng.integers(0, KV_LIMIT - t + 1)
     positions[-1] = 0
-    q = rng.standard_normal((b, t, N, D)).astype(np.float32)
-    kp = rng.standard_normal((LIVE_NB, BS, NKV, D)).astype(np.float32)
-    vp = rng.standard_normal((LIVE_NB, BS, NKV, D)).astype(np.float32)
+    q = rng.standard_normal((b, t, N, d)).astype(np.float32)
+    kp = rng.standard_normal((LIVE_NB, BS, NKV, d)).astype(np.float32)
+    vp = rng.standard_normal((LIVE_NB, BS, NKV, d)).astype(np.float32)
     tables = rng.integers(0, LIVE_NB, size=(b, W)).astype(np.int32)
     ids = rng.permutation(np.arange(1, LIVE_NB))
     for j, p in enumerate(positions):
@@ -241,11 +248,11 @@ def _jax_kw(kw: dict) -> dict:
     return {k: _jax(v) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
 
 
-def _live_run(t, seed, pool, splits):
+def _live_run(t, seed, pool, splits, d=D):
     """(the port's output, JAX's interpret-mode kernel output, the case
     as torch tensors), fp32 q, a MASK_POOLS pool."""
     q, kp, vp, tables, positions, live = (
-        torch.as_tensor(x) for x in _live_case(t, seed)
+        torch.as_tensor(x) for x in _live_case(t, seed, d)
     )
     kp, vp, scales = _mask_pool(kp, vp, pool)
     kw = dict(kv_limit=KV_LIMIT, num_splits=splits)
@@ -257,14 +264,18 @@ def _live_run(t, seed, pool, splits):
     return out, np.asarray(ref), (q, kp, vp, tables, positions, live, scales)
 
 
-@pytest.mark.parametrize("splits", [1, 4])
-@pytest.mark.parametrize("pool", MASK_POOLS)
-@pytest.mark.parametrize("t", [4, 8, 16])
-def test_row_live_matches_jax_kernel(t, pool, splits):
+LIVE_CASES = [(t, pool, splits, D) for t in (4, 8, 16) for pool in MASK_POOLS
+              for splits in (1, 4)] + [(8, pool, 4, 96) for pool in MASK_POOLS]
+
+
+@pytest.mark.parametrize("t,pool,splits,d", LIVE_CASES,
+                         ids=[f"{t}-{p}-{s}" + ("" if d == D else f"-D{d}")
+                              for t, p, s, d in LIVE_CASES])
+def test_row_live_matches_jax_kernel(t, pool, splits, d):
     """Mode 4 against JAX's interpret-mode kernel on whole outputs, padding
     rows included, fp32 within 1e-5; a lane with no live row at row 0 sees
     nothing and gives 0 in both."""
-    out, ref, _ = _live_run(t, 100 + t, pool, splits)
+    out, ref, _ = _live_run(t, 100 + t, pool, splits, d)
     assert out.shape == ref.shape
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
     assert not out[-1].any() and not ref[-1].any()
@@ -340,10 +351,10 @@ def _jax(x: torch.Tensor):
     return jnp.asarray(x.numpy())
 
 
-def _quantized_case(t, seed, name, q_dtype=torch.float32):
+def _quantized_case(t, seed, name, q_dtype=torch.float32, d=D):
     """_case's garbage-filled tables with the pool quantized by the ported
     kv_quantize: (q, (k, v, k_scale, v_scale), tables, positions)."""
-    q, kp, vp, tables, positions = _case(t, seed)
+    q, kp, vp, tables, positions = _case(t, seed, d)
     qdt = kv.KV_CACHE_DTYPES[name]
     kq, ks = kv.kv_quantize(torch.as_tensor(kp), qdt)
     vq, vs = kv.kv_quantize(torch.as_tensor(vp), qdt)
@@ -387,13 +398,21 @@ def test_quantized_matches_jax_kernel(name, mxu, t, splits):
     np.testing.assert_allclose(out, ref, atol=2e-5)
 
 
-@pytest.mark.parametrize("mxu", [False, True], ids=["mode3", "mode6"])
-@pytest.mark.parametrize("name", QDTYPES)
-def test_quantized_bf16_matches_jax_kernel(name, mxu):
+QUANT_BF16_CASES = [(name, mxu, t, d) for name in QDTYPES for mxu in (False, True)
+                    for t, d in ((4, D), (1, 96), (4, 96))]
+
+
+@pytest.mark.parametrize(
+    "name,mxu,t,d", QUANT_BF16_CASES,
+    ids=[f"{n}-mode{6 if m else 3}" + ("" if d == D else f"-t{t}-D{d}")
+         for n, m, t, d in QUANT_BF16_CASES])
+def test_quantized_bf16_matches_jax_kernel(name, mxu, t, d):
     """bf16 q: dequantized K/V rounded to bf16 on both sides; within 2 bf16
     ulps of the largest output (the softmax weights are rounded on the
     JAX side only)."""
-    q, pool, tables, positions = _quantized_case(4, 5, name, torch.bfloat16)
+    q, pool, tables, positions = _quantized_case(t, 5, name, torch.bfloat16, d)
+    if t == 1:
+        q = q[:, 0]  # the 3-dim token-gen form
     out, ref = _run_both(q, pool, tables, positions, 4, mxu)
     assert np.abs(out - ref).max() <= _bf16_band(ref)
 
@@ -622,16 +641,21 @@ def _chain_bits(b, t):
     return _tree_bits(np.broadcast_to(np.maximum(np.arange(t) - 1, 0), (b, t)).copy())
 
 
-@pytest.mark.parametrize("live", [False, True], ids=["all-rows", "row_live"])
-@pytest.mark.parametrize("pool", MASK_POOLS)
-@pytest.mark.parametrize("t", [5, 9])
-def test_tree_bits_matches_jax_kernel(t, pool, live):
+TREE_CASES = [(t, pool, live, D) for t in (5, 9) for pool in MASK_POOLS
+              for live in (False, True)] + [(9, pool, True, 96) for pool in MASK_POOLS]
+
+
+@pytest.mark.parametrize(
+    "t,pool,live,d", TREE_CASES,
+    ids=[f"{t}-{p}-{'row_live' if lv else 'all-rows'}" + ("" if d == D else f"-D{d}")
+         for t, p, lv, d in TREE_CASES])
+def test_tree_bits_matches_jax_kernel(t, pool, live, d):
     """Mode 5 against JAX's interpret-mode kernel on random branching trees
     over _live_case's lanes (row_live's padding rows included), fp32 q, a
     MASK_POOLS pool: whole outputs within 1e-5 (summation order)."""
     rng = np.random.default_rng(300 + t)
     q, kp, vp, tables, positions, row_live = (
-        torch.as_tensor(x) for x in _live_case(t, 300 + t)
+        torch.as_tensor(x) for x in _live_case(t, 300 + t, d)
     )
     bits = torch.as_tensor(_tree_bits(_random_parents(rng, len(row_live), t)))
     kp, vp, scales = _mask_pool(kp, vp, pool)
@@ -771,6 +795,17 @@ ROUTES = [
     (torch.bfloat16, 8, 4, 32, "split"),     # a head_dim neither source takes
     (torch.int8, 8, 4, 32, "split"),
     (torch.float8_e4m3fn, 1, 4, 32, "split"),
+    # head_dim 96 (gpt-neox-20b, G 1) routes as 64 and 128 do, every payload
+    (torch.bfloat16, 1, 1, 96, "t1"),
+    (torch.int8, 1, 1, 96, "t1"),
+    (torch.float8_e4m3fn, 1, 1, 96, "t1"),
+    (torch.float8_e5m2, 1, 8, 96, "t1"),
+    (torch.bfloat16, 8, 1, 96, "tile"),
+    (torch.int8, 8, 1, 96, "tile"),
+    (torch.float8_e4m3fn, 128, 1, 96, "tile"),  # 128 rows, the widest tile
+    (torch.bfloat16, 256, 1, 96, "split"),     # the chunked serve's 256-token chunks
+    (torch.int8, 256, 1, 96, "split"),
+    (torch.bfloat16, 1, 9, 96, "split"),       # G past T1_MAX_GROUP
 ]
 
 
@@ -782,7 +817,7 @@ def test_kernel_route(dtype, t, g, d, want):
 
 def _launch_case(t, pool="bf16", b=2, n=8, nkv=2, d=64, nb=6, w=4):
     """CPU tensors that pass every check of the CUDA launch path: bf16 q,
-    16-row blocks, head_dim 64, G = 4."""
+    16-row blocks, head_dim d (64 unless asked), G = 4."""
     rng = np.random.default_rng(t)
     q = torch.as_tensor(rng.standard_normal((b, t, n, d))).bfloat16()
     kp = torch.as_tensor(rng.standard_normal((nb, 16, nkv, d))).bfloat16()
@@ -856,19 +891,29 @@ LAUNCHES = [
     (40, "bf16", False, False, "auto", "split"),
     (40, "int8", False, False, "auto", "split"),
 ]
+# the same launches at head_dim 96, each source and payload
+LAUNCHES = [c + (64,) for c in LAUNCHES] + [
+    (1, "bf16", False, False, "auto", "t1", 96),
+    (1, "fp8_e4m3", False, False, "auto", "t1", 96),
+    (4, "int8", True, False, "auto", "tile", 96),
+    (4, "fp8_e5m2", False, True, "auto", "tile", 96),
+    (4, "bf16", False, False, "split", "split", 96),
+    (40, "bf16", False, False, "auto", "split", 96),
+    (40, "int8", False, False, "auto", "split", 96),
+]
 
 
 @pytest.mark.parametrize(
-    "t,pool,live,tree,kernel,source", LAUNCHES,
+    "t,pool,live,tree,kernel,source,d", LAUNCHES,
     ids=[f"t{c[0]}-{c[1]}{'-live' if c[2] else ''}{'-tree' if c[3] else ''}-{c[4]}"
-         for c in LAUNCHES])
-def test_launch_calls_the_routed_entry(fake_entries, t, pool, live, tree, kernel, source):
+         + ("" if c[6] == 64 else f"-d{c[6]}") for c in LAUNCHES])
+def test_launch_calls_the_routed_entry(fake_entries, t, pool, live, tree, kernel, source, d):
     """_launch hands the routed C entry point the geometry's ints, then the
     payload kind and quant_mxu (t1 takes no t and no blocks per split) and
     ticks tile_launches or t1_launches for its own source only; row_live and
     tree_bits launches are counted as before, whichever source takes
     them."""
-    args, scales = _launch_case(t, pool)
+    args, scales = _launch_case(t, pool, d=d)
     b = args[0].shape[0]
     kw = dict(scales)
     if live:
@@ -879,9 +924,9 @@ def test_launch_calls_the_routed_entry(fake_entries, t, pool, live, tree, kernel
     assert out.shape == args[0].shape and out.dtype == torch.bfloat16
     mode = (pa.KV_KINDS[args[1].dtype], 0)
     want = {
-        "tile": (b, t, 8, 2, 64, 16, 4, 3, 2, 2) + mode,
-        "split": (b, t, 8, 2, 64, 16, 4, 3, 2, 2) + mode,
-        "t1": (b, 8, 2, 64, 16, 4, 3, 2) + mode,
+        "tile": (b, t, 8, 2, d, 16, 4, 3, 2, 2) + mode,
+        "split": (b, t, 8, 2, d, 16, 4, 3, 2, 2) + mode,
+        "t1": (b, 8, 2, d, 16, 4, 3, 2) + mode,
     }[source]
     assert [(s, i) for s, i, _ in fake_entries] == [(source, want)]
     assert pa.launches.count == 1
